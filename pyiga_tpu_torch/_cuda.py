@@ -1,0 +1,144 @@
+"""Build, load and call the package's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled at first use by one ``nvcc`` invocation into a
+shared library with a plain C interface, loaded with :mod:`ctypes`.  The
+library lands in ``build/pyiga_tpu_torch/`` beside the package, named by a
+hash of the sources and flags, so an edit rebuilds and an unchanged tree
+reuses the library.  Nothing is compiled or loaded at import time: this
+module imports on machines without a GPU or a CUDA toolkit, where the
+kernel wrappers run their plain PyTorch versions on CPU tensors.
+
+Every C entry returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on a nonzero code.  Each wrapper counts its launches
+in :data:`LAUNCHES` (a plain dict of integers), so a run can show that it
+went through the kernels.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+SRC_DIR = Path(__file__).resolve().parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / 'pyiga_tpu_torch'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES = {'fields': 0, 'stage': 0, 'fold': 0,
+            'flat_banded_f64': 0, 'flat_banded_f32': 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    'pyiga_stiff_fields_f64': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
+    'pyiga_stage_f64': (_P, _P, _P, _I, _L, _I, _P),
+    'pyiga_fold_f64': (_P, _P, _I, _P, _I, _L, _I, _P),
+    'pyiga_flat_banded_f64': (_P, _P, _P, _P, _I, _L, _L, _P),
+    'pyiga_flat_banded_f32': (_P, _P, _P, _P, _I, _L, _L, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+# what the last build reported: library path, seconds, nvcc's output
+BUILD_INFO = {}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _sources():
+    return sorted(SRC_DIR.glob('*.cu')) + sorted(SRC_DIR.glob('*.cuh'))
+
+
+def _nvcc():
+    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH')
+    if home and (Path(home) / 'bin' / 'nvcc').exists():
+        return str(Path(home) / 'bin' / 'nvcc')
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    default = Path('/usr/local/cuda/bin/nvcc')
+    if default.exists():
+        return str(default)
+    raise RuntimeError('nvcc not found (set CUDA_HOME): the CUDA kernels '
+                       'are built from csrc/ at first use on a GPU machine')
+
+
+def build():
+    """Compile ``csrc/*.cu`` into the hashed shared library unless it
+    exists; returns its path.  Records the build in :data:`BUILD_INFO`."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    lib = BUILD_DIR / ('libpyiga_tpu_torch_%s.so' % h.hexdigest()[:16])
+    if lib.exists():
+        BUILD_INFO.update(path=str(lib), seconds=0.0, log='(cached)')
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+           *[str(p) for p in _sources() if p.suffix == '.cu']]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError('nvcc failed (%d):\n%s\n%s'
+                           % (res.returncode, res.stdout, res.stderr))
+    os.replace(tmp, lib)
+    BUILD_INFO.update(path=str(lib), seconds=secs,
+                      log=(res.stdout + res.stderr).strip())
+    return lib
+
+
+def library():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+            lib.pyiga_error_string.argtypes = [ctypes.c_int]
+            lib.pyiga_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err, name):
+    if err != 0:
+        msg = library().pyiga_error_string(err).decode()
+        raise RuntimeError('%s: CUDA launch failed: %s (%d)' % (name, msg, err))
+
+
+def stream_of(t):
+    """Handle of PyTorch's current stream on `t`'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t, name, dtype, ndim):
+    """Check a kernel operand: CUDA, `dtype`, contiguous, rank `ndim`."""
+    if not t.is_cuda:
+        raise ValueError('%s must be a CUDA tensor' % name)
+    if t.dtype != dtype:
+        raise ValueError('%s must be %s, got %s' % (name, dtype, t.dtype))
+    if not t.is_contiguous():
+        raise ValueError('%s must be contiguous' % name)
+    if t.dim() != ndim:
+        raise ValueError('%s must have %d dims, got shape %s'
+                         % (name, ndim, tuple(t.shape)))

@@ -1,0 +1,68 @@
+# -*- coding: utf-8 -*-
+"""Multilevel (Kronecker) sparsity structures (host, numpy).
+
+The parts of :mod:`pyiga_tpu.mlmatrix` the assembly needs: per axis, the
+nonzero basis pairs ``bidx`` of the 1D pattern, the transpose index map,
+and :class:`MLStructure` over a tensor-product space.
+"""
+
+import numpy as np
+
+
+def compute_sparsity_ij(kv1, kv2):
+    """``N x 2`` array of pairs (i, j) such that B-spline `i` of `kv2` (rows)
+    and B-spline `j` of `kv1` (columns) have overlapping support — the 1D
+    stiffness sparsity pattern.  Ordered row-major."""
+    ms1 = kv1.mesh_support_idx_all()    # columns
+    ms2 = kv2.mesh_support_idx_all()    # rows
+    n2 = ms2.shape[0]
+    # for row i: columns j with ms1[j,1] > ms2[i,0] and ms1[j,0] < ms2[i,1]
+    j_start = np.searchsorted(ms1[:, 1], ms2[:, 0], side='right')
+    j_end = np.searchsorted(ms1[:, 0], ms2[:, 1], side='left')
+    j_end = np.maximum(j_end, j_start)
+    counts = j_end - j_start
+    I = np.repeat(np.arange(n2), counts)
+    J = np.concatenate([np.arange(a, b) for a, b in zip(j_start, j_end)]) \
+        if n2 > 0 else np.empty(0, dtype=np.int64)
+    return np.column_stack((I, J)).astype(np.uint32)
+
+
+def transpose_idx_for_bidx(bidx):
+    """For each entry s of `bidx` (pairs over a square block), the index of
+    the transposed pair (j, i) in `bidx`."""
+    n = int(bidx.max()) + 1 if len(bidx) else 0
+    keys = bidx[:, 0].astype(np.int64) * n + bidx[:, 1]
+    tkeys = bidx[:, 1].astype(np.int64) * n + bidx[:, 0]
+    order = np.argsort(keys)
+    pos = np.searchsorted(keys[order], tkeys)
+    idx = order[pos]
+    if not np.array_equal(keys[idx], tkeys):
+        raise ValueError('bidx is not structurally symmetric')
+    return idx
+
+
+class MLStructure:
+    """Sparsity structure of an L-level block-structured matrix (the
+    sparsity of a Kronecker product of L sparse patterns).
+
+    Args:
+        bs: per-level block sizes ``((m_1, n_1), ..., (m_L, n_L))``.
+        bidx: per-level ``nnz_k x 2`` arrays of nonzero (i, j) positions.
+    """
+
+    def __init__(self, bs, bidx):
+        self.bs = tuple(tuple(b) for b in bs)
+        self.bidx = tuple(bidx)
+        if len(self.bs) != len(self.bidx):
+            raise ValueError('bs and bidx differ in length')
+        self.shape = (int(np.prod([b[0] for b in self.bs])),
+                      int(np.prod([b[1] for b in self.bs])))
+
+    @staticmethod
+    def from_kvs(kvs0, kvs1):
+        """Structure of a matrix over trial space `kvs0` / test space `kvs1`
+        (rows = test functions)."""
+        bs = tuple((kv1.numdofs, kv0.numdofs) for kv0, kv1 in zip(kvs0, kvs1))
+        bidx = tuple(compute_sparsity_ij(kv0, kv1)
+                     for kv0, kv1 in zip(kvs0, kvs1))
+        return MLStructure(bs, bidx)

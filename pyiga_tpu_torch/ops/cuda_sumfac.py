@@ -1,0 +1,286 @@
+# -*- coding: utf-8 -*-
+"""CUDA kernels of the sum-factorization assembly and the pipeline built
+on them (counterpart of :mod:`pyiga_tpu.ops.pallas_sumfac`).
+
+Three kernels (sources in ``csrc/sumfac.cu``), each beside its plain
+PyTorch version:
+
+* K1 :func:`fields` — geometry fields ``B_ab = W (J^-1 J^-T)_ab`` per
+  Gauss point, fusing the last-axis Jacobian contraction, the NURBS
+  quotient rule, det/inverse and the weight (``_fields_fused``);
+* K2 :func:`stage` — one contraction stage ``(K, R) x (M, K) -> (R, M)``
+  (``_stage_call``);
+* K3 :func:`fold` — the final stage of all terms summed into one output
+  written once (``_stage_call_fold``).
+
+Each wrapper dispatches on the device of its input: a CPU tensor runs the
+plain version, a CUDA tensor launches the kernel (and raises if it cannot);
+nothing falls back.  Chain convention (as on the TPU): every stage
+contracts the CURRENT leading axis and appends the band axis last, so a
+d-stage chain maps ``(K_1, ..., K_d)`` to ``(M_1, ..., M_d)`` without
+transposes.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _cuda
+from . import geom
+from .banded import flat_banded_from_padded_chain
+
+
+def _kernel_device(t, name):
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.is_cuda:
+        return True
+    if t.device.type == 'cpu':
+        return False
+    raise ValueError('%s: unsupported device %s' % (name, t.device))
+
+
+################################################################################
+# K1: geometry fields
+################################################################################
+
+def fields_plain(Y, T, w12, wL, nurbs):
+    """Plain PyTorch version of :func:`fields` (same inputs and output)."""
+    d, C = Y.shape[0], Y.shape[1]
+    Tv, Td = T[0], T[1]
+
+    def contract(t, c, tab):            # (Q12, nL) x (QL, nL) -> (Q12, QL)
+        return torch.tensordot(Y[t, c], tab, dims=([1], [1]))
+
+    jac = [[contract(min(k, d - 1), c, Td if k == d - 1 else Tv)
+            for k in range(d)] for c in range(C)]
+    if nurbs:
+        val = [contract(d - 1, c, Tv) for c in range(C)]
+        W = val[-1]
+        jac = [[(jac[c][k] * W - val[c] * jac[-1][k]) / (W * W)
+                for k in range(d)] for c in range(d)]
+    J = torch.stack([torch.stack(row) for row in jac])
+    det, inv = geom.det_and_inv(J)
+    W = w12[:, None] * wL[None, :] * torch.abs(det)
+    return torch.stack([W * sum(inv[a, m] * inv[b, m] for m in range(d))
+                        for a in range(d) for b in range(a, d)])
+
+
+def fields(Y, T, w12, wL, nurbs):
+    """K1: unique stiffness fields on the Gauss grid.
+
+    Args:
+        Y: ``(d, C, Q12, nL)`` stage-1/2 geometry partials
+            (:func:`geo_stage12`); ``C = d`` (B-spline) or ``d + 1``
+            (NURBS, weight last).
+        T: ``(2, QL, nL)`` last-axis value and derivative tables.
+        w12: ``(Q12,)`` product of the leading axes' Gauss weights.
+        wL: ``(QL,)`` last-axis Gauss weights.
+        nurbs: whether `Y` carries homogeneous NURBS components.
+
+    Returns ``(d(d+1)/2, Q12, QL)``: ``B_ab`` for ``a <= b`` row-major."""
+    if not _kernel_device(Y, 'fields'):
+        return fields_plain(Y, T, w12, wL, nurbs)
+    f64 = torch.float64
+    _cuda.require(Y, 'Y', f64, 4)
+    _cuda.require(T, 'T', f64, 3)
+    _cuda.require(w12, 'w12', f64, 1)
+    _cuda.require(wL, 'wL', f64, 1)
+    d, C, Q12, nL = Y.shape
+    QL = T.shape[1]
+    if d not in (2, 3) or C != d + int(bool(nurbs)):
+        raise ValueError('fields: need d in (2, 3) and C = d (+1 for NURBS)'
+                         ', got d=%d C=%d' % (d, C))
+    if T.shape != (2, QL, nL) or w12.shape != (Q12,) or wL.shape != (QL,):
+        raise ValueError('fields: shapes Y %s, T %s, w12 %s, wL %s disagree'
+                         % (tuple(Y.shape), tuple(T.shape),
+                            tuple(w12.shape), tuple(wL.shape)))
+    out = torch.empty((d * (d + 1) // 2, Q12, QL), dtype=f64, device=Y.device)
+    with torch.cuda.device(Y.device):
+        err = _cuda.library().pyiga_stiff_fields_f64(
+            Y.data_ptr(), T.data_ptr(), w12.data_ptr(), wL.data_ptr(),
+            out.data_ptr(), d, int(bool(nurbs)), Q12, QL, nL,
+            _cuda.stream_of(Y))
+    _cuda.check(err, 'fields')
+    _cuda.LAUNCHES['fields'] += 1
+    return out
+
+
+################################################################################
+# K2: one contraction stage
+################################################################################
+
+def stage_plain(X, T):
+    """Plain PyTorch version of :func:`stage`."""
+    return torch.tensordot(X, T, dims=([0], [1]))
+
+
+def stage(X, T):
+    """K2: ``out[r, m] = sum_k X[k, r] T[m, k]`` for ``X (K, R)`` and a
+    table ``T (M, K)``; returns ``(R, M)``, float64."""
+    if not _kernel_device(X, 'stage'):
+        return stage_plain(X, T)
+    _cuda.require(X, 'X', torch.float64, 2)
+    _cuda.require(T, 'T', torch.float64, 2)
+    K, R = X.shape
+    M = T.shape[0]
+    if T.shape[1] != K:
+        raise ValueError('stage: X %s and T %s disagree in K'
+                         % (tuple(X.shape), tuple(T.shape)))
+    out = torch.empty((R, M), dtype=torch.float64, device=X.device)
+    with torch.cuda.device(X.device):
+        err = _cuda.library().pyiga_stage_f64(
+            X.data_ptr(), T.data_ptr(), out.data_ptr(), K, R, M,
+            _cuda.stream_of(X))
+    _cuda.check(err, 'stage')
+    _cuda.LAUNCHES['stage'] += 1
+    return out
+
+
+################################################################################
+# K3: folded final stage
+################################################################################
+
+def fold_plain(xs, tables, term_idx):
+    """Plain PyTorch version of :func:`fold`."""
+    out = None
+    for X, i in zip(xs, term_idx):
+        Y = stage_plain(X, tables[i])
+        out = Y if out is None else out + Y
+    return out
+
+
+def fold(xs, tables, term_idx):
+    """K3: ``sum_t stage(xs[t], tables[term_idx[t]])`` as one ``(R, M)``
+    output written once; every ``xs[t]`` is ``(K, R)``, every table
+    ``(M, K)`` (deduplicated: `term_idx` maps terms to tables)."""
+    if len(xs) != len(term_idx):
+        raise ValueError('fold: %d fields but %d table indices'
+                         % (len(xs), len(term_idx)))
+    if not _kernel_device(xs[0], 'fold'):
+        return fold_plain(xs, tables, term_idx)
+    K, R = xs[0].shape
+    M = tables[0].shape[0]
+    for t, X in enumerate(xs):
+        _cuda.require(X, 'xs[%d]' % t, torch.float64, 2)
+        if X.shape != (K, R) or X.device != xs[0].device:
+            raise ValueError('fold: xs[%d] is %s on %s, expected %s on %s'
+                             % (t, tuple(X.shape), X.device, (K, R),
+                                xs[0].device))
+    for i, T in enumerate(tables):
+        _cuda.require(T, 'tables[%d]' % i, torch.float64, 2)
+        if T.shape != (M, K) or T.device != xs[0].device:
+            raise ValueError('fold: tables[%d] is %s, expected %s'
+                             % (i, tuple(T.shape), (M, K)))
+    n = len(xs)
+    xp = (ctypes.c_uint64 * n)(*[X.data_ptr() for X in xs])
+    tp = (ctypes.c_uint64 * n)(*[tables[i].data_ptr() for i in term_idx])
+    out = torch.empty((R, M), dtype=torch.float64, device=xs[0].device)
+    with torch.cuda.device(out.device):
+        err = _cuda.library().pyiga_fold_f64(
+            ctypes.cast(xp, ctypes.c_void_p), ctypes.cast(tp, ctypes.c_void_p),
+            n, out.data_ptr(), K, R, M, _cuda.stream_of(out))
+    _cuda.check(err, 'fold')
+    _cuda.LAUNCHES['fold'] += 1
+    return out
+
+
+################################################################################
+# Pipeline: geometry fields and the folded chain
+################################################################################
+
+def _run_stage(X, T):
+    """Contract the leading axis of `X` (any rank) with ``T (M, K)`` and
+    append the band axis last."""
+    K = X.shape[0]
+    out = stage(X.reshape(K, -1), T)
+    return out.reshape(tuple(X.shape[1:]) + (T.shape[0],))
+
+
+def geo_stage12(tables, coeffs, d):
+    """Stage-1/2 geometry-Jacobian contraction over the leading ``d - 1``
+    axes through K2 (counterpart of ``pallas_sumfac.geo_stage12_mxu``),
+    leaving the last coefficient axis open for K1.
+
+    Returns ``(Y, shape12)``: ``Y (d, C, Q12, n_last)`` where ``Y[t]`` has
+    the derivative table on axis ``t`` (``t = d - 1``: all values)."""
+    C, n_last = coeffs.shape[0], coeffs.shape[d]
+    shape12 = tuple(t.shape[1] for t in tables[:d - 1])
+    Q12 = int(np.prod(shape12))
+    # contraction axes leading, (C, n_last) flattened trailing
+    X0 = torch.movedim(coeffs, 0, d - 1)
+    X0 = X0.reshape(tuple(X0.shape[:d - 1]) + (C * n_last,))
+    Ys = []
+    for t in range(d):
+        X = X0
+        for k in range(d - 1):
+            X = _run_stage(X, tables[k][1 if k == t else 0].contiguous())
+        # (C * n_last, Q_1, .., Q_{d-1}) -> (C, Q12, n_last)
+        Ys.append(X.reshape(C, n_last, Q12).transpose(1, 2))
+    return torch.stack(Ys).contiguous(), shape12
+
+
+def stiffness_fields(geo_inputs):
+    """Stiffness coefficient fields ``B_ab = W (J^-1 J^-T)_ab`` through
+    K2 (geometry stages) and K1 (everything else).  `geo_inputs` holds
+    tensors: ``geo_tables_bsp`` or ``geo_tables_nurbs`` (per-axis
+    ``(2, Q_k, n_k)``), ``geo_coeffs`` and ``weights``.  Returns the
+    ``d*d`` term-field list in ``(a, b)`` row-major order (mirrored pairs
+    share one tensor), each on the Gauss grid."""
+    nurbs = 'geo_tables_nurbs' in geo_inputs
+    tables = geo_inputs['geo_tables_nurbs' if nurbs else 'geo_tables_bsp']
+    coeffs = geo_inputs['geo_coeffs']
+    weights = geo_inputs['weights']
+    d = len(tables)
+    if d < 2:
+        raise ValueError('stiffness_fields needs dimension 2 or 3')
+    Y, shape12 = geo_stage12(tables, coeffs, d)
+    w12 = geom.gauss_weight_field(weights[:d - 1]).reshape(-1).contiguous()
+    T = tables[d - 1][:2].contiguous()
+    out = fields(Y, T, w12, weights[d - 1].contiguous(), nurbs)
+    grid = shape12 + (T.shape[1],)
+    uniq, k = {}, 0
+    for a in range(d):
+        for b in range(a, d):
+            uniq[(a, b)] = out[k].reshape(grid)
+            k += 1
+    return [uniq[(min(a, b), max(a, b))] for a in range(d) for b in range(d)]
+
+
+def chain_folded(term_tables, fields_, last_idx):
+    """Sum over terms of full contraction chains, with every term's final
+    contraction folded into one K3 launch.  ``term_tables[t]`` is the list
+    of per-axis ``(M_k, Q_k)`` tables of term t, ``fields_[t]`` its field;
+    `last_idx` gives each term's deduplicated last-table slot.  Returns
+    ``(M_1, ..., M_d)``."""
+    flats, shape_mid = [], None
+    for tabs, F in zip(term_tables, fields_):
+        X = F
+        for T in tabs[:-1]:
+            X = _run_stage(X, T)
+        shape_mid = tuple(X.shape[1:])
+        flats.append(X.reshape(X.shape[0], -1))
+    tables, slot = [], {}
+    for tabs, i in zip(term_tables, last_idx):
+        if i not in slot:
+            slot[i] = len(tables)
+            tables.append(tabs[-1])
+    out = fold(flats, tables, [slot[i] for i in last_idx])
+    return out.reshape(shape_mid + (out.shape[1],))
+
+
+def assemble_flat_banded(term_tables, fields_, fold_plan, bws, ns, last_idx):
+    """Fused solver-layout assembly (counterpart of
+    ``pallas_sumfac.assemble_flat_banded_pair_pallas``, in f64): every plan
+    term chains into ONE accumulator, then the flat matvec layout
+    ``(C, F)`` falls out of two box slices per band combo
+    (:func:`~pyiga_tpu_torch.ops.banded.flat_banded_from_padded_chain`).
+
+    `term_tables` / `fields_` / `last_idx` are aligned with `fold_plan`
+    positions.  With mirrored terms present the caller must prescale the
+    direct terms' first table by 0.5: the two slices then evaluate
+    direct + sym + sym^T (each direct term is symmetric, so half of it
+    arrives from each slice)."""
+    any_mirror = any(m for _t, m in fold_plan)
+    Z = chain_folded(term_tables, fields_, last_idx)
+    return flat_banded_from_padded_chain(Z, bws, ns, add_transpose=any_mirror)

@@ -1,0 +1,125 @@
+# -*- coding: utf-8 -*-
+"""Geometry fields on tensor-product Gauss grids (port of
+:mod:`pyiga_tpu.ops.geom`, float64 only — the two-float ``*_df``
+variants exist for the TPU's missing f64 and are not ported).
+
+Layout: component axes lead, grid axes trail — values ``(C, Q_1, ..., Q_d)``,
+Jacobians ``(C, sdim, Q_1, ..., Q_d)``.  Everything is in *level order*:
+axis k of the grid belongs to ``kvs[k]``, and :func:`geo_eval_tables`
+reverses the geometry's XYZ components into that order so that Jacobians
+are square matrices in one consistent ordering (determinants are invariant
+under the simultaneous row/column reversal).
+
+These plain tensor functions serve the fast-diagonalization coefficient
+means and the reference path; the assembly's own fields come from kernel
+K1 (:func:`~pyiga_tpu_torch.ops.cuda_sumfac.fields`).
+"""
+
+import numpy as np
+import torch
+
+from .. import geometry
+from .basis import dense_collocation_tables
+
+
+def geo_eval_tables(geo, grids, numderiv=1):
+    """Host-side setup: dense per-axis basis tables of the geometry space on
+    the given grids, plus the (homogeneous, level-ordered, component-leading)
+    coefficients.
+
+    Returns ``(tables, coeffs, is_nurbs)`` where tables[k] has shape
+    ``(numderiv+1, Q_k, n_k)`` and coeffs has shape ``(C, n_1, ..., n_d)``
+    (numpy float64)."""
+    if isinstance(geo, geometry.NurbsFunc):
+        coeffs, is_nurbs = geo.coeffs, True      # homogeneous incl. weight
+    elif isinstance(geo, geometry.BSplineFunc):
+        coeffs, is_nurbs = geo.coeffs, False
+        if coeffs.ndim == geo.sdim:              # scalar-valued: add axis
+            coeffs = coeffs[..., None]
+    else:
+        raise TypeError('geometry must be a BSplineFunc or NurbsFunc')
+    tables = [np.ascontiguousarray(B.swapaxes(-2, -1))     # (nd+1, Q, n)
+              for B in dense_collocation_tables(geo.kvs, grids, numderiv)]
+    # reverse vector components into level order (weight stays last)
+    if is_nurbs:
+        coeffs = np.concatenate(
+            (coeffs[..., -2::-1], coeffs[..., -1:]), axis=-1)
+    else:
+        coeffs = coeffs[..., ::-1]
+    coeffs = np.ascontiguousarray(np.moveaxis(coeffs, -1, 0))
+    return tables, coeffs, is_nurbs
+
+
+def tp_apply(tables, coeffs, lead=0):
+    """Contract per-axis tables ``T_k (Q_k, n_k)`` against axes
+    ``lead..lead+d-1`` of `coeffs`; the contracted axes become the trailing
+    grid axes ``(Q_1, ..., Q_d)`` in order."""
+    X = coeffs
+    for k, T in enumerate(tables):
+        X = torch.movedim(torch.tensordot(T, X, dims=([1], [lead + k])),
+                          0, lead + k)
+    return X
+
+
+def geo_jacobian_field(tables, coeffs, is_nurbs, sdim):
+    """Values and Jacobians of the geometry on the TP grid.
+
+    `tables` are the per-axis ``(nd+1, Q_k, n_k)`` tensors of
+    :func:`geo_eval_tables`.  Returns ``(val, jac)`` with shapes
+    ``(dim,) + grid`` and ``(dim, sdim) + grid``, level order."""
+    val_tabs = [t[0] for t in tables]
+    der_tabs = [t[1] for t in tables]
+    val = tp_apply(val_tabs, coeffs, lead=1)        # (C, Q...)
+    jac = torch.stack(
+        [tp_apply([der_tabs[j] if j == k else val_tabs[j]
+                   for j in range(sdim)], coeffs, lead=1)
+         for k in range(sdim)], dim=1)              # (C, sdim, Q...)
+    if is_nurbs:
+        V, W = val[:-1], val[-1:]
+        Vj, Wj = jac[:-1], jac[-1:]
+        val = V / W
+        jac = (Vj * W[:, None] - V[:, None] * Wj) / (W[:, None] ** 2)
+    return val, jac
+
+
+def det_and_inv(J):
+    """Determinant and inverse of small (1x1/2x2/3x3) matrices stored
+    component-leading: ``J (d, d) + grid``.  Explicit adjugate formulas.
+
+    Returns ``(det, inv)`` with shapes ``grid`` and ``(d, d) + grid``."""
+    d = J.shape[0]
+    if d == 1:
+        det = J[0, 0]
+        return det, (1.0 / det)[None, None]
+    if d == 2:
+        a, b = J[0, 0], J[0, 1]
+        c, e = J[1, 0], J[1, 1]
+        det = a * e - b * c
+        inv = torch.stack([torch.stack([e, -b]), torch.stack([-c, a])]) / det
+        return det, inv
+    if d == 3:
+        c00 = J[1, 1] * J[2, 2] - J[1, 2] * J[2, 1]
+        c01 = J[1, 2] * J[2, 0] - J[1, 0] * J[2, 2]
+        c02 = J[1, 0] * J[2, 1] - J[1, 1] * J[2, 0]
+        det = J[0, 0] * c00 + J[0, 1] * c01 + J[0, 2] * c02
+        adj = torch.stack([
+            torch.stack([c00,
+                         J[0, 2] * J[2, 1] - J[0, 1] * J[2, 2],
+                         J[0, 1] * J[1, 2] - J[0, 2] * J[1, 1]]),
+            torch.stack([c01,
+                         J[0, 0] * J[2, 2] - J[0, 2] * J[2, 0],
+                         J[0, 2] * J[1, 0] - J[0, 0] * J[1, 2]]),
+            torch.stack([c02,
+                         J[0, 1] * J[2, 0] - J[0, 0] * J[2, 1],
+                         J[0, 0] * J[1, 1] - J[0, 1] * J[1, 0]]),
+        ])
+        return det, adj / det
+    raise NotImplementedError('det_and_inv only implemented for d <= 3')
+
+
+def gauss_weight_field(weights):
+    """Outer product of per-axis Gauss weight vectors over the TP grid."""
+    W = weights[0]
+    for w in weights[1:]:
+        W = W[..., None] * w
+    return W

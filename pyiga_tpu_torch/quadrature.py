@@ -1,0 +1,30 @@
+"""Iterated Gauss-Legendre quadrature over knot spans (host, numpy).
+
+A copy of :mod:`pyiga_tpu.quadrature`'s tensor rule: per-interval affine
+mapping of the ``numpy.polynomial.legendre.leggauss`` nodes, points
+ordered interval-major.
+"""
+
+import numpy as np
+
+
+def gauss_rule(deg, a, b):
+    """Nodes and weights of the `deg`-point Gauss-Legendre rule on each of the
+    intervals ``(a[i], b[i])``.  Returns flat ``(nodes, weights)`` arrays."""
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    mid, hw = 0.5 * (a + b), 0.5 * (b - a)
+    x, w = np.polynomial.legendre.leggauss(deg)
+    nodes = np.outer(hw, x) + mid[:, None]
+    weights = np.outer(hw, w)
+    return nodes.ravel(), weights.ravel()
+
+
+def make_iterated_quadrature(intervals, nqp):
+    """Gauss rule with `nqp` points per span over consecutive breakpoints."""
+    return gauss_rule(nqp, intervals[:-1], intervals[1:])
+
+
+def make_tensor_quadrature(meshes, nqp):
+    """Tensor-product iterated Gauss rule: per-axis ``(grid, weights)`` tuples."""
+    gauss = tuple(make_iterated_quadrature(mesh, nqp) for mesh in meshes)
+    return tuple(g[0] for g in gauss), tuple(g[1] for g in gauss)
