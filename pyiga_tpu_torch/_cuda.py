@@ -4,9 +4,12 @@ The sources are compiled at first use by one ``nvcc`` invocation into a
 shared library with a plain C interface, loaded with :mod:`ctypes`.  The
 library lands in ``build/pyiga_tpu_torch/`` beside the package, named by a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
-reuses the library.  Nothing is compiled or loaded at import time: this
-module imports on machines without a GPU or a CUDA toolkit, where the
-kernel wrappers run their plain PyTorch versions on CPU tensors.
+reuses the library.  Kernels generated at run time (one per variational
+form, :mod:`pyiga_tpu_torch.ops.cuda_vform`) go through
+:func:`build_generated` into libraries of their own under ``gen/``.
+Nothing is compiled or loaded at import time: this module imports on
+machines without a GPU or a CUDA toolkit, where the kernel wrappers run
+their plain PyTorch versions on CPU tensors.
 
 Every C entry returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a nonzero code.  Each wrapper counts its launches
@@ -32,14 +35,15 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {'fields': 0, 'stage': 0, 'fold': 0,
-            'flat_banded_f64': 0, 'flat_banded_f32': 0}
+LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'stage': 0, 'fold': 0,
+            'flat_banded_f64': 0, 'flat_banded_f32': 0, 'vform_fields': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     'pyiga_stiff_fields_f64': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
+    'pyiga_geo_jac_fields_f64': (_P, _P, _P, _I, _I, _L, _I, _I, _P),
     'pyiga_stage_f64': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_fold_f64': (_P, _P, _I, _P, _I, _L, _I, _P),
     'pyiga_flat_banded_f64': (_P, _P, _P, _P, _I, _L, _L, _P),
@@ -50,6 +54,9 @@ _lock = threading.Lock()
 _lib = None
 # what the last build reported: library path, seconds, nvcc's output
 BUILD_INFO = {}
+# generated libraries: path -> loaded CDLL, and path -> build record
+_gen_libs = {}
+GEN_BUILDS = {}
 
 
 def reset_launches():
@@ -102,6 +109,48 @@ def build():
     BUILD_INFO.update(path=str(lib), seconds=secs,
                       log=(res.stdout + res.stderr).strip())
     return lib
+
+
+def build_generated(name, source):
+    """Compile a generated CUDA source into its own shared library and
+    load it (cached per process, and on disk across processes: an
+    unchanged source is never rebuilt).
+
+    The source is written to ``build/pyiga_tpu_torch/gen/`` under a name
+    hashed from the source and :data:`NVCC_FLAGS`, compiled with those
+    flags and loaded with ctypes; the caller declares its entry points.
+    A failed build raises with nvcc's output.  Records the build in
+    :data:`GEN_BUILDS` (library path -> seconds, nvcc's output)."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    h.update(source.encode())
+    stem = '%s_%s' % (name, h.hexdigest()[:16])
+    gen_dir = BUILD_DIR / 'gen'
+    lib = gen_dir / ('lib%s.so' % stem)
+    with _lock:
+        if str(lib) in _gen_libs:
+            return _gen_libs[str(lib)]
+        if lib.exists():
+            GEN_BUILDS[str(lib)] = dict(seconds=0.0, log='(cached)')
+        else:
+            gen_dir.mkdir(parents=True, exist_ok=True)
+            src = gen_dir / ('%s.cu' % stem)
+            src.write_text(source)
+            fd, tmp = tempfile.mkstemp(suffix='.so', dir=gen_dir)
+            os.close(fd)
+            t0 = time.perf_counter()
+            res = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, str(src)],
+                                 capture_output=True, text=True)
+            secs = time.perf_counter() - t0
+            if res.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError('nvcc failed on %s (%d):\n%s\n%s'
+                                   % (src, res.returncode, res.stdout,
+                                      res.stderr))
+            os.replace(tmp, lib)
+            GEN_BUILDS[str(lib)] = dict(seconds=secs,
+                                        log=(res.stdout + res.stderr).strip())
+        _gen_libs[str(lib)] = ctypes.CDLL(str(lib))
+        return _gen_libs[str(lib)]
 
 
 def library():

@@ -1,9 +1,9 @@
 # -*- coding: utf-8 -*-
 """B-spline knot vectors and vectorized basis evaluation (host, numpy).
 
-A copy of the parts of :mod:`pyiga_tpu.bspline` that the port's Poisson
-slice needs: :class:`KnotVector`, :func:`make_knots`, :func:`findspans`
-and :func:`active_deriv`.  Kept as numpy code (setup-time, tiny arrays)
+A copy of the parts of :mod:`pyiga_tpu.bspline` that the port needs:
+:class:`KnotVector`, :func:`make_knots`, :func:`findspans` and
+:func:`active_deriv`.  Kept as numpy code (setup-time, tiny arrays)
 and held equal to the original by ``tests/test_torch_host.py``.
 
 Conventions: knot vectors are open (first/last knot repeated ``p+1``
@@ -56,6 +56,12 @@ class KnotVector:
     def numspans(self):
         """Number of nonempty knot spans."""
         return self.mesh.size - 1
+
+    def support(self, j=None):
+        """Support interval of the whole space or of the ``j``-th B-spline."""
+        if j is None:
+            return (self.kv[0], self.kv[-1])
+        return (self.kv[j], self.kv[j + self.p + 1])
 
     def mesh_support_idx_all(self):
         """``(numdofs, 2)`` array: first and last mesh index of the

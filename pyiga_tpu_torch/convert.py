@@ -14,6 +14,7 @@ import torch
 from . import geometry
 from .bspline import KnotVector
 from .config import DTYPE, resolve_device
+from .mlmatrix import MLStructure
 from .ops.banded import flat_banded_data
 
 
@@ -61,3 +62,25 @@ def flat_banded(D, bws, ns, device=None, dtype=DTYPE):
     ``(C, F)`` layout on `device`."""
     D = flat_banded_data(np.array(D, dtype=np.float64), bws, ns)
     return D.to(device=resolve_device(device), dtype=dtype).contiguous()
+
+
+def vform_arrays(host_arrays, device=None):
+    """A VForm assembler's host arrays (``weights``, ``input:*``,
+    ``param:*``; numpy) as float64 tensors on `device`, the form the
+    port's coefficient fields take (add ``geo_val_lvl`` / ``geo_jac_lvl``
+    from :func:`~pyiga_tpu_torch.ops.cuda_sumfac.geometry_fields`)."""
+    device = resolve_device(device)
+
+    def dev(a):
+        return torch.as_tensor(np.array(a, dtype=np.float64), dtype=DTYPE,
+                               device=device)
+    return {k: [dev(w) for w in v] if k == 'weights' else dev(v)
+            for k, v in host_arrays.items()}
+
+
+def mlmatrix(mlm):
+    """A port :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix` from any compact
+    matrix exposing ``structure.bs``, ``structure.bidx`` and ``data``."""
+    S = MLStructure(mlm.structure.bs,
+                    [np.array(bx) for bx in mlm.structure.bidx])
+    return S.make_mlmatrix(data=np.array(mlm.data, dtype=np.float64))

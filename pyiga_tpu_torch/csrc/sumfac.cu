@@ -3,6 +3,7 @@
 // K1  stiff_fields_kernel  replaces pyiga_tpu/ops/pallas_sumfac.py
 //     `_fields_fused` (pallas_call at :1087, body
 //     `_make_stiff_fields_fused_kernel`).
+// K1  geo_jac_fields_kernel  replaces the same call site's kind='jac'.
 // K2  stage_kernel         replaces `_stage_call` (pallas_call at :353,
 //     bodies `_stage_kernel` / `_stage_kernel_acc`).
 // K3  fold_kernel          replaces `_stage_call_fold` (pallas_call at
@@ -148,6 +149,87 @@ PYIGA_EXPORT int pyiga_stiff_fields_f64(const double* Y, const double* T,
             Y, T, w12, wL, out, Q12, QL, nL);
     else
         return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------------------
+// K1, `jac` kind: physical geometry values and Jacobian, one thread per
+// Gauss point.  Replaces the same `_fields_fused` call site with
+// kind='jac' (`geo_jac_fields_pallas`, pallas_sumfac.py:1421; kernel body
+// `_make_stiff_fields_fused_kernel`, :979-1002), which feeds the generic
+// VForm coefficient fields.
+//
+// Inputs as stiff_fields_kernel (Y, T; no weights).  Output:
+// out (D + D*D, Q12, QL), rows 0..D-1 the physical values x_c (level
+// order), then J[c][k] = d x_c / d xi_k row-major; for NURBS the quotient
+// V / W and its quotient-rule Jacobian.  Bound: the D(D+1) coalesced
+// f64 writes per point; the last-axis contraction reads Y rows shared by
+// QL consecutive threads (L1) and keeps everything in registers.
+// --------------------------------------------------------------------------
+
+template <int D, bool NURBS>
+__global__ void geo_jac_fields_kernel(const double* __restrict__ Y,
+                                      const double* __restrict__ T,
+                                      double* __restrict__ out,
+                                      long long Q12, int QL, int nL) {
+    constexpr int C = D + (NURBS ? 1 : 0);
+    const long long N = Q12 * QL;
+    for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         g < N; g += (long long)gridDim.x * blockDim.x) {
+        const long long q12 = g / QL;
+        const int qL = (int)(g - q12 * QL);
+        const double* Tv = T + (long long)qL * nL;
+        const double* Td = T + ((long long)QL + qL) * nL;
+
+        double jac[C][D];
+        double val[C];
+        for (int c = 0; c < C; ++c) {
+            for (int k = 0; k < D; ++k) {
+                const int t = k < D - 1 ? k : D - 1;
+                const double* tab = k == D - 1 ? Td : Tv;
+                const double* y = Y + (((long long)t * C + c) * Q12 + q12) * nL;
+                double s = 0.0;
+                for (int j = 0; j < nL; ++j) s += tab[j] * y[j];
+                jac[c][k] = s;
+            }
+            const double* y = Y + (((long long)(D - 1) * C + c) * Q12 + q12) * nL;
+            double s = 0.0;
+            for (int j = 0; j < nL; ++j) s += Tv[j] * y[j];
+            val[c] = s;
+        }
+        if constexpr (NURBS) {
+            const double W = val[C - 1];
+            const double WW = W * W;
+            for (int c = 0; c < D; ++c)
+                for (int k = 0; k < D; ++k)
+                    jac[c][k] = (jac[c][k] * W - val[c] * jac[C - 1][k]) / WW;
+            for (int c = 0; c < D; ++c) val[c] = val[c] / W;
+        }
+        for (int c = 0; c < D; ++c) out[(long long)c * N + g] = val[c];
+        for (int c = 0; c < D; ++c)
+            for (int k = 0; k < D; ++k)
+                out[(long long)(D + c * D + k) * N + g] = jac[c][k];
+    }
+}
+
+PYIGA_EXPORT int pyiga_geo_jac_fields_f64(const double* Y, const double* T,
+                                          double* out, int d, int nurbs,
+                                          long long Q12, int QL, int nL,
+                                          void* stream) {
+    const int threads = 256;
+    const unsigned int grid = pyiga_grid_1d(Q12 * QL, threads);
+    cudaStream_t s = (cudaStream_t)stream;
+#define PYIGA_GEO_JAC(DD, NN)                                            \
+    geo_jac_fields_kernel<DD, NN><<<grid, threads, 0, s>>>(Y, T, out, Q12, \
+                                                            QL, nL)
+    if (d == 1 && nurbs) PYIGA_GEO_JAC(1, true);
+    else if (d == 1) PYIGA_GEO_JAC(1, false);
+    else if (d == 2 && nurbs) PYIGA_GEO_JAC(2, true);
+    else if (d == 2) PYIGA_GEO_JAC(2, false);
+    else if (d == 3 && nurbs) PYIGA_GEO_JAC(3, true);
+    else if (d == 3) PYIGA_GEO_JAC(3, false);
+    else return (int)cudaErrorInvalidValue;
+#undef PYIGA_GEO_JAC
     return (int)cudaGetLastError();
 }
 

@@ -4,16 +4,19 @@
 The parts of :mod:`pyiga_tpu.geometry` that the assembly needs: the
 function classes hold their knot vectors and control points, which
 :func:`~pyiga_tpu_torch.ops.geom.geo_eval_tables` turns into device
-inputs.  Conventions are the JAX package's: coefficient arrays are indexed
-in ZYX order (axis 0 belongs to the last coordinate), vector components
-trail; NURBS coefficients are stored premultiplied by the weights, which
-ride along as the last component (homogeneous coordinates).
+inputs, and evaluate on tensor grids (``grid_eval``, grid axes in ZYX
+order) for the host setup of input fields.  Conventions are the JAX
+package's: coefficient arrays are indexed in ZYX order (axis 0 belongs to
+the last coordinate), vector components trail; NURBS coefficients are
+stored premultiplied by the weights, which ride along as the last
+component (homogeneous coordinates).
 """
 
 import numpy as np
 
 from . import bspline
 from .bspline import KnotVector
+from .ops.basis import dense_basis_table
 
 
 def _prep_tp_coeffs(kvs, coeffs, sdim):
@@ -37,7 +40,34 @@ def _prep_tp_coeffs(kvs, coeffs, sdim):
     return coeffs, dim
 
 
-class BSplineFunc:
+def _tp_grid_eval(kvs, coeffs, gridaxes):
+    """Values of the tensor-product spline with `coeffs` on the grid
+    `gridaxes` (ZYX order); trailing coefficient axes are kept."""
+    if len(gridaxes) != len(kvs):
+        raise ValueError('grid has wrong dimension')
+    Y = np.asarray(coeffs, dtype=float)
+    for k, (kv, g) in enumerate(zip(kvs, gridaxes)):
+        B = dense_basis_table(kv, np.ravel(g), 0)[0]        # (n_k, Q_k)
+        Y = np.moveaxis(np.tensordot(B.T, Y, axes=(1, k)), 0, k)
+    return Y
+
+
+class _BaseGeoFunc:
+    """Base of the function classes: a function is a geometry-function
+    object (parametric input field) rather than a plain callable
+    (physical input field)."""
+
+    def __call__(self, *x):
+        """Evaluate at a single point (arguments in XYZ order)."""
+        coords = tuple(reversed(x))     # XYZ -> ZYX
+        singletons = tuple(i for i, c in enumerate(coords) if np.isscalar(c))
+        coords = tuple(np.atleast_1d(np.asarray(c, dtype=float))
+                       for c in coords)
+        y = self.grid_eval(coords).squeeze(axis=singletons)
+        return y.item() if y.shape == () else y
+
+
+class BSplineFunc(_BaseGeoFunc):
     """A function in a tensor-product B-spline basis: `kvs` is a tuple of
     `d` :class:`~pyiga_tpu_torch.bspline.KnotVector`; `coeffs` has its
     first `d` axes matching the per-axis dofs, trailing axes give the
@@ -50,8 +80,15 @@ class BSplineFunc:
         self.sdim = len(self.kvs)
         self.coeffs, self.dim = _prep_tp_coeffs(self.kvs, coeffs, self.sdim)
 
+    def output_shape(self):
+        return self.coeffs.shape[self.sdim:]
 
-class NurbsFunc:
+    def grid_eval(self, gridaxes):
+        """Evaluate on a tensor grid (axes in ZYX order)."""
+        return _tp_grid_eval(self.kvs, self.coeffs, gridaxes)
+
+
+class NurbsFunc(_BaseGeoFunc):
     """A function in a tensor-product NURBS basis.  With ``weights=None``
     the weights are the last vector component of `coeffs`; unless
     `premultiplied`, the control points are multiplied by the weights."""
@@ -62,7 +99,7 @@ class NurbsFunc:
         coeffs, dim = _prep_tp_coeffs(self.kvs, coeffs, self.sdim)
         if isinstance(dim, tuple):
             raise ValueError('tensor-valued NURBS functions not implemented')
-        isscalar = coeffs.ndim == self.sdim
+        isscalar = self._isscalar = coeffs.ndim == self.sdim
         homog = np.array(coeffs, dtype=float)
         if weights is None:
             if dim <= 1:
@@ -81,6 +118,20 @@ class NurbsFunc:
         if not premultiplied:
             homog[..., :-1] *= homog[..., -1:]
         self.coeffs = homog
+
+    def output_shape(self):
+        if self._isscalar:
+            return ()
+        shp = list(self.coeffs.shape[self.sdim:])
+        shp[-1] -= 1
+        return tuple(shp)
+
+    def grid_eval(self, gridaxes):
+        """Evaluate on a tensor grid (axes in ZYX order): the quotient of
+        the homogeneous components by the weight."""
+        vals = _tp_grid_eval(self.kvs, self.coeffs, gridaxes)
+        f = vals[..., :-1] / vals[..., -1:]
+        return np.squeeze(f, -1) if self._isscalar else f
 
 
 def bspline_quarter_annulus(r1=1.0, r2=2.0):

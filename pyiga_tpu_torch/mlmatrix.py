@@ -1,12 +1,18 @@
 # -*- coding: utf-8 -*-
-"""Multilevel (Kronecker) sparsity structures (host, numpy).
+"""Multilevel (Kronecker) sparsity structures and compact matrices (host,
+numpy).
 
 The parts of :mod:`pyiga_tpu.mlmatrix` the assembly needs: per axis, the
 nonzero basis pairs ``bidx`` of the 1D pattern, the transpose index map,
-and :class:`MLStructure` over a tensor-product space.
+:class:`MLStructure` over a tensor-product space, and :class:`MLMatrix`,
+the compact data tensor over a structure with its scipy expansion.  The
+device matvec on the same data is
+:func:`pyiga_tpu_torch.ops.mlmatvec.ml_matvec`.
 """
 
 import numpy as np
+import scipy.sparse
+import scipy.sparse.linalg
 
 
 def compute_sparsity_ij(kv1, kv2):
@@ -41,6 +47,21 @@ def transpose_idx_for_bidx(bidx):
     return idx
 
 
+def ml_nonzero(bidx, block_sizes):
+    """Global (row, col) indices of all nonzeros of a multilevel matrix,
+    in C order of the compact data tensor.
+
+    Args:
+        bidx: per-level ``nnz_k x 2`` index arrays.
+        block_sizes: per-level (rows, cols) block sizes.
+    """
+    I = J = np.zeros((), dtype=np.int64)
+    for bx, (m, n) in zip(bidx, block_sizes):
+        I = I[..., np.newaxis] * m + bx[:, 0].astype(np.int64)
+        J = J[..., np.newaxis] * n + bx[:, 1].astype(np.int64)
+    return I.ravel(), J.ravel()
+
+
 class MLStructure:
     """Sparsity structure of an L-level block-structured matrix (the
     sparsity of a Kronecker product of L sparse patterns).
@@ -66,3 +87,42 @@ class MLStructure:
         bidx = tuple(compute_sparsity_ij(kv0, kv1)
                      for kv0, kv1 in zip(kvs0, kvs1))
         return MLStructure(bs, bidx)
+
+    def make_mlmatrix(self, data):
+        """An :class:`MLMatrix` with compact `data` over this structure."""
+        return MLMatrix(self, data)
+
+    def nonzero(self):
+        """(rows, cols) arrays of all nonzeros, in C order of the data
+        tensor."""
+        return ml_nonzero(self.bidx, self.bs)
+
+
+class MLMatrix(scipy.sparse.linalg.LinearOperator):
+    """Compact multilevel matrix: an L-way dense data tensor (numpy) over
+    an :class:`MLStructure`, acting as a scipy LinearOperator on the
+    host."""
+
+    def __init__(self, structure, data):
+        self.structure = structure
+        self.datashape = tuple(len(bi) for bi in structure.bidx)
+        self.data = np.ascontiguousarray(data)
+        if self.data.shape != self.datashape:
+            raise ValueError('data has shape %s, expected %s'
+                             % (self.data.shape, self.datashape))
+        self._csr_cache = None
+        super().__init__(shape=structure.shape, dtype=self.data.dtype)
+
+    def asmatrix(self, format='csr'):
+        """Expand to a scipy sparse matrix."""
+        A = scipy.sparse.csr_matrix((self.data.ravel(), self.nonzero()),
+                                    shape=self.shape)
+        return A.asformat(format)
+
+    def _matvec(self, x):
+        if self._csr_cache is None:
+            self._csr_cache = self.asmatrix('csr')
+        return self._csr_cache.dot(x)
+
+    def nonzero(self):
+        return self.structure.nonzero()

@@ -7,7 +7,9 @@ PyTorch version:
 
 * K1 :func:`fields` — geometry fields ``B_ab = W (J^-1 J^-T)_ab`` per
   Gauss point, fusing the last-axis Jacobian contraction, the NURBS
-  quotient rule, det/inverse and the weight (``_fields_fused``);
+  quotient rule, det/inverse and the weight (``_fields_fused``); and
+  :func:`geo_jac_fields`, its ``jac`` kind: physical geometry values and
+  Jacobian for the generic VForm fields;
 * K2 :func:`stage` — one contraction stage ``(K, R) x (M, K) -> (R, M)``
   (``_stage_call``);
 * K3 :func:`fold` — the final stage of all terms summed into one output
@@ -106,6 +108,60 @@ def fields(Y, T, w12, wL, nurbs):
     return out
 
 
+def geo_jac_fields_plain(Y, T, nurbs):
+    """Plain PyTorch version of :func:`geo_jac_fields`."""
+    d, C = Y.shape[0], Y.shape[1]
+    Tv, Td = T[0], T[1]
+
+    def contract(t, c, tab):            # (Q12, nL) x (QL, nL) -> (Q12, QL)
+        return torch.tensordot(Y[t, c], tab, dims=([1], [1]))
+
+    jac = [[contract(min(k, d - 1), c, Td if k == d - 1 else Tv)
+            for k in range(d)] for c in range(C)]
+    val = [contract(d - 1, c, Tv) for c in range(C)]
+    if nurbs:
+        W = val[-1]
+        jac = [[(jac[c][k] * W - val[c] * jac[-1][k]) / (W * W)
+                for k in range(d)] for c in range(d)]
+        val = [v / W for v in val[:-1]]
+    return torch.stack(val + [x for row in jac for x in row])
+
+
+def geo_jac_fields(Y, T, nurbs):
+    """K1, ``jac`` kind: physical geometry values and Jacobian on the
+    Gauss grid.
+
+    Args:
+        Y: ``(d, C, Q12, nL)`` stage-1/2 geometry partials
+            (:func:`geo_stage12`), ``C = d`` (+1 for NURBS, weight last).
+        T: ``(2, QL, nL)`` last-axis value and derivative tables.
+        nurbs: whether `Y` carries homogeneous NURBS components.
+
+    Returns ``(d + d*d, Q12, QL)``: the values ``x_c`` (level order), then
+    the Jacobian ``J[c][k]`` row-major."""
+    if not _kernel_device(Y, 'geo_jac_fields'):
+        return geo_jac_fields_plain(Y, T, nurbs)
+    f64 = torch.float64
+    _cuda.require(Y, 'Y', f64, 4)
+    _cuda.require(T, 'T', f64, 3)
+    d, C, Q12, nL = Y.shape
+    QL = T.shape[1]
+    if d not in (1, 2, 3) or C != d + int(bool(nurbs)):
+        raise ValueError('geo_jac_fields: need d in (1, 2, 3) and C = d '
+                         '(+1 for NURBS), got d=%d C=%d' % (d, C))
+    if T.shape != (2, QL, nL) or T.device != Y.device:
+        raise ValueError('geo_jac_fields: T %s disagrees with Y %s'
+                         % (tuple(T.shape), tuple(Y.shape)))
+    out = torch.empty((d + d * d, Q12, QL), dtype=f64, device=Y.device)
+    with torch.cuda.device(Y.device):
+        err = _cuda.library().pyiga_geo_jac_fields_f64(
+            Y.data_ptr(), T.data_ptr(), out.data_ptr(), d, int(bool(nurbs)),
+            Q12, QL, nL, _cuda.stream_of(Y))
+    _cuda.check(err, 'geo_jac_fields')
+    _cuda.LAUNCHES['geo_jac_fields'] += 1
+    return out
+
+
 ################################################################################
 # K2: one contraction stage
 ################################################################################
@@ -150,6 +206,9 @@ def fold_plain(xs, tables, term_idx):
     return out
 
 
+_FOLD_MAX_TERMS = 16     # kMaxTerms in csrc/sumfac.cu
+
+
 def fold(xs, tables, term_idx):
     """K3: ``sum_t stage(xs[t], tables[term_idx[t]])`` as one ``(R, M)``
     output written once; every ``xs[t]`` is ``(K, R)``, every table
@@ -159,6 +218,10 @@ def fold(xs, tables, term_idx):
                          % (len(xs), len(term_idx)))
     if not _kernel_device(xs[0], 'fold'):
         return fold_plain(xs, tables, term_idx)
+    if len(xs) > _FOLD_MAX_TERMS:       # the kernel's term-table capacity
+        k = _FOLD_MAX_TERMS
+        return (fold(xs[:k], tables, term_idx[:k])
+                + fold(xs[k:], tables, term_idx[k:]))
     K, R = xs[0].shape
     M = tables[0].shape[0]
     for t, X in enumerate(xs):
@@ -218,6 +281,21 @@ def geo_stage12(tables, coeffs, d):
         # (C * n_last, Q_1, .., Q_{d-1}) -> (C, Q12, n_last)
         Ys.append(X.reshape(C, n_last, Q12).transpose(1, 2))
     return torch.stack(Ys).contiguous(), shape12
+
+
+def geometry_fields(tables, coeffs, nurbs):
+    """Physical geometry values and Jacobian on the Gauss grid through K2
+    (geometry stages) and K1's ``jac`` kind: the device counterpart of
+    :func:`~pyiga_tpu_torch.ops.geom.geo_jacobian_field`, with the same
+    ``(val, jac)`` shapes ``(d,) + grid`` and ``(d, d) + grid`` (level
+    order).  `tables` are per-axis ``(nd+1, Q_k, n_k)`` tensors."""
+    d = len(tables)
+    Y, shape12 = geo_stage12(tables, coeffs, d)
+    T = tables[d - 1][:2].contiguous()
+    out = geo_jac_fields(Y, T, nurbs)
+    grid = shape12 + (T.shape[1],)
+    return (out[:d].reshape((d,) + grid),
+            out[d:].reshape((d, d) + grid))
 
 
 def stiffness_fields(geo_inputs):
@@ -284,3 +362,37 @@ def assemble_flat_banded(term_tables, fields_, fold_plan, bws, ns, last_idx):
     any_mirror = any(m for _t, m in fold_plan)
     Z = chain_folded(term_tables, fields_, last_idx)
     return flat_banded_from_padded_chain(Z, bws, ns, add_transpose=any_mirror)
+
+
+def assemble_terms_folded(term_tables, fields_, fold_plan, tperms, last_idx):
+    """Compact-layout assembly of a sum of terms (counterpart of
+    ``pallas_sumfac.assemble_terms_folded_pallas``, in f64): the direct
+    terms and the mirrored terms each run as one :func:`chain_folded`
+    (K2 stages, one K3 fold); the mirrored sum's transpose is added by a
+    per-axis ``index_select`` with the `tperms` permutations
+    (:func:`~pyiga_tpu_torch.mlmatrix.transpose_idx_for_bidx`, as
+    LongTensors on the fields' device).  No 0.5 prescale: both halves of
+    a mirrored pair come from the one chain.
+
+    `term_tables[t]` / `fields_[t]` / `last_idx[t]` are indexed by term;
+    `fold_plan` lists ``(term, mirrored)``.  Returns ``(nnz_1, ...,
+    nnz_d)``."""
+    def group(mirrored):
+        ts = [t for t, m in fold_plan if m == mirrored]
+        if not ts:
+            return None
+        return chain_folded([term_tables[t] for t in ts],
+                            [fields_[t] for t in ts],
+                            [last_idx[t] for t in ts])
+
+    out = group(False)
+    sym = group(True)
+    if sym is not None:
+        if not tperms:
+            raise ValueError('fold_plan has mirrored terms but no tperms')
+        symT = sym
+        for k, p in enumerate(tperms):
+            symT = torch.index_select(symT, k, p)
+        sym = sym + symT
+        out = sym if out is None else out + sym
+    return out

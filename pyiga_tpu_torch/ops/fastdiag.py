@@ -17,8 +17,10 @@ import numpy as np
 import scipy.linalg
 import torch
 
-from ..config import DTYPE
+from ..config import DTYPE, resolve_device
+from ..quadrature import make_iterated_quadrature
 from . import geom
+from .basis import dense_basis_table
 from .matfree import box_restriction
 
 
@@ -101,6 +103,32 @@ class FastDiagPrecond:
         if self.free is not None:
             out = out[self.free]
         return out
+
+
+def _biform_1d(kv, deriv):
+    """1D matrix ``int B_i^(deriv) B_j^(deriv)`` by the Gauss rule exact
+    for its degree (``bsp_mass_1d`` / ``bsp_stiffness_1d`` of the JAX
+    package), dense."""
+    nodes, weights = make_iterated_quadrature(kv.mesh, kv.p - deriv + 1)
+    B = dense_basis_table(kv, nodes, deriv)[deriv]          # (n, Q)
+    return (B * weights) @ B.T
+
+
+def fastdiag_precond(kvs, free_dofs=None, dirichlet=False, dtype=None,
+                     mass_shift=0.0, device=None):
+    """Fast-diagonalization preconditioner of the parameter-domain
+    Laplacian (+ `mass_shift` identity) over the TP space `kvs`: per axis
+    the unweighted 1D stiffness and mass matrices.
+
+    `free_dofs` / `dirichlet` / `mass_shift` as in
+    :func:`fastdiag_precond_weighted`; `dtype` defaults to float64, the
+    preconditioner lives on `device` (default: the CPU).  Returns a
+    callable ``r -> P^{-1} r`` on raveled vectors."""
+    KM = [(_biform_1d(kv, 1), _biform_1d(kv, 0)) for kv in kvs]
+    full_shape = tuple(kv.numdofs for kv in kvs)
+    return _build_precond(KM, full_shape, free_dofs, dirichlet,
+                          DTYPE if dtype is None else dtype, mass_shift,
+                          resolve_device(device))
 
 
 def interior_dofs(kvs):

@@ -1,6 +1,7 @@
 # -*- coding: utf-8 -*-
 """Krylov solvers of the port (counterparts of :func:`pyiga_tpu.solvers.
-cg_jit` and :func:`pyiga_tpu.solvers.cg_ir`).
+cg_jit`, :func:`pyiga_tpu.solvers.cg_ir` and
+:func:`pyiga_tpu.solvers.gmres_jit`).
 
 The loops run eagerly: each iteration reads its convergence test back to
 the host (one synchronization per iteration).  Operators and
@@ -9,6 +10,10 @@ test before each step, the same updates, the same stopping rules — is the
 JAX package's, so iteration counts agree.
 """
 
+import math
+
+import numpy as np
+import scipy.linalg
 import torch
 
 
@@ -68,3 +73,73 @@ def cg_ir(op_hi, op_lo, b, tol=1e-8, maxiter_inner=200, max_outer=10,
         outer += 1
     return x, {'outer': outer, 'inner_iters': inner_iters,
                'residual': float(res / norm_b)}
+
+
+def gmres(matvec, b, x0=None, tol=1e-8, restart=30, max_restarts=100,
+          precond=None):
+    """Right-preconditioned restarted GMRES(m): Arnoldi with classical
+    Gram-Schmidt and one reorthogonalization pass (CGS2), Givens
+    rotations, and the TRUE residual checked after every restart cycle.
+
+    Each inner iteration sends its Hessenberg column to the host (one
+    synchronization), where the rotations run in float64 and the cycle
+    exits once ``|g_{j+1}| <= tol * ||b||``.  Returns ``(x, iterations)``
+    with the total count of inner iterations (``inf`` if `tol` was not
+    reached within `max_restarts` cycles)."""
+    pc = precond if precond is not None else (lambda r: r)
+    x = torch.zeros_like(b) if x0 is None else x0
+    abs_tol = tol * float(torch.linalg.vector_norm(b))
+    total = 0
+    for _ in range(max_restarts):
+        x, j_eff, res = _gmres_cycle(matvec, pc, b, x, restart, abs_tol)
+        total += j_eff
+        if res <= abs_tol:
+            return x, total
+    return x, math.inf
+
+
+def _gmres_cycle(matvec, pc, b, x0, m, abs_tol, eps_break=1e-30):
+    """One GMRES(m) cycle from `x0`; returns ``(x, inner iterations, true
+    residual norm)``."""
+    r0 = b - matvec(x0)
+    beta = float(torch.linalg.vector_norm(r0))
+    V = torch.zeros((m + 1, b.shape[0]), dtype=b.dtype, device=b.device)
+    V[0] = r0 / max(beta, eps_break)
+    H = np.zeros((m + 1, m))
+    cs, sn = np.ones(m), np.zeros(m)
+    g = np.zeros(m + 1)
+    g[0] = beta
+    j_eff = 0
+    done = beta <= abs_tol
+    while not done and j_eff < m:
+        j = j_eff
+        w = matvec(pc(V[j]))
+        Vj = V[:j + 1]
+        h = Vj @ w
+        w = w - Vj.T @ h
+        h2 = Vj @ w
+        w = w - Vj.T @ h2
+        wnorm = torch.linalg.vector_norm(w)
+        V[j + 1] = w / wnorm.clamp_min(eps_break)
+        hcol = np.zeros(m + 1)
+        hcol[:j + 2] = torch.cat([h + h2, wnorm.reshape(1)]).tolist()
+        for i in range(j):          # the previous rotations
+            hi = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+            hcol[i + 1] = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+            hcol[i] = hi
+        denom = math.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
+        cs[j] = hcol[j] / max(denom, eps_break)
+        sn[j] = hcol[j + 1] / max(denom, eps_break)
+        hcol[j], hcol[j + 1] = denom, 0.0
+        H[:, j] = hcol
+        g[j + 1] = -sn[j] * g[j]
+        g[j] = cs[j] * g[j]
+        j_eff = j + 1
+        done = abs(g[j + 1]) <= abs_tol
+    x = x0
+    if j_eff:
+        y = scipy.linalg.solve_triangular(H[:j_eff, :j_eff], g[:j_eff])
+        x = x0 + pc(V[:j_eff].T @ torch.as_tensor(y, dtype=b.dtype,
+                                                  device=b.device))
+    res = float(torch.linalg.vector_norm(b - matvec(x)))
+    return x, j_eff, res
