@@ -18,8 +18,18 @@ diffusion solve on the card against the CPU run (4d), and the
 convection-diffusion path of ``examples/convection_diffusion.py`` at the
 bench's 2D p=3 n=128 size (``assemble.assemble`` / ``VFormAssembler.
 run_device`` -> ``MLMatvecOperator`` -> ``fastdiag_precond`` -> ``gmres``),
-cold and warm, counting its launches (7).  Any failed check raises
-(nonzero exit).
+cold and warm, counting its launches (7).
+
+The hierarchical local-multigrid path (the bench's ``run_localmg``:
+``HSpace`` refined toward the (1, 1) corner -> ``HDiscretization`` on
+``unit_square`` with the on-demand ``bbox`` assemblers -> ``solvers.
+solve_hmultigrid`` -> ``DeviceMGSolver``, one K6 launch per V-cycle) has
+these phases: K6 against its plain version for one V-cycle from a seeded
+iterate on the (24, 3) and (48, 3) hierarchies (4e); the path at n0=6 on
+the card against the CPU (4f); the bench shape (24, 3), cold and warm,
+held to 29 iterations and to the port's host path in the same process
+(8); and (48, 3) with ``smoother_impl='fused'`` (above the JAX package's
+dense cutoff), held to 27 (8b).  Any failed check raises (nonzero exit).
 
 Output: phase lines, then a JSON line ``{"kernels": [...]}``, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -57,11 +67,17 @@ KERNELS = {
     # CUDA C generated per form by this module, built at run time
     'vform_fields': ('cuda', 'pyiga_tpu_torch/ops/cuda_vform.py',
                      'pyiga_tpu/compile.py:974'),
+    'vcycle': ('cuda', 'pyiga_tpu_torch/csrc/mg.cu',
+               'pyiga_tpu/ops/mg_pallas.py:493'),
 }
 # the kernels each main path runs
 POISSON_KERNELS = ('fields', 'stage', 'fold', 'flat_banded_f64',
                    'flat_banded_f32')
 VFORM_KERNELS = ('geo_jac_fields', 'vform_fields', 'stage', 'fold')
+LOCALMG_KERNELS = ('vcycle', 'geo_jac_fields', 'vform_fields', 'stage',
+                   'fold')
+# (n0, levels) -> the iteration count of the JAX package's host path
+LOCALMG_ITERS = {(24, 3): 29, (48, 3): 27}
 
 CONVDIFF = '(inner(grad(u), grad(v)) + dot(b, grad(u)) * v + u * v) * dx'
 CONV_B = np.array([3.0, -2.0])
@@ -535,6 +551,214 @@ def run_convdiff(device, n=128):
     return rec
 
 
+def localmg_space(n0, num_levels=3):
+    """The bench's hierarchy (``bench.py`` ``run_localmg``): 2D p=3,
+    disparity 1, Dirichlet on all four sides, refined toward the (1, 1)
+    corner."""
+    from pyiga_tpu_torch import bspline
+    from pyiga_tpu_torch.hierarchical import HSpace
+    hs = HSpace(2 * (bspline.make_knots(3, 0.0, 1.0, n0),), disparity=1,
+                bdspecs=[(0, 0), (0, 1), (1, 0), (1, 1)])
+    for lv in range(num_levels - 1):
+        thr = 1.0 - 2.0 ** (-lv - 1)
+        hs.refine_region(lv, lambda *X: min(X) > thr)
+    return hs
+
+
+def localmg_discretization(hs, device):
+    from pyiga_tpu_torch import geometry, vform
+    from pyiga_tpu_torch.hierarchical import HDiscretization
+    return HDiscretization(hs, vform.stiffness_vf(dim=2),
+                           {'geo': geometry.unit_square(),
+                            'f': lambda *x: 1.0}, device=device)
+
+
+def localmg_solver(hs, A, device, impl):
+    """The device solver of ``solve_hmultigrid``'s defaults ('cell_supp',
+    'gs', 2 steps) with `impl` forced."""
+    from pyiga_tpu_torch import solvers
+    from pyiga_tpu_torch.ops.mg import DeviceMGSolver
+    Ps = hs.virtual_hierarchy_prolongators()
+    return DeviceMGSolver(solvers.galerkin_hierarchy(A, Ps), Ps,
+                          hs.indices_to_smooth('cell_supp'),
+                          ('forward', 'backward'), 2,
+                          active_dofs=hs.non_dirichlet_dofs(),
+                          smoother_impl=impl, device=device)
+
+
+def check_vcycle_kernel(device):
+    """Phase 4e: K6 against its plain version, one V-cycle from a seeded
+    iterate and right-hand side, on the operands of the (24, 3) and
+    (48, 3) hierarchies (1e-13 relative to the largest entry)."""
+    from pyiga_tpu_torch.ops import cuda_mg
+    cpu = torch.device('cpu')
+    cases = {}
+    for n0, L in LOCALMG_ITERS:
+        hs = localmg_space(n0, L)
+        A = localmg_discretization(hs, cpu).assemble_matrix()
+        t0 = time.perf_counter()
+        s = localmg_solver(hs, A, device, 'fused')
+        sync(device)
+        t_setup = time.perf_counter() - t0
+        rng = np.random.RandomState(n0)
+        x = torch.as_tensor(rng.rand(A.shape[0]), dtype=torch.float64,
+                            device=device)
+        f = torch.as_tensor(rng.rand(A.shape[0]), dtype=torch.float64,
+                            device=device)
+        got, ref = cuda_mg.vcycle(s.ops, x, f), cuda_mg.vcycle_plain(s.ops,
+                                                                    x, f)
+        sync(device)
+        err, rel = compare('vcycle (%d,%d)' % (n0, L), got[0], ref[0], 1e-13)
+        err2, rel2 = compare('res2 (%d,%d)' % (n0, L), got[1].reshape(1),
+                             ref[1].reshape(1), 1e-13)
+        m = [int(lev['S'].shape[0]) for lev in s.ops.levels[1:]]
+        cases['%d_%d' % (n0, L)] = dict(
+            max_abs_err=err, rel=rel, res2_rel=rel2, n=s.ops.n, m=m,
+            m0=int(s.ops.ind0.shape[0]),
+            blocks=cuda_mg._grid_blocks(device),
+            solver_setup_ms=1e3 * t_setup,
+            ms=time_ms(lambda: cuda_mg.vcycle(s.ops, x, f), device, reps=20),
+            plain_ms=time_ms(lambda: cuda_mg.vcycle_plain(s.ops, x, f),
+                             device, reps=5))
+        log('  (%d,%d): n %s  m %s  m0 %d  blocks %d  solver setup %.0f ms'
+            % (n0, L, s.ops.n, m, cases['%d_%d' % (n0, L)]['m0'],
+               cases['%d_%d' % (n0, L)]['blocks'], 1e3 * t_setup))
+        del s, x, f, got, ref
+    out = {'vcycle': dict(cases['24_3'], cases=cases)}
+    for name, r in cases.items():
+        log('  vcycle %-9s kernel %.4f ms   plain %.4f ms' % (name, r['ms'],
+                                                             r['plain_ms']))
+    return out
+
+
+def check_localmg_small(device):
+    """Phase 4f: the local-MG path at n0=6, L=3 ('gs'): assembly and the
+    device solve on the card against the CPU run of the plain versions
+    and the host path; equal iteration counts, x to 1e-12."""
+    from pyiga_tpu_torch import solvers
+    cpu = torch.device('cpu')
+    hs = localmg_space(6)
+    outs = {}
+    for dev in (device, cpu):
+        hd = localmg_discretization(hs, dev)
+        A, f = hd.assemble_matrix(), hd.assemble_rhs()
+        x, it = solvers.solve_hmultigrid(hs, A, f, tol=1e-8,
+                                         relax_backend='device', device=dev)
+        outs[dev.type] = (A, f, x, it)
+    (Ag, fg, xg, ig), (Ac, fc, xc, ic) = outs[device.type], outs['cpu']
+    xh, ih = solvers.solve_hmultigrid(hs, Ac, fc, tol=1e-8,
+                                      relax_backend='host')
+    err_A = float(abs(Ag - Ac).max() / abs(Ac).max())
+    err_f = float(np.abs(fg - fc).max() / np.abs(fc).max())
+    err_x = float(np.abs(xg - xc).max() / np.abs(xc).max())
+    err_xh = float(np.abs(xg - xh).max() / np.abs(xh).max())
+    log('  n0=6 L=3 (%d dofs) card vs CPU: A rel %.3e  f rel %.3e  x rel '
+        '%.3e (host path %.3e)  iterations %s / %s / host %s'
+        % (hs.numdofs, err_A, err_f, err_x, err_xh, ig, ic, ih))
+    if not (ig == ic == ih and err_A <= 1e-13 and err_f <= 1e-13
+            and err_x <= 1e-12 and err_xh <= 1e-12):
+        raise RuntimeError('card local-MG path disagrees with the CPU run')
+    return dict(n6_dofs=hs.numdofs, n6_A_rel=err_A, n6_f_rel=err_f,
+                n6_x_rel=err_x, n6_x_host_rel=err_xh, n6_iters_card=ig,
+                n6_iters_cpu=ic, n6_iters_host=ih)
+
+
+def run_localmg(device, n0, L=3, impl=None):
+    """Phases 8/8b: the local-MG path the way ``bench.py`` ``run_localmg``
+    times it: assembly (``assemble_matrix`` + ``assemble_rhs``) is the min
+    of 3 after 2 warm-up builds; the solve the min of 2 at tol 1e-8 after
+    a warm-up at tol 1e-2, through ``solve_hmultigrid`` (`impl` None) or a
+    ``DeviceMGSolver`` with ``smoother_impl=impl``.  Holds the count to
+    the port's host path in this process and to the JAX package's."""
+    from pyiga_tpu_torch import _cuda, solvers
+    t0 = time.perf_counter()
+    hs = localmg_space(n0, L)
+    t_space = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    _cuda.reset_launches()
+
+    def build():
+        hd = localmg_discretization(hs, device)
+        t0 = time.perf_counter()
+        A = hd.assemble_matrix()
+        t1 = time.perf_counter()
+        f = hd.assemble_rhs()
+        return A, f, t1 - t0, time.perf_counter() - t1
+
+    t0 = time.perf_counter()
+    build()
+    t_first = time.perf_counter() - t0
+    build()
+    best = None
+    for _ in range(3):
+        A, f, t_A, t_f = build()
+        if best is None or t_A + t_f < sum(best):
+            best = (t_A, t_f)
+    t0 = time.perf_counter()
+    if impl is None:
+        def solve(tol):
+            return solvers.solve_hmultigrid(hs, A, f, tol=tol, device=device)
+    else:
+        solver = localmg_solver(hs, A, device, impl)
+
+        def solve(tol):
+            return solver.solve(f, tol=tol)
+    solve(1e-2)     # on the solve_hmultigrid path this builds the solver
+    sync(device)
+    t_warm = time.perf_counter() - t0
+    t_slv = np.inf
+    for _ in range(2):
+        t0 = time.perf_counter()
+        x, iters = solve(1e-8)
+        t_slv = min(t_slv, time.perf_counter() - t0)
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+
+    t0 = time.perf_counter()
+    xh, it_host = solvers.solve_hmultigrid(hs, A, f, tol=1e-8,
+                                           relax_backend='host')
+    t_host = time.perf_counter() - t0
+    free = hs.non_dirichlet_dofs()
+    res = float(np.linalg.norm((f - A @ x)[free]) / np.linalg.norm(f[free]))
+    x_rel = float(np.abs(x - xh).max() / np.abs(xh).max())
+    rec = dict(n0=n0, levels=L, p=3, impl=impl or 'auto', ndofs=hs.numdofs,
+               nnz=int(A.nnz), numactive=list(hs.numactive),
+               t_space_ms=1e3 * t_space, t_first_build_ms=1e3 * t_first,
+               t_assemble_matrix_ms=1e3 * best[0],
+               t_assemble_rhs_ms=1e3 * best[1],
+               t_assembly_ms=1e3 * sum(best),
+               t_solver_setup_and_warm_solve_ms=1e3 * t_warm,
+               t_solve_ms=1e3 * t_slv, iters=iters, iters_host=it_host,
+               t_host_solve_ms=1e3 * t_host, residual=res, x_rel_host=x_rel,
+               dof_per_s=hs.numdofs / (sum(best) + t_slv),
+               peak_device_bytes=int(peak), launches=launches)
+    log('  (%d,%d) %s: %d dofs, nnz %d; first build %.0f ms'
+        % (n0, L, rec['impl'], hs.numdofs, A.nnz, 1e3 * t_first))
+    log('  assembly %.2f ms (matrix %.2f + rhs %.2f)  solver setup + warm '
+        'solve %.1f ms  solve %.2f ms  %.0f dof/s'
+        % (rec['t_assembly_ms'], rec['t_assemble_matrix_ms'],
+           rec['t_assemble_rhs_ms'], rec['t_solver_setup_and_warm_solve_ms'],
+           rec['t_solve_ms'], rec['dof_per_s']))
+    log('  iterations %s (host path %s in %.1f ms, JAX %d)  rel residual '
+        '%.3e  x vs host %.3e  peak %.1f MB'
+        % (iters, it_host, 1e3 * t_host, LOCALMG_ITERS[(n0, L)], res, x_rel,
+           peak / 2 ** 20))
+    log('  launches: %s' % launches)
+    if x.shape != (hs.numdofs,) or not np.isfinite(x).all():
+        raise RuntimeError('local-MG solution has shape %s or is not finite'
+                           % (x.shape,))
+    if not (iters == it_host == LOCALMG_ITERS[(n0, L)]):
+        raise RuntimeError('local-MG iterations %s, host path %s, expected %d'
+                           % (iters, it_host, LOCALMG_ITERS[(n0, L)]))
+    if not (res <= 1e-8 and x_rel <= 1e-10):
+        raise RuntimeError('local-MG residual %.3e or x vs host %.3e too '
+                           'large' % (res, x_rel))
+    missing = [k for k in LOCALMG_KERNELS if launches[k] <= 0]
+    if missing:
+        raise RuntimeError('local-MG path never launched %s' % missing)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -612,6 +836,24 @@ def main():
                     for k in ('geo_jac_fields', 'vform_fields'))
     log('  warm:')
     conv['warm'] = run_convdiff(device)
+    torch.cuda.empty_cache()
+
+    log('phase 4e: K6 (V-cycle) vs its plain version, (24,3) and (48,3)')
+    kern.update(check_vcycle_kernel(device))
+    torch.cuda.empty_cache()
+
+    log('phase 4f: local-MG path on small inputs, card vs CPU')
+    small.update(check_localmg_small(device))
+    torch.cuda.empty_cache()
+
+    log('phase 8: local-MG path, 2D p=3 HB (24,3), float64')
+    lmg = run_localmg(device, 24)
+    launches['vcycle'] = lmg['launches']['vcycle']
+    log('  warm:')
+    lmg['warm'] = run_localmg(device, 24)
+    torch.cuda.empty_cache()
+    log('phase 8b: local-MG path, 2D p=3 HB (48,3), smoother_impl=fused')
+    lmg48 = run_localmg(device, 48, impl='fused')
 
     kernels = [dict(name=k, route=KERNELS[k][0], source=KERNELS[k][1],
                     replaces=KERNELS[k][2], launches=launches[k],
@@ -620,7 +862,7 @@ def main():
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=t_build, kernels=kern,
                   small=small, main3d=main3, main2d=main2,
-                  convdiff2d=conv)
+                  convdiff2d=conv, localmg_24_3=lmg, localmg_48_3=lmg48)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:
         json.dump(record, f, indent=1, default=str)

@@ -36,7 +36,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'stage': 0, 'fold': 0,
-            'flat_banded_f64': 0, 'flat_banded_f32': 0, 'vform_fields': 0}
+            'flat_banded_f64': 0, 'flat_banded_f32': 0, 'vform_fields': 0,
+            'vcycle': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +49,8 @@ _SIGNATURES = {
     'pyiga_fold_f64': (_P, _P, _I, _P, _I, _L, _I, _P),
     'pyiga_flat_banded_f64': (_P, _P, _P, _P, _I, _L, _L, _P),
     'pyiga_flat_banded_f32': (_P, _P, _P, _P, _I, _L, _L, _P),
+    'pyiga_vcycle_grid': (_I, _P),
+    'pyiga_vcycle_f64': (_P, _P, _P, _P, _P, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -23,11 +23,17 @@ because the TPU has no f64; the port computes the 'exact' semantics
 natively, so ``mode`` is accepted for API compatibility and selects
 nothing.  Compiled assembler classes are cached by ``vf.hash()``.
 
+On-demand assembly (``bbox=``, the hierarchical spaces' per-level
+assembly) restricts the Gauss grid to a box of cells and drops the
+per-axis basis pairs without support there; :meth:`VFormAssembler.update`
+swaps updatable inputs, parameters or the geometry and drops the device
+operands that the change makes stale.
+
 Not ported yet (each raises :class:`NotImplementedError` naming the
-piece): vector-valued forms, surface integrals, two-space forms, ``bbox``
-on-demand assembly, geometry Hessians and second physical derivatives,
-derivatives of input fields, host-evaluated (non-spline) geometry,
-``update()``, ``compact_slice`` / ``multi_entries``.
+piece): vector-valued forms, surface integrals, two-space forms,
+geometry Hessians and second physical derivatives, derivatives of input
+fields, host-evaluated (non-spline) geometry, ``compact_slice`` /
+``multi_entries``.
 """
 
 import itertools
@@ -40,6 +46,7 @@ from .bspline import KnotVector
 from .config import DTYPE, resolve_device
 from .mlmatrix import MLStructure, transpose_idx_for_bidx
 from .ops import cuda_sumfac, cuda_vform, geom, sumfac
+from .quadrature import make_tensor_quadrature
 
 
 ################################################################################
@@ -188,9 +195,6 @@ class VFormAssembler:
             raise NotImplementedError(
                 'surface integrals (ds, boundary=, Jac_to_boundary) are not '
                 'ported yet')
-        if bbox is not None or 'bbox' in args:
-            raise NotImplementedError('bbox on-demand assembly is not '
-                                      'ported yet')
         if vf.vec:
             raise NotImplementedError('vector-valued forms (vf.vec) are not '
                                       'ported yet: the next slice')
@@ -205,20 +209,21 @@ class VFormAssembler:
                              '(%d)' % (self.dim, vf.dim))
         self.device = resolve_device(device)
 
-        self.geo = args.pop('geo')
-        if not isinstance(self.geo, (geometry.BSplineFunc,
-                                     geometry.NurbsFunc)):
-            raise NotImplementedError(
-                'host-evaluated (non-spline) geometry needs kernel K1\', '
-                'which is not ported yet')
-        if tuple(self.geo.output_shape()) != (self.dim,):
-            raise NotImplementedError(
-                'geometry output shape %s differs from the space dimension '
-                '%d' % (self.geo.output_shape(), self.dim))
+        self.geo = self._checked_geo(args.pop('geo'))
+        self.bbox = args.pop('bbox', bbox)
 
         nqp = max(kv.p for kv in kvs) + 1
-        self.grid, self.gweights = sumfac.quadrature_for(kvs, nqp)
         self.structure = MLStructure.from_kvs(kvs, kvs)
+        if self.bbox is None:
+            self.grid, self.gweights = sumfac.quadrature_for(kvs, nqp)
+        else:
+            # on-demand mode: the Gauss grid covers only the cells of the
+            # bbox, so entries whose test function is supported inside it
+            # are exact and the others partial
+            self.grid, self.gweights = make_tensor_quadrature(
+                [kv.mesh[bb[0]:bb[1] + 1] for kv, bb in zip(kvs, self.bbox)],
+                nqp)
+            self._restrict_to_bbox()
         self.maxderiv = vf.max_deriv_order()
         self.tables = sumfac.SpaceTables(kvs, kvs, self.grid,
                                          self.structure.bidx, self.maxderiv)
@@ -263,6 +268,38 @@ class VFormAssembler:
         self._operands = None
         self._program_cache = None
 
+    def _checked_geo(self, geo):
+        if not isinstance(geo, (geometry.BSplineFunc, geometry.NurbsFunc)):
+            raise NotImplementedError(
+                'host-evaluated (non-spline) geometry needs kernel K1\', '
+                'which is not ported yet')
+        if tuple(geo.output_shape()) != (self.dim,):
+            raise NotImplementedError(
+                'geometry output shape %s differs from the space dimension '
+                '%d' % (geo.output_shape(), self.dim))
+        return geo
+
+    def _restrict_to_bbox(self):
+        """Drop the per-axis dof pairs with no support inside the bbox:
+        their basis-table rows vanish on the restricted Gauss grid, so
+        their compact entries are structural zeros, and the contraction
+        cost scales with the stored entries (hierarchical windows are
+        small corners of large levels).  Records per axis the half-open
+        range of test functions supported in the bbox
+        (``_bbox_win_test``)."""
+        bidx = []
+        self._bbox_win_test = []
+        for kv, bb, bx in zip(self.kvs0, self.bbox, self.structure.bidx):
+            supp = kv.mesh_support_idx_all()
+            win = (supp[:, 0] < bb[1]) & (supp[:, 1] > bb[0])
+            ij = bx.astype(np.intp)
+            keep = win[ij[:, 0]] & win[ij[:, 1]]
+            bidx.append(bx[keep])
+            nz = np.nonzero(win)[0]     # contiguous for B-splines
+            self._bbox_win_test.append(
+                (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0))
+        self.structure = MLStructure(self.structure.bs, bidx)
+
     # -- array setup -------------------------------------------------------------
 
     def _build_arrays(self):
@@ -293,8 +330,44 @@ class VFormAssembler:
         return {'input:' + inp.name: np.ascontiguousarray(vals)}
 
     def update(self, **upd):
-        raise NotImplementedError('VFormAssembler.update() is not ported '
-                                  'yet')
+        """Update updatable input fields and/or parameters, or the geometry
+        (which also re-evaluates physically given inputs).  Drops the
+        cached device operands that the change makes stale: after a new
+        geometry all of them and the generated K5 program; after new
+        input or parameter values the changed tensors, and the program
+        only if a changed value has a new shape."""
+        geo_changed = False
+        changed = {}
+        for name, f in upd.items():
+            if name == 'geo':
+                self.geo = self._checked_geo(f)
+                geo_changed = True
+                continue
+            inp = [i for i in self.vf.inputs if i.name == name]
+            if inp and inp[0].updatable:
+                self._input_values[name] = f
+                changed.update(self._eval_input(inp[0], f))
+                continue
+            if name in self._param_values:
+                self._param_values[name] = f
+                changed['param:' + name] = np.asarray(f, dtype=float)
+                continue
+            raise ValueError('%r is not an updatable input' % name)
+        if geo_changed:
+            self._build_arrays()
+            self._operands = None
+            self._program_cache = None
+            return
+        if any(np.shape(a) != np.shape(self._host_arrays[k])
+               for k, a in changed.items()):
+            self._program_cache = None
+        self._host_arrays.update(changed)
+        if self._operands is not None:
+            inputs = dict(self._operands['inputs'])
+            for k, a in changed.items():
+                inputs[k] = torch.as_tensor(np.ascontiguousarray(a),
+                                            dtype=DTYPE, device=self.device)
+            self._operands = dict(self._operands, inputs=inputs)
 
     def compact_slice(self, fixed):
         raise NotImplementedError('compact_slice (ACA) is not ported yet')

@@ -9,6 +9,7 @@ identical state.
 """
 
 import numpy as np
+import scipy.sparse
 import torch
 
 from . import geometry
@@ -16,6 +17,7 @@ from .bspline import KnotVector
 from .config import DTYPE, resolve_device
 from .mlmatrix import MLStructure
 from .ops.banded import flat_banded_data
+from .ops.mg import DeviceMGSolver
 
 
 def knot_vector(kv):
@@ -76,6 +78,22 @@ def vform_arrays(host_arrays, device=None):
                                device=device)
     return {k: [dev(w) for w in v] if k == 'weights' else dev(v)
             for k, v in host_arrays.items()}
+
+
+def device_mg_solver(As, Ps, lv_inds, sweeps, smooth_steps, active_dofs=None,
+                     smoother_impl='auto', device=None):
+    """A port :class:`~pyiga_tpu_torch.ops.mg.DeviceMGSolver` from the
+    inputs of the JAX package's ``DeviceMGSolver`` (the Galerkin matrices
+    `As` and prolongators `Ps` as scipy sparse matrices, the smoothing
+    sets `lv_inds` and `active_dofs` as integer arrays), on `device`."""
+    return DeviceMGSolver(
+        [scipy.sparse.csr_matrix(A, dtype=np.float64) for A in As],
+        [scipy.sparse.csr_matrix(P, dtype=np.float64) for P in Ps],
+        [np.array(ix, dtype=np.int64) for ix in lv_inds], tuple(sweeps),
+        int(smooth_steps),
+        active_dofs=None if active_dofs is None
+        else np.array(active_dofs, dtype=np.int64),
+        smoother_impl=smoother_impl, device=device)
 
 
 def mlmatrix(mlm):

@@ -163,7 +163,7 @@ def _dummy_physical(x, y):
 
 
 @pytest.mark.parametrize('form,args,kw', [
-    ('inner(grad(u), grad(v)) * dx', {}, {'bbox': ((0, 1), (0, 1))}),
+    ('inner(grad(u), grad(v)) * dx', {}, {'kvs2': 'same'}),
     ('u * v * ds', {}, {}),
     ('inner(grad(g), grad(v)) * dx', {'g': 'spline'}, {}),
     ('inner(hess(u), hess(v)) * dx', {}, {}),
@@ -175,6 +175,8 @@ def test_unsupported_forms_raise(form, args, kw):
     args = dict(args)
     if args.get('g') == 'spline':
         args['g'] = geometry.BSplineFunc(kvs, np.ones((8, 8)))
+    if kw.get('kvs2') == 'same':
+        kw['kvs2'] = kvs
     bfuns = [('u', 2), ('v', 2)] if kw.pop('vec', False) else None
     geo = kw.pop('geo', None)
     geo = _dummy_physical if geo == 'callable' else geometry.quarter_annulus()
