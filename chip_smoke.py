@@ -29,7 +29,20 @@ iterate on the (24, 3) and (48, 3) hierarchies (4e); the path at n0=6 on
 the card against the CPU (4f); the bench shape (24, 3), cold and warm,
 held to 29 iterations and to the port's host path in the same process
 (8); and (48, 3) with ``smoother_impl='fused'`` (above the JAX package's
-dense cutoff), held to 27 (8b).  Any failed check raises (nonzero exit).
+dense cutoff), held to 27 (8b).
+
+The mass and time-stepping paths: K1's ``mass`` kind and K1' (the
+stiffness fields of a host-evaluated Jacobian) against their plain
+versions (4g); ``assemble.mass`` / ``assemble.stiffness`` on the card
+against the golden fixtures and the small heat problem card vs CPU (4h);
+the 3D p=3 n=48 mass path (``MassAssembler.assemble_banded`` and the
+compact ``assemble``, ``M 1`` against ``assemble('v * dx')``) (9); the
+heat equation ``M u' = f - K u`` on the NURBS quarter annulus at 2D p=3
+n=128, assembled on the card and integrated by the host ``esdirk34`` and
+``ros3p`` (10); and on the polar quarter annulus given as a
+``UserFunction`` at n=60, integrated by ``DeviceRosenbrockScheme`` against
+the host scheme's step sequence with no host fallback (10b).  Any failed
+check raises (nonzero exit).
 
 Output: phase lines, then a JSON line ``{"kernels": [...]}``, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -69,6 +82,12 @@ KERNELS = {
                      'pyiga_tpu/compile.py:974'),
     'vcycle': ('cuda', 'pyiga_tpu_torch/csrc/mg.cu',
                'pyiga_tpu/ops/mg_pallas.py:493'),
+    # the K1 call site with kind='mass' (through mass_fields_pallas)
+    'mass_fields': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
+                    'pyiga_tpu/ops/pallas_sumfac.py:1087'),
+    # K1': stiffness_fields_pallas's host-Jacobian branch
+    'host_jac_fields': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
+                        'pyiga_tpu/ops/pallas_sumfac.py:1163'),
 }
 # the kernels each main path runs
 POISSON_KERNELS = ('fields', 'stage', 'fold', 'flat_banded_f64',
@@ -76,6 +95,14 @@ POISSON_KERNELS = ('fields', 'stage', 'fold', 'flat_banded_f64',
 VFORM_KERNELS = ('geo_jac_fields', 'vform_fields', 'stage', 'fold')
 LOCALMG_KERNELS = ('vcycle', 'geo_jac_fields', 'vform_fields', 'stage',
                    'fold')
+MASS_KERNELS = ('mass_fields', 'stage', 'fold', 'flat_banded_f64')
+HEAT_KERNELS = ('mass_fields', 'fields', 'stage', 'fold')
+USERGEO_KERNELS = ('host_jac_fields', 'stage', 'fold')
+# phase 10's end times: esdirk34 factors 4 sparse LUs of the 16,641 free
+# dofs per step attempt (~2.5 s each on the host), and its start from
+# tau0 = 1e-3 rejects 5 attempts, so t = 0.1 would take minutes; t = 3e-4
+# keeps it near a minute (5 rejected attempts, 2 accepted)
+HEAT_T_END = {'esdirk34': 3e-4, 'ros3p': 0.1}
 # (n0, levels) -> the iteration count of the JAX package's host path
 LOCALMG_ITERS = {(24, 3): 29, (48, 3): 27}
 
@@ -759,6 +786,442 @@ def run_localmg(device, n0, L=3, impl=None):
     return rec
 
 
+def polar_annulus():
+    """The quarter annulus in polar parametrization as a ``UserFunction``
+    (map and analytic Jacobian, ``[..., i, j] = dF_i/dx_j``): a geometry
+    the assemblers evaluate on the host."""
+    from pyiga_tpu_torch import geometry
+    h = 0.5 * np.pi
+
+    def f(x, y):
+        return ((1 + x) * np.cos(h * y), (1 + x) * np.sin(h * y))
+
+    def jac(x, y):
+        x, y = np.broadcast_arrays(x, y)
+        c, s = np.cos(h * y), np.sin(h * y)
+        return np.stack([np.stack([c, -h * (1 + x) * s], axis=-1),
+                         np.stack([s, h * (1 + x) * c], axis=-1)], axis=-2)
+    return geometry.UserFunction(f, [[0, 1], [0, 1]], jac=jac)
+
+
+def check_mass_kernels(device, n3=48, n2=128):
+    """Phase 4g: K1's mass kind against its plain version at the 3D n=48
+    twisted-box shapes and the 2D n=128 NURBS quarter-annulus shapes, and
+    K1' at the 2D n=128 shape of the polar annulus (its host Jacobian) and
+    at the 3D n=48 shape (the twisted box's Jacobian, made on the card by
+    K1's jac kind), all 1e-13 relative to the largest output."""
+    from pyiga_tpu_torch.assemblers import MassAssembler, StiffnessAssembler
+    from pyiga_tpu_torch import bspline, geometry
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    from pyiga_tpu_torch.ops import geom
+
+    out = {'mass_fields': {}, 'host_jac_fields': {}}
+    kv128 = bspline.make_knots(3, 0.0, 1.0, n2)
+    kv48 = bspline.make_knots(3, 0.0, 1.0, n3)
+    for name, asm in (
+            ('3d_n48_bspline', MassAssembler(3 * (kv48,),
+                                             geometry.twisted_box(),
+                                             device=device)),
+            ('2d_n128_nurbs', MassAssembler(2 * (kv128,),
+                                            geometry.quarter_annulus(),
+                                            device=device))):
+        gi = asm.geo_inputs()
+        args, grid = cs._spline_stages(gi)
+        got, ref = cs.fields_mass(*args), cs.fields_mass_plain(*args)
+        sync(device)
+        err, rel = compare('mass ' + name[:10], got, ref, 1e-13)
+        out['mass_fields'][name] = dict(
+            max_abs_err=err, rel=rel, shape=list(got.shape),
+            out_bytes=got.numel() * 8,
+            ms=time_ms(lambda: cs.fields_mass(*args), device),
+            plain_ms=time_ms(lambda: cs.fields_mass_plain(*args), device,
+                             reps=3))
+        if name.startswith('3d'):
+            # the twisted box's Jacobian at the 3D shape, for K1' below
+            tables = gi['geo_tables_bsp']
+            _, jac3 = cs.geometry_fields(tables, gi['geo_coeffs'], False)
+            jac3 = jac3.reshape(3, 3, -1).contiguous()
+            gw3 = geom.gauss_weight_field(gi['weights']).reshape(-1)
+        del asm, gi, args, got, ref
+
+    t0 = time.perf_counter()
+    asm = StiffnessAssembler(2 * (kv128,), polar_annulus(), device=device)
+    t_host_jac = time.perf_counter() - t0
+    gi = asm.geo_inputs()
+    jac2, gw2, _ = cs._host_jacobian(gi)
+    for name, jac, gw in (('2d_n128_user', jac2, gw2),
+                          ('3d_n48_twisted', jac3, gw3)):
+        got = cs.host_jac_fields(jac, gw)
+        ref = cs.host_jac_fields_plain(jac, gw)
+        sync(device)
+        err, rel = compare("K1' " + name[:11], got, ref, 1e-13)
+        out['host_jac_fields'][name] = dict(
+            max_abs_err=err, rel=rel, shape=list(got.shape),
+            in_bytes=(jac.numel() + gw.numel()) * 8,
+            ms=time_ms(lambda: cs.host_jac_fields(jac, gw), device),
+            plain_ms=time_ms(lambda: cs.host_jac_fields_plain(jac, gw),
+                             device, reps=3))
+        del got, ref
+    out['host_jac_fields']['2d_n128_user']['host_jacobian_setup_ms'] = \
+        1e3 * t_host_jac
+    # headline cases: the shapes of the paths that launch each kernel
+    # (phase 9's 3D mass path, phase 10b's user geometry at full width)
+    res = {k: dict(v['3d_n48_bspline' if k == 'mass_fields'
+                     else '2d_n128_user'], cases=v) for k, v in out.items()}
+    for k, r in res.items():
+        for name, c in r['cases'].items():
+            log('  %-16s %-15s kernel %.4f ms   plain %.4f ms'
+                % (k, name, c['ms'], c['plain_ms']))
+    return res
+
+
+def read_fixture(name, shape=None):
+    import scipy.sparse
+    data = np.loadtxt(os.path.join(REPO, 'tests', 'fixtures', name),
+                      skiprows=1, ndmin=2)
+    ij = data[:, :2].astype(np.intp) - 1
+    if shape is None:
+        shape = (int(ij[:, 0].max()) + 1, int(ij[:, 1].max()) + 1)
+    return scipy.sparse.coo_matrix((data[:, 2], (ij[:, 0], ij[:, 1])),
+                                   shape=shape).tocsr()
+
+
+def heat_system(M, K, kvs):
+    """The restricted heat equation ``M_ff u' = f_f - K_ff u`` (u = 0 on
+    the boundary, f = 1, so ``f = M 1``), scaled by ``n**2`` (n the spans
+    per axis) so that M's entries are O(1): the DIRK stage Newton stops
+    at an absolute residual of 1e-4.  Returns ``(M_ff, K_ff, f_f)``."""
+    from pyiga_tpu_torch.ops.fastdiag import interior_dofs
+    free = interior_dofs(kvs)
+    s = float(kvs[0].numspans ** 2)
+    Mf = (s * M)[free][:, free].tocsr()
+    Kf = (s * K)[free][:, free].tocsr()
+    f = s * (M @ np.ones(M.shape[0]))[free]
+    return Mf, Kf, f
+
+
+class CountingScheme:
+    """A scheme proxy counting step attempts (accepted and rejected)."""
+
+    def __init__(self, scheme):
+        self.scheme, self.attempts = scheme, 0
+
+    def step(self, *args, **kwargs):
+        self.attempts += 1
+        return self.scheme.step(*args, **kwargs)
+
+    def truncated(self):
+        return self.scheme.truncated()
+
+
+def integrate_host(name, Mf, Kf, f, tol=1e-5, tau0=1e-3, t_end=0.1):
+    """Adaptive integration of the heat system by the host scheme of
+    `name`; returns ``(times, states, attempts, seconds)``."""
+    from pyiga_tpu_torch import solvers
+    coeffs = getattr(solvers, 'coeffs_' + name)()
+    if name.startswith('ros') or name == 'rodasp':
+        scheme, order = solvers._RosenbrockScheme(*coeffs[:4]), coeffs[4]
+    else:
+        scheme, order = solvers._DIRKScheme(coeffs[0]), coeffs[1]
+    scheme = CountingScheme(scheme)
+    x0 = np.zeros(Mf.shape[0])
+    t0 = time.perf_counter()
+    ts, xs = solvers._integrate_adaptive(
+        scheme, order, Mf, lambda x: f - Kf @ x, lambda x: -Kf, x0, tau0,
+        t_end, tol)
+    return ts, xs, scheme.attempts, time.perf_counter() - t0
+
+
+def check_mass_small(device):
+    """Phase 4h: ``assemble.mass`` / ``assemble.stiffness`` on the card
+    against the four golden fixtures (1e-14 abs), and the small heat
+    problem (2D p=3 n=8 NURBS quarter annulus) assembled on the card and
+    on the CPU, integrated by esdirk34 and ros3p: identical step times."""
+    from pyiga_tpu_torch import assemble, bspline, geometry
+    out = {}
+    for kind, fix, geo, p, n, d in (
+            ('mass', 'poisson_neu_d2_p3_n15_mass', 'bspline_quarter_annulus',
+             3, 15, 2),
+            ('stiffness', 'poisson_neu_d2_p3_n15_stiff',
+             'bspline_quarter_annulus', 3, 15, 2),
+            ('mass', 'poisson_neu_d3_p2_n10_mass', 'twisted_box', 2, 10, 3),
+            ('stiffness', 'poisson_neu_d3_p2_n10_stiff', 'twisted_box', 2,
+             10, 3)):
+        kvs = d * (bspline.make_knots(p, 0.0, 1.0, n),)
+        A = getattr(assemble, kind)(kvs, getattr(geometry, geo)(),
+                                    device=device)
+        err = float(abs(A - read_fixture(fix + '.mtx.gz', A.shape)).max())
+        log('  %-30s card vs golden fixture: max abs err %.3e' % (fix, err))
+        if not err <= 1e-14:
+            raise RuntimeError('card assembly misses fixture %s' % fix)
+        out[fix] = err
+
+    kvs = 2 * (bspline.make_knots(3, 0.0, 1.0, 8),)
+    systems = {}
+    for dev in (device, torch.device('cpu')):
+        geo = geometry.quarter_annulus()
+        systems[dev.type] = heat_system(
+            assemble.mass(kvs, geo, device=dev),
+            assemble.stiffness(kvs, geo, device=dev), kvs)
+    (Mg, Kg, fg), (Mc, Kc, fc) = systems[device.type], systems['cpu']
+    err_M = float(abs(Mg - Mc).max() / abs(Mc).max())
+    err_K = float(abs(Kg - Kc).max() / abs(Kc).max())
+    out['heat_n8'] = dict(M_rel=err_M, K_rel=err_K)
+    for name in ('esdirk34', 'ros3p'):
+        tg, xg, ag, _ = integrate_host(name, Mg, Kg, fg)
+        tc, xc, ac, _ = integrate_host(name, Mc, Kc, fc)
+        dt = (float(np.abs(np.subtract(tg, tc)).max())
+              if len(tg) == len(tc) else np.inf)
+        dx = float(np.abs(xg[-1] - xc[-1]).max() / np.abs(xc[-1]).max())
+        log('  heat n=8 %-8s card vs CPU: M rel %.3e  K rel %.3e  steps '
+            '%d/%d (attempts %d/%d)  times max diff %.3e  x rel %.3e'
+            % (name, err_M, err_K, len(tg) - 1, len(tc) - 1, ag, ac, dt, dx))
+        if not (err_M <= 1e-13 and err_K <= 1e-13 and ag == ac
+                and dt <= 1e-12 and dx <= 1e-10):
+            raise RuntimeError('card heat problem disagrees with the CPU')
+        out['heat_n8'][name] = dict(steps=len(tg) - 1, attempts=ag,
+                                    times_max_diff=dt, x_rel=dx)
+    return out
+
+
+def run_mass_path(device, n=48):
+    """Phase 9: the 3D mass path, p=3 twisted box: ``MassAssembler.
+    assemble_banded()`` (K2 geometry stages, K1 mass, K2, K3; flat
+    layout) cold and warm, then the compact ``assemble()`` on the same
+    space; the layouts agree on a seeded matvec (1e-13 rel), and ``M 1``
+    through K4 equals ``assemble('v * dx')`` (1e-12 rel)."""
+    from pyiga_tpu_torch import _cuda, assemble, bspline, geometry
+    from pyiga_tpu_torch.assemblers import MassAssembler
+    from pyiga_tpu_torch.ops.banded import band_info
+    from pyiga_tpu_torch.ops.mlmatvec import MLMatvecOperator
+
+    kvs = 3 * (bspline.make_knots(3, 0.0, 1.0, n),)
+    geo = geometry.twisted_box()
+    t0 = time.perf_counter()
+    asm = MassAssembler(kvs, geo, device=device)
+    asm.tables.banded_term_tables(asm.terms, band_info(asm.structure))
+    t_host = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    _cuda.reset_launches()
+    times = []
+    for _ in range(2):                      # cold, warm
+        sync(device)
+        t0 = time.perf_counter()
+        op = asm.assemble_banded()
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    peak_banded = torch.cuda.max_memory_allocated(device)
+    t0 = time.perf_counter()
+    data = asm.run_device()
+    sync(device)
+    t_compact = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mlm = asm.assemble()
+    t_compact_host = time.perf_counter() - t0
+    ones = torch.ones(op.shape[0], dtype=torch.float64, device=device)
+    m1 = op(ones)
+    sync(device)
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+    missing = [k for k in MASS_KERNELS if launches[k] <= 0]
+    if missing:
+        raise RuntimeError('mass path never launched %s' % missing)
+
+    x = torch.as_tensor(np.random.RandomState(9).rand(op.shape[0]),
+                        dtype=torch.float64, device=device)
+    y_b = op(x)
+    y_c = MLMatvecOperator(data, asm.structure)(x)
+    rel_layout = float((y_b - y_c).abs().max() / y_c.abs().max())
+    v = torch.as_tensor(assemble.assemble('v * dx', kvs, geo=geo,
+                                          device=device).ravel(),
+                        dtype=torch.float64, device=device)
+    rel_pu = float((m1 - v).abs().max() / v.abs().max())
+    vol = float(m1.sum())
+    rec = dict(n=n, p=3, ndofs=op.shape[0], D_bytes=op.D.numel() * 8,
+               compact_bytes=data.numel() * 8, t_host_setup_ms=1e3 * t_host,
+               t_banded_cold_ms=1e3 * times[0],
+               t_banded_warm_ms=1e3 * times[1],
+               t_compact_run_device_ms=1e3 * t_compact,
+               t_compact_assemble_ms=1e3 * t_compact_host,
+               layout_rel=rel_layout, m1_vs_vdx_rel=rel_pu, volume=vol,
+               peak_banded_bytes=int(peak_banded), peak_bytes=int(peak),
+               launches=launches, mlmatrix_nnz_blocks=list(mlm.data.shape))
+    log('  3D p=3 n=%d: %d dofs, D %.0f MB, compact %.0f MB; host setup '
+        '%.0f ms' % (n, rec['ndofs'], rec['D_bytes'] / 1e6,
+                     rec['compact_bytes'] / 1e6, rec['t_host_setup_ms']))
+    log('  assemble_banded cold %.2f ms  warm %.2f ms  run_device (compact) '
+        '%.2f ms  assemble() with host copy %.1f ms'
+        % (rec['t_banded_cold_ms'], rec['t_banded_warm_ms'],
+           rec['t_compact_run_device_ms'], rec['t_compact_assemble_ms']))
+    log('  banded vs compact matvec rel %.3e  M 1 vs v*dx rel %.3e  volume '
+        '%.12f  peak %.0f MB (banded alone %.0f MB)'
+        % (rel_layout, rel_pu, vol, peak / 2 ** 20, peak_banded / 2 ** 20))
+    log('  launches: %s' % launches)
+    if not (rel_layout <= 1e-13 and rel_pu <= 1e-12
+            and bool(torch.isfinite(m1).all())):
+        raise RuntimeError('mass layouts or partition of unity disagree')
+    return rec
+
+
+def run_heat_host(device, n=128):
+    """Phase 10: the heat equation on the 2D p=3 NURBS quarter annulus,
+    M and K assembled on the card through the compact path and held to
+    the CPU assembly (1e-13), then integrated by the host esdirk34 (to
+    t = 3e-4, see ``HEAT_T_END``) and ros3p (to t = 0.1), both adaptive
+    with tol 1e-5 and tau0 1e-3."""
+    from pyiga_tpu_torch import _cuda, assemble, bspline, geometry
+    kvs = 2 * (bspline.make_knots(3, 0.0, 1.0, n),)
+    geo = geometry.quarter_annulus()
+    _cuda.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    M = assemble.mass(kvs, geo, device=device)
+    K = assemble.stiffness(kvs, geo, device=device)
+    sync(device)
+    t_first = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    missing = [k for k in HEAT_KERNELS if launches[k] <= 0]
+    if missing:
+        raise RuntimeError('heat path never launched %s' % missing)
+    t0 = time.perf_counter()
+    M = assemble.mass(kvs, geo, device=device)
+    K = assemble.stiffness(kvs, geo, device=device)
+    t_warm = time.perf_counter() - t0
+    from pyiga_tpu_torch.assemblers import MassAssembler, StiffnessAssembler
+    t_dev = {}
+    for name, cls in (('mass', MassAssembler),
+                      ('stiffness', StiffnessAssembler)):
+        asm = cls(kvs, geo, device=device)
+        t_dev[name] = time_ms(asm.run_device, device, reps=5)
+    Mc = assemble.mass(kvs, geo)
+    Kc = assemble.stiffness(kvs, geo)
+    err_M = float(abs(M - Mc).max() / abs(Mc).max())
+    err_K = float(abs(K - Kc).max() / abs(Kc).max())
+    Mf, Kf, f = heat_system(M, K, kvs)
+    rec = dict(n=n, p=3, ndofs=M.shape[0], n_free=Mf.shape[0],
+               t_assembly_first_ms=1e3 * t_first,
+               t_assembly_csr_ms=1e3 * t_warm,
+               t_run_device_ms=t_dev, M_rel_cpu=err_M, K_rel_cpu=err_K,
+               launches=launches)
+    log('  2D p=3 n=%d: %d dofs (%d free); M+K to CSR first %.0f ms, warm '
+        '%.0f ms; run_device mass %.2f ms stiffness %.2f ms; vs CPU M %.3e '
+        'K %.3e' % (n, rec['ndofs'], rec['n_free'], 1e3 * t_first,
+                    1e3 * t_warm, t_dev['mass'], t_dev['stiffness'], err_M,
+                    err_K))
+    log('  launches: %s' % launches)
+    if not (err_M <= 1e-13 and err_K <= 1e-13):
+        raise RuntimeError('card heat matrices disagree with the CPU')
+    import scipy.sparse.linalg
+    t0 = time.perf_counter()
+    scipy.sparse.linalg.splu((Mf + 1e-3 * Kf).tocsc(), permc_spec='COLAMD')
+    rec['t_one_lu_s'] = time.perf_counter() - t0
+    for name, t_end in HEAT_T_END.items():
+        ts, xs, att, secs = integrate_host(name, Mf, Kf, f, t_end=t_end)
+        acc = len(ts) - 1
+        rec[name] = dict(t_end=t_end, accepted=acc, rejected=att - acc,
+                         seconds=secs, t_final=ts[-1],
+                         x_max=float(np.abs(xs[-1]).max()))
+        log('  %-8s to t_end %g: %d accepted, %d rejected, t %.6f, max u '
+            '%.6f, host %.2f s (one LU %.3f s)'
+            % (name, t_end, acc, att - acc, ts[-1], rec[name]['x_max'], secs,
+               rec['t_one_lu_s']))
+        if not (np.all(np.isfinite(xs[-1])) and ts[-1] >= t_end
+                and 0 < rec[name]['x_max'] < 1):
+            raise RuntimeError('heat integration by %s failed' % name)
+    return rec
+
+
+def run_heat_device(device, n=60, n_full=128):
+    """Phase 10b: the heat equation on the polar quarter annulus given as
+    a ``UserFunction`` (K through K1', M through the plain host-Jacobian
+    mass), integrated by ``DeviceRosenbrockScheme`` (ros3p, tol 1e-5;
+    and rodasp, tol 1e-7, whose sequence has a rejected step) against
+    the host ``_RosenbrockScheme`` on the same matrices; then K and M at
+    n=128 on the card held to the CPU (1e-13)."""
+    from pyiga_tpu_torch import _cuda, assemble, bspline, solvers
+    from pyiga_tpu_torch.ops.rosw import DeviceRosenbrockScheme
+    kvs = 2 * (bspline.make_knots(3, 0.0, 1.0, n),)
+    geo = polar_annulus()
+    _cuda.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    M = assemble.mass(kvs, geo, device=device)
+    K = assemble.stiffness(kvs, geo, device=device)
+    sync(device)
+    t_asm = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    missing = [k for k in USERGEO_KERNELS if launches[k] <= 0]
+    if missing:
+        raise RuntimeError('user-geometry path never launched %s' % missing)
+    Mf, Kf, f = heat_system(M, K, kvs)
+    rec = dict(n=n, p=3, ndofs=M.shape[0], n_free=Mf.shape[0],
+               t_assembly_ms=1e3 * t_asm, launches=launches)
+    log('  2D p=3 n=%d polar UserFunction: %d dofs (%d free); M+K %.0f ms'
+        % (n, rec['ndofs'], rec['n_free'], 1e3 * t_asm))
+    log('  launches: %s' % launches)
+    ops = {'K': torch.as_tensor(Kf.toarray(), device=device),
+           'f': torch.as_tensor(f, device=device)}
+    rec['host_fallbacks'] = 0
+    for name, tol in (('ros3p', 1e-5), ('rodasp', 1e-7)):
+        ts_h, xs_h, att_h, secs_h = integrate_host(name, Mf, Kf, f, tol=tol)
+        A, G, b, bh, order = getattr(solvers, 'coeffs_' + name)()
+        scheme = DeviceRosenbrockScheme(
+            (A, G, b, bh), lambda x, o: o['f'] - o['K'] @ x,
+            lambda x, o: -o['K'], Mf.toarray(), ops,
+            host_scheme=solvers._RosenbrockScheme(A, G, b, bh),
+            device=device)
+        sync(device)
+        t0 = time.perf_counter()
+        ts, xs = scheme.integrate_adaptive(
+            (Mf, lambda x: f - Kf @ x, lambda x: -Kf), np.zeros(len(f)),
+            1e-3, 0.1, tol, order)
+        secs = time.perf_counter() - t0
+        rec['host_fallbacks'] += scheme.host_fallbacks
+        same = len(ts) == len(ts_h) and scheme.n_attempts == att_h
+        dt = (float(np.abs(np.subtract(ts, ts_h)).max()) if same
+              else np.inf)
+        dx = float(np.abs(xs[-1] - xs_h[-1]).max()
+                   / np.abs(xs_h[-1]).max())
+        acc = len(ts) - 1
+        rec[name] = dict(tol=tol, accepted=acc, rejected=scheme.n_attempts
+                         - acc, host_accepted=len(ts_h) - 1,
+                         host_rejected=att_h - len(ts_h) + 1,
+                         times_max_diff=dt, x_rel=dx, device_s=secs,
+                         host_s=secs_h,
+                         ms_per_attempt_device=1e3 * secs / scheme.n_attempts,
+                         ms_per_attempt_host=1e3 * secs_h / att_h,
+                         host_reads=scheme.n_host_reads)
+        log('  %-6s tol %.0e: device %d accepted / %d rejected, host %d / %d'
+            '; times max diff %.3e  x rel %.3e; %.2f ms per step attempt on '
+            'the card, %.2f ms on the host'
+            % (name, tol, acc, rec[name]['rejected'],
+               rec[name]['host_accepted'], rec[name]['host_rejected'], dt, dx,
+               rec[name]['ms_per_attempt_device'],
+               rec[name]['ms_per_attempt_host']))
+        # ros3p to 1e-12; rodasp's 25 attempts compound the stage
+        # solves' 1e-11 residual into tau, so its times are held to 1e-10
+        if not (same and dt <= (1e-12 if name == 'ros3p' else 1e-10)
+                and dx <= 1e-9):
+            raise RuntimeError('device Rosenbrock (%s) left the host step '
+                               'sequence' % name)
+    log('  host fallbacks: %d' % rec['host_fallbacks'])
+    if rec['host_fallbacks'] != 0:
+        raise RuntimeError('device Rosenbrock fell back to the host')
+
+    kvs = 2 * (bspline.make_knots(3, 0.0, 1.0, n_full),)
+    errs = {}
+    for kind in ('mass', 'stiffness'):
+        A = getattr(assemble, kind)(kvs, geo, device=device)
+        Ac = getattr(assemble, kind)(kvs, geo)
+        errs[kind] = float(abs(A - Ac).max() / abs(Ac).max())
+    rec['n128_rel_cpu'] = errs
+    log('  n=%d card vs CPU: M %.3e  K %.3e' % (n_full, errs['mass'],
+                                                errs['stiffness']))
+    if not max(errs.values()) <= 1e-13:
+        raise RuntimeError('card user-geometry matrices disagree with CPU')
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -854,6 +1317,31 @@ def main():
     torch.cuda.empty_cache()
     log('phase 8b: local-MG path, 2D p=3 HB (48,3), smoother_impl=fused')
     lmg48 = run_localmg(device, 48, impl='fused')
+    torch.cuda.empty_cache()
+
+    log("phase 4g: K1 mass kind and K1' vs plain versions")
+    kern.update(check_mass_kernels(device))
+    torch.cuda.empty_cache()
+
+    log('phase 4h: mass/stiffness fixtures and the small heat problem, '
+        'card vs CPU')
+    small.update(check_mass_small(device))
+    torch.cuda.empty_cache()
+
+    log('phase 9: mass path, 3D p=3 twisted box n=48, float64')
+    mass3 = run_mass_path(device)
+    launches['mass_fields'] = mass3['launches']['mass_fields']
+    torch.cuda.empty_cache()
+
+    log('phase 10: heat equation, host integrators, 2D p=3 NURBS quarter '
+        'annulus n=128')
+    heat = run_heat_host(device)
+    torch.cuda.empty_cache()
+
+    log('phase 10b: heat equation, device Rosenbrock, 2D p=3 polar '
+        'UserFunction n=60')
+    heat_dev = run_heat_device(device)
+    launches['host_jac_fields'] = heat_dev['launches']['host_jac_fields']
 
     kernels = [dict(name=k, route=KERNELS[k][0], source=KERNELS[k][1],
                     replaces=KERNELS[k][2], launches=launches[k],
@@ -862,7 +1350,8 @@ def main():
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=t_build, kernels=kern,
                   small=small, main3d=main3, main2d=main2,
-                  convdiff2d=conv, localmg_24_3=lmg, localmg_48_3=lmg48)
+                  convdiff2d=conv, localmg_24_3=lmg, localmg_48_3=lmg48,
+                  mass3d=mass3, heat2d=heat, heat2d_device=heat_dev)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:
         json.dump(record, f, indent=1, default=str)

@@ -35,7 +35,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'stage': 0, 'fold': 0,
+LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'mass_fields': 0,
+            'host_jac_fields': 0, 'stage': 0, 'fold': 0,
             'flat_banded_f64': 0, 'flat_banded_f32': 0, 'vform_fields': 0,
             'vcycle': 0}
 
@@ -44,6 +45,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     'pyiga_stiff_fields_f64': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
+    'pyiga_mass_fields_f64': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
+    'pyiga_host_jac_fields_f64': (_P, _P, _P, _I, _L, _P),
     'pyiga_geo_jac_fields_f64': (_P, _P, _P, _I, _I, _L, _I, _I, _P),
     'pyiga_stage_f64': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_fold_f64': (_P, _P, _I, _P, _I, _L, _I, _P),

@@ -2,7 +2,9 @@
 """High-level assembly API (port of the VForm part of
 :mod:`pyiga_tpu.assemble`): :func:`assemble` of a form string, a
 :class:`~pyiga_tpu_torch.vform.VForm`, a compiled assembler class or an
-assembler instance.
+assembler instance; :func:`mass` and :func:`stiffness` over a TP space
+(the 1D builders, the Kronecker route for ``geo=None`` and the Gauss
+assemblers of :mod:`pyiga_tpu_torch.assemblers` for a geometry).
 
 Matrix conventions as in the JAX package: rows are test functions,
 columns trial functions.  The device is explicit (``device=``; omitted
@@ -16,9 +18,165 @@ Boundary integrals and vector-valued layouts are not ported yet.
 import numpy as np
 import scipy.sparse
 
-from . import bspline
+from . import assemblers, bspline, utils
 from . import vform as vform_mod
+from .bspline import KnotVector
 from .compile import compile_vform
+from .quadrature import make_iterated_quadrature
+
+
+################################################################################
+# 1D assemblers (host copies of the JAX package's)
+################################################################################
+
+def _quad_biform_1d(kv_trial, kv_test, du, dv, quadgrid=None, nqp=None,
+                    weightfunc=None):
+    """Core 1D quadrature bilinear form ``C_test^(dv)^T diag(w)
+    C_trial^(du)`` over per-span Gauss nodes (Galerkin and
+    Petrov-Galerkin)."""
+    if quadgrid is None:
+        quadgrid = kv_trial.mesh
+    if nqp is None:
+        # exact for the polynomial integrand degree
+        degree = kv_trial.p + kv_test.p - du - dv
+        nqp = (degree + 2) // 2
+    nodes, weights = make_iterated_quadrature(quadgrid, nqp)
+    if weightfunc is not None:
+        weights = weights * utils.grid_eval(weightfunc, (nodes,))
+    Du = bspline.collocation_derivs(kv_trial, nodes, derivs=du)[du]
+    Dv = bspline.collocation_derivs(kv_test, nodes, derivs=dv)[dv]
+    return (Dv.T @ scipy.sparse.diags(weights) @ Du).tocsr()
+
+
+def bsp_mixed_deriv_biform_1d(knotvec, du, dv, nqp=None, weightfunc=None):
+    """1D matrix for ``a(u,v) = int weight * u^(du) v^(dv)``."""
+    return _quad_biform_1d(knotvec, knotvec, du, dv, nqp=nqp,
+                           weightfunc=weightfunc)
+
+
+def bsp_mass_1d(knotvec, weightfunc=None):
+    """1D mass matrix (optionally weighted)."""
+    return _quad_biform_1d(knotvec, knotvec, 0, 0, weightfunc=weightfunc)
+
+
+def bsp_stiffness_1d(knotvec, weightfunc=None):
+    """1D stiffness (Laplace) matrix (optionally weighted)."""
+    return _quad_biform_1d(knotvec, knotvec, 1, 1, weightfunc=weightfunc)
+
+
+def bsp_mixed_deriv_biform_1d_asym(knotvec1, knotvec2, du, dv,
+                                   quadgrid=None, nqp=None):
+    """Petrov-Galerkin 1D matrix relating trial space `knotvec1` (`du`
+    derivatives) and test space `knotvec2` (`dv` derivatives); shape
+    ``knotvec2.numdofs x knotvec1.numdofs``."""
+    return _quad_biform_1d(knotvec1, knotvec2, du, dv, quadgrid=quadgrid,
+                           nqp=nqp)
+
+
+def bsp_mass_1d_asym(knotvec1, knotvec2, quadgrid=None):
+    return _quad_biform_1d(knotvec1, knotvec2, 0, 0, quadgrid=quadgrid)
+
+
+def bsp_stiffness_1d_asym(knotvec1, knotvec2, quadgrid=None):
+    return _quad_biform_1d(knotvec1, knotvec2, 1, 1, quadgrid=quadgrid)
+
+
+################################################################################
+# Multi-dimensional mass/stiffness: Kronecker route and Gauss assemblers
+################################################################################
+
+def _separable_mass(kvs, format):
+    """geo=None: the mass matrix is an exact Kronecker product of 1D mass
+    matrices."""
+    out = bsp_mass_1d(kvs[-1])
+    for kv in reversed(kvs[:-1]):
+        out = scipy.sparse.kron(bsp_mass_1d(kv), out, format=format)
+    return out
+
+
+def _separable_stiffness(kvs, format):
+    """geo=None: Laplace = sum over axes of (mass (x) ... (x)
+    stiffness_at_axis (x) ... (x) mass), with nested grouping per axis."""
+    M = [bsp_mass_1d(kv) for kv in kvs]
+    K = [bsp_stiffness_1d(kv) for kv in kvs]
+
+    def kron(A, B):
+        return scipy.sparse.kron(A, B, format=format)
+
+    def build(lo):
+        # sum of Kronecker terms for axes lo..d-1 (exactly one K factor)
+        if lo == len(kvs) - 1:
+            return K[lo], M[lo]
+        K_rest, M_rest = build(lo + 1)
+        return kron(K[lo], M_rest) + kron(M[lo], K_rest), kron(M[lo], M_rest)
+
+    return build(0)[0]
+
+
+def _geometry_assembler_entries(asm_class, knotvecs, geo, format,
+                                device=None):
+    return assemble_entries(asm_class(knotvecs, geo, device=device),
+                            symmetric=True, format=format)
+
+
+def bsp_mass_2d(knotvecs, geo=None, format='csr', device=None):
+    if geo is None:
+        return _separable_mass(knotvecs, format)
+    return _geometry_assembler_entries(assemblers.MassAssembler2D,
+                                       knotvecs, geo, format, device)
+
+
+def bsp_stiffness_2d(knotvecs, geo=None, format='csr', device=None):
+    if geo is None:
+        return _separable_stiffness(knotvecs, format)
+    return _geometry_assembler_entries(assemblers.StiffnessAssembler2D,
+                                       knotvecs, geo, format, device)
+
+
+def bsp_mass_3d(knotvecs, geo=None, format='csr', device=None):
+    if geo is None:
+        return _separable_mass(knotvecs, format)
+    return _geometry_assembler_entries(assemblers.MassAssembler3D,
+                                       knotvecs, geo, format, device)
+
+
+def bsp_stiffness_3d(knotvecs, geo=None, format='csr', device=None):
+    if geo is None:
+        return _separable_stiffness(knotvecs, format)
+    return _geometry_assembler_entries(assemblers.StiffnessAssembler3D,
+                                       knotvecs, geo, format, device)
+
+
+def mass(kvs, geo=None, format='csr', device=None):
+    """Mass matrix over a TP spline space: the 1D builder for one axis,
+    the Kronecker route for ``geo=None``, else the
+    :class:`~pyiga_tpu_torch.assemblers.MassAssembler` on `device`
+    (default: the CPU)."""
+    kvs = (kvs,) if isinstance(kvs, KnotVector) else tuple(kvs)
+    if len(kvs) == 1:
+        return bsp_mass_1d(kvs[0])
+    if geo is None:
+        return _separable_mass(kvs, format)
+    return _geometry_assembler_entries(assemblers.MassAssembler, kvs, geo,
+                                       format, device)
+
+
+def stiffness(kvs, geo=None, format='csr', device=None):
+    """Stiffness matrix over a TP spline space (routes as :func:`mass`;
+    the Gauss assembler is the
+    :class:`~pyiga_tpu_torch.assemblers.StiffnessAssembler`)."""
+    kvs = (kvs,) if isinstance(kvs, KnotVector) else tuple(kvs)
+    if len(kvs) == 1:
+        return bsp_stiffness_1d(kvs[0])
+    builders = {2: bsp_stiffness_2d, 3: bsp_stiffness_3d}
+    if len(kvs) not in builders:
+        raise ValueError('dimension %d not supported' % len(kvs))
+    return builders[len(kvs)](kvs, geo=geo, format=format, device=device)
+
+
+################################################################################
+# Boundary index sets, restricted systems and the VForm entry points
+################################################################################
 
 
 def slice_indices(ax, idx, shape, ravel=False, flip=None):
@@ -148,8 +306,9 @@ def instantiate_assembler(problem, kvs, args, bfuns, boundary=None,
 
 
 def assemble_entries(asm, symmetric=False, format='csr', mode=None):
-    """Assemble all entries of the given assembler and return the matrix
-    (scipy sparse in `format`, or the compact
+    """Assemble all entries of the given assembler (a VForm assembler or
+    a Gauss assembler of :mod:`pyiga_tpu_torch.assemblers`) and return the
+    matrix (scipy sparse in `format`, or the compact
     :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix` for ``format='mlb'``) or,
     for arity-1 assemblers, the vector.  `symmetric` is accepted for API
     compatibility."""

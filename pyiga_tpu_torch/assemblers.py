@@ -1,15 +1,23 @@
 # -*- coding: utf-8 -*-
 """Gauss assemblers built on the sum-factorization engine (port of
-:mod:`pyiga_tpu.assemblers`: the stiffness assembler and its banded
-solver-layout entry point).
+:mod:`pyiga_tpu.assemblers`: the mass and stiffness assemblers, their
+compact and banded solver-layout entry points).
 
-:meth:`BaseGaussAssembler.assemble_banded` is the normal entry point: it
-evaluates the geometry fields (kernels K2 and K1), runs the folded
-contraction chains (K2 stages, K3 final fold) and lays the result out for
-the flat banded matvec (K4), returning a float64
-:class:`~pyiga_tpu_torch.ops.banded.FlatBandedOperator` on the
-assembler's device.  On the CPU the same pipeline runs the kernels' plain
-PyTorch versions.
+Two entry points share the geometry fields (kernels K2 and K1 for a
+spline or NURBS geometry, K1' or a plain expression for a Jacobian
+evaluated on the host):
+
+* :meth:`BaseGaussAssembler.assemble` runs the folded contraction chains
+  over the compact pair tables (K2 stages, K3 final fold) and returns the
+  host :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix` (``run_device`` keeps
+  the data on the device);
+* :meth:`BaseGaussAssembler.assemble_banded` runs them over the banded
+  pair tables and lays the result out for the flat banded matvec (K4),
+  returning a float64
+  :class:`~pyiga_tpu_torch.ops.banded.FlatBandedOperator` on the
+  assembler's device.
+
+On the CPU the same pipelines run the kernels' plain PyTorch versions.
 """
 
 import numpy as np
@@ -17,13 +25,16 @@ import torch
 
 from .bspline import KnotVector
 from .config import DTYPE, resolve_device
-from .mlmatrix import MLStructure
+from .mlmatrix import MLStructure, transpose_idx_for_bidx
 from .ops import cuda_sumfac, geom, sumfac
 from .ops.banded import FlatBandedOperator, band_info
 
 
-# B_ab = W (J^-1 J^-T)_ab for all axis pairs (a, b) in level order,
-# row-major, from a dict of geometry tensors (BaseGaussAssembler.geo_inputs)
+# from a dict of geometry tensors (BaseGaussAssembler.geo_inputs):
+# the mass field [W], W = gauss_weight |det J| ...
+mass_fields = cuda_sumfac.mass_fields
+# ... and B_ab = W (J^-1 J^-T)_ab for all axis pairs (a, b) in level
+# order, row-major
 stiffness_fields = cuda_sumfac.stiffness_fields
 
 
@@ -36,9 +47,11 @@ def _unit(d, k):
 class BaseGaussAssembler:
     """Shared setup for Gauss assemblers over a TP spline space with
     geometry.  Host setup (quadrature, sparsity, basis tables, geometry
-    tables) is numpy; device tensors are made on `device` when assembling.
+    tables or the host-evaluated Jacobian) is numpy; device tensors are
+    made on `device` when assembling (a host Jacobian is uploaded once).
     """
 
+    arity = 2
     numderiv = 1
     # subclasses with a symmetric coefficient field set this to enable
     # symmetric-term folding
@@ -58,21 +71,38 @@ class BaseGaussAssembler:
         self.tables = sumfac.SpaceTables(self.kvs, self.kvs, self.grid,
                                          self.structure.bidx, self.numderiv)
         self._geo_inputs = self._make_geo_inputs()
+        self._jac_dev = None
+        self._compact_ops = None
 
     def _make_geo_inputs(self):
-        tables, coeffs, is_nurbs = geom.geo_eval_tables(self.geo, self.grid,
-                                                        numderiv=1)
-        key = 'geo_tables_nurbs' if is_nurbs else 'geo_tables_bsp'
-        return {'weights': [np.asarray(w) for w in self.gweights],
-                key: list(tables), 'geo_coeffs': coeffs}
+        inputs = {'weights': [np.asarray(w) for w in self.gweights]}
+        setup = geom.geo_eval_tables(self.geo, self.grid, numderiv=1)
+        if setup is None:
+            # no spline: the geometry's Jacobian is evaluated on the host
+            inputs['jac'] = geom.host_jacobian_levelorder(self.geo, self.grid)
+        else:
+            tables, coeffs, is_nurbs = setup
+            key = 'geo_tables_nurbs' if is_nurbs else 'geo_tables_bsp'
+            inputs[key] = list(tables)
+            inputs['geo_coeffs'] = coeffs
+        return inputs
 
     def geo_inputs(self, dtype=DTYPE):
-        """The geometry inputs as tensors on the assembler's device."""
+        """The geometry inputs as tensors on the assembler's device (the
+        host Jacobian of a non-spline geometry is uploaded on the first
+        call and kept)."""
         def dev(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype,
                                    device=self.device)
-        return {k: [dev(a) for a in v] if isinstance(v, list) else dev(v)
-                for k, v in self._geo_inputs.items()}
+        out = {}
+        for k, v in self._geo_inputs.items():
+            if k == 'jac' and dtype == DTYPE:
+                if self._jac_dev is None:
+                    self._jac_dev = dev(v)
+                out[k] = self._jac_dev
+            else:
+                out[k] = [dev(a) for a in v] if isinstance(v, list) else dev(v)
+        return out
 
     def _fold(self):
         """Symmetric fold plan of the terms (None without mirroring)."""
@@ -82,6 +112,54 @@ class BaseGaussAssembler:
         if plan is None or all(not m for _, m in plan):
             return None
         return plan
+
+    def _compact_operands(self):
+        """Device tensors of the compact assembly (memoized): the compact
+        pair tables of every term (each distinct host table uploaded
+        once), their last-table groups, and the transpose permutations of
+        a folded plan."""
+        if self._compact_ops is not None:
+            return self._compact_ops
+        host_tabs = self.tables.term_tables(self.terms)
+        uploaded = {}
+        for tabs in host_tabs:
+            for T in tabs:
+                if id(T) not in uploaded:
+                    uploaded[id(T)] = torch.as_tensor(
+                        np.ascontiguousarray(T), dtype=DTYPE,
+                        device=self.device)
+        plan = self._fold()
+        tperms = None
+        if plan is not None:
+            tperms = [torch.as_tensor(transpose_idx_for_bidx(bx),
+                                      dtype=torch.int64, device=self.device)
+                      for bx in self.structure.bidx]
+        self._compact_ops = dict(
+            term_tables=[[uploaded[id(T)] for T in tabs]
+                         for tabs in host_tabs],
+            last_idx=sumfac.last_table_groups(host_tabs),
+            plan=plan or [(t, False) for t in range(len(self.terms))],
+            tperms=tperms)
+        return self._compact_ops
+
+    def run_device(self, mode=None):
+        """Assemble the compact data tensor ``(nnz_1, ..., nnz_d)`` on the
+        assembler's device (float64): geometry fields, then the folded
+        chains (K2 stages, one K3 fold per term group) and the transpose
+        gather of mirrored terms.  `mode` is accepted for API
+        compatibility and ignored: the port has one float64 route, the
+        exact one."""
+        ops = self._compact_operands()
+        return cuda_sumfac.assemble_terms_folded(
+            ops['term_tables'], self.field_fn(self.geo_inputs()),
+            ops['plan'], ops['tperms'], ops['last_idx'])
+
+    def assemble(self, mode=None):
+        """Assemble and return the matrix as a host
+        :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix` over
+        :attr:`structure` (`mode` as in :meth:`run_device`)."""
+        data = self.run_device(mode)
+        return self.structure.make_mlmatrix(data=data.cpu().numpy())
 
     def assemble_banded(self):
         """Assemble straight into the flat banded solver layout and return
@@ -122,6 +200,17 @@ class BaseGaussAssembler:
         return FlatBandedOperator(D, bws, ns)
 
 
+class MassAssembler(BaseGaussAssembler):
+    """Mass matrix assembler: ``A[i,j] = int B_j B_i |det J| dx``."""
+
+    field_fn = staticmethod(mass_fields)
+
+    def __init__(self, kvs, geo, nqp=None, device=None):
+        super().__init__(kvs, geo, nqp, device)
+        zero = self.dim * (0,)
+        self.terms = [(zero, zero)]
+
+
 class StiffnessAssembler(BaseGaussAssembler):
     """Stiffness matrix assembler:
     ``A[i,j] = int (J^-1 J^-T grad B_j) . grad B_i |det J| dx``."""
@@ -135,3 +224,32 @@ class StiffnessAssembler(BaseGaussAssembler):
         # order must match stiffness_fields: (a, b) row-major in level order
         self.terms = [(_unit(d, a), _unit(d, b))
                       for a in range(d) for b in range(d)]
+
+
+# dimension-suffixed aliases of the reference API
+class MassAssembler2D(MassAssembler):
+    def __init__(self, kvs, geo, nqp=None, device=None):
+        if len(kvs) != 2:
+            raise ValueError('MassAssembler2D needs a 2D space')
+        super().__init__(kvs, geo, nqp, device)
+
+
+class MassAssembler3D(MassAssembler):
+    def __init__(self, kvs, geo, nqp=None, device=None):
+        if len(kvs) != 3:
+            raise ValueError('MassAssembler3D needs a 3D space')
+        super().__init__(kvs, geo, nqp, device)
+
+
+class StiffnessAssembler2D(StiffnessAssembler):
+    def __init__(self, kvs, geo, nqp=None, device=None):
+        if len(kvs) != 2:
+            raise ValueError('StiffnessAssembler2D needs a 2D space')
+        super().__init__(kvs, geo, nqp, device)
+
+
+class StiffnessAssembler3D(StiffnessAssembler):
+    def __init__(self, kvs, geo, nqp=None, device=None):
+        if len(kvs) != 3:
+            raise ValueError('StiffnessAssembler3D needs a 3D space')
+        super().__init__(kvs, geo, nqp, device)

@@ -4,10 +4,10 @@
 A copy of the parts of :mod:`pyiga_tpu.bspline` that the port needs:
 :class:`KnotVector` (with the mesh queries and ``refine`` that the
 hierarchical spaces use), :func:`make_knots`, :func:`findspans`,
-:func:`active_deriv`, :func:`collocation` and :func:`prolongation`, and
-the boundary-spec parser.  Kept as numpy code (setup-time, tiny arrays)
-and held equal to the original by ``tests/test_torch_host.py`` and
-``tests/test_torch_hierarchical.py``.
+:func:`active_deriv`, :func:`collocation`, :func:`collocation_derivs`
+and :func:`prolongation`, and the boundary-spec parser.  Kept as numpy
+code (setup-time, tiny arrays) and held equal to the original by
+``tests/test_torch_host.py`` and ``tests/test_torch_hierarchical.py``.
 
 Conventions: knot vectors are open (first/last knot repeated ``p+1``
 times); ``active_deriv(kv, u, nd)`` returns shape ``(nd+1, p+1, npts)``
@@ -234,16 +234,30 @@ def active_deriv(knotvec, u, numderiv):
     return out
 
 
-def collocation(kv, nodes):
-    """Sparse collocation matrix ``C[i,j] = B_j(nodes[i])`` (CSR)."""
-    nodes = np.asarray(nodes, dtype=float)
-    m, n, p = len(nodes), kv.numdofs, kv.p
-    values = active_deriv(kv, nodes, 0)[0].T               # (m, p+1)
-    indices = findspans(kv, nodes) - p
+def _collocation_csr(kv, values, indices):
+    """CSR matrix with rows ``values[i]`` at columns ``indices[i] + r``."""
+    m, p = values.shape[0], kv.p
     I = np.repeat(np.arange(m), p + 1)
     J = (indices[:, None] + np.arange(p + 1)[None, :]).ravel()
     return scipy.sparse.coo_matrix((values.ravel(), (I, J)),
-                                   shape=(m, n)).tocsr()
+                                   shape=(m, kv.numdofs)).tocsr()
+
+
+def collocation(kv, nodes):
+    """Sparse collocation matrix ``C[i,j] = B_j(nodes[i])`` (CSR)."""
+    nodes = np.asarray(nodes, dtype=float)
+    values = active_deriv(kv, nodes, 0)[0].T               # (m, p+1)
+    return _collocation_csr(kv, values, findspans(kv, nodes) - kv.p)
+
+
+def collocation_derivs(kv, nodes, derivs=1):
+    """List of `derivs`+1 sparse collocation matrices (values, 1st, ...,
+    `derivs`-th derivatives)."""
+    nodes = np.asarray(nodes, dtype=float)
+    values = active_deriv(kv, nodes, derivs)         # (derivs+1, p+1, m)
+    indices = findspans(kv, nodes) - kv.p
+    return [_collocation_csr(kv, values[k].T, indices)
+            for k in range(derivs + 1)]
 
 
 def prolongation(kv1, kv2):

@@ -29,7 +29,10 @@ def knot_vector(kv):
 def geometry_from(geo):
     """A port geometry from a B-spline or NURBS geometry object exposing
     ``kvs`` and ``coeffs`` (NURBS coefficients premultiplied, weight last,
-    as both packages store them)."""
+    as both packages store them), or from a ``UserFunction`` (the same
+    callables, support and dimension)."""
+    if type(geo).__name__ == 'UserFunction':
+        return geometry.UserFunction(geo.f, geo.support, jac=geo.jac)
     kvs = tuple(knot_vector(kv) for kv in geo.kvs)
     coeffs = np.array(geo.coeffs, dtype=float)
     if type(geo).__name__ == 'NurbsFunc':
@@ -41,10 +44,10 @@ def geometry_from(geo):
 
 
 def geo_inputs(gi, device=None):
-    """An assembler's geometry-input dict (``weights``, ``geo_tables_bsp``
-    or ``geo_tables_nurbs``, ``geo_coeffs``; numpy arrays or lists of them)
-    as float64 tensors on `device`, the form the port's field functions
-    take."""
+    """An assembler's geometry-input dict (``weights``, then
+    ``geo_tables_bsp`` or ``geo_tables_nurbs`` with ``geo_coeffs``, or the
+    host Jacobian ``jac``; numpy arrays or lists of them) as float64
+    tensors on `device`, the form the port's field functions take."""
     device = resolve_device(device)
 
     def dev(a):
@@ -54,7 +57,9 @@ def geo_inputs(gi, device=None):
     for key in ('weights', 'geo_tables_bsp', 'geo_tables_nurbs'):
         if key in gi:
             out[key] = [dev(a) for a in gi[key]]
-    out['geo_coeffs'] = dev(gi['geo_coeffs'])
+    for key in ('geo_coeffs', 'jac'):
+        if key in gi:
+            out[key] = dev(gi[key])
     return out
 
 

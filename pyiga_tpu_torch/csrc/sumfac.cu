@@ -2,8 +2,10 @@
 //
 // K1  stiff_fields_kernel  replaces pyiga_tpu/ops/pallas_sumfac.py
 //     `_fields_fused` (pallas_call at :1087, body
-//     `_make_stiff_fields_fused_kernel`).
+//     `_make_stiff_fields_fused_kernel`), kinds 'stiffness' and 'mass'.
 // K1  geo_jac_fields_kernel  replaces the same call site's kind='jac'.
+// K1' host_jac_fields_kernel replaces `stiffness_fields_pallas`'s
+//     host-Jacobian branch (pallas_call at :1163).
 // K2  stage_kernel         replaces `_stage_call` (pallas_call at :353,
 //     bodies `_stage_kernel` / `_stage_kernel_acc`).
 // K3  fold_kernel          replaces `_stage_call_fold` (pallas_call at
@@ -18,7 +20,72 @@
 #include "common.cuh"
 
 // --------------------------------------------------------------------------
-// K1: geometry fields B_ab = W (J^-1 J^-T)_ab, one thread per Gauss point.
+// Per-point algebra shared by the field kernels: determinant, inverse by
+// the adjugate (as ops/geom.det_and_inv) and the unique stiffness fields.
+// --------------------------------------------------------------------------
+
+template <int D>
+__device__ __forceinline__ double det_of(double (&J)[D][D]) {
+    if constexpr (D == 2) {
+        return J[0][0] * J[1][1] - J[0][1] * J[1][0];
+    } else {
+        const double c00 = J[1][1] * J[2][2] - J[1][2] * J[2][1];
+        const double c01 = J[1][2] * J[2][0] - J[1][0] * J[2][2];
+        const double c02 = J[1][0] * J[2][1] - J[1][1] * J[2][0];
+        return J[0][0] * c00 + J[0][1] * c01 + J[0][2] * c02;
+    }
+}
+
+template <int D>
+__device__ __forceinline__ double det_and_inv(double (&J)[D][D],
+                                              double (&inv)[D][D]) {
+    const double det = det_of<D>(J);
+    if constexpr (D == 2) {
+        inv[0][0] = J[1][1] / det;
+        inv[0][1] = -J[0][1] / det;
+        inv[1][0] = -J[1][0] / det;
+        inv[1][1] = J[0][0] / det;
+    } else {
+        const double adj[3][3] = {
+            {J[1][1] * J[2][2] - J[1][2] * J[2][1],
+             J[0][2] * J[2][1] - J[0][1] * J[2][2],
+             J[0][1] * J[1][2] - J[0][2] * J[1][1]},
+            {J[1][2] * J[2][0] - J[1][0] * J[2][2],
+             J[0][0] * J[2][2] - J[0][2] * J[2][0],
+             J[0][2] * J[1][0] - J[0][0] * J[1][2]},
+            {J[1][0] * J[2][1] - J[1][1] * J[2][0],
+             J[0][1] * J[2][0] - J[0][0] * J[2][1],
+             J[0][0] * J[1][1] - J[0][1] * J[1][0]}};
+        for (int a = 0; a < D; ++a)
+            for (int b = 0; b < D; ++b) inv[a][b] = adj[a][b] / det;
+    }
+    return det;
+}
+
+// out[o * N + g] = W (J^-1 J^-T)_ab for the unique a <= b, row-major
+template <int D>
+__device__ __forceinline__ void store_stiffness(double (&inv)[D][D],
+                                                double W, double* out,
+                                                long long N, long long g) {
+    int o = 0;
+    for (int a = 0; a < D; ++a) {
+        for (int b = a; b < D; ++b) {
+            double s = 0.0;
+            for (int m = 0; m < D; ++m) s += inv[a][m] * inv[b][m];
+            out[(long long)o * N + g] = W * s;
+            ++o;
+        }
+    }
+}
+
+// --------------------------------------------------------------------------
+// K1: geometry fields on the Gauss grid, one thread per Gauss point.
+//
+// KIND kStiffness: B_ab = W (J^-1 J^-T)_ab, W = gw |det J| (replaces
+// pyiga_tpu/ops/pallas_sumfac.py `_fields_fused`, pallas_call at :1087,
+// body `_make_stiff_fields_fused_kernel`).
+// KIND kMass: the mass field W = gw |det J| alone (the same call site with
+// kind='mass', reached through `mass_fields_pallas`, :1411); no inverse.
 //
 // Inputs (all row-major float64):
 //   Y    (D, C, Q12, nL)  stage-1/2 geometry partials from K2: entry
@@ -28,18 +95,22 @@
 //   T    (2, QL, nL)      last-axis value (0) and derivative (1) tables.
 //   w12  (Q12,)           product of the leading axes' Gauss weights.
 //   wL   (QL,)            last-axis Gauss weights.
-// Output: out (D(D+1)/2, Q12, QL), the unique B_ab (a <= b, row-major) in
-// grid order.  C = D components for a B-spline map, D + 1 (homogeneous,
-// weight last) for NURBS.
+// Output: kStiffness out (D(D+1)/2, Q12, QL), the unique B_ab (a <= b,
+// row-major) in grid order; kMass out (Q12, QL).  C = D components for a
+// B-spline map, D + 1 (homogeneous, weight last) for NURBS, whose
+// quotient rule runs before the determinant.
 //
-// Bound: device-memory writes (D(D+1)/2 doubles per point) and f64
-// divisions; the Y rows are shared by the QL consecutive threads of one
-// q12 and come from L1.  The design keeps every intermediate (Jacobian,
-// quotient rule, inverse) in registers: one read of the small inputs, one
-// coalesced write per output field.
+// Bound: device-memory writes (D(D+1)/2 doubles per point for stiffness,
+// one for mass) and f64 divisions; the Y rows are shared by the QL
+// consecutive threads of one q12 and come from L1.  Both kinds share the
+// last-axis contraction, as the TPU kernel shares it through `kind=`; every
+// intermediate (Jacobian, quotient rule, inverse) stays in registers: one
+// read of the small inputs, one coalesced write per output field.
 // --------------------------------------------------------------------------
 
-template <int D, bool NURBS>
+enum FieldsKind { kStiffness = 0, kMass = 1 };
+
+template <int D, bool NURBS, int KIND>
 __global__ void stiff_fields_kernel(const double* __restrict__ Y,
                                     const double* __restrict__ T,
                                     const double* __restrict__ w12,
@@ -89,42 +160,34 @@ __global__ void stiff_fields_kernel(const double* __restrict__ Y,
                 for (int k = 0; k < D; ++k) J[c][k] = jac[c][k];
         }
 
-        // determinant and inverse by the adjugate (as ops/geom.det_and_inv)
-        double det;
-        double inv[D][D];
-        if constexpr (D == 2) {
-            det = J[0][0] * J[1][1] - J[0][1] * J[1][0];
-            inv[0][0] = J[1][1] / det;
-            inv[0][1] = -J[0][1] / det;
-            inv[1][0] = -J[1][0] / det;
-            inv[1][1] = J[0][0] / det;
+        const double gw = w12[q12] * wL[qL];
+        if constexpr (KIND == kMass) {
+            out[g] = gw * fabs(det_of<D>(J));
         } else {
-            const double c00 = J[1][1] * J[2][2] - J[1][2] * J[2][1];
-            const double c01 = J[1][2] * J[2][0] - J[1][0] * J[2][2];
-            const double c02 = J[1][0] * J[2][1] - J[1][1] * J[2][0];
-            det = J[0][0] * c00 + J[0][1] * c01 + J[0][2] * c02;
-            const double adj[3][3] = {
-                {c00, J[0][2] * J[2][1] - J[0][1] * J[2][2],
-                 J[0][1] * J[1][2] - J[0][2] * J[1][1]},
-                {c01, J[0][0] * J[2][2] - J[0][2] * J[2][0],
-                 J[0][2] * J[1][0] - J[0][0] * J[1][2]},
-                {c02, J[0][1] * J[2][0] - J[0][0] * J[2][1],
-                 J[0][0] * J[1][1] - J[0][1] * J[1][0]}};
-            for (int a = 0; a < D; ++a)
-                for (int b = 0; b < D; ++b) inv[a][b] = adj[a][b] / det;
-        }
-
-        const double W = w12[q12] * wL[qL] * fabs(det);
-        int o = 0;
-        for (int a = 0; a < D; ++a) {
-            for (int b = a; b < D; ++b) {
-                double s = 0.0;
-                for (int m = 0; m < D; ++m) s += inv[a][m] * inv[b][m];
-                out[(long long)o * N + g] = W * s;
-                ++o;
-            }
+            double inv[D][D];
+            const double det = det_and_inv<D>(J, inv);
+            store_stiffness<D>(inv, gw * fabs(det), out, N, g);
         }
     }
+}
+
+template <int KIND>
+static int launch_fields(const double* Y, const double* T, const double* w12,
+                         const double* wL, double* out, int d, int nurbs,
+                         long long Q12, int QL, int nL, void* stream) {
+    const int threads = 256;
+    const unsigned int grid = pyiga_grid_1d(Q12 * QL, threads);
+    cudaStream_t s = (cudaStream_t)stream;
+#define PYIGA_FIELDS(DD, NN)                                             \
+    stiff_fields_kernel<DD, NN, KIND><<<grid, threads, 0, s>>>(          \
+        Y, T, w12, wL, out, Q12, QL, nL)
+    if (d == 2 && nurbs) PYIGA_FIELDS(2, true);
+    else if (d == 2) PYIGA_FIELDS(2, false);
+    else if (d == 3 && nurbs) PYIGA_FIELDS(3, true);
+    else if (d == 3) PYIGA_FIELDS(3, false);
+    else return (int)cudaErrorInvalidValue;
+#undef PYIGA_FIELDS
+    return (int)cudaGetLastError();
 }
 
 PYIGA_EXPORT int pyiga_stiff_fields_f64(const double* Y, const double* T,
@@ -132,21 +195,64 @@ PYIGA_EXPORT int pyiga_stiff_fields_f64(const double* Y, const double* T,
                                         double* out, int d, int nurbs,
                                         long long Q12, int QL, int nL,
                                         void* stream) {
+    return launch_fields<kStiffness>(Y, T, w12, wL, out, d, nurbs, Q12, QL,
+                                     nL, stream);
+}
+
+PYIGA_EXPORT int pyiga_mass_fields_f64(const double* Y, const double* T,
+                                       const double* w12, const double* wL,
+                                       double* out, int d, int nurbs,
+                                       long long Q12, int QL, int nL,
+                                       void* stream) {
+    return launch_fields<kMass>(Y, T, w12, wL, out, d, nurbs, Q12, QL, nL,
+                                stream);
+}
+
+// --------------------------------------------------------------------------
+// K1': stiffness fields from a Jacobian evaluated on the host, one thread
+// per Gauss point.  Replaces the non-spline branch of
+// `stiffness_fields_pallas` (pyiga_tpu/ops/pallas_sumfac.py, pallas_call
+// at :1163, body `_make_stiff_fields_kernel`, :930), which runs for a
+// geometry given as a user function (`geometry.UserFunction`).
+//
+// Inputs (row-major float64): jac (D, D, N), the level-ordered Jacobian
+// J[a][b] at every Gauss point; gw (N,), the Gauss weight product.
+// Output: out (D(D+1)/2, N), the unique B_ab = gw |det J| (J^-1 J^-T)_ab
+// for a <= b, row-major (the order the assembler expands).
+//
+// Bound: device memory, D*D + 1 doubles read and D(D+1)/2 written per
+// point, every access coalesced across the warp (the field axis leads, the
+// point axis is contiguous).  No lane padding: N needs no multiple of 128
+// (that gate is the TPU's (8, 128) tiling rule).
+// --------------------------------------------------------------------------
+
+template <int D>
+__global__ void host_jac_fields_kernel(const double* __restrict__ jac,
+                                       const double* __restrict__ gw,
+                                       double* __restrict__ out,
+                                       long long N) {
+    for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         g < N; g += (long long)gridDim.x * blockDim.x) {
+        double J[D][D];
+        for (int a = 0; a < D; ++a)
+            for (int b = 0; b < D; ++b)
+                J[a][b] = jac[(long long)(a * D + b) * N + g];
+        double inv[D][D];
+        const double det = det_and_inv<D>(J, inv);
+        store_stiffness<D>(inv, gw[g] * fabs(det), out, N, g);
+    }
+}
+
+PYIGA_EXPORT int pyiga_host_jac_fields_f64(const double* jac,
+                                           const double* gw, double* out,
+                                           int d, long long N, void* stream) {
     const int threads = 256;
-    const unsigned int grid = pyiga_grid_1d(Q12 * QL, threads);
+    const unsigned int grid = pyiga_grid_1d(N, threads);
     cudaStream_t s = (cudaStream_t)stream;
-    if (d == 2 && nurbs)
-        stiff_fields_kernel<2, true><<<grid, threads, 0, s>>>(
-            Y, T, w12, wL, out, Q12, QL, nL);
-    else if (d == 2)
-        stiff_fields_kernel<2, false><<<grid, threads, 0, s>>>(
-            Y, T, w12, wL, out, Q12, QL, nL);
-    else if (d == 3 && nurbs)
-        stiff_fields_kernel<3, true><<<grid, threads, 0, s>>>(
-            Y, T, w12, wL, out, Q12, QL, nL);
+    if (d == 2)
+        host_jac_fields_kernel<2><<<grid, threads, 0, s>>>(jac, gw, out, N);
     else if (d == 3)
-        stiff_fields_kernel<3, false><<<grid, threads, 0, s>>>(
-            Y, T, w12, wL, out, Q12, QL, nL);
+        host_jac_fields_kernel<3><<<grid, threads, 0, s>>>(jac, gw, out, N);
     else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();

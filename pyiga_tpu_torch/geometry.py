@@ -12,14 +12,16 @@ the last coordinate), vector components trail; NURBS coefficients are
 stored premultiplied by the weights, which ride along as the last
 component (homogeneous coordinates).  The factories :func:`unit_square`,
 :func:`unit_cube` and :func:`line_segment` build B-spline maps through
-:func:`tensor_product`.
+:func:`tensor_product`.  :class:`UserFunction` wraps a plain callable
+(and its Jacobian) as a geometry that the assemblers evaluate on the
+host.
 """
 
 import functools
 
 import numpy as np
 
-from . import bspline
+from . import bspline, utils
 from .bspline import KnotVector
 from .ops.basis import dense_basis_table
 
@@ -198,6 +200,53 @@ class NurbsFunc(_BaseGeoFunc):
             raise ValueError('as_vector needs a scalar or vector function')
         return NurbsFunc(self.kvs, self.coeffs[..., :-1],
                          self.coeffs[..., -1], premultiplied=True)
+
+
+class UserFunction(_BaseGeoFunc):
+    """Wrap a user callable as a geometry function.  `support` is a
+    sequence of (lo, hi) pairs per parameter dimension; `jac` optionally
+    evaluates the Jacobian.  Both callables take XYZ-ordered coordinates.
+
+    The assemblers evaluate such a map on the host
+    (:func:`~pyiga_tpu_torch.ops.geom.host_jacobian_levelorder`) and
+    upload its Jacobian once.  As in the JAX package, ``grid_jacobian``
+    stacks a returned tuple's components along trailing axes
+    (:func:`~pyiga_tpu_torch.utils.grid_eval`): a nested tuple
+    ``((dx/dx, dx/dy), (dy/dx, dy/dy))`` arrives transposed, so return
+    an array shaped ``grid x dim x sdim`` for the physical Jacobian."""
+
+    def __init__(self, f, support, dim=None, jac=None):
+        self.f = f
+        self.support = tuple(support)
+        self.jac = jac
+        if dim is None:
+            x0 = tuple(lo for (lo, hi) in reversed(self.support))
+            shp = np.shape(f(*x0))
+            self._output_shape = shp
+            dim = 1 if len(shp) == 0 else (shp[0] if len(shp) == 1 else shp)
+        else:
+            self._output_shape = (dim,) if np.isscalar(dim) else dim
+        self.dim = dim
+        self.sdim = len(self.support)
+
+    def output_shape(self):
+        return self._output_shape
+
+    def eval(self, *x):
+        return self.f(*x)
+
+    __call__ = eval
+
+    def pointwise_eval(self, points):
+        return self.eval(*points)
+
+    def grid_eval(self, grd):
+        return utils.grid_eval(self.f, grd)
+
+    def grid_jacobian(self, grd):
+        if self.jac is None:
+            raise ValueError('Jacobian not specified in UserFunction')
+        return utils.grid_eval(self.jac, grd)
 
 
 def bspline_quarter_annulus(r1=1.0, r2=2.0):

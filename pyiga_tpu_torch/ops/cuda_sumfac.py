@@ -2,14 +2,18 @@
 """CUDA kernels of the sum-factorization assembly and the pipeline built
 on them (counterpart of :mod:`pyiga_tpu.ops.pallas_sumfac`).
 
-Three kernels (sources in ``csrc/sumfac.cu``), each beside its plain
+Four kernels (sources in ``csrc/sumfac.cu``), each beside its plain
 PyTorch version:
 
 * K1 :func:`fields` — geometry fields ``B_ab = W (J^-1 J^-T)_ab`` per
   Gauss point, fusing the last-axis Jacobian contraction, the NURBS
-  quotient rule, det/inverse and the weight (``_fields_fused``); and
+  quotient rule, det/inverse and the weight (``_fields_fused``);
+  :func:`fields_mass`, its ``mass`` kind: the mass field ``W``; and
   :func:`geo_jac_fields`, its ``jac`` kind: physical geometry values and
   Jacobian for the generic VForm fields;
+* K1' :func:`host_jac_fields` — the stiffness fields from a Jacobian
+  evaluated on the host (``stiffness_fields_pallas``'s non-spline
+  branch);
 * K2 :func:`stage` — one contraction stage ``(K, R) x (M, K) -> (R, M)``
   (``_stage_call``);
 * K3 :func:`fold` — the final stage of all terms summed into one output
@@ -46,8 +50,10 @@ def _kernel_device(t, name):
 # K1: geometry fields
 ################################################################################
 
-def fields_plain(Y, T, w12, wL, nurbs):
-    """Plain PyTorch version of :func:`fields` (same inputs and output)."""
+def _jacobian_plain(Y, T, nurbs):
+    """Physical Jacobian ``(d, d, Q12, QL)`` from the stage-1/2 partials:
+    the last-axis contraction and, for NURBS, the quotient rule (the part
+    the K1 kinds share)."""
     d, C = Y.shape[0], Y.shape[1]
     Tv, Td = T[0], T[1]
 
@@ -61,11 +67,39 @@ def fields_plain(Y, T, w12, wL, nurbs):
         W = val[-1]
         jac = [[(jac[c][k] * W - val[c] * jac[-1][k]) / (W * W)
                 for k in range(d)] for c in range(d)]
-    J = torch.stack([torch.stack(row) for row in jac])
-    det, inv = geom.det_and_inv(J)
-    W = w12[:, None] * wL[None, :] * torch.abs(det)
+    return torch.stack([torch.stack(row) for row in jac])
+
+
+def _unique_stiffness(inv, W):
+    """``W (J^-1 J^-T)_ab`` for ``a <= b`` row-major, stacked."""
+    d = inv.shape[0]
     return torch.stack([W * sum(inv[a, m] * inv[b, m] for m in range(d))
                         for a in range(d) for b in range(a, d)])
+
+
+def fields_plain(Y, T, w12, wL, nurbs):
+    """Plain PyTorch version of :func:`fields` (same inputs and output)."""
+    det, inv = geom.det_and_inv(_jacobian_plain(Y, T, nurbs))
+    return _unique_stiffness(inv, w12[:, None] * wL[None, :] * torch.abs(det))
+
+
+def _check_fields_args(name, Y, T, w12, wL, nurbs):
+    """Validate K1's operands; returns ``(d, Q12, QL, nL)``."""
+    f64 = torch.float64
+    _cuda.require(Y, 'Y', f64, 4)
+    _cuda.require(T, 'T', f64, 3)
+    _cuda.require(w12, 'w12', f64, 1)
+    _cuda.require(wL, 'wL', f64, 1)
+    d, C, Q12, nL = Y.shape
+    QL = T.shape[1]
+    if d not in (2, 3) or C != d + int(bool(nurbs)):
+        raise ValueError('%s: need d in (2, 3) and C = d (+1 for NURBS)'
+                         ', got d=%d C=%d' % (name, d, C))
+    if T.shape != (2, QL, nL) or w12.shape != (Q12,) or wL.shape != (QL,):
+        raise ValueError('%s: shapes Y %s, T %s, w12 %s, wL %s disagree'
+                         % (name, tuple(Y.shape), tuple(T.shape),
+                            tuple(w12.shape), tuple(wL.shape)))
+    return d, Q12, QL, nL
 
 
 def fields(Y, T, w12, wL, nurbs):
@@ -83,21 +117,9 @@ def fields(Y, T, w12, wL, nurbs):
     Returns ``(d(d+1)/2, Q12, QL)``: ``B_ab`` for ``a <= b`` row-major."""
     if not _kernel_device(Y, 'fields'):
         return fields_plain(Y, T, w12, wL, nurbs)
-    f64 = torch.float64
-    _cuda.require(Y, 'Y', f64, 4)
-    _cuda.require(T, 'T', f64, 3)
-    _cuda.require(w12, 'w12', f64, 1)
-    _cuda.require(wL, 'wL', f64, 1)
-    d, C, Q12, nL = Y.shape
-    QL = T.shape[1]
-    if d not in (2, 3) or C != d + int(bool(nurbs)):
-        raise ValueError('fields: need d in (2, 3) and C = d (+1 for NURBS)'
-                         ', got d=%d C=%d' % (d, C))
-    if T.shape != (2, QL, nL) or w12.shape != (Q12,) or wL.shape != (QL,):
-        raise ValueError('fields: shapes Y %s, T %s, w12 %s, wL %s disagree'
-                         % (tuple(Y.shape), tuple(T.shape),
-                            tuple(w12.shape), tuple(wL.shape)))
-    out = torch.empty((d * (d + 1) // 2, Q12, QL), dtype=f64, device=Y.device)
+    d, Q12, QL, nL = _check_fields_args('fields', Y, T, w12, wL, nurbs)
+    out = torch.empty((d * (d + 1) // 2, Q12, QL), dtype=torch.float64,
+                      device=Y.device)
     with torch.cuda.device(Y.device):
         err = _cuda.library().pyiga_stiff_fields_f64(
             Y.data_ptr(), T.data_ptr(), w12.data_ptr(), wL.data_ptr(),
@@ -105,6 +127,70 @@ def fields(Y, T, w12, wL, nurbs):
             _cuda.stream_of(Y))
     _cuda.check(err, 'fields')
     _cuda.LAUNCHES['fields'] += 1
+    return out
+
+
+def fields_mass_plain(Y, T, w12, wL, nurbs):
+    """Plain PyTorch version of :func:`fields_mass`."""
+    det, _ = geom.det_and_inv(_jacobian_plain(Y, T, nurbs))
+    return w12[:, None] * wL[None, :] * torch.abs(det)
+
+
+def fields_mass(Y, T, w12, wL, nurbs):
+    """K1, ``mass`` kind: the mass field ``W = w12 (x) wL |det J|`` on the
+    Gauss grid, from the same inputs as :func:`fields` (for NURBS the
+    quotient rule runs before the determinant).  Returns ``(Q12, QL)``,
+    float64."""
+    if not _kernel_device(Y, 'fields_mass'):
+        return fields_mass_plain(Y, T, w12, wL, nurbs)
+    d, Q12, QL, nL = _check_fields_args('fields_mass', Y, T, w12, wL, nurbs)
+    out = torch.empty((Q12, QL), dtype=torch.float64, device=Y.device)
+    with torch.cuda.device(Y.device):
+        err = _cuda.library().pyiga_mass_fields_f64(
+            Y.data_ptr(), T.data_ptr(), w12.data_ptr(), wL.data_ptr(),
+            out.data_ptr(), d, int(bool(nurbs)), Q12, QL, nL,
+            _cuda.stream_of(Y))
+    _cuda.check(err, 'fields_mass')
+    _cuda.LAUNCHES['mass_fields'] += 1
+    return out
+
+
+def host_jac_fields_plain(jac, gw):
+    """Plain PyTorch version of :func:`host_jac_fields`."""
+    det, inv = geom.det_and_inv(jac)
+    return _unique_stiffness(inv, gw * torch.abs(det))
+
+
+def host_jac_fields(jac, gw):
+    """K1': unique stiffness fields from a Jacobian evaluated on the host.
+
+    Args:
+        jac: ``(d, d, N)`` level-ordered Jacobian at the N Gauss points
+            (:func:`~pyiga_tpu_torch.ops.geom.host_jacobian_levelorder`,
+            flattened).
+        gw: ``(N,)`` Gauss weight product.
+
+    Returns ``(d(d+1)/2, N)``: ``B_ab = gw |det J| (J^-1 J^-T)_ab`` for
+    ``a <= b`` row-major, the order :func:`stiffness_fields` expands.
+    Any N: the TPU kernel's lane-multiple gate is a tiling rule of its
+    own."""
+    if not _kernel_device(jac, 'host_jac_fields'):
+        return host_jac_fields_plain(jac, gw)
+    _cuda.require(jac, 'jac', torch.float64, 3)
+    _cuda.require(gw, 'gw', torch.float64, 1)
+    d, N = jac.shape[0], jac.shape[2]
+    if d not in (2, 3) or jac.shape[1] != d or gw.shape != (N,):
+        raise ValueError('host_jac_fields: need jac (d, d, N) with d in '
+                         '(2, 3) and gw (N,), got %s and %s'
+                         % (tuple(jac.shape), tuple(gw.shape)))
+    out = torch.empty((d * (d + 1) // 2, N), dtype=torch.float64,
+                      device=jac.device)
+    with torch.cuda.device(jac.device):
+        err = _cuda.library().pyiga_host_jac_fields_f64(
+            jac.data_ptr(), gw.data_ptr(), out.data_ptr(), d, N,
+            _cuda.stream_of(jac))
+    _cuda.check(err, 'host_jac_fields')
+    _cuda.LAUNCHES['host_jac_fields'] += 1
     return out
 
 
@@ -298,31 +384,69 @@ def geometry_fields(tables, coeffs, nurbs):
             out[d:].reshape((d, d) + grid))
 
 
-def stiffness_fields(geo_inputs):
-    """Stiffness coefficient fields ``B_ab = W (J^-1 J^-T)_ab`` through
-    K2 (geometry stages) and K1 (everything else).  `geo_inputs` holds
-    tensors: ``geo_tables_bsp`` or ``geo_tables_nurbs`` (per-axis
-    ``(2, Q_k, n_k)``), ``geo_coeffs`` and ``weights``.  Returns the
-    ``d*d`` term-field list in ``(a, b)`` row-major order (mirrored pairs
-    share one tensor), each on the Gauss grid."""
+def _host_jacobian(geo_inputs):
+    """The uploaded host Jacobian ``(d, d, N)``, the Gauss weight product
+    ``(N,)`` and the grid shape."""
+    jac = geo_inputs['jac']
+    d, grid = jac.shape[0], tuple(jac.shape[2:])
+    gw = geom.gauss_weight_field(geo_inputs['weights']).reshape(-1)
+    return jac.reshape(d, d, -1).contiguous(), gw.contiguous(), grid
+
+
+def _spline_stages(geo_inputs):
+    """K1's inputs from a spline or NURBS geometry: the stage-1/2
+    partials through K2, the last-axis tables and the Gauss weights."""
     nurbs = 'geo_tables_nurbs' in geo_inputs
     tables = geo_inputs['geo_tables_nurbs' if nurbs else 'geo_tables_bsp']
-    coeffs = geo_inputs['geo_coeffs']
     weights = geo_inputs['weights']
     d = len(tables)
     if d < 2:
-        raise ValueError('stiffness_fields needs dimension 2 or 3')
-    Y, shape12 = geo_stage12(tables, coeffs, d)
+        raise ValueError('the field kernels need dimension 2 or 3')
+    Y, shape12 = geo_stage12(tables, geo_inputs['geo_coeffs'], d)
     w12 = geom.gauss_weight_field(weights[:d - 1]).reshape(-1).contiguous()
     T = tables[d - 1][:2].contiguous()
-    out = fields(Y, T, w12, weights[d - 1].contiguous(), nurbs)
     grid = shape12 + (T.shape[1],)
+    return (Y, T, w12, weights[d - 1].contiguous(), nurbs), grid
+
+
+def stiffness_fields(geo_inputs):
+    """Stiffness coefficient fields ``B_ab = W (J^-1 J^-T)_ab``.
+    `geo_inputs` holds tensors: ``weights`` and either the spline
+    geometry (``geo_tables_bsp`` or ``geo_tables_nurbs``, per-axis
+    ``(2, Q_k, n_k)``, and ``geo_coeffs``), which runs K2 (geometry
+    stages) and K1, or a host-evaluated Jacobian ``jac`` ``(d, d) +
+    grid``, which runs K1'.  Returns the ``d*d`` term-field list in
+    ``(a, b)`` row-major order (mirrored pairs share one tensor), each on
+    the Gauss grid."""
+    if 'jac' in geo_inputs:
+        jac, gw, grid = _host_jacobian(geo_inputs)
+        out = host_jac_fields(jac, gw)
+    else:
+        args, grid = _spline_stages(geo_inputs)
+        out = fields(*args)
+    d = len(grid)
     uniq, k = {}, 0
     for a in range(d):
         for b in range(a, d):
             uniq[(a, b)] = out[k].reshape(grid)
             k += 1
     return [uniq[(min(a, b), max(a, b))] for a in range(d) for b in range(d)]
+
+
+def mass_fields(geo_inputs):
+    """The mass coefficient field ``W = gauss_weight |det J|`` as a
+    one-term list on the Gauss grid.  A spline geometry runs K2 (geometry
+    stages) and K1's ``mass`` kind.  A host-evaluated Jacobian (``jac``
+    in `geo_inputs`) runs the plain torch expression on the Jacobian's
+    device: the JAX package has no Pallas kernel there either (its
+    ``mass_fields_pallas`` hands that input to XLA), so there is no TPU
+    kernel to port."""
+    if 'jac' in geo_inputs:
+        jac, gw, grid = _host_jacobian(geo_inputs)
+        det, _ = geom.det_and_inv(jac)
+        return [(gw * torch.abs(det)).reshape(grid)]
+    args, grid = _spline_stages(geo_inputs)
+    return [fields_mass(*args).reshape(grid)]
 
 
 def chain_folded(term_tables, fields_, last_idx):

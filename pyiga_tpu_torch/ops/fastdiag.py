@@ -143,11 +143,16 @@ def _axis_means(gi, d):
     """Per axis k: the means over the other axes of ``B_kk / Wg`` and
     ``W / Wg`` (``Wg`` the Gauss weight product), scaled by the axis-k
     Gauss weights — the 1D coefficient vectors of the weighted
-    preconditioner.  `gi` holds float64 tensors."""
-    nurbs = 'geo_tables_nurbs' in gi
-    tables = gi['geo_tables_nurbs' if nurbs else 'geo_tables_bsp']
-    _, jac = geom.geo_jacobian_field(tables, gi['geo_coeffs'], nurbs,
-                                     len(tables))
+    preconditioner.  `gi` holds float64 tensors: a spline geometry's
+    tables and coefficients, or a host-evaluated Jacobian ``jac``
+    (as ``_geo_weight_jacinv`` of the JAX package reads either)."""
+    if 'jac' in gi:
+        jac = gi['jac']
+    else:
+        nurbs = 'geo_tables_nurbs' in gi
+        tables = gi['geo_tables_nurbs' if nurbs else 'geo_tables_bsp']
+        _, jac = geom.geo_jacobian_field(tables, gi['geo_coeffs'], nurbs,
+                                         len(tables))
     det, jacinv = geom.det_and_inv(jac)
     gw = gi['weights']
     Wg = geom.gauss_weight_field(gw)

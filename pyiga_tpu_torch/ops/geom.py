@@ -18,7 +18,7 @@ K1 (:func:`~pyiga_tpu_torch.ops.cuda_sumfac.fields`).
 import numpy as np
 import torch
 
-from .. import geometry
+from .. import geometry, utils
 from .basis import dense_collocation_tables
 
 
@@ -29,7 +29,9 @@ def geo_eval_tables(geo, grids, numderiv=1):
 
     Returns ``(tables, coeffs, is_nurbs)`` where tables[k] has shape
     ``(numderiv+1, Q_k, n_k)`` and coeffs has shape ``(C, n_1, ..., n_d)``
-    (numpy float64)."""
+    (numpy float64), or None for a geometry that is no spline (a
+    :class:`~pyiga_tpu_torch.geometry.UserFunction`): the caller then
+    evaluates its Jacobian on the host (:func:`host_jacobian_levelorder`)."""
     if isinstance(geo, geometry.NurbsFunc):
         coeffs, is_nurbs = geo.coeffs, True      # homogeneous incl. weight
     elif isinstance(geo, geometry.BSplineFunc):
@@ -37,7 +39,7 @@ def geo_eval_tables(geo, grids, numderiv=1):
         if coeffs.ndim == geo.sdim:              # scalar-valued: add axis
             coeffs = coeffs[..., None]
     else:
-        raise TypeError('geometry must be a BSplineFunc or NurbsFunc')
+        return None
     tables = [np.ascontiguousarray(B.swapaxes(-2, -1))     # (nd+1, Q, n)
               for B in dense_collocation_tables(geo.kvs, grids, numderiv)]
     # reverse vector components into level order (weight stays last)
@@ -115,6 +117,22 @@ def det_and_inv(J):
         ])
         return det, adj / det
     raise NotImplementedError('det_and_inv only implemented for d <= 3')
+
+
+def host_jacobian_levelorder(geo, grids):
+    """Geometry Jacobian on the grid, evaluated on the host: level-ordered
+    and component-leading, shape ``(dim, sdim) + grid`` (numpy).  Both
+    trailing axes of ``geo.grid_jacobian`` are reversed into level order
+    (XYZ -> ZYX), which transposes nothing: a non-symmetric Jacobian
+    keeps its orientation."""
+    jac = np.asarray(geo.grid_jacobian(grids))[..., ::-1, ::-1]
+    return np.ascontiguousarray(np.moveaxis(jac, (-2, -1), (0, 1)))
+
+
+def host_eval(geo, grids):
+    """Geometry values on the grid, evaluated on the host (XYZ component
+    order, numpy)."""
+    return np.asarray(utils.grid_eval(geo, grids))
 
 
 def gauss_weight_field(weights):

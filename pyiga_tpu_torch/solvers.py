@@ -1,10 +1,14 @@
 # -*- coding: utf-8 -*-
 """Solvers of the port: the Krylov solvers (counterparts of
 :func:`pyiga_tpu.solvers.cg_jit`, :func:`pyiga_tpu.solvers.cg_ir` and
-:func:`pyiga_tpu.solvers.gmres_jit`) and the local multigrid solver of
+:func:`pyiga_tpu.solvers.gmres_jit`), the local multigrid solver of
 hierarchical spaces (:func:`solve_hmultigrid`, with its host path
 :func:`local_mg_step` + :func:`iterative_solve` and its device path
-:class:`~pyiga_tpu_torch.ops.mg.DeviceMGSolver`).
+:class:`~pyiga_tpu_torch.ops.mg.DeviceMGSolver`), and the implicit time
+integrators (Newton, DIRK and Rosenbrock schemes with constant or
+adaptive steps: a host copy of the JAX package's, whose step sequences
+are the contract; :class:`~pyiga_tpu_torch.ops.rosw.
+DeviceRosenbrockScheme` runs a Rosenbrock step on the device).
 
 The loops run eagerly: each iteration reads its convergence test back to
 the host (one synchronization per iteration).  Operators and
@@ -22,8 +26,9 @@ import scipy.sparse
 import scipy.sparse.linalg
 import torch
 
-from . import native
+from . import native, utils
 from .config import resolve_device
+from .operators import make_solver
 from .ops.mg import _SWEEP_DIRS, DeviceMGSolver
 
 
@@ -195,16 +200,6 @@ def gauss_seidel(A, x, b, iterations=1, indices=None, sweep='forward'):
                 x[i] = (b[i] - off_diag) / diag
 
 
-def make_solver(B):
-    """A :class:`scipy.sparse.linalg.LinearOperator` applying ``B^{-1}`` by
-    a sparse LU factorization (SuperLU, COLAMD ordering): the coarse
-    solves of :func:`local_mg_step`."""
-    solve = scipy.sparse.linalg.splu(scipy.sparse.csc_matrix(B),
-                                     permc_spec='COLAMD').solve
-    return scipy.sparse.linalg.LinearOperator(B.shape, matvec=solve,
-                                              matmat=solve, dtype=B.dtype)
-
-
 # Smoother catalog of the local MG V-cycle: the sweep directions of the
 # pre- and post-smoothing halves.  'exact' replaces smoothing by an
 # additive exact solve on the smoothing index set.
@@ -370,3 +365,482 @@ def solve_hmultigrid(hs, A, f, strategy='cell_supp', smoother='gs',
                             smoother, smooth_steps, relax_backend='host')
     return iterative_solve(mg_step, A, f, active_dofs=hs.non_dirichlet_dofs(),
                            tol=tol, maxiter=maxiter)
+
+
+################################################################################
+# Nonlinear problems
+################################################################################
+
+class NoConvergenceError(Exception):
+    """Raised by :func:`newton` on non-convergence; carries the last
+    iterate."""
+
+    def __init__(self, method, num_iter, last_iterate):
+        super().__init__('%s did not converge in %d iterations'
+                         % (method, num_iter))
+        self.method = method
+        self.num_iter = num_iter
+        self.last_iterate = last_iterate
+
+
+def newton(F, J, x0, atol=1e-6, rtol=1e-6, maxiter=100, freeze_jac=1):
+    """Newton iteration for ``F(x) = 0`` with optional frozen Jacobian
+    (`freeze_jac` > 1 re-factorizes only every so many steps)."""
+    x = np.array(x0)
+    res = F(x)
+    target = max(atol, rtol * np.linalg.norm(res))
+    jac_inv = None
+    for num_it in range(maxiter):
+        if np.linalg.norm(res) < target:
+            return x
+        if num_it % freeze_jac == 0 or jac_inv is None:
+            jac_inv = make_solver(J(x))
+        x -= jac_inv.dot(res)
+        res = F(x)
+    raise NoConvergenceError('newton', maxiter, x)
+
+
+################################################################################
+# Implicit Runge-Kutta time stepping (DIRK and Rosenbrock schemes)
+#
+# A *scheme* object computes one step; the constant/adaptive *loops* below
+# handle step control and are shared by both families.
+################################################################################
+
+class _DIRKScheme:
+    """A diagonally-implicit RK scheme from an extended Butcher array
+    (`s` stage rows, then the weight row `b`, optionally the embedded
+    row `b_hat`)."""
+
+    def __init__(self, tableau):
+        tableau = np.asarray(tableau)
+        self.s = s = tableau.shape[1]
+        self.A = tableau[:s]
+        self.b = tableau[s]
+        self.b_hat = tableau[s + 1] if tableau.shape[0] > s + 1 else None
+        # stiffly accurate: the last stage IS the new iterate
+        self.stiffly_accurate = np.allclose(self.b, self.A[s - 1])
+
+    def truncated(self):
+        """The same scheme without its embedded error estimator."""
+        return _DIRKScheme(np.vstack([self.A, self.b]))
+
+    def _implicit_stage(self, M, F, J, tau, a_ii, rhs, x_start):
+        """Solve ``M y - tau a_ii F(y) = rhs`` by Newton, returning the
+        stage value and the F evaluation at it."""
+        cache = {}
+
+        def res_fn(z):
+            cache['F'] = F(z)
+            return M @ z - tau * a_ii * cache['F'] - rhs
+
+        y = newton(res_fn, lambda z: M - tau * a_ii * J(z), x_start,
+                   atol=1e-4, freeze_jac=2)
+        return y, cache['F']
+
+    def step(self, M, F, J, x, tau, data=None, Fx=None):
+        if M is None:
+            M = scipy.sparse.eye(x.shape[0])
+        if data is None:
+            data = {}
+        A, s = self.A, self.s
+        stage_vals, stage_F = [], []
+        for i in range(s):
+            if A[i, i] == 0:
+                if i != 0:
+                    raise ValueError('explicit stage only allowed first')
+                stage_vals.append(x)
+                stage_F.append(Fx if Fx is not None else F(x))
+                continue
+            rhs = M @ x + tau * sum(A[i, j] * stage_F[j] for j in range(i))
+            guess = stage_vals[-1] if stage_vals else x
+            y, Fy = self._implicit_stage(M, F, J, tau, A[i, i], rhs, guess)
+            stage_vals.append(y)
+            stage_F.append(Fy)
+
+        def combine(weights):
+            if 'M_inv' not in data:
+                data['M_inv'] = make_solver(M, spd=True)
+            acc = M @ x + tau * sum(w * Fi
+                                    for w, Fi in zip(weights, stage_F))
+            return data['M_inv'] @ acc
+
+        if self.stiffly_accurate:
+            x_new, F_new = stage_vals[-1], stage_F[-1]
+        else:
+            x_new, F_new = combine(self.b), None
+
+        if self.b_hat is not None:
+            return x_new, combine(self.b_hat), F_new
+        return x_new, F_new
+
+
+class _RosenbrockScheme:
+    """A Rosenbrock(-W) scheme: one Jacobian evaluation and one
+    factorization of ``M - tau gamma J`` per step, `s` linear stage
+    solves."""
+
+    def __init__(self, A, Gamma, b, b_hat):
+        self.A, self.Gamma = np.asarray(A), np.asarray(Gamma)
+        self.b, self.b_hat = b, b_hat
+
+    def truncated(self):
+        return _RosenbrockScheme(self.A, self.Gamma, self.b, None)
+
+    def step(self, M, F, J, x, tau, data=None, Fx=None):
+        A, Gamma = self.A, self.Gamma
+        jac = J(x)
+        solve = make_solver(M - tau * Gamma[0, 0] * jac)
+
+        ks = []
+        for i in range(A.shape[0]):
+            y = x + tau * sum(A[i, j] * ks[j] for j in range(i))
+            rhs = F(y)
+            if i > 0:
+                rhs = rhs + tau * jac.dot(
+                    sum(Gamma[i, j] * ks[j] for j in range(i)))
+            ks.append(solve.dot(rhs))
+
+        def combine(weights):
+            return x + tau * sum(w * k for w, k in zip(weights, ks))
+
+        if self.b_hat is not None:
+            return combine(self.b), combine(self.b_hat), None
+        return combine(self.b), None
+
+
+def dirk_step(tableau, M, F, J, x, tau, data=None, Fx=None):
+    """One step of the (embedded) DIRK method given by the extended Butcher
+    array (compatibility wrapper around :class:`_DIRKScheme`)."""
+    return _DIRKScheme(tableau).step(M, F, J, x, tau, data=data, Fx=Fx)
+
+
+def rosenbrock_step(A, Gamma, b, b_hat, M, F, J, x, tau, data, Fx=None):
+    """One Rosenbrock(-W) step (compatibility wrapper around
+    :class:`_RosenbrockScheme`)."""
+    return _RosenbrockScheme(A, Gamma, b, b_hat).step(M, F, J, x, tau,
+                                                      data=data, Fx=Fx)
+
+
+def _integrate_constant(scheme, M, F, J, x, tau, t_end, *, t0=0.0,
+                        progress=False):
+    """Integrate with constant steps; returns (times, solutions)."""
+    times, solutions = [t0], [x]
+    Fx, data = None, {}
+    nsteps = int(np.ceil((t_end - t0) / tau))
+    for i in utils.progress_bar(progress)(range(nsteps)):
+        try:
+            x, Fx = scheme.step(M, F, J, x, tau, data, Fx=Fx)
+        except NoConvergenceError:
+            print('Nonlinear solve failed; returning partial results')
+            break
+        times.append(t0 + (i + 1) * tau)
+        solutions.append(x)
+    return times, solutions
+
+
+def _integrate_adaptive(scheme, err_order, M, F, J, x, tau0, t_end, tol, *,
+                        t0=0.0, step_factor=0.9, progress=False):
+    """Integrate with embedded-error adaptive step control; returns
+    (times, solutions)."""
+    if tol is None:
+        return _integrate_constant(scheme.truncated(), M, F, J, x, tau0,
+                                   t_end, t0=t0, progress=progress)
+    times, solutions = [t0], [x]
+    Fx, data, tau, t = None, {}, tau0, t0
+    with utils.progress_bar(progress)(total=t_end - t0) as pbar:
+        while t < t_end:
+            try:
+                xnew, xhat, Fxnew = scheme.step(M, F, J, x, tau, data, Fx=Fx)
+            except NoConvergenceError:
+                tau *= 0.5          # reject: halve the step and retry
+                continue
+            # scaled RMS error of the embedded estimate
+            weight = tol + tol * abs(x)
+            r = np.linalg.norm((xhat - xnew) / weight) / np.sqrt(len(x))
+            r = max(r, 1e-15)
+            if r <= 1:              # accept
+                t += tau
+                x, Fx = xnew, Fxnew
+                times.append(t)
+                solutions.append(x)
+                pbar.update(tau)
+                pbar.set_postfix({'tau': tau})
+            tau *= min(5.0, max(0.2, step_factor * r ** (-1.0 / err_order)))
+    return times, solutions
+
+
+def _export_method(scheme, name, displayname, err_order=None):
+    """Public integrator function for a scheme: constant-step when it has
+    no embedded estimator, adaptive otherwise."""
+    if err_order is None:
+        def method(M, F, J, x, tau, t_end, *, t0=0.0, progress=False):
+            return _integrate_constant(scheme, M, F, J, x, tau, t_end,
+                                       t0=t0, progress=progress)
+    else:
+        def method(M, F, J, x, tau0, t_end, tol, *, t0=0.0,
+                   step_factor=0.9, progress=False):
+            return _integrate_adaptive(scheme, err_order, M, F, J, x, tau0,
+                                       t_end, tol, t0=t0,
+                                       step_factor=step_factor,
+                                       progress=progress)
+    method.__name__ = method.__qualname__ = name
+    method.__doc__ = ('Solve a time-dependent problem using the %s method.'
+                      % displayname)
+    return method
+
+
+def dirk_method(tableau, name, displayname):
+    return _export_method(_DIRKScheme(tableau), name, displayname)
+
+
+def adaptive_dirk_method(tableau, err_order, name, displayname):
+    return _export_method(_DIRKScheme(tableau), name, displayname,
+                          err_order=err_order)
+
+
+# -- Butcher tableaus (published coefficients) --------------------------------
+
+def coeffs_sdirk3():
+    # Alexander 1977 / Skvortsov 2006
+    gamma = 0.435866521508
+    b2 = 0.25 * (5 - 20 * gamma + 6 * gamma ** 2)
+    return np.array([
+        [gamma, 0.0, 0.0],
+        [(1 - gamma) / 2, gamma, 0.0],
+        [1 - b2 - gamma, b2, gamma],
+        [1 - b2 - gamma, b2, gamma],
+    ])
+
+
+def coeffs_sdirk3_b():
+    # Norsett's three-stage, 4th-order DIRK (not stiffly accurate)
+    xi = 0.128886400515
+    return np.array([
+        [xi, 0.0, 0.0],
+        [0.5 - xi, xi, 0.0],
+        [2 * xi, 1 - 4 * xi, xi],
+        [1 / (6 * (2 * xi - 1) ** 2),
+         2 * (6 * xi ** 2 - 6 * xi + 1) / (3 * (2 * xi - 1) ** 2),
+         1 / (6 * (2 * xi - 1) ** 2)],
+    ])
+
+
+def coeffs_sdirk21():
+    # Ellsiepen: order 2, embedded order 1
+    alpha = 1 - np.sqrt(2) / 2
+    alp_hat = 2 - 1.25 * np.sqrt(2)
+    A = np.array([
+        [alpha, 0.0],
+        [1 - alpha, alpha],
+        [1 - alpha, alpha],
+        [1 - alp_hat, alp_hat],
+    ])
+    return A, 1
+
+
+def coeffs_dirk34():
+    # 4 stages, order 3, L-stable, stiffly accurate; embedded order 2
+    a21 = a22 = a33 = a44 = 0.1558983899988677
+    a32 = 1.072486270734370
+    a31 = 1 - a32 - a22
+    a42 = 0.7685298292769537
+    a43 = 0.09666483609791597
+    A = np.array([
+        [0.0, 0.0, 0.0, 0.0],
+        [a21, a22, 0.0, 0.0],
+        [a31, a32, a33, 0.0],
+        [0.0, a42, a43, a44],
+        [0.0, a42, a43, a44],
+        [a31, a32, a33, 0.0],
+    ])
+    return A, 2
+
+
+def coeffs_esdirk23():
+    # Jorgensen et al 2018 (arXiv:1803.01613)
+    gamma = (2 - np.sqrt(2)) / 2
+    return np.array([
+        [0.0, 0.0, 0.0],
+        [gamma, gamma, 0.0],
+        [(1 - gamma) / 2, (1 - gamma) / 2, gamma],
+        [(1 - gamma) / 2, (1 - gamma) / 2, gamma],
+        [(6 * gamma - 1) / (12 * gamma),
+         1 / (12 * gamma * (1 - 2 * gamma)),
+         (1 - 3 * gamma) / (3 * (1 - 2 * gamma))],
+    ]), 3
+
+
+def coeffs_esdirk34():
+    # Jorgensen et al 2018 (arXiv:1803.01613)
+    a21 = 0.43586652150845899942
+    a31 = 0.14073777472470619619
+    a32 = -0.1083655513813208000
+    gam = 0.43586652150845899942
+    b = [0.10239940061991099768, -0.3768784522555561061,
+         0.83861253012718610911, gam]
+    b_hat = [0.15702489786032493710, 0.11733044137043884870,
+             0.61667803039212146434, 0.10896663037711474985]
+    return np.array([
+        [0.0, 0.0, 0.0, 0.0],
+        [a21, gam, 0.0, 0.0],
+        [a31, a32, gam, 0.0],
+        b, b, b_hat,
+    ]), 4
+
+
+crank_nicolson = dirk_method(np.array([
+    [0.0, 0.0],
+    [0.5, 0.5],
+    [0.5, 0.5],
+]), 'crank_nicolson', 'Crank-Nicolson')
+
+sdirk3 = dirk_method(coeffs_sdirk3(), 'sdirk3', 'SDIRK3 Runge-Kutta')
+sdirk3_b = dirk_method(coeffs_sdirk3_b(), 'sdirk3_b',
+                       'SDIRK3 (alternate) Runge-Kutta')
+sdirk21 = adaptive_dirk_method(*coeffs_sdirk21(), 'sdirk21',
+                               'SDIRK21 (Ellsiepen) Runge-Kutta')
+dirk34 = adaptive_dirk_method(*coeffs_dirk34(), 'dirk34', 'DIRK34 Runge-Kutta')
+esdirk23 = adaptive_dirk_method(*coeffs_esdirk23(), 'esdirk23',
+                                'ESDIRK23 Runge-Kutta')
+esdirk34 = adaptive_dirk_method(*coeffs_esdirk34(), 'esdirk34',
+                                'ESDIRK34 Runge-Kutta')
+
+
+################################################################################
+# Rosenbrock methods (see doi:10.1016/j.cma.2009.10.005)
+################################################################################
+
+def coeffs_ros3p():
+    A = np.array([
+        [0.0, 0.0, 0.0],
+        [1.0, 0.0, 0.0],
+        [1.0, 0.0, 0.0],
+    ])
+    gam = 0.7886751347
+    Gamma = np.array([
+        [gam, 0.0, 0.0],
+        [-1.0, gam, 0.0],
+        [-0.7886751347, -1.077350269, gam],
+    ])
+    b = np.array([2 / 3, 0, 1 / 3])
+    b_hat = np.array([1 / 3, 1 / 3, 1 / 3])
+    return A, Gamma, b, b_hat, 2
+
+
+def coeffs_ros3pw():
+    A = np.array([
+        [0.0, 0.0, 0.0],
+        [1.5773502691896257e+00, 0.0, 0.0],
+        [0.5, 0.0, 0.0],
+    ])
+    gam = 7.8867513459481287e-01
+    Gamma = np.array([
+        [gam, 0.0, 0.0],
+        [-1.5773502691896257e+00, gam, 0.0],
+        [-6.7075317547305480e-01, -1.7075317547305482e-01, gam],
+    ])
+    b = np.array([1.0566243270259355e-01, 4.9038105676657971e-02,
+                  8.4529946162074843e-01])
+    b_hat = np.array([-1.7863279495408180e-01, 1 / 3, 8.4529946162074843e-01])
+    return A, Gamma, b, b_hat, 2
+
+
+def coeffs_rowdaind2():
+    A = np.array([
+        [0.0, 0.0, 0.0, 0.0],
+        [0.5, 0.0, 0.0, 0.0],
+        [0.28, 0.72, 0.0, 0.0],
+        [0.28, 0.72, 0.0, 0.0],
+    ])
+    gam = 0.3
+    Gamma = np.array([
+        [gam, 0.0, 0.0, 0.0],
+        [-1.121794871794876e-1, gam, 0.0, 0.0],
+        [2.54, -3.84, gam, 0.0],
+        [29.0 / 75.0, -0.72, 1.0 / 30.0, gam],
+    ])
+    b = np.array([2.0 / 3.0, 0.0, 1.0 / 30.0, 0.3])
+    b_hat = np.array([4.799002800355166e-1, 5.176203811215082e-1,
+                      2.479338842975209e-3, 0.0])
+    return A, Gamma, b, b_hat, 2
+
+
+def coeffs_rodasp():
+    gamma = 0.25
+    A = np.array([
+        [0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        [0.75, 0.0, 0.0, 0.0, 0.0, 0.0],
+        [8.6120400814152190e-2, 0.1238795991858478, 0.0, 0.0, 0.0, 0.0],
+        [0.7749345355073236, 0.1492651549508680, -0.2941996904581916,
+         0.0, 0.0, 0.0],
+        [5.308746682646142, 1.330892140037269, -5.374137811655562,
+         -0.2655010110278497, 0.0, 0.0],
+        [-1.764437648774483, -0.4747565572063027, 2.369691846915802,
+         0.6195023590649829, 0.25, 0.0],
+    ])
+    B = np.array([
+        [0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        [0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        [-0.049392, -0.014112, 0.0, 0.0, 0.0, 0.0],
+        [-0.4820494693877561, -0.1008795555555556, 0.9267290249433117,
+         0.0, 0.0, 0.0],
+        [-1.764437648774483, -0.4747565572063027, 2.369691846915802,
+         0.6195023590649829, 0.0, 0.0],
+        [-8.0368370789113464e-2, -5.6490613592447572e-2, 0.4882856300427991,
+         0.5057162114816189, -0.1071428571428569, 0.0],
+    ])
+    np.fill_diagonal(B, gamma)
+    Gamma = B - A
+    b = np.array([-8.0368370789113464e-2, -5.6490613592447572e-2,
+                  0.4882856300427991, 0.5057162114816189,
+                  -0.1071428571428569, gamma])
+    b_hat = np.array([-1.764437648774483, -0.4747565572063027,
+                      2.369691846915802, 0.6195023590649829, gamma, 0])
+    return A, Gamma, b, b_hat, 3
+
+
+def coeffs_rosi2p1():
+    A = np.array([
+        [0.0, 0.0, 0.0, 0.0],
+        [5.0000000000000000e-1, 0.0, 0.0, 0.0],
+        [5.5729261836499822e-1, 1.9270738163500176e-1, 0.0, 0.0],
+        [-3.0084516445435860e-1, 1.8995581939026787e+0,
+         -5.9871302944832006e-1, 0.0],
+    ])
+    gam = 4.3586652150845900e-1
+    Gamma = np.array([
+        [gam, 0.0, 0.0, 0.0],
+        [-5.0000000000000000e-1, gam, 0.0, 0.0],
+        [-6.4492162993321323e-1, 6.3491801247597734e-2, gam, 0.0],
+        [9.3606009252719842e-3, -2.5462058718013519e-1,
+         -3.2645441930944352e-1, gam],
+    ])
+    b = np.array([5.2900072579103834e-2, 1.3492662311920438e+0,
+                  -9.1013275270050265e-1, 5.0796644892935516e-1])
+    b_hat = np.array([1.4974465479289098e-1, 7.0051069041421810e-1, 0.0,
+                      1.4974465479289098e-1])
+    return A, Gamma, b, b_hat, 2
+
+
+def rosenbrock_method(A, Gamma, b, name, displayname):
+    return _export_method(_RosenbrockScheme(A, Gamma, b, None), name,
+                          displayname)
+
+
+def adaptive_rosenbrock_method(A, Gamma, b, b_hat, err_order, name,
+                               displayname):
+    return _export_method(_RosenbrockScheme(A, Gamma, b, b_hat), name,
+                          displayname, err_order=err_order)
+
+
+ros3p = adaptive_rosenbrock_method(*coeffs_ros3p(), 'ros3p',
+                                   'ROS3P Rosenbrock')
+ros3pw = adaptive_rosenbrock_method(*coeffs_ros3pw(), 'ros3pw',
+                                    'ROS3PW Rosenbrock')
+rowdaind2 = adaptive_rosenbrock_method(*coeffs_rowdaind2(), 'rowdaind2',
+                                       'ROWDAIND2 Rosenbrock')
+rodasp = adaptive_rosenbrock_method(*coeffs_rodasp(), 'rodasp',
+                                    'RODASP Rosenbrock')
+rosi2p1 = adaptive_rosenbrock_method(*coeffs_rosi2p1(), 'rosi2p1',
+                                     'ROSI2P1 Rosenbrock')

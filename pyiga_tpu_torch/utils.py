@@ -1,7 +1,8 @@
 # -*- coding: utf-8 -*-
 """Host helpers (numpy/scipy; copies of parts of :mod:`pyiga_tpu.utils`):
-evaluation of functions over tensor grids, and the sparse Kronecker
-products of the hierarchical spaces.
+evaluation of functions over tensor grids, the sparse Kronecker
+products of the hierarchical spaces, and the progress bar of the time
+integrators (tqdm when installed, else a silent stand-in).
 
 Grid axes are given in ZYX order (the last axis is x); plain callables
 receive XYZ-ordered coordinate arrays.  Input fields of a variational
@@ -115,3 +116,35 @@ def kron_partial(As, rows, restrict=False, format='csr'):
     return scipy.sparse.coo_matrix(
         (coo.data, (rows[coo.row], coo.col)),
         shape=full_shape).asformat(format)
+
+
+class _SilentPbar:
+    """Interface-compatible no-op replacement for a tqdm progress bar."""
+
+    def __init__(self, iterable=None, **kwargs):
+        self._iterable = iterable
+
+    def __iter__(self):
+        return iter(() if self._iterable is None else self._iterable)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __getattr__(self, name):        # update/close/set_postfix/...
+        return lambda *a, **k: None
+
+
+def progress_bar(enable=True):
+    """The tqdm class when installed and enabled, else a no-op stand-in."""
+    if not enable:
+        return _SilentPbar
+    try:
+        import tqdm
+    except ImportError:
+        return _SilentPbar
+    import warnings
+    warnings.simplefilter('ignore', tqdm.TqdmWarning)
+    return tqdm.tqdm
