@@ -41,8 +41,28 @@ heat equation ``M u' = f - K u`` on the NURBS quarter annulus at 2D p=3
 n=128, assembled on the card and integrated by the host ``esdirk34`` and
 ``ros3p`` (10); and on the polar quarter annulus given as a
 ``UserFunction`` at n=60, integrated by ``DeviceRosenbrockScheme`` against
-the host scheme's step sequence with no host fallback (10b).  Any failed
-check raises (nonzero exit).
+the host scheme's step sequence with no host fallback (10b).
+
+The fused stage-2 + fold tail (K7, the JAX package's ``PYIGA_TAIL_FUSED``
+switch) and the 3D Dirichlet Poisson path of ``examples/poisson_3d.py``
+with non-zero data: K7's transposed stage and tail kernel against their
+plain versions at the n=48 flat-banded shapes (4i); the headline
+``assemble_banded()`` with the switch on, then off, in one process, the
+fused operator solved to the headline's 25 iterations (11); the
+Dirichlet path at 3D p=3 n=48 on the twisted box with the harmonic data
+``g = x + 2y + 3z`` (``StiffnessAssembler.assemble`` through K7 ->
+``compute_dirichlet_bcs`` -> the lifted right-hand side by a
+``MatrixFreeOperator`` -> ``cg_ir`` to 1e-10 -> the L2 error by
+``integrate``), cold and warm (12); and the same path at n=8, card against
+CPU (12b).  Any failed check raises (nonzero exit).
+
+Every kernel's entry in the JSON line has its time, its plain version's,
+the time of one PyTorch call computing the same function where one
+exists (``library_ms``; used nowhere in the port) and ``bound_ms``: the
+larger of its bytes over 3.35 TB/s and its operations over the
+datasheet's peak (67 TFLOP/s for f64 on the tensor cores where the
+function is a matrix product, 34 TFLOP/s for f64 FMA otherwise, 67 for
+f32), both counted from this run's inputs.
 
 Output: phase lines, then a JSON line ``{"kernels": [...]}``, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -88,6 +108,11 @@ KERNELS = {
     # K1': stiffness_fields_pallas's host-Jacobian branch
     'host_jac_fields': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
                         'pyiga_tpu/ops/pallas_sumfac.py:1163'),
+    # K7: the transposed stage and the fused stage-2 + fold tail
+    'stage_T': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
+                'pyiga_tpu/ops/pallas_sumfac.py:436'),
+    'tail_fused': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
+                   'pyiga_tpu/ops/pallas_sumfac.py:563'),
 }
 # the kernels each main path runs
 POISSON_KERNELS = ('fields', 'stage', 'fold', 'flat_banded_f64',
@@ -98,6 +123,10 @@ LOCALMG_KERNELS = ('vcycle', 'geo_jac_fields', 'vform_fields', 'stage',
 MASS_KERNELS = ('mass_fields', 'stage', 'fold', 'flat_banded_f64')
 HEAT_KERNELS = ('mass_fields', 'fields', 'stage', 'fold')
 USERGEO_KERNELS = ('host_jac_fields', 'stage', 'fold')
+# the headline with the fused tail (phase 11) and the Dirichlet path (12)
+TAILFUSED_KERNELS = ('fields', 'stage', 'stage_T', 'tail_fused',
+                     'flat_banded_f64', 'flat_banded_f32')
+DIRICHLET_KERNELS = ('fields', 'stage', 'stage_T', 'tail_fused')
 # phase 10's end times: esdirk34 factors 4 sparse LUs of the 16,641 free
 # dofs per step attempt (~2.5 s each on the host), and its start from
 # tau0 = 1e-3 rejects 5 attempts, so t = 0.1 would take minutes; t = 3e-4
@@ -108,6 +137,46 @@ LOCALMG_ITERS = {(24, 3): 29, (48, 3): 27}
 
 CONVDIFF = '(inner(grad(u), grad(v)) + dot(b, grad(u)) * v + u * v) * dx'
 CONV_B = np.array([3.0, -2.0])
+
+# datasheet peaks of the H100 SXM (at its 700 W limit), per millisecond
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+F64_TENSOR_PER_MS = 67e12 / 1e3     # f64 on the tensor cores (DMMA)
+F64_FMA_PER_MS = 34e12 / 1e3        # f64 outside the tensor cores
+F32_PER_MS = 67e12 / 1e3            # f32 outside the tensor cores
+
+
+def bound(nbytes, flops, peak_per_ms):
+    """The least time the card could take for a function that moves
+    `nbytes` (each input read once, each output written once) and does
+    `flops` operations at `peak_per_ms`."""
+    t_bytes = nbytes / HBM_BYTES_PER_MS
+    t_ops = flops / peak_per_ms
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                bound_bytes=int(nbytes), bound_flops=int(flops))
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def harmonic(x, y, z):
+    """The Dirichlet data of phase 12: harmonic, so the discrete solution
+    is the interpolant of g o geo on the twisted box."""
+    return x + 2 * y + 3 * z
+
+
+class SquaredError:
+    """``(u_h - g)^2`` on a tensor grid (``g`` alone for ``uh=None``), `g`
+    taken at the mapped points: the integrand of the L2 error."""
+
+    def __init__(self, uh, geo, g):
+        self.uh, self.geo, self.g = uh, geo, g
+
+    def grid_eval(self, grid):
+        X = self.geo.grid_eval(grid)
+        ref = self.g(*np.moveaxis(X, -1, 0))
+        return (ref if self.uh is None else self.uh.grid_eval(grid) - ref) ** 2
 
 
 def log(*args):
@@ -202,11 +271,17 @@ def check_kernels(device, n=48, seed=0):
     got, ref = cs.fields(*args), cs.fields_plain(*args)
     sync(device)
     err, rel = compare('fields', got, ref, 1e-12)
+    # per point: the last-axis contraction (C x d dots of nL) + det/inverse
+    d, C, _, nL = Y.shape
     out['fields'] = dict(max_abs_err=err, rel=rel,
                          shape=list(got.shape),
                          ms=time_ms(lambda: cs.fields(*args), device),
                          plain_ms=time_ms(lambda: cs.fields_plain(*args),
-                                          device, reps=3))
+                                          device, reps=3),
+                         library_ms=None,
+                         **bound(nbytes(Y, T, w12, wL, got),
+                                 got[0].numel() * (2 * C * d * nL + 100),
+                                 F64_FMA_PER_MS))
     del Y, got, ref, args
 
     # K2 at both chain-stage shapes, real banded tables
@@ -216,6 +291,7 @@ def check_kernels(device, n=48, seed=0):
                   for k in (0, 1)]
     K, M = stage_tabs[0].shape[1], stage_tabs[0].shape[0]
     stage_ms, stage_plain_ms, stage_err, stage_rel = [], [], 0.0, 0.0
+    stage_lib_ms, stage_bytes, stage_flops = [], 0, 0
     for R, Tt in ((K * K, stage_tabs[0]), (K * M, stage_tabs[1])):
         X = rand(K, R)
         got, ref = cs.stage(X, Tt), cs.stage_plain(X, Tt)
@@ -224,11 +300,20 @@ def check_kernels(device, n=48, seed=0):
         stage_err, stage_rel = max(stage_err, e), max(stage_rel, r)
         stage_ms.append(time_ms(lambda: cs.stage(X, Tt), device))
         stage_plain_ms.append(time_ms(lambda: cs.stage_plain(X, Tt), device))
+        # yardstick: one torch.matmul of the same operands
+        stage_lib_ms.append(time_ms(lambda: torch.matmul(X.t(), Tt.t()),
+                                    device))
+        stage_bytes += nbytes(X, Tt, got)
+        stage_flops += 2 * K * R * M
         del X, got, ref
     out['stage'] = dict(max_abs_err=stage_err, rel=stage_rel,
                         shapes=[[K, K * K, M], [K, K * M, M]],
                         ms=sum(stage_ms), plain_ms=sum(stage_plain_ms),
-                        ms_each=stage_ms, plain_ms_each=stage_plain_ms)
+                        library_ms=sum(stage_lib_ms),
+                        ms_each=stage_ms, plain_ms_each=stage_plain_ms,
+                        library_ms_each=stage_lib_ms,
+                        **bound(stage_bytes, stage_flops,
+                                F64_TENSOR_PER_MS))
 
     # K3: the fold plan's terms over their deduplicated last tables,
     # R = M * M
@@ -242,12 +327,22 @@ def check_kernels(device, n=48, seed=0):
     got, ref = cs.fold(xs, fold_tabs, idx), cs.fold_plain(xs, fold_tabs, idx)
     sync(device)
     err, rel = compare('fold', got, ref, 1e-12)
+    # yardstick: one torch.matmul over the terms' operands concatenated
+    # along K (the concatenation is made outside the timed call)
+    xcat = torch.cat(xs, dim=0).t()
+    tcat = torch.cat([fold_tabs[i] for i in idx], dim=1).t()
+    lib_ms = time_ms(lambda: torch.matmul(xcat, tcat), device)
+    del xcat, tcat
     out['fold'] = dict(max_abs_err=err, rel=rel,
                        shape=[len(xs), K, M * M, M], tables=len(fold_tabs),
                        ms=time_ms(lambda: cs.fold(xs, fold_tabs, idx),
                                   device),
                        plain_ms=time_ms(lambda: cs.fold_plain(
-                           xs, fold_tabs, idx), device))
+                           xs, fold_tabs, idx), device),
+                       library_ms=lib_ms,
+                       **bound(nbytes(*xs, *fold_tabs, got),
+                               2 * K * M * M * M * len(xs),
+                               F64_TENSOR_PER_MS))
     del xs, got, ref
 
     # K4 in f64 and f32 on the n=48 flat layout
@@ -265,12 +360,17 @@ def check_kernels(device, n=48, seed=0):
         ref = bd.flat_banded_matvec_plain(Dd, xd, offs, lead)
         sync(device)
         err, rel = compare(name, got, ref, tol)
+        # D, the offsets and x read once, y written once; no single
+        # PyTorch call takes the flat banded layout (library_ms null)
         out[name] = dict(
             max_abs_err=err, rel=rel, shape=[C, F],
             ms=time_ms(lambda: bd.flat_banded_matvec(Dd, xd, offs, lead),
                        device, reps=50),
             plain_ms=time_ms(lambda: bd.flat_banded_matvec_plain(
-                Dd, xd, offs, lead), device))
+                Dd, xd, offs, lead), device),
+            library_ms=None,
+            **bound(nbytes(Dd, offs, xd[lead:lead + F], got), 2 * C * F,
+                    F64_FMA_PER_MS if dtype == f64 else F32_PER_MS))
         del Dd, xd, got, ref
     for name, r in out.items():
         log('  %-16s kernel %.4f ms   plain %.4f ms' % (name, r['ms'],
@@ -425,11 +525,17 @@ def check_vform_kernels(device):
         ref = cs.geo_jac_fields_plain(Y, T, nurbs)
         sync(device)
         err, rel = compare('geo_jac ' + name[:9], got, ref, 1e-12)
+        # per point: C x (d + 1) dots of nL, the NURBS quotient
+        C, nL = Y.shape[1], Y.shape[3]
         cases[name] = dict(
             max_abs_err=err, rel=rel, shape=list(got.shape),
             ms=time_ms(lambda: cs.geo_jac_fields(Y, T, nurbs), device),
             plain_ms=time_ms(lambda: cs.geo_jac_fields_plain(Y, T, nurbs),
-                             device, reps=3))
+                             device, reps=3),
+            library_ms=None,
+            **bound(nbytes(Y, T, got),
+                    got[0].numel() * (2 * C * (d + 1) * nL + 30),
+                    F64_FMA_PER_MS))
         del Y, got, ref
     out = {'geo_jac_fields': dict(cases['2d_n128_nurbs'], cases=cases)}
 
@@ -461,6 +567,11 @@ def check_vform_kernels(device):
                            device),
         plain_ms=time_ms(lambda: cv.combo_fields_plain(asm, arrays, combos),
                          device, reps=3),
+        library_ms=None,
+        # the leaves and parameters read once, the fields written once;
+        # one operation per SSA instruction and Gauss point
+        **bound(nbytes(Y, P, got), len(prog.instrs) * Y.shape[1],
+                F64_FMA_PER_MS),
         build=build, host_setup_first_ms=1e3 * t_setup)
     log('  K5 program: %d leaves, %d params, %d SSA instrs, %d fields; '
         'nvcc %.2f s, cached load %.3f s; first host setup %.1f ms'
@@ -613,6 +724,24 @@ def localmg_solver(hs, A, device, impl):
                           smoother_impl=impl, device=device)
 
 
+def vcycle_bound(ops, x, f):
+    """K6's bound for one cycle: every operand of the hierarchy, x and f
+    read once, x written once; the operations counted are the dense
+    triangular inverses applied once per listed sweep and the coarse
+    inverse once (a lower bound: the ELL products are left out)."""
+    tensors, seen = [ops.ind0, ops.Cinv, ops.mask, x, f, x], set()
+    flops = 2 * ops.Cinv.numel()
+    for lev in ops.levels:
+        for key, val in lev.items():
+            for t in (val if isinstance(val, (list, tuple)) else [val]):
+                if id(t) not in seen:
+                    seen.add(id(t))
+                    tensors.append(t)
+        for T in lev.get('pre', []) + lev.get('post', []):
+            flops += 2 * T.numel()
+    return bound(nbytes(*tensors), flops, F64_FMA_PER_MS)
+
+
 def check_vcycle_kernel(device):
     """Phase 4e: K6 against its plain version, one V-cycle from a seeded
     iterate and right-hand side, on the operands of the (24, 3) and
@@ -646,7 +775,8 @@ def check_vcycle_kernel(device):
             solver_setup_ms=1e3 * t_setup,
             ms=time_ms(lambda: cuda_mg.vcycle(s.ops, x, f), device, reps=20),
             plain_ms=time_ms(lambda: cuda_mg.vcycle_plain(s.ops, x, f),
-                             device, reps=5))
+                             device, reps=5),
+            library_ms=None, **vcycle_bound(s.ops, x, f))
         log('  (%d,%d): n %s  m %s  m0 %d  blocks %d  solver setup %.0f ms'
             % (n0, L, s.ops.n, m, cases['%d_%d' % (n0, L)]['m0'],
                cases['%d_%d' % (n0, L)]['blocks'], 1e3 * t_setup))
@@ -830,12 +960,17 @@ def check_mass_kernels(device, n3=48, n2=128):
         got, ref = cs.fields_mass(*args), cs.fields_mass_plain(*args)
         sync(device)
         err, rel = compare('mass ' + name[:10], got, ref, 1e-13)
+        Y = args[0]
+        d, C, _, nL = Y.shape
         out['mass_fields'][name] = dict(
             max_abs_err=err, rel=rel, shape=list(got.shape),
             out_bytes=got.numel() * 8,
             ms=time_ms(lambda: cs.fields_mass(*args), device),
             plain_ms=time_ms(lambda: cs.fields_mass_plain(*args), device,
-                             reps=3))
+                             reps=3),
+            library_ms=None,
+            **bound(nbytes(*args[:4], got),
+                    got.numel() * (2 * C * d * nL + 20), F64_FMA_PER_MS))
         if name.startswith('3d'):
             # the twisted box's Jacobian at the 3D shape, for K1' below
             tables = gi['geo_tables_bsp']
@@ -860,7 +995,10 @@ def check_mass_kernels(device, n3=48, n2=128):
             in_bytes=(jac.numel() + gw.numel()) * 8,
             ms=time_ms(lambda: cs.host_jac_fields(jac, gw), device),
             plain_ms=time_ms(lambda: cs.host_jac_fields_plain(jac, gw),
-                             device, reps=3))
+                             device, reps=3),
+            library_ms=None,
+            # det, adjugate, the unique products: ~60 operations a point
+            **bound(nbytes(jac, gw, got), 60 * gw.numel(), F64_FMA_PER_MS))
         del got, ref
     out['host_jac_fields']['2d_n128_user']['host_jacobian_setup_ms'] = \
         1e3 * t_host_jac
@@ -1222,6 +1360,299 @@ def run_heat_device(device, n=60, n_full=128):
     return rec
 
 
+def check_tail_kernels(device, n=48, seed=4):
+    """Phase 4i: K7's transposed stage and tail kernel against their plain
+    versions at the n=48 flat-banded shapes of ``assemble_banded`` (real
+    banded tables, the direct terms' first tables halved, stage-2 and
+    final tables shared by identity as the route shares them; seeded
+    fields and stage-1 outputs), 1e-13 relative to the largest entry.
+    Yardsticks: one ``torch.matmul`` for ``stage_T``, one
+    ``torch.einsum`` over the stacked per-term operands for
+    ``tail_fused``."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    from pyiga_tpu_torch.ops.banded import band_info
+
+    rng = np.random.RandomState(seed)
+    f64 = torch.float64
+    asm = main_path_setup(3, n, device)
+    plan = asm._fold()
+    btabs = asm.tables.banded_term_tables(asm.terms, band_info(asm.structure))
+    uploaded = {}
+
+    def dev(a):
+        if id(a) not in uploaded:
+            uploaded[id(a)] = (a, torch.as_tensor(a, dtype=f64,
+                                                  device=device))
+        return uploaded[id(a)][1]
+    tabs = [[dev(btabs[t][0] if m else 0.5 * btabs[t][0])]
+            + [dev(T) for T in btabs[t][1:]] for t, m in plan]
+    M, K = tabs[0][0].shape
+    out = {}
+
+    X = torch.as_tensor(rng.rand(K, K * K), dtype=f64, device=device)
+    T = tabs[0][0]
+    got, ref = cs.stage_T(X, T), cs.stage_T_plain(X, T)
+    sync(device)
+    err, rel = compare('stage_T', got, ref, 1e-13)
+    out['stage_T'] = dict(
+        max_abs_err=err, rel=rel, shape=[K, K * K, M],
+        ms=time_ms(lambda: cs.stage_T(X, T), device),
+        plain_ms=time_ms(lambda: cs.stage_T_plain(X, T), device),
+        library_ms=time_ms(lambda: torch.matmul(T, X), device),
+        **bound(nbytes(X, T, got), 2 * K * K * K * M, F64_TENSOR_PER_MS))
+    del X, got, ref
+
+    x1T = [torch.as_tensor(rng.rand(M, K, K), dtype=f64, device=device)
+           for _ in plan]
+    tc2, idx2 = cs._dedup([t[1] for t in tabs])
+    tc3, idx3 = cs._dedup([t[2] for t in tabs])
+    args = (x1T, tc2, tc3, idx2, idx3)
+    got, ref = cs.tail_fused(*args), cs.tail_fused_plain(*args)
+    sync(device)
+    err, rel = compare('tail_fused', got, ref, 1e-13)
+    M2, M3 = tc2[0].shape[0], tc3[0].shape[0]
+    flops = len(x1T) * (2 * M * K * K * M2 + 2 * M * M2 * K * M3)
+    rec = dict(max_abs_err=err, rel=rel, shape=[len(x1T), M, K, K, M2, M3],
+               tables=[len(tc2), len(tc3)],
+               ms=time_ms(lambda: cs.tail_fused(*args), device, reps=5),
+               plain_ms=time_ms(lambda: cs.tail_fused_plain(*args), device,
+                                reps=5),
+               **bound(nbytes(*x1T, *tc2, *tc3, got), flops,
+                       F64_TENSOR_PER_MS))
+    X6 = torch.stack(x1T)
+    T2 = torch.stack([tc2[i] for i in idx2])
+    T3 = torch.stack([tc3[i] for i in idx3])
+    del got, ref
+    rec['library_ms'] = time_ms(
+        lambda: torch.einsum('tajk,tbj,tck->abc', X6, T2, T3), device,
+        reps=3, warmup=1)
+    out['tail_fused'] = rec
+    del X6, T2, T3, x1T, args
+    # ragged shapes: partial m2 tiles, K3 over one 192-deep stage-2 chunk,
+    # M3 over one 512-column chunk (two chunks rebuild Y2)
+    rec['ragged'] = {}
+    for M1, K2, K3, M2, M3 in ((5, 7, 9, 13, 11), (3, 33, 200, 17, 600)):
+        xs = [torch.as_tensor(rng.rand(M1, K2, K3), dtype=f64, device=device)
+              for _ in range(3)]
+        t2 = [torch.as_tensor(rng.rand(M2, K2), dtype=f64, device=device)
+              for _ in range(2)]
+        t3 = [torch.as_tensor(rng.rand(M3, K3), dtype=f64, device=device)]
+        a = (xs, t2, t3, [0, 1, 1], [0, 0, 0])
+        got, ref = cs.tail_fused(*a), cs.tail_fused_plain(*a)
+        sync(device)
+        key = '%dx%dx%dx%dx%d' % (M1, K2, K3, M2, M3)
+        rec['ragged'][key] = compare('tail ' + key, got, ref, 1e-13)
+    for name, r in out.items():
+        log('  %-16s kernel %.4f ms   plain %.4f ms   library %.4f ms   '
+            'bound %.4f ms (%s)' % (name, r['ms'], r['plain_ms'],
+                                    r['library_ms'], r['bound_ms'],
+                                    r['bound_by']))
+    return out
+
+
+def run_tail_fused_path(device, n=48):
+    """Phase 11: the headline ``assemble_banded()`` with the fused tail
+    (``cuda_sumfac.TAIL_FUSED``) on, then off, in one process (each cold,
+    then warm): D agrees to 1e-13 relative, the fused run launches
+    ``stage_T`` six times, ``tail_fused`` once and ``fold`` never, and
+    ``cg_ir`` on the fused operator takes the headline's 25 inner
+    iterations [7, 9, 9].  The switch is restored afterwards."""
+    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    asm = main_path_setup(3, n, device)
+    saved = cs.TAIL_FUSED
+    ops, times, launches = {}, {}, {}
+    try:
+        for on in (True, False):
+            cs.TAIL_FUSED = on
+            key = 'fused' if on else 'two_call'
+            _cuda.reset_launches()
+            ts = []
+            for _ in range(2):                  # cold, warm
+                sync(device)
+                t0 = time.perf_counter()
+                ops[key] = asm.assemble_banded()
+                sync(device)
+                ts.append(1e3 * (time.perf_counter() - t0))
+                if not launches.get(key):
+                    launches[key] = dict(_cuda.LAUNCHES)
+            times[key] = ts
+    finally:
+        cs.TAIL_FUSED = saved
+    Df, D2 = ops['fused'].D, ops['two_call'].D
+    rel = float((Df - D2).abs().max() / D2.abs().max())
+    lf = launches['fused']
+    log('  assemble_banded fused cold %.2f ms warm %.2f ms; two-call cold '
+        '%.2f ms warm %.2f ms; D rel %.3e'
+        % (times['fused'][0], times['fused'][1], times['two_call'][0],
+           times['two_call'][1], rel))
+    log('  launches (fused): %s' % lf)
+    if not rel <= 1e-13:
+        raise RuntimeError('fused D differs from the two-call D: %.3e' % rel)
+    if not (lf['stage_T'] == 6 and lf['tail_fused'] == 1
+            and lf['fold'] == 0):
+        raise RuntimeError('fused assembly launched stage_T %d, tail_fused '
+                           '%d, fold %d (expected 6, 1, 0)'
+                           % (lf['stage_T'], lf['tail_fused'], lf['fold']))
+    _cuda.reset_launches()
+    x, info, res, t_setup, t_solve = solve_case(asm, ops['fused'], device)
+    solve_launches = dict(_cuda.LAUNCHES)
+    log('  cg_ir on the fused operator: inner_iters %s  sum %d  rel residual '
+        '%.3e  solve %.2f ms' % (info['inner_iters'], sum(info['inner_iters']),
+                                 res, 1e3 * t_solve))
+    if info['inner_iters'] != [7, 9, 9] or not res <= 1e-8:
+        raise RuntimeError('fused operator solves in %s, residual %.3e'
+                           % (info['inner_iters'], res))
+    path = {k: lf[k] + solve_launches[k] for k in lf}
+    missing = [k for k in TAILFUSED_KERNELS if path[k] <= 0]
+    if missing:
+        raise RuntimeError('fused headline never launched %s' % missing)
+    return dict(n=n, D_rel=rel, t_fused_ms=times['fused'],
+                t_two_call_ms=times['two_call'], launches_fused=lf,
+                launches_two_call=launches['two_call'],
+                launches_path=path, inner_iters=info['inner_iters'],
+                residual=res, t_solve_ms=1e3 * t_solve)
+
+
+def dirichlet_path(n, device):
+    """The 3D Dirichlet Poisson path (``examples/poisson_3d.py`` with the
+    harmonic data `g`) at p=3 on the twisted box: ``StiffnessAssembler.
+    assemble()`` (a host MLMatrix), ``compute_dirichlet_bcs``, the lifted
+    right-hand side ``b = -(A_mf ext(g_b))_free`` by a full
+    ``MatrixFreeOperator``, float64/float32 restricted operators, the
+    weighted fastdiag in float32, ``cg_ir`` to 1e-10, then the completed
+    solution's L2 error by ``integrate``.  Returns the record and the
+    solution on the free dofs (host)."""
+    from pyiga_tpu_torch import assemble, bspline, geometry, solvers
+    from pyiga_tpu_torch.assemblers import StiffnessAssembler
+    from pyiga_tpu_torch.ops.fastdiag import fastdiag_precond_weighted
+    from pyiga_tpu_torch.ops.matfree import MatrixFreeOperator
+    from pyiga_tpu_torch.ops.mlmatvec import make_ml_matvec
+
+    t = {}
+    kvs = 3 * (bspline.make_knots(3, 0.0, 1.0, n),)
+    geo = geometry.twisted_box()
+    t0 = time.perf_counter()
+    asm = StiffnessAssembler(kvs, geo, device=device)
+    t['host_setup'] = time.perf_counter() - t0
+    sync(device)
+    t0 = time.perf_counter()
+    A = asm.assemble()
+    t['assembly'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bd, vals = assemble.compute_dirichlet_bcs(kvs, geo, ('all', harmonic))
+    t['dirichlet_bcs'] = time.perf_counter() - t0
+    n_full = A.shape[0]
+    free = np.setdiff1d(np.arange(n_full), bd)
+    t0 = time.perf_counter()
+    A_mf = MatrixFreeOperator(asm)
+    ext = torch.zeros(n_full, dtype=torch.float64, device=device)
+    ext[torch.as_tensor(bd, device=device)] = torch.as_tensor(vals,
+                                                               device=device)
+    free_t = torch.as_tensor(free, device=device)
+    b = -A_mf(ext)[free_t]
+    op_hi = MatrixFreeOperator(asm, free_dofs=free, dtype=torch.float64)
+    op_lo = MatrixFreeOperator(asm, free_dofs=free, dtype=torch.float32)
+    P = fastdiag_precond_weighted(asm, dirichlet=True, dtype=torch.float32)
+    sync(device)
+    t['solver_setup'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, info = solvers.cg_ir(op_hi, op_lo, b, tol=1e-10, precond_lo=P)
+    sync(device)
+    t['solve'] = time.perf_counter() - t0
+    res = float(torch.linalg.vector_norm(b - op_hi(x))
+                / torch.linalg.vector_norm(b))
+    # the matrix-free operator against the assembled one (K7's output)
+    xr = torch.as_tensor(np.random.RandomState(12).rand(n_full),
+                         dtype=torch.float64, device=device)
+    y_mf, y_asm = A_mf(xr), make_ml_matvec(A, device=device)(xr)
+    mf_rel = float((y_mf - y_asm).abs().max() / y_asm.abs().max())
+    u = np.zeros(n_full)
+    u[free], u[bd] = x.cpu().numpy(), vals
+    uh = geometry.BSplineFunc(kvs, u.reshape([kv.numdofs for kv in kvs]))
+    t0 = time.perf_counter()
+    err2 = assemble.integrate(kvs, SquaredError(uh, geo, harmonic), geo=geo)
+    t['integrate'] = time.perf_counter() - t0
+    norm2 = assemble.integrate(kvs, SquaredError(None, geo, harmonic),
+                               geo=geo)
+    rec = dict(n=n, p=3, ndofs=n_full, n_free=len(free),
+               n_dirichlet=len(bd), outer=info['outer'],
+               inner_iters=info['inner_iters'],
+               iters=sum(info['inner_iters']), residual=res,
+               residual_cg_ir=info['residual'],
+               rel_l2_error=float(np.sqrt(err2 / norm2)),
+               mf_vs_assembled_rel=mf_rel,
+               **{'t_%s_ms' % k: 1e3 * v for k, v in t.items()})
+    return rec, x.cpu()
+
+
+def run_dirichlet_path(device, n=48):
+    """Phase 12: the Dirichlet path at n=48 with the fused tail on, cold
+    and warm; residual <= 1e-10 and relative L2 error <= 1e-7 (the
+    discrete solution is the interpolant of the harmonic data, so the
+    error is the solver's), the assembled (K7) and the matrix-free
+    operators agree to 1e-12."""
+    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    saved = cs.TAIL_FUSED
+    cs.TAIL_FUSED = True
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        _cuda.reset_launches()
+        cold, _ = dirichlet_path(n, device)
+        cold['launches'] = dict(_cuda.LAUNCHES)
+        cold['peak_device_bytes'] = int(torch.cuda.max_memory_allocated(
+            device))
+        warm, _ = dirichlet_path(n, device)
+    finally:
+        cs.TAIL_FUSED = saved
+    for name, r in (('cold', cold), ('warm', warm)):
+        log('  %s: %d dofs (%d free); assemble() %.1f ms  bcs %.1f ms  '
+            'solver setup %.1f ms  solve %.1f ms  integrate %.1f ms'
+            % (name, r['ndofs'], r['n_free'], r['t_assembly_ms'],
+               r['t_dirichlet_bcs_ms'], r['t_solver_setup_ms'],
+               r['t_solve_ms'], r['t_integrate_ms']))
+        log('    outer %d  inner_iters %s  rel residual %.3e  rel L2 error '
+            '%.3e  matrix-free vs assembled %.3e'
+            % (r['outer'], r['inner_iters'], r['residual'],
+               r['rel_l2_error'], r['mf_vs_assembled_rel']))
+    log('  peak %.0f MB  launches: %s' % (cold['peak_device_bytes'] / 2 ** 20,
+                                         cold['launches']))
+    for r in (cold, warm):
+        if not (r['residual'] <= 1e-10 and r['rel_l2_error'] <= 1e-7
+                and r['mf_vs_assembled_rel'] <= 1e-12):
+            raise RuntimeError('Dirichlet path: residual %.3e, L2 error '
+                               '%.3e, operators %.3e'
+                               % (r['residual'], r['rel_l2_error'],
+                                  r['mf_vs_assembled_rel']))
+    missing = [k for k in DIRICHLET_KERNELS if cold['launches'][k] <= 0]
+    if missing:
+        raise RuntimeError('Dirichlet path never launched %s' % missing)
+    cold['warm'] = warm
+    return cold
+
+
+def check_dirichlet_small(device, n=8):
+    """Phase 12b: the Dirichlet path at n=8 with the fused tail on, card
+    against CPU: identical ``cg_ir`` counts, solutions to 1e-10."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    saved = cs.TAIL_FUSED
+    cs.TAIL_FUSED = True
+    try:
+        rg, xg = dirichlet_path(n, device)
+        rc, xc = dirichlet_path(n, torch.device('cpu'))
+    finally:
+        cs.TAIL_FUSED = saved
+    err_x = float((xg - xc).abs().max() / xc.abs().max())
+    log('  n=%d card vs CPU: inner_iters %s vs %s  x rel %.3e  L2 error '
+        '%.3e / %.3e' % (n, rg['inner_iters'], rc['inner_iters'], err_x,
+                         rg['rel_l2_error'], rc['rel_l2_error']))
+    if rg['inner_iters'] != rc['inner_iters'] or not err_x <= 1e-10:
+        raise RuntimeError('card Dirichlet path disagrees with the CPU run')
+    return dict(dirichlet_n8_card=rg, dirichlet_n8_cpu=rc,
+                dirichlet_n8_x_rel=err_x)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -1229,6 +1660,7 @@ def main():
     sys.path.insert(0, REPO)
     from pyiga_tpu_torch import _cuda
 
+    t_start = time.perf_counter()
     device = torch.device('cuda', 0)
     card = nvidia_smi()
     log('phase 1: %s | torch %s | CUDA %s | %s x%d'
@@ -1342,16 +1774,42 @@ def main():
         'UserFunction n=60')
     heat_dev = run_heat_device(device)
     launches['host_jac_fields'] = heat_dev['launches']['host_jac_fields']
+    torch.cuda.empty_cache()
+
+    log('phase 4i: K7 (stage_T, tail_fused) vs plain versions at the 3D '
+        'n=48 flat-banded shapes')
+    kern.update(check_tail_kernels(device))
+    torch.cuda.empty_cache()
+
+    log('phase 11: headline assemble_banded with the fused tail on, then '
+        'off, 3D p=3 n=48')
+    tail = run_tail_fused_path(device)
+    launches.update((k, tail['launches_path'][k])
+                    for k in ('stage_T', 'tail_fused'))
+    torch.cuda.empty_cache()
+
+    log('phase 12: 3D Dirichlet Poisson path (harmonic data), p=3 twisted '
+        'box n=48, fused tail')
+    dirichlet = run_dirichlet_path(device)
+    torch.cuda.empty_cache()
+
+    log('phase 12b: Dirichlet path on small inputs (n=8), card vs CPU')
+    small.update(check_dirichlet_small(device))
 
     kernels = [dict(name=k, route=KERNELS[k][0], source=KERNELS[k][1],
                     replaces=KERNELS[k][2], launches=launches[k],
                     max_abs_err=kern[k]['max_abs_err'], ms=kern[k]['ms'],
-                    plain_ms=kern[k]['plain_ms']) for k in KERNELS]
+                    plain_ms=kern[k]['plain_ms'],
+                    bound_ms=kern[k]['bound_ms'],
+                    bound_by=kern[k]['bound_by'],
+                    library_ms=kern[k]['library_ms']) for k in KERNELS]
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=t_build, kernels=kern,
                   small=small, main3d=main3, main2d=main2,
                   convdiff2d=conv, localmg_24_3=lmg, localmg_48_3=lmg48,
-                  mass3d=mass3, heat2d=heat, heat2d_device=heat_dev)
+                  mass3d=mass3, heat2d=heat, heat2d_device=heat_dev,
+                  tail_fused3d=tail, dirichlet3d=dirichlet,
+                  seconds=time.perf_counter() - t_start)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:
         json.dump(record, f, indent=1, default=str)

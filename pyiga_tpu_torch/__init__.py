@@ -9,9 +9,10 @@ sparsity structures) is carried over as a copy.
 
 This package imports torch and never jax or pyiga_tpu.  Every tensor it
 creates names its dtype; torch's global default dtype is never changed.
-Device selection is explicit (``device=`` arguments; omitted means the
-CPU).  On a CPU tensor each kernel wrapper runs its plain PyTorch
-version; on a CUDA tensor it launches the CUDA kernel.
+Entry points run on the card: a ``device=`` argument that is omitted
+means ``torch.device('cuda')``, and ``device='cpu'`` asks for the CPU.
+On a CPU tensor each kernel wrapper runs its plain PyTorch version; on a
+CUDA tensor it launches the CUDA kernel.
 """
 
 __version__ = '0.1.0'

@@ -83,8 +83,8 @@ class HDiscretization:
         hspace: the :class:`~pyiga_tpu_torch.hierarchical.HSpace`.
         vform: the bilinear :class:`~pyiga_tpu_torch.vform.VForm`.
         asm_args: named assembler inputs (at least ``{'geo': geo}``).
-        device: where the per-level assemblies run (default: the CPU,
-            where the kernels' plain versions run).
+        device: where the per-level assemblies run (default: the card;
+            ``'cpu'`` runs the kernels' plain versions).
     """
 
     def __init__(self, hspace, vform, asm_args, device=None):

@@ -8,9 +8,13 @@ assemblers of :mod:`pyiga_tpu_torch.assemblers` for a geometry).
 
 Matrix conventions as in the JAX package: rows are test functions,
 columns trial functions.  The device is explicit (``device=``; omitted
-means the CPU): problems are never rerouted to another device by size.
-Also here, as host copies: the boundary index sets of a tensor-product
-space (:func:`boundary_dofs`, :func:`boundary_cells`) and
+means the card, ``'cpu'`` the CPU): problems are never rerouted to
+another device by size.
+Also here, as host copies: load vectors and integrals by the
+assemblers' Gauss rule (:func:`inner_products`, :func:`integrate`), the
+boundary index sets of a tensor-product space (:func:`boundary_dofs`,
+:func:`boundary_cells`), Dirichlet data by interpolation on the boundary
+faces (:func:`compute_dirichlet_bcs`, :func:`combine_bcs`) and
 :class:`RestrictedLinearSystem` for eliminating Dirichlet dofs.
 Boundary integrals and vector-valued layouts are not ported yet.
 """
@@ -18,11 +22,11 @@ Boundary integrals and vector-valued layouts are not ported yet.
 import numpy as np
 import scipy.sparse
 
-from . import assemblers, bspline, utils
+from . import assemblers, bspline, operators, tensor, utils
 from . import vform as vform_mod
 from .bspline import KnotVector
 from .compile import compile_vform
-from .quadrature import make_iterated_quadrature
+from .quadrature import make_iterated_quadrature, make_tensor_quadrature
 
 
 ################################################################################
@@ -151,7 +155,7 @@ def mass(kvs, geo=None, format='csr', device=None):
     """Mass matrix over a TP spline space: the 1D builder for one axis,
     the Kronecker route for ``geo=None``, else the
     :class:`~pyiga_tpu_torch.assemblers.MassAssembler` on `device`
-    (default: the CPU)."""
+    (default: the card)."""
     kvs = (kvs,) if isinstance(kvs, KnotVector) else tuple(kvs)
     if len(kvs) == 1:
         return bsp_mass_1d(kvs[0])
@@ -172,6 +176,55 @@ def stiffness(kvs, geo=None, format='csr', device=None):
     if len(kvs) not in builders:
         raise ValueError('dimension %d not supported' % len(kvs))
     return builders[len(kvs)](kvs, geo=geo, format=format, device=device)
+
+
+################################################################################
+# Right-hand sides and integration
+################################################################################
+
+def _weighted_gauss_values(kvs, f, f_physical, geo, caller):
+    """Evaluate `f` on the assembler Gauss grid (nqp = max(p)+1 per axis)
+    and fold in the quadrature weights and, with geometry, |det J|.
+    Returns ``(kvs, gaussgrid, weighted values)``."""
+    if isinstance(kvs, KnotVector):
+        kvs = (kvs,)
+    nqp = max(kv.p for kv in kvs) + 1
+    grid, gw = make_tensor_quadrature([kv.mesh for kv in kvs], nqp)
+
+    if f_physical:
+        if geo is None:
+            raise ValueError('%s in physical domain requires geometry'
+                             % caller)
+        vals = utils.grid_eval_transformed(f, grid, geo)
+    else:
+        vals = utils.grid_eval(f, grid)
+
+    vals = tensor.apply_tprod(
+        [operators.DiagonalOperator(w) for w in gw], vals)
+    if geo is not None:
+        det = np.abs(np.linalg.det(geo.grid_jacobian(grid)))
+        # trailing component axes broadcast against the grid-shaped det
+        vals = vals * det.reshape(det.shape
+                                  + (vals.ndim - det.ndim) * (1,))
+    return kvs, grid, vals
+
+
+def inner_products(kvs, f, f_physical=False, geo=None):
+    """L2 inner products of all TP basis functions with `f` (the load
+    vector), as an array of shape ``numdofs(kv) per axis`` (+
+    components)."""
+    kvs, grid, vals = _weighted_gauss_values(kvs, f, f_physical, geo,
+                                             'inner_products')
+    basis_T = [bspline.collocation(kv, g).T for kv, g in zip(kvs, grid)]
+    return tensor.apply_tprod(basis_T, vals)
+
+
+def integrate(kvs, f, f_physical=False, geo=None):
+    """Integral of `f` over the domain described by `geo` (or the
+    parameter domain), using the same Gauss rule as the assemblers."""
+    kvs, _, vals = _weighted_gauss_values(kvs, f, f_physical, geo,
+                                          'integrate')
+    return vals.sum(axis=tuple(range(len(kvs))))
 
 
 ################################################################################
@@ -211,6 +264,105 @@ def boundary_cells(kvs, bdspec, ravel=False):
     ax, side = bspline._parse_bdspec(bdspec, len(kvs))
     return slice_indices(ax, -side, tuple(kv.numspans for kv in kvs),
                          ravel=ravel)
+
+
+def _drop_nans(indices, values):
+    ok = ~np.isnan(values)
+    return (indices, values) if ok.all() else (indices[ok], values[ok])
+
+
+def _face_space(kvs, bdspec):
+    """The (d-1)-dim knot vectors of a boundary face plus the face's dof
+    indices in the full space (raveled, face-lexicographic order)."""
+    bdax, bdside = bdspec
+    face_kvs = tuple(kv for k, kv in enumerate(kvs) if k != bdax)
+    N = tuple(kv.numdofs for kv in kvs)
+    face_dofs = slice_indices(bdax, -bdside, N, ravel=True)
+    return face_kvs, face_dofs
+
+
+def compute_dirichlet_bc(kvs, geo, bdspec, dir_func):
+    """Indices and values of the Dirichlet dofs on one boundary face,
+    computed by interpolating `dir_func` (given in physical coordinates;
+    scalars mean constant functions; vector-valued functions produce
+    blocked numbering).  NaN values drop the dof from the BC (mixed
+    conditions on one face)."""
+    from .approx import interpolate
+    bdspec = bspline._parse_bdspec(bdspec, len(kvs))
+    if len(kvs) != geo.sdim:
+        raise ValueError('invalid dimension of geometry')
+    face_kvs, face_dofs = _face_space(kvs, bdspec)
+
+    if np.isscalar(dir_func):
+        value = dir_func
+
+        def dir_func(*x):
+            return value
+    coeffs = interpolate(face_kvs, dir_func, geo=geo.boundary(bdspec))
+
+    ncomp_dims = coeffs.ndim - len(face_kvs)
+    if ncomp_dims == 0:
+        return _drop_nans(face_dofs, coeffs.ravel())
+    if ncomp_dims == 1:
+        # vector problem, blocked numbering: component j offset by j*N
+        stride = np.prod([kv.numdofs for kv in kvs])
+        per_comp = [(face_dofs + j * stride, coeffs[..., j].ravel())
+                    for j in range(coeffs.shape[-1])]
+        return _drop_nans(*combine_bcs(per_comp))
+    raise ValueError('invalid dimension of Dirichlet coefficients: %s'
+                     % (coeffs.shape,))
+
+
+def compute_dirichlet_bcs(kvs, geo, bdconds):
+    """Combined (indices, values) for several boundary conditions; the
+    shorthand ``("all", g)`` applies `g` on every boundary face."""
+    if len(bdconds) == 2 and bdconds[0] == 'all':
+        g = bdconds[1]
+        bdconds = [((ax, side), g)
+                   for ax in range(len(kvs)) for side in (0, 1)]
+    return combine_bcs([compute_dirichlet_bc(kvs, geo, bdspec, g)
+                        for (bdspec, g) in bdconds])
+
+
+def compute_initial_condition_01(kvs, geo, bdspec, g0, g1, physical=True):
+    """Indices/values fixing function value `g0` and first derivative `g1`
+    at one face of a space-time cylinder with constant-in-time geometry.
+
+    Only the two outermost basis functions along the time axis are
+    nonzero (with their derivative) at the face, so a 2x2 collocation
+    solve per spatial dof yields the coefficients."""
+    from .approx import interpolate
+    bdspec = bspline._parse_bdspec(bdspec, len(kvs))
+    bdax, bdside = bdspec
+    face_kvs = tuple(kv for k, kv in enumerate(kvs) if k != bdax)
+
+    bdgeo = geo.boundary(bdspec) if physical else None
+    rhs = np.stack([interpolate(face_kvs, g, geo=bdgeo).ravel()
+                    for g in (g0, g1)])
+
+    kv_t = kvs[bdax]
+    t_face = kv_t.support()[bdside]
+    tab = bspline.active_deriv(kv_t, t_face, 1)     # (derivs, p+1) table
+    C = tab[:2, :2] if bdside == 0 else tab[:2, -2:]
+    coeffs = np.linalg.solve(C, rhs)
+
+    N = tuple(kv.numdofs for kv in kvs)
+    layers = (0, 1) if bdside == 0 else (-2, -1)
+    dofs = np.concatenate([slice_indices(bdax, layer, N, ravel=True)
+                           for layer in layers])
+    return dofs, coeffs.ravel()
+
+
+def combine_bcs(bcs):
+    """Merge several (indices, values) pairs; on duplicate indices the
+    first occurrence wins."""
+    pairs = list(bcs)
+    indices = np.concatenate([p[0] for p in pairs])
+    values = np.concatenate([p[1] for p in pairs])
+    if indices.shape != values.shape:
+        raise ValueError('inconsistent BC sizes')
+    unique, first_pos = np.unique(indices, return_index=True)
+    return unique, values[first_pos]
 
 
 class RestrictedLinearSystem:
@@ -331,7 +483,7 @@ def assemble(problem, kvs, args=None, bfuns=None, boundary=None,
     assembler instance; `kvs` is a TP spline space (tuple of
     KnotVectors).  Named inputs (the geometry ``geo``, coefficient
     functions, parameters) are passed in `args` or as keyword arguments.
-    The assembly runs on `device` (default: the CPU).  `layout` matters
+    The assembly runs on `device` (default: the card).  `layout` matters
     only for vector-valued forms (not ported yet).  Structural zeros
     and symmetric term pairs are found by the JAX package's numeric
     probes (``VFormAssembler._prune_combos``)."""

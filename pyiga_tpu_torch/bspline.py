@@ -5,7 +5,10 @@ A copy of the parts of :mod:`pyiga_tpu.bspline` that the port needs:
 :class:`KnotVector` (with the mesh queries and ``refine`` that the
 hierarchical spaces use), :func:`make_knots`, :func:`findspans`,
 :func:`active_deriv`, :func:`collocation`, :func:`collocation_derivs`
-and :func:`prolongation`, and the boundary-spec parser.  Kept as numpy
+and :func:`prolongation`, the pointwise tensor-product evaluation of
+spline functions at unstructured points (:func:`tp_bsp_eval_pointwise`,
+:func:`tp_bsp_jac_pointwise`, :func:`tp_bsp_eval_with_jac_pointwise`),
+and the boundary-spec parser.  Kept as numpy
 code (setup-time, tiny arrays) and held equal to the original by
 ``tests/test_torch_host.py`` and ``tests/test_torch_hierarchical.py``.
 
@@ -272,3 +275,83 @@ def prolongation(kv1, kv2):
         P = P.toarray()
     P[np.abs(P) < 1e-15] = 0.0
     return scipy.sparse.csr_matrix(P)
+
+
+################################################################################
+# Pointwise tensor-product evaluation (unstructured points)
+################################################################################
+
+def collocation_derivs_info(kv, nodes, derivs=1):
+    """First active basis index per node and the active values with
+    derivatives up to order `derivs`, shaped ``(derivs+1, n, p+1)``."""
+    nodes = np.asarray(nodes, dtype=float)
+    values = active_deriv(kv, nodes, derivs)        # (derivs+1, p+1, n)
+    indices = findspans(kv, nodes) - kv.p
+    return indices, np.ascontiguousarray(values.swapaxes(-2, -1))
+
+
+def _tp_gather_active(kvs, coeffs, XY, derivs=1):
+    """Per-axis collocation data and the gathered active coefficient
+    blocks ``(n, p_0+1, ..., p_d+1) + output shape`` of the points `XY`
+    (``kvs[d]`` pairs with coordinate ``XY[sdim-1-d]``, ZYX order)."""
+    sdim = len(kvs)
+    n = XY[0].size
+    coll = [collocation_derivs_info(kvs[d], XY[sdim - 1 - d], derivs=derivs)
+            for d in range(sdim)]
+    block_idx = []
+    for d in range(sdim):
+        arange = np.arange(kvs[d].p + 1).reshape(
+            [1] * (1 + d) + [-1] + [1] * (sdim - d - 1))
+        block_idx.append(coll[d][0].reshape([n] + [1] * sdim) + arange)
+    return coll, coeffs[tuple(block_idx)]
+
+
+def _tp_contract(coll, C_active, deriv_axes):
+    """Contract the gathered blocks with per-axis basis values (0) or
+    first derivatives (1) as `deriv_axes` selects."""
+    res = C_active
+    for d in range(len(coll)):
+        vecs = coll[d][1][deriv_axes[d]]            # (n, p+1)
+        res = (res * vecs.reshape(vecs.shape + (1,) * (res.ndim - 2))) \
+            .sum(axis=1)
+    return res
+
+
+def _check_points(points):
+    if not all(np.shape(x) == np.shape(points[0]) for x in points):
+        raise ValueError('All coordinate arrays should have the same shape')
+    return tuple(np.asarray(x, dtype=float).ravel() for x in points)
+
+
+def tp_bsp_eval_pointwise(kvs, coeffs, points):
+    """Values of a tensor-product spline function at unstructured points;
+    ``points[i]`` holds the coordinates of dimension i in XYZ order, all of
+    one shape."""
+    XY = _check_points(points)
+    sdim = len(XY)
+    coll, C_active = _tp_gather_active(kvs, coeffs, XY, derivs=0)
+    vals = _tp_contract(coll, C_active, (0,) * sdim)
+    return vals.reshape(np.shape(points[0]) + coeffs.shape[sdim:])
+
+
+def tp_bsp_jac_pointwise(kvs, coeffs, points):
+    """Jacobians of a tensor-product spline function at unstructured
+    points; the last axis is the derivative direction in XYZ order."""
+    return tp_bsp_eval_with_jac_pointwise(kvs, coeffs, points)[1]
+
+
+def tp_bsp_eval_with_jac_pointwise(kvs, coeffs, points):
+    """Values and Jacobians of a tensor-product spline function at
+    unstructured points."""
+    XY = _check_points(points)
+    sdim = len(XY)
+    coll, C_active = _tp_gather_active(kvs, coeffs, XY)
+    vals = _tp_contract(coll, C_active, (0,) * sdim)
+    jacs = [_tp_contract(coll, C_active,
+                         tuple(int(d == i) for d in range(sdim)))
+            for i in range(sdim)]
+    # the x derivative (level axis sdim-1) comes first
+    jac = np.stack(jacs[::-1], axis=-1)
+    shape = np.shape(points[0])
+    out = coeffs.shape[sdim:]
+    return (vals.reshape(shape + out), jac.reshape(shape + out + (sdim,)))

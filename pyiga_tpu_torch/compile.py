@@ -171,8 +171,8 @@ class VFormAssembler:
 
     Subclassed per form by :func:`compile_vform`; instantiate with the
     spline space, the geometry and any named inputs/parameters, and
-    ``device=`` (default: the CPU, where the kernels' plain versions
-    run)."""
+    ``device=`` (default: the card; ``'cpu'`` runs the kernels' plain
+    versions)."""
 
     vf = None   # set by compile_vform
 

@@ -10,6 +10,10 @@
 //     bodies `_stage_kernel` / `_stage_kernel_acc`).
 // K3  fold_kernel          replaces `_stage_call_fold` (pallas_call at
 //     :781, body `_fold_kernel`).
+// K7a stage_T_kernel       replaces `_stage_call_T` (pallas_call at :436,
+//     body `_stage_kernel_T`).
+// K7b tail_kernel          replaces `_tail_fused_call` (pallas_call at
+//     :563, body `_tail_kernel`).
 //
 // The TPU kernels carry float64 as two-float f32 pairs and split every
 // contraction into six bf16 mantissa chunks (21 chunk dots with exact f32
@@ -376,11 +380,17 @@ struct FoldTerms {
     int n;
 };
 
+// acc[i][j] holds the output (r, m) = (r0 + ry + 16 i, m0 + mx + 16 j).
+// kRByTx = false (K2, K3): ry = ty, mx = tx, so a warp's 16 consecutive
+// threads hold consecutive m (coalesced stores of the (R, M) output);
+// kRByTx = true (K7a): ry = tx, mx = ty, consecutive r for the (M, R) one.
+template <bool kRByTx>
 __device__ __forceinline__ void accumulate_term(
         const double* __restrict__ X, const double* __restrict__ T, int K,
         long long R, int M, long long r0, int m0,
         double (*Xs)[kBR], double (*Ts)[kBM + 1], double acc[4][4]) {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    const int tx = kRByTx ? threadIdx.x / 16 : threadIdx.x % 16;
+    const int ty = kRByTx ? threadIdx.x % 16 : threadIdx.x / 16;
     for (int k0 = 0; k0 < K; k0 += kBK) {
         for (int i = threadIdx.x; i < kBK * kBR; i += kThreads) {
             const int kk = i / kBR, rr = i % kBR;
@@ -426,6 +436,24 @@ __device__ __forceinline__ void store_tile(double* __restrict__ out,
     }
 }
 
+// the transposed store of K7a: out (M, R), consecutive threads on
+// consecutive r (the accumulate_term<true> mapping)
+__device__ __forceinline__ void store_tile_T(double* __restrict__ out,
+                                             long long R, int M, long long r0,
+                                             int m0, const double acc[4][4]) {
+    const int rx = threadIdx.x % 16, my = threadIdx.x / 16;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const int m = m0 + my + 16 * j;
+        if (m >= M) continue;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const long long r = r0 + rx + 16 * i;
+            if (r < R) out[(long long)m * R + r] = acc[i][j];
+        }
+    }
+}
+
 __global__ void __launch_bounds__(kThreads)
 stage_kernel(const double* __restrict__ X, const double* __restrict__ T,
              int K, long long R, int M, double* __restrict__ out) {
@@ -434,7 +462,7 @@ stage_kernel(const double* __restrict__ X, const double* __restrict__ T,
     const long long r0 = (long long)blockIdx.x * kBR;
     const int m0 = blockIdx.y * kBM;
     double acc[4][4] = {};
-    accumulate_term(X, T, K, R, M, r0, m0, Xs, Ts, acc);
+    accumulate_term<false>(X, T, K, R, M, r0, m0, Xs, Ts, acc);
     store_tile(out, R, M, r0, m0, acc);
 }
 
@@ -447,8 +475,220 @@ fold_kernel(FoldTerms terms, int K, long long R, int M,
     const int m0 = blockIdx.y * kBM;
     double acc[4][4] = {};
     for (int t = 0; t < terms.n; ++t)
-        accumulate_term(terms.x[t], terms.t[t], K, R, M, r0, m0, Xs, Ts, acc);
+        accumulate_term<false>(terms.x[t], terms.t[t], K, R, M, r0, m0, Xs,
+                               Ts, acc);
     store_tile(out, R, M, r0, m0, acc);
+}
+
+// --------------------------------------------------------------------------
+// K7a: one stage with the transposed output, out[m, r] = sum_k X[k, r]
+// T[m, k]: X (K, R), T (M, K), out (M, R).  Replaces `_stage_call_T`
+// (pyiga_tpu/ops/pallas_sumfac.py, pallas_call at :436).  It is K2's body
+// (the same 64 x 64 tiles and 16-deep K slices) with the thread mapping
+// and the store transposed, so that stores stay coalesced along r; the
+// tail (K7b) then reads term t's output as (M1, K2, K3) slabs with no
+// transpose.  Bound at the 3D n=48 headline (K = 192, R = 36,864,
+// M = 357, six launches): 30.3 GFLOP in all, compute (0.45 ms at the
+// datasheet's 67 TFLOP/s f64 tensor rate) over bytes (972 MB, 0.29 ms at
+// 3.35 TB/s).
+// --------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+stage_T_kernel(const double* __restrict__ X, const double* __restrict__ T,
+               int K, long long R, int M, double* __restrict__ out) {
+    __shared__ double Xs[kBK][kBR];
+    __shared__ double Ts[kBK][kBM + 1];
+    const long long r0 = (long long)blockIdx.x * kBR;
+    const int m0 = blockIdx.y * kBM;
+    double acc[4][4] = {};
+    accumulate_term<true>(X, T, K, R, M, r0, m0, Xs, Ts, acc);
+    store_tile_T(out, R, M, r0, m0, acc);
+}
+
+// --------------------------------------------------------------------------
+// K7b: stage 2 and the folded final stage of all terms of a 3-axis chain
+// in one kernel,
+//   out[a, b, c] = sum_t sum_{j,k} x1T_t[a, j, k] T2_t[b, j] T3_t[c, k],
+// x1T_t (M1, K2, K3) the K7a output of term t, T2_t (M2, K2) and T3_t
+// (M3, K3) its stage-2 and stage-3 tables (deduplicated on the host),
+// out (M1, M2, M3) written once.  Replaces `_tail_fused_call`
+// (pyiga_tpu/ops/pallas_sumfac.py, pallas_call at :563, body
+// `_tail_kernel`): the stage-2 intermediate never reaches device memory
+// (6 x 357^2 x 192 x 8 B = 1.17 GB at the 3D n=48 headline).
+//
+// Bound at n=48 (6 terms, K = 192, M = 357): stage 2 is 56.4 GFLOP and
+// the final stage 104.8, 161 GFLOP in all: 2.4 ms at 67 TFLOP/s (f64
+// tensor cores), 4.8 ms at the 34 TFLOP/s of plain f64 FMA; it moves
+// about 1.0 GB (0.3 ms), so it is compute-bound.
+//
+// Design.  The TPU grid (m1, m2-tile, m3-tile) runs in order and keeps Y2
+// in VMEM scratch across the sequential m3 axis; here blocks run in
+// parallel, so a block owns everything it reuses.  One block per (m1,
+// 16-row m2 tile, m3 chunk of 64 NC columns, one chunk when M3 <= 512),
+// 256 threads as 4 row groups of 4 m2 rows x 64 column lanes: each
+// thread keeps its 4 x NC outputs in registers across all terms.  Per
+// term the block (1) builds Y2_t[k, bb] = sum_j x1T_t[a, j, k]
+// T2_t[b0 + bb, j] for all k as a (K3 x 16) tile in shared memory (j in
+// 16-deep slices, each thread 3 k x 4 rows), (2) accumulates Y2_t^T
+// T3_t^T into its registers, T3 streamed through shared memory in 8-deep
+// k slices, and after the last term (3) stores the slab once.  No
+// atomics, a fixed summation order: deterministic.  Nothing is recomputed
+// while M3 <= 512 (n <= 70 at p=3); larger M3 splits into chunks that
+// rebuild Y2 each.  DMMA (mma.sync f64), TMA and deeper pipelining are
+// later work.
+// --------------------------------------------------------------------------
+
+constexpr int kTailRows = 16;     // m2 rows per block (4 groups of 4)
+constexpr int kTailLanes = 64;    // column lanes per row group
+constexpr int kTailJ = 16;        // stage-2 contraction slice (over K2)
+constexpr int kTailKc = 192;      // stage-2 k chunk: 64 lanes x 3
+constexpr int kTailKs = 8;        // final-stage contraction slice (K3)
+constexpr int kTailMaxNC = 8;     // columns per thread: M3 chunk <= 512
+
+struct TailTerms {
+    const double* x[kMaxTerms];
+    const double* t2[kMaxTerms];
+    const double* t3[kMaxTerms];
+    int n;
+};
+
+template <int NC>
+__global__ void __launch_bounds__(kThreads)
+tail_kernel(TailTerms terms, int K2, int K3, int M2, int M3,
+            double* __restrict__ out) {
+    extern __shared__ double smem[];
+    double* Y2s = smem;                           // [K3][kTailRows]
+    double* scr = smem + (long long)K3 * kTailRows;
+    const int a = blockIdx.x;
+    const int b0 = blockIdx.y * kTailRows;
+    const int c0 = blockIdx.z * kTailLanes * NC;
+    const int lane = threadIdx.x % kTailLanes;
+    const int row0 = (threadIdx.x / kTailLanes) * 4;
+    constexpr int CW = kTailLanes * NC;
+
+    double acc[4][NC];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[r][c] = 0.0;
+
+    for (int t = 0; t < terms.n; ++t) {
+        const double* __restrict__ X = terms.x[t] + (long long)a * K2 * K3;
+        const double* __restrict__ T2 = terms.t2[t];
+        const double* __restrict__ T3 = terms.t3[t];
+
+        // (1) stage 2 into shared memory
+        double* Xs = scr;                         // [kTailJ][kTailKc]
+        double* T2s = scr + kTailJ * kTailKc;     // [kTailJ][kTailRows]
+        for (int k0 = 0; k0 < K3; k0 += kTailKc) {
+            double y[3][4];
+#pragma unroll
+            for (int q = 0; q < 3; ++q)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) y[q][r] = 0.0;
+            for (int j0 = 0; j0 < K2; j0 += kTailJ) {
+                for (int i = threadIdx.x; i < kTailJ * kTailKc; i += kThreads) {
+                    const int j = j0 + i / kTailKc, k = k0 + i % kTailKc;
+                    Xs[i] = (j < K2 && k < K3) ? X[(long long)j * K3 + k] : 0.0;
+                }
+                for (int i = threadIdx.x; i < kTailJ * kTailRows;
+                     i += kThreads) {
+                    const int bb = i / kTailJ, jj = i % kTailJ;
+                    const int b = b0 + bb, j = j0 + jj;
+                    T2s[jj * kTailRows + bb] =
+                        (b < M2 && j < K2) ? T2[(long long)b * K2 + j] : 0.0;
+                }
+                __syncthreads();
+#pragma unroll 4
+                for (int jj = 0; jj < kTailJ; ++jj) {
+                    double xv[3], tv[4];
+#pragma unroll
+                    for (int q = 0; q < 3; ++q)
+                        xv[q] = Xs[jj * kTailKc + lane + kTailLanes * q];
+#pragma unroll
+                    for (int r = 0; r < 4; ++r)
+                        tv[r] = T2s[jj * kTailRows + row0 + r];
+#pragma unroll
+                    for (int q = 0; q < 3; ++q)
+#pragma unroll
+                        for (int r = 0; r < 4; ++r)
+                            y[q][r] = fma(xv[q], tv[r], y[q][r]);
+                }
+                __syncthreads();
+            }
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+                const int k = k0 + lane + kTailLanes * q;
+                if (k < K3) {
+#pragma unroll
+                    for (int r = 0; r < 4; ++r)
+                        Y2s[k * kTailRows + row0 + r] = y[q][r];
+                }
+            }
+        }
+        __syncthreads();
+
+        // (2) the final stage into the registers
+        double* T3s = scr;                        // [kTailKs][CW]
+        for (int k0 = 0; k0 < K3; k0 += kTailKs) {
+            for (int i = threadIdx.x; i < kTailKs * CW; i += kThreads) {
+                const int cc = i / kTailKs, kk = i % kTailKs;
+                const int c = c0 + cc, k = k0 + kk;
+                T3s[kk * CW + cc] =
+                    (c < M3 && k < K3) ? T3[(long long)c * K3 + k] : 0.0;
+            }
+            __syncthreads();
+            const int kn = min(kTailKs, K3 - k0);
+            for (int kk = 0; kk < kn; ++kk) {
+                double yv[4], tv[NC];
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+                    yv[r] = Y2s[(k0 + kk) * kTailRows + row0 + r];
+#pragma unroll
+                for (int c = 0; c < NC; ++c)
+                    tv[c] = T3s[kk * CW + lane + kTailLanes * c];
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+#pragma unroll
+                    for (int c = 0; c < NC; ++c)
+                        acc[r][c] = fma(yv[r], tv[c], acc[r][c]);
+            }
+            __syncthreads();
+        }
+    }
+
+    // (3) one store of the slab
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        const int b = b0 + row0 + r;
+        if (b >= M2) continue;
+        double* o = out + ((long long)a * M2 + b) * M3;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+            const int cc = c0 + lane + kTailLanes * c;
+            if (cc < M3) o[cc] = acc[r][c];
+        }
+    }
+}
+
+template <int NC>
+static int launch_tail(const TailTerms& terms, int M1, int K2, int K3,
+                       int M2, int M3, double* out, cudaStream_t s) {
+    const int scratch = kTailJ * kTailKc + kTailJ * kTailRows;
+    const int scratch3 = kTailKs * kTailLanes * NC;
+    const size_t bytes = sizeof(double) *
+        ((size_t)K3 * kTailRows + (scratch > scratch3 ? scratch : scratch3));
+    cudaError_t err = cudaFuncSetAttribute(
+        tail_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned int)M1,
+                    (unsigned int)((M2 + kTailRows - 1) / kTailRows),
+                    (unsigned int)((M3 + kTailLanes * NC - 1)
+                                   / (kTailLanes * NC)));
+    tail_kernel<NC><<<grid, kThreads, bytes, s>>>(terms, K2, K3, M2, M3,
+                                                  out);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -479,6 +719,46 @@ PYIGA_EXPORT int pyiga_fold_f64(const uint64_t* x_ptrs, const uint64_t* t_ptrs,
     fold_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(terms, K, R, M,
                                                               out);
     return (int)cudaGetLastError();
+}
+
+PYIGA_EXPORT int pyiga_stage_T_f64(const double* X, const double* T,
+                                   double* out, int K, long long R, int M,
+                                   void* stream) {
+    const dim3 grid((unsigned int)((R + kBR - 1) / kBR),
+                    (unsigned int)((M + kBM - 1) / kBM));
+    stage_T_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(X, T, K, R,
+                                                                 M, out);
+    return (int)cudaGetLastError();
+}
+
+// x_ptrs / t2_ptrs / t3_ptrs: host arrays of n_terms device pointers (term
+// t's (M1, K2, K3) stage-1 output and its deduplicated tables)
+PYIGA_EXPORT int pyiga_tail_fused_f64(const uint64_t* x_ptrs,
+                                      const uint64_t* t2_ptrs,
+                                      const uint64_t* t3_ptrs, int n_terms,
+                                      double* out, int M1, int K2, int K3,
+                                      int M2, int M3, void* stream) {
+    if (n_terms < 1 || n_terms > kMaxTerms || M1 < 1 || M2 < 1 || M3 < 1
+        || K2 < 1 || K3 < 1)
+        return (int)cudaErrorInvalidValue;
+    TailTerms terms;
+    terms.n = n_terms;
+    for (int t = 0; t < n_terms; ++t) {
+        terms.x[t] = reinterpret_cast<const double*>(x_ptrs[t]);
+        terms.t2[t] = reinterpret_cast<const double*>(t2_ptrs[t]);
+        terms.t3[t] = reinterpret_cast<const double*>(t3_ptrs[t]);
+    }
+    int nc = (M3 + kTailLanes - 1) / kTailLanes;
+    if (nc > kTailMaxNC) nc = kTailMaxNC;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (nc) {
+#define PYIGA_TAIL(N) \
+    case N: return launch_tail<N>(terms, M1, K2, K3, M2, M3, out, s)
+        PYIGA_TAIL(1); PYIGA_TAIL(2); PYIGA_TAIL(3); PYIGA_TAIL(4);
+        PYIGA_TAIL(5); PYIGA_TAIL(6); PYIGA_TAIL(7); PYIGA_TAIL(8);
+#undef PYIGA_TAIL
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 PYIGA_EXPORT const char* pyiga_error_string(int err) {

@@ -14,7 +14,12 @@ component (homogeneous coordinates).  The factories :func:`unit_square`,
 :func:`unit_cube` and :func:`line_segment` build B-spline maps through
 :func:`tensor_product`.  :class:`UserFunction` wraps a plain callable
 (and its Jacobian) as a geometry that the assemblers evaluate on the
-host.
+host.  :class:`ComposedFunction` chains two maps, :meth:`boundary`
+restricts a function to one face (a spline function by slicing its
+control points, any other through :class:`_BoundaryFunction`) and
+:func:`identity` is the identity map of a box: the pieces the Dirichlet
+data of :func:`~pyiga_tpu_torch.assemble.compute_dirichlet_bcs` and the
+L2 projections of :mod:`~pyiga_tpu_torch.approx` need.
 """
 
 import functools
@@ -22,7 +27,7 @@ import functools
 import numpy as np
 
 from . import bspline, utils
-from .bspline import KnotVector
+from .bspline import KnotVector, _parse_bdspec
 from .ops.basis import dense_basis_table
 
 
@@ -67,6 +72,22 @@ class _BaseGeoFunc:
     (physical input field)."""
 
     def __call__(self, *x):
+        return self.eval(*x)
+
+    def is_scalar(self):
+        return len(self.output_shape()) == 0
+
+    def is_vector(self):
+        return len(self.output_shape()) == 1
+
+    def boundary(self, bdspec):
+        """One side of the boundary as a function with `sdim` reduced by
+        1."""
+        return _BoundaryFunction(self, bdspec)
+
+
+class _BaseSplineFunc(_BaseGeoFunc):
+    def eval(self, *x):
         """Evaluate at a single point (arguments in XYZ order)."""
         coords = tuple(reversed(x))     # XYZ -> ZYX
         singletons = tuple(i for i, c in enumerate(coords) if np.isscalar(c))
@@ -75,16 +96,48 @@ class _BaseGeoFunc:
         y = self.grid_eval(coords).squeeze(axis=singletons)
         return y.item() if y.shape == () else y
 
-    eval = __call__
 
-    def is_scalar(self):
-        return len(self.output_shape()) == 0
+class _ControlPointMixin:
+    """Spline functions that store control points: the support (or an
+    override of it) and the boundary restriction by slicing the control
+    points.  Subclasses supply ``_rebuild`` (the same type from stored
+    coefficients)."""
 
-    def is_vector(self):
-        return len(self.output_shape()) == 1
+    _support_override = None
+
+    @property
+    def support(self):
+        if self._support_override:
+            return self._support_override
+        return tuple(kv.support() for kv in self.kvs)
+
+    @support.setter
+    def support(self, new_support):
+        new_support = tuple(new_support)
+        if len(new_support) != self.sdim or \
+                not all(len(s) == 2 for s in new_support):
+            raise ValueError('support needs one (lo, hi) pair per dimension')
+        self._support_override = new_support
+
+    def boundary(self, bdspec):
+        if self._support_override:
+            return _BaseGeoFunc.boundary(self, bdspec)
+        axis, side = _parse_bdspec(bdspec, self.sdim)
+        face = self.sdim * [slice(None)]
+        face[axis] = -side              # index 0 (side 0) or -1 (side 1)
+        return self._rebuild(self.kvs[:axis] + self.kvs[axis + 1:],
+                             self.coeffs[tuple(face)])
 
 
-class BSplineFunc(_BaseGeoFunc):
+def _nurbs_jac_from_homog(val, jac):
+    """Quotient-rule Jacobian of V/W from homogeneous values and
+    Jacobians."""
+    V, W = val[..., :-1, None], val[..., -1:, None]
+    Vj, Wj = jac[..., :-1, :], jac[..., -1:, :]
+    return (Vj * W - V * Wj) / (W ** 2)
+
+
+class BSplineFunc(_ControlPointMixin, _BaseSplineFunc):
     """A function in a tensor-product B-spline basis: `kvs` is a tuple of
     `d` :class:`~pyiga_tpu_torch.bspline.KnotVector`; `coeffs` has its
     first `d` axes matching the per-axis dofs, trailing axes give the
@@ -127,6 +180,19 @@ class BSplineFunc(_BaseGeoFunc):
                                            tuple(D)))
         return np.stack(comps, axis=-1)
 
+    def pointwise_eval(self, points):
+        """Evaluate at unstructured points (coordinate arrays in XYZ
+        order)."""
+        return bspline.tp_bsp_eval_pointwise(self.kvs, self.coeffs, points)
+
+    def pointwise_jacobian(self, points):
+        """Jacobians at unstructured points (``dim x sdim`` per point)."""
+        return bspline.tp_bsp_jac_pointwise(self.kvs, self.coeffs, points)
+
+    @staticmethod
+    def _rebuild(kvs, coeffs):
+        return BSplineFunc(kvs, coeffs)
+
     def as_nurbs(self):
         return NurbsFunc(self.kvs, self.coeffs.copy(),
                          np.ones(self.coeffs.shape[:self.sdim]))
@@ -139,7 +205,7 @@ class BSplineFunc(_BaseGeoFunc):
         return BSplineFunc(self.kvs, self.coeffs[..., np.newaxis])
 
 
-class NurbsFunc(_BaseGeoFunc):
+class NurbsFunc(_ControlPointMixin, _BaseSplineFunc):
     """A function in a tensor-product NURBS basis.  With ``weights=None``
     the weights are the last vector component of `coeffs`; unless
     `premultiplied`, the control points are multiplied by the weights."""
@@ -183,6 +249,29 @@ class NurbsFunc(_BaseGeoFunc):
         vals = _tp_grid_eval(self.kvs, self.coeffs, gridaxes)
         f = vals[..., :-1] / vals[..., -1:]
         return np.squeeze(f, -1) if self._isscalar else f
+
+    def grid_jacobian(self, gridaxes):
+        """Jacobians on a tensor grid by the quotient rule; shape ``grid
+        x dim x sdim``."""
+        bsp = BSplineFunc(self.kvs, self.coeffs)
+        J = _nurbs_jac_from_homog(bsp.grid_eval(gridaxes),
+                                  bsp.grid_jacobian(gridaxes))
+        return np.squeeze(J, -2) if self._isscalar else J
+
+    def pointwise_eval(self, points):
+        vals = bspline.tp_bsp_eval_pointwise(self.kvs, self.coeffs, points)
+        f = vals[..., :-1] / vals[..., -1:]
+        return np.squeeze(f, -1) if self._isscalar else f
+
+    def pointwise_jacobian(self, points):
+        val, jac = bspline.tp_bsp_eval_with_jac_pointwise(
+            self.kvs, self.coeffs, points)
+        J = _nurbs_jac_from_homog(val, jac)
+        return np.squeeze(J, -2) if self._isscalar else J
+
+    @staticmethod
+    def _rebuild(kvs, coeffs):
+        return NurbsFunc(kvs, coeffs, weights=None, premultiplied=True)
 
     def coeffs_weights(self):
         """Non-premultiplied coefficients and weights as a pair of
@@ -235,8 +324,6 @@ class UserFunction(_BaseGeoFunc):
     def eval(self, *x):
         return self.f(*x)
 
-    __call__ = eval
-
     def pointwise_eval(self, points):
         return self.eval(*points)
 
@@ -247,6 +334,78 @@ class UserFunction(_BaseGeoFunc):
         if self.jac is None:
             raise ValueError('Jacobian not specified in UserFunction')
         return utils.grid_eval(self.jac, grd)
+
+
+class ComposedFunction(_BaseSplineFunc):
+    """Composition ``geo2(geo1(x))``: `geo2` is evaluated pointwise at the
+    images of `geo1` (``pointwise_eval`` / ``pointwise_jacobian``)."""
+
+    def __init__(self, geo2, geo1):
+        if geo1.dim != geo2.sdim:
+            raise ValueError('geo1 maps into %s dimensions, geo2 takes %d'
+                             % (geo1.dim, geo2.sdim))
+        self.geo1, self.geo2 = geo1, geo2
+        self.sdim = geo1.sdim
+        self.dim = geo2.dim
+
+    @property
+    def support(self):
+        return self.geo1.support
+
+    @support.setter
+    def support(self, new_support):
+        self.geo1.support = new_support
+
+    def grid_eval(self, grd):
+        XY = self.geo1.grid_eval(grd)
+        return self.geo2.pointwise_eval(np.moveaxis(XY, -1, 0))
+
+    def grid_jacobian(self, grd):
+        XY = self.geo1.grid_eval(grd)
+        jac1 = self.geo1.grid_jacobian(grd)
+        jac2 = self.geo2.pointwise_jacobian(np.moveaxis(XY, -1, 0))
+        return np.matmul(jac2, jac1)
+
+    def boundary(self, bdspec):
+        return ComposedFunction(self.geo2, self.geo1.boundary(bdspec))
+
+
+class _BoundaryFunction(_BaseGeoFunc):
+    """Restriction of a function to one side of its boundary (sdim - 1)."""
+
+    def __init__(self, f, bdspec):
+        self.f = f
+        axis, side = _parse_bdspec(bdspec, f.sdim)
+        lohi = f.support[axis]
+        self.fixed_coord = lohi[0] if side == 0 else lohi[1]
+        self.axis = axis
+        self.support = f.support[:axis] + f.support[axis + 1:]
+        self.dim = f.dim
+        self.sdim = f.sdim - 1
+
+    def output_shape(self):
+        return self.f.output_shape()
+
+    def eval(self, *x):
+        x = list(x)
+        x.insert(len(x) - self.axis, self.fixed_coord)
+        return self.f(*x)
+
+    def grid_eval(self, gridaxes):
+        gridaxes = list(gridaxes)
+        gridaxes.insert(self.axis, np.array([self.fixed_coord]))
+        return utils.grid_eval(self.f, gridaxes).squeeze(self.axis)
+
+    def grid_jacobian(self, gridaxes, keep_normal=False):
+        gridaxes = list(gridaxes)
+        gridaxes.insert(self.axis, np.array([self.fixed_coord]))
+        jacs = self.f.grid_jacobian(gridaxes).squeeze(self.axis)
+        if not keep_normal:
+            # drop the column of the normal (fixed) direction
+            ax = jacs.shape[-1] - self.axis - 1
+            jacs = np.concatenate((jacs[..., :ax], jacs[..., ax + 1:]),
+                                  axis=-1)
+        return jacs
 
 
 def bspline_quarter_annulus(r1=1.0, r2=2.0):
@@ -366,3 +525,12 @@ def unit_cube(dim=3, num_intervals=1):
 def unit_square(num_intervals=1):
     """Unit square as a :class:`BSplineFunc`."""
     return unit_cube(dim=2, num_intervals=num_intervals)
+
+
+def identity(extents):
+    """Identity map over a box given by (min, max) pairs or KnotVectors."""
+    extents = [ex.support() if isinstance(ex, KnotVector) else ex
+               for ex in extents]
+    return functools.reduce(
+        tensor_product,
+        (line_segment(ex[0], ex[1], support=ex) for ex in extents))

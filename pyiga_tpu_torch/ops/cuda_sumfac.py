@@ -2,7 +2,7 @@
 """CUDA kernels of the sum-factorization assembly and the pipeline built
 on them (counterpart of :mod:`pyiga_tpu.ops.pallas_sumfac`).
 
-Four kernels (sources in ``csrc/sumfac.cu``), each beside its plain
+Five kernels (sources in ``csrc/sumfac.cu``), each beside its plain
 PyTorch version:
 
 * K1 :func:`fields` — geometry fields ``B_ab = W (J^-1 J^-T)_ab`` per
@@ -17,7 +17,12 @@ PyTorch version:
 * K2 :func:`stage` — one contraction stage ``(K, R) x (M, K) -> (R, M)``
   (``_stage_call``);
 * K3 :func:`fold` — the final stage of all terms summed into one output
-  written once (``_stage_call_fold``).
+  written once (``_stage_call_fold``);
+* K7 :func:`stage_T` — one stage with the transposed output
+  (``_stage_call_T``), and :func:`tail_fused` — stage 2 and the folded
+  final stage of all terms of a 3-axis chain in one kernel
+  (``_tail_fused_call``), taken by :func:`chain_folded` when
+  :data:`TAIL_FUSED` is on.
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel (and raises if it cannot);
@@ -28,6 +33,7 @@ transposes.
 """
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -335,6 +341,155 @@ def fold(xs, tables, term_idx):
 
 
 ################################################################################
+# K7: transposed stage and the fused stage-2 + fold tail
+################################################################################
+
+def stage_T_plain(X, T):
+    """Plain PyTorch version of :func:`stage_T`."""
+    return torch.tensordot(T, X, dims=([1], [0]))
+
+
+def stage_T(X, T):
+    """K7a: ``out[m, r] = sum_k X[k, r] T[m, k]`` for ``X (K, R)`` and a
+    table ``T (M, K)``; returns ``(M, R)``, float64 (K2 with the band axis
+    first, so that :func:`tail_fused` reads each row as a ``(K2, K3)``
+    slab)."""
+    if not _kernel_device(X, 'stage_T'):
+        return stage_T_plain(X, T)
+    _cuda.require(X, 'X', torch.float64, 2)
+    _cuda.require(T, 'T', torch.float64, 2)
+    K, R = X.shape
+    M = T.shape[0]
+    if T.shape[1] != K or T.device != X.device:
+        raise ValueError('stage_T: X %s and T %s disagree in K or device'
+                         % (tuple(X.shape), tuple(T.shape)))
+    out = torch.empty((M, R), dtype=torch.float64, device=X.device)
+    with torch.cuda.device(X.device):
+        err = _cuda.library().pyiga_stage_T_f64(
+            X.data_ptr(), T.data_ptr(), out.data_ptr(), K, R, M,
+            _cuda.stream_of(X))
+    _cuda.check(err, 'stage_T')
+    _cuda.LAUNCHES['stage_T'] += 1
+    return out
+
+
+def tail_fused_plain(x1T, tc2, tc3, idx2, idx3):
+    """Plain PyTorch version of :func:`tail_fused`: per term, two
+    tensordots, summed."""
+    out = None
+    for X, i2, i3 in zip(x1T, idx2, idx3):
+        Y = torch.tensordot(X, tc2[i2], dims=([1], [1]))    # (M1, K3, M2)
+        Z = torch.tensordot(Y, tc3[i3], dims=([1], [1]))    # (M1, M2, M3)
+        out = Z if out is None else out + Z
+    return out
+
+
+def tail_fused(x1T, tc2, tc3, idx2, idx3):
+    """K7b: ``out[a, b, c] = sum_t sum_{j,k} x1T[t][a, j, k]
+    tc2[idx2[t]][b, j] tc3[idx3[t]][c, k]``.
+
+    Args:
+        x1T: per term, its :func:`stage_T` output viewed as
+            ``(M1, K2, K3)``.
+        tc2 / tc3: the deduplicated stage-2 ``(M2, K2)`` and final
+            ``(M3, K3)`` tables.
+        idx2 / idx3: per term, its tables' positions in `tc2` / `tc3`.
+
+    Returns ``(M1, M2, M3)``, float64, written once: the stage-2
+    intermediate never reaches device memory."""
+    n = len(x1T)
+    if not n == len(idx2) == len(idx3):
+        raise ValueError('tail_fused: %d terms but %d / %d table indices'
+                         % (n, len(idx2), len(idx3)))
+    if not _kernel_device(x1T[0], 'tail_fused'):
+        return tail_fused_plain(x1T, tc2, tc3, idx2, idx3)
+    if n > _FOLD_MAX_TERMS:             # the kernel's term-table capacity
+        raise ValueError('tail_fused: %d terms, the kernel takes at most %d'
+                         % (n, _FOLD_MAX_TERMS))
+    M1, K2, K3 = x1T[0].shape
+    M2, M3 = tc2[0].shape[0], tc3[0].shape[0]
+    dev = x1T[0].device
+    for t, X in enumerate(x1T):
+        _cuda.require(X, 'x1T[%d]' % t, torch.float64, 3)
+        if X.shape != (M1, K2, K3) or X.device != dev:
+            raise ValueError('tail_fused: x1T[%d] is %s on %s, expected %s '
+                             'on %s' % (t, tuple(X.shape), X.device,
+                                        (M1, K2, K3), dev))
+    for name, tabs, shape in (('tc2', tc2, (M2, K2)), ('tc3', tc3, (M3, K3))):
+        for i, T in enumerate(tabs):
+            _cuda.require(T, '%s[%d]' % (name, i), torch.float64, 2)
+            if T.shape != shape or T.device != dev:
+                raise ValueError('tail_fused: %s[%d] is %s, expected %s'
+                                 % (name, i, tuple(T.shape), shape))
+    xp = (ctypes.c_uint64 * n)(*[X.data_ptr() for X in x1T])
+    t2 = (ctypes.c_uint64 * n)(*[tc2[i].data_ptr() for i in idx2])
+    t3 = (ctypes.c_uint64 * n)(*[tc3[i].data_ptr() for i in idx3])
+    out = torch.empty((M1, M2, M3), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        err = _cuda.library().pyiga_tail_fused_f64(
+            ctypes.cast(xp, ctypes.c_void_p), ctypes.cast(t2, ctypes.c_void_p),
+            ctypes.cast(t3, ctypes.c_void_p), n, out.data_ptr(), M1, K2, K3,
+            M2, M3, _cuda.stream_of(out))
+    _cuda.check(err, 'tail_fused')
+    _cuda.LAUNCHES['tail_fused'] += 1
+    return out
+
+
+# The JAX package's switch for the fused tail (pallas_sumfac._TAIL_FUSED),
+# read once at import from the same variable with the same values; off by
+# default, as there.  Tests and chip_smoke.py set the attribute.
+TAIL_FUSED = os.environ.get('PYIGA_TAIL_FUSED', '').lower() \
+    in ('1', 'true', 'yes', 'on')
+
+
+def tail_supported(term_tables, fields_):
+    """Static gate of the tail route (counterpart of
+    ``pallas_sumfac._tail_supported``): the switch is on, every term has
+    3 axes and, per stage, all terms' tables have one shape.  The TPU's
+    VMEM budget and K-block rule have no counterpart here."""
+    if not TAIL_FUSED:
+        return False
+    shapes = [set(), set(), set()]
+    for tabs, F in zip(term_tables, fields_):
+        if len(tabs) != 3 or F.dim() != 3:
+            return False
+        for k, T in enumerate(tabs):
+            if T.shape[1] != F.shape[k]:
+                return False
+            shapes[k].add(tuple(T.shape))
+    return all(len(s) == 1 for s in shapes)
+
+
+def _dedup(tables):
+    """Distinct tables by tensor identity, and each term's position
+    (counterpart of one stage of ``pallas_sumfac.stage_table_dedup_idx``:
+    the fused tail shares its stage-2 and final tables across terms)."""
+    uniq, idx, seen = [], [], {}
+    for T in tables:
+        if id(T) not in seen:
+            seen[id(T)] = len(uniq)
+            uniq.append(T)
+        idx.append(seen[id(T)])
+    return uniq, idx
+
+
+def chain_tail_fused(term_tables, fields_):
+    """The tail route of :func:`chain_folded` for 3-axis chains
+    (counterpart of ``pallas_sumfac._chain_group_tail_fused``): per term
+    the first stage by K7a, then ONE K7b launch for stage 2 and the folded
+    final stage, over tables deduplicated by tensor identity.  Returns
+    ``(M_1, M_2, M_3)``."""
+    x1T = []
+    for tabs, F in zip(term_tables, fields_):
+        Q1, Q2, Q3 = F.shape
+        x1T.append(stage_T(F.reshape(Q1, Q2 * Q3), tabs[0])
+                   .reshape(-1, Q2, Q3))
+    tc2, idx2 = _dedup([tabs[1] for tabs in term_tables])
+    tc3, idx3 = _dedup([tabs[2] for tabs in term_tables])
+    return tail_fused(x1T, tc2, tc3, idx2, idx3)
+
+
+################################################################################
 # Pipeline: geometry fields and the folded chain
 ################################################################################
 
@@ -454,7 +609,13 @@ def chain_folded(term_tables, fields_, last_idx):
     contraction folded into one K3 launch.  ``term_tables[t]`` is the list
     of per-axis ``(M_k, Q_k)`` tables of term t, ``fields_[t]`` its field;
     `last_idx` gives each term's deduplicated last-table slot.  Returns
-    ``(M_1, ..., M_d)``."""
+    ``(M_1, ..., M_d)``.
+
+    With :data:`TAIL_FUSED` on, chains that pass :func:`tail_supported`
+    take :func:`chain_tail_fused` (K7) instead of K2 stages + K3; a K7
+    kernel that fails to build or launch raises there."""
+    if tail_supported(term_tables, fields_):
+        return chain_tail_fused(term_tables, fields_)
     flats, shape_mid = [], None
     for tabs, F in zip(term_tables, fields_):
         X = F

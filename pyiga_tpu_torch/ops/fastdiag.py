@@ -122,7 +122,7 @@ def fastdiag_precond(kvs, free_dofs=None, dirichlet=False, dtype=None,
 
     `free_dofs` / `dirichlet` / `mass_shift` as in
     :func:`fastdiag_precond_weighted`; `dtype` defaults to float64, the
-    preconditioner lives on `device` (default: the CPU).  Returns a
+    preconditioner lives on `device` (default: the card).  Returns a
     callable ``r -> P^{-1} r`` on raveled vectors."""
     KM = [(_biform_1d(kv, 1), _biform_1d(kv, 0)) for kv in kvs]
     full_shape = tuple(kv.numdofs for kv in kvs)

@@ -94,7 +94,7 @@ class DeviceMGSolver:
     smoothing index sets `lv_inds`, the GS sweep directions
     ``(pre, post)`` and `smooth_steps`.  `active_dofs` masks the
     convergence residual (``iterative_solve`` semantics).  `device`
-    holds the operands (default: the CPU).
+    holds the operands (default: the card).
 
     `smoother_impl`:
 

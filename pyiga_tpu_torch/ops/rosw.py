@@ -50,7 +50,7 @@ class DeviceRosenbrockScheme:
             data, Fx)`` protocol for a step whose stage solves miss
             `solve_tol` twice; pass the matching ``_RosenbrockScheme``.
         device: where the scheme runs (default: `M`'s device for a
-            tensor, else the CPU).
+            tensor, else the card).
     """
 
     def __init__(self, coeffs, F_fn, J_fn, M, ops, *, solve_tol=1e-11,

@@ -43,7 +43,8 @@ def test_assemble_matches_jax(form, geo, p, n, args):
     dim = getattr(geometry, geo)().sdim
     kvs = dim * (bspline.make_knots(p, 0.0, 1.0, n),)
     jkvs = dim * (jbspline.make_knots(p, 0.0, 1.0, n),)
-    got = assemble.assemble(form, kvs, geo=getattr(geometry, geo)(), **args)
+    got = assemble.assemble(form, kvs, geo=getattr(geometry, geo)(),
+                            device='cpu', **args)
     ref = jassemble.assemble(form, jkvs, geo=getattr(jgeometry, geo)(),
                              mode='exact', **args)
     if hasattr(ref, 'tocsr'):
@@ -64,7 +65,7 @@ def test_vform_golden_fixtures(form, fixture):
     the geometry of the JAX package's 2D golden tests."""
     kv = bspline.make_knots(3, 0.0, 1.0, 15)
     A = assemble.assemble(form, (kv, kv),
-                          geo=geometry.bspline_quarter_annulus())
+                          geo=geometry.bspline_quarter_annulus(), device='cpu')
     data = np.loadtxt(os.path.join(FIXTURES, fixture), skiprows=1, ndmin=2)
     ij = data[:, :2].astype(np.intp) - 1
     ref = np.zeros(A.shape)
@@ -75,10 +76,11 @@ def test_vform_golden_fixtures(form, fixture):
 def test_ml_matvec_matches_expanded_matrix():
     kvs = 2 * (bspline.make_knots(3, 0.0, 1.0, 9),)
     M = assemble.assemble(CONVDIFF, kvs, geo=geometry.quarter_annulus(),
-                          b=np.array([3.0, -2.0]), format='mlb')
+                          b=np.array([3.0, -2.0]), format='mlb',
+                          device='cpu')
     x = np.random.RandomState(1).rand(M.shape[1])
     ref = M.asmatrix() @ x
-    op = make_ml_matvec(M)
+    op = make_ml_matvec(M, device='cpu')
     y = op(torch.as_tensor(x))
     assert y.shape == (M.shape[0],) and op.ns == (12, 12)
     assert np.abs(y.numpy() - ref).max() <= 1e-14 * np.abs(ref).max()
@@ -102,7 +104,8 @@ def test_mlmatrix_from_jax():
     own = assemble.assemble(CONVDIFF, 2 * (bspline.make_knots(2, 0.0, 1.0,
                                                               6),),
                             geo=geometry.quarter_annulus(),
-                            b=np.array([3.0, -2.0]), format='mlb')
+                            b=np.array([3.0, -2.0]), format='mlb',
+                            device='cpu')
     assert own.datashape == M.datashape
     assert np.abs(own.data - M.data).max() <= 1e-13 * np.abs(M.data).max()
 
@@ -114,7 +117,7 @@ def test_folded_assembly_matches_reference_chain():
     kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 5),)
     asm = assemble.instantiate_assembler(
         CONVDIFF, kvs, {'geo': geometry.bspline_quarter_annulus(),
-                        'b': np.array([1.0, 2.0])}, None)
+                        'b': np.array([1.0, 2.0])}, None, device='cpu')
     assert asm._fold_plan is not None and any(m for _t, m in asm._fold_plan)
     ops = asm._device_operands()
     fields = cuda_vform.combo_fields(asm, asm.device_arrays(), asm.combos)

@@ -47,7 +47,8 @@ def test_layout(name, p, n):
 @pytest.mark.parametrize('name,p,n', CASES)
 def test_matvec_f64(name, p, n):
     mlm, bws, ns, Db = _jax_banded(name, p, n)
-    op = banded.FlatBandedOperator(convert.flat_banded(Db, bws, ns), bws, ns)
+    op = banded.FlatBandedOperator(
+        convert.flat_banded(Db, bws, ns, device='cpu'), bws, ns)
     x = np.random.RandomState(0).rand(op.shape[0])
     y = op(torch.as_tensor(x)).numpy()
     y_csr = mlm.asmatrix() @ x
@@ -66,7 +67,8 @@ def test_matvec_f32(name, p, n):
     interpret mode."""
     _mlm, bws, ns, Db = _jax_banded(name, p, n)
     op32 = banded.FlatBandedOperator(
-        convert.flat_banded(Db, bws, ns, dtype=torch.float32), bws, ns)
+        convert.flat_banded(Db, bws, ns, device='cpu',
+                            dtype=torch.float32), bws, ns)
     assert op32.dtype == torch.float32
     x = np.random.RandomState(1).rand(op32.shape[0]).astype(np.float32)
     y = op32(torch.as_tensor(x)).numpy()
@@ -78,7 +80,8 @@ def test_matvec_f32(name, p, n):
 
 def test_operator_cast_and_plain_matvec():
     _mlm, bws, ns, Db = _jax_banded('twisted_box', 2, 4)
-    op = banded.FlatBandedOperator(convert.flat_banded(Db, bws, ns), bws, ns)
+    op = banded.FlatBandedOperator(
+        convert.flat_banded(Db, bws, ns, device='cpu'), bws, ns)
     op32 = op.to(torch.float32)
     assert op32.D.dtype == torch.float32 and op32.shape == op.shape
     lay = op.lay

@@ -42,7 +42,7 @@ def test_stiffness_fields(name, p, n):
     ref = jassemblers.stiffness_fields(
         {k: [jnp.asarray(a) for a in v] if isinstance(v, list)
          else jnp.asarray(v) for k, v in gi.items()})
-    got = assemblers.stiffness_fields(convert.geo_inputs(gi))
+    got = assemblers.stiffness_fields(convert.geo_inputs(gi, device='cpu'))
     assert len(got) == len(ref)
     # relative to the largest field: on the conformal quarter annulus the
     # off-diagonal field is rounding noise (~1e-20) on both sides
@@ -58,7 +58,7 @@ def test_geo_jacobian_and_inverse(name, p, n):
     nurbs = 'geo_tables_nurbs' in gi
     key = 'geo_tables_nurbs' if nurbs else 'geo_tables_bsp'
     d = len(gi[key])
-    tgi = convert.geo_inputs(gi)
+    tgi = convert.geo_inputs(gi, device='cpu')
     val, jac = geom.geo_jacobian_field(tgi[key], tgi['geo_coeffs'], nurbs, d)
     jval, jjac = jgeom.geo_jacobian_field(gi[key], gi['geo_coeffs'], nurbs, d)
     assert _rel(val, jval) < 1e-14 and _rel(jac, jjac) < 1e-14
@@ -73,7 +73,7 @@ def test_fields_plain_nurbs_quotient():
     """K1's plain version on a NURBS map with unit weights equals the
     B-spline branch on the same control points."""
     gi = _jax_inputs('bspline_quarter_annulus', 2, 6)
-    tgi = convert.geo_inputs(gi)
+    tgi = convert.geo_inputs(gi, device='cpu')
     tables, coeffs = tgi['geo_tables_bsp'], tgi['geo_coeffs']
     Y, _ = cuda_sumfac.geo_stage12(tables, coeffs, 2)
     ones = torch.ones((1,) + tuple(coeffs.shape[1:]), dtype=torch.float64)

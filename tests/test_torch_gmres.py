@@ -34,12 +34,13 @@ def _solve(form, n, p=3, **args):
     GMRES(30) to 1e-10 with the fastdiag preconditioner."""
     kvs = 2 * (bspline.make_knots(p, 0.0, 1.0, n),)
     geo = geometry.quarter_annulus()
-    A = assemble.assemble(form, kvs, geo=geo, format='mlb', **args)
-    f = assemble.assemble('v * dx', kvs, geo=geo)
+    A = assemble.assemble(form, kvs, geo=geo, format='mlb', device='cpu',
+                          **args)
+    f = assemble.assemble('v * dx', kvs, geo=geo, device='cpu')
     free = fastdiag.interior_dofs(kvs)
-    op = matfree.RestrictedOperator(make_ml_matvec(A), free)
+    op = matfree.RestrictedOperator(make_ml_matvec(A, device='cpu'), free)
     b = torch.as_tensor(f.ravel()[free])
-    P = fastdiag.fastdiag_precond(kvs, dirichlet=True)
+    P = fastdiag.fastdiag_precond(kvs, dirichlet=True, device='cpu')
     x, it = solvers.gmres(op, b, tol=1e-10, restart=30, precond=P)
     return A, f, free, x, it
 
@@ -62,7 +63,8 @@ def test_gmres_iterations_match_jax():
     assert np.linalg.norm(Aff @ x.numpy() - ff) <= 1e-10 * np.linalg.norm(ff)
     r = np.random.RandomState(2).rand(len(free))
     z = fastdiag.fastdiag_precond(2 * (bspline.make_knots(
-        3, 0.0, 1.0, n),), dirichlet=True)(torch.as_tensor(r)).numpy()
+        3, 0.0, 1.0, n),), dirichlet=True,
+        device='cpu')(torch.as_tensor(r)).numpy()
     jz = np.asarray(jP(jnp.asarray(r)))
     assert np.abs(z - jz).max() <= 1e-12 * np.abs(jz).max()
 
@@ -88,13 +90,15 @@ def test_slice_runs_without_jax():
             'kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 4),)\n'
             'geo = geometry.quarter_annulus()\n'
             'A = assemble.assemble(%r, kvs, geo=geo, b=np.ones(2), '
-            'format="mlb")\n'
-            'f = assemble.assemble("v * dx", kvs, geo=geo)\n'
+            'format="mlb", device="cpu")\n'
+            'f = assemble.assemble("v * dx", kvs, geo=geo, device="cpu")\n'
             'free = fastdiag.interior_dofs(kvs)\n'
             'import torch\n'
             'x, it = solvers.gmres(matfree.RestrictedOperator('
-            'make_ml_matvec(A), free), torch.as_tensor(f.ravel()[free]), '
-            'precond=fastdiag.fastdiag_precond(kvs, dirichlet=True))\n'
+            'make_ml_matvec(A, device="cpu"), free), '
+            'torch.as_tensor(f.ravel()[free]), '
+            'precond=fastdiag.fastdiag_precond(kvs, dirichlet=True, '
+            'device="cpu"))\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "pyiga_tpu")]\n'
             'assert not bad and it > 0, bad\n' % BENCH_FORM)

@@ -185,7 +185,7 @@ def test_bbox_assembly_matches_jax(bbox):
     kv, jkv = bspline.make_knots(3, 0.0, 1.0, 8), \
         jbspline.make_knots(3, 0.0, 1.0, 8)
     asm = tcompile.compile_vform(vform.stiffness_vf(2), on_demand=True)(
-        (kv, kv), bbox=bbox, geo=geometry.unit_square())
+        (kv, kv), bbox=bbox, geo=geometry.unit_square(), device='cpu')
     jasm = jcompile.compile_vform(jvform.stiffness_vf(2), on_demand=True)(
         (jkv, jkv), bbox=bbox, geo=jgeometry.unit_square())
     assert asm._bbox_win_test == jasm._bbox_win_test
@@ -202,17 +202,19 @@ def test_update_matches_fresh_assembler():
     bbox = ((1, 4), (2, 6))
     f1 = lambda x, y: np.sin(x) * y          # noqa: E731
     f2 = lambda x, y: 1.0 + x * x            # noqa: E731
-    asm = cls((kv, kv), bbox=bbox, geo=geometry.unit_square(), f=f1)
+    asm = cls((kv, kv), bbox=bbox, geo=geometry.unit_square(), f=f1,
+              device='cpu')
     first = asm.assemble_vector()
     asm.update(f=f2)
-    fresh = cls((kv, kv), bbox=bbox, geo=geometry.unit_square(), f=f2)
+    fresh = cls((kv, kv), bbox=bbox, geo=geometry.unit_square(), f=f2,
+                device='cpu')
     assert np.array_equal(asm.assemble_vector(), fresh.assemble_vector())
     assert not np.allclose(first, fresh.assemble_vector())
     # a new geometry drops every device operand
     geo2 = geometry.unit_square(2)
     geo2.coeffs = geo2.coeffs * 2.0
     asm.update(geo=geo2)
-    fresh = cls((kv, kv), bbox=bbox, geo=geo2, f=f2)
+    fresh = cls((kv, kv), bbox=bbox, geo=geo2, f=f2, device='cpu')
     assert np.allclose(asm.assemble_vector(), fresh.assemble_vector(),
                        rtol=1e-14, atol=1e-16)
     with pytest.raises(ValueError):
@@ -224,7 +226,8 @@ def test_hdiscretization_matches_jax(truncate):
     hs, jhs = both_hspaces(disparity=1, truncate=truncate)
     f = lambda *x: 1.0 + x[0] * x[1]         # noqa: E731
     hd = hierarchical.HDiscretization(
-        hs, vform.stiffness_vf(dim=2), {'geo': geometry.unit_square(), 'f': f})
+        hs, vform.stiffness_vf(dim=2), {'geo': geometry.unit_square(), 'f': f},
+        device='cpu')
     jhd = jhier.HDiscretization(
         jhs, jvform.stiffness_vf(dim=2),
         {'geo': jgeometry.unit_square(), 'f': f})

@@ -31,7 +31,8 @@ torch.set_num_threads(1)
 
 def discretize(hs, f=lambda *x: 1.0):
     hd = hierarchical.HDiscretization(
-        hs, vform.stiffness_vf(dim=2), {'geo': geometry.unit_square(), 'f': f})
+        hs, vform.stiffness_vf(dim=2), {'geo': geometry.unit_square(), 'f': f},
+        device='cpu')
     return hd.assemble_matrix().tocsr(), hd.assemble_rhs()
 
 
@@ -126,13 +127,15 @@ def test_solve_hmultigrid_matches_jax(truncate):
     u_h, it_h = solvers.solve_hmultigrid(hs, A, f, tol=1e-8,
                                          relax_backend='host')
     u_d, it_d = solvers.solve_hmultigrid(hs, A, f, tol=1e-8,
-                                         relax_backend='device')
+                                         relax_backend='device',
+                                         device='cpu')
     assert it_h == jit and it_d == jit
     assert np.allclose(u_h, ju, rtol=1e-10, atol=1e-12)
     assert np.allclose(u_d, ju, rtol=1e-10, atol=1e-12)
     # 'auto' on the CPU is the host path; a repeat reuses the cached solver
-    assert solvers.solve_hmultigrid(hs, A, f)[1] == jit
-    u_d2, it_d2 = solvers.solve_hmultigrid(hs, A, f, relax_backend='device')
+    assert solvers.solve_hmultigrid(hs, A, f, device='cpu')[1] == jit
+    u_d2, it_d2 = solvers.solve_hmultigrid(hs, A, f, relax_backend='device',
+                                           device='cpu')
     assert it_d2 == it_d and np.array_equal(u_d2, u_d)
 
 
@@ -158,7 +161,7 @@ def test_plain_cycle_matches_jax_fused_interpret():
     for impl in ('fused', 'dense'):
         s = convert.device_mg_solver(*args,
                                      active_dofs=jhs.non_dirichlet_dofs(),
-                                     smoother_impl=impl)
+                                     smoother_impl=impl, device='cpu')
         u, it = s.solve(f, tol=1e-8)
         assert it == jit, impl
         assert np.allclose(u, ju, rtol=1e-10, atol=1e-12), impl
@@ -171,7 +174,7 @@ def test_vcycle_wrapper_on_cpu_is_the_plain_version():
     lv_inds = hs.indices_to_smooth('cell_supp')
     s = mg.DeviceMGSolver(solvers.galerkin_hierarchy(A, Ps), Ps, lv_inds,
                           solvers._MG_SWEEPS['symmetric_gs'], 2,
-                          active_dofs=hs.non_dirichlet_dofs())
+                          active_dofs=hs.non_dirichlet_dofs(), device='cpu')
     assert s.smoother_impl == 'fused' and s.ops.desc is None
     assert (s.ops.npre, s.ops.npost) == (2, 2)
     rng = np.random.RandomState(4)
@@ -201,11 +204,11 @@ def test_device_solver_options():
     # above dense_cutoff 'auto' names the smoothers still to port
     with pytest.raises(NotImplementedError, match='tri'):
         mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'), 2,
-                          dense_cutoff=A.shape[0] - 1)
+                          dense_cutoff=A.shape[0] - 1, device='cpu')
     for impl in ('tri', 'wavefront', 'df'):
         with pytest.raises(NotImplementedError):
             mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'), 2,
-                              smoother_impl=impl)
+                              smoother_impl=impl, device='cpu')
     with pytest.raises(NotImplementedError):
         solvers.local_mg_step(hs, A, f, Ps, lv_inds, 'gs', 2,
                               relax_backend='device')
@@ -214,9 +217,9 @@ def test_device_solver_options():
     u, it = mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'), 2,
                               active_dofs=hs.non_dirichlet_dofs(),
                               smoother_impl='fused',
-                              dense_cutoff=10).solve(f)
+                              dense_cutoff=10, device='cpu').solve(f)
     assert it == solvers.solve_hmultigrid(hs, A, f, relax_backend='host')[1]
     one = mg.DeviceMGSolver(As[:1], [], lv_inds[:1], ('forward', 'backward'),
-                            2, active_dofs=lv_inds[0])
+                            2, active_dofs=lv_inds[0], device='cpu')
     x1, it1 = one.solve(np.random.RandomState(5).rand(As[0].shape[0]))
     assert it1 == 1 and np.isfinite(x1).all()

@@ -114,7 +114,7 @@ def test_mass_fields_plain(name, p, n):
     gi = jassemblers.MassAssembler(_kvs(p, n, jgeo.sdim)[1],
                                    jgeo)._geo_inputs
     ref = jassemblers.mass_fields(_jax_inputs(gi))
-    got = assemblers.mass_fields(convert.geo_inputs(gi))
+    got = assemblers.mass_fields(convert.geo_inputs(gi, device='cpu'))
     assert len(got) == 1 and got[0].dtype == torch.float64
     assert got[0].shape == ref[0].shape
     assert _rel(got[0], ref[0]) < 1e-13
@@ -128,7 +128,7 @@ def test_host_jac_fields_plain(name, p, n):
     gi = jassemblers.StiffnessAssembler(_kvs(p, n, jgeo.sdim)[1],
                                         jgeo)._geo_inputs
     assert 'jac' in gi
-    tgi = convert.geo_inputs(gi)
+    tgi = convert.geo_inputs(gi, device='cpu')
     for fn, jfn in ((assemblers.stiffness_fields,
                      jassemblers.stiffness_fields),
                      (assemblers.mass_fields, jassemblers.mass_fields)):
@@ -220,7 +220,8 @@ def test_user_function_equals_spline_map():
     spline = geometry.BSplineFunc((kv1, kv1), corners)
     kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 5),)
     for build in (assemble.mass, assemble.stiffness):
-        M_user, M_spline = build(kvs, ufun), build(kvs, spline)
+        M_user = build(kvs, ufun, device='cpu')
+        M_spline = build(kvs, spline, device='cpu')
         assert abs(M_user - M_spline).max() / abs(M_spline).max() < 1e-13
 
 
@@ -232,7 +233,8 @@ def test_assemble_compact_matches_jax(kind, name, p, n):
     geo, jgeo = _geos(name)
     kvs, jkvs = _kvs(p, n, geo.sdim)
     cls = {'mass': 'MassAssembler', 'stiffness': 'StiffnessAssembler'}[kind]
-    mlm = getattr(assemblers, cls)(kvs, geo).assemble(mode='ozaki')
+    mlm = getattr(assemblers, cls)(kvs, geo,
+                                   device='cpu').assemble(mode='ozaki')
     jmlm = getattr(jassemblers, cls)(jkvs, jgeo).assemble(mode='exact')
     assert mlm.data.shape == jmlm.data.shape
     assert _rel(mlm.data, jmlm.data) < 1e-13
@@ -248,14 +250,15 @@ def test_mass_assemble_banded_matches_jax(name, p, n):
     prescale) matvec against the JAX exact banded operator."""
     geo, jgeo = _geos(name)
     kvs, jkvs = _kvs(p, n, geo.sdim)
-    op = assemblers.MassAssembler(kvs, geo).assemble_banded()
+    op = assemblers.MassAssembler(kvs, geo, device='cpu').assemble_banded()
     jop = jassemblers.MassAssembler(jkvs, jgeo).assemble_banded(mode='exact')
     x = np.random.RandomState(5).rand(op.shape[0])
     y = op(torch.as_tensor(x)).numpy()
     y_ref = np.asarray(jbanded.banded_matvec_static(
         jnp.asarray(jop.D), jnp.asarray(x), jop.bws, jop.ns))
     assert np.abs(y - y_ref).max() / np.abs(y_ref).max() < 1e-14
-    M = assemblers.MassAssembler(kvs, geo).assemble().asmatrix()
+    M = assemblers.MassAssembler(kvs, geo,
+                                 device='cpu').assemble().asmatrix()
     assert np.abs(y - M @ x).max() / np.abs(y_ref).max() < 1e-14
 
 
@@ -270,7 +273,7 @@ def test_golden_fixtures(kind, fixture, geo_name, p, n, d):
     from pyiga_tpu.utils import read_sparse_matrix
     ref = read_sparse_matrix(os.path.join(FIXTURES, fixture + '.mtx.gz'))
     A = getattr(assemble, kind)(_kvs(p, n, d)[0],
-                                getattr(geometry, geo_name)())
+                                getattr(geometry, geo_name)(), device='cpu')
     assert A.format == 'csr'
     assert abs(A - ref).max() < 1e-14
 
@@ -290,7 +293,8 @@ def test_assemble_separable_and_1d_match_jax(kind, d):
     assert abs(A - ref).max() == 0.0
     if d > 1:
         G = getattr(assemble, kind)(kvs, geometry.unit_cube(d)
-                                    if d == 3 else geometry.unit_square())
+                                    if d == 3 else geometry.unit_square(),
+                                    device='cpu')
         assert abs(A - G).max() < 1e-14
 
 
@@ -325,18 +329,19 @@ def test_1d_builders_match_jax():
 def test_dimension_aliases():
     kvs = _kvs(2, 4, 2)[0]
     geo = geometry.quarter_annulus()
-    M = assemblers.MassAssembler2D(kvs, geo).assemble()
-    K = assemblers.StiffnessAssembler2D(kvs, geo).assemble()
-    assert np.array_equal(M.data, assemblers.MassAssembler(kvs, geo)
+    cpu = dict(device='cpu')
+    M = assemblers.MassAssembler2D(kvs, geo, **cpu).assemble()
+    K = assemblers.StiffnessAssembler2D(kvs, geo, **cpu).assemble()
+    assert np.array_equal(M.data, assemblers.MassAssembler(kvs, geo, **cpu)
                           .assemble().data)
-    assert np.array_equal(K.data, assemblers.StiffnessAssembler(kvs, geo)
-                          .assemble().data)
-    A = assemble.assemble_entries(assemblers.MassAssembler(kvs, geo),
+    assert np.array_equal(K.data, assemblers.StiffnessAssembler(
+        kvs, geo, **cpu).assemble().data)
+    A = assemble.assemble_entries(assemblers.MassAssembler(kvs, geo, **cpu),
                                   format='mlb')
     assert np.array_equal(A.data, M.data)
     for cls in (assemblers.MassAssembler3D, assemblers.StiffnessAssembler3D):
         with pytest.raises(ValueError):
-            cls(kvs, geo)
+            cls(kvs, geo, **cpu)
 
 
 @pytest.mark.parametrize('name,p,n', [('polar2d', 3, 8), ('user3d', 2, 4)])
@@ -344,7 +349,7 @@ def test_fastdiag_weighted_user_function(name, p, n):
     """The weighted preconditioner reads a host Jacobian (``'jac'``)."""
     geo, jgeo = _geos(name)
     kvs, jkvs = _kvs(p, n, geo.sdim)
-    asm = assemblers.StiffnessAssembler(kvs, geo)
+    asm = assemblers.StiffnessAssembler(kvs, geo, device='cpu')
     jasm = jassemblers.StiffnessAssembler(jkvs, jgeo)
     P = fastdiag.fastdiag_precond_weighted(asm, dirichlet=True,
                                            dtype=torch.float64)
@@ -357,7 +362,7 @@ def test_fastdiag_weighted_user_function(name, p, n):
 
 def test_host_jacobian_uploaded_once():
     geo, _ = _geos('polar2d')
-    asm = assemblers.StiffnessAssembler(_kvs(2, 4, 2)[0], geo)
+    asm = assemblers.StiffnessAssembler(_kvs(2, 4, 2)[0], geo, device='cpu')
     assert asm.geo_inputs()['jac'] is asm.geo_inputs()['jac']
     assert asm.geo_inputs(torch.float32)['jac'].dtype == torch.float32
 

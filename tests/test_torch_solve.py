@@ -36,7 +36,7 @@ def _pair(name, p, n):
     """The same stiffness assembler in both packages."""
     geo, jgeo = getattr(geometry, name)(), getattr(jgeometry, name)()
     asm = StiffnessAssembler(geo.sdim * (bspline.make_knots(p, 0.0, 1.0, n),),
-                             geo)
+                             geo, device='cpu')
     jasm = JStiffnessAssembler(
         jgeo.sdim * (jbspline.make_knots(p, 0.0, 1.0, n),), jgeo)
     return asm, jasm

@@ -42,7 +42,7 @@ def _jax_asm(name, p, n):
 def _port_asm(name, p, n):
     geo = getattr(geometry, name)()
     return StiffnessAssembler(geo.sdim * (bspline.make_knots(p, 0.0, 1.0, n),),
-                              geo)
+                              geo, device='cpu')
 
 
 @pytest.mark.parametrize('name,p,n', [('twisted_box', 3, 6),
@@ -73,7 +73,7 @@ def test_flat_banded_assembly_vs_jax_exact(name, p, n):
     D = op.D.numpy()
     assert np.abs(D - ref).max() / np.abs(ref).max() < 1e-13
     # convert carries the JAX banded layout into the same flat tensor
-    assert torch.equal(convert.flat_banded(Db, bws, ns),
+    assert torch.equal(convert.flat_banded(Db, bws, ns, device='cpu'),
                        torch.as_tensor(ref))
     # the port's plain folded chain over the same banded tables, with the
     # banded transpose permutations, reorders to the same (b..., n...) data

@@ -41,10 +41,11 @@ def _heat(pkg, n=6, p=3):
     residual of 1e-4)."""
     bs, geo, asm = ((bspline, geometry, assemble) if pkg == 'torch'
                     else (jbspline, jgeometry, jassemble))
+    kw = dict(device='cpu') if pkg == 'torch' else {}
     kvs = 2 * (bs.make_knots(p, 0.0, 1.0, n),)
     scale = float(n * n)
-    M = scale * asm.mass(kvs, geo.quarter_annulus())
-    K = scale * asm.stiffness(kvs, geo.quarter_annulus())
+    M = scale * asm.mass(kvs, geo.quarter_annulus(), **kw)
+    K = scale * asm.stiffness(kvs, geo.quarter_annulus(), **kw)
     free = fastdiag.interior_dofs(kvs)
     Mf, Kf = M[free][:, free].tocsr(), K[free][:, free].tocsr()
     f = (M @ np.ones(M.shape[0]))[free]
@@ -187,7 +188,8 @@ def _device_scheme(name, prob, **kwargs):
     return DeviceRosenbrockScheme(
         (A, G, b, bh), lambda x, o: o['f'] - o['K'] @ x,
         lambda x, o: -o['K'], Mf.toarray(), ops,
-        host_scheme=solvers._RosenbrockScheme(A, G, b, bh), **kwargs), order
+        host_scheme=solvers._RosenbrockScheme(A, G, b, bh), device='cpu',
+        **kwargs), order
 
 
 @pytest.mark.parametrize('name,tol', [('ros3p', 1e-5), ('rodasp', 1e-7)])
@@ -235,6 +237,6 @@ def test_device_rosenbrock_counts_host_fallback():
     no_host = DeviceRosenbrockScheme(
         solvers.coeffs_ros3p()[:4], lambda x, o: o['f'] - o['K'] @ x,
         lambda x, o: -o['K'], Mf.toarray(), dev._ops, solve_tol=0.0,
-        refine_maxiter=1)
+        refine_maxiter=1, device='cpu')
     with pytest.raises(RuntimeError):
         no_host.step(Mf, F, J, x0, 1e-3)

@@ -54,7 +54,8 @@ def _pair(name, geo='quarter_annulus'):
     vf = vform.parse_vf(form, _kvs(bspline), args=args)
     jvf = jvform.parse_vf(form, _kvs(jbspline), args=args)
     asm = compile.compile_vform(vf)(_kvs(bspline),
-                                    geo=getattr(geometry, geo)(), **args)
+                                    geo=getattr(geometry, geo)(),
+                                    device='cpu', **args)
     jasm = jcompile.compile_vform(jvf)(_kvs(jbspline),
                                        geo=getattr(jgeometry, geo)(), **args)
     return vf, jvf, asm, jasm
@@ -101,7 +102,7 @@ def test_geo_jac_fields_plain_matches_jax(name, p, n):
     nurbs = 'geo_tables_nurbs' in gi
     key = 'geo_tables_nurbs' if nurbs else 'geo_tables_bsp'
     d = len(gi[key])
-    tgi = convert.geo_inputs(gi)
+    tgi = convert.geo_inputs(gi, device='cpu')
     val, jac = cuda_sumfac.geometry_fields(tgi[key], tgi['geo_coeffs'],
                                            nurbs)
     jval, jjac = jgeom.geo_jacobian_field(gi[key], gi['geo_coeffs'], nurbs,
@@ -123,7 +124,7 @@ def test_combo_fields_match_jax(name, geo):
     ref = [np.asarray(F) for F in
            jasm._eval_combo_fields(jasm._device_inputs(), jasm.combos)]
     scale = max(np.abs(F).max() for F in ref)
-    arrays = convert.vform_arrays(jasm._host_arrays)
+    arrays = convert.vform_arrays(jasm._host_arrays, device='cpu')
     ops = asm._device_operands()
     arrays['geo_val_lvl'], arrays['geo_jac_lvl'] = \
         cuda_sumfac.geometry_fields(ops['geo_tables'], ops['geo_coeffs'],
@@ -182,7 +183,7 @@ def test_unsupported_forms_raise(form, args, kw):
     geo = _dummy_physical if geo == 'callable' else geometry.quarter_annulus()
     vf = vform.parse_vf(form, kvs, args=args, bfuns=bfuns)
     with pytest.raises(NotImplementedError):
-        compile.compile_vform(vf)(kvs, geo=geo, **args, **kw)
+        compile.compile_vform(vf)(kvs, geo=geo, device='cpu', **args, **kw)
 
 
 def test_fields_wrapper_refuses_other_devices():
