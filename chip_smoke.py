@@ -28,8 +28,9 @@ these phases: K6 against its plain version for one V-cycle from a seeded
 iterate on the (24, 3) and (48, 3) hierarchies (4e); the path at n0=6 on
 the card against the CPU (4f); the bench shape (24, 3), cold and warm,
 held to 29 iterations and to the port's host path in the same process
-(8); and (48, 3) with ``smoother_impl='fused'`` (above the JAX package's
-dense cutoff), held to 27 (8b).
+(8); and (48, 3) through ``solve_hmultigrid(hs, A, f)`` with its
+defaults (above the JAX package's dense cutoff, where ``'auto'`` takes
+K6 up to ``tri_block_cutoff``), held to 27 (8b).
 
 The mass and time-stepping paths: K1's ``mass`` kind and K1' (the
 stiffness fields of a host-evaluated Jacobian) against their plain
@@ -45,8 +46,11 @@ the host scheme's step sequence with no host fallback (10b).
 
 The fused stage-2 + fold tail (K7, the JAX package's ``PYIGA_TAIL_FUSED``
 switch) and the 3D Dirichlet Poisson path of ``examples/poisson_3d.py``
-with non-zero data: K7's transposed stage and tail kernel against their
-plain versions at the n=48 flat-banded shapes (4i); the headline
+with non-zero data: K7's transposed stage and tail kernel (both on the
+f64 tensor cores, whose DMMA instructions phase 2 finds in the built
+library's SASS) against their plain versions at the n=48 flat-banded
+shapes and at ragged shapes around the DMMA tiles, each launched twice
+to show bitwise-equal results (4i); the headline
 ``assemble_banded()`` with the switch on, then off, in one process, the
 fused operator solved to the headline's 25 iterations (11); the
 Dirichlet path at 3D p=3 n=48 on the twisted box with the harmonic data
@@ -230,6 +234,30 @@ def nvidia_smi():
             timeout=60).stdout.strip().splitlines()[0]
     except (OSError, IndexError, subprocess.TimeoutExpired) as e:
         return 'nvidia-smi unavailable (%s)' % e
+
+
+def sass_dmma(lib_path, kernels=('stage_T_kernel', 'tail_kernel')):
+    """DMMA (f64 tensor-core) instructions per kernel in the SASS of the
+    built library, by ``cuobjdump --dump-sass`` from the toolkit that
+    built it; raises if one of `kernels` has none."""
+    from pyiga_tpu_torch import _cuda
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), 'cuobjdump')
+    sass = subprocess.run([tool, '--dump-sass', lib_path], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            fn = line.split('Function :')[1].strip()
+            counts[fn] = 0
+        elif fn is not None and 'DMMA' in line:
+            counts[fn] += 1
+    found = {k: sum(c for f, c in counts.items() if k in f) for k in kernels}
+    log('  SASS DMMA instructions: %s' % found)
+    missing = [k for k, c in found.items() if c == 0]
+    if missing:
+        raise RuntimeError('no DMMA instruction in the SASS of %s' % missing)
+    return found
 
 
 def main_path_setup(dim, n, device):
@@ -852,9 +880,9 @@ def run_localmg(device, n0, L=3, impl=None):
         if best is None or t_A + t_f < sum(best):
             best = (t_A, t_f)
     t0 = time.perf_counter()
-    if impl is None:
+    if impl is None:        # solve_hmultigrid's defaults: the card, 'auto'
         def solve(tol):
-            return solvers.solve_hmultigrid(hs, A, f, tol=tol, device=device)
+            return solvers.solve_hmultigrid(hs, A, f, tol=tol)
     else:
         solver = localmg_solver(hs, A, device, impl)
 
@@ -1360,20 +1388,50 @@ def run_heat_device(device, n=60, n_full=128):
     return rec
 
 
+# phase 4i's ragged shapes around the DMMA tiles (16-row m tiles, 8-column
+# n tiles, 4- and 16-deep k slices, K7a's 64 x 128 block tile, K7b's
+# 32-row slab, 192-deep Y2 chunk and 384-column chunk):
+# K7a (K, R, M)
+STAGE_T_RAGGED = ((7, 45, 13), (33, 300, 70), (200, 1001, 5),
+                  (192, 130, 357))
+# K7b (M1, K2, K3, M2, M3, terms, stage-2 tables, final tables)
+TAIL_RAGGED = ((5, 7, 9, 13, 11, 3, 2, 1), (3, 33, 200, 17, 600, 3, 2, 1),
+               (4, 18, 30, 35, 45, 1, 1, 1), (3, 13, 21, 40, 70, 16, 3, 2),
+               (2, 192, 384, 33, 385, 2, 1, 2))
+
+
+def check_repeat(name, fn, got):
+    """A second launch on the same inputs gives bitwise-equal output (no
+    atomics, a fixed summation order)."""
+    again = fn()
+    sync(again.device)
+    if not torch.equal(again, got):
+        raise RuntimeError('%s: two launches on the same inputs differ'
+                           % name)
+    return True
+
+
 def check_tail_kernels(device, n=48, seed=4):
     """Phase 4i: K7's transposed stage and tail kernel against their plain
     versions at the n=48 flat-banded shapes of ``assemble_banded`` (real
     banded tables, the direct terms' first tables halved, stage-2 and
     final tables shared by identity as the route shares them; seeded
-    fields and stage-1 outputs), 1e-13 relative to the largest entry.
+    fields and stage-1 outputs) and at the ragged shapes above, 1e-13
+    relative to the largest entry, each launched twice (bitwise-equal).
     Yardsticks: one ``torch.matmul`` for ``stage_T``, one
     ``torch.einsum`` over the stacked per-term operands for
-    ``tail_fused``."""
+    ``tail_fused``.  The tail's bound counts the final stage once per
+    distinct final table: the terms that share one are summed before it
+    (what the kernel does, and the least work for the function)."""
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     from pyiga_tpu_torch.ops.banded import band_info
 
     rng = np.random.RandomState(seed)
     f64 = torch.float64
+
+    def rand(*shape):
+        return torch.as_tensor(rng.rand(*shape), dtype=f64, device=device)
+
     asm = main_path_setup(3, n, device)
     plan = asm._fold()
     btabs = asm.tables.banded_term_tables(asm.terms, band_info(asm.structure))
@@ -1389,31 +1447,42 @@ def check_tail_kernels(device, n=48, seed=4):
     M, K = tabs[0][0].shape
     out = {}
 
-    X = torch.as_tensor(rng.rand(K, K * K), dtype=f64, device=device)
+    X = rand(K, K * K)
     T = tabs[0][0]
     got, ref = cs.stage_T(X, T), cs.stage_T_plain(X, T)
     sync(device)
     err, rel = compare('stage_T', got, ref, 1e-13)
+    check_repeat('stage_T', lambda: cs.stage_T(X, T), got)
     out['stage_T'] = dict(
-        max_abs_err=err, rel=rel, shape=[K, K * K, M],
+        max_abs_err=err, rel=rel, shape=[K, K * K, M], repeat_equal=True,
         ms=time_ms(lambda: cs.stage_T(X, T), device),
         plain_ms=time_ms(lambda: cs.stage_T_plain(X, T), device),
         library_ms=time_ms(lambda: torch.matmul(T, X), device),
         **bound(nbytes(X, T, got), 2 * K * K * K * M, F64_TENSOR_PER_MS))
     del X, got, ref
+    out['stage_T']['ragged'] = {}
+    for Kr, Rr, Mr in STAGE_T_RAGGED:
+        X, T = rand(Kr, Rr), rand(Mr, Kr)
+        got, ref = cs.stage_T(X, T), cs.stage_T_plain(X, T)
+        sync(device)
+        key = '%dx%dx%d' % (Kr, Rr, Mr)
+        out['stage_T']['ragged'][key] = compare('stage_T ' + key, got, ref,
+                                                1e-13)
+        check_repeat('stage_T ' + key, lambda: cs.stage_T(X, T), got)
 
-    x1T = [torch.as_tensor(rng.rand(M, K, K), dtype=f64, device=device)
-           for _ in plan]
+    x1T = [rand(M, K, K) for _ in plan]
     tc2, idx2 = cs._dedup([t[1] for t in tabs])
     tc3, idx3 = cs._dedup([t[2] for t in tabs])
     args = (x1T, tc2, tc3, idx2, idx3)
     got, ref = cs.tail_fused(*args), cs.tail_fused_plain(*args)
     sync(device)
     err, rel = compare('tail_fused', got, ref, 1e-13)
+    check_repeat('tail_fused', lambda: cs.tail_fused(*args), got)
     M2, M3 = tc2[0].shape[0], tc3[0].shape[0]
-    flops = len(x1T) * (2 * M * K * K * M2 + 2 * M * M2 * K * M3)
+    flops = (len(x1T) * 2 * M * K * K * M2
+             + len(set(idx3)) * 2 * M * M2 * K * M3)
     rec = dict(max_abs_err=err, rel=rel, shape=[len(x1T), M, K, K, M2, M3],
-               tables=[len(tc2), len(tc3)],
+               tables=[len(tc2), len(tc3)], repeat_equal=True,
                ms=time_ms(lambda: cs.tail_fused(*args), device, reps=5),
                plain_ms=time_ms(lambda: cs.tail_fused_plain(*args), device,
                                 reps=5),
@@ -1428,20 +1497,18 @@ def check_tail_kernels(device, n=48, seed=4):
         reps=3, warmup=1)
     out['tail_fused'] = rec
     del X6, T2, T3, x1T, args
-    # ragged shapes: partial m2 tiles, K3 over one 192-deep stage-2 chunk,
-    # M3 over one 512-column chunk (two chunks rebuild Y2)
     rec['ragged'] = {}
-    for M1, K2, K3, M2, M3 in ((5, 7, 9, 13, 11), (3, 33, 200, 17, 600)):
-        xs = [torch.as_tensor(rng.rand(M1, K2, K3), dtype=f64, device=device)
-              for _ in range(3)]
-        t2 = [torch.as_tensor(rng.rand(M2, K2), dtype=f64, device=device)
-              for _ in range(2)]
-        t3 = [torch.as_tensor(rng.rand(M3, K3), dtype=f64, device=device)]
-        a = (xs, t2, t3, [0, 1, 1], [0, 0, 0])
+    for M1, K2, K3, M2, M3, nt, n2, n3 in TAIL_RAGGED:
+        xs = [rand(M1, K2, K3) for _ in range(nt)]
+        t2 = [rand(M2, K2) for _ in range(n2)]
+        t3 = [rand(M3, K3) for _ in range(n3)]
+        a = (xs, t2, t3, [t % n2 for t in range(nt)],
+             [(t * 7 // 3) % n3 for t in range(nt)])
         got, ref = cs.tail_fused(*a), cs.tail_fused_plain(*a)
         sync(device)
-        key = '%dx%dx%dx%dx%d' % (M1, K2, K3, M2, M3)
+        key = '%dx%dx%dx%dx%d,%d terms' % (M1, K2, K3, M2, M3, nt)
         rec['ragged'][key] = compare('tail ' + key, got, ref, 1e-13)
+        check_repeat('tail ' + key, lambda: cs.tail_fused(*a), got)
     for name, r in out.items():
         log('  %-16s kernel %.4f ms   plain %.4f ms   library %.4f ms   '
             'bound %.4f ms (%s)' % (name, r['ms'], r['plain_ms'],
@@ -1452,8 +1519,10 @@ def check_tail_kernels(device, n=48, seed=4):
 
 def run_tail_fused_path(device, n=48):
     """Phase 11: the headline ``assemble_banded()`` with the fused tail
-    (``cuda_sumfac.TAIL_FUSED``) on, then off, in one process (each cold,
-    then warm): D agrees to 1e-13 relative, the fused run launches
+    (``cuda_sumfac.TAIL_FUSED``) on, then off, in one process: each route
+    cold, then five warm calls of each in turns (fused, two-call,
+    two-call, fused, ...; host clock after a synchronize, min and median
+    reported): D agrees to 1e-13 relative, the fused run launches
     ``stage_T`` six times, ``tail_fused`` once and ``fold`` never, and
     ``cg_ir`` on the fused operator takes the headline's 25 inner
     iterations [7, 9, 9].  The switch is restored afterwards."""
@@ -1461,31 +1530,37 @@ def run_tail_fused_path(device, n=48):
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     asm = main_path_setup(3, n, device)
     saved = cs.TAIL_FUSED
-    ops, times, launches = {}, {}, {}
-    try:
-        for on in (True, False):
-            cs.TAIL_FUSED = on
-            key = 'fused' if on else 'two_call'
+    ops, times, launches = {}, {'fused': [], 'two_call': []}, {}
+
+    def run(on, count):
+        cs.TAIL_FUSED = on
+        key = 'fused' if on else 'two_call'
+        if count:
             _cuda.reset_launches()
-            ts = []
-            for _ in range(2):                  # cold, warm
-                sync(device)
-                t0 = time.perf_counter()
-                ops[key] = asm.assemble_banded()
-                sync(device)
-                ts.append(1e3 * (time.perf_counter() - t0))
-                if not launches.get(key):
-                    launches[key] = dict(_cuda.LAUNCHES)
-            times[key] = ts
+        sync(device)
+        t0 = time.perf_counter()
+        ops[key] = asm.assemble_banded()
+        sync(device)
+        times[key].append(1e3 * (time.perf_counter() - t0))
+        if count:
+            launches[key] = dict(_cuda.LAUNCHES)
+
+    try:
+        for on in (True, False):            # cold
+            run(on, True)
+        for rep in range(5):                # warm, in turns
+            for on in ((True, False) if rep % 2 == 0 else (False, True)):
+                run(on, False)
     finally:
         cs.TAIL_FUSED = saved
     Df, D2 = ops['fused'].D, ops['two_call'].D
     rel = float((Df - D2).abs().max() / D2.abs().max())
     lf = launches['fused']
-    log('  assemble_banded fused cold %.2f ms warm %.2f ms; two-call cold '
-        '%.2f ms warm %.2f ms; D rel %.3e'
-        % (times['fused'][0], times['fused'][1], times['two_call'][0],
-           times['two_call'][1], rel))
+    warm = {k: (min(v[1:]), float(np.median(v[1:]))) for k, v in times.items()}
+    log('  assemble_banded fused cold %.2f ms warm min %.2f median %.2f ms; '
+        'two-call cold %.2f ms warm min %.2f median %.2f ms; D rel %.3e'
+        % (times['fused'][0], *warm['fused'], times['two_call'][0],
+           *warm['two_call'], rel))
     log('  launches (fused): %s' % lf)
     if not rel <= 1e-13:
         raise RuntimeError('fused D differs from the two-call D: %.3e' % rel)
@@ -1508,7 +1583,8 @@ def run_tail_fused_path(device, n=48):
     if missing:
         raise RuntimeError('fused headline never launched %s' % missing)
     return dict(n=n, D_rel=rel, t_fused_ms=times['fused'],
-                t_two_call_ms=times['two_call'], launches_fused=lf,
+                t_two_call_ms=times['two_call'],
+                t_warm_min_median_ms=warm, launches_fused=lf,
                 launches_two_call=launches['two_call'],
                 launches_path=path, inner_iters=info['inner_iters'],
                 residual=res, t_solve_ms=1e3 * t_solve)
@@ -1675,6 +1751,7 @@ def main():
     for line in _cuda.BUILD_INFO['log'].splitlines():
         if 'registers' in line or 'spill' in line or 'Compiling' in line:
             log('  ' + line.strip())
+    dmma = sass_dmma(_cuda.BUILD_INFO['path'])
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1747,8 +1824,9 @@ def main():
     log('  warm:')
     lmg['warm'] = run_localmg(device, 24)
     torch.cuda.empty_cache()
-    log('phase 8b: local-MG path, 2D p=3 HB (48,3), smoother_impl=fused')
-    lmg48 = run_localmg(device, 48, impl='fused')
+    log('phase 8b: local-MG path, 2D p=3 HB (48,3), solve_hmultigrid '
+        'defaults')
+    lmg48 = run_localmg(device, 48)
     torch.cuda.empty_cache()
 
     log("phase 4g: K1 mass kind and K1' vs plain versions")
@@ -1804,7 +1882,8 @@ def main():
                     bound_by=kern[k]['bound_by'],
                     library_ms=kern[k]['library_ms']) for k in KERNELS]
     record = dict(card=card, torch=torch.__version__,
-                  cuda=torch.version.cuda, build_s=t_build, kernels=kern,
+                  cuda=torch.version.cuda, build_s=t_build,
+                  sass_dmma=dmma, kernels=kern,
                   small=small, main3d=main3, main2d=main2,
                   convdiff2d=conv, localmg_24_3=lmg, localmg_48_3=lmg48,
                   mass3d=mass3, heat2d=heat, heat2d_device=heat_dev,

@@ -457,13 +457,19 @@ def instantiate_assembler(problem, kvs, args, bfuns, boundary=None,
     raise TypeError("invalid type for 'problem': %s" % type(problem))
 
 
-def assemble_entries(asm, symmetric=False, format='csr', mode=None):
+def assemble_entries(asm, symmetric=False, format='csr', layout='blocked',
+                     mode=None):
     """Assemble all entries of the given assembler (a VForm assembler or
     a Gauss assembler of :mod:`pyiga_tpu_torch.assemblers`) and return the
     matrix (scipy sparse in `format`, or the compact
     :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix` for ``format='mlb'``) or,
     for arity-1 assemblers, the vector.  `symmetric` is accepted for API
-    compatibility."""
+    compatibility; `layout` ('blocked' or 'packed') orders the components
+    of a vector-valued form in the JAX package and changes nothing for the
+    scalar forms the port assembles (vector-valued forms are ROADMAP item
+    7's)."""
+    if layout not in ('blocked', 'packed'):
+        raise ValueError("layout must be 'blocked' or 'packed'")
     if asm.arity == 1:
         return asm.assemble_vector()
     mlm = asm.assemble(mode=mode)
@@ -492,7 +498,7 @@ def assemble(problem, kvs, args=None, bfuns=None, boundary=None,
     asm = instantiate_assembler(problem, kvs, args, bfuns, boundary,
                                 device=device)
     return assemble_entries(asm, symmetric=symmetric, format=format,
-                            mode=mode)
+                            layout=layout, mode=mode)
 
 
 def assemble_vf(vf, kvs, symmetric=False, format='csr', layout='blocked',

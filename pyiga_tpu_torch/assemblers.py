@@ -161,10 +161,14 @@ class BaseGaussAssembler:
         data = self.run_device(mode)
         return self.structure.make_mlmatrix(data=data.cpu().numpy())
 
-    def assemble_banded(self):
+    def assemble_banded(self, mode=None):
         """Assemble straight into the flat banded solver layout and return
         the float64 :class:`FlatBandedOperator` on the assembler's device
-        (the data never leaves it)."""
+        (the data never leaves it).  `mode` is accepted for API
+        compatibility and ignored, as in :meth:`run_device`.  The JAX
+        package returns its regular-layout ``BandedOperator`` here; that
+        operator is ROADMAP item 10's, and the flat layout is the one the
+        port's K4 reads."""
         bws = band_info(self.structure)
         if bws is None:
             raise ValueError('space is not regularly banded '

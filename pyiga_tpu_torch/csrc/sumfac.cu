@@ -11,9 +11,9 @@
 // K3  fold_kernel          replaces `_stage_call_fold` (pallas_call at
 //     :781, body `_fold_kernel`).
 // K7a stage_T_kernel       replaces `_stage_call_T` (pallas_call at :436,
-//     body `_stage_kernel_T`).
+//     body `_stage_kernel_T`); f64 tensor cores (dmma.cuh).
 // K7b tail_kernel          replaces `_tail_fused_call` (pallas_call at
-//     :563, body `_tail_kernel`).
+//     :563, body `_tail_kernel`); f64 tensor cores (dmma.cuh).
 //
 // The TPU kernels carry float64 as two-float f32 pairs and split every
 // contraction into six bf16 mantissa chunks (21 chunk dots with exact f32
@@ -22,6 +22,7 @@
 // machinery is ported.
 
 #include "common.cuh"
+#include "dmma.cuh"
 
 // --------------------------------------------------------------------------
 // Per-point algebra shared by the field kernels: determinant, inverse by
@@ -380,17 +381,14 @@ struct FoldTerms {
     int n;
 };
 
-// acc[i][j] holds the output (r, m) = (r0 + ry + 16 i, m0 + mx + 16 j).
-// kRByTx = false (K2, K3): ry = ty, mx = tx, so a warp's 16 consecutive
-// threads hold consecutive m (coalesced stores of the (R, M) output);
-// kRByTx = true (K7a): ry = tx, mx = ty, consecutive r for the (M, R) one.
-template <bool kRByTx>
+// acc[i][j] holds the output (r, m) = (r0 + ty + 16 i, m0 + tx + 16 j):
+// a warp's 16 consecutive threads hold consecutive m (coalesced stores of
+// the (R, M) output).
 __device__ __forceinline__ void accumulate_term(
         const double* __restrict__ X, const double* __restrict__ T, int K,
         long long R, int M, long long r0, int m0,
         double (*Xs)[kBR], double (*Ts)[kBM + 1], double acc[4][4]) {
-    const int tx = kRByTx ? threadIdx.x / 16 : threadIdx.x % 16;
-    const int ty = kRByTx ? threadIdx.x % 16 : threadIdx.x / 16;
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
     for (int k0 = 0; k0 < K; k0 += kBK) {
         for (int i = threadIdx.x; i < kBK * kBR; i += kThreads) {
             const int kk = i / kBR, rr = i % kBR;
@@ -436,24 +434,6 @@ __device__ __forceinline__ void store_tile(double* __restrict__ out,
     }
 }
 
-// the transposed store of K7a: out (M, R), consecutive threads on
-// consecutive r (the accumulate_term<true> mapping)
-__device__ __forceinline__ void store_tile_T(double* __restrict__ out,
-                                             long long R, int M, long long r0,
-                                             int m0, const double acc[4][4]) {
-    const int rx = threadIdx.x % 16, my = threadIdx.x / 16;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const int m = m0 + my + 16 * j;
-        if (m >= M) continue;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const long long r = r0 + rx + 16 * i;
-            if (r < R) out[(long long)m * R + r] = acc[i][j];
-        }
-    }
-}
-
 __global__ void __launch_bounds__(kThreads)
 stage_kernel(const double* __restrict__ X, const double* __restrict__ T,
              int K, long long R, int M, double* __restrict__ out) {
@@ -462,7 +442,7 @@ stage_kernel(const double* __restrict__ X, const double* __restrict__ T,
     const long long r0 = (long long)blockIdx.x * kBR;
     const int m0 = blockIdx.y * kBM;
     double acc[4][4] = {};
-    accumulate_term<false>(X, T, K, R, M, r0, m0, Xs, Ts, acc);
+    accumulate_term(X, T, K, R, M, r0, m0, Xs, Ts, acc);
     store_tile(out, R, M, r0, m0, acc);
 }
 
@@ -475,35 +455,176 @@ fold_kernel(FoldTerms terms, int K, long long R, int M,
     const int m0 = blockIdx.y * kBM;
     double acc[4][4] = {};
     for (int t = 0; t < terms.n; ++t)
-        accumulate_term<false>(terms.x[t], terms.t[t], K, R, M, r0, m0, Xs,
-                               Ts, acc);
+        accumulate_term(terms.x[t], terms.t[t], K, R, M, r0, m0, Xs, Ts,
+                        acc);
     store_tile(out, R, M, r0, m0, acc);
 }
 
 // --------------------------------------------------------------------------
-// K7a: one stage with the transposed output, out[m, r] = sum_k X[k, r]
-// T[m, k]: X (K, R), T (M, K), out (M, R).  Replaces `_stage_call_T`
-// (pyiga_tpu/ops/pallas_sumfac.py, pallas_call at :436).  It is K2's body
-// (the same 64 x 64 tiles and 16-deep K slices) with the thread mapping
-// and the store transposed, so that stores stay coalesced along r; the
-// tail (K7b) then reads term t's output as (M1, K2, K3) slabs with no
-// transpose.  Bound at the 3D n=48 headline (K = 192, R = 36,864,
-// M = 357, six launches): 30.3 GFLOP in all, compute (0.45 ms at the
-// datasheet's 67 TFLOP/s f64 tensor rate) over bytes (972 MB, 0.29 ms at
-// 3.35 TB/s).
+// K7a: one stage with the transposed output, out[m, r] = sum_k T[m, k]
+// X[k, r]: X (K, R), T (M, K), out (M, R).  Replaces `_stage_call_T`
+// (pyiga_tpu/ops/pallas_sumfac.py, pallas_call at :436, body
+// `_stage_kernel_T`); the tail (K7b) then reads term t's output as (M1,
+// K2, K3) slabs with no transpose.
+//
+// Bound at the 3D n=48 headline (K = 192, R = 36,864, M = 357, six
+// launches): 5.05 GFLOP a launch, 0.075 ms at the datasheet's 67 TFLOP/s
+// f64 tensor rate, over its 162 MB (0.048 ms at 3.35 TB/s): operations.
+//
+// Design: f64 tensor cores (dmma.cuh, mma.sync m16n8k4).  A block owns a
+// 64 (m) x 128 (r) output tile: 8 warps as 2 x 4, each a 32 x 32 warp tile
+// of 2 x 4 DMMA tiles (8 MMAs of 512 FMA for 8 fragment loads per 4-deep
+// step; the earlier 4 x 4 FMA tile loaded 8 values per 16 FMAs and was
+// held to shared-memory bandwidth).  K runs in 16-deep slices through a
+// 3-stage cp.async pipeline (16-byte copies when K and R are even and the
+// tensors 16-byte aligned, else 8-byte ones); ragged K, M and R are
+// zero-filled by the copies and skipped on store.  The T tile has a row
+// stride of 20 doubles and the X tile of 132 (both 4 mod 16), so the
+// fragment loads of each half-warp hit 16 distinct bank pairs.  The output
+// tile is staged through shared memory (stride 136, 8 mod 16: the 16-byte
+// fragment stores of a quarter-warp cover all 32 banks), so each warp
+// stores 16-byte chunks along r, 512 contiguous bytes a row half.  The m
+// tiles are the grid's fastest axis: the six blocks that share an X tile
+// run together, and X (57 MB, more than the 50 MB L2) is read from device
+// memory once instead of once per m tile.  128 registers a thread (two
+// blocks an SM, 80 KiB of shared memory each).  At n=48 the m axis pads 357
+// to 384 (7 % of the products are zeros).
 // --------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
+namespace k7a {
+
+constexpr int kBM = 64;            // output rows (m) per block
+constexpr int kBN = 128;           // output columns (r) per block
+constexpr int kBK = 16;            // contraction slice
+constexpr int kThreads = 256;      // 8 warps: 2 (m) x 4 (r), 32 x 32 each
+constexpr int kPA = kBK + 4;       // T tile row stride (4 mod 16)
+constexpr int kPB = kBN + 4;       // X tile row stride (4 mod 16)
+constexpr int kPC = kBN + 8;       // output staging row stride (8 mod 16)
+constexpr int kStages = 3;         // cp.async pipeline depth
+constexpr int kStage = kBM * kPA + kBK * kPB;
+constexpr int kSmem = (kStages * kStage > kBM * kPC ? kStages * kStage
+                                                     : kBM * kPC)
+                      * (int)sizeof(double);
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads, 2)
 stage_T_kernel(const double* __restrict__ X, const double* __restrict__ T,
                int K, long long R, int M, double* __restrict__ out) {
-    __shared__ double Xs[kBK][kBR];
-    __shared__ double Ts[kBK][kBM + 1];
-    const long long r0 = (long long)blockIdx.x * kBR;
-    const int m0 = blockIdx.y * kBM;
-    double acc[4][4] = {};
-    accumulate_term<true>(X, T, K, R, M, r0, m0, Xs, Ts, acc);
-    store_tile_T(out, R, M, r0, m0, acc);
+    extern __shared__ __align__(16) double smem[];
+    // the m tiles sharing an X tile run together: X is read from device
+    // memory once (it exceeds the 50 MB L2 at n=48)
+    const int m0 = blockIdx.x * kBM;
+    const long long r0 = (long long)blockIdx.y * kBN;
+    const int warp = threadIdx.x >> 5;
+    const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
+
+    double acc[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0;
+
+    const double* Tb = T + (long long)m0 * K;
+    const double* Xb = X + r0;
+    auto load = [&](int buf, int k0) {
+        double* As = smem + buf * kStage;
+        double* Bs = As + kBM * kPA;
+        dmma::load_tile<kBM, kBK, VEC, kThreads>(As, kPA, Tb + k0, K, M - m0,
+                                                 K - k0);
+        dmma::load_tile<kBK, kBN, VEC, kThreads>(
+            Bs, kPB, Xb + (long long)k0 * R, R, K - k0, R - r0);
+        dmma::cp_async_commit();
+    };
+
+    const int nk = (K + kBK - 1) / kBK;
+    for (int s = 0; s < kStages - 1; ++s) {
+        if (s < nk)
+            load(s, s * kBK);
+        else
+            dmma::cp_async_commit();      // an empty group keeps the count
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+        const int kn = kt + kStages - 1;
+        if (kn < nk)
+            load(kn % kStages, kn * kBK);
+        else
+            dmma::cp_async_commit();
+        dmma::cp_async_wait<kStages - 1>();
+        __syncthreads();
+        const double* As = smem + (kt % kStages) * kStage;
+        const double* Bs = As + kBM * kPA;
+#pragma unroll
+        for (int kk = 0; kk < kBK; kk += 4) {
+            double a[2][2], b[4];
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+                dmma::load_a(As, kPA, wm + 16 * i, kk, a[i][0], a[i][1]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                b[j] = dmma::load_b_kn(Bs, kPB, kk, wn + 8 * j);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    dmma::mma_16x8x4(acc[i][j], a[i][0], a[i][1], b[j]);
+        }
+        __syncthreads();
+    }
+    dmma::cp_async_wait<0>();
+
+    // stage the tile through the (now free) pipeline buffers
+    double* Cs = smem;
+    const int g = dmma::lane_g(), t = dmma::lane_t();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int row = wm + 16 * i + g, col = wn + 8 * j + 2 * t;
+            *reinterpret_cast<double2*>(Cs + row * kPC + col) =
+                make_double2(acc[i][j][0], acc[i][j][1]);
+            *reinterpret_cast<double2*>(Cs + (row + 8) * kPC + col) =
+                make_double2(acc[i][j][2], acc[i][j][3]);
+        }
+    __syncthreads();
+    constexpr int CPR = kBN / VEC;
+    for (int i = threadIdx.x; i < kBM * CPR; i += kThreads) {
+        const int row = i / CPR, col = (i % CPR) * VEC;
+        const int m = m0 + row;
+        const long long r = r0 + col;
+        if (m >= M || r >= R) continue;
+        double* o = out + (long long)m * R + r;
+        const double* c = Cs + row * kPC + col;
+        if constexpr (VEC == 2)      // R is even: r + 1 < R
+            *reinterpret_cast<double2*>(o) =
+                *reinterpret_cast<const double2*>(c);
+        else
+            o[0] = c[0];
+    }
 }
+
+template <int VEC>
+static int launch(const double* X, const double* T, int K, long long R,
+                  int M, double* out, cudaStream_t s) {
+    cudaError_t err = cudaFuncSetAttribute(
+        stage_T_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned int)((M + kBM - 1) / kBM),
+                    (unsigned int)((R + kBN - 1) / kBN));
+    stage_T_kernel<VEC><<<grid, kThreads, kSmem, s>>>(X, T, K, R, M, out);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace k7a
+
+struct TailTerms {
+    const double* x[kMaxTerms];
+    const double* t2[kMaxTerms];
+    const double* t3[kMaxTerms];
+    int n;
+};
 
 // --------------------------------------------------------------------------
 // K7b: stage 2 and the folded final stage of all terms of a 3-axis chain
@@ -516,180 +637,262 @@ stage_T_kernel(const double* __restrict__ X, const double* __restrict__ T,
 // `_tail_kernel`): the stage-2 intermediate never reaches device memory
 // (6 x 357^2 x 192 x 8 B = 1.17 GB at the 3D n=48 headline).
 //
-// Bound at n=48 (6 terms, K = 192, M = 357): stage 2 is 56.4 GFLOP and
-// the final stage 104.8, 161 GFLOP in all: 2.4 ms at 67 TFLOP/s (f64
-// tensor cores), 4.8 ms at the 34 TFLOP/s of plain f64 FMA; it moves
-// about 1.0 GB (0.3 ms), so it is compute-bound.
+// Bound at n=48 (6 terms, 3 distinct final tables, K = 192, M = 357):
+// stage 2 is 56.4 GFLOP; the final stage is 52.4 GFLOP once the terms
+// that share a final table are summed before it (104.8 term by term):
+// 108.8 GFLOP, 1.62 ms at 67 TFLOP/s (f64 tensor cores).  It moves about
+// 1.0 GB (0.3 ms), so it is compute-bound.
 //
-// Design.  The TPU grid (m1, m2-tile, m3-tile) runs in order and keeps Y2
-// in VMEM scratch across the sequential m3 axis; here blocks run in
-// parallel, so a block owns everything it reuses.  One block per (m1,
-// 16-row m2 tile, m3 chunk of 64 NC columns, one chunk when M3 <= 512),
-// 256 threads as 4 row groups of 4 m2 rows x 64 column lanes: each
-// thread keeps its 4 x NC outputs in registers across all terms.  Per
-// term the block (1) builds Y2_t[k, bb] = sum_j x1T_t[a, j, k]
-// T2_t[b0 + bb, j] for all k as a (K3 x 16) tile in shared memory (j in
-// 16-deep slices, each thread 3 k x 4 rows), (2) accumulates Y2_t^T
-// T3_t^T into its registers, T3 streamed through shared memory in 8-deep
-// k slices, and after the last term (3) stores the slab once.  No
-// atomics, a fixed summation order: deterministic.  Nothing is recomputed
-// while M3 <= 512 (n <= 70 at p=3); larger M3 splits into chunks that
-// rebuild Y2 each.  DMMA (mma.sync f64), TMA and deeper pipelining are
-// later work.
+// Design.  A block owns an output slab of 32 m2 rows (one a) x 384 m3
+// columns, in registers across all terms.  The C entry orders the terms
+// by final table (groups in order of first appearance).  Per group the
+// block (1) builds Y2[r, k] = sum_{t in group} sum_j T2_t[b0 + r, j]
+// x1T_t[a, j, k] in shared memory, a (32 x 192) x (192 x 192) DMMA product
+// per term over 16-deep j slices, (2) adds Y2 T3^T into the slab, a
+// (32 x 192) x (192 x 384) DMMA product over 16-deep k slices; after the
+// last group (3) it stores the slab once.  256 threads as 8 warps, one
+// column group each: in the final stage a warp holds 32 x 48 outputs (2 x
+// 6 DMMA tiles, 48 doubles a thread), in stage 2 32 x 24 of Y2 (24
+// doubles).  ptxas gives the n=48 instance 255 registers a thread (65,280
+// a block; about 80 bytes spill), and 192 KiB of shared memory hold Y2
+// (48 KiB) and three T3 slices (144 KiB; stage 2's slices share that
+// space): one block an SM.
+//   What the earlier 16-row FMA kernel lost, and what this does:
+//   - FMA issue: both contractions are DMMA (m16n8k4), and the summed
+//     groups halve the final stage at n=48.
+//   - L2 restreaming: a block streams, per group, the whole T3 table (548
+//     KB) and, per term, the x1T[a] slab (295 KB) and 32 T2 rows (49 KB).
+//     With 12 x 357 = 4,284 blocks (against 8,211 of 16 rows) that is 7.0
+//     + 7.6 + 1.3 = 15.9 GB per assembly, against ~27 + ~14.5 GB.  The
+//     slab is what the register file allows: 32 x 384 doubles are 37.5 %
+//     of it, and 64 rows would need 96 accumulators a thread.  The m2
+//     tiles are the grid's fastest axis, so the 12 blocks of one a run
+//     together and x1T (631 MB) comes from device memory about once.
+//   - Bank conflicts: the T2 and x1T tiles are padded to row strides of
+//     20 and 196 doubles (4 mod 16: conflict-free fragment loads); the T3
+//     slices (stride 16) and Y2 (stride 192) XOR-swizzle their columns by
+//     row, so fragment loads and Y2's 16-byte stores hit distinct banks.
+//     cp.async runs a 3-stage pipeline over every slice.
+// K3 runs in chunks of 192 (stage 2's column width), each built and
+// contracted before the next: no recomputation.  M3 above 384 splits into
+// column chunks (gridDim.z), each rebuilding Y2: at n=96 (M3 = 693, two
+// chunks) that is one more stage 2, 6 x 2 x 693^2 x 384^2 = 0.85 TFLOP,
+// against holding a 693-column slab (twice the registers there are).
+// No atomics, a fixed
+// order of groups, terms and k: deterministic.
 // --------------------------------------------------------------------------
 
-constexpr int kTailRows = 16;     // m2 rows per block (4 groups of 4)
-constexpr int kTailLanes = 64;    // column lanes per row group
-constexpr int kTailJ = 16;        // stage-2 contraction slice (over K2)
-constexpr int kTailKc = 192;      // stage-2 k chunk: 64 lanes x 3
-constexpr int kTailKs = 8;        // final-stage contraction slice (K3)
-constexpr int kTailMaxNC = 8;     // columns per thread: M3 chunk <= 512
+namespace k7b {
 
-struct TailTerms {
-    const double* x[kMaxTerms];
-    const double* t2[kMaxTerms];
-    const double* t3[kMaxTerms];
-    int n;
-};
+constexpr int kRows = 32;          // m2 rows of a block's slab
+constexpr int kThreads = 256;      // 8 warps, one column group each
+constexpr int kKC = 192;           // Y2 columns (k) per chunk: 8 x 3 x 8
+constexpr int kJS = 16;            // stage-2 contraction slice (over K2)
+constexpr int kKS = 16;            // final-stage contraction slice (K3)
+constexpr int kPT2 = kJS + 4;      // T2 tile row stride (4 mod 16)
+constexpr int kPX = kKC + 4;       // x1T tile row stride (4 mod 16)
+constexpr int kStages = 3;         // cp.async pipeline depth
+constexpr int kS2Stage = kRows * kPT2 + kJS * kPX;
 
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kNT = 6;             // DMMA column tiles per warp
+constexpr int kCW = 8 * 8 * kNT;   // slab columns: 8 warps x kNT x 8
+constexpr int kT3Stage = kCW * kKS;  // a T3 slice, swizzled (stride 16)
+constexpr int kSmem = (kRows * kKC + (kS2Stage > kT3Stage ? kS2Stage
+                                                          : kT3Stage)
+                                     * kStages)
+                      * (int)sizeof(double);
+
+// Y2 index: row stride kKC (0 mod 16), columns XOR-swizzled by row so
+// that rows g = 0..3 of a half-warp's A-fragment loads land on distinct
+// bank groups and the two rows of a quarter-warp's 16-byte stores on
+// distinct halves of the banks
+__device__ __forceinline__ int y2_at(int r, int k) {
+    return r * kKC + (k ^ (((r & 1) << 3) | ((r & 2) << 1)));
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads, 1)
 tail_kernel(TailTerms terms, int K2, int K3, int M2, int M3,
             double* __restrict__ out) {
-    extern __shared__ double smem[];
-    double* Y2s = smem;                           // [K3][kTailRows]
-    double* scr = smem + (long long)K3 * kTailRows;
-    const int a = blockIdx.x;
-    const int b0 = blockIdx.y * kTailRows;
-    const int c0 = blockIdx.z * kTailLanes * NC;
-    const int lane = threadIdx.x % kTailLanes;
-    const int row0 = (threadIdx.x / kTailLanes) * 4;
-    constexpr int CW = kTailLanes * NC;
+    extern __shared__ __align__(16) double smem[];
+    double* Y2s = smem;                    // [kRows][kKC], swizzled
+    double* buf = smem + kRows * kKC;      // stage 2's or T3's slices
+    const int b0 = blockIdx.x * kRows;    // the 12 m2 tiles of one a run
+    const int a = blockIdx.y;              // together: x1T[a] is read once
+    const int c0 = blockIdx.z * kCW;
+    const int wc = threadIdx.x >> 5;       // the warp's column group
+    const int g = dmma::lane_g(), t = dmma::lane_t();
 
-    double acc[4][NC];
+    double acc[2][kNT][4];                  // [row tile][column tile]
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[r][c] = 0.0;
+        for (int i = 0; i < kNT; ++i)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[h][i][q] = 0.0;
 
-    for (int t = 0; t < terms.n; ++t) {
-        const double* __restrict__ X = terms.x[t] + (long long)a * K2 * K3;
-        const double* __restrict__ T2 = terms.t2[t];
-        const double* __restrict__ T3 = terms.t3[t];
-
-        // (1) stage 2 into shared memory
-        double* Xs = scr;                         // [kTailJ][kTailKc]
-        double* T2s = scr + kTailJ * kTailKc;     // [kTailJ][kTailRows]
-        for (int k0 = 0; k0 < K3; k0 += kTailKc) {
-            double y[3][4];
+    // terms come grouped by their final table (pyiga_tail_fused_f64): the
+    // group's stage-2 products sum into one Y2, contracted with T3 once
+    for (int q0 = 0; q0 < terms.n;) {
+        int q1 = q0 + 1;
+        while (q1 < terms.n && terms.t3[q1] == terms.t3[q0]) ++q1;
+        const double* T3 = terms.t3[q0] + (long long)c0 * K3;
+        for (int kc0 = 0; kc0 < K3; kc0 += kKC) {
+            // (1) stage 2: Y2[r, k] = sum_{t in group} sum_j
+            //     T2_t[b0 + r, j] x1T_t[a, j, kc0 + k], one pipeline over
+            //     the group's (term, j slice) pairs
+            double y[2][3][4];
 #pragma unroll
-            for (int q = 0; q < 3; ++q)
+            for (int h = 0; h < 2; ++h)
 #pragma unroll
-                for (int r = 0; r < 4; ++r) y[q][r] = 0.0;
-            for (int j0 = 0; j0 < K2; j0 += kTailJ) {
-                for (int i = threadIdx.x; i < kTailJ * kTailKc; i += kThreads) {
-                    const int j = j0 + i / kTailKc, k = k0 + i % kTailKc;
-                    Xs[i] = (j < K2 && k < K3) ? X[(long long)j * K3 + k] : 0.0;
-                }
-                for (int i = threadIdx.x; i < kTailJ * kTailRows;
-                     i += kThreads) {
-                    const int bb = i / kTailJ, jj = i % kTailJ;
-                    const int b = b0 + bb, j = j0 + jj;
-                    T2s[jj * kTailRows + bb] =
-                        (b < M2 && j < K2) ? T2[(long long)b * K2 + j] : 0.0;
+                for (int i = 0; i < 3; ++i)
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) y[h][i][q] = 0.0;
+            const int nj = (K2 + kJS - 1) / kJS;
+            const int ns2 = (q1 - q0) * nj;
+            auto load2 = [&](int s, int step) {
+                const int term = q0 + step / nj, j0 = (step % nj) * kJS;
+                double* T2s = buf + s * kS2Stage;
+                double* Xs = T2s + kRows * kPT2;
+                dmma::load_tile<kRows, kJS, VEC, kThreads>(
+                    T2s, kPT2, terms.t2[term] + (long long)b0 * K2 + j0, K2,
+                    M2 - b0, K2 - j0);
+                dmma::load_tile<kJS, kKC, VEC, kThreads>(
+                    Xs, kPX,
+                    terms.x[term] + ((long long)a * K2 + j0) * K3 + kc0, K3,
+                    K2 - j0, K3 - kc0);
+                dmma::cp_async_commit();
+            };
+            for (int s = 0; s < kStages - 1; ++s) {
+                if (s < ns2)
+                    load2(s, s);
+                else
+                    dmma::cp_async_commit();  // an empty group keeps the count
+            }
+            for (int st = 0; st < ns2; ++st) {
+                const int sn = st + kStages - 1;
+                if (sn < ns2)
+                    load2(sn % kStages, sn);
+                else
+                    dmma::cp_async_commit();
+                dmma::cp_async_wait<kStages - 1>();
+                __syncthreads();
+                const double* T2s = buf + (st % kStages) * kS2Stage;
+                const double* Xs = T2s + kRows * kPT2;
+#pragma unroll
+                for (int jj = 0; jj < kJS; jj += 4) {
+                    double a[2][2], b[3];
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        dmma::load_a(T2s, kPT2, 16 * h, jj, a[h][0], a[h][1]);
+#pragma unroll
+                    for (int i = 0; i < 3; ++i)
+                        b[i] = dmma::load_b_kn(Xs, kPX, jj, wc * 24 + 8 * i);
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+#pragma unroll
+                        for (int i = 0; i < 3; ++i)
+                            dmma::mma_16x8x4(y[h][i], a[h][0], a[h][1], b[i]);
                 }
                 __syncthreads();
-#pragma unroll 4
-                for (int jj = 0; jj < kTailJ; ++jj) {
-                    double xv[3], tv[4];
+            }
 #pragma unroll
-                    for (int q = 0; q < 3; ++q)
-                        xv[q] = Xs[jj * kTailKc + lane + kTailLanes * q];
+            for (int h = 0; h < 2; ++h)
 #pragma unroll
-                    for (int r = 0; r < 4; ++r)
-                        tv[r] = T2s[jj * kTailRows + row0 + r];
+                for (int i = 0; i < 3; ++i) {
+                    const int row = 16 * h + g, col = wc * 24 + 8 * i + 2 * t;
+                    *reinterpret_cast<double2*>(Y2s + y2_at(row, col)) =
+                        make_double2(y[h][i][0], y[h][i][1]);
+                    *reinterpret_cast<double2*>(Y2s + y2_at(row + 8, col)) =
+                        make_double2(y[h][i][2], y[h][i][3]);
+                }
+            __syncthreads();
+
+            // (2) final stage: slab[r, c] +=
+            //     sum_k Y2[r, k] T3[c0 + c, kc0 + k]
+            const int kn = min(kKC, K3 - kc0);
+            const int nks = (kn + kKS - 1) / kKS;
+            auto load3 = [&](int s, int k0) {
+                dmma::load_tile<kCW, kKS, VEC, kThreads, true>(
+                    buf + s * kT3Stage, kKS, T3 + kc0 + k0, K3, M3 - c0,
+                    kn - k0);
+                dmma::cp_async_commit();
+            };
+            for (int s = 0; s < kStages - 1; ++s) {
+                if (s < nks)
+                    load3(s, s * kKS);
+                else
+                    dmma::cp_async_commit();
+            }
+            for (int ks = 0; ks < nks; ++ks) {
+                const int kn2 = ks + kStages - 1;
+                if (kn2 < nks)
+                    load3(kn2 % kStages, kn2 * kKS);
+                else
+                    dmma::cp_async_commit();
+                dmma::cp_async_wait<kStages - 1>();
+                __syncthreads();
+                const double* T3s = buf + (ks % kStages) * kT3Stage;
 #pragma unroll
-                    for (int q = 0; q < 3; ++q)
+                for (int kk = 0; kk < kKS; kk += 4) {
+                    const int k = ks * kKS + kk + t;
+                    double a[2][2], b[kNT];
 #pragma unroll
-                        for (int r = 0; r < 4; ++r)
-                            y[q][r] = fma(xv[q], tv[r], y[q][r]);
+                    for (int h = 0; h < 2; ++h) {
+                        a[h][0] = Y2s[y2_at(16 * h + g, k)];
+                        a[h][1] = Y2s[y2_at(16 * h + g + 8, k)];
+                    }
+#pragma unroll
+                    for (int i = 0; i < kNT; ++i)
+                        b[i] = dmma::load_b_nk_swz(T3s, kk,
+                                                   wc * 8 * kNT + 8 * i);
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+#pragma unroll
+                        for (int i = 0; i < kNT; ++i)
+                            dmma::mma_16x8x4(acc[h][i], a[h][0], a[h][1],
+                                             b[i]);
                 }
                 __syncthreads();
             }
-#pragma unroll
-            for (int q = 0; q < 3; ++q) {
-                const int k = k0 + lane + kTailLanes * q;
-                if (k < K3) {
-#pragma unroll
-                    for (int r = 0; r < 4; ++r)
-                        Y2s[k * kTailRows + row0 + r] = y[q][r];
-                }
-            }
         }
-        __syncthreads();
-
-        // (2) the final stage into the registers
-        double* T3s = scr;                        // [kTailKs][CW]
-        for (int k0 = 0; k0 < K3; k0 += kTailKs) {
-            for (int i = threadIdx.x; i < kTailKs * CW; i += kThreads) {
-                const int cc = i / kTailKs, kk = i % kTailKs;
-                const int c = c0 + cc, k = k0 + kk;
-                T3s[kk * CW + cc] =
-                    (c < M3 && k < K3) ? T3[(long long)c * K3 + k] : 0.0;
-            }
-            __syncthreads();
-            const int kn = min(kTailKs, K3 - k0);
-            for (int kk = 0; kk < kn; ++kk) {
-                double yv[4], tv[NC];
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-                    yv[r] = Y2s[(k0 + kk) * kTailRows + row0 + r];
-#pragma unroll
-                for (int c = 0; c < NC; ++c)
-                    tv[c] = T3s[kk * CW + lane + kTailLanes * c];
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-#pragma unroll
-                    for (int c = 0; c < NC; ++c)
-                        acc[r][c] = fma(yv[r], tv[c], acc[r][c]);
-            }
-            __syncthreads();
-        }
+        q0 = q1;
     }
+    dmma::cp_async_wait<0>();
 
     // (3) one store of the slab
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int b = b0 + row0 + r;
-        if (b >= M2) continue;
-        double* o = out + ((long long)a * M2 + b) * M3;
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-            const int cc = c0 + lane + kTailLanes * c;
-            if (cc < M3) o[cc] = acc[r][c];
+        for (int i = 0; i < kNT; ++i) {
+            const int c = c0 + wc * 8 * kNT + 8 * i + 2 * t;
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+                const int b = b0 + 16 * h + g + 8 * u;
+                if (b >= M2) continue;
+                double* o = out + ((long long)a * M2 + b) * M3;
+                if (c < M3) o[c] = acc[h][i][2 * u];
+                if (c + 1 < M3) o[c + 1] = acc[h][i][2 * u + 1];
+            }
         }
-    }
 }
 
-template <int NC>
-static int launch_tail(const TailTerms& terms, int M1, int K2, int K3,
-                       int M2, int M3, double* out, cudaStream_t s) {
-    const int scratch = kTailJ * kTailKc + kTailJ * kTailRows;
-    const int scratch3 = kTailKs * kTailLanes * NC;
-    const size_t bytes = sizeof(double) *
-        ((size_t)K3 * kTailRows + (scratch > scratch3 ? scratch : scratch3));
+template <int VEC>
+static int launch(const TailTerms& terms, int M1, int K2, int K3, int M2,
+                  int M3, double* out, cudaStream_t s) {
     cudaError_t err = cudaFuncSetAttribute(
-        tail_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        tail_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned int)M1,
-                    (unsigned int)((M2 + kTailRows - 1) / kTailRows),
-                    (unsigned int)((M3 + kTailLanes * NC - 1)
-                                   / (kTailLanes * NC)));
-    tail_kernel<NC><<<grid, kThreads, bytes, s>>>(terms, K2, K3, M2, M3,
-                                                  out);
+    const dim3 grid((unsigned int)((M2 + kRows - 1) / kRows),
+                    (unsigned int)M1,
+                    (unsigned int)((M3 + kCW - 1) / kCW));
+    tail_kernel<VEC><<<grid, kThreads, kSmem, s>>>(terms, K2, K3, M2, M3,
+                                                       out);
     return (int)cudaGetLastError();
 }
+
+}  // namespace k7b
 
 }  // namespace
 
@@ -721,14 +924,20 @@ PYIGA_EXPORT int pyiga_fold_f64(const uint64_t* x_ptrs, const uint64_t* t_ptrs,
     return (int)cudaGetLastError();
 }
 
+static bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 PYIGA_EXPORT int pyiga_stage_T_f64(const double* X, const double* T,
                                    double* out, int K, long long R, int M,
                                    void* stream) {
-    const dim3 grid((unsigned int)((R + kBR - 1) / kBR),
-                    (unsigned int)((M + kBM - 1) / kBM));
-    stage_T_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(X, T, K, R,
-                                                                 M, out);
-    return (int)cudaGetLastError();
+    if (K < 1 || R < 1 || M < 1 || (R + k7a::kBN - 1) / k7a::kBN > 65535)
+        return (int)cudaErrorInvalidValue;             // gridDim.y
+    cudaStream_t s = (cudaStream_t)stream;
+    if (K % 2 == 0 && R % 2 == 0 && aligned16(X) && aligned16(T)
+        && aligned16(out))
+        return k7a::launch<2>(X, T, K, R, M, out, s);
+    return k7a::launch<1>(X, T, K, R, M, out, s);
 }
 
 // x_ptrs / t2_ptrs / t3_ptrs: host arrays of n_terms device pointers (term
@@ -741,24 +950,29 @@ PYIGA_EXPORT int pyiga_tail_fused_f64(const uint64_t* x_ptrs,
     if (n_terms < 1 || n_terms > kMaxTerms || M1 < 1 || M2 < 1 || M3 < 1
         || K2 < 1 || K3 < 1)
         return (int)cudaErrorInvalidValue;
+    if (M1 > 65535) return (int)cudaErrorInvalidValue;   // gridDim.y
+    // terms grouped by final table, groups in order of first appearance,
+    // terms in their given order within a group (a fixed order)
     TailTerms terms;
-    terms.n = n_terms;
-    for (int t = 0; t < n_terms; ++t) {
-        terms.x[t] = reinterpret_cast<const double*>(x_ptrs[t]);
-        terms.t2[t] = reinterpret_cast<const double*>(t2_ptrs[t]);
-        terms.t3[t] = reinterpret_cast<const double*>(t3_ptrs[t]);
+    terms.n = 0;
+    bool vec = K2 % 2 == 0 && K3 % 2 == 0;
+    for (int u = 0; u < n_terms; ++u) {
+        bool first = true;
+        for (int v = 0; v < u; ++v) first = first && t3_ptrs[v] != t3_ptrs[u];
+        if (!first) continue;
+        for (int t = u; t < n_terms; ++t) {
+            if (t3_ptrs[t] != t3_ptrs[u]) continue;
+            const int q = terms.n++;
+            terms.x[q] = reinterpret_cast<const double*>(x_ptrs[t]);
+            terms.t2[q] = reinterpret_cast<const double*>(t2_ptrs[t]);
+            terms.t3[q] = reinterpret_cast<const double*>(t3_ptrs[t]);
+            vec = vec && aligned16(terms.x[q]) && aligned16(terms.t2[q])
+                  && aligned16(terms.t3[q]);
+        }
     }
-    int nc = (M3 + kTailLanes - 1) / kTailLanes;
-    if (nc > kTailMaxNC) nc = kTailMaxNC;
     cudaStream_t s = (cudaStream_t)stream;
-    switch (nc) {
-#define PYIGA_TAIL(N) \
-    case N: return launch_tail<N>(terms, M1, K2, K3, M2, M3, out, s)
-        PYIGA_TAIL(1); PYIGA_TAIL(2); PYIGA_TAIL(3); PYIGA_TAIL(4);
-        PYIGA_TAIL(5); PYIGA_TAIL(6); PYIGA_TAIL(7); PYIGA_TAIL(8);
-#undef PYIGA_TAIL
-        default: return (int)cudaErrorInvalidValue;
-    }
+    if (vec) return k7b::launch<2>(terms, M1, K2, K3, M2, M3, out, s);
+    return k7b::launch<1>(terms, M1, K2, K3, M2, M3, out, s);
 }
 
 PYIGA_EXPORT const char* pyiga_error_string(int err) {

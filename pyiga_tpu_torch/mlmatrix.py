@@ -47,19 +47,24 @@ def transpose_idx_for_bidx(bidx):
     return idx
 
 
-def ml_nonzero(bidx, block_sizes):
+def ml_nonzero(bidx, block_sizes, lower_tri=False):
     """Global (row, col) indices of all nonzeros of a multilevel matrix,
     in C order of the compact data tensor.
 
     Args:
         bidx: per-level ``nnz_k x 2`` index arrays.
         block_sizes: per-level (rows, cols) block sizes.
+        lower_tri: only return entries with ``row >= col``.
     """
     I = J = np.zeros((), dtype=np.int64)
     for bx, (m, n) in zip(bidx, block_sizes):
         I = I[..., np.newaxis] * m + bx[:, 0].astype(np.int64)
         J = J[..., np.newaxis] * n + bx[:, 1].astype(np.int64)
-    return I.ravel(), J.ravel()
+    I, J = I.ravel(), J.ravel()
+    if lower_tri:
+        mask = I >= J
+        return I[mask], J[mask]
+    return I, J
 
 
 class MLStructure:
@@ -88,33 +93,45 @@ class MLStructure:
                      for kv0, kv1 in zip(kvs0, kvs1))
         return MLStructure(bs, bidx)
 
-    def make_mlmatrix(self, data):
-        """An :class:`MLMatrix` with compact `data` over this structure."""
-        return MLMatrix(self, data)
+    def make_mlmatrix(self, data=None, matrix=None):
+        """An :class:`MLMatrix` over this structure (arguments as there)."""
+        return MLMatrix(self, data=data, matrix=matrix)
 
-    def nonzero(self):
+    def nonzero(self, lower_tri=False):
         """(rows, cols) arrays of all nonzeros, in C order of the data
-        tensor."""
-        return ml_nonzero(self.bidx, self.bs)
+        tensor (only ``row >= col`` with `lower_tri`)."""
+        return ml_nonzero(self.bidx, self.bs, lower_tri=lower_tri)
 
 
 class MLMatrix(scipy.sparse.linalg.LinearOperator):
     """Compact multilevel matrix: an L-way dense data tensor (numpy) over
     an :class:`MLStructure`, acting as a scipy LinearOperator on the
-    host."""
+    host.  The data is given as the compact tensor `data`, or taken from
+    the structure's nonzeros of a dense or sparse `matrix`; with neither,
+    the matrix has no data (``data is None``)."""
 
-    def __init__(self, structure, data):
+    def __init__(self, structure, data=None, matrix=None):
         self.structure = structure
         self.datashape = tuple(len(bi) for bi in structure.bidx)
-        self.data = np.ascontiguousarray(data)
-        if self.data.shape != self.datashape:
+        if data is not None and matrix is not None:
+            raise ValueError('give only one of data and matrix')
+        if matrix is not None:
+            if matrix.shape != structure.shape:
+                raise ValueError('matrix has shape %s, expected %s'
+                                 % (matrix.shape, structure.shape))
+            data = np.asarray(matrix[self.nonzero()]).reshape(self.datashape)
+        self.data = None if data is None else np.ascontiguousarray(data)
+        if self.data is not None and self.data.shape != self.datashape:
             raise ValueError('data has shape %s, expected %s'
                              % (self.data.shape, self.datashape))
         self._csr_cache = None
-        super().__init__(shape=structure.shape, dtype=self.data.dtype)
+        super().__init__(shape=structure.shape,
+                         dtype=np.float64 if data is None else self.data.dtype)
 
     def asmatrix(self, format='csr'):
         """Expand to a scipy sparse matrix."""
+        if self.data is None:
+            raise ValueError('matrix has no data')
         A = scipy.sparse.csr_matrix((self.data.ravel(), self.nonzero()),
                                     shape=self.shape)
         return A.asformat(format)
@@ -124,5 +141,5 @@ class MLMatrix(scipy.sparse.linalg.LinearOperator):
             self._csr_cache = self.asmatrix('csr')
         return self._csr_cache.dot(x)
 
-    def nonzero(self):
-        return self.structure.nonzero()
+    def nonzero(self, lower_tri=False):
+        return self.structure.nonzero(lower_tri=lower_tri)

@@ -353,7 +353,7 @@ def stage_T(X, T):
     """K7a: ``out[m, r] = sum_k X[k, r] T[m, k]`` for ``X (K, R)`` and a
     table ``T (M, K)``; returns ``(M, R)``, float64 (K2 with the band axis
     first, so that :func:`tail_fused` reads each row as a ``(K2, K3)``
-    slab)."""
+    slab).  On the card it runs on the f64 tensor cores."""
     if not _kernel_device(X, 'stage_T'):
         return stage_T_plain(X, T)
     _cuda.require(X, 'X', torch.float64, 2)
@@ -396,7 +396,10 @@ def tail_fused(x1T, tc2, tc3, idx2, idx3):
         idx2 / idx3: per term, its tables' positions in `tc2` / `tc3`.
 
     Returns ``(M1, M2, M3)``, float64, written once: the stage-2
-    intermediate never reaches device memory."""
+    intermediate never reaches device memory.  On the card both
+    contractions run on the f64 tensor cores, and the terms that share a
+    final table are summed before it is applied (a fixed order, so the
+    result is deterministic; it equals the plain version to rounding)."""
     n = len(x1T)
     if not n == len(idx2) == len(idx3):
         raise ValueError('tail_fused: %d terms but %d / %d table indices'

@@ -168,18 +168,25 @@ class MatrixFreeOperator:
 
 class RestrictedOperator:
     """Restrict an operator on the full TP space (a callable on raveled
-    vectors with attributes ``ns``, ``dtype`` and ``device``) to the
-    `free_dofs` subset: the input is placed into a zero full vector, the
-    operator applied, and the free rows taken — ``A[free][:, free]`` for a
-    homogeneous Dirichlet elimination."""
+    vectors with attributes ``dtype`` and ``device``) to the `free_dofs`
+    subset: the input is placed into a zero full vector, the operator
+    applied, and the free rows taken — ``A[free][:, free]`` for a
+    homogeneous Dirichlet elimination.  `ns`, the dofs per axis, defaults
+    to ``op.ns``; with it, a free set that is a box is cut by slices.
+    Without `ns` and ``op.ns``, `n_full` is required."""
 
-    def __init__(self, op, free_dofs, n_full=None):
+    def __init__(self, op, free_dofs, n_full=None, ns=None):
         self.op = op
-        self.ns = tuple(op.ns)
+        if ns is None:
+            ns = getattr(op, 'ns', None)
+        if ns is None and n_full is None:
+            raise ValueError('RestrictedOperator needs ns, op.ns or n_full')
+        self.ns = None if ns is None else tuple(ns)
         self.n_full = int(np.prod(self.ns)) if n_full is None else n_full
         self.shape = (len(free_dofs), len(free_dofs))
         self.dtype, self.device = op.dtype, op.device
-        box = box_restriction(free_dofs, self.ns)
+        box = (None if self.ns is None
+               else box_restriction(free_dofs, self.ns))
         if box is not None:
             los, bshape = box
             self._box = tuple(slice(lo, lo + s) for lo, s in zip(los, bshape))

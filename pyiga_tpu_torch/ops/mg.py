@@ -14,8 +14,9 @@ order (:func:`_tri_inverse`), built once on the host.  One whole V-cycle
 plus the masked residual norm is one launch of kernel K6
 (:mod:`~pyiga_tpu_torch.ops.cuda_mg`); the host reads the residual after
 each cycle.  The JAX package's two-float cycle exists for the TPU's
-missing f64 and is not ported; its ``'tri'`` and ``'wavefront'`` kernel
-sets for hierarchies above ``dense_cutoff`` wait for ``ops/relax.py``.
+missing f64 and is not ported; K6 takes the place of its ``'tri'`` set
+up to ``tri_block_cutoff``, and its ``'wavefront'`` set beyond that
+waits for ``ops/relax.py``.
 """
 
 import math
@@ -103,29 +104,33 @@ class DeviceMGSolver:
       plain version on the CPU), at any size that fits the device;
     * ``'dense'``: the plain PyTorch f64 cycle
       (:func:`~pyiga_tpu_torch.ops.cuda_mg.vcycle_plain`) on any device;
-    * ``'auto'``: ``'fused'`` for ``n <= dense_cutoff`` finest dofs and
-      for single-level hierarchies, the JAX package's thresholds.  Above
-      the cutoff the JAX package switches to its ``'tri'`` or
-      ``'wavefront'`` kernel sets, which are not ported: ``'auto'``
-      raises there.
+    * ``'auto'``: ``'fused'`` for ``n <= dense_cutoff`` finest dofs, for
+      single-level hierarchies, and above the cutoff while the largest
+      smoothing set above the coarsest level has at most
+      `tri_block_cutoff` dofs: K6 densifies each set into triangular
+      inverses, as the JAX package's ``'tri'`` set does, and that is the
+      JAX package's own limit for them.  Past it the JAX package switches
+      to its ``'wavefront'`` set (``ops/relax.py``), which is not ported
+      (ROADMAP §1 item 3): ``'auto'`` raises there.
     """
 
     def __init__(self, As, Ps, lv_inds, sweeps, smooth_steps,
                  active_dofs=None, smoother_impl='auto', dense_cutoff=6000,
-                 device=None):
+                 tri_block_cutoff=8192, device=None):
         L = len(As)
         if len(Ps) != L - 1 or len(lv_inds) != L:
             raise ValueError('need L matrices, L-1 prolongators and L '
                              'smoothing sets')
         n = As[-1].shape[0]
+        max_block = max((len(lv_inds[lv]) for lv in range(1, L)), default=0)
         if smoother_impl == 'auto':
-            if n > dense_cutoff and L > 1:
+            if n > dense_cutoff and max_block > tri_block_cutoff:
                 raise NotImplementedError(
-                    "n = %d exceeds dense_cutoff = %d, where the JAX package "
-                    "switches to its 'tri' or 'wavefront' smoother "
-                    "(ops/relax.py), which is not ported yet; pass "
-                    "smoother_impl='fused' to run K6 at this size"
-                    % (n, dense_cutoff))
+                    "a smoothing set of %d dofs exceeds tri_block_cutoff = "
+                    "%d, where the JAX package switches to its 'wavefront' "
+                    "smoother (ops/relax.py), which is not ported yet "
+                    "(ROADMAP item 3); pass smoother_impl='fused' to run K6 "
+                    "at this size" % (max_block, tri_block_cutoff))
             smoother_impl = 'fused'
         if smoother_impl in ('tri', 'wavefront', 'df'):
             raise NotImplementedError("smoother_impl=%r is not ported yet"

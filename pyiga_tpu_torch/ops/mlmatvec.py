@@ -15,7 +15,7 @@ import torch
 from ..config import resolve_device
 
 
-def ml_matvec(data, bidx, shape_out, shape_in, x):
+def ml_matvec(data, bidx, shape_out, shape_in, x, sorted_rows=None):
     """Apply the compact multilevel matrix to `x`.
 
     Args:
@@ -24,6 +24,9 @@ def ml_matvec(data, bidx, shape_out, shape_in, x):
             device of `data` or as numpy arrays.
         shape_out / shape_in: per-level output/input sizes.
         x: input tensor of shape `shape_in` (or raveled).
+        sorted_rows: the JAX package's per-level hint that the row
+            indices are sorted (for its segment sums); accepted for API
+            compatibility and ignored: ``index_add_`` takes any order.
 
     Returns the output tensor of shape `shape_out`."""
     d = len(bidx)

@@ -19,7 +19,7 @@ the in-package reference.
 import numpy as np
 import torch
 
-from ..quadrature import make_tensor_quadrature
+from ..quadrature import make_boundary_quadrature, make_tensor_quadrature
 from .basis import dense_basis_table
 
 
@@ -184,9 +184,13 @@ class SpaceTables:
                  for k in range(self.d)] for (du, dv) in terms]
 
 
-def quadrature_for(kvs, nqp=None):
+def quadrature_for(kvs, nqp=None, bdspec=None):
     """Tensor Gauss rule over the mesh of `kvs` with the reference's
-    ``nqp = max(p) + 1`` convention."""
+    ``nqp = max(p) + 1`` convention; optionally restricted to the
+    boundary face `bdspec` ``(axis, side)``."""
     if nqp is None:
         nqp = max(kv.p for kv in kvs) + 1
-    return make_tensor_quadrature([kv.mesh for kv in kvs], nqp)
+    meshes = [kv.mesh for kv in kvs]
+    if bdspec is None:
+        return make_tensor_quadrature(meshes, nqp)
+    return make_boundary_quadrature(meshes, nqp, bdspec)

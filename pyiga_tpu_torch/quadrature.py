@@ -1,8 +1,8 @@
 """Iterated Gauss-Legendre quadrature over knot spans (host, numpy).
 
-A copy of :mod:`pyiga_tpu.quadrature`'s tensor rule: per-interval affine
-mapping of the ``numpy.polynomial.legendre.leggauss`` nodes, points
-ordered interval-major.
+A copy of :mod:`pyiga_tpu.quadrature`'s tensor and boundary rules:
+per-interval affine mapping of the ``numpy.polynomial.legendre.leggauss``
+nodes, points ordered interval-major.
 """
 
 import numpy as np
@@ -27,4 +27,14 @@ def make_iterated_quadrature(intervals, nqp):
 def make_tensor_quadrature(meshes, nqp):
     """Tensor-product iterated Gauss rule: per-axis ``(grid, weights)`` tuples."""
     gauss = tuple(make_iterated_quadrature(mesh, nqp) for mesh in meshes)
+    return tuple(g[0] for g in gauss), tuple(g[1] for g in gauss)
+
+
+def make_boundary_quadrature(meshes, nqp, bdspec):
+    """Tensor Gauss rule with the `bdspec` axis collapsed to the boundary
+    point with unit weight (for boundary integrals)."""
+    bdax, bdside = bdspec
+    gauss = [make_iterated_quadrature(mesh, nqp) for mesh in meshes]
+    bdcoord = meshes[bdax][0 if bdside == 0 else -1]
+    gauss[bdax] = (np.array([bdcoord]), np.ones(1))
     return tuple(g[0] for g in gauss), tuple(g[1] for g in gauss)

@@ -57,7 +57,7 @@ def cg(matvec, b, tol=1e-8, maxiter=1000, precond=None):
 
 
 def cg_ir(op_hi, op_lo, b, tol=1e-8, maxiter_inner=200, max_outer=10,
-          precond_lo=None, inner_tol=1e-3):
+          precond_lo=None, inner_tol=1e-3, fetch_info=True):
     """Mixed-precision CG with iterative refinement: float32 Krylov solves
     with `op_lo` (and `precond_lo`) correct a float64 iterate whose
     residuals `op_hi` computes in float64.
@@ -69,6 +69,11 @@ def cg_ir(op_hi, op_lo, b, tol=1e-8, maxiter_inner=200, max_outer=10,
         tol: relative residual target in float64.
         inner_tol: residual reduction per inner solve (a loose one is
             usually optimal: each outer step's gain is capped by float32).
+        fetch_info: as in the JAX package: ``False`` returns the info
+            packed into one float64 tensor on `b`'s device
+            (``[residual, outer, inner_iters...]``), which
+            :func:`cg_ir_info` decodes.  The loop reads its convergence
+            test on the host either way, so this saves no sync here.
 
     Returns ``(x, info)`` with ``info = {'outer', 'inner_iters',
     'residual'}`` (``residual`` relative to ``||b||``)."""
@@ -86,8 +91,25 @@ def cg_ir(op_hi, op_lo, b, tol=1e-8, maxiter_inner=200, max_outer=10,
         res = torch.linalg.vector_norm(r)
         inner_iters.append(it)
         outer += 1
+    if not fetch_info:
+        iters = torch.zeros(max_outer, dtype=torch.float64, device=b.device)
+        iters[:outer] = torch.tensor(inner_iters, dtype=torch.float64)
+        return x, torch.cat([(res / norm_b).reshape(1),
+                             torch.full((1,), outer, dtype=torch.float64,
+                                        device=b.device), iters])
     return x, {'outer': outer, 'inner_iters': inner_iters,
                'residual': float(res / norm_b)}
+
+
+def cg_ir_info(info):
+    """Decode the packed info tensor of ``cg_ir(..., fetch_info=False)``
+    into the usual dict (one host read)."""
+    info = info.cpu().numpy() if isinstance(info, torch.Tensor) \
+        else np.asarray(info)
+    outer = int(info[1])
+    return {'outer': outer,
+            'inner_iters': [int(i) for i in info[2:2 + outer]],
+            'residual': float(info[0])}
 
 
 def gmres(matvec, b, x0=None, tol=1e-8, restart=30, max_restarts=100,

@@ -139,6 +139,40 @@ def test_solve_hmultigrid_matches_jax(truncate):
     assert it_d2 == it_d and np.array_equal(u_d2, u_d)
 
 
+def bench_hspace(hmod, bmod, n0, num_levels=3):
+    """The bench's local-MG hierarchy (``bench.py`` ``run_localmg``) for
+    either package."""
+    hs = hmod.HSpace(2 * (bmod.make_knots(3, 0.0, 1.0, n0),), disparity=1,
+                     bdspecs=[(0, 0), (0, 1), (1, 0), (1, 1)])
+    for lv in range(num_levels - 1):
+        hs.refine_region(lv, lambda *X: min(X) > 1.0 - 2.0 ** (-lv - 1))
+    return hs
+
+
+def test_auto_device_solver_above_dense_cutoff_matches_jax():
+    # 'auto' above dense_cutoff runs K6 (its plain cycle on the CPU) with
+    # the count of the host path and of the JAX package: 29 at (24, 3)
+    hs, jhs = bench_hspace(hierarchical, bspline, 24), \
+        bench_hspace(jhier, jbspline, 24)
+    A, f = discretize(hs)
+    _ju, jit = jsolvers.solve_hmultigrid(jhs, A, f, tol=1e-8,
+                                         relax_backend='host')
+    _uh, it_h = solvers.solve_hmultigrid(hs, A, f, tol=1e-8,
+                                         relax_backend='host')
+    _ud, it_d = solvers.solve_hmultigrid(hs, A, f, tol=1e-8,
+                                         relax_backend='device', device='cpu')
+    Ps = hs.virtual_hierarchy_prolongators()
+    s = mg.DeviceMGSolver(solvers.galerkin_hierarchy(A, Ps), Ps,
+                          hs.indices_to_smooth('cell_supp'),
+                          solvers._MG_SWEEPS['gs'], 2,
+                          active_dofs=hs.non_dirichlet_dofs(),
+                          smoother_impl='auto', dense_cutoff=1000,
+                          device='cpu')
+    assert A.shape[0] > 1000 and s.smoother_impl == 'fused'
+    _us, it_s = s.solve(f, tol=1e-8)
+    assert jit == it_h == it_d == it_s == 29
+
+
 def test_plain_cycle_matches_jax_fused_interpret():
     # the setup of tests/test_localmg.py::test_device_mg_fused_kernel_
     # interpret: p=2, n0=4, two levels; JAX runs its Pallas V-cycle in
@@ -201,10 +235,19 @@ def test_device_solver_options():
     Ps = hs.virtual_hierarchy_prolongators()
     As = solvers.galerkin_hierarchy(A, Ps)
     lv_inds = hs.indices_to_smooth('cell_supp')
-    # above dense_cutoff 'auto' names the smoothers still to port
-    with pytest.raises(NotImplementedError, match='tri'):
-        mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'), 2,
+    # above dense_cutoff 'auto' takes K6 while the smoothing sets fit
+    # tri_block_cutoff, with the host path's count ...
+    s = mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'), 2,
+                          active_dofs=hs.non_dirichlet_dofs(),
                           dense_cutoff=A.shape[0] - 1, device='cpu')
+    assert s.smoother_impl == 'fused'
+    assert s.solve(f)[1] == solvers.solve_hmultigrid(
+        hs, A, f, relax_backend='host')[1]
+    # ... and past it names the smoother still to port and its item
+    with pytest.raises(NotImplementedError, match='wavefront.*item 3'):
+        mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'), 2,
+                          dense_cutoff=A.shape[0] - 1, tri_block_cutoff=1,
+                          device='cpu')
     for impl in ('tri', 'wavefront', 'df'):
         with pytest.raises(NotImplementedError):
             mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'), 2,
