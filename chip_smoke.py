@@ -4,7 +4,9 @@
 
 Builds the port's CUDA kernels from ``pyiga_tpu_torch/csrc``, holds each
 kernel against its plain PyTorch version on the card at the shapes of the
-3D p=3 n=48 main path, checks the whole path on small inputs against the
+3D p=3 n=48 main path (the stage K2 and the fold K3, both on the f64
+tensor cores, also at ragged shapes and launched twice for bitwise-equal
+output), checks the whole path on small inputs against the
 CPU run and a golden stiffness fixture, then drives the main path
 (``StiffnessAssembler.assemble_banded`` -> ``RestrictedOperator`` ->
 ``fastdiag_precond_weighted`` -> ``cg_ir``) on the twisted box at 3D p=3
@@ -47,8 +49,8 @@ the host scheme's step sequence with no host fallback (10b).
 The fused stage-2 + fold tail (K7, the JAX package's ``PYIGA_TAIL_FUSED``
 switch) and the 3D Dirichlet Poisson path of ``examples/poisson_3d.py``
 with non-zero data: K7's transposed stage and tail kernel (both on the
-f64 tensor cores, whose DMMA instructions phase 2 finds in the built
-library's SASS) against their plain versions at the n=48 flat-banded
+f64 tensor cores; phase 2 finds the DMMA instructions of K2, K3 and K7 in
+the built library's SASS) against their plain versions at the n=48 flat-banded
 shapes and at ragged shapes around the DMMA tiles, each launched twice
 to show bitwise-equal results (4i); the headline
 ``assemble_banded()`` with the switch on, then off, in one process, the
@@ -236,7 +238,8 @@ def nvidia_smi():
         return 'nvidia-smi unavailable (%s)' % e
 
 
-def sass_dmma(lib_path, kernels=('stage_T_kernel', 'tail_kernel')):
+def sass_dmma(lib_path, kernels=('stage_kernel', 'fold_kernel',
+                                 'stage_T_kernel', 'tail_kernel')):
     """DMMA (f64 tensor-core) instructions per kernel in the SASS of the
     built library, by ``cuobjdump --dump-sass`` from the toolkit that
     built it; raises if one of `kernels` has none."""
@@ -273,9 +276,47 @@ def main_path_setup(dim, n, device):
     return asm
 
 
+# ragged shapes around the DMMA tiles (16-row m tiles, 8-column n tiles,
+# 4- and 16-deep k slices, the 64 x 128 block tile of K2 and K7a, K3's
+# 192 x 64, K7b's 32-row slab, 192-deep Y2 chunk and 384-column chunk):
+# K < 4 (the twisted box's geometry stages), K not a multiple of 16, odd
+# and even M and R, R below one tile, the 2D n=128 shapes (K = 512).
+# K2 and K7a (K, R, M)
+STAGE_RAGGED = ((2, 24, 192), (4, 1152, 192), (7, 45, 13), (33, 300, 70),
+                (200, 1001, 5), (512, 512, 917), (192, 130, 357))
+STAGE_T_RAGGED = ((7, 45, 13), (33, 300, 70), (200, 1001, 5),
+                  (192, 130, 357))
+# K3 (K, R, M, terms, tables), term t on table t % tables: one term, one
+# group of all terms, groups of one, 16 terms and 17 (the wrapper's split)
+FOLD_RAGGED = ((3, 100, 11, 2, 1), (7, 45, 13, 1, 1), (33, 300, 70, 3, 2),
+               (512, 917, 917, 3, 2), (20, 129, 64, 16, 5),
+               (20, 129, 64, 17, 4), (192, 200, 357, 6, 1),
+               (9, 64, 130, 5, 5))
+# K7b (M1, K2, K3, M2, M3, terms, stage-2 tables, final tables)
+TAIL_RAGGED = ((5, 7, 9, 13, 11, 3, 2, 1), (3, 33, 200, 17, 600, 3, 2, 1),
+               (4, 18, 30, 35, 45, 1, 1, 1), (3, 13, 21, 40, 70, 16, 3, 2),
+               (2, 192, 384, 33, 385, 2, 1, 2))
+
+
+def check_repeat(name, fn, got):
+    """A second launch on the same inputs gives bitwise-equal output (no
+    atomics, a fixed summation order)."""
+    again = fn()
+    sync(again.device)
+    if not torch.equal(again, got):
+        raise RuntimeError('%s: two launches on the same inputs differ'
+                           % name)
+    return True
+
+
 def check_kernels(device, n=48, seed=0):
     """Phase 4: each kernel against its plain version on `device`, at the
-    shapes of the 3D p=3 main path (n=48 by default)."""
+    shapes of the 3D p=3 main path (n=48 by default).  K2 and K3 (on the
+    f64 tensor cores) also at the ragged shapes above, both to 1e-13
+    relative to the largest entry and each launched twice (bitwise-equal);
+    K3's plain version sums term by term, the kernel per distinct table.
+    Yardsticks: one ``torch.matmul`` for K2, one over the terms' operands
+    concatenated along K for K3."""
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     from pyiga_tpu_torch.ops import banded as bd
 
@@ -324,7 +365,8 @@ def check_kernels(device, n=48, seed=0):
         X = rand(K, R)
         got, ref = cs.stage(X, Tt), cs.stage_plain(X, Tt)
         sync(device)
-        e, r = compare('stage R=%d' % R, got, ref, 1e-12)
+        e, r = compare('stage R=%d' % R, got, ref, 1e-13)
+        check_repeat('stage R=%d' % R, lambda: cs.stage(X, Tt), got)
         stage_err, stage_rel = max(stage_err, e), max(stage_rel, r)
         stage_ms.append(time_ms(lambda: cs.stage(X, Tt), device))
         stage_plain_ms.append(time_ms(lambda: cs.stage_plain(X, Tt), device))
@@ -336,12 +378,22 @@ def check_kernels(device, n=48, seed=0):
         del X, got, ref
     out['stage'] = dict(max_abs_err=stage_err, rel=stage_rel,
                         shapes=[[K, K * K, M], [K, K * M, M]],
+                        repeat_equal=True,
                         ms=sum(stage_ms), plain_ms=sum(stage_plain_ms),
                         library_ms=sum(stage_lib_ms),
                         ms_each=stage_ms, plain_ms_each=stage_plain_ms,
                         library_ms_each=stage_lib_ms,
                         **bound(stage_bytes, stage_flops,
                                 F64_TENSOR_PER_MS))
+    out['stage']['ragged'] = {}
+    for Kr, Rr, Mr in STAGE_RAGGED:
+        X, Tt = rand(Kr, Rr), rand(Mr, Kr)
+        got, ref = cs.stage(X, Tt), cs.stage_plain(X, Tt)
+        sync(device)
+        key = '%dx%dx%d' % (Kr, Rr, Mr)
+        out['stage']['ragged'][key] = compare('stage ' + key, got, ref,
+                                              1e-13)
+        check_repeat('stage ' + key, lambda: cs.stage(X, Tt), got)
 
     # K3: the fold plan's terms over their deduplicated last tables,
     # R = M * M
@@ -354,24 +406,40 @@ def check_kernels(device, n=48, seed=0):
     xs = [rand(K, M * M) for _ in plan]
     got, ref = cs.fold(xs, fold_tabs, idx), cs.fold_plain(xs, fold_tabs, idx)
     sync(device)
-    err, rel = compare('fold', got, ref, 1e-12)
+    err, rel = compare('fold', got, ref, 1e-13)
+    check_repeat('fold', lambda: cs.fold(xs, fold_tabs, idx), got)
     # yardstick: one torch.matmul over the terms' operands concatenated
     # along K (the concatenation is made outside the timed call)
     xcat = torch.cat(xs, dim=0).t()
     tcat = torch.cat([fold_tabs[i] for i in idx], dim=1).t()
     lib_ms = time_ms(lambda: torch.matmul(xcat, tcat), device)
     del xcat, tcat
+    # the bound counts one product per distinct table: the terms that
+    # share one are summed before it (what the kernel does, and the least
+    # work for the function)
     out['fold'] = dict(max_abs_err=err, rel=rel,
                        shape=[len(xs), K, M * M, M], tables=len(fold_tabs),
+                       repeat_equal=True,
                        ms=time_ms(lambda: cs.fold(xs, fold_tabs, idx),
                                   device),
                        plain_ms=time_ms(lambda: cs.fold_plain(
                            xs, fold_tabs, idx), device),
                        library_ms=lib_ms,
                        **bound(nbytes(*xs, *fold_tabs, got),
-                               2 * K * M * M * M * len(xs),
+                               2 * K * M * M * M * len(set(idx)),
                                F64_TENSOR_PER_MS))
     del xs, got, ref
+    out['fold']['ragged'] = {}
+    for Kr, Rr, Mr, nt, ntab in FOLD_RAGGED:
+        xs = [rand(Kr, Rr) for _ in range(nt)]
+        tabs = [rand(Mr, Kr) for _ in range(ntab)]
+        ti = [t % ntab for t in range(nt)]
+        got, ref = cs.fold(xs, tabs, ti), cs.fold_plain(xs, tabs, ti)
+        sync(device)
+        key = '%dx%dx%d,%d terms,%d tables' % (Kr, Rr, Mr, nt, ntab)
+        out['fold']['ragged'][key] = compare('fold ' + key, got, ref, 1e-13)
+        check_repeat('fold ' + key, lambda: cs.fold(xs, tabs, ti), got)
+        del xs, tabs, got, ref
 
     # K4 in f64 and f32 on the n=48 flat layout
     ns = tuple(b[0] for b in asm.structure.bs)
@@ -401,8 +469,11 @@ def check_kernels(device, n=48, seed=0):
                     F64_FMA_PER_MS if dtype == f64 else F32_PER_MS))
         del Dd, xd, got, ref
     for name, r in out.items():
-        log('  %-16s kernel %.4f ms   plain %.4f ms' % (name, r['ms'],
-                                                      r['plain_ms']))
+        log('  %-16s kernel %.4f ms   plain %.4f ms   library %s   bound '
+            '%.4f ms (%s)' % (name, r['ms'], r['plain_ms'],
+                              'none' if r['library_ms'] is None
+                              else '%.4f ms' % r['library_ms'],
+                              r['bound_ms'], r['bound_by']))
     return out
 
 
@@ -1388,29 +1459,6 @@ def run_heat_device(device, n=60, n_full=128):
     return rec
 
 
-# phase 4i's ragged shapes around the DMMA tiles (16-row m tiles, 8-column
-# n tiles, 4- and 16-deep k slices, K7a's 64 x 128 block tile, K7b's
-# 32-row slab, 192-deep Y2 chunk and 384-column chunk):
-# K7a (K, R, M)
-STAGE_T_RAGGED = ((7, 45, 13), (33, 300, 70), (200, 1001, 5),
-                  (192, 130, 357))
-# K7b (M1, K2, K3, M2, M3, terms, stage-2 tables, final tables)
-TAIL_RAGGED = ((5, 7, 9, 13, 11, 3, 2, 1), (3, 33, 200, 17, 600, 3, 2, 1),
-               (4, 18, 30, 35, 45, 1, 1, 1), (3, 13, 21, 40, 70, 16, 3, 2),
-               (2, 192, 384, 33, 385, 2, 1, 2))
-
-
-def check_repeat(name, fn, got):
-    """A second launch on the same inputs gives bitwise-equal output (no
-    atomics, a fixed summation order)."""
-    again = fn()
-    sync(again.device)
-    if not torch.equal(again, got):
-        raise RuntimeError('%s: two launches on the same inputs differ'
-                           % name)
-    return True
-
-
 def check_tail_kernels(device, n=48, seed=4):
     """Phase 4i: K7's transposed stage and tail kernel against their plain
     versions at the n=48 flat-banded shapes of ``assemble_banded`` (real
@@ -1759,7 +1807,8 @@ def main():
         % (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32))
 
-    log('phase 4: kernels vs plain versions at the 3D n=48 shapes')
+    log('phase 4: kernels vs plain versions at the 3D n=48 shapes, K2 and '
+        'K3 also at ragged shapes')
     kern = check_kernels(device)
     torch.cuda.empty_cache()
 

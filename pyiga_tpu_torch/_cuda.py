@@ -1,7 +1,8 @@
 """Build, load and call the package's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use by one ``nvcc`` invocation into a
-shared library with a plain C interface, loaded with :mod:`ctypes`.  The
+The sources are compiled at first use, one ``nvcc`` process per source,
+all started together, and linked into a shared library with a plain C
+interface, loaded with :mod:`ctypes`.  The
 library lands in ``build/pyiga_tpu_torch/`` beside the package, named by a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the library.  Kernels generated at run time (one per variational
@@ -32,7 +33,7 @@ import torch
 SRC_DIR = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / 'pyiga_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
+              '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'mass_fields': 0,
@@ -90,9 +91,20 @@ def _nvcc():
                        'are built from csrc/ at first use on a GPU machine')
 
 
+def _run(cmd, what):
+    """Run an nvcc command; returns its output, raises with it on failure."""
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError('nvcc failed on %s (%d):\n%s\n%s'
+                           % (what, res.returncode, res.stdout, res.stderr))
+    return (res.stdout + res.stderr).strip()
+
+
 def build():
     """Compile ``csrc/*.cu`` into the hashed shared library unless it
-    exists; returns its path.  Records the build in :data:`BUILD_INFO`."""
+    exists; returns its path.  Every source compiles in its own ``nvcc``
+    process, all at once, then one ``nvcc -shared`` links the objects.
+    Records the build in :data:`BUILD_INFO`."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
@@ -102,20 +114,24 @@ def build():
         BUILD_INFO.update(path=str(lib), seconds=0.0, log='(cached)')
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           *[str(p) for p in _sources() if p.suffix == '.cu']]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError('nvcc failed (%d):\n%s\n%s'
-                           % (res.returncode, res.stdout, res.stderr))
-    os.replace(tmp, lib)
-    BUILD_INFO.update(path=str(lib), seconds=secs,
-                      log=(res.stdout + res.stderr).strip())
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        srcs = [p for p in _sources() if p.suffix == '.cu']
+        objs = [os.path.join(tmpdir, p.stem + '.o') for p in srcs]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, '-c', '-o', o,
+                                   str(p)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(srcs, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for p, proc, out in zip(srcs, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError('nvcc failed on %s (%d):\n%s'
+                                   % (p, proc.returncode, out))
+        tmp = os.path.join(tmpdir, lib.name)
+        logs.append(_run([_nvcc(), '-shared', '-o', tmp, *objs], 'the link'))
+        os.replace(tmp, lib)
+    BUILD_INFO.update(path=str(lib), seconds=time.perf_counter() - t0,
+                      log='\n'.join(x.strip() for x in logs if x.strip()))
     return lib
 
 
@@ -146,17 +162,15 @@ def build_generated(name, source):
             fd, tmp = tempfile.mkstemp(suffix='.so', dir=gen_dir)
             os.close(fd)
             t0 = time.perf_counter()
-            res = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, str(src)],
-                                 capture_output=True, text=True)
-            secs = time.perf_counter() - t0
-            if res.returncode != 0:
+            try:
+                log = _run([_nvcc(), *NVCC_FLAGS, '-shared', '-o', tmp,
+                            str(src)], src)
+            except RuntimeError:
                 os.unlink(tmp)
-                raise RuntimeError('nvcc failed on %s (%d):\n%s\n%s'
-                                   % (src, res.returncode, res.stdout,
-                                      res.stderr))
+                raise
             os.replace(tmp, lib)
-            GEN_BUILDS[str(lib)] = dict(seconds=secs,
-                                        log=(res.stdout + res.stderr).strip())
+            GEN_BUILDS[str(lib)] = dict(seconds=time.perf_counter() - t0,
+                                        log=log)
         _gen_libs[str(lib)] = ctypes.CDLL(str(lib))
         return _gen_libs[str(lib)]
 

@@ -271,8 +271,9 @@ class VFormAssembler:
     def _checked_geo(self, geo):
         if not isinstance(geo, (geometry.BSplineFunc, geometry.NurbsFunc)):
             raise NotImplementedError(
-                'host-evaluated (non-spline) geometry needs kernel K1\', '
-                'which is not ported yet')
+                'a non-spline geometry (UserFunction) inside a generic VForm '
+                'is not ported yet (ROADMAP item 8); assemble.mass and '
+                'assemble.stiffness take one')
         if tuple(geo.output_shape()) != (self.dim,):
             raise NotImplementedError(
                 'geometry output shape %s differs from the space dimension '

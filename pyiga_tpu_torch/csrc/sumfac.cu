@@ -21,6 +21,8 @@
 // f64, so these kernels compute in double directly and none of that
 // machinery is ported.
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "dmma.cuh"
 
@@ -345,258 +347,295 @@ PYIGA_EXPORT int pyiga_geo_jac_fields_f64(const double* Y, const double* T,
 }
 
 // --------------------------------------------------------------------------
-// K2 / K3: one sum-factorization stage, out[r, m] = sum_k X[k, r] T[m, k]
-// (K3: summed over terms t, each with its own X_t and table T_idx[t]).
+// K2, K3 and K7a: sum-factorization stages on the f64 tensor cores.
 //
-// X (K, R) row-major is the field with the contraction axis leading; T
-// (M, K) is a basis-pair table; out (R, M) appends the band axis last, so
-// a d-stage chain maps (K_1, ..., K_d) to (M_1, ..., M_d) with no
+// K2  stage_kernel    out[r, m] = sum_k X[k, r] T[m, k] for X (K, R) and a
+//     basis-pair table T (M, K); out (R, M).  Replaces `_stage_call`
+//     (pyiga_tpu/ops/pallas_sumfac.py, pallas_call at :353, bodies
+//     `_stage_kernel` / `_stage_kernel_acc`).
+// K3  fold_kernel     the sum over terms t of K2(X_t, T_idx[t]), written
+//     once.  Replaces `_stage_call_fold` (pallas_call at :781, body
+//     `_fold_kernel`).
+// K7a stage_T_kernel  K2 with the transposed output out[m, r], (M, R).
+//     Replaces `_stage_call_T` (pallas_call at :436, body
+//     `_stage_kernel_T`); K7b then reads term t's output as (M1, K2, K3)
+//     slabs with no transpose.
+//
+// X has the contraction axis leading and out appends the band axis last,
+// so a d-stage chain maps (K_1, ..., K_d) to (M_1, ..., M_d) with no
 // transposes (the chain convention of pallas_sumfac).  At the 3D n=48
-// headline: K = 192 and M = 357 in every stage; R = 36,864 (stage 1),
-// 68,544 (stage 2) and 127,449 (the folded final stage).
+// headline K = 192 and M = 357 in every stage; R = 36,864 (stage 1),
+// 68,544 (stage 2) and 127,449 (K3: 6 terms over 3 distinct tables).
 //
-// Bound: f64 FMA issue and shared-memory bandwidth (arithmetic intensity
-// is K-fold; the compute is ~190 GFLOP for the headline assembly).  The
-// design is a plain shared-memory tiled product: 64 x 64 output tiles,
-// 16-deep K slices, 256 threads each holding a 4 x 4 register tile whose
-// columns are strided by 16 so that every warp's stores hit consecutive
-// m (coalesced rows of `out`).  Ragged K, R and M are masked with zeros
-// on load and skipped on store; no lane padding exists anywhere.  K3
-// loops over the terms inside the block and writes its tile once: no
-// atomics, so the result is deterministic.  (DMMA tensor cores, TMA and
-// deeper pipelining are later work.)
+// Bounds at n=48 (67 TFLOP/s on the f64 tensor cores, 3.35 TB/s): K2 does
+// 5.05 and 9.40 GFLOP over 162 and 302 MB, 0.075 and 0.140 ms of
+// operations.  K3 sums the terms that share a table before the product:
+// 3 x 2 x 192 x 127,449 x 357 = 52.4 GFLOP, 0.782 ms (104.8 GFLOP, 1.565
+// ms, term by term) against 1.54 GB, 0.46 ms: operations.
+//
+// Design: one mainloop (`product`) for the three kernels, DMMA (mma.sync
+// m16n8k4, dmma.cuh).  T is the A operand, staged as [m][k] tiles, X the B
+// operand, staged as [k][r] tiles.  A block owns a BM (m) x BN (r) output
+// tile in 8 warp tiles.  K runs in 16-deep slices through a cp.async
+// pipeline; each operand takes 16-byte copies where its rows have even
+// length and it is 16-byte aligned, else 8-byte ones.  Ragged K, M and R
+// are zero-filled by the copies and skipped on store.  The T tile has a
+// row stride of 20 doubles and the X tile BN + 4 (both 4 mod 16), so the
+// fragment loads of each half-warp hit 16 distinct bank pairs.  The m
+// tiles are the grid's fastest axis: the blocks that share an X tile run
+// together, and X (57 to 196 MB at n=48, above the 50 MB L2) comes from
+// device memory once.
+//   K2 and K7a: 64 x 128 blocks of 64 x 16 warp tiles (4 x 2 DMMA tiles),
+// a 3-stage pipeline, two blocks an SM (128 registers a thread, 80 KiB of
+// shared memory a block).  At n=48 the m axis pads 357 to 384 (7 % of the
+// products are zeros).
+//   K3: the C entry orders the terms by table, groups in order of first
+// appearance and terms in their given order within a group (the
+// association of ops/sumfac._sum_chains_merged).  The pipeline walks
+// (group, k slice, term): every step brings one X slice, the group's last
+// term also the table slice.  Each thread adds the B fragments of the
+// group's X slices in that order in registers, and the group runs one DMMA
+// product a slice: 3 products instead of 6 at n=48.  All groups accumulate
+// into the same registers and the tile is written once: no atomics, a
+// fixed order, bitwise-reproducible.  Its block is 192 x 64 in 96 x 16
+// warp tiles (6 x 2 DMMA tiles: 48 accumulators and 8 summed fragments a
+// thread), a 4-stage pipeline (154 KiB), one block an SM.  Per group and
+// slice a block reads a 192-row table slice and one 64-column X slice a
+// term from L2: at n=48 5.9 GB in all, against 7.0 GB for 128 x 64 blocks
+// and 8.8 GB for 64 x 128 (the X side, one slice a term, outweighs the
+// table side, one a group), and the m axis pads 357 to 384 in two tiles.
+// 32 x 32 warp tiles (K7a's earlier tile) spilled at two blocks an SM
+// with the summed fragments; a shared-memory sum of the group's slices
+// instead of the register sum was slower at every tile size tried.
+//   Epilogue: the output tile is staged through the pipeline's shared
+// memory.  K7a writes rows of out (M, R) along r (stride BN + 8, 8 mod 16:
+// the 16-byte fragment stores of a quarter-warp cover all 32 banks).  K2
+// and K3 stage the tile transposed and write rows of out (R, M) along m
+// (stride BM + 2, 2 mod 16: the 8-byte stores of a half-warp, at rows 2t
+// and columns g, hit 16 distinct bank pairs).  Each warp stores 256 or 512
+// contiguous bytes; 16-byte stores where a row's length is even and out is
+// 16-byte aligned (M = 357 is odd at n=48: 8-byte stores there).
 // --------------------------------------------------------------------------
 
 namespace {
 
-constexpr int kBR = 64;       // output rows (r) per block
-constexpr int kBM = 64;       // output columns (m) per block
-constexpr int kBK = 16;       // contraction slice
-constexpr int kThreads = 256;
 constexpr int kMaxTerms = 16;
 
-struct FoldTerms {
-    const double* x[kMaxTerms];
-    const double* t[kMaxTerms];
-    int n;
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+namespace tc {
+
+constexpr int kBK = 16;            // contraction slice
+constexpr int kThreads = 256;      // 8 warps
+
+// A block's BM (m) x BN (r) output tile in 8 warp tiles of WM x WN (MI x
+// NJ DMMA tiles), its cp.async pipeline depth, the blocks an SM holds (the
+// register budget: 65,536 / (256 MINB) a thread) and its shared-memory
+// layout.
+template <int BM_, int BN_, int WM_, int WN_, int STAGES_, int MINB_>
+struct Tile {
+    static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
+    static constexpr int STAGES = STAGES_, MINB = MINB_;
+    static constexpr int MI = WM / 16, NJ = WN / 8;
+    static constexpr int WARPS_N = BN / WN;      // warps along r
+    static_assert((BM / WM) * WARPS_N == kThreads / 32, "8 warps");
+    static_assert(BM % 16 == 0 && BN % 16 == 0, "strides below");
+    static constexpr int PA = kBK + 4;           // T tile stride (4 mod 16)
+    static constexpr int PB = BN + 4;            // X tile stride (4 mod 16)
+    static constexpr int PC = BN + 8;            // [m][r] staging (8 mod 16)
+    static constexpr int PCT = BM + 2;           // [r][m] staging (2 mod 16)
+    static constexpr int STAGE = BM * PA + kBK * PB;
+    static constexpr int SMEM =
+        cmax(STAGES * STAGE, cmax(BM * PC, BN * PCT)) * (int)sizeof(double);
+    // the warp's first row (m) and column (r) in the block tile
+    static __device__ __forceinline__ int wm0() {
+        return (int)(threadIdx.x >> 5) / WARPS_N * WM;
+    }
+    static __device__ __forceinline__ int wn0() {
+        return (int)(threadIdx.x >> 5) % WARPS_N * WN;
+    }
+};
+using TileMR = Tile<64, 128, 64, 16, 3, 2>;     // K2, K7a
+using TileFold = Tile<192, 64, 96, 16, 4, 1>;   // K3
+
+template <class TL>
+using Acc = double[TL::MI][TL::NJ][4];
+
+// K2, K7a: one field and one table
+struct One {
+    const double* x;
+    const double* t;
 };
 
-// acc[i][j] holds the output (r, m) = (r0 + ty + 16 i, m0 + tx + 16 j):
-// a warp's 16 consecutive threads hold consecutive m (coalesced stores of
-// the (R, M) output).
-__device__ __forceinline__ void accumulate_term(
-        const double* __restrict__ X, const double* __restrict__ T, int K,
-        long long R, int M, long long r0, int m0,
-        double (*Xs)[kBR], double (*Ts)[kBM + 1], double acc[4][4]) {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    for (int k0 = 0; k0 < K; k0 += kBK) {
-        for (int i = threadIdx.x; i < kBK * kBR; i += kThreads) {
-            const int kk = i / kBR, rr = i % kBR;
-            const int k = k0 + kk;
-            const long long r = r0 + rr;
-            Xs[kk][rr] = (k < K && r < R) ? X[(long long)k * R + r] : 0.0;
+// K3: the fields grouped by table (see pyiga_fold_f64)
+struct Terms {
+    const double* x[kMaxTerms];    // per term, its (K, R) field, in order
+    const double* t[kMaxTerms];    // per group, its (M, K) table
+    int end[kMaxTerms];            // per group, one past its last term
+    int groups;
+};
+
+// acc += the block's (m0, r0) tile of T X (One) or of
+// sum_g T_g (sum_{t in g} X_t) (Terms), in the warp's MI x NJ DMMA tiles.
+// Ends with every thread past its last shared-memory read.
+template <class TL, int VA, int VB, class S>
+__device__ __forceinline__ void product(const S& src, int K, long long R,
+                                        int M, int m0, long long r0,
+                                        double* smem, Acc<TL>& acc) {
+    constexpr bool kGrouped = std::is_same<S, Terms>::value;
+    const int wm = TL::wm0(), wn = TL::wn0();
+    const int nk = (K + kBK - 1) / kBK;
+    int nsteps = nk;
+    if constexpr (kGrouped) nsteps *= src.end[src.groups - 1];
+
+    // the (group, k slice, term) of the next step to load and to compute
+    struct Cursor { int g, k, q; };
+    Cursor ld{0, 0, 0}, cp{0, 0, 0};
+    auto advance = [&](Cursor& c) {
+        if constexpr (kGrouped) {
+            if (++c.q < src.end[c.g]) return;
+            if (++c.k < nk) {
+                c.q = c.g ? src.end[c.g - 1] : 0;
+                return;
+            }
+            c.k = 0;                       // c.q opens the next group
+            ++c.g;
+        } else {
+            ++c.k;
         }
-        for (int i = threadIdx.x; i < kBK * kBM; i += kThreads) {
-            const int mm = i / kBK, kk = i % kBK;
-            const int k = k0 + kk, m = m0 + mm;
-            Ts[kk][mm] = (k < K && m < M) ? T[(long long)m * K + k] : 0.0;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kBK; ++kk) {
-            double a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = Xs[kk][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = Ts[kk][tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-}
-
-__device__ __forceinline__ void store_tile(double* __restrict__ out,
-                                           long long R, int M, long long r0,
-                                           int m0, const double acc[4][4]) {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const long long r = r0 + ty + 16 * i;
-        if (r >= R) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int m = m0 + tx + 16 * j;
-            if (m < M) out[r * M + m] = acc[i][j];
-        }
-    }
-}
-
-__global__ void __launch_bounds__(kThreads)
-stage_kernel(const double* __restrict__ X, const double* __restrict__ T,
-             int K, long long R, int M, double* __restrict__ out) {
-    __shared__ double Xs[kBK][kBR];
-    __shared__ double Ts[kBK][kBM + 1];
-    const long long r0 = (long long)blockIdx.x * kBR;
-    const int m0 = blockIdx.y * kBM;
-    double acc[4][4] = {};
-    accumulate_term(X, T, K, R, M, r0, m0, Xs, Ts, acc);
-    store_tile(out, R, M, r0, m0, acc);
-}
-
-__global__ void __launch_bounds__(kThreads)
-fold_kernel(FoldTerms terms, int K, long long R, int M,
-            double* __restrict__ out) {
-    __shared__ double Xs[kBK][kBR];
-    __shared__ double Ts[kBK][kBM + 1];
-    const long long r0 = (long long)blockIdx.x * kBR;
-    const int m0 = blockIdx.y * kBM;
-    double acc[4][4] = {};
-    for (int t = 0; t < terms.n; ++t)
-        accumulate_term(terms.x[t], terms.t[t], K, R, M, r0, m0, Xs, Ts,
-                        acc);
-    store_tile(out, R, M, r0, m0, acc);
-}
-
-// --------------------------------------------------------------------------
-// K7a: one stage with the transposed output, out[m, r] = sum_k T[m, k]
-// X[k, r]: X (K, R), T (M, K), out (M, R).  Replaces `_stage_call_T`
-// (pyiga_tpu/ops/pallas_sumfac.py, pallas_call at :436, body
-// `_stage_kernel_T`); the tail (K7b) then reads term t's output as (M1,
-// K2, K3) slabs with no transpose.
-//
-// Bound at the 3D n=48 headline (K = 192, R = 36,864, M = 357, six
-// launches): 5.05 GFLOP a launch, 0.075 ms at the datasheet's 67 TFLOP/s
-// f64 tensor rate, over its 162 MB (0.048 ms at 3.35 TB/s): operations.
-//
-// Design: f64 tensor cores (dmma.cuh, mma.sync m16n8k4).  A block owns a
-// 64 (m) x 128 (r) output tile: 8 warps as 2 x 4, each a 32 x 32 warp tile
-// of 2 x 4 DMMA tiles (8 MMAs of 512 FMA for 8 fragment loads per 4-deep
-// step; the earlier 4 x 4 FMA tile loaded 8 values per 16 FMAs and was
-// held to shared-memory bandwidth).  K runs in 16-deep slices through a
-// 3-stage cp.async pipeline (16-byte copies when K and R are even and the
-// tensors 16-byte aligned, else 8-byte ones); ragged K, M and R are
-// zero-filled by the copies and skipped on store.  The T tile has a row
-// stride of 20 doubles and the X tile of 132 (both 4 mod 16), so the
-// fragment loads of each half-warp hit 16 distinct bank pairs.  The output
-// tile is staged through shared memory (stride 136, 8 mod 16: the 16-byte
-// fragment stores of a quarter-warp cover all 32 banks), so each warp
-// stores 16-byte chunks along r, 512 contiguous bytes a row half.  The m
-// tiles are the grid's fastest axis: the six blocks that share an X tile
-// run together, and X (57 MB, more than the 50 MB L2) is read from device
-// memory once instead of once per m tile.  128 registers a thread (two
-// blocks an SM, 80 KiB of shared memory each).  At n=48 the m axis pads 357
-// to 384 (7 % of the products are zeros).
-// --------------------------------------------------------------------------
-
-namespace k7a {
-
-constexpr int kBM = 64;            // output rows (m) per block
-constexpr int kBN = 128;           // output columns (r) per block
-constexpr int kBK = 16;            // contraction slice
-constexpr int kThreads = 256;      // 8 warps: 2 (m) x 4 (r), 32 x 32 each
-constexpr int kPA = kBK + 4;       // T tile row stride (4 mod 16)
-constexpr int kPB = kBN + 4;       // X tile row stride (4 mod 16)
-constexpr int kPC = kBN + 8;       // output staging row stride (8 mod 16)
-constexpr int kStages = 3;         // cp.async pipeline depth
-constexpr int kStage = kBM * kPA + kBK * kPB;
-constexpr int kSmem = (kStages * kStage > kBM * kPC ? kStages * kStage
-                                                     : kBM * kPC)
-                      * (int)sizeof(double);
-
-template <int VEC>
-__global__ void __launch_bounds__(kThreads, 2)
-stage_T_kernel(const double* __restrict__ X, const double* __restrict__ T,
-               int K, long long R, int M, double* __restrict__ out) {
-    extern __shared__ __align__(16) double smem[];
-    // the m tiles sharing an X tile run together: X is read from device
-    // memory once (it exceeds the 50 MB L2 at n=48)
-    const int m0 = blockIdx.x * kBM;
-    const long long r0 = (long long)blockIdx.y * kBN;
-    const int warp = threadIdx.x >> 5;
-    const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
-
-    double acc[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0;
-
-    const double* Tb = T + (long long)m0 * K;
-    const double* Xb = X + r0;
-    auto load = [&](int buf, int k0) {
-        double* As = smem + buf * kStage;
-        double* Bs = As + kBM * kPA;
-        dmma::load_tile<kBM, kBK, VEC, kThreads>(As, kPA, Tb + k0, K, M - m0,
-                                                 K - k0);
-        dmma::load_tile<kBK, kBN, VEC, kThreads>(
-            Bs, kPB, Xb + (long long)k0 * R, R, K - k0, R - r0);
-        dmma::cp_async_commit();
     };
 
-    const int nk = (K + kBK - 1) / kBK;
-    for (int s = 0; s < kStages - 1; ++s) {
-        if (s < nk)
-            load(s, s * kBK);
-        else
-            dmma::cp_async_commit();      // an empty group keeps the count
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-        const int kn = kt + kStages - 1;
-        if (kn < nk)
-            load(kn % kStages, kn * kBK);
-        else
-            dmma::cp_async_commit();
-        dmma::cp_async_wait<kStages - 1>();
-        __syncthreads();
-        const double* As = smem + (kt % kStages) * kStage;
-        const double* Bs = As + kBM * kPA;
+    auto load = [&](int buf) {
+        double* As = smem + buf * TL::STAGE;
+        double* Bs = As + TL::BM * TL::PA;
+        const int k0 = ld.k * kBK;
+        const double* X;
+        const double* T;
+        bool table = true;
+        if constexpr (kGrouped) {          // the group's last term brings
+            X = src.x[ld.q];               // the table slice
+            T = src.t[ld.g];
+            table = ld.q == src.end[ld.g] - 1;
+        } else {
+            X = src.x;
+            T = src.t;
+        }
+        dmma::load_tile<kBK, TL::BN, VB, kThreads>(
+            Bs, TL::PB, X + (long long)k0 * R + r0, R, K - k0, R - r0);
+        if (table)
+            dmma::load_tile<TL::BM, kBK, VA, kThreads>(
+                As, TL::PA, T + (long long)m0 * K + k0, K, M - m0, K - k0);
+        dmma::cp_async_commit();
+        advance(ld);
+    };
+
+    // one 4-deep step of the product: a warp's MI x NJ DMMA tiles
+    auto load_a4 = [&](const double* As, int kk, double (&a)[TL::MI][2]) {
+#pragma unroll
+        for (int i = 0; i < TL::MI; ++i)
+            dmma::load_a(As, TL::PA, wm + 16 * i, kk, a[i][0], a[i][1]);
+    };
+    auto mma4 = [&](const double (&a)[TL::MI][2], const double (&b)[TL::NJ]) {
+#pragma unroll
+        for (int i = 0; i < TL::MI; ++i)
+#pragma unroll
+            for (int j = 0; j < TL::NJ; ++j)
+                dmma::mma_16x8x4(acc[i][j], a[i][0], a[i][1], b[j]);
+    };
+    auto mma_slice = [&](const double* As, const double* Bs) {
 #pragma unroll
         for (int kk = 0; kk < kBK; kk += 4) {
-            double a[2][2], b[4];
+            double a[TL::MI][2], b[TL::NJ];
+            load_a4(As, kk, a);
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
-                dmma::load_a(As, kPA, wm + 16 * i, kk, a[i][0], a[i][1]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                b[j] = dmma::load_b_kn(Bs, kPB, kk, wn + 8 * j);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    dmma::mma_16x8x4(acc[i][j], a[i][0], a[i][1], b[j]);
+            for (int j = 0; j < TL::NJ; ++j)
+                b[j] = dmma::load_b_kn(Bs, TL::PB, kk, wn + 8 * j);
+            mma4(a, b);
         }
+    };
+
+    double bsum[kBK / 4][TL::NJ];          // K3: a slice's summed fragments
+#pragma unroll
+    for (int s = 0; s < kBK / 4; ++s)
+#pragma unroll
+        for (int j = 0; j < TL::NJ; ++j) bsum[s][j] = 0.0;
+    auto compute = [&](int buf) {
+        const double* As = smem + buf * TL::STAGE;
+        const double* Bs = As + TL::BM * TL::PA;
+        if constexpr (kGrouped) {
+            const bool first = cp.q == (cp.g ? src.end[cp.g - 1] : 0);
+            const bool last = cp.q == src.end[cp.g] - 1;
+#pragma unroll
+            for (int s = 0; s < kBK / 4; ++s)
+#pragma unroll
+                for (int j = 0; j < TL::NJ; ++j) {
+                    const double v =
+                        dmma::load_b_kn(Bs, TL::PB, 4 * s, wn + 8 * j);
+                    bsum[s][j] = first ? v : bsum[s][j] + v;
+                }
+            if (last) {
+#pragma unroll
+                for (int s = 0; s < kBK / 4; ++s) {
+                    double a[TL::MI][2];
+                    load_a4(As, 4 * s, a);
+                    mma4(a, bsum[s]);
+                }
+            }
+            advance(cp);
+        } else {
+            mma_slice(As, Bs);
+        }
+    };
+
+    for (int s = 0; s < TL::STAGES - 1; ++s) {
+        if (s < nsteps)
+            load(s);
+        else
+            dmma::cp_async_commit();       // an empty group keeps the count
+    }
+    for (int st = 0; st < nsteps; ++st) {
+        if (st + TL::STAGES - 1 < nsteps)
+            load((st + TL::STAGES - 1) % TL::STAGES);
+        else
+            dmma::cp_async_commit();
+        dmma::cp_async_wait<TL::STAGES - 1>();
+        __syncthreads();
+        compute(st % TL::STAGES);
         __syncthreads();
     }
     dmma::cp_async_wait<0>();
+}
 
-    // stage the tile through the (now free) pipeline buffers
-    double* Cs = smem;
-    const int g = dmma::lane_g(), t = dmma::lane_t();
+// the block's (m0, r0) and zeroed accumulators: m tiles fastest, so the
+// blocks that share an X tile run together
+template <class TL>
+__device__ __forceinline__ void block_start(int M, int& m0, long long& r0,
+                                            Acc<TL>& acc) {
+    const unsigned int mt = (M + TL::BM - 1) / TL::BM;
+    m0 = (int)(blockIdx.x % mt) * TL::BM;
+    r0 = (long long)(blockIdx.x / mt) * TL::BN;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < TL::MI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int row = wm + 16 * i + g, col = wn + 8 * j + 2 * t;
-            *reinterpret_cast<double2*>(Cs + row * kPC + col) =
-                make_double2(acc[i][j][0], acc[i][j][1]);
-            *reinterpret_cast<double2*>(Cs + (row + 8) * kPC + col) =
-                make_double2(acc[i][j][2], acc[i][j][3]);
-        }
-    __syncthreads();
-    constexpr int CPR = kBN / VEC;
-    for (int i = threadIdx.x; i < kBM * CPR; i += kThreads) {
+        for (int j = 0; j < TL::NJ; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0;
+}
+
+// Copy a staged ROWS x COLS tile (row stride ld) to `out` (row stride ldo),
+// VEC doubles a store, skipping rows >= rlim and columns >= clim (VEC = 2
+// needs an even clim and 16-byte aligned rows).
+template <int ROWS, int COLS, int VEC>
+__device__ __forceinline__ void write_tile(const double* Cs, int ld,
+                                           double* out, long long ldo,
+                                           long long rlim, long long clim) {
+    constexpr int CPR = COLS / VEC;
+    for (int i = threadIdx.x; i < ROWS * CPR; i += kThreads) {
         const int row = i / CPR, col = (i % CPR) * VEC;
-        const int m = m0 + row;
-        const long long r = r0 + col;
-        if (m >= M || r >= R) continue;
-        double* o = out + (long long)m * R + r;
-        const double* c = Cs + row * kPC + col;
-        if constexpr (VEC == 2)      // R is even: r + 1 < R
+        if (row >= rlim || col >= clim) continue;
+        double* o = out + row * ldo + col;
+        const double* c = Cs + row * ld + col;
+        if constexpr (VEC == 2)
             *reinterpret_cast<double2*>(o) =
                 *reinterpret_cast<const double2*>(c);
         else
@@ -604,20 +643,119 @@ stage_T_kernel(const double* __restrict__ X, const double* __restrict__ T,
     }
 }
 
-template <int VEC>
-static int launch(const double* X, const double* T, int K, long long R,
-                  int M, double* out, cudaStream_t s) {
+// K7a's epilogue: the tile to out (M, R), rows along r
+template <class TL>
+__device__ __forceinline__ void store_mr(const Acc<TL>& acc, double* Cs,
+                                         double* out, long long R, int M,
+                                         int m0, long long r0, bool vec) {
+    const int wm = TL::wm0(), wn = TL::wn0();
+    const int g = dmma::lane_g(), t = dmma::lane_t();
+#pragma unroll
+    for (int i = 0; i < TL::MI; ++i)
+#pragma unroll
+        for (int j = 0; j < TL::NJ; ++j) {
+            const int row = wm + 16 * i + g, col = wn + 8 * j + 2 * t;
+            *reinterpret_cast<double2*>(Cs + row * TL::PC + col) =
+                make_double2(acc[i][j][0], acc[i][j][1]);
+            *reinterpret_cast<double2*>(Cs + (row + 8) * TL::PC + col) =
+                make_double2(acc[i][j][2], acc[i][j][3]);
+        }
+    __syncthreads();
+    double* o = out + (long long)m0 * R + r0;
+    if (vec)                               // R is even
+        write_tile<TL::BM, TL::BN, 2>(Cs, TL::PC, o, R, M - m0, R - r0);
+    else
+        write_tile<TL::BM, TL::BN, 1>(Cs, TL::PC, o, R, M - m0, R - r0);
+}
+
+// K2's and K3's epilogue: the tile transposed to out (R, M), rows along m
+template <class TL>
+__device__ __forceinline__ void store_rm(const Acc<TL>& acc, double* Cs,
+                                         double* out, long long R, int M,
+                                         int m0, long long r0, bool vec) {
+    const int wm = TL::wm0(), wn = TL::wn0();
+    const int g = dmma::lane_g(), t = dmma::lane_t();
+#pragma unroll
+    for (int i = 0; i < TL::MI; ++i)
+#pragma unroll
+        for (int j = 0; j < TL::NJ; ++j) {
+            const int m = wm + 16 * i + g, r = wn + 8 * j + 2 * t;
+            Cs[r * TL::PCT + m] = acc[i][j][0];
+            Cs[(r + 1) * TL::PCT + m] = acc[i][j][1];
+            Cs[r * TL::PCT + m + 8] = acc[i][j][2];
+            Cs[(r + 1) * TL::PCT + m + 8] = acc[i][j][3];
+        }
+    __syncthreads();
+    double* o = out + r0 * M + m0;
+    if (vec)                               // M is even
+        write_tile<TL::BN, TL::BM, 2>(Cs, TL::PCT, o, M, R - r0, M - m0);
+    else
+        write_tile<TL::BN, TL::BM, 1>(Cs, TL::PCT, o, M, R - r0, M - m0);
+}
+
+template <int VA, int VB>
+__global__ void __launch_bounds__(kThreads, TileMR::MINB)
+stage_kernel(const double* __restrict__ X, const double* __restrict__ T,
+             int K, long long R, int M, double* __restrict__ out, int vec) {
+    using TL = TileMR;
+    extern __shared__ __align__(16) double smem[];
+    int m0;
+    long long r0;
+    Acc<TL> acc;
+    block_start<TL>(M, m0, r0, acc);
+    product<TL, VA, VB>(One{X, T}, K, R, M, m0, r0, smem, acc);
+    store_rm<TL>(acc, smem, out, R, M, m0, r0, vec);
+}
+
+template <int VA, int VB>
+__global__ void __launch_bounds__(kThreads, TileFold::MINB)
+fold_kernel(const __grid_constant__ Terms terms, int K, long long R, int M,
+            double* __restrict__ out, int vec) {
+    using TL = TileFold;
+    extern __shared__ __align__(16) double smem[];
+    int m0;
+    long long r0;
+    Acc<TL> acc;
+    block_start<TL>(M, m0, r0, acc);
+    product<TL, VA, VB>(terms, K, R, M, m0, r0, smem, acc);
+    store_rm<TL>(acc, smem, out, R, M, m0, r0, vec);
+}
+
+template <int VA, int VB>
+__global__ void __launch_bounds__(kThreads, TileMR::MINB)
+stage_T_kernel(const double* __restrict__ X, const double* __restrict__ T,
+               int K, long long R, int M, double* __restrict__ out,
+               int vec) {
+    using TL = TileMR;
+    extern __shared__ __align__(16) double smem[];
+    int m0;
+    long long r0;
+    Acc<TL> acc;
+    block_start<TL>(M, m0, r0, acc);
+    product<TL, VA, VB>(One{X, T}, K, R, M, m0, r0, smem, acc);
+    store_mr<TL>(acc, smem, out, R, M, m0, r0, vec);
+}
+
+// One launch of `kernel` over the (M, R) output in TL's tiles.
+template <class TL, class... P, class... A>
+static int launch(void (*kernel)(P...), long long R, int M, cudaStream_t s,
+                  A... args) {
+    const long long blocks =
+        (long long)((M + TL::BM - 1) / TL::BM) * ((R + TL::BN - 1) / TL::BN);
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        stage_T_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned int)((M + kBM - 1) / kBM),
-                    (unsigned int)((R + kBN - 1) / kBN));
-    stage_T_kernel<VEC><<<grid, kThreads, kSmem, s>>>(X, T, K, R, M, out);
+    kernel<<<(unsigned int)blocks, kThreads, TL::SMEM, s>>>(args...);
     return (int)cudaGetLastError();
 }
 
-}  // namespace k7a
+}  // namespace tc
+
+// KERNEL<VA, VB>: the copy widths (1 or 2 doubles) of its T and X tiles
+#define PYIGA_TC_PICK(KERNEL, VA, VB)                                       \
+    ((VA) == 2 ? ((VB) == 2 ? KERNEL<2, 2> : KERNEL<2, 1>)                  \
+               : ((VB) == 2 ? KERNEL<1, 2> : KERNEL<1, 1>))
 
 struct TailTerms {
     const double* x[kMaxTerms];
@@ -896,13 +1034,37 @@ static int launch(const TailTerms& terms, int M1, int K2, int K3, int M2,
 
 }  // namespace
 
+static bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The order in which K3 and K7b visit n terms: grouped by their table
+// pointer `tab[t]`, groups in order of first appearance, terms in their
+// given order within a group (a fixed order: the kernels are
+// deterministic).  Fills order[n] with term indices and end[g] with one
+// past group g's last position; returns the number of groups.
+static int group_by_table(const uint64_t* tab, int n, int* order, int* end) {
+    int q = 0, groups = 0;
+    for (int u = 0; u < n; ++u) {
+        bool first = true;
+        for (int v = 0; v < u; ++v) first = first && tab[v] != tab[u];
+        if (!first) continue;
+        for (int t = u; t < n; ++t)
+            if (tab[t] == tab[u]) order[q++] = t;
+        end[groups++] = q;
+    }
+    return groups;
+}
+
 PYIGA_EXPORT int pyiga_stage_f64(const double* X, const double* T, double* out,
                                  int K, long long R, int M, void* stream) {
-    const dim3 grid((unsigned int)((R + kBR - 1) / kBR),
-                    (unsigned int)((M + kBM - 1) / kBM));
-    stage_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(X, T, K, R, M,
-                                                               out);
-    return (int)cudaGetLastError();
+    if (K < 1 || R < 1 || M < 1) return (int)cudaErrorInvalidValue;
+    const int va = K % 2 == 0 && aligned16(T) ? 2 : 1;
+    const int vb = R % 2 == 0 && aligned16(X) ? 2 : 1;
+    const int vec = M % 2 == 0 && aligned16(out);
+    return tc::launch<tc::TileMR>(PYIGA_TC_PICK(tc::stage_kernel, va, vb), R,
+                                  M, (cudaStream_t)stream, X, T, K, R, M,
+                                  out, vec);
 }
 
 // x_ptrs / t_ptrs: host arrays of n_terms device pointers (term t's field
@@ -910,34 +1072,36 @@ PYIGA_EXPORT int pyiga_stage_f64(const double* X, const double* T, double* out,
 PYIGA_EXPORT int pyiga_fold_f64(const uint64_t* x_ptrs, const uint64_t* t_ptrs,
                                 int n_terms, double* out, int K, long long R,
                                 int M, void* stream) {
-    if (n_terms < 1 || n_terms > kMaxTerms) return (int)cudaErrorInvalidValue;
-    FoldTerms terms;
-    terms.n = n_terms;
-    for (int t = 0; t < n_terms; ++t) {
-        terms.x[t] = reinterpret_cast<const double*>(x_ptrs[t]);
-        terms.t[t] = reinterpret_cast<const double*>(t_ptrs[t]);
+    if (n_terms < 1 || n_terms > kMaxTerms || K < 1 || R < 1 || M < 1)
+        return (int)cudaErrorInvalidValue;
+    int order[kMaxTerms];
+    tc::Terms terms;
+    terms.groups = group_by_table(t_ptrs, n_terms, order, terms.end);
+    bool va = K % 2 == 0, vb = R % 2 == 0;
+    for (int g = 0, q = 0; g < terms.groups; ++g) {
+        terms.t[g] = reinterpret_cast<const double*>(t_ptrs[order[q]]);
+        va = va && aligned16(terms.t[g]);
+        for (; q < terms.end[g]; ++q) {
+            terms.x[q] = reinterpret_cast<const double*>(x_ptrs[order[q]]);
+            vb = vb && aligned16(terms.x[q]);
+        }
     }
-    const dim3 grid((unsigned int)((R + kBR - 1) / kBR),
-                    (unsigned int)((M + kBM - 1) / kBM));
-    fold_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(terms, K, R, M,
-                                                              out);
-    return (int)cudaGetLastError();
-}
-
-static bool aligned16(const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+    const int vec = M % 2 == 0 && aligned16(out);
+    return tc::launch<tc::TileFold>(
+        PYIGA_TC_PICK(tc::fold_kernel, va ? 2 : 1, vb ? 2 : 1), R, M,
+        (cudaStream_t)stream, terms, K, R, M, out, vec);
 }
 
 PYIGA_EXPORT int pyiga_stage_T_f64(const double* X, const double* T,
                                    double* out, int K, long long R, int M,
                                    void* stream) {
-    if (K < 1 || R < 1 || M < 1 || (R + k7a::kBN - 1) / k7a::kBN > 65535)
-        return (int)cudaErrorInvalidValue;             // gridDim.y
-    cudaStream_t s = (cudaStream_t)stream;
-    if (K % 2 == 0 && R % 2 == 0 && aligned16(X) && aligned16(T)
-        && aligned16(out))
-        return k7a::launch<2>(X, T, K, R, M, out, s);
-    return k7a::launch<1>(X, T, K, R, M, out, s);
+    if (K < 1 || R < 1 || M < 1) return (int)cudaErrorInvalidValue;
+    const int va = K % 2 == 0 && aligned16(T) ? 2 : 1;
+    const int vb = R % 2 == 0 && aligned16(X) ? 2 : 1;
+    const int vec = R % 2 == 0 && aligned16(out);
+    return tc::launch<tc::TileMR>(PYIGA_TC_PICK(tc::stage_T_kernel, va, vb),
+                                  R, M, (cudaStream_t)stream, X, T, K, R, M,
+                                  out, vec);
 }
 
 // x_ptrs / t2_ptrs / t3_ptrs: host arrays of n_terms device pointers (term
@@ -951,24 +1115,19 @@ PYIGA_EXPORT int pyiga_tail_fused_f64(const uint64_t* x_ptrs,
         || K2 < 1 || K3 < 1)
         return (int)cudaErrorInvalidValue;
     if (M1 > 65535) return (int)cudaErrorInvalidValue;   // gridDim.y
-    // terms grouped by final table, groups in order of first appearance,
-    // terms in their given order within a group (a fixed order)
+    // the kernel finds the groups as runs of one final table
+    int order[kMaxTerms], end[kMaxTerms];
+    group_by_table(t3_ptrs, n_terms, order, end);
     TailTerms terms;
-    terms.n = 0;
+    terms.n = n_terms;
     bool vec = K2 % 2 == 0 && K3 % 2 == 0;
-    for (int u = 0; u < n_terms; ++u) {
-        bool first = true;
-        for (int v = 0; v < u; ++v) first = first && t3_ptrs[v] != t3_ptrs[u];
-        if (!first) continue;
-        for (int t = u; t < n_terms; ++t) {
-            if (t3_ptrs[t] != t3_ptrs[u]) continue;
-            const int q = terms.n++;
-            terms.x[q] = reinterpret_cast<const double*>(x_ptrs[t]);
-            terms.t2[q] = reinterpret_cast<const double*>(t2_ptrs[t]);
-            terms.t3[q] = reinterpret_cast<const double*>(t3_ptrs[t]);
-            vec = vec && aligned16(terms.x[q]) && aligned16(terms.t2[q])
-                  && aligned16(terms.t3[q]);
-        }
+    for (int q = 0; q < n_terms; ++q) {
+        const int t = order[q];
+        terms.x[q] = reinterpret_cast<const double*>(x_ptrs[t]);
+        terms.t2[q] = reinterpret_cast<const double*>(t2_ptrs[t]);
+        terms.t3[q] = reinterpret_cast<const double*>(t3_ptrs[t]);
+        vec = vec && aligned16(terms.x[q]) && aligned16(terms.t2[q])
+              && aligned16(terms.t3[q]);
     }
     cudaStream_t s = (cudaStream_t)stream;
     if (vec) return k7b::launch<2>(terms, M1, K2, K3, M2, M3, out, s);

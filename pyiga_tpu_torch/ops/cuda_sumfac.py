@@ -17,7 +17,8 @@ PyTorch version:
 * K2 :func:`stage` — one contraction stage ``(K, R) x (M, K) -> (R, M)``
   (``_stage_call``);
 * K3 :func:`fold` — the final stage of all terms summed into one output
-  written once (``_stage_call_fold``);
+  written once, the terms that share a table summed before it
+  (``_stage_call_fold``);
 * K7 :func:`stage_T` — one stage with the transposed output
   (``_stage_call_T``), and :func:`tail_fused` — stage 2 and the folded
   final stage of all terms of a 3-axis chain in one kernel
@@ -263,18 +264,27 @@ def stage_plain(X, T):
     return torch.tensordot(X, T, dims=([0], [1]))
 
 
+def _check_stage_args(name, X, T):
+    """Shapes and devices of one stage's operands (both devices)."""
+    if X.dim() != 2 or T.dim() != 2 or T.shape[1] != X.shape[0]:
+        raise ValueError('%s: X %s and T %s disagree in K'
+                         % (name, tuple(X.shape), tuple(T.shape)))
+    if T.device != X.device:
+        raise ValueError('%s: X on %s but T on %s'
+                         % (name, X.device, T.device))
+
+
 def stage(X, T):
     """K2: ``out[r, m] = sum_k X[k, r] T[m, k]`` for ``X (K, R)`` and a
-    table ``T (M, K)``; returns ``(R, M)``, float64."""
+    table ``T (M, K)``; returns ``(R, M)``, float64.  On the card it runs
+    on the f64 tensor cores."""
+    _check_stage_args('stage', X, T)
     if not _kernel_device(X, 'stage'):
         return stage_plain(X, T)
     _cuda.require(X, 'X', torch.float64, 2)
     _cuda.require(T, 'T', torch.float64, 2)
     K, R = X.shape
     M = T.shape[0]
-    if T.shape[1] != K:
-        raise ValueError('stage: X %s and T %s disagree in K'
-                         % (tuple(X.shape), tuple(T.shape)))
     out = torch.empty((R, M), dtype=torch.float64, device=X.device)
     with torch.cuda.device(X.device):
         err = _cuda.library().pyiga_stage_f64(
@@ -304,34 +314,48 @@ _FOLD_MAX_TERMS = 16     # kMaxTerms in csrc/sumfac.cu
 def fold(xs, tables, term_idx):
     """K3: ``sum_t stage(xs[t], tables[term_idx[t]])`` as one ``(R, M)``
     output written once; every ``xs[t]`` is ``(K, R)``, every table
-    ``(M, K)`` (deduplicated: `term_idx` maps terms to tables)."""
-    if len(xs) != len(term_idx):
+    ``(M, K)`` (deduplicated: `term_idx` maps terms to tables).
+
+    On the card it runs on the f64 tensor cores, and the terms that share
+    a table are summed before it is applied (groups in order of first
+    appearance, terms in their given order: the association of
+    :func:`~pyiga_tpu_torch.ops.sumfac.assemble_terms_folded`), so the
+    product runs once per distinct table; the result is deterministic and
+    equals :func:`fold_plain` to rounding.  More than 16 terms run as
+    several launches, summed."""
+    if not xs or len(xs) != len(term_idx):
         raise ValueError('fold: %d fields but %d table indices'
                          % (len(xs), len(term_idx)))
+    K, R = xs[0].shape
+    M = tables[0].shape[0]
+    dev = xs[0].device
+    for t, X in enumerate(xs):
+        if X.shape != (K, R) or X.device != dev:
+            raise ValueError('fold: xs[%d] is %s on %s, expected %s on %s'
+                             % (t, tuple(X.shape), X.device, (K, R), dev))
+    for i, T in enumerate(tables):
+        if T.shape != (M, K) or T.device != dev:
+            raise ValueError('fold: tables[%d] is %s on %s, expected %s on '
+                             '%s' % (i, tuple(T.shape), T.device, (M, K),
+                                     dev))
+    if not all(0 <= i < len(tables) for i in term_idx):
+        raise ValueError('fold: table indices %s outside [0, %d)'
+                         % (list(term_idx), len(tables)))
     if not _kernel_device(xs[0], 'fold'):
         return fold_plain(xs, tables, term_idx)
     if len(xs) > _FOLD_MAX_TERMS:       # the kernel's term-table capacity
         k = _FOLD_MAX_TERMS
         return (fold(xs[:k], tables, term_idx[:k])
                 + fold(xs[k:], tables, term_idx[k:]))
-    K, R = xs[0].shape
-    M = tables[0].shape[0]
     for t, X in enumerate(xs):
         _cuda.require(X, 'xs[%d]' % t, torch.float64, 2)
-        if X.shape != (K, R) or X.device != xs[0].device:
-            raise ValueError('fold: xs[%d] is %s on %s, expected %s on %s'
-                             % (t, tuple(X.shape), X.device, (K, R),
-                                xs[0].device))
     for i, T in enumerate(tables):
         _cuda.require(T, 'tables[%d]' % i, torch.float64, 2)
-        if T.shape != (M, K) or T.device != xs[0].device:
-            raise ValueError('fold: tables[%d] is %s, expected %s'
-                             % (i, tuple(T.shape), (M, K)))
     n = len(xs)
     xp = (ctypes.c_uint64 * n)(*[X.data_ptr() for X in xs])
     tp = (ctypes.c_uint64 * n)(*[tables[i].data_ptr() for i in term_idx])
-    out = torch.empty((R, M), dtype=torch.float64, device=xs[0].device)
-    with torch.cuda.device(out.device):
+    out = torch.empty((R, M), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
         err = _cuda.library().pyiga_fold_f64(
             ctypes.cast(xp, ctypes.c_void_p), ctypes.cast(tp, ctypes.c_void_p),
             n, out.data_ptr(), K, R, M, _cuda.stream_of(out))
@@ -354,15 +378,13 @@ def stage_T(X, T):
     table ``T (M, K)``; returns ``(M, R)``, float64 (K2 with the band axis
     first, so that :func:`tail_fused` reads each row as a ``(K2, K3)``
     slab).  On the card it runs on the f64 tensor cores."""
+    _check_stage_args('stage_T', X, T)
     if not _kernel_device(X, 'stage_T'):
         return stage_T_plain(X, T)
     _cuda.require(X, 'X', torch.float64, 2)
     _cuda.require(T, 'T', torch.float64, 2)
     K, R = X.shape
     M = T.shape[0]
-    if T.shape[1] != K or T.device != X.device:
-        raise ValueError('stage_T: X %s and T %s disagree in K or device'
-                         % (tuple(X.shape), tuple(T.shape)))
     out = torch.empty((M, R), dtype=torch.float64, device=X.device)
     with torch.cuda.device(X.device):
         err = _cuda.library().pyiga_stage_T_f64(
