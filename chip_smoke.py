@@ -5,8 +5,10 @@
 Builds the port's CUDA kernels from ``pyiga_tpu_torch/csrc``, holds each
 kernel against its plain PyTorch version on the card at the shapes of the
 3D p=3 n=48 main path (the stage K2 and the fold K3, both on the f64
-tensor cores, also at ragged shapes and launched twice for bitwise-equal
-output), checks the whole path on small inputs against the
+tensor cores, and the geometry fields K1, also at ragged shapes and
+launched twice for bitwise-equal output; K1's ``jac`` and ``mass`` kinds
+likewise in phases 4c and 4g), checks the whole path on small inputs
+against the
 CPU run and a golden stiffness fixture, then drives the main path
 (``StiffnessAssembler.assemble_banded`` -> ``RestrictedOperator`` ->
 ``fastdiag_precond_weighted`` -> ``cg_ir``) on the twisted box at 3D p=3
@@ -25,14 +27,17 @@ cold and warm, counting its launches (7).
 The hierarchical local-multigrid path (the bench's ``run_localmg``:
 ``HSpace`` refined toward the (1, 1) corner -> ``HDiscretization`` on
 ``unit_square`` with the on-demand ``bbox`` assemblers -> ``solvers.
-solve_hmultigrid`` -> ``DeviceMGSolver``, one K6 launch per V-cycle) has
-these phases: K6 against its plain version for one V-cycle from a seeded
-iterate on the (24, 3) and (48, 3) hierarchies (4e); the path at n0=6 on
-the card against the CPU (4f); the bench shape (24, 3), cold and warm,
-held to 29 iterations and to the port's host path in the same process
-(8); and (48, 3) through ``solve_hmultigrid(hs, A, f)`` with its
-defaults (above the JAX package's dense cutoff, where ``'auto'`` takes
-K6 up to ``tri_block_cutoff``), held to 27 (8b).
+solve_hmultigrid`` -> ``DeviceMGSolver``, one K6 launch per solve: every
+V-cycle and the convergence test run inside it) has these phases: K6
+against its plain version on the (24, 3) and (48, 3) hierarchies, one
+V-cycle from a seeded iterate and the whole solve against the host loop
+over the plain cycle, with each step of a cycle timed from a traced
+launch (4e); the path at n0=6 on the card against the CPU (4f); the bench
+shape (24, 3), cold and warm, held to 29 iterations and to the port's
+host path in the same process, one K6 launch per solve (8); and (48, 3)
+through ``solve_hmultigrid(hs, A, f)`` with its defaults (above the JAX
+package's dense cutoff, where ``'auto'`` takes K6 up to
+``tri_block_cutoff``), held to 27 (8b).
 
 The mass and time-stepping paths: K1's ``mass`` kind and K1' (the
 stiffness fields of a host-evaluated Jacobian) against their plain
@@ -90,10 +95,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # kernel -> (route, source, TPU kernel it replaces), for the JSON record
 KERNELS = {
-    'fields': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
+    'fields': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
                'pyiga_tpu/ops/pallas_sumfac.py:1087'),
     # the same pallas_call with kind='jac'
-    'geo_jac_fields': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
+    'geo_jac_fields': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
                        'pyiga_tpu/ops/pallas_sumfac.py:1087'),
     'stage': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
               'pyiga_tpu/ops/pallas_sumfac.py:353'),
@@ -109,10 +114,10 @@ KERNELS = {
     'vcycle': ('cuda', 'pyiga_tpu_torch/csrc/mg.cu',
                'pyiga_tpu/ops/mg_pallas.py:493'),
     # the K1 call site with kind='mass' (through mass_fields_pallas)
-    'mass_fields': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
+    'mass_fields': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
                     'pyiga_tpu/ops/pallas_sumfac.py:1087'),
     # K1': stiffness_fields_pallas's host-Jacobian branch
-    'host_jac_fields': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
+    'host_jac_fields': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
                         'pyiga_tpu/ops/pallas_sumfac.py:1163'),
     # K7: the transposed stage and the fused stage-2 + fold tail
     'stage_T': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
@@ -298,6 +303,58 @@ TAIL_RAGGED = ((5, 7, 9, 13, 11, 3, 2, 1), (3, 33, 200, 17, 600, 3, 2, 1),
                (2, 192, 384, 33, 385, 2, 1, 2))
 
 
+# K1 (d, nurbs, Q12, QL, nL): D = 2 and 3, NURBS and not, nL = 1..5 (5
+# takes the runtime-length loop), odd QL, QL above one block of threads,
+# Q12 not a multiple of the 16-row tile, and grids above and below two
+# blocks an SM (where the row tile shrinks)
+FIELDS_RAGGED = ((2, False, 37, 13, 1), (2, True, 515, 7, 2),
+                 (3, False, 1003, 45, 3), (3, True, 4099, 33, 4),
+                 (2, False, 261, 301, 5), (3, True, 77, 19, 5),
+                 (3, False, 10001, 9, 2), (2, True, 8191, 257, 3))
+
+
+def check_fields_ragged(kind, device, seed=8):
+    """K1's `kind` ('stiffness', 'mass' or 'jac') against its plain
+    version at :data:`FIELDS_RAGGED` on seeded inputs shaped like a
+    geometry's (positive value tables, centred derivative tables, each
+    component's partials dominant along its own axis, NURBS weights near
+    1), so that every Jacobian is well conditioned: 1e-13 relative to the
+    largest output, each launched twice for bitwise-equal output."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    fn, plain = {'stiffness': (cs.fields, cs.fields_plain),
+                 'mass': (cs.fields_mass, cs.fields_mass_plain),
+                 'jac': (cs.geo_jac_fields, cs.geo_jac_fields_plain)}[kind]
+    rng = np.random.RandomState(seed)
+    out = {}
+    for d, nurbs, Q12, QL, nL in FIELDS_RAGGED:
+        C = d + int(nurbs)
+        Y = 0.3 * rng.rand(d, C, Q12, nL)
+        for t in range(d - 1):
+            Y[t, t] += 2.0
+        Y[d - 1, :d] += 1.0
+        Y[d - 1, d - 1] += 3.0 * np.arange(nL)
+        if nurbs:
+            Y[:, C - 1] *= 0.2
+            Y[d - 1, C - 1] += 1.0
+        T = np.stack([rng.rand(QL, nL) + 0.5,
+                      np.arange(nL) - (nL - 1) / 2.0
+                      + 0.3 * rng.rand(QL, nL)])
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=device)
+        args = (dev(Y), dev(T))
+        if kind != 'jac':
+            args += (dev(rng.rand(Q12) + 0.5), dev(rng.rand(QL) + 0.5))
+        args += (nurbs,)
+        got, ref = fn(*args), plain(*args)
+        sync(device)
+        key = '%dD%s Q12=%d QL=%d nL=%d' % (d, ' NURBS' if nurbs else '',
+                                            Q12, QL, nL)
+        out[key] = compare('%s %s' % (kind, key), got, ref, 1e-13)
+        check_repeat('%s %s' % (kind, key), lambda: fn(*args), got)
+    return out
+
+
 def check_repeat(name, fn, got):
     """A second launch on the same inputs gives bitwise-equal output (no
     atomics, a fixed summation order)."""
@@ -339,7 +396,8 @@ def check_kernels(device, n=48, seed=0):
     args = (Y, T, w12, wL, False)
     got, ref = cs.fields(*args), cs.fields_plain(*args)
     sync(device)
-    err, rel = compare('fields', got, ref, 1e-12)
+    err, rel = compare('fields', got, ref, 1e-13)
+    check_repeat('fields', lambda: cs.fields(*args), got)
     # per point: the last-axis contraction (C x d dots of nL) + det/inverse
     d, C, _, nL = Y.shape
     out['fields'] = dict(max_abs_err=err, rel=rel,
@@ -351,6 +409,8 @@ def check_kernels(device, n=48, seed=0):
                          **bound(nbytes(Y, T, w12, wL, got),
                                  got[0].numel() * (2 * C * d * nL + 100),
                                  F64_FMA_PER_MS))
+    out['fields']['repeat_equal'] = True
+    out['fields']['ragged'] = check_fields_ragged('stiffness', device)
     del Y, got, ref, args
 
     # K2 at both chain-stage shapes, real banded tables
@@ -596,6 +656,28 @@ def convdiff_setup(n, device):
     return kvs, geo, asm, asm_f
 
 
+# an empty kernel: its event time through ctypes is the floor under any
+# kernel timed through its wrapper
+EMPTY_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int launch_empty(void* stream) {
+    empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_launch_ms(device):
+    """Event time of one empty launch, by ctypes, 200 back to back."""
+    import ctypes
+    from pyiga_tpu_torch import _cuda
+    lib = _cuda.build_generated('empty_kernel', EMPTY_SRC)
+    lib.launch_empty.argtypes = [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return time_ms(lambda: lib.launch_empty(stream), device, reps=200)
+
+
 def check_vform_kernels(device):
     """Phase 4c: K1's jac kind against its plain version on the 2D
     annulus at n=128 and the 3D twisted box at n=48, and the generated K5
@@ -623,7 +705,9 @@ def check_vform_kernels(device):
         got = cs.geo_jac_fields(Y, T, nurbs)
         ref = cs.geo_jac_fields_plain(Y, T, nurbs)
         sync(device)
-        err, rel = compare('geo_jac ' + name[:9], got, ref, 1e-12)
+        err, rel = compare('geo_jac ' + name[:9], got, ref, 1e-13)
+        check_repeat('geo_jac ' + name[:9],
+                     lambda: cs.geo_jac_fields(Y, T, nurbs), got)
         # per point: C x (d + 1) dots of nL, the NURBS quotient
         C, nL = Y.shape[1], Y.shape[3]
         cases[name] = dict(
@@ -636,7 +720,12 @@ def check_vform_kernels(device):
                     got[0].numel() * (2 * C * (d + 1) * nL + 30),
                     F64_FMA_PER_MS))
         del Y, got, ref
-    out = {'geo_jac_fields': dict(cases['2d_n128_nurbs'], cases=cases)}
+    out = {'geo_jac_fields': dict(cases['2d_n128_nurbs'], cases=cases,
+                                  repeat_equal=True,
+                                  ragged=check_fields_ragged('jac', device),
+                                  empty_launch_ms=empty_launch_ms(device))}
+    log('  empty launch (the floor of a wrapper-timed kernel): %.4f ms'
+        % out['geo_jac_fields']['empty_launch_ms'])
 
     # K5 on the plan's combos of the n=128 path
     plan = asm._fold_plan or [(t, False) for t in range(len(asm.combos))]
@@ -825,72 +914,127 @@ def localmg_solver(hs, A, device, impl):
 
 def vcycle_bound(ops, x, f):
     """K6's bound for one cycle: every operand of the hierarchy, x and f
-    read once, x written once; the operations counted are the dense
-    triangular inverses applied once per listed sweep and the coarse
-    inverse once (a lower bound: the ELL products are left out)."""
-    tensors, seen = [ops.ind0, ops.Cinv, ops.mask, x, f, x], set()
-    flops = 2 * ops.Cinv.numel()
+    read once, x written once, each triangular inverse T over its occupied
+    entries only (from each row's first to its last nonzero); the
+    operations counted are T's occupied entries once per listed sweep and
+    the coarse inverse once (a lower bound: the ELL products are left
+    out)."""
+    tensors, seen = [ops.ind0, ops.mask, x, f, x], set()
+    nbytes_dense = 8 * ops.Cinv.m ** 2
+    flops = 2 * ops.Cinv.m ** 2
     for lev in ops.levels:
         for key, val in lev.items():
             for t in (val if isinstance(val, (list, tuple)) else [val]):
-                if id(t) not in seen:
-                    seen.add(id(t))
+                if id(t) in seen:
+                    continue
+                seen.add(id(t))
+                if key in ('pre', 'post'):
+                    nbytes_dense += 8 * t.entries
+                else:
                     tensors.append(t)
         for T in lev.get('pre', []) + lev.get('post', []):
-            flops += 2 * T.numel()
-    return bound(nbytes(*tensors), flops, F64_FMA_PER_MS)
+            flops += 2 * ops.steps * T.entries
+    return bound(nbytes(*tensors) + nbytes_dense, flops, F64_FMA_PER_MS)
+
+
+def localmg_problem(n0, L, device):
+    """Hierarchy, matrix and right-hand side of the local-MG path."""
+    hs = localmg_space(n0, L)
+    hd = localmg_discretization(hs, device)
+    return hs, hd.assemble_matrix(), hd.assemble_rhs()
 
 
 def check_vcycle_kernel(device):
-    """Phase 4e: K6 against its plain version, one V-cycle from a seeded
-    iterate and right-hand side, on the operands of the (24, 3) and
-    (48, 3) hierarchies (1e-13 relative to the largest entry)."""
+    """Phase 4e: K6 against its plain version on the operands of the
+    (24, 3) and (48, 3) hierarchies: one V-cycle from a seeded iterate and
+    right-hand side (1e-13 relative to the largest entry, a second launch
+    bitwise equal), and the whole solve from zero for the path's
+    right-hand side against the host loop over the plain cycle (the same
+    cycle count, x and the per-cycle res2 to 1e-12 relative).  Times: one
+    cycle by its own launch, the solve's launch divided by its cycles, and
+    from a traced solve the time of each step of its second cycle (block
+    0's ``%globaltimer`` after each grid barrier)."""
     from pyiga_tpu_torch.ops import cuda_mg
     cpu = torch.device('cpu')
     cases = {}
     for n0, L in LOCALMG_ITERS:
-        hs = localmg_space(n0, L)
-        A = localmg_discretization(hs, cpu).assemble_matrix()
+        hs, A, fh = localmg_problem(n0, L, cpu)
         t0 = time.perf_counter()
         s = localmg_solver(hs, A, device, 'fused')
         sync(device)
         t_setup = time.perf_counter() - t0
+        ops = s.ops
+        name = '(%d,%d)' % (n0, L)
         rng = np.random.RandomState(n0)
         x = torch.as_tensor(rng.rand(A.shape[0]), dtype=torch.float64,
                             device=device)
         f = torch.as_tensor(rng.rand(A.shape[0]), dtype=torch.float64,
                             device=device)
-        got, ref = cuda_mg.vcycle(s.ops, x, f), cuda_mg.vcycle_plain(s.ops,
-                                                                    x, f)
+        got, ref = cuda_mg.vcycle(ops, x, f), cuda_mg.vcycle_plain(ops, x, f)
         sync(device)
-        err, rel = compare('vcycle (%d,%d)' % (n0, L), got[0], ref[0], 1e-13)
-        err2, rel2 = compare('res2 (%d,%d)' % (n0, L), got[1].reshape(1),
-                             ref[1].reshape(1), 1e-13)
-        m = [int(lev['S'].shape[0]) for lev in s.ops.levels[1:]]
-        cases['%d_%d' % (n0, L)] = dict(
-            max_abs_err=err, rel=rel, res2_rel=rel2, n=s.ops.n, m=m,
-            m0=int(s.ops.ind0.shape[0]),
-            blocks=cuda_mg._grid_blocks(device),
-            solver_setup_ms=1e3 * t_setup,
-            ms=time_ms(lambda: cuda_mg.vcycle(s.ops, x, f), device, reps=20),
-            plain_ms=time_ms(lambda: cuda_mg.vcycle_plain(s.ops, x, f),
-                             device, reps=5),
-            library_ms=None, **vcycle_bound(s.ops, x, f))
-        log('  (%d,%d): n %s  m %s  m0 %d  blocks %d  solver setup %.0f ms'
-            % (n0, L, s.ops.n, m, cases['%d_%d' % (n0, L)]['m0'],
-               cases['%d_%d' % (n0, L)]['blocks'], 1e3 * t_setup))
-        del s, x, f, got, ref
-    out = {'vcycle': dict(cases['24_3'], cases=cases)}
-    for name, r in cases.items():
-        log('  vcycle %-9s kernel %.4f ms   plain %.4f ms' % (name, r['ms'],
-                                                             r['plain_ms']))
-    return out
+        err, rel = compare('vcycle ' + name, got[0], ref[0], 1e-13)
+        _, rel2 = compare('res2 ' + name, got[1].reshape(1),
+                          ref[1].reshape(1), 1e-13)
+        check_repeat('vcycle ' + name, lambda: cuda_mg.vcycle(ops, x, f)[0],
+                     got[0])
+        fp = torch.as_tensor(fh, dtype=torch.float64, device=device)
+        res0 = np.float64(torch.linalg.vector_norm(fp * ops.mask).item())
+        xs, its, _, hists = cuda_mg.vcycle_solve_plain(ops, fp, res0, 1e-8,
+                                                       100)
+        xg, itg, _, histg = cuda_mg.vcycle_solve(ops, fp, res0, 1e-8, 100)
+        if itg != its:
+            raise RuntimeError('K6 solve %s took %d cycles, the plain loop %d'
+                               % (name, itg, its))
+        _, rel_x = compare('solve x ' + name, xg, xs, 1e-12)
+        _, rel_h = compare('solve res2 ' + name, histg, hists, 1e-12)
+        xz = torch.zeros_like(fp)
+        solve_ms = time_ms(lambda: cuda_mg.launch_solve(
+            ops, xz.zero_(), fp, res0, 1e-8, 100), device, reps=10)
+        # a traced solve: the steps of its second cycle
+        first, names = cuda_mg.phase_names(ops, first=True), \
+            cuda_mg.phase_names(ops)
+        trace = torch.zeros(len(first) + len(names) + 1, dtype=torch.int64,
+                            device=device)
+        traced_ms = time_ms(lambda: cuda_mg.launch_solve(
+            ops, xz.zero_(), fp, res0, 1e-8, 100, trace=trace), device,
+            reps=10)
+        ts = trace.cpu().numpy()[len(first):]
+        steps_us = [(nm, 1e-3 * float(t1 - t0_))
+                    for nm, t0_, t1 in zip(names, ts[:-1], ts[1:])]
+        blocks, smem = cuda_mg._launch_shape(ops, device)
+        m = [int(lev['S'].shape[0]) for lev in ops.levels[1:]]
+        key = '%d_%d' % (n0, L)
+        cases[key] = dict(
+            max_abs_err=err, rel=rel, res2_rel=rel2, solve_x_rel=rel_x,
+            solve_res2_rel=rel_h, repeat_equal=True, cycles=itg,
+            blocks=blocks, smem_bytes=smem, n=ops.n, m=m,
+            m0=int(ops.ind0.shape[0]), solver_setup_ms=1e3 * t_setup,
+            cycle_ms=time_ms(lambda: cuda_mg.vcycle(ops, x, f), device,
+                             reps=20),
+            solve_ms=solve_ms, ms=solve_ms / itg, traced_solve_ms=traced_ms,
+            cycle2_steps_us=steps_us,
+            plain_ms=time_ms(lambda: cuda_mg.vcycle_plain(ops, x, f), device,
+                             reps=5),
+            library_ms=None, **vcycle_bound(ops, x, f))
+        r = cases[key]
+        log('  %s: n %s  m %s  m0 %d  %d blocks, %d B shared  solver setup '
+            '%.0f ms' % (name, ops.n, m, r['m0'], blocks, smem,
+                         1e3 * t_setup))
+        log('  vcycle %s one cycle %.4f ms   solve %.4f ms / %d cycles = '
+            '%.4f ms a cycle (traced %.4f ms)   plain %.4f ms a cycle   '
+            'bound %.4f ms' % (name, r['cycle_ms'], solve_ms, itg, r['ms'],
+                               traced_ms, r['plain_ms'], r['bound_ms']))
+        log('  cycle 2 steps (us): %s'
+            % ', '.join('%s %.2f' % st for st in steps_us))
+        del s, ops, x, f, fp, got, ref
+    return {'vcycle': dict(cases['24_3'], cases=cases)}
 
 
 def check_localmg_small(device):
     """Phase 4f: the local-MG path at n0=6, L=3 ('gs'): assembly and the
     device solve on the card against the CPU run of the plain versions
-    and the host path; equal iteration counts, x to 1e-12."""
+    and the host path; equal iteration counts, x to 1e-12.  Then K6's
+    solve with 0 and 1 smoothing steps against its plain loop."""
     from pyiga_tpu_torch import solvers
     cpu = torch.device('cpu')
     hs = localmg_space(6)
@@ -914,9 +1058,27 @@ def check_localmg_small(device):
     if not (ig == ic == ih and err_A <= 1e-13 and err_f <= 1e-13
             and err_x <= 1e-12 and err_xh <= 1e-12):
         raise RuntimeError('card local-MG path disagrees with the CPU run')
+    # K6's solve with 0 and 1 smoothing steps (with none, the kernel adds a
+    # barrier between the residual sum and the next cycle's first write to
+    # r) against the plain loop on the same operands, at most 20 cycles
+    from pyiga_tpu_torch.ops import cuda_mg
+    steps_rel = {}
+    for steps in (0, 1):
+        ops = solvers._device_mg_solver(hs, Ag, 'cell_supp', 'gs', steps,
+                                        device).ops
+        ft = torch.as_tensor(fg, dtype=torch.float64, device=device)
+        res0 = np.float64(torch.linalg.vector_norm(ft * ops.mask).item())
+        xk, itk, _, hk = cuda_mg.vcycle_solve(ops, ft, res0, 1e-8, 20)
+        xp, itp, _, hp = cuda_mg.vcycle_solve_plain(ops, ft, res0, 1e-8, 20)
+        if itk != itp:
+            raise RuntimeError('K6 with %d smoothing steps took %d cycles, '
+                               'the plain loop %d' % (steps, itk, itp))
+        _, rel = compare('solve x steps=%d' % steps, xk, xp, 1e-12)
+        compare('solve res2 steps=%d' % steps, hk, hp, 1e-12)
+        steps_rel[steps] = dict(cycles=itk, x_rel=rel)
     return dict(n6_dofs=hs.numdofs, n6_A_rel=err_A, n6_f_rel=err_f,
                 n6_x_rel=err_x, n6_x_host_rel=err_xh, n6_iters_card=ig,
-                n6_iters_cpu=ic, n6_iters_host=ih)
+                n6_iters_cpu=ic, n6_iters_host=ih, n6_smooth_steps=steps_rel)
 
 
 def run_localmg(device, n0, L=3, impl=None):
@@ -1012,6 +1174,10 @@ def run_localmg(device, n0, L=3, impl=None):
     missing = [k for k in LOCALMG_KERNELS if launches[k] <= 0]
     if missing:
         raise RuntimeError('local-MG path never launched %s' % missing)
+    # the warm-up solve and the two timed ones: one K6 launch each
+    if launches['vcycle'] != 3:
+        raise RuntimeError('K6 launched %d times for 3 solves'
+                           % launches['vcycle'])
     return rec
 
 
@@ -1059,6 +1225,7 @@ def check_mass_kernels(device, n3=48, n2=128):
         got, ref = cs.fields_mass(*args), cs.fields_mass_plain(*args)
         sync(device)
         err, rel = compare('mass ' + name[:10], got, ref, 1e-13)
+        check_repeat('mass ' + name[:10], lambda: cs.fields_mass(*args), got)
         Y = args[0]
         d, C, _, nL = Y.shape
         out['mass_fields'][name] = dict(
@@ -1105,6 +1272,8 @@ def check_mass_kernels(device, n3=48, n2=128):
     # (phase 9's 3D mass path, phase 10b's user geometry at full width)
     res = {k: dict(v['3d_n48_bspline' if k == 'mass_fields'
                      else '2d_n128_user'], cases=v) for k, v in out.items()}
+    res['mass_fields'].update(repeat_equal=True,
+                              ragged=check_fields_ragged('mass', device))
     for k, r in res.items():
         for name, c in r['cases'].items():
             log('  %-16s %-15s kernel %.4f ms   plain %.4f ms'

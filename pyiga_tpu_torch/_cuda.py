@@ -18,6 +18,7 @@ in :data:`LAUNCHES` (a plain dict of integers), so a run can show that it
 went through the kernels.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -44,6 +45,7 @@ LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'mass_fields': 0,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {
     'pyiga_stiff_fields_f64': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
     'pyiga_mass_fields_f64': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
@@ -55,8 +57,9 @@ _SIGNATURES = {
     'pyiga_tail_fused_f64': (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     'pyiga_flat_banded_f64': (_P, _P, _P, _P, _I, _L, _L, _P),
     'pyiga_flat_banded_f32': (_P, _P, _P, _P, _I, _L, _L, _P),
-    'pyiga_vcycle_grid': (_I, _P),
-    'pyiga_vcycle_f64': (_P, _P, _P, _P, _P, _I, _P),
+    'pyiga_vcycle_blocks': (_I, _L, _P),
+    'pyiga_vcycle_f64': (_P, _P, _P, _P, _P, _P, _D, _D, _I, _P, _I, _I, _L,
+                         _P),
 }
 
 _lock = threading.Lock()
@@ -185,6 +188,8 @@ def library():
                 fn = getattr(lib, name)
                 fn.argtypes = list(args)
                 fn.restype = ctypes.c_int
+            lib.pyiga_vcycle_smem.argtypes = [_L]
+            lib.pyiga_vcycle_smem.restype = _L
             lib.pyiga_error_string.argtypes = [ctypes.c_int]
             lib.pyiga_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -198,8 +203,21 @@ def check(err, name):
 
 
 def stream_of(t):
-    """Handle of PyTorch's current stream on `t`'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of PyTorch's current stream on `t`'s device (the raw handle:
+    building a ``torch.cuda.Stream`` for it costs microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def device_of(t):
+    """A context that makes `t`'s device current for a launch: nothing to
+    do when it already is (the usual case; switching and restoring costs
+    microseconds a launch)."""
+    if torch._C._cuda_getDevice() == t.device.index:
+        return _SAME_DEVICE
+    return torch.cuda.device(t.device)
 
 
 def require(t, name, dtype, ndim):

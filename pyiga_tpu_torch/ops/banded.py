@@ -138,7 +138,7 @@ def flat_banded_matvec(D, xp, offs, lead):
                          'disagree' % (tuple(D.shape), tuple(xp.shape),
                                        tuple(offs.shape), lead))
     y = torch.empty(F, dtype=D.dtype, device=D.device)
-    with torch.cuda.device(D.device):
+    with _cuda.device_of(D):
         err = getattr(_cuda.library(), fn)(
             D.data_ptr(), xp.data_ptr(), offs.data_ptr(), y.data_ptr(),
             C, F, lead, _cuda.stream_of(D))

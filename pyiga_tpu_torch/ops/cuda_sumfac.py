@@ -2,8 +2,8 @@
 """CUDA kernels of the sum-factorization assembly and the pipeline built
 on them (counterpart of :mod:`pyiga_tpu.ops.pallas_sumfac`).
 
-Five kernels (sources in ``csrc/sumfac.cu``), each beside its plain
-PyTorch version:
+Five kernels (sources in ``csrc/fields.cu`` for K1 and K1',
+``csrc/sumfac.cu`` for the rest), each beside its plain PyTorch version:
 
 * K1 :func:`fields` — geometry fields ``B_ab = W (J^-1 J^-T)_ab`` per
   Gauss point, fusing the last-axis Jacobian contraction, the NURBS
@@ -127,7 +127,7 @@ def fields(Y, T, w12, wL, nurbs):
     d, Q12, QL, nL = _check_fields_args('fields', Y, T, w12, wL, nurbs)
     out = torch.empty((d * (d + 1) // 2, Q12, QL), dtype=torch.float64,
                       device=Y.device)
-    with torch.cuda.device(Y.device):
+    with _cuda.device_of(Y):
         err = _cuda.library().pyiga_stiff_fields_f64(
             Y.data_ptr(), T.data_ptr(), w12.data_ptr(), wL.data_ptr(),
             out.data_ptr(), d, int(bool(nurbs)), Q12, QL, nL,
@@ -152,7 +152,7 @@ def fields_mass(Y, T, w12, wL, nurbs):
         return fields_mass_plain(Y, T, w12, wL, nurbs)
     d, Q12, QL, nL = _check_fields_args('fields_mass', Y, T, w12, wL, nurbs)
     out = torch.empty((Q12, QL), dtype=torch.float64, device=Y.device)
-    with torch.cuda.device(Y.device):
+    with _cuda.device_of(Y):
         err = _cuda.library().pyiga_mass_fields_f64(
             Y.data_ptr(), T.data_ptr(), w12.data_ptr(), wL.data_ptr(),
             out.data_ptr(), d, int(bool(nurbs)), Q12, QL, nL,
@@ -192,7 +192,7 @@ def host_jac_fields(jac, gw):
                          % (tuple(jac.shape), tuple(gw.shape)))
     out = torch.empty((d * (d + 1) // 2, N), dtype=torch.float64,
                       device=jac.device)
-    with torch.cuda.device(jac.device):
+    with _cuda.device_of(jac):
         err = _cuda.library().pyiga_host_jac_fields_f64(
             jac.data_ptr(), gw.data_ptr(), out.data_ptr(), d, N,
             _cuda.stream_of(jac))
@@ -246,7 +246,7 @@ def geo_jac_fields(Y, T, nurbs):
         raise ValueError('geo_jac_fields: T %s disagrees with Y %s'
                          % (tuple(T.shape), tuple(Y.shape)))
     out = torch.empty((d + d * d, Q12, QL), dtype=f64, device=Y.device)
-    with torch.cuda.device(Y.device):
+    with _cuda.device_of(Y):
         err = _cuda.library().pyiga_geo_jac_fields_f64(
             Y.data_ptr(), T.data_ptr(), out.data_ptr(), d, int(bool(nurbs)),
             Q12, QL, nL, _cuda.stream_of(Y))
@@ -286,7 +286,7 @@ def stage(X, T):
     K, R = X.shape
     M = T.shape[0]
     out = torch.empty((R, M), dtype=torch.float64, device=X.device)
-    with torch.cuda.device(X.device):
+    with _cuda.device_of(X):
         err = _cuda.library().pyiga_stage_f64(
             X.data_ptr(), T.data_ptr(), out.data_ptr(), K, R, M,
             _cuda.stream_of(X))
@@ -355,7 +355,7 @@ def fold(xs, tables, term_idx):
     xp = (ctypes.c_uint64 * n)(*[X.data_ptr() for X in xs])
     tp = (ctypes.c_uint64 * n)(*[tables[i].data_ptr() for i in term_idx])
     out = torch.empty((R, M), dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
+    with _cuda.device_of(out):
         err = _cuda.library().pyiga_fold_f64(
             ctypes.cast(xp, ctypes.c_void_p), ctypes.cast(tp, ctypes.c_void_p),
             n, out.data_ptr(), K, R, M, _cuda.stream_of(out))
@@ -386,7 +386,7 @@ def stage_T(X, T):
     K, R = X.shape
     M = T.shape[0]
     out = torch.empty((M, R), dtype=torch.float64, device=X.device)
-    with torch.cuda.device(X.device):
+    with _cuda.device_of(X):
         err = _cuda.library().pyiga_stage_T_f64(
             X.data_ptr(), T.data_ptr(), out.data_ptr(), K, R, M,
             _cuda.stream_of(X))
@@ -450,7 +450,7 @@ def tail_fused(x1T, tc2, tc3, idx2, idx3):
     t2 = (ctypes.c_uint64 * n)(*[tc2[i].data_ptr() for i in idx2])
     t3 = (ctypes.c_uint64 * n)(*[tc3[i].data_ptr() for i in idx3])
     out = torch.empty((M1, M2, M3), dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
+    with _cuda.device_of(out):
         err = _cuda.library().pyiga_tail_fused_f64(
             ctypes.cast(xp, ctypes.c_void_p), ctypes.cast(t2, ctypes.c_void_p),
             ctypes.cast(t3, ctypes.c_void_p), n, out.data_ptr(), M1, K2, K3,

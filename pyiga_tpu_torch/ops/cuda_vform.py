@@ -475,7 +475,7 @@ def vform_fields(program, Y, P):
     fn = _entry(program)
     N = Y.shape[1]
     out = torch.empty((len(program.outputs), N), dtype=f64, device=Y.device)
-    with torch.cuda.device(Y.device):
+    with _cuda.device_of(Y):
         err = fn(Y.data_ptr(), P.data_ptr(), out.data_ptr(), N,
                  _cuda.stream_of(Y))
     _cuda.check(err, 'vform_fields')

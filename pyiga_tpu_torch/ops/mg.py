@@ -10,16 +10,14 @@ with it; they are the numerical contract.
 Each Gauss-Seidel sweep over a smoothing set ``S`` is applied in its
 algebraic form ``x_S += T (b - A x)_S``, with ``T`` the inverse of the
 lower (upper, for a backward sweep) triangle of ``A[S][:, S]`` in sweep
-order (:func:`_tri_inverse`), built once on the host.  One whole V-cycle
-plus the masked residual norm is one launch of kernel K6
-(:mod:`~pyiga_tpu_torch.ops.cuda_mg`); the host reads the residual after
-each cycle.  The JAX package's two-float cycle exists for the TPU's
-missing f64 and is not ported; K6 takes the place of its ``'tri'`` set
-up to ``tri_block_cutoff``, and its ``'wavefront'`` set beyond that
-waits for ``ops/relax.py``.
+order (:func:`_tri_inverse`), built once on the host.  A whole solve
+(every V-cycle, the masked residual norm and the convergence test) is one
+launch of kernel K6 (:mod:`~pyiga_tpu_torch.ops.cuda_mg`); the host reads
+the cycle count and the residual once per solve.  The JAX package's
+two-float cycle exists for the TPU's missing f64 and is not ported; K6
+takes the place of its ``'tri'`` set up to ``tri_block_cutoff``, and its
+``'wavefront'`` set beyond that waits for ``ops/relax.py``.
 """
-
-import math
 
 import numpy as np
 import scipy.sparse
@@ -87,7 +85,7 @@ def _tri_smoother_pack(A, indices, reverse=False):
 
 class DeviceMGSolver:
     """Local multigrid solver for a fixed hierarchy, one K6 launch per
-    V-cycle.
+    solve.
 
     Args mirror :func:`pyiga_tpu_torch.solvers.local_mg_step`: the
     Galerkin matrix hierarchy `As` (finest last), the virtual-hierarchy
@@ -99,9 +97,10 @@ class DeviceMGSolver:
 
     `smoother_impl`:
 
-    * ``'fused'``: the V-cycle through :func:`~pyiga_tpu_torch.ops.
-      cuda_mg.vcycle`, which launches K6 on a CUDA device (and runs its
-      plain version on the CPU), at any size that fits the device;
+    * ``'fused'``: the solve loop through :func:`~pyiga_tpu_torch.ops.
+      cuda_mg.vcycle_solve`, which launches K6 once on a CUDA device (and
+      runs its plain version, the host loop over the plain cycle, on the
+      CPU), at any size that fits the device;
     * ``'dense'``: the plain PyTorch f64 cycle
       (:func:`~pyiga_tpu_torch.ops.cuda_mg.vcycle_plain`) on any device;
     * ``'auto'``: ``'fused'`` for ``n <= dense_cutoff`` finest dofs, for
@@ -191,19 +190,16 @@ class DeviceMGSolver:
         """Run ``x <- vcycle(x)`` from zero until the masked residual drops
         by `tol`; returns ``(x, iterations)`` (host numpy `x`) with
         ``inf`` iterations on non-convergence (the semantics and the
-        comparison form of ``iterative_solve``)."""
+        comparison form of ``iterative_solve``).  ``'fused'`` runs the
+        whole loop in one K6 launch on a CUDA device; ``'dense'`` loops on
+        the host over the plain cycle."""
         ops = self.ops
-        cycle = (cuda_mg.vcycle if self.smoother_impl == 'fused'
-                 else cuda_mg.vcycle_plain)
+        solve = (cuda_mg.vcycle_solve if self.smoother_impl == 'fused'
+                 else cuda_mg.vcycle_solve_plain)
         f = torch.as_tensor(np.asarray(f, dtype=np.float64), dtype=DTYPE,
                             device=self.device)
         res0 = np.float64(torch.linalg.vector_norm(f * ops.mask).item())
-        x = torch.zeros_like(f)
-        res, it = res0, 0
+        x, it, res, _hist = solve(ops, f, res0, tol, maxiter)
         with np.errstate(divide='ignore', invalid='ignore'):
-            while not (res / res0 < tol) and it < maxiter:
-                x, res2 = cycle(ops, x, f)
-                res = np.float64(math.sqrt(res2.item()))
-                it += 1
             converged = res / res0 < tol
         return x.cpu().numpy(), (it if converged else np.inf)

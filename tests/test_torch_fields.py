@@ -96,3 +96,59 @@ def test_kernel_wrappers_refuse_other_devices():
         cuda_sumfac.stage(meta[0, 0], meta[0, 0].T)
     with pytest.raises(ValueError):
         cuda_sumfac.fold([meta[0, 0]], [meta[0, 0].T], [0])
+
+
+# ragged shapes of K1 (d, nurbs, leading Gauss counts, QL, leading
+# coefficient counts, nL): nL = 1..5 (5 takes the kernel's runtime-length
+# loop), odd QL, Q12 not a multiple of the kernel's 16-row tile
+RAGGED = [(2, False, (37,), 13, (5,), 1), (2, True, (21,), 7, (4,), 2),
+          (3, False, (7, 9), 45, (3, 4), 3), (3, True, (5, 11), 33, (4, 3), 4),
+          (2, False, (17,), 31, (6,), 5), (3, True, (3, 5), 19, (3, 3), 5)]
+
+
+def _ragged_geo_inputs(d, nurbs, qs, QL, ns, nL, seed=3):
+    """Seeded spline geometry inputs at a ragged shape: positive value
+    tables, centred derivative tables, control points that grow along
+    their own axis (and positive NURBS weights), Gauss weights."""
+    rng = np.random.RandomState(seed)
+    tables = []
+    for Q, n in zip(qs + (QL,), ns + (nL,)):
+        val = rng.rand(Q, n) + 0.5
+        der = (np.arange(n) - (n - 1) / 2.0)[None, :] + 0.3 * rng.rand(Q, n)
+        tables.append(np.stack([val, der]))
+    shape = ns + (nL,)
+    coeffs = [3.0 * np.indices(shape)[c] + 1.0 + 0.3 * rng.rand(*shape)
+              for c in range(d)]
+    if nurbs:
+        coeffs.append(1.0 + 0.5 * rng.rand(*shape))
+    gi = {'geo_tables_nurbs' if nurbs else 'geo_tables_bsp': tables,
+          'geo_coeffs': np.stack(coeffs),
+          'weights': [rng.rand(Q) + 0.5 for Q in qs + (QL,)]}
+    return gi
+
+
+@pytest.mark.parametrize('kind', ['stiffness', 'mass', 'jac'])
+@pytest.mark.parametrize('d,nurbs,qs,QL,ns,nL', RAGGED)
+def test_fields_plain_at_ragged_shapes_match_jax(kind, d, nurbs, qs, QL, ns,
+                                                 nL):
+    """K1's three kinds (the plain versions the CPU wrappers run, fed by
+    K2's plain stages) against the JAX package's native-f64 fields."""
+    gi = _ragged_geo_inputs(d, nurbs, qs, QL, ns, nL)
+    jgi = {k: [jnp.asarray(a) for a in v] if isinstance(v, list)
+           else jnp.asarray(v) for k, v in gi.items()}
+    tgi = convert.geo_inputs(gi, device='cpu')
+    key = 'geo_tables_nurbs' if nurbs else 'geo_tables_bsp'
+    if kind == 'stiffness':
+        got = assemblers.stiffness_fields(tgi)
+        ref = jassemblers.stiffness_fields(jgi)
+    elif kind == 'mass':
+        got = assemblers.mass_fields(tgi)
+        ref = jassemblers.mass_fields(jgi)
+    else:
+        got = cuda_sumfac.geometry_fields(tgi[key], tgi['geo_coeffs'], nurbs)
+        ref = jgeom.geo_jacobian_field(jgi[key], jgi['geo_coeffs'], nurbs, d)
+    assert len(got) == len(ref)
+    scale = max(np.abs(np.asarray(R)).max() for R in ref)
+    for F, R in zip(got, ref):
+        assert F.dtype == torch.float64 and F.shape == R.shape
+        assert np.abs(np.asarray(F) - np.asarray(R)).max() / scale < 1e-13

@@ -5,6 +5,8 @@ package on the CPU: the host Gauss-Seidel sweeps, the host V-cycle
 tensors).  Iteration counts are a contract and must be identical;
 solutions agree to 1e-10."""
 
+import math
+
 import numpy as np
 import pytest
 import scipy.linalg
@@ -266,3 +268,124 @@ def test_device_solver_options():
                             2, active_dofs=lv_inds[0], device='cpu')
     x1, it1 = one.solve(np.random.RandomState(5).rand(As[0].shape[0]))
     assert it1 == 1 and np.isfinite(x1).all()
+
+
+def _gs_solver(hs, A):
+    Ps = hs.virtual_hierarchy_prolongators()
+    return mg.DeviceMGSolver(solvers.galerkin_hierarchy(A, Ps), Ps,
+                             hs.indices_to_smooth('cell_supp'),
+                             solvers._MG_SWEEPS['gs'], 2,
+                             active_dofs=hs.non_dirichlet_dofs(),
+                             smoother_impl='fused', device='cpu')
+
+
+@pytest.mark.parametrize('n0', [6, 24])
+def test_row_extents_cover_every_nonzero(n0):
+    # K6 reads each row of a triangular inverse over [lo, hi) only: the
+    # extents must hold every nonzero, for the forward (pre) and backward
+    # (post) sweeps, on the n0=6 and the bench's (24, 3) hierarchies
+    hs = bench_hspace(hierarchical, bspline, n0)
+    s = _gs_solver(hs, discretize(hs)[0])
+    for lev in s.ops.levels[1:]:
+        S = lev['S'].numpy()
+        for key, tri in (('pre', np.tril), ('post', np.triu)):
+            T, = lev[key]
+            vals = T.vals.numpy()
+            assert np.array_equal(T.mat.numpy(), tri(T.mat.numpy()))
+            rows = T.rows.numpy()
+            assert sorted(rows[:, 0]) == list(range(T.m))
+            assert np.array_equal(rows[:, 3], S[rows[:, 0]])
+            lengths = rows[:, 2] - rows[:, 1]
+            assert (np.diff(lengths) <= 0).all()       # longest first
+            assert (rows[:, 1] % 4 == 0).all() and (rows[:, 2] % 4 == 0).all()
+            assert (rows[:, 1] <= rows[:, 2]).all() and \
+                (rows[:, 2] <= T.ld).all()
+            col = np.arange(T.ld)
+            for i, lo, hi, _ in rows:
+                assert not vals[i][(col < lo) | (col >= hi)].any()
+            # the triangle's half of the dense bytes
+            assert T.entries <= T.m * (T.m + 1) // 2 < T.m * T.m
+    assert (s.ops.Cinv.rows.numpy()[:, 1:3] == [0, s.ops.Cinv.ld]).all()
+
+
+def test_row_extents_dead_row():
+    # a zero diagonal makes a dead row of the sweep: its row of T is zero
+    # and its extent empty; the other rows keep theirs
+    rng = np.random.RandomState(2)
+    A = rng.rand(9, 9) + 9 * np.eye(9)
+    A[4, 4] = 0.0
+    for rev in (False, True):
+        T = mg._tri_inverse(A, reverse=rev)
+        dr = cuda_mg.DenseRows(T, np.arange(9), torch.device('cpu'))
+        ext, entries = cuda_mg.row_extents(dr.vals.numpy())
+        assert not T[4].any() and tuple(ext[4]) == (0, 0)
+        live = [i for i in range(9) if i != 4]
+        assert (ext[live, 1] > ext[live, 0]).all()
+        assert entries == sum(np.ptp(np.flatnonzero(T[i])) + 1 for i in live)
+        assert dr.rows.numpy()[-1, 0] == 4          # taken last
+
+
+def test_plain_solve_loop_matches_jax_counts():
+    # the plain version of the one-launch solve (the host loop over the
+    # plain cycle) gives the JAX package's count: 47 at n0=6, 3 levels
+    hs, jhs = bench_hspace(hierarchical, bspline, 6), \
+        bench_hspace(jhier, jbspline, 6)
+    A, f = discretize(hs)
+    _ju, jit = jsolvers.solve_hmultigrid(jhs, A, f, tol=1e-8,
+                                         relax_backend='host')
+    s = _gs_solver(hs, A)
+    ft = torch.as_tensor(f, dtype=torch.float64)
+    res0 = np.float64(torch.linalg.vector_norm(ft * s.ops.mask).item())
+    x, it, res, hist = cuda_mg.vcycle_solve(s.ops, ft, res0, 1e-8, 5000)
+    assert it == jit == 47 and res / res0 < 1e-8 <= \
+        math.sqrt(hist[-2].item()) / res0
+    assert hist.shape == (47,) and np.isclose(hist[-1].item(), res ** 2)
+    xh, ith = solvers.solve_hmultigrid(hs, A, f, tol=1e-8,
+                                       relax_backend='host')
+    assert ith == 47 and np.allclose(x.numpy(), xh, rtol=1e-10, atol=1e-13)
+
+
+def test_solve_loop_maxiter_and_zero_tol():
+    hs = bench_hspace(hierarchical, bspline, 6)
+    A, f = discretize(hs)
+    s = _gs_solver(hs, A)
+    # maxiter runs out before tol: inf, as iterative_solve
+    x5, it5 = s.solve(f, tol=1e-8, maxiter=5)
+    assert it5 == np.inf and np.isfinite(x5).all()
+    # tol = 0 is never reached: exactly maxiter cycles
+    ft = torch.as_tensor(f, dtype=torch.float64)
+    res0 = np.float64(torch.linalg.vector_norm(ft * s.ops.mask).item())
+    x, it, res, hist = cuda_mg.vcycle_solve(s.ops, ft, res0, 0.0, 7)
+    assert it == 7 and hist.shape == (7,)
+    x7, it7 = s.solve(f, tol=0.0, maxiter=7)
+    assert it7 == np.inf and np.array_equal(x7, x.numpy())
+    # the first five cycles are those of the maxiter=5 run
+    assert np.array_equal(cuda_mg.vcycle_solve(s.ops, ft, res0, 0.0, 5)[0]
+                          .numpy(), x5)
+    # maxiter = 0 runs no cycle: x stays zero and res is res0
+    x0, it0, r0, h0 = cuda_mg.vcycle_solve(s.ops, ft, res0, 1e-8, 0)
+    assert it0 == 0 and r0 == res0 and not x0.any() and h0.numel() == 0
+
+
+def test_device_solver_cache_sees_in_place_changes():
+    # the same matrix object again reuses the solver (its arrays compared
+    # with the entry's copies), an equal copy too (by digest), and a
+    # matrix changed in place gets a new one
+    hs = bench_hspace(hierarchical, bspline, 6)
+    A, f = discretize(hs)
+    A = scipy.sparse.csr_matrix(A)
+    cpu = torch.device('cpu')
+
+    def lookup(M):
+        return solvers._device_mg_solver(hs, M, 'cell_supp', 'gs', 2, cpu)
+    s1 = lookup(A)
+    assert lookup(A) is s1 and lookup(A.copy()) is s1
+    x1, it1 = solvers.solve_hmultigrid(hs, A, f, relax_backend='device',
+                                       device='cpu')
+    A.data *= 2.0
+    assert lookup(A) is not s1
+    x2, it2 = solvers.solve_hmultigrid(hs, A, f, relax_backend='device',
+                                       device='cpu')
+    # Gauss-Seidel is scale invariant: the same count, half the solution
+    assert it2 == it1 == 47 and np.allclose(2 * x2, x1, rtol=1e-12,
+                                            atol=1e-15)
