@@ -17,12 +17,14 @@ kernel launch of the 3D run.
 
 The generic VForm path has its own phases: K1's ``jac`` kind and the
 generated coefficient-field kernel K5 (built from the form's generated
-source) against their plain versions (4c), the 2D n=16 convection-
-diffusion solve on the card against the CPU run (4d), and the
+source, at the path's 2D n=128 shape and at 3D n=48) against their plain
+versions, each also timed apart from its wrapper (4c), the 2D n=16
+convection-diffusion solve on the card against the CPU run (4d), and the
 convection-diffusion path of ``examples/convection_diffusion.py`` at the
 bench's 2D p=3 n=128 size (``assemble.assemble`` / ``VFormAssembler.
 run_device`` -> ``MLMatvecOperator`` -> ``fastdiag_precond`` -> ``gmres``),
-cold and warm, counting its launches (7).
+cold and warm, counting its launches, one K5 launch per ``run_device``
+(7).  Phases 8 / 8b also count K5's launches per local-MG build.
 
 The hierarchical local-multigrid path (the bench's ``run_localmg``:
 ``HSpace`` refined toward the (1, 1) corner -> ``HDiscretization`` on
@@ -40,9 +42,10 @@ package's dense cutoff, where ``'auto'`` takes K6 up to
 ``tri_block_cutoff``), held to 27 (8b).
 
 The mass and time-stepping paths: K1's ``mass`` kind and K1' (the
-stiffness fields of a host-evaluated Jacobian) against their plain
-versions (4g); ``assemble.mass`` / ``assemble.stiffness`` on the card
-against the golden fixtures and the small heat problem card vs CPU (4h);
+stiffness fields of a host-evaluated Jacobian, also at ragged shapes and
+timed apart from its wrapper) against their plain versions (4g);
+``assemble.mass`` / ``assemble.stiffness`` on the card against the
+golden fixtures and the small heat problem card vs CPU (4h);
 the 3D p=3 n=48 mass path (``MassAssembler.assemble_banded`` and the
 compact ``assemble``, ``M 1`` against ``assemble('v * dx')``) (9); the
 heat equation ``M u' = f - K u`` on the NURBS quarter annulus at 2D p=3
@@ -73,7 +76,13 @@ exists (``library_ms``; used nowhere in the port) and ``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over the
 datasheet's peak (67 TFLOP/s for f64 on the tensor cores where the
 function is a matrix product, 34 TFLOP/s for f64 FMA otherwise, 67 for
-f32), both counted from this run's inputs.
+f32), both counted from this run's inputs.  A kernel's ``ms`` is its
+wrapper's call as the path makes it; for K1 ``jac``, K5 and K1' the
+record (and the JSON line) also holds ``launch_ms`` (the bare C entry
+called back to back by ctypes) and ``device_ms`` (one launch's device
+time, from a CUDA graph of 20 captured launches replayed between CUDA
+events, the launches cycling through copies of their operands that
+together hold at least twice the 50 MB L2, so that none is read from it).
 
 Output: phase lines, then a JSON line ``{"kernels": [...]}``, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -148,6 +157,7 @@ LOCALMG_ITERS = {(24, 3): 29, (48, 3): 27}
 
 CONVDIFF = '(inner(grad(u), grad(v)) + dot(b, grad(u)) * v + u * v) * dx'
 CONV_B = np.array([3.0, -2.0])
+CONV_B_3D = np.array([3.0, -2.0, 1.0])
 
 # datasheet peaks of the H100 SXM (at its 700 W limit), per millisecond
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -642,15 +652,17 @@ def check_small(device):
                 n8_iters_cpu=ic, fixture_max_abs_err=err_fix)
 
 
-def convdiff_setup(n, device):
+def convdiff_setup(n, device, dim=2):
     """The convection-diffusion assemblers of the VForm path (matrix and
-    right-hand side) on the exact-NURBS quarter annulus, 2D p=3."""
+    right-hand side) on the exact-NURBS quarter annulus, 2D p=3 (3D: the
+    twisted box, ``b = CONV_B_3D``)."""
     from pyiga_tpu_torch import bspline, geometry
     from pyiga_tpu_torch.assemble import instantiate_assembler
-    kvs = 2 * (bspline.make_knots(3, 0.0, 1.0, n),)
-    geo = geometry.quarter_annulus()
-    asm = instantiate_assembler(CONVDIFF, kvs, {'geo': geo, 'b': CONV_B},
-                                None, device=device)
+    kvs = dim * (bspline.make_knots(3, 0.0, 1.0, n),)
+    geo = geometry.quarter_annulus() if dim == 2 else geometry.twisted_box()
+    asm = instantiate_assembler(CONVDIFF, kvs, {
+        'geo': geo, 'b': CONV_B if dim == 2 else CONV_B_3D}, None,
+        device=device)
     asm_f = instantiate_assembler('v * dx', kvs, {'geo': geo}, None,
                                   device=device)
     return kvs, geo, asm, asm_f
@@ -678,14 +690,134 @@ def empty_launch_ms(device):
     return time_ms(lambda: lib.launch_empty(stream), device, reps=200)
 
 
+def graph_ms(launch, device, n=20, reps=10):
+    """Device time of one bare launch: `launch(0)` (which launches on
+    PyTorch's current stream) once to load the kernel, then `launch(i)`
+    for i < `n` captured in a CUDA graph, the graph replayed `reps` times
+    between two CUDA events; returns milliseconds a launch."""
+    launch(0)
+    sync(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            launch(i)
+    graph.replay()
+    sync(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * n)
+
+
+# the H100's L2 cache: a bare launch's device time is taken over enough
+# copies of its operands that a launch finds none of them there
+L2_BYTES = 50 * 2 ** 20
+
+
+def bare_times(name, fn, operands, args_of, device):
+    """A kernel's C entry apart from its Python wrapper: ``launch_ms``,
+    the event time of back-to-back ctypes calls ``fn(*args, stream)`` with
+    ``args = args_of(operands)`` prebuilt, and ``device_ms``, the device
+    time of one launch (:func:`graph_ms`), the launches cycling through
+    ``copies`` copies of `operands` (the tensors a launch reads and
+    writes) that together hold at least twice the L2."""
+    per = sum(t.numel() * t.element_size() for t in operands)
+    k = min(8, max(1, -(-2 * L2_BYTES // per)))
+    # the copies stay referenced until the graph is gone: capturing it
+    # empties PyTorch's cache, which would unmap a freed copy
+    copies = [operands] + [[t.clone() for t in operands]
+                           for _ in range(k - 1)]
+    argsets = [args_of(ts) for ts in copies]
+
+    def call(i):
+        err = fn(*argsets[i % k], torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError('%s: bare launch failed (%d)' % (name, err))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    launch_ms = time_ms(lambda: fn(*argsets[0], stream), device, reps=50)
+    call(0)
+    device_ms = graph_ms(call, device)
+    del argsets, copies
+    return dict(launch_ms=launch_ms, device_ms=device_ms, copies=k)
+
+
+def vform_case(asm, device):
+    """K5 on the plan's combos of a VForm assembler: the kernel against
+    its plain version (1e-12 relative to the largest field), a second
+    launch bitwise equal; ``ms`` through ``combo_fields`` (the path's
+    call), ``launch_ms`` and ``device_ms`` of its bare C entry, the plain
+    version's time and the bound."""
+    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch.ops import cuda_vform as cv
+    plan = asm._fold_plan or [(t, False) for t in range(len(asm.combos))]
+    combos = [asm.combos[t] for t, _m in plan]
+    arrays = asm.device_arrays()
+    got = torch.stack(cv.combo_fields(asm, arrays, combos))
+    ref = torch.stack(cv.combo_fields_plain(asm, arrays, combos))
+    sync(device)
+    name = '%dD n=%d' % (asm.dim, asm.kvs0[0].numspans)
+    err, rel = compare('vform_fields ' + name, got, ref, 1e-12)
+    check_repeat('vform_fields ' + name,
+                 lambda: torch.stack(cv.combo_fields(asm, arrays, combos)),
+                 got)
+    prog = asm._program(combos)
+    fn = prog.entry()
+    lib = [k for k in _cuda.GEN_BUILDS if 'vform_fields' in k][-1]
+    build = dict(_cuda.GEN_BUILDS[lib], path=lib)
+    for line in build['log'].splitlines():
+        if 'registers' in line or 'spill' in line:
+            log('  ' + line.strip())
+    d, ns = asm.dim, len(prog.sources)
+    operands = (list(arrays['weights']) + [arrays[k] for k in prog.sources]
+                + [arrays['params']] * bool(prog.params)
+                + [torch.empty_like(got)])
+
+    def args_of(ts):
+        arr = dict(zip(prog.sources, ts[d:d + ns]), weights=ts[:d],
+                   params=ts[-2])
+        return prog.arguments(arr, ts[-1], 0)[:-1]
+    rec = dict(max_abs_err=err, rel=rel, shape=list(got.shape),
+               leaves=len(prog.leaves), sources=list(prog.sources),
+               params=len(prog.params), instrs=len(prog.instrs),
+               repeat_equal=True,
+               ms=time_ms(lambda: cv.combo_fields(asm, arrays, combos),
+                          device, reps=50),
+               plain_ms=time_ms(lambda: cv.combo_fields_plain(
+                   asm, arrays, combos), device, reps=3),
+               library_ms=None, build=build)
+    rec.update(bare_times('vform_fields', fn, operands, args_of, device))
+    # the leaf rows the program reads (each once), the weight vectors and
+    # the flat parameters, the fields written once; one operation per
+    # SSA instruction and Gauss point
+    N = got[0].numel()
+    rows = {s for s in prog.leaf_src if s is not None}
+    read = 8 * (len(rows) * N + sum(w.numel() for w in arrays['weights'])
+                + (arrays['params'].numel() if prog.params else 0))
+    rec.update(bound(read + nbytes(got), len(prog.instrs) * N,
+                     F64_FMA_PER_MS))
+    log('  K5 %s: %d leaves from %s, %d params, %d SSA instrs, %d fields; '
+        'nvcc %.2f s' % (name, len(prog.leaves), prog.sources,
+                         len(prog.params), len(prog.instrs), len(combos),
+                         build['seconds']))
+    return rec
+
+
 def check_vform_kernels(device):
     """Phase 4c: K1's jac kind against its plain version on the 2D
     annulus at n=128 and the 3D twisted box at n=48, and the generated K5
-    against its plain version on the convection-diffusion form at n=128
-    (both 1e-12 relative to the largest output)."""
+    against its plain version on the convection-diffusion form at 2D
+    n=128 (the path's shape) and 3D n=48 on the twisted box (both
+    1e-12 relative to the largest output, each launched twice for
+    bitwise-equal output).  Each kernel's ``ms`` is its wrapper's call;
+    ``launch_ms`` and ``device_ms`` (:func:`bare_times`) time its bare C
+    entry."""
     from pyiga_tpu_torch import _cuda
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
-    from pyiga_tpu_torch.ops import cuda_vform as cv
 
     t0 = time.perf_counter()
     _, _, asm, _ = convdiff_setup(128, device)
@@ -709,16 +841,22 @@ def check_vform_kernels(device):
         check_repeat('geo_jac ' + name[:9],
                      lambda: cs.geo_jac_fields(Y, T, nurbs), got)
         # per point: C x (d + 1) dots of nL, the NURBS quotient
-        C, nL = Y.shape[1], Y.shape[3]
+        C, Q12, nL = Y.shape[1], Y.shape[2], Y.shape[3]
         cases[name] = dict(
             max_abs_err=err, rel=rel, shape=list(got.shape),
-            ms=time_ms(lambda: cs.geo_jac_fields(Y, T, nurbs), device),
+            ms=time_ms(lambda: cs.geo_jac_fields(Y, T, nurbs), device,
+                       reps=50),
             plain_ms=time_ms(lambda: cs.geo_jac_fields_plain(Y, T, nurbs),
                              device, reps=3),
             library_ms=None,
             **bound(nbytes(Y, T, got),
                     got[0].numel() * (2 * C * (d + 1) * nL + 30),
                     F64_FMA_PER_MS))
+        cases[name].update(bare_times(
+            'geo_jac_fields', _cuda.library().pyiga_geo_jac_fields_f64,
+            [Y, T, torch.empty_like(got)],
+            lambda ts: (ts[0].data_ptr(), ts[1].data_ptr(), ts[2].data_ptr(),
+                        d, int(nurbs), Q12, T.shape[1], nL), device))
         del Y, got, ref
     out = {'geo_jac_fields': dict(cases['2d_n128_nurbs'], cases=cases,
                                   repeat_equal=True,
@@ -727,48 +865,18 @@ def check_vform_kernels(device):
     log('  empty launch (the floor of a wrapper-timed kernel): %.4f ms'
         % out['geo_jac_fields']['empty_launch_ms'])
 
-    # K5 on the plan's combos of the n=128 path
-    plan = asm._fold_plan or [(t, False) for t in range(len(asm.combos))]
-    combos = [asm.combos[t] for t, _m in plan]
-    arrays = asm.device_arrays()
-    got = torch.stack(cv.combo_fields(asm, arrays, combos))
-    ref = torch.stack(cv.combo_fields_plain(asm, arrays, combos))
-    sync(device)
-    err, rel = compare('vform_fields', got, ref, 1e-12)
-    prog = asm._program(combos)
-    Y, P = cv.leaf_rows(prog, arrays)
-    lib = [k for k in _cuda.GEN_BUILDS if 'vform_fields' in k][-1]
-    build = dict(_cuda.GEN_BUILDS[lib], path=lib)
-    for line in build['log'].splitlines():
-        if 'registers' in line or 'spill' in line:
-            log('  ' + line.strip())
-    _cuda._gen_libs.clear()              # the next load finds the disk copy
-    t0 = time.perf_counter()
-    _cuda.build_generated('vform_fields', prog.source)
-    build['cached_load_s'] = time.perf_counter() - t0
-    out['vform_fields'] = dict(
-        max_abs_err=err, rel=rel, shape=list(got.shape),
-        leaves=len(prog.leaves), params=len(prog.params),
-        instrs=len(prog.instrs),
-        ms=time_ms(lambda: cv.vform_fields(prog, Y, P), device),
-        wrapper_ms=time_ms(lambda: cv.combo_fields(asm, arrays, combos),
-                           device),
-        plain_ms=time_ms(lambda: cv.combo_fields_plain(asm, arrays, combos),
-                         device, reps=3),
-        library_ms=None,
-        # the leaves and parameters read once, the fields written once;
-        # one operation per SSA instruction and Gauss point
-        **bound(nbytes(Y, P, got), len(prog.instrs) * Y.shape[1],
-                F64_FMA_PER_MS),
-        build=build, host_setup_first_ms=1e3 * t_setup)
-    log('  K5 program: %d leaves, %d params, %d SSA instrs, %d fields; '
-        'nvcc %.2f s, cached load %.3f s; first host setup %.1f ms'
-        % (len(prog.leaves), len(prog.params), len(prog.instrs),
-           len(combos), build['seconds'], build['cached_load_s'],
-           1e3 * t_setup))
-    for name, r in out.items():
-        log('  %-16s kernel %.4f ms   plain %.4f ms' % (name, r['ms'],
-                                                      r['plain_ms']))
+    # K5 on the plan's combos of the n=128 path, then at 3D n=48
+    k5 = {'2d_n128_convdiff': vform_case(asm, device)}
+    k5['2d_n128_convdiff']['host_setup_first_ms'] = 1e3 * t_setup
+    del asm3, gi3
+    k5['3d_n48_convdiff'] = vform_case(convdiff_setup(
+        48, device, dim=3)[2], device)
+    out['vform_fields'] = dict(k5['2d_n128_convdiff'], cases=k5)
+    for name, r in list(cases.items()) + list(k5.items()):
+        log('  %-18s wrapper %.4f ms   bare launch %.4f ms   device %.4f ms'
+            '   plain %.4f ms   bound %.4f ms (%s)'
+            % (name, r['ms'], r['launch_ms'], r['device_ms'], r['plain_ms'],
+               r['bound_ms'], r['bound_by']))
     return out
 
 
@@ -847,10 +955,14 @@ def run_convdiff(device, n=128):
             best = min(best, time.perf_counter() - t0)
         return 1e3 * best
 
+    from pyiga_tpu_torch import _cuda
     t0 = time.perf_counter()
     kvs, geo, asm, asm_f = convdiff_setup(n, device)
     t_host = 1e3 * (time.perf_counter() - t0)
     t_A = best_of_3(asm.run_device)
+    k5 = _cuda.LAUNCHES['vform_fields']
+    asm.run_device()
+    k5 = _cuda.LAUNCHES['vform_fields'] - k5
     t_f = best_of_3(asm_f.assemble_vector)
     t0 = time.perf_counter()
     A = assemble.assemble(CONVDIFF, kvs, geo=geo, b=CONV_B, device=device)
@@ -864,11 +976,15 @@ def run_convdiff(device, n=128):
                fold_plan=asm._fold_plan, t_host_setup_ms=t_host,
                t_run_device_ms=t_A, t_assemble_vector_ms=t_f,
                t_assemble_csr_ms=t_whole, t_precond_setup_ms=1e3 * t_setup,
-               t_solve_ms=1e3 * t_solve, iters=iters, residual=res)
+               t_solve_ms=1e3 * t_solve, iters=iters, residual=res,
+               k5_launches_per_run_device=k5)
     log('  2D p=3 n=%d: %d dofs (%d free), %d combos; host setup %.1f ms'
         % (n, ndofs, rec['n_free'], rec['combos'], t_host))
     log('  run_device %.2f ms  assemble_vector %.2f ms  assemble()+CSR '
         '%.1f ms' % (t_A, t_f, t_whole))
+    log('  K5 launches per run_device: %d' % k5)
+    if k5 != 1:
+        raise RuntimeError('run_device launched K5 %d times' % k5)
     log('  GMRES %d iterations in %.2f ms (precond setup %.1f ms)  true '
         'rel residual %.3e' % (iters, rec['t_solve_ms'],
                                rec['t_precond_setup_ms'], res))
@@ -1108,10 +1224,12 @@ def run_localmg(device, n0, L=3, impl=None):
     t_first = time.perf_counter() - t0
     build()
     best = None
+    k5 = _cuda.LAUNCHES['vform_fields']
     for _ in range(3):
         A, f, t_A, t_f = build()
         if best is None or t_A + t_f < sum(best):
             best = (t_A, t_f)
+    k5 = (_cuda.LAUNCHES['vform_fields'] - k5) / 3
     t0 = time.perf_counter()
     if impl is None:        # solve_hmultigrid's defaults: the card, 'auto'
         def solve(tol):
@@ -1149,9 +1267,11 @@ def run_localmg(device, n0, L=3, impl=None):
                t_solve_ms=1e3 * t_slv, iters=iters, iters_host=it_host,
                t_host_solve_ms=1e3 * t_host, residual=res, x_rel_host=x_rel,
                dof_per_s=hs.numdofs / (sum(best) + t_slv),
-               peak_device_bytes=int(peak), launches=launches)
-    log('  (%d,%d) %s: %d dofs, nnz %d; first build %.0f ms'
-        % (n0, L, rec['impl'], hs.numdofs, A.nnz, 1e3 * t_first))
+               peak_device_bytes=int(peak), launches=launches,
+               k5_launches_per_build=k5)
+    log('  (%d,%d) %s: %d dofs, nnz %d; first build %.0f ms; K5 launches '
+        'per build %g' % (n0, L, rec['impl'], hs.numdofs, A.nnz,
+                          1e3 * t_first, k5))
     log('  assembly %.2f ms (matrix %.2f + rhs %.2f)  solver setup + warm '
         'solve %.1f ms  solve %.2f ms  %.0f dof/s'
         % (rec['t_assembly_ms'], rec['t_assemble_matrix_ms'],
@@ -1202,11 +1322,13 @@ def polar_annulus():
 def check_mass_kernels(device, n3=48, n2=128):
     """Phase 4g: K1's mass kind against its plain version at the 3D n=48
     twisted-box shapes and the 2D n=128 NURBS quarter-annulus shapes, and
-    K1' at the 2D n=128 shape of the polar annulus (its host Jacobian) and
-    at the 3D n=48 shape (the twisted box's Jacobian, made on the card by
-    K1's jac kind), all 1e-13 relative to the largest output."""
+    K1' at the 2D n=128 shape of the polar annulus (its host Jacobian), at
+    the 3D n=48 shape (the twisted box's Jacobian, made on the card by
+    K1's jac kind) and at ragged shapes, all 1e-13 relative to the
+    largest output and each launched twice for bitwise-equal output.
+    K1''s ``launch_ms`` and ``device_ms`` time its bare C entry."""
     from pyiga_tpu_torch.assemblers import MassAssembler, StiffnessAssembler
-    from pyiga_tpu_torch import bspline, geometry
+    from pyiga_tpu_torch import _cuda, bspline, geometry
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     from pyiga_tpu_torch.ops import geom
 
@@ -1242,29 +1364,42 @@ def check_mass_kernels(device, n3=48, n2=128):
             tables = gi['geo_tables_bsp']
             _, jac3 = cs.geometry_fields(tables, gi['geo_coeffs'], False)
             jac3 = jac3.reshape(3, 3, -1).contiguous()
-            gw3 = geom.gauss_weight_field(gi['weights']).reshape(-1)
+            w3 = geom.gauss_weight_factors(gi['weights'])
         del asm, gi, args, got, ref
 
     t0 = time.perf_counter()
     asm = StiffnessAssembler(2 * (kv128,), polar_annulus(), device=device)
     t_host_jac = time.perf_counter() - t0
     gi = asm.geo_inputs()
-    jac2, gw2, _ = cs._host_jacobian(gi)
-    for name, jac, gw in (('2d_n128_user', jac2, gw2),
-                          ('3d_n48_twisted', jac3, gw3)):
-        got = cs.host_jac_fields(jac, gw)
-        ref = cs.host_jac_fields_plain(jac, gw)
+    jac2, _ = cs._host_jacobian(gi)
+    lib = _cuda.library()
+    for name, jac, (w12, wL) in (
+            ('2d_n128_user', jac2,
+             geom.gauss_weight_factors(gi['weights'])),
+            ('3d_n48_twisted', jac3, w3)):
+        got = cs.host_jac_fields(jac, w12, wL)
+        ref = cs.host_jac_fields_plain(jac, w12, wL)
         sync(device)
         err, rel = compare("K1' " + name[:11], got, ref, 1e-13)
+        check_repeat("K1' " + name[:11],
+                     lambda: cs.host_jac_fields(jac, w12, wL), got)
+        d = jac.shape[0]
         out['host_jac_fields'][name] = dict(
             max_abs_err=err, rel=rel, shape=list(got.shape),
-            in_bytes=(jac.numel() + gw.numel()) * 8,
-            ms=time_ms(lambda: cs.host_jac_fields(jac, gw), device),
-            plain_ms=time_ms(lambda: cs.host_jac_fields_plain(jac, gw),
+            repeat_equal=True, in_bytes=nbytes(jac, w12, wL),
+            ms=time_ms(lambda: cs.host_jac_fields(jac, w12, wL), device,
+                       reps=50),
+            plain_ms=time_ms(lambda: cs.host_jac_fields_plain(jac, w12, wL),
                              device, reps=3),
             library_ms=None,
             # det, adjugate, the unique products: ~60 operations a point
-            **bound(nbytes(jac, gw, got), 60 * gw.numel(), F64_FMA_PER_MS))
+            **bound(nbytes(jac, w12, wL, got), 60 * got.shape[1],
+                    F64_FMA_PER_MS))
+        out['host_jac_fields'][name].update(bare_times(
+            'host_jac_fields', lib.pyiga_host_jac_fields_f64,
+            [jac, w12, wL, torch.empty_like(got)],
+            lambda ts: tuple(t.data_ptr() for t in ts)
+            + (d, w12.numel(), wL.numel()), device))
         del got, ref
     out['host_jac_fields']['2d_n128_user']['host_jacobian_setup_ms'] = \
         1e3 * t_host_jac
@@ -1274,11 +1409,43 @@ def check_mass_kernels(device, n3=48, n2=128):
                      else '2d_n128_user'], cases=v) for k, v in out.items()}
     res['mass_fields'].update(repeat_equal=True,
                               ragged=check_fields_ragged('mass', device))
+    res['host_jac_fields']['ragged'] = check_host_jac_ragged(device)
     for k, r in res.items():
         for name, c in r['cases'].items():
-            log('  %-16s %-15s kernel %.4f ms   plain %.4f ms'
-                % (k, name, c['ms'], c['plain_ms']))
+            log('  %-16s %-15s kernel %.4f ms   plain %.4f ms   bound %.4f '
+                'ms%s' % (k, name, c['ms'], c['plain_ms'], c['bound_ms'],
+                          '   bare launch %.4f ms   device %.4f ms'
+                          % (c['launch_ms'], c['device_ms'])
+                          if 'device_ms' in c else ''))
     return res
+
+
+# K1' (d, Q12, QL): QL not a multiple of a warp, above one block's 256
+# columns, one row; Q12 above and below two blocks an SM
+HOST_JAC_RAGGED = ((2, 37, 301), (3, 1003, 45), (2, 5000, 7), (3, 1, 129))
+
+
+def check_host_jac_ragged(device, seed=9):
+    """K1' against its plain version at :data:`HOST_JAC_RAGGED` on seeded
+    well-conditioned Jacobians (identity plus 0.2 noise) and weights:
+    1e-13 relative to the largest output, each launched twice for
+    bitwise-equal output."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    rng = np.random.RandomState(seed)
+    out = {}
+    for d, Q12, QL in HOST_JAC_RAGGED:
+        def dev(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=device)
+        jac = dev(np.eye(d)[:, :, None] + 0.2 * rng.rand(d, d, Q12 * QL))
+        w12, wL = dev(rng.rand(Q12) + 0.5), dev(rng.rand(QL) + 0.5)
+        got = cs.host_jac_fields(jac, w12, wL)
+        ref = cs.host_jac_fields_plain(jac, w12, wL)
+        sync(device)
+        key = '%dD Q12=%d QL=%d' % (d, Q12, QL)
+        out[key] = compare("K1' " + key, got, ref, 1e-13)
+        check_repeat("K1' " + key, lambda: cs.host_jac_fields(jac, w12, wL),
+                     got)
+    return out
 
 
 def read_fixture(name, shape=None):
@@ -2098,7 +2265,9 @@ def main():
                     plain_ms=kern[k]['plain_ms'],
                     bound_ms=kern[k]['bound_ms'],
                     bound_by=kern[k]['bound_by'],
-                    library_ms=kern[k]['library_ms']) for k in KERNELS]
+                    library_ms=kern[k]['library_ms'],
+                    **{t: kern[k][t] for t in ('launch_ms', 'device_ms')
+                       if t in kern[k]}) for k in KERNELS]
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=t_build,
                   sass_dmma=dmma, kernels=kern,

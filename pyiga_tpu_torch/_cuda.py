@@ -49,7 +49,7 @@ _D = ctypes.c_double
 _SIGNATURES = {
     'pyiga_stiff_fields_f64': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
     'pyiga_mass_fields_f64': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
-    'pyiga_host_jac_fields_f64': (_P, _P, _P, _I, _L, _P),
+    'pyiga_host_jac_fields_f64': (_P, _P, _P, _P, _I, _L, _I, _P),
     'pyiga_geo_jac_fields_f64': (_P, _P, _P, _I, _I, _L, _I, _I, _P),
     'pyiga_stage_f64': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_fold_f64': (_P, _P, _I, _P, _I, _L, _I, _P),
@@ -179,8 +179,11 @@ def build_generated(name, source):
 
 
 def library():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; later calls take
+    no lock)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))

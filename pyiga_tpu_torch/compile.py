@@ -335,8 +335,9 @@ class VFormAssembler:
         (which also re-evaluates physically given inputs).  Drops the
         cached device operands that the change makes stale: after a new
         geometry all of them and the generated K5 program; after new
-        input or parameter values the changed tensors, and the program
-        only if a changed value has a new shape."""
+        input or parameter values the changed tensors (a parameter also
+        refreshes the flat parameter vector), and the program only if a
+        changed value has a new shape."""
         geo_changed = False
         changed = {}
         for name, f in upd.items():
@@ -368,7 +369,14 @@ class VFormAssembler:
             for k, a in changed.items():
                 inputs[k] = torch.as_tensor(np.ascontiguousarray(a),
                                             dtype=DTYPE, device=self.device)
+            if any(k.startswith('param:') for k in changed):
+                inputs['params'] = self._param_tensor()
             self._operands = dict(self._operands, inputs=inputs)
+
+    def _param_tensor(self):
+        """The flat parameter vector K5 reads, on the device."""
+        return torch.as_tensor(cuda_vform.param_vector(self._host_arrays),
+                               dtype=DTYPE, device=self.device)
 
     def compact_slice(self, fixed):
         raise NotImplementedError('compact_slice (ACA) is not ported yet')
@@ -529,10 +537,11 @@ class VFormAssembler:
         return tabs
 
     def _device_operands(self):
-        """Device tensors of the assembly (memoized): input arrays, geometry
-        tables and coefficients, term tables (each distinct host table
-        uploaded once), their last-table groups, and the transpose
-        permutations of a folded plan."""
+        """Device tensors of the assembly (memoized): input arrays and the
+        flat parameter vector (``params``), geometry tables and
+        coefficients, term tables (each distinct host table uploaded
+        once), their last-table groups, and the transpose permutations
+        of a folded plan."""
         if self._operands is not None:
             return self._operands
         dev = self.device
@@ -542,6 +551,7 @@ class VFormAssembler:
                                    device=dev)
         inputs = {k: [tensor(w) for w in v] if k == 'weights' else tensor(v)
                   for k, v in self._host_arrays.items()}
+        inputs['params'] = self._param_tensor()
         host_tabs = self._term_tables_for(self.combos)
         uploaded = {}
         for tabs in host_tabs:
@@ -563,8 +573,9 @@ class VFormAssembler:
         return self._operands
 
     def device_arrays(self):
-        """The device tensors K5 evaluates on: the inputs, parameters and
-        Gauss weights, plus the physical geometry values ``geo_val_lvl``
+        """The device tensors K5 evaluates on: the inputs, parameters (per
+        name and as the flat ``params`` vector) and per-axis Gauss
+        weights, plus the physical geometry values ``geo_val_lvl``
         ``(d,) + grid`` and Jacobian ``geo_jac_lvl`` ``(d, d) + grid``
         (level order) from K2 and K1's ``jac`` kind."""
         ops = self._device_operands()

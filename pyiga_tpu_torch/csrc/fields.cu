@@ -345,50 +345,77 @@ PYIGA_EXPORT int pyiga_geo_jac_fields_f64(const double* Y, const double* T,
 }
 
 // --------------------------------------------------------------------------
-// K1': stiffness fields from a Jacobian evaluated on the host, one thread
-// per Gauss point.  Replaces the non-spline branch of
-// `stiffness_fields_pallas` (pyiga_tpu/ops/pallas_sumfac.py, pallas_call
-// at :1163, body `_make_stiff_fields_kernel`, :930), which runs for a
-// geometry given as a user function (`geometry.UserFunction`).
+// K1': stiffness fields from a Jacobian evaluated on the host.  Replaces
+// the non-spline branch of `stiffness_fields_pallas`
+// (pyiga_tpu/ops/pallas_sumfac.py, pallas_call at :1163, body
+// `_make_stiff_fields_kernel`, :930), which runs for a geometry given as
+// a user function (`geometry.UserFunction`).
 //
-// Inputs (row-major float64): jac (D, D, N), the level-ordered Jacobian
-// J[a][b] at every Gauss point; gw (N,), the Gauss weight product.
-// Output: out (D(D+1)/2, N), the unique B_ab = gw |det J| (J^-1 J^-T)_ab
-// for a <= b, row-major (the order the assembler expands).
+// Inputs (row-major float64): jac (D, D, Q12, QL), the level-ordered
+// Jacobian J[a][b] at every Gauss point; w12 (Q12,) and wL (QL,), the
+// Gauss weights as K1 takes them (w12 the product of the leading axes'
+// weights), so gw = w12[r] wL[c] is gauss_weight_field's (w0 w1) w2.
+// Output: out (D(D+1)/2, Q12, QL), the unique B_ab = gw |det J|
+// (J^-1 J^-T)_ab for a <= b, row-major (the order the assembler expands).
 //
-// Bound: device memory, D*D + 1 doubles read and D(D+1)/2 written per
-// point, every access coalesced across the warp (the field axis leads, the
-// point axis is contiguous).  No lane padding: N needs no multiple of 128
-// (that gate is the TPU's (8, 128) tiling rule).
+// Bound: device memory, D*D doubles read and D(D+1)/2 written per point,
+// every access coalesced across the warp (the field axis leads, the point
+// axis is contiguous).  No lane padding: any QL (the TPU's multiple of 128
+// is its (8, 128) tiling rule).  K1's mapping: a block owns RB rows, a
+// thread a column qL of each, the row loop unrolled twice (two points in
+// flight); no index is divided; the algebra is K1's, adj / det.
 // --------------------------------------------------------------------------
 
 template <int D>
-__global__ void host_jac_fields_kernel(const double* __restrict__ jac,
-                                       const double* __restrict__ gw,
-                                       double* __restrict__ out,
-                                       long long N) {
-    for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-         g < N; g += (long long)gridDim.x * blockDim.x) {
-        double J[D][D];
-        for (int a = 0; a < D; ++a)
-            for (int b = 0; b < D; ++b)
-                J[a][b] = jac[(long long)(a * D + b) * N + g];
-        double inv[D][D];
-        const double det = det_and_inv<D>(J, inv);
-        store_stiffness<D>(inv, gw[g] * fabs(det), out, N, g);
+__global__ void __launch_bounds__(256)
+host_jac_fields_kernel(const double* __restrict__ jac,
+                       const double* __restrict__ w12,
+                       const double* __restrict__ wL,
+                       double* __restrict__ out, int Q12, int QL, int RB) {
+    const long long N = (long long)Q12 * QL;
+    const int r0 = blockIdx.x * RB;
+    const int rows = min(RB, Q12 - r0);
+    for (int qL = threadIdx.x; qL < QL; qL += blockDim.x) {
+        const double wl = __ldg(wL + qL);
+#pragma unroll 2
+        for (int r = 0; r < rows; ++r) {
+            const long long g = (long long)(r0 + r) * QL + qL;
+            double J[D][D];
+#pragma unroll
+            for (int a = 0; a < D; ++a)
+#pragma unroll
+                for (int b = 0; b < D; ++b)
+                    J[a][b] = __ldg(jac + (a * D + b) * N + g);
+            double inv[D][D];
+            const double det = det_and_inv<D>(J, inv);
+            const double gw = __ldg(w12 + r0 + r) * wl;
+            store_stiffness<D>(inv, gw * fabs(det), out, N, g);
+        }
     }
 }
 
+// RB and the threads as K1's launch_one: 16 rows, halved while the grid
+// has fewer than two blocks an SM; min(256, QL rounded up to a warp).
 PYIGA_EXPORT int pyiga_host_jac_fields_f64(const double* jac,
-                                           const double* gw, double* out,
-                                           int d, long long N, void* stream) {
-    const int threads = 256;
-    const unsigned int grid = pyiga_grid_1d(N, threads);
+                                           const double* w12,
+                                           const double* wL, double* out,
+                                           int d, long long Q12, int QL,
+                                           void* stream) {
+    if (Q12 < 1 || QL < 1 || Q12 >= (1LL << 31) - 16)
+        return (int)cudaErrorInvalidValue;
+    const int q = (int)Q12;
+    int rb = 16;
+    while (rb > 1 && (q + rb - 1) / rb < 2 * 132) rb /= 2;
+    int threads = (QL + 31) / 32 * 32;
+    if (threads > 256) threads = 256;
+    const unsigned int grid = (unsigned int)((q + rb - 1) / rb);
     cudaStream_t s = (cudaStream_t)stream;
     if (d == 2)
-        host_jac_fields_kernel<2><<<grid, threads, 0, s>>>(jac, gw, out, N);
+        host_jac_fields_kernel<2><<<grid, threads, 0, s>>>(jac, w12, wL, out,
+                                                            q, QL, rb);
     else if (d == 3)
-        host_jac_fields_kernel<3><<<grid, threads, 0, s>>>(jac, gw, out, N);
+        host_jac_fields_kernel<3><<<grid, threads, 0, s>>>(jac, w12, wL, out,
+                                                            q, QL, rb);
     else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();

@@ -162,40 +162,47 @@ def fields_mass(Y, T, w12, wL, nurbs):
     return out
 
 
-def host_jac_fields_plain(jac, gw):
+def host_jac_fields_plain(jac, w12, wL):
     """Plain PyTorch version of :func:`host_jac_fields`."""
     det, inv = geom.det_and_inv(jac)
+    gw = (w12[:, None] * wL[None, :]).reshape(-1)
     return _unique_stiffness(inv, gw * torch.abs(det))
 
 
-def host_jac_fields(jac, gw):
+def host_jac_fields(jac, w12, wL):
     """K1': unique stiffness fields from a Jacobian evaluated on the host.
 
     Args:
-        jac: ``(d, d, N)`` level-ordered Jacobian at the N Gauss points
-            (:func:`~pyiga_tpu_torch.ops.geom.host_jacobian_levelorder`,
-            flattened).
-        gw: ``(N,)`` Gauss weight product.
+        jac: ``(d, d, N)`` level-ordered Jacobian at the ``N = Q12 QL``
+            Gauss points (:func:`~pyiga_tpu_torch.ops.geom.
+            host_jacobian_levelorder`, flattened).
+        w12: ``(Q12,)`` product of the leading axes' Gauss weights.
+        wL: ``(QL,)`` last-axis Gauss weights (K1's weight operands: the
+            kernel forms ``gw = w12 (x) wL``, ``gauss_weight_field``'s
+            product bit for bit).
 
     Returns ``(d(d+1)/2, N)``: ``B_ab = gw |det J| (J^-1 J^-T)_ab`` for
     ``a <= b`` row-major, the order :func:`stiffness_fields` expands.
     Any N: the TPU kernel's lane-multiple gate is a tiling rule of its
     own."""
     if not _kernel_device(jac, 'host_jac_fields'):
-        return host_jac_fields_plain(jac, gw)
-    _cuda.require(jac, 'jac', torch.float64, 3)
-    _cuda.require(gw, 'gw', torch.float64, 1)
-    d, N = jac.shape[0], jac.shape[2]
-    if d not in (2, 3) or jac.shape[1] != d or gw.shape != (N,):
-        raise ValueError('host_jac_fields: need jac (d, d, N) with d in '
-                         '(2, 3) and gw (N,), got %s and %s'
-                         % (tuple(jac.shape), tuple(gw.shape)))
-    out = torch.empty((d * (d + 1) // 2, N), dtype=torch.float64,
+        return host_jac_fields_plain(jac, w12, wL)
+    f64 = torch.float64
+    _cuda.require(jac, 'jac', f64, 3)
+    _cuda.require(w12, 'w12', f64, 1)
+    _cuda.require(wL, 'wL', f64, 1)
+    d, Q12, QL = jac.shape[0], w12.shape[0], wL.shape[0]
+    if d not in (2, 3) or jac.shape != (d, d, Q12 * QL):
+        raise ValueError('host_jac_fields: need jac (d, d, Q12 QL) with d in '
+                         '(2, 3), got %s with w12 %s and wL %s'
+                         % (tuple(jac.shape), tuple(w12.shape),
+                            tuple(wL.shape)))
+    out = torch.empty((d * (d + 1) // 2, Q12 * QL), dtype=f64,
                       device=jac.device)
     with _cuda.device_of(jac):
         err = _cuda.library().pyiga_host_jac_fields_f64(
-            jac.data_ptr(), gw.data_ptr(), out.data_ptr(), d, N,
-            _cuda.stream_of(jac))
+            jac.data_ptr(), w12.data_ptr(), wL.data_ptr(), out.data_ptr(), d,
+            Q12, QL, _cuda.stream_of(jac))
     _cuda.check(err, 'host_jac_fields')
     _cuda.LAUNCHES['host_jac_fields'] += 1
     return out
@@ -565,12 +572,10 @@ def geometry_fields(tables, coeffs, nurbs):
 
 
 def _host_jacobian(geo_inputs):
-    """The uploaded host Jacobian ``(d, d, N)``, the Gauss weight product
-    ``(N,)`` and the grid shape."""
+    """The uploaded host Jacobian ``(d, d, N)`` and the grid shape."""
     jac = geo_inputs['jac']
     d, grid = jac.shape[0], tuple(jac.shape[2:])
-    gw = geom.gauss_weight_field(geo_inputs['weights']).reshape(-1)
-    return jac.reshape(d, d, -1).contiguous(), gw.contiguous(), grid
+    return jac.reshape(d, d, -1), grid
 
 
 def _spline_stages(geo_inputs):
@@ -578,15 +583,14 @@ def _spline_stages(geo_inputs):
     partials through K2, the last-axis tables and the Gauss weights."""
     nurbs = 'geo_tables_nurbs' in geo_inputs
     tables = geo_inputs['geo_tables_nurbs' if nurbs else 'geo_tables_bsp']
-    weights = geo_inputs['weights']
     d = len(tables)
     if d < 2:
         raise ValueError('the field kernels need dimension 2 or 3')
     Y, shape12 = geo_stage12(tables, geo_inputs['geo_coeffs'], d)
-    w12 = geom.gauss_weight_field(weights[:d - 1]).reshape(-1).contiguous()
     T = tables[d - 1][:2].contiguous()
     grid = shape12 + (T.shape[1],)
-    return (Y, T, w12, weights[d - 1].contiguous(), nurbs), grid
+    w12, wL = geom.gauss_weight_factors(geo_inputs['weights'])
+    return (Y, T, w12, wL, nurbs), grid
 
 
 def stiffness_fields(geo_inputs):
@@ -599,8 +603,9 @@ def stiffness_fields(geo_inputs):
     ``(a, b)`` row-major order (mirrored pairs share one tensor), each on
     the Gauss grid."""
     if 'jac' in geo_inputs:
-        jac, gw, grid = _host_jacobian(geo_inputs)
-        out = host_jac_fields(jac, gw)
+        jac, grid = _host_jacobian(geo_inputs)
+        out = host_jac_fields(jac, *geom.gauss_weight_factors(
+            geo_inputs['weights']))
     else:
         args, grid = _spline_stages(geo_inputs)
         out = fields(*args)
@@ -622,7 +627,8 @@ def mass_fields(geo_inputs):
     ``mass_fields_pallas`` hands that input to XLA), so there is no TPU
     kernel to port."""
     if 'jac' in geo_inputs:
-        jac, gw, grid = _host_jacobian(geo_inputs)
+        jac, grid = _host_jacobian(geo_inputs)
+        gw = geom.gauss_weight_field(geo_inputs['weights']).reshape(-1)
         det, _ = geom.det_and_inv(jac)
         return [(gw * torch.abs(det)).reshape(grid)]
     args, grid = _spline_stages(geo_inputs)

@@ -8,29 +8,45 @@ The integrand of a form depends on the form, so no fixed kernel can
 evaluate it.  As the reference did with Cython code generation, the form
 is evaluated once on *symbolic scalars* (:class:`Sym`): every leaf of the
 evaluation — the Gauss weight, the physical geometry values and Jacobian
-(from K1's ``jac`` kind), the input-field components — is a load
-``y[leaf*N + i]``, every parameter component a load ``p[k]``.  Arithmetic
-on symbols appends straight-line SSA instructions (``const double t17 =
-t3 * t9;``) with constant folding of the exact identities (``x*1``,
-``x+0``, ``x*0``) and common-subexpression elimination; the FIELD-scope
-cache is shared by all combos, so the inverse Jacobian and the measure
-are emitted once.  The program becomes a CUDA C source (one thread per
-Gauss point, grid-stride; ``(NY, N)`` leaves in, ``(n_combos, N)`` fields
-out, both coalesced), built by :func:`pyiga_tpu_torch._cuda.
-build_generated` into its own library.  Parameters are a device array
-argument, not baked into the source: new parameter values never rebuild.
+(from K1's ``jac`` kind), the input-field components — is a load, every
+parameter component a load ``p[slot]``.  Arithmetic on symbols appends
+straight-line SSA instructions (``const double t17 = t3 * t9;``) with
+constant folding of the exact identities (``x*1``, ``x+0``, ``x*0``) and
+common-subexpression elimination; the FIELD-scope cache is shared by all
+combos, so the inverse Jacobian and the measure are emitted once.  The
+program becomes a CUDA C source built by :func:`pyiga_tpu_torch._cuda.
+build_generated` into its own library.
 
-Bound: device memory, ``(NY + n_combos) * 8`` bytes per Gauss point
-(~30 MB for the 2D p=3 n=128 convection-diffusion form); the arithmetic
-per point is a few dozen flops.
+The kernel reads every leaf where it lies: it takes one base pointer per
+tensor the program reads (``geo_val_lvl``, ``geo_jac_lvl``, ``input:*``)
+with each leaf's row baked into the source, and forms the Gauss weight
+from the per-axis weight vectors, ``(w0 w1) w2`` as
+:func:`~pyiga_tpu_torch.ops.geom.gauss_weight_field` does (bitwise the
+same field).  Parameters are read from the assembler's flat parameter
+vector (:func:`param_vector`, cached with its device operands), each at a
+slot baked into the source; the slots depend on the parameters' shapes
+only, so new parameter values never rebuild.
+
+Bound: device memory, ``(leaf rows + n_combos) * 8`` bytes per Gauss
+point plus the weight vectors (~21 MB for the 2D p=3 n=128
+convection-diffusion form: 4 Jacobian rows in, 6 fields out); the
+arithmetic per point is a few dozen flops.  So, as K1 since its redesign:
+a block owns up to 16 rows of the leading grid axes (their weight
+products staged in shared memory once), a thread owns columns of the
+last axis, loads go through the read-only path and stores are coalesced
+along the last axis; no index is divided per point, and the row loop is
+unrolled twice (two points in flight).
 
 :func:`combo_fields` is the wrapper: a CPU tensor runs
 :func:`combo_fields_plain` (the torch :class:`~pyiga_tpu_torch.compile.
 AsmContext` evaluation, counterpart of ``_eval_combo_fields``), a CUDA
-tensor launches the generated kernel or raises.  :func:`run_program_plain`
-runs a generated program with torch ops; it exists so that the CPU tests
-can check the generator (expression walk, level-order leaves, CSE)
-without a GPU, and no device path uses it.
+tensor launches the generated kernel or raises.  A launch costs one
+output allocation and one ctypes call: the program's C entry is built
+and declared once (:meth:`Program.entry`).  :func:`run_program_plain`
+runs a generated program with torch ops on the same operands as the
+kernel; it exists so that the CPU tests can check the generator
+(expression walk, leaf rows, parameter slots, CSE) without a GPU, and no
+device path uses it.
 """
 
 import ctypes
@@ -140,10 +156,13 @@ class SSARecorder:
             sym = self._cse[key] = Sym(self, ('t', len(self.instrs) - 1))
         return sym
 
-    def finish(self, outputs):
+    def finish(self, outputs, dim, leaf_loc=None, param_slot=None):
         """The :class:`Program` computing `outputs` (one Sym or float per
-        combo), with dead instructions dropped and leaves, parameters and
-        temporaries numbered densely in order of first use."""
+        combo) on a `dim`-dimensional Gauss grid, with dead instructions
+        dropped and leaves, parameters and temporaries numbered densely in
+        order of first use.  `leaf_loc` maps each leaf key but ``('gw',)``
+        to its ``(array key, row)``, `param_slot` each parameter key to
+        its slot in the flat parameter vector."""
         outs = [_operand(o) for o in outputs]
         live = set()
         stack = [o for o in outs if isinstance(o, tuple) and o[0] == 't']
@@ -171,7 +190,8 @@ class SSARecorder:
                 instrs.append((name, tuple(renum(a) for a in args)))
                 tnum[i] = len(instrs) - 1
         outs = [renum(o) for o in outs]
-        return Program(list(leaves), list(params), instrs, outs)
+        return Program(list(leaves), list(params), instrs, outs, dim,
+                       leaf_loc or {}, param_slot or {})
 
 
 def _fold(name, args):
@@ -207,19 +227,42 @@ class Program:
     """A generated coefficient-field program.
 
     Attributes:
-        leaves: leaf keys, row order of the leaf array ``Y (NY, N)``:
-            ``('gw',)``, ``('geo_val', c)``, ``('geo_jac', c, k)`` (level
+        dim: the Gauss grid's dimension (the number of weight vectors).
+        leaves: leaf keys in order of first use: ``('gw',)`` (the Gauss
+            weight), ``('geo_val', c)``, ``('geo_jac', c, k)`` (level
             order) or ``('input', name, comp)``.
-        params: parameter keys ``('param', name, idx)``, order of ``P``.
+        params: parameter keys ``('param', name, idx)``, order of first
+            use; ``param_slots`` their slots in the flat parameter vector.
+        sources: the array keys the leaves are read from, in order of
+            first use (the kernel's source pointers ``s0, s1, ...``);
+            ``leaf_src`` gives per leaf ``(source index, row)``, or None
+            for the Gauss weight.
         instrs: SSA list of ``(op, args)``; args are ``('l', j)``,
             ``('p', j)``, ``('t', i)`` or float constants.
         outputs: one arg per combo.
     """
 
-    def __init__(self, leaves, params, instrs, outputs):
+    def __init__(self, leaves, params, instrs, outputs, dim, leaf_loc,
+                 param_slot):
         self.leaves, self.params = leaves, params
-        self.instrs, self.outputs = instrs, outputs
+        self.instrs, self.outputs, self.dim = instrs, outputs, dim
+        self.sources, self.leaf_src = [], []
+        for key in leaves:
+            if key == ('gw',):
+                self.leaf_src.append(None)
+                continue
+            akey, row = leaf_loc[key]
+            if akey not in self.sources:
+                self.sources.append(akey)
+            self.leaf_src.append((self.sources.index(akey), row))
+        # rows each source must hold, for the wrapper's check
+        self._rows = [0] * len(self.sources)
+        for sr in self.leaf_src:
+            if sr is not None:
+                self._rows[sr[0]] = max(self._rows[sr[0]], sr[1] + 1)
+        self.param_slots = [param_slot[k] for k in params]
         self._source = None
+        self._entry = None
 
     @property
     def source(self):
@@ -227,6 +270,64 @@ class Program:
         if self._source is None:
             self._source = emit_cuda(self)
         return self._source
+
+    def entry(self):
+        """The C entry ``pyiga_vform_fields`` of the program's kernel,
+        built, loaded and declared on the first call; later calls return
+        it as it is (no source hash, no lock)."""
+        if self._entry is None:
+            fn = _cuda.build_generated('vform_fields',
+                                       self.source).pyiga_vform_fields
+            n_ptr = self.dim + len(self.sources) + int(bool(self.params)) + 1
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._entry = fn
+        return self._entry
+
+    def arguments(self, arrays, out, stream):
+        """The C entry's arguments for the device tensors `arrays` (the
+        per-axis ``weights``, the program's sources and, if it reads
+        parameters, the flat ``params`` vector) and the output `out`
+        ``(n_combos,) + grid``, to launch on `stream`.  Raises on an
+        operand the kernel does not take."""
+        W = arrays['weights']
+        grid = tuple(w.shape[0] for w in W)
+        QL, Q12 = grid[-1], math.prod(grid[:-1])
+        N = Q12 * QL
+        ops = W + [arrays[k] for k in self.sources]
+        if self.params:
+            ops.append(arrays['params'])
+        ops.append(out)
+        dev = out.device
+        for i, t in enumerate(ops):
+            if t.dtype != torch.float64 or t.device != dev \
+                    or not t.is_contiguous():
+                names = (['weights[%d]' % k for k in range(len(W))]
+                         + self.sources + ['params'] * bool(self.params))
+                raise ValueError('vform_fields: %s must be a contiguous '
+                                 'float64 tensor on %s, got %s on %s'
+                                 % ((names + ['out'])[i], dev, t.dtype,
+                                    t.device))
+        if len(grid) != self.dim or any(w.dim() != 1 for w in W) \
+                or not (0 < Q12 < 2 ** 31 - 16 and 0 < QL < 2 ** 31) \
+                or out.shape != (len(self.outputs),) + grid:
+            raise ValueError('vform_fields: weights %s and out %s do not fit '
+                             'a %dD program of %d fields'
+                             % ([tuple(w.shape) for w in W],
+                                tuple(out.shape), self.dim,
+                                len(self.outputs)))
+        for key, t, rows in zip(self.sources, ops[self.dim:], self._rows):
+            if t.shape[t.dim() - self.dim:] != grid or t.numel() < rows * N:
+                raise ValueError('vform_fields: %s is %s, expected %d rows '
+                                 'on the grid %s' % (key, tuple(t.shape),
+                                                     rows, grid))
+        if self.params and (ops[-2].dim() != 1 or ops[-2].shape[0]
+                            <= max(self.param_slots)):
+            raise ValueError('vform_fields: params %s lacks slot %d'
+                             % (tuple(ops[-2].shape), max(self.param_slots)))
+        return (*[t.data_ptr() for t in ops], Q12, QL,
+                grid[1] if self.dim == 3 else 1, stream)
 
 
 def det_and_inv_sym(J):
@@ -266,19 +367,29 @@ def generate(asm, combos):
     its form evaluated through its own context class on symbolic leaves,
     with the FIELD-scope cache shared by the combos and seeded with the
     Gauss weight leaf and the symbolic inverse Jacobian (the seeding of
-    the TPU kernel, compile.py:951-956)."""
+    the TPU kernel, compile.py:951-956).  Each leaf is located in the
+    tensor that holds it (row c of ``geo_val_lvl``, row ``c d + k`` of
+    ``geo_jac_lvl``, the flat component of ``input:name``), each
+    parameter in :func:`param_vector`'s layout."""
     b = SSARecorder()
     d, gd = asm.dim, asm.vf.geo_dim
-    arrays = {'geo_val_lvl': [b.leaf(('geo_val', c)) for c in range(gd)],
-              'geo_jac_lvl': [[b.leaf(('geo_jac', c, k)) for k in range(d)]
+    loc = {}
+
+    def leaf(key, akey, row):
+        loc[key] = (akey, row)
+        return b.leaf(key)
+    arrays = {'geo_val_lvl': [leaf(('geo_val', c), 'geo_val_lvl', c)
+                              for c in range(gd)],
+              'geo_jac_lvl': [[leaf(('geo_jac', c, k), 'geo_jac_lvl',
+                                    c * d + k) for k in range(d)]
                               for c in range(gd)]}
     for key, arr in asm._host_arrays.items():
         kind, _, name = key.partition(':')
         if kind == 'input':
             lead = np.shape(arr)[:np.ndim(arr) - d]
             syms = np.empty(lead, dtype=object)
-            for li in np.ndindex(*lead):
-                syms[li] = b.leaf(('input', name, li))
+            for row, li in enumerate(np.ndindex(*lead)):
+                syms[li] = leaf(('input', name, li), key, row)
             arrays[key] = syms
         elif kind == 'param':
             shape = np.shape(arr)
@@ -289,6 +400,8 @@ def generate(asm, combos):
                 for li in np.ndindex(*shape):
                     syms[li] = b.param(('param', name, li))
                 arrays[key] = syms
+    slots = {k: s for s, (k, _v) in
+             enumerate(_param_components(asm._host_arrays))}
     shared = {('gw',): b.leaf(('gw',)),
               ('_jacinv_lvl',): det_and_inv_sym(arrays['geo_jac_lvl'])[1]}
     outputs = []
@@ -299,7 +412,27 @@ def generate(asm, combos):
         for e in asm.vf.exprs:
             C = C + e.eval(ctx)
         outputs.append(C)
-    return b.finish(outputs)
+    return b.finish(outputs, d, loc, slots)
+
+
+def _param_components(host_arrays):
+    """``(key, value)`` of every parameter component, in the order of the
+    flat parameter vector: the ``param:*`` arrays in their order, each
+    raveled (C order)."""
+    for key, arr in host_arrays.items():
+        kind, _, name = key.partition(':')
+        if kind == 'param':
+            arr = np.asarray(arr, dtype=float)
+            for idx in np.ndindex(*arr.shape):
+                yield ('param', name, idx), float(arr[idx])
+
+
+def param_vector(host_arrays):
+    """The flat parameter vector a generated kernel reads (numpy float64;
+    empty for a form without parameters).  Its layout depends on the
+    parameters' shapes only."""
+    return np.array([v for _k, v in _param_components(host_arrays)],
+                    dtype=float)
 
 
 ################################################################################
@@ -314,12 +447,37 @@ def _c_arg(a):
     return '%s%d' % a
 
 
+def _row_offset(row):
+    return 'g' if row == 0 else '%dLL * N + g' % row
+
+
 def emit_cuda(program):
     """CUDA C source of `program`: ``vform_fields_kernel`` and its C entry
-    ``pyiga_vform_fields(y, p, out, N, stream)`` returning
-    ``cudaGetLastError()``."""
-    body = ['        const double l%d = y[%dLL * N + i];' % (j, j)
-            for j in range(len(program.leaves))]
+    ``pyiga_vform_fields(w0, .., s0, .., [p,] out, Q12, QL, Q1, stream)``
+    returning ``cudaGetLastError()``: the d weight vectors, one pointer
+    per source tensor, the flat parameter vector if the program reads
+    one, the output ``(n_combos, Q12, QL)``, the grid as its leading rows
+    and last axis (Q1: the middle axis of a 3D grid) and the stream."""
+    d = program.dim
+    ptrs = (['w%d' % k for k in range(d)]
+            + ['s%d' % s for s in range(len(program.sources))]
+            + (['p'] if program.params else []))
+    uses_gw = ('gw',) in program.leaves
+    prologue = column = ''
+    if uses_gw:
+        # the Gauss weight (w0 w1) w2 = w12[r] * wL[c], gauss_weight_field's
+        # order; one division per staged row, none per point
+        w12 = {1: '1.0', 2: '__ldg(w0 + r)',
+               3: '__ldg(w0 + r / Q1) * __ldg(w1 + r % Q1)'}[d]
+        prologue = _PROLOGUE % dict(w12=w12)
+        column = '        const double wl = __ldg(w%d + c);' % (d - 1)
+    body = []
+    for j, src in enumerate(program.leaf_src):
+        if src is None:
+            body.append('            const double l%d = sw12[r] * wl;' % j)
+        else:
+            body.append('            const double l%d = __ldg(s%d + %s);'
+                        % (j, src[0], _row_offset(src[1])))
     for i, (name, args) in enumerate(program.instrs):
         if name in _BINARY:
             expr = '%s %s %s' % (_c_arg(args[0]), _BINARY[name],
@@ -328,97 +486,106 @@ def emit_cuda(program):
             expr = '-%s' % _c_arg(args[0])
         else:
             expr = '%s(%s)' % (_C_FUNCS[name], _c_arg(args[0]))
-        body.append('        const double t%d = %s;' % (i, expr))
-    body += ['        out[%dLL * N + i] = %s;' % (c, _c_arg(o))
+        body.append('            const double t%d = %s;' % (i, expr))
+    body += ['            out[%s] = %s;' % (_row_offset(c), _c_arg(o))
              for c, o in enumerate(program.outputs)]
-    params = ['    const double p%d = p[%d];' % (k, k)
-              for k in range(len(program.params))]
-    return _SOURCE % dict(n_leaves=len(program.leaves),
-                          n_params=len(program.params),
-                          n_out=len(program.outputs),
-                          params='\n'.join(params), body='\n'.join(body))
+    params = ['    const double p%d = __ldg(p + %d);' % (k, slot)
+              for k, slot in enumerate(program.param_slots)]
+    return _SOURCE % dict(
+        n_leaves=len(program.leaves), n_src=len(program.sources),
+        n_params=len(program.params), n_out=len(program.outputs), dim=d,
+        kargs=''.join('const double* __restrict__ %s,\n                    '
+                      % x for x in ptrs),
+        cargs=''.join('const double* %s,\n                       ' % x
+                      for x in ptrs),
+        names=''.join('%s, ' % x for x in ptrs),
+        prologue=prologue, params='\n'.join(params), column=column,
+        body='\n'.join(body))
 
 
-_SOURCE = '''\
+_PROLOGUE = """\
+    __shared__ double sw12[16];
+    if (threadIdx.x < rows) {
+        const int r = r0 + threadIdx.x;
+        sw12[threadIdx.x] = %(w12)s;
+    }
+    __syncthreads();
+"""
+
+_SOURCE = """\
 // Coefficient fields of one variational form (kernel K5 of
-// pyiga_tpu_torch, generated by ops/cuda_vform.py): %(n_leaves)d leaf
-// rows and %(n_params)d parameters in, %(n_out)d fields out, one thread
-// per Gauss point.
+// pyiga_tpu_torch, generated by ops/cuda_vform.py).
+// In: %(n_leaves)d leaves from %(n_src)d tensors and the %(dim)d Gauss
+// weight vectors, %(n_params)d parameters.  Out: %(n_out)d fields.
+// A block owns RB rows of the leading grid axes, a thread the columns c
+// of the last axis; point g = r QL + c.
 #include <cuda_runtime.h>
 
 extern "C" __global__ void __launch_bounds__(256)
-vform_fields_kernel(const double* __restrict__ y,
-                    const double* __restrict__ p,
-                    double* __restrict__ out, long long N) {
-%(params)s
-    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-         i < N; i += (long long)gridDim.x * blockDim.x) {
+vform_fields_kernel(%(kargs)sdouble* __restrict__ out,
+                    int Q12, int QL, int Q1, int RB) {
+    const long long N = (long long)Q12 * QL;
+    const int r0 = blockIdx.x * RB;
+    const int rows = min(RB, Q12 - r0);
+%(prologue)s%(params)s
+    for (int c = threadIdx.x; c < QL; c += blockDim.x) {
+%(column)s
+#pragma unroll 2
+        for (int r = 0; r < rows; ++r) {
+            const long long g = (long long)(r0 + r) * QL + c;
 %(body)s
+        }
     }
 }
 
+// RB: 16 rows, halved while the grid has fewer than two blocks an SM;
+// min(256, QL rounded up to a warp) threads.
 extern "C" __attribute__((visibility("default")))
-int pyiga_vform_fields(const double* y, const double* p, double* out,
-                       long long N, void* stream) {
-    const int threads = 256;
-    long long blocks = (N + threads - 1) / threads;
-    if (blocks > 132LL * 32) blocks = 132LL * 32;
-    if (blocks < 1) blocks = 1;
-    vform_fields_kernel<<<(unsigned int)blocks, threads, 0,
-                          (cudaStream_t)stream>>>(y, p, out, N);
+int pyiga_vform_fields(%(cargs)sdouble* out,
+                       int Q12, int QL, int Q1, void* stream) {
+    if (Q12 < 1 || QL < 1) return (int)cudaErrorInvalidValue;
+    int rb = 16;
+    while (rb > 1 && (Q12 + rb - 1) / rb < 2 * 132) rb /= 2;
+    int threads = (QL + 31) / 32 * 32;
+    if (threads > 256) threads = 256;
+    vform_fields_kernel<<<(Q12 + rb - 1) / rb, threads, 0,
+                          (cudaStream_t)stream>>>(%(names)sout, Q12, QL, Q1,
+                                                  rb);
     return (int)cudaGetLastError();
 }
-'''
+"""
 
 
-def run_program_plain(program, Y, P):
-    """Run `program` with torch ops on leaves ``Y (NY, N)`` and
-    parameters ``P (NP,)``; returns ``(n_combos, N)``.  A test aid for
-    the generator (see the module docstring)."""
-    N = Y.shape[1]
+def run_program_plain(program, arrays):
+    """Run `program` with torch ops on the kernel's operands: the
+    per-axis ``weights``, the source tensors and the flat ``params``
+    vector in `arrays`.  Returns ``(n_combos, N)``.  A test aid for the
+    generator (see the module docstring)."""
+    w12, wL = geom.gauss_weight_factors(arrays['weights'])
+    gw = (w12[:, None] * wL).reshape(-1)
+    N = gw.shape[0]
+    srcs = [arrays[key].reshape(-1, N) for key in program.sources]
+    leaves = [gw if src is None else srcs[src[0]][src[1]]
+              for src in program.leaf_src]
+    params = [arrays['params'][s] for s in program.param_slots]
     tmps = []
 
     def get(a):
         if isinstance(a, float):
             return a
         kind, j = a
-        return {'l': Y, 'p': P, 't': tmps}[kind][j]
+        return {'l': leaves, 'p': params, 't': tmps}[kind][j]
 
     for name, args in program.instrs:
         tmps.append(_TORCH_OPS[name](*[get(a) for a in args]))
     return torch.stack([torch.broadcast_to(torch.as_tensor(
-        get(o), dtype=Y.dtype, device=Y.device), (N,))
+        get(o), dtype=gw.dtype, device=gw.device), (N,))
         for o in program.outputs])
 
 
 ################################################################################
-# Leaves, the wrapper and its plain version
+# The wrapper and its plain version
 ################################################################################
-
-def leaf_rows(program, arrays):
-    """The leaf array ``Y (NY, N)`` and parameter vector ``P`` of
-    `program` from an assembler's device arrays (``weights``,
-    ``geo_val_lvl``, ``geo_jac_lvl``, ``input:*``, ``param:*``)."""
-    W = geom.gauss_weight_field(arrays['weights'])
-    N, dev = W.numel(), W.device
-
-    def leaf(key):
-        if key[0] == 'gw':
-            return W
-        if key[0] == 'geo_val':
-            return arrays['geo_val_lvl'][key[1]]
-        if key[0] == 'geo_jac':
-            return arrays['geo_jac_lvl'][key[1]][key[2]]
-        return arrays['input:' + key[1]][key[2]]
-
-    Y = (torch.stack([leaf(k).reshape(N) for k in program.leaves])
-         if program.leaves else torch.empty((0, N), dtype=W.dtype,
-                                            device=dev))
-    P = torch.stack([arrays['param:' + name][idx].reshape(())
-                     for _p, name, idx in program.params]) \
-        if program.params else torch.zeros(1, dtype=W.dtype, device=dev)
-    return Y.contiguous(), P.to(W.dtype).contiguous()
-
 
 def combo_fields_plain(asm, arrays, combos):
     """Plain PyTorch version of :func:`combo_fields` (the counterpart of
@@ -444,50 +611,26 @@ def combo_fields_plain(asm, arrays, combos):
 def combo_fields(asm, arrays, combos):
     """K5: every combo's coefficient field on the Gauss grid.
 
-    `arrays` are the assembler's tensors (see :func:`leaf_rows`).  On
-    CUDA the form's generated kernel runs (built once per source by
-    :func:`~pyiga_tpu_torch._cuda.build_generated`); on the CPU the plain
-    version.  Returns one contiguous field per combo."""
-    W0 = arrays['weights'][0]
-    if W0.device.type == 'cpu':
+    `arrays` are the assembler's tensors (``asm.device_arrays()``:
+    ``weights``, ``geo_val_lvl``, ``geo_jac_lvl``, ``input:*``,
+    ``param:*`` and the flat ``params``).  On CUDA the form's generated
+    kernel runs: one allocation of the ``(n_combos,) + grid`` output, one
+    ctypes call into the program's entry (:meth:`Program.entry`,
+    :meth:`Program.arguments`), the fields returned as views of the
+    output.  On the CPU the plain version.  Returns one contiguous field
+    per combo."""
+    W = arrays['weights']
+    if W[0].device.type == 'cpu':
         return combo_fields_plain(asm, arrays, combos)
-    if not W0.is_cuda:
-        raise ValueError('combo_fields: unsupported device %s' % W0.device)
+    if not W[0].is_cuda:
+        raise ValueError('combo_fields: unsupported device %s' % W[0].device)
     program = asm._program(combos)
-    Y, P = leaf_rows(program, arrays)
-    out = vform_fields(program, Y, P)
-    grid_shape = tuple(w.shape[0] for w in arrays['weights'])
-    return [out[c].reshape(grid_shape) for c in range(out.shape[0])]
-
-
-def vform_fields(program, Y, P):
-    """Launch `program`'s generated kernel on CUDA leaves ``Y (NY, N)``
-    and parameters `P`; returns ``(n_combos, N)`` float64."""
-    f64 = torch.float64
-    _cuda.require(Y, 'Y', f64, 2)
-    _cuda.require(P, 'P', f64, 1)
-    if Y.shape[0] != len(program.leaves) or P.device != Y.device \
-            or P.shape[0] < max(len(program.params), 1):
-        raise ValueError('vform_fields: Y %s / P %s do not match the '
-                         'program (%d leaves, %d params)'
-                         % (tuple(Y.shape), tuple(P.shape),
-                            len(program.leaves), len(program.params)))
-    fn = _entry(program)
-    N = Y.shape[1]
-    out = torch.empty((len(program.outputs), N), dtype=f64, device=Y.device)
-    with _cuda.device_of(Y):
-        err = fn(Y.data_ptr(), P.data_ptr(), out.data_ptr(), N,
-                 _cuda.stream_of(Y))
+    out = W[0].new_empty((len(program.outputs),)
+                         + tuple(w.shape[0] for w in W))
+    argv = program.arguments(arrays, out, _cuda.stream_of(out))
+    fn = program.entry()
+    with _cuda.device_of(out):
+        err = fn(*argv)
     _cuda.check(err, 'vform_fields')
     _cuda.LAUNCHES['vform_fields'] += 1
-    return out
-
-
-def _entry(program):
-    """The program's C entry point (building its library on first use)."""
-    lib = _cuda.build_generated('vform_fields', program.source)
-    fn = lib.pyiga_vform_fields
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return list(out.unbind(0))

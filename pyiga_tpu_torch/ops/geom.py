@@ -141,3 +141,14 @@ def gauss_weight_field(weights):
     for w in weights[1:]:
         W = W[..., None] * w
     return W
+
+
+def gauss_weight_factors(weights):
+    """The Gauss weight field as two factors, the flattened product
+    ``w12`` of the leading axes' weight vectors (a one on a 1D grid) and
+    the last axis' ``wL``: ``w12[:, None] * wL`` is
+    :func:`gauss_weight_field` bit for bit, ``(w0 w1) w2``."""
+    wL = weights[-1]
+    w12 = (gauss_weight_field(weights[:-1]).reshape(-1) if len(weights) > 1
+           else torch.ones(1, dtype=wL.dtype, device=wL.device))
+    return w12.contiguous(), wL.contiguous()

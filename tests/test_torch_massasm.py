@@ -140,23 +140,37 @@ def test_host_jac_fields_plain(name, p, n):
             assert np.abs(np.asarray(F) - np.asarray(R)).max() / scale < 1e-13
 
 
-def test_host_jac_fields_layout():
+@pytest.mark.parametrize('d,Q12,QL', [(2, 5, 37), (2, 3, 301),
+                                      (3, 12, 45), (3, 1, 7)])
+def test_host_jac_fields_layout(d, Q12, QL):
     """K1' returns the unique ``B_ab`` (a <= b) flattened over the points,
-    the order ``stiffness_fields`` expands, for any point count."""
-    rng = np.random.RandomState(0)
-    for d in (2, 3):
-        N = 37                          # no lane multiple needed
-        J = torch.as_tensor(np.eye(d)[:, :, None]
-                            + 0.2 * rng.rand(d, d, N))
-        gw = torch.as_tensor(rng.rand(N))
-        out = cuda_sumfac.host_jac_fields(J, gw)
-        assert out.shape == (d * (d + 1) // 2, N)
-        Jn = J.numpy().transpose(2, 0, 1)
-        inv = np.linalg.inv(Jn)
-        B = (gw.numpy() * np.abs(np.linalg.det(Jn)))[:, None, None] \
-            * inv @ inv.transpose(0, 2, 1)
-        ref = np.stack([B[:, a, b] for a in range(d) for b in range(a, d)])
-        assert _rel(out, ref) < 1e-14
+    the order ``stiffness_fields`` expands, with ``gw = w12 (x) wL``, for
+    any point count (ragged: QL not a multiple of a warp, above the
+    block's 256 columns, a single row)."""
+    rng = np.random.RandomState(d + QL)
+    N = Q12 * QL
+    J = torch.as_tensor(np.eye(d)[:, :, None] + 0.2 * rng.rand(d, d, N))
+    w12, wL = torch.as_tensor(rng.rand(Q12)), torch.as_tensor(rng.rand(QL))
+    out = cuda_sumfac.host_jac_fields(J, w12, wL)
+    assert out.shape == (d * (d + 1) // 2, N)
+    Jn = J.numpy().transpose(2, 0, 1)
+    inv = np.linalg.inv(Jn)
+    gw = np.outer(w12.numpy(), wL.numpy()).ravel()
+    B = (gw * np.abs(np.linalg.det(Jn)))[:, None, None] \
+        * inv @ inv.transpose(0, 2, 1)
+    ref = np.stack([B[:, a, b] for a in range(d) for b in range(a, d)])
+    assert _rel(out, ref) < 1e-14
+
+
+@pytest.mark.parametrize('d', [1, 2, 3])
+def test_split_weights_give_gauss_weight_field(d):
+    """K1' and K1 take ``w12`` and ``wL``; their product is
+    ``gauss_weight_field`` bit for bit, (w0 w1) w2."""
+    rng = np.random.RandomState(d)
+    W = [torch.as_tensor(rng.rand(n)) for n in (4, 5, 6)[:d]]
+    w12, wL = geom.gauss_weight_factors(W)
+    assert torch.equal((w12[:, None] * wL).reshape(-1),
+                       geom.gauss_weight_field(W).reshape(-1))
 
 
 @pytest.mark.parametrize('name,p,n', [('skew2d', 2, 5), ('user3d', 2, 3)])
@@ -361,10 +375,23 @@ def test_fastdiag_weighted_user_function(name, p, n):
 
 
 def test_host_jacobian_uploaded_once():
+    """The host Jacobian is uploaded once, and K1' reads it in place: the
+    stiffness route passes a view of it and the per-axis weights."""
     geo, _ = _geos('polar2d')
     asm = assemblers.StiffnessAssembler(_kvs(2, 4, 2)[0], geo, device='cpu')
-    assert asm.geo_inputs()['jac'] is asm.geo_inputs()['jac']
+    gi = asm.geo_inputs()
+    assert gi['jac'] is asm.geo_inputs()['jac']
     assert asm.geo_inputs(torch.float32)['jac'].dtype == torch.float32
+    jac, grid = cuda_sumfac._host_jacobian(gi)
+    assert jac.data_ptr() == gi['jac'].data_ptr()
+    assert jac.shape == (2, 2, int(np.prod(grid)))
+    w12, wL = geom.gauss_weight_factors(gi['weights'])
+    assert w12.data_ptr() == gi['weights'][0].data_ptr()
+    assert wL.data_ptr() == gi['weights'][1].data_ptr()
+    out = cuda_sumfac.host_jac_fields(jac, w12, wL)
+    fields = cuda_sumfac.stiffness_fields(gi)
+    assert torch.equal(fields[0].reshape(-1), out[0])
+    assert torch.equal(fields[3].reshape(-1), out[2])
 
 
 def test_progress_bar_stand_in():
@@ -385,4 +412,5 @@ def test_new_kernel_wrappers_refuse_other_devices():
         cuda_sumfac.fields_mass(meta, meta[0], meta[0, 0, :, 0],
                                 meta[0, 0, 0], False)
     with pytest.raises(ValueError):
-        cuda_sumfac.host_jac_fields(meta[:, :, :, 0], meta[0, 0, :, 0])
+        cuda_sumfac.host_jac_fields(meta[:, :, :, 0], meta[0, 0, :2, 0],
+                                    meta[0, 0, :2, 0])

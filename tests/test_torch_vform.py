@@ -6,8 +6,10 @@ K5's plain version and generated program against
 ``VFormAssembler._eval_combo_fields`` (all float64 on the CPU)."""
 
 import _ctypes
+import ctypes
 import functools
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -30,8 +32,15 @@ def _f(x, y):
     return np.sin(x) * y + 1.0
 
 
+def _a(x, y):
+    """A vector input field (physical)."""
+    return (1.0 + x * y, np.cos(x) + 0.0 * y)
+
+
 # stiffness, mass, the bench's convection-diffusion + reaction form, a
-# physical input function, a vector parameter under sqrt/exp
+# physical input function, a vector parameter under sqrt/exp, a vector
+# input field beside a vector parameter; in 3D convection-diffusion with
+# a geometry value
 FORMS = {
     'stiffness': ('inner(grad(u), grad(v)) * dx', {}),
     'mass': ('u * v * dx', {}),
@@ -40,23 +49,32 @@ FORMS = {
     'rhs_f': ('f * v * dx', {'f': _f}),
     'sqrt_exp': ('(sqrt(c[0]**2 + c[1]**2) * inner(grad(u), grad(v)) '
                  '+ exp(c[1]) * u * v) * dx', {'c': np.array([0.5, 1.5])}),
+    'input_param': ('(c[1] * inner(grad(u), grad(v)) + dot(a, grad(u)) * v'
+                    ' + c[0] * a[1] * u * v) * dx',
+                    {'a': _a, 'c': np.array([0.5, 2.0])}),
+    'convdiff3d': ('(inner(grad(u), grad(v)) + dot(b, grad(u)) * v'
+                   ' + x[0] * u * v) * dx', {'b': np.array([3.0, -2.0, 1.0])}),
 }
+DIMS = {'convdiff3d': 3}
 
 
 def _kvs(pkg, p=2, n=5, dim=2):
-    return dim * (pkg.make_knots(p, 0.0, 1.0, n),)
+    return dim * (pkg.make_knots(p, 0.0, 1.0, n - 2 * (dim == 3)),)
 
 
 @functools.lru_cache(maxsize=None)
 def _pair(name, geo='quarter_annulus'):
     """The same form compiled and instantiated in both packages."""
     form, args = FORMS[name]
-    vf = vform.parse_vf(form, _kvs(bspline), args=args)
-    jvf = jvform.parse_vf(form, _kvs(jbspline), args=args)
-    asm = compile.compile_vform(vf)(_kvs(bspline),
+    dim = DIMS.get(name, 2)
+    if dim == 3:
+        geo = 'twisted_box'
+    vf = vform.parse_vf(form, _kvs(bspline, dim=dim), args=args)
+    jvf = jvform.parse_vf(form, _kvs(jbspline, dim=dim), args=args)
+    asm = compile.compile_vform(vf)(_kvs(bspline, dim=dim),
                                     geo=getattr(geometry, geo)(),
                                     device='cpu', **args)
-    jasm = jcompile.compile_vform(jvf)(_kvs(jbspline),
+    jasm = jcompile.compile_vform(jvf)(_kvs(jbspline, dim=dim),
                                        geo=getattr(jgeometry, geo)(), **args)
     return vf, jvf, asm, jasm
 
@@ -116,10 +134,12 @@ def test_geo_jac_fields_plain_matches_jax(name, p, n):
 @pytest.mark.parametrize('name,geo', [(n, 'quarter_annulus') for n in FORMS]
                          + [('convdiff', 'bspline_quarter_annulus')])
 def test_combo_fields_match_jax(name, geo):
-    """K5's plain version, and the generated program run with torch ops,
-    against JAX's ``_eval_combo_fields`` on JAX's own host arrays,
-    relative to the largest field (a conformal map makes some fields pure
-    rounding noise on both sides)."""
+    """K5's plain version, and the generated program run with torch ops
+    from the leaves' source tensors, the per-axis Gauss weights and the
+    flat parameter vector (the kernel's operands), against JAX's
+    ``_eval_combo_fields`` on JAX's own host arrays, relative to the
+    largest field (a conformal map makes some fields pure rounding noise
+    on both sides)."""
     _, _, asm, jasm = _pair(name, geo)
     ref = [np.asarray(F) for F in
            jasm._eval_combo_fields(jasm._device_inputs(), jasm.combos)]
@@ -129,11 +149,12 @@ def test_combo_fields_match_jax(name, geo):
     arrays['geo_val_lvl'], arrays['geo_jac_lvl'] = \
         cuda_sumfac.geometry_fields(ops['geo_tables'], ops['geo_coeffs'],
                                     asm._geo_is_nurbs)
+    arrays['params'] = torch.as_tensor(
+        cuda_vform.param_vector(jasm._host_arrays))
     plain = cuda_vform.combo_fields_plain(asm, arrays, asm.combos)
     prog = asm._program(asm.combos)
-    Y, P = cuda_vform.leaf_rows(prog, arrays)
-    run = cuda_vform.run_program_plain(prog, Y, P)
-    assert run.shape == (len(asm.combos), Y.shape[1])
+    run = cuda_vform.run_program_plain(prog, arrays)
+    assert run.shape == (len(asm.combos), ref[0].size)
     for c, R in enumerate(ref):
         assert plain[c].shape == R.shape
         assert np.abs(plain[c].numpy() - R).max() / scale < 1e-13
@@ -157,6 +178,107 @@ def test_generated_program_shares_geometry():
     assert sum(op == 'div' for op, _ in prog.instrs) == 4
     assert 'fabs(' in prog.source and 'pyiga_vform_fields' in prog.source
     assert len(set(prog.instrs)) == len(prog.instrs)
+
+
+@pytest.mark.parametrize('name', ['convdiff', 'input_param', 'convdiff3d'])
+def test_generated_source_reads_leaves_in_place(name):
+    """The kernel takes one pointer per source tensor (no stacked leaf
+    array), reads each leaf at its row of that tensor, forms the Gauss
+    weight as ``(w0 w1) w2`` from the per-axis vectors and reads the
+    parameters at their slots of the flat parameter vector."""
+    _, _, asm, _ = _pair(name)
+    prog = asm._program(asm.combos)
+    src, d = prog.source, asm.dim
+    assert 'y[' not in src and 'const double* __restrict__ y' not in src
+    assert src.count('const double* __restrict__ s') == len(prog.sources)
+    assert src.count('const double* __restrict__ w') == d
+    rows = {'geo_val_lvl': lambda k: k[1],
+            'geo_jac_lvl': lambda k: k[1] * d + k[2]}
+    for j, key in enumerate(prog.leaves):
+        if key == ('gw',):
+            assert prog.leaf_src[j] is None
+            assert 'const double l%d = sw12[r] * wl;' % j in src
+            continue
+        s, row = prog.leaf_src[j]
+        akey = prog.sources[s]
+        if akey.startswith('input:'):
+            lead = np.shape(asm._host_arrays[akey])[:-d]
+            assert row == (np.ravel_multi_index(key[2], lead) if lead
+                           else 0)
+        else:
+            assert row == rows[akey](key)
+        off = 'g' if row == 0 else '%dLL * N + g' % row
+        assert 'const double l%d = __ldg(s%d + %s);' % (j, s, off) in src
+    w12 = {2: '__ldg(w0 + r)',
+           3: '__ldg(w0 + r / Q1) * __ldg(w1 + r % Q1)'}[d]
+    assert 'sw12[threadIdx.x] = %s;' % w12 in src
+    assert 'const double wl = __ldg(w%d + c);' % (d - 1) in src
+    flat = {k: i for i, (k, _v) in enumerate(
+        cuda_vform._param_components(asm._host_arrays))}
+    for k, (key, slot) in enumerate(zip(prog.params, prog.param_slots)):
+        assert slot == flat[key]
+        assert 'const double p%d = __ldg(p + %d);' % (k, slot) in src
+    assert ('const double* __restrict__ p,' in src) == bool(prog.params)
+    P = asm.device_arrays()['params']
+    assert np.array_equal(P.numpy(),
+                          cuda_vform.param_vector(asm._host_arrays))
+
+
+def test_param_update_keeps_source():
+    """A new parameter value refreshes the cached flat parameter vector
+    and keeps the program (and its source); a new shape rebuilds it."""
+    vf = vform.parse_vf(FORMS['convdiff'][0], _kvs(bspline),
+                        args={'b': np.array([3.0, -2.0])})
+    asm = compile.compile_vform(vf)(_kvs(bspline),
+                                    geo=geometry.quarter_annulus(),
+                                    device='cpu', b=np.array([3.0, -2.0]))
+    prog = asm._program(asm.combos)
+    src = prog.source
+    asm.device_arrays()
+    asm.update(b=np.array([-1.0, 4.0]))
+    assert asm._program(asm.combos) is prog and prog.source == src
+    arrays = asm.device_arrays()
+    assert arrays['params'].tolist() == [-1.0, 4.0]
+    assert arrays['param:b'].tolist() == [-1.0, 4.0]
+    run = cuda_vform.run_program_plain(prog, arrays)
+    plain = cuda_vform.combo_fields_plain(asm, arrays, asm.combos)
+    for c, F in enumerate(plain):
+        assert torch.equal(run[c], F.reshape(-1))
+
+
+def test_generated_program_without_leaves():
+    """A program with no leaf and constant outputs: no load, no weight
+    vector read, the constants stored at every point."""
+    prog = cuda_vform.SSARecorder().finish([2.5, 0.0], 2)
+    src = prog.source
+    assert prog.sources == [] and prog.params == []
+    assert '__ldg' not in src and 'sw12' not in src
+    assert 'out[g] = (2.5);' in src and 'out[1LL * N + g] = (0.0);' in src
+    W = [torch.rand(3, dtype=torch.float64), torch.rand(4,
+                                                         dtype=torch.float64)]
+    run = cuda_vform.run_program_plain(prog, {'weights': W})
+    assert run.tolist() == [[2.5] * 12, [0.0] * 12]
+
+
+def test_program_entry_built_once(monkeypatch):
+    """The program's C entry is built, loaded and declared once: later
+    launches reuse it without calling ``build_generated`` (no source
+    hash per launch).  A stand-in library stands for the build."""
+    calls = []
+
+    def fake_build(name, source):
+        calls.append(name)
+        return types.SimpleNamespace(
+            pyiga_vform_fields=types.SimpleNamespace())
+    monkeypatch.setattr(_cuda, 'build_generated', fake_build)
+    _, _, asm, _ = _pair('convdiff')
+    prog = cuda_vform.generate(asm, asm.combos)
+    fn = prog.entry()
+    for _ in range(3):
+        assert prog.entry() is fn
+    assert calls == ['vform_fields']
+    # w0, w1, the Jacobian, the parameters, out; Q12, QL, Q1; the stream
+    assert len(fn.argtypes) == 5 + 3 + 1 and fn.restype is ctypes.c_int
 
 
 def _dummy_physical(x, y):
