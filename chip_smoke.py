@@ -31,7 +31,7 @@ The hierarchical local-multigrid path (the bench's ``run_localmg``:
 ``unit_square`` with the on-demand ``bbox`` assemblers -> ``solvers.
 solve_hmultigrid`` -> ``DeviceMGSolver``, one K6 launch per solve: every
 V-cycle and the convergence test run inside it) has these phases: K6
-against its plain version on the (24, 3) and (48, 3) hierarchies, one
+against its plain version on the (24, 3), (48, 3) and (96, 3) hierarchies, one
 V-cycle from a seeded iterate and the whole solve against the host loop
 over the plain cycle, with each step of a cycle timed from a traced
 launch (4e); the path at n0=6 on the card against the CPU (4f); the bench
@@ -40,6 +40,24 @@ host path in the same process, one K6 launch per solve (8); and (48, 3)
 through ``solve_hmultigrid(hs, A, f)`` with its defaults (above the JAX
 package's dense cutoff, where ``'auto'`` takes K6 up to
 ``tri_block_cutoff``), held to 27 (8b).
+
+The wavefront smoother (``ops/relax.py``; above ``tri_block_cutoff``
+``solve_hmultigrid``'s defaults take it): ``wavefront_gs`` (one launch
+per ``DeviceIndexedGS.apply``) and K6's wavefront mode against their
+plain versions at (24, 3) and (96, 3), forward, backward and symmetric,
+a set with zero-diagonal rows, bitwise on a repeat, with ms per pass and
+per cycle (4j); (96, 3) through ``solve_hmultigrid(hs, A, f)`` with its
+defaults, held to the host path's 25 in one K6 launch per solve, its
+solver setup (schedules, coarse inverse formed on the card) printed
+(8c); and ``local_mg_step(relax_backend='device')`` under
+``iterative_solve`` at (24, 3), 29 cycles, one ``wavefront_gs`` launch
+per smoothing application (8d).
+
+The low-rank ACA assembly: ``bench.py``'s ``run_aca`` at 3D p=3 n=48
+(``aca_3d_device`` over ``compact_slice`` on the card, timed warm),
+held to the port's CPU pivot count and to ``run_device()`` at 1e-9
+(13); ``mass_fast`` / ``stiffness_fast`` on the card against the
+golden fixtures (13b).
 
 The mass and time-stepping paths: K1's ``mass`` kind and K1' (the
 stiffness fields of a host-evaluated Jacobian, also at ragged shapes and
@@ -133,6 +151,12 @@ KERNELS = {
                 'pyiga_tpu/ops/pallas_sumfac.py:436'),
     'tail_fused': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
                    'pyiga_tpu/ops/pallas_sumfac.py:563'),
+    # no Pallas site: the JAX package runs these as XLA loops
+    'wavefront_gs': ('cuda', 'pyiga_tpu_torch/csrc/mg.cu',
+                     'pyiga_tpu/ops/relax.py:111 _smooth_fn (XLA)'),
+    'vcycle_wavefront': ('cuda', 'pyiga_tpu_torch/csrc/mg.cu',
+                         'pyiga_tpu/ops/mg.py:55 _smooth in _solve_fn :477 '
+                         '(XLA)'),
 }
 # the kernels each main path runs
 POISSON_KERNELS = ('fields', 'stage', 'fold', 'flat_banded_f64',
@@ -140,6 +164,8 @@ POISSON_KERNELS = ('fields', 'stage', 'fold', 'flat_banded_f64',
 VFORM_KERNELS = ('geo_jac_fields', 'vform_fields', 'stage', 'fold')
 LOCALMG_KERNELS = ('vcycle', 'geo_jac_fields', 'vform_fields', 'stage',
                    'fold')
+WAVE_LOCALMG_KERNELS = ('vcycle_wavefront',) + LOCALMG_KERNELS[1:]
+ACA_KERNELS = ('geo_jac_fields', 'vform_fields', 'stage')
 MASS_KERNELS = ('mass_fields', 'stage', 'fold', 'flat_banded_f64')
 HEAT_KERNELS = ('mass_fields', 'fields', 'stage', 'fold')
 USERGEO_KERNELS = ('host_jac_fields', 'stage', 'fold')
@@ -153,7 +179,16 @@ DIRICHLET_KERNELS = ('fields', 'stage', 'stage_T', 'tail_fused')
 # keeps it near a minute (5 rejected attempts, 2 accepted)
 HEAT_T_END = {'esdirk34': 3e-4, 'ros3p': 0.1}
 # (n0, levels) -> the iteration count of the JAX package's host path
-LOCALMG_ITERS = {(24, 3): 29, (48, 3): 27}
+LOCALMG_ITERS = {(24, 3): 29, (48, 3): 27, (96, 3): 25}
+# the hierarchies whose largest smoothing set exceeds tri_block_cutoff,
+# where solve_hmultigrid's defaults take the wavefront smoother
+WAVEFRONT_SIZES = {(96, 3)}
+# n -> the outer pivots of aca_3d_device for the 3D p=3 stiffness on the
+# twisted box: the port's on the CPU (ties broken by the lowest index,
+# lowrank.TIE_TOL), which the card must reproduce, and the JAX package's
+# on the CPU ('exact' slices, strict argmax: rounding breaks the ties)
+ACA_PIVOTS = {48: 32}
+ACA_PIVOTS_JAX = {48: 29}
 
 CONVDIFF = '(inner(grad(u), grad(v)) + dot(b, grad(u)) * v + u * v) * dx'
 CONV_B = np.array([3.0, -2.0])
@@ -1040,6 +1075,11 @@ def vcycle_bound(ops, x, f):
     flops = 2 * ops.Cinv.m ** 2
     for lev in ops.levels:
         for key, val in lev.items():
+            if key == 'wave':
+                wb = wavefront_bound(val, None, ops.steps, vectors=False)
+                nbytes_dense += wb['bound_bytes']
+                flops += wb['bound_flops']
+                continue
             for t in (val if isinstance(val, (list, tuple)) else [val]):
                 if id(t) in seen:
                     continue
@@ -1062,7 +1102,11 @@ def localmg_problem(n0, L, device):
 
 def check_vcycle_kernel(device):
     """Phase 4e: K6 against its plain version on the operands of the
-    (24, 3) and (48, 3) hierarchies: one V-cycle from a seeded iterate and
+    (24, 3), (48, 3) and (96, 3) hierarchies (the last past
+    ``tri_block_cutoff``, where ``'auto'`` takes K6's wavefront mode: the
+    dense mode there is that mode's yardstick, after a host setup of half a
+    minute for its four 9,316-row triangular inverses): one V-cycle from a
+    seeded iterate and
     right-hand side (1e-13 relative to the largest entry, a second launch
     bitwise equal), and the whole solve from zero for the path's
     right-hand side against the host loop over the plain cycle (the same
@@ -1249,6 +1293,23 @@ def run_localmg(device, n0, L=3, impl=None):
         t_slv = min(t_slv, time.perf_counter() - t0)
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device)
+    route = impl
+    setup = {}
+    if impl is None:
+        solver = solvers._device_mg_solver(hs, A, 'cell_supp', 'gs', 2,
+                                           device)
+        route = solver.smoother_impl
+        setup['first'] = solver.setup_ms
+        if route == 'wavefront':
+            # the same setup again, the process warm (cuSOLVER loaded)
+            setup['again'] = localmg_solver(hs, A, device,
+                                            route).setup_ms
+            torch.cuda.empty_cache()
+    want = 'wavefront' if (n0, L) in WAVEFRONT_SIZES else 'fused'
+    if impl is None and route != want:
+        raise RuntimeError('solve_hmultigrid took the %r route at (%d,%d), '
+                           'expected %r' % (route, n0, L, want))
+    k6 = 'vcycle_wavefront' if route == 'wavefront' else 'vcycle'
 
     t0 = time.perf_counter()
     xh, it_host = solvers.solve_hmultigrid(hs, A, f, tol=1e-8,
@@ -1257,7 +1318,10 @@ def run_localmg(device, n0, L=3, impl=None):
     free = hs.non_dirichlet_dofs()
     res = float(np.linalg.norm((f - A @ x)[free]) / np.linalg.norm(f[free]))
     x_rel = float(np.abs(x - xh).max() / np.abs(xh).max())
-    rec = dict(n0=n0, levels=L, p=3, impl=impl or 'auto', ndofs=hs.numdofs,
+    rec = dict(n0=n0, levels=L, p=3, impl=impl or 'auto', route=route,
+               setup_ms=setup, smoothing_sets=[
+                   len(s) for s in hs.indices_to_smooth('cell_supp')],
+               ms_per_cycle=1e3 * t_slv / iters, ndofs=hs.numdofs,
                nnz=int(A.nnz), numactive=list(hs.numactive),
                t_space_ms=1e3 * t_space, t_first_build_ms=1e3 * t_first,
                t_assemble_matrix_ms=1e3 * best[0],
@@ -1281,6 +1345,9 @@ def run_localmg(device, n0, L=3, impl=None):
         '%.3e  x vs host %.3e  peak %.1f MB'
         % (iters, it_host, 1e3 * t_host, LOCALMG_ITERS[(n0, L)], res, x_rel,
            peak / 2 ** 20))
+    log('  route %s, smoothing sets %s, %.4f ms a cycle; solver setup '
+        '(ms) %s' % (route, rec['smoothing_sets'], rec['ms_per_cycle'],
+                     setup))
     log('  launches: %s' % launches)
     if x.shape != (hs.numdofs,) or not np.isfinite(x).all():
         raise RuntimeError('local-MG solution has shape %s or is not finite'
@@ -1291,14 +1358,387 @@ def run_localmg(device, n0, L=3, impl=None):
     if not (res <= 1e-8 and x_rel <= 1e-10):
         raise RuntimeError('local-MG residual %.3e or x vs host %.3e too '
                            'large' % (res, x_rel))
-    missing = [k for k in LOCALMG_KERNELS if launches[k] <= 0]
+    kernels = WAVE_LOCALMG_KERNELS if route == 'wavefront' else \
+        LOCALMG_KERNELS
+    missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise RuntimeError('local-MG path never launched %s' % missing)
     # the warm-up solve and the two timed ones: one K6 launch each
-    if launches['vcycle'] != 3:
-        raise RuntimeError('K6 launched %d times for 3 solves'
-                           % launches['vcycle'])
+    if launches[k6] != 3:
+        raise RuntimeError('K6 (%s) launched %d times for 3 solves'
+                           % (k6, launches[k6]))
     return rec
+
+
+def wavefront_bound(sweeps, group, iterations, vectors=True):
+    """The wavefront kernel's bound: each distinct pass of group `group`
+    (every group for None) read once (its stored nonzero entries, 4 + 8
+    bytes each; its rows' local and global index and diagonal; its level
+    table) and, with `vectors`, the touched entries of x read, the set's
+    written and its b read; the operations counted are 2 a stored entry
+    and one division a row, per pass applied (`iterations` times each
+    pass of the group)."""
+    groups = range(len(sweeps.groups)) if group is None else [group]
+    seen, nb, flops = set(), 0, 0
+    for g in groups:
+        for c in sweeps.compact[g]:
+            rows = int(c['lvl'][:, 3].sum())
+            flops += iterations * (2 * c['entries'] + rows)
+            if id(c) not in seen:
+                seen.add(id(c))
+                nb += 12 * c['entries'] + 16 * rows + 16 * c['nlev']
+    if vectors:
+        nb += 8 * (sweeps.nloc + 2 * sweeps.m)
+    return bound(nb, flops, F64_FMA_PER_MS)
+
+
+def localmg_levels(n0, L, device):
+    """The Galerkin hierarchy, smoothing sets and right-hand side of the
+    local-MG path (assembled on `device`)."""
+    from pyiga_tpu_torch import solvers
+    hs, A, f = localmg_problem(n0, L, device)
+    Ps = hs.virtual_hierarchy_prolongators()
+    return hs, A, f, solvers.galerkin_hierarchy(A, Ps), \
+        hs.indices_to_smooth('cell_supp')
+
+
+def check_wavefront_kernels(device, sizes=((24, 3), (96, 3))):
+    """Phase 4j: both wavefront kernels against their plain versions.
+    ``wavefront_gs`` (one launch per ``DeviceIndexedGS.apply``) on the
+    smoothing sets of levels 1 and 2 of the (24, 3) and (96, 3)
+    hierarchies, forward, backward and symmetric, 2 iterations from a
+    seeded x and b (1e-13 relative; a second launch bitwise equal), and on
+    a set with two zero-diagonal rows, also laid out for half the shared
+    memory (the local x in global memory, levels split); its time per pass
+    with the level count and rows per level.  K6's wavefront mode on the same
+    hierarchies: one cycle from a seeded iterate against the plain cycle
+    (1e-13, bitwise on a repeat), at (24, 3) the whole solve against the
+    host loop over the plain cycle (the same count, x and res2 to 1e-12),
+    its ms a cycle, and the steps of a traced cycle."""
+    from pyiga_tpu_torch.ops import cuda_mg
+    from pyiga_tpu_torch.ops.relax import DeviceIndexedGS
+    gs_cases, k6_cases = {}, {}
+    for n0, L in sizes:
+        t0 = time.perf_counter()
+        hs, A, fh, As, lv_inds = localmg_levels(n0, L, device)
+        log('  (%d,%d): %d dofs, smoothing sets %s, hierarchy %.1f s'
+            % (n0, L, hs.numdofs, [len(s) for s in lv_inds],
+               time.perf_counter() - t0))
+        rng = np.random.RandomState(n0)
+        for lv in range(1, L):
+            n = As[lv].shape[0]
+            x = torch.as_tensor(rng.rand(n), dtype=torch.float64,
+                                device=device)
+            b = torch.as_tensor(rng.rand(n), dtype=torch.float64,
+                                device=device)
+            for sweep in ('forward', 'backward', 'symmetric'):
+                t0 = time.perf_counter()
+                gs = DeviceIndexedGS(As[lv], lv_inds[lv], sweep=sweep,
+                                     iterations=2, device=device)
+                t_setup = time.perf_counter() - t0
+                sw = gs.sweeps
+                name = 'wavefront_gs (%d,%d) L%d %s' % (n0, L, lv, sweep)
+                got = cuda_mg.wavefront_gs(sw, 0, 2, x.clone(), b)
+                ref = cuda_mg.wavefront_gs_plain(sw, 0, 2, x.clone(), b)
+                sync(device)
+                err, rel = compare(name, got, ref, 1e-13)
+                check_repeat(name, lambda: cuda_mg.wavefront_gs(
+                    sw, 0, 2, x.clone(), b), got)
+                npass = sw.groups[0]
+                xw = x.clone()
+                ms_pass = time_ms(lambda: cuda_mg.wavefront_gs(
+                    sw, 0, 1, xw, b), device, reps=20) / npass
+                ms_launch = time_ms(lambda: cuda_mg.wavefront_gs(
+                    sw, 0, 2, xw, b), device, reps=20)
+                plain_ms = time_ms(lambda: cuda_mg.wavefront_gs_plain(
+                    sw, 0, 2, xw.clone(), b), device, reps=2, warmup=1)
+                levels = [c['nlev'] for c in sw.compact[0]]
+                rows_max = [c['pmax'] for c in sw.compact[0]]
+                widths = [int(c['lvl'][:, 2].max()) if c['nlev'] else 0
+                          for c in sw.compact[0]]
+                key = '%d_%d_L%d_%s' % (n0, L, lv, sweep)
+                gs_cases[key] = dict(
+                    max_abs_err=err, rel=rel, repeat_equal=True,
+                    ms_per_pass=ms_pass, ms=ms_launch, plain_ms=plain_ms,
+                    levels=levels, rows_per_level_max=rows_max,
+                    width_max=widths, m=sw.m, nloc=sw.nloc,
+                    smem_bytes=sw.smem_bytes, xs_shared=sw.xs_shared,
+                    war=[c['war'] for c in sw.compact[0]],
+                    setup_ms=1e3 * t_setup, library_ms=None,
+                    **wavefront_bound(sw, 0, 2))
+                r = gs_cases[key]
+                log('  %s: m %d, local x %d, levels %s, rows/level <= %s, '
+                    'width <= %s; %.4f ms a pass (%.2f us a level), launch '
+                    '(2 iterations) %.4f ms, plain %.2f ms, bound %.5f ms, '
+                    'setup %.0f ms'
+                    % (name, sw.m, sw.nloc, levels, rows_max, widths,
+                       ms_pass, 1e3 * ms_pass / max(np.mean(levels), 1),
+                       ms_launch, plain_ms, r['bound_ms'], 1e3 * t_setup))
+        # a set whose rows include two zero diagonals (skipped rows)
+        Az = As[L - 1].tolil()
+        dead = np.asarray(lv_inds[L - 1])[[3, 17]]
+        for i in dead:
+            Az[i, i] = 0.0
+        Az = Az.tocsr()
+        gz = DeviceIndexedGS(Az, lv_inds[L - 1], sweep='symmetric',
+                             iterations=2, device=device)
+        n = Az.shape[0]
+        x = torch.as_tensor(rng.rand(n), dtype=torch.float64, device=device)
+        b = torch.as_tensor(rng.rand(n), dtype=torch.float64, device=device)
+        got = cuda_mg.wavefront_gs(gz.sweeps, 0, 2, x.clone(), b)
+        ref = cuda_mg.wavefront_gs_plain(gz.sweeps, 0, 2, x.clone(), b)
+        compare('wavefront_gs zero diagonal (%d,%d)' % (n0, L), got, ref,
+                1e-13)
+        if not torch.equal(got[dead], x[dead]):
+            raise RuntimeError('a zero-diagonal row changed')
+        check_repeat('wavefront_gs zero diagonal', lambda: cuda_mg.
+                     wavefront_gs(gz.sweeps, 0, 2, x.clone(), b), got)
+        if (n0, L) == sizes[0]:
+            # the layout for a smaller shared memory: the local x in a
+            # global scratch vector and the levels split in runs of rows
+            full = gz.sweeps
+            R, E = full.slot_rows, full.slot_entries
+            cap = max(max(int(c['lvl'][:, 2].max())
+                          for c in full.compact[0]), E // 8 * 4)
+            saved = cuda_mg.WF_SMEM_BYTES
+            cuda_mg.WF_SMEM_BYTES = (cuda_mg.WF_STAGES * (12 * cap + 20 * R)
+                                     + 16 * cuda_mg.WF_TABLE + 8 * R)
+            try:
+                gsm = DeviceIndexedGS(Az, lv_inds[L - 1], sweep='symmetric',
+                                      iterations=2, device=device)
+            finally:
+                cuda_mg.WF_SMEM_BYTES = saved
+            nlev = [c['nlev'] for c in gsm.sweeps.compact[0]]
+            if gsm.sweeps.xs_shared or nlev <= [c['nlev']
+                                                for c in full.compact[0]]:
+                raise RuntimeError('the small layout kept its local x in '
+                                   'shared memory or split no level')
+            got_s = cuda_mg.wavefront_gs(gsm.sweeps, 0, 2, x.clone(), b)
+            compare('wavefront_gs small layout (%d,%d)' % (n0, L), got_s,
+                    ref, 1e-13)
+            check_repeat('wavefront_gs small layout', lambda: cuda_mg.
+                         wavefront_gs(gsm.sweeps, 0, 2, x.clone(), b), got_s)
+            log('  small layout: %d B shared, levels %s (from %s)'
+                % (gsm.sweeps.smem_bytes, nlev,
+                   [c['nlev'] for c in full.compact[0]]))
+
+        # K6's wavefront mode
+        t0 = time.perf_counter()
+        s = localmg_solver(hs, A, device, 'wavefront')
+        t_setup = time.perf_counter() - t0
+        ops = s.ops
+        name = '(%d,%d)' % (n0, L)
+        x = torch.as_tensor(rng.rand(A.shape[0]), dtype=torch.float64,
+                            device=device)
+        f = torch.as_tensor(rng.rand(A.shape[0]), dtype=torch.float64,
+                            device=device)
+        got, ref = cuda_mg.vcycle(ops, x, f), cuda_mg.vcycle_plain(ops, x, f)
+        sync(device)
+        err, rel = compare('vcycle_wavefront ' + name, got[0], ref[0], 1e-13)
+        _, rel2 = compare('res2 wavefront ' + name, got[1].reshape(1),
+                          ref[1].reshape(1), 1e-13)
+        check_repeat('vcycle_wavefront ' + name,
+                     lambda: cuda_mg.vcycle(ops, x, f)[0], got[0])
+        fp = torch.as_tensor(fh, dtype=torch.float64, device=device)
+        res0 = np.float64(torch.linalg.vector_norm(fp * ops.mask).item())
+        xg, itg, _, histg = cuda_mg.vcycle_solve(ops, fp, res0, 1e-8, 100)
+        rec = dict(max_abs_err=err, rel=rel, res2_rel=rel2,
+                   repeat_equal=True, cycles=itg, n=ops.n,
+                   setup_ms=s.setup_ms, setup_total_ms=1e3 * t_setup)
+        if (n0, L) == sizes[0]:
+            xs, its, _, hists = cuda_mg.vcycle_solve_plain(ops, fp, res0,
+                                                           1e-8, 100)
+            if itg != its:
+                raise RuntimeError('K6 wavefront solve %s took %d cycles, '
+                                   'the plain loop %d' % (name, itg, its))
+            _, rec['solve_x_rel'] = compare('solve x wavefront ' + name, xg,
+                                            xs, 1e-12)
+            _, rec['solve_res2_rel'] = compare(
+                'solve res2 wavefront ' + name, histg, hists, 1e-12)
+        if itg != LOCALMG_ITERS[(n0, L)]:
+            raise RuntimeError('K6 wavefront solve %s took %d cycles, '
+                               'expected %d' % (name, itg,
+                                                LOCALMG_ITERS[(n0, L)]))
+        xz = torch.zeros_like(fp)
+        solve_ms = time_ms(lambda: cuda_mg.launch_solve(
+            ops, xz.zero_(), fp, res0, 1e-8, 100), device, reps=5)
+        first, names = cuda_mg.phase_names(ops, first=True), \
+            cuda_mg.phase_names(ops)
+        trace = torch.zeros(len(first) + len(names) + 1, dtype=torch.int64,
+                            device=device)
+        cuda_mg.launch_solve(ops, xz.zero_(), fp, res0, 1e-8, 100,
+                             trace=trace)
+        ts = trace.cpu().numpy()[len(first):]
+        steps_us = [(nm, 1e-3 * float(t1 - t0_))
+                    for nm, t0_, t1 in zip(names, ts[:-1], ts[1:])]
+        blocks, smem = cuda_mg._launch_shape(ops, device)
+        rec.update(
+            blocks=blocks, smem_bytes=smem, solve_ms=solve_ms,
+            ms=solve_ms / itg, cycle2_steps_us=steps_us,
+            cycle_ms=time_ms(lambda: cuda_mg.vcycle(ops, x, f), device,
+                             reps=5),
+            plain_ms=time_ms(lambda: cuda_mg.vcycle_plain(ops, x, f),
+                             device, reps=1, warmup=1),
+            library_ms=None, **vcycle_bound(ops, x, f))
+        k6_cases['%d_%d' % (n0, L)] = rec
+        log('  vcycle_wavefront %s: %d blocks, %d B shared; setup %s ms; '
+            'one cycle %.4f ms, solve %.3f ms / %d cycles = %.4f ms a cycle,'
+            ' plain %.1f ms a cycle, bound %.4f ms'
+            % (name, blocks, smem, {k: round(v, 1) for k, v in
+                                     s.setup_ms.items()}, rec['cycle_ms'],
+               solve_ms, itg, rec['ms'], rec['plain_ms'], rec['bound_ms']))
+        log('  cycle 2 steps (us): %s'
+            % ', '.join('%s %.2f' % st for st in steps_us))
+        del s, ops, gs, gz
+        torch.cuda.empty_cache()
+    # the entries of the JSON line: the paths' shapes ((24, 3) level 2
+    # forward, as phase 8d applies it; K6 at (96, 3) as phase 8c runs it)
+    (n0, L), (n1, L1) = sizes[0], sizes[-1]
+    return {'wavefront_gs': dict(gs_cases['%d_%d_L%d_forward'
+                                          % (n0, L, L - 1)], cases=gs_cases),
+            'vcycle_wavefront': dict(k6_cases['%d_%d' % (n1, L1)],
+                                     cases=k6_cases)}
+
+
+def run_localmg_step_device(device, n0=24, L=3):
+    """Phase 8d: ``local_mg_step(relax_backend='device')`` under
+    ``iterative_solve`` at (24, 3): one ``DeviceIndexedGS`` per level and
+    sweep direction, one ``wavefront_gs`` launch per smoothing
+    application; the count must equal the host path's (29)."""
+    from pyiga_tpu_torch import _cuda, solvers
+    hs, A, f = localmg_problem(n0, L, device)
+    Ps = hs.virtual_hierarchy_prolongators()
+    lv_inds = hs.indices_to_smooth('cell_supp')
+    active = hs.non_dirichlet_dofs()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    step = solvers.local_mg_step(hs, A, f, Ps, lv_inds, 'gs', 2,
+                                 relax_backend='device', device=device)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, it = solvers.iterative_solve(step, A, f, active_dofs=active)
+    t_solve = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    step_h = solvers.local_mg_step(hs, A, f, Ps, lv_inds, 'gs', 2,
+                                   relax_backend='host')
+    xh, it_h = solvers.iterative_solve(step_h, A, f, active_dofs=active)
+    x_rel = float(np.abs(x - xh).max() / np.abs(xh).max())
+    log('  (%d,%d) local_mg_step device: %d cycles (host %d), setup %.0f '
+        'ms, solve %.1f ms (%.2f ms a cycle), x vs host %.3e; launches %s'
+        % (n0, L, it, it_h, 1e3 * t_setup, 1e3 * t_solve,
+           1e3 * t_solve / it, x_rel, launches))
+    if not (it == it_h == LOCALMG_ITERS[(n0, L)] and x_rel <= 1e-10):
+        raise RuntimeError('local_mg_step device took %s cycles (host %s), '
+                           'x vs host %.3e' % (it, it_h, x_rel))
+    # per cycle a pre- and a post-smoothing application on each of the
+    # L - 1 upper levels
+    if launches['wavefront_gs'] != 2 * (L - 1) * it:
+        raise RuntimeError('wavefront_gs launched %d times for %d cycles'
+                           % (launches['wavefront_gs'], it))
+    return dict(n0=n0, levels=L, iters=it, iters_host=it_h,
+                t_setup_ms=1e3 * t_setup, t_solve_ms=1e3 * t_solve,
+                x_rel_host=x_rel, launches=launches)
+
+
+def run_aca(device, n=48, p=3):
+    """Phase 13: ``bench.py`` ``run_aca(..., 3, 48)``: the 3D p=3
+    stiffness of the twisted box by ``aca_3d_device(asm, tol=1e-10,
+    verbose=0)`` on the card, timed warm as the bench times it (the host
+    CSR excluded); pivots and ``entry_frac`` as ``bench.py:745-746``
+    computes them; the result against ``run_device()``'s data (1e-9
+    relative to its largest entry); the pivot count against the port's
+    on the CPU (``ACA_PIVOTS``), the JAX package's printed beside it."""
+    from pyiga_tpu_torch import _cuda, bspline, geometry, lowrank
+    from pyiga_tpu_torch.compile import compile_vform
+    from pyiga_tpu_torch.vform import stiffness_vf
+    kvs = 3 * (bspline.make_knots(p, 0.0, 1.0, n),)
+    t0 = time.perf_counter()
+    asm = compile_vform(stiffness_vf(3))(kvs, geo=geometry.twisted_box(),
+                                         device=device)
+    t_setup = time.perf_counter() - t0
+    S = asm.structure
+    shape = tuple(len(bx) for bx in S.bidx)
+    total = int(np.prod(shape))
+    counts = []
+    inflate = lowrank._aca_inflate
+
+    def counting(cols, mats, count, shp):
+        counts.append(int(count))
+        return inflate(cols, mats, count, shp)
+    lowrank._aca_inflate = counting
+    torch.cuda.reset_peak_memory_stats(device)
+    _cuda.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        X = lowrank.aca_3d_device(asm, tol=1e-10, verbose=0)
+        t_cold = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        t0 = time.perf_counter()
+        X = lowrank.aca_3d_device(asm, tol=1e-10, verbose=0)
+        t_warm = time.perf_counter() - t0
+    finally:
+        lowrank._aca_inflate = inflate
+    peak = torch.cuda.max_memory_allocated(device)
+    pivots = counts[-1]
+    frac = pivots * (S.bidx[0].shape[0] + total // S.bidx[0].shape[0]) \
+        / total
+    ref = asm.run_device()[(None, None)].cpu().numpy()
+    scale = float(np.abs(ref).max())
+    rel = float(np.abs(X - ref).max()) / scale
+    ndofs = int(np.prod([kv.numdofs for kv in kvs]))
+    rec = dict(n=n, p=p, ndofs=ndofs, shape=shape, entries=total,
+               t_asm_setup_ms=1e3 * t_setup, t_cold_ms=1e3 * t_cold,
+               t_aca_ms=1e3 * t_warm, pivots=pivots, pivots_cold=counts[0],
+               pivots_port_cpu=ACA_PIVOTS[n], pivots_jax_cpu=ACA_PIVOTS_JAX[n],
+               entry_frac=frac, rel_err=rel,
+               peak_device_bytes=int(peak), launches=launches)
+    log('  3D p=%d n=%d (%d dofs): compact tensor %s = %d entries; '
+        'assembler setup %.0f ms; aca_3d_device cold %.1f ms, warm %.1f '
+        'ms; %d pivots (the port on the CPU %d, JAX on the CPU %d), '
+        'entry_frac %.4f; rel err vs run_device %.3e; peak %.1f MB'
+        % (p, n, ndofs, shape, total, 1e3 * t_setup, 1e3 * t_cold,
+           1e3 * t_warm, pivots, ACA_PIVOTS[n], ACA_PIVOTS_JAX[n], frac, rel,
+           peak / 2 ** 20))
+    log('  launches (cold call): %s' % launches)
+    if X.shape != shape or not np.isfinite(X).all():
+        raise RuntimeError('ACA result has shape %s or is not finite'
+                           % (X.shape,))
+    if not (pivots == counts[0] == ACA_PIVOTS[n] and rel <= 1e-9):
+        raise RuntimeError('ACA took %d pivots (cold %d, the port on the '
+                           'CPU %d), rel err %.3e'
+                           % (pivots, counts[0], ACA_PIVOTS[n], rel))
+    missing = [k for k in ACA_KERNELS if launches[k] <= 0]
+    if missing:
+        raise RuntimeError('ACA path never launched %s' % missing)
+    return rec
+
+
+def check_fast_fixtures(device):
+    """Phase 13b: ``stiffness_fast`` / ``mass_fast`` on the card (2D: the
+    host 2D ACA over slices computed on the card; 3D: ``aca_3d_device``)
+    against the golden fixtures at 2D p=3 n=15 (quarter annulus) and 3D
+    p=2 n=10 (twisted box), 1e-9 absolute."""
+    from pyiga_tpu_torch import assemble, bspline, geometry
+    out = {}
+    for dim, p, n in ((2, 3, 15), (3, 2, 10)):
+        kvs = dim * (bspline.make_knots(p, 0.0, 1.0, n),)
+        geo = geometry.bspline_quarter_annulus() if dim == 2 else \
+            geometry.twisted_box()
+        for kind, fn in (('mass', assemble.mass_fast),
+                         ('stiff', assemble.stiffness_fast)):
+            t0 = time.perf_counter()
+            M = fn(kvs, geo, verbose=0, device=device)
+            t = time.perf_counter() - t0
+            name = 'poisson_neu_d%d_p%d_n%d_%s' % (dim, p, n, kind)
+            ref = read_fixture(name + '.mtx.gz')
+            err = float(abs(M - ref).max())
+            log('  %s_fast %s: max abs err %.3e (%.0f ms)'
+                % (kind, name, err, 1e3 * t))
+            if M.shape != ref.shape or not err <= 1e-9:
+                raise RuntimeError('%s_fast off the fixture %s by %.3e'
+                                   % (kind, name, err))
+            out[name] = dict(max_abs_err=err, ms=1e3 * t)
+    return out
 
 
 def polar_annulus():
@@ -2195,7 +2635,8 @@ def main():
     conv['warm'] = run_convdiff(device)
     torch.cuda.empty_cache()
 
-    log('phase 4e: K6 (V-cycle) vs its plain version, (24,3) and (48,3)')
+    log('phase 4e: K6 (V-cycle) vs its plain version, (24,3), (48,3) and '
+        '(96,3)')
     kern.update(check_vcycle_kernel(device))
     torch.cuda.empty_cache()
 
@@ -2212,6 +2653,23 @@ def main():
     log('phase 8b: local-MG path, 2D p=3 HB (48,3), solve_hmultigrid '
         'defaults')
     lmg48 = run_localmg(device, 48)
+    torch.cuda.empty_cache()
+
+    log('phase 4j: the wavefront kernels (wavefront_gs, K6 wavefront mode) '
+        'vs plain versions at (24,3) and (96,3)')
+    kern.update(check_wavefront_kernels(device))
+    torch.cuda.empty_cache()
+
+    log('phase 8c: local-MG path, 2D p=3 HB (96,3), solve_hmultigrid '
+        'defaults (the wavefront route)')
+    lmg96 = run_localmg(device, 96)
+    launches['vcycle_wavefront'] = lmg96['launches']['vcycle_wavefront']
+    torch.cuda.empty_cache()
+
+    log("phase 8d: local_mg_step(relax_backend='device') under "
+        'iterative_solve, (24,3)')
+    lmg_step = run_localmg_step_device(device)
+    launches['wavefront_gs'] = lmg_step['launches']['wavefront_gs']
     torch.cuda.empty_cache()
 
     log("phase 4g: K1 mass kind and K1' vs plain versions")
@@ -2258,6 +2716,16 @@ def main():
 
     log('phase 12b: Dirichlet path on small inputs (n=8), card vs CPU')
     small.update(check_dirichlet_small(device))
+    torch.cuda.empty_cache()
+
+    log('phase 13: low-rank ACA assembly, 3D p=3 twisted box n=48 '
+        '(aca_3d_device)')
+    aca = run_aca(device)
+    torch.cuda.empty_cache()
+
+    log('phase 13b: mass_fast / stiffness_fast on the card against the '
+        'fixtures')
+    small['fast_fixtures'] = check_fast_fixtures(device)
 
     kernels = [dict(name=k, route=KERNELS[k][0], source=KERNELS[k][1],
                     replaces=KERNELS[k][2], launches=launches[k],
@@ -2273,6 +2741,8 @@ def main():
                   sass_dmma=dmma, kernels=kern,
                   small=small, main3d=main3, main2d=main2,
                   convdiff2d=conv, localmg_24_3=lmg, localmg_48_3=lmg48,
+                  localmg_96_3=lmg96, localmg_step_device=lmg_step,
+                  aca3d=aca,
                   mass3d=mass3, heat2d=heat, heat2d_device=heat_dev,
                   tail_fused3d=tail, dirichlet3d=dirichlet,
                   seconds=time.perf_counter() - t_start)

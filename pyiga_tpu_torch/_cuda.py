@@ -40,7 +40,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'mass_fields': 0,
             'host_jac_fields': 0, 'stage': 0, 'fold': 0, 'stage_T': 0,
             'tail_fused': 0, 'flat_banded_f64': 0, 'flat_banded_f32': 0,
-            'vform_fields': 0, 'vcycle': 0}
+            'vform_fields': 0, 'vcycle': 0, 'vcycle_wavefront': 0,
+            'wavefront_gs': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +61,7 @@ _SIGNATURES = {
     'pyiga_vcycle_blocks': (_I, _L, _P),
     'pyiga_vcycle_f64': (_P, _P, _P, _P, _P, _P, _D, _D, _I, _P, _I, _I, _L,
                          _P),
+    'pyiga_wavefront_gs_f64': (_P, _I, _I, _I, _P, _P, _L, _P),
 }
 
 _lock = threading.Lock()

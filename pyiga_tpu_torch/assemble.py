@@ -4,7 +4,9 @@
 :class:`~pyiga_tpu_torch.vform.VForm`, a compiled assembler class or an
 assembler instance; :func:`mass` and :func:`stiffness` over a TP space
 (the 1D builders, the Kronecker route for ``geo=None`` and the Gauss
-assemblers of :mod:`pyiga_tpu_torch.assemblers` for a geometry).
+assemblers of :mod:`pyiga_tpu_torch.assemblers` for a geometry), and
+their low-rank ACA counterparts :func:`mass_fast` and
+:func:`stiffness_fast`.
 
 Matrix conventions as in the JAX package: rows are test functions,
 columns trial functions.  The device is explicit (``device=``; omitted
@@ -509,3 +511,42 @@ def assemble_vf(vf, kvs, symmetric=False, format='csr', layout='blocked',
     args.update(kwargs)
     return assemble(vf, kvs, symmetric=symmetric, format=format,
                     layout=layout, args=args, device=device)
+
+
+################################################################################
+# Fast low-rank (ACA) assembling
+################################################################################
+
+def _fast_asm(vf_factory, kvs, geo, tol, maxiter, skipcount, tolcount,
+              verbose, device):
+    from .lowrank import fast_assemble
+    dim = len(kvs)
+    asm = compile_vform(vf_factory(dim))(kvs, geo=geo, device=device)
+    return fast_assemble(asm, kvs, tol=tol, maxiter=maxiter,
+                         skipcount=skipcount, tolcount=tolcount,
+                         verbose=verbose)
+
+
+def mass_fast(kvs, geo=None, tol=1e-10, maxiter=100, skipcount=3,
+              tolcount=3, verbose=2, device=None):
+    """Assemble the mass matrix by low-rank ACA over its compact tensor
+    (:func:`~pyiga_tpu_torch.lowrank.fast_assemble`; slices on `device`,
+    default the card).  Without a geometry, the Kronecker :func:`mass`."""
+    if geo is None:
+        return mass(kvs)
+    from .vform import mass_vf
+    return _fast_asm(mass_vf, kvs, geo, tol, maxiter, skipcount, tolcount,
+                     verbose, device)
+
+
+def stiffness_fast(kvs, geo=None, tol=1e-10, maxiter=100, skipcount=3,
+                   tolcount=3, verbose=2, device=None):
+    """Assemble the stiffness matrix by low-rank ACA over its compact
+    tensor (:func:`~pyiga_tpu_torch.lowrank.fast_assemble`; slices on
+    `device`, default the card).  Without a geometry, the Kronecker
+    :func:`stiffness`."""
+    if geo is None:
+        return stiffness(kvs)
+    from .vform import stiffness_vf
+    return _fast_asm(stiffness_vf, kvs, geo, tol, maxiter, skipcount,
+                     tolcount, verbose, device)

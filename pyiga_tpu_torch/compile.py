@@ -29,11 +29,18 @@ per-axis basis pairs without support there; :meth:`VFormAssembler.update`
 swaps updatable inputs, parameters or the geometry and drops the device
 operands that the change makes stale.
 
+:meth:`VFormAssembler.compact_slice` evaluates a slice of the compact
+data tensor with some axes pinned (the entry callback of the low-rank
+ACA assembly, :mod:`~pyiga_tpu_torch.lowrank`): the coefficient fields
+of every combo, computed once on the device (K2 + K1 ``jac`` + K5) and
+kept, contracted against the per-axis tables in f64 tensordot chains,
+the pinned axes first.  The JAX package's two-float ``'pair'`` slices
+exist for the TPU and are not ported.
+
 Not ported yet (each raises :class:`NotImplementedError` naming the
-piece): vector-valued forms, surface integrals, two-space forms,
-geometry Hessians and second physical derivatives, derivatives of input
-fields, host-evaluated (non-spline) geometry, ``compact_slice`` /
-``multi_entries``.
+piece): vector-valued forms (``multi_blocks``), surface integrals,
+two-space forms, geometry Hessians and second physical derivatives,
+derivatives of input fields, host-evaluated (non-spline) geometry.
 """
 
 import itertools
@@ -266,7 +273,8 @@ class VFormAssembler:
         self._num_combos_total = len(self.combos)
         self._prune_combos()
         self._operands = None
-        self._program_cache = None
+        self._program_cache = {}
+        self._slice_cache = self._full_mlm = None
 
     def _checked_geo(self, geo):
         if not isinstance(geo, (geometry.BSplineFunc, geometry.NurbsFunc)):
@@ -355,14 +363,15 @@ class VFormAssembler:
                 changed['param:' + name] = np.asarray(f, dtype=float)
                 continue
             raise ValueError('%r is not an updatable input' % name)
+        self._slice_cache = self._full_mlm = None
         if geo_changed:
             self._build_arrays()
             self._operands = None
-            self._program_cache = None
+            self._program_cache = {}
             return
         if any(np.shape(a) != np.shape(self._host_arrays[k])
                for k, a in changed.items()):
-            self._program_cache = None
+            self._program_cache = {}
         self._host_arrays.update(changed)
         if self._operands is not None:
             inputs = dict(self._operands['inputs'])
@@ -378,11 +387,92 @@ class VFormAssembler:
         return torch.as_tensor(cuda_vform.param_vector(self._host_arrays),
                                dtype=DTYPE, device=self.device)
 
+    # -- slices of the compact tensor (low-rank assembly) ----------------------
+
+    def _make_slice_fn(self, fixed_axes):
+        """The slice evaluator of a pinned-axes pattern: ``fn(fields,
+        term_tables, idx)`` with `idx` an int64 tensor of the pinned pair
+        indices (in `fixed_axes` order) on the fields' device.  Each
+        combo's field is contracted against its per-axis tables in f64,
+        the pinned axes first, the last of them first: a pinned ``(1, Q)``
+        table collapses its grid axis at once, so the free axes' stages
+        run on a thin intermediate, and the full field is contracted over
+        its first or last axis, which needs no transposed copy of it."""
+        d = self.dim
+        order = sorted(fixed_axes, reverse=True) + [
+            k for k in range(d) if k not in fixed_axes]
+
+        def contract(X, T, k):
+            if k == 0:
+                return torch.tensordot(T, X, dims=([1], [0]))
+            return torch.movedim(torch.tensordot(X, T, dims=([k], [1])),
+                                 -1, k)
+
+        def slice_fn(fields, term_tables, idx):
+            out = None
+            for C, tabs in zip(fields, term_tables):
+                tabs = list(tabs)
+                for pos, ax in enumerate(fixed_axes):
+                    tabs[ax] = tabs[ax].index_select(0, idx[pos:pos + 1])
+                X = C
+                for k in order:
+                    X = contract(X, tabs[k], k)
+                out = X if out is None else out + X
+            return out.reshape([out.shape[k] for k in range(d)
+                                if k not in fixed_axes])
+        return slice_fn
+
+    def _slice_fn_cached(self, fixed_axes):
+        """The slice evaluator of a pinned-axes pattern (cached)."""
+        fns = self.__dict__.setdefault('_slice_fns', {})
+        fn = fns.get(fixed_axes)
+        if fn is None:
+            fn = fns[fixed_axes] = self._make_slice_fn(fixed_axes)
+        return fn
+
+    def _slice_operands(self):
+        """``(fields, term_tables)`` of the slice evaluators on the
+        assembler's device: the coefficient field of EVERY combo (not
+        only those of the fold plan that ``run_device`` evaluates), from
+        K2 + K1 ``jac`` + K5 once, and each combo's per-axis tables;
+        cached until :meth:`update`."""
+        if self._slice_cache is None:
+            ops = self._device_operands()
+            fields = cuda_vform.combo_fields(self, self.device_arrays(),
+                                             self.combos)
+            self._slice_cache = (fields, ops['term_tables'])
+        return self._slice_cache
+
     def compact_slice(self, fixed):
-        raise NotImplementedError('compact_slice (ACA) is not ported yet')
+        """A slice of the compact data tensor with the axes of the dict
+        `fixed` (axis -> pair index) pinned: the dense host array over the
+        free axes, computed on the assembler's device by f64 tensordot
+        chains over the cached coefficient fields (the ACA's entry
+        callback)."""
+        if self.vf.vec or self.arity != 2:
+            raise ValueError('compact_slice needs a scalar bilinear form')
+        fixed_axes = tuple(sorted(fixed.keys()))
+        fn = self._slice_fn_cached(fixed_axes)
+        fields, tables = self._slice_operands()
+        idx = torch.tensor([int(fixed[ax]) for ax in fixed_axes],
+                           dtype=torch.int64, device=self.device)
+        return fn(fields, tables, idx).cpu().numpy()
 
     def multi_entries(self, indices):
-        raise NotImplementedError('multi_entries (ACA) is not ported yet')
+        """Entries ``(i, j) -> value`` for a list of global index pairs:
+        the matrix is assembled once (kept until :meth:`update`) and
+        gathered."""
+        if self.vf.vec:
+            raise ValueError('multi_entries needs a scalar form')
+        if self._full_mlm is None:
+            self._full_mlm = self.assemble().asmatrix('csr')
+        indices = np.asarray(indices)
+        return np.asarray(
+            self._full_mlm[indices[:, 0], indices[:, 1]]).ravel()
+
+    def multi_blocks(self, indices):
+        raise NotImplementedError('multi_blocks: vector-valued forms are '
+                                  'not ported yet (ROADMAP item 7)')
 
     # -- evaluation ----------------------------------------------------------------
 
@@ -392,9 +482,9 @@ class VFormAssembler:
     def _program(self, combos):
         """The generated K5 program of `combos` (cached)."""
         key = tuple(combos)
-        if self._program_cache is None or self._program_cache[0] != key:
-            self._program_cache = (key, cuda_vform.generate(self, combos))
-        return self._program_cache[1]
+        if key not in self._program_cache:
+            self._program_cache[key] = cuda_vform.generate(self, combos)
+        return self._program_cache[key]
 
     def _prune_key(self):
         """Cache key for the probe results: everything the probe values

@@ -65,6 +65,40 @@
 //   the launch are read through L2 (__ldcg), never the non-coherent path.
 // * With a trace buffer, block 0 records %globaltimer at the start and
 //   after every barrier (the phases of the first cycles).
+//
+// The wavefront smoothing mode (the descriptor's H_MODE word) replaces
+// the dense T passes above tri_block_cutoff, where T would be O(m^2) bytes
+// and its host inverse O(m^3): block 0 runs all `steps` x passes of a
+// level's smoothing in `wavefront_smooth` below while the other blocks
+// wait at the next grid barrier; residuals, transfers, the coarse solve
+// and the convergence test stay grid-wide.  One barrier a smoothing
+// half per level, so a cycle at (96, 3) has 12 barriers.
+//
+// The wavefront Gauss-Seidel sweep, also launched alone as
+// `wavefront_gs_kernel` (one launch per DeviceIndexedGS.apply), has no
+// Pallas counterpart: the JAX package runs it as an XLA loop
+// (pyiga_tpu/ops/mg.py `_smooth` :55, pyiga_tpu/ops/relax.py `_smooth_fn`
+// :111), one gather and one scatter per level.  A sweep over the set S is
+// a chain of ~500 dependent levels of <= 25 rows of <= 97 entries (the
+// (96, 3) hierarchy), so latency, not bytes, bounds it: a grid barrier
+// or a launch per level would cost more than the level's work.
+// Design: one block of 512 threads runs every level of every pass, a warp
+// per row (two rows at a time, interleaved), __syncthreads() between
+// levels.  The entries of x that A[S, :] touches live in shared memory
+// under a local numbering (S first), loaded once and written back once
+// per call (or, where they do not fit, in a global scratch vector).  A
+// level's operands (each row's entries padded to the level's width, its
+// diagonal, b gathered into the pass's row order, its local index) are
+// contiguous, and are copied into a ring of shared-memory slots by
+// cp.async two levels ahead (the level table's entries six ahead), issued
+// by the block's last warps, which hold no row of a small level: no
+// global load lies on a level's path, which waits on shared memory, its
+// FMAs, a butterfly, one division and the barrier (~0.8 us a level at
+// (24, 3), ~1.06 at (96, 3) on an NVIDIA H100 80GB HBM3 at 700 W; the
+// parts are timed by scripts/torch_wavefront_probe.py --micro).  A pass
+// in which a row reads what another row of its level writes (write after
+// read, structurally nonsymmetric matrices only) holds the level's writes
+// until all its reads are done (a second barrier).
 
 #include "common.cuh"
 
@@ -84,10 +118,24 @@ constexpr int kSumLanes = 256;      // the fixed partial sums of res2
 constexpr int kHdr = 16;
 constexpr int kLv = 40;
 enum Header { H_L = 0, H_STEPS, H_NPRE, H_NPOST, H_M0, H_IND0, H_MASK, H_RS,
-              H_R, H_VEC, H_CINV };
+              H_R, H_VEC, H_CINV, H_MODE = 14 };
 enum Level { V_N = 0, V_ACOLS, V_AVALS, V_AW, V_M, V_S, V_ASCOLS, V_ASVALS,
              V_ASW, V_PCOLS, V_PVALS, V_PW, V_PTCOLS, V_PTVALS, V_PTW, V_X,
-             V_RHS, V_SPOS, V_PRE = 20, V_POST = 28 };
+             V_RHS, V_SPOS, V_WAVE, V_PRE = 20, V_POST = 28 };
+// the wavefront operands (ops/cuda_mg.py WavefrontSweeps): a header of
+// kWfHdr words (local size, local-to-global map, rows written back, the
+// passes of the two groups, the entries and rows of a shared-memory slot,
+// the global local x or 0, the shared bytes), then kWfPass words a pass
+// (levels, level table, local row, global row, diagonal, entry columns,
+// entry values, write-after-read flag, b in row order, rows)
+constexpr int kWfHdr = 10;
+constexpr int kWfPass = 10;
+// the shared-memory ring: slots of level operands, copied kWfAhead levels
+// ahead, and level-table entries, copied 3 kWfAhead levels ahead (these
+// are ops/cuda_mg.py WF_STAGES and WF_TABLE)
+constexpr int kWfAhead = 2;
+constexpr int kWfStages = kWfAhead + 1;
+constexpr int kWfTable = 4 * kWfAhead;
 
 struct Ell {
     const int* cols;
@@ -302,6 +350,204 @@ __device__ void dense_pass(const Ctx& c, const Dense& M, int m,
     }
 }
 
+namespace wf {
+
+// 16 bytes from global to shared memory, asynchronously: a barrier does
+// not wait for it, cp.async.wait_group does
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_newest() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, by the
+// threads of the block counted from the last: a level's rows go to the
+// first warps, so the copies' issue stays off them for a level of fewer
+// rows than warps
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           int bytes) {
+    char* d = static_cast<char*>(dst);
+    const char* g = static_cast<const char*>(src);
+    for (int i = (blockDim.x - 1 - threadIdx.x) * 16; i < bytes;
+         i += blockDim.x * 16)
+        copy16(d + i, g + i);
+}
+
+struct Pass {
+    int nlev;
+    const int4* lvl;        // (first row, first entry, width, rows)
+    const int* dst;         // a row's local index
+    const int* gid;         // its global index (for b)
+    const double* diag;
+    const int* col;         // local columns, `width` a row, zero padded
+    const double* val;
+    bool war;
+    double* bl;             // b in the pass's row order (gathered here)
+    int nrows;              // rows of the arrays, padding included
+};
+
+__device__ __forceinline__ Pass pass_at(const long long* w, int k) {
+    const long long* p = w + kWfHdr + kWfPass * k;
+    return Pass{(int)word(p, 0),          addr<const int4>(p, 1),
+                addr<const int>(p, 2),    addr<const int>(p, 3),
+                addr<const double>(p, 4), addr<const int>(p, 5),
+                addr<const double>(p, 6), word(p, 7) != 0,
+                addr<double>(p, 8),       (int)word(p, 9)};
+}
+
+// The shared memory of a call: a ring of kWfStages level slots (E entries'
+// values and columns, R rows' diagonals, b values and local indices), a
+// ring of kWfTable level-table entries, a stage of R values and, unless
+// the operands give a global scratch vector, the local x.
+struct Smem {
+    char* ring;
+    int slot;               // bytes a slot
+    int E, R;
+    int4* tab;
+    double* stage;
+    double* xs;
+};
+
+__device__ __forceinline__ Smem smem_of(const long long* w, char* base) {
+    Smem m;
+    m.E = (int)word(w, 5);
+    m.R = (int)word(w, 6);
+    m.ring = base;
+    m.slot = 12 * m.E + 20 * m.R;
+    m.tab = reinterpret_cast<int4*>(base + kWfStages * m.slot);
+    m.stage = reinterpret_cast<double*>(m.tab + kWfTable);
+    double* scratch = addr<double>(w, 7);
+    m.xs = scratch ? scratch : m.stage + m.R;
+    return m;
+}
+
+// Start the copies of level e's operands into its slot and, from the last
+// thread, of level-table entry t into the table ring.
+__device__ __forceinline__ void issue(const Pass& P, const Smem& m, int e,
+                                      int t) {
+    if (e < P.nlev) {
+        const int4 lv = m.tab[e % kWfTable];
+        char* slot = m.ring + (e % kWfStages) * m.slot;
+        const int ents = lv.w * lv.z;           // a multiple of 4
+        const int rows = (lv.w + 3) & ~3;
+        copy_async(slot, P.val + lv.y, 8 * ents);
+        copy_async(slot + 8 * m.E, P.col + lv.y, 4 * ents);
+        copy_async(slot + 12 * m.E, P.diag + lv.x, 8 * rows);
+        copy_async(slot + 12 * m.E + 8 * m.R, P.bl + lv.x, 8 * rows);
+        copy_async(slot + 12 * m.E + 16 * m.R, P.dst + lv.x, 4 * rows);
+    }
+    if (t < P.nlev && threadIdx.x == blockDim.x - 1)
+        copy16(m.tab + t % kWfTable, P.lvl + t);
+    commit();
+}
+
+// One pass, level by level: level l's operands were copied kWfAhead
+// levels before, so a level waits on shared memory, its FMAs, a
+// butterfly, a division and one barrier (two in a write-after-read
+// pass).  A warp takes two rows at a time, interleaved.
+__device__ void run_pass(const Pass& P, const Smem& m) {
+    constexpr int D = kWfAhead;
+    if (P.nlev == 0) return;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nw = blockDim.x >> 5;
+    for (int i = threadIdx.x; i < 2 * D && i < P.nlev; i += blockDim.x)
+        m.tab[i] = __ldg(P.lvl + i);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < D; ++k) issue(P, m, k, 2 * D + k);
+    for (int l = 0; l < P.nlev; ++l) {
+        wait_newest<D - 1>();
+        __syncthreads();
+        issue(P, m, l + D, 3 * D + l);
+        const int4 lv = m.tab[l % kWfTable];
+        const char* slot = m.ring + (l % kWfStages) * m.slot;
+        const double* sv = reinterpret_cast<const double*>(slot);
+        const int* sc = reinterpret_cast<const int*>(slot + 8 * m.E);
+        const double* sd = reinterpret_cast<const double*>(slot + 12 * m.E);
+        const double* sb = sd + m.R;
+        const int* sdst = reinterpret_cast<const int*>(sb + m.R);
+        const int W = lv.z, rows = lv.w;
+        for (int p0 = warp; p0 < rows; p0 += 2 * nw) {
+            const int p1 = p0 + nw;
+            const bool two = p1 < rows;
+            double a0 = 0.0, a1 = 0.0;
+            for (int k = lane; k < W; k += 32) {
+                a0 = fma(sv[p0 * W + k], m.xs[sc[p0 * W + k]], a0);
+                if (two) a1 = fma(sv[p1 * W + k], m.xs[sc[p1 * W + k]], a1);
+            }
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) {
+                a0 += __shfl_xor_sync(0xffffffffu, a0, o);
+                a1 += __shfl_xor_sync(0xffffffffu, a1, o);
+            }
+            const double v0 = (sb[p0] - a0) / sd[p0];
+            const double v1 = two ? (sb[p1] - a1) / sd[p1] : 0.0;
+            if (lane == 0) {
+                if (P.war) {
+                    m.stage[p0] = v0;
+                    if (two) m.stage[p1] = v1;
+                } else {
+                    m.xs[sdst[p0]] = v0;
+                    if (two) m.xs[sdst[p1]] = v1;
+                }
+            }
+        }
+        if (P.war) {
+            __syncthreads();
+            for (int p = threadIdx.x; p < rows; p += blockDim.x)
+                m.xs[sdst[p]] = m.stage[p];
+        }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+}
+
+// `iterations` x the passes first .. first+count-1 of the wavefront
+// operands `w` for A x = b, by one block (shared memory from `base`):
+// x's touched entries go to the local x, b to each pass's row order, and
+// the set's entries of the local x back to x.
+__device__ __noinline__ void wavefront_smooth(const long long* w, int first,
+                                              int count, int iterations,
+                                              double* x, const double* b,
+                                              char* base) {
+    const Smem m = smem_of(w, base);
+    const int nloc = (int)word(w, 0);
+    const int* l2g = addr<const int>(w, 1);
+    const int nset = (int)word(w, 2);
+    for (int j = threadIdx.x; j < nloc; j += blockDim.x)
+        m.xs[j] = __ldcg(x + __ldg(l2g + j));
+    for (int k = 0; k < count; ++k) {
+        const Pass P = pass_at(w, first + k);
+        for (int r = threadIdx.x; r < P.nrows; r += blockDim.x)
+            P.bl[r] = __ldcg(b + __ldg(P.gid + r));
+    }
+    __syncthreads();
+    for (int it = 0; it < iterations; ++it)
+        for (int k = 0; k < count; ++k) run_pass(pass_at(w, first + k), m);
+    for (int j = threadIdx.x; j < nset; j += blockDim.x)
+        x[__ldg(l2g + j)] = m.xs[j];
+}
+
+}  // namespace wf
+
+// A level's smoothing half in the wavefront mode, by block 0: the passes
+// first .. first+count-1, `steps` times, in the block's shared memory.
+__device__ void wave_level(const Ctx& c, const long long* lvd, int first,
+                           int count, int steps, double* x, const double* b) {
+    wf::wavefront_smooth(addr<const long long>(lvd, V_WAVE), first, count,
+                         steps, x, b, reinterpret_cast<char*>(c.sv));
+}
+
 // One Gauss-Seidel sweep over the level's smoothing set S in its algebraic
 // form x[S] += T (b[S] - A[S, :] x); with `have_rS` the residual is
 // already in rS.
@@ -331,20 +577,30 @@ __device__ void cycle(Barrier& bar, const Ctx& c, const long long* d,
     const int npost = (int)word(d, H_NPOST);
     double* rS = work + word(d, H_RS);
     double* r = work + word(d, H_R);
+    const bool wave = word(d, H_MODE) != 0;
     // the restriction, or the previous cycle's residual on the finest
     // level, writes the first rS of a level that pre-smooths
-    const bool fuse = steps > 0 && npre > 0;
+    const bool fuse = !wave && steps > 0 && npre > 0;
 
     // 1. descend
     for (int lv = L - 1; lv >= 1; --lv) {
         const long long* lvd = level(d, lv);
         double* xl = level_x(d, lv, L, x, work);
         const double* bl = level_b(d, lv, L, f, work);
-        for (int s = 0; s < steps; ++s)
-            for (int k = 0; k < npre; ++k)
-                smooth_pass(bar, c, lvd, dense(lvd + V_PRE + 4 * k), xl, bl,
-                            rS, fuse && (lv < L - 1 || !first) && s == 0
+        if (wave) {
+            if (steps > 0 && npre > 0) {
+                if (blockIdx.x == 0)
+                    wave_level(c, lvd, 0, npre, steps, xl, bl);
+                bar.sync();
+            }
+        } else {
+            for (int s = 0; s < steps; ++s)
+                for (int k = 0; k < npre; ++k)
+                    smooth_pass(bar, c, lvd, dense(lvd + V_PRE + 4 * k), xl,
+                                bl, rS,
+                                fuse && (lv < L - 1 || !first) && s == 0
                                     && k == 0);
+        }
         ell_rows(c, ell(lvd, V_ACOLS), word(lvd, V_N), xl,
                  [&](long long i, double z) { r[i] = __ldcg(bl + i) - z; });
         bar.sync();
@@ -390,10 +646,18 @@ __device__ void cycle(Barrier& bar, const Ctx& c, const long long* d,
                  level_x(d, lv - 1, L, x, work),
                  [&](long long i, double z) { xl[i] = __ldcg(xl + i) + z; });
         bar.sync();
-        for (int s = 0; s < steps; ++s)
-            for (int k = 0; k < npost; ++k)
-                smooth_pass(bar, c, lvd, dense(lvd + V_POST + 4 * k), xl, bl,
-                            rS, false);
+        if (wave) {
+            if (steps > 0 && npost > 0) {
+                if (blockIdx.x == 0)
+                    wave_level(c, lvd, npre, npost, steps, xl, bl);
+                bar.sync();
+            }
+        } else {
+            for (int s = 0; s < steps; ++s)
+                for (int k = 0; k < npost; ++k)
+                    smooth_pass(bar, c, lvd, dense(lvd + V_POST + 4 * k), xl,
+                                bl, rS, false);
+        }
     }
 
     // 4. the squared entries of the masked residual, and the next cycle's
@@ -481,6 +745,16 @@ vcycle_kernel(const long long* __restrict__ d, double* x,
     }
 }
 
+// The wavefront sweeps alone: one block, `iterations` x the passes first
+// .. first+count-1 (see the header).
+__global__ void __launch_bounds__(kThreads, 1)
+wavefront_gs_kernel(const long long* __restrict__ w, int first, int count,
+                    int iterations, double* x, const double* b) {
+    extern __shared__ double smem[];
+    wf::wavefront_smooth(w, first, count, iterations, x, b,
+                         reinterpret_cast<char*>(smem));
+}
+
 cudaError_t allow_smem(long long smem) {
     if (smem <= 48 * 1024) return cudaSuccess;
     return cudaFuncSetAttribute(vcycle_kernel,
@@ -531,5 +805,20 @@ PYIGA_EXPORT int pyiga_vcycle_f64(const long long* desc, double* x,
                                     dim3(kThreads), args, (size_t)smem,
                                     (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
+PYIGA_EXPORT int pyiga_wavefront_gs_f64(const long long* w, int first,
+                                        int count, int iterations, double* x,
+                                        const double* b, long long smem,
+                                        void* stream) {
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            wavefront_gs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    wavefront_gs_kernel<<<1, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
+        w, first, count, iterations, x, b);
     return (int)cudaGetLastError();
 }

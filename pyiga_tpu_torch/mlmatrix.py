@@ -81,6 +81,7 @@ class MLStructure:
         self.bidx = tuple(bidx)
         if len(self.bs) != len(self.bidx):
             raise ValueError('bs and bidx differ in length')
+        self.L = len(self.bs)
         self.shape = (int(np.prod([b[0] for b in self.bs])),
                       int(np.prod([b[1] for b in self.bs])))
 

@@ -1,5 +1,6 @@
 """Native (C++) host kernels: the Gauss-Seidel sweeps of the local
-multigrid smoother's host path (a copy of :mod:`pyiga_tpu.native`).
+multigrid smoother's host path and the rank-1 update of the 2D ACA (a
+copy of :mod:`pyiga_tpu.native`).
 
 ``iga_kernels.cc`` is compiled with g++ at first use into
 ``build/pyiga_tpu_torch/native/`` beside the package (named by a hash of
@@ -63,6 +64,9 @@ def get_lib():
             i64p, i64p, f64p, f64p, f64p, i64p,
             ctypes.c_int64, ctypes.c_int]
         lib.gauss_seidel_csr_indexed.restype = None
+        lib.rank_1_update.argtypes = [f64p, ctypes.c_int64, ctypes.c_int64,
+                                      ctypes.c_double, f64p, f64p]
+        lib.rank_1_update.restype = None
         _LIB = lib
         return _LIB
 
@@ -149,3 +153,16 @@ def gauss_seidel_sweep_indexed(A, x, b, rows, reverse=False):
         x_in[...] = x
         return x_in
     return x
+
+
+def rank_1_update(A, alpha, x, y):
+    """In-place ``A += alpha * outer(x, y)`` (single-threaded native
+    kernel; numpy for a non-contiguous or non-f64 `A`)."""
+    lib = get_lib()
+    if lib is not None and A.dtype == np.float64 and A.flags.c_contiguous:
+        lib.rank_1_update(_f64(A), A.shape[0], A.shape[1], float(alpha),
+                          _f64(np.ascontiguousarray(x, dtype=np.float64)),
+                          _f64(np.ascontiguousarray(y, dtype=np.float64)))
+        return A
+    A += alpha * np.outer(x, y)
+    return A

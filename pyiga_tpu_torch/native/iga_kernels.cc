@@ -1,5 +1,5 @@
-// Native host-side kernels of pyiga_tpu_torch (the Gauss-Seidel sweeps of
-// pyiga_tpu/native/iga_kernels.cc).
+// Native host-side kernels of pyiga_tpu_torch (the Gauss-Seidel sweeps and
+// the rank-1 update of pyiga_tpu/native/iga_kernels.cc).
 //
 // Gauss-Seidel relaxation is strictly sequential, and its update order is
 // part of the numerical contract: the iteration counts of the local
@@ -50,6 +50,19 @@ void gauss_seidel_csr_indexed(const int64_t* indptr, const int64_t* indices,
         }
         if (diag != 0.0)            // zero/missing diagonal: skip the row
             x[i] = (b[i] - z) / diag;
+    }
+}
+
+// Rank-1 update  A += alpha * x y^T  on a row-major (m x n) matrix, the
+// cross update of the 2D ACA.  Single-threaded on purpose: BLAS threading
+// costs more than it gives for one small update.
+void rank_1_update(double* A, int64_t m, int64_t n, double alpha,
+                   const double* x, const double* y) {
+    for (int64_t i = 0; i < m; ++i) {
+        double axi = alpha * x[i];
+        double* row = A + i * n;
+        for (int64_t j = 0; j < n; ++j)
+            row[j] += axi * y[j];
     }
 }
 

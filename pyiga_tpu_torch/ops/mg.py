@@ -7,17 +7,21 @@ hierarchy.  The operation order is the host path's (pre-smooth, restrict,
 coarse solve, prolongate, post-smooth), so the iteration counts agree
 with it; they are the numerical contract.
 
-Each Gauss-Seidel sweep over a smoothing set ``S`` is applied in its
-algebraic form ``x_S += T (b - A x)_S``, with ``T`` the inverse of the
-lower (upper, for a backward sweep) triangle of ``A[S][:, S]`` in sweep
-order (:func:`_tri_inverse`), built once on the host.  A whole solve
-(every V-cycle, the masked residual norm and the convergence test) is one
-launch of kernel K6 (:mod:`~pyiga_tpu_torch.ops.cuda_mg`); the host reads
-the cycle count and the residual once per solve.  The JAX package's
-two-float cycle exists for the TPU's missing f64 and is not ported; K6
-takes the place of its ``'tri'`` set up to ``tri_block_cutoff``, and its
-``'wavefront'`` set beyond that waits for ``ops/relax.py``.
+Each Gauss-Seidel sweep over a smoothing set ``S`` is applied in one of
+two forms.  Up to ``tri_block_cutoff`` dofs a set, the algebraic form
+``x_S += T (b - A x)_S``, with ``T`` the inverse of the lower (upper, for
+a backward sweep) triangle of ``A[S][:, S]`` in sweep order
+(:func:`_tri_inverse`), built once on the host (the JAX package's
+``'tri'`` set).  Above it the order-exact wavefront sweep of
+:mod:`~pyiga_tpu_torch.ops.relax` (its ``'wavefront'`` set), which needs
+no dense matrix.  Either way a whole solve (every V-cycle, the masked
+residual norm and the convergence test) is one launch of kernel K6
+(:mod:`~pyiga_tpu_torch.ops.cuda_mg`); the host reads the cycle count and
+the residual once per solve.  The JAX package's two-float cycle (``'df'``)
+exists for the TPU's missing f64 and is not ported.
 """
+
+import time
 
 import numpy as np
 import scipy.sparse
@@ -25,9 +29,7 @@ import torch
 
 from ..config import DTYPE, resolve_device
 from . import cuda_mg
-
-_SWEEP_DIRS = {'forward': (False,), 'backward': (True,),
-               'symmetric': (False, True)}
+from .relax import SWEEP_DIRS as _SWEEP_DIRS, sweep_packs
 
 
 def ell_pack(A, dtype=np.float64):
@@ -97,20 +99,29 @@ class DeviceMGSolver:
 
     `smoother_impl`:
 
-    * ``'fused'``: the solve loop through :func:`~pyiga_tpu_torch.ops.
-      cuda_mg.vcycle_solve`, which launches K6 once on a CUDA device (and
+    * ``'fused'`` (or its JAX name ``'tri'``): the solve loop through
+      :func:`~pyiga_tpu_torch.ops.cuda_mg.vcycle_solve` with the dense
+      triangular inverses, which launches K6 once on a CUDA device (and
       runs its plain version, the host loop over the plain cycle, on the
       CPU), at any size that fits the device;
-    * ``'dense'``: the plain PyTorch f64 cycle
+    * ``'wavefront'``: the same loop with the wavefront sweeps
+      (:class:`~pyiga_tpu_torch.ops.cuda_mg.WavefrontSweeps`) in place of
+      the dense inverses: block 0 of K6 runs each smoothing half;
+    * ``'dense'``: the plain PyTorch f64 cycle with the dense inverses
       (:func:`~pyiga_tpu_torch.ops.cuda_mg.vcycle_plain`) on any device;
     * ``'auto'``: ``'fused'`` for ``n <= dense_cutoff`` finest dofs, for
       single-level hierarchies, and above the cutoff while the largest
       smoothing set above the coarsest level has at most
-      `tri_block_cutoff` dofs: K6 densifies each set into triangular
-      inverses, as the JAX package's ``'tri'`` set does, and that is the
-      JAX package's own limit for them.  Past it the JAX package switches
-      to its ``'wavefront'`` set (``ops/relax.py``), which is not ported
-      (ROADMAP §1 item 3): ``'auto'`` raises there.
+      `tri_block_cutoff` dofs (the JAX package's limit for its ``'tri'``
+      set, which densifies the same blocks); ``'wavefront'`` past it, as
+      the JAX package does.
+    * ``'df'``, the JAX package's two-float cycle, is for the TPU only and
+      raises.
+
+    On a CUDA device the coarse inverse is formed on the card in f64.
+    ``setup_ms`` records the host-clock milliseconds of the setup's parts
+    (the wavefront schedules or the triangular inverses, the coarse
+    inverse, the operands' upload).
     """
 
     def __init__(self, As, Ps, lv_inds, sweeps, smooth_steps,
@@ -121,61 +132,83 @@ class DeviceMGSolver:
             raise ValueError('need L matrices, L-1 prolongators and L '
                              'smoothing sets')
         n = As[-1].shape[0]
-        max_block = max((len(lv_inds[lv]) for lv in range(1, L)), default=0)
         if smoother_impl == 'auto':
-            if n > dense_cutoff and max_block > tri_block_cutoff:
-                raise NotImplementedError(
-                    "a smoothing set of %d dofs exceeds tri_block_cutoff = "
-                    "%d, where the JAX package switches to its 'wavefront' "
-                    "smoother (ops/relax.py), which is not ported yet "
-                    "(ROADMAP item 3); pass smoother_impl='fused' to run K6 "
-                    "at this size" % (max_block, tri_block_cutoff))
-            smoother_impl = 'fused'
-        if smoother_impl in ('tri', 'wavefront', 'df'):
-            raise NotImplementedError("smoother_impl=%r is not ported yet"
-                                      % smoother_impl)
-        if smoother_impl not in ('fused', 'dense'):
-            raise ValueError("smoother_impl must be 'auto', 'fused' or "
-                             "'dense'")
+            max_block = max((len(s) for s in lv_inds[1:]), default=0)
+            smoother_impl = ('wavefront' if n > dense_cutoff
+                             and max_block > tri_block_cutoff else 'fused')
+        elif smoother_impl == 'df':
+            raise NotImplementedError(
+                "smoother_impl='df' is the JAX package's two-float cycle "
+                "for the TPU's missing f64; the port computes in f64")
+        elif smoother_impl not in ('fused', 'tri', 'wavefront', 'dense'):
+            raise ValueError("smoother_impl must be 'auto', 'fused', 'tri', "
+                             "'wavefront' or 'dense'")
         self.device = resolve_device(device)
         self.smoother_impl = smoother_impl
+        self.setup_ms = {}
+        t0 = time.perf_counter()
+        levels = self._host_levels(As, Ps, lv_inds, sweeps,
+                                   smoother_impl == 'wavefront')
+        t1 = time.perf_counter()
+        Cinv = self._coarse_inverse(As[0], lv_inds[0], self.device)
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
         self.ops = cuda_mg.VCycleOperands(
-            self._host_levels(As, Ps, lv_inds, sweeps),
-            np.asarray(lv_inds[0], dtype=np.int32),
-            self._coarse_inverse(As[0], lv_inds[0]),
+            levels, np.asarray(lv_inds[0], dtype=np.int32), Cinv,
             self._mask(n, active_dofs), smooth_steps, self.device)
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        self.setup_ms = dict(smoothers=1e3 * (t1 - t0),
+                             coarse_inverse=1e3 * (t2 - t1),
+                             operands=1e3 * (time.perf_counter() - t2))
 
     @staticmethod
-    def _host_levels(As, Ps, lv_inds, sweeps):
+    def _host_levels(As, Ps, lv_inds, sweeps, wave=False):
         """Per level the host operands of the cycle: the padded-ELL matrix
-        ``A`` and, above the coarsest level, the smoothing set ``S``, the
-        ELL rows ``A[S, :]``, the triangular inverses of the pre- and
-        post-smoothing sweep directions (shared when the directions
-        agree) and the ELL prolongator ``P`` into the level and its
-        transpose ``PT``."""
+        ``A`` and, above the coarsest level, the ELL prolongator ``P``
+        into the level and its transpose ``PT``, and either (`wave`) the
+        smoothing set with the rectangular wavefront packs of the pre-
+        and post-smoothing passes (``wave``: each direction scheduled
+        once), or the smoothing set ``S``, the ELL rows ``A[S, :]`` and
+        the triangular inverses of the pre- and post-smoothing sweep
+        directions (shared when the directions agree)."""
         pre, post = sweeps
         levels = []
         for lv, A in enumerate(As):
             A = scipy.sparse.csr_matrix(A)
             lev = {'A': ell_pack(A)}
             if lv > 0:
-                packs = {rev: _tri_smoother_pack(A, lv_inds[lv], reverse=rev)
-                         for rev in set(_SWEEP_DIRS[pre] + _SWEEP_DIRS[post])}
-                S, AS, _T = next(iter(packs.values()))
-                lev.update(S=S, AS=AS,
-                           pre=[packs[r][2] for r in _SWEEP_DIRS[pre]],
-                           post=[packs[r][2] for r in _SWEEP_DIRS[post]],
-                           P=ell_pack(Ps[lv - 1]),
+                lev.update(P=ell_pack(Ps[lv - 1]),
                            PT=ell_pack(scipy.sparse.csr_matrix(Ps[lv - 1]).T))
+                dirs = _SWEEP_DIRS[pre] + _SWEEP_DIRS[post]
+                if wave:
+                    packs = sweep_packs(A, lv_inds[lv], dirs)
+                    npre = len(_SWEEP_DIRS[pre])
+                    lev['wave'] = (lv_inds[lv], [packs[:npre], packs[npre:]])
+                else:
+                    packs = {rev: _tri_smoother_pack(A, lv_inds[lv],
+                                                     reverse=rev)
+                             for rev in set(dirs)}
+                    S, AS, _T = next(iter(packs.values()))
+                    lev.update(S=S, AS=AS,
+                               pre=[packs[r][2] for r in _SWEEP_DIRS[pre]],
+                               post=[packs[r][2]
+                                     for r in _SWEEP_DIRS[post]])
             levels.append(lev)
         return levels
 
     @staticmethod
-    def _coarse_inverse(A0, ind0):
+    def _coarse_inverse(A0, ind0, device):
         """Dense inverse of the coarsest smoothing-set block, applied as a
-        matvec (the host path's sparse LU solve up to rounding)."""
+        matvec (the host path's sparse LU solve up to rounding): formed
+        in f64 on a CUDA `device`, by numpy otherwise."""
         A0 = scipy.sparse.csr_matrix(A0)
-        return np.linalg.inv(A0[ind0][:, ind0].toarray())
+        B = A0[ind0][:, ind0].toarray()
+        if device.type == 'cuda':
+            return torch.linalg.inv(torch.as_tensor(B, dtype=DTYPE,
+                                                    device=device))
+        return np.linalg.inv(B)
 
     @staticmethod
     def _mask(n, active_dofs):
@@ -190,12 +223,12 @@ class DeviceMGSolver:
         """Run ``x <- vcycle(x)`` from zero until the masked residual drops
         by `tol`; returns ``(x, iterations)`` (host numpy `x`) with
         ``inf`` iterations on non-convergence (the semantics and the
-        comparison form of ``iterative_solve``).  ``'fused'`` runs the
-        whole loop in one K6 launch on a CUDA device; ``'dense'`` loops on
-        the host over the plain cycle."""
+        comparison form of ``iterative_solve``).  ``'fused'``, ``'tri'``
+        and ``'wavefront'`` run the whole loop in one K6 launch on a CUDA
+        device; ``'dense'`` loops on the host over the plain cycle."""
         ops = self.ops
-        solve = (cuda_mg.vcycle_solve if self.smoother_impl == 'fused'
-                 else cuda_mg.vcycle_solve_plain)
+        solve = (cuda_mg.vcycle_solve_plain if self.smoother_impl == 'dense'
+                 else cuda_mg.vcycle_solve)
         f = torch.as_tensor(np.asarray(f, dtype=np.float64), dtype=DTYPE,
                             device=self.device)
         res0 = np.float64(torch.linalg.vector_norm(f * ops.mask).item())

@@ -30,6 +30,7 @@ from . import native, utils
 from .config import resolve_device
 from .operators import make_solver
 from .ops.mg import _SWEEP_DIRS, DeviceMGSolver
+from .ops.relax import DeviceIndexedGS
 
 
 def cg(matvec, b, tol=1e-8, maxiter=1000, precond=None):
@@ -247,7 +248,7 @@ def galerkin_hierarchy(A, Ps):
 
 
 def local_mg_step(hs, A, f, Ps, lv_inds, smoother='symmetric_gs',
-                  smooth_steps=2, relax_backend='host'):
+                  smooth_steps=2, relax_backend='auto', device=None):
     """One V-cycle of the local multigrid method on the virtual hierarchy
     of the HB/THB space `hs`; smoothing is restricted to the per-level
     index sets `lv_inds`.  Returns a function ``step(x)`` (host numpy).
@@ -256,19 +257,15 @@ def local_mg_step(hs, A, f, Ps, lv_inds, smoother='symmetric_gs',
     the operation order (pre-smooth, restrict, coarse solve, prolongate,
     post-smooth, with strictly sequential Gauss-Seidel sweeps) fixes the
     iteration counts.  `relax_backend` ``'host'`` runs the native CSR
-    sweeps; the stepwise device smoother (``'device'``, the JAX package's
-    ``ops/relax.DeviceIndexedGS``) is not ported yet: the device path of
-    this solver is the whole-solve :func:`solve_hmultigrid`."""
+    sweeps; ``'device'`` (and ``'auto'``) the order-exact wavefront
+    smoother :class:`~pyiga_tpu_torch.ops.relax.DeviceIndexedGS` on
+    `device` (default: the card), one per level and sweep direction, each
+    smoothing application one kernel launch (its plain version on the
+    CPU)."""
     if smoother not in _MG_SWEEPS:
         raise ValueError('Invalid smoother')
     if relax_backend not in ('host', 'device', 'auto'):
         raise ValueError("relax_backend must be 'host', 'device' or 'auto'")
-    if relax_backend == 'device' and smoother != 'exact':
-        raise NotImplementedError(
-            "the stepwise device smoother of local_mg_step "
-            "(ops/relax.DeviceIndexedGS) is not ported yet; "
-            "solve_hmultigrid(relax_backend='device') runs the whole "
-            "solve on the device")
     pre_sweep, post_sweep = _MG_SWEEPS[smoother]
     L = hs.numlevels
     As = galerkin_hierarchy(A, Ps)
@@ -277,10 +274,22 @@ def local_mg_step(hs, A, f, Ps, lv_inds, smoother='symmetric_gs',
     direct = {lv: make_solver(As[lv][lv_inds[lv]][:, lv_inds[lv]])
               for lv in exact_on}
 
-    def relax(lv, x, rhs, sweep):
-        if sweep is not None:
-            gauss_seidel(As[lv], x, rhs, indices=lv_inds[lv],
-                         iterations=smooth_steps, sweep=sweep)
+    if relax_backend != 'host' and smoother != 'exact':
+        dev_gs = {(lv, sweep): DeviceIndexedGS(As[lv], lv_inds[lv],
+                                               sweep=sweep,
+                                               iterations=smooth_steps,
+                                               device=device)
+                  for lv in range(1, L)
+                  for sweep in {pre_sweep, post_sweep}}
+
+        def relax(lv, x, rhs, sweep):
+            if sweep is not None:
+                dev_gs[(lv, sweep)].apply(x, rhs)
+    else:
+        def relax(lv, x, rhs, sweep):
+            if sweep is not None:
+                gauss_seidel(As[lv], x, rhs, indices=lv_inds[lv],
+                             iterations=smooth_steps, sweep=sweep)
 
     def vcycle(x, rhs):
         # descend: smooth and collect restricted residuals per level
@@ -339,11 +348,13 @@ def _device_mg_solver(hs, A, strategy, smoother, smooth_steps, device):
     Acsr = scipy.sparse.csr_matrix(A)
     parts = (Acsr.indptr, Acsr.indices, Acsr.data)
     options = (strategy, smoother, smooth_steps, str(device))
+    # an entry's key ends with the route its solver took ('fused' or
+    # 'wavefront'), which follows from the matrix and the options
     # the same matrix object again: compare its arrays with the copies
     # the entry keeps (a memory compare, several times faster than the
     # digest below, which is host time of every solve)
     for key, (hs_c, A_c, solver, saved) in _DEVICE_MG_CACHE.items():
-        if hs_c is hs and A_c is A and key[2:] == options and all(
+        if hs_c is hs and A_c is A and key[2:-1] == options and all(
                 np.array_equal(p, q) for p, q in zip(parts, saved)):
             return solver
     # key on the matrix CONTENT, not just its identity: a matrix changed
@@ -352,15 +363,16 @@ def _device_mg_solver(hs, A, strategy, smoother, smooth_steps, device):
     for part in parts:
         h.update(np.ascontiguousarray(part).tobytes())
     key = (id(hs), h.digest()) + options
-    hit = _DEVICE_MG_CACHE.get(key)
-    if hit is not None and hit[0] is hs:
-        return hit[2]
+    for k, hit in _DEVICE_MG_CACHE.items():
+        if k[:-1] == key and hit[0] is hs:
+            return hit[2]
     Ps = hs.virtual_hierarchy_prolongators()
     solver = DeviceMGSolver(galerkin_hierarchy(Acsr, Ps), Ps,
                             hs.indices_to_smooth(strategy),
                             _MG_SWEEPS[smoother], smooth_steps,
                             active_dofs=hs.non_dirichlet_dofs(),
                             device=device)
+    key += (solver.smoother_impl,)
     if len(_DEVICE_MG_CACHE) >= 4:
         _DEVICE_MG_CACHE.pop(next(iter(_DEVICE_MG_CACHE)))
     _DEVICE_MG_CACHE[key] = (hs, A, solver,

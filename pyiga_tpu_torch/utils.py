@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """Host helpers (numpy/scipy; copies of parts of :mod:`pyiga_tpu.utils`):
 evaluation of functions over tensor grids, the sparse Kronecker
-products of the hierarchical spaces, and the progress bar of the time
-integrators (tqdm when installed, else a silent stand-in).
+products of the hierarchical spaces, the Cartesian product of index
+arrays (the low-rank generators' entry lists), and the progress bar of
+the time integrators (tqdm when installed, else a silent stand-in).
 
 Grid axes are given in ZYX order (the last axis is x); plain callables
 receive XYZ-ordered coordinate arrays.  Input fields of a variational
@@ -52,6 +53,13 @@ def grid_eval_transformed(f, grid, geo):
     pts = grid_eval(geo, grid)
     return _as_grid_array(f(*np.moveaxis(pts, -1, 0)),
                           tuple(len(g) for g in grid))
+
+
+def cartesian_product(arrays):
+    """All combinations of entries of the 1D `arrays`, as an ``(N, L)``
+    array with the last input axis varying fastest."""
+    grids = np.meshgrid(*arrays, indexing='ij')
+    return np.stack([g.ravel() for g in grids], axis=-1)
 
 
 def multi_kron_sparse(As, format='csr'):

@@ -113,7 +113,8 @@ def test_local_mg_step_exact_counts(disparity):
         for strategy, counts in iters.items():
             step = solvers.local_mg_step(hs, A, f, Ps,
                                          hs.indices_to_smooth(strategy),
-                                         'symmetric_gs', 1)
+                                         'symmetric_gs', 1,
+                                         relax_backend='host')
             counts.append(num_iterations(step, u0))
     assert [tuple(c) for c in iters.values()] == REFERENCE_COUNTS[disparity]
 
@@ -223,7 +224,8 @@ def test_vcycle_wrapper_on_cpu_is_the_plain_version():
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert torch.equal(x, torch.as_tensor(x0))      # the input is kept
     # one cycle is one step of the host V-cycle, and res2 its residual
-    step = solvers.local_mg_step(hs, A, f, Ps, lv_inds, 'symmetric_gs', 2)
+    step = solvers.local_mg_step(hs, A, f, Ps, lv_inds, 'symmetric_gs', 2,
+                                 relax_backend='host')
     xh = step(x0.copy())
     assert np.allclose(got[0].numpy(), xh, rtol=1e-12, atol=1e-13)
     r = (f - A @ xh)[hs.non_dirichlet_dofs()]
@@ -245,18 +247,27 @@ def test_device_solver_options():
     assert s.smoother_impl == 'fused'
     assert s.solve(f)[1] == solvers.solve_hmultigrid(
         hs, A, f, relax_backend='host')[1]
-    # ... and past it names the smoother still to port and its item
-    with pytest.raises(NotImplementedError, match='wavefront.*item 3'):
-        mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'), 2,
+    # ... and past it takes the wavefront smoother, with the same count
+    s = mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'), 2,
+                          active_dofs=hs.non_dirichlet_dofs(),
                           dense_cutoff=A.shape[0] - 1, tri_block_cutoff=1,
                           device='cpu')
-    for impl in ('tri', 'wavefront', 'df'):
-        with pytest.raises(NotImplementedError):
-            mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'), 2,
-                              smoother_impl=impl, device='cpu')
+    assert s.smoother_impl == 'wavefront'
+    assert s.solve(f)[1] == solvers.solve_hmultigrid(
+        hs, A, f, relax_backend='host')[1]
+    # 'tri' is K6's dense route; the two-float 'df' is the TPU's alone
+    for impl in ('tri', 'wavefront'):
+        assert mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'),
+                                 2, smoother_impl=impl,
+                                 device='cpu').smoother_impl == impl
     with pytest.raises(NotImplementedError):
-        solvers.local_mg_step(hs, A, f, Ps, lv_inds, 'gs', 2,
-                              relax_backend='device')
+        mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'), 2,
+                          smoother_impl='df', device='cpu')
+    step = solvers.local_mg_step(hs, A, f, Ps, lv_inds, 'gs', 2,
+                                 relax_backend='device', device='cpu')
+    assert solvers.iterative_solve(
+        step, A, f, active_dofs=hs.non_dirichlet_dofs())[1] == \
+        solvers.solve_hmultigrid(hs, A, f, relax_backend='host')[1]
     # the explicit 'fused' has no size gate; a single level is the coarse
     # solve alone
     u, it = mg.DeviceMGSolver(As, Ps, lv_inds, ('forward', 'backward'), 2,

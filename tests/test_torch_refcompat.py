@@ -185,7 +185,8 @@ def test_device_mg_solver_tri_block_cutoff():
                                tri_block_cutoff=8192, device='cpu').solve(f)
     assert it == jsolvers.solve_hmultigrid(jhs, A, f,
                                            relax_backend='host')[1]
-    # a value the port cannot honour names the item that ports it
-    with pytest.raises(NotImplementedError, match='ROADMAP item 3'):
-        mg.DeviceMGSolver(*args, dense_cutoff=10, tri_block_cutoff=10,
-                          device='cpu')
+    # past the cutoff 'auto' takes the wavefront smoother, as the JAX
+    # package does, with the same count
+    s = mg.DeviceMGSolver(*args, active_dofs=hs.non_dirichlet_dofs(),
+                          dense_cutoff=10, tri_block_cutoff=10, device='cpu')
+    assert s.smoother_impl == 'wavefront' and s.solve(f)[1] == it
