@@ -45,9 +45,13 @@ The wavefront smoother (``ops/relax.py``; above ``tri_block_cutoff``
 ``solve_hmultigrid``'s defaults take it): ``wavefront_gs`` (one launch
 per ``DeviceIndexedGS.apply``) and K6's wavefront mode against their
 plain versions at (24, 3) and (96, 3), forward, backward and symmetric,
-a set with zero-diagonal rows, bitwise on a repeat, with ms per pass and
-per cycle (4j); (96, 3) through ``solve_hmultigrid(hs, A, f)`` with its
-defaults, held to the host path's 25 in one K6 launch per solve, its
+a set with zero-diagonal rows (also laid out with the local x in global
+memory, and with levels split), a structurally nonsymmetric set (write
+after read), bitwise on a repeat, with ms per pass and per cycle, the
+kernel's reciprocal quotient bitwise against the division over every
+row of the passes, and a pass by ``torch.triangular_solve`` on a CUDA
+CSR matrix as the library yardstick (4j); (96, 3) through
+``solve_hmultigrid(hs, A, f)`` with its defaults, held to the host path's 25 in one K6 launch per solve, its
 solver setup (schedules, coarse inverse formed on the card) printed
 (8c); and ``local_mg_step(relax_backend='device')`` under
 ``iterative_solve`` at (24, 3), 29 cycles, one ``wavefront_gs`` launch
@@ -554,6 +558,15 @@ def check_kernels(device, n=48, seed=0):
     D = rand(C, F)
     xp = torch.zeros(F + 2 * lead, dtype=f64, device=device)
     xp[lead:lead + F] = rand(F)
+    # the same operator as a CSR matrix: entry (i, i + offs[c]) = D[c, i]
+    # where the column lies in [0, F) (x is zero outside)
+    ii = torch.arange(F, device=device)
+    cols = ii[None, :] + offs[:, None]
+    valid = (cols >= 0) & (cols < F)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([ii.expand(C, F)[valid], cols[valid]]), D[valid],
+        (F, F)).coalesce()
+    del ii, cols, valid
     for dtype, name, tol in ((f64, 'flat_banded_f64', 1e-13),
                              (torch.float32, 'flat_banded_f32', 1e-5)):
         Dd, xd = D.to(dtype), xp.to(dtype)
@@ -561,18 +574,23 @@ def check_kernels(device, n=48, seed=0):
         ref = bd.flat_banded_matvec_plain(Dd, xd, offs, lead)
         sync(device)
         err, rel = compare(name, got, ref, tol)
-        # D, the offsets and x read once, y written once; no single
-        # PyTorch call takes the flat banded layout (library_ms null)
+        # the library yardstick: a CUDA CSR tensor times x (cuSPARSE SpMV)
+        Acsr = coo.to(dtype).to_sparse_csr()
+        xv = xd[lead:lead + F].clone()
+        compare(name + ' CSR yardstick', Acsr @ xv, ref, tol)
+        # D, the offsets and x read once, y written once
         out[name] = dict(
             max_abs_err=err, rel=rel, shape=[C, F],
             ms=time_ms(lambda: bd.flat_banded_matvec(Dd, xd, offs, lead),
                        device, reps=50),
             plain_ms=time_ms(lambda: bd.flat_banded_matvec_plain(
                 Dd, xd, offs, lead), device),
-            library_ms=None,
+            library_ms=time_ms(lambda: Acsr @ xv, device, reps=50),
+            library_nnz=int(Acsr.values().numel()),
             **bound(nbytes(Dd, offs, xd[lead:lead + F], got), 2 * C * F,
                     F64_FMA_PER_MS if dtype == f64 else F32_PER_MS))
-        del Dd, xd, got, ref
+        del Dd, xd, got, ref, Acsr, xv
+    del coo
     for name, r in out.items():
         log('  %-16s kernel %.4f ms   plain %.4f ms   library %s   bound '
             '%.4f ms (%s)' % (name, r['ms'], r['plain_ms'],
@@ -1402,15 +1420,92 @@ def localmg_levels(n0, L, device):
         hs.indices_to_smooth('cell_supp')
 
 
+def pass_numerators(sweeps, group, x, b):
+    """The numerators ``b_i - sum_j a_ij x_j`` and diagonals of every live
+    row of the passes of group `group` of `sweeps`, as the plain version
+    computes them level by level from `x` (on x's device)."""
+    xe = torch.cat([x, x.new_zeros(1)])
+    be = torch.cat([b, b.new_zeros(1)])
+    nums, diags = [], []
+    for rows, cols, vals, diag in sweeps.plain[group]:
+        for l in range(rows.shape[0]):
+            r = rows[l]
+            num = be[r] - (vals[l] * xe[cols[l]]).sum(dim=-1)
+            xe[r] = num / diag[l]
+            live = r != sweeps.n
+            nums.append(num[live])
+            diags.append(diag[l][live])
+    return torch.cat(nums), torch.cat(diags)
+
+
+def check_quotient(sweeps, x, b, rng, reps=16):
+    """The kernel's reciprocal quotient (``cuda_mg.wavefront_quotient``)
+    against the division on the card: the numerators and diagonals of
+    every row of the sweeps' passes, and `reps` random numerators (signs
+    and six decades) for each diagonal.  Returns the count of rows that
+    differ (bitwise) and how many were compared; the reciprocal is the
+    host pack's, 1 / d rounded once."""
+    from pyiga_tpu_torch.ops import cuda_mg
+    num, d = pass_numerators(sweeps, 0, x, b)
+    dh = d.cpu().numpy()
+    r = torch.as_tensor(1.0 / dh, device=d.device)
+    if not torch.equal(r, 1.0 / d):
+        raise RuntimeError('1 / d on the card differs from the host')
+    nr = rng.uniform(-1, 1, (reps, len(dh))) \
+        * 10.0 ** rng.uniform(-3, 3, (reps, len(dh)))
+    num = torch.cat([num, torch.as_tensor(nr.reshape(-1), device=d.device)])
+    d, r = d.repeat(reps + 1), r.repeat(reps + 1)
+    got = cuda_mg.wavefront_quotient(num, d, r)
+    return int((got != num / d).sum()), int(num.numel())
+
+
+def trisolve_yardstick(A, S, reverse, x, b, got, device):
+    """The library call for one Gauss-Seidel pass over the set `S` (in
+    order, or reversed): ``torch.triangular_solve(r, L, upper=False)``
+    with ``L = (D + L)_SS`` in the sweep order as a CSR tensor on the card
+    and ``r = b_S - (the rest) x`` formed on the host outside the timing
+    (PyTorch's call runs cuSPARSE's analysis with each solve).  Checks the
+    solution against `got` (the kernel's pass from `x`) and returns the
+    relative difference and ms a call."""
+    import scipy.sparse
+    A = scipy.sparse.csr_matrix(A)
+    S = np.asarray(S)
+    order = (S[::-1] if reverse else S).copy()
+    rest = np.setdiff1d(np.arange(A.shape[0]), S)
+    M = A[order][:, order]
+    L = scipy.sparse.tril(M).tocsr()
+    xh, bh = x.cpu().numpy(), b.cpu().numpy()
+    rhs = bh[order] - scipy.sparse.triu(M, 1) @ xh[order] \
+        - A[order][:, rest] @ xh[rest]
+    Lt = torch.sparse_csr_tensor(
+        torch.as_tensor(L.indptr, dtype=torch.int32, device=device),
+        torch.as_tensor(L.indices, dtype=torch.int32, device=device),
+        torch.as_tensor(L.data, device=device), size=L.shape)
+    R = torch.as_tensor(rhs[:, None], device=device)
+    sol = torch.triangular_solve(R, Lt, upper=False).solution[:, 0]
+    ref = got[torch.as_tensor(order, device=device)]
+    rel = float((sol - ref).abs().max() / ref.abs().max())
+    if not rel <= 1e-12:
+        raise RuntimeError('triangular_solve yardstick differs from the '
+                           'pass by %.3e' % rel)
+    return rel, time_ms(lambda: torch.triangular_solve(R, Lt, upper=False),
+                        device, reps=10)
+
+
 def check_wavefront_kernels(device, sizes=((24, 3), (96, 3))):
     """Phase 4j: both wavefront kernels against their plain versions.
     ``wavefront_gs`` (one launch per ``DeviceIndexedGS.apply``) on the
     smoothing sets of levels 1 and 2 of the (24, 3) and (96, 3)
     hierarchies, forward, backward and symmetric, 2 iterations from a
     seeded x and b (1e-13 relative; a second launch bitwise equal), and on
-    a set with two zero-diagonal rows, also laid out for half the shared
-    memory (the local x in global memory, levels split); its time per pass
-    with the level count and rows per level.  K6's wavefront mode on the same
+    a set with two zero-diagonal rows, also laid out for less shared
+    memory (the local x in global memory; then also levels split), and a
+    structurally nonsymmetric set (write after read); its time per pass
+    with the level count and rows per level; the kernel's reciprocal
+    quotient against the division over every row's numerator of each
+    pass (and random ones), bitwise; the library yardstick, one
+    ``torch.triangular_solve`` of a pass on a CUDA CSR matrix, checked
+    against the kernel's pass.  K6's wavefront mode on the same
     hierarchies: one cycle from a seeded iterate against the plain cycle
     (1e-13, bitwise on a repeat), at (24, 3) the whole solve against the
     host loop over the plain cycle (the same count, x and res2 to 1e-12),
@@ -1452,10 +1547,23 @@ def check_wavefront_kernels(device, sizes=((24, 3), (96, 3))):
                     sw, 0, 2, xw, b), device, reps=20)
                 plain_ms = time_ms(lambda: cuda_mg.wavefront_gs_plain(
                     sw, 0, 2, xw.clone(), b), device, reps=2, warmup=1)
+                quot_bad, quot_n = check_quotient(sw, x, b, rng)
+                if quot_bad:
+                    raise RuntimeError('%s: the reciprocal quotient differs '
+                                       'from the division in %d of %d rows'
+                                       % (name, quot_bad, quot_n))
+                tri_rel = lib_pass = library_ms = None
+                if sweep != 'symmetric':
+                    one = cuda_mg.wavefront_gs(sw, 0, 1, x.clone(), b)
+                    tri_rel, lib_pass = trisolve_yardstick(
+                        As[lv], lv_inds[lv], sweep == 'backward', x, b, one,
+                        device)
+                    library_ms = 2 * lib_pass   # the launch: 2 passes
                 levels = [c['nlev'] for c in sw.compact[0]]
                 rows_max = [c['pmax'] for c in sw.compact[0]]
-                widths = [int(c['lvl'][:, 2].max()) if c['nlev'] else 0
-                          for c in sw.compact[0]]
+                # a row's stale (padded) and fresh widths
+                widths = [int((c['lvl'][:, 4] + c['lvl'][:, 7]).max())
+                          if c['nlev'] else 0 for c in sw.compact[0]]
                 key = '%d_%d_L%d_%s' % (n0, L, lv, sweep)
                 gs_cases[key] = dict(
                     max_abs_err=err, rel=rel, repeat_equal=True,
@@ -1464,16 +1572,23 @@ def check_wavefront_kernels(device, sizes=((24, 3), (96, 3))):
                     width_max=widths, m=sw.m, nloc=sw.nloc,
                     smem_bytes=sw.smem_bytes, xs_shared=sw.xs_shared,
                     war=[c['war'] for c in sw.compact[0]],
-                    setup_ms=1e3 * t_setup, library_ms=None,
+                    fresh=[c['fresh'] for c in sw.compact[0]],
+                    entries=[c['entries'] for c in sw.compact[0]],
+                    quotient_rows=quot_n, quotient_differ=quot_bad,
+                    setup_ms=1e3 * t_setup, library_ms=library_ms,
+                    library_ms_per_pass=lib_pass, library_rel=tri_rel,
                     **wavefront_bound(sw, 0, 2))
                 r = gs_cases[key]
                 log('  %s: m %d, local x %d, levels %s, rows/level <= %s, '
-                    'width <= %s; %.4f ms a pass (%.2f us a level), launch '
+                    'width <= %s; %.4f ms a pass (%.3f us a level), launch '
                     '(2 iterations) %.4f ms, plain %.2f ms, bound %.5f ms, '
-                    'setup %.0f ms'
+                    'triangular_solve %s ms a pass, setup %.0f ms; '
+                    'quotient = division on %d rows'
                     % (name, sw.m, sw.nloc, levels, rows_max, widths,
                        ms_pass, 1e3 * ms_pass / max(np.mean(levels), 1),
-                       ms_launch, plain_ms, r['bound_ms'], 1e3 * t_setup))
+                       ms_launch, plain_ms, r['bound_ms'],
+                       'n/a' if lib_pass is None else '%.4f' % lib_pass,
+                       1e3 * t_setup, quot_n))
         # a set whose rows include two zero diagonals (skipped rows)
         Az = As[L - 1].tolil()
         dead = np.asarray(lv_inds[L - 1])[[3, 17]]
@@ -1494,33 +1609,61 @@ def check_wavefront_kernels(device, sizes=((24, 3), (96, 3))):
         check_repeat('wavefront_gs zero diagonal', lambda: cuda_mg.
                      wavefront_gs(gz.sweeps, 0, 2, x.clone(), b), got)
         if (n0, L) == sizes[0]:
-            # the layout for a smaller shared memory: the local x in a
-            # global scratch vector and the levels split in runs of rows
+            # the layouts for a smaller shared memory: the local x in a
+            # global scratch vector, then also the levels split in runs of
+            # rows
             full = gz.sweeps
-            R, E = full.slot_rows, full.slot_entries
-            cap = max(max(int(c['lvl'][:, 2].max())
-                          for c in full.compact[0]), E // 8 * 4)
-            saved = cuda_mg.WF_SMEM_BYTES
-            cuda_mg.WF_SMEM_BYTES = (cuda_mg.WF_STAGES * (12 * cap + 20 * R)
-                                     + 16 * cuda_mg.WF_TABLE + 8 * R)
-            try:
-                gsm = DeviceIndexedGS(Az, lv_inds[L - 1], sweep='symmetric',
-                                      iterations=2, device=device)
-            finally:
-                cuda_mg.WF_SMEM_BYTES = saved
-            nlev = [c['nlev'] for c in gsm.sweeps.compact[0]]
-            if gsm.sweeps.xs_shared or nlev <= [c['nlev']
-                                                for c in full.compact[0]]:
-                raise RuntimeError('the small layout kept its local x in '
-                                   'shared memory or split no level')
-            got_s = cuda_mg.wavefront_gs(gsm.sweeps, 0, 2, x.clone(), b)
-            compare('wavefront_gs small layout (%d,%d)' % (n0, L), got_s,
-                    ref, 1e-13)
-            check_repeat('wavefront_gs small layout', lambda: cuda_mg.
-                         wavefront_gs(gsm.sweeps, 0, 2, x.clone(), b), got_s)
-            log('  small layout: %d B shared, levels %s (from %s)'
-                % (gsm.sweeps.smem_bytes, nlev,
-                   [c['nlev'] for c in full.compact[0]]))
+            for layout, frac in (('x global', 4), ('split', 3)):
+                saved = cuda_mg.WF_SMEM_BYTES
+                cuda_mg.WF_SMEM_BYTES = (full.smem_bytes - 8 * full.nloc) \
+                    * frac // 4
+                try:
+                    gsm = DeviceIndexedGS(Az, lv_inds[L - 1],
+                                          sweep='symmetric', iterations=2,
+                                          device=device)
+                finally:
+                    cuda_mg.WF_SMEM_BYTES = saved
+                nlev = [c['nlev'] for c in gsm.sweeps.compact[0]]
+                split = nlev > [c['nlev'] for c in full.compact[0]]
+                if gsm.sweeps.xs_shared or split != (layout == 'split'):
+                    raise RuntimeError('the %s layout kept its local x in '
+                                       'shared memory or split %s level'
+                                       % (layout, 'no' if layout == 'split'
+                                          else 'a'))
+                got_s = cuda_mg.wavefront_gs(gsm.sweeps, 0, 2, x.clone(), b)
+                compare('wavefront_gs %s layout (%d,%d)' % (layout, n0, L),
+                        got_s, ref, 1e-13)
+                check_repeat('wavefront_gs %s layout' % layout,
+                             lambda: cuda_mg.wavefront_gs(
+                                 gsm.sweeps, 0, 2, x.clone(), b), got_s)
+                log('  %s layout: %d B shared, levels %s (from %s)'
+                    % (layout, gsm.sweeps.smem_bytes, nlev,
+                       [c['nlev'] for c in full.compact[0]]))
+            # a structurally nonsymmetric matrix: rows of a level read
+            # what others of it write (write after read), two zero
+            # diagonals
+            import scipy.sparse
+            rs = np.random.RandomState(5)
+            Aw = (scipy.sparse.random(400, 400, density=0.03,
+                                      random_state=rs)
+                  + 10 * scipy.sparse.eye(400)).tolil()
+            Sw = rs.permutation(400)[:300]
+            for i in Sw[:2]:
+                Aw[i, i] = 0.0
+            gw = DeviceIndexedGS(Aw.tocsr(), Sw, sweep='symmetric',
+                                 iterations=2, device=device)
+            if not any(c['war'] for c in gw.sweeps.compact[0]):
+                raise RuntimeError('the nonsymmetric set has no write '
+                                   'after read')
+            xw = torch.as_tensor(rs.rand(400), device=device)
+            bw = torch.as_tensor(rs.rand(400), device=device)
+            got_w = cuda_mg.wavefront_gs(gw.sweeps, 0, 2, xw.clone(), bw)
+            compare('wavefront_gs write after read', got_w,
+                    cuda_mg.wavefront_gs_plain(gw.sweeps, 0, 2, xw.clone(),
+                                               bw), 1e-13)
+            check_repeat('wavefront_gs write after read', lambda: cuda_mg.
+                         wavefront_gs(gw.sweeps, 0, 2, xw.clone(), bw),
+                         got_w)
 
         # K6's wavefront mode
         t0 = time.perf_counter()
@@ -1580,6 +1723,10 @@ def check_wavefront_kernels(device, sizes=((24, 3), (96, 3))):
             plain_ms=time_ms(lambda: cuda_mg.vcycle_plain(ops, x, f),
                              device, reps=1, warmup=1),
             library_ms=None, **vcycle_bound(ops, x, f))
+        rec['library_ms_per_pass'] = {
+            k: v['library_ms_per_pass'] for k, v in gs_cases.items()
+            if k.startswith('%d_%d_' % (n0, L))
+            and v['library_ms_per_pass'] is not None}
         k6_cases['%d_%d' % (n0, L)] = rec
         log('  vcycle_wavefront %s: %d blocks, %d B shared; setup %s ms; '
             'one cycle %.4f ms, solve %.3f ms / %d cycles = %.4f ms a cycle,'

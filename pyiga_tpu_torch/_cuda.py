@@ -61,7 +61,9 @@ _SIGNATURES = {
     'pyiga_vcycle_blocks': (_I, _L, _P),
     'pyiga_vcycle_f64': (_P, _P, _P, _P, _P, _P, _D, _D, _I, _P, _I, _I, _L,
                          _P),
-    'pyiga_wavefront_gs_f64': (_P, _I, _I, _I, _P, _P, _L, _P),
+    'pyiga_wavefront_gs_f64': (_P, _I, _I, _P, _P, _L, _P),
+    'pyiga_wavefront_quotient_f64': (_P, _P, _P, _P, _L, _P),
+    'pyiga_wavefront_layout': (_I,),
 }
 
 _lock = threading.Lock()

@@ -257,3 +257,56 @@ class StiffnessAssembler3D(StiffnessAssembler):
         if len(kvs) != 3:
             raise ValueError('StiffnessAssembler3D needs a 3D space')
         super().__init__(kvs, geo, nqp, device)
+
+
+################################################################################
+# the reference's predefined VForm assemblers, compiled on first use
+################################################################################
+
+def _vform_asm_alias(vf_factory, dim):
+    """A named assembler class for a predefined form at a fixed `dim`: an
+    instance is an instance of the compiled form's assembler."""
+    from .compile import compile_vform
+
+    class _Alias:
+        def __new__(cls, kvs, *args, **kwargs):
+            return compile_vform(vf_factory(dim))(kvs, *args, **kwargs)
+
+        @staticmethod
+        def inputs():
+            return compile_vform(vf_factory(dim)).inputs()
+
+        @staticmethod
+        def parameters():
+            return compile_vform(vf_factory(dim)).parameters()
+
+    return _Alias
+
+
+def __getattr__(name):
+    """The reference's predefined assembler names (``HeatAssembler_ST2D``,
+    ``WaveAssembler_ST3D``, ``L2FunctionalAssembler3D``,
+    ``L2FunctionalAssemblerPhys2D``, ...), one class per name.
+    ``DivDivAssembler*`` is vector-valued and raises until vector-valued
+    forms are ported."""
+    from . import vform as vf_mod
+    table = {
+        'HeatAssembler_ST': vf_mod.heat_st_vf,
+        'WaveAssembler_ST': vf_mod.wave_st_vf,
+        'DivDivAssembler': None,
+        'L2FunctionalAssembler': vf_mod.L2functional_vf,
+        'L2FunctionalAssemblerPhys':
+            lambda d: vf_mod.L2functional_vf(d, physical=True),
+    }
+    for prefix, factory in table.items():
+        if name.startswith(prefix) and name[len(prefix):] in ('1D', '2D',
+                                                              '3D'):
+            if factory is None:
+                raise NotImplementedError(
+                    '%s is vector-valued: vector-valued forms are not '
+                    'ported yet (ROADMAP.md section 1, item 7)' % name)
+            cls = _vform_asm_alias(factory, int(name[len(prefix)]))
+            cls.__name__ = cls.__qualname__ = name
+            globals()[name] = cls      # one class object per name
+            return cls
+    raise AttributeError(name)

@@ -191,9 +191,21 @@ class VFormAssembler:
     def parameters(cls):
         return {p.name: p.shape for p in cls.vf.params}
 
-    def __init__(self, kvs, kvs2=None, boundary=None, bbox=None,
+    def __init__(self, kvs, *posargs, kvs2=None, boundary=None, bbox=None,
                  device=None, **args):
         vf = self.vf
+        # the reference's generated assemblers are fully positional:
+        # (kvs, geo, inputs..., params...) binds in that order, skipping
+        # what is given by keyword
+        if posargs:
+            names = (['geo'] if 'geo' not in args else []) \
+                + [inp.name for inp in vf.inputs
+                   if inp.name not in args and inp.name != 'geo'] \
+                + [p.name for p in vf.params
+                   if p.name not in args and p.name != 'Jac_to_boundary']
+            if len(posargs) > len(names):
+                raise TypeError('too many positional arguments')
+            args.update(zip(names, posargs))
         if kvs2 is not None or vf.num_spaces() == 2:
             raise NotImplementedError('two-space forms (kvs2) are not '
                                       'ported yet')

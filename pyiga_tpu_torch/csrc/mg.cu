@@ -82,23 +82,34 @@
 // a chain of ~500 dependent levels of <= 25 rows of <= 97 entries (the
 // (96, 3) hierarchy), so latency, not bytes, bounds it: a grid barrier
 // or a launch per level would cost more than the level's work.
-// Design: one block of 512 threads runs every level of every pass, a warp
-// per row (two rows at a time, interleaved), __syncthreads() between
-// levels.  The entries of x that A[S, :] touches live in shared memory
-// under a local numbering (S first), loaded once and written back once
-// per call (or, where they do not fit, in a global scratch vector).  A
-// level's operands (each row's entries padded to the level's width, its
-// diagonal, b gathered into the pass's row order, its local index) are
-// contiguous, and are copied into a ring of shared-memory slots by
-// cp.async two levels ahead (the level table's entries six ahead), issued
-// by the block's last warps, which hold no row of a small level: no
-// global load lies on a level's path, which waits on shared memory, its
-// FMAs, a butterfly, one division and the barrier (~0.8 us a level at
-// (24, 3), ~1.06 at (96, 3) on an NVIDIA H100 80GB HBM3 at 700 W; the
-// parts are timed by scripts/torch_wavefront_probe.py --micro).  A pass
-// in which a row reads what another row of its level writes (write after
-// read, structurally nonsymmetric matrices only) holds the level's writes
-// until all its reads are done (a second barrier).
+// Design: one block runs every level of every pass, the entries of x
+// that A[S, :] touches in shared memory under a local numbering (S
+// first), loaded once and written back once per call (or, where they do
+// not fit, in a global scratch vector).  Only a row's few *fresh* entries
+// (columns its pass wrote in the kWfFresh levels before, ~4 of ~49 at
+// (96, 3)) wait on the chain of levels; the host pack (ops/cuda_mg.py
+// _wave_pack) splits them from the *stale* rest, which includes the
+// columns written at the row's level or later (their old value is the
+// one to read, so no second barrier is needed for a write after read).
+// The block's warps have three roles, handing levels over by mbarriers
+// in shared memory, with no block barrier between levels:
+// * a loader thread starts each level's bulk copies (TMA: the stale
+//   entries, lane-major, and the chain's operands) into rings of slots
+//   as soon as a slot is free;
+// * two groups of 4 producer warps, taking the levels in turn, sum each
+//   row's stale entries (a fixed lane split and order, no atomics) once
+//   the chain has finished the level kWfFresh + 1 before, and leave one
+//   partial a row;
+// * the chain warp, a lane a row, adds the fresh entries to the partial
+//   by an FMA chain, their x shuffled from the lanes that wrote them (a
+//   lane keeps what it wrote in the last kWfFresh levels in registers),
+//   forms the quotient from the reciprocal (one Markstein correction,
+//   equal to the division), writes x, __syncwarp, arrives.
+// Built with PYIGA_WF_TRACE, the roles record a traced level's clocks:
+// scripts/torch_wavefront_probe.py --micro times the parts in place.  The
+// chain warp bounds a level (~800 cycles at (96, 3) on an H100): its wait
+// for the next level, the shared loads of its operands, the shuffles, the
+// FMA chain and quotient, the store and the arrive, one after another.
 
 #include "common.cuh"
 
@@ -124,18 +135,47 @@ enum Level { V_N = 0, V_ACOLS, V_AVALS, V_AW, V_M, V_S, V_ASCOLS, V_ASVALS,
              V_RHS, V_SPOS, V_WAVE, V_PRE = 20, V_POST = 28 };
 // the wavefront operands (ops/cuda_mg.py WavefrontSweeps): a header of
 // kWfHdr words (local size, local-to-global map, rows written back, the
-// passes of the two groups, the entries and rows of a shared-memory slot,
-// the global local x or 0, the shared bytes), then kWfPass words a pass
-// (levels, level table, local row, global row, diagonal, entry columns,
-// entry values, write-after-read flag, b in row order, rows)
+// stale bytes / 12 of a slot, the partials and the chain-block bytes of a
+// chain slot, the global local x or 0, the shared bytes, the levels
+// traced and the trace buffer or 0), then kWfGroup words for each of the
+// two groups of passes (levels, level table, rows, their global indices,
+// the places of their b, the chain blocks)
 constexpr int kWfHdr = 10;
-constexpr int kWfPass = 10;
-// the shared-memory ring: slots of level operands, copied kWfAhead levels
-// ahead, and level-table entries, copied 3 kWfAhead levels ahead (these
-// are ops/cuda_mg.py WF_STAGES and WF_TABLE)
-constexpr int kWfAhead = 2;
-constexpr int kWfStages = kWfAhead + 1;
-constexpr int kWfTable = 4 * kWfAhead;
+constexpr int kWfGroup = 6;
+// A level's stale entries go to a ring of kWfStages shared-memory slots
+// (ops/cuda_mg.py WF_STAGES), its chain operands to a ring of kWfChain
+// (WF_CHAIN); an entry is fresh if its pass writes its column in the
+// kWfFresh levels before its row's (WF_FRESH).  The loader starts level h
+// once the producers have summed level h - kWfStages, who had waited for
+// the chain to finish level h - kWfStages - kWfFresh - 1: so kWfChain
+// slots never overwrite one the chain still reads.  kWfGroups groups of
+// kWfLanes producer threads take the levels in turn (WF_LANES).  The
+// chain warp holds up to kWfFreshRegs fresh columns of a row in
+// registers.
+constexpr int kWfStages = 4;
+constexpr int kWfFresh = 2;
+constexpr int kWfChain = kWfStages + kWfFresh + 1;
+constexpr int kWfGroups = 2;
+constexpr int kWfLanes = 128;
+constexpr int kWfProducers = kWfGroups * kWfLanes;
+constexpr int kWfFreshRegs = 4;
+constexpr int kWfTrace = 16;        // clocks a traced level
+
+// Built with PYIGA_WF_TRACE defined (scripts/torch_wavefront_probe.py
+// does), one thread of each role records clock64 at the steps of a level
+// into the operands' trace buffer (WavefrontSweeps.set_trace); otherwise
+// these expand to nothing.
+#ifdef PYIGA_WF_TRACE
+#define WF_TRACE_AT(who, g, base)                                           \
+    long long* tr_ =                                                        \
+        (who) && (g) < m.tcap ? m.trace + kWfTrace * (g) + (base) : nullptr; \
+    if (tr_) tr_[0] = clock64()
+#define WF_CLOCK(i)                                                         \
+    if (tr_) tr_[i] = clock64()
+#else
+#define WF_TRACE_AT(who, g, base)
+#define WF_CLOCK(i)
+#endif
 
 struct Ell {
     const int* cols;
@@ -352,188 +392,480 @@ __device__ void dense_pass(const Ctx& c, const Dense& M, int m,
 
 namespace wf {
 
-// 16 bytes from global to shared memory, asynchronously: a barrier does
-// not wait for it, cp.async.wait_group does
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(d),
-                 "l"(src)
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// mbarriers in shared memory: an arrive releases what the thread (and,
+// after a __syncwarp, its warp) wrote; a wait on the parity of a phase
+// acquires it
+__device__ __forceinline__ void mb_init(unsigned long long* b,
+                                        unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                     smem_u32(b)),
+                 "r"(count)
                  : "memory");
 }
 
-__device__ __forceinline__ void commit() {
-    asm volatile("cp.async.commit_group;" ::: "memory");
+__device__ __forceinline__ void mb_inval(unsigned long long* b) {
+    asm volatile("mbarrier.inval.shared::cta.b64 [%0];" ::"r"(smem_u32(b))
+                 : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void wait_newest() {
-    asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+__device__ __forceinline__ void mb_arrive(unsigned long long* b) {
+    asm volatile(
+        "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(
+            smem_u32(b))
+        : "memory");
 }
 
-// `bytes` (a multiple of 16) from global `src` to shared `dst`, by the
-// threads of the block counted from the last: a level's rows go to the
-// first warps, so the copies' issue stays off them for a level of fewer
-// rows than warps
-__device__ __forceinline__ void copy_async(void* dst, const void* src,
-                                           int bytes) {
-    char* d = static_cast<char*>(dst);
-    const char* g = static_cast<const char*>(src);
-    for (int i = (blockDim.x - 1 - threadIdx.x) * 16; i < bytes;
-         i += blockDim.x * 16)
-        copy16(d + i, g + i);
+__device__ __forceinline__ bool mb_test(unsigned a, unsigned parity) {
+    unsigned ok;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(ok)
+        : "r"(a), "r"(parity)
+        : "memory");
+    return ok != 0;
 }
 
-struct Pass {
+// A test that does not block: has the phase of this parity completed?
+__device__ __forceinline__ bool mb_done(unsigned a, unsigned parity) {
+    unsigned ok;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(ok)
+        : "r"(a), "r"(parity)
+        : "memory");
+    return ok != 0;
+}
+
+// A wait longer than two seconds is a lost arrive: trap (the launch
+// fails) rather than hang the card.
+__device__ __forceinline__ void mb_wait(unsigned long long* b,
+                                        unsigned parity) {
+    const unsigned a = smem_u32(b);
+    if (mb_test(a, parity)) return;
+    const long long t0 = globaltimer();
+    while (!mb_test(a, parity))
+        if (globaltimer() - t0 > 2000000000LL) __trap();
+}
+
+// The chain's quotient num / d from the reciprocal r = RN(1 / d): q =
+// num r, then one correction by the exact residual num - q d (Markstein).
+__device__ __forceinline__ double quotient(double num, double d, double r) {
+    const double q = num * r;
+    return fma(fma(-q, d, num), r, q);
+}
+
+// A group of passes (ops/cuda_mg.py _group_blocks): its levels' table
+// (4 words a level: the stale block's and the chain block's addresses,
+// k + Ws 2^32, L + T 2^8 + F 2^16 + l 2^32 with l the level
+// in its pass), and where each of its rows' b goes in the chain blocks.
+struct Group {
     int nlev;
-    const int4* lvl;        // (first row, first entry, width, rows)
-    const int* dst;         // a row's local index
-    const int* gid;         // its global index (for b)
-    const double* diag;
-    const int* col;         // local columns, `width` a row, zero padded
-    const double* val;
-    bool war;
-    double* bl;             // b in the pass's row order (gathered here)
-    int nrows;              // rows of the arrays, padding included
+    const longlong2* table;     // 2 a level
+    int nrows;
+    const int* gid;             // a row's global index
+    const int* boff;            // its b's place in cblk (doubles)
+    double* cblk;
 };
 
-__device__ __forceinline__ Pass pass_at(const long long* w, int k) {
-    const long long* p = w + kWfHdr + kWfPass * k;
-    return Pass{(int)word(p, 0),          addr<const int4>(p, 1),
-                addr<const int>(p, 2),    addr<const int>(p, 3),
-                addr<const double>(p, 4), addr<const int>(p, 5),
-                addr<const double>(p, 6), word(p, 7) != 0,
-                addr<double>(p, 8),       (int)word(p, 9)};
+__device__ __forceinline__ Group group_at(const long long* w, int g) {
+    const long long* p = w + kWfHdr + kWfGroup * g;
+    return Group{(int)word(p, 0),       addr<const longlong2>(p, 1),
+                 (int)word(p, 2),       addr<const int>(p, 3),
+                 addr<const int>(p, 4), addr<double>(p, 5)};
 }
 
-// The shared memory of a call: a ring of kWfStages level slots (E entries'
-// values and columns, R rows' diagonals, b values and local indices), a
-// ring of kWfTable level-table entries, a stage of R values and, unless
-// the operands give a global scratch vector, the local x.
+// a level's sizes, from its table row or its chain slot's header
+struct Level {
+    int k, Ws, L, T, F, l;
+};
+
+__device__ __forceinline__ Level level_of(longlong2 row) {
+    const unsigned long long a = row.x, b = row.y;
+    return Level{(int)(a & 0xffffffffu), (int)(a >> 32), (int)(b & 0xff),
+                 (int)((b >> 8) & 0xff), (int)((b >> 16) & 0xffff),
+                 (int)(b >> 32)};
+}
+
+// The shared memory of a call: a ring of kWfStages stale slots (12 E
+// bytes: a level's k Ws values, then their columns), a ring of kWfChain
+// chain slots, kWfChain "ready" and "done" and kWfStages "full"
+// mbarriers and, unless the operands give a global scratch vector, the
+// local x.  A chain slot: the level's header (int4 (k, Ws, L, T), int4
+// (F, l, 0, 0)), R stale partials, then its chain block (b, 1 / d, d:
+// Rp doubles each, Rp local indices, F Rp fresh values, F Rp codes of
+// where their x is (ops/cuda_mg.py _wave_pack fsrc); Rp = k rounded up to
+// 4).
 struct Smem {
-    char* ring;
-    int slot;               // bytes a slot
-    int E, R;
-    int4* tab;
-    double* stage;
+    char* stale;
+    int E;
+    char* chain;
+    int R, cbytes;
+    unsigned long long* ready;
+    unsigned long long* done;
+    unsigned long long* full;
     double* xs;
+    long long* trace;       // null, or kWfTrace clocks for tcap levels
+    int tcap;
 };
 
 __device__ __forceinline__ Smem smem_of(const long long* w, char* base) {
     Smem m;
-    m.E = (int)word(w, 5);
-    m.R = (int)word(w, 6);
-    m.ring = base;
-    m.slot = 12 * m.E + 20 * m.R;
-    m.tab = reinterpret_cast<int4*>(base + kWfStages * m.slot);
-    m.stage = reinterpret_cast<double*>(m.tab + kWfTable);
-    double* scratch = addr<double>(w, 7);
-    m.xs = scratch ? scratch : m.stage + m.R;
+    m.E = (int)word(w, 3);
+    m.R = (int)word(w, 4);
+    m.cbytes = 32 + 8 * m.R + (int)word(w, 5);
+    m.stale = base;
+    m.chain = base + kWfStages * 12 * m.E;
+    m.ready = reinterpret_cast<unsigned long long*>(m.chain
+                                                    + kWfChain * m.cbytes);
+    m.done = m.ready + kWfChain;
+    m.full = m.done + kWfChain;
+    double* scratch = addr<double>(w, 6);
+    m.xs = scratch ? scratch : reinterpret_cast<double*>(m.full + kWfStages);
+    m.tcap = (int)word(w, 8);
+    m.trace = addr<long long>(w, 9);
     return m;
 }
 
-// Start the copies of level e's operands into its slot and, from the last
-// thread, of level-table entry t into the table ring.
-__device__ __forceinline__ void issue(const Pass& P, const Smem& m, int e,
-                                      int t) {
-    if (e < P.nlev) {
-        const int4 lv = m.tab[e % kWfTable];
-        char* slot = m.ring + (e % kWfStages) * m.slot;
-        const int ents = lv.w * lv.z;           // a multiple of 4
-        const int rows = (lv.w + 3) & ~3;
-        copy_async(slot, P.val + lv.y, 8 * ents);
-        copy_async(slot + 8 * m.E, P.col + lv.y, 4 * ents);
-        copy_async(slot + 12 * m.E, P.diag + lv.x, 8 * rows);
-        copy_async(slot + 12 * m.E + 8 * m.R, P.bl + lv.x, 8 * rows);
-        copy_async(slot + 12 * m.E + 16 * m.R, P.dst + lv.x, 4 * rows);
-    }
-    if (t < P.nlev && threadIdx.x == blockDim.x - 1)
-        copy16(m.tab + t % kWfTable, P.lvl + t);
-    commit();
+__device__ __forceinline__ char* chain_slot(const Smem& m, int g) {
+    return m.chain + (g % kWfChain) * m.cbytes;
 }
 
-// One pass, level by level: level l's operands were copied kWfAhead
-// levels before, so a level waits on shared memory, its FMAs, a
-// butterfly, a division and one barrier (two in a write-after-read
-// pass).  A warp takes two rows at a time, interleaved.
-__device__ void run_pass(const Pass& P, const Smem& m) {
-    constexpr int D = kWfAhead;
-    if (P.nlev == 0) return;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nw = blockDim.x >> 5;
-    for (int i = threadIdx.x; i < 2 * D && i < P.nlev; i += blockDim.x)
-        m.tab[i] = __ldg(P.lvl + i);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < D; ++k) issue(P, m, k, 2 * D + k);
-    for (int l = 0; l < P.nlev; ++l) {
-        wait_newest<D - 1>();
-        __syncthreads();
-        issue(P, m, l + D, 3 * D + l);
-        const int4 lv = m.tab[l % kWfTable];
-        const char* slot = m.ring + (l % kWfStages) * m.slot;
-        const double* sv = reinterpret_cast<const double*>(slot);
-        const int* sc = reinterpret_cast<const int*>(slot + 8 * m.E);
-        const double* sd = reinterpret_cast<const double*>(slot + 12 * m.E);
-        const double* sb = sd + m.R;
-        const int* sdst = reinterpret_cast<const int*>(sb + m.R);
-        const int W = lv.z, rows = lv.w;
-        for (int p0 = warp; p0 < rows; p0 += 2 * nw) {
-            const int p1 = p0 + nw;
-            const bool two = p1 < rows;
-            double a0 = 0.0, a1 = 0.0;
-            for (int k = lane; k < W; k += 32) {
-                a0 = fma(sv[p0 * W + k], m.xs[sc[p0 * W + k]], a0);
-                if (two) a1 = fma(sv[p1 * W + k], m.xs[sc[p1 * W + k]], a1);
-            }
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) {
-                a0 += __shfl_xor_sync(0xffffffffu, a0, o);
-                a1 += __shfl_xor_sync(0xffffffffu, a1, o);
-            }
-            const double v0 = (sb[p0] - a0) / sd[p0];
-            const double v1 = two ? (sb[p1] - a1) / sd[p1] : 0.0;
-            if (lane == 0) {
-                if (P.war) {
-                    m.stage[p0] = v0;
-                    if (two) m.stage[p1] = v1;
-                } else {
-                    m.xs[sdst[p0]] = v0;
-                    if (two) m.xs[sdst[p1]] = v1;
-                }
-            }
-        }
-        if (P.war) {
-            __syncthreads();
-            for (int p = threadIdx.x; p < rows; p += blockDim.x)
-                m.xs[sdst[p]] = m.stage[p];
-        }
-    }
-    asm volatile("cp.async.wait_all;" ::: "memory");
-    __syncthreads();
+__device__ __forceinline__ Level header(const char* c) {
+    const int4 a = reinterpret_cast<const int4*>(c)[0];
+    const int4 b = reinterpret_cast<const int4*>(c)[1];
+    return Level{a.x, a.y, a.z, a.w, b.x, b.y};
 }
 
-// `iterations` x the passes first .. first+count-1 of the wavefront
-// operands `w` for A x = b, by one block (shared memory from `base`):
-// x's touched entries go to the local x, b to each pass's row order, and
-// the set's entries of the local x back to x.
-__device__ __noinline__ void wavefront_smooth(const long long* w, int first,
-                                              int count, int iterations,
-                                              double* x, const double* b,
-                                              char* base) {
+// the views of a chain slot's block for a level of Rp rows, F fresh
+struct ChainBlock {
+    const double *b, *r, *d;
+    const int* dst;
+    const double* fval;
+    const int* fsrc;
+};
+
+__device__ __forceinline__ ChainBlock chain_block(const Smem& m,
+                                                  const char* c, int Rp,
+                                                  int F) {
+    ChainBlock v;
+    v.b = reinterpret_cast<const double*>(c + 32 + 8 * m.R);
+    v.r = v.b + Rp;
+    v.d = v.r + Rp;
+    v.dst = reinterpret_cast<const int*>(v.d + Rp);
+    v.fval = reinterpret_cast<const double*>(v.dst + Rp);
+    v.fsrc = reinterpret_cast<const int*>(v.fval + F * Rp);
+    return v;
+}
+
+// `bytes` (a multiple of 16, maybe 0) from global `src` to shared `dst` by
+// the bulk-copy engine (TMA), completing on the mbarrier `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes,
+                                          unsigned long long* bar) {
+    if (bytes > 0)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+            "l"(src), "r"(bytes), "r"(smem_u32(bar))
+            : "memory");
+}
+
+// One arrival on `bar` that also expects `bytes` of bulk copies
+__device__ __forceinline__ void mb_expect(unsigned long long* bar,
+                                          unsigned bytes) {
+    asm volatile(
+        "{\n.reg .b64 st;\n"
+        "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}" ::"r"(
+            smem_u32(bar)),
+        "r"(bytes)
+        : "memory");
+}
+
+// The loader (one thread): per level h, once the producers have summed
+// level h - kWfStages (so its stale slot is free, and the chain has
+// finished level h - kWfChain, whose chain slot level h reuses), write
+// the level's header into chain slot h % kWfChain and start the two bulk
+// copies of its stale block and chain block, completing on
+// full[h % kWfStages].  Table rows are read two levels ahead.
+__device__ void load_levels(const Group& gr, int G, const Smem& m) {
+    const int n = gr.nlev;
+    int i2 = 2 % n;                     // the table index of level h + 2
+    longlong2 a0 = __ldg(gr.table), b0 = __ldg(gr.table + 1);
+    longlong2 a1 = __ldg(gr.table + 2 * (1 % n));
+    longlong2 b1 = __ldg(gr.table + 2 * (1 % n) + 1);
+    for (int h = 0; h < G; ++h) {
+        const longlong2 a2 = __ldg(gr.table + 2 * i2);
+        const longlong2 b2 = __ldg(gr.table + 2 * i2 + 1);
+        i2 = i2 + 1 == n ? 0 : i2 + 1;
+        if (h >= kWfStages) {
+            const int f = h - kWfStages;
+            mb_wait(m.ready + f % kWfChain, (f / kWfChain) & 1);
+        }
+        const Level v = level_of(b0);
+        char* c = chain_slot(m, h);
+        reinterpret_cast<int4*>(c)[0] = make_int4(v.k, v.Ws, v.L, v.T);
+        reinterpret_cast<int4*>(c)[1] = make_int4(v.F, v.l, 0, 0);
+        const int sbytes = 12 * v.k * v.Ws;
+        const int cb = (28 + 12 * v.F) * ((v.k + 3) & ~3);
+        unsigned long long* full = m.full + h % kWfStages;
+        mb_expect(full, sbytes + cb);
+        bulk_copy(m.stale + (h % kWfStages) * 12 * m.E,
+                  reinterpret_cast<const void*>(a0.x), sbytes, full);
+        bulk_copy(c + 32 + 8 * m.R, reinterpret_cast<const void*>(a0.y), cb,
+                  full);
+        a0 = a1;
+        b0 = b1;
+        a1 = a2;
+        b1 = b2;
+    }
+}
+
+// Producer thread pu of a group: the stale partial of every row of level
+// g (k rows, lane split L, T; its k Ws stale values and columns in stale
+// slot g % kWfStages): L lanes a row, lane u = p L + j summing quads
+// t L + j of row p with an accumulator per entry of the quad, the four
+// summed pairwise, the lanes by a butterfly; lane 0 of the row writes it
+// to the chain slot.  The block is lane-major (ops/cuda_mg.py
+// stale_positions): quad t of lane u is values (2t U + u, (2t + 1) U + u)
+// and columns t U + u in 16-byte units, U = k L, so a warp's loads are
+// contiguous.
+__device__ __forceinline__ void stale_sums(const Smem& m, int g, int pu,
+                                           const Level& v) {
+    const int L = v.L, T = v.T, lg = __ffs(L) - 1, U = v.k * L;
+    const char* slot = m.stale + (g % kWfStages) * 12 * m.E;
+    const double2* V = reinterpret_cast<const double2*>(slot);
+    const int4* C = reinterpret_cast<const int4*>(slot + 8 * v.k * v.Ws);
+    double* part = reinterpret_cast<double*>(chain_slot(m, g) + 32);
+    const double* xs = m.xs;
+    for (int u0 = 0; u0 < U; u0 += kWfLanes) {
+        const int u = u0 + pu;
+        double a0 = 0.0, a1 = 0.0, a2 = 0.0, a3 = 0.0;
+        if (u < U) {
+            for (int t = 0; t < T; ++t) {
+                const double2 v01 = V[2 * t * U + u];
+                const double2 v23 = V[(2 * t + 1) * U + u];
+                const int4 q = C[t * U + u];
+                a0 = fma(v01.x, xs[q.x], a0);
+                a1 = fma(v01.y, xs[q.y], a1);
+                a2 = fma(v23.x, xs[q.z], a2);
+                a3 = fma(v23.y, xs[q.w], a3);
+            }
+        }
+        double s = (a0 + a1) + (a2 + a3);
+        for (int o = L >> 1; o > 0; o >>= 1)
+            s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (u < U && (u & (L - 1)) == 0) part[u >> lg] = s;
+    }
+}
+
+// The producer warps (threads 32 .. 32 + kWfProducers - 1), each on its
+// own, group q taking the levels g = q mod kWfGroups: wait for the
+// level's copies (full), then until the chain has finished level
+// g - kWfFresh - 1 (and the previous pass: l levels back), sum the
+// level's stale entries and arrive on ready[g].
+__device__ void produce(int G, const Smem& m) {
+    const int q = (threadIdx.x - 32) / kWfLanes;
+    const int pu = (threadIdx.x - 32) % kWfLanes;
+    for (int g = q; g < G; g += kWfGroups) {
+        WF_TRACE_AT(pu == 0, g, 8);
+        mb_wait(m.full + g % kWfStages, (g / kWfStages) & 1);
+        const Level v = header(chain_slot(m, g));
+        WF_CLOCK(1);
+        const int h = g - 1 - min(kWfFresh, v.l);
+        if (h >= 0) mb_wait(m.done + h % kWfChain, (h / kWfChain) & 1);
+        WF_CLOCK(2);
+        stale_sums(m, g, pu, v);
+        WF_CLOCK(3);
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) mb_arrive(m.ready + g % kWfChain);
+        WF_CLOCK(4);
+    }
+}
+
+// A row's operands in the chain warp's registers: the stale partial, b,
+// 1 / d, d, the local index, and kWfFreshRegs fresh values (zero past the
+// level's F) and where to find their x (ops/cuda_mg.py _wave_pack fsrc;
+// a pad reads lane 0's last value)
+struct ChainRow {
+    double part, b, r, d;
+    int dst;
+    double fv[kWfFreshRegs];
+    int fs[kWfFreshRegs];
+};
+
+__device__ __forceinline__ void chain_row(const Smem& m, const char* c,
+                                          const Level& v, int p,
+                                          ChainRow& o) {
+    if (p >= v.k) return;
+    const int Rp = (v.k + 3) & ~3;
+    const ChainBlock cb = chain_block(m, c, Rp, v.F);
+    o.part = reinterpret_cast<const double*>(c + 32)[p];
+    o.b = cb.b[p];
+    o.r = cb.r[p];
+    o.d = cb.d[p];
+    o.dst = cb.dst[p];
+#pragma unroll
+    for (int i = 0; i < kWfFreshRegs; ++i) {
+        o.fv[i] = i < v.F ? cb.fval[i * Rp + p] : 0.0;
+        o.fs[i] = i < v.F ? cb.fsrc[i * Rp + p] : -1;
+    }
+}
+
+// The x a fresh entry reads where code ~(32 (a - 1) + q) < 0: what lane q
+// wrote a levels back (xh[a - 1], by a shuffle, so every lane of the warp
+// runs this).  A code >= 0 is a column of the local x, read by the caller.
+__device__ __forceinline__ double fresh_x(int code,
+                                         const double (&xh)[kWfFresh]) {
+    const int q = ~code & 31, a = ~code >> 5;
+    double v = 0.0;
+#pragma unroll
+    for (int j = 0; j < kWfFresh; ++j) {
+        const double t = __shfl_sync(0xffffffffu, xh[j], q);
+        v = a == j ? t : v;
+    }
+    return v;
+}
+
+// The sum and quotient of row p of a level (its operands in o, F fresh):
+// the stale partial, then the fresh entries by an FMA chain (a pad adds
+// an exact zero), then (b - s) / d from the reciprocal.  Every lane runs
+// it; every fresh x is fetched before the chain starts, from the local x
+// only where some lane of the warp needs it.
+__device__ __forceinline__ double row_value(const ChainRow& o, int F,
+                                            const double (&xh)[kWfFresh],
+                                            const double* xs, bool live,
+                                            const ChainBlock& cb, int Rp,
+                                            int p) {
+    double xv[kWfFreshRegs];
+    bool shared = false;
+#pragma unroll
+    for (int i = 0; i < kWfFreshRegs; ++i) {
+        xv[i] = fresh_x(o.fs[i], xh);
+        shared = shared || o.fs[i] >= 0;
+    }
+    if (__any_sync(0xffffffffu, shared && live)) {
+#pragma unroll
+        for (int i = 0; i < kWfFreshRegs; ++i)
+            if (live && o.fs[i] >= 0) xv[i] = xs[o.fs[i]];
+    }
+    double s = o.part;
+#pragma unroll
+    for (int i = 0; i < kWfFreshRegs; ++i) s = fma(o.fv[i], xv[i], s);
+    for (int i = kWfFreshRegs; i < F; ++i) {
+        const int code = live ? cb.fsrc[i * Rp + p] : -1;
+        const double v = fresh_x(code, xh);
+        s = fma(live ? cb.fval[i * Rp + p] : 0.0, code >= 0 ? xs[code] : v,
+                s);
+    }
+    return quotient(o.b - s, o.d, o.r);
+}
+
+// The chain warp (threads 0 .. 31): per level g, lane p takes row p (and
+// p + 32, ... where a level has more, from the slot): the fresh x from the
+// lanes' registers (each lane keeps the x it wrote in the last kWfFresh
+// levels), the FMA chain onto the stale partial and the quotient, the
+// store, __syncwarp; lane 0 arrives on done[g]; then the warp waits for
+// level g + 1's producers and reads its operands.
+__device__ void chain(int G, const Smem& m) {
+    const int lane = threadIdx.x;
+    double* xs = m.xs;
+    double xh[kWfFresh];
+#pragma unroll
+    for (int j = 0; j < kWfFresh; ++j) xh[j] = 0.0;
+    ChainRow cur = {};
+    mb_wait(m.ready, 0);
+    Level cv = header(m.chain);
+    chain_row(m, m.chain, cv, lane, cur);
+    for (int g = 0; g < G; ++g) {
+        WF_TRACE_AT(lane == 0, g, 0);
+        const char* c = chain_slot(m, g);
+        const int Rp = (cv.k + 3) & ~3;
+        const ChainBlock cb = chain_block(m, c, Rp, cv.F);
+        const bool live = lane < cv.k;
+        const double xn = row_value(cur, cv.F, xh, xs, live, cb, Rp, lane);
+        if (live) xs[cur.dst] = xn;
+        WF_CLOCK(1);
+        // rows 32 .. of a level of more than 32 (their x is read from the
+        // local x by the levels after)
+        for (int p0 = 32; p0 < cv.k; p0 += 32) {
+            const int p = p0 + lane;
+            ChainRow o = {};
+            chain_row(m, c, cv, p, o);
+            const double v = row_value(o, cv.F, xh, xs, p < cv.k, cb, Rp, p);
+            if (p < cv.k) xs[o.dst] = v;
+        }
+#pragma unroll
+        for (int j = kWfFresh - 1; j > 0; --j) xh[j] = xh[j - 1];
+        xh[0] = xn;
+        __syncwarp();
+        if (lane == 0) mb_arrive(m.done + g % kWfChain);
+        WF_CLOCK(2);
+        const int h = g + 1;
+        if (h < G) {
+            const unsigned a = smem_u32(m.ready + h % kWfChain);
+            if (!mb_done(a, (h / kWfChain) & 1))
+                mb_wait(m.ready + h % kWfChain, (h / kWfChain) & 1);
+            WF_CLOCK(3);
+            const char* cn = chain_slot(m, h);
+            cv = header(cn);
+            chain_row(m, cn, cv, lane, cur);
+        }
+        WF_CLOCK(4);
+    }
+}
+
+// `iterations` x the passes of group `group` of the wavefront operands `w`
+// for A x = b, by one block (shared memory from `base`): b goes to the
+// chain blocks, x's touched entries to the local x, and the set's entries
+// of the local x back to x.
+__device__ __noinline__ void wavefront_smooth(const long long* w, int group,
+                                              int iterations, double* x,
+                                              const double* b, char* base) {
     const Smem m = smem_of(w, base);
+    const Group gr = group_at(w, group);
     const int nloc = (int)word(w, 0);
     const int* l2g = addr<const int>(w, 1);
     const int nset = (int)word(w, 2);
+    const int G = gr.nlev * iterations;
+    for (int r = threadIdx.x; r < gr.nrows; r += blockDim.x)
+        gr.cblk[__ldg(gr.boff + r)] = __ldcg(b + __ldg(gr.gid + r));
     for (int j = threadIdx.x; j < nloc; j += blockDim.x)
         m.xs[j] = __ldcg(x + __ldg(l2g + j));
-    for (int k = 0; k < count; ++k) {
-        const Pass P = pass_at(w, first + k);
-        for (int r = threadIdx.x; r < P.nrows; r += blockDim.x)
-            P.bl[r] = __ldcg(b + __ldg(P.gid + r));
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < kWfChain; ++s) {
+            mb_init(m.ready + s, kWfLanes / 32);
+            mb_init(m.done + s, 1);
+        }
+        for (int s = 0; s < kWfStages; ++s) mb_init(m.full + s, 1);
+    }
+    // b's copies in the chain blocks, and earlier generic writes to this
+    // shared memory, before the bulk copies (another proxy) that follow
+    asm volatile("fence.proxy.async;" ::: "memory");
+    __syncthreads();
+    if (G > 0) {
+        if (threadIdx.x < 32)
+            chain(G, m);
+        else if (threadIdx.x < 32 + kWfProducers)
+            produce(G, m);
+        else if (threadIdx.x == 32 + kWfProducers)
+            load_levels(gr, G, m);
     }
     __syncthreads();
-    for (int it = 0; it < iterations; ++it)
-        for (int k = 0; k < count; ++k) run_pass(pass_at(w, first + k), m);
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < kWfChain; ++s) {
+            mb_inval(m.ready + s);
+            mb_inval(m.done + s);
+        }
+        for (int s = 0; s < kWfStages; ++s) mb_inval(m.full + s);
+    }
     for (int j = threadIdx.x; j < nset; j += blockDim.x)
         x[__ldg(l2g + j)] = m.xs[j];
 }
@@ -541,11 +873,12 @@ __device__ __noinline__ void wavefront_smooth(const long long* w, int first,
 }  // namespace wf
 
 // A level's smoothing half in the wavefront mode, by block 0: the passes
-// first .. first+count-1, `steps` times, in the block's shared memory.
-__device__ void wave_level(const Ctx& c, const long long* lvd, int first,
-                           int count, int steps, double* x, const double* b) {
-    wf::wavefront_smooth(addr<const long long>(lvd, V_WAVE), first, count,
-                         steps, x, b, reinterpret_cast<char*>(c.sv));
+// of group `group` (0 pre, 1 post), `steps` times, in the block's shared
+// memory.
+__device__ void wave_level(const Ctx& c, const long long* lvd, int group,
+                           int steps, double* x, const double* b) {
+    wf::wavefront_smooth(addr<const long long>(lvd, V_WAVE), group, steps,
+                         x, b, reinterpret_cast<char*>(c.sv));
 }
 
 // One Gauss-Seidel sweep over the level's smoothing set S in its algebraic
@@ -590,7 +923,7 @@ __device__ void cycle(Barrier& bar, const Ctx& c, const long long* d,
         if (wave) {
             if (steps > 0 && npre > 0) {
                 if (blockIdx.x == 0)
-                    wave_level(c, lvd, 0, npre, steps, xl, bl);
+                    wave_level(c, lvd, 0, steps, xl, bl);
                 bar.sync();
             }
         } else {
@@ -649,7 +982,7 @@ __device__ void cycle(Barrier& bar, const Ctx& c, const long long* d,
         if (wave) {
             if (steps > 0 && npost > 0) {
                 if (blockIdx.x == 0)
-                    wave_level(c, lvd, npre, npost, steps, xl, bl);
+                    wave_level(c, lvd, 1, steps, xl, bl);
                 bar.sync();
             }
         } else {
@@ -748,11 +1081,20 @@ vcycle_kernel(const long long* __restrict__ d, double* x,
 // The wavefront sweeps alone: one block, `iterations` x the passes first
 // .. first+count-1 (see the header).
 __global__ void __launch_bounds__(kThreads, 1)
-wavefront_gs_kernel(const long long* __restrict__ w, int first, int count,
+wavefront_gs_kernel(const long long* __restrict__ w, int group,
                     int iterations, double* x, const double* b) {
     extern __shared__ double smem[];
-    wf::wavefront_smooth(w, first, count, iterations, x, b,
+    wf::wavefront_smooth(w, group, iterations, x, b,
                          reinterpret_cast<char*>(smem));
+}
+
+__global__ void quotient_kernel(const double* __restrict__ num,
+                                const double* __restrict__ d,
+                                const double* __restrict__ r, double* out,
+                                long long n) {
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         i < n; i += (long long)gridDim.x * blockDim.x)
+        out[i] = wf::quotient(num[i], d[i], r[i]);
 }
 
 cudaError_t allow_smem(long long smem) {
@@ -808,8 +1150,28 @@ PYIGA_EXPORT int pyiga_vcycle_f64(const long long* desc, double* x,
     return (int)cudaGetLastError();
 }
 
-PYIGA_EXPORT int pyiga_wavefront_gs_f64(const long long* w, int first,
-                                        int count, int iterations, double* x,
+// The wavefront kernel's compile-time layout, for the host pack to check:
+// (kWfStages, kWfFresh, kWfChain, kWfHdr, kWfGroup, kWfLanes).
+PYIGA_EXPORT int pyiga_wavefront_layout(int i) {
+    const int v[] = {kWfStages, kWfFresh, kWfChain, kWfHdr, kWfGroup,
+                     kWfLanes};
+    return i >= 0 && i < 6 ? v[i] : -1;
+}
+
+// out[i] = the chain warp's quotient of num[i] by d[i] from r[i] = 1 / d[i]
+// (wf::quotient), for checking it against the division.
+PYIGA_EXPORT int pyiga_wavefront_quotient_f64(const double* num,
+                                              const double* d,
+                                              const double* r, double* out,
+                                              long long n, void* stream) {
+    if (n <= 0) return 0;
+    quotient_kernel<<<pyiga_grid_1d(n, 256), 256, 0, (cudaStream_t)stream>>>(
+        num, d, r, out, n);
+    return (int)cudaGetLastError();
+}
+
+PYIGA_EXPORT int pyiga_wavefront_gs_f64(const long long* w, int group,
+                                        int iterations, double* x,
                                         const double* b, long long smem,
                                         void* stream) {
     if (smem > 48 * 1024) {
@@ -819,6 +1181,6 @@ PYIGA_EXPORT int pyiga_wavefront_gs_f64(const long long* w, int first,
         if (e != cudaSuccess) return (int)e;
     }
     wavefront_gs_kernel<<<1, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-        w, first, count, iterations, x, b);
+        w, group, iterations, x, b);
     return (int)cudaGetLastError();
 }

@@ -193,6 +193,10 @@ class BSplineFunc(_ControlPointMixin, _BaseSplineFunc):
     def _rebuild(kvs, coeffs):
         return BSplineFunc(kvs, coeffs)
 
+    def cylinderize(self, z0=0.0, z1=1.0, support=(0.0, 1.0)):
+        """Extrude linearly along a new first axis from `z0` to `z1`."""
+        return tensor_product(line_segment(z0, z1, support=support), self)
+
     def as_nurbs(self):
         return NurbsFunc(self.kvs, self.coeffs.copy(),
                          np.ones(self.coeffs.shape[:self.sdim]))

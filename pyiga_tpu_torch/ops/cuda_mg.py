@@ -39,12 +39,23 @@ from ..config import DTYPE
 
 # layout of the int64 descriptor the kernel reads (csrc/mg.cu)
 _HDR, _LV = 16, 40
+_WF_HDR, _WF_GROUP = 10, 6
 _V_SPOS, _V_WAVE, _V_PRE, _V_POST = 17, 18, 20, 28
 _H_MODE = 14
-# the wavefront kernel's shared-memory ring (csrc/mg.cu kWfStages,
-# kWfTable) and the bytes it may use of a block's 227 KB (K6 keeps 320
-# bytes for its sums)
-WF_STAGES, WF_TABLE = 3, 8
+# the wavefront kernel (csrc/mg.cu wf::): a level's stale entries are
+# copied into a ring of WF_STAGES shared-memory slots, its chain operands
+# into a ring of WF_CHAIN slots; an entry is fresh (read by the chain
+# warp) if its pass writes its column in the WF_FRESH levels before its
+# row's, else stale (summed by one of two groups of WF_LANES producer
+# threads, which take the levels in turn); WF_QUADS bounds the 4-entry
+# quads a producer lane sums for a row when a level's lane split is
+# chosen; WF_SMEM_BYTES is what the kernel may use of a block's 227 KB
+# (K6 keeps 320 bytes for its sums)
+WF_STAGES = 4
+WF_FRESH = 2
+WF_CHAIN = WF_STAGES + WF_FRESH + 1
+WF_LANES = 128
+WF_QUADS = 6
 WF_SMEM_BYTES = 232_448 - 512
 # 32-byte sectors of float64: row strides and extents are multiples of it
 _SECTOR = 4
@@ -90,28 +101,24 @@ class WavefrontSweeps:
 
     * ``plain[g]``: the packs of group `g` as tensors (the plain version
       writes the pad rows to a dead slot ``n``);
-    * ``compact[g]``: per pass of group `g` the kernel's host arrays.  The
-      entries of ``x`` that the set's rows touch get a local numbering,
-      the set first (``l2g``, local to global).  A pass keeps only its
-      live rows (a row whose diagonal is zero or missing never changes),
-      level by level (a level whose rows all drop is dropped, one too
-      large for a shared-memory slot is split into consecutive levels
-      when no row of it reads what another writes): ``lvl`` rows
-      ``(first row, first entry, width, rows)``, the first row a
-      multiple of 4; per row ``dst`` (local index), ``gid`` (global
-      index, for ``b``), ``diag``; per row ``width`` entries ``col``
-      (local) / ``val``, the row's off-diagonal entries zero padded, the
-      width a multiple of 4; ``war`` flags a pass in which a row reads an
-      entry that another row of its level writes (only for a
-      structurally nonsymmetric matrix); ``nlev``, ``pmax`` (most rows of
-      a level), ``entries`` (stored nonzeros);
-    * the launch layout (``csrc/mg.cu`` ``wavefront_smooth``): a ring of
-      :data:`WF_STAGES` shared-memory slots of ``slot_entries`` entries
-      and ``slot_rows`` rows, a level table ring, a stage of
-      ``slot_rows`` values and, when it fits (``xs_shared``), the local
-      x; ``smem_bytes`` in all;
-    * ``words``: an int64 tensor of the operands' addresses and sizes, on
-      a CUDA device."""
+    * ``compact[g]``: per pass of group `g` the kernel's host arrays
+      (:func:`_wave_pack`).  The entries of ``x`` that the set's rows
+      touch get a local numbering, the set first (``l2g``, local to
+      global).  A pass keeps only its live rows (a row whose diagonal is
+      zero or missing never changes), level by level (a level whose rows
+      all drop is dropped; when the shared memory does not hold the
+      largest level, levels are split into consecutive levels, never in a
+      pass where a row reads what another row of its level writes:
+      ``war``, only for a structurally nonsymmetric matrix).  Each row's
+      entries are split by age: *fresh* if the pass writes the column in
+      the :data:`WF_FRESH` levels before the row's, else *stale*;
+    * the launch layout (``csrc/mg.cu`` ``wf::Smem``): the local x when
+      it fits (``xs_shared``), else a global scratch vector; a ring of
+      :data:`WF_STAGES` slots of ``slot_entries`` stale entries; a ring of
+      :data:`WF_CHAIN` chain slots of ``slot_rows`` partial sums and
+      ``slot_chain`` bytes of chain operands; ``smem_bytes`` in all;
+    * ``words``: on a CUDA device, an int64 tensor of the sizes and the
+      addresses of each group's device layout (:func:`_group_blocks`)."""
 
     def __init__(self, n, indices, groups, device):
         self.device = device
@@ -146,59 +153,76 @@ class WavefrontSweeps:
             levels[key] = _wave_levels(rows, cols, vals, diag, g2l)
         self.plain = [[plain[id(p)] for p in group] for group in groups]
         self.groups = [len(group) for group in groups]
-        self._layout(levels)
-        compact = {key: _wave_pack(lv, self.slot_entries, self.slot_rows)
-                   for key, lv in levels.items()}
+        compact = self._layout(levels)
         self.compact = [[compact[id(p)] for p in group] for group in groups]
         self.words = self._scratch = None
         if device.type == 'cuda':
-            ops = {key: {k: tensor(c[k], dt) for k, dt in (
-                ('lvl', torch.int32), ('dst', torch.int32),
-                ('gid', torch.int32), ('diag', DTYPE), ('col', torch.int32),
-                ('val', DTYPE))} for key, c in compact.items()}
-            for key, c in compact.items():     # b in the pass's row order
-                ops[key]['bl'] = torch.empty(len(c['dst']), dtype=DTYPE,
-                                             device=device)
-            self._ops = ops
             self._l2g = tensor(self.l2g, torch.int32)
             if not self.xs_shared:
                 self._scratch = torch.empty(self.nloc, dtype=DTYPE,
                                             device=device)
-            w = [self.nloc, self._l2g.data_ptr(), self.m] + \
-                (self.groups + [0, 0])[:2] + [
-                    self.slot_entries, self.slot_rows,
-                    0 if self.xs_shared else self._scratch.data_ptr(),
-                    self.smem_bytes, 0]
-            for group in groups:
-                for pack in group:
-                    o, c = ops[id(pack)], compact[id(pack)]
-                    w += [c['nlev']] + [o[k].data_ptr() for k in (
-                        'lvl', 'dst', 'gid', 'diag', 'col', 'val')] \
-                        + [int(c['war']), o['bl'].data_ptr(), len(c['dst'])]
+            w = [self.nloc, self._l2g.data_ptr(), self.m,
+                 self.slot_entries, self.slot_rows, self.slot_chain,
+                 0 if self.xs_shared else self._scratch.data_ptr(),
+                 self.smem_bytes, 0, 0]
+            self._dev = []
+            for cs in self.compact:
+                blk = _group_blocks(cs)
+                d = {k: tensor(blk[k], dt) for k, dt in (
+                    ('sblk', torch.uint8), ('cblk', torch.uint8),
+                    ('gid', torch.int32), ('boff', torch.int32))}
+                tab = blk['table'].copy()
+                tab[:, 0] += d['sblk'].data_ptr()
+                tab[:, 1] += d['cblk'].data_ptr()
+                d['table'] = tensor(tab, torch.int64)
+                self._dev.append(d)
+                w += [len(tab), d['table'].data_ptr(), len(blk['gid']),
+                      d['gid'].data_ptr(), d['boff'].data_ptr(),
+                      d['cblk'].data_ptr()]
             self.words = torch.tensor(w, dtype=torch.int64, device=device)
 
+    def set_trace(self, trace):
+        """Record the SM clock (``clock64``) at the steps of the first
+        ``trace.numel() // 16`` levels of the next launches into the int64
+        CUDA tensor `trace` (None: stop), 16 a level: the chain warp's
+        lane 0 in words 0-4 (the level's start, its store, its arrive,
+        the next level ready, read), its producers' thread 0 in words 8-12
+        (start, copies in, the chain seen, sums, arrive).  Only a kernel
+        built with ``PYIGA_WF_TRACE`` records (``csrc/mg.cu``;
+        ``scripts/torch_wavefront_probe.py --micro``)."""
+        self._trace = trace
+        self.words[8] = 0 if trace is None else trace.numel() // 16
+        self.words[9] = 0 if trace is None else trace.data_ptr()
+
+    def _need(self, packs, xs):
+        """Slot sizes and shared-memory bytes of a launch over `packs`
+        (``csrc/mg.cu`` ``wf::smem_of``), with the local x in it if
+        `xs`."""
+        E = max([c['slot_entries'] for c in packs] + [4])
+        R = max([c['slot_rows'] for c in packs] + [4])
+        C = max([c['slot_chain'] for c in packs] + [16])
+        return (E, R, C, WF_STAGES * (12 * E + 8)
+                + WF_CHAIN * (32 + 8 * R + C + 16)
+                + (8 * self.nloc if xs else 0))
+
     def _layout(self, levels):
-        """Choose the shared-memory layout: slots that hold the largest
-        level, with the local x in shared memory if it fits, else in a
-        global scratch vector; past that, levels are split (never those of
-        a write-after-read pass) so that a slot fits."""
-        def need(entries, rows, xs):
-            return (WF_STAGES * (12 * entries + 20 * rows)
-                    + 16 * WF_TABLE + 8 * rows + (8 * self.nloc if xs else 0))
-        lvs = [l for lv in levels.values() for l in lv['levels']]
-        rows = _up4(max([len(l[0]) for l in lvs] + [1]))
-        entries = max([len(l[0]) * l[1] for l in lvs] + [4])
-        self.xs_shared = need(entries, rows, True) <= WF_SMEM_BYTES
-        if need(entries, rows, self.xs_shared) > WF_SMEM_BYTES:
-            # a slot of E entries: split the levels of each pass to fit
-            cap = (WF_SMEM_BYTES - 16 * WF_TABLE - (WF_STAGES * 20 + 8)
-                   * rows) // (WF_STAGES * 12) // 4 * 4
-            for lv in levels.values():
-                lv['levels'] = _split_levels(lv, cap)
-            lvs = [l for lv in levels.values() for l in lv['levels']]
-            entries = max(len(l[0]) * l[1] for l in lvs)
-        self.slot_entries, self.slot_rows = int(entries), int(rows)
-        self.smem_bytes = need(entries, rows, self.xs_shared)
+        """Pack every pass and choose the shared-memory layout: the local
+        x in shared memory if it fits beside the rings, else in a global
+        scratch vector; past that, the levels are split into runs of fewer
+        entries until the rings fit.  Returns the packs by key."""
+        compact = {key: _wave_pack(lv) for key, lv in levels.items()}
+        self.xs_shared = self._need(compact.values(), True)[3] \
+            <= WF_SMEM_BYTES
+        cap = max([len(l[0]) * l[1] for lv in levels.values()
+                   for l in lv['levels']] + [4])
+        while self._need(compact.values(), self.xs_shared)[3] \
+                > WF_SMEM_BYTES:
+            cap = cap // 2 // 4 * 4
+            compact = {key: _wave_pack(dict(lv, levels=_split_levels(
+                lv, cap))) for key, lv in levels.items()}
+        self.slot_entries, self.slot_rows, self.slot_chain, \
+            self.smem_bytes = self._need(compact.values(), self.xs_shared)
+        return compact
 
 
 def _up4(k):
@@ -248,36 +272,170 @@ def _split_levels(lv, cap):
     return out
 
 
-def _wave_pack(lv, slot_entries, slot_rows):
-    """The kernel's arrays of one pass (see :class:`WavefrontSweeps`)."""
-    lvl, row0, ent = [], 0, 0
-    nrows = sum(_up4(len(l[0])) for l in lv['levels'])
-    nent = sum(len(l[0]) * l[1] for l in lv['levels'])
+def lane_split(width, rows):
+    """The producer lanes ``L`` a row (a power of two, at most 32) and
+    4-entry quads a lane ``T`` over which the kernel sums a level of
+    `rows` rows whose stale entries are at most `width` a row, each row
+    padded to ``4 L T`` entries: the fewest padded entries with ``T <=
+    WF_QUADS`` (32 lanes if none) and, where possible, ``rows L`` within
+    one round of a producer group's WF_LANES threads; then the most
+    lanes."""
+    if width == 0:
+        return 1, 0
+    best = None
+    for L in (1, 2, 4, 8, 16, 32):
+        T = -(-width // (4 * L))
+        if T <= WF_QUADS or L == 32:
+            key = (rows * L > WF_LANES and L > 1, L * T, -L)
+            if best is None or key < best[0]:
+                best = (key, L, T)
+    return best[1], best[2]
+
+
+def stale_positions(k, L, T):
+    """Where entry ``e`` of row ``p`` of a level's stale entries (``k``
+    rows, lane split ``L``, ``T``) lies in its ``4 k L T`` values and
+    columns: lane-major, so that a warp's 16-byte loads are contiguous.
+    Entry ``e = 4 (t L + j) + q`` is summed by lane ``u = p L + j`` in
+    quad ``t``; with ``U = k L`` its value is double ``2 ((2 t + q // 2) U
+    + u) + q % 2`` and its column int ``4 (t U + u) + q``.  Returns two
+    ``(k, 4 L T)`` index arrays (values, columns)."""
+    U = k * L
+    e = np.arange(4 * L * T)
+    t, j, q = e // (4 * L), e // 4 % L, e % 4
+    u = np.arange(k)[:, None] * L + j[None, :]
+    return (2 * ((2 * t + q // 2) * U + u) + q % 2,
+            4 * (t * U + u) + q)
+
+
+def _wave_pack(lv):
+    """The kernel's arrays of one pass.  Per level ``l`` a row of the
+    level table ``lvl``: ``(first row, first stale entry, first fresh
+    entry, rows k, stale width Ws, lanes L, quads T, fresh width F)``.
+    Rows are padded to a multiple of 4 a level (``Rp``): per row ``dst``
+    (local index), ``gid`` (global index, for ``b``), ``diag`` and its
+    reciprocal ``rcp``.  A row's stale entries (``scol`` local columns /
+    ``sval``, in the row's order, zero padded to ``Ws = 4 L T``, placed by
+    :func:`stale_positions`) are summed by ``L`` producer lanes, lane
+    ``j`` taking quads ``t L + j``; its fresh entries (``fcol`` /
+    ``fval``, ``F`` a row, entry-major: entry ``i`` of row ``p`` at ``i Rp
+    + p``) by the chain warp, which finds the value by ``fsrc``: ``~(32 (a
+    - 1) + q)`` for row ``q < 32`` of the level ``a`` back (in its lane
+    ``q``'s registers), else the local column.  An entry is fresh if the pass writes its column at a level in
+    ``[l - WF_FRESH, l - 1]``.  Also ``nlev``, ``pmax`` (most rows of a
+    level), ``entries`` (stored nonzeros), ``fresh`` (fresh entries),
+    ``war`` and the slot sizes its levels need (``slot_entries``,
+    ``slot_rows``, ``slot_chain``: see :func:`_group_blocks`)."""
+    levels = lv['levels']
+    written, wpos = {}, {}            # local column -> level, row there
+    for l, (d, *_rest) in enumerate(levels):
+        written.update(zip(d.tolist(), [l] * len(d)))
+        wpos.update(zip(d.tolist(), range(len(d))))
+    split, nrows, nstale, nfresh = [], 0, 0, 0
+    for l, (d, _w, c, v, g, dg) in enumerate(levels):
+        fresh = [np.array([l - WF_FRESH <= written.get(j, -WF_FRESH - 1)
+                           < l for j in ci.tolist()], dtype=bool)
+                 for ci in c]
+        k, Rp = len(d), _up4(len(d))
+        L, T = lane_split(max(int((~f).sum()) for f in fresh), k)
+        F = max(int(f.sum()) for f in fresh)
+        split.append((fresh, L, T, F))
+        nrows += Rp
+        nstale += k * 4 * L * T
+        nfresh += F * Rp
     dst = np.zeros(nrows + 4, np.int32)
     gid = np.zeros(nrows + 4, np.int32)
     diag = np.ones(nrows + 4)
-    col = np.zeros(nent + 4, np.int32)
-    val = np.zeros(nent + 4)
-    stored = 0
-    for d, width, c, v, g, dg in lv['levels']:
-        k = len(d)
-        assert k <= slot_rows and k * width <= slot_entries
+    scol = np.zeros(nstale + 4, np.int32)
+    sval = np.zeros(nstale + 4)
+    fcol = np.zeros(nfresh + 4, np.int32)
+    fsrc = np.full(nfresh + 4, -1, np.int32)     # a pad reads lane 0
+    fval = np.zeros(nfresh + 4)
+    lvl, row0, s0, f0, stored, nf = [], 0, 0, 0, 0, 0
+    E = R = Cb = 0
+    for (d, _w, c, v, g, dg), (fresh, L, T, F) in zip(levels, split):
+        k, Rp, Ws = len(d), _up4(len(d)), 4 * L * T
         dst[row0:row0 + k], gid[row0:row0 + k] = d, g
         diag[row0:row0 + k] = dg
-        for p, (ci, vi) in enumerate(zip(c, v)):
-            col[ent + p * width:ent + p * width + len(ci)] = ci
-            val[ent + p * width:ent + p * width + len(vi)] = vi
+        pv, pc = stale_positions(k, L, T)
+        for p, (ci, vi, fi) in enumerate(zip(c, v, fresh)):
+            ns = int((~fi).sum())
+            scol[s0 + pc[p, :ns]] = ci[~fi]
+            sval[s0 + pv[p, :ns]] = vi[~fi]
+            e = f0 + np.arange(int(fi.sum())) * Rp + p
+            fcol[e], fval[e] = ci[fi], vi[fi]
+            # written a levels back by row q of that level: from the chain
+            # warp's registers (lane q) where q < 32, else the local x
+            li = len(lvl)
+            fsrc[e] = [~(32 * (li - written[j] - 1) + wpos[j])
+                       if wpos[j] < 32 else j for j in ci[fi].tolist()]
             stored += len(vi)
-        lvl.append((row0, ent, width, k))
-        row0 += _up4(k)
-        ent += k * width
-    if ent >= 2 ** 31:
-        raise ValueError('wavefront pack of %d entries exceeds int32' % ent)
+            nf += int(fi.sum())
+        lvl.append((row0, s0, f0, k, Ws, L, T, F))
+        E, R = max(E, k * Ws), max(R, Rp)
+        Cb = max(Cb, (28 + 12 * F) * Rp)
+        row0 += Rp
+        s0 += k * Ws
+        f0 += F * Rp
+    if max(s0, f0) >= 2 ** 31:
+        raise ValueError('wavefront pack of %d entries exceeds int32' % s0)
     return dict(nlev=len(lvl),
-                lvl=np.asarray(lvl, dtype=np.int32).reshape(-1, 4),
-                dst=dst, gid=gid, diag=diag, col=col, val=val,
-                war=lv['war'], pmax=max([t[3] for t in lvl] + [0]),
-                entries=stored)
+                lvl=np.asarray(lvl, dtype=np.int32).reshape(-1, 8),
+                dst=dst, gid=gid, diag=diag, rcp=1.0 / diag, scol=scol,
+                sval=sval, fcol=fcol, fsrc=fsrc, fval=fval, war=lv['war'],
+                pmax=max([t[3] for t in lvl] + [0]), entries=stored,
+                fresh=nf, slot_entries=E, slot_rows=R, slot_chain=Cb)
+
+
+def _group_blocks(packs):
+    """The device layout of a group of passes (:func:`_wave_pack` packs,
+    in order): per level two contiguous byte blocks, each a bulk copy into
+    a shared-memory slot.  The stale block holds the level's ``k Ws``
+    values then their columns; the chain block its rows' ``b`` (written
+    at each launch), ``rcp`` and ``diag`` (``Rp`` doubles each), ``dst``
+    (``Rp`` ints), then the fresh values and columns (``F Rp`` each).
+    Returns ``sblk`` and ``cblk`` (uint8), ``table`` ``(levels, 4)``
+    int64 rows ``(stale block offset, chain block offset, k + Ws 2**32,
+    L + T 2**8 + F 2**16 + l 2**32)`` with ``l`` the level in its pass
+    (``csrc/mg.cu`` ``wf::level_of``), and per row of the group (padding
+    included)
+    ``gid`` (global index) and ``boff`` (where its ``b`` goes in ``cblk``,
+    in doubles)."""
+    sblk, cblk, table, gid, boff = [], [], [], [], []
+    so = co = 0
+    for c in packs:
+        for l, (row0, s0, f0, k, Ws, L, T, F) in enumerate(
+                c['lvl'].tolist()):
+            Rp = _up4(k)
+            ks = k * Ws
+            sblk += [c['sval'][s0:s0 + ks].view(np.uint8),
+                     c['scol'][s0:s0 + ks].view(np.uint8)]
+            rows = slice(row0, row0 + Rp)
+            fr = slice(f0, f0 + F * Rp)
+            cblk += [np.zeros(8 * Rp, np.uint8),
+                     c['rcp'][rows].view(np.uint8),
+                     c['diag'][rows].view(np.uint8),
+                     c['dst'][rows].view(np.uint8),
+                     c['fval'][fr].view(np.uint8),
+                     c['fsrc'][fr].view(np.uint8)]
+            if not (L < 2 ** 8 and T < 2 ** 8 and F < 2 ** 16):
+                raise ValueError('wavefront level of lane split (%d, %d) '
+                                 'and %d fresh entries a row' % (L, T, F))
+            table.append((so, co, k + (Ws << 32),
+                          L + (T << 8) + (F << 16) + (l << 32)))
+            gid.append(c['gid'][rows])
+            boff.append(co // 8 + np.arange(Rp))
+            so += 12 * ks
+            co += (28 + 12 * F) * Rp
+    if max(so, co) >= 2 ** 31:
+        raise ValueError('wavefront group of %d bytes exceeds int32'
+                         % max(so, co))
+    cat = (lambda a, dt: np.concatenate(a).astype(dt) if a
+           else np.zeros(0, dt))
+    return dict(sblk=np.concatenate(sblk + [np.zeros(16, np.uint8)]),
+                cblk=np.concatenate(cblk + [np.zeros(16, np.uint8)]),
+                table=np.asarray(table, dtype=np.int64).reshape(-1, 4),
+                gid=cat(gid, np.int32), boff=cat(boff, np.int32))
 
 
 class DenseRows:
@@ -599,6 +757,8 @@ def launch_solve(ops, x, f, res0, tol, maxiter, trace=None):
         _cuda.require(trace, 'trace', torch.int64, 1)
     hist = torch.empty(max(maxiter, 1), dtype=DTYPE, device=x.device)
     info = torch.empty(2, dtype=DTYPE, device=x.device)
+    if ops.wave:
+        _check_wf_layout()
     blocks, smem = _launch_shape(ops, x.device)
     with _cuda.device_of(x):
         err = _cuda.library().pyiga_vcycle_f64(
@@ -650,6 +810,22 @@ def vcycle(ops, x, f):
     return xo, hist[0]
 
 
+_WF_LAYOUT_OK = []
+
+
+def _check_wf_layout():
+    """Raise unless the built kernel's wavefront layout is the host
+    pack's (``csrc/mg.cu`` ``pyiga_wavefront_layout``)."""
+    if not _WF_LAYOUT_OK:
+        lib = _cuda.library()
+        got = [lib.pyiga_wavefront_layout(i) for i in range(6)]
+        want = [WF_STAGES, WF_FRESH, WF_CHAIN, _WF_HDR, _WF_GROUP, WF_LANES]
+        if got != want:
+            raise RuntimeError('wavefront kernel layout %s, host pack %s'
+                               % (got, want))
+        _WF_LAYOUT_OK.append(True)
+
+
 def _check_wave(sweeps, group, iterations, x, b):
     """Argument checks of :func:`wavefront_gs` on either device."""
     n = sweeps.n
@@ -664,9 +840,30 @@ def _check_wave(sweeps, group, iterations, x, b):
                              % (name, t.device, sweeps.device))
     if not 0 <= group < len(sweeps.groups):
         raise ValueError('wavefront_gs: no pass group %d' % group)
-    if not 0 <= int(iterations) < 2 ** 31:
+    levels = sum(c['nlev'] for c in sweeps.compact[group])
+    if not 0 <= int(iterations) * max(levels, 1) < 2 ** 31:
         raise ValueError('wavefront_gs: iterations %d out of range'
                          % iterations)
+
+
+def wavefront_quotient(num, d, r):
+    """The wavefront kernel's quotient ``num / d`` from ``r = 1 / d``
+    (``csrc/mg.cu`` ``wf::quotient``: ``q = num r`` corrected once by the
+    exact residual), elementwise on CUDA float64 tensors of one shape,
+    for checking it against the division.  Not on any solve's path: it
+    counts no launch."""
+    for t, name in ((num, 'num'), (d, 'd'), (r, 'r')):
+        _cuda.require(t, name, DTYPE, 1)
+        if t.shape != num.shape or t.device != num.device:
+            raise ValueError('wavefront_quotient: %s does not match num'
+                             % name)
+    out = torch.empty_like(num)
+    with _cuda.device_of(num):
+        err = _cuda.library().pyiga_wavefront_quotient_f64(
+            num.data_ptr(), d.data_ptr(), r.data_ptr(), out.data_ptr(),
+            num.numel(), _cuda.stream_of(num))
+    _cuda.check(err, 'wavefront_quotient')
+    return out
 
 
 def wavefront_gs(sweeps, group, iterations, x, b):
@@ -684,11 +881,11 @@ def wavefront_gs(sweeps, group, iterations, x, b):
         raise ValueError('wavefront_gs: unsupported device %s' % x.device)
     _cuda.require(x, 'x', DTYPE, 1)
     _cuda.require(b, 'b', DTYPE, 1)
-    first = sum(sweeps.groups[:group])
+    _check_wf_layout()
     with _cuda.device_of(x):
         err = _cuda.library().pyiga_wavefront_gs_f64(
-            sweeps.words.data_ptr(), first, sweeps.groups[group],
-            int(iterations), x.data_ptr(), b.data_ptr(), sweeps.smem_bytes,
+            sweeps.words.data_ptr(), int(group), int(iterations),
+            x.data_ptr(), b.data_ptr(), sweeps.smem_bytes,
             _cuda.stream_of(x))
     _cuda.check(err, 'wavefront_gs')
     _cuda.LAUNCHES['wavefront_gs'] += 1

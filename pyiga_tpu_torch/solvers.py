@@ -257,15 +257,19 @@ def local_mg_step(hs, A, f, Ps, lv_inds, smoother='symmetric_gs',
     the operation order (pre-smooth, restrict, coarse solve, prolongate,
     post-smooth, with strictly sequential Gauss-Seidel sweeps) fixes the
     iteration counts.  `relax_backend` ``'host'`` runs the native CSR
-    sweeps; ``'device'`` (and ``'auto'``) the order-exact wavefront
-    smoother :class:`~pyiga_tpu_torch.ops.relax.DeviceIndexedGS` on
-    `device` (default: the card), one per level and sweep direction, each
+    sweeps; ``'device'`` the order-exact wavefront smoother
+    :class:`~pyiga_tpu_torch.ops.relax.DeviceIndexedGS` on `device`
+    (default: the card), one per level and sweep direction, each
     smoothing application one kernel launch (its plain version on the
-    CPU)."""
+    CPU); ``'auto'`` takes ``'device'`` unless `device` resolves to the
+    CPU, where it takes ``'host'``."""
     if smoother not in _MG_SWEEPS:
         raise ValueError('Invalid smoother')
     if relax_backend not in ('host', 'device', 'auto'):
         raise ValueError("relax_backend must be 'host', 'device' or 'auto'")
+    if relax_backend == 'auto':
+        relax_backend = ('host' if resolve_device(device).type == 'cpu'
+                         else 'device')
     pre_sweep, post_sweep = _MG_SWEEPS[smoother]
     L = hs.numlevels
     As = galerkin_hierarchy(A, Ps)
@@ -274,7 +278,7 @@ def local_mg_step(hs, A, f, Ps, lv_inds, smoother='symmetric_gs',
     direct = {lv: make_solver(As[lv][lv_inds[lv]][:, lv_inds[lv]])
               for lv in exact_on}
 
-    if relax_backend != 'host' and smoother != 'exact':
+    if relax_backend == 'device' and smoother != 'exact':
         dev_gs = {(lv, sweep): DeviceIndexedGS(As[lv], lv_inds[lv],
                                                sweep=sweep,
                                                iterations=smooth_steps,

@@ -127,3 +127,63 @@ def test_folded_assembly_matches_reference_chain():
     ref = sumfac.assemble_terms_folded(
         ops['term_tables'], fields, asm._fold_plan, ops['tperms'])
     assert torch.allclose(got, ref, rtol=0, atol=1e-15 * ref.abs().max())
+
+
+def _heat_st_space(bs, geo_mod):
+    kv_t = bs.make_knots(2, 0.0, 2.0, 6)
+    kv = bs.make_knots(3, 0.0, 1.0, 8)
+    geo = geo_mod.unit_cube(dim=1).cylinderize(0.0, 2.0, support=(0.0, 2.0))
+    return (kv_t, kv), geo
+
+
+def test_assembler_positional_args():
+    """The reference's predefined assembler names take ``(kvs, geo)``
+    positionally, as its generated assemblers do."""
+    from pyiga_tpu import assemblers as jassemblers
+    from pyiga_tpu_torch import assemblers
+    kvs, geo = _heat_st_space(bspline, geometry)
+    asm_pos = assemblers.HeatAssembler_ST2D(kvs, geo, device='cpu')
+    asm_kw = assemblers.HeatAssembler_ST2D(kvs, geo=geo, device='cpu')
+    A1 = assemble.assemble_entries(asm_pos)
+    A2 = assemble.assemble_entries(asm_kw)
+    assert abs(A1 - A2).max() < 1e-15
+    jkvs, jgeo = _heat_st_space(jbspline, jgeometry)
+    ref = jassemble.assemble_entries(jassemblers.HeatAssembler_ST2D(
+        jkvs, jgeo), mode='exact')
+    assert A1.shape == ref.shape and abs(A1 - ref).max() < 1e-14
+    assert assemblers.HeatAssembler_ST2D is assemblers.HeatAssembler_ST2D
+    with pytest.raises(NotImplementedError, match='item 7'):
+        assemblers.DivDivAssembler2D
+
+
+def test_assembler_positional_non_geo_input():
+    """Positional binding skips the implicit ``geo`` input: ``(kvs, geo,
+    coef)`` binds `coef` to the declared input."""
+    import pyiga_tpu.vform as jvform
+    from pyiga_tpu.compile import compile_vform as jcompile_vform
+    from pyiga_tpu_torch import vform
+    from pyiga_tpu_torch.compile import compile_vform
+
+    def form(mod):
+        V = mod.VForm(2)
+        u, v = V.basisfuns()
+        coef = V.input('coef')
+        V.add(coef * mod.inner(mod.grad(u), mod.grad(v)) * mod.dx)
+        return V
+
+    def cf(x, y):
+        return 1.0 + x * y
+    cls = compile_vform(form(vform))
+    kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 6),)
+    geo = geometry.quarter_annulus()
+    A_pos = assemble.assemble_entries(cls(kvs, geo, cf, device='cpu'))
+    A_kw = assemble.assemble_entries(cls(kvs, geo=geo, coef=cf,
+                                         device='cpu'))
+    assert abs(A_pos - A_kw).max() < 1e-15
+    jcls = jcompile_vform(form(jvform))
+    ref = jassemble.assemble_entries(
+        jcls(2 * (jbspline.make_knots(2, 0.0, 1.0, 6),),
+             jgeometry.quarter_annulus(), cf), mode='exact')
+    assert abs(A_pos - ref).max() < 1e-14
+    with pytest.raises(TypeError):
+        cls(kvs, geo, cf, cf, device='cpu')

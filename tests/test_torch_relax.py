@@ -5,7 +5,9 @@ identical schedules and packs, sweeps to 1e-13 against the JAX
 ``DeviceIndexedGS`` and the host ``gauss_seidel``, identical iteration
 counts against the host path."""
 
+import functools
 import inspect
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -39,18 +41,113 @@ def _nonsym(n, rng, density=0.1):
 MATRICES = {'symmetric': _spd, 'nonsymmetric': _nonsym}
 
 
+def _fma(a, b, c):
+    """a * b + c rounded once (float(Fraction) rounds correctly)."""
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _quotient(num, d, r):
+    """The chain warp's quotient: num / d from the reciprocal r = 1 / d,
+    q = num r corrected by one residual step (fused as on the card)."""
+    out = np.empty_like(num)
+    for i, (n_, d_, r_) in enumerate(zip(num.tolist(), d.tolist(),
+                                         r.tolist())):
+        q = n_ * r_
+        out[i] = _fma(_fma(-q, d_, n_), r_, q)
+    return out
+
+
+def _stale_sums(vals, cols, k, L, T, xs):
+    """A level's stale partials in the kernel's order, from its stale
+    values and columns (lane-major, ``cuda_mg.stale_positions``): lane j
+    of a row's L sums its quads t L + j with an accumulator per entry of
+    the quad, the four summed pairwise, then the L lanes' sums by a
+    butterfly."""
+    if not T:
+        return np.zeros(k)
+    pv, pc = cuda_mg.stale_positions(k, L, T)
+    prod = (vals[pv] * xs[cols[pc]]).reshape(k, T, L, 4)
+    acc = prod[:, 0]
+    for t in range(1, T):
+        acc = acc + prod[:, t]
+    s = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+    o = L // 2
+    while o:
+        s = s[:, :o] + s[:, o:2 * o]
+        o //= 2
+    return s[:, 0]
+
+
+def _level_sums(c, level, xs):
+    """The sums of one level's rows in the kernel's order: the stale
+    partial (:func:`_stale_sums`), then the fresh entries one by one.
+    Returns the rows' indices in the pack and their sums."""
+    row0, s0, f0, k, Ws, L, T, F = (int(t) for t in c['lvl'][level])
+    Rp = -(-k // 4) * 4
+    s = _stale_sums(c['sval'][s0:], c['scol'][s0:], k, L, T, xs)
+    for i in range(F):
+        e = f0 + i * Rp + np.arange(k)
+        s = s + c['fval'][e] * xs[c['fcol'][e]]
+    return np.arange(row0, row0 + k), s
+
+
+def _emulate_blocks(sweeps, group, iterations, x, b):
+    """:func:`_emulate_kernel` on the device layout of the group
+    (``cuda_mg._group_blocks``: the table rows decoded as the kernel
+    decodes them, the stale and chain blocks at their offsets, b placed
+    by ``boff``)."""
+    blk = cuda_mg._group_blocks(sweeps.compact[group])
+    sb = blk['sblk']
+    cd = blk['cblk'].copy().view(np.float64)
+    cd[blk['boff']] = b[blk['gid']]
+    cb = cd.view(np.uint8)
+    xs = x[sweeps.l2g].copy()
+    hist = []                  # the values each level of the pass wrote
+    for _ in range(iterations):
+        for so, co, kw, lw in blk['table'].tolist():
+            k, Ws = kw & 0xffffffff, kw >> 32
+            L, T, F = lw & 0xff, (lw >> 8) & 0xff, (lw >> 16) & 0xffff
+            if lw >> 32 == 0:           # a pass starts
+                hist = []
+            Rp = -(-k // 4) * 4
+            ks = k * Ws
+            s = _stale_sums(sb[so:so + 8 * ks].view(np.float64),
+                            sb[so + 8 * ks:so + 12 * ks].view(np.int32),
+                            k, L, T, xs)
+            bb, r, d = (cb[co + 8 * i * Rp:co + 8 * (i + 1) * Rp].view(
+                np.float64)[:k] for i in range(3))
+            dst = cb[co + 24 * Rp:co + 28 * Rp].view(np.int32)[:k]
+            o = co + 28 * Rp
+            fval = cb[o:o + 8 * F * Rp].view(np.float64)
+            fsrc = cb[o + 8 * F * Rp:o + 12 * F * Rp].view(np.int32)
+            for i in range(F):
+                e = i * Rp + np.arange(k)
+                # a value from the chain warp's registers (row q of the
+                # level a back) or from the local x
+                # (a pad, times zero, may read a level the pass has not
+                # run)
+                xv = np.array([(hist[-1 - (~j >> 5)][~j & 31]
+                                if len(hist) > ~j >> 5 else 0.0) if j < 0
+                               else xs[j] for j in fsrc[e].tolist()])
+                s = s + fval[e] * xv
+            xs[dst] = _quotient(bb - s, d, r)
+            hist.append(xs[dst].copy())
+    x[sweeps.l2g[:sweeps.m]] = xs[:sweeps.m]
+    return x
+
+
 def _emulate_kernel(sweeps, group, iterations, x, b):
     """The arithmetic of ``csrc/mg.cu`` ``wavefront_smooth`` on the
     kernel's own operands (``sweeps.compact``, the local numbering), in
-    numpy: a level's rows read the local x, then write it."""
+    numpy: a level's rows read the local x (the producers' stale entries
+    and the chain's fresh ones see the same values), then write it."""
     xs = x[sweeps.l2g].copy()
     for _ in range(iterations):
         for c in sweeps.compact[group]:
-            for row0, ent, width, nrows in c['lvl']:
-                r = np.arange(row0, row0 + nrows)
-                e = ent + (r - row0)[:, None] * width + np.arange(width)
-                z = (c['val'][e] * xs[c['col'][e]]).sum(axis=1)
-                xs[c['dst'][r]] = (b[c['gid'][r]] - z) / c['diag'][r]
+            for level in range(c['nlev']):
+                r, s = _level_sums(c, level, xs)
+                xs[c['dst'][r]] = _quotient(b[c['gid'][r]] - s,
+                                            c['diag'][r], c['rcp'][r])
     x[sweeps.l2g[:sweeps.m]] = xs[:sweeps.m]
     return x
 
@@ -143,7 +240,8 @@ def test_war_pass_and_zero_diagonal():
     assert xd[1] == 1.0 and np.allclose(xh, xd, rtol=1e-15)
     # the dropped row is in no level of the kernel's pack
     c = gs.sweeps.compact[0][0]
-    live = np.concatenate([c['dst'][r0:r0 + k] for r0, _, _, k in c['lvl']])
+    live = np.concatenate([c['dst'][r0:r0 + k]
+                           for r0, k in c['lvl'][:, [0, 3]]])
     assert sorted(gs.sweeps.l2g[live]) == [0, 2]
 
 
@@ -170,12 +268,149 @@ def test_wavefront_layout_under_a_small_shared_memory(monkeypatch, budget):
     xd = gs.apply(x0.copy(), b)
     xk = _emulate_kernel(gs.sweeps, 0, 2, x0.copy(), b)
     assert np.abs(xk - xd).max() < 1e-13
-    for c in gs.sweeps.compact[0]:
-        rows, ents, width = c['lvl'][:, 3], c['lvl'][:, 1], c['lvl'][:, 2]
-        assert (c['lvl'][:, 0] % 4 == 0).all() and (ents % 4 == 0).all()
-        assert (width % 4 == 0).all()
-        assert (rows * width <= gs.sweeps.slot_entries).all()
-        assert rows.max() <= gs.sweeps.slot_rows
+    sw = gs.sweeps
+    for c in sw.compact[0]:
+        row0, s0, f0, k, Ws, L, T, F = c['lvl'].T
+        Rp = (k + 3) // 4 * 4
+        assert (row0 % 4 == 0).all() and (s0 % 4 == 0).all()
+        assert (f0 % 4 == 0).all() and (Ws == 4 * L * T).all()
+        assert (k * Ws <= sw.slot_entries).all()
+        assert ((28 + 12 * F) * Rp <= sw.slot_chain).all()
+        assert Rp.max() <= sw.slot_rows
+
+
+@functools.lru_cache(maxsize=None)
+def _bench_hierarchy(n0=24, L=3):
+    """The local-MG bench's (n0, L) hierarchy (2D p=3, disparity 1,
+    Dirichlet on all sides, refined toward (1, 1)): its Galerkin matrices
+    and smoothing sets."""
+    hs = hierarchical.HSpace(2 * (bspline.make_knots(3, 0.0, 1.0, n0),),
+                             disparity=1,
+                             bdspecs=[(0, 0), (0, 1), (1, 0), (1, 1)])
+    for lv in range(L - 1):
+        thr = 1.0 - 2.0 ** (-lv - 1)
+        hs.refine_region(lv, lambda *X: min(X) > thr)
+    A, _f = discretize(hs)
+    As = solvers.galerkin_hierarchy(A, hs.virtual_hierarchy_prolongators())
+    return As, hs.indices_to_smooth('cell_supp')
+
+
+def _split_case(case, monkeypatch):
+    """(A, indices, sweep) of a split-pack case and its DeviceIndexedGS:
+    the (24, 3) sets by level and direction, a write-after-read matrix
+    with zero diagonals, and the (24, 3) level-2 set laid out for less
+    shared memory (the local x in global memory, then levels split)."""
+    if case == 'war zero diagonal':
+        rng = np.random.RandomState(5)
+        A = _zero_diag(_nonsym(80, rng), [3, 11])
+        S, sweep = rng.permutation(80)[:60], 'symmetric'
+    else:
+        As, lv_inds = _bench_hierarchy()
+        lv = 2 if case in ('x global', 'split') else int(case[1])
+        A, S = As[lv], np.asarray(lv_inds[lv])
+        sweep = 'symmetric' if case in ('x global', 'split') \
+            else case.split()[1]
+    if case in ('x global', 'split'):
+        full = relax.DeviceIndexedGS(A, S, sweep=sweep, device='cpu').sweeps
+        small = full.smem_bytes - 8 * full.nloc
+        if case == 'split':
+            small = small * 3 // 4
+        monkeypatch.setattr(cuda_mg, 'WF_SMEM_BYTES', small)
+        gs = relax.DeviceIndexedGS(A, S, sweep=sweep, iterations=2,
+                                   device='cpu')
+        assert not gs.sweeps.xs_shared
+        split = [c['nlev'] for c in gs.sweeps.compact[0]] > \
+            [c['nlev'] for c in full.compact[0]]
+        assert split == (case == 'split')
+        return A, S, gs
+    return A, S, relax.DeviceIndexedGS(A, S, sweep=sweep, iterations=2,
+                                       device='cpu')
+
+
+SPLIT_CASES = ['L%d %s' % (lv, sweep) for lv in (1, 2)
+               for sweep in ('forward', 'backward', 'symmetric')] \
+    + ['war zero diagonal', 'x global', 'split']
+
+
+@pytest.mark.parametrize('case', SPLIT_CASES)
+def test_split_pack_partitions_every_live_entry(case, monkeypatch):
+    # each live entry of a row lands in exactly one of its level's fresh
+    # and stale sets, and the fresh ones are exactly those whose column
+    # the pass writes in the WF_FRESH levels before the row's
+    A, S, gs = _split_case(case, monkeypatch)
+    A = scipy.sparse.csr_matrix(A)
+    sw = gs.sweeps
+    g2l = {int(g): i for i, g in enumerate(sw.l2g)}
+    D = cuda_mg.WF_FRESH
+    for c in sw.compact[0]:
+        written = {}
+        for l, (row0, _s0, _f0, k, *_r) in enumerate(c['lvl']):
+            for j in c['dst'][row0:row0 + k].tolist():
+                assert j not in written         # a row once a pass
+                written[j] = l
+        nrows = 0
+        for l, (row0, s0, f0, k, Ws, L, T, F) in enumerate(c['lvl']):
+            Rp = (k + 3) // 4 * 4
+            assert Ws == 4 * L * T and L in (1, 2, 4, 8, 16, 32)
+            pv, pc = cuda_mg.stale_positions(k, L, T)
+            # each stale slot of the level holds one entry (16-byte units
+            # of a warp's lanes contiguous)
+            assert np.array_equal(np.sort(pv.ravel()), np.arange(k * Ws))
+            assert np.array_equal(np.sort(pc.ravel()), np.arange(k * Ws))
+            for p in range(k):
+                g = int(c['gid'][row0 + p])
+                assert sw.l2g[c['dst'][row0 + p]] == g
+                lo, hi = A.indptr[g], A.indptr[g + 1]
+                live = sorted((g2l[int(j)], float(v)) for j, v in zip(
+                    A.indices[lo:hi], A.data[lo:hi]) if j != g and v != 0)
+                fe = f0 + np.arange(F) * Rp + p
+                stale = [(int(j), float(v)) for j, v in
+                         zip(c['scol'][s0 + pc[p]], c['sval'][s0 + pv[p]])
+                         if v != 0]
+                fresh = [(int(j), float(v)) for j, v in
+                         zip(c['fcol'][fe], c['fval'][fe]) if v != 0]
+                assert sorted(stale + fresh) == live
+                for j, _v in stale:
+                    assert not l - D <= written.get(j, -D - 1) < l
+                for j, _v in fresh:
+                    assert l - D <= written[j] < l
+                # where the chain finds each fresh value: the lane of its
+                # row in the level that wrote it, or the local x
+                for j, code, val in zip(c['fcol'][fe], c['fsrc'][fe],
+                                        c['fval'][fe]):
+                    if val == 0:            # a pad: lane 0's last value
+                        assert code == -1
+                    elif code < 0:
+                        a, q = (~code >> 5) + 1, ~code & 31
+                        r0, kk = c['lvl'][l - a][[0, 3]]
+                        assert q < kk and c['dst'][r0 + q] == j
+                    else:
+                        assert code == j
+                assert c['diag'][row0 + p] == A[g, g] != 0
+                assert c['rcp'][row0 + p] == 1.0 / A[g, g]
+            nrows += k
+        # every live row of the pass, once
+        assert nrows == sum(1 for g in S if A[g, g] != 0)
+
+
+@pytest.mark.parametrize('case', SPLIT_CASES)
+def test_split_pack_emulation_matches_plain(case, monkeypatch):
+    # the kernel's order of summation (stale partial by the lane split,
+    # fresh entries, the reciprocal quotient) on its own operands
+    # reproduces the plain version
+    A, S, gs = _split_case(case, monkeypatch)
+    rng = np.random.RandomState(7)
+    n = A.shape[0]
+    x0, b = rng.rand(n), rng.rand(n)
+    ref = cuda_mg.wavefront_gs_plain(gs.sweeps, 0, 2,
+                                     torch.as_tensor(x0.copy()),
+                                     torch.as_tensor(b)).numpy()
+    got = _emulate_kernel(gs.sweeps, 0, 2, x0.copy(), b)
+    assert np.abs(got - ref).max() <= 1e-13 * np.abs(ref).max()
+    assert not np.array_equal(ref, x0)
+    # the same sums from the device layout the kernel reads
+    assert np.array_equal(_emulate_blocks(gs.sweeps, 0, 2, x0.copy(), b),
+                          got)
 
 
 def test_wavefront_gs_argument_checks():
@@ -283,8 +518,9 @@ def test_local_mg_step_default_is_auto():
     assert params['device'].default is None
     assert inspect.signature(jsolvers.local_mg_step).parameters[
         'relax_backend'].default == 'auto'
-    # 'auto' runs the device smoother on the given device: the same
-    # iterates as 'device', distinct from the host sweeps only by rounding
+    # 'auto' on the CPU runs the host sweeps, as the reference's does on
+    # a CPU backend: the same iterates as 'host', distinct from the device
+    # smoother's only by rounding
     hs, A, f = _example()
     Ps = hs.virtual_hierarchy_prolongators()
     lv_inds = hs.indices_to_smooth('cell_supp')
@@ -294,8 +530,34 @@ def test_local_mg_step_default_is_auto():
                                 relax_backend='device', device='cpu')
     host = solvers.local_mg_step(hs, A, f, Ps, lv_inds, relax_backend='host')
     xa, xd, xh = auto(x0.copy()), dev(x0.copy()), host(x0.copy())
-    assert np.array_equal(xa, xd)
-    assert np.allclose(xa, xh, rtol=1e-12, atol=1e-13)
+    assert np.array_equal(xa, xh)
+    assert np.allclose(xa, xd, rtol=1e-12, atol=1e-13)
+
+
+def test_local_mg_step_auto_on_cpu_builds_no_device_smoother(monkeypatch):
+    hs, A, f = _example()
+    Ps = hs.virtual_hierarchy_prolongators()
+    lv_inds = hs.indices_to_smooth('cell_supp')
+    built = []
+    real = solvers.DeviceIndexedGS
+
+    def spy(*args, **kw):
+        built.append(kw.get('device'))
+        return real(*args, **kw)
+    monkeypatch.setattr(solvers, 'DeviceIndexedGS', spy)
+    active = hs.non_dirichlet_dofs()
+    step = solvers.local_mg_step(hs, A, f, Ps, lv_inds, 'gs', 2,
+                                 relax_backend='host')
+    _x, it_host = solvers.iterative_solve(step, A, f, active_dofs=active)
+    for device in ('cpu', torch.device('cpu')):
+        step = solvers.local_mg_step(hs, A, f, Ps, lv_inds, 'gs', 2,
+                                     device=device)
+        _x, it = solvers.iterative_solve(step, A, f, active_dofs=active)
+        assert it == it_host
+    assert built == []
+    solvers.local_mg_step(hs, A, f, Ps, lv_inds, 'gs', 2,
+                          relax_backend='device', device='cpu')
+    assert built and set(built) == {'cpu'}
 
 
 @pytest.mark.parametrize('strategy, counts', zip(
