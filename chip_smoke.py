@@ -90,7 +90,29 @@ Dirichlet path at 3D p=3 n=48 on the twisted box with the harmonic data
 ``compute_dirichlet_bcs`` -> the lifted right-hand side by a
 ``MatrixFreeOperator`` -> ``cg_ir`` to 1e-10 -> the L2 error by
 ``integrate``), cold and warm (12); and the same path at n=8, card against
-CPU (12b).  Any failed check raises (nonzero exit).
+CPU (12b).
+
+Vector-valued forms and the Navier-Stokes path of
+``examples/torch_navier_stokes.py``: K1's ``jac`` kind on the channel at
+the path's Gauss grid, and the geometry fields against a CPU copy; K5 on
+the NS forms at (16, 32) (the
+convection forms with the velocity and its first derivatives formed on
+the card and read in place, the vector Laplacian, the two-space
+divergence block) and K2 and K3 on their chains, each against its plain
+version to 1e-13 and bitwise on a repeat, K2 and K3 also on (p=2, p=1)
+two-space tables at ragged sizes (4k); ``divdiv`` at 3D p=3 n=48 on the
+twisted box (block (i, j) = block (j, i) transposed) and the 2D p=3
+n=128 vector Laplacian (its diagonal blocks = ``assemble.stiffness``),
+launches counted (14); ``examples/torch_stokes.py``'s ``main()`` at
+(8, 12) (15); and the NS channel at (16, 32), ROWDAIND2 from the Stokes
+state to t = 1.0 (tau0 5e-2, tol 1e-2), on the port's host scheme and
+then through ``integrate()``'s default, the device scheme on the card,
+held to the JAX package's CPU step sequence (``NS_TIMES_JAX``), the
+host's step times to 1e-9 and states to 1e-10, no host scheme behind it
+and a divergence below 1e-10; the device stepper's F and J and the host
+methods on the card at a seeded state held to a CPU setup (1e-13 /
+1e-12); with ms per step attempt, per F and per J evaluation and their
+launches (16).  Any failed check raises (nonzero exit).
 
 Every kernel's entry in the JSON line has its time, its plain version's,
 the time of one PyTorch call computing the same function where one
@@ -193,6 +215,15 @@ WAVEFRONT_SIZES = {(96, 3)}
 # on the CPU ('exact' slices, strict argmax: rounding breaks the ties)
 ACA_PIVOTS = {48: 32}
 ACA_PIVOTS_JAX = {48: 29}
+# the Navier-Stokes path (phase 16): examples/torch_navier_stokes.py at
+# the bench's size; ROWDAIND2 from the Stokes state, tau0 5e-2, tol 1e-2,
+# t_end 1.0 gives these accepted step times in the JAX package's host
+# scheme on the CPU (scripts/ns_jax_steps.py), which the card's device
+# scheme must reproduce
+NS_KERNELS = ('geo_jac_fields', 'vform_fields', 'stage', 'fold')
+NS_N_EL = (16, 32)
+NS_TIMES_JAX = (0.0, 0.05, 0.3, 1.55)
+NS_STEPS_JAX = len(NS_TIMES_JAX) - 1
 
 CONVDIFF = '(inner(grad(u), grad(v)) + dot(b, grad(u)) * v + u * v) * dx'
 CONV_B = np.array([3.0, -2.0])
@@ -799,22 +830,23 @@ def bare_times(name, fn, operands, args_of, device):
     return dict(launch_ms=launch_ms, device_ms=device_ms, copies=k)
 
 
-def vform_case(asm, device):
-    """K5 on the plan's combos of a VForm assembler: the kernel against
-    its plain version (1e-12 relative to the largest field), a second
-    launch bitwise equal; ``ms`` through ``combo_fields`` (the path's
-    call), ``launch_ms`` and ``device_ms`` of its bare C entry, the plain
-    version's time and the bound."""
+def vform_case(asm, device, inputs=None, tol=1e-12, name=None):
+    """K5 on the plan's combos of a VForm assembler (its input fields
+    replaced by the device tensors `inputs`, as a stepper passes them):
+    the kernel against its plain version (`tol` relative to the largest
+    field), a second launch bitwise equal; ``ms`` through
+    ``combo_fields`` (the path's call), ``launch_ms`` and ``device_ms`` of
+    its bare C entry, the plain version's time and the bound."""
     from pyiga_tpu_torch import _cuda
     from pyiga_tpu_torch.ops import cuda_vform as cv
     plan = asm._fold_plan or [(t, False) for t in range(len(asm.combos))]
     combos = [asm.combos[t] for t, _m in plan]
-    arrays = asm.device_arrays()
+    arrays = asm.device_arrays(inputs)
     got = torch.stack(cv.combo_fields(asm, arrays, combos))
     ref = torch.stack(cv.combo_fields_plain(asm, arrays, combos))
     sync(device)
-    name = '%dD n=%d' % (asm.dim, asm.kvs0[0].numspans)
-    err, rel = compare('vform_fields ' + name, got, ref, 1e-12)
+    name = name or '%dD n=%d' % (asm.dim, asm.kvs0[0].numspans)
+    err, rel = compare('vform_fields ' + name, got, ref, tol)
     check_repeat('vform_fields ' + name,
                  lambda: torch.stack(cv.combo_fields(asm, arrays, combos)),
                  got)
@@ -2700,6 +2732,523 @@ def check_dirichlet_small(device, n=8):
                 dirichlet_n8_x_rel=err_x)
 
 
+################################################################################
+# Vector-valued forms and the Navier-Stokes path (phases 4k, 14, 15, 16)
+################################################################################
+
+def load_example(name):
+    """A port-side example script (``examples/<name>.py``) as a module."""
+    import importlib.util as ilu
+    path = os.path.join(REPO, 'examples', name + '.py')
+    spec = ilu.spec_from_file_location(name, path)
+    mod = ilu.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ns_forms(ns, device):
+    """The path's VForm assemblers with the device inputs a stepper gives
+    them at the state `ns`'s Stokes solution plus a seeded perturbation:
+    the two convection assemblers (``input:vel``, and ``ideriv:vel:1``
+    for the nonlinear one, formed on the card), the vector Laplacian and
+    the two-space divergence block."""
+    from pyiga_tpu_torch import assemble
+    F_fn, J_fn, ops = ns._traceable_ops()
+    x0 = ns.initial_state()
+    x = x0 + 0.01 * np.random.RandomState(0).rand(len(x0))
+    u_p = torch.as_tensor(ns.LS.complete(x), device=device)
+    vals, ders = ns.velocity_fields(u_p, ops)
+    geo = {'geo': ns.geo}
+    return {
+        'nlconv': (ns.asm_nlconv.asm, {'input:vel': vals,
+                                       'ideriv:vel:1': ders}),
+        'linconv': (ns.asm_linconv.asm, {'input:vel': vals}),
+        'veclap': (assemble.instantiate_assembler(
+            'inner(grad(u), grad(v)) * dx', ns.kvs_u, geo,
+            [('u', 2), ('v', 2)], device=device), None),
+        'div_q': (assemble.instantiate_assembler(
+            'div(u) * q * dx', (ns.kvs_u, ns.kvs_p), geo,
+            [('u', 2, 0), ('q', 1, 1)], device=device), None),
+    }, (F_fn, J_fn, ops, torch.as_tensor(x, device=device))
+
+
+def chain_case(asm, inputs, device, name):
+    """K2 and K3 on a vector form's chains as ``run_device`` runs them: per
+    component block its terms' first stages (K2) and one fold (K3) over
+    their last tables, each against its plain version (1e-13 relative,
+    bitwise on a repeat); times summed over the blocks of one evaluation,
+    with the plain versions' and one ``torch.matmul`` per call as the
+    yardstick, and the bound of the same work."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    from pyiga_tpu_torch.ops import cuda_vform as cv
+    ops = asm._device_operands()
+    fields = cv.combo_fields(asm, asm.device_arrays(inputs), asm.combos)
+    if asm.dim != 2:
+        raise ValueError('chain_case covers 2D chains')
+    stages, folds = [], []
+    for key, plan in sorted(asm._block_plans().items(), key=str):
+        xs, tabs, slot = [], [], {}
+        for t, _m in plan:
+            T0, T1 = ops['term_tables'][t]
+            X = fields[t]
+            stages.append((X, T0))
+            xs.append(cs.stage(X, T0))
+            i = ops['last_idx'][t]
+            if i not in slot:
+                slot[i] = len(tabs)
+                tabs.append(T1)
+        folds.append((xs, tabs, [slot[ops['last_idx'][t]] for t, _m in plan]))
+    sync(device)
+    rec = {}
+    err = rel = 0.0
+    for X, T in stages:
+        got, ref = cs.stage(X, T), cs.stage_plain(X, T)
+        sync(device)
+        e, r = compare('stage %s %dx%dx%d' % (name, X.shape[0], X.shape[1],
+                                             T.shape[0]), got, ref, 1e-13)
+        check_repeat('stage ' + name, lambda: cs.stage(X, T), got)
+        err, rel = max(err, e), max(rel, r)
+    K, R = stages[0][0].shape
+    M = stages[0][1].shape[0]
+    rec['stage'] = dict(
+        max_abs_err=err, rel=rel, repeat_equal=True, launches=len(stages),
+        shape=[K, R, M],
+        ms=sum(time_ms(lambda: cs.stage(X, T), device, reps=50)
+               for X, T in stages),
+        plain_ms=sum(time_ms(lambda: cs.stage_plain(X, T), device, reps=50)
+                     for X, T in stages),
+        library_ms=sum(time_ms(lambda: torch.matmul(X.t(), T.t()), device,
+                               reps=50) for X, T in stages),
+        **bound(sum(nbytes(X, T) + 8 * X.shape[1] * T.shape[0]
+                    for X, T in stages),
+                sum(2 * X.numel() * T.shape[0] for X, T in stages),
+                F64_TENSOR_PER_MS))
+    err = rel = 0.0
+    for xs, tabs, idx in folds:
+        got, ref = cs.fold(xs, tabs, idx), cs.fold_plain(xs, tabs, idx)
+        sync(device)
+        e, r = compare('fold %s %d terms' % (name, len(xs)), got, ref, 1e-13)
+        check_repeat('fold ' + name, lambda: cs.fold(xs, tabs, idx), got)
+        err, rel = max(err, e), max(rel, r)
+    xs, tabs, _ = folds[0]
+    cat = [(torch.cat(xs, dim=0).t(), torch.cat([tabs[i] for i in idx],
+                                                 dim=1).t())
+           for xs, tabs, idx in folds]
+    rec['fold'] = dict(
+        max_abs_err=err, rel=rel, repeat_equal=True, launches=len(folds),
+        shape=[xs[0].shape[0], xs[0].shape[1], tabs[0].shape[0]],
+        terms=[len(f[0]) for f in folds],
+        ms=sum(time_ms(lambda: cs.fold(*f), device, reps=50) for f in folds),
+        plain_ms=sum(time_ms(lambda: cs.fold_plain(*f), device, reps=50)
+                     for f in folds),
+        library_ms=sum(time_ms(lambda: torch.matmul(a, b), device, reps=50)
+                       for a, b in cat),
+        **bound(sum(nbytes(*f[0], *f[1]) + 8 * f[0][0].shape[1]
+                    * f[1][0].shape[0] for f in folds),
+                sum(2 * f[0][0].numel() * f[1][0].shape[0] * len(f[1])
+                    for f in folds), F64_TENSOR_PER_MS))
+    return rec
+
+
+# two-space (velocity p=2, pressure p=1) pair tables at sizes whose pair
+# counts are no multiple of the DMMA tiles, and the tile edges' neighbours
+NS_RAGGED = ((5, 8), (7, 13), (15, 31), (33, 70))
+
+
+def check_two_space_ragged(device, seed=12):
+    """K2 and K3 on the (p=2 trial, p=1 test) pair tables of the channel
+    at :data:`NS_RAGGED` (``M != K``, odd counts), seeded fields, 1e-13
+    relative and bitwise on a repeat."""
+    from pyiga_tpu_torch import bspline
+    from pyiga_tpu_torch.mlmatrix import MLStructure
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    from pyiga_tpu_torch.ops.sumfac import SpaceTables, quadrature_for
+    rng = np.random.RandomState(seed)
+    out = {}
+    for n_el in NS_RAGGED:
+        ku = tuple(bspline.make_knots(2, 0.0, 1.0, n) for n in n_el)
+        kp = tuple(bspline.make_knots(1, 0.0, 1.0, n) for n in n_el)
+        grid, _ = quadrature_for(ku, 3)
+        S = MLStructure.from_kvs(ku, kp)
+        st = SpaceTables(ku, kp, grid, S.bidx, 1)
+        T = [[torch.as_tensor(st.pair_table(k, du, 0), device=device)
+              for du in (0, 1)] for k in range(2)]
+        Q0, Q1 = (len(g) for g in grid)
+        X = torch.as_tensor(rng.rand(Q0, Q1), device=device)
+        got = cs.stage(X, T[0][1])
+        key = '%dx%d' % n_el
+        out[key] = dict(M=[int(t.shape[0]) for t in T[0] + T[1]],
+                        Q=[Q0, Q1])
+        out[key]['stage'] = compare('stage 2-space ' + key, got,
+                                    cs.stage_plain(X, T[0][1]), 1e-13)
+        check_repeat('stage 2-space ' + key,
+                     lambda: cs.stage(X, T[0][1]), got)
+        xs = [torch.as_tensor(rng.rand(Q1, T[0][0].shape[0]), device=device)
+              for _ in range(3)]
+        idx = [0, 1, 0]
+        got = cs.fold(xs, T[1], idx)
+        out[key]['fold'] = compare('fold 2-space ' + key, got,
+                                   cs.fold_plain(xs, T[1], idx), 1e-13)
+        check_repeat('fold 2-space ' + key,
+                     lambda: cs.fold(xs, T[1], idx), got)
+    return out
+
+
+def check_ns_geometry(asm, device):
+    """K1's ``jac`` kind on the channel geometry at the Navier-Stokes
+    path's Gauss grid (the assembler's own geometry tables and
+    coefficients) against its plain version, 1e-13 relative and bitwise
+    on a repeat; and the geometry fields (K2 stages + K1) on the card
+    against the same computation on CPU copies (the plain versions),
+    1e-13."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    ops = asm._device_operands()
+    tables, coeffs, nurbs = (ops['geo_tables'], ops['geo_coeffs'],
+                             asm._geo_is_nurbs)
+    d = len(tables)
+    Y, _ = cs.geo_stage12(tables, coeffs, d)
+    T = tables[d - 1][:2].contiguous()
+    got = cs.geo_jac_fields(Y, T, nurbs)
+    ref = cs.geo_jac_fields_plain(Y, T, nurbs)
+    sync(device)
+    err, rel = compare('geo_jac channel', got, ref, 1e-13)
+    check_repeat('geo_jac channel', lambda: cs.geo_jac_fields(Y, T, nurbs),
+                 got)
+    C, Q12, nL = Y.shape[1], Y.shape[2], Y.shape[3]
+    rec = dict(
+        max_abs_err=err, rel=rel, shape=list(got.shape), nL=nL,
+        repeat_equal=True,
+        ms=time_ms(lambda: cs.geo_jac_fields(Y, T, nurbs), device, reps=50),
+        plain_ms=time_ms(lambda: cs.geo_jac_fields_plain(Y, T, nurbs),
+                         device, reps=5),
+        library_ms=None,
+        **bound(nbytes(Y, T, got),
+                got[0].numel() * (2 * C * (d + 1) * nL + 30),
+                F64_FMA_PER_MS))
+    dev = cs.geometry_fields(tables, coeffs, nurbs)
+    host = cs.geometry_fields([t.cpu() for t in tables], coeffs.cpu(), nurbs)
+    rec['fields_vs_cpu'] = [compare('geometry fields %s' % k, a.cpu(), b,
+                                    1e-13)
+                            for k, a, b in zip(('val', 'jac'), dev, host)]
+    return rec
+
+
+def check_ns_kernels(device):
+    """Phase 4k: K1's ``jac`` kind and the geometry fields on the channel
+    at the path's Gauss grid (:func:`check_ns_geometry`); K5 on the
+    Navier-Stokes forms at the path's size (the convection forms with
+    their velocity fields and first derivatives formed on the card and
+    read in place, the vector Laplacian, the two-space divergence), 1e-13
+    relative and bitwise on a repeat; K2 and K3 on the convection forms'
+    and the two-space form's chains, and at ragged two-space shapes
+    around the DMMA tiles."""
+    mod = load_example('torch_navier_stokes')
+    ns = mod.NavierStokes(n_el=NS_N_EL, p=2, Re=20.0, device=device)
+    forms, _ = ns_forms(ns, device)
+    out = {'vform_fields': {}, 'chains': {}}
+    out['geo_jac_fields'] = g = check_ns_geometry(ns.asm_nlconv.asm, device)
+    log('  K1 jac channel %s (nL=%d): %.4f ms (plain %.4f, bound %.4f); '
+        'geometry fields vs CPU rel %s' % (
+            g['shape'], g['nL'], g['ms'], g['plain_ms'], g['bound_ms'],
+            ['%.3e' % r for _e, r in g['fields_vs_cpu']]))
+    for name, (asm, inputs) in forms.items():
+        out['vform_fields'][name] = vform_case(asm, device, inputs,
+                                               tol=1e-13, name=name)
+        out['chains'][name] = chain_case(asm, inputs, device, name)
+    out['ragged'] = check_two_space_ragged(device)
+    for name, r in out['vform_fields'].items():
+        c = out['chains'][name]
+        log('  %-8s K5 %.4f ms (device %.4f, bound %.4f)  K2 x%d %.4f ms '
+            '(plain %.4f, matmul %.4f, bound %.4f)  K3 x%d %.4f ms (plain '
+            '%.4f, matmul %.4f, bound %.4f)'
+            % (name, r['ms'], r['device_ms'], r['bound_ms'],
+               c['stage']['launches'], c['stage']['ms'],
+               c['stage']['plain_ms'], c['stage']['library_ms'],
+               c['stage']['bound_ms'], c['fold']['launches'],
+               c['fold']['ms'], c['fold']['plain_ms'],
+               c['fold']['library_ms'], c['fold']['bound_ms']))
+    return out
+
+
+def run_vector_assembly(device):
+    """Phase 14: vector assembly at full width: ``divdiv`` at 3D p=3 n=48
+    on the twisted box (every block (i, j) equal to block (j, i)
+    transposed, 1e-13) and the 2D p=3 n=128 vector Laplacian on the NURBS
+    quarter annulus (its diagonal blocks equal to ``assemble.stiffness``,
+    1e-13), each ``run_device`` timed and its launches counted."""
+    from pyiga_tpu_torch import _cuda, assemble, bspline, geometry, vform
+    from pyiga_tpu_torch.compile import compile_vform
+    from pyiga_tpu_torch.mlmatrix import transpose_idx_for_bidx
+    rec = {}
+    kvs = 3 * (bspline.make_knots(3, 0.0, 1.0, 48),)
+    t0 = time.perf_counter()
+    asm = compile_vform(vform.divdiv_vf(3))(kvs, geo=geometry.twisted_box(),
+                                           device=device)
+    t_setup = time.perf_counter() - t0
+    asm.run_device()
+    sync(device)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    blocks = asm.run_device()
+    sync(device)
+    t_run = time.perf_counter() - t0
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    perms = [torch.as_tensor(transpose_idx_for_bidx(bx), device=device)
+             for bx in asm.structure.bidx]
+    sym = 0.0
+    for (i, j), D in blocks.items():
+        if i < j:
+            T = blocks[(j, i)]
+            for k, p in enumerate(perms):
+                T = torch.index_select(T, k, p)
+            sym = max(sym, float((D - T).abs().max() / D.abs().max()))
+    rec['divdiv3d_n48'] = dict(
+        blocks=len(blocks), combos=len(asm.combos),
+        shape=list(blocks[(0, 0)].shape), t_setup_ms=1e3 * t_setup,
+        t_run_device_ms=1e3 * t_run, launches=launches, transpose_rel=sym)
+    log('  divdiv 3D p=3 n=48: %d blocks of %s, %d combos; setup %.0f ms, '
+        'run_device %.1f ms; launches %s; (i,j) vs (j,i)^T rel %.3e'
+        % (len(blocks), rec['divdiv3d_n48']['shape'], len(asm.combos),
+           1e3 * t_setup, 1e3 * t_run, launches, sym))
+    if len(blocks) != 9 or not sym <= 1e-13:
+        raise RuntimeError('divdiv blocks are not transposes of each other')
+    del asm, blocks, perms, D, T
+    torch.cuda.empty_cache()
+
+    kvs = 2 * (bspline.make_knots(3, 0.0, 1.0, 128),)
+    geo = geometry.quarter_annulus()
+    asm = assemble.instantiate_assembler(
+        'inner(grad(u), grad(v)) * dx', kvs, {'geo': geo},
+        [('u', 2), ('v', 2)], device=device)
+    asm.run_device()
+    sync(device)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    blocks = asm.run_device()
+    sync(device)
+    t_run = time.perf_counter() - t0
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    S = assemble.stiffness(kvs, geo, device=device)
+    errs = [float(abs(asm.structure.make_mlmatrix(
+        data=blocks[(c, c)].cpu().numpy()).asmatrix() - S).max()
+        / abs(S).max()) for c in range(2)]
+    rec['veclap2d_n128'] = dict(blocks=sorted(map(list, blocks)),
+                                t_run_device_ms=1e3 * t_run,
+                                launches=launches, diag_rel=errs)
+    log('  vector Laplacian 2D p=3 n=128: blocks %s, run_device %.2f ms; '
+        'launches %s; diagonal blocks vs assemble.stiffness rel %s'
+        % (sorted(blocks), 1e3 * t_run, launches,
+           ['%.3e' % e for e in errs]))
+    if sorted(blocks) != [(0, 0), (1, 1)] or not max(errs) <= 1e-13:
+        raise RuntimeError('vector Laplacian blocks differ from the '
+                           'scalar stiffness')
+    return rec
+
+
+def run_stokes(device):
+    """Phase 15: ``examples/torch_stokes.py``'s ``main()`` at its defaults
+    (8, 12) on the card (it asserts a divergence below 1e-10, the
+    Poiseuille profile to 1e-6 and a linear pressure)."""
+    sys.path.insert(0, os.path.join(REPO, 'examples'))
+    try:
+        stokes = load_example('torch_stokes')
+    finally:
+        sys.path.remove(os.path.join(REPO, 'examples'))
+    t0 = time.perf_counter()
+    vel, _pres = stokes.main(device=device)
+    secs = time.perf_counter() - t0
+    y = np.linspace(0, 1, 21)
+    err = max(np.abs(vel.grid_eval((y, np.array([xp])))[:, 0, 0]
+                     - 4 * y * (1 - y)).max() for xp in (0.5, 1.0, 1.7))
+    log('  torch_stokes.main(): %.2f s, Poiseuille profile error %.3e'
+        % (secs, err))
+    return dict(n_el=[8, 12], seconds=secs, profile_error=err)
+
+
+def check_ns_F_J(mod, ns, scheme, x0, device):
+    """The device stepper's ``F_fn`` / ``J_fn`` on the card and the host
+    methods ``F`` / ``J`` (assembled on the card) at a seeded state, each
+    against the host methods of the same setup built on the CPU (plain
+    versions, velocity fields evaluated on the host): F to 1e-13, J to
+    1e-12, relative to the largest entry."""
+    cpu = mod.NavierStokes(n_el=NS_N_EL, p=2, Re=20.0, device='cpu')
+    x = x0 + 0.01 * np.random.RandomState(0).rand(len(x0))
+    Fref, Jref = cpu.F(x), cpu.J(x).toarray()
+    xt = torch.as_tensor(x, device=device)
+    got = {'F_fn': (scheme._F_fn(xt, scheme._ops).cpu().numpy(), Fref),
+           'J_fn': (scheme._J_fn(xt, scheme._ops).cpu().numpy(), Jref),
+           'F': (ns.F(x), Fref), 'J': (ns.J(x).toarray(), Jref)}
+    rec = {k: float(np.abs(a - b).max() / np.abs(b).max())
+           for k, (a, b) in got.items()}
+    log('  F / J at a seeded state vs the CPU setup: %s'
+        % {k: '%.3e' % v for k, v in rec.items()})
+    bad = [k for k, v in rec.items()
+           if not v <= (1e-13 if k.startswith('F') else 1e-12)]
+    if bad:
+        raise RuntimeError('Navier-Stokes %s differ from the CPU setup'
+                           % bad)
+    return rec
+
+
+def run_navier_stokes(device):
+    """Phase 16: ``examples/torch_navier_stokes.py`` at the bench size
+    (16, 32), ROWDAIND2 from the Stokes state, tau0 5e-2, tol 1e-2, to
+    t_end 1.0: the port's host scheme, then ``integrate()``'s default on
+    the card (the device scheme) with the launch counts set to 0 just
+    before; the JAX package's step count and times, the host's step
+    times to 1e-9 and states to 1e-10, no host scheme behind the device
+    one, the divergence below 1e-10, F and J at a seeded state against a
+    CPU setup (:func:`check_ns_F_J`).  Then the
+    device run warm, ms per F and per J evaluation with their launches,
+    and a run with each F and J evaluation timed (where a step attempt's
+    time goes)."""
+    from pyiga_tpu_torch import _cuda
+    mod = load_example('torch_navier_stokes')
+    t0 = time.perf_counter()
+    ns = mod.NavierStokes(n_el=NS_N_EL, p=2, Re=20.0, device=device)
+    t_setup = time.perf_counter() - t0
+    x0 = ns.initial_state()
+    n_free = len(x0)
+    rec = dict(n_el=list(NS_N_EL), ndofs=ns.n_u + ns.n_p, n_free=n_free,
+               t_setup_s=t_setup)
+    log('  n_el %s: %d dofs (%d velocity, %d pressure), %d free; setup '
+        '%.1f s' % (NS_N_EL, ns.n_u + ns.n_p, ns.n_u, ns.n_p, n_free,
+                    t_setup))
+    args = dict(x0=x0, tau=5e-2, t_end=1.0, tol=1e-2)
+
+    J_host = ns.J
+    n_J = [0]
+
+    def counted_J(x):
+        n_J[0] += 1
+        return J_host(x)
+    ns.J = counted_J
+    t0 = time.perf_counter()
+    th, sh = ns.integrate(backend='host', **args)
+    t_host = time.perf_counter() - t0
+    ns.J = J_host
+    rec['host'] = dict(times=th, attempts=n_J[0], seconds=t_host,
+                       ms_per_attempt=1e3 * t_host / n_J[0],
+                       divergence=float(ns.divergence_norm(sh[-1])))
+
+    sync(device)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    td, sd = ns.integrate(**args)
+    sync(device)
+    t_dev = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    rec['launches'] = launches
+    log('  launches: %s' % {k: v for k, v in launches.items() if v})
+    missing = [k for k in NS_KERNELS if launches[k] <= 0]
+    if missing:
+        raise RuntimeError('Navier-Stokes path never launched %s' % missing)
+    scheme = ns._dev_scheme[1]
+    div = float(ns.divergence_norm(sd[-1]))
+    dt_host = (max(abs(a - b) for a, b in zip(td, th))
+               if len(td) == len(th) else np.inf)
+    dt_jax = (max(abs(a - b) for a, b in zip(td, NS_TIMES_JAX))
+              if len(td) == len(NS_TIMES_JAX) else np.inf)
+    dx = max(np.linalg.norm(a - b) / np.linalg.norm(b)
+             for a, b in zip(sd, sh)) if len(td) == len(th) else np.inf
+    rec['device'] = dict(backend=ns.last_backend, times=td,
+                         attempts=scheme.n_attempts, seconds_cold=t_dev,
+                         host_fallbacks=scheme.host_fallbacks,
+                         host_reads=scheme.n_host_reads, divergence=div,
+                         times_vs_host=dt_host, times_vs_jax=dt_jax,
+                         states_rel_vs_host=dx)
+    log('  device scheme (%s): %d steps %s, %d attempts, %d host fallbacks, '
+        '%.2f s cold; host scheme %d steps, %d attempts, %.2f s'
+        % (ns.last_backend, len(td) - 1, ['%.4g' % t for t in td[1:]],
+           scheme.n_attempts, scheme.host_fallbacks, t_dev, len(th) - 1,
+           n_J[0], t_host))
+    log('  JAX CPU steps %d; times vs host %.3e, vs JAX %.3e; states vs '
+        'host rel %.3e; divergence %.3e'
+        % (NS_STEPS_JAX, dt_host, dt_jax, dx, div))
+    if ns.last_backend != 'device' or scheme.host_fallbacks != 0 \
+            or scheme._host_scheme is not None:
+        raise RuntimeError('the Navier-Stokes path left the device scheme')
+    if len(td) - 1 != NS_STEPS_JAX or not (dt_host <= 1e-9
+                                          and dt_jax <= 1e-9):
+        raise RuntimeError('the device step sequence differs from the '
+                           'host and JAX sequences')
+    if not dx <= 1e-10:
+        raise RuntimeError('device states differ from the host scheme\'s '
+                           '(rel %.3e)' % dx)
+    if not (div < 1e-10 and rec['host']['divergence'] < 1e-10):
+        raise RuntimeError('divergence %.3e above 1e-10' % div)
+    rec['F_J_vs_cpu'] = check_ns_F_J(mod, ns, scheme, x0, device)
+
+    # warm: the same integration again on the built scheme (its cached
+    # inverses dropped, so that each attempt forms its own as a new run's
+    # would)
+    scheme._P.clear()
+    sync(device)
+    t0 = time.perf_counter()
+    ns.integrate(**args)
+    sync(device)
+    t_warm = time.perf_counter() - t0
+    rec['device']['seconds_warm'] = t_warm
+    rec['device']['ms_per_attempt'] = 1e3 * t_warm / scheme.n_attempts
+
+    # one F and one J evaluation: launches and times
+    F_fn, J_fn, ops = scheme._F_fn, scheme._J_fn, scheme._ops
+    x = torch.as_tensor(x0, device=device)
+    for name, fn in (('F', F_fn), ('J', J_fn)):
+        fn(x, ops)
+        sync(device)
+        _cuda.reset_launches()
+        fn(x, ops)
+        sync(device)
+        rec['%s_launches' % name] = {k: v for k, v in _cuda.LAUNCHES.items()
+                                     if v}
+        rec['%s_ms' % name] = time_ms(lambda: fn(x, ops), device, reps=20)
+    n = n_free
+    W = torch.eye(n, dtype=torch.float64, device=device) - 0.1 * J_fn(x, ops)
+    rec['inv_ms'] = time_ms(lambda: torch.linalg.inv(W), device, reps=5)
+    rec['matvec_ms'] = time_ms(lambda: W @ x, device, reps=50)
+
+    # a run with each evaluation timed on the host clock after a sync
+    spent = {'F': [0, 0.0], 'J': [0, 0.0]}
+
+    def timed(name, fn):
+        def call(x, o):
+            sync(device)
+            t = time.perf_counter()
+            y = fn(x, o)
+            sync(device)
+            spent[name][0] += 1
+            spent[name][1] += time.perf_counter() - t
+            return y
+        return call
+    scheme._F_fn, scheme._J_fn = timed('F', F_fn), timed('J', J_fn)
+    scheme._P.clear()
+    sync(device)
+    t0 = time.perf_counter()
+    ns.integrate(**args)
+    sync(device)
+    t_traced = time.perf_counter() - t0
+    scheme._F_fn, scheme._J_fn = F_fn, J_fn
+    rec['breakdown'] = dict(
+        seconds=t_traced, attempts=scheme.n_attempts,
+        F_calls=spent['F'][0], F_s=spent['F'][1], J_calls=spent['J'][0],
+        J_s=spent['J'][1],
+        rest_s=t_traced - spent['F'][1] - spent['J'][1])
+    b = rec['breakdown']
+    log('  warm device run %.1f ms (%.2f ms per attempt); host %.2f ms per '
+        'attempt' % (1e3 * t_warm, rec['device']['ms_per_attempt'],
+                     rec['host']['ms_per_attempt']))
+    log('  F %.3f ms (launches %s), J %.3f ms (launches %s); inverse of W '
+        '(%d x %d) %.3f ms, a dense matvec %.4f ms'
+        % (rec['F_ms'], rec['F_launches'], rec['J_ms'], rec['J_launches'],
+           n, n, rec['inv_ms'], rec['matvec_ms']))
+    log('  where a run goes: %.1f ms over %d attempts: %d F %.1f ms, %d J '
+        '%.1f ms, rest (inverse, stage solves, host reads) %.1f ms'
+        % (1e3 * t_traced, b['attempts'], b['F_calls'], 1e3 * b['F_s'],
+           b['J_calls'], 1e3 * b['J_s'], 1e3 * b['rest_s']))
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -2873,6 +3422,40 @@ def main():
     log('phase 13b: mass_fast / stiffness_fast on the card against the '
         'fixtures')
     small['fast_fixtures'] = check_fast_fixtures(device)
+    torch.cuda.empty_cache()
+
+    log('phase 4k: K1 jac, K5, K2 and K3 on the Navier-Stokes forms at '
+        '(16,32), vs plain versions; K2 and K3 at ragged two-space shapes')
+    ns_kern = check_ns_kernels(device)
+    torch.cuda.empty_cache()
+
+    log('phase 14: vector assembly, divdiv 3D p=3 n=48 and the 2D p=3 '
+        'n=128 vector Laplacian')
+    vec = run_vector_assembly(device)
+    torch.cuda.empty_cache()
+
+    log('phase 15: examples/torch_stokes.py main() at (8,12)')
+    stokes = run_stokes(device)
+    torch.cuda.empty_cache()
+
+    log('phase 16: Navier-Stokes path, examples/torch_navier_stokes.py at '
+        '(16,32), ROWDAIND2 to t=1.0')
+    nsrec = run_navier_stokes(device)
+    torch.cuda.empty_cache()
+
+    # the NS shapes of the kernels the NS path runs, beside their launches
+    # in phase 16's integration
+    ns_line = {k: dict(launches=nsrec['launches'][k]) for k in NS_KERNELS}
+    keys = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+            'max_abs_err')
+    ns_line['geo_jac_fields']['channel'] = {
+        t: ns_kern['geo_jac_fields'][t] for t in keys}
+    for form in ('nlconv', 'linconv'):
+        ns_line['vform_fields'][form] = {
+            t: ns_kern['vform_fields'][form][t] for t in keys}
+        for k in ('stage', 'fold'):
+            ns_line[k][form] = {t: ns_kern['chains'][form][k][t]
+                                for t in keys + ('launches',)}
 
     kernels = [dict(name=k, route=KERNELS[k][0], source=KERNELS[k][1],
                     replaces=KERNELS[k][2], launches=launches[k],
@@ -2882,7 +3465,9 @@ def main():
                     bound_by=kern[k]['bound_by'],
                     library_ms=kern[k]['library_ms'],
                     **{t: kern[k][t] for t in ('launch_ms', 'device_ms')
-                       if t in kern[k]}) for k in KERNELS]
+                       if t in kern[k]},
+                    **({'ns': ns_line[k]} if k in ns_line else {}))
+               for k in KERNELS]
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=t_build,
                   sass_dmma=dmma, kernels=kern,
@@ -2892,6 +3477,8 @@ def main():
                   aca3d=aca,
                   mass3d=mass3, heat2d=heat, heat2d_device=heat_dev,
                   tail_fused3d=tail, dirichlet3d=dirichlet,
+                  ns_kernels=ns_kern, vector3d2d=vec, stokes=stokes,
+                  navier_stokes=nsrec,
                   seconds=time.perf_counter() - t_start)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:

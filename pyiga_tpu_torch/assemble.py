@@ -6,7 +6,10 @@ assembler instance; :func:`mass` and :func:`stiffness` over a TP space
 (the 1D builders, the Kronecker route for ``geo=None`` and the Gauss
 assemblers of :mod:`pyiga_tpu_torch.assemblers` for a geometry), and
 their low-rank ACA counterparts :func:`mass_fast` and
-:func:`stiffness_fast`.
+:func:`stiffness_fast`; vector-valued forms in the blocked and packed
+layouts (:func:`assemble_entries_vec`, :func:`divdiv`), forms on two
+spaces, and :class:`Assembler`, which reassembles after updating its
+inputs.
 
 Matrix conventions as in the JAX package: rows are test functions,
 columns trial functions.  The device is explicit (``device=``; omitted
@@ -18,7 +21,7 @@ boundary index sets of a tensor-product space (:func:`boundary_dofs`,
 :func:`boundary_cells`), Dirichlet data by interpolation on the boundary
 faces (:func:`compute_dirichlet_bcs`, :func:`combine_bcs`) and
 :class:`RestrictedLinearSystem` for eliminating Dirichlet dofs.
-Boundary integrals and vector-valued layouts are not ported yet.
+Boundary integrals are not ported yet.
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ from . import assemblers, bspline, operators, tensor, utils
 from . import vform as vform_mod
 from .bspline import KnotVector
 from .compile import compile_vform
+from .mlmatrix import MLStructure
 from .quadrature import make_iterated_quadrature, make_tensor_quadrature
 
 
@@ -433,18 +437,17 @@ class RestrictedLinearSystem:
 def instantiate_assembler(problem, kvs, args, bfuns, boundary=None,
                           updatable=(), device=None):
     """Normalize `problem` (string / VForm / assembler class / instance)
-    into an assembler object on `device`."""
+    into an assembler object on `device`; a form on two spaces gets the
+    pair ``kvs = (trial, test)`` (``pyiga_tpu/assemble.py:550-591``)."""
     if boundary:
         raise NotImplementedError('boundary integrals (boundary=) are not '
                                   'ported yet')
-    if updatable:
-        raise NotImplementedError('updatable inputs are not ported yet')
     if isinstance(problem, str):
-        problem = vform_mod.parse_vf(problem, kvs, args=args, bfuns=bfuns)
+        problem = vform_mod.parse_vf(problem, kvs, args=args, bfuns=bfuns,
+                                     updatable=updatable)
+    num_spaces = 1
     if isinstance(problem, vform_mod.VForm):
-        if problem.num_spaces() > 1:
-            raise NotImplementedError('two-space forms (kvs2) are not '
-                                      'ported yet')
+        num_spaces = problem.num_spaces()
         problem = compile_vform(problem)
     if isinstance(problem, type):
         wanted = list(problem.inputs()) + list(problem.parameters())
@@ -452,8 +455,12 @@ def instantiate_assembler(problem, kvs, args, bfuns, boundary=None,
         if missing:
             raise ValueError("required input parameter '%s' missing"
                              % missing[0])
-        return problem(kvs, device=device,
-                       **{inp: args[inp] for inp in wanted})
+        used = {inp: args[inp] for inp in wanted}
+        if num_spaces <= 1:
+            return problem(kvs, device=device, **used)
+        if num_spaces != 2:
+            raise ValueError('no more than two spaces allowed')
+        return problem(kvs[0], kvs2=kvs[1], device=device, **used)
     if hasattr(problem, 'assemble') or hasattr(problem, 'assemble_vector'):
         return problem
     raise TypeError("invalid type for 'problem': %s" % type(problem))
@@ -466,18 +473,58 @@ def assemble_entries(asm, symmetric=False, format='csr', layout='blocked',
     matrix (scipy sparse in `format`, or the compact
     :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix` for ``format='mlb'``) or,
     for arity-1 assemblers, the vector.  `symmetric` is accepted for API
-    compatibility; `layout` ('blocked' or 'packed') orders the components
-    of a vector-valued form in the JAX package and changes nothing for the
-    scalar forms the port assembles (vector-valued forms are ROADMAP item
-    7's)."""
+    compatibility.
+
+    A vector-valued form comes in one of the reference's two layouts:
+    'blocked' (component-major numbering; a functional's component axis
+    leads) or 'packed' (components interleaved per dof, the only layout
+    with ``format='mlb'``)."""
     if layout not in ('blocked', 'packed'):
         raise ValueError("layout must be 'blocked' or 'packed'")
+    vec = getattr(getattr(asm, 'vf', None), 'vec', False)
     if asm.arity == 1:
-        return asm.assemble_vector()
+        result = asm.assemble_vector()
+        return np.moveaxis(result, -1, 0) if vec and layout == 'blocked' \
+            else result
+    if vec:
+        return _combine_vector_blocks(asm, asm.assemble(mode=mode), format,
+                                      layout)
     mlm = asm.assemble(mode=mode)
     if format == 'mlb':
         return mlm
     return mlm.asmatrix(format)
+
+
+def assemble_entries_vec(asm, symmetric=False, format='csr',
+                         layout='blocked'):
+    """Assemble a vector-valued problem (the reference's API; here
+    :func:`assemble_entries`, which dispatches on the form)."""
+    return assemble_entries(asm, symmetric=symmetric, format=format,
+                            layout=layout)
+
+
+def _combine_vector_blocks(asm, blocks, format, layout):
+    """Combine the ``(cu, cv) -> MLMatrix`` blocks of a vector form into
+    one matrix: 'blocked' stacks them component-major (a pruned block is
+    an explicit zero matrix), 'packed' joins a trailing dense ``(ncv,
+    ncu)`` component level to the structure
+    (``pyiga_tpu/assemble.py:463-506``)."""
+    ncu, ncv = (n or 1 for n in asm.vf.num_components()[:2])
+    if layout == 'blocked':
+        if format == 'mlb':
+            raise ValueError("format='mlb' requires layout='packed' for "
+                             'vector-valued problems')
+        zero = scipy.sparse.csr_matrix(asm.structure.shape)
+        return scipy.sparse.bmat(
+            [[blocks[(cu, cv)].asmatrix() if (cu, cv) in blocks else zero
+              for cu in range(ncu)] for cv in range(ncv)], format=format)
+    S = asm.structure.join(MLStructure.dense((ncv, ncu)))
+    some = next(iter(blocks.values()))
+    data = np.zeros(some.data.shape + (ncv * ncu,), dtype=some.data.dtype)
+    for (cu, cv), blk in blocks.items():
+        data[..., cv * ncu + cu] = blk.data
+    X = S.make_mlmatrix(data=data)
+    return X if format == 'mlb' else X.asmatrix(format)
 
 
 def assemble(problem, kvs, args=None, bfuns=None, boundary=None,
@@ -491,8 +538,10 @@ def assemble(problem, kvs, args=None, bfuns=None, boundary=None,
     assembler instance; `kvs` is a TP spline space (tuple of
     KnotVectors).  Named inputs (the geometry ``geo``, coefficient
     functions, parameters) are passed in `args` or as keyword arguments.
-    The assembly runs on `device` (default: the card).  `layout` matters
-    only for vector-valued forms (not ported yet).  Structural zeros
+    The assembly runs on `device` (default: the card).  `layout`
+    ('blocked' or 'packed') orders the components of a vector-valued
+    form; a form on two spaces takes ``kvs = (trial, test)``.  Structural
+    zeros
     and symmetric term pairs are found by the JAX package's numeric
     probes (``VFormAssembler._prune_combos``)."""
     args = dict(args) if args is not None else dict()
@@ -511,6 +560,53 @@ def assemble_vf(vf, kvs, symmetric=False, format='csr', layout='blocked',
     args.update(kwargs)
     return assemble(vf, kvs, symmetric=symmetric, format=format,
                     layout=layout, args=args, device=device)
+
+
+class Assembler:
+    """Assembler wrapper with updatable inputs (``pyiga_tpu/assemble.py:
+    662-694``): instantiate once on `device`, then call :meth:`assemble`,
+    optionally with new values of the inputs named in `updatable`."""
+
+    def __init__(self, problem, kvs, args=None, bfuns=None, boundary=None,
+                 symmetric=False, updatable=(), device=None, **kwargs):
+        args = dict(args) if args is not None else dict()
+        args.update(kwargs)
+        self.symmetric = bool(symmetric)
+        self.updatable = tuple(updatable)
+        self.asm = instantiate_assembler(problem, kvs, args, bfuns, boundary,
+                                         self.updatable, device=device)
+        if not all(u in self.asm.inputs() or u in self.asm.parameters()
+                   for u in self.updatable):
+            raise ValueError('Assembler received an updatable argument '
+                             'which is not an assembler input')
+
+    def update(self, **kwargs):
+        """Update input fields declared as updatable."""
+        if not all(name in self.updatable for name in kwargs):
+            raise RuntimeError('update() received an argument which was '
+                               'not specified as updatable')
+        self.asm.update(**kwargs)
+
+    def assemble(self, format='csr', layout='blocked', **upd_fields):
+        """Assemble, updating the given fields first."""
+        if upd_fields:
+            self.update(**upd_fields)
+        return assemble_entries(self.asm, symmetric=self.symmetric,
+                                format=format, layout=layout)
+
+
+def divdiv(kvs, geo=None, layout='blocked', format='csr', device=None):
+    """The div-div operator of a vector-valued TP space
+    (``pyiga_tpu/assemble.py:697-706``; the unit cube without a
+    geometry)."""
+    from . import geometry
+    from .vform import divdiv_vf
+    dim = 1 if isinstance(kvs, KnotVector) else len(kvs)
+    if geo is None:
+        geo = geometry.unit_cube(dim=dim)
+    asm = compile_vform(divdiv_vf(dim))(kvs, geo=geo, device=device)
+    return assemble_entries(asm, symmetric=True, layout=layout,
+                            format=format)
 
 
 ################################################################################

@@ -286,14 +286,13 @@ def _vform_asm_alias(vf_factory, dim):
 def __getattr__(name):
     """The reference's predefined assembler names (``HeatAssembler_ST2D``,
     ``WaveAssembler_ST3D``, ``L2FunctionalAssembler3D``,
-    ``L2FunctionalAssemblerPhys2D``, ...), one class per name.
-    ``DivDivAssembler*`` is vector-valued and raises until vector-valued
-    forms are ported."""
+    ``L2FunctionalAssemblerPhys2D``, ``DivDivAssembler2D``, ...), one
+    class per name."""
     from . import vform as vf_mod
     table = {
         'HeatAssembler_ST': vf_mod.heat_st_vf,
         'WaveAssembler_ST': vf_mod.wave_st_vf,
-        'DivDivAssembler': None,
+        'DivDivAssembler': vf_mod.divdiv_vf,
         'L2FunctionalAssembler': vf_mod.L2functional_vf,
         'L2FunctionalAssemblerPhys':
             lambda d: vf_mod.L2functional_vf(d, physical=True),
@@ -301,10 +300,6 @@ def __getattr__(name):
     for prefix, factory in table.items():
         if name.startswith(prefix) and name[len(prefix):] in ('1D', '2D',
                                                               '3D'):
-            if factory is None:
-                raise NotImplementedError(
-                    '%s is vector-valued: vector-valued forms are not '
-                    'ported yet (ROADMAP.md section 1, item 7)' % name)
             cls = _vform_asm_alias(factory, int(name[len(prefix)]))
             cls.__name__ = cls.__qualname__ = name
             globals()[name] = cls      # one class object per name

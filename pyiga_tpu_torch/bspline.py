@@ -63,6 +63,9 @@ class KnotVector:
     def __repr__(self):
         return 'KnotVector(%r, %r)' % (self.kv, self.p)
 
+    def copy(self):
+        return KnotVector(self.kv.copy(), self.p)
+
     def __eq__(self, other):
         return (isinstance(other, KnotVector) and self.p == other.p
                 and len(self.kv) == len(other.kv)

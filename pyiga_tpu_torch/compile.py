@@ -37,10 +37,19 @@ kept, contracted against the per-axis tables in f64 tensordot chains,
 the pinned axes first.  The JAX package's two-float ``'pair'`` slices
 exist for the TPU and are not ported.
 
+Vector-valued forms assemble one compact tensor per component block
+``(cu, cv)`` (the seeds carry the component; each block's chains run K2
+stages and one K3 fold); two-space forms take the trial space ``kvs``
+and the test space ``kvs2``; first derivatives of spline input fields
+are evaluated on the host at setup and by :meth:`VFormAssembler.update`
+(``ideriv:<name>:1``), or passed as device tensors to
+:meth:`VFormAssembler.run_device` (``inputs=``), which a time stepper
+uses to reassemble a convection term from its state on the card.
+
 Not ported yet (each raises :class:`NotImplementedError` naming the
-piece): vector-valued forms (``multi_blocks``), surface integrals,
-two-space forms, geometry Hessians and second physical derivatives,
-derivatives of input fields, host-evaluated (non-spline) geometry.
+piece; ROADMAP item 8): surface integrals, geometry Hessians and second
+physical derivatives, second derivatives of input fields and
+derivatives of physical inputs, host-evaluated (non-spline) geometry.
 """
 
 import itertools
@@ -153,12 +162,16 @@ class AsmContext:
 
         if kind == 'input_deriv':
             _, name, comp, D = key
-            if name == 'geo' and sum(D) == 1:
-                return arrays['geo_jac_lvl'][gd - 1 - comp[0]][
-                    d - 1 - D.index(1)]
+            if sum(D) == 1:
+                if name == 'geo':       # level order
+                    return arrays['geo_jac_lvl'][gd - 1 - comp[0]][
+                        d - 1 - D.index(1)]
+                # the derivative axis of an input field is XYZ order
+                # (pyiga_tpu/compile.py:146-165)
+                return arrays['ideriv:%s:1' % name][comp + (D.index(1),)]
             raise NotImplementedError(
-                'geometry Hessians and derivatives of input fields are not '
-                'ported yet (field key %r)' % (key,))
+                'geometry Hessians and second derivatives of input fields '
+                'are not ported yet (field key %r; ROADMAP item 8)' % (key,))
 
         raise KeyError('unknown field key %r' % (key,))
 
@@ -177,9 +190,12 @@ class VFormAssembler:
     """Assembler for a compiled :class:`~pyiga_tpu_torch.vform.VForm`.
 
     Subclassed per form by :func:`compile_vform`; instantiate with the
-    spline space, the geometry and any named inputs/parameters, and
+    spline space(s), the geometry and any named inputs/parameters, and
     ``device=`` (default: the card; ``'cpu'`` runs the kernels' plain
-    versions)."""
+    versions).  A form whose basis functions live on two spaces takes the
+    trial space `kvs` (matrix columns) and the test space ``kvs2`` (rows),
+    the latter also as the first positional argument
+    (``pyiga_tpu/compile.py:413-440``)."""
 
     vf = None   # set by compile_vform
 
@@ -195,9 +211,12 @@ class VFormAssembler:
                  device=None, **args):
         vf = self.vf
         # the reference's generated assemblers are fully positional:
-        # (kvs, geo, inputs..., params...) binds in that order, skipping
-        # what is given by keyword
+        # (kvs0[, kvs1], geo, inputs..., params...) binds in that order,
+        # skipping what is given by keyword
         if posargs:
+            posargs = list(posargs)
+            if kvs2 is None and vf.num_spaces() == 2:
+                kvs2 = posargs.pop(0)
             names = (['geo'] if 'geo' not in args else []) \
                 + [inp.name for inp in vf.inputs
                    if inp.name not in args and inp.name != 'geo'] \
@@ -206,21 +225,20 @@ class VFormAssembler:
             if len(posargs) > len(names):
                 raise TypeError('too many positional arguments')
             args.update(zip(names, posargs))
-        if kvs2 is not None or vf.num_spaces() == 2:
-            raise NotImplementedError('two-space forms (kvs2) are not '
-                                      'ported yet')
         if boundary is not None or 'boundary' in args or vf.is_boundary \
                 or vf.is_surface_integral():
             raise NotImplementedError(
                 'surface integrals (ds, boundary=, Jac_to_boundary) are not '
                 'ported yet')
-        if vf.vec:
-            raise NotImplementedError('vector-valued forms (vf.vec) are not '
-                                      'ported yet: the next slice')
         if isinstance(kvs, KnotVector):
             kvs = (kvs,)
         kvs = tuple(kvs)
-        self.kvs0 = kvs                     # trial = test space
+        if kvs2 is not None:
+            kvs2 = (kvs2,) if isinstance(kvs2, KnotVector) else tuple(kvs2)
+            if len(kvs2) != len(kvs):
+                raise ValueError('the two spaces differ in dimension')
+        self.kvs0 = kvs                     # trial space (matrix columns)
+        self.kvs1 = kvs2 if kvs2 is not None else kvs   # test space (rows)
         self.arity = vf.arity
         self.dim = len(kvs)
         if self.dim != vf.dim:
@@ -231,8 +249,9 @@ class VFormAssembler:
         self.geo = self._checked_geo(args.pop('geo'))
         self.bbox = args.pop('bbox', bbox)
 
-        nqp = max(kv.p for kv in kvs) + 1
-        self.structure = MLStructure.from_kvs(kvs, kvs)
+        # quadrature on the trial space's mesh, nqp = max(p) + 1 over both
+        nqp = max(kv.p for kv in self.kvs0 + self.kvs1) + 1
+        self.structure = MLStructure.from_kvs(self.kvs0, self.kvs1)
         if self.bbox is None:
             self.grid, self.gweights = sumfac.quadrature_for(kvs, nqp)
         else:
@@ -244,7 +263,7 @@ class VFormAssembler:
                 nqp)
             self._restrict_to_bbox()
         self.maxderiv = vf.max_deriv_order()
-        self.tables = sumfac.SpaceTables(kvs, kvs, self.grid,
+        self.tables = sumfac.SpaceTables(self.kvs0, self.kvs1, self.grid,
                                          self.structure.bidx, self.maxderiv)
 
         ncomp = tuple(bf.numcomp for bf in vf.basis_funs)
@@ -270,13 +289,14 @@ class VFormAssembler:
             self._param_values[p.name] = args[p.name]
 
         self._needed_keys = vf.used_field_keys()
+        physical = {inp.name for inp in vf.inputs if inp.physical}
         for key in self._needed_keys:
-            if key[0] == 'input_deriv' and (key[1] != 'geo'
-                                            or sum(key[3]) != 1):
+            if key[0] == 'input_deriv' and (sum(key[3]) != 1
+                                            or key[1] in physical):
                 raise NotImplementedError(
-                    'geometry Hessians, second physical derivatives and '
-                    'derivatives of input fields are not ported yet '
-                    '(field key %r)' % (key,))
+                    'geometry Hessians, second derivatives of input fields '
+                    'and derivatives of physical inputs are not ported yet '
+                    '(field key %r; ROADMAP item 8)' % (key,))
         if self.maxderiv >= 2 and any(key[0] == 'jacinv'
                                       for key in self._needed_keys):
             raise NotImplementedError('second physical derivatives need '
@@ -308,15 +328,19 @@ class VFormAssembler:
         small corners of large levels).  Records per axis the half-open
         range of test functions supported in the bbox
         (``_bbox_win_test``)."""
+        def window(kv, bb):
+            supp = kv.mesh_support_idx_all()
+            return (supp[:, 0] < bb[1]) & (supp[:, 1] > bb[0])
+
         bidx = []
         self._bbox_win_test = []
-        for kv, bb, bx in zip(self.kvs0, self.bbox, self.structure.bidx):
-            supp = kv.mesh_support_idx_all()
-            win = (supp[:, 0] < bb[1]) & (supp[:, 1] > bb[0])
+        for k, bx in enumerate(self.structure.bidx):
+            wi = window(self.kvs1[k], self.bbox[k])     # test / rows
+            wj = window(self.kvs0[k], self.bbox[k])     # trial / columns
             ij = bx.astype(np.intp)
-            keep = win[ij[:, 0]] & win[ij[:, 1]]
+            keep = wi[ij[:, 0]] & wj[ij[:, 1]]
             bidx.append(bx[keep])
-            nz = np.nonzero(win)[0]     # contiguous for B-splines
+            nz = np.nonzero(wi)[0]      # contiguous for B-splines
             self._bbox_win_test.append(
                 (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0))
         self.structure = MLStructure(self.structure.bs, bidx)
@@ -340,7 +364,9 @@ class VFormAssembler:
 
     def _eval_input(self, inp, f):
         """Values of one input field on the Gauss grid (component axes
-        leading)."""
+        leading) and, where the form differentiates it, its first
+        derivatives ``ideriv:<name>:1`` (``comp + (XYZ axis,) + grid``,
+        from ``f.grid_jacobian``; ``pyiga_tpu/compile.py:587-637``)."""
         if inp.physical:
             vals = utils.grid_eval_transformed(f, self.grid, self.geo)
         else:
@@ -348,16 +374,25 @@ class VFormAssembler:
         n = len(inp.shape)
         vals = np.moveaxis(np.asarray(vals, dtype=float),
                            tuple(range(-n, 0)), tuple(range(n)))
-        return {'input:' + inp.name: np.ascontiguousarray(vals)}
+        out = {'input:' + inp.name: np.ascontiguousarray(vals)}
+        if any(key[0] == 'input_deriv' and key[1] == inp.name
+               for key in self._needed_keys):
+            # grid x comp... x sdim, the derivative axis already XYZ
+            jac = np.asarray(f.grid_jacobian(self.grid), dtype=float)
+            jac = np.moveaxis(jac, tuple(range(-(n + 1), 0)),
+                              tuple(range(n + 1)))
+            out['ideriv:%s:1' % inp.name] = np.ascontiguousarray(jac)
+        return out
 
     def update(self, **upd):
-        """Update updatable input fields and/or parameters, or the geometry
-        (which also re-evaluates physically given inputs).  Drops the
-        cached device operands that the change makes stale: after a new
-        geometry all of them and the generated K5 program; after new
-        input or parameter values the changed tensors (a parameter also
-        refreshes the flat parameter vector), and the program only if a
-        changed value has a new shape."""
+        """Update updatable input fields (their values and derivatives
+        are evaluated anew) and/or parameters, or the geometry (which
+        also re-evaluates physically given inputs).  Drops the cached
+        device operands that the change makes stale: after a new geometry
+        all of them and the generated K5 program; after new input or
+        parameter values the changed tensors (a parameter also refreshes
+        the flat parameter vector), and the program only if a changed
+        value has a new shape (``pyiga_tpu/compile.py:639-695``)."""
         geo_changed = False
         changed = {}
         for name, f in upd.items():
@@ -482,9 +517,28 @@ class VFormAssembler:
         return np.asarray(
             self._full_mlm[indices[:, 0], indices[:, 1]]).ravel()
 
+    def num_components(self):
+        """Components per basis function space (vector forms only;
+        ``pyiga_tpu/compile.py:1640``)."""
+        if not self.vf.vec:
+            raise ValueError('num_components needs a vector-valued form')
+        return self.vf.num_components()
+
     def multi_blocks(self, indices):
-        raise NotImplementedError('multi_blocks: vector-valued forms are '
-                                  'not ported yet (ROADMAP item 7)')
+        """Per-dof component blocks for a list of (i, j) global block index
+        pairs; returns an array of shape ``(len(indices), ncv, ncu)``
+        (``pyiga_tpu/compile.py:1657-1671``)."""
+        if not self.vf.vec or self.arity != 2:
+            raise ValueError('multi_blocks needs a vector-valued bilinear '
+                             'form')
+        ncu, ncv = self.vf.num_components()
+        indices = np.asarray(indices)
+        out = np.zeros((len(indices), ncv, ncu))
+        for (cu, cv), blk in self.assemble().items():
+            mat = blk.asmatrix('csr')
+            out[:, cv, cu] = np.asarray(
+                mat[indices[:, 0], indices[:, 1]]).ravel()
+        return out
 
     # -- evaluation ----------------------------------------------------------------
 
@@ -509,7 +563,8 @@ class VFormAssembler:
 
         hsig = tuple(sorted(sig(k, a) for k, a in self._host_arrays.items()
                             if k != 'weights'))
-        return (self.vf.hash(), self.dim, self.vf.geo_dim, self.arity, hsig)
+        return (self.vf.hash(), self.dim, self.vf.geo_dim, self.arity,
+                bool(self.vf.vec), hsig, self.kvs0 == self.kvs1)
 
     def _prune_combos(self):
         """Drop structurally-zero seed combinations using a random probe on
@@ -589,13 +644,14 @@ class VFormAssembler:
             tuple(self._fold_plan) if self._fold_plan is not None else None)
 
     def _detect_symmetry(self, probe_values, probe_maxima):
-        """Probe-based symmetric-term folding (scalar bilinear forms): a
-        combo (su, sv) whose swapped partner (sv, su) has a numerically
-        equal probe field contributes the transpose of its partner's
-        chain, so one chain of each pair runs and the compact-layout
-        transpose gather mirrors it."""
+        """Probe-based symmetric-term folding (scalar bilinear forms on one
+        space): a combo (su, sv) whose swapped partner (sv, su) has a
+        numerically equal probe field contributes the transpose of its
+        partner's chain, so one chain of each pair runs and the
+        compact-layout transpose gather mirrors it.  Off for vector and
+        two-space forms (``pyiga_tpu/compile.py:1119``)."""
         self._fold_plan = self._fold_tperms = None
-        if self.arity != 2:
+        if self.arity != 2 or self.vf.vec or self.kvs0 != self.kvs1:
             return
         index = {c: i for i, c in enumerate(self.combos)}
         plan = []
@@ -674,58 +730,117 @@ class VFormAssembler:
             tperms=tperms)
         return self._operands
 
-    def device_arrays(self):
+    def _geometry_fields(self):
+        """Physical geometry values and Jacobian ``(geo_val_lvl,
+        geo_jac_lvl)`` on the Gauss grid, from K2 and K1's ``jac``
+        kind."""
+        ops = self._device_operands()
+        return cuda_sumfac.geometry_fields(ops['geo_tables'],
+                                           ops['geo_coeffs'],
+                                           self._geo_is_nurbs)
+
+    def device_arrays(self, inputs=None):
         """The device tensors K5 evaluates on: the inputs, parameters (per
         name and as the flat ``params`` vector) and per-axis Gauss
         weights, plus the physical geometry values ``geo_val_lvl``
         ``(d,) + grid`` and Jacobian ``geo_jac_lvl`` ``(d, d) + grid``
-        (level order) from K2 and K1's ``jac`` kind."""
+        (level order) from K2 and K1's ``jac`` kind, computed anew on
+        every call (``d`` K2 stages and one K1 launch) and not kept:
+        held beside the cached operands they would add ``d (d + 1)``
+        grid-sized fields to every assembler for the life of its
+        operands.
+
+        `inputs` maps ``input:<name>`` / ``ideriv:<name>:1`` keys to
+        device tensors of the cached operands' shapes that replace them
+        for this call only (the in-loop reassembly of a stepper, whose
+        velocity fields are formed on the device)."""
         ops = self._device_operands()
         arrays = dict(ops['inputs'])
-        arrays['geo_val_lvl'], arrays['geo_jac_lvl'] = \
-            cuda_sumfac.geometry_fields(ops['geo_tables'], ops['geo_coeffs'],
-                                        self._geo_is_nurbs)
+        arrays['geo_val_lvl'], arrays['geo_jac_lvl'] = self._geometry_fields()
+        if inputs is None:
+            return arrays
+        for key, t in inputs.items():
+            old = arrays.get(key)
+            if not key.startswith(('input:', 'ideriv:')) or old is None \
+                    or t.shape != old.shape or t.dtype != old.dtype \
+                    or t.device != old.device:
+                raise ValueError('run_device: input %r does not replace an '
+                                 'operand of the same shape, dtype and '
+                                 'device' % key)
+            arrays[key] = t
         return arrays
 
-    def run_device(self, mode=None):
-        """Assemble to a device-resident compact data tensor on the
+    def _block_plans(self):
+        """Per component block ``(cu, cv)`` (``(None, None)`` for a scalar
+        form, ``(None, cv)`` for a functional) the non-folded plan of its
+        combos."""
+        blocks = {}
+        for t, (su, sv) in enumerate(self.combos):
+            key = (None if su is None else su[0], sv[0])
+            blocks.setdefault(key, []).append((t, False))
+        return blocks
+
+    def run_device(self, mode=None, inputs=None):
+        """Assemble to device-resident compact data tensors on the
         assembler's device: geometry fields (K2 + K1 ``jac``), coefficient
-        fields (K5), folded chains (K2 + K3) and the transpose gather of
-        mirrored terms.  Returns ``{(None, None): data}`` with data of
-        shape ``(nnz_1, ..., nnz_d)`` (matrix) or ``(n_1, ..., n_d)``
-        (vector), float64.  `mode` ('exact', 'ozaki' or None) is accepted
-        for API compatibility: the port has one f64 mode, the exact
-        one."""
+        fields (K5), chains (K2 stages, then one K3 fold per block) and,
+        for a folded symmetric form, the transpose gather of mirrored
+        terms.  Returns a dict of blocks: ``{(None, None): data}`` for a
+        scalar form, ``{(cu, cv): data}`` for a vector form (``(None,
+        cv)`` for a functional; pruned blocks are absent), data of shape
+        ``(nnz_1, ..., nnz_d)`` (matrix) or ``(n_1, ..., n_d)`` (vector),
+        float64 (``pyiga_tpu/compile.py:1227-1238``).
+
+        `inputs` replaces input fields for this call (see
+        :meth:`device_arrays`); everything else comes from the cached
+        operands.  `mode` ('exact', 'ozaki' or None) is accepted for API
+        compatibility: the port has one f64 mode, the exact one."""
         if mode not in (None, 'exact', 'ozaki'):
             raise ValueError("mode must be 'exact' or 'ozaki'")
         ops = self._device_operands()
-        plan = (self._fold_plan if self._fold_plan is not None
-                else [(t, False) for t in range(len(self.combos))])
-        # only the plan's terms: a mirrored term's partner is never needed
-        terms = [t for t, _m in plan]
-        fields = [None] * len(self.combos)
-        for t, F in zip(terms, cuda_vform.combo_fields(
-                self, self.device_arrays(), [self.combos[t] for t in terms])):
-            fields[t] = F
-        data = cuda_sumfac.assemble_terms_folded(
-            ops['term_tables'], fields, plan, ops['tperms'], ops['last_idx'])
-        return {(None, None): data}
+        arrays = self.device_arrays(inputs)
+        if self._fold_plan is not None:
+            plan = self._fold_plan
+            # only the plan's terms: a mirrored term's partner is never
+            # needed
+            terms = [t for t, _m in plan]
+            fields = [None] * len(self.combos)
+            for t, F in zip(terms, cuda_vform.combo_fields(
+                    self, arrays, [self.combos[t] for t in terms])):
+                fields[t] = F
+            return {(None, None): cuda_sumfac.assemble_terms_folded(
+                ops['term_tables'], fields, plan, ops['tperms'],
+                ops['last_idx'])}
+        fields = cuda_vform.combo_fields(self, arrays, self.combos)
+        return {key: cuda_sumfac.assemble_terms_folded(
+                    ops['term_tables'], fields, plan, None, ops['last_idx'])
+                for key, plan in self._block_plans().items()}
 
     def assemble(self, mode=None):
         """Assemble and return the matrix as a host
-        :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix`."""
+        :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix` (scalar forms) or a
+        dict of ``(cu, cv) -> MLMatrix`` blocks (vector forms)."""
         if self.arity != 2:
             raise ValueError('assemble() needs a bilinear form; use '
                              'assemble_vector()')
-        data = self.run_device(mode)[(None, None)]
-        return self.structure.make_mlmatrix(data=data.cpu().numpy())
+        blocks = {k: self.structure.make_mlmatrix(data=v.cpu().numpy())
+                  for k, v in self.run_device(mode).items()}
+        return blocks if self.vf.vec else blocks[(None, None)]
 
     def assemble_vector(self):
         """Assemble an arity-1 functional; returns the host array of shape
-        per-axis dofs."""
+        per-axis dofs, with a trailing component axis for a vector-valued
+        test function (zero for a pruned component;
+        ``pyiga_tpu/compile.py:1433-1466``)."""
         if self.arity != 1:
             raise ValueError('assemble_vector() needs a linear functional')
-        return self.run_device()[(None, None)].cpu().numpy()
+        blocks = {k: v.cpu().numpy() for k, v in self.run_device().items()}
+        if not self.vf.vec:
+            return blocks[(None, None)]
+        zero = np.zeros_like(next(iter(blocks.values())))
+        return np.stack([blocks.get((None, c), zero)
+                         for c in range(self.vf.basis_funs[0].numcomp)],
+                        axis=-1)
 
 
 _COMPILE_CACHE = {}

@@ -99,9 +99,12 @@ class _BaseSplineFunc(_BaseGeoFunc):
 
 class _ControlPointMixin:
     """Spline functions that store control points: the support (or an
-    override of it) and the boundary restriction by slicing the control
-    points.  Subclasses supply ``_rebuild`` (the same type from stored
-    coefficients)."""
+    override of it), the boundary restriction by slicing the control
+    points, and affine control-point transforms (``copy``, ``translate``,
+    ``scale``, ``apply_matrix``; ``pyiga_tpu/geometry.py:129-155``).
+    Subclasses supply ``_rebuild`` (the same type from stored
+    coefficients) and ``_map_points`` (the same type with the control
+    points mapped)."""
 
     _support_override = None
 
@@ -127,6 +130,37 @@ class _ControlPointMixin:
         face[axis] = -side              # index 0 (side 0) or -1 (side 1)
         return self._rebuild(self.kvs[:axis] + self.kvs[axis + 1:],
                              self.coeffs[tuple(face)])
+
+    def copy(self):
+        return self._rebuild(tuple(kv.copy() for kv in self.kvs),
+                             self.coeffs.copy())
+
+    def translate(self, offset):
+        return self._map_points(lambda C: C + offset)
+
+    def scale(self, factor):
+        return self._map_points(lambda C: C * factor)
+
+    def apply_matrix(self, A):
+        """Apply a matrix (or a per-control-point array of matrices) to
+        each control point."""
+        if not self.is_vector():
+            raise ValueError('can only apply matrices to vector-valued '
+                             'functions')
+
+        def mapped(C):
+            out = np.matmul(A, C[..., None])
+            if out.shape[-1] != 1:
+                raise ValueError('matrix does not map points to points')
+            return np.squeeze(out, axis=-1)
+
+        return self._map_points(mapped)
+
+    def rotate_2d(self, angle):
+        if self.dim != 2:
+            raise ValueError('rotate_2d needs a 2D vector function')
+        c, s = np.cos(angle), np.sin(angle)
+        return self.apply_matrix(np.array([[c, -s], [s, c]]))
 
 
 def _nurbs_jac_from_homog(val, jac):
@@ -192,6 +226,9 @@ class BSplineFunc(_ControlPointMixin, _BaseSplineFunc):
     @staticmethod
     def _rebuild(kvs, coeffs):
         return BSplineFunc(kvs, coeffs)
+
+    def _map_points(self, fn):
+        return BSplineFunc(self.kvs, fn(self.coeffs))
 
     def cylinderize(self, z0=0.0, z1=1.0, support=(0.0, 1.0)):
         """Extrude linearly along a new first axis from `z0` to `z1`."""
@@ -276,6 +313,10 @@ class NurbsFunc(_ControlPointMixin, _BaseSplineFunc):
     @staticmethod
     def _rebuild(kvs, coeffs):
         return NurbsFunc(kvs, coeffs, weights=None, premultiplied=True)
+
+    def _map_points(self, fn):
+        C, W = self.coeffs_weights()
+        return NurbsFunc(self.kvs, fn(C), W)
 
     def coeffs_weights(self):
         """Non-premultiplied coefficients and weights as a pair of

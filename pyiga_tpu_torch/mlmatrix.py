@@ -4,7 +4,9 @@ numpy).
 
 The parts of :mod:`pyiga_tpu.mlmatrix` the assembly needs: per axis, the
 nonzero basis pairs ``bidx`` of the 1D pattern, the transpose index map,
-:class:`MLStructure` over a tensor-product space, and :class:`MLMatrix`,
+:class:`MLStructure` over a tensor-product space (joined with a dense
+component level for the packed layout of vector forms), and
+:class:`MLMatrix`,
 the compact data tensor over a structure with its scipy expansion.  The
 device matvec on the same data is
 :func:`pyiga_tpu_torch.ops.mlmatvec.ml_matvec`.
@@ -30,6 +32,12 @@ def compute_sparsity_ij(kv1, kv2):
     I = np.repeat(np.arange(n2), counts)
     J = np.concatenate([np.arange(a, b) for a, b in zip(j_start, j_end)]) \
         if n2 > 0 else np.empty(0, dtype=np.int64)
+    return np.column_stack((I, J)).astype(np.uint32)
+
+
+def compute_dense_ij(m, n):
+    """All (i, j) indices of a dense ``m x n`` matrix, row-major."""
+    I, J = np.divmod(np.arange(m * n), n)
     return np.column_stack((I, J)).astype(np.uint32)
 
 
@@ -93,6 +101,16 @@ class MLStructure:
         bidx = tuple(compute_sparsity_ij(kv0, kv1)
                      for kv0, kv1 in zip(kvs0, kvs1))
         return MLStructure(bs, bidx)
+
+    @staticmethod
+    def dense(shape):
+        """One-level dense structure (``pyiga_tpu/mlmatrix.py:152``)."""
+        return MLStructure((tuple(shape),), (compute_dense_ij(*shape),))
+
+    def join(self, other):
+        """Concatenate the levels of two structures
+        (``pyiga_tpu/mlmatrix.py:184``)."""
+        return MLStructure(self.bs + other.bs, self.bidx + other.bidx)
 
     def make_mlmatrix(self, data=None, matrix=None):
         """An :class:`MLMatrix` over this structure (arguments as there)."""

@@ -8,7 +8,8 @@ The integrand of a form depends on the form, so no fixed kernel can
 evaluate it.  As the reference did with Cython code generation, the form
 is evaluated once on *symbolic scalars* (:class:`Sym`): every leaf of the
 evaluation — the Gauss weight, the physical geometry values and Jacobian
-(from K1's ``jac`` kind), the input-field components — is a load, every
+(from K1's ``jac`` kind), the input-field components and their first
+derivatives — is a load, every
 parameter component a load ``p[slot]``.  Arithmetic on symbols appends
 straight-line SSA instructions (``const double t17 = t3 * t9;``) with
 constant folding of the exact identities (``x*1``, ``x+0``, ``x*0``) and
@@ -18,9 +19,9 @@ program becomes a CUDA C source built by :func:`pyiga_tpu_torch._cuda.
 build_generated` into its own library.
 
 The kernel reads every leaf where it lies: it takes one base pointer per
-tensor the program reads (``geo_val_lvl``, ``geo_jac_lvl``, ``input:*``)
-with each leaf's row baked into the source, and forms the Gauss weight
-from the per-axis weight vectors, ``(w0 w1) w2`` as
+tensor the program reads (``geo_val_lvl``, ``geo_jac_lvl``, ``input:*``,
+``ideriv:*``) with each leaf's row baked into the source, and forms the
+Gauss weight from the per-axis weight vectors, ``(w0 w1) w2`` as
 :func:`~pyiga_tpu_torch.ops.geom.gauss_weight_field` does (bitwise the
 same field).  Parameters are read from the assembler's flat parameter
 vector (:func:`param_vector`, cached with its device operands), each at a
@@ -230,7 +231,8 @@ class Program:
         dim: the Gauss grid's dimension (the number of weight vectors).
         leaves: leaf keys in order of first use: ``('gw',)`` (the Gauss
             weight), ``('geo_val', c)``, ``('geo_jac', c, k)`` (level
-            order) or ``('input', name, comp)``.
+            order), ``('input', name, comp)`` or ``('ideriv', name + ':1',
+            comp + (i,))`` (XYZ derivative axis `i`).
         params: parameter keys ``('param', name, idx)``, order of first
             use; ``param_slots`` their slots in the flat parameter vector.
         sources: the array keys the leaves are read from, in order of
@@ -369,8 +371,10 @@ def generate(asm, combos):
     Gauss weight leaf and the symbolic inverse Jacobian (the seeding of
     the TPU kernel, compile.py:951-956).  Each leaf is located in the
     tensor that holds it (row c of ``geo_val_lvl``, row ``c d + k`` of
-    ``geo_jac_lvl``, the flat component of ``input:name``), each
-    parameter in :func:`param_vector`'s layout."""
+    ``geo_jac_lvl``, the flat component of ``input:name`` or of the first
+    derivatives ``ideriv:name:1``), each parameter in
+    :func:`param_vector`'s layout.  Vector and two-space forms need
+    nothing else here: their combos carry the components."""
     b = SSARecorder()
     d, gd = asm.dim, asm.vf.geo_dim
     loc = {}
@@ -385,11 +389,13 @@ def generate(asm, combos):
                               for c in range(gd)]}
     for key, arr in asm._host_arrays.items():
         kind, _, name = key.partition(':')
-        if kind == 'input':
+        if kind in ('input', 'ideriv'):
+            # an input field's components, or its first derivatives
+            # (components, then the XYZ derivative axis), row-major
             lead = np.shape(arr)[:np.ndim(arr) - d]
             syms = np.empty(lead, dtype=object)
             for row, li in enumerate(np.ndindex(*lead)):
-                syms[li] = leaf(('input', name, li), key, row)
+                syms[li] = leaf((kind, name, li), key, row)
             arrays[key] = syms
         elif kind == 'param':
             shape = np.shape(arr)

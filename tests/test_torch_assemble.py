@@ -152,8 +152,14 @@ def test_assembler_positional_args():
         jkvs, jgeo), mode='exact')
     assert A1.shape == ref.shape and abs(A1 - ref).max() < 1e-14
     assert assemblers.HeatAssembler_ST2D is assemblers.HeatAssembler_ST2D
-    with pytest.raises(NotImplementedError, match='item 7'):
-        assemblers.DivDivAssembler2D
+    # the vector-valued name, positional too, gives JAX's blocks
+    kvs2 = 2 * (bspline.make_knots(2, 0.0, 1.0, 4),)
+    jkvs2 = 2 * (jbspline.make_knots(2, 0.0, 1.0, 4),)
+    D = assemble.assemble_entries(assemblers.DivDivAssembler2D(
+        kvs2, geometry.quarter_annulus(), device='cpu'))
+    Dref = jassemble.assemble_entries(jassemblers.DivDivAssembler2D(
+        jkvs2, jgeometry.quarter_annulus()), mode='exact')
+    assert D.shape == Dref.shape and abs(D - Dref).max() < 1e-14
 
 
 def test_assembler_positional_non_geo_input():

@@ -189,8 +189,19 @@ def test_multi_entries_matches_jax():
     got, ref = asm.multi_entries(idx), jasm.multi_entries(idx)
     assert np.abs(got - ref).max() <= 1e-13 * np.abs(A).max()
     assert np.array_equal(got, np.asarray(A[idx[:, 0], idx[:, 1]]).ravel())
-    with pytest.raises(NotImplementedError, match='item 7'):
-        asm.multi_blocks(idx)
+    with pytest.raises(ValueError):
+        asm.multi_blocks(idx)       # a scalar form has no component blocks
+    # a vector form's blocks at the same indices, against JAX's
+    kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 7),)
+    jkvs = 2 * (jbspline.make_knots(2, 0.0, 1.0, 7),)
+    vasm = tcompile.compile_vform(vform.divdiv_vf(2))(
+        kvs, geo=geometry.quarter_annulus(), device='cpu')
+    jvasm = jcompile.compile_vform(jvform.divdiv_vf(2))(
+        jkvs, geo=jgeometry.quarter_annulus())
+    idx = idx % (kvs[0].numdofs * kvs[1].numdofs)
+    got, ref = vasm.multi_blocks(idx), jvasm.multi_blocks(idx)
+    assert got.shape == ref.shape == (len(idx), 2, 2)
+    assert np.abs(got - ref).max() <= 1e-13 * np.abs(ref).max()
 
 
 def _fixture(name):
