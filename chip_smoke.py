@@ -112,7 +112,29 @@ host's step times to 1e-9 and states to 1e-10, no host scheme behind it
 and a divergence below 1e-10; the device stepper's F and J and the host
 methods on the card at a seeded state held to a CPU setup (1e-13 /
 1e-12); with ms per step attempt, per F and per J evaluation and their
-launches (16).  Any failed check raises (nonzero exit).
+launches (16).
+
+Surface integrals, second derivatives, multipatch and the hierarchical
+entry points (``scripts/torch_item8_phases.py`` runs them alone): K1's
+``jac`` kind on a surface geometry (three components on a 2D grid,
+B-spline and NURBS, n=128) and on the boundary Gauss grids of all six
+faces of the extruded quarter annulus at 3D n=48 (a grid axis of length
+1), K5 on ``v * ds``, ``inner(v, n) * ds``, ``inner(grad(u), grad(v)) *
+ds``, a surface ``v * ds``, the biharmonic form and the Laplacian
+functional of a spline input, K2 and K3 on those forms' chains, each
+against its plain version (1e-13, bitwise on a repeat) (4l); ``v * ds``
+and ``inner(v, n) * ds`` on all six faces at 3D p=3 n=48 (areas and
+averaged normals), ``inner(grad(u), grad(v)) * ds`` on 'left', the
+tangential form on 'front' against the 2D stiffness matrix and the
+surface ``v * ds`` at n=128, each held to a CPU setup with its
+``assemble()`` ms (17); the biharmonic matrix at 2D n=128
+(``run_device`` ms, launches), the Laplacian functional's error against
+``8 y`` and a ``UserFunction`` geometry at n=60, held to CPU setups
+(18); ``examples/torch_multipatch_poisson.py``'s ``main(p=3, n=128)``
+(51,221 dofs; automatic matching against hand-joined patches, the
+global matrix against a CPU setup) and ``assemble`` / ``project_L2``
+over the (48, 3) HB space (19); phases 17-19 count their launches from
+zero.  Any failed check raises (nonzero exit).
 
 Every kernel's entry in the JSON line has its time, its plain version's,
 the time of one PyTorch call computing the same function where one
@@ -941,7 +963,8 @@ def check_vform_kernels(device):
             'geo_jac_fields', _cuda.library().pyiga_geo_jac_fields_f64,
             [Y, T, torch.empty_like(got)],
             lambda ts: (ts[0].data_ptr(), ts[1].data_ptr(), ts[2].data_ptr(),
-                        d, int(nurbs), Q12, T.shape[1], nL), device))
+                        d, C - int(nurbs), int(nurbs), Q12, T.shape[1], nL),
+            device))
         del Y, got, ref
     out = {'geo_jac_fields': dict(cases['2d_n128_nurbs'], cases=cases,
                                   repeat_equal=True,
@@ -2773,30 +2796,37 @@ def ns_forms(ns, device):
 
 
 def chain_case(asm, inputs, device, name):
-    """K2 and K3 on a vector form's chains as ``run_device`` runs them: per
-    component block its terms' first stages (K2) and one fold (K3) over
-    their last tables, each against its plain version (1e-13 relative,
-    bitwise on a repeat); times summed over the blocks of one evaluation,
-    with the plain versions' and one ``torch.matmul`` per call as the
-    yardstick, and the bound of the same work."""
+    """K2 and K3 on a form's chains as ``run_device`` runs them: per
+    component block (per group, direct or mirrored, of a folded form) its
+    terms' stages but the last (K2) and one fold (K3) over their last
+    tables, each against its plain version (1e-13 relative, bitwise on a
+    repeat); times summed over the blocks of one evaluation, with the
+    plain versions' and one ``torch.matmul`` per call as the yardstick,
+    and the bound of the same work."""
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     from pyiga_tpu_torch.ops import cuda_vform as cv
     ops = asm._device_operands()
     fields = cv.combo_fields(asm, asm.device_arrays(inputs), asm.combos)
-    if asm.dim != 2:
-        raise ValueError('chain_case covers 2D chains')
+    if asm._fold_plan is None:
+        plans = asm._block_plans()
+    else:
+        plans = {m: [(t, mm) for t, mm in asm._fold_plan if mm == m]
+                 for m in (False, True)}
     stages, folds = [], []
-    for key, plan in sorted(asm._block_plans().items(), key=str):
+    for key, plan in sorted(plans.items(), key=str):
+        if not plan:
+            continue
         xs, tabs, slot = [], [], {}
         for t, _m in plan:
-            T0, T1 = ops['term_tables'][t]
             X = fields[t]
-            stages.append((X, T0))
-            xs.append(cs.stage(X, T0))
+            for T in ops['term_tables'][t][:-1]:
+                stages.append((X.reshape(X.shape[0], -1), T))
+                X = cs._run_stage(X, T)
+            xs.append(X.reshape(X.shape[0], -1))
             i = ops['last_idx'][t]
             if i not in slot:
                 slot[i] = len(tabs)
-                tabs.append(T1)
+                tabs.append(ops['term_tables'][t][-1])
         folds.append((xs, tabs, [slot[ops['last_idx'][t]] for t, _m in plan]))
     sync(device)
     rec = {}
@@ -2896,41 +2926,32 @@ def check_two_space_ragged(device, seed=12):
 
 def check_ns_geometry(asm, device):
     """K1's ``jac`` kind on the channel geometry at the Navier-Stokes
-    path's Gauss grid (the assembler's own geometry tables and
-    coefficients) against its plain version, 1e-13 relative and bitwise
-    on a repeat; and the geometry fields (K2 stages + K1) on the card
-    against the same computation on CPU copies (the plain versions),
-    1e-13."""
+    path's Gauss grid (:func:`jac_case`); and the geometry fields (K2
+    stages + K1) on the card against the same computation on CPU copies
+    (the plain versions), 1e-13."""
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    rec = jac_case(asm, device, 'channel')
     ops = asm._device_operands()
     tables, coeffs, nurbs = (ops['geo_tables'], ops['geo_coeffs'],
                              asm._geo_is_nurbs)
-    d = len(tables)
-    Y, _ = cs.geo_stage12(tables, coeffs, d)
-    T = tables[d - 1][:2].contiguous()
-    got = cs.geo_jac_fields(Y, T, nurbs)
-    ref = cs.geo_jac_fields_plain(Y, T, nurbs)
-    sync(device)
-    err, rel = compare('geo_jac channel', got, ref, 1e-13)
-    check_repeat('geo_jac channel', lambda: cs.geo_jac_fields(Y, T, nurbs),
-                 got)
-    C, Q12, nL = Y.shape[1], Y.shape[2], Y.shape[3]
-    rec = dict(
-        max_abs_err=err, rel=rel, shape=list(got.shape), nL=nL,
-        repeat_equal=True,
-        ms=time_ms(lambda: cs.geo_jac_fields(Y, T, nurbs), device, reps=50),
-        plain_ms=time_ms(lambda: cs.geo_jac_fields_plain(Y, T, nurbs),
-                         device, reps=5),
-        library_ms=None,
-        **bound(nbytes(Y, T, got),
-                got[0].numel() * (2 * C * (d + 1) * nL + 30),
-                F64_FMA_PER_MS))
     dev = cs.geometry_fields(tables, coeffs, nurbs)
     host = cs.geometry_fields([t.cpu() for t in tables], coeffs.cpu(), nurbs)
     rec['fields_vs_cpu'] = [compare('geometry fields %s' % k, a.cpu(), b,
                                     1e-13)
                             for k, a, b in zip(('val', 'jac'), dev, host)]
     return rec
+
+
+def jac_bare_times(Y, T, got, nurbs, device):
+    """:func:`bare_times` of K1's ``jac`` kind on the operands ``Y``,
+    ``T`` and the output shape of `got`."""
+    from pyiga_tpu_torch import _cuda
+    d, C, Q12, nL = Y.shape
+    return bare_times(
+        'geo_jac_fields', _cuda.library().pyiga_geo_jac_fields_f64,
+        [Y, T, torch.empty_like(got)],
+        lambda ts: (ts[0].data_ptr(), ts[1].data_ptr(), ts[2].data_ptr(), d,
+                    C - int(nurbs), int(nurbs), Q12, T.shape[1], nL), device)
 
 
 def check_ns_kernels(device):
@@ -2947,10 +2968,10 @@ def check_ns_kernels(device):
     forms, _ = ns_forms(ns, device)
     out = {'vform_fields': {}, 'chains': {}}
     out['geo_jac_fields'] = g = check_ns_geometry(ns.asm_nlconv.asm, device)
-    log('  K1 jac channel %s (nL=%d): %.4f ms (plain %.4f, bound %.4f); '
-        'geometry fields vs CPU rel %s' % (
-            g['shape'], g['nL'], g['ms'], g['plain_ms'], g['bound_ms'],
-            ['%.3e' % r for _e, r in g['fields_vs_cpu']]))
+    log('  K1 jac channel %s (nL=%d): %.4f ms (device %.4f, plain %.4f, '
+        'bound %.4f); geometry fields vs CPU rel %s' % (
+            g['shape'], g['nL'], g['ms'], g['device_ms'], g['plain_ms'],
+            g['bound_ms'], ['%.3e' % r for _e, r in g['fields_vs_cpu']]))
     for name, (asm, inputs) in forms.items():
         out['vform_fields'][name] = vform_case(asm, device, inputs,
                                                tol=1e-13, name=name)
@@ -3249,6 +3270,400 @@ def run_navier_stokes(device):
     return rec
 
 
+################################################################################
+# Surface integrals, second derivatives, multipatch (phases 4l, 17-19)
+################################################################################
+
+# the kernels the phases 17-19 paths run
+ITEM8_KERNELS = ('geo_jac_fields', 'vform_fields', 'stage', 'fold')
+FACES = ('left', 'right', 'bottom', 'top', 'front', 'back')
+# v * ds over each face of tensor_product(line_segment(0, 1),
+# quarter_annulus()) sums to the face's area, inner(v, n) * ds (packed) to
+# the integral of the outward normal (pyiga_tpu's test_vform.py)
+FACE_AREAS = {'left': np.pi / 2, 'right': np.pi, 'bottom': 1.0, 'top': 1.0,
+              'front': 3 * np.pi / 4, 'back': 3 * np.pi / 4}
+FACE_NORMALS = {'left': (-1.0, -1.0, 0.0), 'right': (2.0, 2.0, 0.0),
+                'bottom': (0.0, -1.0, 0.0), 'top': (-1.0, 0.0, 0.0),
+                'front': (0.0, 0.0, -3 * np.pi / 4),
+                'back': (0.0, 0.0, 3 * np.pi / 4)}
+# n = 16's bound on the relative error of the Laplacian functional
+# (pyiga_tpu's test_input_field_hessian_assembly) over 16: O(h^2) predicts
+# ~64x less at n = 128
+LAPLACIAN_TOL = 2e-4 / 16
+
+
+def geo3():
+    """The 3D geometry of the surface phases: the quarter annulus extruded
+    along a unit segment (NURBS)."""
+    from pyiga_tpu_torch import geometry
+    return geometry.tensor_product(geometry.line_segment(0.0, 1.0),
+                                   geometry.quarter_annulus())
+
+
+def kvs_of(dim, n, p=3):
+    from pyiga_tpu_torch import bspline
+    return dim * (bspline.make_knots(p, 0.0, 1.0, n),)
+
+
+def jac_case(asm, device, name):
+    """K1's ``jac`` kind on an assembler's geometry tables (its Gauss grid,
+    a boundary grid's collapsed axis included) against its plain version,
+    1e-13 relative and bitwise on a repeat, with ``ms``, ``launch_ms`` /
+    ``device_ms``, the plain version's time and the bound."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    ops = asm._device_operands()
+    tables, coeffs, nurbs = (ops['geo_tables'], ops['geo_coeffs'],
+                             asm._geo_is_nurbs)
+    d = len(tables)
+    Y, _ = cs.geo_stage12(tables, coeffs, d)
+    T = tables[d - 1][:2].contiguous()
+    got = cs.geo_jac_fields(Y, T, nurbs)
+    ref = cs.geo_jac_fields_plain(Y, T, nurbs)
+    sync(device)
+    err, rel = compare('geo_jac ' + name, got, ref, 1e-13)
+    check_repeat('geo_jac ' + name, lambda: cs.geo_jac_fields(Y, T, nurbs),
+                 got)
+    C, Q12, nL = Y.shape[1], Y.shape[2], Y.shape[3]
+    rec = dict(
+        max_abs_err=err, rel=rel, shape=list(got.shape), Y=list(Y.shape),
+        nL=nL, QL=int(T.shape[1]), repeat_equal=True,
+        ms=time_ms(lambda: cs.geo_jac_fields(Y, T, nurbs), device, reps=50),
+        plain_ms=time_ms(lambda: cs.geo_jac_fields_plain(Y, T, nurbs),
+                         device, reps=5),
+        library_ms=None,
+        **bound(nbytes(Y, T, got),
+                got[0].numel() * (2 * C * (d + 1) * nL + 30),
+                F64_FMA_PER_MS))
+    rec.update(jac_bare_times(Y, T, got, nurbs, device))
+    return rec
+
+
+def surface_asm(form, dim, n, device, boundary=None, geo=None, bfuns=None,
+                **args):
+    """An assembler of `form` on a p=3 space of `n` elements per axis:
+    over the face `boundary` of :func:`geo3` (3D), or over `geo`."""
+    from pyiga_tpu_torch.assemble import instantiate_assembler
+    args['geo'] = geo if geo is not None else geo3()
+    return instantiate_assembler(form, kvs_of(dim, n), args, bfuns,
+                                 boundary=boundary, device=device)
+
+
+def surface_vf(device, n=128, geo=None):
+    """``VForm(2, geo_dim=3)``'s ``v * ds`` on a surface (default: the
+    'left' face of :func:`geo3`) at 2D p=3."""
+    from pyiga_tpu_torch import compile, vform
+    vf = vform.VForm(2, geo_dim=3, arity=1)
+    vf.add(vf.basisfuns() * vform.ds)
+    return compile.compile_vform(vf)(
+        kvs_of(2, n), geo=geo if geo is not None else geo3().boundary('left'),
+        device=device)
+
+
+def hessian_input_vf():
+    """The Laplacian functional of an input field ``f``:
+    ``(H[0,0] + H[1,1]) * v * dx`` with ``H = hess(f)``."""
+    from pyiga_tpu_torch import vform
+    vf = vform.VForm(2, arity=1)
+    v = vf.basisfuns()
+    H = vform.hess(vf.input('f'))
+    vf.add((H[0, 0] + H[1, 1]) * v * vform.dx)
+    return vf
+
+
+def laplacian_input(kvs):
+    """The interpolant of ``x^2 y + y^3`` on the quarter annulus as a
+    spline input (its physical Laplacian is ``8 y``)."""
+    from pyiga_tpu_torch import approx, geometry
+    coeffs = approx.interpolate(kvs, lambda x, y: x ** 2 * y + y ** 3,
+                                geo=geometry.quarter_annulus())
+    return geometry.BSplineFunc(kvs, coeffs)
+
+
+def check_item8_kernels(device):
+    """Phase 4l: the kernels at the shapes of surface integrals and second
+    derivatives, each against its plain version (1e-13 relative, bitwise
+    on a repeat): K1's ``jac`` kind on a surface geometry (three
+    components on a 2D grid; B-spline: the twisted box's 'left' face,
+    NURBS: :func:`geo3`'s, both at n=128) and on the boundary Gauss grids
+    of all six faces of :func:`geo3` at n=48 (one grid axis of length 1);
+    K5 on ``v * ds`` ('left' and 'front'), ``inner(v, n) * ds`` and
+    ``inner(grad(u), grad(v)) * ds`` ('left', 3D n=48), the surface ``v
+    * ds`` (n=128),
+    the biharmonic ``inner(hess(u), hess(v)) * dx`` and the Laplacian
+    functional of a spline input (2D n=128 NURBS quarter annulus); K2
+    and K3 on those forms' chains (the normal axis of a face a 1 x 1
+    table)."""
+    from pyiga_tpu_torch import geometry
+    out = {'geo_jac_fields': {}, 'vform_fields': {}, 'chains': {}}
+    surf_bsp = surface_vf(device, geo=geometry.twisted_box().boundary('left'))
+    surf = surface_vf(device)
+    out['geo_jac_fields']['surface_bsp_n128'] = jac_case(surf_bsp, device,
+                                                         'surface bsp')
+    out['geo_jac_fields']['surface_nurbs_n128'] = jac_case(surf, device,
+                                                           'surface nurbs')
+    for bd in FACES:
+        asm = surface_asm('v * ds', 3, 48, device, boundary=bd)
+        out['geo_jac_fields']['face_%s_n48' % bd] = jac_case(
+            asm, device, 'face ' + bd)
+        if bd == 'left':
+            forms = {'v_ds_left': asm}
+        if bd == 'front':       # the first stage's table is 1 x 1
+            forms['v_ds_front'] = asm
+    forms['normal_left'] = surface_asm('inner(v, n) * ds', 3, 48, device,
+                                       boundary='left', bfuns=[('v', 3)])
+    forms['gradgrad_ds_left'] = surface_asm(
+        'inner(grad(u), grad(v)) * ds', 3, 48, device, boundary='left')
+    forms['surface_v_ds_n128'] = surf
+    forms['biharmonic_n128'] = surface_asm(
+        'inner(hess(u), hess(v)) * dx', 2, 128, device,
+        geo=geometry.quarter_annulus())
+    from pyiga_tpu_torch import compile
+    forms['hess_input_n128'] = compile.compile_vform(hessian_input_vf())(
+        kvs_of(2, 128), geo=geometry.quarter_annulus(),
+        f=laplacian_input(kvs_of(2, 128)), device=device)
+    for name, asm in forms.items():
+        out['vform_fields'][name] = vform_case(asm, device, tol=1e-13,
+                                               name=name)
+        out['chains'][name] = chain_case(asm, None, device, name)
+    for name, r in out['geo_jac_fields'].items():
+        log('  K1 jac %-18s %s: %.4f ms (device %.4f, plain %.4f, bound '
+            '%.4f)' % (name, r['shape'], r['ms'], r['device_ms'],
+                       r['plain_ms'], r['bound_ms']))
+    for name, r in out['vform_fields'].items():
+        c = out['chains'][name]
+        log('  %-18s K5 %.4f ms (device %.4f, bound %.4f)  K2 x%d %.4f ms '
+            '(plain %.4f, matmul %.4f, bound %.4f)  K3 x%d %.4f ms (plain '
+            '%.4f, matmul %.4f, bound %.4f)'
+            % (name, r['ms'], r['device_ms'], r['bound_ms'],
+               c['stage']['launches'], c['stage']['ms'],
+               c['stage']['plain_ms'], c['stage']['library_ms'],
+               c['stage']['bound_ms'], c['fold']['launches'],
+               c['fold']['ms'], c['fold']['plain_ms'],
+               c['fold']['library_ms'], c['fold']['bound_ms']))
+    return out
+
+
+def dense(x):
+    return x.toarray() if hasattr(x, 'toarray') else np.asarray(x)
+
+
+def held_to_cpu(name, got, make_cpu, tol=1e-13):
+    """`got` (a matrix or vector assembled on the card) against the same
+    call on a CPU setup (`make_cpu()`), `tol` relative to its largest
+    entry."""
+    ref = make_cpu()
+    a, b = dense(got), dense(ref)
+    if a.shape != b.shape:
+        raise RuntimeError('%s: card %s but CPU %s' % (name, a.shape,
+                                                       b.shape))
+    rel = float(np.abs(a - b).max() / np.abs(b).max())
+    ok = np.isfinite(a).all() and rel <= tol
+    log('  %-34s card vs CPU rel %.3e (tol %.0e) %s'
+        % (name, rel, tol, 'ok' if ok else 'FAIL'))
+    if not ok:
+        raise RuntimeError('%s: the card disagrees with the CPU' % name)
+    return rel
+
+
+def timed(fn, device):
+    """``(result, ms)`` of one call of `fn`, synchronized."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def run_item8_call(name, call, device, tol=1e-13):
+    """`call(dev)` on the card, warm (the first call builds the form's K5
+    and probes it), timed, and held to the same call on the CPU."""
+    call(device)
+    got, ms = timed(lambda: call(device), device)
+    rec = dict(ms=ms, rel_vs_cpu=held_to_cpu(name, got, lambda: call('cpu'),
+                                             tol))
+    log('  %-34s assemble %.2f ms' % (name, ms))
+    return got, rec
+
+
+def run_surface(device, n=48):
+    """Phase 17: surface integrals at full width on :func:`geo3` at 3D p=3
+    n=48 (132,651 dofs): ``v * ds`` on each of the six faces (each sum the
+    face's area to 1e-10), ``inner(v, n) * ds`` packed (the averaged
+    normals), ``inner(grad(u), grad(v)) * ds`` on 'left', the tangential
+    form on 'front' against ``assemble.stiffness`` of the quarter annulus
+    (1e-12), and ``VForm(2, geo_dim=3)``'s ``v * ds`` on :func:`geo3`'s
+    'left' face at n=128; each held to a CPU setup (1e-13) with its
+    ``assemble()`` ms."""
+    from pyiga_tpu_torch import assemble, geometry
+    kvs = kvs_of(3, n)
+    rec = {'faces': {}}
+    for bd in FACES:
+        f, r = run_item8_call('v * ds %s' % bd, lambda dev: assemble.assemble(
+            'v * ds', kvs, geo=geo3(), boundary=bd, device=dev), device)
+        r['sum'] = float(f.sum())
+        if abs(r['sum'] - FACE_AREAS[bd]) > 1e-10:
+            raise RuntimeError('v * ds on %s sums to %r, not %r'
+                               % (bd, r['sum'], FACE_AREAS[bd]))
+        nv, rn = run_item8_call(
+            'inner(v, n) * ds %s' % bd, lambda dev: assemble.assemble(
+                'inner(v, n) * ds', kvs, bfuns=[('v', 3)], geo=geo3(),
+                boundary=bd, layout='packed', device=dev), device)
+        r['normal'] = [float(x) for x in nv.sum(axis=(0, 1, 2))]
+        if not np.allclose(r['normal'], FACE_NORMALS[bd], rtol=0,
+                           atol=1e-10):
+            raise RuntimeError('normals on %s: %s' % (bd, r['normal']))
+        r['normal_ms'], r['normal_rel_vs_cpu'] = rn['ms'], rn['rel_vs_cpu']
+        rec['faces'][bd] = r
+    A, rec['gradgrad_left'] = run_item8_call(
+        'grad.grad ds left', lambda dev: assemble.assemble(
+            'inner(grad(u), grad(v)) * ds', kvs, geo=geo3(),
+            boundary='left', device=dev), device)
+    rec['gradgrad_left']['shape'] = list(A.shape)
+    A, rec['tangential_front'] = run_item8_call(
+        'tangential ds front', lambda dev: assemble.assemble(
+            'inner(cross(n, grad(u)), cross(n, grad(v))) * ds', kvs,
+            geo=geo3(), boundary='front', device=dev), device)
+    A2 = assemble.stiffness(kvs[1:], geo=geometry.quarter_annulus(),
+                            device=device)
+    rec['tangential_front']['rel_vs_stiffness'] = held_to_cpu(
+        'tangential front = 2D stiffness', A, lambda: A2, 1e-12)
+    f, rec['surface_vf_n128'] = run_item8_call(
+        'surface v * ds n=128', lambda dev: surface_vf(
+            dev).assemble_vector(), device)
+    rec['surface_vf_n128']['sum'] = float(f.sum())
+    if abs(f.sum() - np.pi / 2) > 1e-10:
+        raise RuntimeError('surface v * ds sums to %r' % f.sum())
+    return rec
+
+
+def run_second_derivatives(device, n=128):
+    """Phase 18: second derivatives at full width on the NURBS quarter
+    annulus at 2D p=3 n=128 (17,161 dofs): the biharmonic (Kirchhoff
+    plate) matrix by ``run_device`` and ``assemble()`` (ms and launches)
+    held to a CPU setup (1e-13); the Laplacian functional of the
+    interpolant of ``x^2 y + y^3`` within :data:`LAPLACIAN_TOL` of the
+    exact ``8 y``; and ``u * v * dx`` on the polar ``UserFunction`` at
+    n=60 held to a CPU setup."""
+    from pyiga_tpu_torch import _cuda, assemble, compile, geometry
+    from pyiga_tpu_torch.assemble import instantiate_assembler
+    kvs = kvs_of(2, n)
+    rec = {}
+    bih = 'inner(hess(u), hess(v)) * dx'
+    asm = instantiate_assembler(bih, kvs, {'geo': geometry.quarter_annulus()},
+                                None, device=device)
+    asm.run_device()
+    _cuda.reset_launches()
+    _, rd_ms = timed(asm.run_device, device)
+    rec['biharmonic'] = dict(
+        run_device_ms=rd_ms, combos=len(asm.combos),
+        fold_plan=len(asm._fold_plan or ()),
+        launches_run_device=dict(_cuda.LAUNCHES))
+    A, r = run_item8_call('biharmonic n=128', lambda dev: assemble.assemble(
+        bih, kvs, geo=geometry.quarter_annulus(), device=dev), device)
+    rec['biharmonic'].update(r)
+    log('  biharmonic: %d combos, run_device %.2f ms, launches %s'
+        % (len(asm.combos), rd_ms, rec['biharmonic']['launches_run_device']))
+    del asm, A
+    f = laplacian_input(kvs)
+    b, r = run_item8_call('laplacian functional n=128', lambda dev:
+                          compile.compile_vform(hessian_input_vf())(
+                              kvs, geo=geometry.quarter_annulus(), f=f,
+                              device=dev).assemble_vector(), device)
+    b_ex = assemble.inner_products(kvs, lambda x, y: 8 * y, f_physical=True,
+                                   geo=geometry.quarter_annulus())
+    r['rel_err_vs_8y'] = float(np.abs(b - b_ex).max() / np.abs(b_ex).max())
+    log('  Laplacian functional: rel error vs 8y %.3e (tol %.3e)'
+        % (r['rel_err_vs_8y'], LAPLACIAN_TOL))
+    if r['rel_err_vs_8y'] >= LAPLACIAN_TOL:
+        raise RuntimeError('Laplacian functional error %r'
+                           % r['rel_err_vs_8y'])
+    rec['laplacian'] = r
+    _, rec['usergeo_mass_n60'] = run_item8_call(
+        'UserFunction u * v * dx n=60', lambda dev: assemble.assemble(
+            'u * v * dx', kvs_of(2, 60), geo=polar_annulus(), device=dev),
+        device)
+    return rec
+
+
+def run_multipatch(device, n=128, p=3, n_hs=48):
+    """Phase 19: ``examples/torch_multipatch_poisson.py``'s ``main(p=3,
+    n=128)`` (an L shape of 3 patches, 17,161 dofs each, 51,221 global):
+    its checks (interface jump below 1e-12, ``u.max() > 0``), the
+    assembly ms per patch and the host solve ms, ``automatch=True``
+    against the hand-joined patches (``numdofs``, ``shared_per_patch``),
+    the global matrix held to a CPU setup (1e-13); then ``assemble(
+    stiffness, hs)``, the load vector and ``approx.project_L2(hs, f)`` on
+    the (48, 3) HB space of phase 8b, held to a CPU setup (the
+    projection, a solve, to 1e-11)."""
+    from pyiga_tpu_torch import approx, assemble, geometry, vform
+    mod = load_example('torch_multipatch_poisson')
+    mod.main(p=2, n=8, device=device)          # builds the forms' K5
+    u, info = mod.main(p=p, n=n, device=device)
+    MP = info['MP']
+    rec = dict(numdofs=int(MP.numdofs), jump=info['jump'],
+               u_max=float(u.max()), assemble_ms=info['assemble_ms'],
+               solve_ms=info['solve_ms'])
+    if MP.numdofs != 3 * (n + p) ** 2 - 2 * (n + p):
+        raise RuntimeError('multipatch numdofs %d' % MP.numdofs)
+    hand = assemble.Multipatch(MP.patches)
+    hand.join_boundaries(0, 'right', 1, 'left')
+    hand.join_boundaries(1, 'top', 2, 'bottom')
+    hand.finalize()
+    if hand.numdofs != MP.numdofs or \
+            hand.shared_per_patch != MP.shared_per_patch:
+        raise RuntimeError('automatch differs from the hand-joined patches')
+    rec['patch_ms'] = []
+    for k, (pk, geo) in enumerate(MP.patches):
+        _, ms = timed(lambda: assemble.assemble(
+            vform.stiffness_vf(2), pk, geo=geo, device=device), device)
+        rec['patch_ms'].append(ms)
+    log('  multipatch %d dofs: assembly %.1f ms (per patch %s ms), host '
+        'solve %.1f ms, jump %.2e'
+        % (MP.numdofs, info['assemble_ms'],
+           ['%.1f' % t for t in rec['patch_ms']], info['solve_ms'],
+           info['jump']))
+
+    def system(dev):
+        return MP.assemble_system(vform.stiffness_vf(2),
+                                  vform.L2functional_vf(2, physical=True),
+                                  f=lambda x, y: 1.0, device=dev)
+    rec['rel_vs_cpu'] = held_to_cpu('multipatch global matrix', info['A'],
+                                    lambda: system('cpu')[0])
+    hs = localmg_space(n_hs)
+    geo = geometry.unit_square()
+    f = lambda x, y: x ** 2 - 4 * x * y + y ** 3    # noqa: E731
+    _, rec['hspace_stiffness'] = run_item8_call(
+        'assemble(stiffness, hs) (%d,3)' % n_hs, lambda dev:
+        assemble.assemble(vform.stiffness_vf(2), hs, geo=geo, device=dev),
+        device)
+    _, rec['hspace_load_vector'] = run_item8_call(
+        'assemble(f v dx, hs) (%d,3)' % n_hs, lambda dev: assemble.assemble(
+            vform.L2functional_vf(2, physical=True), hs, geo=geo, f=f,
+            device=dev), device)
+    # the projection solves with the mass matrix, whose condition number
+    # scales the rounding of the assembled operands (1e-16) up: 1e-11
+    _, rec['hspace_project_L2'] = run_item8_call(
+        'project_L2(hs, f) (%d,3)' % n_hs, lambda dev: approx.project_L2(
+            hs, f, f_physical=True, geo=geo, device=dev), device, tol=1e-11)
+    rec['hspace_numdofs'] = int(hs.numdofs)
+    return rec
+
+
+def run_item8_phase(name, fn, device):
+    """One of phases 17-19 with the launch counts set to 0 just before and
+    read just after; raises if a kernel of :data:`ITEM8_KERNELS` was never
+    launched."""
+    from pyiga_tpu_torch import _cuda
+    _cuda.reset_launches()
+    rec = fn(device)
+    rec['launches'] = dict(_cuda.LAUNCHES)
+    log('  launches: %s' % rec['launches'])
+    missing = [k for k in ITEM8_KERNELS if rec['launches'][k] <= 0]
+    if missing:
+        raise RuntimeError('%s never launched %s' % (name, missing))
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -3443,19 +3858,55 @@ def main():
     nsrec = run_navier_stokes(device)
     torch.cuda.empty_cache()
 
+    log('phase 4l: K1 jac, K5, K2 and K3 at the surface and second-'
+        'derivative shapes, vs plain versions')
+    item8_kern = check_item8_kernels(device)
+    torch.cuda.empty_cache()
+
+    log('phase 17: surface integrals, 3D p=3 n=48 on the extruded quarter '
+        'annulus, and a surface VForm at n=128')
+    surface = run_item8_phase('phase 17', run_surface, device)
+    torch.cuda.empty_cache()
+
+    log('phase 18: second derivatives, 2D p=3 NURBS quarter annulus n=128; '
+        'a UserFunction geometry at n=60')
+    second = run_item8_phase('phase 18', run_second_derivatives, device)
+    torch.cuda.empty_cache()
+
+    log('phase 19: examples/torch_multipatch_poisson.py main(p=3, n=128); '
+        'assemble and project_L2 over the (48,3) HB space')
+    multipatch = run_item8_phase('phase 19', run_multipatch, device)
+    torch.cuda.empty_cache()
+
     # the NS shapes of the kernels the NS path runs, beside their launches
     # in phase 16's integration
     ns_line = {k: dict(launches=nsrec['launches'][k]) for k in NS_KERNELS}
     keys = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'max_abs_err')
     ns_line['geo_jac_fields']['channel'] = {
-        t: ns_kern['geo_jac_fields'][t] for t in keys}
+        t: ns_kern['geo_jac_fields'][t] for t in keys + ('device_ms',)}
     for form in ('nlconv', 'linconv'):
         ns_line['vform_fields'][form] = {
             t: ns_kern['vform_fields'][form][t] for t in keys}
         for k in ('stage', 'fold'):
             ns_line[k][form] = {t: ns_kern['chains'][form][k][t]
                                 for t in keys + ('launches',)}
+
+    # the surface and second-derivative shapes (phase 4l) beside their
+    # launches in phases 17-19
+    item8_line = {k: dict(launches={
+        ph: r['launches'][k] for ph, r in (('17', surface), ('18', second),
+                                           ('19', multipatch))})
+        for k in ITEM8_KERNELS}
+    for case, r in item8_kern['geo_jac_fields'].items():
+        item8_line['geo_jac_fields'][case] = {
+            t: r[t] for t in keys + ('device_ms',)}
+    for form, r in item8_kern['vform_fields'].items():
+        item8_line['vform_fields'][form] = {
+            t: r[t] for t in keys + ('device_ms',)}
+        for k in ('stage', 'fold'):
+            item8_line[k][form] = {t: item8_kern['chains'][form][k][t]
+                                   for t in keys + ('launches',)}
 
     kernels = [dict(name=k, route=KERNELS[k][0], source=KERNELS[k][1],
                     replaces=KERNELS[k][2], launches=launches[k],
@@ -3466,7 +3917,8 @@ def main():
                     library_ms=kern[k]['library_ms'],
                     **{t: kern[k][t] for t in ('launch_ms', 'device_ms')
                        if t in kern[k]},
-                    **({'ns': ns_line[k]} if k in ns_line else {}))
+                    **({'ns': ns_line[k]} if k in ns_line else {}),
+                    **({'item8': item8_line[k]} if k in item8_line else {}))
                for k in KERNELS]
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=t_build,
@@ -3478,7 +3930,9 @@ def main():
                   mass3d=mass3, heat2d=heat, heat2d_device=heat_dev,
                   tail_fused3d=tail, dirichlet3d=dirichlet,
                   ns_kernels=ns_kern, vector3d2d=vec, stokes=stokes,
-                  navier_stokes=nsrec,
+                  navier_stokes=nsrec, item8_kernels=item8_kern,
+                  surface=surface, second_derivatives=second,
+                  multipatch=multipatch,
                   seconds=time.perf_counter() - t_start)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:

@@ -3,8 +3,9 @@
 interpolation and L2 projection (a copy of :mod:`pyiga_tpu.approx` for
 tensor-product spaces).  The host work is numpy/scipy; an L2 projection
 with a geometry assembles its mass matrix through
-:func:`~pyiga_tpu_torch.assemble.mass` on `device`.  The projection onto
-a hierarchical space is not ported yet (ROADMAP §1)."""
+:func:`~pyiga_tpu_torch.assemble.mass` on `device`; onto a hierarchical
+space, its mass matrix and load vector through the hierarchical
+:func:`~pyiga_tpu_torch.assemble.assemble`."""
 
 import sys
 
@@ -51,12 +52,13 @@ def project_L2(kvs, f, f_physical=False, geo=None, device=None):
     Without geometry the Kronecker mass inverse applies directly; with
     `geo`, CG on the mapped mass matrix (assembled on `device`, default
     the card) is preconditioned by the parameter-domain Kronecker
-    inverse."""
+    inverse.  `kvs` may be an
+    :class:`~pyiga_tpu_torch.hierarchical.HSpace`
+    (:func:`_project_L2_hspace`)."""
     from . import assemble
     from .hierarchical import HSpace
     if isinstance(kvs, HSpace):
-        raise NotImplementedError('L2 projection onto a hierarchical space '
-                                  'is not ported yet (ROADMAP §1)')
+        return _project_L2_hspace(kvs, f, f_physical, geo, device)
     kvs = _as_kv_tuple(kvs)
     if f_physical and geo is None:
         raise ValueError('physical-coordinate f requires a geometry')
@@ -77,3 +79,17 @@ def project_L2(kvs, f, f_physical=False, geo=None, device=None):
         print('WARNING: L2 projection CG did not converge (info=%s)' % status,
               file=sys.stderr)
     return x.reshape(rhs.shape)
+
+
+def _project_L2_hspace(hs, f, f_physical, geo, device):
+    """L2-projection onto a hierarchical space: its mass matrix and load
+    vector assembled on `device` over the space (the identity geometry by
+    default), solved by a sparse direct solve on the host
+    (``pyiga_tpu/approx.py:80-87``)."""
+    from . import assemble, geometry, vform
+    if geo is None:
+        geo = geometry.identity(hs.knotvectors(0))
+    M = assemble.assemble(vform.mass_vf(hs.dim), hs, geo=geo, device=device)
+    b = assemble.assemble(vform.L2functional_vf(hs.dim, physical=f_physical),
+                          hs, geo=geo, f=f, device=device)
+    return operators.make_solver(M, spd=True).dot(b)

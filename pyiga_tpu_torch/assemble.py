@@ -8,8 +8,13 @@ assemblers of :mod:`pyiga_tpu_torch.assemblers` for a geometry), and
 their low-rank ACA counterparts :func:`mass_fast` and
 :func:`stiffness_fast`; vector-valued forms in the blocked and packed
 layouts (:func:`assemble_entries_vec`, :func:`divdiv`), forms on two
-spaces, and :class:`Assembler`, which reassembles after updating its
-inputs.
+spaces, boundary integrals (``boundary=``), the assembly over a
+hierarchical space (``kvs`` an :class:`~pyiga_tpu_torch.hierarchical.
+HSpace`), and :class:`Assembler`, which reassembles after updating its
+inputs.  :class:`Multipatch` joins tensor-product patches into one
+conforming space (interfaces given or found by
+:func:`detect_interfaces`) and assembles its global system patch by
+patch.
 
 Matrix conventions as in the JAX package: rows are test functions,
 columns trial functions.  The device is explicit (``device=``; omitted
@@ -21,8 +26,9 @@ boundary index sets of a tensor-product space (:func:`boundary_dofs`,
 :func:`boundary_cells`), Dirichlet data by interpolation on the boundary
 faces (:func:`compute_dirichlet_bcs`, :func:`combine_bcs`) and
 :class:`RestrictedLinearSystem` for eliminating Dirichlet dofs.
-Boundary integrals are not ported yet.
 """
+
+import itertools
 
 import numpy as np
 import scipy.sparse
@@ -434,28 +440,52 @@ class RestrictedLinearSystem:
         return self.extend(u) + self.R_elim.T @ self.values
 
 
+def _Jac_to_boundary_matrix(bdspec, dim):
+    """dim x (dim-1) matrix restricting a volumetric Jacobian to the
+    boundary `bdspec`, with signs chosen so that the computed normal points
+    outward for positively oriented patches
+    (``pyiga_tpu/assemble.py:536-547``)."""
+    ax, side = bdspec
+    ax = dim - 1 - ax       # vform coordinate axes are in XYZ order
+    I = np.eye(dim)
+    I[:, 0::2] *= -1
+    B = np.hstack((I[:, :ax], I[:, ax + 1:]))
+    if side != 0:
+        B[:, 0] *= -1
+    return B
+
+
 def instantiate_assembler(problem, kvs, args, bfuns, boundary=None,
                           updatable=(), device=None):
     """Normalize `problem` (string / VForm / assembler class / instance)
     into an assembler object on `device`; a form on two spaces gets the
-    pair ``kvs = (trial, test)`` (``pyiga_tpu/assemble.py:550-591``)."""
-    if boundary:
-        raise NotImplementedError('boundary integrals (boundary=) are not '
-                                  'ported yet')
+    pair ``kvs = (trial, test)``; `boundary` (a bdspec) makes it a
+    boundary integral over that face, with its ``Jac_to_boundary``
+    (``pyiga_tpu/assemble.py:550-591``)."""
     if isinstance(problem, str):
         problem = vform_mod.parse_vf(problem, kvs, args=args, bfuns=bfuns,
+                                     boundary=bool(boundary),
                                      updatable=updatable)
     num_spaces = 1
     if isinstance(problem, vform_mod.VForm):
         num_spaces = problem.num_spaces()
         problem = compile_vform(problem)
     if isinstance(problem, type):
+        used = {}
+        if boundary:
+            bdspec = bspline._parse_bdspec(boundary, len(kvs))
+            used['boundary'] = bdspec
+            args = dict(args)
+            args['Jac_to_boundary'] = _Jac_to_boundary_matrix(bdspec,
+                                                              len(kvs))
         wanted = list(problem.inputs()) + list(problem.parameters())
         missing = [inp for inp in wanted if inp not in args]
         if missing:
             raise ValueError("required input parameter '%s' missing"
                              % missing[0])
-        used = {inp: args[inp] for inp in wanted}
+        used.update((inp, args[inp]) for inp in wanted)
+        if 'Jac_to_boundary' in args:
+            used['Jac_to_boundary'] = args['Jac_to_boundary']
         if num_spaces <= 1:
             return problem(kvs, device=device, **used)
         if num_spaces != 2:
@@ -536,16 +566,23 @@ def assemble(problem, kvs, args=None, bfuns=None, boundary=None,
     :func:`pyiga_tpu_torch.vform.parse_vf`), a
     :class:`~pyiga_tpu_torch.vform.VForm`, a compiled assembler class or an
     assembler instance; `kvs` is a TP spline space (tuple of
-    KnotVectors).  Named inputs (the geometry ``geo``, coefficient
-    functions, parameters) are passed in `args` or as keyword arguments.
-    The assembly runs on `device` (default: the card).  `layout`
-    ('blocked' or 'packed') orders the components of a vector-valued
-    form; a form on two spaces takes ``kvs = (trial, test)``.  Structural
-    zeros
-    and symmetric term pairs are found by the JAX package's numeric
-    probes (``VFormAssembler._prune_combos``)."""
+    KnotVectors) or an :class:`~pyiga_tpu_torch.hierarchical.HSpace`.
+    Named inputs (the geometry ``geo``, coefficient functions,
+    parameters) are passed in `args` or as keyword arguments.  The
+    assembly runs on `device` (default: the card).  `layout` ('blocked'
+    or 'packed') orders the components of a vector-valued form; a form
+    on two spaces takes ``kvs = (trial, test)``; `boundary` (a bdspec
+    such as ``'left'`` or ``(axis, side)``) integrates a ``ds`` form over
+    that face of the space.  Structural zeros and symmetric term pairs
+    are found by the JAX package's numeric probes
+    (``VFormAssembler._prune_combos``)."""
     args = dict(args) if args is not None else dict()
     args.update(kwargs)
+    from .hierarchical import HSpace
+    if isinstance(kvs, HSpace):
+        return _assemble_hspace(problem, kvs, args=args, bfuns=bfuns,
+                                symmetric=symmetric, format=format,
+                                device=device)
     asm = instantiate_assembler(problem, kvs, args, bfuns, boundary,
                                 device=device)
     return assemble_entries(asm, symmetric=symmetric, format=format,
@@ -560,6 +597,23 @@ def assemble_vf(vf, kvs, symmetric=False, format='csr', layout='blocked',
     args.update(kwargs)
     return assemble(vf, kvs, symmetric=symmetric, format=format,
                     layout=layout, args=args, device=device)
+
+
+def _assemble_hspace(problem, hs, args, bfuns=None, symmetric=False,
+                     format='csr', device=None):
+    """Assemble over a hierarchical spline space: a bilinear form's matrix
+    or a functional's vector in the space's canonical numbering, through
+    :class:`~pyiga_tpu_torch._hdiscr.HDiscretization`'s per-level
+    assemblies on `device` (``pyiga_tpu/assemble.py:646-659``)."""
+    from ._hdiscr import HDiscretization
+    if isinstance(problem, str):
+        problem = vform_mod.parse_vf(problem, hs.knotvectors(0), args=args,
+                                     bfuns=bfuns)
+    if problem.arity == 2:
+        hdiscr = HDiscretization(hs, problem, args, device=device)
+        return hdiscr.assemble_matrix(symmetric=symmetric).asformat(format)
+    hdiscr = HDiscretization(hs, None, args, device=device)
+    return hdiscr.assemble_functional(problem)
 
 
 class Assembler:
@@ -646,3 +700,256 @@ def stiffness_fast(kvs, geo=None, tol=1e-10, maxiter=100, skipcount=3,
     from .vform import stiffness_vf
     return _fast_asm(stiffness_vf, kvs, geo, tol, maxiter, skipcount,
                      tolcount, verbose, device)
+
+
+################################################################################
+# Multipatch (conforming patches with shared-dof union numbering)
+################################################################################
+
+class _UnionFind:
+    """Minimal disjoint-set structure (path halving + size union)."""
+
+    def __init__(self, n):
+        self.parent = list(range(n))
+        self.size = n * [1]
+
+    def find(self, i):
+        p = self.parent
+        while p[i] != i:
+            p[i] = p[p[i]]
+            i = p[i]
+        return i
+
+    def union(self, a, b):
+        ra, rb = self.find(a), self.find(b)
+        if ra == rb:
+            return
+        if self.size[ra] < self.size[rb]:
+            ra, rb = rb, ra
+        self.parent[rb] = ra
+        self.size[ra] += self.size[rb]
+
+
+def _patch_boxes(patches):
+    """(lo, hi) corner arrays of every patch's bounding box."""
+    boxes = [np.asarray(geo.bounding_box()) for (_, geo) in patches]
+    lo = np.stack([b[:, 0] for b in boxes])
+    hi = np.stack([b[:, 1] for b in boxes])
+    return lo, hi
+
+
+def _check_geo_match(G1, G2, grid=4):
+    """Check whether two boundary geometries coincide under any combination
+    of per-axis coordinate flips; returns (match, flip)."""
+    if G1.sdim != G2.sdim or G1.dim != G2.dim:
+        return False, None
+    if not np.allclose(G1.support, G2.support):
+        return False, None
+    axes = [np.linspace(lo, hi, grid) for (lo, hi) in G1.support]
+    target = G1.grid_eval(axes)
+    for flip in itertools.product((False, True), repeat=G2.sdim):
+        probe = [ax[::-1].copy() if f else ax for ax, f in zip(axes, flip)]
+        if np.allclose(target, G2.grid_eval(probe)):
+            return True, flip
+    return False, None
+
+
+def _find_matching_boundaries(G1, G2):
+    """Every pair of faces of `G1` and `G2` that coincide, with the flips
+    of the second: ``[(bd1, bd2, flip), ...]``."""
+    if G1.sdim != G2.sdim or G1.dim != G2.dim:
+        raise ValueError('patches of different dimensions')
+    faces = list(itertools.product(range(G1.sdim), (0, 1)))
+    matches = []
+    for bd1 in faces:
+        B1 = G1.boundary(bd1)
+        for bd2 in faces:
+            ok, flip = _check_geo_match(B1, G2.boundary(bd2))
+            if ok:
+                matches.append((bd1, bd2, flip))
+    return matches
+
+
+def detect_interfaces(patches):
+    """Detect matching interfaces between the patches ``(kvs, geo)``.
+    Returns ``(connected, interfaces)`` where each interface is suitable
+    for :meth:`Multipatch.join_boundaries`; patches whose bounding boxes
+    are apart are not compared, and the patch graph's connectivity comes
+    from a union-find (``pyiga_tpu/assemble.py:812-840``)."""
+    interfaces = []
+    lo, hi = _patch_boxes(patches)
+    diam = np.linalg.norm(hi - lo, axis=1)
+    uf = _UnionFind(len(patches))
+
+    for p1 in range(len(patches)):
+        for p2 in range(p1 + 1, len(patches)):
+            gap = np.maximum(0.0, np.maximum(lo[p1] - hi[p2],
+                                             lo[p2] - hi[p1]))
+            if np.linalg.norm(gap) >= 1e-10 * max(diam[p1], diam[p2]):
+                continue
+            matches = _find_matching_boundaries(patches[p1][1],
+                                                patches[p2][1])
+            for bd1, bd2, flip in matches:
+                interfaces.append((p1, bd1, p2, bd2, flip))
+            if matches:
+                uf.union(p1, p2)
+
+    roots = {uf.find(p) for p in range(len(patches))}
+    return len(roots) <= 1, interfaces
+
+
+class Multipatch:
+    """A conforming multipatch discretization: per-patch TP spaces with
+    shared dofs identified along matching interfaces
+    (``pyiga_tpu/assemble.py:843-990``).
+
+    The global numbering puts the non-shared (interior) dofs of each patch
+    first (patch by patch), followed by the shared dofs in order of first
+    appearance.  With ``automatch=True`` the interfaces are found by
+    :func:`detect_interfaces` and the numbering is final at once;
+    otherwise join boundaries or dofs and call :meth:`finalize`."""
+
+    def __init__(self, patches, automatch=False):
+        self.patches = patches
+        self.N = [bspline.numdofs(kvs) for (kvs, _) in self.patches]
+        self.N_ofs = np.concatenate(([0], np.cumsum(self.N)))
+        self.shared_per_patch = [dict() for _ in range(len(self.patches))]
+        self.shared_dofs = []
+        self._pairs = []        # recorded (p1, i1, p2, i2) identifications
+
+        if automatch:
+            connected, interfaces = detect_interfaces(self.patches)
+            if not connected:
+                print('WARNING: patch graph is not connected - '
+                      'interface detection may have failed')
+            for intf in interfaces:
+                self.join_boundaries(*intf)
+            self.finalize()
+
+    @property
+    def numpatches(self):
+        return len(self.patches)
+
+    @property
+    def numdofs(self):
+        """Global dof count (shared dofs counted once); requires
+        :meth:`finalize`."""
+        return self.M_ofs[-1] + len(self.shared_dofs)
+
+    def join_dofs(self, p1, I1, p2, I2):
+        """Identify the dofs `I1` of patch `p1` with `I2` of patch `p2`
+        (effective after :meth:`finalize`)."""
+        if len(I1) != len(I2):
+            raise ValueError('dof arrays must have the same length')
+        if p1 == p2:
+            raise ValueError('patches must be different')
+        self._pairs.extend(
+            (p1, int(i1), p2, int(i2)) for i1, i2 in zip(I1, I2))
+
+    def join_boundaries(self, p1, bdspec1, p2, bdspec2, flip=None):
+        """Identify the dofs along two matching patch boundaries (with
+        optional per-axis flips of the second boundary)."""
+        dofs1 = boundary_dofs(self.patches[p1][0], bdspec1, ravel=True)
+        dofs2 = boundary_dofs(self.patches[p2][0], bdspec2, ravel=True,
+                              flip=flip)
+        self.join_dofs(p1, dofs1, p2, dofs2)
+
+    def finalize(self):
+        """Resolve the recorded identifications into shared-dof groups
+        (union-find over (patch, dof) pairs, merging chains across any
+        number of patches) and set up the global numbering: interior dofs
+        patch by patch, then the shared groups in the order in which each
+        first appears among the recorded pairs."""
+        node_id = {}
+
+        def node(p, i):
+            return node_id.setdefault((p, i), len(node_id))
+
+        links = [(node(p1, i1), node(p2, i2))
+                 for (p1, i1, p2, i2) in self._pairs]
+        uf = _UnionFind(len(node_id))
+        for a, b in links:
+            uf.union(a, b)
+
+        group_of_root = {}
+        self.shared_dofs = []
+        for (p, i), n in node_id.items():   # insertion = appearance order
+            root = uf.find(n)
+            if root not in group_of_root:
+                group_of_root[root] = len(self.shared_dofs)
+                self.shared_dofs.append(set())
+        self.shared_per_patch = [dict() for _ in range(self.numpatches)]
+        for (p, i), n in node_id.items():
+            g = group_of_root[uf.find(n)]
+            self.shared_dofs[g].add((p, i))
+            self.shared_per_patch[p][i] = g
+
+        num_shared = [len(spp) for spp in self.shared_per_patch]
+        self.M = [n - s for n, s in zip(self.N, num_shared)]
+        self.M_ofs = np.concatenate(([0], np.cumsum(self.M)))
+
+    def patch_to_global_idx(self, p):
+        """Array mapping local TP indices of patch `p` to global indices."""
+        tpdofs = np.arange(self.N[p])
+        sdofs = np.array(sorted(self.shared_per_patch[p].items()))
+        if len(sdofs):
+            local = np.setdiff1d(tpdofs, sdofs[:, 0], assume_unique=True)
+        else:
+            local = tpdofs.copy()
+        m_ofs = self.M_ofs[p]
+        tpdofs[local] = np.arange(m_ofs, m_ofs + local.shape[0])
+        if len(sdofs):
+            tpdofs[sdofs[:, 0]] = self.M_ofs[-1] + sdofs[:, 1]
+        return tpdofs
+
+    def patch_to_global(self, p, j_global=False):
+        """Sparse 0/1 matrix mapping patch-`p` dofs to global dofs."""
+        shape = (self.numdofs,
+                 self.N_ofs[-1] if j_global else self.N[p])
+        n_ofs = self.N_ofs[p] if j_global else 0
+        I = self.patch_to_global_idx(p)
+        J = np.arange(n_ofs, n_ofs + self.N[p])
+        return scipy.sparse.coo_matrix(
+            (np.ones(len(I)), (I, J)), shape=shape).tocsr()
+
+    def global_to_patch(self, p):
+        """Transpose (and left-inverse) of :meth:`patch_to_global`."""
+        return self.patch_to_global(p).T
+
+    def assemble_system(self, problem, rhs, args=None, bfuns=None,
+                        symmetric=False, format='csr', layout='blocked',
+                        device=None, **kwargs):
+        """Assemble the global system matrix and right-hand side by
+        accumulating the per-patch contributions ``X A_p X^T`` and ``X
+        b_p``, each patch assembled on `device` (default: the card) and
+        scattered on the host."""
+        n = self.numdofs
+        A = scipy.sparse.csr_matrix((n, n)).asformat(format)
+        b = np.zeros(n)
+        args = dict(args) if args is not None else dict()
+        for p in range(self.numpatches):
+            X = self.patch_to_global(p)
+            kvs, geo = self.patches[p]
+            args.update(geo=geo)
+            A_p = assemble(problem, kvs, args=args, bfuns=bfuns,
+                           symmetric=symmetric, format=format, layout=layout,
+                           device=device, **kwargs)
+            A = A + X @ A_p @ X.T
+            b_p = assemble(rhs, kvs, args=args, bfuns=bfuns,
+                           symmetric=symmetric, format=format, layout=layout,
+                           device=device, **kwargs).ravel()
+            b += X @ b_p
+        return A, b
+
+    def compute_dirichlet_bcs(self, bdconds):
+        """Dirichlet (indices, values) over the global numbering;
+        `bdconds` contains (patch, bdspec, dir_func) triples."""
+        bcs = []
+        p2g = dict()
+        for p, bdspec, g in bdconds:
+            kvs, geo = self.patches[p]
+            bc = compute_dirichlet_bc(kvs, geo, bdspec, g)
+            if p not in p2g:
+                p2g[p] = self.patch_to_global_idx(p)
+            bcs.append((p2g[p][bc[0]], bc[1]))
+        return combine_bcs(bcs)

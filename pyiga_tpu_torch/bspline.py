@@ -154,6 +154,13 @@ class KnotVector:
                           self.p)
 
 
+def numdofs(kvs):
+    """Total dimension of a knot vector or a tensor-product tuple of them."""
+    if isinstance(kvs, KnotVector):
+        return kvs.numdofs
+    return int(np.prod([kv.numdofs for kv in kvs]))
+
+
 def make_knots(p, a, b, n, mult=1):
     """Open knot vector of degree `p` over ``(a, b)`` with `n` knot spans and
     interior-knot multiplicity `mult`."""

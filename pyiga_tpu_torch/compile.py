@@ -40,16 +40,27 @@ exist for the TPU and are not ported.
 Vector-valued forms assemble one compact tensor per component block
 ``(cu, cv)`` (the seeds carry the component; each block's chains run K2
 stages and one K3 fold); two-space forms take the trial space ``kvs``
-and the test space ``kvs2``; first derivatives of spline input fields
+and the test space ``kvs2``; first and second derivatives of input fields
 are evaluated on the host at setup and by :meth:`VFormAssembler.update`
-(``ideriv:<name>:1``), or passed as device tensors to
+(``ideriv:<name>:1`` and ``:2``, the latter in the symmetric XYZ layout
+of :func:`_sym_index`; a physical input is differentiated by
+``torch.func`` where it traces and by central differences otherwise,
+:func:`_physical_field_derivs`), or passed as device tensors to
 :meth:`VFormAssembler.run_device` (``inputs=``), which a time stepper
 uses to reassemble a convection term from its state on the card.
 
-Not ported yet (each raises :class:`NotImplementedError` naming the
-piece; ROADMAP item 8): surface integrals, geometry Hessians and second
-physical derivatives, second derivatives of input fields and
-derivatives of physical inputs, host-evaluated (non-spline) geometry.
+Surface integrals: ``ds`` over a face of the space (``boundary=``) runs
+on the boundary Gauss grid, the face's axis collapsed to one point and
+reduced to its one boundary dof, the measure through the
+``Jac_to_boundary`` parameter; ``ds`` on a surface (a geometry of one
+more output dimension than the space, ``VForm(dim, geo_dim=dim + 1)``)
+runs on the space's own grid.  Forms with second physical derivatives
+or ``hess`` of the geometry read its parametric Hessian ``geo_hess_lvl``
+``(geo_dim, d, d) + grid`` (level order), formed by K2 stages over the
+second-derivative tables (:func:`~pyiga_tpu_torch.ops.cuda_sumfac.
+geometry_hessian`).  A geometry that is no spline (a
+:class:`~pyiga_tpu_torch.geometry.UserFunction`) is evaluated on the
+host once, its values and Jacobian uploaded for K5 to read.
 """
 
 import itertools
@@ -57,7 +68,7 @@ import itertools
 import numpy as np
 import torch
 
-from . import geometry, utils
+from . import utils
 from .bspline import KnotVector
 from .config import DTYPE, resolve_device
 from .mlmatrix import MLStructure, transpose_idx_for_bidx
@@ -138,8 +149,7 @@ class AsmContext:
         if kind == '_measure':
             if key[1] == 'dx':
                 return vf.W.eval(self)
-            raise NotImplementedError('surface integrals (ds) are not '
-                                      'ported yet')
+            return vf.SW.eval(self)
 
         if kind == 'jacinv':
             m, k = key[1], key[2]
@@ -162,18 +172,124 @@ class AsmContext:
 
         if kind == 'input_deriv':
             _, name, comp, D = key
-            if sum(D) == 1:
-                if name == 'geo':       # level order
-                    return arrays['geo_jac_lvl'][gd - 1 - comp[0]][
-                        d - 1 - D.index(1)]
-                # the derivative axis of an input field is XYZ order
-                # (pyiga_tpu/compile.py:146-165)
-                return arrays['ideriv:%s:1' % name][comp + (D.index(1),)]
-            raise NotImplementedError(
-                'geometry Hessians and second derivatives of input fields '
-                'are not ported yet (field key %r; ROADMAP item 8)' % (key,))
+            order = sum(D)
+            if order not in (1, 2):
+                raise NotImplementedError('derivatives of order > 2')
+            if name == 'geo':           # level order
+                m = gd - 1 - comp[0]
+                if order == 1:
+                    return arrays['geo_jac_lvl'][m][d - 1 - D.index(1)]
+                i, j = [k for k, nk in enumerate(D) for _ in range(nk)]
+                return arrays['geo_hess_lvl'][m][d - 1 - i][d - 1 - j]
+            # the derivative axis of an input field is XYZ order, its
+            # Hessian the symmetric pairs i <= j (pyiga_tpu/compile.py:
+            # 146-169)
+            arr = arrays['ideriv:%s:%d' % (name, order)]
+            if order == 1:
+                return arr[comp + (D.index(1),)]
+            i, j = sorted(k for k, nk in enumerate(D) for _ in range(nk))
+            return arr[comp + (_sym_index(d, i, j),)]
 
         raise KeyError('unknown field key %r' % (key,))
+
+
+def _sym_index(d, i, j):
+    """Index of (i, j), i <= j, in the linearized symmetric Hessian layout
+    (xx, xy, xz, yy, yz, zz for d=3)."""
+    # number of entries before row i: d + (d-1) + ... + (d-i+1)
+    before = i * d - (i * (i - 1)) // 2
+    return before + (j - i)
+
+
+def _physical_field_derivs(f, geo, grid, comp_shape, with_hessian=False):
+    """Physical gradient (and optionally Hessian) of the physical-coordinate
+    field `f` at the mapped Gauss points of `grid`
+    (``pyiga_tpu/compile.py:269-366``).
+
+    Differentiates `f` itself: with ``torch.func`` forward mode when `f`
+    traces on tensors, else by central finite differences on the physical
+    coordinates (a function that calls numpy or :mod:`math` on its
+    arguments does not trace, in either package).  Returns ``(grad,
+    hess)`` with shapes ``grid + comp_shape + (sdim,)`` and ``grid +
+    comp_shape + (nsym,)`` (symmetric pairs i <= j in XYZ order); `hess`
+    is None unless requested."""
+    pts = np.asarray(geo.grid_eval(grid))       # grid + (sdim,), XYZ comps
+    grid_shape, sdim = pts.shape[:-1], pts.shape[-1]
+    flat_pts = pts.reshape(-1, sdim)
+
+    def fd_derivs():
+        coords = [flat_pts[:, k] for k in range(sdim)]
+        scale = [max(1.0, float(np.abs(c).max())) for c in coords]
+
+        def ev(shifts):
+            c = [ck + dk for ck, dk in zip(coords, shifts)]
+            vals = f(*c)
+            if isinstance(vals, tuple):
+                vals = np.stack([np.broadcast_to(v, coords[0].shape)
+                                 for v in vals], axis=-1)
+            return np.broadcast_to(np.asarray(vals, dtype=float),
+                                   coords[0].shape + comp_shape)
+
+        zero = sdim * (0.0,)
+
+        def shift(k, h):
+            s = list(zero)
+            s[k] = h
+            return s
+
+        g = np.empty((flat_pts.shape[0],) + comp_shape + (sdim,))
+        steps = [1e-6 * s for s in scale]
+        for k in range(sdim):
+            h = steps[k]
+            g[..., k] = (ev(shift(k, h)) - ev(shift(k, -h))) / (2 * h)
+        if not with_hessian:
+            return g, None
+        nsym = (sdim * (sdim + 1)) // 2
+        H = np.empty((flat_pts.shape[0],) + comp_shape + (nsym,))
+        f0 = ev(zero)
+        for i in range(sdim):
+            hi = 1e-4 * scale[i]        # larger step: 2nd differences
+            for j in range(i, sdim):
+                hj = 1e-4 * scale[j]
+                if i == j:
+                    val = (ev(shift(i, hi)) - 2 * f0
+                           + ev(shift(i, -hi))) / hi ** 2
+                else:
+                    spp = [0.0] * sdim
+                    spp[i], spp[j] = hi, hj
+                    smm = [-v for v in spp]
+                    spm = [0.0] * sdim
+                    spm[i], spm[j] = hi, -hj
+                    smp = [-v for v in spm]
+                    val = (ev(spp) - ev(spm) - ev(smp) + ev(smm)) \
+                        / (4 * hi * hj)
+                H[..., _sym_index(sdim, i, j)] = val
+        return g, H
+
+    def f_at(p):
+        vals = f(*(p[k] for k in range(sdim)))
+        if isinstance(vals, tuple):
+            vals = torch.stack([torch.as_tensor(v, dtype=torch.float64)
+                                for v in vals], dim=-1)
+        return torch.as_tensor(vals, dtype=torch.float64)
+
+    try:
+        from torch.func import jacfwd, vmap
+        P = torch.as_tensor(flat_pts, dtype=torch.float64)
+        g = vmap(jacfwd(f_at))(P).numpy()
+        H = None
+        if with_hessian:
+            Hfull = vmap(jacfwd(jacfwd(f_at)))(P).numpy()
+            H = np.stack([0.5 * (Hfull[..., i, j] + Hfull[..., j, i])
+                          for i in range(sdim) for j in range(i, sdim)],
+                         axis=-1)
+    except Exception:
+        g, H = fd_derivs()
+
+    g = g.reshape(grid_shape + comp_shape + (sdim,))
+    if H is not None:
+        H = H.reshape(grid_shape + comp_shape + (H.shape[-1],))
+    return g, H
 
 
 ################################################################################
@@ -205,7 +321,8 @@ class VFormAssembler:
 
     @classmethod
     def parameters(cls):
-        return {p.name: p.shape for p in cls.vf.params}
+        return {p.name: p.shape for p in cls.vf.params
+                if p.name != 'Jac_to_boundary'}
 
     def __init__(self, kvs, *posargs, kvs2=None, boundary=None, bbox=None,
                  device=None, **args):
@@ -225,11 +342,6 @@ class VFormAssembler:
             if len(posargs) > len(names):
                 raise TypeError('too many positional arguments')
             args.update(zip(names, posargs))
-        if boundary is not None or 'boundary' in args or vf.is_boundary \
-                or vf.is_surface_integral():
-            raise NotImplementedError(
-                'surface integrals (ds, boundary=, Jac_to_boundary) are not '
-                'ported yet')
         if isinstance(kvs, KnotVector):
             kvs = (kvs,)
         kvs = tuple(kvs)
@@ -246,14 +358,18 @@ class VFormAssembler:
                              '(%d)' % (self.dim, vf.dim))
         self.device = resolve_device(device)
 
-        self.geo = self._checked_geo(args.pop('geo'))
+        self.geo = args.pop('geo')
+        self.bdspec = bdspec = args.pop('boundary', boundary)
         self.bbox = args.pop('bbox', bbox)
+        if bdspec is not None and self.bbox is not None:
+            raise ValueError('bbox and boundary exclude each other')
 
         # quadrature on the trial space's mesh, nqp = max(p) + 1 over both
         nqp = max(kv.p for kv in self.kvs0 + self.kvs1) + 1
         self.structure = MLStructure.from_kvs(self.kvs0, self.kvs1)
         if self.bbox is None:
-            self.grid, self.gweights = sumfac.quadrature_for(kvs, nqp)
+            self.grid, self.gweights = sumfac.quadrature_for(
+                kvs, nqp, bdspec=bdspec)
         else:
             # on-demand mode: the Gauss grid covers only the cells of the
             # bbox, so entries whose test function is supported inside it
@@ -263,8 +379,23 @@ class VFormAssembler:
                 nqp)
             self._restrict_to_bbox()
         self.maxderiv = vf.max_deriv_order()
+        if bdspec is not None:
+            # a boundary integral: the normal axis keeps the one boundary
+            # basis function that does not vanish there
+            # (pyiga_tpu/compile.py:490-507)
+            bdax = bdspec[0]
+            bs, bidx = list(self.structure.bs), list(self.structure.bidx)
+            bs[bdax] = (1, 1)
+            bidx[bdax] = np.zeros((1, 2), dtype=np.uint32)
+            self.structure = MLStructure(bs, bidx)
         self.tables = sumfac.SpaceTables(self.kvs0, self.kvs1, self.grid,
                                          self.structure.bidx, self.maxderiv)
+        if bdspec is not None:
+            sl = slice(0, 1) if bdspec[1] == 0 else slice(-1, None)
+            shared = self.tables.test is self.tables.trial
+            self.tables.trial[bdax] = self.tables.trial[bdax][:, sl, :]
+            if not shared:
+                self.tables.test[bdax] = self.tables.test[bdax][:, sl, :]
 
         ncomp = tuple(bf.numcomp for bf in vf.basis_funs)
         if vf.arity == 2:
@@ -289,36 +420,12 @@ class VFormAssembler:
             self._param_values[p.name] = args[p.name]
 
         self._needed_keys = vf.used_field_keys()
-        physical = {inp.name for inp in vf.inputs if inp.physical}
-        for key in self._needed_keys:
-            if key[0] == 'input_deriv' and (sum(key[3]) != 1
-                                            or key[1] in physical):
-                raise NotImplementedError(
-                    'geometry Hessians, second derivatives of input fields '
-                    'and derivatives of physical inputs are not ported yet '
-                    '(field key %r; ROADMAP item 8)' % (key,))
-        if self.maxderiv >= 2 and any(key[0] == 'jacinv'
-                                      for key in self._needed_keys):
-            raise NotImplementedError('second physical derivatives need '
-                                      'geometry Hessians, not ported yet')
         self._build_arrays()
         self._num_combos_total = len(self.combos)
         self._prune_combos()
         self._operands = None
         self._program_cache = {}
         self._slice_cache = self._full_mlm = None
-
-    def _checked_geo(self, geo):
-        if not isinstance(geo, (geometry.BSplineFunc, geometry.NurbsFunc)):
-            raise NotImplementedError(
-                'a non-spline geometry (UserFunction) inside a generic VForm '
-                'is not ported yet (ROADMAP item 8); assemble.mass and '
-                'assemble.stiffness take one')
-        if tuple(geo.output_shape()) != (self.dim,):
-            raise NotImplementedError(
-                'geometry output shape %s differs from the space dimension '
-                '%d' % (geo.output_shape(), self.dim))
-        return geo
 
     def _restrict_to_bbox(self):
         """Drop the per-axis dof pairs with no support inside the bbox:
@@ -347,12 +454,43 @@ class VFormAssembler:
 
     # -- array setup -------------------------------------------------------------
 
+    def _needs_geo_hessian(self):
+        """Whether the form reads the geometry's second derivatives: a
+        ``hess`` of the geometry, or second physical derivatives (outside
+        space-time forms, whose transform names them itself)."""
+        for key in self._needed_keys:
+            if key[0] == 'input_deriv' and key[1] == 'geo' \
+                    and sum(key[3]) >= 2:
+                return True
+        return self.maxderiv >= 2 and not self.vf.spacetime and \
+            any(key[0] == 'jacinv' for key in self._needed_keys)
+
     def _build_arrays(self):
-        """Host setup of the grid arrays; the geometry stays as tables and
-        coefficients, its fields are computed on the device."""
+        """Host setup of the grid arrays.  A spline geometry stays as
+        tables (with second derivatives where the form needs its Hessian)
+        and coefficients, its fields computed on the device; any other is
+        evaluated here, its values and Jacobian kept as host arrays
+        (``pyiga_tpu/compile.py:548-575``)."""
         arrays = {'weights': [np.asarray(w) for w in self.gweights]}
-        self._geo_tables, self._geo_coeffs, self._geo_is_nurbs = \
-            geom.geo_eval_tables(self.geo, self.grid, numderiv=1)
+        geo_derivs = 2 if self._needs_geo_hessian() else 1
+        setup = geom.geo_eval_tables(self.geo, self.grid,
+                                     numderiv=geo_derivs)
+        if setup is None:
+            if geo_derivs >= 2:
+                raise NotImplementedError(
+                    'this form needs second geometry derivatives, which are '
+                    'only available for spline/NURBS geometries; wrap the '
+                    'geometry as a BSplineFunc/NurbsFunc (e.g. via '
+                    'approx.interpolate) to use it here')
+            arrays['geo_jac_lvl'] = geom.host_jacobian_levelorder(
+                self.geo, self.grid)
+            val = geom.host_eval(self.geo, self.grid)       # grid x dim
+            arrays['geo_val_lvl'] = np.ascontiguousarray(
+                np.moveaxis(val[..., ::-1], -1, 0))
+            self._geo_tables = self._geo_coeffs = None
+            self._geo_is_nurbs = False
+        else:
+            self._geo_tables, self._geo_coeffs, self._geo_is_nurbs = setup
         for inp in self.vf.inputs:
             if inp.name != 'geo':
                 arrays.update(self._eval_input(
@@ -364,9 +502,12 @@ class VFormAssembler:
 
     def _eval_input(self, inp, f):
         """Values of one input field on the Gauss grid (component axes
-        leading) and, where the form differentiates it, its first
-        derivatives ``ideriv:<name>:1`` (``comp + (XYZ axis,) + grid``,
-        from ``f.grid_jacobian``; ``pyiga_tpu/compile.py:587-637``)."""
+        leading) and, for each derivative order the form takes of it, its
+        derivatives ``ideriv:<name>:<order>`` (``comp + (XYZ axis,) +
+        grid``, or the symmetric pairs for order 2): a spline input's
+        ``grid_jacobian`` / ``grid_hessian``, a physical input's
+        :func:`_physical_field_derivs` (``pyiga_tpu/compile.py:
+        577-637``)."""
         if inp.physical:
             vals = utils.grid_eval_transformed(f, self.grid, self.geo)
         else:
@@ -375,13 +516,25 @@ class VFormAssembler:
         vals = np.moveaxis(np.asarray(vals, dtype=float),
                            tuple(range(-n, 0)), tuple(range(n)))
         out = {'input:' + inp.name: np.ascontiguousarray(vals)}
-        if any(key[0] == 'input_deriv' and key[1] == inp.name
-               for key in self._needed_keys):
-            # grid x comp... x sdim, the derivative axis already XYZ
-            jac = np.asarray(f.grid_jacobian(self.grid), dtype=float)
-            jac = np.moveaxis(jac, tuple(range(-(n + 1), 0)),
-                              tuple(range(n + 1)))
-            out['ideriv:%s:1' % inp.name] = np.ascontiguousarray(jac)
+        orders = {sum(key[3]) for key in self._needed_keys
+                  if key[0] == 'input_deriv' and key[1] == inp.name}
+        for order in sorted(orders):
+            if order > 2:
+                raise NotImplementedError('input derivs of order > 2')
+            if inp.physical:
+                grad, hess = _physical_field_derivs(
+                    f, self.geo, self.grid, inp.shape,
+                    with_hessian=order == 2)
+                arr = grad if order == 1 else hess
+            elif order == 1:
+                arr = f.grid_jacobian(self.grid)
+            else:
+                arr = f.grid_hessian(self.grid)
+            # grid x comp... x (XYZ axis or pair), moved to the front
+            arr = np.moveaxis(np.asarray(arr, dtype=float),
+                              tuple(range(-(n + 1), 0)), tuple(range(n + 1)))
+            out['ideriv:%s:%d' % (inp.name, order)] = \
+                np.ascontiguousarray(arr)
         return out
 
     def update(self, **upd):
@@ -397,7 +550,7 @@ class VFormAssembler:
         changed = {}
         for name, f in upd.items():
             if name == 'geo':
-                self.geo = self._checked_geo(f)
+                self.geo = f
                 geo_changed = True
                 continue
             inp = [i for i in self.vf.inputs if i.name == name]
@@ -564,7 +717,8 @@ class VFormAssembler:
         hsig = tuple(sorted(sig(k, a) for k, a in self._host_arrays.items()
                             if k != 'weights'))
         return (self.vf.hash(), self.dim, self.vf.geo_dim, self.arity,
-                bool(self.vf.vec), hsig, self.kvs0 == self.kvs1)
+                bool(self.vf.vec), repr(self.bdspec),
+                self._needs_geo_hessian(), hsig, self.kvs0 == self.kvs1)
 
     def _prune_combos(self):
         """Drop structurally-zero seed combinations using a random probe on
@@ -594,6 +748,9 @@ class VFormAssembler:
         probe = {'weights': [rnd((tiny_grid,)) for _ in range(self.dim)]}
         probe['geo_val_lvl'] = rnd((self.vf.geo_dim,) + gshape)
         probe['geo_jac_lvl'] = rnd((self.vf.geo_dim, self.dim) + gshape)
+        if self._needs_geo_hessian():
+            H = rnd((self.vf.geo_dim, self.dim, self.dim) + gshape)
+            probe['geo_hess_lvl'] = 0.5 * (H + H.swapaxes(1, 2))
         for key, arr in self._host_arrays.items():
             if key == 'weights':
                 continue
@@ -649,9 +806,11 @@ class VFormAssembler:
         numerically equal probe field contributes the transpose of its
         partner's chain, so one chain of each pair runs and the
         compact-layout transpose gather mirrors it.  Off for vector and
-        two-space forms (``pyiga_tpu/compile.py:1119``)."""
+        two-space forms and for boundary integrals
+        (``pyiga_tpu/compile.py:1119``)."""
         self._fold_plan = self._fold_tperms = None
-        if self.arity != 2 or self.vf.vec or self.kvs0 != self.kvs1:
+        if self.arity != 2 or self.vf.vec or self.kvs0 != self.kvs1 \
+                or self.bdspec is not None:
             return
         index = {c: i for i, c in enumerate(self.combos)}
         plan = []
@@ -720,10 +879,12 @@ class VFormAssembler:
         if self._fold_plan is not None:
             tperms = [torch.as_tensor(p, dtype=torch.int64, device=dev)
                       for p in self._fold_tperms]
+        spline = self._geo_tables is not None
         self._operands = dict(
             inputs=inputs,
-            geo_tables=[tensor(t) for t in self._geo_tables],
-            geo_coeffs=tensor(self._geo_coeffs),
+            geo_tables=[tensor(t) for t in self._geo_tables]
+            if spline else None,
+            geo_coeffs=tensor(self._geo_coeffs) if spline else None,
             term_tables=[[uploaded[id(T)] for T in tabs]
                          for tabs in host_tabs],
             last_idx=sumfac.last_table_groups(host_tabs),
@@ -732,9 +893,11 @@ class VFormAssembler:
 
     def _geometry_fields(self):
         """Physical geometry values and Jacobian ``(geo_val_lvl,
-        geo_jac_lvl)`` on the Gauss grid, from K2 and K1's ``jac``
-        kind."""
+        geo_jac_lvl)`` on the Gauss grid, from K2 and K1's ``jac`` kind;
+        for a host-evaluated geometry its uploaded arrays."""
         ops = self._device_operands()
+        if ops['geo_tables'] is None:
+            return ops['inputs']['geo_val_lvl'], ops['inputs']['geo_jac_lvl']
         return cuda_sumfac.geometry_fields(ops['geo_tables'],
                                            ops['geo_coeffs'],
                                            self._geo_is_nurbs)
@@ -743,12 +906,16 @@ class VFormAssembler:
         """The device tensors K5 evaluates on: the inputs, parameters (per
         name and as the flat ``params`` vector) and per-axis Gauss
         weights, plus the physical geometry values ``geo_val_lvl``
-        ``(d,) + grid`` and Jacobian ``geo_jac_lvl`` ``(d, d) + grid``
-        (level order) from K2 and K1's ``jac`` kind, computed anew on
-        every call (``d`` K2 stages and one K1 launch) and not kept:
-        held beside the cached operands they would add ``d (d + 1)``
-        grid-sized fields to every assembler for the life of its
-        operands.
+        ``(gd,) + grid`` and Jacobian ``geo_jac_lvl`` ``(gd, d) + grid``
+        (level order; ``gd`` the geometry's output dimension) from K2 and
+        K1's ``jac`` kind and, where the form needs it, the parametric
+        Hessian ``geo_hess_lvl`` ``(gd, d, d) + grid`` from K2 stages
+        (:func:`~pyiga_tpu_torch.ops.cuda_sumfac.geometry_hessian`),
+        computed anew on every call and not kept: held beside the cached
+        operands they would add ``gd (d + 1)`` or more grid-sized fields
+        to every assembler for the life of its operands.  A
+        host-evaluated geometry's values and Jacobian are uploaded once
+        with the operands.
 
         `inputs` maps ``input:<name>`` / ``ideriv:<name>:1`` keys to
         device tensors of the cached operands' shapes that replace them
@@ -757,6 +924,9 @@ class VFormAssembler:
         ops = self._device_operands()
         arrays = dict(ops['inputs'])
         arrays['geo_val_lvl'], arrays['geo_jac_lvl'] = self._geometry_fields()
+        if self._needs_geo_hessian():
+            arrays['geo_hess_lvl'] = cuda_sumfac.geometry_hessian(
+                ops['geo_tables'], ops['geo_coeffs'], self._geo_is_nurbs)
         if inputs is None:
             return arrays
         for key, t in inputs.items():

@@ -1,6 +1,6 @@
 // Geometry-field kernels for Hopper (sm_90a), float64.
 //
-// K1  geo_fields_kernel<D, NURBS, KIND, NL>  replaces
+// K1  geo_fields_kernel<D, G, NURBS, KIND, NL>  replaces
 //     pyiga_tpu/ops/pallas_sumfac.py `_fields_fused` (pallas_call at :1087,
 //     body `_make_stiff_fields_fused_kernel`) in its three kinds:
 //     'stiffness', 'mass' (through `mass_fields_pallas`, :1411) and 'jac'
@@ -85,9 +85,12 @@ __device__ __forceinline__ void store_stiffness(double (&inv)[D][D],
 // KIND kStiffness: B_ab = W (J^-1 J^-T)_ab, W = gw |det J|; out
 //   (D(D+1)/2, Q12, QL), the unique B_ab (a <= b, row-major).
 // KIND kMass: the mass field W = gw |det J| alone; out (Q12, QL).
-// KIND kJac: out (D + D*D, Q12, QL), rows 0..D-1 the physical values x_c
+// KIND kJac: out (G + G*D, Q12, QL), rows 0..G-1 the physical values x_c
 //   (level order), then J[c][k] = d x_c / d xi_k row-major; for NURBS the
-//   quotient V / W and its quotient-rule Jacobian.
+//   quotient V / W and its quotient-rule Jacobian.  G, the geometry's
+//   output dimension, is D for a volume map and D + 1 for a surface (a
+//   3D surface over a 2D space, a 2D curve over a 1D one); the stiffness
+//   and mass kinds take G = D.
 //
 // Inputs (all row-major float64):
 //   Y    (D, C, Q12, nL)  stage-1/2 geometry partials from K2: entry
@@ -96,8 +99,11 @@ __device__ __forceinline__ void store_stiffness(double (&inv)[D][D],
 //        the last coefficient axis j still open.
 //   T    (2, QL, nL)      last-axis value (0) and derivative (1) tables.
 //   w12  (Q12,), wL (QL,) the Gauss weights (not read by kJac).
-// C = D components for a B-spline map, D + 1 (homogeneous, weight last)
+// C = G components for a B-spline map, G + 1 (homogeneous, weight last)
 // for NURBS, whose quotient rule runs before the determinant.
+// A boundary Gauss grid collapses one axis to a point: QL = 1 leaves one
+// active thread a block (a launch of 32 threads), Q12 = Q_1 = 1 (a 2D
+// 'bottom' face) one block of rows; both run the general code.
 //
 // Bound: the output writes (6, 1 and 12 doubles a point at 3D), one
 // coalesced store per field.  A point's work is small, so the instructions
@@ -159,13 +165,14 @@ struct LastTables<0> {
     }
 };
 
-template <int D, bool NURBS, int KIND, int NL>
+template <int D, int G, bool NURBS, int KIND, int NL>
 __global__ void __launch_bounds__(256)
 geo_fields_kernel(const double* __restrict__ Y, const double* __restrict__ T,
                   const double* __restrict__ w12,
                   const double* __restrict__ wL, double* __restrict__ out,
                   int Q12, int QL, int nL_, int RB) {
-    constexpr int C = D + (NURBS ? 1 : 0);
+    static_assert(KIND == kJac || G == D, "only the jac kind takes G != D");
+    constexpr int C = G + (NURBS ? 1 : 0);
     const int nL = NL ? NL : nL_;
     extern __shared__ double sY[];      // [D * C][RB][nL]
     const int r0 = blockIdx.x * RB;
@@ -204,21 +211,21 @@ geo_fields_kernel(const double* __restrict__ Y, const double* __restrict__ T,
                     const double W = val[C - 1];
                     const double WW = W * W;
 #pragma unroll
-                    for (int c = 0; c < D; ++c)
+                    for (int c = 0; c < G; ++c)
 #pragma unroll
                         for (int k = 0; k < D; ++k)
                             jac[c][k] = (jac[c][k] * W
                                          - val[c] * jac[C - 1][k]) / WW;
 #pragma unroll
-                    for (int c = 0; c < D; ++c) val[c] = val[c] / W;
+                    for (int c = 0; c < G; ++c) val[c] = val[c] / W;
                 }
 #pragma unroll
-                for (int c = 0; c < D; ++c) out[(long long)c * N + g] = val[c];
+                for (int c = 0; c < G; ++c) out[(long long)c * N + g] = val[c];
 #pragma unroll
-                for (int c = 0; c < D; ++c)
+                for (int c = 0; c < G; ++c)
 #pragma unroll
                     for (int k = 0; k < D; ++k)
-                        out[(long long)(D + c * D + k) * N + g] = jac[c][k];
+                        out[(long long)(G + c * D + k) * N + g] = jac[c][k];
             } else {
                 // physical Jacobian J[c][k]; NURBS: quotient rule on V / W
                 double J[D][D];
@@ -254,16 +261,16 @@ geo_fields_kernel(const double* __restrict__ Y, const double* __restrict__ T,
 // min(256, QL rounded up to a warp) threads and RB rows: 16, halved while
 // the grid has fewer than two blocks an SM or the staged rows would take
 // more than 48 KB of shared memory.
-template <int D, bool NURBS, int KIND, int NL>
+template <int D, int G, bool NURBS, int KIND, int NL>
 static int launch_one(const double* Y, const double* T, const double* w12,
                       const double* wL, double* out, int Q12, int QL, int nL,
                       cudaStream_t s) {
     int rb = 16;
-    const long long per_row = 8LL * D * (D + (NURBS ? 1 : 0)) * nL;
+    const long long per_row = 8LL * D * (G + (NURBS ? 1 : 0)) * nL;
     while (rb > 1 && ((Q12 + rb - 1) / rb < 2 * 132 || rb * per_row > 49152))
         rb /= 2;
     const long long smem = rb * per_row;
-    auto kernel = geo_fields_kernel<D, NURBS, KIND, NL>;
+    auto kernel = geo_fields_kernel<D, G, NURBS, KIND, NL>;
     if (smem > 49152) {
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -276,45 +283,67 @@ static int launch_one(const double* Y, const double* T, const double* w12,
     return (int)cudaGetLastError();
 }
 
-template <int D, bool NURBS, int KIND>
+template <int D, int G, bool NURBS, int KIND>
 static int launch_nl(const double* Y, const double* T, const double* w12,
                      const double* wL, double* out, int Q12, int QL, int nL,
                      cudaStream_t s) {
     switch (nL) {
-        case 1: return launch_one<D, NURBS, KIND, 1>(Y, T, w12, wL, out, Q12,
-                                                     QL, nL, s);
-        case 2: return launch_one<D, NURBS, KIND, 2>(Y, T, w12, wL, out, Q12,
-                                                     QL, nL, s);
-        case 3: return launch_one<D, NURBS, KIND, 3>(Y, T, w12, wL, out, Q12,
-                                                     QL, nL, s);
-        case 4: return launch_one<D, NURBS, KIND, 4>(Y, T, w12, wL, out, Q12,
-                                                     QL, nL, s);
-        default: return launch_one<D, NURBS, KIND, 0>(Y, T, w12, wL, out,
-                                                      Q12, QL, nL, s);
+        case 1: return launch_one<D, G, NURBS, KIND, 1>(Y, T, w12, wL, out,
+                                                        Q12, QL, nL, s);
+        case 2: return launch_one<D, G, NURBS, KIND, 2>(Y, T, w12, wL, out,
+                                                        Q12, QL, nL, s);
+        case 3: return launch_one<D, G, NURBS, KIND, 3>(Y, T, w12, wL, out,
+                                                        Q12, QL, nL, s);
+        case 4: return launch_one<D, G, NURBS, KIND, 4>(Y, T, w12, wL, out,
+                                                        Q12, QL, nL, s);
+        default: return launch_one<D, G, NURBS, KIND, 0>(Y, T, w12, wL, out,
+                                                         Q12, QL, nL, s);
     }
 }
 
+template <int D, int G, int KIND>
+static int launch_nurbs(const double* Y, const double* T, const double* w12,
+                        const double* wL, double* out, int nurbs, int q,
+                        int QL, int nL, cudaStream_t s) {
+    return nurbs ? launch_nl<D, G, true, KIND>(Y, T, w12, wL, out, q, QL, nL,
+                                               s)
+                 : launch_nl<D, G, false, KIND>(Y, T, w12, wL, out, q, QL,
+                                                nL, s);
+}
+
+// d the parametric dimension, g the geometry's output dimension (d for
+// the stiffness and mass kinds; d or d + 1 for the jac kind)
 template <int KIND>
 static int launch_fields(const double* Y, const double* T, const double* w12,
-                         const double* wL, double* out, int d, int nurbs,
-                         long long Q12, int QL, int nL, void* stream) {
+                         const double* wL, double* out, int d, int g,
+                         int nurbs, long long Q12, int QL, int nL,
+                         void* stream) {
     if (Q12 < 1 || QL < 1 || nL < 1 || Q12 >= (1LL << 31))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const int q = (int)Q12;
-    if (KIND == kJac && d == 1)       // 1D: no leading axes, nL at run time
-        return nurbs ? launch_one<1, true, kJac, 0>(Y, T, w12, wL, out, q, QL,
-                                                    nL, s)
-                     : launch_one<1, false, kJac, 0>(Y, T, w12, wL, out, q,
-                                                     QL, nL, s);
-    if (d == 2 && nurbs)
-        return launch_nl<2, true, KIND>(Y, T, w12, wL, out, q, QL, nL, s);
+    if constexpr (KIND == kJac) {
+        if (d == 1 && g == 1)     // 1D: no leading axes, nL at run time
+            return nurbs ? launch_one<1, 1, true, kJac, 0>(
+                               Y, T, w12, wL, out, q, QL, nL, s)
+                         : launch_one<1, 1, false, kJac, 0>(
+                               Y, T, w12, wL, out, q, QL, nL, s);
+        if (d == 1 && g == 2)     // a curve in the plane
+            return nurbs ? launch_one<1, 2, true, kJac, 0>(
+                               Y, T, w12, wL, out, q, QL, nL, s)
+                         : launch_one<1, 2, false, kJac, 0>(
+                               Y, T, w12, wL, out, q, QL, nL, s);
+        if (d == 2 && g == 3)     // a surface in space
+            return launch_nurbs<2, 3, kJac>(Y, T, w12, wL, out, nurbs, q, QL,
+                                            nL, s);
+    }
+    if (g != d) return (int)cudaErrorInvalidValue;
     if (d == 2)
-        return launch_nl<2, false, KIND>(Y, T, w12, wL, out, q, QL, nL, s);
-    if (d == 3 && nurbs)
-        return launch_nl<3, true, KIND>(Y, T, w12, wL, out, q, QL, nL, s);
+        return launch_nurbs<2, 2, KIND>(Y, T, w12, wL, out, nurbs, q, QL, nL,
+                                        s);
     if (d == 3)
-        return launch_nl<3, false, KIND>(Y, T, w12, wL, out, q, QL, nL, s);
+        return launch_nurbs<3, 3, KIND>(Y, T, w12, wL, out, nurbs, q, QL, nL,
+                                        s);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -323,8 +352,8 @@ PYIGA_EXPORT int pyiga_stiff_fields_f64(const double* Y, const double* T,
                                         double* out, int d, int nurbs,
                                         long long Q12, int QL, int nL,
                                         void* stream) {
-    return launch_fields<kStiffness>(Y, T, w12, wL, out, d, nurbs, Q12, QL,
-                                     nL, stream);
+    return launch_fields<kStiffness>(Y, T, w12, wL, out, d, d, nurbs, Q12,
+                                     QL, nL, stream);
 }
 
 PYIGA_EXPORT int pyiga_mass_fields_f64(const double* Y, const double* T,
@@ -332,15 +361,15 @@ PYIGA_EXPORT int pyiga_mass_fields_f64(const double* Y, const double* T,
                                        double* out, int d, int nurbs,
                                        long long Q12, int QL, int nL,
                                        void* stream) {
-    return launch_fields<kMass>(Y, T, w12, wL, out, d, nurbs, Q12, QL, nL,
+    return launch_fields<kMass>(Y, T, w12, wL, out, d, d, nurbs, Q12, QL, nL,
                                 stream);
 }
 
 PYIGA_EXPORT int pyiga_geo_jac_fields_f64(const double* Y, const double* T,
-                                          double* out, int d, int nurbs,
-                                          long long Q12, int QL, int nL,
-                                          void* stream) {
-    return launch_fields<kJac>(Y, T, nullptr, nullptr, out, d, nurbs, Q12,
+                                          double* out, int d, int g,
+                                          int nurbs, long long Q12, int QL,
+                                          int nL, void* stream) {
+    return launch_fields<kJac>(Y, T, nullptr, nullptr, out, d, g, nurbs, Q12,
                                QL, nL, stream);
 }
 

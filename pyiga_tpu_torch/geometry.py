@@ -80,6 +80,14 @@ class _BaseGeoFunc:
     def is_vector(self):
         return len(self.output_shape()) == 1
 
+    def bounding_box(self, grid=1):
+        """Bounding box of the image; `grid` > 1 samples a finer grid
+        (useful for non-convex geometries).  Returns (lower, upper) per
+        dimension in XY order."""
+        grd = [np.linspace(s[0], s[1], grid + 1) for s in self.support]
+        X = self.grid_eval(grd).reshape(-1, self.dim)
+        return tuple((X[:, d].min(), X[:, d].max()) for d in range(self.dim))
+
     def boundary(self, bdspec):
         """One side of the boundary as a function with `sdim` reduced by
         1."""

@@ -211,6 +211,7 @@ def host_jac_fields(jac, w12, wL):
 def geo_jac_fields_plain(Y, T, nurbs):
     """Plain PyTorch version of :func:`geo_jac_fields`."""
     d, C = Y.shape[0], Y.shape[1]
+    G = C - int(bool(nurbs))
     Tv, Td = T[0], T[1]
 
     def contract(t, c, tab):            # (Q12, nL) x (QL, nL) -> (Q12, QL)
@@ -222,7 +223,7 @@ def geo_jac_fields_plain(Y, T, nurbs):
     if nurbs:
         W = val[-1]
         jac = [[(jac[c][k] * W - val[c] * jac[-1][k]) / (W * W)
-                for k in range(d)] for c in range(d)]
+                for k in range(d)] for c in range(G)]
         val = [v / W for v in val[:-1]]
     return torch.stack(val + [x for row in jac for x in row])
 
@@ -233,11 +234,15 @@ def geo_jac_fields(Y, T, nurbs):
 
     Args:
         Y: ``(d, C, Q12, nL)`` stage-1/2 geometry partials
-            (:func:`geo_stage12`), ``C = d`` (+1 for NURBS, weight last).
-        T: ``(2, QL, nL)`` last-axis value and derivative tables.
+            (:func:`geo_stage12`), ``C = G`` (+1 for NURBS, weight last)
+            for a geometry of output dimension ``G``: ``d`` for a volume
+            map, ``d + 1`` for a surface (``d = 2``) or a plane curve
+            (``d = 1``).
+        T: ``(2, QL, nL)`` last-axis value and derivative tables; a
+            boundary Gauss grid may give ``QL = 1``.
         nurbs: whether `Y` carries homogeneous NURBS components.
 
-    Returns ``(d + d*d, Q12, QL)``: the values ``x_c`` (level order), then
+    Returns ``(G + G*d, Q12, QL)``: the values ``x_c`` (level order), then
     the Jacobian ``J[c][k]`` row-major."""
     if not _kernel_device(Y, 'geo_jac_fields'):
         return geo_jac_fields_plain(Y, T, nurbs)
@@ -245,18 +250,20 @@ def geo_jac_fields(Y, T, nurbs):
     _cuda.require(Y, 'Y', f64, 4)
     _cuda.require(T, 'T', f64, 3)
     d, C, Q12, nL = Y.shape
+    G = C - int(bool(nurbs))
     QL = T.shape[1]
-    if d not in (1, 2, 3) or C != d + int(bool(nurbs)):
-        raise ValueError('geo_jac_fields: need d in (1, 2, 3) and C = d '
-                         '(+1 for NURBS), got d=%d C=%d' % (d, C))
+    if (d, G) not in ((1, 1), (1, 2), (2, 2), (2, 3), (3, 3)):
+        raise ValueError('geo_jac_fields: need d in (1, 2, 3) and C = d or '
+                         'd + 1 (d < 3; +1 for NURBS), got d=%d C=%d'
+                         % (d, C))
     if T.shape != (2, QL, nL) or T.device != Y.device:
         raise ValueError('geo_jac_fields: T %s disagrees with Y %s'
                          % (tuple(T.shape), tuple(Y.shape)))
-    out = torch.empty((d + d * d, Q12, QL), dtype=f64, device=Y.device)
+    out = torch.empty((G + G * d, Q12, QL), dtype=f64, device=Y.device)
     with _cuda.device_of(Y):
         err = _cuda.library().pyiga_geo_jac_fields_f64(
-            Y.data_ptr(), T.data_ptr(), out.data_ptr(), d, int(bool(nurbs)),
-            Q12, QL, nL, _cuda.stream_of(Y))
+            Y.data_ptr(), T.data_ptr(), out.data_ptr(), d, G,
+            int(bool(nurbs)), Q12, QL, nL, _cuda.stream_of(Y))
     _cuda.check(err, 'geo_jac_fields')
     _cuda.LAUNCHES['geo_jac_fields'] += 1
     return out
@@ -560,15 +567,35 @@ def geometry_fields(tables, coeffs, nurbs):
     """Physical geometry values and Jacobian on the Gauss grid through K2
     (geometry stages) and K1's ``jac`` kind: the device counterpart of
     :func:`~pyiga_tpu_torch.ops.geom.geo_jacobian_field`, with the same
-    ``(val, jac)`` shapes ``(d,) + grid`` and ``(d, d) + grid`` (level
-    order).  `tables` are per-axis ``(nd+1, Q_k, n_k)`` tensors."""
+    ``(val, jac)`` shapes ``(G,) + grid`` and ``(G, d) + grid`` (level
+    order; ``G`` the geometry's output dimension, ``d + 1`` for a
+    surface).  `tables` are per-axis ``(nd+1, Q_k, n_k)`` tensors."""
     d = len(tables)
+    G = coeffs.shape[0] - int(bool(nurbs))
     Y, shape12 = geo_stage12(tables, coeffs, d)
     T = tables[d - 1][:2].contiguous()
     out = geo_jac_fields(Y, T, nurbs)
     grid = shape12 + (T.shape[1],)
-    return (out[:d].reshape((d,) + grid),
-            out[d:].reshape((d, d) + grid))
+    return (out[:G].reshape((G,) + grid),
+            out[G:].reshape((G, d) + grid))
+
+
+def geometry_hessian(tables, coeffs, nurbs):
+    """Parametric Hessian of the geometry on the Gauss grid, ``(G, d, d) +
+    grid`` (level order, symmetric): the device counterpart of
+    :func:`~pyiga_tpu_torch.ops.geom.geo_hessian_field`.  Each of the
+    ``d (d + 1) / 2`` second-derivative combinations (and, for NURBS, the
+    value and the d first derivatives of the homogeneous map) is one
+    chain of d K2 stages over the second-derivative `tables` (per-axis
+    ``(3, Q_k, n_k)``); the NURBS quotient rule runs in torch
+    (:func:`~pyiga_tpu_torch.ops.geom.hessian_from_chains`).  The JAX
+    package forms the Hessian in XLA, outside any Pallas kernel."""
+    def chain(D):                           # (C,) + grid
+        X = torch.movedim(coeffs, 0, -1)    # (n_1, ..., n_d, C)
+        for k, T in enumerate(tables):
+            X = _run_stage(X, T[D[k]].contiguous())
+        return X
+    return geom.hessian_from_chains(chain, len(tables), nurbs)
 
 
 def _host_jacobian(geo_inputs):

@@ -8,8 +8,10 @@ The integrand of a form depends on the form, so no fixed kernel can
 evaluate it.  As the reference did with Cython code generation, the form
 is evaluated once on *symbolic scalars* (:class:`Sym`): every leaf of the
 evaluation — the Gauss weight, the physical geometry values and Jacobian
-(from K1's ``jac`` kind), the input-field components and their first
-derivatives — is a load, every
+(from K1's ``jac`` kind, or uploaded for a geometry evaluated on the
+host), the geometry's parametric Hessian (from K2 stages), the
+input-field components and their first and second derivatives — is a
+load, every
 parameter component a load ``p[slot]``.  Arithmetic on symbols appends
 straight-line SSA instructions (``const double t17 = t3 * t9;``) with
 constant folding of the exact identities (``x*1``, ``x+0``, ``x*0``) and
@@ -19,8 +21,9 @@ program becomes a CUDA C source built by :func:`pyiga_tpu_torch._cuda.
 build_generated` into its own library.
 
 The kernel reads every leaf where it lies: it takes one base pointer per
-tensor the program reads (``geo_val_lvl``, ``geo_jac_lvl``, ``input:*``,
-``ideriv:*``) with each leaf's row baked into the source, and forms the
+tensor the program reads (``geo_val_lvl``, ``geo_jac_lvl``,
+``geo_hess_lvl``, ``input:*``, ``ideriv:*``) with each leaf's row baked
+into the source, and forms the
 Gauss weight from the per-axis weight vectors, ``(w0 w1) w2`` as
 :func:`~pyiga_tpu_torch.ops.geom.gauss_weight_field` does (bitwise the
 same field).  Parameters are read from the assembler's flat parameter
@@ -230,9 +233,11 @@ class Program:
     Attributes:
         dim: the Gauss grid's dimension (the number of weight vectors).
         leaves: leaf keys in order of first use: ``('gw',)`` (the Gauss
-            weight), ``('geo_val', c)``, ``('geo_jac', c, k)`` (level
-            order), ``('input', name, comp)`` or ``('ideriv', name + ':1',
-            comp + (i,))`` (XYZ derivative axis `i`).
+            weight), ``('geo_val', c)``, ``('geo_jac', c, k)``,
+            ``('geo_hess', c, k, l)`` with ``k <= l`` (level order),
+            ``('input', name, comp)``, ``('ideriv', name + ':1', comp +
+            (i,))`` (XYZ derivative axis `i`) or ``('ideriv', name +
+            ':2', comp + (s,))`` (symmetric pair `s`).
         params: parameter keys ``('param', name, idx)``, order of first
             use; ``param_slots`` their slots in the flat parameter vector.
         sources: the array keys the leaves are read from, in order of
@@ -369,12 +374,15 @@ def generate(asm, combos):
     its form evaluated through its own context class on symbolic leaves,
     with the FIELD-scope cache shared by the combos and seeded with the
     Gauss weight leaf and the symbolic inverse Jacobian (the seeding of
-    the TPU kernel, compile.py:951-956).  Each leaf is located in the
-    tensor that holds it (row c of ``geo_val_lvl``, row ``c d + k`` of
-    ``geo_jac_lvl``, the flat component of ``input:name`` or of the first
-    derivatives ``ideriv:name:1``), each parameter in
-    :func:`param_vector`'s layout.  Vector and two-space forms need
-    nothing else here: their combos carry the components."""
+    the TPU kernel, compile.py:951-956; a surface's Jacobian is not
+    square and seeds no inverse).  Each leaf is located in the tensor
+    that holds it (row c of ``geo_val_lvl``, row ``c d + k`` of
+    ``geo_jac_lvl``, row ``(c d + k) d + l`` of ``geo_hess_lvl`` for
+    ``k <= l``, the mirrored entry reading the same row, the flat
+    component of ``input:name`` or of its derivatives
+    ``ideriv:name:<order>``), each parameter in :func:`param_vector`'s
+    layout.  Vector and two-space forms need nothing else here: their
+    combos carry the components."""
     b = SSARecorder()
     d, gd = asm.dim, asm.vf.geo_dim
     loc = {}
@@ -382,11 +390,17 @@ def generate(asm, combos):
     def leaf(key, akey, row):
         loc[key] = (akey, row)
         return b.leaf(key)
+
+    def hess_leaf(c, k, l):
+        k, l = min(k, l), max(k, l)
+        return leaf(('geo_hess', c, k, l), 'geo_hess_lvl', (c * d + k) * d + l)
     arrays = {'geo_val_lvl': [leaf(('geo_val', c), 'geo_val_lvl', c)
                               for c in range(gd)],
               'geo_jac_lvl': [[leaf(('geo_jac', c, k), 'geo_jac_lvl',
                                     c * d + k) for k in range(d)]
-                              for c in range(gd)]}
+                              for c in range(gd)],
+              'geo_hess_lvl': [[[hess_leaf(c, k, l) for l in range(d)]
+                                for k in range(d)] for c in range(gd)]}
     for key, arr in asm._host_arrays.items():
         kind, _, name = key.partition(':')
         if kind in ('input', 'ideriv'):
@@ -408,8 +422,9 @@ def generate(asm, combos):
                 arrays[key] = syms
     slots = {k: s for s, (k, _v) in
              enumerate(_param_components(asm._host_arrays))}
-    shared = {('gw',): b.leaf(('gw',)),
-              ('_jacinv_lvl',): det_and_inv_sym(arrays['geo_jac_lvl'])[1]}
+    shared = {('gw',): b.leaf(('gw',))}
+    if gd == d:
+        shared[('_jacinv_lvl',)] = det_and_inv_sym(arrays['geo_jac_lvl'])[1]
     outputs = []
     for su, sv in combos:
         ctx = asm._make_context(arrays, su, sv)

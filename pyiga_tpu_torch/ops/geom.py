@@ -84,6 +84,56 @@ def geo_jacobian_field(tables, coeffs, is_nurbs, sdim):
     return val, jac
 
 
+def hessian_from_chains(chain, sdim, is_nurbs):
+    """The parametric Hessian ``(dim, sdim, sdim) + grid`` from `chain`,
+    which maps per-axis derivative orders ``D`` to the coefficients
+    contracted with them, ``(C,) + grid``: the ``sdim (sdim + 1) / 2``
+    second-derivative combinations, mirrored, and for NURBS the value and
+    the first derivatives through the quotient rule."""
+    H = [[None] * sdim for _ in range(sdim)]
+    for i in range(sdim):
+        for j in range(i, sdim):
+            D = sdim * [0]
+            D[i] += 1
+            D[j] += 1
+            H[i][j] = H[j][i] = chain(D)
+    hess = torch.stack([torch.stack(row, dim=1) for row in H], dim=1)
+    if not is_nurbs:
+        return hess
+    val = chain(sdim * [0])
+    jac = torch.stack([chain([int(j == k) for j in range(sdim)])
+                       for k in range(sdim)], dim=1)
+    return nurbs_hessian(val, jac, hess)
+
+
+def geo_hessian_field(tables, coeffs, is_nurbs, sdim):
+    """Parametric Hessians of the geometry on the TP grid.
+
+    Requires tables with ``numderiv >= 2``.  Returns ``(dim, sdim, sdim) +
+    grid`` (symmetric in the two derivative axes), level order, components
+    leading; for NURBS the second-order quotient rule
+    (``pyiga_tpu/ops/geom.py:91-130``)."""
+    return hessian_from_chains(
+        lambda D: tp_apply([tables[j][D[j]] for j in range(sdim)], coeffs,
+                           lead=1), sdim, is_nurbs)
+
+
+def nurbs_hessian(val, jac, hess):
+    """The second-order quotient rule: the Hessian of ``V / W`` from the
+    homogeneous values ``(C,) + grid``, Jacobian ``(C, sdim) + grid`` and
+    Hessian ``(C, sdim, sdim) + grid`` (weight last)."""
+    V, W = val[:-1], val[-1:]
+    Vj, Wj = jac[:-1], jac[-1:]
+    Nj = (Vj * W[:, None] - V[:, None] * Wj) / (W[:, None] ** 2)
+    Vh, Wh = hess[:-1], hess[-1:]
+    W2 = W[:, None, None]
+    part1 = Vh / W2 - V[:, None, None] * Wh / (W2 ** 2)
+    # sym(jac(V/W) (x) jac(W)) / W
+    mat = (Nj[:, :, None] * Wj[:, None, :]) / W2
+    mat = mat + torch.swapaxes(mat, 1, 2)
+    return part1 - mat
+
+
 def det_and_inv(J):
     """Determinant and inverse of small (1x1/2x2/3x3) matrices stored
     component-leading: ``J (d, d) + grid``.  Explicit adjugate formulas.

@@ -219,7 +219,7 @@ def k1_times():
     res = torch.empty((6,) + tuple(Y.shape[2:3]) + (T.shape[1],),
                       dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    args = (Y.data_ptr(), T.data_ptr(), res.data_ptr(), 2, int(nurbs),
+    args = (Y.data_ptr(), T.data_ptr(), res.data_ptr(), 2, 2, int(nurbs),
             Y.shape[2], T.shape[1], Y.shape[3], stream)
     out['jac_2d_n128_ctypes'] = events_ms(
         lambda: lib.pyiga_geo_jac_fields_f64(*args), 200)

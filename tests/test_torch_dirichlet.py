@@ -197,8 +197,11 @@ def test_interpolate_project_inner_products_integrate(geo_name):
     vol = assemble.integrate(kvs, _g2, f_physical=phys, geo=geo)
     assert abs(vol - jassemble.integrate(jkvs, _g2, f_physical=phys,
                                          geo=jgeo)) <= 1e-13 * abs(vol)
-    with pytest.raises(NotImplementedError):
-        approx.project_L2(HSpace(kvs), _g2)
+    # onto a hierarchical space (one level): the hierarchical assembly of
+    # its mass matrix and load vector
+    from pyiga_tpu.hierarchical import HSpace as JHSpace
+    assert _rel(approx.project_L2(HSpace(kvs), _g2, device='cpu'),
+                japprox.project_L2(JHSpace(jkvs), _g2)) < 1e-13
 
 
 @pytest.mark.parametrize('name,p,n', [('twisted_box', 3, 4),

@@ -6,8 +6,8 @@ in interpret mode (1e-12 relative: the JAX side is two-float); the
 association K3 uses on the card (the terms that share a table summed
 before it, groups in order of first appearance, terms in their given
 order) against ``sumfac._sum_chains_merged(mode='exact')`` in 2D and 3D
-(1e-14); the wrappers' argument checks; and the VForm's refusal of a
-non-spline geometry."""
+(1e-14); the wrappers' argument checks; and a non-spline geometry
+inside a VForm against the JAX package."""
 
 import functools
 
@@ -166,14 +166,35 @@ def test_fold_splits_above_the_kernel_capacity():
 
 
 def test_user_function_geometry_in_a_vform_raises():
-    """A non-spline geometry inside a generic VForm is not ported
-    (ROADMAP item 8); the message says so and names no kernel."""
+    """A non-spline geometry inside a generic VForm: its values and
+    Jacobian are evaluated on the host and read by K5, and the matrix
+    equals the JAX package's (1e-13 relative); a form that needs its
+    Hessian is refused by both packages alike."""
+    from pyiga_tpu import bspline as jbspline
+    from pyiga_tpu import compile as jcompile
+    from pyiga_tpu import geometry as jgeometry
+    from pyiga_tpu import vform as jvform
+
+    def jac(x, y):      # grid x dim x sdim, [..., i, j] = dF_i / dx_j
+        x, y = np.broadcast_arrays(x, y)
+        c, s = np.cos(y), np.sin(y)
+        return np.stack([np.stack([c, -(1 + x) * s], axis=-1),
+                         np.stack([s, (1 + x) * c], axis=-1)], axis=-2)
+
+    def polar(pkg):
+        return pkg.UserFunction(
+            lambda x, y: ((1 + x) * np.cos(y), (1 + x) * np.sin(y)),
+            [[0, 1], [0, 1]], jac=jac)
     kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 4),)
-    polar = geometry.UserFunction(
-        lambda x, y: ((1 + x) * np.cos(y), (1 + x) * np.sin(y)),
-        [[0, 1], [0, 1]])
-    vf = vform.parse_vf('u * v * dx', kvs)
-    with pytest.raises(NotImplementedError,
-                       match=r'UserFunction.*ROADMAP item 8') as info:
-        compile.compile_vform(vf)(kvs, geo=polar, device='cpu')
-    assert "K1'" not in str(info.value)
+    jkvs = 2 * (jbspline.make_knots(2, 0.0, 1.0, 4),)
+    form = '(u * v + x[0] * inner(grad(u), grad(v))) * dx'
+    asm = compile.compile_vform(vform.parse_vf(form, kvs))(
+        kvs, geo=polar(geometry), device='cpu')
+    jasm = jcompile.compile_vform(jvform.parse_vf(form, jkvs))(
+        jkvs, geo=polar(jgeometry))
+    assert asm._geo_tables is None and asm.combos == jasm.combos
+    A = asm.assemble().asmatrix().toarray()
+    assert _rel(A, jasm.assemble().asmatrix().toarray()) < 1e-13
+    vf = vform.parse_vf('inner(hess(u), hess(v)) * dx', kvs)
+    with pytest.raises(NotImplementedError, match='second geometry'):
+        compile.compile_vform(vf)(kvs, geo=polar(geometry), device='cpu')

@@ -285,22 +285,47 @@ def _dummy_physical(x, y):
     return x * y
 
 
+def _to_dense(A):
+    return A.toarray() if hasattr(A, 'toarray') else np.asarray(A)
+
+
 @pytest.mark.parametrize('form,args,kw', [
-    ('u * v * ds', {}, {}),
+    ('u * v * ds', {}, {'boundary': 'left'}),
     ('inner(hess(u), hess(v)) * dx', {}, {}),
     ('inner(hess(g), hess(v)) * dx', {'g': 'spline'}, {}),
     ('u * v * dx', {}, {'geo': 'callable'}),
 ])
 def test_unsupported_forms_raise(form, args, kw):
-    kvs = _kvs(bspline, p=3)
-    args = dict(args)
+    """The forms this test once saw refused: a boundary integral, a
+    fourth-order form and the Hessian of a spline input assemble as the
+    JAX package does (1e-13 relative); a bare callable as the geometry is
+    refused by both packages alike (AttributeError: it has no
+    ``grid_jacobian``)."""
+    kvs, jkvs = _kvs(bspline, p=3), _kvs(jbspline, p=3)
+    args, jargs, kw = dict(args), dict(args), dict(kw)
     if args.get('g') == 'spline':
-        args['g'] = geometry.BSplineFunc(kvs, np.ones((8, 8)))
-    geo = kw.pop('geo', None)
-    geo = _dummy_physical if geo == 'callable' else geometry.quarter_annulus()
-    vf = vform.parse_vf(form, kvs, args=args)
-    with pytest.raises(NotImplementedError):
-        compile.compile_vform(vf)(kvs, geo=geo, device='cpu', **args, **kw)
+        coeffs = np.random.RandomState(3).rand(8, 8)
+        args['g'] = geometry.BSplineFunc(kvs, coeffs)
+        jargs['g'] = jgeometry.BSplineFunc(jkvs, coeffs)
+    if kw.pop('geo', None) == 'callable':
+        vf = vform.parse_vf(form, kvs, args=args)
+        jvf = jvform.parse_vf(form, jkvs, args=jargs)
+        with pytest.raises(AttributeError):
+            jcompile.compile_vform(jvf)(jkvs, geo=_dummy_physical)
+        with pytest.raises(AttributeError):
+            compile.compile_vform(vf)(kvs, geo=_dummy_physical,
+                                      device='cpu')
+        return
+    from pyiga_tpu import assemble as jassemble
+
+    from pyiga_tpu_torch import assemble
+    A = assemble.assemble(form, kvs, geo=geometry.quarter_annulus(),
+                          device='cpu', **args, **kw)
+    jA = jassemble.assemble(form, jkvs, geo=jgeometry.quarter_annulus(),
+                            **jargs, **kw)
+    A, jA = _to_dense(A), _to_dense(jA)
+    assert A.shape == jA.shape
+    assert np.abs(A - jA).max() <= 1e-13 * np.abs(jA).max()
 
 
 def test_fields_wrapper_refuses_other_devices():
