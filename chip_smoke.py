@@ -134,7 +134,27 @@ surface ``v * ds`` at n=128, each held to a CPU setup with its
 (51,221 dofs; automatic matching against hand-joined patches, the
 global matrix against a CPU setup) and ``assemble`` / ``project_L2``
 over the (48, 3) HB space (19); phases 17-19 count their launches from
-zero.  Any failed check raises (nonzero exit).
+zero.
+
+The differentiable assembly (``pyiga_tpu_torch.diff``;
+``scripts/torch_diff_phases.py`` runs it alone): each backward kernel
+against its plain version at the forward's phase shapes, 1e-13 relative
+and bitwise on a repeat (20a: K1's backward of the stiffness and mass
+kinds on the 3D p=3 n=48 twisted box and of the ``jac`` kind on the 2D
+n=128 NURBS quarter annulus and a surface; K2's and K3's backward at
+the headline's compact chain; the generated K5 adjoint on
+convection-diffusion, ``(1 + w*w) * inner(grad(w), grad(v)) * dx`` and
+the biharmonic at 2D n=128); then, counting launches from zero, the
+gradient of ``sum(w * A)`` through ``assembly_coeff_fn`` for the 3D
+n=48 stiffness (``fn(coeffs0)`` bitwise ``run_device()``) and mass and
+the 2D n=128 convection-diffusion form, held to autograd through the
+plain versions on the card (1e-12) and to central differences (1e-6),
+with forward and backward ms (20b); a compliance through
+``implicit_cg_solve`` at 3D n=48, its forward and adjoint CG counts and
+its directional derivative against a central difference (20c);
+``assembly_input_fn`` for a spline input (with its gradient) and a
+parameter at 2D n=128 (20d); and both example ports, card against CPU
+(20e).  Any failed check raises (nonzero exit).
 
 Every kernel's entry in the JSON line has its time, its plain version's,
 the time of one PyTorch call computing the same function where one
@@ -3664,6 +3684,615 @@ def run_item8_phase(name, fn, device):
     return rec
 
 
+################################################################################
+# Differentiable assembly (phase 20): diff.py's backward kernels and paths
+################################################################################
+
+# the backward kernels of the differentiable assembly: the JAX package
+# differentiates the XLA forms of these functions (pyiga_tpu/diff.py:
+# 108-142 and compile.py:1171-1240 _eval_combo_fields), so each entry names
+# the TPU kernel whose counterpart's VJP it is
+DIFF_KERNELS = ('fields_bwd', 'mass_fields_bwd', 'geo_jac_fields_bwd',
+                'stage_bwd', 'fold_bwd', 'vform_adjoint')
+_VJP = ' (its VJP; pyiga_tpu/diff.py differentiates the XLA form)'
+KERNELS.update({
+    'fields_bwd': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+                   'pyiga_tpu/ops/pallas_sumfac.py:1087' + _VJP),
+    'mass_fields_bwd': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+                        'pyiga_tpu/ops/pallas_sumfac.py:1087' + _VJP),
+    'geo_jac_fields_bwd': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+                           'pyiga_tpu/ops/pallas_sumfac.py:1087' + _VJP),
+    'stage_bwd': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
+                  'pyiga_tpu/ops/pallas_sumfac.py:353' + _VJP),
+    'fold_bwd': ('cuda', 'pyiga_tpu_torch/csrc/sumfac.cu',
+                 'pyiga_tpu/ops/pallas_sumfac.py:781' + _VJP),
+    # CUDA C generated per form, beside the forward's
+    'vform_adjoint': ('cuda', 'pyiga_tpu_torch/ops/cuda_vform.py',
+                      'pyiga_tpu/compile.py:974' + _VJP),
+})
+NONLINEAR = '(1 + w*w) * inner(grad(w), grad(v)) * dx'
+BIHARMONIC = 'inner(hess(u), hess(v)) * dx'
+
+
+def compare_all(name, got, ref, rtol):
+    """:func:`compare` over matching lists of tensors: each held against
+    its own largest reference entry; returns the largest error and the
+    worst relative error."""
+    err = worst = 0.0
+    ok = True
+    for a, b in zip(got, ref):
+        e = float((a.double() - b.double()).abs().max())
+        scale = float(b.double().abs().max())
+        rel = e / scale if scale > 0 else e
+        ok = ok and bool(torch.isfinite(a).all()) and rel <= rtol
+        err, worst = max(err, e), max(worst, rel)
+    log('  %-16s max_abs_err %.3e  worst rel %.3e over %d tensors  '
+        '(tol %.0e)  %s' % (name, err, worst, len(got), rtol,
+                            'ok' if ok else 'FAIL'))
+    if not ok:
+        raise RuntimeError('%s disagrees with its plain version' % name)
+    return err, worst
+
+
+def check_repeat_all(name, fn, got):
+    """:func:`check_repeat` for a function returning a list of tensors."""
+    again = fn()
+    sync(got[0].device)
+    if not all(torch.equal(a, b) for a, b in zip(again, got)):
+        raise RuntimeError('%s: two launches on the same inputs differ'
+                           % name)
+    return True
+
+
+def fields_bwd_flops(kind, d, G, nurbs, nL):
+    """Operations of one Gauss point of K1's backward, counted from the
+    body of ``geo_fields_bwd_kernel`` (csrc/fields.cu) as written: an add,
+    multiply or divide is one, a multiply-add two."""
+    C = G + int(nurbs)
+    ops = 2 * C * d * nL                        # the Jacobian's dots
+    if nurbs or kind == 'jac':
+        ops += 2 * C * nL                       # the values' dots
+    if kind != 'jac':
+        if nurbs:
+            ops += 5 * d * d                    # J by the quotient rule
+        ops += {2: 7, 3: 50}[d] + 2             # det_and_inv, s
+        if kind == 'mass':
+            ops += 1 + d * d                    # gJ = g s J^-T
+        else:                                   # Gs, M, G:M, Gs M, gJ
+            ops += (d * (d - 1) // 2 + 2 * d ** 3 + 2 * d * d
+                    + 2 * d ** 3 + d * d * (2 * d + 4))
+    if nurbs:                                   # the quotient rule's VJP
+        ops += 1 + 8 * G * d + d * (2 * G + 1) + G * (3 * d + 1)
+        if kind == 'jac':                       # the values' share
+            ops += 4 * G + 2
+    return ops + 2 * (d + 1) * C * nL           # the last axis' contraction
+
+
+def fields_bwd_case(kind, Y, T, w12, wL, nurbs, device, name, seed):
+    """K1's backward of `kind` against its plain formulas (1e-13, bitwise
+    on a repeat), with its ms, the plain version's and the bound: Y, T,
+    the weights and the output's gradient read once, gY written once;
+    per point the operations of :func:`fields_bwd_flops`."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    d, C, Q12, nL = Y.shape
+    G = C - int(nurbs)
+    QL = T.shape[1]
+    shape = {'stiffness': (d * (d + 1) // 2, Q12, QL), 'mass': (Q12, QL),
+             'jac': (G + G * d, Q12, QL)}[kind]
+    rng = np.random.RandomState(seed)
+    g = torch.as_tensor(rng.rand(*shape) - 0.5, dtype=torch.float64,
+                        device=device)
+    got = cs.fields_bwd(kind, Y, T, w12, wL, nurbs, g)
+    ref = cs._fields_vjp_plain(kind, Y, T, w12, wL, nurbs, g)
+    sync(device)
+    err, rel = compare('%s_bwd %s' % (kind, name), got, ref, 1e-13)
+    check_repeat('%s_bwd %s' % (kind, name),
+                 lambda: cs.fields_bwd(kind, Y, T, w12, wL, nurbs, g), got)
+    ops = Q12 * QL * fields_bwd_flops(kind, d, G, nurbs, nL)
+    rec = dict(max_abs_err=err, rel=rel, Y=list(Y.shape), QL=QL,
+               repeat_equal=True,
+               ms=time_ms(lambda: cs.fields_bwd(kind, Y, T, w12, wL, nurbs,
+                                                g), device),
+               plain_ms=time_ms(lambda: cs._fields_vjp_plain(
+                   kind, Y, T, w12, wL, nurbs, g), device, reps=3),
+               library_ms=None,
+               **bound(nbytes(Y, T, g, got) + (0 if w12 is None else
+                                                nbytes(w12, wL)),
+                       ops, F64_FMA_PER_MS))
+    del g, got, ref
+    return rec
+
+
+def spline_partials(asm):
+    """K1's operands ``(Y, T, w12, wL, nurbs)`` of a Gauss assembler's
+    spline geometry on its device."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    (Y, T, w12, wL, nurbs), _grid = cs._spline_stages(asm.geo_inputs())
+    return Y, T, w12, wL, nurbs
+
+
+def adjoint_case(asm, device, name, seed):
+    """The generated K5 adjoint of a form's fold-plan program against
+    ``run_adjoint_plain`` on the same operands (each gradient to 1e-13 of
+    its own largest entry, bitwise on a repeat), ms and bound: the source rows and the
+    output's gradient read once, the target rows written once, the
+    parameters' partials; one operation per adjoint SSA instruction and
+    point."""
+    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch.ops import cuda_vform as cv
+    plan = asm._fold_plan or [(t, False) for t in range(len(asm.combos))]
+    prog = asm._program([asm.combos[t] for t, _m in plan])
+    adj = prog.adjoint()
+    arrays = asm.device_arrays()
+    grid = tuple(w.shape[0] for w in arrays['weights'])
+    rng = np.random.RandomState(seed)
+    g = torch.as_tensor(rng.rand(len(prog.outputs), *grid) - 0.5,
+                        dtype=torch.float64, device=device)
+    t0 = time.perf_counter()
+    grads, gp = adj.launch(arrays, g)
+    build_s = time.perf_counter() - t0
+    rg, rp = cv.run_adjoint_plain(prog, arrays, g)
+    sync(device)
+
+    def flat(gr, p):
+        return [gr[k] for k in prog.sources] + ([p] if p is not None
+                                                else [])
+    got, ref = flat(grads, gp), flat(rg, rp)
+    err, rel = compare_all('vform_adjoint ' + name, got, ref, 1e-13)
+    check_repeat_all('vform_adjoint ' + name,
+                     lambda: flat(*adj.launch(arrays, g)), got)
+    lib = [k for k in _cuda.GEN_BUILDS if 'vform_adjoint' in k][-1]
+    build = dict(_cuda.GEN_BUILDS[lib], path=lib)
+    for line in build['log'].splitlines():
+        if 'registers' in line or 'spill' in line:
+            log('  ' + line.strip())
+    N = g[0].numel()
+    rows = {s for s in prog.leaf_src if s is not None}
+    nbytes_ = 8 * N * (len(rows) + len(prog.outputs)
+                       + len(adj.src_targets))
+    rec = dict(max_abs_err=err, rel=rel, instrs=len(prog.instrs),
+               adjoint_instrs=len(adj.program.instrs),
+               targets=len(adj.src_targets),
+               params=len(adj.param_targets), first_call_s=build_s,
+               repeat_equal=True, build=build,
+               ms=time_ms(lambda: adj.launch(arrays, g), device),
+               plain_ms=time_ms(lambda: cv.run_adjoint_plain(prog, arrays,
+                                                             g), device,
+                                reps=3),
+               library_ms=None,
+               **bound(nbytes_, len(adj.program.instrs) * N,
+                       F64_FMA_PER_MS))
+    log('  K5 adjoint %s: %d forward + %d adjoint SSA instrs, %d rows, %d '
+        'params; nvcc %.2f s' % (name, len(prog.instrs),
+                                 len(adj.program.instrs),
+                                 len(adj.src_targets),
+                                 len(adj.param_targets), build['seconds']))
+    return rec
+
+
+def check_diff_kernels(device, n3=48, n2=128):
+    """Phase 20a: each backward kernel against its plain version on the
+    card at the forward's phase shapes, at most 1e-13 relative and
+    bitwise on a second launch: K1's backward of the stiffness and mass
+    kinds on the 3D p=3 n=48 twisted box, of the ``jac`` kind on the 2D
+    n=128 NURBS quarter annulus and on a surface (G = 3, n=128); K2's and
+    K3's backward at the headline's compact chain (the stage shapes and
+    the fold's terms over their distinct tables, R = M^2; one
+    ``torch.matmul`` each as the yardstick); the generated K5 adjoint on
+    convection-diffusion, on :data:`NONLINEAR` and on the biharmonic at
+    2D n=128."""
+    from pyiga_tpu_torch import geometry
+    from pyiga_tpu_torch.assemblers import StiffnessAssembler
+    from pyiga_tpu_torch.assemble import instantiate_assembler
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    out = {}
+    f64 = torch.float64
+    asm = main_path_setup(3, n3, device)
+    args = spline_partials(asm)
+    out['fields_bwd'] = fields_bwd_case('stiffness', *args, device,
+                                        '3D n=%d' % n3, 1)
+    out['mass_fields_bwd'] = fields_bwd_case('mass', *args, device,
+                                             '3D n=%d' % n3, 2)
+    del args
+    jac = {}
+    a2 = StiffnessAssembler(kvs_of(2, n2), geometry.quarter_annulus(),
+                            device=device)
+    Y, T, _w12, _wL, nurbs = spline_partials(a2)
+    jac['annulus_n128'] = fields_bwd_case('jac', Y, T, None, None, nurbs,
+                                          device, 'annulus n=%d' % n2, 3)
+    surf = surface_vf(device, n=n2)
+    ops = surf._device_operands()
+    Y, _ = cs.geo_stage12(ops['geo_tables'], ops['geo_coeffs'], 2)
+    T = ops['geo_tables'][1][:2].contiguous()
+    jac['surface_n128'] = fields_bwd_case('jac', Y, T, None, None,
+                                          surf._geo_is_nurbs, device,
+                                          'surface n=%d' % n2, 4)
+    out['geo_jac_fields_bwd'] = dict(jac['annulus_n128'], cases=jac)
+    del Y, T, a2, surf, ops
+
+    # K2's and K3's backward on the compact tables of the headline
+    rng = np.random.RandomState(5)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.rand(*shape) - 0.5, dtype=f64,
+                               device=device)
+    cops = asm._compact_operands()
+    tabs = cops['term_tables'][0]
+    M, K = tabs[0].shape
+    rec = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0,
+               rel=0.0, shapes=[], repeat_equal=True)
+    nb, ops_ = 0, 0
+    for R, Tt in ((K * K, tabs[0]), (K * M, tabs[1])):
+        g = rand(R, M)
+        got, ref = cs.stage_bwd(Tt, g), cs.stage_plain(Tt, g)
+        sync(device)
+        e, r = compare('stage_bwd R=%d' % R, got, ref, 1e-13)
+        check_repeat('stage_bwd R=%d' % R, lambda: cs.stage_bwd(Tt, g), got)
+        rec['max_abs_err'], rec['rel'] = max(rec['max_abs_err'], e), \
+            max(rec['rel'], r)
+        rec['ms'] += time_ms(lambda: cs.stage_bwd(Tt, g), device)
+        rec['plain_ms'] += time_ms(lambda: cs.stage_plain(Tt, g), device)
+        rec['library_ms'] += time_ms(lambda: torch.matmul(Tt.t(), g.t()),
+                                     device)
+        rec['shapes'].append([K, R, M])
+        nb += nbytes(Tt, g, got)
+        ops_ += 2 * K * R * M
+        del g, got, ref
+    rec.update(bound(nb, ops_, F64_TENSOR_PER_MS))
+    out['stage_bwd'] = rec
+    plan = cops['plan']
+    sel = [t for t, _m in plan]
+    last = [cops['last_idx'][t] for t in sel]
+    ftabs, slot = [], {}
+    for t, i in zip(sel, last):
+        if i not in slot:
+            slot[i] = len(ftabs)
+            ftabs.append(cops['term_tables'][t][-1])
+    idx = [slot[i] for i in last]
+    g = rand(M * M, M)
+    got = cs.fold_bwd(ftabs, idx, g)
+    ref = [cs.stage_plain(ftabs[i], g) for i in idx]
+    sync(device)
+    e, r = compare_all('fold_bwd', got, ref, 1e-13)
+    check_repeat_all('fold_bwd', lambda: cs.fold_bwd(ftabs, idx, g), got)
+    uniq = sorted(set(idx))
+    tcat = torch.cat([ftabs[i] for i in uniq], dim=1).t().contiguous()
+    out['fold_bwd'] = dict(
+        max_abs_err=e, rel=r, terms=len(idx), tables=len(uniq),
+        shape=[K, M * M, M], repeat_equal=True,
+        ms=time_ms(lambda: cs.fold_bwd(ftabs, idx, g), device),
+        plain_ms=time_ms(lambda: [cs.stage_plain(ftabs[i], g) for i in uniq],
+                         device),
+        library_ms=time_ms(lambda: torch.matmul(tcat, g.t()), device),
+        **bound(nbytes(g, *[ftabs[i] for i in uniq]) + 8 * K * M * M
+                * len(uniq), 2 * K * M * M * M * len(uniq),
+                F64_TENSOR_PER_MS))
+    del g, got, ref, tcat, asm, cops
+
+    adj = {}
+    _kvs, _geo, conv, _f = convdiff_setup(n2, device)
+    adj['convdiff_n128'] = adjoint_case(conv, device, 'convdiff', 6)
+    w = geometry.BSplineFunc(kvs_of(2, n2), np.random.RandomState(7).rand(
+        n2 + 3, n2 + 3))
+    nl = instantiate_assembler(NONLINEAR, kvs_of(2, n2), {
+        'geo': geometry.quarter_annulus(), 'w': w}, None, device=device)
+    adj['nonlinear_n128'] = adjoint_case(nl, device, 'nonlinear', 8)
+    bih = instantiate_assembler(BIHARMONIC, kvs_of(2, n2), {
+        'geo': geometry.quarter_annulus()}, None, device=device)
+    adj['biharmonic_n128'] = adjoint_case(bih, device, 'biharmonic', 9)
+    out['vform_adjoint'] = dict(adj['convdiff_n128'], cases=adj)
+    out['vform_adjoint']['max_abs_err'] = max(r['max_abs_err']
+                                              for r in adj.values())
+    for k, r in out.items():
+        log('  %-18s kernel %.4f ms   plain %.4f ms   library %s   bound '
+            '%.4f ms (%s)' % (k, r['ms'], r['plain_ms'],
+                              'none' if r['library_ms'] is None
+                              else '%.4f ms' % r['library_ms'],
+                              r['bound_ms'], r['bound_by']))
+    for k in ('geo_jac_fields_bwd', 'vform_adjoint'):
+        for c, r in out[k]['cases'].items():
+            log('    %s %s: %.4f ms (plain %.4f, bound %.4f)'
+                % (k, c, r['ms'], r['plain_ms'], r['bound_ms']))
+    return out
+
+
+class PlainKernels:
+    """A context in which the kernel wrappers of the differentiable path
+    run their plain PyTorch versions on the card (K1's kinds, K2, K3 and
+    K5), so that autograd differentiates plain torch: the reference the
+    kernels' gradients are held to."""
+
+    def __enter__(self):
+        from pyiga_tpu_torch.ops import cuda_sumfac as cs
+        from pyiga_tpu_torch.ops import cuda_vform as cv
+        self.saved = [(cs, k, getattr(cs, k)) for k in (
+            'stage', 'fold', 'fields', 'fields_mass', 'geo_jac_fields')]
+        self.saved.append((cv, 'combo_fields', cv.combo_fields))
+        cs.stage, cs.fold = cs.stage_plain, cs.fold_plain
+        cs.fields, cs.fields_mass = cs.fields_plain, cs.fields_mass_plain
+        cs.geo_jac_fields = cs.geo_jac_fields_plain
+        cv.combo_fields = cv.combo_fields_plain
+        return self
+
+    def __exit__(self, *exc):
+        for mod, k, fn in self.saved:
+            setattr(mod, k, fn)
+        return False
+
+
+def grad_case(name, fn, x0, device, seed, fd_dirs=3, h=1e-4, fd_tol=1e-6):
+    """The gradient of ``sum(w * fn(x))`` (w seeded) at `x0` on the card:
+    the forward's and the backward's ms (host clock after a synchronize,
+    the backward's launches counted), held against autograd through the
+    plain versions on the card (1e-12 relative) and against central
+    differences on `fd_dirs` seeded directions (`fd_tol` relative)."""
+    from pyiga_tpu_torch import _cuda
+    f64 = torch.float64
+    x = torch.as_tensor(np.asarray(x0, dtype=float), dtype=f64,
+                        device=device)
+    with torch.no_grad():
+        shape = fn(x).shape
+    rng = np.random.RandomState(seed)
+    w = torch.as_tensor(rng.rand(*shape), dtype=f64, device=device)
+
+    def fwd_bwd():
+        xr = x.clone().requires_grad_(True)
+        sync(device)
+        t0 = time.perf_counter()
+        out = fn(xr)
+        obj = (w * out).sum()
+        sync(device)
+        t1 = time.perf_counter()
+        before = dict(_cuda.LAUNCHES)
+        g, = torch.autograd.grad(obj, xr)
+        sync(device)
+        t2 = time.perf_counter()
+        return out.detach(), g, 1e3 * (t1 - t0), 1e3 * (t2 - t1), \
+            {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+             if v != before[k]}
+    fwd_bwd()                           # builds, warms
+    fwd_ms, bwd_ms = [], []
+    for _ in range(3):
+        out, g, tf, tb, launches = fwd_bwd()
+        fwd_ms.append(tf)
+        bwd_ms.append(tb)
+    again = fwd_bwd()[1]
+    if not torch.equal(again, g):
+        raise RuntimeError('%s: two backward passes differ' % name)
+    with PlainKernels():
+        xr = x.clone().requires_grad_(True)
+        gp, = torch.autograd.grad((w * fn(xr)).sum(), xr)
+    err, rel = compare(name + ' grad', g, gp, 1e-12)
+    fd = []
+    with torch.no_grad():
+        for k in range(fd_dirs):
+            v = torch.as_tensor(rng.rand(*x.shape) - 0.5, dtype=f64,
+                                device=device)
+            v = v / v.abs().max()
+            num = (float((w * fn(x + h * v)).sum())
+                   - float((w * fn(x - h * v)).sum())) / (2 * h)
+            ana = float((g * v).sum())
+            fd.append(dict(fd=num, grad=ana, rel=abs(num - ana) / abs(ana)))
+            log('  %s direction %d: grad.v %.10e  FD %.10e  rel %.2e'
+                % (name, k, ana, num, fd[-1]['rel']))
+            if not fd[-1]['rel'] <= fd_tol:
+                raise RuntimeError('%s: gradient disagrees with central '
+                                   'differences' % name)
+    rec = dict(shape=list(shape), x_shape=list(x.shape), max_abs_err=err,
+               rel=rel, fd=fd, forward_ms=fwd_ms, backward_ms=bwd_ms,
+               launches_backward=launches, repeat_equal=True)
+    log('  %s: forward %s ms, backward %s ms, backward launches %s'
+        % (name, ['%.2f' % t for t in fwd_ms], ['%.2f' % t for t in bwd_ms],
+           launches))
+    return rec
+
+
+def run_diff_gradients(device, n3=48, n2=128):
+    """Phase 20b: ``assembly_coeff_fn`` on the headline's
+    ``StiffnessAssembler`` at 3D p=3 n=48 (132,651 dofs): ``fn(coeffs0)``
+    bitwise equal to ``run_device()``, the gradient of ``sum(w * A)``
+    against autograd through the plain versions on the card and against
+    central differences on 3 seeded directions; the same for the mass
+    assembler at 3D n=48 and the convection-diffusion VForm at 2D n=128
+    (the ``jac`` kind's and K5's backward on the path)."""
+    from pyiga_tpu_torch.assemblers import MassAssembler
+    from pyiga_tpu_torch.diff import assembly_coeff_fn
+    rec = {}
+    asm = main_path_setup(3, n3, device)
+    fn, c0 = assembly_coeff_fn(asm)
+    with torch.no_grad():
+        if not torch.equal(fn(c0), asm.run_device()):
+            raise RuntimeError('fn(coeffs0) differs from run_device()')
+    log('  fn(coeffs0) == run_device(): bitwise')
+    rec['stiffness_3d'] = grad_case('stiffness 3D n=%d' % n3, fn, c0,
+                                    device, 11)
+    del asm, fn
+    masm = MassAssembler(kvs_of(3, n3), main_geo(3), device=device)
+    fn, c0 = assembly_coeff_fn(masm)
+    rec['mass_3d'] = grad_case('mass 3D n=%d' % n3, fn, c0, device, 12,
+                               fd_dirs=1)
+    del masm, fn
+    _kvs, _geo, conv, _f = convdiff_setup(n2, device)
+    fn, c0 = assembly_coeff_fn(conv)
+    with torch.no_grad():
+        if not torch.equal(fn(c0), conv.run_device()[(None, None)]):
+            raise RuntimeError('VForm fn(coeffs0) differs from run_device()')
+    rec['convdiff_2d'] = grad_case('convdiff 2D n=%d' % n2, fn, c0, device,
+                                   13, fd_dirs=1)
+    return rec
+
+
+def main_geo(dim):
+    from pyiga_tpu_torch import geometry
+    return geometry.twisted_box() if dim == 3 else geometry.quarter_annulus()
+
+
+def run_diff_compliance(device, n=48):
+    """Phase 20c: the compliance ``f^T u`` with ``A(c) u = f`` at 3D p=3
+    n=48 through ``implicit_cg_solve`` over ``RestrictedOperator(
+    MLMatvecOperator(fn(c)))`` with the weighted fast-diagonalization
+    preconditioner (built from the assembler, no history): its
+    directional derivative against a central difference, the forward and
+    adjoint CG iterations and ms."""
+    from pyiga_tpu_torch.diff import assembly_coeff_fn, implicit_cg_solve
+    from pyiga_tpu_torch.ops.fastdiag import (fastdiag_precond_weighted,
+                                              interior_dofs)
+    from pyiga_tpu_torch.ops.matfree import RestrictedOperator
+    from pyiga_tpu_torch.ops.mlmatvec import MLMatvecOperator
+    f64 = torch.float64
+    asm = main_path_setup(3, n, device)
+    fn, c0 = assembly_coeff_fn(asm)
+    free = interior_dofs(asm.kvs)
+    P = fastdiag_precond_weighted(asm, dirichlet=True, dtype=f64)
+    rng = np.random.RandomState(14)
+    f = torch.as_tensor(rng.rand(len(free)), dtype=f64, device=device)
+    calls = {'n': 0}
+
+    def compliance(c):
+        op = RestrictedOperator(MLMatvecOperator(fn(c), asm.structure), free)
+
+        def matvec(x):
+            calls['n'] += 1
+            return op(x)
+        return torch.dot(f, implicit_cg_solve(matvec, f, tol=1e-13,
+                                              precond=P))
+
+    x = torch.as_tensor(c0, dtype=f64, device=device)
+    compliance(x.clone())               # warm
+    xr = x.clone().requires_grad_(True)
+    sync(device)
+    calls['n'] = 0
+    t0 = time.perf_counter()
+    J = compliance(xr)
+    sync(device)
+    t1 = time.perf_counter()
+    fwd_calls = calls['n']
+    g, = torch.autograd.grad(J, xr)
+    sync(device)
+    t2 = time.perf_counter()
+    adj_calls = calls['n'] - fwd_calls
+    v = torch.as_tensor(rng.rand(*x.shape) - 0.5, dtype=f64, device=device)
+    v = v / v.abs().max()
+    h = 1e-4
+    with torch.no_grad():
+        num = (float(compliance(x + h * v))
+               - float(compliance(x - h * v))) / (2 * h)
+    ana = float((g * v).sum())
+    rel = abs(num - ana) / abs(ana)
+    # forward: the CG iterations, then one matvec for the residual of
+    # the implicit term; adjoint: the CG iterations
+    J = float(J.detach())
+    rec = dict(compliance=J, forward_ms=1e3 * (t1 - t0),
+               backward_ms=1e3 * (t2 - t1), forward_cg_iters=fwd_calls - 1,
+               adjoint_cg_iters=adj_calls, fd=num, grad_v=ana, rel=rel,
+               free_dofs=len(free))
+    log('  compliance %.12e: forward %.1f ms (%d CG iterations), backward '
+        '%.1f ms (%d adjoint CG iterations); grad.v %.10e FD %.10e rel '
+        '%.2e' % (J, rec['forward_ms'], rec['forward_cg_iters'],
+                  rec['backward_ms'], adj_calls, ana, num, rel))
+    if not (np.isfinite(J) and rel <= 1e-6):
+        raise RuntimeError('compliance derivative disagrees with central '
+                           'differences')
+    return rec
+
+
+def run_diff_inputs(device, n=128):
+    """Phase 20d: ``assembly_input_fn`` at 2D p=3 n=128 on the NURBS
+    quarter annulus for ``(c * inner(grad(u), grad(v)) + eps *
+    dot(grad(c), grad(u)) * v) * dx``: the gradient with respect to the
+    spline input ``c`` (its values and first derivatives recomputed from
+    its coefficients) and to the parameter ``eps``, each against autograd
+    through the plain versions on the card and a central difference."""
+    from pyiga_tpu_torch import approx, geometry
+    from pyiga_tpu_torch.assemble import instantiate_assembler
+    from pyiga_tpu_torch.diff import assembly_input_fn
+    kvs = kvs_of(2, n)
+    c = geometry.BSplineFunc(kvs, approx.interpolate(
+        kvs, lambda x, y: 1.0 + x * y))
+    asm = instantiate_assembler(
+        '(c * inner(grad(u), grad(v)) + eps * dot(grad(c), grad(u)) * v)'
+        ' * dx', kvs, {'geo': geometry.quarter_annulus(), 'c': c,
+                       'eps': 0.7}, None, device=device)
+    rec = {}
+    fn, x0 = assembly_input_fn(asm, 'c')
+    with torch.no_grad():
+        d0 = fn(x0)
+        ref = asm.run_device()[(None, None)]
+    rel0 = float((d0 - ref).abs().max() / ref.abs().max())
+    log('  fn(c0) against run_device(): rel %.2e' % rel0)
+    if rel0 > 1e-13:
+        raise RuntimeError('assembly_input_fn(c) differs from run_device()')
+    rec['input_c'] = grad_case('input c 2D n=%d' % n, fn, x0, device, 15,
+                               fd_dirs=1)
+    fn, x0 = assembly_input_fn(asm, 'eps')
+    rec['param_eps'] = grad_case('param eps 2D n=%d' % n, fn, x0, device,
+                                 16, fd_dirs=1)
+    return rec
+
+
+def run_diff_examples(device):
+    """Phase 20e: ``examples/torch_shape_derivative.py`` and
+    ``examples/torch_nonlinear_poisson.py`` at their default sizes on the
+    card against the CPU: compliance histories and Newton residual norms
+    (1e-10) and ``max |u|`` (1e-12)."""
+    rec = {}
+    sd = load_example('torch_shape_derivative')
+    t0 = time.perf_counter()
+    hist = sd.main(device=device)
+    rec['shape_derivative_s'] = time.perf_counter() - t0
+    hist_cpu = sd.main(device='cpu')
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hist, hist_cpu))
+    rec['shape_derivative'] = dict(history=hist, cpu=hist_cpu, rel=rel)
+    log('  shape derivative: compliance %s, card vs CPU rel %.2e'
+        % (['%.10f' % h for h in hist], rel))
+    if len(hist) != len(hist_cpu) or rel > 1e-10:
+        raise RuntimeError('torch_shape_derivative: card differs from CPU')
+    nlp = load_example('torch_nonlinear_poisson')
+    t0 = time.perf_counter()
+    norms, umax = nlp.main(device=device)
+    rec['nonlinear_poisson_s'] = time.perf_counter() - t0
+    norms_cpu, umax_cpu = nlp.main(device='cpu')
+    rec['nonlinear_poisson'] = dict(norms=norms, cpu=norms_cpu, umax=umax,
+                                    umax_cpu=umax_cpu)
+    log('  nonlinear Poisson: %d residuals (CPU %d), max |u| %.12f (CPU '
+        '%.12f)' % (len(norms), len(norms_cpu), umax, umax_cpu))
+    if len(norms) != len(norms_cpu) \
+            or not np.allclose(norms, norms_cpu, rtol=1e-10, atol=1e-10) \
+            or abs(umax - umax_cpu) > 1e-12 * abs(umax_cpu):
+        raise RuntimeError('torch_nonlinear_poisson: card differs from CPU')
+    return rec
+
+
+def run_diff_phase(device, n3=48, n2=128, examples=True):
+    """Phases 20b-20e with the launch counts set to 0 before each and
+    read after: the differentiable path's launches of every kernel."""
+    from pyiga_tpu_torch import _cuda
+    rec = {}
+    totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+    phases = [('20b', lambda: run_diff_gradients(device, n3, n2)),
+              ('20c', lambda: run_diff_compliance(device, n3)),
+              ('20d', lambda: run_diff_inputs(device, n2))]
+    if examples:
+        phases.append(('20e', lambda: run_diff_examples(device)))
+    for ph, fn in phases:
+        log('phase %s' % ph)
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        rec[ph] = fn()
+        rec[ph + '_s'] = time.perf_counter() - t0
+        rec[ph + '_launches'] = dict(_cuda.LAUNCHES)
+        for k, v in _cuda.LAUNCHES.items():
+            totals[k] += v
+        torch.cuda.empty_cache()
+    rec['launches'] = totals
+    log('  phase 20 launches: %s' % {k: v for k, v in totals.items() if v})
+    missing = [k for k in DIFF_KERNELS if totals[k] <= 0]
+    if missing:
+        raise RuntimeError('the differentiable path never launched %s'
+                           % missing)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -3878,6 +4507,19 @@ def main():
     multipatch = run_item8_phase('phase 19', run_multipatch, device)
     torch.cuda.empty_cache()
 
+    log('phase 20a: the backward kernels of the differentiable assembly '
+        'vs plain versions')
+    diff_kern = check_diff_kernels(device)
+    kern.update(diff_kern)
+    torch.cuda.empty_cache()
+
+    log('phase 20: differentiable assembly: gradients at 3D p=3 n=48 and 2D '
+        'n=128, an implicit CG compliance, input and parameter '
+        'derivatives, the two examples')
+    diffrec = run_diff_phase(device)
+    launches.update((k, diffrec['launches'][k]) for k in DIFF_KERNELS)
+    torch.cuda.empty_cache()
+
     # the NS shapes of the kernels the NS path runs, beside their launches
     # in phase 16's integration
     ns_line = {k: dict(launches=nsrec['launches'][k]) for k in NS_KERNELS}
@@ -3932,8 +4574,8 @@ def main():
                   ns_kernels=ns_kern, vector3d2d=vec, stokes=stokes,
                   navier_stokes=nsrec, item8_kernels=item8_kern,
                   surface=surface, second_derivatives=second,
-                  multipatch=multipatch,
-                  seconds=time.perf_counter() - t_start)
+                  multipatch=multipatch, diff_kernels=diff_kern,
+                  diff=diffrec, seconds=time.perf_counter() - t_start)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:
         json.dump(record, f, indent=1, default=str)

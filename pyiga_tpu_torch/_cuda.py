@@ -15,7 +15,9 @@ their plain PyTorch versions on CPU tensors.
 Every C entry returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a nonzero code.  Each wrapper counts its launches
 in :data:`LAUNCHES` (a plain dict of integers), so a run can show that it
-went through the kernels.
+went through the kernels.  A wrapper whose kernel has no backward calls
+:func:`no_grad_operands` before it launches: its output is written through
+a raw pointer, so autograd would lose every gradient there without a word.
 """
 
 import contextlib
@@ -41,7 +43,10 @@ LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'mass_fields': 0,
             'host_jac_fields': 0, 'stage': 0, 'fold': 0, 'stage_T': 0,
             'tail_fused': 0, 'flat_banded_f64': 0, 'flat_banded_f32': 0,
             'vform_fields': 0, 'vcycle': 0, 'vcycle_wavefront': 0,
-            'wavefront_gs': 0}
+            'wavefront_gs': 0,
+            # the backward kernels of the differentiable assembly (diff.py)
+            'fields_bwd': 0, 'mass_fields_bwd': 0, 'geo_jac_fields_bwd': 0,
+            'stage_bwd': 0, 'fold_bwd': 0, 'vform_adjoint': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +57,8 @@ _SIGNATURES = {
     'pyiga_mass_fields_f64': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
     'pyiga_host_jac_fields_f64': (_P, _P, _P, _P, _I, _L, _I, _P),
     'pyiga_geo_jac_fields_f64': (_P, _P, _P, _I, _I, _I, _L, _I, _I, _P),
+    'pyiga_fields_bwd_f64': (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
+                             _I, _P),
     'pyiga_stage_f64': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_fold_f64': (_P, _P, _I, _P, _I, _L, _I, _P),
     'pyiga_stage_T_f64': (_P, _P, _P, _I, _L, _I, _P),
@@ -238,3 +245,40 @@ def require(t, name, dtype, ndim):
     if t.dim() != ndim:
         raise ValueError('%s must have %d dims, got shape %s'
                          % (name, ndim, tuple(t.shape)))
+
+
+def no_grad_operands(name, *tensors):
+    """Raise if autograd would record a call of the kernel `name` on
+    `tensors`: grad mode on and an operand that requires grad.  For the
+    CUDA branch of a wrapper whose kernel has no backward (its output is
+    written through a raw pointer, so the gradient would be lost without
+    a word, while the plain version on the CPU has one)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            '%s: the CUDA kernel has no backward; call it under '
+            'torch.no_grad() or on operands that do not require grad'
+            % name)
+
+
+def constant_operands(name, *tensors):
+    """Raise if a gradient is asked of an operand that the differentiable
+    assembly holds constant (basis tables, Gauss weights): its Function
+    gives that operand none, and would drop it without a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError('%s: tables and weights are constants, no '
+                           'gradient flows to them' % name)
+
+
+def loop_vmap(apply):
+    """A custom Function's ``vmap`` rule that applies it to each member of
+    the batch in turn and stacks the results (the kernels behind the
+    Functions are ctypes calls, which ``torch.func.vmap`` cannot trace)."""
+    def vmap(info, in_dims, *args):
+        outs = [apply(*[a.select(d, b).contiguous()
+                        if isinstance(a, torch.Tensor) and d is not None
+                        else a for a, d in zip(args, in_dims)])
+                for b in range(info.batch_size)]
+        return torch.stack(outs), 0
+    return staticmethod(vmap)

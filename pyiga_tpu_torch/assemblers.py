@@ -87,10 +87,13 @@ class BaseGaussAssembler:
             inputs['geo_coeffs'] = coeffs
         return inputs
 
-    def geo_inputs(self, dtype=DTYPE):
+    def geo_inputs(self, dtype=DTYPE, geo_coeffs=None):
         """The geometry inputs as tensors on the assembler's device (the
         host Jacobian of a non-spline geometry is uploaded on the first
-        call and kept)."""
+        call and kept).  `geo_coeffs` replaces the spline geometry's
+        coefficients (level order, component axis leading) for this call
+        and may carry autograd history: the assembly is differentiable in
+        them (:mod:`~pyiga_tpu_torch.diff`)."""
         def dev(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype,
                                    device=self.device)
@@ -100,8 +103,15 @@ class BaseGaussAssembler:
                 if self._jac_dev is None:
                     self._jac_dev = dev(v)
                 out[k] = self._jac_dev
+            elif k == 'geo_coeffs' and geo_coeffs is not None:
+                continue
             else:
                 out[k] = [dev(a) for a in v] if isinstance(v, list) else dev(v)
+        if geo_coeffs is not None:
+            geom.check_replacement(self._geo_inputs.get('geo_coeffs'),
+                                   geo_coeffs, dtype,
+                                   out['weights'][0].device)
+            out['geo_coeffs'] = geo_coeffs
         return out
 
     def _fold(self):
@@ -149,10 +159,19 @@ class BaseGaussAssembler:
         gather of mirrored terms.  `mode` is accepted for API
         compatibility and ignored: the port has one float64 route, the
         exact one."""
+        return self._assemble_compact(self.geo_inputs())
+
+    def _assemble_compact(self, geo_inputs):
+        """The compact data tensor from the geometry tensors `geo_inputs`
+        (:meth:`geo_inputs`' dict): the fields (:attr:`field_fn`), the
+        folded chains over the cached compact operands and the transpose
+        gather.  With `geo_inputs` carrying replaced coefficients this is
+        the differentiable route of :mod:`~pyiga_tpu_torch.diff` (the
+        counterpart of the JAX package's ``_gauss_assembler_fn``)."""
         ops = self._compact_operands()
         return cuda_sumfac.assemble_terms_folded(
-            ops['term_tables'], self.field_fn(self.geo_inputs()),
-            ops['plan'], ops['tperms'], ops['last_idx'])
+            ops['term_tables'], self.field_fn(geo_inputs), ops['plan'],
+            ops['tperms'], ops['last_idx'])
 
     def assemble(self, mode=None):
         """Assemble and return the matrix as a host

@@ -296,6 +296,13 @@ def _physical_field_derivs(f, geo, grid, comp_shape, with_hessian=False):
 # Assembler class
 ################################################################################
 
+def check_mode(mode):
+    """The JAX package's assembly modes, accepted for API compatibility:
+    the port has one float64 mode, the exact one."""
+    if mode not in (None, 'exact', 'ozaki'):
+        raise ValueError("mode must be 'exact' or 'ozaki'")
+
+
 # probe results (pruned combos + symmetric-fold plan) per (form, input
 # signature); the probe runs on a tiny fixed grid, so one entry serves
 # every space size
@@ -891,18 +898,18 @@ class VFormAssembler:
             tperms=tperms)
         return self._operands
 
-    def _geometry_fields(self):
+    def _geometry_fields(self, coeffs):
         """Physical geometry values and Jacobian ``(geo_val_lvl,
-        geo_jac_lvl)`` on the Gauss grid, from K2 and K1's ``jac`` kind;
-        for a host-evaluated geometry its uploaded arrays."""
+        geo_jac_lvl)`` on the Gauss grid, from K2 and K1's ``jac`` kind
+        on the spline coefficients `coeffs`; for a host-evaluated
+        geometry its uploaded arrays."""
         ops = self._device_operands()
         if ops['geo_tables'] is None:
             return ops['inputs']['geo_val_lvl'], ops['inputs']['geo_jac_lvl']
-        return cuda_sumfac.geometry_fields(ops['geo_tables'],
-                                           ops['geo_coeffs'],
+        return cuda_sumfac.geometry_fields(ops['geo_tables'], coeffs,
                                            self._geo_is_nurbs)
 
-    def device_arrays(self, inputs=None):
+    def device_arrays(self, inputs=None, geo_coeffs=None):
         """The device tensors K5 evaluates on: the inputs, parameters (per
         name and as the flat ``params`` vector) and per-axis Gauss
         weights, plus the physical geometry values ``geo_val_lvl``
@@ -920,24 +927,41 @@ class VFormAssembler:
         `inputs` maps ``input:<name>`` / ``ideriv:<name>:1`` keys to
         device tensors of the cached operands' shapes that replace them
         for this call only (the in-loop reassembly of a stepper, whose
-        velocity fields are formed on the device)."""
+        velocity fields are formed on the device), and ``param:<name>``
+        keys to parameter values (the flat ``params`` vector is formed
+        from them anew).  `geo_coeffs` replaces the spline geometry's
+        coefficients (level order, component axis leading, as the cached
+        ones) for this call.  Every replacement may carry autograd
+        history: the fields are differentiable in them
+        (:mod:`~pyiga_tpu_torch.diff`)."""
         ops = self._device_operands()
         arrays = dict(ops['inputs'])
-        arrays['geo_val_lvl'], arrays['geo_jac_lvl'] = self._geometry_fields()
+        coeffs = ops['geo_coeffs']
+        if geo_coeffs is not None:
+            geom.check_replacement(coeffs, geo_coeffs, DTYPE,
+                                   arrays['weights'][0].device)
+            coeffs = geo_coeffs
+        arrays['geo_val_lvl'], arrays['geo_jac_lvl'] = \
+            self._geometry_fields(coeffs)
         if self._needs_geo_hessian():
             arrays['geo_hess_lvl'] = cuda_sumfac.geometry_hessian(
-                ops['geo_tables'], ops['geo_coeffs'], self._geo_is_nurbs)
+                ops['geo_tables'], coeffs, self._geo_is_nurbs)
         if inputs is None:
             return arrays
         for key, t in inputs.items():
             old = arrays.get(key)
-            if not key.startswith(('input:', 'ideriv:')) or old is None \
-                    or t.shape != old.shape or t.dtype != old.dtype \
-                    or t.device != old.device:
+            if not key.startswith(('input:', 'ideriv:', 'param:')) \
+                    or old is None or t.shape != old.shape \
+                    or t.dtype != old.dtype or t.device != old.device:
                 raise ValueError('run_device: input %r does not replace an '
                                  'operand of the same shape, dtype and '
                                  'device' % key)
             arrays[key] = t
+        if any(key.startswith('param:') for key in inputs):
+            # the layout of cuda_vform.param_vector
+            arrays['params'] = torch.cat(
+                [arrays[k].reshape(-1) for k in self._host_arrays
+                 if k.startswith('param:')])
         return arrays
 
     def _block_plans(self):
@@ -965,10 +989,15 @@ class VFormAssembler:
         :meth:`device_arrays`); everything else comes from the cached
         operands.  `mode` ('exact', 'ozaki' or None) is accepted for API
         compatibility: the port has one f64 mode, the exact one."""
-        if mode not in (None, 'exact', 'ozaki'):
-            raise ValueError("mode must be 'exact' or 'ozaki'")
+        check_mode(mode)
+        return self._assemble_blocks(self.device_arrays(inputs))
+
+    def _assemble_blocks(self, arrays):
+        """The blocks of :meth:`run_device` from the device tensors
+        `arrays` (:meth:`device_arrays`); with replaced operands there
+        this is the differentiable route of :mod:`~pyiga_tpu_torch.diff`
+        (the counterpart of the JAX package's ``_assembly_fn``)."""
         ops = self._device_operands()
-        arrays = self.device_arrays(inputs)
         if self._fold_plan is not None:
             plan = self._fold_plan
             # only the plan's terms: a mirrored term's partner is never

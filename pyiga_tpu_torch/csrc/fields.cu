@@ -6,6 +6,10 @@
 //     'stiffness', 'mass' (through `mass_fields_pallas`, :1411) and 'jac'
 //     (through `geo_jac_fields_pallas`, :1421, for the generic VForm
 //     fields).
+// K1 backward geo_fields_bwd_kernel<D, G, NURBS, KIND, NL>: the gradient
+//     of the three kinds with respect to Y, for the differentiable
+//     assembly (pyiga_tpu_torch/diff.py; the JAX package differentiates
+//     K1's XLA form).
 // K1' host_jac_fields_kernel  replaces `stiffness_fields_pallas`'s
 //     host-Jacobian branch (pallas_call at :1163, body
 //     `_make_stiff_fields_kernel`, :930).
@@ -257,93 +261,373 @@ geo_fields_kernel(const double* __restrict__ Y, const double* __restrict__ T,
     }
 }
 
-// Launch K1 of `kind` (0 stiffness, 1 mass, 2 jac).  The block takes
-// min(256, QL rounded up to a warp) threads and RB rows: 16, halved while
-// the grid has fewer than two blocks an SM or the staged rows would take
-// more than 48 KB of shared memory.
+// --------------------------------------------------------------------------
+// K1's backward: geo_fields_bwd_kernel<D, G, NURBS, KIND, NL>.
+//
+// The JAX package differentiates the XLA form of K1 (pyiga_tpu/diff.py
+// builds on `asm.field_fn` with mode='exact', no Pallas kernel); the
+// port's forward on the card is K1 itself, so its gradient is a kernel
+// too.  In: Y, T (and w12, wL for the stiffness and mass kinds) as the
+// forward takes them, and gout, the gradient of the forward's output (its
+// shape).  Out: gY (D, C, Q12, nL), the gradient of Y.
+//
+// Per Gauss point the kernel recomputes the homogeneous Jacobian jh[c][k]
+// and the values val[c] from the staged Y rows and the column's last-axis
+// tables, as the forward does, then applies the VJP of the kind:
+//   stiffness B = s J^-1 J^-T (s = gw |det J|, the unique a <= b stored;
+//     the off-diagonal gradient split between the mirrored entries into a
+//     symmetric Gs): gJ = s ((Gs : M) J^-T - 2 J^-T Gs M), M = J^-1 J^-T;
+//   mass s: gJ = g s J^-T;
+//   jac (x, J): the gradients as they come;
+// then, for NURBS, the quotient rule's (J = (jh W - val jh_W) / W^2,
+// x = val / W).  That leaves per point and (t, c) the coefficients a_v of
+// the value table and (t = D-1 only) a_d of the derivative table:
+//   gY[t, c, q12, j] = sum_qL a_v[t][c] Tv[qL, j] + a_d[c] Td[qL, j].
+// The order of the algebra is that of the formulas in
+// ops/cuda_sumfac._fields_vjp_plain.
+//
+// The sum over the last axis: a block owns RB rows q12 (their Y rows in
+// shared memory, as the forward), and walks them one at a time.  For a
+// row, each thread computes the a's of one column qL (chunks of
+// blockDim.x columns when QL is larger) into shared memory; then each
+// warp takes outputs (t, c, j) in turn, its lanes sum the chunk's columns
+// lane, lane + 32, ..., and a butterfly of shuffles adds the lanes; lane 0
+// adds the chunk's sum to the row's.  Every sum has a fixed order: no
+// atomics, bitwise equal on a repeat.
+//
+// Bound: bytes, Y read once, gout read once, gY written once (gout
+// dominates: 6, 1 or 12 doubles a point at 3D).  The per-point algebra is
+// some 150-250 flops (stiffness, 3D), above the forward's, so this kernel
+// is further from its bound than the forward; a first, plain design.
+// --------------------------------------------------------------------------
+
 template <int D, int G, bool NURBS, int KIND, int NL>
-static int launch_one(const double* Y, const double* T, const double* w12,
-                      const double* wL, double* out, int Q12, int QL, int nL,
-                      cudaStream_t s) {
-    int rb = 16;
-    const long long per_row = 8LL * D * (G + (NURBS ? 1 : 0)) * nL;
-    while (rb > 1 && ((Q12 + rb - 1) / rb < 2 * 132 || rb * per_row > 49152))
-        rb /= 2;
-    const long long smem = rb * per_row;
-    auto kernel = geo_fields_kernel<D, G, NURBS, KIND, NL>;
-    if (smem > 49152) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
+__global__ void __launch_bounds__(256)
+geo_fields_bwd_kernel(const double* __restrict__ Y,
+                      const double* __restrict__ T,
+                      const double* __restrict__ w12,
+                      const double* __restrict__ wL,
+                      const double* __restrict__ gout,
+                      double* __restrict__ gY, int Q12, int QL, int nL_,
+                      int RB) {
+    static_assert(KIND == kJac || G == D, "only the jac kind takes G != D");
+    constexpr int C = G + (NURBS ? 1 : 0);
+    constexpr int NA = (D + 1) * C;     // a_v[t][c], then a_d[c]
+    const int nL = NL ? NL : nL_;
+    const int bd = blockDim.x;
+    extern __shared__ double smem[];
+    double* sY = smem;                          // [D * C][RB][nL]
+    double* sA = sY + D * C * RB * nL;          // [NA][bd]
+    double* sG = sA + NA * bd;                  // [D * C][nL], a row's sums
+    const int r0 = blockIdx.x * RB;
+    const int rows = min(RB, Q12 - r0);
+    const int seg = rows * nL;
+    for (int k = threadIdx.x; k < D * C * seg; k += bd) {
+        const int tc = k / seg, e = k - tc * seg;
+        sY[tc * RB * nL + e] = __ldg(Y + ((long long)tc * Q12 + r0) * nL + e);
     }
-    int threads = (QL + 31) / 32 * 32;
+    __syncthreads();
+
+    const long long N = (long long)Q12 * QL;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = bd >> 5;
+    const int NO = D * C * nL;
+    for (int r = 0; r < rows; ++r) {
+        const double* yr = sY + r * nL;
+        for (int q0 = 0; q0 < QL; q0 += bd) {
+            const int qL = q0 + threadIdx.x;
+            double av[D][C], ad[C];
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                ad[c] = 0.0;
+#pragma unroll
+                for (int t = 0; t < D; ++t) av[t][c] = 0.0;
+            }
+            if (qL < QL) {
+                const LastTables<NL> tab(T, QL, qL, nL);
+                double jac[C][D], val[C];
+#pragma unroll
+                for (int c = 0; c < C; ++c) {
+#pragma unroll
+                    for (int k = 0; k < D; ++k) {
+                        const int t = k < D - 1 ? k : D - 1;
+                        jac[c][k] = tab.dot(k == D - 1,
+                                            yr + (t * C + c) * RB * nL);
+                    }
+                    val[c] = (NURBS || KIND == kJac)
+                        ? tab.dot(false, yr + ((D - 1) * C + c) * RB * nL)
+                        : 0.0;
+                }
+                const long long g = (long long)(r0 + r) * QL + qL;
+                double gJ[G][D], gx[G];
+                if constexpr (KIND == kJac) {
+#pragma unroll
+                    for (int c = 0; c < G; ++c) {
+                        gx[c] = __ldg(gout + (long long)c * N + g);
+#pragma unroll
+                        for (int k = 0; k < D; ++k)
+                            gJ[c][k] = __ldg(gout + (long long)(G + c * D + k)
+                                                        * N + g);
+                    }
+                } else {
+                    double J[D][D];
+#pragma unroll
+                    for (int c = 0; c < D; ++c)
+#pragma unroll
+                        for (int k = 0; k < D; ++k)
+                            J[c][k] = NURBS
+                                ? (jac[c][k] * val[C - 1]
+                                   - val[c] * jac[C - 1][k])
+                                      / (val[C - 1] * val[C - 1])
+                                : jac[c][k];
+                    double inv[D][D];
+                    const double det = det_and_inv<D>(J, inv);
+                    const double s = __ldg(w12 + r0 + r) * __ldg(wL + qL)
+                                     * fabs(det);
+                    if constexpr (KIND == kMass) {
+                        const double gs = __ldg(gout + g) * s;
+#pragma unroll
+                        for (int c = 0; c < D; ++c)
+#pragma unroll
+                            for (int k = 0; k < D; ++k)
+                                gJ[c][k] = gs * inv[k][c];
+                    } else {
+                        double Gs[D][D], M[D][D];
+                        int o = 0;
+#pragma unroll
+                        for (int a = 0; a < D; ++a)
+#pragma unroll
+                            for (int b = a; b < D; ++b) {
+                                const double v =
+                                    __ldg(gout + (long long)o * N + g);
+                                Gs[a][b] = a == b ? v : 0.5 * v;
+                                Gs[b][a] = Gs[a][b];
+                                ++o;
+                            }
+#pragma unroll
+                        for (int a = 0; a < D; ++a)
+#pragma unroll
+                            for (int b = 0; b < D; ++b) {
+                                double m = 0.0;
+#pragma unroll
+                                for (int k = 0; k < D; ++k)
+                                    m += inv[a][k] * inv[b][k];
+                                M[a][b] = m;
+                            }
+                        double GM = 0.0;
+#pragma unroll
+                        for (int a = 0; a < D; ++a)
+#pragma unroll
+                            for (int b = 0; b < D; ++b) GM += Gs[a][b] * M[a][b];
+                        double GMm[D][D];
+#pragma unroll
+                        for (int a = 0; a < D; ++a)
+#pragma unroll
+                            for (int j = 0; j < D; ++j) {
+                                double m = 0.0;
+#pragma unroll
+                                for (int b = 0; b < D; ++b)
+                                    m += Gs[a][b] * M[b][j];
+                                GMm[a][j] = m;
+                            }
+#pragma unroll
+                        for (int i = 0; i < D; ++i)
+#pragma unroll
+                            for (int j = 0; j < D; ++j) {
+                                double p = 0.0;
+#pragma unroll
+                                for (int a = 0; a < D; ++a)
+                                    p += inv[a][i] * GMm[a][j];
+                                gJ[i][j] = s * (GM * inv[j][i] - 2.0 * p);
+                            }
+                    }
+                }
+                if constexpr (NURBS) {
+                    const double W = val[C - 1];
+                    const double WW = W * W;
+                    double gW = 0.0;
+#pragma unroll
+                    for (int c = 0; c < G; ++c)
+#pragma unroll
+                        for (int k = 0; k < D; ++k)
+                            gW += gJ[c][k] * (2.0 * val[c] * jac[C - 1][k]
+                                              / (WW * W) - jac[c][k] / WW);
+#pragma unroll
+                    for (int k = 0; k < D; ++k) {
+                        double m = 0.0;
+#pragma unroll
+                        for (int c = 0; c < G; ++c) m += gJ[c][k] * val[c];
+                        const double gjw = -m / WW;
+                        if (k < D - 1) av[k][C - 1] = gjw;
+                        else ad[C - 1] = gjw;
+                    }
+#pragma unroll
+                    for (int c = 0; c < G; ++c) {
+                        double m = 0.0;
+#pragma unroll
+                        for (int k = 0; k < D; ++k) m += gJ[c][k] * jac[C - 1][k];
+                        double gv = -m / WW;
+                        if constexpr (KIND == kJac) gv = gv + gx[c] / W;
+                        av[D - 1][c] = gv;
+#pragma unroll
+                        for (int k = 0; k < D; ++k) {
+                            if (k < D - 1) av[k][c] = gJ[c][k] / W;
+                            else ad[c] = gJ[c][k] / W;
+                        }
+                    }
+                    if constexpr (KIND == kJac) {
+                        double m = 0.0;
+#pragma unroll
+                        for (int c = 0; c < G; ++c) m += gx[c] * val[c];
+                        gW = gW - m / WW;
+                    }
+                    av[D - 1][C - 1] = gW;
+                } else {
+#pragma unroll
+                    for (int c = 0; c < G; ++c) {
+#pragma unroll
+                        for (int k = 0; k < D; ++k) {
+                            if (k < D - 1) av[k][c] = gJ[c][k];
+                            else ad[c] = gJ[c][k];
+                        }
+                        if constexpr (KIND == kJac) av[D - 1][c] = gx[c];
+                    }
+                }
+            }
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                sA[(D * C + c) * bd + threadIdx.x] = ad[c];
+#pragma unroll
+                for (int t = 0; t < D; ++t)
+                    sA[(t * C + c) * bd + threadIdx.x] = av[t][c];
+            }
+            __syncthreads();
+            const int len = min(bd, QL - q0);
+            for (int o = warp; o < NO; o += nwarps) {
+                const int tc = o / nL, j = o - tc * nL;
+                const int c = tc % C;
+                const bool last = tc >= (D - 1) * C;
+                double s = 0.0;
+                for (int q = lane; q < len; q += 32) {
+                    const long long qq = q0 + q;
+                    double v = sA[tc * bd + q] * __ldg(T + qq * nL + j);
+                    if (last)
+                        v += sA[(D * C + c) * bd + q]
+                             * __ldg(T + ((long long)QL + qq) * nL + j);
+                    s += v;
+                }
+#pragma unroll
+                for (int off = 16; off > 0; off >>= 1)
+                    s += __shfl_xor_sync(0xffffffffu, s, off);
+                if (lane == 0) sG[o] = q0 == 0 ? s : sG[o] + s;
+            }
+            __syncthreads();
+        }
+        for (int o = threadIdx.x; o < NO; o += bd) {
+            const int tc = o / nL, j = o - tc * nL;
+            gY[((long long)tc * Q12 + r0 + r) * nL + j] = sG[o];
+        }
+    }
+}
+
+// --------------------------------------------------------------------------
+// Launches of K1 and its backward.  The block takes min(256, QL rounded up
+// to a warp) threads and RB rows: 16, halved while the grid has fewer than
+// two blocks an SM or the shared memory would pass 48 KB (the backward's
+// adds a chunk of per-point coefficients and a row's sums to the staged
+// rows); past 48 KB at one row the kernel is given the larger limit.
+// --------------------------------------------------------------------------
+
+struct FieldsArgs {
+    const double* Y;
+    const double* T;
+    const double* w12;
+    const double* wL;
+    const double* gout;     // backward only
+    double* out;            // the output, or gY for the backward
+    int Q12, QL, nL;
+    cudaStream_t s;
+};
+
+template <int D, int G, bool NURBS, int KIND, int NL, bool BWD>
+static int launch_one(const FieldsArgs& a) {
+    constexpr int C = G + (NURBS ? 1 : 0);
+    int threads = (a.QL + 31) / 32 * 32;
     if (threads > 256) threads = 256;
-    kernel<<<(Q12 + rb - 1) / rb, threads, (size_t)smem, s>>>(
-        Y, T, w12, wL, out, Q12, QL, nL, rb);
+    const long long per_row = 8LL * D * C * a.nL;
+    const long long extra =
+        BWD ? 8LL * (D + 1) * C * threads + 8LL * D * C * a.nL : 0;
+    int rb = 16;
+    while (rb > 1 && ((a.Q12 + rb - 1) / rb < 2 * 132
+                      || rb * per_row + extra > 49152))
+        rb /= 2;
+    const long long smem = rb * per_row + extra;
+    const unsigned int grid = (unsigned int)((a.Q12 + rb - 1) / rb);
+    if constexpr (BWD) {
+        auto kernel = geo_fields_bwd_kernel<D, G, NURBS, KIND, NL>;
+        if (smem > 49152) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)smem);
+            if (e != cudaSuccess) return (int)e;
+        }
+        kernel<<<grid, threads, (size_t)smem, a.s>>>(
+            a.Y, a.T, a.w12, a.wL, a.gout, a.out, a.Q12, a.QL, a.nL, rb);
+    } else {
+        auto kernel = geo_fields_kernel<D, G, NURBS, KIND, NL>;
+        if (smem > 49152) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)smem);
+            if (e != cudaSuccess) return (int)e;
+        }
+        kernel<<<grid, threads, (size_t)smem, a.s>>>(
+            a.Y, a.T, a.w12, a.wL, a.out, a.Q12, a.QL, a.nL, rb);
+    }
     return (int)cudaGetLastError();
 }
 
-template <int D, int G, bool NURBS, int KIND>
-static int launch_nl(const double* Y, const double* T, const double* w12,
-                     const double* wL, double* out, int Q12, int QL, int nL,
-                     cudaStream_t s) {
-    switch (nL) {
-        case 1: return launch_one<D, G, NURBS, KIND, 1>(Y, T, w12, wL, out,
-                                                        Q12, QL, nL, s);
-        case 2: return launch_one<D, G, NURBS, KIND, 2>(Y, T, w12, wL, out,
-                                                        Q12, QL, nL, s);
-        case 3: return launch_one<D, G, NURBS, KIND, 3>(Y, T, w12, wL, out,
-                                                        Q12, QL, nL, s);
-        case 4: return launch_one<D, G, NURBS, KIND, 4>(Y, T, w12, wL, out,
-                                                        Q12, QL, nL, s);
-        default: return launch_one<D, G, NURBS, KIND, 0>(Y, T, w12, wL, out,
-                                                         Q12, QL, nL, s);
+template <int D, int G, bool NURBS, int KIND, bool BWD>
+static int launch_nl(const FieldsArgs& a) {
+    switch (a.nL) {
+        case 1: return launch_one<D, G, NURBS, KIND, 1, BWD>(a);
+        case 2: return launch_one<D, G, NURBS, KIND, 2, BWD>(a);
+        case 3: return launch_one<D, G, NURBS, KIND, 3, BWD>(a);
+        case 4: return launch_one<D, G, NURBS, KIND, 4, BWD>(a);
+        default: return launch_one<D, G, NURBS, KIND, 0, BWD>(a);
     }
 }
 
-template <int D, int G, int KIND>
-static int launch_nurbs(const double* Y, const double* T, const double* w12,
-                        const double* wL, double* out, int nurbs, int q,
-                        int QL, int nL, cudaStream_t s) {
-    return nurbs ? launch_nl<D, G, true, KIND>(Y, T, w12, wL, out, q, QL, nL,
-                                               s)
-                 : launch_nl<D, G, false, KIND>(Y, T, w12, wL, out, q, QL,
-                                                nL, s);
+template <int D, int G, int KIND, bool BWD>
+static int launch_nurbs(const FieldsArgs& a, int nurbs) {
+    return nurbs ? launch_nl<D, G, true, KIND, BWD>(a)
+                 : launch_nl<D, G, false, KIND, BWD>(a);
 }
 
 // d the parametric dimension, g the geometry's output dimension (d for
 // the stiffness and mass kinds; d or d + 1 for the jac kind)
-template <int KIND>
+template <int KIND, bool BWD>
 static int launch_fields(const double* Y, const double* T, const double* w12,
-                         const double* wL, double* out, int d, int g,
-                         int nurbs, long long Q12, int QL, int nL,
-                         void* stream) {
+                         const double* wL, const double* gout, double* out,
+                         int d, int g, int nurbs, long long Q12, int QL,
+                         int nL, void* stream) {
     if (Q12 < 1 || QL < 1 || nL < 1 || Q12 >= (1LL << 31))
         return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    const int q = (int)Q12;
+    const FieldsArgs a{Y, T, w12, wL, gout, out, (int)Q12, QL, nL,
+                       (cudaStream_t)stream};
     if constexpr (KIND == kJac) {
         if (d == 1 && g == 1)     // 1D: no leading axes, nL at run time
-            return nurbs ? launch_one<1, 1, true, kJac, 0>(
-                               Y, T, w12, wL, out, q, QL, nL, s)
-                         : launch_one<1, 1, false, kJac, 0>(
-                               Y, T, w12, wL, out, q, QL, nL, s);
+            return nurbs ? launch_one<1, 1, true, kJac, 0, BWD>(a)
+                         : launch_one<1, 1, false, kJac, 0, BWD>(a);
         if (d == 1 && g == 2)     // a curve in the plane
-            return nurbs ? launch_one<1, 2, true, kJac, 0>(
-                               Y, T, w12, wL, out, q, QL, nL, s)
-                         : launch_one<1, 2, false, kJac, 0>(
-                               Y, T, w12, wL, out, q, QL, nL, s);
+            return nurbs ? launch_one<1, 2, true, kJac, 0, BWD>(a)
+                         : launch_one<1, 2, false, kJac, 0, BWD>(a);
         if (d == 2 && g == 3)     // a surface in space
-            return launch_nurbs<2, 3, kJac>(Y, T, w12, wL, out, nurbs, q, QL,
-                                            nL, s);
+            return launch_nurbs<2, 3, kJac, BWD>(a, nurbs);
     }
     if (g != d) return (int)cudaErrorInvalidValue;
-    if (d == 2)
-        return launch_nurbs<2, 2, KIND>(Y, T, w12, wL, out, nurbs, q, QL, nL,
-                                        s);
-    if (d == 3)
-        return launch_nurbs<3, 3, KIND>(Y, T, w12, wL, out, nurbs, q, QL, nL,
-                                        s);
+    if (d == 2) return launch_nurbs<2, 2, KIND, BWD>(a, nurbs);
+    if (d == 3) return launch_nurbs<3, 3, KIND, BWD>(a, nurbs);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -352,8 +636,8 @@ PYIGA_EXPORT int pyiga_stiff_fields_f64(const double* Y, const double* T,
                                         double* out, int d, int nurbs,
                                         long long Q12, int QL, int nL,
                                         void* stream) {
-    return launch_fields<kStiffness>(Y, T, w12, wL, out, d, d, nurbs, Q12,
-                                     QL, nL, stream);
+    return launch_fields<kStiffness, false>(Y, T, w12, wL, nullptr, out, d,
+                                            d, nurbs, Q12, QL, nL, stream);
 }
 
 PYIGA_EXPORT int pyiga_mass_fields_f64(const double* Y, const double* T,
@@ -361,16 +645,39 @@ PYIGA_EXPORT int pyiga_mass_fields_f64(const double* Y, const double* T,
                                        double* out, int d, int nurbs,
                                        long long Q12, int QL, int nL,
                                        void* stream) {
-    return launch_fields<kMass>(Y, T, w12, wL, out, d, d, nurbs, Q12, QL, nL,
-                                stream);
+    return launch_fields<kMass, false>(Y, T, w12, wL, nullptr, out, d, d,
+                                       nurbs, Q12, QL, nL, stream);
 }
 
 PYIGA_EXPORT int pyiga_geo_jac_fields_f64(const double* Y, const double* T,
                                           double* out, int d, int g,
                                           int nurbs, long long Q12, int QL,
                                           int nL, void* stream) {
-    return launch_fields<kJac>(Y, T, nullptr, nullptr, out, d, g, nurbs, Q12,
-                               QL, nL, stream);
+    return launch_fields<kJac, false>(Y, T, nullptr, nullptr, nullptr, out,
+                                      d, g, nurbs, Q12, QL, nL, stream);
+}
+
+// K1's backward of `kind` (0 stiffness, 1 mass, 2 jac): gY from gout.
+PYIGA_EXPORT int pyiga_fields_bwd_f64(int kind, const double* Y,
+                                      const double* T, const double* w12,
+                                      const double* wL, const double* gout,
+                                      double* gY, int d, int g, int nurbs,
+                                      long long Q12, int QL, int nL,
+                                      void* stream) {
+    switch (kind) {
+        case kStiffness:
+            return launch_fields<kStiffness, true>(Y, T, w12, wL, gout, gY,
+                                                   d, g, nurbs, Q12, QL, nL,
+                                                   stream);
+        case kMass:
+            return launch_fields<kMass, true>(Y, T, w12, wL, gout, gY, d, g,
+                                              nurbs, Q12, QL, nL, stream);
+        case kJac:
+            return launch_fields<kJac, true>(Y, T, w12, wL, gout, gY, d, g,
+                                             nurbs, Q12, QL, nL, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }
 
 // --------------------------------------------------------------------------

@@ -1,0 +1,281 @@
+# -*- coding: utf-8 -*-
+"""Differentiable and batched assembly with respect to the geometry, the
+input fields and the parameters (port of :mod:`pyiga_tpu.diff`).
+
+:func:`assembly_coeff_fn` returns a function mapping user-layout geometry
+coefficients (the layout of ``geo.coeffs``) to the assembled compact data
+tensor; :func:`assembly_input_fn` does the same for a named parameter or
+a scalar parametric spline input of a compiled form.  Both run the port's
+production kernels: the geometry stages (K2), the geometry fields (K1),
+a form's coefficient fields (K5) and the contraction chains (K2 stages,
+one K3 fold).  Each kernel is a :class:`torch.autograd.Function` whose
+backward is a kernel too (K1's ``geo_fields_bwd_kernel``, K2 with the
+roles of field and table swapped for K2's and K3's, the generated
+adjoint of K5), so ``torch.autograd`` gives exact *shape derivatives*
+and coefficient derivatives on the card; on CPU tensors the same
+Functions run the plain versions (K5 its plain torch evaluation, which
+autograd differentiates).  ``torch.func.vmap`` over a stack of
+coefficient arrays equals the loop (the kernels' rules loop over the
+batch).  Jacobians run in reverse mode, row by row
+(``torch.autograd.functional.jacobian(..., vectorize=False)``); forward
+mode through the kernels is not supported.
+
+The tables, Gauss weights and quadrature grids are fixed at the
+assembler's construction and are constants: asking a gradient of one
+raises.  The fused stage-2 + fold tail (``PYIGA_TAIL_FUSED``) has no
+backward: a chain that autograd records takes the two-call chain (K2
+stages, one K3 fold), as the JAX package's build on
+``assemble_terms_folded``; one it does not record takes the route
+``run_device`` takes.
+
+:func:`implicit_cg_solve` solves ``A x = b`` by conjugate gradients with
+gradients by implicit differentiation: one adjoint solve with the same
+operator, as ``jax.lax.custom_linear_solve(symmetric=True)``.
+"""
+
+import numpy as np
+import torch
+
+from . import geometry
+from .assemblers import BaseGaussAssembler
+from .compile import VFormAssembler, check_mode
+from .config import DTYPE
+from .ops.basis import dense_collocation_tables
+from .ops.geom import tp_apply
+from .solvers import cg
+
+__all__ = ['assembly_coeff_fn', 'assembly_input_fn', 'implicit_cg_solve',
+           'user_coeffs_to_internal']
+
+
+class _AdjointSolve(torch.autograd.Function):
+    """``apply(r, solve)``: zeros of `r`'s shape whose backward is the
+    adjoint solve ``solve(g)`` (the operator is symmetric)."""
+
+    @staticmethod
+    def forward(r, solve):
+        return torch.zeros_like(r)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.solve = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.solve(g), None
+
+
+def implicit_cg_solve(matvec, b, tol=1e-12, maxiter=None, precond=None):
+    """Solve ``A x = b`` (A symmetric positive definite, given as the
+    function `matvec`) by conjugate gradients
+    (:func:`~pyiga_tpu_torch.solvers.cg`: zero start, stop at ``||r|| <=
+    tol ||b||``), with gradients by *implicit differentiation*: reverse
+    mode through the Krylov loop is replaced by ONE adjoint solve with the
+    same operator and preconditioner, as ``jax.lax.custom_linear_solve``
+    with ``symmetric=True`` does in the JAX package.
+
+    `matvec` may close over differentiable tensors (e.g. the assembled
+    data tensor from :func:`assembly_coeff_fn`): the result is ``x* +
+    Z(b - A x*)`` with ``x*`` the solve (no history) and ``Z`` a Function
+    whose value is zero and whose backward is the adjoint solve ``lambda
+    = A^-1 g``, so the value is exactly ``x*``, `b` receives ``lambda``
+    and the operator's tensors ``-lambda^T (dA) x*``.  `precond`
+    (optional SPD preconditioner apply) serves both solves; `maxiter`
+    defaults to ``10 * b.numel()``."""
+    if maxiter is None:
+        maxiter = 10 * b.numel()     # total system size, not the last axis
+
+    def solve(rhs):
+        with torch.no_grad():
+            x, _it = cg(matvec, rhs.detach(), tol=tol, maxiter=maxiter,
+                        precond=precond)
+        return x
+
+    x = solve(b)
+    if not torch.is_grad_enabled():
+        return x
+    r = b - matvec(x)
+    if not r.requires_grad:
+        return x
+    return x + _AdjointSolve.apply(r, solve)
+
+
+def user_coeffs_to_internal(coeffs, is_nurbs, sdim):
+    """Layout change from user coefficients (``geo.coeffs``: grid axes
+    leading, XYZ components last, NURBS homogeneous with the weight as
+    the final component) to the internal level-ordered, component-leading
+    layout of :func:`pyiga_tpu_torch.ops.geom.geo_eval_tables`;
+    differentiable (torch ops on a tensor)."""
+    coeffs = torch.as_tensor(coeffs)
+    if coeffs.dim() == sdim:        # scalar-valued: add component axis
+        coeffs = coeffs[..., None]
+    if is_nurbs:
+        coeffs = torch.cat((coeffs[..., :-1].flip(-1), coeffs[..., -1:]),
+                           dim=-1)
+    else:
+        coeffs = coeffs.flip(-1)
+    return torch.movedim(coeffs, -1, 0)
+
+
+def _tensor(x, asm):
+    """`x` as a float64 tensor on the assembler's device (a tensor keeps
+    its autograd history)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=DTYPE, device=asm.device)
+    return torch.as_tensor(np.asarray(x, dtype=float), dtype=DTYPE,
+                           device=asm.device)
+
+
+def _structured_geo(asm):
+    """(is_nurbs, sdim, coeffs0) of the assembler's geometry, or raise."""
+    geo = asm.geo
+    if isinstance(geo, geometry.NurbsFunc):
+        return True, geo.sdim, np.asarray(geo.coeffs)
+    if isinstance(geo, geometry.BSplineFunc):
+        return False, geo.sdim, np.asarray(geo.coeffs)
+    raise ValueError(
+        'assembly_coeff_fn requires a structured geometry (BSplineFunc or '
+        'NurbsFunc); %r is evaluated on the host and is not differentiable'
+        % type(geo).__name__)
+
+
+def _internal_coeffs(asm, coeffs, is_nurbs, sdim):
+    return user_coeffs_to_internal(_tensor(coeffs, asm), is_nurbs,
+                                   sdim).contiguous()
+
+
+def _gauss_assembler_fn(asm):
+    is_nurbs, sdim, coeffs0 = _structured_geo(asm)
+
+    def fn(coeffs):
+        return asm._assemble_compact(asm.geo_inputs(
+            geo_coeffs=_internal_coeffs(asm, coeffs, is_nurbs, sdim)))
+
+    return fn, coeffs0
+
+
+def _vform_assembler_fn(asm):
+    is_nurbs, sdim, coeffs0 = _structured_geo(asm)
+    scalar = not asm.vf.vec
+
+    def fn(coeffs):
+        ci = _internal_coeffs(asm, coeffs, is_nurbs, sdim)
+        blocks = asm._assemble_blocks(asm.device_arrays(geo_coeffs=ci))
+        return blocks[(None, None)] if scalar else blocks
+
+    return fn, coeffs0
+
+
+def assembly_input_fn(asm, name, mode='exact'):
+    """Return ``(fn, x0)`` where ``fn(x)`` assembles the compact data
+    tensor as a differentiable function of the named vform input or
+    parameter — the knob for material/coefficient optimization (e.g. the
+    gradient of a compliance through a diffusion coefficient: topology
+    optimization).
+
+    * If `name` is a declared *parameter*, ``x`` is its value array and
+      ``x0`` the current value.
+    * If `name` is an *input field* given as a scalar parametric
+      :class:`~pyiga_tpu_torch.geometry.BSplineFunc`, ``x`` is its spline
+      coefficient array (layout of ``f.coeffs``, level-ordered grid
+      axes) and the needed Gauss-grid values/derivatives are recomputed
+      from per-axis collocation tables (:func:`~pyiga_tpu_torch.ops.geom.
+      tp_apply`).  First derivatives of the input are supported;
+      physical, vector-valued, or second-derivative inputs raise
+      ``NotImplementedError``.
+
+    Only :class:`~pyiga_tpu_torch.compile.VFormAssembler` takes named
+    inputs; scalar forms return the single data tensor, vector forms the
+    block dict (as in :func:`assembly_coeff_fn`).  `mode` is accepted as
+    ``run_device`` accepts it."""
+    if not isinstance(asm, VFormAssembler):
+        raise TypeError('assembly_input_fn requires a VFormAssembler '
+                        '(predefined Gauss assemblers take no named inputs)')
+    check_mode(mode)
+    scalar = not asm.vf.vec
+
+    def run(inputs):
+        blocks = asm._assemble_blocks(asm.device_arrays(inputs))
+        return blocks[(None, None)] if scalar else blocks
+
+    if name in asm._param_values:
+        x0 = np.asarray(asm._param_values[name], dtype=float)
+        # the operand's shape (a scalar parameter is uploaded as (1,))
+        shape = asm._device_operands()['inputs']['param:' + name].shape
+
+        def fn(x):
+            return run({'param:' + name: _tensor(x, asm).reshape(shape)})
+        return fn, x0
+
+    if name == 'geo':
+        raise ValueError("use assembly_coeff_fn for derivatives w.r.t. the "
+                         'geometry control points')
+    inps = [i for i in asm.vf.inputs if i.name == name]
+    if not inps:
+        raise ValueError('%r is not an input or parameter of this form'
+                         % name)
+    inp = inps[0]
+    f = asm._input_values[name]
+    if inp.physical:
+        raise NotImplementedError('physical input fields are evaluated at '
+                                  'mapped points; not differentiable in '
+                                  'coeffs')
+    if inp.shape != () or not isinstance(f, geometry.BSplineFunc) or \
+            isinstance(f, geometry.NurbsFunc):
+        raise NotImplementedError('only scalar parametric BSplineFunc '
+                                  'inputs are supported')
+    orders = {sum(key[3]) for key in asm._needed_keys
+              if key[0] == 'input_deriv' and key[1] == name}
+    if any(o > 1 for o in orders):
+        raise NotImplementedError('input derivatives of order > 1')
+
+    d = len(f.kvs)
+    tabs = [torch.as_tensor(np.ascontiguousarray(B.swapaxes(-2, -1)),
+                            dtype=DTYPE, device=asm.device)   # (nd+1, Q, n)
+            for B in dense_collocation_tables(f.kvs, asm.grid, numderiv=1)]
+    val_tabs = [t[0] for t in tabs]
+    der_tabs = [t[1] for t in tabs]
+    x0 = np.asarray(f.coeffs, dtype=float)
+
+    def fn(coeffs):
+        c = _tensor(coeffs, asm)
+        inputs = {'input:' + name: tp_apply(val_tabs, c).contiguous()}
+        if 1 in orders:
+            # derivative axis in XYZ order: coordinate k = level axis d-1-k
+            ders = [tp_apply([der_tabs[j] if j == d - 1 - k else val_tabs[j]
+                              for j in range(d)], c) for k in range(d)]
+            inputs['ideriv:%s:1' % name] = torch.stack(ders, dim=0)
+        return run(inputs)
+
+    return fn, x0
+
+
+def assembly_coeff_fn(asm, mode='exact'):
+    """Return ``(fn, coeffs0)`` where ``fn(coeffs)`` assembles the compact
+    data tensor (:class:`~pyiga_tpu_torch.mlmatrix.MLMatrix` layout) on
+    the assembler's device as a differentiable function of the geometry
+    coefficients and ``coeffs0 = geo.coeffs`` is the assembler's current
+    coefficient array.
+
+    `coeffs` (layout of ``geo.coeffs``; a numpy array or a tensor, whose
+    autograd history is kept) may be differentiated with
+    ``torch.autograd`` (shape derivatives) and batched with
+    ``torch.func.vmap``.  ``fn(coeffs0)`` equals ``asm.run_device()`` (the
+    same kernels in the same order).  For NURBS the coefficients are the
+    homogeneous ones, weights as the last component.
+
+    `asm` is a predefined Gauss assembler
+    (:class:`~pyiga_tpu_torch.assemblers.BaseGaussAssembler` subclass) or
+    a compiled vform assembler (:class:`~pyiga_tpu_torch.compile.
+    VFormAssembler`; scalar forms return the single data tensor, vector
+    forms the block dict); its geometry must be a
+    :class:`~pyiga_tpu_torch.geometry.BSplineFunc` or
+    :class:`~pyiga_tpu_torch.geometry.NurbsFunc`.  `mode` is accepted as
+    ``run_device`` accepts it: the port has one float64 mode, the exact
+    one."""
+    check_mode(mode)
+    if isinstance(asm, BaseGaussAssembler):
+        return _gauss_assembler_fn(asm)
+    if isinstance(asm, VFormAssembler):
+        return _vform_assembler_fn(asm)
+    raise TypeError('unsupported assembler type %r' % type(asm).__name__)

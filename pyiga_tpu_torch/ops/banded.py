@@ -129,6 +129,7 @@ def flat_banded_matvec(D, xp, offs, lead):
         name, fn = 'flat_banded_f32', 'pyiga_flat_banded_f32'
     else:
         raise ValueError('flat_banded_matvec: D must be float64 or float32')
+    _cuda.no_grad_operands(name, D, xp)
     _cuda.require(D, 'D', D.dtype, 2)
     _cuda.require(xp, 'xp', D.dtype, 1)
     _cuda.require(offs, 'offs', torch.int64, 1)

@@ -749,6 +749,7 @@ def launch_solve(ops, x, f, res0, tol, maxiter, trace=None):
     res]`` on the device.  `trace`, an int64 tensor, receives the
     ``%globaltimer`` (ns) of block 0 at the start and after each barrier,
     as far as it reaches (:func:`phase_names` names one cycle's)."""
+    _cuda.no_grad_operands('vcycle', x, f)
     _check(ops, x, f)
     maxiter = int(maxiter)
     if maxiter < 0 or maxiter >= 2 ** 31:
@@ -879,6 +880,7 @@ def wavefront_gs(sweeps, group, iterations, x, b):
         return wavefront_gs_plain(sweeps, group, iterations, x, b)
     if not x.is_cuda or sweeps.words is None:
         raise ValueError('wavefront_gs: unsupported device %s' % x.device)
+    _cuda.no_grad_operands('wavefront_gs', x, b)
     _cuda.require(x, 'x', DTYPE, 1)
     _cuda.require(b, 'b', DTYPE, 1)
     _check_wf_layout()

@@ -57,23 +57,39 @@ def _kernel_device(t, name):
 # K1: geometry fields
 ################################################################################
 
-def _jacobian_plain(Y, T, nurbs):
-    """Physical Jacobian ``(d, d, Q12, QL)`` from the stage-1/2 partials:
-    the last-axis contraction and, for NURBS, the quotient rule (the part
-    the K1 kinds share)."""
+def _jacobian_parts(Y, T, nurbs, with_values):
+    """The last-axis contraction of K1: ``jh[c][k]`` (homogeneous
+    Jacobian, derivative axis k) and, where asked or for NURBS, the values
+    ``val[c]``, each ``(Q12, QL)``."""
     d, C = Y.shape[0], Y.shape[1]
     Tv, Td = T[0], T[1]
 
     def contract(t, c, tab):            # (Q12, nL) x (QL, nL) -> (Q12, QL)
         return torch.tensordot(Y[t, c], tab, dims=([1], [1]))
 
-    jac = [[contract(min(k, d - 1), c, Td if k == d - 1 else Tv)
-            for k in range(d)] for c in range(C)]
-    if nurbs:
-        val = [contract(d - 1, c, Tv) for c in range(C)]
-        W = val[-1]
-        jac = [[(jac[c][k] * W - val[c] * jac[-1][k]) / (W * W)
-                for k in range(d)] for c in range(d)]
+    jh = [[contract(min(k, d - 1), c, Td if k == d - 1 else Tv)
+           for k in range(d)] for c in range(C)]
+    val = ([contract(d - 1, c, Tv) for c in range(C)]
+           if nurbs or with_values else None)
+    return jh, val
+
+
+def _quotient(jh, val, G):
+    """The NURBS quotient rule: ``J[c][k] = (jh[c][k] W - val[c] jh[W][k])
+    / W^2`` for the first `G` components, W the last."""
+    W = val[-1]
+    WW = W * W
+    return [[(jh[c][k] * W - val[c] * jh[-1][k]) / WW
+             for k in range(len(jh[0]))] for c in range(G)]
+
+
+def _jacobian_plain(Y, T, nurbs):
+    """Physical Jacobian ``(d, d, Q12, QL)`` from the stage-1/2 partials:
+    the last-axis contraction and, for NURBS, the quotient rule (the part
+    the K1 kinds share)."""
+    d = Y.shape[0]
+    jh, val = _jacobian_parts(Y, T, nurbs, False)
+    jac = _quotient(jh, val, d) if nurbs else jh
     return torch.stack([torch.stack(row) for row in jac])
 
 
@@ -109,6 +125,96 @@ def _check_fields_args(name, Y, T, w12, wL, nurbs):
     return d, Q12, QL, nL
 
 
+def _check_jac_args(name, Y, T, nurbs):
+    """Validate the ``jac`` kind's operands; returns ``(d, G, Q12, QL,
+    nL)``."""
+    f64 = torch.float64
+    _cuda.require(Y, 'Y', f64, 4)
+    _cuda.require(T, 'T', f64, 3)
+    d, C, Q12, nL = Y.shape
+    G = C - int(bool(nurbs))
+    QL = T.shape[1]
+    if (d, G) not in ((1, 1), (1, 2), (2, 2), (2, 3), (3, 3)):
+        raise ValueError('%s: need d in (1, 2, 3) and C = d or d + 1 (d < '
+                         '3; +1 for NURBS), got d=%d C=%d' % (name, d, C))
+    if T.shape != (2, QL, nL) or T.device != Y.device:
+        raise ValueError('%s: T %s disagrees with Y %s'
+                         % (name, tuple(T.shape), tuple(Y.shape)))
+    return d, G, Q12, QL, nL
+
+
+# K1's kinds: the C entry's kind code, the launch counters of the forward
+# and backward kernels
+_FIELD_KINDS = {'stiffness': (0, 'fields', 'fields_bwd'),
+                'mass': (1, 'mass_fields', 'mass_fields_bwd'),
+                'jac': (2, 'geo_jac_fields', 'geo_jac_fields_bwd')}
+
+
+def _fields_kernel(kind, Y, T, w12, wL, nurbs):
+    """K1's forward of `kind` on CUDA tensors (``w12``/``wL`` None for
+    ``jac``): checks, one launch."""
+    f64 = torch.float64
+    lib = _cuda.library()
+    if kind == 'jac':
+        d, G, Q12, QL, nL = _check_jac_args('geo_jac_fields', Y, T, nurbs)
+        out = torch.empty((G + G * d, Q12, QL), dtype=f64, device=Y.device)
+        with _cuda.device_of(Y):
+            err = lib.pyiga_geo_jac_fields_f64(
+                Y.data_ptr(), T.data_ptr(), out.data_ptr(), d, G,
+                int(bool(nurbs)), Q12, QL, nL, _cuda.stream_of(Y))
+    else:
+        name = 'fields' if kind == 'stiffness' else 'fields_mass'
+        d, Q12, QL, nL = _check_fields_args(name, Y, T, w12, wL, nurbs)
+        shape = ((d * (d + 1) // 2, Q12, QL) if kind == 'stiffness'
+                 else (Q12, QL))
+        out = torch.empty(shape, dtype=f64, device=Y.device)
+        entry = (lib.pyiga_stiff_fields_f64 if kind == 'stiffness'
+                 else lib.pyiga_mass_fields_f64)
+        with _cuda.device_of(Y):
+            err = entry(Y.data_ptr(), T.data_ptr(), w12.data_ptr(),
+                        wL.data_ptr(), out.data_ptr(), d, int(bool(nurbs)),
+                        Q12, QL, nL, _cuda.stream_of(Y))
+    counter = _FIELD_KINDS[kind][1]
+    _cuda.check(err, counter)
+    _cuda.LAUNCHES[counter] += 1
+    return out
+
+
+def _fields_forward(kind, Y, T, w12, wL, nurbs):
+    if not _kernel_device(Y, 'fields'):
+        if kind == 'stiffness':
+            return fields_plain(Y, T, w12, wL, nurbs)
+        if kind == 'mass':
+            return fields_mass_plain(Y, T, w12, wL, nurbs)
+        return geo_jac_fields_plain(Y, T, nurbs)
+    return _fields_kernel(kind, Y, T, w12, wL, nurbs)
+
+
+class _GeoFields(torch.autograd.Function):
+    """K1 of one kind as a function of `Y`; its backward is K1's backward
+    kernel (:func:`fields_bwd`), which recomputes each point from `Y` and
+    `T`.  The tables and weights are constants."""
+
+    @staticmethod
+    def forward(kind, Y, T, w12, wL, nurbs):
+        return _fields_forward(kind, Y, T, w12, wL, nurbs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        kind, Y, T, w12, wL, nurbs = inputs
+        ctx.kind, ctx.nurbs = kind, nurbs
+        ctx.save_for_backward(Y, T, w12, wL)
+
+    @staticmethod
+    def backward(ctx, g):
+        Y, T, w12, wL = ctx.saved_tensors
+        gY = (fields_bwd(ctx.kind, Y, T, w12, wL, ctx.nurbs, g)
+              if ctx.needs_input_grad[1] else None)
+        return None, gY, None, None, None, None
+
+    vmap = _cuda.loop_vmap(lambda *a: _GeoFields.apply(*a))
+
+
 def fields(Y, T, w12, wL, nurbs):
     """K1: unique stiffness fields on the Gauss grid.
 
@@ -121,20 +227,10 @@ def fields(Y, T, w12, wL, nurbs):
         wL: ``(QL,)`` last-axis Gauss weights.
         nurbs: whether `Y` carries homogeneous NURBS components.
 
-    Returns ``(d(d+1)/2, Q12, QL)``: ``B_ab`` for ``a <= b`` row-major."""
-    if not _kernel_device(Y, 'fields'):
-        return fields_plain(Y, T, w12, wL, nurbs)
-    d, Q12, QL, nL = _check_fields_args('fields', Y, T, w12, wL, nurbs)
-    out = torch.empty((d * (d + 1) // 2, Q12, QL), dtype=torch.float64,
-                      device=Y.device)
-    with _cuda.device_of(Y):
-        err = _cuda.library().pyiga_stiff_fields_f64(
-            Y.data_ptr(), T.data_ptr(), w12.data_ptr(), wL.data_ptr(),
-            out.data_ptr(), d, int(bool(nurbs)), Q12, QL, nL,
-            _cuda.stream_of(Y))
-    _cuda.check(err, 'fields')
-    _cuda.LAUNCHES['fields'] += 1
-    return out
+    Returns ``(d(d+1)/2, Q12, QL)``: ``B_ab`` for ``a <= b`` row-major.
+    Differentiable in `Y` (:func:`fields_bwd`)."""
+    _cuda.constant_operands('fields', T, w12, wL)
+    return _GeoFields.apply('stiffness', Y, T, w12, wL, nurbs)
 
 
 def fields_mass_plain(Y, T, w12, wL, nurbs):
@@ -147,19 +243,9 @@ def fields_mass(Y, T, w12, wL, nurbs):
     """K1, ``mass`` kind: the mass field ``W = w12 (x) wL |det J|`` on the
     Gauss grid, from the same inputs as :func:`fields` (for NURBS the
     quotient rule runs before the determinant).  Returns ``(Q12, QL)``,
-    float64."""
-    if not _kernel_device(Y, 'fields_mass'):
-        return fields_mass_plain(Y, T, w12, wL, nurbs)
-    d, Q12, QL, nL = _check_fields_args('fields_mass', Y, T, w12, wL, nurbs)
-    out = torch.empty((Q12, QL), dtype=torch.float64, device=Y.device)
-    with _cuda.device_of(Y):
-        err = _cuda.library().pyiga_mass_fields_f64(
-            Y.data_ptr(), T.data_ptr(), w12.data_ptr(), wL.data_ptr(),
-            out.data_ptr(), d, int(bool(nurbs)), Q12, QL, nL,
-            _cuda.stream_of(Y))
-    _cuda.check(err, 'fields_mass')
-    _cuda.LAUNCHES['mass_fields'] += 1
-    return out
+    float64; differentiable in `Y`."""
+    _cuda.constant_operands('fields_mass', T, w12, wL)
+    return _GeoFields.apply('mass', Y, T, w12, wL, nurbs)
 
 
 def host_jac_fields_plain(jac, w12, wL):
@@ -184,9 +270,11 @@ def host_jac_fields(jac, w12, wL):
     Returns ``(d(d+1)/2, N)``: ``B_ab = gw |det J| (J^-1 J^-T)_ab`` for
     ``a <= b`` row-major, the order :func:`stiffness_fields` expands.
     Any N: the TPU kernel's lane-multiple gate is a tiling rule of its
-    own."""
+    own.  The kernel has no backward: on CUDA an operand that requires
+    grad raises."""
     if not _kernel_device(jac, 'host_jac_fields'):
         return host_jac_fields_plain(jac, w12, wL)
+    _cuda.no_grad_operands('host_jac_fields', jac, w12, wL)
     f64 = torch.float64
     _cuda.require(jac, 'jac', f64, 3)
     _cuda.require(w12, 'w12', f64, 1)
@@ -210,22 +298,12 @@ def host_jac_fields(jac, w12, wL):
 
 def geo_jac_fields_plain(Y, T, nurbs):
     """Plain PyTorch version of :func:`geo_jac_fields`."""
-    d, C = Y.shape[0], Y.shape[1]
-    G = C - int(bool(nurbs))
-    Tv, Td = T[0], T[1]
-
-    def contract(t, c, tab):            # (Q12, nL) x (QL, nL) -> (Q12, QL)
-        return torch.tensordot(Y[t, c], tab, dims=([1], [1]))
-
-    jac = [[contract(min(k, d - 1), c, Td if k == d - 1 else Tv)
-            for k in range(d)] for c in range(C)]
-    val = [contract(d - 1, c, Tv) for c in range(C)]
+    G = Y.shape[1] - int(bool(nurbs))
+    jh, val = _jacobian_parts(Y, T, nurbs, True)
     if nurbs:
-        W = val[-1]
-        jac = [[(jac[c][k] * W - val[c] * jac[-1][k]) / (W * W)
-                for k in range(d)] for c in range(G)]
-        val = [v / W for v in val[:-1]]
-    return torch.stack(val + [x for row in jac for x in row])
+        jh = _quotient(jh, val, G)
+        val = [v / val[-1] for v in val[:-1]]
+    return torch.stack(val + [x for row in jh for x in row])
 
 
 def geo_jac_fields(Y, T, nurbs):
@@ -243,30 +321,135 @@ def geo_jac_fields(Y, T, nurbs):
         nurbs: whether `Y` carries homogeneous NURBS components.
 
     Returns ``(G + G*d, Q12, QL)``: the values ``x_c`` (level order), then
-    the Jacobian ``J[c][k]`` row-major."""
-    if not _kernel_device(Y, 'geo_jac_fields'):
-        return geo_jac_fields_plain(Y, T, nurbs)
-    f64 = torch.float64
-    _cuda.require(Y, 'Y', f64, 4)
-    _cuda.require(T, 'T', f64, 3)
-    d, C, Q12, nL = Y.shape
+    the Jacobian ``J[c][k]`` row-major.  Differentiable in `Y`."""
+    _cuda.constant_operands('geo_jac_fields', T)
+    return _GeoFields.apply('jac', Y, T, None, None, nurbs)
+
+
+def _fields_vjp_plain(kind, Y, T, w12, wL, nurbs, g):
+    """The backward of K1's `kind` written as formulas (not autograd of
+    the plain forward): ``gY (d, C, Q12, nL)`` from the output's gradient
+    `g`.  Per point, with ``s = gw |det J|``:
+
+    * stiffness ``B = s J^-1 J^-T`` (unique a <= b, the off-diagonal
+      gradient split between the two mirrored entries into a symmetric
+      ``Gs``): ``gJ = s ((Gs : M) J^-T - 2 J^-T Gs M)``, ``M = J^-1
+      J^-T``;
+    * mass ``s``: ``gJ = g s J^-T``;
+    * jac: the gradients of the values and of J as they come;
+
+    then the NURBS quotient rule's VJP (homogeneous Jacobian, values and
+    weight) and the last-axis contraction's: ``gY[t, c] = a_v[t][c] Tv +
+    a_d[c] Td`` over the last axis's points, ``a_d`` only at ``t = d -
+    1``."""
+    d, C = Y.shape[0], Y.shape[1]
     G = C - int(bool(nurbs))
-    QL = T.shape[1]
-    if (d, G) not in ((1, 1), (1, 2), (2, 2), (2, 3), (3, 3)):
-        raise ValueError('geo_jac_fields: need d in (1, 2, 3) and C = d or '
-                         'd + 1 (d < 3; +1 for NURBS), got d=%d C=%d'
-                         % (d, C))
-    if T.shape != (2, QL, nL) or T.device != Y.device:
-        raise ValueError('geo_jac_fields: T %s disagrees with Y %s'
-                         % (tuple(T.shape), tuple(Y.shape)))
-    out = torch.empty((G + G * d, Q12, QL), dtype=f64, device=Y.device)
+    jh, val = _jacobian_parts(Y, T, nurbs, kind == 'jac')
+    gx = None
+    if kind == 'jac':
+        gx = [g[c] for c in range(G)]
+        gJ = [[g[G + c * d + k] for k in range(d)] for c in range(G)]
+    else:
+        J = _quotient(jh, val, d) if nurbs else jh
+        det, inv = geom.det_and_inv(torch.stack([torch.stack(r) for r in J]))
+        s = w12[:, None] * wL[None, :] * torch.abs(det)
+        if kind == 'mass':
+            gJ = [[g * s * inv[k, c] for k in range(d)] for c in range(d)]
+        else:
+            Gs, o = [[None] * d for _ in range(d)], 0
+            for a in range(d):
+                for b in range(a, d):
+                    Gs[a][b] = Gs[b][a] = g[o] if a == b else 0.5 * g[o]
+                    o += 1
+            M = [[sum(inv[a, m] * inv[b, m] for m in range(d))
+                  for b in range(d)] for a in range(d)]
+            GM = sum(Gs[a][b] * M[a][b] for a in range(d) for b in range(d))
+            GMm = [[sum(Gs[a][b] * M[b][j] for b in range(d))
+                    for j in range(d)] for a in range(d)]
+            gJ = [[s * (GM * inv[j, i] - 2.0 * sum(inv[a, i] * GMm[a][j]
+                                                   for a in range(d)))
+                   for j in range(d)] for i in range(d)]
+    if nurbs:
+        W = val[-1]
+        WW = W * W
+        gjh = [[gJ[c][k] / W for k in range(d)] for c in range(G)]
+        gjh.append([-sum(gJ[c][k] * val[c] for c in range(G)) / WW
+                    for k in range(d)])
+        gv = [-sum(gJ[c][k] * jh[-1][k] for k in range(d)) / WW
+              for c in range(G)]
+        gW = sum(gJ[c][k] * (2.0 * val[c] * jh[-1][k] / (WW * W)
+                             - jh[c][k] / WW)
+                 for c in range(G) for k in range(d))
+        if gx is not None:
+            gv = [gv[c] + gx[c] / W for c in range(G)]
+            gW = gW - sum(gx[c] * val[c] for c in range(G)) / WW
+        gv.append(gW)
+    else:
+        gjh, gv = gJ, gx
+    Tv, Td = T[0], T[1]
+    rows = []
+    for t in range(d):
+        for c in range(C):
+            if t < d - 1:
+                rows.append(gjh[c][t] @ Tv)
+            else:
+                r = gjh[c][d - 1] @ Td
+                rows.append(r if gv is None else gv[c] @ Tv + r)
+    return torch.stack(rows).reshape(Y.shape)
+
+
+def fields_bwd_plain(Y, T, w12, wL, nurbs, g):
+    """Plain version of K1's stiffness backward (:func:`fields_bwd`)."""
+    return _fields_vjp_plain('stiffness', Y, T, w12, wL, nurbs, g)
+
+
+def fields_mass_bwd_plain(Y, T, w12, wL, nurbs, g):
+    """Plain version of K1's mass backward (:func:`fields_bwd`)."""
+    return _fields_vjp_plain('mass', Y, T, w12, wL, nurbs, g)
+
+
+def geo_jac_fields_bwd_plain(Y, T, nurbs, g):
+    """Plain version of K1's ``jac`` backward (:func:`fields_bwd`)."""
+    return _fields_vjp_plain('jac', Y, T, None, None, nurbs, g)
+
+
+def fields_bwd(kind, Y, T, w12, wL, nurbs, g):
+    """K1's backward kernel (``geo_fields_bwd_kernel`` in
+    ``csrc/fields.cu``): the gradient ``gY (d, C, Q12, nL)`` of K1's
+    `kind` ('stiffness', 'mass' or 'jac'; ``w12``/``wL`` None for
+    'jac') from its output's gradient `g`.  The kernel recomputes each
+    Gauss point from `Y` and `T` as the forward does, applies the VJP and
+    contracts back over the last axis in a fixed order (no atomics:
+    bitwise equal on a repeat).  A CPU tensor runs the formulas of
+    :func:`_fields_vjp_plain`."""
+    g = g.contiguous()
+    if not _kernel_device(Y, 'fields_bwd'):
+        return _fields_vjp_plain(kind, Y, T, w12, wL, nurbs, g)
+    code, _fwd, counter = _FIELD_KINDS[kind]
+    _cuda.no_grad_operands(counter, Y, g)     # no double backward
+    if kind == 'jac':
+        d, G, Q12, QL, nL = _check_jac_args(counter, Y, T, nurbs)
+        w12 = wL = torch.empty(0, dtype=torch.float64, device=Y.device)
+        shape = (G + G * d, Q12, QL)
+    else:
+        d, Q12, QL, nL = _check_fields_args(counter, Y, T, w12, wL, nurbs)
+        G = d
+        shape = ((d * (d + 1) // 2, Q12, QL) if kind == 'stiffness'
+                 else (Q12, QL))
+    _cuda.require(g, 'g', torch.float64, len(shape))
+    if g.shape != shape or g.device != Y.device:
+        raise ValueError('%s: gradient %s on %s, expected %s on %s'
+                         % (counter, tuple(g.shape), g.device, shape,
+                            Y.device))
+    gY = torch.empty_like(Y)
     with _cuda.device_of(Y):
-        err = _cuda.library().pyiga_geo_jac_fields_f64(
-            Y.data_ptr(), T.data_ptr(), out.data_ptr(), d, G,
-            int(bool(nurbs)), Q12, QL, nL, _cuda.stream_of(Y))
-    _cuda.check(err, 'geo_jac_fields')
-    _cuda.LAUNCHES['geo_jac_fields'] += 1
-    return out
+        err = _cuda.library().pyiga_fields_bwd_f64(
+            code, Y.data_ptr(), T.data_ptr(), w12.data_ptr(), wL.data_ptr(),
+            g.data_ptr(), gY.data_ptr(), d, G, int(bool(nurbs)), Q12, QL, nL,
+            _cuda.stream_of(Y))
+    _cuda.check(err, counter)
+    _cuda.LAUNCHES[counter] += 1
+    return gY
 
 
 ################################################################################
@@ -288,13 +471,8 @@ def _check_stage_args(name, X, T):
                          % (name, X.device, T.device))
 
 
-def stage(X, T):
-    """K2: ``out[r, m] = sum_k X[k, r] T[m, k]`` for ``X (K, R)`` and a
-    table ``T (M, K)``; returns ``(R, M)``, float64.  On the card it runs
-    on the f64 tensor cores."""
-    _check_stage_args('stage', X, T)
-    if not _kernel_device(X, 'stage'):
-        return stage_plain(X, T)
+def _stage_kernel(X, T, counter):
+    """One K2 launch on CUDA tensors, counted under `counter`."""
     _cuda.require(X, 'X', torch.float64, 2)
     _cuda.require(T, 'T', torch.float64, 2)
     K, R = X.shape
@@ -304,9 +482,57 @@ def stage(X, T):
         err = _cuda.library().pyiga_stage_f64(
             X.data_ptr(), T.data_ptr(), out.data_ptr(), K, R, M,
             _cuda.stream_of(X))
-    _cuda.check(err, 'stage')
-    _cuda.LAUNCHES['stage'] += 1
+    _cuda.check(err, counter)
+    _cuda.LAUNCHES[counter] += 1
     return out
+
+
+def stage_bwd(T, g, counter='stage_bwd'):
+    """The backward of a stage with the table ``T (M, K)``: ``gX[k, r] =
+    sum_m g[r, m] T[m, k]`` for the output's gradient ``g (R, M)``,
+    returns ``(K, R)``.  That is K2 itself with the roles swapped (`T` as
+    the field, `g` as the table): one launch on the f64 tensor cores that
+    reads `g` once and writes `gX` once, with no transposed copy of
+    either, counted under `counter` (``stage_bwd``, or ``fold_bwd`` for
+    :func:`fold`'s backward).  A CPU tensor runs :func:`stage_plain` on
+    the same operands."""
+    g = g.contiguous()
+    _check_stage_args(counter, T, g)
+    if not _kernel_device(g, counter):
+        return stage_plain(T, g)
+    _cuda.no_grad_operands(counter, T, g)     # no double backward
+    return _stage_kernel(T, g, counter)
+
+
+class _Stage(torch.autograd.Function):
+    """K2 as a function of the field `X`; saves only the table."""
+
+    @staticmethod
+    def forward(X, T):
+        if not _kernel_device(X, 'stage'):
+            return stage_plain(X, T)
+        return _stage_kernel(X, T, 'stage')
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        T, = ctx.saved_tensors
+        return (stage_bwd(T, g) if ctx.needs_input_grad[0] else None), None
+
+    vmap = _cuda.loop_vmap(lambda *a: _Stage.apply(*a))
+
+
+def stage(X, T):
+    """K2: ``out[r, m] = sum_k X[k, r] T[m, k]`` for ``X (K, R)`` and a
+    table ``T (M, K)``; returns ``(R, M)``, float64.  On the card it runs
+    on the f64 tensor cores.  Differentiable in `X` (:func:`stage_bwd`);
+    the table is a constant."""
+    _check_stage_args('stage', X, T)
+    _cuda.constant_operands('stage', T)
+    return _Stage.apply(X, T)
 
 
 ################################################################################
@@ -325,6 +551,76 @@ def fold_plain(xs, tables, term_idx):
 _FOLD_MAX_TERMS = 16     # kMaxTerms in csrc/sumfac.cu
 
 
+def _fold_kernel(xs, tables, term_idx):
+    """K3 on CUDA tensors: one launch per 16 terms, summed."""
+    if len(xs) > _FOLD_MAX_TERMS:       # the kernel's term-table capacity
+        k = _FOLD_MAX_TERMS
+        return (_fold_kernel(xs[:k], tables, term_idx[:k])
+                + _fold_kernel(xs[k:], tables, term_idx[k:]))
+    for t, X in enumerate(xs):
+        _cuda.require(X, 'xs[%d]' % t, torch.float64, 2)
+    for i, T in enumerate(tables):
+        _cuda.require(T, 'tables[%d]' % i, torch.float64, 2)
+    K, R = xs[0].shape
+    M = tables[0].shape[0]
+    n = len(xs)
+    xp = (ctypes.c_uint64 * n)(*[X.data_ptr() for X in xs])
+    tp = (ctypes.c_uint64 * n)(*[tables[i].data_ptr() for i in term_idx])
+    out = torch.empty((R, M), dtype=torch.float64, device=xs[0].device)
+    with _cuda.device_of(out):
+        err = _cuda.library().pyiga_fold_f64(
+            ctypes.cast(xp, ctypes.c_void_p), ctypes.cast(tp, ctypes.c_void_p),
+            n, out.data_ptr(), K, R, M, _cuda.stream_of(out))
+    _cuda.check(err, 'fold')
+    _cuda.LAUNCHES['fold'] += 1
+    return out
+
+
+def fold_bwd(tables, term_idx, g, need=None):
+    """K3's backward: per term the gradient ``(K, R)`` of its field from
+    the output's gradient ``g (R, M)``.  The terms that share a table get
+    the same gradient, so :func:`stage_bwd` runs once per distinct table
+    whose terms need one (`need`, per term; default all), counted under
+    ``fold_bwd``, and its one tensor is handed to each of the table's
+    terms (None for a term that needs none)."""
+    if need is None:
+        need = [True] * len(term_idx)
+    grads, out = {}, []
+    for i, want in zip(term_idx, need):
+        if want and i not in grads:
+            grads[i] = stage_bwd(tables[i], g, 'fold_bwd')
+        out.append(grads[i] if want else None)
+    return out
+
+
+class _Fold(torch.autograd.Function):
+    """K3 as a function of the terms' fields ``apply(term_idx, n_terms,
+    *xs, *tables)``; saves only the tables.  Its backward launches the
+    transposed contraction once per distinct table whose terms need a
+    gradient and hands that one tensor to each of the table's terms."""
+
+    @staticmethod
+    def forward(term_idx, n, *tensors):
+        xs, tables = tensors[:n], tensors[n:]
+        if not _kernel_device(xs[0], 'fold'):
+            return fold_plain(xs, tables, term_idx)
+        return _fold_kernel(xs, tables, term_idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.term_idx, n = inputs[0], inputs[1]
+        ctx.save_for_backward(*inputs[2 + n:])
+
+    @staticmethod
+    def backward(ctx, g):
+        tables = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:2 + len(ctx.term_idx)]
+        return ((None, None) + tuple(fold_bwd(tables, ctx.term_idx, g, need))
+                + (None,) * len(tables))
+
+    vmap = _cuda.loop_vmap(lambda *a: _Fold.apply(*a))
+
+
 def fold(xs, tables, term_idx):
     """K3: ``sum_t stage(xs[t], tables[term_idx[t]])`` as one ``(R, M)``
     output written once; every ``xs[t]`` is ``(K, R)``, every table
@@ -336,7 +632,9 @@ def fold(xs, tables, term_idx):
     :func:`~pyiga_tpu_torch.ops.sumfac.assemble_terms_folded`), so the
     product runs once per distinct table; the result is deterministic and
     equals :func:`fold_plain` to rounding.  More than 16 terms run as
-    several launches, summed."""
+    several launches, summed.  Differentiable in the fields: terms that
+    share a table get one gradient, one K2 launch (:func:`stage_bwd`) per
+    distinct table."""
     if not xs or len(xs) != len(term_idx):
         raise ValueError('fold: %d fields but %d table indices'
                          % (len(xs), len(term_idx)))
@@ -355,27 +653,8 @@ def fold(xs, tables, term_idx):
     if not all(0 <= i < len(tables) for i in term_idx):
         raise ValueError('fold: table indices %s outside [0, %d)'
                          % (list(term_idx), len(tables)))
-    if not _kernel_device(xs[0], 'fold'):
-        return fold_plain(xs, tables, term_idx)
-    if len(xs) > _FOLD_MAX_TERMS:       # the kernel's term-table capacity
-        k = _FOLD_MAX_TERMS
-        return (fold(xs[:k], tables, term_idx[:k])
-                + fold(xs[k:], tables, term_idx[k:]))
-    for t, X in enumerate(xs):
-        _cuda.require(X, 'xs[%d]' % t, torch.float64, 2)
-    for i, T in enumerate(tables):
-        _cuda.require(T, 'tables[%d]' % i, torch.float64, 2)
-    n = len(xs)
-    xp = (ctypes.c_uint64 * n)(*[X.data_ptr() for X in xs])
-    tp = (ctypes.c_uint64 * n)(*[tables[i].data_ptr() for i in term_idx])
-    out = torch.empty((R, M), dtype=torch.float64, device=dev)
-    with _cuda.device_of(out):
-        err = _cuda.library().pyiga_fold_f64(
-            ctypes.cast(xp, ctypes.c_void_p), ctypes.cast(tp, ctypes.c_void_p),
-            n, out.data_ptr(), K, R, M, _cuda.stream_of(out))
-    _cuda.check(err, 'fold')
-    _cuda.LAUNCHES['fold'] += 1
-    return out
+    _cuda.constant_operands('fold', *tables)
+    return _Fold.apply(tuple(term_idx), len(xs), *xs, *tables)
 
 
 ################################################################################
@@ -391,10 +670,12 @@ def stage_T(X, T):
     """K7a: ``out[m, r] = sum_k X[k, r] T[m, k]`` for ``X (K, R)`` and a
     table ``T (M, K)``; returns ``(M, R)``, float64 (K2 with the band axis
     first, so that :func:`tail_fused` reads each row as a ``(K2, K3)``
-    slab).  On the card it runs on the f64 tensor cores."""
+    slab).  On the card it runs on the f64 tensor cores; it has no backward
+    there (an operand that requires grad raises)."""
     _check_stage_args('stage_T', X, T)
     if not _kernel_device(X, 'stage_T'):
         return stage_T_plain(X, T)
+    _cuda.no_grad_operands('stage_T', X, T)
     _cuda.require(X, 'X', torch.float64, 2)
     _cuda.require(T, 'T', torch.float64, 2)
     K, R = X.shape
@@ -435,7 +716,9 @@ def tail_fused(x1T, tc2, tc3, idx2, idx3):
     intermediate never reaches device memory.  On the card both
     contractions run on the f64 tensor cores, and the terms that share a
     final table are summed before it is applied (a fixed order, so the
-    result is deterministic; it equals the plain version to rounding)."""
+    result is deterministic; it equals the plain version to rounding).
+    The kernel has no backward: on CUDA an operand that requires grad
+    raises."""
     n = len(x1T)
     if not n == len(idx2) == len(idx3):
         raise ValueError('tail_fused: %d terms but %d / %d table indices'
@@ -445,6 +728,7 @@ def tail_fused(x1T, tc2, tc3, idx2, idx3):
     if n > _FOLD_MAX_TERMS:             # the kernel's term-table capacity
         raise ValueError('tail_fused: %d terms, the kernel takes at most %d'
                          % (n, _FOLD_MAX_TERMS))
+    _cuda.no_grad_operands('tail_fused', *x1T, *tc2, *tc3)
     M1, K2, K3 = x1T[0].shape
     M2, M3 = tc2[0].shape[0], tc3[0].shape[0]
     dev = x1T[0].device
@@ -671,8 +955,12 @@ def chain_folded(term_tables, fields_, last_idx):
 
     With :data:`TAIL_FUSED` on, chains that pass :func:`tail_supported`
     take :func:`chain_tail_fused` (K7) instead of K2 stages + K3; a K7
-    kernel that fails to build or launch raises there."""
-    if tail_supported(term_tables, fields_):
+    kernel that fails to build or launch raises there.  A chain that
+    autograd records (grad mode on and a field that requires grad) keeps
+    the two-call chain whatever the switch says: K7 has no backward."""
+    recorded = torch.is_grad_enabled() and any(
+        F is not None and F.requires_grad for F in fields_)
+    if not recorded and tail_supported(term_tables, fields_):
         return chain_tail_fused(term_tables, fields_)
     flats, shape_mid = [], None
     for tabs, F in zip(term_tables, fields_):

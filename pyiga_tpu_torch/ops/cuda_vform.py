@@ -64,14 +64,16 @@ from .. import _cuda
 from . import geom
 
 _BINARY = {'add': '+', 'sub': '-', 'mul': '*', 'div': '/'}
+# 'sign' (torch.sign: 0 at 0) occurs only in adjoint programs: the
+# derivative of abs
 _C_FUNCS = {'sqrt': 'sqrt', 'exp': 'exp', 'log': 'log', 'sin': 'sin',
-            'cos': 'cos', 'tan': 'tan', 'abs': 'fabs'}
+            'cos': 'cos', 'tan': 'tan', 'abs': 'fabs', 'sign': 'pyiga_sign'}
 _TORCH_OPS = {
     'add': lambda a, b: a + b, 'sub': lambda a, b: a - b,
     'mul': lambda a, b: a * b, 'div': lambda a, b: a / b,
     'neg': lambda a: -a, 'sqrt': torch.sqrt, 'exp': torch.exp,
     'log': torch.log, 'sin': torch.sin, 'cos': torch.cos, 'tan': torch.tan,
-    'abs': torch.abs}
+    'abs': torch.abs, 'sign': torch.sign}
 
 
 ################################################################################
@@ -270,6 +272,14 @@ class Program:
         self.param_slots = [param_slot[k] for k in params]
         self._source = None
         self._entry = None
+        self._adjoint = None
+
+    def adjoint(self):
+        """The program's :class:`AdjointProgram` (built on the first
+        call, then kept)."""
+        if self._adjoint is None:
+            self._adjoint = AdjointProgram(self)
+        return self._adjoint
 
     @property
     def source(self):
@@ -292,12 +302,12 @@ class Program:
             self._entry = fn
         return self._entry
 
-    def arguments(self, arrays, out, stream):
-        """The C entry's arguments for the device tensors `arrays` (the
-        per-axis ``weights``, the program's sources and, if it reads
-        parameters, the flat ``params`` vector) and the output `out`
-        ``(n_combos,) + grid``, to launch on `stream`.  Raises on an
-        operand the kernel does not take."""
+    def operands(self, arrays, dev):
+        """The kernel's input tensors from `arrays` (the per-axis
+        ``weights``, the program's sources and, if it reads parameters,
+        the flat ``params`` vector), in the order of its pointers, each
+        checked: contiguous float64 on `dev`, on the weights' grid, with
+        the rows and parameter slots the program reads."""
         W = arrays['weights']
         grid = tuple(w.shape[0] for w in W)
         QL, Q12 = grid[-1], math.prod(grid[:-1])
@@ -305,8 +315,6 @@ class Program:
         ops = W + [arrays[k] for k in self.sources]
         if self.params:
             ops.append(arrays['params'])
-        ops.append(out)
-        dev = out.device
         for i, t in enumerate(ops):
             if t.dtype != torch.float64 or t.device != dev \
                     or not t.is_contiguous():
@@ -314,26 +322,37 @@ class Program:
                          + self.sources + ['params'] * bool(self.params))
                 raise ValueError('vform_fields: %s must be a contiguous '
                                  'float64 tensor on %s, got %s on %s'
-                                 % ((names + ['out'])[i], dev, t.dtype,
-                                    t.device))
+                                 % (names[i], dev, t.dtype, t.device))
         if len(grid) != self.dim or any(w.dim() != 1 for w in W) \
-                or not (0 < Q12 < 2 ** 31 - 16 and 0 < QL < 2 ** 31) \
-                or out.shape != (len(self.outputs),) + grid:
-            raise ValueError('vform_fields: weights %s and out %s do not fit '
-                             'a %dD program of %d fields'
-                             % ([tuple(w.shape) for w in W],
-                                tuple(out.shape), self.dim,
-                                len(self.outputs)))
+                or not (0 < Q12 < 2 ** 31 - 16 and 0 < QL < 2 ** 31):
+            raise ValueError('vform_fields: weights %s do not fit a %dD '
+                             'program' % ([tuple(w.shape) for w in W],
+                                          self.dim))
         for key, t, rows in zip(self.sources, ops[self.dim:], self._rows):
             if t.shape[t.dim() - self.dim:] != grid or t.numel() < rows * N:
                 raise ValueError('vform_fields: %s is %s, expected %d rows '
                                  'on the grid %s' % (key, tuple(t.shape),
                                                      rows, grid))
-        if self.params and (ops[-2].dim() != 1 or ops[-2].shape[0]
+        if self.params and (ops[-1].dim() != 1 or ops[-1].shape[0]
                             <= max(self.param_slots)):
             raise ValueError('vform_fields: params %s lacks slot %d'
-                             % (tuple(ops[-2].shape), max(self.param_slots)))
-        return (*[t.data_ptr() for t in ops], Q12, QL,
+                             % (tuple(ops[-1].shape), max(self.param_slots)))
+        return ops
+
+    def arguments(self, arrays, out, stream):
+        """The C entry's arguments for the device tensors `arrays` (see
+        :meth:`operands`) and the output `out` ``(n_combos,) + grid``, to
+        launch on `stream`.  Raises on an operand the kernel does not
+        take."""
+        ops = self.operands(arrays, out.device)
+        grid = tuple(w.shape[0] for w in arrays['weights'])
+        if out.dtype != torch.float64 or not out.is_contiguous() \
+                or out.shape != (len(self.outputs),) + grid:
+            raise ValueError('vform_fields: out %s does not fit a program '
+                             'of %d fields on the grid %s'
+                             % (tuple(out.shape), len(self.outputs), grid))
+        return (*[t.data_ptr() for t in ops], out.data_ptr(),
+                math.prod(grid[:-1]), grid[-1],
                 grid[1] if self.dim == 3 else 1, stream)
 
 
@@ -472,20 +491,14 @@ def _row_offset(row):
     return 'g' if row == 0 else '%dLL * N + g' % row
 
 
-def emit_cuda(program):
-    """CUDA C source of `program`: ``vform_fields_kernel`` and its C entry
-    ``pyiga_vform_fields(w0, .., s0, .., [p,] out, Q12, QL, Q1, stream)``
-    returning ``cudaGetLastError()``: the d weight vectors, one pointer
-    per source tensor, the flat parameter vector if the program reads
-    one, the output ``(n_combos, Q12, QL)``, the grid as its leading rows
-    and last axis (Q1: the middle axis of a 3D grid) and the stream."""
+def _point_code(program):
+    """What a generated kernel runs before its per-point code (the staged
+    Gauss weight rows, if the program reads the weight), at each column
+    (its last-axis weight), and per point: the leaf loads and the SSA
+    instructions.  Returns ``(prologue, column, body lines)``."""
     d = program.dim
-    ptrs = (['w%d' % k for k in range(d)]
-            + ['s%d' % s for s in range(len(program.sources))]
-            + (['p'] if program.params else []))
-    uses_gw = ('gw',) in program.leaves
     prologue = column = ''
-    if uses_gw:
+    if ('gw',) in program.leaves:
         # the Gauss weight (w0 w1) w2 = w12[r] * wL[c], gauss_weight_field's
         # order; one division per staged row, none per point
         w12 = {1: '1.0', 2: '__ldg(w0 + r)',
@@ -508,13 +521,34 @@ def emit_cuda(program):
         else:
             expr = '%s(%s)' % (_C_FUNCS[name], _c_arg(args[0]))
         body.append('            const double t%d = %s;' % (i, expr))
+    return prologue, column, body
+
+
+def _pointer_args(program):
+    """The C names of a program's input pointers: the weight vectors, one
+    per source tensor, the flat parameter vector if it reads one."""
+    return (['w%d' % k for k in range(program.dim)]
+            + ['s%d' % s for s in range(len(program.sources))]
+            + (['p'] if program.params else []))
+
+
+def emit_cuda(program):
+    """CUDA C source of `program`: ``vform_fields_kernel`` and its C entry
+    ``pyiga_vform_fields(w0, .., s0, .., [p,] out, Q12, QL, Q1, stream)``
+    returning ``cudaGetLastError()``: the d weight vectors, one pointer
+    per source tensor, the flat parameter vector if the program reads
+    one, the output ``(n_combos, Q12, QL)``, the grid as its leading rows
+    and last axis (Q1: the middle axis of a 3D grid) and the stream."""
+    ptrs = _pointer_args(program)
+    prologue, column, body = _point_code(program)
     body += ['            out[%s] = %s;' % (_row_offset(c), _c_arg(o))
              for c, o in enumerate(program.outputs)]
     params = ['    const double p%d = __ldg(p + %d);' % (k, slot)
               for k, slot in enumerate(program.param_slots)]
     return _SOURCE % dict(
         n_leaves=len(program.leaves), n_src=len(program.sources),
-        n_params=len(program.params), n_out=len(program.outputs), dim=d,
+        n_params=len(program.params), n_out=len(program.outputs),
+        dim=program.dim,
         kargs=''.join('const double* __restrict__ %s,\n                    '
                       % x for x in ptrs),
         cargs=''.join('const double* %s,\n                       ' % x
@@ -605,6 +639,417 @@ def run_program_plain(program, arrays):
 
 
 ################################################################################
+# The adjoint program: K5's backward
+################################################################################
+
+def _adjoint_sweep(program, rec):
+    """Replay `program`'s instructions on `rec` and run the reverse sweep.
+    Returns ``(bar, gouts)``: the adjoint of every forward leaf and
+    parameter that one reaches (keys ``('l', j)`` / ``('p', j)``, values
+    Syms or floats), and the output-gradient leaves ``('gout', c)``.
+
+    One derivative rule per op, each as torch defines it: ``div`` gives
+    the divisor ``-g a / (b b)``, ``sqrt`` ``g / (2 sqrt a)`` (infinite at
+    0), ``tan`` ``g (1 + tan^2 a)``, ``abs`` ``g sign(a)`` (0 at 0)."""
+    leaves = [rec.leaf(key) for key in program.leaves]
+    params = [rec.param(key) for key in program.params]
+    tmps = []
+
+    def get(a):
+        if isinstance(a, float):
+            return a
+        kind, j = a
+        return {'l': leaves, 'p': params, 't': tmps}[kind][j]
+
+    for name, args in program.instrs:
+        tmps.append(rec.op(name, *[get(a) for a in args]))
+    bar, gouts = {}, {}
+
+    def acc(a, v):
+        if not isinstance(a, float):
+            bar[a] = v if a not in bar else bar[a] + v
+
+    for c, o in enumerate(program.outputs):
+        if not isinstance(o, float):
+            gouts[c] = rec.leaf(('gout', c))
+            acc(o, gouts[c])
+    for i in reversed(range(len(program.instrs))):
+        g = bar.pop(('t', i), None)
+        if g is None:
+            continue
+        name, args = program.instrs[i]
+        x = [get(a) for a in args]
+        t = tmps[i]
+        a0 = args[0]
+        if name == 'add':
+            acc(a0, g)
+            acc(args[1], g)
+        elif name == 'sub':
+            acc(a0, g)
+            acc(args[1], -g)
+        elif name == 'mul':
+            acc(a0, g * x[1])
+            acc(args[1], g * x[0])
+        elif name == 'div':
+            acc(a0, g / x[1])
+            acc(args[1], -g * x[0] / (x[1] * x[1]))
+        elif name == 'neg':
+            acc(a0, -g)
+        elif name == 'sqrt':
+            acc(a0, g / (2.0 * t))
+        elif name == 'exp':
+            acc(a0, g * t)
+        elif name == 'log':
+            acc(a0, g / x[0])
+        elif name == 'sin':
+            acc(a0, g * rec.op('cos', x[0]))
+        elif name == 'cos':
+            acc(a0, g * -rec.op('sin', x[0]))
+        elif name == 'tan':
+            acc(a0, g * (1.0 + t * t))
+        elif name == 'abs':
+            acc(a0, g * rec.op('sign', x[0]))
+        else:
+            raise NotImplementedError('no derivative rule for %r' % name)
+    return bar, gouts
+
+
+class AdjointProgram:
+    """The adjoint of a :class:`Program`: for the gradient ``gout``
+    ``(n_combos,) + grid`` of its output, the gradient of every source row
+    the program reads and of every parameter it reads.
+
+    Built by a reverse sweep over the program's SSA (:func:`_adjoint_sweep`)
+    into a second SSA program (:attr:`program`, a :class:`Program` whose
+    leaves are the forward's and the ``gout`` rows, its instructions the
+    forward's recomputed, then the adjoint's, with CSE and the same
+    constant folding).  Its outputs are the gradients of the source rows
+    in :attr:`src_targets` (``(array key, row)``: leaves that read one
+    row add their gradients), then those of the parameter slots in
+    :attr:`param_targets`, which are summed over the Gauss points.  A row
+    or parameter whose gradient folds to zero has no target (it stays
+    zero).
+
+    :meth:`source` is a second generated kernel with the forward's
+    mapping (a block owns up to 16 rows of the leading grid axes, a
+    thread columns of the last axis): it writes every target row once,
+    and sums the parameters' gradients in two passes of fixed order (each
+    thread over its points, each block over its threads into one partial
+    per block, then one block per parameter over the partials), with no
+    atomics: bitwise equal on a repeat."""
+
+    def __init__(self, program):
+        self.forward = program
+        rec = SSARecorder()
+        bar, gouts = _adjoint_sweep(program, rec)
+        rows = {}
+        for j, src in enumerate(program.leaf_src):
+            v = bar.get(('l', j))
+            if src is None or v is None or isinstance(v, float):
+                continue
+            key = (program.sources[src[0]], src[1])
+            rows[key] = v if key not in rows else rows[key] + v
+        params = [(slot, bar[('p', j)])
+                  for j, slot in enumerate(program.param_slots)
+                  if ('p', j) in bar and not isinstance(bar[('p', j)], float)]
+        self.src_targets = list(rows)
+        self.param_targets = [slot for slot, _v in params]
+        leaf_loc = {key: (program.sources[src[0]], src[1])
+                    for key, src in zip(program.leaves, program.leaf_src)
+                    if src is not None}
+        leaf_loc.update({('gout', c): ('gout', c) for c in gouts})
+        self.program = rec.finish(
+            list(rows.values()) + [v for _s, v in params], program.dim,
+            leaf_loc, dict(zip(program.params, program.param_slots)))
+        self._source = None
+        self._entry = None
+
+    @property
+    def source(self):
+        """The CUDA C source of the adjoint's kernels."""
+        if self._source is None:
+            self._source = emit_cuda_adjoint(self)
+        return self._source
+
+    def entry(self):
+        """The C entry ``pyiga_vform_adjoint``, built, loaded and declared
+        on the first call (as :meth:`Program.entry`)."""
+        if self._entry is None:
+            fn = _cuda.build_generated('vform_adjoint',
+                                       self.source).pyiga_vform_adjoint
+            prog = self.program
+            n_ptr = (prog.dim + len(prog.sources) + int(bool(prog.params))
+                     + len(self.grad_sources()) + 2)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._entry = fn
+        return self._entry
+
+    def grad_sources(self):
+        """The forward's source keys that receive a gradient, in the
+        order of the kernel's gradient pointers."""
+        keys = []
+        for key, _row in self.src_targets:
+            if key not in keys:
+                keys.append(key)
+        return keys
+
+    def launch(self, arrays, g):
+        """Run the adjoint kernel on CUDA tensors: `arrays` as the forward
+        takes them (``weights``, the sources, ``params``), `g` the output's
+        gradient ``(n_combos,) + grid``.  Returns ``(grads, gparams)``:
+        per forward source a tensor of its shape (zero where no target
+        writes) and the flat parameters' gradient (None without
+        parameters).  Raises on an operand the kernel does not take."""
+        fwd, prog = self.forward, self.program
+        _cuda.no_grad_operands(                 # no double backward
+            'vform_adjoint', g, arrays.get('params'),
+            *(arrays[key] for key in fwd.sources))
+        W = arrays['weights']
+        grid = tuple(w.shape[0] for w in W)
+        QL, Q12 = grid[-1], math.prod(grid[:-1])
+        dev = g.device
+        g = g.contiguous()
+        if g.shape != (len(fwd.outputs),) + grid or g.dtype != torch.float64:
+            raise ValueError('vform_adjoint: gradient %s %s, expected %s '
+                             'float64' % (tuple(g.shape), g.dtype,
+                                          (len(fwd.outputs),) + grid))
+        grads = {key: torch.zeros_like(arrays[key]) for key in fwd.sources}
+        ops = dict(arrays, gout=g)
+        argv = [t.data_ptr() for t in prog.operands(ops, dev)]
+        argv += [grads[key].data_ptr() for key in self.grad_sources()]
+        rb = _rows_per_block(Q12)
+        nb = -(-Q12 // rb)
+        n_p = len(self.param_targets)
+        part = torch.empty(max(n_p * nb, 1), dtype=torch.float64, device=dev)
+        psum = torch.empty(max(n_p, 1), dtype=torch.float64, device=dev)
+        argv += [part.data_ptr(), psum.data_ptr(), Q12, QL,
+                 grid[1] if prog.dim == 3 else 1, rb, _cuda.stream_of(g)]
+        fn = self.entry()
+        with _cuda.device_of(g):
+            err = fn(*argv)
+        _cuda.check(err, 'vform_adjoint')
+        _cuda.LAUNCHES['vform_adjoint'] += 1
+        gparams = None
+        if fwd.params:
+            gparams = torch.zeros_like(arrays['params'])
+            if n_p:
+                gparams[torch.tensor(self.param_targets, device=dev)] = psum
+        return grads, gparams
+
+
+def _rows_per_block(Q12):
+    """Rows of the leading grid axes a block of the generated kernels
+    owns: 16, halved while the grid has fewer than two blocks an SM (the
+    rule of the forward's C entry)."""
+    rb = 16
+    while rb > 1 and -(-Q12 // rb) < 2 * 132:
+        rb //= 2
+    return rb
+
+
+def emit_cuda_adjoint(adj):
+    """CUDA C source of an :class:`AdjointProgram`: ``vform_adjoint_kernel``
+    (the adjoint program per point: target rows written, parameter
+    gradients summed into one partial per block), ``vform_param_sum_
+    kernel`` (one block per parameter over the partials) and the C entry
+    ``pyiga_vform_adjoint(w0, .., s0, .., [p,] g0, .., part, psum, Q12,
+    QL, Q1, RB, stream)``: the adjoint program's inputs as
+    :func:`emit_cuda`'s (the ``gout`` rows among its sources), one
+    pointer per forward source that receives a gradient
+    (:meth:`AdjointProgram.grad_sources`), the per-block partials
+    ``(n_params, n_blocks)`` and the parameters' sums."""
+    prog = adj.program
+    ptrs = _pointer_args(prog)
+    gsrc = adj.grad_sources()
+    gptrs = ['g%d' % k for k in range(len(gsrc))]
+    prologue, column, body = _point_code(prog)
+    n_src = len(adj.src_targets)
+    for i, (key, row) in enumerate(adj.src_targets):
+        body.append('            g%d[%s] = %s;' % (
+            gsrc.index(key), _row_offset(row), _c_arg(prog.outputs[i])))
+    n_p = len(adj.param_targets)
+    for m in range(n_p):
+        body.append('            acc[%d] += %s;'
+                    % (m, _c_arg(prog.outputs[n_src + m])))
+    params = ['    const double p%d = __ldg(p + %d);' % (k, slot)
+              for k, slot in enumerate(prog.param_slots)]
+    return _ADJ_SOURCE % dict(
+        n_src=n_src, n_p=n_p, n_instrs=len(prog.instrs),
+        kargs=''.join('const double* __restrict__ %s,\n                     '
+                      % x for x in ptrs)
+        + ''.join('double* __restrict__ %s,\n                     ' % x
+                  for x in gptrs),
+        cargs=''.join('const double* %s,\n                        ' % x
+                      for x in ptrs)
+        + ''.join('double* %s,\n                        ' % x for x in gptrs),
+        names=''.join('%s, ' % x for x in ptrs + gptrs),
+        prologue=prologue, params='\n'.join(params), column=column,
+        acc_decl=('    double acc[%d];\n#pragma unroll\n    for (int m = 0; '
+                  'm < %d; ++m) acc[m] = 0.0;' % (n_p, n_p)) if n_p else '',
+        reduce=_ADJ_REDUCE % dict(n_p=n_p) if n_p else '',
+        second=('    if (e == cudaSuccess)\n        vform_param_sum_kernel'
+                '<<<%d, 256, 0, s>>>(part, nb, psum);\n' % n_p)
+        if n_p else '',
+        body='\n'.join(body))
+
+
+_ADJ_REDUCE = """\
+    // each block's partial sums, thread by thread in order
+    __shared__ double sred[256];
+#pragma unroll
+    for (int m = 0; m < %(n_p)d; ++m) {
+        sred[threadIdx.x] = acc[m];
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            double s = 0.0;
+            for (int i = 0; i < blockDim.x; ++i) s += sred[i];
+            part[(long long)m * gridDim.x + blockIdx.x] = s;
+        }
+        __syncthreads();
+    }
+"""
+
+_ADJ_SOURCE = """\
+// Adjoint of the coefficient fields of one variational form (the backward
+// of kernel K5 of pyiga_tpu_torch, generated by ops/cuda_vform.py).
+// Per Gauss point: the form's SSA recomputed, then its reverse sweep
+// (%(n_instrs)d instructions in all); out: %(n_src)d gradient rows of the
+// source tensors, %(n_p)d parameter gradients summed over the points in
+// two passes of fixed order (no atomics).
+#include <cuda_runtime.h>
+
+__device__ __forceinline__ double pyiga_sign(double x) {
+    return x > 0.0 ? 1.0 : (x < 0.0 ? -1.0 : x);
+}
+
+extern "C" __global__ void __launch_bounds__(256)
+vform_adjoint_kernel(%(kargs)sdouble* __restrict__ part,
+                     int Q12, int QL, int Q1, int RB) {
+    const long long N = (long long)Q12 * QL;
+    const int r0 = blockIdx.x * RB;
+    const int rows = min(RB, Q12 - r0);
+%(prologue)s%(params)s
+%(acc_decl)s
+    for (int c = threadIdx.x; c < QL; c += blockDim.x) {
+%(column)s
+#pragma unroll 2
+        for (int r = 0; r < rows; ++r) {
+            const long long g = (long long)(r0 + r) * QL + c;
+%(body)s
+        }
+    }
+%(reduce)s}
+
+// the second pass over the parameters' partials: a block a parameter,
+// each thread over the blocks i = tid, tid + 256, ..., then thread 0 over
+// the threads in order
+extern "C" __global__ void __launch_bounds__(256)
+vform_param_sum_kernel(const double* __restrict__ part, int nb,
+                       double* __restrict__ psum) {
+    __shared__ double s[256];
+    const double* p = part + (long long)blockIdx.x * nb;
+    double a = 0.0;
+    for (int i = threadIdx.x; i < nb; i += blockDim.x) a += p[i];
+    s[threadIdx.x] = a;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        double t = 0.0;
+        for (int i = 0; i < blockDim.x; ++i) t += s[i];
+        psum[blockIdx.x] = t;
+    }
+}
+
+// RB rows a block (the wrapper's rule, which sizes the partials);
+// min(256, QL rounded up to a warp) threads
+extern "C" __attribute__((visibility("default")))
+int pyiga_vform_adjoint(%(cargs)sdouble* part, double* psum,
+                        int Q12, int QL, int Q1, int RB, void* stream) {
+    if (Q12 < 1 || QL < 1 || RB < 1 || RB > 16)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const int nb = (Q12 + RB - 1) / RB;
+    int threads = (QL + 31) / 32 * 32;
+    if (threads > 256) threads = 256;
+    vform_adjoint_kernel<<<nb, threads, 0, s>>>(%(names)spart, Q12, QL, Q1,
+                                                RB);
+    const cudaError_t e = cudaGetLastError();
+%(second)s    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+"""
+
+
+def run_adjoint_plain(program, arrays, g):
+    """Run `program`'s adjoint (:meth:`Program.adjoint`) with torch ops on
+    the kernel's operands (`arrays` as for :func:`run_program_plain`, `g`
+    the output's gradient ``(n_combos,) + grid``).  Returns ``(grads,
+    gparams)`` as :meth:`AdjointProgram.launch`: the plain version of
+    the adjoint kernel."""
+    adj = program.adjoint()
+    vals = run_program_plain(adj.program, dict(arrays, gout=g))
+    N = vals.shape[1]
+    grads = {key: torch.zeros_like(arrays[key]) for key in program.sources}
+    for (key, row), v in zip(adj.src_targets, vals):
+        grads[key].view(-1, N)[row] = v
+    gparams = None
+    if program.params:
+        gparams = torch.zeros_like(arrays['params'])
+        for slot, v in zip(adj.param_targets, vals[len(adj.src_targets):]):
+            gparams[slot] = v.sum()
+    return grads, gparams
+
+
+class _ComboFields(torch.autograd.Function):
+    """K5 on CUDA tensors as a function of the tensors its program reads:
+    ``apply(program, n_weights, *weights, *sources[, params])`` ->
+    ``(n_combos,) + grid``.  Its backward is the generated adjoint kernel
+    (:meth:`AdjointProgram.launch`); the Gauss weights are constants."""
+
+    @staticmethod
+    def forward(program, n_w, *tensors):
+        arrays = _program_arrays(program, n_w, tensors)
+        W = arrays['weights']
+        out = W[0].new_empty((len(program.outputs),)
+                             + tuple(w.shape[0] for w in W))
+        argv = program.arguments(arrays, out, _cuda.stream_of(out))
+        fn = program.entry()
+        with _cuda.device_of(out):
+            err = fn(*argv)
+        _cuda.check(err, 'vform_fields')
+        _cuda.LAUNCHES['vform_fields'] += 1
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.program, ctx.n_w = inputs[0], inputs[1]
+        ctx.save_for_backward(*inputs[2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        program, n_w = ctx.program, ctx.n_w
+        arrays = _program_arrays(program, n_w, ctx.saved_tensors)
+        grads, gparams = program.adjoint().launch(arrays, g)
+        out = [None, None] + [None] * n_w + [grads[k]
+                                             for k in program.sources]
+        if program.params:
+            out.append(gparams)
+        return tuple(out)
+
+    vmap = _cuda.loop_vmap(lambda *a: _ComboFields.apply(*a))
+
+
+def _program_arrays(program, n_w, tensors):
+    """The ``arrays`` dict of a program's kernel from the flat operand
+    list ``(*weights, *sources[, params])``."""
+    arrays = {'weights': list(tensors[:n_w])}
+    arrays.update(zip(program.sources, tensors[n_w:]))
+    if program.params:
+        arrays['params'] = tensors[-1]
+    return arrays
+
+
+################################################################################
 # The wrapper and its plain version
 ################################################################################
 
@@ -638,20 +1083,18 @@ def combo_fields(asm, arrays, combos):
     kernel runs: one allocation of the ``(n_combos,) + grid`` output, one
     ctypes call into the program's entry (:meth:`Program.entry`,
     :meth:`Program.arguments`), the fields returned as views of the
-    output.  On the CPU the plain version.  Returns one contiguous field
-    per combo."""
+    output; it is differentiable in the tensors the program reads, its
+    backward the generated adjoint kernel (:class:`AdjointProgram`).  On
+    the CPU the plain version, which autograd differentiates.  Returns
+    one contiguous field per combo."""
     W = arrays['weights']
     if W[0].device.type == 'cpu':
         return combo_fields_plain(asm, arrays, combos)
     if not W[0].is_cuda:
         raise ValueError('combo_fields: unsupported device %s' % W[0].device)
     program = asm._program(combos)
-    out = W[0].new_empty((len(program.outputs),)
-                         + tuple(w.shape[0] for w in W))
-    argv = program.arguments(arrays, out, _cuda.stream_of(out))
-    fn = program.entry()
-    with _cuda.device_of(out):
-        err = fn(*argv)
-    _cuda.check(err, 'vform_fields')
-    _cuda.LAUNCHES['vform_fields'] += 1
-    return list(out.unbind(0))
+    _cuda.constant_operands('vform_fields', *W)
+    tensors = list(W) + [arrays[k] for k in program.sources]
+    if program.params:
+        tensors.append(arrays['params'])
+    return list(_ComboFields.apply(program, len(W), *tensors).unbind(0))

@@ -185,6 +185,20 @@ def host_eval(geo, grids):
     return np.asarray(utils.grid_eval(geo, grids))
 
 
+def check_replacement(old, new, dtype, device):
+    """Raise unless `new` can replace a spline geometry's coefficients
+    `old` (None for a host-evaluated geometry, which has none to
+    replace): the same shape, `dtype`, on `device`."""
+    if old is None:
+        raise ValueError('the assembler was set up with a host-evaluated '
+                         'geometry, which has no coefficients to replace')
+    if tuple(new.shape) != tuple(old.shape) or new.dtype != dtype \
+            or new.device != device:
+        raise ValueError('geo_coeffs %s does not replace the coefficients '
+                         '%s of the same dtype and device'
+                         % (tuple(new.shape), tuple(old.shape)))
+
+
 def gauss_weight_field(weights):
     """Outer product of per-axis Gauss weight vectors over the TP grid."""
     W = weights[0]
