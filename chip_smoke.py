@@ -366,7 +366,8 @@ def nvidia_smi():
 
 
 def sass_dmma(lib_path, kernels=('stage_kernel', 'fold_kernel',
-                                 'stage_T_kernel', 'tail_kernel')):
+                                 'stage_T_kernel', 'tail_kernel',
+                                 'stage_bwd_kernel')):
     """DMMA (f64 tensor-core) instructions per kernel in the SASS of the
     built library, by ``cuobjdump --dump-sass`` from the toolkit that
     built it; raises if one of `kernels` has none."""
@@ -3856,6 +3857,7 @@ def adjoint_case(asm, device, name, seed):
                params=len(adj.param_targets), first_call_s=build_s,
                repeat_equal=True, build=build,
                ms=time_ms(lambda: adj.launch(arrays, g), device),
+               device_ms=graph_ms(lambda i: adj.launch(arrays, g), device),
                plain_ms=time_ms(lambda: cv.run_adjoint_plain(prog, arrays,
                                                              g), device,
                                 reps=3),
@@ -3870,15 +3872,62 @@ def adjoint_case(asm, device, name, seed):
     return rec
 
 
+def stage_bwd_case(name, tables, idx, g, device):
+    """K2-/K3-bwd (``stage_bwd_kernel``) of the terms `idx` over `tables`
+    against ``fold_bwd_plain`` (1e-13 relative, bitwise on a repeat; one
+    table through ``stage_bwd``), its ms, the plain version's, one
+    ``torch.matmul`` of the distinct tables concatenated and the bound:
+    the distinct tables and `g` read once, ``(G, K, R)`` written once, 2
+    K R M operations a table."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    R, M = g.shape
+    K = tables[0].shape[1]
+    if len(idx) == 1:
+        T = tables[idx[0]]
+
+        def run():
+            return [cs.stage_bwd(T, g)]
+
+        def plain():
+            return [cs.stage_bwd_plain(T, g)]
+    else:
+        def run():
+            return cs.fold_bwd(tables, idx, g)
+
+        def plain():
+            return cs.fold_bwd_plain(tables, idx, g)
+    got, ref = run(), plain()
+    sync(device)
+    err, rel = compare_all('stage_bwd ' + name, got, ref, 1e-13)
+    check_repeat_all('stage_bwd ' + name, run, got)
+    used = [tables[i] for i in dict.fromkeys(idx)]
+    tcat = torch.cat(used, dim=1).t().contiguous()
+    rec = dict(max_abs_err=err, rel=rel, shape=[K, R, M], terms=len(idx),
+               tables=len(used), repeat_equal=True,
+               ms=time_ms(run, device), plain_ms=time_ms(plain, device),
+               library_ms=time_ms(lambda: torch.matmul(tcat, g.t()), device),
+               **bound(nbytes(g, *used) + 8 * K * R * len(used),
+                       2 * K * R * M * len(used), F64_TENSOR_PER_MS))
+    log('  stage_bwd %-14s (K, R, M) = (%d, %d, %d), %d tables: %.4f ms '
+        '(plain %.4f, matmul %.4f, bound %.4f, %.0f %%)'
+        % (name, K, R, M, len(used), rec['ms'], rec['plain_ms'],
+           rec['library_ms'], rec['bound_ms'],
+           100 * rec['bound_ms'] / rec['ms']))
+    del got, ref, tcat
+    return rec
+
+
 def check_diff_kernels(device, n3=48, n2=128):
     """Phase 20a: each backward kernel against its plain version on the
     card at the forward's phase shapes, at most 1e-13 relative and
     bitwise on a second launch: K1's backward of the stiffness and mass
     kinds on the 3D p=3 n=48 twisted box, of the ``jac`` kind on the 2D
     n=128 NURBS quarter annulus and on a surface (G = 3, n=128); K2's and
-    K3's backward at the headline's compact chain (the stage shapes and
-    the fold's terms over their distinct tables, R = M^2; one
-    ``torch.matmul`` each as the yardstick); the generated K5 adjoint on
+    K3's backward (``stage_bwd_kernel``, :func:`stage_bwd_case`) at the
+    headline's compact chain (the two stage shapes, and the fold's terms
+    over their distinct tables in one launch, R = M^2), at 2D n=128's
+    stage shape (512, 512, 905) and on a ragged fold (K = 33, R = 1,001,
+    M = 7, 3 terms over 2 tables); the generated K5 adjoint on
     convection-diffusion, on :data:`NONLINEAR` and on the biharmonic at
     2D n=128."""
     from pyiga_tpu_torch import geometry
@@ -3910,7 +3959,8 @@ def check_diff_kernels(device, n3=48, n2=128):
     out['geo_jac_fields_bwd'] = dict(jac['annulus_n128'], cases=jac)
     del Y, T, a2, surf, ops
 
-    # K2's and K3's backward on the compact tables of the headline
+    # K2's and K3's backward (stage_bwd_kernel): the headline's compact
+    # chain, 2D n=128's stage shape and a ragged fold
     rng = np.random.RandomState(5)
 
     def rand(*shape):
@@ -3919,27 +3969,12 @@ def check_diff_kernels(device, n3=48, n2=128):
     cops = asm._compact_operands()
     tabs = cops['term_tables'][0]
     M, K = tabs[0].shape
-    rec = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0,
-               rel=0.0, shapes=[], repeat_equal=True)
-    nb, ops_ = 0, 0
-    for R, Tt in ((K * K, tabs[0]), (K * M, tabs[1])):
-        g = rand(R, M)
-        got, ref = cs.stage_bwd(Tt, g), cs.stage_plain(Tt, g)
-        sync(device)
-        e, r = compare('stage_bwd R=%d' % R, got, ref, 1e-13)
-        check_repeat('stage_bwd R=%d' % R, lambda: cs.stage_bwd(Tt, g), got)
-        rec['max_abs_err'], rec['rel'] = max(rec['max_abs_err'], e), \
-            max(rec['rel'], r)
-        rec['ms'] += time_ms(lambda: cs.stage_bwd(Tt, g), device)
-        rec['plain_ms'] += time_ms(lambda: cs.stage_plain(Tt, g), device)
-        rec['library_ms'] += time_ms(lambda: torch.matmul(Tt.t(), g.t()),
+    cases = {}
+    for name, Tt, R in (('n%d R=%d' % (n3, K * K), tabs[0], K * K),
+                        ('n%d R=%d' % (n3, K * M), tabs[1], K * M),
+                        ('2D n=%d' % n2, rand(905, 512), 512)):
+        cases[name] = stage_bwd_case(name, [Tt], [0], rand(R, Tt.shape[0]),
                                      device)
-        rec['shapes'].append([K, R, M])
-        nb += nbytes(Tt, g, got)
-        ops_ += 2 * K * R * M
-        del g, got, ref
-    rec.update(bound(nb, ops_, F64_TENSOR_PER_MS))
-    out['stage_bwd'] = rec
     plan = cops['plan']
     sel = [t for t, _m in plan]
     last = [cops['last_idx'][t] for t in sel]
@@ -3948,26 +3983,23 @@ def check_diff_kernels(device, n3=48, n2=128):
         if i not in slot:
             slot[i] = len(ftabs)
             ftabs.append(cops['term_tables'][t][-1])
-    idx = [slot[i] for i in last]
-    g = rand(M * M, M)
-    got = cs.fold_bwd(ftabs, idx, g)
-    ref = [cs.stage_plain(ftabs[i], g) for i in idx]
-    sync(device)
-    e, r = compare_all('fold_bwd', got, ref, 1e-13)
-    check_repeat_all('fold_bwd', lambda: cs.fold_bwd(ftabs, idx, g), got)
-    uniq = sorted(set(idx))
-    tcat = torch.cat([ftabs[i] for i in uniq], dim=1).t().contiguous()
-    out['fold_bwd'] = dict(
-        max_abs_err=e, rel=r, terms=len(idx), tables=len(uniq),
-        shape=[K, M * M, M], repeat_equal=True,
-        ms=time_ms(lambda: cs.fold_bwd(ftabs, idx, g), device),
-        plain_ms=time_ms(lambda: [cs.stage_plain(ftabs[i], g) for i in uniq],
-                         device),
-        library_ms=time_ms(lambda: torch.matmul(tcat, g.t()), device),
-        **bound(nbytes(g, *[ftabs[i] for i in uniq]) + 8 * K * M * M
-                * len(uniq), 2 * K * M * M * M * len(uniq),
-                F64_TENSOR_PER_MS))
-    del g, got, ref, tcat, asm, cops
+    fold_rec = stage_bwd_case('fold n=%d' % n3, ftabs,
+                              [slot[i] for i in last], rand(M * M, M),
+                              device)
+    cases['ragged fold'] = stage_bwd_case(
+        'ragged fold', [rand(7, 33), rand(7, 33)], [1, 0, 1],
+        rand(1001, 7), device)
+    both = list(cases.values())[:2]             # the n=48 stage shapes
+    out['stage_bwd'] = dict(
+        {k: sum(r[k] for r in both) for k in ('ms', 'plain_ms',
+                                              'library_ms')},
+        max_abs_err=max(r['max_abs_err'] for r in cases.values()),
+        rel=max(r['rel'] for r in cases.values()), repeat_equal=True,
+        shapes=[r['shape'] for r in both], cases=cases,
+        **bound(sum(r['bound_bytes'] for r in both),
+                sum(r['bound_flops'] for r in both), F64_TENSOR_PER_MS))
+    out['fold_bwd'] = fold_rec
+    del tabs, ftabs, asm, cops
 
     adj = {}
     _kvs, _geo, conv, _f = convdiff_setup(n2, device)
@@ -3991,8 +4023,10 @@ def check_diff_kernels(device, n3=48, n2=128):
                               r['bound_ms'], r['bound_by']))
     for k in ('geo_jac_fields_bwd', 'vform_adjoint'):
         for c, r in out[k]['cases'].items():
-            log('    %s %s: %.4f ms (plain %.4f, bound %.4f)'
-                % (k, c, r['ms'], r['plain_ms'], r['bound_ms']))
+            log('    %s %s: %.4f ms (%splain %.4f, bound %.4f)'
+                % (k, c, r['ms'], 'device %.4f, ' % r['device_ms']
+                   if 'device_ms' in r else '', r['plain_ms'],
+                   r['bound_ms']))
     return out
 
 
@@ -4281,6 +4315,8 @@ def run_diff_phase(device, n3=48, n2=128, examples=True):
         rec[ph] = fn()
         rec[ph + '_s'] = time.perf_counter() - t0
         rec[ph + '_launches'] = dict(_cuda.LAUNCHES)
+        log('  phase %s backward launches: %s'
+            % (ph, {k: _cuda.LAUNCHES[k] for k in DIFF_KERNELS}))
         for k, v in _cuda.LAUNCHES.items():
             totals[k] += v
         torch.cuda.empty_cache()

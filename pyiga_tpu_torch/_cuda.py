@@ -61,6 +61,7 @@ _SIGNATURES = {
                              _I, _P),
     'pyiga_stage_f64': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_fold_f64': (_P, _P, _I, _P, _I, _L, _I, _P),
+    'pyiga_stage_bwd_f64': (_P, _I, _P, _P, _I, _L, _I, _P),
     'pyiga_stage_T_f64': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_tail_fused_f64': (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     'pyiga_flat_banded_f64': (_P, _P, _P, _P, _I, _L, _L, _P),

@@ -44,6 +44,22 @@ __device__ __forceinline__ void load_a(const double* s, int ld, int row0,
     a1 = p[8 * ld];
 }
 
+// A fragment from a buffer holding A transposed ([k][m], m contiguous),
+// stride ld: rows row0 .. row0 + 15, columns k0 .. k0 + 3.
+__device__ __forceinline__ void load_a_km(const double* s, int ld, int row0,
+                                          int k0, double& a0, double& a1) {
+    const double* p = s + (k0 + lane_t()) * ld + row0 + lane_g();
+    a0 = p[0];
+    a1 = p[8];
+}
+
+// B fragment from a buffer holding B transposed ([n][k], k contiguous),
+// stride ld: rows k0 .. k0 + 3, columns n0 .. n0 + 7.
+__device__ __forceinline__ double load_b_nk(const double* s, int ld, int k0,
+                                            int n0) {
+    return s[(n0 + lane_g()) * ld + k0 + lane_t()];
+}
+
 // B fragment from a buffer holding B with k leading ([k][n], n
 // contiguous), stride ld: rows k0 .. k0 + 3, columns n0 .. n0 + 7.
 __device__ __forceinline__ double load_b_kn(const double* s, int ld, int k0,

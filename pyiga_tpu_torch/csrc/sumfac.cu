@@ -9,6 +9,9 @@
 //     body `_stage_kernel_T`); f64 tensor cores (dmma.cuh).
 // K7b tail_kernel          replaces `_tail_fused_call` (pallas_call at
 //     :563, body `_tail_kernel`); f64 tensor cores (dmma.cuh).
+// K2-bwd / K3-bwd  stage_bwd_kernel  the backward of K2 and K3 (no Pallas
+//     site: the JAX package differentiates their XLA forms); f64 tensor
+//     cores, every distinct table of a fold in one launch.
 //
 // The TPU kernels carry float64 as two-float f32 pairs and split every
 // contraction into six bf16 mantissa chunks (21 chunk dots with exact f32
@@ -427,6 +430,244 @@ static int launch(void (*kernel)(P...), long long R, int M, cudaStream_t s,
 
 }  // namespace tc
 
+// --------------------------------------------------------------------------
+// K2-bwd / K3-bwd  stage_bwd_kernel: the backward of a stage for G >= 1
+// tables of one gradient at once,
+//   gX_i[k, r] = sum_m T_i[m, k] g[r, m],
+// T_i (M, K) the stage's tables, g (R, M) the gradient of its output, gX
+// (G, K, R) written once.  K2's backward is G = 1; K3's runs every distinct
+// table of a fold whose terms need a gradient in one launch (the terms
+// that share a table share its gradient).  No Pallas site: the JAX
+// package differentiates the XLA form of K2 / K3 (pyiga_tpu/diff.py).
+//
+// Bounds at the 3D n=48 headline's compact chain (K = 192, M = 345):
+// the two stage shapes (R = 36,864 and 66,240) do 2 x 192 x 345 x 103,104
+// = 13.7 GFLOP, 0.204 ms at 67 TFLOP/s, over 443 MB (0.132 ms); the fold
+// (3 tables, R = 119,025) 47.3 GFLOP, 0.706 ms, over 879 MB (0.262 ms):
+// operations.
+//
+// Design.
+//   - the block's rows are K and its tile spans all of K = 192 with no
+//     padded row (K along a 128-wide tile would put a quarter of the
+//     products on zeros).  Tile192: 192 x 96, 12 warps of 48 x 32 (3 x 4
+//     DMMA tiles, 48 accumulators a thread, 168 registers, 36 bytes
+//     spilled where M is odd), a 3-stage
+//     pipeline, one block an SM (160 KiB of shared memory with the
+//     epilogue's staging).  K = 512 (2D n=128) takes Tile128 (4 k tiles,
+//     none padded), K <= 64 Tile64; `pick_tile` takes the tile that pads
+//     K least, the larger on a tie;
+//   - the grid runs (r tile, k tile, table) with the table fastest, so the
+//     G x (k tiles) blocks that read one g slab run together and g comes
+//     from device memory once a launch (a launch a table, or the m tiles
+//     along R, would read it 2 x 3 times at n=48), from L2 after the
+//     first block;
+//   - A is T read transposed: a 16-deep contraction slice of T is 16 rows
+//     of contiguous K, staged [m][k] (stride BM + 4, 4 mod 16) by 16-byte
+//     cp.async where K is even; B is a [r][m] slice of g (stride 20, 4 mod
+//     16), 8-byte copies where M is odd (M = 345 at n=48: g's rows are
+//     2,760 B, so neither 16-byte copies nor a 2D TMA box fit).  The
+//     fragment loads index the staged slices transposed (load_a_km,
+//     load_b_nk): each half-warp's lanes hit 16 distinct bank pairs;
+//   - the sum over m runs slice by slice in one order: no atomics, no
+//     split over m, bitwise the same on a repeat.  One barrier a slice
+//     publishes it and frees the buffer the next copies refill.  Ragged K,
+//     R and M are zero-filled by the copies and skipped on store; the
+//     epilogue stages the tile [k][r] (K7a's layout) and writes rows along
+//     r.
+// Per block the table comes from L2 whole (530 KB at n=48) and the g slab
+// once (265 KB), so L2 traffic goes as 1/BN + 1/BM, and the accumulators
+// bound BM x BN: a 192 x 64 tile at 8 warps, 96 x 96 at two blocks an SM,
+// 64 x 128 and a 192 x 128 tile at 16 warps (128 registers: it spills)
+// were all slower at n=48 (scripts/torch_stage_bwd_tiles.py, which also
+// times the kernel with its copies, products or both cut out).
+// --------------------------------------------------------------------------
+
+namespace bwd {
+
+using tc::kBK;
+
+// A block's BM (k) x BN (r) output tile in THREADS / 32 warp tiles of WM
+// x WN (MI x NJ DMMA tiles), its pipeline depth, the blocks an SM holds
+// and its shared-memory layout.
+template <int BM_, int BN_, int WM_, int WN_, int STAGES_, int MINB_,
+          int THREADS_ = 256>
+struct Tile {
+    static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
+    static constexpr int STAGES = STAGES_, MINB = MINB_, THREADS = THREADS_;
+    static constexpr int MI = WM / 16, NJ = WN / 8;
+    static constexpr int WARPS_N = BN / WN;      // warps along r
+    static_assert((BM / WM) * WARPS_N == THREADS / 32, "one tile a warp");
+    static_assert(BM % 16 == 0 && BN % 16 == 0, "strides below");
+    static constexpr int PA = BM + 4;            // [m][k] T slice (4 mod 16)
+    static constexpr int PB = kBK + 4;           // [r][m] g slice (4 mod 16)
+    static constexpr int PC = BN + 8;            // [k][r] staging (8 mod 16)
+    static constexpr int STAGE = kBK * PA + BN * PB;
+    static constexpr int SMEM =
+        cmax(STAGES * STAGE, BM * PC) * (int)sizeof(double);
+    static __device__ __forceinline__ int wm0() {
+        return (int)(threadIdx.x >> 5) / WARPS_N * WM;
+    }
+    static __device__ __forceinline__ int wn0() {
+        return (int)(threadIdx.x >> 5) % WARPS_N * WN;
+    }
+};
+using Tile192 = Tile<192, 96, 48, 32, 3, 1, 384>;   // K = 192 (n=48)
+using Tile128 = Tile<128, 64, 32, 32, 3, 1>;   // K = 512 (2D n=128)
+using Tile64 = Tile<64, 64, 32, 16, 3, 2>;     // K <= 64
+
+struct Tables {
+    const double* t[kMaxTerms];    // the distinct (M, K) tables
+    int n;
+};
+
+// The epilogue: the tile staged [k][r] through shared memory (K7a's
+// store_mr), then written to out (K, R) along r, 16-byte stores where R
+// is even and out 16-byte aligned
+template <class TL>
+__device__ __forceinline__ void store(const tc::Acc<TL>& acc, double* Cs,
+                                      double* out, long long R, int K,
+                                      int k0, long long r0, bool vec) {
+    const int wm = TL::wm0(), wn = TL::wn0();
+    const int g = dmma::lane_g(), t = dmma::lane_t();
+#pragma unroll
+    for (int u = 0; u < TL::MI; ++u)
+#pragma unroll
+        for (int j = 0; j < TL::NJ; ++j) {
+            const int row = wm + 16 * u + g, col = wn + 8 * j + 2 * t;
+            *reinterpret_cast<double2*>(Cs + row * TL::PC + col) =
+                make_double2(acc[u][j][0], acc[u][j][1]);
+            *reinterpret_cast<double2*>(Cs + (row + 8) * TL::PC + col) =
+                make_double2(acc[u][j][2], acc[u][j][3]);
+        }
+    __syncthreads();
+    const int VEC = vec ? 2 : 1, cpr = TL::BN / VEC;
+    double* o = out + (long long)k0 * R + r0;
+    for (int i = threadIdx.x; i < TL::BM * cpr; i += TL::THREADS) {
+        const int row = i / cpr, col = (i % cpr) * VEC;
+        if (row >= K - k0 || col >= R - r0) continue;
+        if (vec)
+            *reinterpret_cast<double2*>(o + row * R + col) =
+                *reinterpret_cast<const double2*>(Cs + row * TL::PC + col);
+        else
+            o[row * R + col] = Cs[row * TL::PC + col];
+    }
+}
+
+template <class TL, int VA, int VB>
+__global__ void __launch_bounds__(TL::THREADS, TL::MINB)
+stage_bwd_kernel(const __grid_constant__ Tables tabs,
+                 const double* __restrict__ g, int K, long long R, int M,
+                 double* __restrict__ out, int vec) {
+    extern __shared__ __align__(16) double smem[];
+    // tables fastest, then k tiles: the blocks that read one g slab run
+    // together
+    const unsigned int kt = (K + TL::BM - 1) / TL::BM;
+    unsigned int b = blockIdx.x;
+    const int i = (int)(b % (unsigned int)tabs.n);
+    b /= (unsigned int)tabs.n;
+    const int k0 = (int)(b % kt) * TL::BM;
+    const long long r0 = (long long)(b / kt) * TL::BN;
+    const double* T = tabs.t[i] + k0;
+    const double* gr = g + r0 * M;
+    const int wm = TL::wm0(), wn = TL::wn0();
+
+    tc::Acc<TL> acc;
+#pragma unroll
+    for (int u = 0; u < TL::MI; ++u)
+#pragma unroll
+        for (int j = 0; j < TL::NJ; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[u][j][q] = 0.0;
+
+    const int ns = (M + kBK - 1) / kBK;
+    auto load = [&](int buf, int s) {
+        double* As = smem + buf * TL::STAGE;
+        double* Bs = As + kBK * TL::PA;
+        const int m0 = s * kBK;
+        dmma::load_tile<kBK, TL::BM, VA, TL::THREADS>(
+            As, TL::PA, T + (long long)m0 * K, K, M - m0, K - k0);
+        dmma::load_tile<TL::BN, kBK, VB, TL::THREADS>(
+            Bs, TL::PB, gr + m0, M, R - r0, M - m0);
+        dmma::cp_async_commit();
+    };
+    auto compute = [&](int buf) {
+        const double* As = smem + buf * TL::STAGE;
+        const double* Bs = As + kBK * TL::PA;
+#pragma unroll
+        for (int kk = 0; kk < kBK; kk += 4) {
+            double a[TL::MI][2], bf[TL::NJ];
+#pragma unroll
+            for (int u = 0; u < TL::MI; ++u)
+                dmma::load_a_km(As, TL::PA, wm + 16 * u, kk, a[u][0],
+                                a[u][1]);
+#pragma unroll
+            for (int j = 0; j < TL::NJ; ++j)
+                bf[j] = dmma::load_b_nk(Bs, TL::PB, kk, wn + 8 * j);
+#pragma unroll
+            for (int u = 0; u < TL::MI; ++u)
+#pragma unroll
+                for (int j = 0; j < TL::NJ; ++j)
+                    dmma::mma_16x8x4(acc[u][j], a[u][0], a[u][1], bf[j]);
+        }
+    };
+
+    // one barrier a slice: it publishes slice st and frees the buffer of
+    // slice st - 1, which the load of slice st + STAGES - 1 then refills
+    for (int s = 0; s < TL::STAGES - 1; ++s) {
+        if (s < ns)
+            load(s, s);
+        else
+            dmma::cp_async_commit();       // an empty group keeps the count
+    }
+    for (int st = 0; st < ns; ++st) {
+        dmma::cp_async_wait<TL::STAGES - 2>();
+        __syncthreads();
+        const int sn = st + TL::STAGES - 1;
+        if (sn < ns)
+            load(sn % TL::STAGES, sn);
+        else
+            dmma::cp_async_commit();
+        compute(st % TL::STAGES);
+    }
+    dmma::cp_async_wait<0>();
+    __syncthreads();                       // the epilogue reuses the buffers
+    store<TL>(acc, smem, out + (long long)i * K * R, R, K, k0, r0, vec);
+}
+
+template <class TL>
+static int launch(const Tables& tabs, const double* g, double* out, int K,
+                  long long R, int M, int va, int vb, int vec,
+                  cudaStream_t s) {
+    auto kernel = va == 2 ? (vb == 2 ? stage_bwd_kernel<TL, 2, 2>
+                                     : stage_bwd_kernel<TL, 2, 1>)
+                          : (vb == 2 ? stage_bwd_kernel<TL, 1, 2>
+                                     : stage_bwd_kernel<TL, 1, 1>);
+    const long long blocks = (long long)tabs.n
+                             * ((K + TL::BM - 1) / TL::BM)
+                             * ((R + TL::BN - 1) / TL::BN);
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned int)blocks, TL::THREADS, TL::SMEM, s>>>(tabs, g, K, R,
+                                                                M, out, vec);
+    return (int)cudaGetLastError();
+}
+
+// The tile whose k tiles pad K least, the larger on a tie: 0 Tile192, 1
+// Tile128, 2 Tile64
+static int pick_tile(int K) {
+    const int bm[3] = {Tile192::BM, Tile128::BM, Tile64::BM};
+    int best = 0;
+    for (int t = 1; t < 3; ++t)
+        if ((K + bm[t] - 1) / bm[t] * bm[t]
+            < (K + bm[best] - 1) / bm[best] * bm[best])
+            best = t;
+    return best;
+}
+
+}  // namespace bwd
+
 // KERNEL<VA, VB>: the copy widths (1 or 2 doubles) of its T and X tiles
 #define PYIGA_TC_PICK(KERNEL, VA, VB)                                       \
     ((VA) == 2 ? ((VB) == 2 ? KERNEL<2, 2> : KERNEL<2, 1>)                  \
@@ -765,6 +1006,36 @@ PYIGA_EXPORT int pyiga_fold_f64(const uint64_t* x_ptrs, const uint64_t* t_ptrs,
     return tc::launch<tc::TileFold>(
         PYIGA_TC_PICK(tc::fold_kernel, va ? 2 : 1, vb ? 2 : 1), R, M,
         (cudaStream_t)stream, terms, K, R, M, out, vec);
+}
+
+// t_ptrs: host array of n_tables distinct (M, K) table pointers; out (n_tables,
+// K, R), table i's gradient at out + i K R.
+PYIGA_EXPORT int pyiga_stage_bwd_f64(const uint64_t* t_ptrs, int n_tables,
+                                     const double* g, double* out, int K,
+                                     long long R, int M, void* stream) {
+    if (n_tables < 1 || n_tables > kMaxTerms || K < 1 || R < 1 || M < 1)
+        return (int)cudaErrorInvalidValue;
+    bwd::Tables tabs;
+    tabs.n = n_tables;
+    bool va = K % 2 == 0;
+    for (int i = 0; i < n_tables; ++i) {
+        tabs.t[i] = reinterpret_cast<const double*>(t_ptrs[i]);
+        va = va && aligned16(tabs.t[i]);
+    }
+    const int vb = M % 2 == 0 && aligned16(g) ? 2 : 1;
+    const int vec = R % 2 == 0 && aligned16(out);
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (bwd::pick_tile(K)) {
+    case 0:
+        return bwd::launch<bwd::Tile192>(tabs, g, out, K, R, M, va ? 2 : 1,
+                                         vb, vec, s);
+    case 1:
+        return bwd::launch<bwd::Tile128>(tabs, g, out, K, R, M, va ? 2 : 1,
+                                         vb, vec, s);
+    default:
+        return bwd::launch<bwd::Tile64>(tabs, g, out, K, R, M, va ? 2 : 1,
+                                        vb, vec, s);
+    }
 }
 
 PYIGA_EXPORT int pyiga_stage_T_f64(const double* X, const double* T,

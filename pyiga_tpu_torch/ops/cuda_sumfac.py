@@ -2,7 +2,7 @@
 """CUDA kernels of the sum-factorization assembly and the pipeline built
 on them (counterpart of :mod:`pyiga_tpu.ops.pallas_sumfac`).
 
-Five kernels (sources in ``csrc/fields.cu`` for K1 and K1',
+The kernels (sources in ``csrc/fields.cu`` for K1 and K1',
 ``csrc/sumfac.cu`` for the rest), each beside its plain PyTorch version:
 
 * K1 :func:`fields` — geometry fields ``B_ab = W (J^-1 J^-T)_ab`` per
@@ -23,7 +23,10 @@ Five kernels (sources in ``csrc/fields.cu`` for K1 and K1',
   (``_stage_call_T``), and :func:`tail_fused` — stage 2 and the folded
   final stage of all terms of a 3-axis chain in one kernel
   (``_tail_fused_call``), taken by :func:`chain_folded` when
-  :data:`TAIL_FUSED` is on.
+  :data:`TAIL_FUSED` is on;
+* K2-bwd / K3-bwd :func:`stage_bwd`, :func:`fold_bwd` — the backward of
+  a stage for one or all of a fold's distinct tables in one launch
+  (no Pallas site: the JAX package differentiates the XLA forms).
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel (and raises if it cannot);
@@ -471,8 +474,8 @@ def _check_stage_args(name, X, T):
                          % (name, X.device, T.device))
 
 
-def _stage_kernel(X, T, counter):
-    """One K2 launch on CUDA tensors, counted under `counter`."""
+def _stage_kernel(X, T):
+    """One K2 launch on CUDA tensors."""
     _cuda.require(X, 'X', torch.float64, 2)
     _cuda.require(T, 'T', torch.float64, 2)
     K, R = X.shape
@@ -482,26 +485,65 @@ def _stage_kernel(X, T, counter):
         err = _cuda.library().pyiga_stage_f64(
             X.data_ptr(), T.data_ptr(), out.data_ptr(), K, R, M,
             _cuda.stream_of(X))
-    _cuda.check(err, counter)
-    _cuda.LAUNCHES[counter] += 1
+    _cuda.check(err, 'stage')
+    _cuda.LAUNCHES['stage'] += 1
+    return out
+
+
+def stage_bwd_plain(T, g):
+    """Plain PyTorch version of :func:`stage_bwd`."""
+    return torch.tensordot(T, g, dims=([0], [1]))
+
+
+def _check_bwd_args(name, tables, g):
+    """Shapes and devices of a backward's tables ``(M, K)`` and gradient
+    ``g (R, M)`` (both devices)."""
+    shape = tables[0].shape
+    for i, T in enumerate(tables):
+        if T.dim() != 2 or T.shape != shape or T.device != g.device:
+            raise ValueError('%s: table %d is %s on %s, expected 2D %s on '
+                             '%s' % (name, i, tuple(T.shape), T.device,
+                                     tuple(shape), g.device))
+    if g.dim() != 2 or g.shape[1] != shape[0]:
+        raise ValueError('%s: gradient %s and table %s disagree in M'
+                         % (name, tuple(g.shape), tuple(shape)))
+
+
+def _stage_bwd_kernel(tables, g, counter):
+    """K2-bwd on CUDA tensors: ``(G, K, R)``, table i's gradient at [i],
+    one launch per 16 tables, counted under `counter`."""
+    _cuda.require(g, 'g', torch.float64, 2)
+    for i, T in enumerate(tables):
+        _cuda.require(T, 'tables[%d]' % i, torch.float64, 2)
+    R, M = g.shape
+    K = tables[0].shape[1]
+    out = torch.empty((len(tables), K, R), dtype=torch.float64,
+                      device=g.device)
+    with _cuda.device_of(g):
+        for i0 in range(0, len(tables), _FOLD_MAX_TERMS):
+            part = tables[i0:i0 + _FOLD_MAX_TERMS]
+            tp = (ctypes.c_uint64 * len(part))(*[T.data_ptr() for T in part])
+            err = _cuda.library().pyiga_stage_bwd_f64(
+                ctypes.cast(tp, ctypes.c_void_p), len(part), g.data_ptr(),
+                out[i0].data_ptr(), K, R, M, _cuda.stream_of(g))
+            _cuda.check(err, counter)
+            _cuda.LAUNCHES[counter] += 1
     return out
 
 
 def stage_bwd(T, g, counter='stage_bwd'):
     """The backward of a stage with the table ``T (M, K)``: ``gX[k, r] =
-    sum_m g[r, m] T[m, k]`` for the output's gradient ``g (R, M)``,
-    returns ``(K, R)``.  That is K2 itself with the roles swapped (`T` as
-    the field, `g` as the table): one launch on the f64 tensor cores that
-    reads `g` once and writes `gX` once, with no transposed copy of
-    either, counted under `counter` (``stage_bwd``, or ``fold_bwd`` for
-    :func:`fold`'s backward).  A CPU tensor runs :func:`stage_plain` on
-    the same operands."""
+    sum_m T[m, k] g[r, m]`` for the output's gradient ``g (R, M)``,
+    returns ``(K, R)``.  On the card one launch of ``stage_bwd_kernel``
+    (f64 tensor cores; it reads `T` transposed and `g` once, and writes
+    `gX` once), counted under `counter` (``stage_bwd``, or ``fold_bwd``
+    for a fold's).  A CPU tensor runs :func:`stage_bwd_plain`."""
     g = g.contiguous()
-    _check_stage_args(counter, T, g)
+    _check_bwd_args(counter, [T], g)
     if not _kernel_device(g, counter):
-        return stage_plain(T, g)
+        return stage_bwd_plain(T, g)
     _cuda.no_grad_operands(counter, T, g)     # no double backward
-    return _stage_kernel(T, g, counter)
+    return _stage_bwd_kernel([T], g, counter)[0]
 
 
 class _Stage(torch.autograd.Function):
@@ -511,7 +553,7 @@ class _Stage(torch.autograd.Function):
     def forward(X, T):
         if not _kernel_device(X, 'stage'):
             return stage_plain(X, T)
-        return _stage_kernel(X, T, 'stage')
+        return _stage_kernel(X, T)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -548,7 +590,8 @@ def fold_plain(xs, tables, term_idx):
     return out
 
 
-_FOLD_MAX_TERMS = 16     # kMaxTerms in csrc/sumfac.cu
+_FOLD_MAX_TERMS = 16     # kMaxTerms in csrc/sumfac.cu (terms, or tables
+                         # of a backward launch)
 
 
 def _fold_kernel(xs, tables, term_idx):
@@ -576,28 +619,61 @@ def _fold_kernel(xs, tables, term_idx):
     return out
 
 
-def fold_bwd(tables, term_idx, g, need=None):
-    """K3's backward: per term the gradient ``(K, R)`` of its field from
-    the output's gradient ``g (R, M)``.  The terms that share a table get
-    the same gradient, so :func:`stage_bwd` runs once per distinct table
-    whose terms need one (`need`, per term; default all), counted under
-    ``fold_bwd``, and its one tensor is handed to each of the table's
-    terms (None for a term that needs none)."""
+def _fold_bwd_tables(term_idx, need):
+    """The distinct tables whose terms need a gradient (`need`, per term;
+    None: all), in order of first appearance."""
     if need is None:
         need = [True] * len(term_idx)
-    grads, out = {}, []
-    for i, want in zip(term_idx, need):
-        if want and i not in grads:
-            grads[i] = stage_bwd(tables[i], g, 'fold_bwd')
-        out.append(grads[i] if want else None)
-    return out
+    return list(dict.fromkeys(i for i, w in zip(term_idx, need) if w)), need
+
+
+def _fold_bwd_views(gX, uniq, term_idx, need):
+    """Per term the view ``gX[s]`` of its table's gradient, None for a
+    term that needs none.  One view object a table: autograd then sees
+    that the terms of a table share it and copies before it accumulates
+    into a leaf's ``.grad`` in place (a view a term would hand two leaves
+    one memory)."""
+    views = dict(zip(uniq, gX))
+    return [views[i] if w else None for i, w in zip(term_idx, need)]
+
+
+def fold_bwd_plain(tables, term_idx, g, need=None):
+    """Plain version of :func:`fold_bwd`: the same per-term views of one
+    stacked ``(G, K, R)`` tensor."""
+    uniq, need = _fold_bwd_tables(term_idx, need)
+    if not uniq:
+        return [None] * len(term_idx)
+    gX = torch.stack([stage_bwd_plain(tables[i], g) for i in uniq])
+    return _fold_bwd_views(gX, uniq, term_idx, need)
+
+
+def fold_bwd(tables, term_idx, g, need=None):
+    """K3's backward: per term the gradient ``(K, R)`` of its field from
+    the output's gradient ``g (R, M)``.  The terms that share a table
+    share its gradient: the G distinct tables whose terms need one
+    (`need`, per term; default all) go into one ``(G, K, R)`` tensor, on
+    the card by one launch of ``stage_bwd_kernel`` for up to 16 tables,
+    counted under ``fold_bwd``.  Each term gets the view of its table's
+    gradient, None if it needs none.  A CPU tensor runs
+    :func:`fold_bwd_plain`."""
+    uniq, need = _fold_bwd_tables(term_idx, need)
+    if not uniq:
+        return [None] * len(term_idx)
+    g = g.contiguous()
+    used = [tables[i] for i in uniq]
+    _check_bwd_args('fold_bwd', used, g)
+    if not _kernel_device(g, 'fold_bwd'):
+        return fold_bwd_plain(tables, term_idx, g, need)
+    _cuda.no_grad_operands('fold_bwd', *used, g)     # no double backward
+    return _fold_bwd_views(_stage_bwd_kernel(used, g, 'fold_bwd'), uniq,
+                           term_idx, need)
 
 
 class _Fold(torch.autograd.Function):
     """K3 as a function of the terms' fields ``apply(term_idx, n_terms,
-    *xs, *tables)``; saves only the tables.  Its backward launches the
-    transposed contraction once per distinct table whose terms need a
-    gradient and hands that one tensor to each of the table's terms."""
+    *xs, *tables)``; saves only the tables.  Its backward
+    (:func:`fold_bwd`) runs every distinct table whose terms need a
+    gradient in one launch and hands each term its table's view."""
 
     @staticmethod
     def forward(term_idx, n, *tensors):
@@ -633,8 +709,8 @@ def fold(xs, tables, term_idx):
     product runs once per distinct table; the result is deterministic and
     equals :func:`fold_plain` to rounding.  More than 16 terms run as
     several launches, summed.  Differentiable in the fields: terms that
-    share a table get one gradient, one K2 launch (:func:`stage_bwd`) per
-    distinct table."""
+    share a table share one gradient, all of a fold's in one launch
+    (:func:`fold_bwd`)."""
     if not xs or len(xs) != len(term_idx):
         raise ValueError('fold: %d fields but %d table indices'
                          % (len(xs), len(term_idx)))

@@ -763,6 +763,7 @@ class AdjointProgram:
             leaf_loc, dict(zip(program.params, program.param_slots)))
         self._source = None
         self._entry = None
+        self._param_index = {}     # device -> param_targets on it
 
     @property
     def source(self):
@@ -835,7 +836,13 @@ class AdjointProgram:
         if fwd.params:
             gparams = torch.zeros_like(arrays['params'])
             if n_p:
-                gparams[torch.tensor(self.param_targets, device=dev)] = psum
+                # the index is copied to the card once, so that a launch
+                # makes no host copy (and a CUDA graph can capture it)
+                idx = self._param_index.get(dev)
+                if idx is None:
+                    idx = torch.tensor(self.param_targets, device=dev)
+                    self._param_index[dev] = idx
+                gparams[idx] = psum
         return grads, gparams
 
 
