@@ -139,10 +139,12 @@ zero.
 The differentiable assembly (``pyiga_tpu_torch.diff``;
 ``scripts/torch_diff_phases.py`` runs it alone): each backward kernel
 against its plain version at the forward's phase shapes, 1e-13 relative
-and bitwise on a repeat (20a: K1's backward of the stiffness and mass
-kinds on the 3D p=3 n=48 twisted box and of the ``jac`` kind on the 2D
-n=128 NURBS quarter annulus and a surface; K2's and K3's backward at
-the headline's compact chain; the generated K5 adjoint on
+and bitwise on a repeat (20a: K1's backward of the stiffness, mass and
+``jac`` kinds on the 3D p=3 n=48 twisted box and of the ``jac`` kind on
+the 2D n=128 NURBS quarter annulus, a surface and the 'left' face's
+boundary grid (QL = 1) of the extruded annulus at n=48, each with the
+device time of a bare launch and ptxas's registers and spills; K2's and
+K3's backward at the headline's compact chain; the generated K5 adjoint on
 convection-diffusion, ``(1 + w*w) * inner(grad(w), grad(v)) * dx`` and
 the biharmonic at 2D n=128); then, counting launches from zero, the
 gradient of ``sum(w * A)`` through ``assembly_coeff_fn`` for the 3D
@@ -163,9 +165,9 @@ larger of its bytes over 3.35 TB/s and its operations over the
 datasheet's peak (67 TFLOP/s for f64 on the tensor cores where the
 function is a matrix product, 34 TFLOP/s for f64 FMA otherwise, 67 for
 f32), both counted from this run's inputs.  A kernel's ``ms`` is its
-wrapper's call as the path makes it; for K1 ``jac``, K5 and K1' the
-record (and the JSON line) also holds ``launch_ms`` (the bare C entry
-called back to back by ctypes) and ``device_ms`` (one launch's device
+wrapper's call as the path makes it; for K1 ``jac``, K1-bwd, K5 and
+K1' the record (and the JSON line) also holds ``launch_ms`` (the bare C
+entry called back to back by ctypes) and ``device_ms`` (one launch's device
 time, from a CUDA graph of 20 captured launches replayed between CUDA
 events, the launches cycling through copies of their operands that
 together hold at least twice the 50 MB L2, so that none is read from it).
@@ -179,6 +181,7 @@ and prints no result.  Imports neither jax nor pyiga_tpu.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3344,10 +3347,14 @@ def jac_case(asm, device, name):
     err, rel = compare('geo_jac ' + name, got, ref, 1e-13)
     check_repeat('geo_jac ' + name, lambda: cs.geo_jac_fields(Y, T, nurbs),
                  got)
+    from pyiga_tpu_torch import _cuda
     C, Q12, nL = Y.shape[1], Y.shape[2], Y.shape[3]
     rec = dict(
         max_abs_err=err, rel=rel, shape=list(got.shape), Y=list(Y.shape),
         nL=nL, QL=int(T.shape[1]), repeat_equal=True,
+        ptxas=fields_ptxas(_cuda.BUILD_INFO['log']).get(
+            fields_instance('jac', Y, nurbs, False, int(T.shape[1])),
+            'not found'),
         ms=time_ms(lambda: cs.geo_jac_fields(Y, T, nurbs), device, reps=50),
         plain_ms=time_ms(lambda: cs.geo_jac_fields_plain(Y, T, nurbs),
                          device, reps=5),
@@ -3448,8 +3455,8 @@ def check_item8_kernels(device):
         out['chains'][name] = chain_case(asm, None, device, name)
     for name, r in out['geo_jac_fields'].items():
         log('  K1 jac %-18s %s: %.4f ms (device %.4f, plain %.4f, bound '
-            '%.4f)' % (name, r['shape'], r['ms'], r['device_ms'],
-                       r['plain_ms'], r['bound_ms']))
+            '%.4f); ptxas %s' % (name, r['shape'], r['ms'], r['device_ms'],
+                                 r['plain_ms'], r['bound_ms'], r['ptxas']))
     for name, r in out['vform_fields'].items():
         c = out['chains'][name]
         log('  %-18s K5 %.4f ms (device %.4f, bound %.4f)  K2 x%d %.4f ms '
@@ -3747,33 +3754,80 @@ def check_repeat_all(name, fn, got):
 
 def fields_bwd_flops(kind, d, G, nurbs, nL):
     """Operations of one Gauss point of K1's backward, counted from the
-    body of ``geo_fields_bwd_kernel`` (csrc/fields.cu) as written: an add,
-    multiply or divide is one, a multiply-add two."""
+    body of ``geo_fields_bwd_kernel`` and ``point_vjp`` (csrc/fields.cu)
+    as written: an add, multiply, divide or copysign is one, a
+    multiply-add two (a sign flip none)."""
     C = G + int(nurbs)
+    vals = nurbs or kind == 'jac'
     ops = 2 * C * d * nL                        # the Jacobian's dots
-    if nurbs or kind == 'jac':
+    if vals:
         ops += 2 * C * nL                       # the values' dots
+    if nurbs:
+        ops += 2 + G                            # 1 / W, its square, x_c
     if kind != 'jac':
+        ops += 1                                # gw
         if nurbs:
-            ops += 5 * d * d                    # J by the quotient rule
-        ops += {2: 7, 3: 50}[d] + 2             # det_and_inv, s
+            ops += 3 * d * d                    # J by the quotient rule
+        ops += {2: 3, 3: 32}[d]                 # adj J, det J
         if kind == 'mass':
-            ops += 1 + d * d                    # gJ = g s J^-T
-        else:                                   # Gs, M, G:M, Gs M, gJ
-            ops += (d * (d - 1) // 2 + 2 * d ** 3 + 2 * d * d
-                    + 2 * d ** 3 + d * d * (2 * d + 4))
+            ops += 2 + d * d                    # f, gJ = f adj^T
+        else:           # Gs, 1 / det and f; Gs adj, Gs : A, adj^T Gs adj, gJ
+            ops += (d * (d - 1) // 2 + 4 + 2 * d ** 3 + 2 * d * d
+                    + d * d * (d + 1) + d * d * (2 * d + 4))
     if nurbs:                                   # the quotient rule's VJP
-        ops += 1 + 8 * G * d + d * (2 * G + 1) + G * (3 * d + 1)
+        ops += 5 * G * d + d * (2 * G + 1) + G * (3 * d + 1) + 1
         if kind == 'jac':                       # the values' share
-            ops += 4 * G + 2
-    return ops + 2 * (d + 1) * C * nL           # the last axis' contraction
+            ops += 4 * G
+    return ops + 2 * d * C * nL + (2 * C * nL if vals else 0)  # the sums
+
+
+# a K1 / K1-bwd instance in ptxas's output: the kernel, its template
+# arguments <D, G, NURBS, KIND, NL> and the forward's ROWS
+FIELDS_INSTANCE = re.compile(r'(geo_fields(?:_bwd)?_kernel)ILi(\d+)ELi(\d+)E'
+                             r'Lb([01])ELi(\d+)ELi(\d+)E(?:Lb([01])E)?')
+
+
+def fields_ptxas(build_log):
+    """ptxas's registers and spills of every ``geo_fields_kernel`` and
+    ``geo_fields_bwd_kernel`` instance in a build's log: ``{(kernel, D,
+    G, NURBS, KIND, NL, ROWS): 'R registers, S B spill stores, L B spill
+    loads'}`` (ROWS None for the backward)."""
+    lines = build_log.splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        m = FIELDS_INSTANCE.search(line)
+        if not (m and 'Compiling entry' in line):
+            continue
+        spill = next(x for x in lines[i:] if 'spill' in x)
+        regs = next(x for x in lines[i:] if 'registers' in x)
+        key = (m.group(1),) + tuple(int(v) for v in m.groups()[1:6]) + (
+            None if m.group(7) is None else int(m.group(7)),)
+        out[key] = '%s registers, %s B spill stores, %s B spill loads' % (
+            re.search(r'Used (\d+) registers', regs).group(1),
+            re.search(r'(\d+) bytes spill stores', spill).group(1),
+            re.search(r'(\d+) bytes spill loads', spill).group(1))
+    return out
+
+
+def fields_instance(kind, Y, nurbs, bwd, QL=None):
+    """The ptxas key (:func:`fields_ptxas`) of the K1 or K1-bwd instance
+    that runs on the operands `Y` (and the forward's last axis `QL`)."""
+    d, C, _q, nL = Y.shape
+    key = ('geo_fields_bwd_kernel' if bwd else 'geo_fields_kernel', d,
+           C - int(nurbs), int(nurbs),
+           {'stiffness': 0, 'mass': 1, 'jac': 2}[kind],
+           nL if nL <= 4 and d > 1 else 0)
+    return key + (None if bwd else int(QL < 8),)
 
 
 def fields_bwd_case(kind, Y, T, w12, wL, nurbs, device, name, seed):
     """K1's backward of `kind` against its plain formulas (1e-13, bitwise
-    on a repeat), with its ms, the plain version's and the bound: Y, T,
-    the weights and the output's gradient read once, gY written once;
-    per point the operations of :func:`fields_bwd_flops`."""
+    on a repeat), with its ms through the wrapper, the device time of one
+    bare launch (:func:`bare_times`), the plain version's ms, the bound
+    (Y, T, the weights and the output's gradient read once, gY written
+    once; per point the operations of :func:`fields_bwd_flops`) and
+    ptxas's registers and spills of the instance."""
+    from pyiga_tpu_torch import _cuda
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     d, C, Q12, nL = Y.shape
     G = C - int(nurbs)
@@ -3790,6 +3844,9 @@ def fields_bwd_case(kind, Y, T, w12, wL, nurbs, device, name, seed):
     check_repeat('%s_bwd %s' % (kind, name),
                  lambda: cs.fields_bwd(kind, Y, T, w12, wL, nurbs, g), got)
     ops = Q12 * QL * fields_bwd_flops(kind, d, G, nurbs, nL)
+    code = {'stiffness': 0, 'mass': 1, 'jac': 2}[kind]
+    if w12 is None:
+        w12 = wL = torch.empty(0, dtype=torch.float64, device=device)
     rec = dict(max_abs_err=err, rel=rel, Y=list(Y.shape), QL=QL,
                repeat_equal=True,
                ms=time_ms(lambda: cs.fields_bwd(kind, Y, T, w12, wL, nurbs,
@@ -3797,9 +3854,21 @@ def fields_bwd_case(kind, Y, T, w12, wL, nurbs, device, name, seed):
                plain_ms=time_ms(lambda: cs._fields_vjp_plain(
                    kind, Y, T, w12, wL, nurbs, g), device, reps=3),
                library_ms=None,
-               **bound(nbytes(Y, T, g, got) + (0 if w12 is None else
+               ptxas=fields_ptxas(_cuda.BUILD_INFO['log']).get(
+                   fields_instance(kind, Y, nurbs, True), 'not found'),
+               **bound(nbytes(Y, T, g, got) + (0 if kind == 'jac' else
                                                 nbytes(w12, wL)),
                        ops, F64_FMA_PER_MS))
+    rec.update(bare_times(
+        'fields_bwd', _cuda.library().pyiga_fields_bwd_f64,
+        [Y, T, w12, wL, g, torch.empty_like(Y)],
+        lambda ts: (code,) + tuple(t.data_ptr() for t in ts) + (
+            d, G, int(nurbs), Q12, QL, nL), device))
+    log('  %s_bwd %-14s %s: %.4f ms (device %.4f, plain %.4f, bound %.4f '
+        '%s, %.0f %% of it); ptxas %s'
+        % (kind, name, list(shape), rec['ms'], rec['device_ms'],
+           rec['plain_ms'], rec['bound_ms'], rec['bound_by'],
+           100 * rec['bound_ms'] / rec['device_ms'], rec['ptxas']))
     del g, got, ref
     return rec
 
@@ -3921,8 +3990,10 @@ def check_diff_kernels(device, n3=48, n2=128):
     """Phase 20a: each backward kernel against its plain version on the
     card at the forward's phase shapes, at most 1e-13 relative and
     bitwise on a second launch: K1's backward of the stiffness and mass
-    kinds on the 3D p=3 n=48 twisted box, of the ``jac`` kind on the 2D
-    n=128 NURBS quarter annulus and on a surface (G = 3, n=128); K2's and
+    kinds on the 3D p=3 n=48 twisted box, of the ``jac`` kind there, on
+    the 2D n=128 NURBS quarter annulus, on a surface (G = 3, n=128) and
+    on the 'left' face's boundary grid of the extruded annulus at n=48
+    (QL = 1); K2's and
     K3's backward (``stage_bwd_kernel``, :func:`stage_bwd_case`) at the
     headline's compact chain (the two stage shapes, and the fold's terms
     over their distinct tables in one launch, R = M^2), at 2D n=128's
@@ -3942,8 +4013,10 @@ def check_diff_kernels(device, n3=48, n2=128):
                                         '3D n=%d' % n3, 1)
     out['mass_fields_bwd'] = fields_bwd_case('mass', *args, device,
                                              '3D n=%d' % n3, 2)
+    jac = {'volume_n48': fields_bwd_case('jac', args[0], args[1], None, None,
+                                         args[4], device, '3D n=%d' % n3,
+                                         10)}
     del args
-    jac = {}
     a2 = StiffnessAssembler(kvs_of(2, n2), geometry.quarter_annulus(),
                             device=device)
     Y, T, _w12, _wL, nurbs = spline_partials(a2)
@@ -3956,8 +4029,17 @@ def check_diff_kernels(device, n3=48, n2=128):
     jac['surface_n128'] = fields_bwd_case('jac', Y, T, None, None,
                                           surf._geo_is_nurbs, device,
                                           'surface n=%d' % n2, 4)
+    # a boundary Gauss grid: the 'left' face of the extruded annulus, its
+    # last axis one point (no sum over it)
+    face = surface_asm('v * ds', 3, n3, device, boundary='left')
+    ops = face._device_operands()
+    Y, _ = cs.geo_stage12(ops['geo_tables'], ops['geo_coeffs'], 3)
+    T = ops['geo_tables'][2][:2].contiguous()
+    jac['face_left_n48'] = fields_bwd_case('jac', Y, T, None, None,
+                                           face._geo_is_nurbs, device,
+                                           'face left n=%d' % n3, 11)
     out['geo_jac_fields_bwd'] = dict(jac['annulus_n128'], cases=jac)
-    del Y, T, a2, surf, ops
+    del Y, T, a2, surf, ops, face
 
     # K2's and K3's backward (stage_bwd_kernel): the headline's compact
     # chain, 2D n=128's stage shape and a ragged fold

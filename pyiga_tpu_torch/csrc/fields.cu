@@ -19,6 +19,7 @@
 // directly.
 
 #include "common.cuh"
+#include "dmma.cuh"      // cp.async
 
 // --------------------------------------------------------------------------
 // Per-point algebra: determinant, inverse by the adjugate (as
@@ -105,9 +106,6 @@ __device__ __forceinline__ void store_stiffness(double (&inv)[D][D],
 //   w12  (Q12,), wL (QL,) the Gauss weights (not read by kJac).
 // C = G components for a B-spline map, G + 1 (homogeneous, weight last)
 // for NURBS, whose quotient rule runs before the determinant.
-// A boundary Gauss grid collapses one axis to a point: QL = 1 leaves one
-// active thread a block (a launch of 32 threads), Q12 = Q_1 = 1 (a 2D
-// 'bottom' face) one block of rows; both run the general code.
 //
 // Bound: the output writes (6, 1 and 12 doubles a point at 3D), one
 // coalesced store per field.  A point's work is small, so the instructions
@@ -120,16 +118,24 @@ __device__ __forceinline__ void store_stiffness(double (&inv)[D][D],
 //   x RB x nL doubles) come into shared memory once, in one coalesced
 //   copy, and a thread's column qL keeps its table values (2 x nL) in
 //   registers across the RB points it computes;
+// * a last axis of fewer than kRowsQL points (a boundary Gauss grid has
+//   QL = 1) maps a thread to a row instead (ROWS): it walks the row's QL
+//   points and reads the row's Y in place, coalesced across the warp;
+//   mapped to the last axis, such a grid would leave one lane of each
+//   32-thread block working;
 // * nL is a template parameter for 1..4 (every geometry on the paths has
 //   nL = 2), the dots fully unrolled; above 4 a runtime loop (NL = 0);
 // * no division of indices: the block's rows and the thread's columns
 //   come from blockIdx and threadIdx; a thread's row loop is unrolled
 //   twice, two points in flight;
 // * the per-point algebra is the first design's, in the JAX package's
-//   order (adj / det, no reciprocal).
+//   order (adj / det, no reciprocal), the same in both mappings.
 // --------------------------------------------------------------------------
 
 enum FieldsKind { kStiffness = 0, kMass = 1, kJac = 2 };
+
+// a last axis shorter than this maps K1's threads to rows
+constexpr int kRowsQL = 8;
 
 // The last-axis value and derivative tables of column qL: in registers for
 // a compile-time nL, read from memory at each dot otherwise.
@@ -169,7 +175,75 @@ struct LastTables<0> {
     }
 };
 
-template <int D, int G, bool NURBS, int KIND, int NL>
+// One Gauss point of K1: row q12 (its Y rows at yat(t * C + c)), column
+// qL (its tables `tab`, its weight wl), output index g of N.
+template <int D, int G, bool NURBS, int KIND, int NL, class YAt>
+__device__ __forceinline__ void fields_point(const LastTables<NL>& tab,
+                                             YAt yat, const double* w12,
+                                             int q12, double wl, double* out,
+                                             long long N, long long g) {
+    constexpr int C = G + (NURBS ? 1 : 0);
+    // last-axis contraction: jac[c][k] (derivative axis k), val[c]
+    double jac[C][D];
+    double val[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+            const int t = k < D - 1 ? k : D - 1;
+            jac[c][k] = tab.dot(k == D - 1, yat(t * C + c));
+        }
+        if constexpr (NURBS || KIND == kJac)
+            val[c] = tab.dot(false, yat((D - 1) * C + c));
+    }
+    if constexpr (KIND == kJac) {
+        if constexpr (NURBS) {
+            const double W = val[C - 1];
+            const double WW = W * W;
+#pragma unroll
+            for (int c = 0; c < G; ++c)
+#pragma unroll
+                for (int k = 0; k < D; ++k)
+                    jac[c][k] = (jac[c][k] * W - val[c] * jac[C - 1][k]) / WW;
+#pragma unroll
+            for (int c = 0; c < G; ++c) val[c] = val[c] / W;
+        }
+#pragma unroll
+        for (int c = 0; c < G; ++c) out[(long long)c * N + g] = val[c];
+#pragma unroll
+        for (int c = 0; c < G; ++c)
+#pragma unroll
+            for (int k = 0; k < D; ++k)
+                out[(long long)(G + c * D + k) * N + g] = jac[c][k];
+    } else {
+        // physical Jacobian J[c][k]; NURBS: quotient rule on V / W
+        double J[D][D];
+        if constexpr (NURBS) {
+            const double W = val[C - 1];
+            const double WW = W * W;
+#pragma unroll
+            for (int c = 0; c < D; ++c)
+#pragma unroll
+                for (int k = 0; k < D; ++k)
+                    J[c][k] = (jac[c][k] * W - val[c] * jac[C - 1][k]) / WW;
+        } else {
+#pragma unroll
+            for (int c = 0; c < D; ++c)
+#pragma unroll
+                for (int k = 0; k < D; ++k) J[c][k] = jac[c][k];
+        }
+        const double gw = __ldg(w12 + q12) * wl;
+        if constexpr (KIND == kMass) {
+            out[g] = gw * fabs(det_of<D>(J));
+        } else {
+            double inv[D][D];
+            const double det = det_and_inv<D>(J, inv);
+            store_stiffness<D>(inv, gw * fabs(det), out, N, g);
+        }
+    }
+}
+
+template <int D, int G, bool NURBS, int KIND, int NL, bool ROWS>
 __global__ void __launch_bounds__(256)
 geo_fields_kernel(const double* __restrict__ Y, const double* __restrict__ T,
                   const double* __restrict__ w12,
@@ -178,84 +252,42 @@ geo_fields_kernel(const double* __restrict__ Y, const double* __restrict__ T,
     static_assert(KIND == kJac || G == D, "only the jac kind takes G != D");
     constexpr int C = G + (NURBS ? 1 : 0);
     const int nL = NL ? NL : nL_;
-    extern __shared__ double sY[];      // [D * C][RB][nL]
-    const int r0 = blockIdx.x * RB;
-    const int rows = min(RB, Q12 - r0);
-    const int seg = rows * nL;
-    for (int k = threadIdx.x; k < D * C * seg; k += blockDim.x) {
-        const int tc = k / seg, e = k - tc * seg;
-        sY[tc * RB * nL + e] = __ldg(Y + ((long long)tc * Q12 + r0) * nL + e);
-    }
-    __syncthreads();
-
     const long long N = (long long)Q12 * QL;
-    for (int qL = threadIdx.x; qL < QL; qL += blockDim.x) {
-        const LastTables<NL> tab(T, QL, qL, nL);
-        const double wl = KIND == kJac ? 0.0 : __ldg(wL + qL);
+    if constexpr (ROWS) {
+        // a thread a row, its QL (< kRowsQL) points in turn
+        const int r = blockIdx.x * blockDim.x + threadIdx.x;
+        if (r >= Q12) return;
+        const double* yg = Y + (long long)r * nL;
+        const long long ys = (long long)Q12 * nL;
+        auto yat = [&](int tc) { return yg + tc * ys; };
+        for (int qL = 0; qL < QL; ++qL) {
+            const LastTables<NL> tab(T, QL, qL, nL);
+            const double wl = KIND == kJac ? 0.0 : __ldg(wL + qL);
+            fields_point<D, G, NURBS, KIND, NL>(tab, yat, w12, r, wl, out, N,
+                                                (long long)r * QL + qL);
+        }
+    } else {
+        extern __shared__ double sY[];      // [D * C][RB][nL]
+        const int r0 = blockIdx.x * RB;
+        const int rows = min(RB, Q12 - r0);
+        const int seg = rows * nL;
+        for (int k = threadIdx.x; k < D * C * seg; k += blockDim.x) {
+            const int tc = k / seg, e = k - tc * seg;
+            sY[tc * RB * nL + e] =
+                __ldg(Y + ((long long)tc * Q12 + r0) * nL + e);
+        }
+        __syncthreads();
+
+        for (int qL = threadIdx.x; qL < QL; qL += blockDim.x) {
+            const LastTables<NL> tab(T, QL, qL, nL);
+            const double wl = KIND == kJac ? 0.0 : __ldg(wL + qL);
 #pragma unroll 2
-        for (int r = 0; r < rows; ++r) {
-            const double* yr = sY + r * nL;
-            // last-axis contraction: jac[c][k] (derivative axis k), val[c]
-            double jac[C][D];
-            double val[C];
-#pragma unroll
-            for (int c = 0; c < C; ++c) {
-#pragma unroll
-                for (int k = 0; k < D; ++k) {
-                    const int t = k < D - 1 ? k : D - 1;
-                    jac[c][k] = tab.dot(k == D - 1,
-                                        yr + (t * C + c) * RB * nL);
-                }
-                if constexpr (NURBS || KIND == kJac)
-                    val[c] = tab.dot(false, yr + ((D - 1) * C + c) * RB * nL);
-            }
-            const long long g = (long long)(r0 + r) * QL + qL;
-            if constexpr (KIND == kJac) {
-                if constexpr (NURBS) {
-                    const double W = val[C - 1];
-                    const double WW = W * W;
-#pragma unroll
-                    for (int c = 0; c < G; ++c)
-#pragma unroll
-                        for (int k = 0; k < D; ++k)
-                            jac[c][k] = (jac[c][k] * W
-                                         - val[c] * jac[C - 1][k]) / WW;
-#pragma unroll
-                    for (int c = 0; c < G; ++c) val[c] = val[c] / W;
-                }
-#pragma unroll
-                for (int c = 0; c < G; ++c) out[(long long)c * N + g] = val[c];
-#pragma unroll
-                for (int c = 0; c < G; ++c)
-#pragma unroll
-                    for (int k = 0; k < D; ++k)
-                        out[(long long)(G + c * D + k) * N + g] = jac[c][k];
-            } else {
-                // physical Jacobian J[c][k]; NURBS: quotient rule on V / W
-                double J[D][D];
-                if constexpr (NURBS) {
-                    const double W = val[C - 1];
-                    const double WW = W * W;
-#pragma unroll
-                    for (int c = 0; c < D; ++c)
-#pragma unroll
-                        for (int k = 0; k < D; ++k)
-                            J[c][k] = (jac[c][k] * W - val[c] * jac[C - 1][k])
-                                      / WW;
-                } else {
-#pragma unroll
-                    for (int c = 0; c < D; ++c)
-#pragma unroll
-                        for (int k = 0; k < D; ++k) J[c][k] = jac[c][k];
-                }
-                const double gw = __ldg(w12 + r0 + r) * wl;
-                if constexpr (KIND == kMass) {
-                    out[g] = gw * fabs(det_of<D>(J));
-                } else {
-                    double inv[D][D];
-                    const double det = det_and_inv<D>(J, inv);
-                    store_stiffness<D>(inv, gw * fabs(det), out, N, g);
-                }
+            for (int r = 0; r < rows; ++r) {
+                const double* yr = sY + r * nL;
+                auto yat = [&](int tc) { return yr + tc * RB * nL; };
+                fields_point<D, G, NURBS, KIND, NL>(
+                    tab, yat, w12, r0 + r, wl, out, N,
+                    (long long)(r0 + r) * QL + qL);
             }
         }
     }
@@ -272,270 +304,473 @@ geo_fields_kernel(const double* __restrict__ Y, const double* __restrict__ T,
 // shape).  Out: gY (D, C, Q12, nL), the gradient of Y.
 //
 // Per Gauss point the kernel recomputes the homogeneous Jacobian jh[c][k]
-// and the values val[c] from the staged Y rows and the column's last-axis
-// tables, as the forward does, then applies the VJP of the kind:
+// and the values val[c] from the row's Y and the column's last-axis
+// tables, as the forward does, then applies the VJP of the kind, with
+// adj J = det J J^-1 and one reciprocal a point at most:
 //   stiffness B = s J^-1 J^-T (s = gw |det J|, the unique a <= b stored;
 //     the off-diagonal gradient split between the mirrored entries into a
-//     symmetric Gs): gJ = s ((Gs : M) J^-T - 2 J^-T Gs M), M = J^-1 J^-T;
-//   mass s: gJ = g s J^-T;
+//     symmetric Gs): gJ = s ((Gs : M) J^-T - 2 J^-T Gs M), M = J^-1 J^-T,
+//     computed as f ((Gs : A) adj^T - 2 (adj^T Gs adj) adj^T) with A =
+//     adj adj^T and f = gw sign(det) / det^2;
+//   mass s: gJ = g s J^-T = g gw sign(det) adj^T (no division);
 //   jac (x, J): the gradients as they come;
 // then, for NURBS, the quotient rule's (J = (jh W - val jh_W) / W^2,
-// x = val / W).  That leaves per point and (t, c) the coefficients a_v of
-// the value table and (t = D-1 only) a_d of the derivative table:
+// x = val / W), by the reciprocal of W.  That leaves per point and (t, c)
+// the coefficients a_v of the value table and (t = D-1 only) a_d of the
+// derivative table:
 //   gY[t, c, q12, j] = sum_qL a_v[t][c] Tv[qL, j] + a_d[c] Td[qL, j].
-// The order of the algebra is that of the formulas in
-// ops/cuda_sumfac._fields_vjp_plain.
+// The formulas are those of ops/cuda_sumfac._fields_vjp_plain, in another
+// association (the kernel agrees with it to rounding, 1e-13 relative).
 //
-// The sum over the last axis: a block owns RB rows q12 (their Y rows in
-// shared memory, as the forward), and walks them one at a time.  For a
-// row, each thread computes the a's of one column qL (chunks of
-// blockDim.x columns when QL is larger) into shared memory; then each
-// warp takes outputs (t, c, j) in turn, its lanes sum the chunk's columns
-// lane, lane + 32, ..., and a butterfly of shuffles adds the lanes; lane 0
-// adds the chunk's sum to the row's.  Every sum has a fixed order: no
-// atomics, bitwise equal on a repeat.
+// The sum over the last axis: a team of P lanes (a power of two, chosen
+// per launch from Q12, QL and the kind) owns a row q12; lane k of the
+// team walks the row's points k, k + P, ... (a warp's load of gout covers
+// 32 / P rows' runs of P consecutive points: every 32-byte sector it
+// touches is used whole), keeps the row's Y (compile-time nL) and its
+// D C nL partial sums in registers across its points, and has the gout
+// (and wL) of the next PF points in flight while it computes one.  At
+// the end of the row one fixed-order combine: a butterfly of shuffles
+// over the team's lanes, and for a team of several warps (P > 32) a pass
+// over the warps' sums in shared memory in warp order.  No block barrier
+// while a chunk's points run, no atomics: bitwise equal on a repeat.  The
+// tables come into shared memory once a block, kBwdChunk points at a time
+// (one chunk up to 512 points; a barrier between chunks).  A boundary
+// grid (QL = 1) takes P = 1: a thread a row, no sum.  nL above 4 (NL = 0)
+// reads the tables in place and runs the points once for each run of
+// kBwdJC outputs j, the sums of that run in registers.
 //
-// Bound: bytes, Y read once, gout read once, gY written once (gout
-// dominates: 6, 1 or 12 doubles a point at 3D).  The per-point algebra is
-// some 150-250 flops (stiffness, 3D), above the forward's, so this kernel
-// is further from its bound than the forward; a first, plain design.
+// Bound: Y, gout and the weights read once, gY written once (gout
+// dominates: 6, 1 or 12 doubles a point at 3D), against the operations
+// of the body as written (chip_smoke.fields_bwd_flops: 310, 116 and 96 a
+// point at 3D n=48, nL = 2): bytes bound the stiffness and jac kinds,
+// operations the mass kind.  What the design does about it: the gout
+// loads stay in flight (the ring), no barrier or shuffle runs per point,
+// the tables are shared-memory reads, registers hold the row.
 // --------------------------------------------------------------------------
 
+// The backward's mapping (scripts/torch_fields_bwd_variants.py builds
+// variants of these lines and times them side by side).
+constexpr int kBwdThreads = 128;        // threads a block
+constexpr int kBwdMinThreads = 32768;   // a row's team widens while fewer
+                                        // lanes than this run
+// a kind's own: the blocks an SM that __launch_bounds__ asks for (so the
+// registers a thread may take), the points a lane walks before a row's
+// team of lanes widens, the points whose gout a lane has in flight
+template <int KIND>
+struct BwdTune {
+    static constexpr int minb = KIND == kStiffness ? 3 : KIND == kMass ? 4 : 1;
+    static constexpr int pts = KIND == kStiffness ? 12 : KIND == kMass ? 24 : 12;
+    static constexpr int pf = KIND == kStiffness ? 2 : KIND == kMass ? 4 : 1;
+};
+constexpr int kBwdJC = 4;           // NL = 0: outputs j a pass
+constexpr int kBwdChunk = 512;      // NL > 0: points of the tables staged
+
+// adj J (J^-1 = adj / det) and det J, det by the first row (det_of's sum)
+template <int D>
+__device__ __forceinline__ double adj_det(const double (&J)[D][D],
+                                          double (&adj)[D][D]) {
+    if constexpr (D == 2) {
+        adj[0][0] = J[1][1];
+        adj[0][1] = -J[0][1];
+        adj[1][0] = -J[1][0];
+        adj[1][1] = J[0][0];
+        return J[0][0] * J[1][1] - J[0][1] * J[1][0];
+    } else {
+        adj[0][0] = J[1][1] * J[2][2] - J[1][2] * J[2][1];
+        adj[0][1] = J[0][2] * J[2][1] - J[0][1] * J[2][2];
+        adj[0][2] = J[0][1] * J[1][2] - J[0][2] * J[1][1];
+        adj[1][0] = J[1][2] * J[2][0] - J[1][0] * J[2][2];
+        adj[1][1] = J[0][0] * J[2][2] - J[0][2] * J[2][0];
+        adj[1][2] = J[0][2] * J[1][0] - J[0][0] * J[1][2];
+        adj[2][0] = J[1][0] * J[2][1] - J[1][1] * J[2][0];
+        adj[2][1] = J[0][1] * J[2][0] - J[0][0] * J[2][1];
+        adj[2][2] = J[0][0] * J[1][1] - J[0][1] * J[1][0];
+        return J[0][0] * adj[0][0] + J[0][1] * adj[1][0]
+               + J[0][2] * adj[2][0];
+    }
+}
+
+// doubles of the forward's output a point
+template <int D, int G, int KIND>
+struct GoutFields {
+    static constexpr int value =
+        KIND == kJac ? G + G * D : KIND == kMass ? 1 : D * (D + 1) / 2;
+};
+
+// The VJP of one point: from the homogeneous Jacobian jh[c][k], the values
+// val[c] (NURBS or kJac), the output's gradient go and the Gauss weight gw
+// to the table coefficients av[t][c] and ad[c].
+template <int D, int G, bool NURBS, int KIND>
+__device__ __forceinline__ void point_vjp(
+        const double (&jh)[G + (NURBS ? 1 : 0)][D],
+        const double (&val)[G + (NURBS ? 1 : 0)],
+        const double (&go)[GoutFields<D, G, KIND>::value], double gw,
+        double (&av)[D][G + (NURBS ? 1 : 0)],
+        double (&ad)[G + (NURBS ? 1 : 0)]) {
+    constexpr int C = G + (NURBS ? 1 : 0);
+    double gJ[G][D], gx[G];
+    double iW = 0.0, iWW = 0.0, xv[G];
+    if constexpr (NURBS) {
+        iW = 1.0 / val[C - 1];
+        iWW = iW * iW;
+#pragma unroll
+        for (int c = 0; c < G; ++c) xv[c] = val[c] * iW;
+    }
+    if constexpr (KIND == kJac) {
+#pragma unroll
+        for (int c = 0; c < G; ++c) {
+            gx[c] = go[c];
+#pragma unroll
+            for (int k = 0; k < D; ++k) gJ[c][k] = go[G + c * D + k];
+        }
+    } else {
+        double J[D][D];
+#pragma unroll
+        for (int c = 0; c < D; ++c)
+#pragma unroll
+            for (int k = 0; k < D; ++k)
+                if constexpr (NURBS)
+                    J[c][k] = (jh[c][k] - xv[c] * jh[C - 1][k]) * iW;
+                else
+                    J[c][k] = jh[c][k];
+        double adj[D][D];
+        const double det = adj_det<D>(J, adj);
+        if constexpr (KIND == kMass) {
+            const double f = copysign(gw, det) * go[0];
+#pragma unroll
+            for (int c = 0; c < D; ++c)
+#pragma unroll
+                for (int k = 0; k < D; ++k) gJ[c][k] = f * adj[k][c];
+        } else {
+            double Gs[D][D];
+            int o = 0;
+#pragma unroll
+            for (int a = 0; a < D; ++a)
+#pragma unroll
+                for (int b = a; b < D; ++b) {
+                    Gs[a][b] = a == b ? go[o] : 0.5 * go[o];
+                    Gs[b][a] = Gs[a][b];
+                    ++o;
+                }
+            const double r = 1.0 / det;
+            const double f = copysign(gw * r * r, det);
+            double P1[D][D];            // Gs adj
+#pragma unroll
+            for (int a = 0; a < D; ++a)
+#pragma unroll
+                for (int m = 0; m < D; ++m) {
+                    double s = 0.0;
+#pragma unroll
+                    for (int b = 0; b < D; ++b) s += Gs[a][b] * adj[b][m];
+                    P1[a][m] = s;
+                }
+            double GA = 0.0;            // Gs : adj adj^T
+#pragma unroll
+            for (int a = 0; a < D; ++a)
+#pragma unroll
+                for (int m = 0; m < D; ++m) GA += P1[a][m] * adj[a][m];
+            double Q[D][D];             // adj^T Gs adj, symmetric
+#pragma unroll
+            for (int i = 0; i < D; ++i)
+#pragma unroll
+                for (int j = i; j < D; ++j) {
+                    double s = 0.0;
+#pragma unroll
+                    for (int a = 0; a < D; ++a) s += adj[a][i] * P1[a][j];
+                    Q[i][j] = s;
+                    Q[j][i] = s;
+                }
+#pragma unroll
+            for (int i = 0; i < D; ++i)
+#pragma unroll
+                for (int j = 0; j < D; ++j) {
+                    double s = 0.0;
+#pragma unroll
+                    for (int m = 0; m < D; ++m) s += Q[i][m] * adj[j][m];
+                    gJ[i][j] = f * (GA * adj[j][i] - 2.0 * s);
+                }
+        }
+    }
+    if constexpr (NURBS) {
+        double gW = 0.0;
+#pragma unroll
+        for (int c = 0; c < G; ++c)
+#pragma unroll
+            for (int k = 0; k < D; ++k)
+                gW += gJ[c][k] * (2.0 * xv[c] * jh[C - 1][k] - jh[c][k]);
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+            double m = 0.0;
+#pragma unroll
+            for (int c = 0; c < G; ++c) m += gJ[c][k] * val[c];
+            if (k < D - 1) av[k][C - 1] = -m * iWW;
+            else ad[C - 1] = -m * iWW;
+        }
+#pragma unroll
+        for (int c = 0; c < G; ++c) {
+            double m = 0.0;
+#pragma unroll
+            for (int k = 0; k < D; ++k) m += gJ[c][k] * jh[C - 1][k];
+            double gv = -m * iWW;
+            if constexpr (KIND == kJac) gv += gx[c] * iW;
+            av[D - 1][c] = gv;
+#pragma unroll
+            for (int k = 0; k < D; ++k) {
+                if (k < D - 1) av[k][c] = gJ[c][k] * iW;
+                else ad[c] = gJ[c][k] * iW;
+            }
+        }
+        if constexpr (KIND == kJac) {
+#pragma unroll
+            for (int c = 0; c < G; ++c) gW -= gx[c] * val[c];
+        }
+        av[D - 1][C - 1] = gW * iWW;
+    } else {
+#pragma unroll
+        for (int c = 0; c < G; ++c) {
+#pragma unroll
+            for (int k = 0; k < D; ++k) {
+                if (k < D - 1) av[k][c] = gJ[c][k];
+                else ad[c] = gJ[c][k];
+            }
+            av[D - 1][c] = KIND == kJac ? gx[c] : 0.0;
+        }
+    }
+}
+
 template <int D, int G, bool NURBS, int KIND, int NL>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kBwdThreads, BwdTune<KIND>::minb)
 geo_fields_bwd_kernel(const double* __restrict__ Y,
                       const double* __restrict__ T,
                       const double* __restrict__ w12,
                       const double* __restrict__ wL,
                       const double* __restrict__ gout,
                       double* __restrict__ gY, int Q12, int QL, int nL_,
-                      int RB) {
+                      int lp) {
     static_assert(KIND == kJac || G == D, "only the jac kind takes G != D");
     constexpr int C = G + (NURBS ? 1 : 0);
-    constexpr int NA = (D + 1) * C;     // a_v[t][c], then a_d[c]
+    constexpr int NTC = D * C;
+    constexpr int JC = NL ? NL : kBwdJC;         // sums j held a pass
+    constexpr int NO = NTC * JC;
+    constexpr int NG = GoutFields<D, G, KIND>::value;
+    constexpr int NF = NG + (KIND == kJac ? 0 : 1);  // gout, then wL
+    constexpr int PF = BwdTune<KIND>::pf;
+    constexpr bool VALS = NURBS || KIND == kJac;
     const int nL = NL ? NL : nL_;
-    const int bd = blockDim.x;
+    const int P = 1 << lp;
+    const int k = threadIdx.x & (P - 1);
+    const int q12 = blockIdx.x * (kBwdThreads >> lp) + (threadIdx.x >> lp);
+    const bool active = q12 < Q12;
     extern __shared__ double smem[];
-    double* sY = smem;                          // [D * C][RB][nL]
-    double* sA = sY + D * C * RB * nL;          // [NA][bd]
-    double* sG = sA + NA * bd;                  // [D * C][nL], a row's sums
-    const int r0 = blockIdx.x * RB;
-    const int rows = min(RB, Q12 - r0);
-    const int seg = rows * nL;
-    for (int k = threadIdx.x; k < D * C * seg; k += bd) {
-        const int tc = k / seg, e = k - tc * seg;
-        sY[tc * RB * nL + e] = __ldg(Y + ((long long)tc * Q12 + r0) * nL + e);
-    }
-    __syncthreads();
+    constexpr int NS = PF + 1;                   // ring slots a lane
+    const int CQ = NL ? min(QL, kBwdChunk) : QL;  // points a chunk
+    double* sR = smem;                  // [warps][NO] when P > 32
+    double* sT = sR + (P > 32 ? (kBwdThreads / 32) * NO : 0);  // [2][CQ][NL]
+    double* sG = sT + (NL ? 2 * CQ * NL : 0);    // [NS][NF][threads]
 
     const long long N = (long long)Q12 * QL;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nwarps = bd >> 5;
-    const int NO = D * C * nL;
-    for (int r = 0; r < rows; ++r) {
-        const double* yr = sY + r * nL;
-        for (int q0 = 0; q0 < QL; q0 += bd) {
-            const int qL = q0 + threadIdx.x;
-            double av[D][C], ad[C];
+    const long long ys = (long long)Q12 * nL;
+    const double* yg = Y + (long long)(active ? q12 : 0) * nL;
+    double yr[NL ? NTC : 1][NL ? NL : 1];       // the row's Y (NL > 0)
+    if constexpr (NL > 0) {
 #pragma unroll
-            for (int c = 0; c < C; ++c) {
-                ad[c] = 0.0;
+        for (int tc = 0; tc < NTC; ++tc)
 #pragma unroll
-                for (int t = 0; t < D; ++t) av[t][c] = 0.0;
+            for (int j = 0; j < NL; ++j)
+                yr[tc][j] = active ? __ldg(yg + tc * ys + j) : 0.0;
+    }
+    const double w = (KIND != kJac && active) ? __ldg(w12 + q12) : 0.0;
+    const long long g0 = (long long)q12 * QL;
+    // a point's gout and wL into ring slot `slot`, by cp.async (no
+    // register holds it in flight)
+    auto fetch = [&](int q, int slot) {
+        double* dst = sG + slot * NF * kBwdThreads + threadIdx.x;
+#pragma unroll
+        for (int f = 0; f < NG; ++f)
+            dmma::cp_async<8>(dst + f * kBwdThreads, gout + f * N + g0 + q,
+                              8);
+        if constexpr (KIND != kJac)
+            dmma::cp_async<8>(dst + NG * kBwdThreads, wL + q, 8);
+    };
+
+    for (int jb = 0; jb < nL; jb += JC) {
+        double acc[NTC][JC];
+#pragma unroll
+        for (int tc = 0; tc < NTC; ++tc)
+#pragma unroll
+            for (int jj = 0; jj < JC; ++jj) acc[tc][jj] = 0.0;
+        // the last axis in chunks of kBwdChunk points (a multiple of P),
+        // each chunk's tables staged in shared memory (NL > 0); the
+        // runtime nL reads them in place, in one chunk
+        for (int c0 = 0; c0 < QL; c0 += CQ) {
+            const int cend = min(QL, c0 + CQ);
+            if constexpr (NL > 0) {
+                const int seg = (cend - c0) * NL;
+                if (c0 > 0) __syncthreads();
+                for (int i = threadIdx.x; i < 2 * seg; i += kBwdThreads) {
+                    const int tb = i >= seg;
+                    sT[tb * CQ * NL + i - tb * seg] =
+                        __ldg(T + ((long long)tb * QL + c0) * NL + i - tb * seg);
+                }
+                __syncthreads();
             }
-            if (qL < QL) {
-                const LastTables<NL> tab(T, QL, qL, nL);
-                double jac[C][D], val[C];
+            // lane k's points c0 + k, c0 + k + P, ...: the gout and wL of
+            // PF of them in flight ahead of the one computed, point i of
+            // the chunk in slot i mod NS, one cp.async group a point
+            int q = active ? c0 + k : cend;
+#pragma unroll
+            for (int i = 0; i < PF; ++i) {
+                if (q + i * P < cend) fetch(q + i * P, i);
+                dmma::cp_async_commit();
+            }
+            for (int slot = 0; q < cend; q += P) {
+                const int fill = slot + PF < NS ? slot + PF : slot + PF - NS;
+                if (q + PF * P < cend) fetch(q + PF * P, fill);
+                dmma::cp_async_commit();
+                dmma::cp_async_wait<PF>();      // point q's group landed
+                double cur[NF];
+#pragma unroll
+                for (int f = 0; f < NF; ++f)
+                    cur[f] = sG[(slot * NF + f) * kBwdThreads + threadIdx.x];
+                slot = slot + 1 < NS ? slot + 1 : 0;
+
+                double jh[C][D], val[C];
+                double ta[JC], tb[JC];  // the pass's table values
+                if constexpr (NL > 0) {
+                    const double* tv = sT + (q - c0) * NL;
+                    const double* td = tv + CQ * NL;
+#pragma unroll
+                    for (int j = 0; j < NL; ++j) {
+                        ta[j] = tv[j];
+                        tb[j] = td[j];
+                    }
+#pragma unroll
+                    for (int c = 0; c < C; ++c) {
+#pragma unroll
+                        for (int kk = 0; kk < D; ++kk) {
+                            const int t = kk < D - 1 ? kk : D - 1;
+                            double s = 0.0;
+#pragma unroll
+                            for (int j = 0; j < NL; ++j)
+                                s += (kk == D - 1 ? tb[j] : ta[j])
+                                     * yr[t * C + c][j];
+                            jh[c][kk] = s;
+                        }
+                        double s = 0.0;
+                        if constexpr (VALS) {
+#pragma unroll
+                            for (int j = 0; j < NL; ++j)
+                                s += ta[j] * yr[(D - 1) * C + c][j];
+                        }
+                        val[c] = s;
+                    }
+                } else {
+                    const double* pv = T + (long long)q * nL;
+                    const double* pd = T + ((long long)QL + q) * nL;
+#pragma unroll
+                    for (int c = 0; c < C; ++c) {
+#pragma unroll
+                        for (int kk = 0; kk < D; ++kk) {
+                            const int t = kk < D - 1 ? kk : D - 1;
+                            const double* tab = kk == D - 1 ? pd : pv;
+                            const double* y = yg + (t * C + c) * ys;
+                            double s = 0.0;
+                            for (int j = 0; j < nL; ++j)
+                                s += __ldg(tab + j) * __ldg(y + j);
+                            jh[c][kk] = s;
+                        }
+                        double s = 0.0;
+                        if constexpr (VALS) {
+                            const double* y = yg + ((D - 1) * C + c) * ys;
+                            for (int j = 0; j < nL; ++j)
+                                s += __ldg(pv + j) * __ldg(y + j);
+                        }
+                        val[c] = s;
+                    }
+#pragma unroll
+                    for (int jj = 0; jj < JC; ++jj) {
+                        const bool in = jb + jj < nL;
+                        ta[jj] = in ? __ldg(pv + jb + jj) : 0.0;
+                        tb[jj] = in ? __ldg(pd + jb + jj) : 0.0;
+                    }
+                }
+                const double gw = KIND == kJac ? 0.0 : w * cur[NF - 1];
+                double go[NG];
+#pragma unroll
+                for (int f = 0; f < NG; ++f) go[f] = cur[f];
+                double av[D][C], ad[C];
+                point_vjp<D, G, NURBS, KIND>(jh, val, go, gw, av, ad);
 #pragma unroll
                 for (int c = 0; c < C; ++c) {
 #pragma unroll
-                    for (int k = 0; k < D; ++k) {
-                        const int t = k < D - 1 ? k : D - 1;
-                        jac[c][k] = tab.dot(k == D - 1,
-                                            yr + (t * C + c) * RB * nL);
-                    }
-                    val[c] = (NURBS || KIND == kJac)
-                        ? tab.dot(false, yr + ((D - 1) * C + c) * RB * nL)
-                        : 0.0;
-                }
-                const long long g = (long long)(r0 + r) * QL + qL;
-                double gJ[G][D], gx[G];
-                if constexpr (KIND == kJac) {
+                    for (int t = 0; t < D - 1; ++t)
 #pragma unroll
-                    for (int c = 0; c < G; ++c) {
-                        gx[c] = __ldg(gout + (long long)c * N + g);
+                        for (int jj = 0; jj < JC; ++jj)
+                            acc[t * C + c][jj] += av[t][c] * ta[jj];
 #pragma unroll
-                        for (int k = 0; k < D; ++k)
-                            gJ[c][k] = __ldg(gout + (long long)(G + c * D + k)
-                                                        * N + g);
-                    }
-                } else {
-                    double J[D][D];
-#pragma unroll
-                    for (int c = 0; c < D; ++c)
-#pragma unroll
-                        for (int k = 0; k < D; ++k)
-                            J[c][k] = NURBS
-                                ? (jac[c][k] * val[C - 1]
-                                   - val[c] * jac[C - 1][k])
-                                      / (val[C - 1] * val[C - 1])
-                                : jac[c][k];
-                    double inv[D][D];
-                    const double det = det_and_inv<D>(J, inv);
-                    const double s = __ldg(w12 + r0 + r) * __ldg(wL + qL)
-                                     * fabs(det);
-                    if constexpr (KIND == kMass) {
-                        const double gs = __ldg(gout + g) * s;
-#pragma unroll
-                        for (int c = 0; c < D; ++c)
-#pragma unroll
-                            for (int k = 0; k < D; ++k)
-                                gJ[c][k] = gs * inv[k][c];
-                    } else {
-                        double Gs[D][D], M[D][D];
-                        int o = 0;
-#pragma unroll
-                        for (int a = 0; a < D; ++a)
-#pragma unroll
-                            for (int b = a; b < D; ++b) {
-                                const double v =
-                                    __ldg(gout + (long long)o * N + g);
-                                Gs[a][b] = a == b ? v : 0.5 * v;
-                                Gs[b][a] = Gs[a][b];
-                                ++o;
-                            }
-#pragma unroll
-                        for (int a = 0; a < D; ++a)
-#pragma unroll
-                            for (int b = 0; b < D; ++b) {
-                                double m = 0.0;
-#pragma unroll
-                                for (int k = 0; k < D; ++k)
-                                    m += inv[a][k] * inv[b][k];
-                                M[a][b] = m;
-                            }
-                        double GM = 0.0;
-#pragma unroll
-                        for (int a = 0; a < D; ++a)
-#pragma unroll
-                            for (int b = 0; b < D; ++b) GM += Gs[a][b] * M[a][b];
-                        double GMm[D][D];
-#pragma unroll
-                        for (int a = 0; a < D; ++a)
-#pragma unroll
-                            for (int j = 0; j < D; ++j) {
-                                double m = 0.0;
-#pragma unroll
-                                for (int b = 0; b < D; ++b)
-                                    m += Gs[a][b] * M[b][j];
-                                GMm[a][j] = m;
-                            }
-#pragma unroll
-                        for (int i = 0; i < D; ++i)
-#pragma unroll
-                            for (int j = 0; j < D; ++j) {
-                                double p = 0.0;
-#pragma unroll
-                                for (int a = 0; a < D; ++a)
-                                    p += inv[a][i] * GMm[a][j];
-                                gJ[i][j] = s * (GM * inv[j][i] - 2.0 * p);
-                            }
-                    }
-                }
-                if constexpr (NURBS) {
-                    const double W = val[C - 1];
-                    const double WW = W * W;
-                    double gW = 0.0;
-#pragma unroll
-                    for (int c = 0; c < G; ++c)
-#pragma unroll
-                        for (int k = 0; k < D; ++k)
-                            gW += gJ[c][k] * (2.0 * val[c] * jac[C - 1][k]
-                                              / (WW * W) - jac[c][k] / WW);
-#pragma unroll
-                    for (int k = 0; k < D; ++k) {
-                        double m = 0.0;
-#pragma unroll
-                        for (int c = 0; c < G; ++c) m += gJ[c][k] * val[c];
-                        const double gjw = -m / WW;
-                        if (k < D - 1) av[k][C - 1] = gjw;
-                        else ad[C - 1] = gjw;
-                    }
-#pragma unroll
-                    for (int c = 0; c < G; ++c) {
-                        double m = 0.0;
-#pragma unroll
-                        for (int k = 0; k < D; ++k) m += gJ[c][k] * jac[C - 1][k];
-                        double gv = -m / WW;
-                        if constexpr (KIND == kJac) gv = gv + gx[c] / W;
-                        av[D - 1][c] = gv;
-#pragma unroll
-                        for (int k = 0; k < D; ++k) {
-                            if (k < D - 1) av[k][c] = gJ[c][k] / W;
-                            else ad[c] = gJ[c][k] / W;
-                        }
-                    }
-                    if constexpr (KIND == kJac) {
-                        double m = 0.0;
-#pragma unroll
-                        for (int c = 0; c < G; ++c) m += gx[c] * val[c];
-                        gW = gW - m / WW;
-                    }
-                    av[D - 1][C - 1] = gW;
-                } else {
-#pragma unroll
-                    for (int c = 0; c < G; ++c) {
-#pragma unroll
-                        for (int k = 0; k < D; ++k) {
-                            if (k < D - 1) av[k][c] = gJ[c][k];
-                            else ad[c] = gJ[c][k];
-                        }
-                        if constexpr (KIND == kJac) av[D - 1][c] = gx[c];
+                    for (int jj = 0; jj < JC; ++jj) {
+                        double a = acc[(D - 1) * C + c][jj];
+                        if constexpr (VALS) a += av[D - 1][c] * ta[jj];
+                        acc[(D - 1) * C + c][jj] = a + ad[c] * tb[jj];
                     }
                 }
             }
-#pragma unroll
-            for (int c = 0; c < C; ++c) {
-                sA[(D * C + c) * bd + threadIdx.x] = ad[c];
-#pragma unroll
-                for (int t = 0; t < D; ++t)
-                    sA[(t * C + c) * bd + threadIdx.x] = av[t][c];
-            }
-            __syncthreads();
-            const int len = min(bd, QL - q0);
-            for (int o = warp; o < NO; o += nwarps) {
-                const int tc = o / nL, j = o - tc * nL;
-                const int c = tc % C;
-                const bool last = tc >= (D - 1) * C;
-                double s = 0.0;
-                for (int q = lane; q < len; q += 32) {
-                    const long long qq = q0 + q;
-                    double v = sA[tc * bd + q] * __ldg(T + qq * nL + j);
-                    if (last)
-                        v += sA[(D * C + c) * bd + q]
-                             * __ldg(T + ((long long)QL + qq) * nL + j);
-                    s += v;
-                }
-#pragma unroll
-                for (int off = 16; off > 0; off >>= 1)
-                    s += __shfl_xor_sync(0xffffffffu, s, off);
-                if (lane == 0) sG[o] = q0 == 0 ? s : sG[o] + s;
-            }
-            __syncthreads();
         }
-        for (int o = threadIdx.x; o < NO; o += bd) {
-            const int tc = o / nL, j = o - tc * nL;
-            gY[((long long)tc * Q12 + r0 + r) * nL + j] = sG[o];
+
+        // the team's lanes combined in a fixed order
+        for (int off = (P < 32 ? P : 32) >> 1; off > 0; off >>= 1) {
+#pragma unroll
+            for (int tc = 0; tc < NTC; ++tc)
+#pragma unroll
+                for (int jj = 0; jj < JC; ++jj)
+                    acc[tc][jj] += __shfl_xor_sync(0xffffffffu, acc[tc][jj],
+                                                   off);
+        }
+        if (P <= 32) {
+            if (active) {
+#pragma unroll
+                for (int tc = 0; tc < NTC; ++tc)
+#pragma unroll
+                    for (int jj = 0; jj < JC; ++jj)
+                        if (((tc * JC + jj) & (P - 1)) == k
+                            && (NL > 0 || jb + jj < nL))
+                            gY[((long long)tc * Q12 + q12) * nL + jb + jj] =
+                                acc[tc][jj];
+            }
+        } else {
+            // a team of P / 32 warps: each warp's sums to shared memory,
+            // then lane o of the team adds output o over them in order
+            const int warp = threadIdx.x >> 5;
+            if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+                for (int tc = 0; tc < NTC; ++tc)
+#pragma unroll
+                    for (int jj = 0; jj < JC; ++jj)
+                        sR[warp * NO + tc * JC + jj] = acc[tc][jj];
+            }
+            __syncthreads();
+            if (active && k < NO) {
+                const int w0 = (threadIdx.x >> lp) * (P >> 5);
+                double s = 0.0;
+                for (int v = 0; v < (P >> 5); ++v) s += sR[(w0 + v) * NO + k];
+                const int tc = k / JC, jj = k - tc * JC;
+                if (NL > 0 || jb + jj < nL)
+                    gY[((long long)tc * Q12 + q12) * nL + jb + jj] = s;
+            }
+            __syncthreads();
         }
     }
 }
 
 // --------------------------------------------------------------------------
-// Launches of K1 and its backward.  The block takes min(256, QL rounded up
+// Launches of K1 and its backward.  K1: a block of min(256, QL rounded up
 // to a warp) threads and RB rows: 16, halved while the grid has fewer than
-// two blocks an SM or the shared memory would pass 48 KB (the backward's
-// adds a chunk of per-point coefficients and a row's sums to the staged
-// rows); past 48 KB at one row the kernel is given the larger limit.
+// two blocks an SM or the shared memory would pass 48 KB (past 48 KB at
+// one row the kernel is given the larger limit); below kRowsQL points a
+// row, 128 threads a block, a thread a row.  The backward: kBwdThreads a
+// block, teams of P lanes a row, P doubled from 1 while it is below QL and
+// a lane would walk more than BwdTune::pts points or the grid would run
+// fewer than kBwdMinThreads lanes, up to the block.
 // --------------------------------------------------------------------------
 
 struct FieldsArgs {
@@ -549,42 +784,67 @@ struct FieldsArgs {
     cudaStream_t s;
 };
 
-template <int D, int G, bool NURBS, int KIND, int NL, bool BWD>
-static int launch_one(const FieldsArgs& a) {
+template <int D, int G, bool NURBS, int KIND, int NL>
+static int launch_fwd(const FieldsArgs& a) {
     constexpr int C = G + (NURBS ? 1 : 0);
+    if (a.QL < kRowsQL) {
+        const unsigned int grid = (unsigned int)((a.Q12 + 127) / 128);
+        geo_fields_kernel<D, G, NURBS, KIND, NL, true><<<grid, 128, 0, a.s>>>(
+            a.Y, a.T, a.w12, a.wL, a.out, a.Q12, a.QL, a.nL, 1);
+        return (int)cudaGetLastError();
+    }
     int threads = (a.QL + 31) / 32 * 32;
     if (threads > 256) threads = 256;
     const long long per_row = 8LL * D * C * a.nL;
-    const long long extra =
-        BWD ? 8LL * (D + 1) * C * threads + 8LL * D * C * a.nL : 0;
     int rb = 16;
-    while (rb > 1 && ((a.Q12 + rb - 1) / rb < 2 * 132
-                      || rb * per_row + extra > 49152))
+    while (rb > 1 && ((a.Q12 + rb - 1) / rb < 2 * 132 || rb * per_row > 49152))
         rb /= 2;
-    const long long smem = rb * per_row + extra;
+    const long long smem = rb * per_row;
     const unsigned int grid = (unsigned int)((a.Q12 + rb - 1) / rb);
-    if constexpr (BWD) {
-        auto kernel = geo_fields_bwd_kernel<D, G, NURBS, KIND, NL>;
-        if (smem > 49152) {
-            const cudaError_t e = cudaFuncSetAttribute(
-                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                (int)smem);
-            if (e != cudaSuccess) return (int)e;
-        }
-        kernel<<<grid, threads, (size_t)smem, a.s>>>(
-            a.Y, a.T, a.w12, a.wL, a.gout, a.out, a.Q12, a.QL, a.nL, rb);
-    } else {
-        auto kernel = geo_fields_kernel<D, G, NURBS, KIND, NL>;
-        if (smem > 49152) {
-            const cudaError_t e = cudaFuncSetAttribute(
-                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                (int)smem);
-            if (e != cudaSuccess) return (int)e;
-        }
-        kernel<<<grid, threads, (size_t)smem, a.s>>>(
-            a.Y, a.T, a.w12, a.wL, a.out, a.Q12, a.QL, a.nL, rb);
+    auto kernel = geo_fields_kernel<D, G, NURBS, KIND, NL, false>;
+    if (smem > 49152) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
     }
+    kernel<<<grid, threads, (size_t)smem, a.s>>>(a.Y, a.T, a.w12, a.wL,
+                                                 a.out, a.Q12, a.QL, a.nL, rb);
     return (int)cudaGetLastError();
+}
+
+template <int D, int G, bool NURBS, int KIND, int NL>
+static int launch_bwd(const FieldsArgs& a) {
+    constexpr int C = G + (NURBS ? 1 : 0);
+    constexpr int NO = D * C * (NL ? NL : kBwdJC);
+    int lp = 0;
+    while ((1 << lp) < kBwdThreads && (1 << lp) < a.QL
+           && ((long long)BwdTune<KIND>::pts << lp < a.QL
+               || (long long)a.Q12 << lp < kBwdMinThreads))
+        ++lp;
+    const int rows = kBwdThreads >> lp;
+    constexpr int NF = GoutFields<D, G, KIND>::value + (KIND == kJac ? 0 : 1);
+    const long long smem =
+        ((1 << lp) > 32 ? 8LL * (kBwdThreads / 32) * NO : 0)
+        + (NL ? 16LL * (a.QL < kBwdChunk ? a.QL : kBwdChunk) * NL : 0)
+        + 8LL * (BwdTune<KIND>::pf + 1) * NF * kBwdThreads;
+    auto kernel = geo_fields_bwd_kernel<D, G, NURBS, KIND, NL>;
+    if (smem > 49152) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const unsigned int grid = (unsigned int)((a.Q12 + rows - 1) / rows);
+    kernel<<<grid, kBwdThreads, (size_t)smem, a.s>>>(
+            a.Y, a.T, a.w12, a.wL, a.gout, a.out, a.Q12, a.QL, a.nL, lp);
+    return (int)cudaGetLastError();
+}
+
+template <int D, int G, bool NURBS, int KIND, int NL, bool BWD>
+static int launch_one(const FieldsArgs& a) {
+    if constexpr (BWD)
+        return launch_bwd<D, G, NURBS, KIND, NL>(a);
+    else
+        return launch_fwd<D, G, NURBS, KIND, NL>(a);
 }
 
 template <int D, int G, bool NURBS, int KIND, bool BWD>

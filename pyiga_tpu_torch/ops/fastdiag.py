@@ -168,7 +168,7 @@ def _axis_means(gi, d):
 
 
 def fastdiag_precond_weighted(asm, free_dofs=None, dirichlet=False,
-                              dtype=torch.float32, mass_shift=0.0):
+                              dtype=None, mass_shift=0.0):
     """Fast-diagonalization preconditioner with *geometry-averaged* 1D
     coefficients (cf. Montardini-Sangalli-Tani): for each axis k the 1D
     stiffness matrix is weighted by the mean of the diffusion field
@@ -179,8 +179,9 @@ def fastdiag_precond_weighted(asm, free_dofs=None, dirichlet=False,
         asm: a Gauss assembler over the space (its geometry inputs,
             quadrature and device are used).
         free_dofs / dirichlet / mass_shift: as in the JAX package.
-        dtype: the preconditioner's torch dtype (float32 for the inner
-            solves of :func:`~pyiga_tpu_torch.solvers.cg_ir`).
+        dtype: the preconditioner's torch dtype; default the compute
+            dtype, float64, as the JAX package (pass float32 for the
+            inner solves of :func:`~pyiga_tpu_torch.solvers.cg_ir`).
     """
     d = asm.dim
     cms = _axis_means(asm.geo_inputs(DTYPE), d)
@@ -191,5 +192,6 @@ def fastdiag_precond_weighted(asm, free_dofs=None, dirichlet=False,
         Bt = asm.tables.trial[k]        # 1D basis tables (derivs >= 1)
         KM.append(((Bt[1] * c) @ Bt[1].T, (Bt[0] * m) @ Bt[0].T))
     full_shape = tuple(kv.numdofs for kv in asm.kvs)
-    return _build_precond(KM, full_shape, free_dofs, dirichlet, dtype,
-                          mass_shift, asm.device)
+    return _build_precond(KM, full_shape, free_dofs, dirichlet,
+                          DTYPE if dtype is None else dtype, mass_shift,
+                          asm.device)
