@@ -122,7 +122,9 @@ faces of the extruded quarter annulus at 3D n=48 (a grid axis of length
 1), K5 on ``v * ds``, ``inner(v, n) * ds``, ``inner(grad(u), grad(v)) *
 ds``, a surface ``v * ds``, the biharmonic form and the Laplacian
 functional of a spline input, K2 and K3 on those forms' chains, each
-against its plain version (1e-13, bitwise on a repeat) (4l); ``v * ds``
+against its plain version (1e-13, bitwise on a repeat), K5 on the
+'left' face (its rows mapping) also bitwise against its columns
+mapping (4l); ``v * ds``
 and ``inner(v, n) * ds`` on all six faces at 3D p=3 n=48 (areas and
 averaged normals), ``inner(grad(u), grad(v)) * ds`` on 'left', the
 tangential form on 'front' against the 2D stiffness matrix and the
@@ -146,7 +148,10 @@ boundary grid (QL = 1) of the extruded annulus at n=48, each with the
 device time of a bare launch and ptxas's registers and spills; K2's and
 K3's backward at the headline's compact chain; the generated K5 adjoint on
 convection-diffusion, ``(1 + w*w) * inner(grad(w), grad(v)) * dx`` and
-the biharmonic at 2D n=128); then, counting launches from zero, the
+the biharmonic at 2D n=128 and on ``inner(grad(u), grad(v)) * ds`` on
+the 'left' face at 3D n=48 (QL = 1), each timed through ``launch`` by
+CUDA events and by the host clock, as a CUDA graph of ``launch`` and
+as one of its bare C entry); then, counting launches from zero, the
 gradient of ``sum(w * A)`` through ``assembly_coeff_fn`` for the 3D
 n=48 stiffness (``fn(coeffs0)`` bitwise ``run_device()``) and mass and
 the 2D n=128 convection-diffusion form, held to autograd through the
@@ -180,6 +185,7 @@ and prints no result.  Imports neither jax nor pyiga_tpu.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -876,6 +882,35 @@ def bare_times(name, fn, operands, args_of, device):
     return dict(launch_ms=launch_ms, device_ms=device_ms, copies=k)
 
 
+# K5's rows threshold (``K5_ROWS_QL`` of its generated sources)
+K5_ROWS_QL = 8
+
+
+def check_cols_mapping(prog, arrays, got, device, name):
+    """K5's fields `got` on a grid whose last axis has fewer than
+    :data:`K5_ROWS_QL` points (the rows mapping) bitwise against the same
+    program built with the threshold at 0, so that every last axis maps
+    to threads: the kernel's mapping before its rows branch, with the
+    same point code.  Raises unless equal."""
+    import copy
+    text = prog.source.replace('#define K5_ROWS_QL %d' % K5_ROWS_QL,
+                               '#define K5_ROWS_QL 0')
+    if text == prog.source:
+        raise RuntimeError('vform_fields %s: no rows threshold in the '
+                           'source' % name)
+    cols = copy.copy(prog)
+    cols._source, cols._entry, cols._adjoint = text, None, None
+    out = torch.empty_like(got)
+    err = cols.entry()(*cols.arguments(
+        arrays, out, torch.cuda.current_stream(device).cuda_stream))
+    sync(device)
+    if err != 0 or not torch.equal(out, got):
+        raise RuntimeError('vform_fields %s: the rows mapping differs from '
+                           'the columns mapping' % name)
+    log('  vform_fields %-14s bitwise equal to the columns mapping' % name)
+    return True
+
+
 def vform_case(asm, device, inputs=None, tol=1e-12, name=None):
     """K5 on the plan's combos of a VForm assembler (its input fields
     replaced by the device tensors `inputs`, as a stepper passes them):
@@ -903,6 +938,9 @@ def vform_case(asm, device, inputs=None, tol=1e-12, name=None):
     for line in build['log'].splitlines():
         if 'registers' in line or 'spill' in line:
             log('  ' + line.strip())
+    cols_equal = None
+    if got.shape[-1] < K5_ROWS_QL:
+        cols_equal = check_cols_mapping(prog, arrays, got, device, name)
     d, ns = asm.dim, len(prog.sources)
     operands = (list(arrays['weights']) + [arrays[k] for k in prog.sources]
                 + [arrays['params']] * bool(prog.params)
@@ -915,7 +953,7 @@ def vform_case(asm, device, inputs=None, tol=1e-12, name=None):
     rec = dict(max_abs_err=err, rel=rel, shape=list(got.shape),
                leaves=len(prog.leaves), sources=list(prog.sources),
                params=len(prog.params), instrs=len(prog.instrs),
-               repeat_equal=True,
+               repeat_equal=True, cols_mapping_equal=cols_equal,
                ms=time_ms(lambda: cv.combo_fields(asm, arrays, combos),
                           device, reps=50),
                plain_ms=time_ms(lambda: cv.combo_fields_plain(
@@ -3418,9 +3456,10 @@ def check_item8_kernels(device):
     ``inner(grad(u), grad(v)) * ds`` ('left', 3D n=48), the surface ``v
     * ds`` (n=128),
     the biharmonic ``inner(hess(u), hess(v)) * dx`` and the Laplacian
-    functional of a spline input (2D n=128 NURBS quarter annulus); K2
-    and K3 on those forms' chains (the normal axis of a face a 1 x 1
-    table)."""
+    functional of a spline input (2D n=128 NURBS quarter annulus), on the
+    'left' face (a one-point last axis: K5's rows mapping) also bitwise
+    against the columns mapping (:func:`check_cols_mapping`); K2 and K3
+    on those forms' chains (the normal axis of a face a 1 x 1 table)."""
     from pyiga_tpu_torch import geometry
     out = {'geo_jac_fields': {}, 'vform_fields': {}, 'chains': {}}
     surf_bsp = surface_vf(device, geo=geometry.twisted_box().boundary('left'))
@@ -3881,12 +3920,57 @@ def spline_partials(asm):
     return Y, T, w12, wL, nurbs
 
 
+def host_ms(fn, device, reps=50, runs=3):
+    """Milliseconds a call of `fn()` by the host clock: the best of `runs`
+    runs of `reps` calls back to back, each ended by a synchronize, after
+    a warm call."""
+    fn()
+    best = float('inf')
+    for _ in range(runs):
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync(device)
+        best = min(best, time.perf_counter() - t0)
+    return 1e3 * best / reps
+
+
+def adjoint_bare_times(adj, arrays, g, device):
+    """The K5 adjoint's C entry apart from ``launch`` (:func:`bare_times`:
+    its kernel and, with parameters, the parameter sum), the operands and
+    the tensors it writes cycling through copies larger than the L2."""
+    fwd = adj.forward
+    d, ns = len(arrays['weights']), len(fwd.sources)
+    grads, gparams, part = adj.outputs(arrays)
+    has_p = gparams is not None
+    operands = (list(arrays['weights']) + [arrays[k] for k in fwd.sources]
+                + [arrays['params']] * has_p + [g]
+                + [grads[k] for k in fwd.sources] + [gparams, part] * has_p)
+
+    def args_of(ts):
+        it = iter(ts)
+        arr = dict(weights=[next(it) for _ in range(d)])
+        arr.update((k, next(it)) for k in fwd.sources)
+        if has_p:
+            arr['params'] = next(it)
+        gg = next(it)
+        gr = {k: next(it) for k in fwd.sources}
+        outs = (gr, next(it), next(it)) if has_p else (gr, None, None)
+        return adj.arguments(arr, gg, outs, 0)[:-1]
+    return bare_times('vform_adjoint', adj.entry(), operands, args_of, device)
+
+
 def adjoint_case(asm, device, name, seed):
     """The generated K5 adjoint of a form's fold-plan program against
     ``run_adjoint_plain`` on the same operands (each gradient to 1e-13 of
-    its own largest entry, bitwise on a repeat), ms and bound: the source rows and the
-    output's gradient read once, the target rows written once, the
-    parameters' partials; one operation per adjoint SSA instruction and
+    its own largest entry, bitwise on a repeat); its times: ``ms`` through
+    ``launch`` by CUDA events, ``host_ms`` by the host clock,
+    ``device_ms`` a CUDA graph of ``launch`` and ``kernel_ms`` one of the
+    bare C entry (:func:`adjoint_bare_times`); and its bound: the rows the
+    adjoint program reads (source rows and the output's gradient), the
+    weights and parameters read once, every gradient tensor ``launch``
+    returns written in full; one operation per adjoint SSA instruction and
     point."""
     from pyiga_tpu_torch import _cuda
     from pyiga_tpu_torch.ops import cuda_vform as cv
@@ -3917,27 +4001,34 @@ def adjoint_case(asm, device, name, seed):
         if 'registers' in line or 'spill' in line:
             log('  ' + line.strip())
     N = g[0].numel()
-    rows = {s for s in prog.leaf_src if s is not None}
-    nbytes_ = 8 * N * (len(rows) + len(prog.outputs)
-                       + len(adj.src_targets))
+    rows = {s for s in adj.program.leaf_src if s is not None}
+    read = 8 * (len(rows) * N + sum(w.numel() for w in arrays['weights'])
+                + (arrays['params'].numel() if adj.program.params else 0))
+    shape = adj.shape(math.prod(grid[:-1]), grid[-1])
+    bare = adjoint_bare_times(adj, arrays, g, device)
     rec = dict(max_abs_err=err, rel=rel, instrs=len(prog.instrs),
                adjoint_instrs=len(adj.program.instrs),
                targets=len(adj.src_targets),
                params=len(adj.param_targets), first_call_s=build_s,
-               repeat_equal=True, build=build,
+               repeat_equal=True, build=build, grid=list(grid),
+               shape=dict(zip(('rows', 'threads', 'rb', 'blocks'), shape)),
                ms=time_ms(lambda: adj.launch(arrays, g), device),
+               host_ms=host_ms(lambda: adj.launch(arrays, g), device),
                device_ms=graph_ms(lambda i: adj.launch(arrays, g), device),
+               kernel_ms=bare['device_ms'],
+               kernel_launch_ms=bare['launch_ms'],
                plain_ms=time_ms(lambda: cv.run_adjoint_plain(prog, arrays,
                                                              g), device,
                                 reps=3),
                library_ms=None,
-               **bound(nbytes_, len(adj.program.instrs) * N,
+               **bound(read + nbytes(*got), len(adj.program.instrs) * N,
                        F64_FMA_PER_MS))
     log('  K5 adjoint %s: %d forward + %d adjoint SSA instrs, %d rows, %d '
-        'params; nvcc %.2f s' % (name, len(prog.instrs),
-                                 len(adj.program.instrs),
-                                 len(adj.src_targets),
-                                 len(adj.param_targets), build['seconds']))
+        'params; %s; nvcc %.2f s' % (name, len(prog.instrs),
+                                     len(adj.program.instrs),
+                                     len(adj.src_targets),
+                                     len(adj.param_targets), rec['shape'],
+                                     build['seconds']))
     return rec
 
 
@@ -4000,7 +4091,8 @@ def check_diff_kernels(device, n3=48, n2=128):
     stage shape (512, 512, 905) and on a ragged fold (K = 33, R = 1,001,
     M = 7, 3 terms over 2 tables); the generated K5 adjoint on
     convection-diffusion, on :data:`NONLINEAR` and on the biharmonic at
-    2D n=128."""
+    2D n=128, and on ``inner(grad(u), grad(v)) * ds`` on the 'left'
+    face's boundary grid of the extruded annulus at 3D n=48 (QL = 1)."""
     from pyiga_tpu_torch import geometry
     from pyiga_tpu_torch.assemblers import StiffnessAssembler
     from pyiga_tpu_torch.assemble import instantiate_assembler
@@ -4094,6 +4186,12 @@ def check_diff_kernels(device, n3=48, n2=128):
     bih = instantiate_assembler(BIHARMONIC, kvs_of(2, n2), {
         'geo': geometry.quarter_annulus()}, None, device=device)
     adj['biharmonic_n128'] = adjoint_case(bih, device, 'biharmonic', 9)
+    # a boundary Gauss grid (QL = 1): the rows mapping
+    face = surface_asm('inner(grad(u), grad(v)) * ds', 3, n3, device,
+                       boundary='left')
+    adj['gradgrad_ds_left_n48'] = adjoint_case(face, device,
+                                               'gradgrad ds left', 12)
+    del face
     out['vform_adjoint'] = dict(adj['convdiff_n128'], cases=adj)
     out['vform_adjoint']['max_abs_err'] = max(r['max_abs_err']
                                               for r in adj.values())
@@ -4105,9 +4203,11 @@ def check_diff_kernels(device, n3=48, n2=128):
                               r['bound_ms'], r['bound_by']))
     for k in ('geo_jac_fields_bwd', 'vform_adjoint'):
         for c, r in out[k]['cases'].items():
-            log('    %s %s: %.4f ms (%splain %.4f, bound %.4f)'
+            log('    %s %s: %.4f ms (%s%splain %.4f, bound %.4f)'
                 % (k, c, r['ms'], 'device %.4f, ' % r['device_ms']
-                   if 'device_ms' in r else '', r['plain_ms'],
+                   if 'device_ms' in r else '',
+                   'kernel %.4f, host %.4f, ' % (r['kernel_ms'], r['host_ms'])
+                   if 'kernel_ms' in r else '', r['plain_ms'],
                    r['bound_ms']))
     return out
 

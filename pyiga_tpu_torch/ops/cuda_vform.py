@@ -34,12 +34,16 @@ only, so new parameter values never rebuild.
 Bound: device memory, ``(leaf rows + n_combos) * 8`` bytes per Gauss
 point plus the weight vectors (~21 MB for the 2D p=3 n=128
 convection-diffusion form: 4 Jacobian rows in, 6 fields out); the
-arithmetic per point is a few dozen flops.  So, as K1 since its redesign:
-a block owns up to 16 rows of the leading grid axes (their weight
-products staged in shared memory once), a thread owns columns of the
-last axis, loads go through the read-only path and stores are coalesced
-along the last axis; no index is divided per point, and the row loop is
-unrolled twice (two points in flight).
+arithmetic per point is a few dozen flops.  So, as K1 since its redesign,
+one rule (``vform_shape``, in the source of both generated kernels) maps
+the points to threads by the axis that has them: a block owns up to 16
+rows of the leading grid axes (their weight products staged in shared
+memory once), a thread owns columns of the last axis, loads go through
+the read-only path and stores are coalesced along the last axis; no
+index is divided per point, and the row loop is unrolled twice (two
+points in flight).  Below 8 points a row (a boundary Gauss grid's last
+axis has one) a thread owns a row and a block 128 rows; the point code
+is the same, so the fields are bitwise those of the first mapping.
 
 :func:`combo_fields` is the wrapper: a CPU tensor runs
 :func:`combo_fields_plain` (the torch :class:`~pyiga_tpu_torch.compile.
@@ -302,17 +306,18 @@ class Program:
             self._entry = fn
         return self._entry
 
-    def operands(self, arrays, dev):
+    def operands(self, arrays, dev, gout=None):
         """The kernel's input tensors from `arrays` (the per-axis
         ``weights``, the program's sources and, if it reads parameters,
         the flat ``params`` vector), in the order of its pointers, each
         checked: contiguous float64 on `dev`, on the weights' grid, with
-        the rows and parameter slots the program reads."""
+        the rows and parameter slots the program reads.  An adjoint
+        program's source ``gout`` is `gout`."""
         W = arrays['weights']
         grid = tuple(w.shape[0] for w in W)
         QL, Q12 = grid[-1], math.prod(grid[:-1])
         N = Q12 * QL
-        ops = W + [arrays[k] for k in self.sources]
+        ops = W + [gout if k == 'gout' else arrays[k] for k in self.sources]
         if self.params:
             ops.append(arrays['params'])
         for i, t in enumerate(ops):
@@ -491,26 +496,29 @@ def _row_offset(row):
     return 'g' if row == 0 else '%dLL * N + g' % row
 
 
+def _weight_code(program):
+    """The Gauss weight's code, if the program reads it: the rows of the
+    block staged in shared memory (one division per staged row, none per
+    point) and the last-axis weight of a column.  Returns ``(prologue,
+    column)``; the weight is ``(w0 w1) w2 = w12[r] * wL[c]``,
+    gauss_weight_field's order."""
+    if ('gw',) not in program.leaves:
+        return '', ''
+    w12 = {1: '1.0', 2: '__ldg(w0 + r)',
+           3: '__ldg(w0 + r / Q1) * __ldg(w1 + r % Q1)'}[program.dim]
+    return (_PROLOGUE % dict(w12=w12),
+            '        const double wl = __ldg(w%d + c);\n' % (program.dim - 1))
+
+
 def _point_code(program):
-    """What a generated kernel runs before its per-point code (the staged
-    Gauss weight rows, if the program reads the weight), at each column
-    (its last-axis weight), and per point: the leaf loads and the SSA
-    instructions.  Returns ``(prologue, column, body lines)``."""
-    d = program.dim
-    prologue = column = ''
-    if ('gw',) in program.leaves:
-        # the Gauss weight (w0 w1) w2 = w12[r] * wL[c], gauss_weight_field's
-        # order; one division per staged row, none per point
-        w12 = {1: '1.0', 2: '__ldg(w0 + r)',
-               3: '__ldg(w0 + r / Q1) * __ldg(w1 + r % Q1)'}[d]
-        prologue = _PROLOGUE % dict(w12=w12)
-        column = '        const double wl = __ldg(w%d + c);' % (d - 1)
+    """A generated kernel's code per point: the leaf loads and the SSA
+    instructions."""
     body = []
     for j, src in enumerate(program.leaf_src):
         if src is None:
-            body.append('            const double l%d = sw12[r] * wl;' % j)
+            body.append('const double l%d = sw12[r] * wl;' % j)
         else:
-            body.append('            const double l%d = __ldg(s%d + %s);'
+            body.append('const double l%d = __ldg(s%d + %s);'
                         % (j, src[0], _row_offset(src[1])))
     for i, (name, args) in enumerate(program.instrs):
         if name in _BINARY:
@@ -520,8 +528,22 @@ def _point_code(program):
             expr = '-%s' % _c_arg(args[0])
         else:
             expr = '%s(%s)' % (_C_FUNCS[name], _c_arg(args[0]))
-        body.append('            const double t%d = %s;' % (i, expr))
-    return prologue, column, body
+        body.append('const double t%d = %s;' % (i, expr))
+    return body
+
+
+def _mapped_loops(program, tail):
+    """A generated kernel's loops over its points, in either mapping of
+    ``vform_shape`` (its ``by_rows`` argument), running at every point
+    the point code and then the lines `tail`: one body for both, so that
+    the point code is compiled once and the same in both."""
+    prologue, column = _weight_code(program)
+    params = ''.join('    const double p%d = __ldg(p + %d);\n' % (k, slot)
+                     for k, slot in enumerate(program.param_slots))
+    return _MAPPED % dict(
+        prologue=prologue, params=params, column=column,
+        body=''.join(' ' * 12 + x + '\n'
+                     for x in _point_code(program) + tail))
 
 
 def _pointer_args(program):
@@ -532,6 +554,15 @@ def _pointer_args(program):
             + (['p'] if program.params else []))
 
 
+def _declare(ptrs, writes, indent, restrict=True):
+    """Pointer parameters, `indent` spaces before each continuation line:
+    `ptrs` read, `writes` written (``__restrict__`` for a kernel)."""
+    sep = ',\n' + ' ' * indent
+    q = ' __restrict__' if restrict else ''
+    return ''.join('const double*%s %s%s' % (q, x, sep) for x in ptrs) \
+        + ''.join('double*%s %s%s' % (q, x, sep) for x in writes)
+
+
 def emit_cuda(program):
     """CUDA C source of `program`: ``vform_fields_kernel`` and its C entry
     ``pyiga_vform_fields(w0, .., s0, .., [p,] out, Q12, QL, Q1, stream)``
@@ -540,26 +571,53 @@ def emit_cuda(program):
     one, the output ``(n_combos, Q12, QL)``, the grid as its leading rows
     and last axis (Q1: the middle axis of a 3D grid) and the stream."""
     ptrs = _pointer_args(program)
-    prologue, column, body = _point_code(program)
-    body += ['            out[%s] = %s;' % (_row_offset(c), _c_arg(o))
-             for c, o in enumerate(program.outputs)]
-    params = ['    const double p%d = __ldg(p + %d);' % (k, slot)
-              for k, slot in enumerate(program.param_slots)]
+    stores = ['out[%s] = %s;' % (_row_offset(c), _c_arg(o))
+              for c, o in enumerate(program.outputs)]
     return _SOURCE % dict(
         n_leaves=len(program.leaves), n_src=len(program.sources),
         n_params=len(program.params), n_out=len(program.outputs),
-        dim=program.dim,
-        kargs=''.join('const double* __restrict__ %s,\n                    '
-                      % x for x in ptrs),
-        cargs=''.join('const double* %s,\n                       ' % x
-                      for x in ptrs),
+        dim=program.dim, shape=_SHAPE,
+        kargs=_declare(ptrs, [], 20), cargs=_declare(ptrs, [], 23, False),
         names=''.join('%s, ' % x for x in ptrs),
-        prologue=prologue, params='\n'.join(params), column=column,
-        body='\n'.join(body))
+        loops=_mapped_loops(program, stores))
 
+
+# The one rule of both generated kernels (plain C++: the CPU tests compile
+# it with the host compiler).
+_SHAPE = """\
+// The mapping of points to threads, one rule for K5 and its adjoint.
+// Below K5_ROWS_QL points a row (a boundary Gauss grid has QL = 1) a
+// thread owns a row and walks its QL points, a block 128 rows: mapped to
+// the last axis, such a grid would leave one lane of each warp working.
+// Else a block owns RB rows (16, halved while the grid has fewer than
+// min_blocks blocks; their weight products staged once) and a thread the
+// columns c of the last axis (min(256, QL rounded up to a warp) threads),
+// stores coalesced along it and no index divided per point.  min_blocks:
+// two an SM for the forward; one an SM for the adjoint, whose threads
+// hold 74-240 registers, so fewer blocks fit an SM: there a thread's two
+// rows in flight beat a second wave of blocks.
+#define K5_ROWS_QL 8
+#define K5_FWD_MIN_BLOCKS (2 * 132)
+#define K5_ADJ_MIN_BLOCKS 132
+struct VformShape { int rows, threads, rb, blocks; };
+static VformShape vform_shape(int Q12, int QL, int min_blocks) {
+    VformShape s;
+    s.rows = QL < K5_ROWS_QL;
+    if (s.rows) {
+        s.threads = s.rb = 128;
+    } else {
+        s.rb = 16;
+        while (s.rb > 1 && (Q12 + s.rb - 1) / s.rb < min_blocks) s.rb /= 2;
+        s.threads = (QL + 31) / 32 * 32;
+        if (s.threads > 256) s.threads = 256;
+    }
+    s.blocks = (int)(((long long)Q12 + s.rb - 1) / s.rb);
+    return s;
+}
+"""
 
 _PROLOGUE = """\
-    __shared__ double sw12[16];
+    __shared__ double sw12[128];
     if (threadIdx.x < rows) {
         const int r = r0 + threadIdx.x;
         sw12[threadIdx.x] = %(w12)s;
@@ -567,45 +625,46 @@ _PROLOGUE = """\
     __syncthreads();
 """
 
+# a kernel's loops: a block owns RB rows from r0; by rows, a thread owns
+# one of them and all its QL points, else the columns c = threadIdx.x,
+# threadIdx.x + blockDim.x, ... of each; point g = (r0 + r) QL + c.  No
+# thread returns early, so every thread of a block reaches the adjoint's
+# sums.
+_MAPPED = """\
+    const int r0 = blockIdx.x * RB;
+    const int rows = min(RB, Q12 - r0);
+    const int r_lo = by_rows ? (int)threadIdx.x : 0;
+    const int r_hi = by_rows ? min(r_lo + 1, rows) : rows;
+    const int c_step = by_rows ? 1 : (int)blockDim.x;
+%(prologue)s%(params)s    for (int c = by_rows ? 0 : threadIdx.x; c < QL; c += c_step) {
+%(column)s#pragma unroll 2
+        for (int r = r_lo; r < r_hi; ++r) {
+            const long long g = (long long)(r0 + r) * QL + c;
+%(body)s        }
+    }
+"""
+
 _SOURCE = """\
 // Coefficient fields of one variational form (kernel K5 of
 // pyiga_tpu_torch, generated by ops/cuda_vform.py).
 // In: %(n_leaves)d leaves from %(n_src)d tensors and the %(dim)d Gauss
 // weight vectors, %(n_params)d parameters.  Out: %(n_out)d fields.
-// A block owns RB rows of the leading grid axes, a thread the columns c
-// of the last axis; point g = r QL + c.
 #include <cuda_runtime.h>
 
+%(shape)s
 extern "C" __global__ void __launch_bounds__(256)
 vform_fields_kernel(%(kargs)sdouble* __restrict__ out,
-                    int Q12, int QL, int Q1, int RB) {
+                    int Q12, int QL, int Q1, int RB, int by_rows) {
     const long long N = (long long)Q12 * QL;
-    const int r0 = blockIdx.x * RB;
-    const int rows = min(RB, Q12 - r0);
-%(prologue)s%(params)s
-    for (int c = threadIdx.x; c < QL; c += blockDim.x) {
-%(column)s
-#pragma unroll 2
-        for (int r = 0; r < rows; ++r) {
-            const long long g = (long long)(r0 + r) * QL + c;
-%(body)s
-        }
-    }
-}
+%(loops)s}
 
-// RB: 16 rows, halved while the grid has fewer than two blocks an SM;
-// min(256, QL rounded up to a warp) threads.
 extern "C" __attribute__((visibility("default")))
 int pyiga_vform_fields(%(cargs)sdouble* out,
                        int Q12, int QL, int Q1, void* stream) {
     if (Q12 < 1 || QL < 1) return (int)cudaErrorInvalidValue;
-    int rb = 16;
-    while (rb > 1 && (Q12 + rb - 1) / rb < 2 * 132) rb /= 2;
-    int threads = (QL + 31) / 32 * 32;
-    if (threads > 256) threads = 256;
-    vform_fields_kernel<<<(Q12 + rb - 1) / rb, threads, 0,
-                          (cudaStream_t)stream>>>(%(names)sout, Q12, QL, Q1,
-                                                  rb);
+    const VformShape sh = vform_shape(Q12, QL, K5_FWD_MIN_BLOCKS);
+    vform_fields_kernel<<<sh.blocks, sh.threads, 0, (cudaStream_t)stream>>>(
+        %(names)sout, Q12, QL, Q1, sh.rb, sh.rows);
     return (int)cudaGetLastError();
 }
 """
@@ -716,8 +775,8 @@ def _adjoint_sweep(program, rec):
 
 class AdjointProgram:
     """The adjoint of a :class:`Program`: for the gradient ``gout``
-    ``(n_combos,) + grid`` of its output, the gradient of every source row
-    the program reads and of every parameter it reads.
+    ``(n_combos,) + grid`` of its output, the gradient of every source
+    tensor the program reads and of the flat parameter vector.
 
     Built by a reverse sweep over the program's SSA (:func:`_adjoint_sweep`)
     into a second SSA program (:attr:`program`, a :class:`Program` whose
@@ -727,16 +786,18 @@ class AdjointProgram:
     in :attr:`src_targets` (``(array key, row)``: leaves that read one
     row add their gradients), then those of the parameter slots in
     :attr:`param_targets`, which are summed over the Gauss points.  A row
-    or parameter whose gradient folds to zero has no target (it stays
-    zero).
+    or parameter whose gradient folds to zero has no target (it is zero).
 
-    :meth:`source` is a second generated kernel with the forward's
-    mapping (a block owns up to 16 rows of the leading grid axes, a
-    thread columns of the last axis): it writes every target row once,
-    and sums the parameters' gradients in two passes of fixed order (each
-    thread over its points, each block over its threads into one partial
-    per block, then one block per parameter over the partials), with no
-    atomics: bitwise equal on a repeat."""
+    :meth:`source` is a second generated kernel with the forward's mapping
+    of points to threads (``vform_shape``).  At each point it writes every
+    row of every forward source's gradient (a target's value, else 0: the
+    untargeted rows, the mirrored Hessian rows, rows past those the
+    program reads), so the gradients need no memset.  It sums the
+    parameters' gradients in a fixed order, with no atomics: each thread
+    over its points, a butterfly of shuffles in each warp, the warps in
+    order into one partial per block; a second kernel writes the whole
+    parameter gradient (each target slot the sum of its partials, a warp
+    a slot, in block order; 0 elsewhere).  Bitwise equal on a repeat."""
 
     def __init__(self, program):
         self.forward = program
@@ -763,7 +824,9 @@ class AdjointProgram:
             leaf_loc, dict(zip(program.params, program.param_slots)))
         self._source = None
         self._entry = None
-        self._param_index = {}     # device -> param_targets on it
+        self._shape_fn = None
+        self._shapes = {}          # (Q12, QL) -> vform_shape's launch
+        self._max_slot = max(program.param_slots, default=-1)
 
     @property
     def source(self):
@@ -776,25 +839,97 @@ class AdjointProgram:
         """The C entry ``pyiga_vform_adjoint``, built, loaded and declared
         on the first call (as :meth:`Program.entry`)."""
         if self._entry is None:
-            fn = _cuda.build_generated('vform_adjoint',
-                                       self.source).pyiga_vform_adjoint
-            prog = self.program
-            n_ptr = (prog.dim + len(prog.sources) + int(bool(prog.params))
-                     + len(self.grad_sources()) + 2)
-            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p])
+            lib = _cuda.build_generated('vform_adjoint', self.source)
+            fwd, prog = self.forward, self.program
+            has_p = bool(fwd.params)
+            fn = lib.pyiga_vform_adjoint
+            fn.argtypes = ([ctypes.c_void_p] * (
+                len(_pointer_args(prog)) + len(fwd.sources) + 2 * has_p)
+                + [ctypes.c_int] * (5 + len(fwd.sources) + has_p)
+                + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            self._entry = fn
+            shape = lib.pyiga_vform_shape
+            shape.argtypes = [ctypes.c_int, ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_int)]
+            shape.restype = ctypes.c_int
+            self._shape_fn, self._entry = shape, fn
         return self._entry
 
-    def grad_sources(self):
-        """The forward's source keys that receive a gradient, in the
-        order of the kernel's gradient pointers."""
-        keys = []
-        for key, _row in self.src_targets:
-            if key not in keys:
-                keys.append(key)
-        return keys
+    def shape(self, Q12, QL):
+        """``(rows, threads, RB, blocks)`` of a launch on a grid of `Q12`
+        rows of `QL` points: ``vform_shape``, the one rule of the forward
+        and the adjoint kernel (which sizes the partials), read from the
+        adjoint's library once per grid."""
+        sh = self._shapes.get((Q12, QL))
+        if sh is None:
+            self.entry()
+            out = (ctypes.c_int * 4)()
+            if self._shape_fn(Q12, QL, out) != 0:
+                raise ValueError('vform_adjoint: no launch for a grid of '
+                                 '%d rows of %d points' % (Q12, QL))
+            sh = self._shapes[(Q12, QL)] = tuple(out)
+        return sh
+
+    def outputs(self, arrays):
+        """What a launch on `arrays` writes, allocated uninitialized (the
+        kernels write every element): ``(grads, gparams, part)``, per
+        forward source a gradient tensor of its shape (one tensor object
+        each), and with parameters one allocation: the flat parameters'
+        gradient, then the per-block partials of their sums (else None,
+        None)."""
+        fwd = self.forward
+        W = arrays['weights']
+        dev = W[0].device
+        grads = {key: torch.empty(arrays[key].shape, dtype=torch.float64,
+                                  device=dev) for key in fwd.sources}
+        if not fwd.params:
+            return grads, None, None
+        P = arrays['params'].shape[0]
+        nb = self.shape(math.prod(w.shape[0] for w in W[:-1]),
+                        W[-1].shape[0])[3]
+        buf = torch.empty(P + max(1, len(self.param_targets) * nb),
+                          dtype=torch.float64, device=dev)
+        return grads, buf[:P], buf[P:]
+
+    def arguments(self, arrays, g, outs, stream):
+        """The C entry's arguments for `arrays` as the forward takes them
+        (``weights``, the sources, ``params``), the output's gradient `g`
+        ``(n_combos,) + grid`` and the tensors `outs` to write (as
+        :meth:`outputs` allocates them for `arrays`), to launch on
+        `stream`: the adjoint program's inputs, the gradients and, with
+        parameters, their gradient and partials; the grid, RB and the
+        block count, each gradient's rows and the parameter count.
+        Raises on an operand the kernel does not take."""
+        fwd, prog = self.forward, self.program
+        grads, gparams, part = outs
+        grid = tuple(w.shape[0] for w in arrays['weights'])
+        QL, Q12 = grid[-1], math.prod(grid[:-1])
+        N = Q12 * QL
+        if g.shape != (len(fwd.outputs),) + grid or g.dtype != torch.float64 \
+                or not g.is_contiguous():
+            raise ValueError('vform_adjoint: gradient %s %s, expected %s '
+                             'float64, contiguous'
+                             % (tuple(g.shape), g.dtype,
+                                (len(fwd.outputs),) + grid))
+        ptrs = [t.data_ptr() for t in prog.operands(arrays, g.device, g)]
+        ints = [Q12, QL, grid[1] if len(grid) == 3 else 1]
+        ints += self.shape(Q12, QL)[2:]
+        for key, need in zip(fwd.sources, fwd._rows):
+            t = arrays[key]
+            if t.shape[t.dim() - len(grid):] != grid or t.numel() < need * N:
+                raise ValueError('vform_adjoint: %s is %s, expected %d rows '
+                                 'on the grid %s' % (key, tuple(t.shape),
+                                                     need, grid))
+            ptrs.append(grads[key].data_ptr())
+            ints.append(t.numel() // N)
+        if fwd.params:
+            P = arrays['params']
+            if P.dim() != 1 or P.shape[0] <= self._max_slot:
+                raise ValueError('vform_adjoint: params %s lacks slot %d'
+                                 % (tuple(P.shape), self._max_slot))
+            ptrs += [gparams.data_ptr(), part.data_ptr()]
+            ints.append(P.shape[0])
+        return (*ptrs, *ints, stream)
 
     def launch(self, arrays, g):
         """Run the adjoint kernel on CUDA tensors: `arrays` as the forward
@@ -802,187 +937,169 @@ class AdjointProgram:
         gradient ``(n_combos,) + grid``.  Returns ``(grads, gparams)``:
         per forward source a tensor of its shape (zero where no target
         writes) and the flat parameters' gradient (None without
-        parameters).  Raises on an operand the kernel does not take."""
-        fwd, prog = self.forward, self.program
+        parameters), all written by the kernels: allocations and one
+        ctypes call.  Raises on an operand the kernel does not take."""
+        fwd = self.forward
         _cuda.no_grad_operands(                 # no double backward
             'vform_adjoint', g, arrays.get('params'),
             *(arrays[key] for key in fwd.sources))
-        W = arrays['weights']
-        grid = tuple(w.shape[0] for w in W)
-        QL, Q12 = grid[-1], math.prod(grid[:-1])
-        dev = g.device
         g = g.contiguous()
-        if g.shape != (len(fwd.outputs),) + grid or g.dtype != torch.float64:
-            raise ValueError('vform_adjoint: gradient %s %s, expected %s '
-                             'float64' % (tuple(g.shape), g.dtype,
-                                          (len(fwd.outputs),) + grid))
-        grads = {key: torch.zeros_like(arrays[key]) for key in fwd.sources}
-        ops = dict(arrays, gout=g)
-        argv = [t.data_ptr() for t in prog.operands(ops, dev)]
-        argv += [grads[key].data_ptr() for key in self.grad_sources()]
-        rb = _rows_per_block(Q12)
-        nb = -(-Q12 // rb)
-        n_p = len(self.param_targets)
-        part = torch.empty(max(n_p * nb, 1), dtype=torch.float64, device=dev)
-        psum = torch.empty(max(n_p, 1), dtype=torch.float64, device=dev)
-        argv += [part.data_ptr(), psum.data_ptr(), Q12, QL,
-                 grid[1] if prog.dim == 3 else 1, rb, _cuda.stream_of(g)]
+        outs = self.outputs(arrays)
+        argv = self.arguments(arrays, g, outs, _cuda.stream_of(g))
         fn = self.entry()
         with _cuda.device_of(g):
             err = fn(*argv)
         _cuda.check(err, 'vform_adjoint')
         _cuda.LAUNCHES['vform_adjoint'] += 1
-        gparams = None
-        if fwd.params:
-            gparams = torch.zeros_like(arrays['params'])
-            if n_p:
-                # the index is copied to the card once, so that a launch
-                # makes no host copy (and a CUDA graph can capture it)
-                idx = self._param_index.get(dev)
-                if idx is None:
-                    idx = torch.tensor(self.param_targets, device=dev)
-                    self._param_index[dev] = idx
-                gparams[idx] = psum
-        return grads, gparams
-
-
-def _rows_per_block(Q12):
-    """Rows of the leading grid axes a block of the generated kernels
-    owns: 16, halved while the grid has fewer than two blocks an SM (the
-    rule of the forward's C entry)."""
-    rb = 16
-    while rb > 1 and -(-Q12 // rb) < 2 * 132:
-        rb //= 2
-    return rb
+        return outs[0], outs[1]
 
 
 def emit_cuda_adjoint(adj):
     """CUDA C source of an :class:`AdjointProgram`: ``vform_adjoint_kernel``
-    (the adjoint program per point: target rows written, parameter
-    gradients summed into one partial per block), ``vform_param_sum_
-    kernel`` (one block per parameter over the partials) and the C entry
-    ``pyiga_vform_adjoint(w0, .., s0, .., [p,] g0, .., part, psum, Q12,
-    QL, Q1, RB, stream)``: the adjoint program's inputs as
-    :func:`emit_cuda`'s (the ``gout`` rows among its sources), one
-    pointer per forward source that receives a gradient
-    (:meth:`AdjointProgram.grad_sources`), the per-block partials
-    ``(n_params, n_blocks)`` and the parameters' sums."""
-    prog = adj.program
+    (the adjoint program per point: every row of every forward source's
+    gradient written, the parameter gradients summed into one partial per
+    block), ``vform_param_sum_kernel`` (the whole parameter gradient from
+    the partials), ``pyiga_vform_shape(Q12, QL, shape)`` (``vform_shape``:
+    rows, threads, RB, blocks) and the C entry ``pyiga_vform_adjoint(w0,
+    .., s0, .., [p,] g0, .., [gp, part,] Q12, QL, Q1, RB, NB, R0, ..,
+    [P,] stream)``: the adjoint program's inputs as :func:`emit_cuda`'s
+    (the ``gout`` rows among its sources), one gradient per forward
+    source, with parameters their gradient and the partials ``(n_targets,
+    NB)``; the grid, the launch's RB and block count (refused unless
+    ``vform_shape``'s), the rows of each gradient tensor and the length of
+    the parameter vector."""
+    fwd, prog = adj.forward, adj.program
     ptrs = _pointer_args(prog)
-    gsrc = adj.grad_sources()
-    gptrs = ['g%d' % k for k in range(len(gsrc))]
-    prologue, column, body = _point_code(prog)
-    n_src = len(adj.src_targets)
-    for i, (key, row) in enumerate(adj.src_targets):
-        body.append('            g%d[%s] = %s;' % (
-            gsrc.index(key), _row_offset(row), _c_arg(prog.outputs[i])))
-    n_p = len(adj.param_targets)
-    for m in range(n_p):
-        body.append('            acc[%d] += %s;'
-                    % (m, _c_arg(prog.outputs[n_src + m])))
-    params = ['    const double p%d = __ldg(p + %d);' % (k, slot)
-              for k, slot in enumerate(prog.param_slots)]
+    gptrs = ['g%d' % k for k in range(len(fwd.sources))]
+    n_src, n_p = len(adj.src_targets), len(adj.param_targets)
+    target = {t: i for i, t in enumerate(adj.src_targets)}
+    tail = []
+    for k, key in enumerate(fwd.sources):
+        for row in range(fwd._rows[k]):
+            i = target.get((key, row))
+            tail.append('g%d[%s] = %s;' % (
+                k, _row_offset(row),
+                '0.0' if i is None else _c_arg(prog.outputs[i])))
+        tail.append('for (int j = %d; j < R%d; ++j) g%d[j * N + g] = 0.0;'
+                    % (fwd._rows[k], k, k))
+    tail += ['acc[%d] += %s;' % (m, _c_arg(prog.outputs[n_src + m]))
+             for m in range(n_p)]
+    has_p = bool(fwd.params)
+    rows = ''.join(', int R%d' % k for k in range(len(gptrs)))
     return _ADJ_SOURCE % dict(
-        n_src=n_src, n_p=n_p, n_instrs=len(prog.instrs),
-        kargs=''.join('const double* __restrict__ %s,\n                     '
-                      % x for x in ptrs)
-        + ''.join('double* __restrict__ %s,\n                     ' % x
-                  for x in gptrs),
-        cargs=''.join('const double* %s,\n                        ' % x
-                      for x in ptrs)
-        + ''.join('double* %s,\n                        ' % x for x in gptrs),
-        names=''.join('%s, ' % x for x in ptrs + gptrs),
-        prologue=prologue, params='\n'.join(params), column=column,
+        n_src=n_src, n_p=n_p, n_grad=len(gptrs), n_instrs=len(prog.instrs),
+        shape=_SHAPE,
+        kargs=_declare(ptrs, gptrs + ['part'] * bool(n_p), 21),
+        cargs=_declare(ptrs, gptrs + ['gp', 'part'] * has_p, 24, False),
+        names=''.join('%s, ' % x for x in ptrs + gptrs
+                      + ['part'] * bool(n_p)),
+        rows=rows, rows_names=''.join(', R%d' % k for k in range(len(gptrs))),
+        p_arg=', int P' if has_p else '',
         acc_decl=('    double acc[%d];\n#pragma unroll\n    for (int m = 0; '
-                  'm < %d; ++m) acc[m] = 0.0;' % (n_p, n_p)) if n_p else '',
+                  'm < %d; ++m) acc[m] = 0.0;\n' % (n_p, n_p)) if n_p else '',
+        loops=_mapped_loops(prog, tail),
         reduce=_ADJ_REDUCE % dict(n_p=n_p) if n_p else '',
-        second=('    if (e == cudaSuccess)\n        vform_param_sum_kernel'
-                '<<<%d, 256, 0, s>>>(part, nb, psum);\n' % n_p)
-        if n_p else '',
-        body='\n'.join(body))
+        psum=_PSUM % dict(n_p=n_p, slots=', '.join(
+            str(s) for s in adj.param_targets) or '-1',
+            n_slot=max(n_p, 1)) if has_p else '',
+        second=('    if (e == cudaSuccess) {\n'
+                '        vform_param_sum_kernel<<<1, %d, 0, s>>>(part, NB, '
+                'gp, P);\n        e = cudaGetLastError();\n    }\n'
+                % (32 * min(max(n_p, 1), 8))) if has_p else '')
 
 
 _ADJ_REDUCE = """\
-    // each block's partial sums, thread by thread in order
-    __shared__ double sred[256];
+    // the block's partial sums in a fixed order: a butterfly of shuffles in
+    // each warp (every lane ends with the same sum), then the warps in order
+    __shared__ double sred[8][%(n_p)d];
 #pragma unroll
     for (int m = 0; m < %(n_p)d; ++m) {
-        sred[threadIdx.x] = acc[m];
-        __syncthreads();
-        if (threadIdx.x == 0) {
-            double s = 0.0;
-            for (int i = 0; i < blockDim.x; ++i) s += sred[i];
-            part[(long long)m * gridDim.x + blockIdx.x] = s;
-        }
-        __syncthreads();
+        double v = acc[m];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, off);
+        if ((threadIdx.x & 31) == 0) sred[threadIdx.x >> 5][m] = v;
     }
+    __syncthreads();
+    for (int m = threadIdx.x; m < %(n_p)d; m += blockDim.x) {
+        double s = 0.0;
+        for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += sred[w][m];
+        part[(long long)m * gridDim.x + blockIdx.x] = s;
+    }
+"""
+
+_PSUM = """
+// the parameter slots with a gradient, in the order of the partials
+__constant__ int kSlot[%(n_slot)d] = {%(slots)s};
+
+// the second pass, one block: every slot of the parameter gradient, slot
+// kSlot[m] the sum of target m's partials (a warp a target: lane l over
+// the blocks l, l + 32, ... in order, then a butterfly), the others 0
+__global__ void __launch_bounds__(256)
+vform_param_sum_kernel(const double* __restrict__ part, int nb,
+                       double* __restrict__ gp, int P) {
+    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+        bool target = false;
+        for (int m = 0; m < %(n_p)d; ++m) target |= kSlot[m] == i;
+        if (!target) gp[i] = 0.0;
+    }
+    const int lane = threadIdx.x & 31;
+    for (int m = threadIdx.x >> 5; m < %(n_p)d; m += blockDim.x >> 5) {
+        const double* q = part + (long long)m * nb;
+        double a = 0.0;
+#pragma unroll 4
+        for (int i = lane; i < nb; i += 32) a += __ldg(q + i);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            a += __shfl_xor_sync(0xffffffffu, a, off);
+        if (lane == 0) gp[kSlot[m]] = a;
+    }
+}
 """
 
 _ADJ_SOURCE = """\
 // Adjoint of the coefficient fields of one variational form (the backward
 // of kernel K5 of pyiga_tpu_torch, generated by ops/cuda_vform.py).
 // Per Gauss point: the form's SSA recomputed, then its reverse sweep
-// (%(n_instrs)d instructions in all); out: %(n_src)d gradient rows of the
-// source tensors, %(n_p)d parameter gradients summed over the points in
-// two passes of fixed order (no atomics).
+// (%(n_instrs)d instructions in all); out: every row of the gradients of
+// the %(n_grad)d forward sources (%(n_src)d target rows, 0 in the others),
+// %(n_p)d parameter gradients summed over the points in a fixed order (no
+// atomics) and the whole parameter gradient by a second kernel.
 #include <cuda_runtime.h>
 
+%(shape)s
 __device__ __forceinline__ double pyiga_sign(double x) {
     return x > 0.0 ? 1.0 : (x < 0.0 ? -1.0 : x);
 }
 
 extern "C" __global__ void __launch_bounds__(256)
-vform_adjoint_kernel(%(kargs)sdouble* __restrict__ part,
-                     int Q12, int QL, int Q1, int RB) {
+vform_adjoint_kernel(%(kargs)sint Q12, int QL, int Q1, int RB, int by_rows%(rows)s) {
     const long long N = (long long)Q12 * QL;
-    const int r0 = blockIdx.x * RB;
-    const int rows = min(RB, Q12 - r0);
-%(prologue)s%(params)s
-%(acc_decl)s
-    for (int c = threadIdx.x; c < QL; c += blockDim.x) {
-%(column)s
-#pragma unroll 2
-        for (int r = 0; r < rows; ++r) {
-            const long long g = (long long)(r0 + r) * QL + c;
-%(body)s
-        }
-    }
-%(reduce)s}
-
-// the second pass over the parameters' partials: a block a parameter,
-// each thread over the blocks i = tid, tid + 256, ..., then thread 0 over
-// the threads in order
-extern "C" __global__ void __launch_bounds__(256)
-vform_param_sum_kernel(const double* __restrict__ part, int nb,
-                       double* __restrict__ psum) {
-    __shared__ double s[256];
-    const double* p = part + (long long)blockIdx.x * nb;
-    double a = 0.0;
-    for (int i = threadIdx.x; i < nb; i += blockDim.x) a += p[i];
-    s[threadIdx.x] = a;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        double t = 0.0;
-        for (int i = 0; i < blockDim.x; ++i) t += s[i];
-        psum[blockIdx.x] = t;
-    }
+%(acc_decl)s%(loops)s%(reduce)s}
+%(psum)s
+extern "C" __attribute__((visibility("default")))
+int pyiga_vform_shape(int Q12, int QL, int* shape) {
+    if (Q12 < 1 || QL < 1) return (int)cudaErrorInvalidValue;
+    const VformShape s = vform_shape(Q12, QL, K5_ADJ_MIN_BLOCKS);
+    shape[0] = s.rows;
+    shape[1] = s.threads;
+    shape[2] = s.rb;
+    shape[3] = s.blocks;
+    return 0;
 }
 
-// RB rows a block (the wrapper's rule, which sizes the partials);
-// min(256, QL rounded up to a warp) threads
 extern "C" __attribute__((visibility("default")))
-int pyiga_vform_adjoint(%(cargs)sdouble* part, double* psum,
-                        int Q12, int QL, int Q1, int RB, void* stream) {
-    if (Q12 < 1 || QL < 1 || RB < 1 || RB > 16)
-        return (int)cudaErrorInvalidValue;
+int pyiga_vform_adjoint(%(cargs)sint Q12, int QL, int Q1, int RB, int NB%(rows)s%(p_arg)s,
+                        void* stream) {
+    if (Q12 < 1 || QL < 1) return (int)cudaErrorInvalidValue;
+    const VformShape sh = vform_shape(Q12, QL, K5_ADJ_MIN_BLOCKS);
+    // the wrapper sized the partials by the same rule
+    if (RB != sh.rb || NB != sh.blocks) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const int nb = (Q12 + RB - 1) / RB;
-    int threads = (QL + 31) / 32 * 32;
-    if (threads > 256) threads = 256;
-    vform_adjoint_kernel<<<nb, threads, 0, s>>>(%(names)spart, Q12, QL, Q1,
-                                                RB);
-    const cudaError_t e = cudaGetLastError();
-%(second)s    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+    vform_adjoint_kernel<<<NB, sh.threads, 0, s>>>(
+        %(names)sQ12, QL, Q1, RB, sh.rows%(rows_names)s);
+    cudaError_t e = cudaGetLastError();
+%(second)s    return (int)e;
 }
 """
 
