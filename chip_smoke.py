@@ -161,7 +161,25 @@ with forward and backward ms (20b); a compliance through
 its directional derivative against a central difference (20c);
 ``assembly_input_fn`` for a spline input (with its gradient) and a
 parameter at 2D n=128 (20d); and both example ports, card against CPU
-(20e).  Any failed check raises (nonzero exit).
+(20e).
+
+The windowed assembly route (``scripts/torch_windowed_phases.py`` runs
+it alone): K8 (``windowed_stage``) and K8f (``windowed_fold``) against
+their plain versions, 1e-14 relative and bitwise on a repeat, at the 3D
+p=3 n=48 twisted box's stage 1 and stage 2, the fold of its 6 plan
+terms, the 2D p=3 n=128 stage 1 and fold, and ragged shapes (p = 1 to
+4, one window, runs of dofs and r tiles cut short, folds of 1 and 16
+terms), each beside its bound, its plain version and two yardsticks:
+K2 / K3 over the banded pair tables (the same output with the band's
+zeros in the contraction) and one einsum over windows gathered outside
+its timing (4m); then ``run_windowed_assembly`` on the 3D n=48
+stiffness and mass and the 2D n=128 stiffness, launches counted from
+zero (no K3), held to ``run_device()`` through the compact take (1e-14),
+laid into the flat layout and held to ``assemble_banded().D`` (1e-13),
+solved by phase 5 / 6's ``cg_ir`` ([7, 9, 9], 17), ``BandedOperator``
+on its regular layout bitwise against ``FlatBandedOperator``, and timed
+warm beside ``assemble_banded()`` (21).  Any failed check raises
+(nonzero exit).
 
 Every kernel's entry in the JSON line has its time, its plain version's,
 the time of one PyTorch call computing the same function where one
@@ -234,6 +252,14 @@ KERNELS = {
     'vcycle_wavefront': ('cuda', 'pyiga_tpu_torch/csrc/mg.cu',
                          'pyiga_tpu/ops/mg.py:55 _smooth in _solve_fn :477 '
                          '(XLA)'),
+    # the windowed route's stage and folded final stage (K8, K8f)
+    'windowed_stage': ('cuda', 'pyiga_tpu_torch/csrc/windowed.cu',
+                       'no Pallas site: pyiga_tpu/ops/sumfac.py:395 '
+                       '`_windowed_stage` (XLA)'),
+    'windowed_fold': ('cuda', 'pyiga_tpu_torch/csrc/windowed.cu',
+                      'no Pallas site: pyiga_tpu/ops/sumfac.py:395 '
+                      '`_windowed_stage` in :433 `assemble_terms_windowed` '
+                      '(XLA)'),
 }
 # the kernels each main path runs
 POISSON_KERNELS = ('fields', 'stage', 'fold', 'flat_banded_f64',
@@ -250,6 +276,8 @@ USERGEO_KERNELS = ('host_jac_fields', 'stage', 'fold')
 TAILFUSED_KERNELS = ('fields', 'stage', 'stage_T', 'tail_fused',
                      'flat_banded_f64', 'flat_banded_f32')
 DIRICHLET_KERNELS = ('fields', 'stage', 'stage_T', 'tail_fused')
+# the windowed route (phases 4m and 21)
+WINDOWED_KERNELS = ('windowed_stage', 'windowed_fold')
 # phase 10's end times: esdirk34 factors 4 sparse LUs of the 16,641 free
 # dofs per step attempt (~2.5 s each on the host), and its start from
 # tau0 = 1e-3 rejects 5 attempts, so t = 0.1 would take minutes; t = 3e-4
@@ -4511,6 +4539,370 @@ def run_diff_phase(device, n3=48, n2=128, examples=True):
     return rec
 
 
+################################################################################
+# The windowed route (phases 4m and 21): K8 and K8f, csrc/windowed.cu
+################################################################################
+
+# (p, elements, R, terms, tables); terms 0: one K8 stage.  p=2 (nqp 3),
+# nwin = 1 (p=3 on 4 spans), p=1 and p=4 (b = 3 and 9), dof counts that
+# fill no whole warp or run (15, 7, 41, 53, 14), R below and across the
+# 32-wide r tile, a fold of 1 term and one of 16 over 4 tables, and a p=4
+# fold over 64 dofs whose one run would not fit in shared memory
+WINDOWED_RAGGED = ((2, 13, 1001, 0, 1), (3, 4, 45, 0, 1), (1, 40, 33, 0, 1),
+                   (2, 13, 300, 1, 1), (3, 50, 77, 16, 4),
+                   (4, 10, 100, 3, 2), (4, 60, 100, 3, 2))
+
+
+def windowed_1d_tables(p, nel, device):
+    """The windowed pair tables of the four derivative pairs of a 1D
+    space (degree p, nel elements) on `device`, the window starts and
+    nqp."""
+    from pyiga_tpu_torch import bspline
+    from pyiga_tpu_torch.mlmatrix import MLStructure
+    from pyiga_tpu_torch.ops import sumfac
+    kv = bspline.make_knots(p, 0.0, 1.0, nel)
+    grid, _w = sumfac.quadrature_for((kv,))
+    st = sumfac.SpaceTables((kv,), (kv,), grid,
+                            MLStructure.from_kvs((kv,), (kv,)).bidx, 1)
+    out = [st.windowed_pair_table(0, du, dv)
+           for du, dv in ((0, 0), (0, 1), (1, 0), (1, 1))]
+    return ([torch.as_tensor(P, device=device) for P, _fs in out],
+            torch.as_tensor(out[0][1], device=device), st.nqps[0])
+
+
+def windowed_bound(xs, tabs, fs, got):
+    """Bytes (the fields, the distinct tables and the starts read once,
+    the output written once) and operations (one product a distinct
+    table over the band's entries inside the matrix, the terms sharing
+    a table added first)."""
+    Q, R = xs[0].shape
+    n, b, wsz = tabs[0].shape
+    p = (b - 1) // 2
+    i = np.arange(n)
+    pairs = int(np.sum(np.minimum(n, i + p + 1) - np.maximum(0, i - p)))
+    flops = 2 * R * pairs * wsz * len(tabs) + (len(xs) - len(tabs)) * Q * R
+    return bound(nbytes(*xs, *tabs, fs, got), flops, F64_FMA_PER_MS)
+
+
+def windowed_case(name, xs, tabs, idx, fs, nqp, device, fold, btabs=None):
+    """K8 (`fold` False: one term) or K8f against its plain version at one
+    shape: 1e-14 relative to the largest entry, bitwise on a repeat; the
+    times of the kernel, of the plain version, of the einsum yardstick
+    (one call over every term's windows, gathered outside its timing) and,
+    with `btabs` (the banded pair tables of the same terms), of K2 / K3 on
+    those: the same output, with the band's zeros in the contraction."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    if fold:
+        def run():
+            return cs.windowed_fold(xs, tabs, idx, fs, nqp)
+
+        def plain():
+            return cs.windowed_fold_plain(xs, tabs, idx, fs, nqp)
+    else:
+        def run():
+            return cs.windowed_stage(xs[0], tabs[idx[0]], fs, nqp)
+
+        def plain():
+            return cs.windowed_stage_plain(xs[0], tabs[idx[0]], fs, nqp)
+    got = run()
+    sync(device)
+    err, rel = compare(name, got, plain(), 1e-14)
+    check_repeat(name, run, got)
+    rec = dict(max_abs_err=err, rel=rel, repeat_equal=True,
+               shape=[len(xs)] + list(xs[0].shape) + list(tabs[0].shape),
+               tables=len(tabs), ms=time_ms(run, device),
+               plain_ms=time_ms(plain, device, reps=3),
+               **windowed_bound(xs, tabs, fs, got))
+    del got
+    wsz = tabs[0].shape[2]
+    q = (fs[:, None] * nqp
+         + torch.arange(wsz, device=device)[None, :]).reshape(-1)
+    G = torch.stack([X[q].reshape(fs.shape[0], wsz, -1) for X in xs])
+    Ps = torch.stack([tabs[i] for i in idx])
+    rec['library_ms'] = time_ms(
+        lambda: torch.einsum('tiwr,tiow->roi', G, Ps), device)
+    del G, Ps
+    if btabs is not None:
+        rec['k2k3_banded_ms'] = time_ms(
+            (lambda: cs.fold(xs, btabs, idx)) if fold
+            else (lambda: cs.stage(xs[0], btabs[idx[0]])), device)
+    log('  %-26s kernel %.4f ms  plain %.4f  einsum %.4f  K2/K3 banded %s  '
+        'bound %.4f (%s, %.1f MB)'
+        % (name, rec['ms'], rec['plain_ms'], rec['library_ms'],
+           '%.4f' % rec['k2k3_banded_ms'] if btabs is not None else '-',
+           rec['bound_ms'], rec['bound_by'], rec['bound_bytes'] / 1e6))
+    return rec
+
+
+# phase 4m's (dimension, elements) of the 3D twisted box and the 2D
+# quarter annulus, p=3
+WINDOWED_SIZES = ((3, 48), (2, 128))
+
+
+def check_windowed_kernels(device, seed=13):
+    """Phase 4m: K8 (``windowed_stage``) and K8f (``windowed_fold``)
+    against their plain versions on `device` at the windowed route's
+    shapes: the 3D p=3 n=48 twisted box's stage 1 and stage 2 and the
+    fold of its 6 plan terms (3 tables), the 2D p=3 n=128 quarter
+    annulus's stage 1 and fold (3 terms), and the ragged shapes above.
+    The JSON line's numbers are the 3D ones (stage: both stages summed,
+    as K2's)."""
+    from pyiga_tpu_torch.ops import banded as bd
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    from pyiga_tpu_torch.ops.sumfac import last_table_groups
+    rng = np.random.RandomState(seed)
+    f64 = torch.float64
+
+    def rand(*shape):
+        return torch.as_tensor(rng.rand(*shape), dtype=f64, device=device)
+
+    def dev(a, dtype=f64):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+    cases = {}
+    for dim, n in WINDOWED_SIZES:
+        asm = main_path_setup(dim, n, device)
+        wtabs, fss = asm.tables.windowed_term_tables(asm.terms)
+        btabs = asm.tables.banded_term_tables(asm.terms,
+                                              bd.band_info(asm.structure))
+        nqp, fs = asm.tables.nqps[0], dev(fss[0], torch.int64)
+        Q = asm.tables.trial[0].shape[2]
+        bn = wtabs[0][0].shape[0] * wtabs[0][0].shape[1]
+        tag = '%dD n=%d' % (dim, n)
+        # stage 1 (Q, Q^(d-1)) -> (Q^(d-1), b n); 3D stage 2 (Q, Q b n)
+        for k, R in [(0, Q ** (dim - 1))] + ([(1, Q * bn)] if dim == 3
+                                              else []):
+            name = 'stage %d %s' % (k + 1, tag)
+            cases[name] = windowed_case(
+                name, [rand(Q, R)], [dev(wtabs[0][k])], [0], fs, nqp,
+                device, False, btabs=[dev(btabs[0][k])])
+        plan = asm._fold()
+        idx = list(last_table_groups([wtabs[t] for t, _m in plan]))
+        tabs, btab = [None] * (max(idx) + 1), [None] * (max(idx) + 1)
+        for (t, _m), i in zip(plan, idx):
+            tabs[i], btab[i] = dev(wtabs[t][-1]), dev(btabs[t][-1])
+        name = 'fold %s' % tag
+        cases[name] = windowed_case(
+            name, [rand(Q, bn ** (dim - 1)) for _ in plan], tabs, idx, fs,
+            nqp, device, True, btabs=btab)
+        del asm
+        torch.cuda.empty_cache()
+    ragged = {}
+    for p, nel, R, nterms, ntab in WINDOWED_RAGGED:
+        tabs, fs, nqp = windowed_1d_tables(p, nel, device)
+        tabs = tabs[:ntab]
+        xs = [rand(nel * nqp, R) for _ in range(max(nterms, 1))]
+        idx = [t % ntab for t in range(len(xs))]
+
+        def run():
+            if nterms:
+                return cs.windowed_fold(xs, tabs, idx, fs, nqp)
+            return cs.windowed_stage(xs[0], tabs[0], fs, nqp)
+        key = 'p=%d n=%d R=%d %s' % (p, fs.shape[0], R, '%d terms' % nterms
+                                     if nterms else 'stage')
+        got = run()
+        sync(device)
+        ragged[key] = compare(key, got, cs.windowed_fold_plain(
+            xs, tabs, idx, fs, nqp), 1e-14)
+        check_repeat(key, run, got)
+    n3 = dict(WINDOWED_SIZES)[3]
+    s1, s2 = cases['stage 1 3D n=%d' % n3], cases['stage 2 3D n=%d' % n3]
+    out = {'windowed_stage': dict(
+        max_abs_err=max(s1['max_abs_err'], s2['max_abs_err']),
+        rel=max(s1['rel'], s2['rel']), repeat_equal=True,
+        ms=s1['ms'] + s2['ms'], plain_ms=s1['plain_ms'] + s2['plain_ms'],
+        library_ms=s1['library_ms'] + s2['library_ms'],
+        k2k3_banded_ms=s1['k2k3_banded_ms'] + s2['k2k3_banded_ms'],
+        ms_each=[s1['ms'], s2['ms']],
+        **bound(s1['bound_bytes'] + s2['bound_bytes'],
+                s1['bound_flops'] + s2['bound_flops'], F64_FMA_PER_MS)),
+        'windowed_fold': dict(cases['fold 3D n=%d' % n3])}
+    for k in WINDOWED_KERNELS:
+        out[k]['cases'] = cases
+        out[k]['ragged'] = ragged
+    return out
+
+
+# phase 21's cases: (dim, n, assembler, the cg_ir inner counts of phases
+# 5 / 6 on this operator, or None: no solve)
+WINDOWED_CASES = ((3, 48, 'StiffnessAssembler', [7, 9, 9]),
+                  (3, 48, 'MassAssembler', None),
+                  (2, 128, 'StiffnessAssembler', 17))
+
+
+def windowed_route_case(dim, n, name, iters, device):
+    """One case of phase 21 (see :func:`run_windowed_phase`)."""
+    from pyiga_tpu_torch import assemblers, bspline, geometry
+    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch.ops import banded as bd
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    from pyiga_tpu_torch.ops import sumfac
+    kvs = dim * (bspline.make_knots(3, 0.0, 1.0, n),)
+    geo = geometry.twisted_box() if dim == 3 else geometry.quarter_annulus()
+    t0 = time.perf_counter()
+    asm = getattr(assemblers, name)(kvs, geo, device=device)
+    ops = asm._windowed_operands()
+    bws = bd.band_info(asm.structure)
+    ns = tuple(b[0] for b in asm.structure.bs)
+    btabs = asm.tables.banded_term_tables(asm.terms, bws)
+    rec = dict(dim=dim, n=n, assembler=name,
+               t_host_setup_ms=1e3 * (time.perf_counter() - t0))
+
+    def route():
+        return sumfac.run_windowed_assembly(
+            asm.field_fn, asm.geo_inputs(), ops['wtabs'], ops['fss'],
+            asm.tables.nqps, ops['plan'], ops['tperms'])
+    route()                                # warm (caching allocator)
+    base = peak_reset(device)
+    _cuda.reset_launches()
+    Z = route()
+    rec['peak_bytes'] = peak_since(device, base)
+    rec['launches'] = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    log('  %dD n=%d %s: launches %s, peak %.1f MB above the inputs'
+        % (dim, n, name, rec['launches'], rec['peak_bytes'] / 1e6))
+    if rec['launches'].get('fold', 0) or any(
+            _cuda.LAUNCHES[k] <= 0 for k in WINDOWED_KERNELS):
+        raise RuntimeError('windowed route: K3 launched or a windowed '
+                           'kernel missed: %s' % rec['launches'])
+    # 1. the compact take against run_device()'s compact data
+    compact = asm.run_device()
+    d = Z.dim()
+    take = Z[tuple(m.reshape([-1 if a == k else 1 for a in range(d)])
+                   for k, m in enumerate(ops['cmaps']))]
+    sync(device)
+    rec['compact_max_abs_err'], rec['compact_rel'] = compare(
+        'compact take', take, compact, 1e-14)
+    mlm = asm.assemble_windowed()
+    if not np.array_equal(mlm.data, take.cpu().numpy()):
+        raise RuntimeError('assemble_windowed() differs from its route')
+    del compact, take, mlm
+    # 2. the flat layout against assemble_banded()
+    Dw = bd.flat_banded_from_padded_chain(Z, bws, ns, add_transpose=False)
+    op_ref = asm.assemble_banded()
+    sync(device)
+    rec['flat_max_abs_err'], rec['flat_rel'] = compare(
+        'flat vs banded', Dw, op_ref.D, 1e-13)
+    op_w = bd.FlatBandedOperator(Dw, bws, ns)
+    # 4. BandedOperator on the regular layout: K4's matvec bitwise
+    bop = bd.BandedOperator(
+        sumfac.banded_reorder(Z, tuple(2 * b + 1 for b in bws), ns), bws, ns)
+    x = torch.as_tensor(np.random.RandomState(3).rand(op_w.shape[0]),
+                        device=device)
+    _cuda.reset_launches()
+    yb, yf = bop(x), op_w(x)
+    sync(device)
+    if not torch.equal(yb, yf) or (device.type == 'cuda' and
+                                   _cuda.LAUNCHES['flat_banded_f64'] != 2):
+        raise RuntimeError('BandedOperator disagrees with FlatBandedOperator')
+    rec['banded_operator_bitwise'] = True
+    # 3. the solve of phases 5 / 6 on the windowed operator
+    if iters is not None:
+        _cuda.reset_launches()
+        xw, info, res, _, t_solve = solve_case(asm, op_w, device)
+        rec['solve_launches'] = {k: v for k, v in _cuda.LAUNCHES.items()
+                                 if v}
+        xr, info_r, res_r, _, _ = solve_case(asm, op_ref, device)
+        got = info['inner_iters'] if dim == 3 else sum(info['inner_iters'])
+        rec.update(inner_iters=info['inner_iters'], residual=res,
+                   inner_iters_banded=info_r['inner_iters'],
+                   t_solve_ms=1e3 * t_solve,
+                   x_rel=float((xw - xr).abs().max() / xr.abs().max()))
+        log('  cg_ir on the windowed operator: inner %s (assemble_banded: '
+            '%s), residual %.3e, x vs banded rel %.3e, launches %s'
+            % (info['inner_iters'], info_r['inner_iters'], res,
+               rec['x_rel'], rec['solve_launches']))
+        if got != iters or info_r['inner_iters'] != info['inner_iters'] \
+                or not res <= 1e-8:
+            raise RuntimeError('windowed operator: inner %s, expected %s'
+                               % (info['inner_iters'], iters))
+    del op_w, bop, Dw, op_ref
+    # 5. warm times: the route, its chains alone, the mirror, beside
+    # assemble_banded() and its chains (K2 + K3)
+    F = asm.field_fn(asm.geo_inputs())
+    plan = ops['plan'] or [(t, False) for t in range(len(asm.terms))]
+    rec['route_ms'] = time_ms(route, device)
+    rec['chains_ms'] = time_ms(lambda: cs.assemble_terms_windowed(
+        ops['wtabs'], ops['fss'], asm.tables.nqps, F, ops['plan'],
+        ops['tperms']), device)
+    if ops['tperms'] is not None:
+        ix = tuple(p.reshape([-1 if a == k else 1 for a in range(d)])
+                   for k, p in enumerate(ops['tperms']))
+        rec['mirror_ms'] = time_ms(lambda: Z + Z[ix], device)
+    # K4's layout from the banded-flat tensor: the regular layout's
+    # reshape (one permuting copy) against the relayout's slices
+    bsz = tuple(2 * b + 1 for b in bws)
+    rec['reorder_ms'] = time_ms(lambda: bd.flat_banded_embed_device(
+        sumfac.banded_reorder(Z, bsz, ns), bws, ns), device)
+    rec['relayout_ms'] = time_ms(lambda: bd.flat_banded_from_padded_chain(
+        Z, bws, ns, add_transpose=False), device)
+    saved, cs.TAIL_FUSED = cs.TAIL_FUSED, False
+    try:
+        base = peak_reset(device)
+        asm.assemble_banded()
+        rec['banded_peak_bytes'] = peak_since(device, base)
+        rec['assemble_banded_ms'] = time_ms(asm.assemble_banded, device)
+        up = {}
+        tabs = [[up.setdefault(id(T), torch.as_tensor(T, device=device))
+                 for T in btabs[t]] for t, _m in plan]
+        last_idx = sumfac.last_table_groups([btabs[t] for t, _m in plan])
+        Fp = [F[t] for t, _m in plan]
+        rec['banded_chains_ms'] = time_ms(
+            lambda: cs.chain_folded(tabs, Fp, last_idx), device)
+    finally:
+        cs.TAIL_FUSED = saved
+    log('  warm: windowed route %.3f ms (chains %.3f, mirror %s) | '
+        'assemble_banded %.3f ms (K2 + K3 chains %.3f); peak %.1f / %.1f MB'
+        % (rec['route_ms'], rec['chains_ms'],
+           '%.3f' % rec['mirror_ms'] if 'mirror_ms' in rec else '-',
+           rec['assemble_banded_ms'], rec['banded_chains_ms'],
+           rec['peak_bytes'] / 1e6, rec['banded_peak_bytes'] / 1e6))
+    log('  to the flat layout: regular-layout reshape %.3f ms, relayout '
+        'slices %.3f ms' % (rec['reorder_ms'], rec['relayout_ms']))
+    return rec
+
+
+def peak_reset(device):
+    """Reset the peak device bytes; returns those allocated now (0 on
+    the CPU)."""
+    if device.type != 'cuda':
+        return 0
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def peak_since(device, base):
+    """Peak device bytes above `base` since :func:`peak_reset`."""
+    if device.type != 'cuda':
+        return 0
+    sync(device)
+    return torch.cuda.max_memory_allocated(device) - base
+
+
+def run_windowed_phase(device):
+    """Phase 21: the windowed route end to end on the 3D p=3 n=48 twisted
+    box (stiffness and mass) and the 2D p=3 NURBS quarter annulus n=128
+    (stiffness).  Each case runs ``run_windowed_assembly`` with the
+    launches counted from zero (K8 and K8f, the geometry stages' K2, no
+    K3) and the peak device bytes; holds its compact take to
+    ``run_device()`` (1e-14 relative) and to ``assemble_windowed()``
+    (bitwise), its flat layout (``flat_banded_from_padded_chain``, no
+    transpose) to ``assemble_banded().D`` (1e-13); solves the stiffness
+    cases by phase 5 / 6's ``cg_ir`` on that operator ([7, 9, 9] at 3D,
+    17 at 2D, each equal to ``assemble_banded()``'s); holds
+    ``BandedOperator`` on ``banded_reorder(Z)`` to ``FlatBandedOperator``
+    bitwise; and times the route, its chains alone and the mirror, warm,
+    beside ``assemble_banded()`` and its K2 + K3 chains, and the two ways
+    from Z to K4's layout (the regular layout's reshape, the relayout's
+    slices)."""
+    out = {}
+    for dim, n, name, iters in WINDOWED_CASES:
+        out['%s %dD n=%d' % (name, dim, n)] = windowed_route_case(
+            dim, n, name, iters, device)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -4738,6 +5130,20 @@ def main():
     launches.update((k, diffrec['launches'][k]) for k in DIFF_KERNELS)
     torch.cuda.empty_cache()
 
+    log('phase 4m: K8 (windowed_stage) and K8f (windowed_fold) vs plain '
+        'versions at the 3D n=48 and 2D n=128 shapes and ragged shapes')
+    win_kern = check_windowed_kernels(device)
+    kern.update(win_kern)
+    torch.cuda.empty_cache()
+
+    log('phase 21: the windowed route, 3D p=3 n=48 stiffness and mass, 2D '
+        'p=3 n=128 stiffness, held to run_device(), assemble_banded() and '
+        'its solve')
+    windowed = run_windowed_phase(device)
+    launches.update((k, windowed['StiffnessAssembler 3D n=48']['launches'][k])
+                    for k in WINDOWED_KERNELS)
+    torch.cuda.empty_cache()
+
     # the NS shapes of the kernels the NS path runs, beside their launches
     # in phase 16's integration
     ns_line = {k: dict(launches=nsrec['launches'][k]) for k in NS_KERNELS}
@@ -4793,7 +5199,8 @@ def main():
                   navier_stokes=nsrec, item8_kernels=item8_kern,
                   surface=surface, second_derivatives=second,
                   multipatch=multipatch, diff_kernels=diff_kern,
-                  diff=diffrec, seconds=time.perf_counter() - t_start)
+                  diff=diffrec, windowed_kernels=win_kern,
+                  windowed=windowed, seconds=time.perf_counter() - t_start)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:
         json.dump(record, f, indent=1, default=str)

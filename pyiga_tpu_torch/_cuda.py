@@ -46,7 +46,9 @@ LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'mass_fields': 0,
             'wavefront_gs': 0,
             # the backward kernels of the differentiable assembly (diff.py)
             'fields_bwd': 0, 'mass_fields_bwd': 0, 'geo_jac_fields_bwd': 0,
-            'stage_bwd': 0, 'fold_bwd': 0, 'vform_adjoint': 0}
+            'stage_bwd': 0, 'fold_bwd': 0, 'vform_adjoint': 0,
+            # the windowed route (csrc/windowed.cu)
+            'windowed_stage': 0, 'windowed_fold': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,6 +74,9 @@ _SIGNATURES = {
     'pyiga_wavefront_gs_f64': (_P, _I, _I, _P, _P, _L, _P),
     'pyiga_wavefront_quotient_f64': (_P, _P, _P, _P, _L, _P),
     'pyiga_wavefront_layout': (_I,),
+    'pyiga_windowed_stage_f64': (_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P),
+    'pyiga_windowed_fold_f64': (_P, _P, _I, _P, _P, _L, _L, _I, _I, _I, _I,
+                                _P),
 }
 
 _lock = threading.Lock()

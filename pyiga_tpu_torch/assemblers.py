@@ -15,7 +15,10 @@ evaluated on the host):
   pair tables and lays the result out for the flat banded matvec (K4),
   returning a float64
   :class:`~pyiga_tpu_torch.ops.banded.FlatBandedOperator` on the
-  assembler's device.
+  assembler's device;
+* :meth:`BaseGaussAssembler.assemble_windowed` contracts each basis pair
+  over its support window only (K8 stages, one K8f fold) and returns the
+  host MLMatrix, as :meth:`~BaseGaussAssembler.assemble` does.
 
 On the CPU the same pipelines run the kernels' plain PyTorch versions.
 """
@@ -73,6 +76,7 @@ class BaseGaussAssembler:
         self._geo_inputs = self._make_geo_inputs()
         self._jac_dev = None
         self._compact_ops = None
+        self._windowed_ops = None
 
     def _make_geo_inputs(self):
         inputs = {'weights': [np.asarray(w) for w in self.gweights]}
@@ -180,14 +184,71 @@ class BaseGaussAssembler:
         data = self.run_device(mode)
         return self.structure.make_mlmatrix(data=data.cpu().numpy())
 
+    def _windowed_operands(self):
+        """Device tensors of the windowed assembly (memoized): the
+        windowed pair tables of every term (each distinct host table
+        uploaded once), the window starts, the banded-flat transpose
+        permutations of a folded plan and the banded-flat -> compact
+        index maps."""
+        if self._windowed_ops is not None:
+            return self._windowed_ops
+        bws = band_info(self.structure)
+        if bws is None:
+            raise ValueError('windowed assembly requires a regularly banded '
+                             'space')
+        host_tabs, fss = self.tables.windowed_term_tables(self.terms)
+
+        def dev(a, dtype=torch.int64):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=self.device)
+        # the pair-table cache interns shared tables: one upload each
+        uploaded = {}
+        for tabs in host_tabs:
+            for T in tabs:
+                if id(T) not in uploaded:
+                    uploaded[id(T)] = dev(T, DTYPE)
+        plan = self._fold()
+        ns = tuple(b[0] for b in self.structure.bs)
+        tperms = None
+        if plan is not None:
+            tperms = [dev(sumfac.banded_transpose_perm(n, bw))
+                      for n, bw in zip(ns, bws)]
+        self._windowed_ops = dict(
+            wtabs=[[uploaded[id(T)] for T in tabs] for tabs in host_tabs],
+            fss=[dev(f) for f in fss], plan=plan, tperms=tperms,
+            cmaps=[dev(m) for m in
+                   sumfac.compact_from_banded_maps(self.structure, bws)])
+        return self._windowed_ops
+
+    def assemble_windowed(self):
+        """Assemble through the windowed pair tables: each basis pair
+        contracts only the ``(p+1)*nqp`` Gauss points of its support
+        window, ~(2p+1)x fewer multiply-adds than :meth:`assemble`'s
+        chains (K8 stages and one K8f fold on the card, then the mirror
+        of a symmetric form), and the banded-flat result is taken to the
+        compact layout on the device.  Returns the host
+        :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix`, equal to
+        :meth:`assemble`'s up to rounding.  Needs a regularly banded
+        space with equal trial and test degrees (raises ValueError
+        otherwise)."""
+        ops = self._windowed_operands()
+        flat = sumfac.run_windowed_assembly(
+            self.field_fn, self.geo_inputs(), ops['wtabs'], ops['fss'],
+            self.tables.nqps, ops['plan'], ops['tperms'])
+        d = flat.dim()
+        data = flat[tuple(m.reshape([-1 if a == k else 1 for a in range(d)])
+                          for k, m in enumerate(ops['cmaps']))]
+        return self.structure.make_mlmatrix(data=data.cpu().numpy())
+
     def assemble_banded(self, mode=None):
         """Assemble straight into the flat banded solver layout and return
         the float64 :class:`FlatBandedOperator` on the assembler's device
         (the data never leaves it).  `mode` is accepted for API
         compatibility and ignored, as in :meth:`run_device`.  The JAX
-        package returns its regular-layout ``BandedOperator`` here; that
-        operator is ROADMAP item 10's, and the flat layout is the one the
-        port's K4 reads."""
+        package returns its regular-layout ``BandedOperator`` here; the
+        port has that class too
+        (:class:`~pyiga_tpu_torch.ops.banded.BandedOperator`, the same K4
+        on a reshape), and returns the flat layout that K4 reads."""
         bws = band_info(self.structure)
         if bws is None:
             raise ValueError('space is not regularly banded '

@@ -14,12 +14,17 @@ because D is zero exactly where the band leaves the matrix, which masks
 every read that wraps across an axis boundary.  The port stores D as
 ``(C, F)`` (combo-major, no lane padding) and x zero-padded by ``lead``
 on both sides.
+
+The regular layout ``(b..., n...)`` reshapes to that flat layout with no
+copy of its own, so :class:`BandedOperator` (the JAX package's
+regular-layout operator) runs the same K4 matvec.
 """
 
 import numpy as np
 import torch
 
 from .. import _cuda
+from ..config import resolve_device
 
 
 def band_info(structure):
@@ -40,6 +45,65 @@ def band_info(structure):
     return bws
 
 
+def compact_to_banded_indices(structure, bws):
+    """Indices mapping the flat compact data tensor into the padded banded
+    tensor: returns per-level arrays ``(mu_k, i_k)`` for each nonzero."""
+    out = []
+    for bw, bidx in zip(bws, structure.bidx):
+        i = bidx[:, 0].astype(np.int64)
+        j = bidx[:, 1].astype(np.int64)
+        out.append((j - i + bw, i))
+    return out
+
+
+def banded_from_compact(data, structure, bws):
+    """Scatter the compact data tensor into the regular banded layout
+    ``(b_1, ..., b_d, n_1, ..., n_d)`` (zeros on the padding).  Host numpy:
+    the mapping is separable per level, one ``np.ix_`` assignment."""
+    d = len(bws)
+    ns = [b[0] for b in structure.bs]
+    bsz = [2 * bw + 1 for bw in bws]
+    idx = compact_to_banded_indices(structure, bws)
+    flat = [mu * n + i for (mu, i), n in zip(idx, ns)]
+    # interleaved layout (b1, n1, b2, n2, ...), flattened per level
+    D = np.zeros([b * n for b, n in zip(bsz, ns)],
+                 dtype=np.asarray(data).dtype)
+    D[np.ix_(*flat)] = np.asarray(data)
+    D = D.reshape([x for b, n in zip(bsz, ns) for x in (b, n)])
+    perm = list(range(0, 2 * d, 2)) + list(range(1, 2 * d, 2))
+    return np.ascontiguousarray(np.transpose(D, perm))
+
+
+def banded_gather_maps(structure, bws):
+    """Per-level lookup tables mapping banded flat row ``mu*n + i`` to the
+    compact data index (or -1 on the clipped-band padding).  Host setup
+    for :func:`banded_from_compact_device`."""
+    maps = []
+    for (m, n), bidx, bw in zip(structure.bs, structure.bidx, bws):
+        lookup = -np.ones((2 * bw + 1) * n, dtype=np.int64)
+        i = bidx[:, 0].astype(np.int64)
+        mu = bidx[:, 1].astype(np.int64) - i + bw
+        lookup[mu * n + i] = np.arange(len(bidx))
+        maps.append(lookup)
+    return maps
+
+
+def banded_from_compact_device(data, maps, bsz, ns):
+    """Compact -> banded ``(b..., n...)`` on the data's device: one
+    separable gather per level with the padding zeroed, then the reorder
+    (:func:`~pyiga_tpu_torch.ops.sumfac.banded_reorder`, a view); the
+    data never leaves the device."""
+    from .sumfac import banded_reorder
+    X = data
+    for k, lk in enumerate(maps):
+        lk = torch.as_tensor(lk, dtype=torch.int64, device=data.device)
+        mask_shape = [1] * data.dim()
+        mask_shape[k] = -1
+        X = (torch.index_select(X, k, torch.clamp(lk, min=0))
+             * (lk >= 0).reshape(mask_shape).to(data.dtype))
+    return banded_reorder(X, bsz, ns)
+
+
 def flat_banded_layout(bws, ns):
     """Static layout of the flat banded matvec: band sizes ``bsz``, combo
     count ``C``, flat length ``F``, per-combo shifts ``offs`` (int64, combo
@@ -56,8 +120,16 @@ def flat_banded_layout(bws, ns):
 def flat_banded_data(D, bws, ns):
     """Banded data ``(b..., n...)`` (numpy or tensor) as the flat ``(C, F)``
     layout (a reshape: the port's flat layout has no lane padding)."""
-    lay = flat_banded_layout(bws, ns)
-    return torch.as_tensor(D).reshape(lay['C'], lay['F'])
+    return flat_banded_embed_device(torch.as_tensor(D), bws, ns)
+
+
+def flat_banded_embed_device(D_banded, bws, ns, lay=None):
+    """The regular ``(b..., n...)`` (or ``(C,) + ns``) layout as the flat
+    ``(C, F)`` one: a reshape (a copy only where `D_banded` is a
+    non-contiguous view, as :func:`banded_from_compact_device`'s)."""
+    if lay is None:
+        lay = flat_banded_layout(tuple(bws), tuple(ns))
+    return D_banded.reshape(lay['C'], lay['F'])
 
 
 def flat_banded_from_padded_chain(Z, bws, ns, add_transpose=True):
@@ -169,6 +241,13 @@ class FlatBandedOperator:
         """The same operator with its data cast to `dtype`."""
         return FlatBandedOperator(self.D.to(dtype), self.bws, self.ns)
 
+    def set_data_banded_device(self, D_banded):
+        """Replace the data by a regular-layout ``(b..., n...)`` tensor
+        (:func:`flat_banded_embed_device`), cast to the operator's dtype
+        and device."""
+        D = flat_banded_embed_device(D_banded, self.bws, self.ns, self.lay)
+        self.D = D.to(dtype=self.dtype, device=self.device).contiguous()
+
     def matvec(self, x):
         lead, F = self.lay['lead'], self.lay['F']
         xp = torch.zeros(F + 2 * lead, dtype=self.dtype, device=self.device)
@@ -176,3 +255,61 @@ class FlatBandedOperator:
         return flat_banded_matvec(self.D, xp, self._offs, lead)
 
     __call__ = matvec
+
+
+class BandedOperator:
+    """Banded operator on the regular layout ``D (b_1..b_d, n_1..n_d)``
+    (``j_k = i_k + mu_k - b_k``, zeros on the padding), as the JAX
+    package's: its matvec is K4 on ``D.reshape(C, F)``
+    (:class:`FlatBandedOperator`).  A tensor `D` stays on its device; a
+    numpy one goes to `device` (default: the card).  Callable on raveled
+    vectors of the full dof grid."""
+
+    def __init__(self, D, bws, ns, device=None):
+        if not isinstance(D, torch.Tensor):
+            D = torch.as_tensor(np.asarray(D), device=resolve_device(device))
+        self.bws, self.ns = tuple(bws), tuple(ns)
+        self.D = D
+        self.dtype, self.device = D.dtype, D.device
+        self.shape = (int(np.prod(ns)), int(np.prod(ns)))
+        self.flat = FlatBandedOperator(
+            flat_banded_embed_device(D, self.bws, self.ns), self.bws,
+            self.ns)
+
+    def to(self, dtype):
+        """The same operator with its data cast to `dtype`."""
+        return BandedOperator(self.D.to(dtype), self.bws, self.ns)
+
+    @staticmethod
+    def from_mlmatrix(mlm, data=None, device=None):
+        """Build from an MLMatrix (its structure; `data` may replace its
+        data tensor).  None if the space is not regularly banded."""
+        bws = band_info(mlm.structure)
+        if bws is None:
+            return None
+        ns = tuple(b[0] for b in mlm.structure.bs)
+        if data is None:
+            data = mlm.data
+        if isinstance(data, torch.Tensor):
+            maps = banded_gather_maps(mlm.structure, bws)
+            D = banded_from_compact_device(
+                data, maps, tuple(2 * b + 1 for b in bws), ns)
+        else:
+            D = banded_from_compact(data, mlm.structure, bws)
+        return BandedOperator(D, bws, ns, device=device)
+
+    def matvec(self, x):
+        return self.flat.matvec(x)
+
+    __call__ = matvec
+
+
+def banded_matvec(D, x, bws, ns):
+    """Banded matvec: `D` in ``(b_1..b_d, n_1..n_d)`` layout, `x` raveled
+    (K4 on the flat reshape of `D`)."""
+    return BandedOperator(D, bws, ns).matvec(x.reshape(-1))
+
+
+# the JAX package's static-offset form exists for SPMD slicing; the port
+# has one matvec
+banded_matvec_static = banded_matvec

@@ -26,7 +26,11 @@ The kernels (sources in ``csrc/fields.cu`` for K1 and K1',
   :data:`TAIL_FUSED` is on;
 * K2-bwd / K3-bwd :func:`stage_bwd`, :func:`fold_bwd` — the backward of
   a stage for one or all of a fold's distinct tables in one launch
-  (no Pallas site: the JAX package differentiates the XLA forms).
+  (no Pallas site: the JAX package differentiates the XLA forms);
+* K8 :func:`windowed_stage` and K8f :func:`windowed_fold` (source
+  ``csrc/windowed.cu``) — the windowed route's stage and its folded
+  final stage over support windows, and :func:`assemble_terms_windowed`
+  on them (no Pallas site: the JAX package runs that route in XLA).
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel (and raises if it cannot);
@@ -45,6 +49,7 @@ import torch
 from .. import _cuda
 from . import geom
 from .banded import flat_banded_from_padded_chain
+from .sumfac import windowed_stage_plain
 
 
 def _kernel_device(t, name):
@@ -886,6 +891,185 @@ def chain_tail_fused(term_tables, fields_):
     tc2, idx2 = _dedup([tabs[1] for tabs in term_tables])
     tc3, idx3 = _dedup([tabs[2] for tabs in term_tables])
     return tail_fused(x1T, tc2, tc3, idx2, idx3)
+
+
+################################################################################
+# K8 / K8f: the windowed route's stage and folded final stage
+################################################################################
+
+def windowed_fold_plain(xs, tables, idx, fs, nqp):
+    """Plain PyTorch version of :func:`windowed_fold`: one windowed stage a
+    term, added in term order."""
+    out = None
+    for X, i in zip(xs, idx):
+        Y = windowed_stage_plain(X, tables[i], fs, nqp)
+        out = Y if out is None else out + Y
+    return out
+
+
+def _check_window_starts(name, fs, n, nqp, wsz, Q):
+    """The kernels size their staged tile by the window starts that
+    :meth:`~pyiga_tpu_torch.ops.sumfac.SpaceTables.windowed_pair_table`
+    gives: non-decreasing from 0 in steps of at most 1, the last window
+    inside X.  Checked on the host once per tensor and shape (one small
+    copy; the result is kept on the tensor with its version)."""
+    key = (fs._version, n, nqp, wsz, Q)
+    if getattr(fs, '_pyiga_window_check', None) == key:
+        return
+    f = fs.cpu()
+    steps = f[1:] - f[:-1]
+    if not (int(f[0]) >= 0 and bool(((steps >= 0) & (steps <= 1)).all())
+            and int(f[-1]) * nqp + wsz <= Q):
+        raise ValueError('%s: window starts %s are not those of a windowed '
+                         'pair table over %d points' % (name, f.tolist(), Q))
+    fs._pyiga_window_check = key
+
+
+def _check_windowed_args(name, xs, tables, idx, fs, nqp):
+    """Shapes and devices of a windowed stage or fold (both devices)."""
+    if not xs or len(xs) != len(idx):
+        raise ValueError('%s: %d fields but %d table indices'
+                         % (name, len(xs), len(idx)))
+    X0 = xs[0]
+    dev = X0.device
+    n, b, wsz = tables[0].shape if tables[0].dim() == 3 else (0, 0, 0)
+    if X0.dim() != 2 or n < 1 or nqp < 1 or wsz % nqp or X0.shape[0] % nqp \
+            or X0.shape[0] < wsz:
+        raise ValueError('%s: X %s, table %s and nqp %d disagree'
+                         % (name, tuple(X0.shape), tuple(tables[0].shape),
+                            nqp))
+    for t, X in enumerate(xs):
+        if X.shape != X0.shape or X.device != dev:
+            raise ValueError('%s: xs[%d] is %s on %s, expected %s on %s'
+                             % (name, t, tuple(X.shape), X.device,
+                                tuple(X0.shape), dev))
+    for i, P in enumerate(tables):
+        if P.shape != (n, b, wsz) or P.device != dev:
+            raise ValueError('%s: tables[%d] is %s on %s, expected %s on %s'
+                             % (name, i, tuple(P.shape), P.device,
+                                (n, b, wsz), dev))
+    if not all(0 <= i < len(tables) for i in idx):
+        raise ValueError('%s: table indices %s outside [0, %d)'
+                         % (name, list(idx), len(tables)))
+    if fs.shape != (n,) or fs.dtype != torch.int64 or fs.device != dev:
+        raise ValueError('%s: fs must be (%d,) int64 on %s, got %s %s on %s'
+                         % (name, n, dev, tuple(fs.shape), fs.dtype,
+                            fs.device))
+
+
+def _windowed_kernel(name, xs, tables, idx, fs, nqp):
+    """One K8 (a term) or K8f launch on CUDA tensors, counted under
+    `name`; more than 16 terms run as several launches, summed."""
+    if len(xs) > _FOLD_MAX_TERMS:       # kMaxTerms in csrc/windowed.cu
+        k = _FOLD_MAX_TERMS
+        return (_windowed_kernel(name, xs[:k], tables, idx[:k], fs, nqp)
+                + _windowed_kernel(name, xs[k:], tables, idx[k:], fs, nqp))
+    for t, X in enumerate(xs):
+        _cuda.require(X, 'xs[%d]' % t, torch.float64, 2)
+    for i, P in enumerate(tables):
+        _cuda.require(P, 'tables[%d]' % i, torch.float64, 3)
+    _cuda.require(fs, 'fs', torch.int64, 1)
+    Q, R = xs[0].shape
+    n, b, wsz = tables[0].shape
+    if b not in (1, 3, 5, 7, 9):
+        raise ValueError('%s: the kernel takes 2p+1 <= 9 band offsets, got '
+                         '%d' % (name, b))
+    _check_window_starts(name, fs, n, nqp, wsz, Q)
+    Y = torch.empty((R, b * n), dtype=torch.float64, device=xs[0].device)
+    lib = _cuda.library()
+    with _cuda.device_of(Y):
+        if name == 'windowed_stage':
+            err = lib.pyiga_windowed_stage_f64(
+                xs[0].data_ptr(), tables[idx[0]].data_ptr(), fs.data_ptr(),
+                Y.data_ptr(), Q, R, n, b, wsz, nqp, _cuda.stream_of(Y))
+        else:
+            k = len(xs)
+            xp = (ctypes.c_uint64 * k)(*[X.data_ptr() for X in xs])
+            tp = (ctypes.c_uint64 * k)(*[tables[i].data_ptr() for i in idx])
+            err = lib.pyiga_windowed_fold_f64(
+                ctypes.cast(xp, ctypes.c_void_p),
+                ctypes.cast(tp, ctypes.c_void_p), k, fs.data_ptr(),
+                Y.data_ptr(), Q, R, n, b, wsz, nqp, _cuda.stream_of(Y))
+    _cuda.check(err, name)
+    _cuda.LAUNCHES[name] += 1
+    return Y
+
+
+def windowed_stage(X, P, fs, nqp):
+    """K8: ``Y[r, o*n + i] = sum_{w < wsz} X[fs[i]*nqp + w, r] P[i, o, w]``
+    for the field ``X (Q, R)``, a windowed pair table ``P (n, b, wsz)``
+    and its window starts ``fs (n,)`` int64
+    (:meth:`~pyiga_tpu_torch.ops.sumfac.SpaceTables.windowed_pair_table`);
+    returns the banded-flat ``(R, b*n)``, float64, every entry written
+    (zeros on the band's padding).  A CPU tensor runs
+    :func:`~pyiga_tpu_torch.ops.sumfac.windowed_stage_plain`, a CUDA
+    tensor launches the kernel; it has no backward there (an operand
+    that requires grad raises)."""
+    _check_windowed_args('windowed_stage', [X], [P], [0], fs, nqp)
+    if not _kernel_device(X, 'windowed_stage'):
+        return windowed_stage_plain(X, P, fs, nqp)
+    _cuda.no_grad_operands('windowed_stage', X, P)
+    return _windowed_kernel('windowed_stage', [X], [P], [0], fs, nqp)
+
+
+def windowed_fold(xs, tables, idx, fs, nqp):
+    """K8f: ``sum_t windowed_stage(xs[t], tables[idx[t]], fs, nqp)`` as one
+    ``(R, b*n)`` output written once; the tables are deduplicated (`idx`
+    maps terms to tables).  On the card the terms that share a table sum
+    their fields before the product (groups in order of first
+    appearance, terms in their given order), so the result is
+    deterministic and equals :func:`windowed_fold_plain` to rounding.
+    More than 16 terms run as several launches, summed.  A CPU tensor
+    runs the plain version; no backward on the card."""
+    _check_windowed_args('windowed_fold', xs, tables, idx, fs, nqp)
+    if not _kernel_device(xs[0], 'windowed_fold'):
+        return windowed_fold_plain(xs, tables, idx, fs, nqp)
+    _cuda.no_grad_operands('windowed_fold', *xs, *tables)
+    return _windowed_kernel('windowed_fold', list(xs), tables, list(idx), fs,
+                            nqp)
+
+
+def assemble_terms_windowed(wterm_tables, fss, nqps, fields, fold_plan=None,
+                            tperms=None):
+    """The windowed route on the fields' device (the device counterpart
+    of :func:`~pyiga_tpu_torch.ops.sumfac.assemble_terms_windowed`):
+    every plan term's stages but the last by K8, then ONE K8f over all
+    terms (tables deduplicated by tensor identity), then, with mirrored
+    terms, the mirror ``Z + Z^T`` as one advanced-index gather with the
+    banded-flat permutations `tperms` (LongTensors).  Direct and mirrored
+    terms share the one accumulator: with a mirror, each direct term's
+    first table enters halved (exact, a power of two), so that
+    ``Z + Z^T`` adds it once.  Returns the banded-flat ``(b_1 n_1, ...,
+    b_d n_d)``."""
+    plan = (fold_plan if fold_plan is not None
+            else [(t, False) for t in range(len(wterm_tables))])
+    any_mirror = any(m for _t, m in plan)
+    if any_mirror and not tperms:
+        raise ValueError('fold_plan has mirrored terms but no tperms')
+    halves, xs, last, shape_mid = {}, [], [], None
+    for t, mirrored in plan:
+        tabs = list(wterm_tables[t])
+        if any_mirror and not mirrored:
+            if id(tabs[0]) not in halves:
+                halves[id(tabs[0])] = 0.5 * tabs[0]
+            tabs[0] = halves[id(tabs[0])]
+        last.append(tabs[-1])
+        X = fields[t]
+        for k in range(len(tabs) - 1):
+            Y = windowed_stage(X.reshape(X.shape[0], -1).contiguous(),
+                               tabs[k], fss[k], nqps[k])
+            X = Y.reshape(tuple(X.shape[1:]) + (Y.shape[1],))
+        shape_mid = tuple(X.shape[1:])
+        xs.append(X.reshape(X.shape[0], -1).contiguous())
+    last, idx = _dedup(last)
+    Z = windowed_fold(xs, last, idx, fss[-1], nqps[-1])
+    Z = Z.reshape(shape_mid + (Z.shape[1],))
+    if any_mirror:
+        d = Z.dim()
+        ix = tuple(p.reshape([-1 if a == k else 1 for a in range(d)])
+                   for k, p in enumerate(tperms))
+        Z = Z + Z[ix]
+    return Z
 
 
 ################################################################################

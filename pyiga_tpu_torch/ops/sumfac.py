@@ -14,6 +14,13 @@ The hot path runs these chains through the CUDA stage kernels of
 :mod:`.cuda_sumfac`; :func:`contract_chain` and
 :func:`assemble_terms_folded` here are the plain tensordot form, kept as
 the in-package reference.
+
+The windowed route (:func:`contract_chain_windowed`,
+:func:`assemble_terms_windowed`, :func:`run_windowed_assembly`)
+contracts each basis pair over only the ``(p+1)*nqp`` Gauss points of
+its support window (:meth:`SpaceTables.windowed_pair_table`) and yields
+the banded-flat tensor, axis k at ``o_k*n_k + i_k``; its plain form is
+here, its kernels (K8, K8f) in :mod:`.cuda_sumfac`.
 """
 
 import numpy as np
@@ -102,6 +109,93 @@ def symmetric_fold_plan(terms):
     return plan
 
 
+def windowed_stage_plain(X, P, fs, nqp):
+    """One windowed contraction stage (the reference's
+    ``_windowed_stage``): contract the leading (quadrature) axis of `X`
+    against the windowed pair table ``P (n, b, wsz)``, dof i over the
+    ``wsz`` points from ``fs[i]*nqp``; the banded-flat result axis
+    ``o*n + i`` is appended last (cyclic chaining).  Materializes every
+    span window: the plain version of
+    :func:`~pyiga_tpu_torch.ops.cuda_sumfac.windowed_stage`."""
+    n, b, wsz = P.shape
+    pspan = wsz // nqp
+    nspans = X.shape[0] // nqp
+    nwin = nspans - pspan + 1
+    rest = tuple(X.shape[1:])
+    X4 = X.reshape((nspans, nqp) + rest)
+    # all length-(p+1) span windows, stacked: (nwin, pspan, nqp, *rest)
+    W = torch.stack([X4[c:c + nwin] for c in range(pspan)], dim=1)
+    G = W.reshape((nwin, wsz) + rest)[torch.as_tensor(fs, device=X.device)]
+    Y = torch.einsum('iw...,iow->...oi', G, P)
+    return Y.reshape(rest + (b * n,))
+
+
+def contract_chain_windowed(wtabs, fss, nqps, field):
+    """Windowed contraction chain; returns the *banded-flat* data tensor
+    ``(s_1, ..., s_d)`` with ``s_k = o_k*n_k + i_k`` (band offset major,
+    zeros on the clipped-band padding)."""
+    X = field
+    for k in range(len(wtabs)):
+        X = windowed_stage_plain(X, wtabs[k], fss[k], nqps[k])
+    return X
+
+
+def assemble_terms_windowed(wterm_tables, fss, nqps, fields, fold_plan=None,
+                            tperms=None):
+    """Sum of windowed chains (plain form), with optional symmetric
+    folding: the mirrored terms are summed and their banded-flat
+    transpose (`tperms`, :func:`banded_transpose_perm` per axis) is added;
+    the direct terms are added as they are."""
+    out = None
+    sym = None
+    plan = (fold_plan if fold_plan is not None
+            else [(t, False) for t in range(len(wterm_tables))])
+    for t, mirrored in plan:
+        Y = contract_chain_windowed(wterm_tables[t], fss, nqps, fields[t])
+        if mirrored:
+            sym = Y if sym is None else sym + Y
+        else:
+            out = Y if out is None else out + Y
+    if sym is not None:
+        if not tperms:
+            raise ValueError('fold_plan has mirrored terms but no tperms')
+        symT = sym
+        for k, p in enumerate(tperms):
+            symT = torch.index_select(symT, k, torch.as_tensor(
+                p, device=sym.device))
+        sym = sym + symT
+        out = sym if out is None else out + sym
+    return out
+
+
+def run_windowed_assembly(field_fn, geo_inputs, wterm_tables, fss, nqps,
+                          fold_plan=None, tperms=None):
+    """The windowed assembly (the reference's signature): the coefficient
+    fields ``field_fn(geo_inputs)``, then the windowed chains of every
+    term and the mirror on the fields' device
+    (:func:`~pyiga_tpu_torch.ops.cuda_sumfac.assemble_terms_windowed`:
+    kernels K8 and K8f on the card, their plain versions on the CPU).
+    Tables, window starts and permutations may be numpy arrays or
+    tensors; returns the *banded-flat* tensor (``s_k = o_k*n_k + i_k``)
+    on the fields' device."""
+    from .cuda_sumfac import assemble_terms_windowed as device_route
+    fields = field_fn(geo_inputs)
+    dev = fields[0].device
+    uploaded = {}
+
+    def up(a, dtype):
+        if id(a) not in uploaded:
+            uploaded[id(a)] = torch.as_tensor(
+                np.ascontiguousarray(a) if isinstance(a, np.ndarray) else a,
+                dtype=dtype, device=dev)
+        return uploaded[id(a)]
+    wtabs = [[up(P, fields[0].dtype) for P in tabs] for tabs in wterm_tables]
+    fss = [up(f, torch.int64) for f in fss]
+    if tperms is not None:
+        tperms = [up(p, torch.int64) for p in tperms]
+    return device_route(wtabs, fss, tuple(nqps), fields, fold_plan, tperms)
+
+
 def banded_transpose_perm(n, bw):
     """Permutation of the banded-flat axis ``s = o*n + i`` mapping each valid
     pair (i, j=i+o-bw) to its transpose (j, i); padding entries (zero) map to
@@ -111,6 +205,17 @@ def banded_transpose_perm(n, bw):
     j = i + o - bw
     valid = (j >= 0) & (j < n)
     return np.where(valid, (2 * bw - o) * n + j, s)
+
+
+def compact_from_banded_maps(structure, bws):
+    """Per-level index maps: compact data position -> banded-flat position
+    ``(j-i+bw)*n + i`` (separable takes convert banded-flat to compact)."""
+    maps = []
+    for (m, n), bidx, bw in zip(structure.bs, structure.bidx, bws):
+        i = bidx[:, 0].astype(np.int64)
+        j = bidx[:, 1].astype(np.int64)
+        maps.append((j - i + bw) * n + i)
+    return maps
 
 
 def banded_reorder(data, bsz, ns):
@@ -130,6 +235,9 @@ class SpaceTables:
     def __init__(self, kvs0, kvs1, grids, bidx, numderiv):
         self.d = len(kvs0)
         self.bidx = bidx
+        self.kvs0, self.kvs1 = tuple(kvs0), tuple(kvs1)
+        self.nqps = tuple(len(g) // (len(kv.mesh) - 1)
+                          for kv, g in zip(kvs0, grids))
         self.trial = [dense_basis_table(kv, g, numderiv)
                       for kv, g in zip(kvs0, grids)]
         if kvs1 is kvs0 or all(a == b for a, b in zip(kvs0, kvs1)):
@@ -182,6 +290,51 @@ class SpaceTables:
         """Banded pair tables for every term (see :meth:`banded_pair_table`)."""
         return [[self.banded_pair_table(k, du[k], dv[k], bws[k])
                  for k in range(self.d)] for (du, dv) in terms]
+
+    def windowed_pair_table(self, k, du, dv):
+        """Windowed pair table ``(n, 2p+1, (p+1)*nqp)`` for axis `k` (square
+        single-knot spaces of equal trial and test degree): entry
+        ``[i, o, w]`` is the test(dv)(i) * trial(du)(i+o-p) product at the
+        `w`-th quadrature point of dof i's (p+1)-span support window (zero
+        where ``i+o-p`` leaves the matrix).  Returns ``(table, fs)`` with
+        `fs` the per-dof window start (span index, clipped at both ends:
+        the first and last p dofs share a window)."""
+        key = ('win', k, du, dv)
+        cached = self._pair_cache.get(key)
+        if cached is None:
+            p = self.kvs0[k].p
+            nqp = self.nqps[k]
+            Bt, Bu = self.test[k][dv], self.trial[k][du]
+            n, Q = Bt.shape
+            if Bu.shape[0] != n:
+                raise ValueError('windowed layout requires square blocks')
+            # the (p+1)-span window is sized by the TRIAL degree; a
+            # higher-degree test space would be silently truncated
+            if self.kvs1[k].p != p:
+                raise ValueError('windowed layout requires equal '
+                                 'trial/test degrees')
+            nwin = Q // nqp - p
+            if nwin < 1:
+                raise ValueError('windowed layout needs more spans than '
+                                 'degree')
+            wsz = (p + 1) * nqp
+            fs = np.clip(np.arange(n) - p, 0, nwin - 1)
+            tab = np.zeros((n, 2 * p + 1, wsz))
+            for o in range(2 * p + 1):
+                j = np.arange(n) + o - p
+                for i in np.nonzero((j >= 0) & (j < n))[0]:
+                    g0 = fs[i] * nqp
+                    tab[i, o] = Bt[i, g0:g0 + wsz] * Bu[j[i], g0:g0 + wsz]
+            cached = (tab, fs)
+            self._pair_cache[key] = cached
+        return cached
+
+    def windowed_term_tables(self, terms):
+        """Windowed pair tables for every term; returns ``(tables, fss)``."""
+        tabs = [[self.windowed_pair_table(k, du[k], dv[k])[0]
+                 for k in range(self.d)] for (du, dv) in terms]
+        fss = [self.windowed_pair_table(k, 0, 0)[1] for k in range(self.d)]
+        return tabs, fss
 
 
 def quadrature_for(kvs, nqp=None, bdspec=None):
