@@ -168,8 +168,11 @@ it alone): K8 (``windowed_stage``) and K8f (``windowed_fold``) against
 their plain versions, 1e-14 relative and bitwise on a repeat, at the 3D
 p=3 n=48 twisted box's stage 1 and stage 2, the fold of its 6 plan
 terms, the 2D p=3 n=128 stage 1 and fold, and ragged shapes (p = 1 to
-4, one window, runs of dofs and r tiles cut short, folds of 1 and 16
-terms), each beside its bound, its plain version and two yardsticks:
+4, one window, runs of dofs and r tiles cut short, folds of 1, 16 and
+18 terms, tile counts that are no multiple of the CTAs, odd and even R,
+X off its 16-byte alignment: every copy and store path of the kernel,
+each launch's plan held to ``windowed_plan``), each beside its bound,
+its plain version and two yardsticks:
 K2 / K3 over the banded pair tables (the same output with the band's
 zeros in the contraction) and one einsum over windows gathered outside
 its timing (4m); then ``run_windowed_assembly`` on the 3D n=48
@@ -4551,6 +4554,69 @@ def run_diff_phase(device, n3=48, n2=128, examples=True):
 WINDOWED_RAGGED = ((2, 13, 1001, 0, 1), (3, 4, 45, 0, 1), (1, 40, 33, 0, 1),
                    (2, 13, 300, 1, 1), (3, 50, 77, 16, 4),
                    (4, 10, 100, 3, 2), (4, 60, 100, 3, 2))
+# (p, elements, R, terms, tables, X 16-byte aligned) of the persistent
+# walk and the copy and store paths: 301 tiles of 24 r (not a multiple
+# of the 132 CTAs), even R (tensor copies, the output span by bulk
+# stores) and odd R (16-byte cp.async from each row's aligned start, the
+# last span ragged: a store loop), a fold of 18 terms (two launches), X
+# not 16-byte aligned (8-byte cp.async) for both entries, Q and R odd
+# (the last double of X copied alone: a pair would pass its end), a p=4
+# stage over 64 dofs (no room for an output span), and a stage and a
+# fold of 2 terms over one table at 64 dofs (one output span buffer, not
+# two; tensor copies of two boxes a stage)
+WINDOWED_PATHS = ((3, 20, 7210, 0, 1, True), (3, 20, 7211, 0, 1, True),
+                  (3, 20, 7210, 0, 1, False), (3, 20, 7210, 6, 3, True),
+                  (3, 20, 7211, 18, 3, True), (3, 20, 7210, 6, 3, False),
+                  (2, 13, 1001, 3, 2, True), (4, 60, 2000, 0, 1, True),
+                  (3, 61, 7210, 0, 1, True), (3, 61, 7210, 2, 1, True))
+
+
+def windowed_paths(xs, tabs, idx, fs, nqp):
+    """The plan of a K8 / K8f launch (its first, for more than 16 terms)
+    as ``pyiga_windowed_plan`` computes it on the card, held to
+    ``cuda_sumfac.windowed_plan``, and the copy and store paths of the
+    launch just made: X by tensor copies (``tensor``: R even), by 16-byte
+    ``cp.async`` from each row's aligned start (``cp.async 16``: R odd;
+    with Q odd as well the last double of X alone, ``last double``) or by
+    8-byte ``cp.async`` (``cp.async 8``: X not 16-byte aligned), as the
+    library reports it; the output spans by bulk stores from one buffer
+    (``one span``) or two (``two spans``), the last one ragged (``loop
+    span``), or ``direct`` stores."""
+    import ctypes
+    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    lib = _cuda.library()
+    copy = lib.pyiga_windowed_last_copy()
+    Q, R = xs[0].shape
+    n, b, wsz = tabs[0].shape
+    groups = len(set(idx[:16]))
+    nsm = torch.cuda.get_device_properties(xs[0].device).multi_processor_count
+    out = (ctypes.c_longlong * 12)()
+    lib.pyiga_windowed_plan(Q, R, n, b, wsz, nqp, groups, nsm,
+                            ctypes.cast(out, ctypes.c_void_p))
+    keys = ('rpt', 'run', 'nruns', 'cap', 'box', 'ps', 'xs', 'stages', 'nys',
+            'rtiles', 'cpr', 'smem')
+    plan = dict(zip(keys, list(out)))
+    if plan != cs.windowed_plan(Q, R, n, b, wsz, nqp, groups, nsm):
+        raise RuntimeError('windowed plan %s differs from windowed_plan %s'
+                           % (plan, cs.windowed_plan(Q, R, n, b, wsz, nqp,
+                                                     groups, nsm)))
+    aligned = not any(X.data_ptr() % 16 for X in xs)
+    expect = 2 if aligned and R % 2 == 0 else 1 if aligned else 0
+    if copy != expect:
+        raise RuntimeError('windowed kernel copied X by path %d, expected '
+                           '%d' % (copy, expect))
+    paths = {('cp.async 8', 'cp.async 16', 'tensor')[copy]}
+    if copy == 1 and Q % 2 and R % 2:
+        paths.add('last double')
+    nr = R - (plan['rtiles'] - 1) * 8 * plan['rpt']
+    if plan['nys']:
+        paths.add('one span' if plan['nys'] == 1 else 'two spans')
+        if nr * b * n % 2:
+            paths.add('loop span')
+    else:
+        paths.add('direct')
+    return plan, sorted(paths)
 
 
 def windowed_1d_tables(p, nel, device):
@@ -4608,7 +4674,9 @@ def windowed_case(name, xs, tabs, idx, fs, nqp, device, fold, btabs=None):
     sync(device)
     err, rel = compare(name, got, plain(), 1e-14)
     check_repeat(name, run, got)
-    rec = dict(max_abs_err=err, rel=rel, repeat_equal=True,
+    plan, paths = windowed_paths(xs, tabs, idx, fs, nqp)
+    rec = dict(max_abs_err=err, rel=rel, repeat_equal=True, plan=plan,
+               paths=paths,
                shape=[len(xs)] + list(xs[0].shape) + list(tabs[0].shape),
                tables=len(tabs), ms=time_ms(run, device),
                plain_ms=time_ms(plain, device, reps=3),
@@ -4688,23 +4756,48 @@ def check_windowed_kernels(device, seed=13):
         del asm
         torch.cuda.empty_cache()
     ragged = {}
-    for p, nel, R, nterms, ntab in WINDOWED_RAGGED:
+    covered = {k: set() for k in WINDOWED_KERNELS}
+    for k in WINDOWED_KERNELS:
+        covered[k].update(*[c['paths'] for name, c in cases.items()
+                            if name.startswith('fold')
+                            == (k == 'windowed_fold')])
+    for p, nel, R, nterms, ntab, aligned in (
+            [c + (True,) for c in WINDOWED_RAGGED] + list(WINDOWED_PATHS)):
         tabs, fs, nqp = windowed_1d_tables(p, nel, device)
         tabs = tabs[:ntab]
-        xs = [rand(nel * nqp, R) for _ in range(max(nterms, 1))]
+        xs = []
+        for _ in range(max(nterms, 1)):
+            X = rand(nel * nqp, R)
+            if not aligned:           # the same values 8 bytes on
+                buf = torch.empty(X.numel() + 1, dtype=f64, device=device)
+                X = buf[1:].view(X.shape).copy_(X)
+            xs.append(X)
         idx = [t % ntab for t in range(len(xs))]
 
         def run():
             if nterms:
                 return cs.windowed_fold(xs, tabs, idx, fs, nqp)
             return cs.windowed_stage(xs[0], tabs[0], fs, nqp)
-        key = 'p=%d n=%d R=%d %s' % (p, fs.shape[0], R, '%d terms' % nterms
-                                     if nterms else 'stage')
+        key = 'p=%d n=%d R=%d %s%s' % (
+            p, fs.shape[0], R, '%d terms' % nterms if nterms else 'stage',
+            '' if aligned else ', X 8 bytes off')
         got = run()
         sync(device)
-        ragged[key] = compare(key, got, cs.windowed_fold_plain(
+        err, rel = compare(key, got, cs.windowed_fold_plain(
             xs, tabs, idx, fs, nqp), 1e-14)
         check_repeat(key, run, got)
+        plan, paths = windowed_paths(xs, tabs, idx, fs, nqp)
+        covered['windowed_fold' if nterms else 'windowed_stage'].update(
+            paths)
+        ragged[key] = dict(max_abs_err=err, rel=rel, plan=plan, paths=paths)
+        log('    plan %s, paths %s' % (plan, ', '.join(paths)))
+    every = {'tensor', 'cp.async 16', 'last double', 'cp.async 8',
+             'one span', 'two spans', 'loop span', 'direct'}
+    for k in WINDOWED_KERNELS:
+        log('  %s: paths exercised %s' % (k, ', '.join(sorted(covered[k]))))
+        if covered[k] != every:
+            raise RuntimeError('%s: paths %s not exercised'
+                               % (k, sorted(every - covered[k])))
     n3 = dict(WINDOWED_SIZES)[3]
     s1, s2 = cases['stage 1 3D n=%d' % n3], cases['stage 2 3D n=%d' % n3]
     out = {'windowed_stage': dict(

@@ -77,6 +77,8 @@ _SIGNATURES = {
     'pyiga_windowed_stage_f64': (_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P),
     'pyiga_windowed_fold_f64': (_P, _P, _I, _P, _P, _L, _L, _I, _I, _I, _I,
                                 _P),
+    'pyiga_windowed_plan': (_L, _L, _I, _I, _I, _I, _I, _I, _P),
+    'pyiga_windowed_last_copy': (),
 }
 
 _lock = threading.Lock()

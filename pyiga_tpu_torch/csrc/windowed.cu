@@ -14,7 +14,7 @@
 // wsz) the windowed pair table (b = 2p+1 band offsets, wsz = (p+1) nqp
 // points of dof i's support window from span fs[i]), Y (R, b n) the
 // banded-flat result with the band axis appended last (the chain's cyclic
-// axis order, as K2).  K8f adds the X tiles of the terms that share a
+// axis order, as K2).  K8f sums the fields of the terms that share a
 // table first, in term order, runs one product a table and sums the
 // products in registers (groups of one table in order of first
 // appearance: a fixed order, bitwise-reproducible), and writes Y once.
@@ -25,45 +25,119 @@
 // ms at 34 TFLOP/s of f64 FMA); the fold of 6 terms 1.54 GB (0.46 ms).  No
 // tensor cores: these are 16-term dots.
 //
-// Design.  A block owns kRT = 32 consecutive r and a run of up to 64
-// consecutive dofs (4 a warp; the runs of an axis balanced): at n=48 one
-// run covers the axis, so that one block writes whole rows of Y (stage
-// 1 0.154 -> 0.105 ms against runs of 32 dofs, two blocks an SM; one
-// block of 13 warps an SM here, at 100 registers).  For each group it
-// puts every copy in flight at once by cp.async: the run's rows of the
-// table and the X rows that the run's windows cover, fs[i0] nqp to
-// fs[i1] nqp + wsz (all 192 at n=48), as a [q][r] tile (a group's
-// second term into a second tile, added to the first in term order, and
-// so on).  A lane owns one dof and 4 r (r = rsub + 8 rr) and keeps the
-// b x 4 sums in registers: a step w reads 4 X values and b table values
-// from shared memory for 4 b multiply-adds; the 8 lanes of a dof read one
-// window (broadcasts), and the strides (X tile 34 doubles, table 2 mod
-// 4) put the 4 dofs of a warp on distinct banks.  The finished tile
-// goes through shared memory [r][o][i], so that a warp stores runs of nd
-// consecutive entries of a row of Y (0.22 -> 0.14 ms at stage 1 against
-// stores straight from the registers, 4 entries of 8 rows a store).
-// Every entry of Y is written, the padding (j = i + o - p outside
-// [0, n), where P holds zeros) included: no memset.  Offsets are 64-bit
-// (Y passes 2^31 bytes at n=96).
+// Design: a persistent, warp-specialized kernel (one CTA an SM, at most).
+// A tile is 8 rpt consecutive r (rpt = 2 or 3 where that still gives two
+// thirds of the SMs a tile, else 1) by a run of up to 64 consecutive dofs
+// (the runs of an axis balanced; at n=48 one run covers the axis).  A CTA
+// keeps one run and walks its r tiles with the stride of the CTAs on that
+// run.  Its warps:
+// - 4 producer warps stream the X tiles of every term of every tile in
+//   order through a ring of 2 to 4 stages, full / empty mbarriers handing
+//   a stage over: the rows fs[i0] nqp to fs[i1] nqp + wsz (all 192 at
+//   n=48) by one tensor copy (TMA, a box of rt + 2 columns: the padded
+//   row stride) where X's rows start 16-byte aligned (R even); by 16-byte
+//   cp.async from each row's aligned start where only X does (the 3D
+//   fold's R = 357^2 is odd: a row's data then starts one slot on, which
+//   the consumers read by its parity); by 8-byte cp.async otherwise.  A
+//   bulk copy a row (192 B) cost ~60 cycles a request an SM and one
+//   producer warp could not keep the 16-byte copies in flight;
+// - the consumer warps (4 dofs each, 8 lanes a dof, a lane rpt r: r =
+//   rsub + 8 rr) load the run's rows of every distinct table once and
+//   keep them resident (not staged again a tile).  A lane keeps its b x
+//   rpt sums in registers; a step w reads rpt X values and b table values
+//   from shared memory for b rpt multiply-adds.  The strides (stage row
+//   rt + 2 doubles, table 2 mod 4) put the 4 dofs of a warp on distinct
+//   banks.  A group of several terms (K8f) is summed as its stages land:
+//   the running sum is added into the newest stage (b = a + b, each
+//   consumer thread its own elements), the older stage goes back to the
+//   producers at once, and the product runs on the newest; one consumer
+//   barrier, no pass between block-wide barriers, and the next loads keep
+//   flowing.  (Tables compacted to the (p+1)^2 nqp entries a windowed
+//   pair table can hold at an unclipped window made room for the fold's
+//   output span, but the clipped dofs' products from global memory
+//   stalled their warps: the fold 0.95 -> 1.08 ms.)  Times here:
+//   scripts/torch_windowed_variants.py on an NVIDIA H100 80GB HBM3,
+//   700.00 W;
+// - the finished tile: where the run covers every dof, a tile is one
+//   contiguous span of Y (rt rows of b n).  It is written into one of two
+//   buffers in shared memory (one where two do not fit) in Y's own order
+//   and sent out by one bulk asynchronous store (cp.async.bulk) that
+//   drains while the next tiles compute (a buffer is reused once the
+//   store that last used it has read it).  A ragged span (odd bytes /
+//   8) goes out by a store loop from the buffer; with several runs, or
+//   where no buffer fits (the fold's 3 resident tables), the lanes store
+//   directly (4 consecutive doubles a row, partial sectors: ~3x slower a
+//   byte; the X ring as the fold's span buffer, its next loads waiting
+//   for the store, was slower still: 0.94 -> 1.02 ms).
+// Every entry of Y is written, the padding (j = i + o - p outside [0, n),
+// where P holds zeros) included: no memset.  Offsets are 64-bit (Y passes
+// 2^31 bytes at n=96).  The sums run in the order of the earlier design
+// (a block a tile, scripts/torch_windowed_variants.py builds it beside
+// this one): w ascending a group, groups in order, a group's fields
+// summed in term order first; so the two outputs are equal bitwise.
+//
+// Shared memory (232,448 bytes a block): at 3D n=48 a stage holds its
+// table (52 x 114 doubles, 47 KB), two output spans of 16 rows (46 KB
+// each) and three X stages of 192 x 18 doubles (28 KB each): 221,952
+// bytes; the fold its 3 tables (142 KB) and two stages of 192 x 26
+// doubles (222,336).  The plan (make_plan) is mirrored by
+// pyiga_tpu_torch.ops.cuda_sumfac.windowed_plan and exported as
+// pyiga_windowed_plan so that the two can be compared on the card.
 //
 // The window starts must be what SpaceTables.windowed_pair_table gives
 // (non-decreasing from 0 in steps of at most 1, the last window inside
-// X): the wrapper checks them once per tensor; the staged tile is sized by
+// X): the wrapper checks them once per tensor; the stage is sized by
 // them.
+
+#include <cuda.h>
 
 #include <algorithm>
 
 #include "common.cuh"
 
+// Cut points and plan overrides for scripts/torch_windowed_variants.py;
+// the package builds with none of them.
+#ifndef PYIGA_WIN_CUT
+#define PYIGA_WIN_CUT 0
+#endif
+#ifndef PYIGA_WIN_RPT
+#define PYIGA_WIN_RPT 0
+#endif
+#ifndef PYIGA_WIN_STAGES
+#define PYIGA_WIN_STAGES 0
+#endif
+#ifndef PYIGA_WIN_NO_YS
+#define PYIGA_WIN_NO_YS 0
+#endif
+#ifndef PYIGA_WIN_NO_TMA
+#define PYIGA_WIN_NO_TMA 0
+#endif
+#ifndef PYIGA_WIN_PRODUCER_WARPS
+#define PYIGA_WIN_PRODUCER_WARPS 4
+#endif
+#ifndef PYIGA_WIN_MAX_YS
+#define PYIGA_WIN_MAX_YS 2
+#endif
+
 namespace {
 namespace win {
 
 constexpr int kMaxTerms = 16;
-constexpr int kRPT = 4;           // r a lane: rsub + 8 rr
-constexpr int kRT = 8 * kRPT;     // r a block
-constexpr int kXS = kRT + 2;      // X tile row stride (2 mod 4)
-constexpr int kDI = 4;            // dofs a warp
-constexpr int kMaxWarps = 16;     // dofs a run: kDI kMaxWarps
+constexpr int kDI = 4;            // dofs a consumer warp
+constexpr int kMaxWarps = 16;     // consumer warps: dofs a run kDI kMaxWarps
+constexpr int kMaxStages = 4;
+constexpr int kProducerWarps = PYIGA_WIN_PRODUCER_WARPS;
+constexpr int kMaxBox = 256;      // a tensor copy's rows at most
+// how the producer copies X: 8-byte cp.async (X not 16-byte aligned),
+// 16-byte cp.async from each row's aligned start (R odd), or one tensor
+// copy (TMA) of the tile's rows
+constexpr int kCopy8 = 0, kCopy16 = 1, kCopyTensor = 2;
+constexpr size_t kSmem = 232448;  // shared bytes a block
+// cuts: the producer's copies, the products, the stores of Y, and every
+// consumer (the producer then streams alone)
+constexpr int kCutLoads = 1, kCutProducts = 2, kCutStores = 4,
+              kCutConsumers = 8;
+constexpr int kCut = PYIGA_WIN_CUT;
 
 // the fields grouped by table (as the fold of csrc/sumfac.cu)
 struct Terms {
@@ -73,192 +147,595 @@ struct Terms {
     int groups;
 };
 
-// Copy 8 or 16 bytes from global to shared memory, asynchronously; the
-// first `src_bytes` are read and the rest zero-filled.
+// per term, the tensor map of its field (a box of xs columns by `box`
+// rows), for kCopyTensor
+struct Maps {
+    CUtensorMap m[kMaxTerms];
+};
+
+// The launch's tiling and shared-memory layout (byte offsets).
+struct Plan {
+    int rpt;              // r a lane: a tile is 8 rpt r
+    int run;              // dofs a run: kDI a consumer warp
+    int nruns;
+    int cap;              // X rows a stage holds
+    int box;              // rows a tensor copy (cap a multiple of it)
+    int ps;               // the table's dof stride (doubles)
+    int xs;               // a stage's row stride (doubles)
+    int stages;
+    int nys;              // output spans through shared memory (0, 1, 2)
+    long long rtiles;
+    int cpr;              // CTAs a run: the grid is nruns cpr
+    long long tab_off, stage_off, stage_bytes, ys_off, ys_bytes, smem;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mb_init(unsigned long long* b,
+                                        unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                     smem_u32(b)),
+                 "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mb_arrive(unsigned long long* b) {
+    asm volatile(
+        "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(
+            smem_u32(b))
+        : "memory");
+}
+
+__device__ __forceinline__ bool mb_test(unsigned a, unsigned parity) {
+    unsigned ok;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(ok)
+        : "r"(a), "r"(parity)
+        : "memory");
+    return ok != 0;
+}
+
+__device__ __forceinline__ long long globaltimer() {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+// Wait for the phase of this parity; a wait longer than two seconds is a
+// lost arrive: trap (the launch fails) rather than hang the card.
+__device__ __forceinline__ void mb_wait(unsigned long long* b,
+                                        unsigned parity) {
+    const unsigned a = smem_u32(b);
+    if (mb_test(a, parity)) return;
+    const long long t0 = globaltimer();
+    while (!mb_test(a, parity))
+        if (globaltimer() - t0 > 2000000000LL) __trap();
+}
+
+// a box of the 2D tensor map `map` at (column c0, row c1) into shared
+// `dst` by the TMA, completing on the mbarrier `bar`
+__device__ __forceinline__ void tensor_load(void* dst, const CUtensorMap* map,
+                                            int c0, int c1,
+                                            unsigned long long* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+        ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(
+            smem_u32(dst)),
+        "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1),
+        "r"(smem_u32(bar))
+        : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared `src` to global `dst` by the
+// bulk-copy engine, in the thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        "cp.async.bulk.commit_group;" ::"l"(dst),
+        "r"(smem_u32(src)), "r"(bytes)
+        : "memory");
+}
+
+// `bytes` more of bulk copies expected on `bar`, without an arrival
+__device__ __forceinline__ void mb_expect_tx(unsigned long long* bar,
+                                             unsigned bytes) {
+    asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;" ::"r"(
+                     smem_u32(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+
+// the thread's bulk stores but the last N have read their shared source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// the thread's bulk stores are complete
+__device__ __forceinline__ void bulk_wait() {
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// this thread's writes to shared memory, before the async proxy (bulk
+// copies) reads or writes there
+__device__ __forceinline__ void fence_async_shared() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Copy 8 or 16 bytes from global to shared memory, asynchronously.
 template <int BYTES>
-__device__ __forceinline__ void cp_async(double* dst, const double* src,
-                                         int src_bytes) {
-    const unsigned int d =
-        static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+__device__ __forceinline__ void cp_async(double* dst, const double* src) {
     if constexpr (BYTES == 16)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                     :: "r"(d), "l"(src), "r"(src_bytes));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                         smem_u32(dst)),
+                     "l"(src)
+                     : "memory");
     else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-                     :: "r"(d), "l"(src), "r"(src_bytes));
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
+                         smem_u32(dst)),
+                     "l"(src)
+                     : "memory");
+}
+
+// an arrival on `bar` once this thread's cp.async copies so far have
+// landed (counted among the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                     smem_u32(bar))
+                 : "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::
+                     : "memory");
 }
 
-// Copy the tile rows [qa, qa + rows) x [r0, r0 + nr) of X into `dst` (row
-// stride kXS), VEC doubles a copy, zeros past nr.
-template <int VEC>
-__device__ __forceinline__ void stage_x(double* dst, const double* X,
-                                        long long R, long long qa, int rows,
-                                        long long r0, int nr) {
-    constexpr int CPR = kRT / VEC;
-    for (int e = threadIdx.x; e < rows * CPR; e += blockDim.x) {
-        const int q = e / CPR, c = (e % CPR) * VEC;
-        const int nb = max(0, min(VEC, nr - c));
-        const double* src = X + (qa + q) * R + r0 + (nb > 0 ? c : 0);
-        cp_async<VEC * 8>(dst + q * kXS + c, src, nb * 8);
-    }
+// a barrier of the consumer warps alone (the producer never joins it)
+__device__ __forceinline__ void consumer_sync(int threads) {
+    asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
 }
 
-template <int B, int VEC>
-__global__ void __launch_bounds__(32 * kMaxWarps)
-windowed_kernel(const Terms terms, const long long* __restrict__ fs,
-                double* __restrict__ Y, long long R, int n, int wsz,
-                int nqp, int run, int ps, bool pvec) {
-    extern __shared__ double smem[];
-    const int cap = (run - 1) * nqp + wsz;     // X rows staged at most
-    double* Ps = smem;                          // run x ps: [i][o][w]
-    double* Xs = smem + (size_t)run * ps;       // the group's X
-    double* Xt = Xs + (size_t)cap * kXS;        // a further term's X
-    const int i0 = blockIdx.y * run;
-    const int nd = min(run, n - i0);
-    const long long r0 = (long long)blockIdx.x * kRT;
-    const int nr = (int)min((long long)kRT, R - r0);
+template <int B, int RPT>
+__global__ void __launch_bounds__(32 * (kMaxWarps + kProducerWarps), 1)
+windowed_kernel(const Terms terms, const __grid_constant__ Maps maps,
+                const long long* __restrict__ fs, double* __restrict__ Y,
+                long long Q, long long R, int n, int wsz, int nqp,
+                const Plan pl, int mode, bool pvec, bool bulk_y) {
+    constexpr int RT = 8 * RPT;
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    unsigned long long* full = reinterpret_cast<unsigned long long*>(smem_raw);
+    unsigned long long* empty = full + kMaxStages;
+    double* Ps = reinterpret_cast<double*>(smem_raw + pl.tab_off);
+    double* Xst = reinterpret_cast<double*>(smem_raw + pl.stage_off);
+    double* Ys = reinterpret_cast<double*>(smem_raw + pl.ys_off);
+    const long long sdbl = pl.stage_bytes / 8;
+    const int nc = pl.run / kDI;                 // consumer warps
+    const int nct = 32 * nc;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int S = pl.stages;
+    const int k0 = blockIdx.x % pl.cpr;
+    const int i0 = blockIdx.x / pl.cpr * pl.run;
+    const int nd = min(pl.run, n - i0);
     const long long qa = fs[i0] * nqp;
     const int rows = (int)(fs[i0 + nd - 1] * nqp + wsz - qa);
+    const int nterms = terms.end[terms.groups - 1];
+    // a stage row holds X[q, r0 - sh : ...] from its 16-byte aligned
+    // start: sh = 1 where the row's first element is not (kCopy16)
+    const int shm = mode == kCopy16 ? 1 : 0;
 
-    const int lane = threadIdx.x & 31;
-    const int il = (threadIdx.x >> 5) * kDI + (lane >> 3);
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < S; ++s) {
+            mb_init(&full[s], blockDim.x - nct);
+            mb_init(&empty[s], nc);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp >= nc) {
+        // the producer warps: every term's X tile of every tile, in order;
+        // each producer thread arrives once a stage, when its cp.async
+        // copies have landed, the tensor copies' bytes expected first
+        const int pt = threadIdx.x - nct, pw = pt >> 5;
+        const int npw = blockDim.x / 32 - nc;
+        long long it = 0;
+        for (long long t = k0; t < pl.rtiles; t += pl.cpr) {
+            const long long r0 = t * RT;
+            const int nr = (int)min((long long)RT, R - r0);
+            for (int u = 0; u < nterms; ++u, ++it) {
+                const int s = (int)(it % S);
+                const long long use = it / S;
+                if (use > 0) {
+                    if (kCut & kCutConsumers)
+                        mb_wait(&full[s], (unsigned)((use - 1) & 1));
+                    else
+                        mb_wait(&empty[s], (unsigned)((use - 1) & 1));
+                }
+                double* dst = Xst + s * sdbl;
+                const double* X = terms.x[u];
+                if (kCut & kCutLoads) {
+                    mb_arrive(&full[s]);
+                    continue;
+                }
+                if (mode == kCopyTensor) {
+                    if (pt == 0) {
+                        const int nch = (rows + pl.box - 1) / pl.box;
+                        mb_expect_tx(&full[s],
+                                     (unsigned)(nch * pl.box * pl.xs * 8));
+                        for (int h = 0; h < nch; ++h)
+                            tensor_load(dst + (long long)h * pl.box * pl.xs,
+                                        &maps.m[u], (int)r0,
+                                        (int)(qa + h * pl.box), &full[s]);
+                    }
+                } else if (mode == kCopy16) {
+                    // 16 lanes a row, two rows a warp: the row's doubles
+                    // from its aligned start, the last one alone where a
+                    // pair would pass the end of X
+                    const int j2 = 2 * (lane & 15);
+                    for (int q = 2 * pw + (lane >> 4); q < rows;
+                         q += 2 * npw) {
+                        const long long e = (qa + q) * R + r0;
+                        const int sh = (int)(e & 1);
+                        if (j2 < nr + sh) {
+                            const long long a = e - sh + j2;
+                            double* d = dst + q * pl.xs + j2;
+                            if (a + 2 <= Q * R)
+                                cp_async<16>(d, X + a);
+                            else
+                                cp_async<8>(d, X + a);
+                        }
+                    }
+                } else {
+                    for (int q = pw; q < rows; q += npw)
+                        for (int c = lane; c < nr; c += 32)
+                            cp_async<8>(dst + q * pl.xs + c,
+                                        X + (qa + q) * R + r0 + c);
+                }
+                cp_async_arrive(&full[s]);
+            }
+        }
+        if (kCut & kCutConsumers) {       // the last stages landed
+            for (long long u = it > S ? it - S : 0; u < it; ++u)
+                mb_wait(&full[u % S], (unsigned)((u / S) & 1));
+        }
+        cp_async_wait_all();
+        return;
+    }
+    if (kCut & kCutConsumers) return;
+
+    // the consumers: dof il of the run, r = rsub + 8 rr of the tile
+    const int ct = threadIdx.x;
+    const int il = warp * kDI + (lane >> 3);
     const int rsub = lane & 7;
     const bool live = il < nd;
     const int qrel = live ? (int)(fs[i0 + il] * nqp - qa) : 0;
     const int bw = B * wsz;
+    const long long bn = (long long)B * n;
+    const long long gstride = (long long)pl.run * pl.ps;
+    long long tile = 0;                          // tiles done (Ys buffer)
 
-    double acc[B][kRPT];
-#pragma unroll
-    for (int o = 0; o < B; ++o)
-#pragma unroll
-        for (int rr = 0; rr < kRPT; ++rr) acc[o][rr] = 0.0;
-
+    // the run's rows of every distinct table, once (resident)
     for (int g = 0; g < terms.groups; ++g) {
-        const int t0 = g ? terms.end[g - 1] : 0, t1 = terms.end[g];
-        if (g) __syncthreads();          // the last group's reads are done
-        // every copy of the group in flight at once: the run's rows of its
-        // table (dof stride ps), its first term's X tile and, where it has
-        // one, its second's
         const double* P = terms.p[g] + (long long)i0 * bw;
+        double* Pg = Ps + g * gstride;
         if (pvec) {
             const int cpr = bw / 2;
-            for (int e = threadIdx.x; e < nd * cpr; e += blockDim.x) {
+            for (int e = ct; e < nd * cpr; e += nct) {
                 const int i = e / cpr, c = 2 * (e - i * cpr);
-                cp_async<16>(Ps + i * ps + c, P + i * bw + c, 16);
+                cp_async<16>(Pg + i * pl.ps + c, P + i * bw + c);
             }
         } else {
-            for (int e = threadIdx.x; e < nd * bw; e += blockDim.x) {
+            for (int e = ct; e < nd * bw; e += nct) {
                 const int i = e / bw, c = e - i * bw;
-                cp_async<8>(Ps + i * ps + c, P + e, 8);
-            }
-        }
-        stage_x<VEC>(Xs, terms.x[t0], R, qa, rows, r0, nr);
-        for (int t = t0 + 1; t < t1; ++t) {
-            if (t == t0 + 1)
-                stage_x<VEC>(Xt, terms.x[t], R, qa, rows, r0, nr);
-            cp_async_wait_all();
-            __syncthreads();
-            // the group's sum, in term order: Xs += Xt
-            for (int e = threadIdx.x; e < rows * kRT; e += blockDim.x) {
-                const int q = e / kRT, c = e % kRT;
-                Xs[q * kXS + c] += Xt[q * kXS + c];
-            }
-            __syncthreads();
-            if (t + 1 < t1)
-                stage_x<VEC>(Xt, terms.x[t + 1], R, qa, rows, r0, nr);
-        }
-        cp_async_wait_all();
-        __syncthreads();
-        if (live) {
-            const double* xr = Xs + qrel * kXS + rsub;
-            const double* pr = Ps + il * ps;
-            for (int w = 0; w < wsz; ++w) {
-                double x[kRPT], p[B];
-#pragma unroll
-                for (int rr = 0; rr < kRPT; ++rr)
-                    x[rr] = xr[w * kXS + 8 * rr];
-#pragma unroll
-                for (int o = 0; o < B; ++o) p[o] = pr[o * wsz + w];
-#pragma unroll
-                for (int o = 0; o < B; ++o)
-#pragma unroll
-                    for (int rr = 0; rr < kRPT; ++rr)
-                        acc[o][rr] = fma(x[rr], p[o], acc[o][rr]);
+                cp_async<8>(Pg + i * pl.ps + c, P + e);
             }
         }
     }
-    // the output tile through shared memory, [r][o][i], so that a warp
-    // writes one run of nd consecutive entries of a row of Y at a time
-    const int ys = B * run + 1;
-    double* Ys = smem;                          // kRT x ys
-    __syncthreads();                            // the last reads are done
-    if (live) {
+    cp_async_wait_all();
+    consumer_sync(nct);
+
+    long long it = 0;
+    for (long long t = k0; t < pl.rtiles; t += pl.cpr) {
+        const long long r0 = t * RT;
+        const int nr = (int)min((long long)RT, R - r0);
+        double acc[B][RPT];
 #pragma unroll
-        for (int rr = 0; rr < kRPT; ++rr)
+        for (int o = 0; o < B; ++o)
 #pragma unroll
-            for (int o = 0; o < B; ++o)
-                Ys[(rsub + 8 * rr) * ys + o * run + il] = acc[o][rr];
+            for (int rr = 0; rr < RPT; ++rr) acc[o][rr] = 0.0;
+
+        for (int g = 0; g < terms.groups; ++g) {
+            const int t0 = g ? terms.end[g - 1] : 0, t1 = terms.end[g];
+            int s = (int)(it % S);
+            mb_wait(&full[s], (unsigned)((it / S) & 1));
+            ++it;
+            // a group's further terms: the running sum into the newest
+            // stage, in term order; the older stage goes back at once
+            for (int u = t0 + 1; u < t1; ++u, ++it) {
+                const int s2 = (int)(it % S);
+                mb_wait(&full[s2], (unsigned)((it / S) & 1));
+                const double2* a =
+                    reinterpret_cast<const double2*>(Xst + s * sdbl);
+                double2* b = reinterpret_cast<double2*>(Xst + s2 * sdbl);
+                const int half = pl.xs / 2;   // a row's slots, shift
+                                              // included
+                for (int c = ct; c < rows * half; c += nct) {
+                    const double2 x = a[c];
+                    double2 y = b[c];
+                    y.x = x.x + y.x;
+                    y.y = x.y + y.y;
+                    b[c] = y;
+                }
+                fence_async_shared();
+                __syncwarp();
+                if (lane == 0) mb_arrive(&empty[s]);
+                s = s2;
+            }
+            if (t1 - t0 > 1) consumer_sync(nct);
+            if (live && !(kCut & kCutProducts)) {
+                const double* xr = Xst + s * sdbl + qrel * pl.xs + rsub;
+                // row qrel + w starts at slot sh: the parity of its
+                // first element where X's rows are copied in 16 bytes
+                const int par = (int)(((qa + qrel) * R + r0) & shm);
+                const int rodd = (int)(R & shm);
+                const double* pr = Ps + g * gstride + il * pl.ps;
+                for (int w = 0; w < wsz; ++w) {
+                    double x[RPT], p[B];
+                    const double* xw = xr + w * pl.xs + (par ^ (w & rodd));
+#pragma unroll
+                    for (int rr = 0; rr < RPT; ++rr) x[rr] = xw[8 * rr];
+#pragma unroll
+                    for (int o = 0; o < B; ++o) p[o] = pr[o * wsz + w];
+#pragma unroll
+                    for (int o = 0; o < B; ++o)
+#pragma unroll
+                        for (int rr = 0; rr < RPT; ++rr)
+                            acc[o][rr] = fma(x[rr], p[o], acc[o][rr]);
+                }
+            }
+            __syncwarp();
+            if (lane == 0) mb_arrive(&empty[s]);
+        }
+
+        if (kCut & kCutStores) continue;
+        if (pl.nys) {
+            // the span Y[r0 : r0 + nr] (the run covers every dof) in Y's
+            // order, once the bulk store that last used the buffer has
+            // read it
+            double* Yb = Ys + (pl.nys == 2 ? (tile & 1) : 0) *
+                                  (pl.ys_bytes / 8);
+            ++tile;
+            if (ct == 0) {
+                if (pl.nys == 2)
+                    bulk_wait_read<1>();
+                else
+                    bulk_wait_read<0>();
+            }
+            consumer_sync(nct);
+            if (live) {
+#pragma unroll
+                for (int rr = 0; rr < RPT; ++rr)
+#pragma unroll
+                    for (int o = 0; o < B; ++o)
+                        Yb[(rsub + 8 * rr) * bn + o * n + il] = acc[o][rr];
+            }
+            fence_async_shared();
+            consumer_sync(nct);
+            const long long span = nr * bn;
+            if (bulk_y && span % 2 == 0) {
+                if (ct == 0)
+                    bulk_store(Y + r0 * bn, Yb, (unsigned)(span * 8));
+            } else {
+                for (long long e = ct; e < span; e += nct)
+                    Y[r0 * bn + e] = Yb[e];
+            }
+        } else if (live) {
+#pragma unroll
+            for (int rr = 0; rr < RPT; ++rr) {
+                const int r = rsub + 8 * rr;
+                if (r < nr) {
+                    double* y = Y + (r0 + r) * bn + i0 + il;
+#pragma unroll
+                    for (int o = 0; o < B; ++o)
+                        y[(long long)o * n] = acc[o][rr];
+                }
+            }
+        }
     }
-    __syncthreads();
-    const long long bn = (long long)B * n;
-    for (int ro = threadIdx.x >> 5; ro < nr * B; ro += blockDim.x >> 5) {
-        const int r = ro / B, o = ro - r * B;
-        double* y = Y + (r0 + r) * bn + (long long)o * n + i0;
-        for (int i = lane; i < nd; i += 32)
-            y[i] = Ys[r * ys + o * run + i];
+    if (pl.nys && ct == 0) bulk_wait();
+}
+
+inline long long r128(long long x) { return (x + 127) / 128 * 128; }
+
+// The tiling of a launch (mirrored by cuda_sumfac.windowed_plan): runs of
+// whole warps, balanced, at most kMaxWarps, fewer where nothing fits; r a
+// lane 3 or 2 where that still gives two thirds of the SMs a tile, else
+// 1, the wider tile first for a fold of several tables (it spreads the
+// group sums over more r) and the narrower one first for one table (it
+// leaves room for more stages and spans); for each, the most output span
+// buffers (two at most; only where one run covers the axis) beside two X
+// stages, and as many stages (up to kMaxStages) as the rest holds.  smem
+// 0: nothing fits.
+Plan make_plan(long long Q, long long R, int n, int b, int wsz, int nqp,
+               int groups, int nsm) {
+    Plan pl{};
+    const int warps_total = (n + kDI - 1) / kDI;
+    const int ps = (wsz * b + 3) / 4 * 4 + 2;
+    for (int mw = kMaxWarps; mw >= 1; --mw) {
+        const int nruns = (warps_total + mw - 1) / mw;
+        const int run = (warps_total + nruns - 1) / nruns * kDI;
+        // the rows of a run's windows, in tensor copies of `box` rows (a
+        // multiple of 8: each box lands 128-byte aligned)
+        long long cap = std::min(Q, (long long)(run - 1) * nqp + wsz);
+        const long long nbox = (cap + kMaxBox - 1) / kMaxBox;
+        const long long box = ((cap + nbox - 1) / nbox + 7) / 8 * 8;
+        cap = nbox * box;
+        const long long tab = r128((long long)groups * run * ps * 8);
+        const long long fixed = 128 + tab;
+        int order[3], no = 0;
+        for (int k = 0; k < 2; ++k) {
+            const int rpt = groups > 1 ? 3 - k : 2 + k;
+            const long long rtiles = (R + 8 * rpt - 1) / (8 * rpt);
+            if (PYIGA_WIN_RPT ? rpt == PYIGA_WIN_RPT
+                              : 3 * nruns * rtiles >= 2LL * nsm)
+                order[no++] = rpt;
+        }
+        if (!PYIGA_WIN_RPT || PYIGA_WIN_RPT == 1) order[no++] = 1;
+        for (int c = 0; c < no; ++c) {
+            const int rpt = order[c], rt = 8 * rpt;
+            const int xs = rt + 2;
+            const long long stage = r128(cap * xs * 8);
+            const long long ys = r128((long long)rt * b * n * 8);
+            int nys = nruns == 1 && !PYIGA_WIN_NO_YS ? PYIGA_WIN_MAX_YS : 0;
+            while (nys > 0 && fixed + nys * ys + 2 * stage > (long long)kSmem)
+                --nys;
+            const long long room = (long long)kSmem - fixed - nys * ys;
+            if (room < 2 * stage) continue;
+            int S = (int)std::min((long long)kMaxStages, room / stage);
+            if (PYIGA_WIN_STAGES) S = std::min(S, PYIGA_WIN_STAGES);
+            const long long rtiles = (R + rt - 1) / rt;
+            pl.rpt = rpt;
+            pl.run = run;
+            pl.nruns = nruns;
+            pl.cap = (int)cap;
+            pl.box = (int)box;
+            pl.ps = ps;
+            pl.xs = xs;
+            pl.stages = S;
+            pl.nys = nys;
+            pl.rtiles = rtiles;
+            pl.cpr = (int)std::max(1LL, std::min(rtiles,
+                                                 (long long)(nsm / nruns)));
+            pl.tab_off = 128;
+            pl.stage_off = fixed;
+            pl.stage_bytes = stage;
+            pl.ys_off = fixed + S * stage;
+            pl.ys_bytes = ys;
+            pl.smem = fixed + S * stage + nys * ys;
+            return pl;
+        }
     }
+    return pl;
+}
+
+int sm_count() {
+    static int cached[64] = {0};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= 64) dev = 0;
+    if (!cached[dev])
+        cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    return cached[dev] > 0 ? cached[dev] : 1;
+}
+
+// cuTensorMapEncodeTiled from the driver, by the runtime (no link to
+// libcuda); null where the driver has none
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    static bool tried = false;
+    if (!tried) {
+        tried = true;
+        void* f = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+        const cudaError_t e = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+        if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(f);
+        cudaGetLastError();
+    }
+    return fn;
+}
+
+// the copy path of the last launch (for the checks of chip_smoke.py)
+int last_mode = -1;
+
+template <int B, int RPT>
+int launch_rpt(const Terms& terms, const Maps& maps, const long long* fs,
+               double* Y, long long Q, long long R, int n, int wsz, int nqp,
+               const Plan& pl, int mode, bool pvec, bool bulk_y,
+               cudaStream_t s) {
+    auto kernel = windowed_kernel<B, RPT>;
+    if (pl.smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)pl.smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const unsigned grid = (unsigned)pl.nruns * (unsigned)pl.cpr;
+    const unsigned threads = (unsigned)(pl.run / kDI + kProducerWarps) * 32;
+    kernel<<<grid, threads, (size_t)pl.smem, s>>>(
+        terms, maps, fs, Y, Q, R, n, wsz, nqp, pl, mode, pvec, bulk_y);
+    return (int)cudaGetLastError();
 }
 
 template <int B>
-int launch_b(const Terms& terms, const long long* fs, double* Y, long long R,
-             int n, int wsz, int nqp, cudaStream_t s) {
-    // the table's dof stride in shared memory: 2 mod 4 doubles, so that
-    // the 4 dofs of a warp read 4 bank pairs; 16-byte copies where the
-    // table's rows allow them
-    const int ps = (wsz * B + 3) / 4 * 4 + 2;
+int launch_b(const Terms& terms, const long long* fs, double* Y,
+             long long Q, long long R, int n, int wsz, int nqp,
+             cudaStream_t s) {
+    const Plan pl = make_plan(Q, R, n, B, wsz, nqp, terms.groups,
+                              sm_count());
+    if (pl.smem <= 0) return (int)cudaErrorInvalidValue;
+    // 16-byte table copies where its rows allow them; the bulk output
+    // store where Y starts 16-byte aligned
     bool pvec = (wsz * B) % 2 == 0;
     for (int g = 0; g < terms.groups; ++g)
         pvec = pvec && reinterpret_cast<uintptr_t>(terms.p[g]) % 16 == 0;
-    // a second X tile for the groups of more than one term
-    bool multi = false;
-    for (int g = 0; g < terms.groups; ++g)
-        multi = multi || terms.end[g] - (g ? terms.end[g - 1] : 0) > 1;
-    // runs of whole warps (kDI dofs each), balanced, at most kMaxWarps, or
-    // fewer where the staged table and X tiles, then the output tile in
-    // their place, would not fit in shared memory
-    const int warps_total = (n + kDI - 1) / kDI;
-    int run = 0;
-    size_t smem = 0;
-    for (int max_warps = kMaxWarps; max_warps >= 1; --max_warps) {
-        const int nruns = (warps_total + max_warps - 1) / max_warps;
-        run = (warps_total + nruns - 1) / nruns * kDI;
-        const int cap = (run - 1) * nqp + wsz;
-        smem = std::max((size_t)cap * kXS * (multi ? 2 : 1)
-                        + (size_t)run * ps, (size_t)kRT * (B * run + 1))
-               * sizeof(double);
-        if (smem <= 232448) break;
+    const bool bulk_y = reinterpret_cast<uintptr_t>(Y) % 16 == 0;
+    // X by tensor copies where every X starts 16-byte aligned and its rows
+    // do (R even), by 16-byte cp.async where only the starts are, else by
+    // 8-byte cp.async
+    const int nterms = terms.end[terms.groups - 1];
+    bool aligned = true;
+    for (int t = 0; t < nterms; ++t)
+        aligned = aligned && reinterpret_cast<uintptr_t>(terms.x[t]) % 16 == 0;
+    int mode = !aligned ? kCopy8 : kCopy16;
+    Maps maps;
+    const EncodeTiled encode = encode_tiled();
+    if (aligned && R % 2 == 0 && encode && !PYIGA_WIN_NO_TMA &&
+        R < (1LL << 31) && Q < (1LL << 31)) {
+        mode = kCopyTensor;
+        const cuuint64_t dims[2] = {(cuuint64_t)R, (cuuint64_t)Q};
+        const cuuint64_t strides[1] = {(cuuint64_t)R * 8};
+        const cuuint32_t box[2] = {(cuuint32_t)pl.xs, (cuuint32_t)pl.box};
+        const cuuint32_t one[2] = {1, 1};
+        for (int t = 0; t < nterms && mode == kCopyTensor; ++t)
+            if (encode(&maps.m[t], CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 2,
+                       const_cast<double*>(terms.x[t]), dims, strides, box,
+                       one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                       CU_TENSOR_MAP_SWIZZLE_NONE,
+                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+                mode = kCopy16;
     }
-    if (smem > 232448) return (int)cudaErrorInvalidValue;
-    // 16-byte copies where every X row starts 16-byte aligned
-    bool vec = R % 2 == 0;
-    for (int t = 0; t < terms.end[terms.groups - 1]; ++t)
-        vec = vec && reinterpret_cast<uintptr_t>(terms.x[t]) % 16 == 0;
-    auto kernel = vec ? windowed_kernel<B, 2> : windowed_kernel<B, 1>;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
+    last_mode = mode;
+    switch (pl.rpt) {
+    case 1: return launch_rpt<B, 1>(terms, maps, fs, Y, Q, R, n, wsz, nqp,
+                                    pl, mode, pvec, bulk_y, s);
+    case 2: return launch_rpt<B, 2>(terms, maps, fs, Y, Q, R, n, wsz, nqp,
+                                    pl, mode, pvec, bulk_y, s);
+    case 3: return launch_rpt<B, 3>(terms, maps, fs, Y, Q, R, n, wsz, nqp,
+                                    pl, mode, pvec, bulk_y, s);
+    default: return (int)cudaErrorInvalidValue;
     }
-    const long long rtiles = (R + kRT - 1) / kRT;
-    if (rtiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const dim3 grid((unsigned int)rtiles, (unsigned int)((n + run - 1) / run));
-    kernel<<<grid, run / kDI * 32, smem, s>>>(terms, fs, Y, R, n, wsz, nqp,
-                                              run, ps, pvec);
-    return (int)cudaGetLastError();
 }
 
 int launch(const Terms& terms, const long long* fs, double* Y, long long Q,
@@ -267,11 +744,11 @@ int launch(const Terms& terms, const long long* fs, double* Y, long long Q,
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (b) {
-    case 1: return launch_b<1>(terms, fs, Y, R, n, wsz, nqp, s);
-    case 3: return launch_b<3>(terms, fs, Y, R, n, wsz, nqp, s);
-    case 5: return launch_b<5>(terms, fs, Y, R, n, wsz, nqp, s);
-    case 7: return launch_b<7>(terms, fs, Y, R, n, wsz, nqp, s);
-    case 9: return launch_b<9>(terms, fs, Y, R, n, wsz, nqp, s);
+    case 1: return launch_b<1>(terms, fs, Y, Q, R, n, wsz, nqp, s);
+    case 3: return launch_b<3>(terms, fs, Y, Q, R, n, wsz, nqp, s);
+    case 5: return launch_b<5>(terms, fs, Y, Q, R, n, wsz, nqp, s);
+    case 7: return launch_b<7>(terms, fs, Y, Q, R, n, wsz, nqp, s);
+    case 9: return launch_b<9>(terms, fs, Y, Q, R, n, wsz, nqp, s);
     default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -318,4 +795,24 @@ PYIGA_EXPORT int pyiga_windowed_fold_f64(const uint64_t* x_ptrs,
     }
     terms.groups = groups;
     return win::launch(terms, fs, Y, Q, R, n, b, wsz, nqp, stream);
+}
+
+// The copy path of the last launch: 0 8-byte cp.async (X not 16-byte
+// aligned), 1 16-byte cp.async from each row's aligned start, 2 tensor
+// copies (TMA); -1 before the first.
+PYIGA_EXPORT int pyiga_windowed_last_copy() { return win::last_mode; }
+
+// The plan of a launch over `groups` distinct tables on `nsm` SMs, for
+// comparison with cuda_sumfac.windowed_plan: out[0..11] = rpt, run,
+// nruns, cap, box, ps, xs, stages, nys, rtiles, cpr, smem (smem 0: none
+// fits).
+PYIGA_EXPORT int pyiga_windowed_plan(long long Q, long long R, int n, int b,
+                                     int wsz, int nqp, int groups, int nsm,
+                                     long long* out) {
+    const win::Plan pl = win::make_plan(Q, R, n, b, wsz, nqp, groups, nsm);
+    const long long v[12] = {pl.rpt, pl.run,    pl.nruns, pl.cap,
+                             pl.box, pl.ps,     pl.xs,    pl.stages,
+                             pl.nys, pl.rtiles, pl.cpr,   pl.smem};
+    for (int k = 0; k < 12; ++k) out[k] = v[k];
+    return 0;
 }

@@ -907,6 +907,62 @@ def windowed_fold_plain(xs, tables, idx, fs, nqp):
     return out
 
 
+WINDOWED_SMEM = 232448          # shared bytes a block on sm_90
+WINDOWED_SMS = 132              # SMs of an H100 SXM
+
+
+def windowed_plan(Q, R, n, b, wsz, nqp, groups, nsm=WINDOWED_SMS):
+    """The tiling of a K8 / K8f launch over `groups` distinct tables on
+    `nsm` SMs, as ``make_plan`` in ``csrc/windowed.cu`` computes it (the
+    card's ``pyiga_windowed_plan`` is held to this in ``chip_smoke.py``).
+
+    A tile is ``8 rpt`` consecutive r by a run of ``run`` dofs (4 a
+    consumer warp; ``nruns`` balanced runs cover the axis).  CTA ``c`` of
+    the ``nruns * cpr`` keeps run ``c // cpr`` and walks the r tiles
+    ``c % cpr, c % cpr + cpr, ...`` below ``rtiles``.  Shared memory
+    holds every distinct table's rows of the run (dof stride ``ps``),
+    ``stages`` X stages of ``cap`` rows (row stride ``xs``; tensor copies
+    of ``box`` rows, at most 256, a multiple of 8) and ``nys`` output
+    spans of a tile: r tiles of 3 or 2 r a lane where they give two
+    thirds of the SMs a tile (3 first for several tables, 2 first for
+    one), else 1, each with the most spans (two at most) that leave two
+    stages.  Returns a dict of those numbers and ``smem`` (bytes; 0 where
+    nothing fits)."""
+    def r128(x):
+        return (x + 127) // 128 * 128
+    warps_total = -(-n // 4)
+    ps = (wsz * b + 3) // 4 * 4 + 2
+    for mw in range(16, 0, -1):
+        nruns = -(-warps_total // mw)
+        run = -(-warps_total // nruns) * 4
+        cap = min(Q, (run - 1) * nqp + wsz)
+        nbox = -(-cap // 256)
+        box = (-(-cap // nbox) + 7) // 8 * 8     # 128-byte aligned boxes
+        cap = nbox * box
+        fixed = 128 + r128(groups * run * ps * 8)
+        order = [rpt for rpt in ((3, 2) if groups > 1 else (2, 3))
+                 if 3 * nruns * -(-R // (8 * rpt)) >= 2 * nsm] + [1]
+        for rpt in order:
+            rt = 8 * rpt
+            xs = rt + 2
+            stage = r128(cap * xs * 8)
+            ys = r128(rt * b * n * 8)
+            nys = 2 if nruns == 1 else 0
+            while nys and fixed + nys * ys + 2 * stage > WINDOWED_SMEM:
+                nys -= 1
+            room = WINDOWED_SMEM - fixed - nys * ys
+            if room < 2 * stage:
+                continue
+            stages = min(4, room // stage)
+            rtiles = -(-R // rt)
+            return dict(rpt=rpt, run=run, nruns=nruns, cap=cap, box=box,
+                        ps=ps, xs=xs, stages=stages, nys=nys, rtiles=rtiles,
+                        cpr=max(1, min(rtiles, nsm // nruns)),
+                        smem=fixed + stages * stage + nys * ys)
+    return dict(rpt=0, run=0, nruns=0, cap=0, box=0, ps=0, xs=0, stages=0,
+                nys=0, rtiles=0, cpr=0, smem=0)
+
+
 def _check_window_starts(name, fs, n, nqp, wsz, Q):
     """The kernels size their staged tile by the window starts that
     :meth:`~pyiga_tpu_torch.ops.sumfac.SpaceTables.windowed_pair_table`

@@ -1,36 +1,49 @@
 """Compare variants of the windowed route's kernel (K8 / K8f,
-``pyiga_tpu_torch/csrc/windowed.cu``) on one GPU, and time its parts in
-place.
+``pyiga_tpu_torch/csrc/windowed.cu``) on one GPU, time its parts in place
+by cutting them out, and time an earlier version of the source beside it.
 
     python3 scripts/torch_windowed_variants.py [NAME,NAME,...]
+        [--parent OLD.cu] [--cases 3d,2d]
 
-Builds one library per variant of ``windowed.cu`` alone, all ``nvcc``
-processes at once, under ``build/windowed_variants/``, and calls its C
-entries directly.  A variant replaces text of the shipped source: the
-largest shared-memory carveout asked for (``carve``), 8 r a lane
-(``rpt8``: a block of 64 r) or 2 (``rpt2``: 16 r) instead of 4, the
-table staged by 8-byte copies instead of 16-byte ones (``p8``), runs of
-up to 32 or 48 dofs instead of 64 (``warps8``, ``warps12``; at 64 a run
-covers the n=48 axis, so that one block writes each row of Y), or parts
-cut out to time the rest in place: the
-stores of Y (``no_store``), the products (``no_compute``), the copies of
-X (``no_xstage``) or of the table (``no_pstage``), both products and
-stores (``loads_only``), all but the block's frame (``skeleton``), all
-(``empty``) or all after the window starts' loads (``empty_fs``).  Each library also reports the blocks an SM
-of the p = 3 kernel at the 3D n=48 launch.  A cut variant computes
-garbage; every other one is held against the plain version to 1e-14
-relative and bitwise on a repeat.  Shapes: the 3D p=3 n=48 twisted
-box's stage 1 (192, 36,864) and stage 2 (192, 68,544) and the fold of
-its 6 plan terms over (192, 127,449); seeded random fields.  Times by
-CUDA events in three rounds of alternating order.  Prints ptxas's
-registers and spills, the card's ``nvidia-smi`` name and power limit,
-and the times in ms; writes ``chiprun_out/windowed_variants.json``.
-Exits nonzero without a CUDA device.  Imports neither jax nor pyiga_tpu.
+Builds one library per variant, all ``nvcc`` processes at once, under
+``build/windowed_variants/``, and calls its C entries directly.  A
+variant is the shipped source built with the plan overrides or cut points
+that ``windowed.cu`` reads from the preprocessor: two X stages at most
+(``stages2``), r a lane forced to 1, 2 or 3 (``rpt1`` .. ``rpt3``), one
+output span buffer (``ys1``) or none (``no_ys``: the lanes store
+directly), X by
+16-byte ``cp.async`` where tensor copies would serve (``no_tma``), one
+producer warp instead of 4 (``producer1``), or parts cut out: the
+products and stores (``loads_only``), the loads and stores
+(``products_only``), the loads and products (``stores_only``), the
+loads alone (``no_loads``), or every consumer (``producer_alone``: the
+producer warps stream the X tiles through their ring by themselves).  ``--parent`` adds an earlier ``windowed.cu`` (``git show
+REV:pyiga_tpu_torch/csrc/windowed.cu > build/windowed_parent.cu``) as
+``parent``, built the same way.  A cut variant computes garbage; every
+other one is held against the plain version to 1e-14 relative, bitwise
+on a repeat, and compared bitwise with the parent.
+
+Shapes: the 3D p=3 n=48 twisted box's stage 1 (192, 36,864), stage 2
+(192, 68,544) and the fold of its 6 plan terms over (192, 127,449); the
+2D p=3 n=128 quarter annulus's stage 1 (512, 512) and the fold of its
+plan terms over (512, 917); seeded random fields.  A 2D case cycles
+through copies of its operands larger than the L2 (50 MB) together.
+Times: the device time of a launch, from a CUDA graph of launches timed
+by CUDA events, in three rounds of alternating order; for the shipped
+source and the parent also calls back to back without a graph, so that
+a C entry's host time shows where it exceeds the device's.  Prints ptxas's
+registers and spills of every kernel instance, each case's plan
+(``pyiga_windowed_plan`` on the card against ``windowed_plan``), the
+card's ``nvidia-smi`` name and power limit, and the times in ms; writes
+``chiprun_out/windowed_variants.json``.  Exits nonzero without a CUDA
+device.  Imports neither jax nor pyiga_tpu.
 """
 
+import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -40,97 +53,59 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-COMPUTE = '        if (live) {\n            const double* xr'
-STORE = '            y[i] = Ys[r * ys + o * run + i];\n'
-RPT = 'constexpr int kRPT = 4;'
-STAGEP = 'constexpr bool kStageP = true;'
-
-PVEC = '    bool pvec = (wsz * B) % 2 == 0;'
-
-CARVE = '    if (smem > 48 * 1024) {\n'
-CARVE_ALL = ('    cudaFuncSetAttribute(kernel, '
-             'cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n'
-             + CARVE)
-# appended to every variant: the blocks an SM of the p = 3 kernel at the
-# 3D n=48 launch (7 warps, a table and one X tile; `multi` adds a tile)
-OCCUPANCY = r'''
-PYIGA_EXPORT int pyiga_windowed_occupancy(int multi, int carve) {
-    using namespace win;
-    const int warps_total = 13, nruns = (warps_total + kMaxWarps - 1)
-                                        / kMaxWarps;
-    const int run = (warps_total + nruns - 1) / nruns * kDI;
-    const int cap = (run - 1) * 4 + 16, ps = (16 * 7 + 3) / 4 * 4 + 2;
-    const size_t smem = std::max((size_t)cap * kXS * (multi ? 2 : 1)
-                                 + (size_t)run * ps,
-                                 (size_t)kRT * (7 * run + 1)) * 8;
-    auto kernel = windowed_kernel<7, 2>;
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    if (carve)
-        cudaFuncSetAttribute(
-            kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-    int nb = -1;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, 8 * run,
-                                                  smem);
-    return nb;
-}
-'''
-
-XSTAGE = '        stage_x<VEC>(Xs, terms.x[t0], R, qa, rows, r0, nr);\n'
-PLOOPS = [('e < nd * cpr;', 'e < 0;'), ('e < nd * bw;', 'e < 0;')]
-NO_STORE = (STORE, '            if (Ys[r * ys + o * run + i] == 1.25e300) '
-                   'y[i] = 0.0;\n')
-NO_COMPUTE = (COMPUTE, COMPUTE.replace('live', 'live && R < 0'))
-WARPS = 'constexpr int kMaxWarps = 16;'
-ENTRY = '    extern __shared__ double smem[];\n'
-FS_DONE = '    const int qrel = live ? (int)(fs[i0 + il] * nqp - qa) : 0;\n'
-
-# name -> ([(old text, new text)], exact)
+# name -> (preprocessor flags, checked against the plain version)
 VARIANTS = {
     'shipped': ([], True),
-    'warps8': ([(WARPS, WARPS.replace('16', '8'))], True),
-    'warps12': ([(WARPS, WARPS.replace('16', '12'))], True),
-    'rpt2': ([(RPT, RPT.replace('4', '2'))], True),
-    'carve': ([(CARVE, CARVE_ALL)], True),
-    'rpt8': ([(RPT, RPT.replace('4', '8'))], True),
-    'p8': ([(PVEC, PVEC.replace('(wsz * B) % 2 == 0', 'false'))], True),
-    'no_store': ([NO_STORE], False),
-    'no_compute': ([NO_COMPUTE], False),
-    'no_xstage': ([(XSTAGE, '')], False),
-    'no_pstage': (PLOOPS, False),
-    'loads_only': ([NO_STORE, NO_COMPUTE], False),
-    'skeleton': ([NO_STORE, NO_COMPUTE, (XSTAGE, '')] + PLOOPS, False),
-    'empty': ([(ENTRY, ENTRY + '    if (R > 0) return;\n')], False),
-    'empty_fs': ([(FS_DONE, FS_DONE + '    if (qrel >= 0) return;\n')],
-                 False),
+    'stages2': (['-DPYIGA_WIN_STAGES=2'], True),
+    'rpt1': (['-DPYIGA_WIN_RPT=1'], True),
+    'rpt2': (['-DPYIGA_WIN_RPT=2'], True),
+    'rpt3': (['-DPYIGA_WIN_RPT=3'], True),
+    'ys1': (['-DPYIGA_WIN_MAX_YS=1'], True),
+    'no_ys': (['-DPYIGA_WIN_NO_YS=1'], True),
+    'no_tma': (['-DPYIGA_WIN_NO_TMA=1'], True),
+    'producer1': (['-DPYIGA_WIN_PRODUCER_WARPS=1'], True),
+    'loads_only': (['-DPYIGA_WIN_CUT=6'], False),
+    'products_only': (['-DPYIGA_WIN_CUT=5'], False),
+    'stores_only': (['-DPYIGA_WIN_CUT=3'], False),
+    'no_loads': (['-DPYIGA_WIN_CUT=1'], False),
+    'producer_alone': (['-DPYIGA_WIN_CUT=8'], False),
 }
+PLAN_KEYS = ('rpt', 'run', 'nruns', 'cap', 'box', 'ps', 'xs', 'stages', 'nys',
+             'rtiles', 'cpr', 'smem')
 
 
-def variant_source(src, edits):
-    for old, new in edits:
-        if old not in src:
-            raise RuntimeError('variant text not found: %r' % old[:60])
-        src = src.replace(old, new)
-    return src
+def ptxas_lines(log):
+    """'<kernel instance>: registers, spills' from nvcc's -Xptxas=-v."""
+    out, name, spill = [], None, ''
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            t = re.search(r'windowed_kernelILi(\d+)ELi(\d+)E', name)
+            if t:
+                name = 'windowed_kernel<%s, %s>' % t.groups()
+        elif 'spill' in ln:
+            spill = ln.strip()
+        elif 'Used' in ln and 'registers' in ln and name:
+            regs = re.search(r'Used (\d+) registers', ln)
+            out.append('%s: %s registers; %s' % (
+                name, regs.group(1) if regs else '?', spill))
+            name = None
+    return out
 
 
-def build(names):
+def build(names, parent):
     from pyiga_tpu_torch import _cuda
     out = os.path.join(REPO, 'build', 'windowed_variants')
     os.makedirs(out, exist_ok=True)
-    src = open(os.path.join(REPO, 'pyiga_tpu_torch', 'csrc',
-                            'windowed.cu')).read()
+    src = os.path.join(REPO, 'pyiga_tpu_torch', 'csrc', 'windowed.cu')
     procs = {}
     for name in names:
-        path = os.path.join(out, name + '.cu')
-        with open(path, 'w') as f:
-            f.write(variant_source(src, VARIANTS[name][0])
-                    .replace('}  // namespace win\n}  // namespace\n',
-                             '}  // namespace win\n}  // namespace\n'
-                             + OCCUPANCY))
+        path, flags = ((parent, []) if name == 'parent'
+                       else (src, VARIANTS[name][0]))
         lib = os.path.join(out, 'lib%s.so' % name)
         procs[name] = (lib, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, '-I',
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flags, '-I',
              os.path.join(REPO, 'pyiga_tpu_torch', 'csrc'), '-shared', '-o',
              lib, path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -139,140 +114,243 @@ def build(names):
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError('nvcc failed on %s:\n%s' % (name, log))
-        # ptxas -v of the b = 7 instances (p = 3)
-        lines = log.splitlines()
-        logs[name] = [ln.strip() for i, ln in enumerate(lines)
-                      if ('registers' in ln or 'spill' in ln)
-                      and any('ILi7E' in x for x in lines[max(0, i - 3):i])]
+        logs[name] = ptxas_lines(log)
         cdll = ctypes.CDLL(lib)
         for fn in ('pyiga_windowed_stage_f64', 'pyiga_windowed_fold_f64'):
             getattr(cdll, fn).argtypes = list(_cuda._SIGNATURES[fn])
             getattr(cdll, fn).restype = ctypes.c_int
-        cdll.pyiga_windowed_occupancy.argtypes = [ctypes.c_int,
-                                                  ctypes.c_int]
+        if name != 'parent':
+            cdll.pyiga_windowed_plan.argtypes = list(
+                _cuda._SIGNATURES['pyiga_windowed_plan'])
+            cdll.pyiga_windowed_plan.restype = ctypes.c_int
         libs[name] = cdll
     return libs, logs
 
 
-def cases(device):
-    """(name, call(lib) -> Y, the plain output)."""
-    from pyiga_tpu_torch import bspline, geometry
-    from pyiga_tpu_torch.assemblers import StiffnessAssembler
-    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+class Case:
+    """One shape: `copies` operand sets (each its terms' fields and an
+    output), the terms' tables, and the plain output of the first set."""
+
+    def __init__(self, name, xs_sets, tabs, idx, fs, nqp):
+        from pyiga_tpu_torch.ops import cuda_sumfac as cs
+        self.name, self.tabs, self.idx, self.fs, self.nqp = (
+            name, tabs, idx, fs, nqp)
+        self.fold = len(xs_sets[0]) > 1 or name.startswith('fold')
+        self.xs_sets = xs_sets
+        self.Q, self.R = xs_sets[0][0].shape
+        self.n, self.b, self.wsz = tabs[0].shape
+        self.ys = [torch.empty((self.R, self.b * self.n),
+                               dtype=torch.float64, device=fs.device)
+                   for _ in xs_sets]
+        k = len(idx)
+        self.ptrs = [((ctypes.c_uint64 * k)(*[X.data_ptr() for X in xs]),
+                      (ctypes.c_uint64 * k)(*[tabs[i].data_ptr()
+                                              for i in idx]))
+                     for xs in xs_sets]
+        self.ref = cs.windowed_fold_plain(xs_sets[0], tabs, idx, fs, nqp)
+
+    def launch(self, lib, k, Y=None):
+        Y = self.ys[k] if Y is None else Y
+        stream = torch.cuda.current_stream().cuda_stream
+        if not self.fold:
+            err = lib.pyiga_windowed_stage_f64(
+                self.xs_sets[k][0].data_ptr(),
+                self.tabs[self.idx[0]].data_ptr(), self.fs.data_ptr(),
+                Y.data_ptr(), self.Q, self.R, self.n, self.b, self.wsz,
+                self.nqp, stream)
+        else:
+            xp, tp = self.ptrs[k]
+            err = lib.pyiga_windowed_fold_f64(
+                ctypes.cast(xp, ctypes.c_void_p),
+                ctypes.cast(tp, ctypes.c_void_p), len(self.idx),
+                self.fs.data_ptr(), Y.data_ptr(), self.Q, self.R, self.n,
+                self.b, self.wsz, self.nqp, stream)
+        if err != 0:
+            raise RuntimeError('%s: launch failed (%d)' % (self.name, err))
+        return Y
+
+    def plan(self, lib, nsm):
+        out = (ctypes.c_longlong * 12)()
+        lib.pyiga_windowed_plan(self.Q, self.R, self.n, self.b, self.wsz,
+                                self.nqp, len(self.tabs), nsm,
+                                ctypes.cast(out, ctypes.c_void_p))
+        return dict(zip(PLAN_KEYS, list(out)))
+
+
+def make_cases(device, which):
+    from pyiga_tpu_torch import assemblers, bspline, geometry
     from pyiga_tpu_torch.ops.sumfac import last_table_groups
-    kvs = 3 * (bspline.make_knots(3, 0.0, 1.0, 48),)
-    asm = StiffnessAssembler(kvs, geometry.twisted_box(), device=device)
-    wtabs, fss = asm.tables.windowed_term_tables(asm.terms)
-    nqp = asm.tables.nqps[0]
-    fs = torch.as_tensor(fss[0], device=device)
     rng = np.random.RandomState(17)
-    Q, bn = 192, 357
 
     def rand(*shape):
         return torch.as_tensor(rng.rand(*shape), device=device)
-
-    def stage_call(X, P):
-        def call(lib):
-            Y = torch.empty((X.shape[1], bn), dtype=torch.float64,
-                            device=device)
-            err = lib.pyiga_windowed_stage_f64(
-                X.data_ptr(), P.data_ptr(), fs.data_ptr(), Y.data_ptr(), Q,
-                X.shape[1], 51, 7, 16, nqp,
-                torch.cuda.current_stream().cuda_stream)
-            assert err == 0, err
-            return Y
-        return call
-
     out = []
-    for k, R in ((0, Q * Q), (1, Q * bn)):
-        X, P = rand(Q, R), torch.as_tensor(wtabs[0][k], device=device)
-        out.append(('stage %d' % (k + 1), stage_call(X, P),
-                    cs.windowed_stage_plain(X, P, fs, nqp)))
-    plan = asm._fold()
-    idx = list(last_table_groups([wtabs[t] for t, _m in plan]))
-    tabs = [None] * (max(idx) + 1)
-    for (t, _m), i in zip(plan, idx):
-        tabs[i] = torch.as_tensor(wtabs[t][-1], device=device)
-    xs = [rand(Q, bn * bn) for _ in plan]
-
-    def fold_call(lib):
-        Y = torch.empty((bn * bn, bn), dtype=torch.float64, device=device)
-        xp = (ctypes.c_uint64 * len(xs))(*[X.data_ptr() for X in xs])
-        tp = (ctypes.c_uint64 * len(xs))(*[tabs[i].data_ptr() for i in idx])
-        err = lib.pyiga_windowed_fold_f64(
-            ctypes.cast(xp, ctypes.c_void_p), ctypes.cast(tp, ctypes.c_void_p),
-            len(xs), fs.data_ptr(), Y.data_ptr(), Q, bn * bn, 51, 7, 16, nqp,
-            torch.cuda.current_stream().cuda_stream)
-        assert err == 0, err
-        return Y
-    out.append(('fold', fold_call,
-                cs.windowed_fold_plain(xs, tabs, idx, fs, nqp)))
+    for dim, nel in ((3, 48), (2, 128)):
+        if '%dd' % dim not in which:
+            continue
+        geo = geometry.twisted_box() if dim == 3 else \
+            geometry.quarter_annulus()
+        asm = assemblers.StiffnessAssembler(
+            dim * (bspline.make_knots(3, 0.0, 1.0, nel),), geo,
+            device=device)
+        wtabs, fss = asm.tables.windowed_term_tables(asm.terms)
+        nqp = asm.tables.nqps[0]
+        fs = torch.as_tensor(fss[0], device=device)
+        Q = asm.tables.trial[0].shape[2]
+        bn = wtabs[0][0].shape[0] * wtabs[0][0].shape[1]
+        stage_rs = [(0, Q ** (dim - 1))] + ([(1, Q * bn)] if dim == 3
+                                            else [])
+        for k, R in stage_rs:
+            copies = max(1, -(-60_000_000 // (8 * R * (Q + bn))))
+            P = torch.as_tensor(wtabs[0][k], device=device)
+            out.append(Case('stage %d %dD' % (k + 1, dim),
+                            [[rand(Q, R)] for _ in range(copies)], [P],
+                            [0], fs, nqp))
+        plan = asm._fold()
+        idx = list(last_table_groups([wtabs[t] for t, _m in plan]))
+        tabs = [None] * (max(idx) + 1)
+        for (t, _m), i in zip(plan, idx):
+            tabs[i] = torch.as_tensor(wtabs[t][-1], device=device)
+        R = bn ** (dim - 1)
+        copies = max(1, -(-60_000_000 // (8 * R * (Q * len(plan) + bn))))
+        out.append(Case('fold %dD' % dim,
+                        [[rand(Q, R) for _ in plan] for _ in range(copies)],
+                        tabs, idx, fs, nqp))
+        del asm
     return out
 
 
-def time_ms(fn, reps=20):
-    for _ in range(3):
-        fn()
+def graph_ms(case, lib, reps):
+    """Device ms a launch: a CUDA graph of `reps` launches cycling through
+    the case's operand sets, replayed 3 times between two events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for k in range(len(case.xs_sets)):
+            case.launch(lib, k)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode='relaxed'):
+        for r in range(reps):
+            case.launch(lib, r % len(case.xs_sets))
+    g.replay()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(3):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def stream_ms(case, lib, reps):
+    """Ms a call of the bare C entry, `reps` calls back to back on the
+    stream between two events (no graph: the host's cost of a call shows
+    where it exceeds the device's)."""
+    for k in range(len(case.xs_sets)):
+        case.launch(lib, k)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for r in range(reps):
+        case.launch(lib, r % len(case.xs_sets))
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument('names', nargs='?', default=','.join(VARIANTS))
+    ap.add_argument('--parent', default=None)
+    ap.add_argument('--cases', default='3d,2d')
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print('torch_windowed_variants: no CUDA device', file=sys.stderr)
         return 2
-    names = sys.argv[1].split(',') if len(sys.argv) > 1 else list(VARIANTS)
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    names = args.names.split(',')
+    if args.parent:
+        names = ['parent'] + [x for x in names if x != 'parent']
     device = torch.device('cuda', 0)
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()
     print(card, flush=True)
-    libs, logs = build(names)
+    libs, logs = build(names, args.parent)
     for name in names:
-        print('%-14s %s' % (name, ' | '.join(logs[name])), flush=True)
-    rec = {'card': card, 'ptxas': logs, 'times': {}, 'checks': {},
-           'blocks_per_sm': {}}
-    for name in names:       # (one tile, two tiles) x (default, carveout)
-        occ = [libs[name].pyiga_windowed_occupancy(m, c)
-               for m in (0, 1) for c in (0, 1)]
-        rec['blocks_per_sm'][name] = occ
-        print('%-14s blocks an SM (stage, stage carved, fold, fold carved): '
-              '%s' % (name, occ), flush=True)
-    for cname, call, ref in cases(device):
-        scale = float(ref.abs().max())
+        for ln in logs[name]:
+            print('%-14s %s' % (name, ln), flush=True)
+    rec = {'card': card, 'nsm': nsm, 'ptxas': logs, 'times': {},
+           'stream_times': {}, 'checks': {}, 'plans': {}}
+    checked = [x for x in names if x == 'parent' or VARIANTS[x][1]]
+    for case in make_cases(device, args.cases):
+        plans = {}
         for name in names:
-            if not VARIANTS[name][1]:
+            if name == 'parent':
                 continue
-            got = call(libs[name])
+            plans[name] = case.plan(libs[name], nsm)
+        mirror = cs.windowed_plan(case.Q, case.R, case.n, case.b, case.wsz,
+                                  case.nqp, len(case.tabs), nsm)
+        if 'shipped' in plans and plans['shipped'] != mirror:
+            raise RuntimeError('%s: the card plan %s differs from '
+                               'windowed_plan %s' % (case.name,
+                                                     plans['shipped'],
+                                                     mirror))
+        rec['plans'][case.name] = plans
+        print('%s: Q %d R %d n %d b %d, %d terms over %d tables, %d '
+              'operand sets; plan %s' % (
+                  case.name, case.Q, case.R, case.n, case.b, len(case.idx),
+                  len(case.tabs), len(case.xs_sets),
+                  plans.get('shipped', mirror)), flush=True)
+        scale = float(case.ref.abs().max())
+        outs = {}
+        for name in checked:
+            got = case.launch(libs[name], 0, torch.empty_like(case.ref))
+            again = case.launch(libs[name], 0, torch.empty_like(case.ref))
             torch.cuda.synchronize()
-            rel = float((got - ref).abs().max()) / scale
-            again = call(libs[name])
-            torch.cuda.synchronize()
-            ok = rel <= 1e-14 and torch.equal(got, again)
-            rec['checks']['%s %s' % (cname, name)] = rel
-            print('  %-8s %-14s rel %.3e repeat %s' % (
-                cname, name, rel, 'bitwise' if torch.equal(got, again)
-                else 'DIFFERS'), flush=True)
-            if not ok:
-                raise RuntimeError('%s %s disagrees' % (cname, name))
-            del got, again
+            rel = float((got - case.ref).abs().max()) / scale
+            same = bool(torch.equal(got, again))
+            outs[name] = got
+            vs_parent = (bool(torch.equal(got, outs['parent']))
+                         if 'parent' in outs and name != 'parent' else None)
+            rec['checks']['%s %s' % (case.name, name)] = dict(
+                rel=rel, repeat_bitwise=same, parent_bitwise=vs_parent)
+            print('  %-8s %-14s rel %.3e repeat %s parent %s' % (
+                case.name, name, rel, 'bitwise' if same else 'DIFFERS',
+                {None: '-', True: 'bitwise', False: 'differs'}[vs_parent]),
+                flush=True)
+            if not (rel <= 1e-14 and same):
+                raise RuntimeError('%s %s disagrees' % (case.name, name))
+            del again
+        del outs
+        reps = 10 if case.R * case.b * case.n > 10_000_000 else 40
         times = {name: [] for name in names}
         for rnd in range(3):
             order = names if rnd % 2 == 0 else names[::-1]
             for name in order:
-                times[name].append(time_ms(lambda: call(libs[name])))
-        rec['times'][cname] = times
+                times[name].append(graph_ms(case, libs[name], reps))
+        rec['times'][case.name] = times
         for name in names:
-            print('  %-8s %-14s %s ms' % (cname, name, ' '.join(
+            print('  %-8s %-14s %s ms' % (case.name, name, ' '.join(
                 '%.4f' % t for t in times[name])), flush=True)
-        del ref
+        # the shipped source and the parent called back to back, no graph
+        pair = [x for x in ('parent', 'shipped') if x in names]
+        stream = {name: [] for name in pair}
+        for rnd in range(3):
+            for name in (pair if rnd % 2 == 0 else pair[::-1]):
+                stream[name].append(stream_ms(case, libs[name], 4 * reps))
+        rec['stream_times'][case.name] = stream
+        for name in pair:
+            print('  %-8s %-14s %s ms a call back to back' % (
+                case.name, name, ' '.join('%.4f' % t
+                                          for t in stream[name])),
+                flush=True)
+        del case
         torch.cuda.empty_cache()
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'windowed_variants.json'),

@@ -376,3 +376,174 @@ def test_windowed_output_into_banded_operators(d, n):
     assert torch.equal(reg(x), flat(x))
     ref = asm.assemble_banded()
     assert _rel(flat.D.numpy(), ref.D.numpy()) <= 1e-13
+
+
+def _table_set(p, nel, ntab):
+    """`ntab` windowed pair tables of a 1D space (degree p, nel
+    elements), its window starts and nqp."""
+    kv = bspline.make_knots(p, 0.0, 1.0, nel)
+    st = _tables(kv, kv)
+    pairs = ((0, 0), (0, 1), (1, 0), (1, 1))[:ntab]
+    tabs = [st.windowed_pair_table(0, du, dv)[0] for du, dv in pairs]
+    return tabs, st.windowed_pair_table(0, 0, 0)[1], st.nqps[0]
+
+
+# (p, elements, R, groups, nsm) of the plan: the 3D n=48 and 2D n=128
+# shapes, p = 1 to 4, several runs, small and large R, few SMs
+PLAN_CASES = [(3, 48, 36864, 1, 132), (3, 48, 68544, 1, 132),
+              (3, 48, 127449, 3, 132), (3, 128, 512, 1, 132),
+              (3, 128, 917, 3, 132), (1, 40, 33, 1, 132), (2, 13, 1001, 2, 8),
+              (4, 60, 100, 2, 132), (4, 10, 100, 4, 132), (2, 200, 7, 3, 132),
+              (3, 20, 7211, 3, 132), (4, 300, 5000, 4, 16)]
+
+
+@pytest.mark.parametrize('p,nel,R,groups,nsm', PLAN_CASES)
+def test_windowed_plan_tiles_and_fits(p, nel, R, groups, nsm):
+    """The kernels' tiling (cuda_sumfac.windowed_plan, the mirror of
+    make_plan in csrc/windowed.cu): shared memory within 232,448 bytes
+    and laid out as documented, at least two stages, runs of whole warps
+    that cover the dofs, stages that hold every run's X rows, and a CTA
+    walk that visits every (run, r tile) exactly once."""
+    _tabs, fs, nqp = _table_set(p, nel, 1)
+    n, b, wsz, Q = len(fs), 2 * p + 1, (p + 1) * nqp, nel * nqp
+    pl = cuda_sumfac.windowed_plan(Q, R, n, b, wsz, nqp, groups, nsm)
+    rt = 8 * pl['rpt']
+
+    def r128(x):
+        return (x + 127) // 128 * 128
+    assert 0 < pl['smem'] <= cuda_sumfac.WINDOWED_SMEM
+    assert pl['smem'] == (128 + r128(groups * pl['run'] * pl['ps'] * 8)
+                          + pl['stages'] * r128(pl['cap'] * pl['xs'] * 8)
+                          + pl['nys'] * r128(rt * b * n * 8))
+    assert 2 <= pl['stages'] <= 4 and pl['xs'] == rt + 2
+    assert pl['box'] <= 256 and pl['cap'] % pl['box'] == 0
+    assert pl['box'] % 8 == 0
+    assert pl['ps'] % 4 == 2 and pl['ps'] >= b * wsz
+    assert pl['run'] % 4 == 0 and pl['run'] <= 64
+    assert pl['nruns'] * pl['run'] >= n > (pl['nruns'] - 1) * pl['run']
+    assert pl['nys'] in (0, 1, 2) and (pl['nys'] == 0 or pl['nruns'] == 1)
+    assert pl['rtiles'] * rt >= R > (pl['rtiles'] - 1) * rt
+    for k in range(pl['nruns']):
+        i0 = k * pl['run']
+        i1 = min(n, i0 + pl['run']) - 1
+        assert fs[i1] * nqp + wsz - fs[i0] * nqp <= pl['cap']
+    seen = np.zeros((pl['nruns'], pl['rtiles']), dtype=int)
+    for c in range(pl['nruns'] * pl['cpr']):
+        seen[c // pl['cpr'], c % pl['cpr']::pl['cpr']] += 1
+    assert (seen == 1).all()
+    assert pl['nruns'] * pl['cpr'] <= max(nsm, pl['nruns'])
+
+
+def test_windowed_plan_headline_shapes():
+    """The plans that csrc/windowed.cu's note describes: at 3D p=3 n=48
+    the stages in 16-r tiles with two output spans in shared memory
+    beside three stages (221,952 bytes), the fold's 3 tables beside two
+    stages of 24 r, stores direct (222,336); at 2D n=128 three runs,
+    stores direct, 16-r tiles for the stage and 24-r tiles for the
+    fold."""
+    plan = cuda_sumfac.windowed_plan
+    s1 = plan(192, 36864, 51, 7, 16, 4, 1)
+    assert (s1['rpt'], s1['stages'], s1['nys'], s1['ps'], s1['smem'],
+            s1['cpr']) == (2, 3, 2, 114, 221952, 132)
+    f = plan(192, 127449, 51, 7, 16, 4, 3)
+    assert (f['rpt'], f['stages'], f['nys'], f['smem']) == (3, 2, 0, 222336)
+    s2d = plan(512, 512, 131, 7, 16, 4, 1)
+    assert (s2d['rpt'], s2d['nruns'], s2d['nys']) == (2, 3, 0)
+    assert plan(512, 917, 131, 7, 16, 4, 3)['rpt'] == 3
+
+
+def _emulate_windowed_kernel(xs, tabs, idx, fs, nqp, nsm, aligned=True):
+    """The kernels' schedule in numpy, index for index: the plan's CTA
+    walk; per tile every term's X rows copied into the ring's stages as
+    the producer copies them (a row from its 16-byte aligned start, so
+    shifted one slot where its first element is odd, unless X is not
+    aligned); a group's fields summed into the newest stage in term
+    order; the products read through the consumers' slot parity; each
+    output entry written once (checked).  Unwritten stage slots hold NaN, so a read outside
+    the copied data shows in the result."""
+    Q, R = xs[0].shape
+    n, b, wsz = tabs[0].shape
+    order = []
+    for i in idx:
+        if i not in order:
+            order.append(i)
+    groups = [[t for t in range(len(xs)) if idx[t] == g] for g in order]
+    pl = cuda_sumfac.windowed_plan(Q, R, n, b, wsz, nqp, len(order), nsm)
+    rt, S, xsr = 8 * pl['rpt'], pl['stages'], pl['xs']
+    flat = [np.ascontiguousarray(X).ravel() for X in xs]
+    Y = np.full((R, b * n), np.nan)
+    written = np.zeros(Y.shape, dtype=int)
+    for c in range(pl['nruns'] * pl['cpr']):
+        i0, k0 = c // pl['cpr'] * pl['run'], c % pl['cpr']
+        nd = min(pl['run'], n - i0)
+        qa = fs[i0] * nqp
+        rows = fs[i0 + nd - 1] * nqp + wsz - qa
+        ring = np.full((S, pl['cap'] * xsr), np.nan)
+        it = 0
+        for t in range(k0, pl['rtiles'], pl['cpr']):
+            r0 = t * rt
+            nr = min(rt, R - r0)
+
+            def copy(u, s):
+                ring[s] = np.nan
+                for q in range(rows):
+                    e = (qa + q) * R + r0
+                    sh = e % 2 if aligned else 0
+                    assert (nr + sh + 1) // 2 * 2 <= xsr
+                    ring[s, q * xsr + sh:q * xsr + sh + nr] = \
+                        flat[u][e:e + nr]
+            acc = np.zeros((nd, b, rt))
+            for g, terms in zip(order, groups):
+                sa = it % S
+                copy(terms[0], sa)
+                it += 1
+                for u in terms[1:]:
+                    s2 = it % S
+                    copy(u, s2)
+                    it += 1
+                    ring[s2] = ring[sa] + ring[s2]
+                    sa = s2
+                for il in range(nd):
+                    i = i0 + il
+                    qrel = fs[i] * nqp - qa
+                    par = ((qa + qrel) * R + r0) % 2 if aligned else 0
+                    rodd = R % 2 if aligned else 0
+                    win = np.stack([ring[sa, (qrel + w) * xsr
+                                         + (par ^ (w & rodd)):][:rt]
+                                    for w in range(wsz)])
+                    acc[il] += tabs[g][i] @ win
+            for il in range(nd):
+                cols = np.arange(b) * n + i0 + il
+                Y[r0:r0 + nr, cols] = acc[il, :, :nr].T
+                written[r0:r0 + nr, cols] += 1
+    assert (written == 1).all()
+    return Y
+
+
+# (p, elements, R, terms, tables, nsm, X aligned)
+EMULATED = [(3, 20, 250, 1, 1, 4, True), (3, 20, 251, 1, 1, 4, True),
+            (3, 20, 251, 5, 3, 3, True), (2, 13, 101, 3, 2, 2, True),
+            (1, 70, 40, 2, 1, 132, True), (4, 9, 77, 4, 2, 5, True),
+            (3, 20, 250, 4, 2, 4, False), (2, 70, 33, 6, 3, 132, True)]
+
+
+@pytest.mark.parametrize('p,nel,R,nterms,ntab,nsm,aligned', EMULATED)
+def test_windowed_kernel_schedule_emulated(p, nel, R, nterms, ntab, nsm,
+                                           aligned):
+    """The kernels' schedule (tile walk, ring, the odd-R slot shift, the
+    group sums into the newest stage) emulated on the host equals
+    windowed_fold_plain and the JAX package's _windowed_stage, summed,
+    within 1e-14 relative, and writes every entry of Y once."""
+    tabs, fs, nqp = _table_set(p, nel, ntab)
+    rng = np.random.RandomState(p * 1000 + R)
+    xs = [rng.rand(nel * nqp, R) for _ in range(nterms)]
+    idx = [(3 * t) % ntab for t in range(nterms)]
+    got = _emulate_windowed_kernel(xs, tabs, idx, fs, nqp, nsm, aligned)
+    ref = cuda_sumfac.windowed_fold_plain(
+        [torch.as_tensor(X) for X in xs], [torch.as_tensor(T) for T in tabs],
+        idx, torch.as_tensor(fs), nqp).numpy()
+    assert _rel(got, ref) <= 1e-14
+    jref = sum(np.asarray(jsumfac._windowed_stage(
+        jnp.asarray(X), jnp.asarray(tabs[i]), jnp.asarray(fs), nqp))
+        for X, i in zip(xs, idx))
+    assert _rel(got, jref) <= 1e-14
