@@ -184,6 +184,23 @@ on its regular layout bitwise against ``FlatBandedOperator``, and timed
 warm beside ``assemble_banded()`` (21).  Any failed check raises
 (nonzero exit).
 
+The headline's sibling lines (``scripts/torch_lines_phases.py`` runs them
+alone): the float32 instances of K1 (stiffness and ``mass``), K2 and K3
+against their plain versions at the 3D n=48 f32 line's shapes and at
+ragged shapes, 1e-5 relative, bitwise on a repeat and bitwise unchanged
+with torch's global TF32 on, each beside ``torch.matmul`` in float32
+(4n); the 3D p=3 n=96 twisted box in float64 (970,299 dofs):
+``assemble_banded()`` with its peak device bytes, ``cg_ir`` held to the
+JAX package's CPU counts (``POISSON_COUNTS_JAX``,
+``scripts/jax_poisson_counts.py``), 16 banded fibers and two on the
+band's padding held to a host float64 chain (1e-13), and the windowed
+route laid into the flat layout and held to ``assemble_banded().D``
+(1e-14) (22); and the f32 line at n=48 under ``set_dtype(float32)``:
+``assemble_banded()`` + ``cg`` with the float32 weighted fastdiag, its
+count beside the JAX package's for the same operator, its solution held
+to the float64 one (1e-5 in the 2-norm), the f32 mass operator, no
+float64 kernel launched (22b).
+
 Every kernel's entry in the JSON line has its time, its plain version's,
 the time of one PyTorch call computing the same function where one
 exists (``library_ms``; used nowhere in the port) and ``bound_ms``: the
@@ -263,6 +280,20 @@ KERNELS = {
                       'no Pallas site: pyiga_tpu/ops/sumfac.py:395 '
                       '`_windowed_stage` in :433 `assemble_terms_windowed` '
                       '(XLA)'),
+    # the float32 instances of K1, K2 and K3 (the f32 line); the JAX
+    # package's f32 line runs these functions in XLA
+    'fields_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+                   'pyiga_tpu/ops/pallas_sumfac.py:1087 (float32: '
+                   'pyiga_tpu/assemblers.py:59 `stiffness_fields`, XLA)'),
+    'mass_fields_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+                        'pyiga_tpu/ops/pallas_sumfac.py:1087 (float32: '
+                        'pyiga_tpu/assemblers.py:53 `mass_fields`, XLA)'),
+    'stage_f32': ('cuda', 'pyiga_tpu_torch/csrc/sumfac_f32.cu',
+                  'pyiga_tpu/ops/pallas_sumfac.py:353 (float32: '
+                  'pyiga_tpu/ops/sumfac.py:55 `contract_chain`, XLA)'),
+    'fold_f32': ('cuda', 'pyiga_tpu_torch/csrc/sumfac_f32.cu',
+                 'pyiga_tpu/ops/pallas_sumfac.py:781 (float32: '
+                 'pyiga_tpu/ops/sumfac.py:291 `_contract_last`, XLA)'),
 }
 # the kernels each main path runs
 POISSON_KERNELS = ('fields', 'stage', 'fold', 'flat_banded_f64',
@@ -288,6 +319,12 @@ WINDOWED_KERNELS = ('windowed_stage', 'windowed_fold')
 HEAT_T_END = {'esdirk34': 3e-4, 'ros3p': 0.1}
 # (n0, levels) -> the iteration count of the JAX package's host path
 LOCALMG_ITERS = {(24, 3): 29, (48, 3): 27, (96, 3): 25}
+# the JAX package's Krylov counts on the CPU (scripts/jax_poisson_counts.py):
+# cg_ir's (outer, inner_iters) for the 3D p=3 twisted box at n=96 in f64,
+# and cg_jit's count for the port's float32 operator at n=48 with JAX's
+# float32 weighted fastdiag
+POISSON_COUNTS_JAX = {('float64', 96): (4, [7, 10, 11, 11]),
+                      ('float32', 48): 24}
 # the hierarchies whose largest smoothing set exceeds tri_block_cutoff,
 # where solve_hmultigrid's defaults take the wavefront smoother
 WAVEFRONT_SIZES = {(96, 3)}
@@ -476,13 +513,15 @@ FIELDS_RAGGED = ((2, False, 37, 13, 1), (2, True, 515, 7, 2),
                  (3, False, 10001, 9, 2), (2, True, 8191, 257, 3))
 
 
-def check_fields_ragged(kind, device, seed=8):
+def check_fields_ragged(kind, device, seed=8, dtype=torch.float64,
+                        tol=1e-13):
     """K1's `kind` ('stiffness', 'mass' or 'jac') against its plain
     version at :data:`FIELDS_RAGGED` on seeded inputs shaped like a
     geometry's (positive value tables, centred derivative tables, each
     component's partials dominant along its own axis, NURBS weights near
-    1), so that every Jacobian is well conditioned: 1e-13 relative to the
-    largest output, each launched twice for bitwise-equal output."""
+    1), so that every Jacobian is well conditioned: `tol` (1e-13 in
+    float64) relative to the largest output, each launched twice for
+    bitwise-equal output; `dtype` float32 runs K1's float32 instance."""
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     fn, plain = {'stiffness': (cs.fields, cs.fields_plain),
                  'mass': (cs.fields_mass, cs.fields_mass_plain),
@@ -504,7 +543,7 @@ def check_fields_ragged(kind, device, seed=8):
                       + 0.3 * rng.rand(QL, nL)])
 
         def dev(a):
-            return torch.as_tensor(a, dtype=torch.float64, device=device)
+            return torch.as_tensor(a, dtype=dtype, device=device)
         args = (dev(Y), dev(T))
         if kind != 'jac':
             args += (dev(rng.rand(Q12) + 0.5), dev(rng.rand(QL) + 0.5))
@@ -513,8 +552,43 @@ def check_fields_ragged(kind, device, seed=8):
         sync(device)
         key = '%dD%s Q12=%d QL=%d nL=%d' % (d, ' NURBS' if nurbs else '',
                                             Q12, QL, nL)
-        out[key] = compare('%s %s' % (kind, key), got, ref, 1e-13)
+        out[key] = compare('%s %s' % (kind, key), got, ref, tol)
         check_repeat('%s %s' % (kind, key), lambda: fn(*args), got)
+    return out
+
+
+def check_stage_ragged(name, rand, tol):
+    """K2 against its plain version at :data:`STAGE_RAGGED` on operands
+    from `rand` (their dtype picks the kernel), `tol` relative, each
+    launched twice for bitwise-equal output."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    out = {}
+    for Kr, Rr, Mr in STAGE_RAGGED:
+        X, Tt = rand(Kr, Rr), rand(Mr, Kr)
+        got, ref = cs.stage(X, Tt), cs.stage_plain(X, Tt)
+        sync(got.device)
+        key = '%dx%dx%d' % (Kr, Rr, Mr)
+        out[key] = compare('%s %s' % (name, key), got, ref, tol)
+        check_repeat('%s %s' % (name, key), lambda: cs.stage(X, Tt), got)
+    return out
+
+
+def check_fold_ragged(name, rand, tol):
+    """K3 against its plain version at :data:`FOLD_RAGGED`, as
+    :func:`check_stage_ragged`."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    out = {}
+    for Kr, Rr, Mr, nt, ntab in FOLD_RAGGED:
+        xs = [rand(Kr, Rr) for _ in range(nt)]
+        tabs = [rand(Mr, Kr) for _ in range(ntab)]
+        ti = [t % ntab for t in range(nt)]
+        got, ref = cs.fold(xs, tabs, ti), cs.fold_plain(xs, tabs, ti)
+        sync(got.device)
+        key = '%dx%dx%d,%d terms,%d tables' % (Kr, Rr, Mr, nt, ntab)
+        out[key] = compare('%s %s' % (name, key), got, ref, tol)
+        check_repeat('%s %s' % (name, key), lambda: cs.fold(xs, tabs, ti),
+                     got)
+        del xs, tabs, got, ref
     return out
 
 
@@ -608,15 +682,7 @@ def check_kernels(device, n=48, seed=0):
                         library_ms_each=stage_lib_ms,
                         **bound(stage_bytes, stage_flops,
                                 F64_TENSOR_PER_MS))
-    out['stage']['ragged'] = {}
-    for Kr, Rr, Mr in STAGE_RAGGED:
-        X, Tt = rand(Kr, Rr), rand(Mr, Kr)
-        got, ref = cs.stage(X, Tt), cs.stage_plain(X, Tt)
-        sync(device)
-        key = '%dx%dx%d' % (Kr, Rr, Mr)
-        out['stage']['ragged'][key] = compare('stage ' + key, got, ref,
-                                              1e-13)
-        check_repeat('stage ' + key, lambda: cs.stage(X, Tt), got)
+    out['stage']['ragged'] = check_stage_ragged('stage', rand, 1e-13)
 
     # K3: the fold plan's terms over their deduplicated last tables,
     # R = M * M
@@ -652,17 +718,7 @@ def check_kernels(device, n=48, seed=0):
                                2 * K * M * M * M * len(set(idx)),
                                F64_TENSOR_PER_MS))
     del xs, got, ref
-    out['fold']['ragged'] = {}
-    for Kr, Rr, Mr, nt, ntab in FOLD_RAGGED:
-        xs = [rand(Kr, Rr) for _ in range(nt)]
-        tabs = [rand(Mr, Kr) for _ in range(ntab)]
-        ti = [t % ntab for t in range(nt)]
-        got, ref = cs.fold(xs, tabs, ti), cs.fold_plain(xs, tabs, ti)
-        sync(device)
-        key = '%dx%dx%d,%d terms,%d tables' % (Kr, Rr, Mr, nt, ntab)
-        out['fold']['ragged'][key] = compare('fold ' + key, got, ref, 1e-13)
-        check_repeat('fold ' + key, lambda: cs.fold(xs, tabs, ti), got)
-        del xs, tabs, got, ref
+    out['fold']['ragged'] = check_fold_ragged('fold', rand, 1e-13)
 
     # K4 in f64 and f32 on the n=48 flat layout
     ns = tuple(b[0] for b in asm.structure.bs)
@@ -3851,10 +3907,11 @@ def fields_bwd_flops(kind, d, G, nurbs, nL):
     return ops + 2 * d * C * nL + (2 * C * nL if vals else 0)  # the sums
 
 
-# a K1 / K1-bwd instance in ptxas's output: the kernel, its template
-# arguments <D, G, NURBS, KIND, NL> and the forward's ROWS
+# a float64 K1 / K1-bwd instance in ptxas's output: the kernel, its
+# template arguments <D, G, NURBS, KIND, NL> and the forward's ROWS (then
+# its scalar, d; the float32 forward's, f, does not match)
 FIELDS_INSTANCE = re.compile(r'(geo_fields(?:_bwd)?_kernel)ILi(\d+)ELi(\d+)E'
-                             r'Lb([01])ELi(\d+)ELi(\d+)E(?:Lb([01])E)?')
+                             r'Lb([01])ELi(\d+)ELi(\d+)E(?:Lb([01])Ed|E)')
 
 
 def fields_ptxas(build_log):
@@ -4996,6 +5053,566 @@ def run_windowed_phase(device):
     return out
 
 
+################################################################################
+# The headline's sibling lines (phases 4n, 22, 22b): the f32 line and n=96
+################################################################################
+
+# the f32 line (phase 22b): K1's two kinds, K2 and K3 in float32, K4's
+# float instance
+POISSON_F32_KERNELS = ('fields_f32', 'mass_fields_f32', 'stage_f32',
+                       'fold_f32', 'flat_banded_f32')
+# fibers of phase 22: random banded rows of the trailing axes, and two
+# rows on the band's padding (the first dof's left offsets)
+N96_FIBERS = 16
+F32_TOL = 1e-5
+
+
+def f32_case(name, fn, plain, args, device, flops, lib=None):
+    """One float32 kernel at one shape: against its plain version
+    (F32_TOL relative to the largest output), bitwise on a repeat, and
+    again with torch's global TF32 on (the kernel and the plain version
+    both bitwise unchanged: neither may take TF32), with its ms, the plain
+    version's, the one-call yardstick `lib`'s and the bound (its inputs
+    and output over 3.35 TB/s, `flops` over 67 TFLOP/s f32)."""
+    got, ref = fn(*args), plain(*args)
+    sync(device)
+    err, rel = compare(name, got, ref, F32_TOL)
+    check_repeat(name, lambda: fn(*args), got)
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got_tf, ref_tf = fn(*args), plain(*args)
+        lib_tf = lib() if lib is not None else None
+        sync(device)
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    if not (torch.equal(got_tf, got) and torch.equal(ref_tf, ref)):
+        raise RuntimeError('%s: global TF32 changed the f32 results' % name)
+    rec = dict(max_abs_err=err, rel=rel, shape=list(got.shape),
+               repeat_equal=True, tf32_on_unchanged=True,
+               ms=time_ms(lambda: fn(*args), device),
+               plain_ms=time_ms(lambda: plain(*args), device, reps=3),
+               library_ms=None if lib is None else time_ms(lib, device),
+               **bound(nbytes(*[a for a in args if torch.is_tensor(a)],
+                              got), flops, F32_PER_MS))
+    if lib is not None:
+        # the yardstick under TF32: the gap the kernels must not take
+        rec['library_tf32_rel'] = float((lib_tf.double() - lib().double())
+                                        .abs().max() / lib().double()
+                                        .abs().max())
+    return got, rec
+
+
+def check_f32_kernels(device, n=48, seed=21):
+    """Phase 4n: the float32 instances of K1 (stiffness and ``mass``), K2
+    and K3 against their plain versions on the card at the 3D p=3 n=48
+    f32 line's shapes (the twisted box's geometry partials, the banded
+    stage tables, the fold's 6 terms over 3 tables) and at ragged shapes,
+    F32_TOL relative, bitwise on a repeat and unchanged under global
+    TF32 (:func:`f32_case`).  Yardstick: one ``torch.matmul`` in float32
+    with TF32 off for K2 (and K3 over its operands concatenated along K);
+    K1 has none."""
+    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    from pyiga_tpu_torch.ops import banded as bd
+    from pyiga_tpu_torch.ops.sumfac import last_table_groups
+
+    f32 = torch.float32
+    rng = np.random.RandomState(seed)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.rand(*shape), dtype=f32, device=device)
+
+    asm = main_path_setup(3, n, device)
+    out = {}
+    gi = asm.geo_inputs(f32)
+    Y, _ = cs.geo_stage12(gi['geo_tables_bsp'], gi['geo_coeffs'], 3)
+    T = gi['geo_tables_bsp'][2][:2].contiguous()
+    w12, wL = (gi['weights'][0][:, None] * gi['weights'][1]).reshape(-1), \
+        gi['weights'][2]
+    args = (Y, T, w12, wL, False)
+    d, C, _, nL = Y.shape
+    Q = w12.numel() * wL.numel()
+    Y64, _ = cs.geo_stage12(asm.geo_inputs(torch.float64)['geo_tables_bsp'],
+                            asm.geo_inputs(torch.float64)['geo_coeffs'], 3)
+    args64 = tuple(a.double() if torch.is_tensor(a) else a
+                   for a in (Y64,) + args[1:])
+    for name, fn, plain, ops, entry in (
+            ('fields_f32', cs.fields, cs.fields_plain, 2 * C * d * nL + 100,
+             'stiff_fields'),
+            ('mass_fields_f32', cs.fields_mass, cs.fields_mass_plain,
+             2 * C * d * nL + 20, 'mass_fields')):
+        got, out[name] = f32_case(name, fn, plain, args, device, Q * ops)
+        out[name]['ragged'] = check_fields_ragged(
+            'stiffness' if name == 'fields_f32' else 'mass', device,
+            dtype=f32, tol=F32_TOL)
+        # the bare C entries' device times, float32 and float64 on the same
+        # geometry (the wrapper's host time hides them in `ms`)
+        if device.type != 'cuda':
+            continue
+        for suffix, a, g in (('f32', args, got),
+                             ('f64', args64, fn(*args64))):
+            out[name]['bare_' + suffix] = bare_times(
+                name, getattr(_cuda.library(), 'pyiga_%s_%s'
+                              % (entry, suffix)),
+                list(a[:4]) + [torch.empty_like(g)],
+                lambda ts: tuple(t.data_ptr() for t in ts)
+                + (d, 0, w12.numel(), wL.numel(), nL), device)
+        out[name].update(device_ms=out[name]['bare_f32']['device_ms'],
+                         launch_ms=out[name]['bare_f32']['launch_ms'])
+        log('  %s bare: device %.4f ms (the f64 kernel %.4f ms)'
+            % (name, out[name]['bare_f32']['device_ms'],
+               out[name]['bare_f64']['device_ms']))
+    del Y, Y64, args, args64
+
+    bws = bd.band_info(asm.structure)
+    btabs = asm.tables.banded_term_tables(asm.terms, bws)
+    K, M = btabs[0][0].shape[1], btabs[0][0].shape[0]
+    recs = []
+    for R, Tt in ((K * K, btabs[0][0]), (K * M, btabs[0][1])):
+        Tt = torch.as_tensor(Tt, dtype=f32, device=device)
+        X = rand(K, R)
+        _, r = f32_case('stage_f32 R=%d' % R, cs.stage, cs.stage_plain,
+                        (X, Tt), device, 2 * K * R * M,
+                        lib=lambda: torch.matmul(X.t(), Tt.t()))
+        recs.append(r)
+        del X
+    out['stage_f32'] = dict(
+        max_abs_err=max(r['max_abs_err'] for r in recs),
+        rel=max(r['rel'] for r in recs),
+        shapes=[[K, K * K, M], [K, K * M, M]], repeat_equal=True,
+        tf32_on_unchanged=True,
+        **{k: sum(r[k] for r in recs)
+           for k in ('ms', 'plain_ms', 'library_ms')},
+        **bound(sum(r['bound_bytes'] for r in recs),
+                sum(r['bound_flops'] for r in recs), F32_PER_MS),
+        each=recs)
+    out['stage_f32']['ragged'] = check_stage_ragged('stage_f32', rand,
+                                                    F32_TOL)
+
+    plan = asm._fold()
+    idx = list(last_table_groups([btabs[t] for t, _m in plan]))
+    tabs = [None] * (max(idx) + 1)
+    for (t, _m), i in zip(plan, idx):
+        tabs[i] = torch.as_tensor(btabs[t][2], dtype=f32, device=device)
+    xs = [rand(K, M * M) for _ in plan]
+    xcat = torch.cat(xs, dim=0).t()
+    tcat = torch.cat([tabs[i] for i in idx], dim=1).t()
+    _, out['fold_f32'] = f32_case(
+        'fold_f32', lambda *a: cs.fold(list(a), tabs, idx),
+        lambda *a: cs.fold_plain(list(a), tabs, idx), xs, device,
+        2 * K * M * M * M * len(set(idx)),
+        lib=lambda: torch.matmul(xcat, tcat))
+    out['fold_f32'].update(tables=len(tabs), shape=[len(xs), K, M * M, M])
+    # the bound's bytes: the fields, the distinct tables and the output
+    out['fold_f32'].update(bound(
+        nbytes(*xs, *tabs) + M * M * M * 4,
+        2 * K * M * M * M * len(set(idx)), F32_PER_MS))
+    del xs, xcat, tcat
+    out['fold_f32']['ragged'] = check_fold_ragged('fold_f32', rand, F32_TOL)
+    for name in ('fields_f32', 'mass_fields_f32', 'stage_f32', 'fold_f32'):
+        r = out[name]
+        log('  %-16s kernel %.4f ms   plain %.4f ms   library %s   bound '
+            '%.4f ms (%s)' % (name, r['ms'], r['plain_ms'],
+                              'none' if r['library_ms'] is None
+                              else '%.4f ms' % r['library_ms'],
+                              r['bound_ms'], r['bound_by']))
+    return out
+
+
+class GCPauses:
+    """The milliseconds the Python garbage collector ran inside the
+    block (``gc.callbacks``): a pause there stalls the host that feeds
+    the card."""
+
+    def __enter__(self):
+        import gc
+        self.ms, self._t0 = 0.0, None
+
+        def cb(phase, info):
+            if phase == 'start':
+                self._t0 = time.perf_counter()
+            elif self._t0 is not None:
+                self.ms += 1e3 * (time.perf_counter() - self._t0)
+        self._cb = cb
+        gc.callbacks.append(cb)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._cb)
+        return False
+
+
+def host_times(fn, device, reps=5):
+    """`reps` calls of `fn`, each alone between synchronizes by the host
+    clock, with the garbage collector's pauses inside each: ``ms``
+    (each), ``gc_ms`` (each), and the median."""
+    ms, gcs = [], []
+    for _ in range(reps):
+        sync(device)
+        with GCPauses() as g:
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        gcs.append(g.ms)
+    return dict(ms=ms, gc_ms=gcs, median_ms=float(np.median(ms)))
+
+
+def profile_top(fn, device, k=8):
+    """`fn()` once under ``torch.profiler`` (CPU and CUDA activity) after
+    a warm call: the `k` operations with the most device time (ms, calls)
+    and the device time in all.  A profiler that records no device time
+    gives an empty list; one that fails is recorded, not raised (the
+    smoke run does not depend on it)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync(device)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync(device)
+        rows = []
+        for e in prof.key_averages():
+            t = getattr(e, 'device_time_total',
+                        getattr(e, 'cuda_time_total', 0)) / 1e3
+            if t > 0 and getattr(e, 'device_type', None) is not None \
+                    and 'CUDA' in str(e.device_type):
+                rows.append((t, e.key, e.count))
+        rows.sort(reverse=True)
+        host = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count)
+                       for e in prof.key_averages()), reverse=True)
+        return dict(device_ms=sum(r[0] for r in rows),
+                    top=[dict(ms=t, name=n[:80], calls=c)
+                         for t, n, c in rows[:k]],
+                    host_top=[dict(ms=t, name=n[:60], calls=c)
+                              for t, n, c in host[:k]])
+    except Exception as e:          # the profiler is optional here
+        return dict(error='%s: %s' % (type(e).__name__, e))
+
+
+def assembly_breakdown(asm, device):
+    """``assemble_banded()``'s parts in float64 and float32 in one
+    process, warm, by CUDA events: the fields (geometry stages by K2, K1),
+    the chains (K2 stages, one K3), the relayout into K4's layout
+    (``flat_banded_from_padded_chain``) and the whole call."""
+    import pyiga_tpu_torch
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    from pyiga_tpu_torch.ops import sumfac
+    from pyiga_tpu_torch.ops.banded import (band_info,
+                                            flat_banded_from_padded_chain)
+    bws = band_info(asm.structure)
+    ns = tuple(b[0] for b in asm.structure.bs)
+    plan = asm._fold() or [(t, False) for t in range(len(asm.terms))]
+    btabs = asm.tables.banded_term_tables(asm.terms, bws)
+    last_idx = sumfac.last_table_groups([btabs[t] for t, _m in plan])
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        up = {}
+        tabs = [[up.setdefault(id(T), torch.as_tensor(T, dtype=dt,
+                                                      device=device))
+                 for T in btabs[t]] for t, _m in plan]
+        F = asm.field_fn(asm.geo_inputs(dt))
+        Fp = [F[t] for t, _m in plan]
+        Z = cs.chain_folded(tabs, Fp, last_idx)
+        r = dict(fields_ms=time_ms(lambda: asm.field_fn(asm.geo_inputs(dt)),
+                                   device, reps=3),
+                 chains_ms=time_ms(lambda: cs.chain_folded(tabs, Fp,
+                                                           last_idx),
+                                   device, reps=3),
+                 relayout_ms=time_ms(lambda: flat_banded_from_padded_chain(
+                     Z, bws, ns), device, reps=3))
+        saved = pyiga_tpu_torch.get_dtype()
+        pyiga_tpu_torch.set_dtype(dt)
+        try:
+            r['assemble_banded_ms'] = time_ms(asm.assemble_banded, device,
+                                              reps=3)
+        finally:
+            pyiga_tpu_torch.set_dtype(saved)
+        out[str(dt).replace('torch.', '')] = r
+        log('  %s assemble_banded %.2f ms: fields %.2f, chains %.2f, '
+            'relayout %.2f (warm, CUDA events)'
+            % (dt, r['assemble_banded_ms'], r['fields_ms'], r['chains_ms'],
+               r['relayout_ms']))
+        del tabs, F, Fp, Z
+    return out
+
+
+def fiber_rows(asm, count, seed=12345):
+    """`count` random banded rows of the trailing axes (``s_k = mu_k n_k +
+    i_k``) and two on the band's padding (``mu_1 = 0`` at the first dofs:
+    the offset leaves the matrix)."""
+    from pyiga_tpu_torch.ops.banded import band_info
+    bws = band_info(asm.structure)
+    ns = [b[0] for b in asm.structure.bs]
+    rng = np.random.RandomState(seed)
+    rows = [[int(rng.randint((2 * b + 1) * n)) for b, n in
+             zip(bws[1:], ns[1:])] for _ in range(count)]
+    return rows + [[0] * (asm.dim - 1), [1] + [ns[2] + 5] * (asm.dim - 2)]
+
+
+def run_n96(device, n=96):
+    """Phase 22: the 3D p=3 twisted box at n=96 in float64 (970,299
+    dofs): ``assemble_banded()`` with the peak device bytes from a reset
+    just before it, then phase 5's ``cg_ir``, its counts held to the JAX
+    package's on the CPU (:data:`POISSON_COUNTS_JAX`); 16 random banded
+    fibers and two on the band's padding gathered from the card's flat
+    layout and held to :func:`~pyiga_tpu_torch.ops.sumfac.
+    banded_fibers_exact` on the host (1e-13 relative to the largest
+    entry); the windowed route at n=96 (its outputs past 2^31 bytes) laid
+    into the flat layout and held to ``assemble_banded().D`` (1e-14),
+    with its own peak bytes."""
+    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch.ops import banded as bd
+    from pyiga_tpu_torch.ops import sumfac
+
+    t0 = time.perf_counter()
+    asm = main_path_setup(3, n, device)
+    t_host = time.perf_counter() - t0
+    bws = bd.band_info(asm.structure)
+    ns = tuple(b[0] for b in asm.structure.bs)
+    rec = dict(dim=3, n=n, p=3, ndofs=int(np.prod(ns)),
+               t_host_setup_ms=1e3 * t_host)
+    base = peak_reset(device)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    op = asm.assemble_banded()
+    sync(device)
+    rec['t_assembly_ms'] = 1e3 * (time.perf_counter() - t0)
+    rec['peak_bytes_assembly'] = peak_since(device, base)
+    rec['max_memory_allocated'] = (torch.cuda.max_memory_allocated(device)
+                                   if device.type == 'cuda' else 0)
+    x, info, res, t_setup, t_solve = solve_case(asm, op, device)
+    rec['peak_bytes'] = peak_since(device, base)
+    rec['launches'] = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    rec.update(t_precond_setup_ms=1e3 * t_setup, t_solve_ms=1e3 * t_solve,
+               dof_per_s=rec['ndofs'] / (1e-3 * (rec['t_assembly_ms']
+                                                 + 1e3 * t_solve)),
+               outer=info['outer'], inner_iters=info['inner_iters'],
+               iters=sum(info['inner_iters']), residual=res,
+               D_bytes=nbytes(op.D))
+    log('  3D p=3 n=%d: %d dofs; host setup %.1f ms; assembly %.2f ms, '
+        'solve %.2f ms (precond setup %.1f ms); peak %.1f MB above %.1f MB '
+        '(assembly %.1f MB), max_memory_allocated %.1f MB'
+        % (n, rec['ndofs'], rec['t_host_setup_ms'], rec['t_assembly_ms'],
+           rec['t_solve_ms'], rec['t_precond_setup_ms'],
+           rec['peak_bytes'] / 1e6, base / 1e6,
+           rec['peak_bytes_assembly'] / 1e6,
+           rec['max_memory_allocated'] / 1e6))
+    outer, inner = POISSON_COUNTS_JAX[('float64', n)]
+    log('  outer %d inner_iters %s (JAX CPU: %s %s), rel residual %.3e, '
+        'launches %s' % (info['outer'], info['inner_iters'], outer, inner,
+                         res, rec['launches']))
+    if (info['outer'], info['inner_iters']) != (outer, inner) \
+            or not res <= 1e-8:
+        raise RuntimeError('n=%d: cg_ir gives %s %s, the JAX package %s %s'
+                           % (n, info['outer'], info['inner_iters'], outer,
+                              inner))
+    missing = [k for k in POISSON_KERNELS if _cuda.LAUNCHES[k] <= 0]
+    if missing and device.type == 'cuda':
+        raise RuntimeError('n=%d path never launched %s' % (n, missing))
+    del x
+
+    rows = fiber_rows(asm, N96_FIBERS)
+    t0 = time.perf_counter()
+    host = sumfac.banded_fibers_exact(asm, rows)
+    rec['t_fibers_host_ms'] = 1e3 * (time.perf_counter() - t0)
+    got = sumfac.banded_fibers(op.D, bws, ns, rows).cpu().numpy()
+    scale = np.abs(host).max()
+    rel = np.abs(got - host).max(axis=1) / scale
+    rec.update(fibers=len(rows), fiber_rel=rel.tolist(),
+               fiber_rel_max=float(rel.max()),
+               padding_fibers_zero=bool(not got[-2:].any()
+                                        and not host[-2:].any()))
+    log('  %d fibers vs the host float64 chain: max rel %.3e (tol 1e-13); '
+        'padding fibers zero on both sides: %s'
+        % (len(rows), rec['fiber_rel_max'], rec['padding_fibers_zero']))
+    if not (rel.max() <= 1e-13 and rec['padding_fibers_zero']):
+        raise RuntimeError('n=%d fibers disagree with the host chain' % n)
+
+    ops = asm._windowed_operands()
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+    base = peak_reset(device)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    Z = sumfac.run_windowed_assembly(
+        asm.field_fn, asm.geo_inputs(), ops['wtabs'], ops['fss'],
+        asm.tables.nqps, ops['plan'], ops['tperms'])
+    sync(device)
+    rec['windowed_ms'] = 1e3 * (time.perf_counter() - t0)
+    rec['windowed_peak_bytes'] = peak_since(device, base)
+    rec['windowed_launches'] = {k: v for k, v in _cuda.LAUNCHES.items()
+                                if v}
+    if device.type == 'cuda' and any(_cuda.LAUNCHES[k] <= 0
+                                     for k in WINDOWED_KERNELS):
+        raise RuntimeError('n=%d windowed route missed a kernel' % n)
+    Dw = bd.flat_banded_from_padded_chain(Z, bws, ns, add_transpose=False)
+    del Z
+    rec['windowed_flat_max_abs_err'], rec['windowed_flat_rel'] = compare(
+        'n=%d windowed flat vs banded' % n, Dw, op.D, 1e-14)
+    log('  windowed route %.2f ms cold, peak %.1f MB above the operator, '
+        'launches %s' % (rec['windowed_ms'], rec['windowed_peak_bytes'] / 1e6,
+                         rec['windowed_launches']))
+    del Dw, op
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+    rec['t_assembly_warm_ms'] = time_ms(asm.assemble_banded, device, reps=2,
+                                        warmup=1)
+    log('  assemble_banded warm %.2f ms' % rec['t_assembly_warm_ms'])
+    return rec
+
+
+def run_f32_line(device, n=48):
+    """Phase 22b: the f32 line (``bench.py:333-361``, solve ``:482-499``)
+    at 3D p=3 n=48 on the twisted box.  Phase 5's float64 operator and
+    ``cg_ir`` solution first (the same right-hand side), then under
+    ``set_dtype(float32)``, launches counted from zero:
+    ``assemble_banded()`` (K2 f32 geometry stages, K1 f32, K2 f32 chain
+    stages, K3 f32; a float32 ``FlatBandedOperator``), then ``cg`` on
+    ``RestrictedOperator`` with the float32 weighted fastdiag, tol 1e-8,
+    maxiter 600 (K4 f32); and ``MassAssembler.assemble_banded()`` (K1
+    f32's mass kind).  Records the count beside the JAX package's on the
+    CPU for the port's float32 operator (:data:`POISSON_COUNTS_JAX`),
+    holds the solution to the float64 one (1e-5 relative in the 2-norm;
+    the max-norm ratio recorded beside it) and both
+    operators to their float64 counterparts (1e-6 relative to the
+    largest entry).  ``set_dtype(float64)`` is restored in a
+    ``finally``."""
+    import pyiga_tpu_torch
+    from pyiga_tpu_torch import _cuda, bspline, geometry, solvers
+    from pyiga_tpu_torch.assemblers import MassAssembler
+    from pyiga_tpu_torch.ops.fastdiag import (fastdiag_precond_weighted,
+                                              interior_dofs)
+    from pyiga_tpu_torch.ops.matfree import RestrictedOperator
+
+    asm = main_path_setup(3, n, device)
+    mass = MassAssembler(asm.kvs, geometry.twisted_box(), device=device)
+    op64 = asm.assemble_banded()
+    M64 = mass.assemble_banded().D
+    x64, info64, _, _, _ = solve_case(asm, op64, device)
+    free = interior_dofs(asm.kvs)
+    b = torch.as_tensor(np.random.RandomState(0).rand(len(free)),
+                        dtype=torch.float32, device=device)
+    rec = dict(dim=3, n=n, p=3, ndofs=op64.shape[0],
+               f64_inner_iters=info64['inner_iters'])
+    pyiga_tpu_torch.set_dtype(np.float32)
+    try:
+        runs = []
+        for rep in range(2):               # cold, then warm
+            _cuda.reset_launches()
+            sync(device)
+            mem0 = torch.cuda.memory_stats(device) \
+                if device.type == 'cuda' else {}
+            with GCPauses() as pauses:
+                t0 = time.perf_counter()
+                op32 = asm.assemble_banded()
+                sync(device)
+                t_asm = time.perf_counter() - t0
+            mem1 = torch.cuda.memory_stats(device) \
+                if device.type == 'cuda' else {}
+            allocs = {k: mem1[k] - mem0.get(k, 0) for k in
+                      ('num_alloc_retries', 'segment.all.allocated',
+                       'segment.all.freed') if k in mem1}
+            t0 = time.perf_counter()
+            P = fastdiag_precond_weighted(asm, dirichlet=True)
+            sync(device)
+            t_setup = time.perf_counter() - t0
+            A = RestrictedOperator(op32, free)
+            t0 = time.perf_counter()
+            x32, it = solvers.cg(A, b, tol=1e-8, maxiter=600, precond=P)
+            sync(device)
+            t_solve = time.perf_counter() - t0
+            launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+            runs.append(dict(t_assembly_ms=1e3 * t_asm,
+                             t_precond_setup_ms=1e3 * t_setup,
+                             t_solve_ms=1e3 * t_solve, cg_iters=it,
+                             dof_per_s=rec['ndofs'] / (t_asm + t_solve),
+                             launches=launches, allocator=allocs,
+                             gc_ms=pauses.ms))
+        # more assemblies where the two timed ones ran: each alone by the
+        # host clock with the collector's pauses, then under the profiler
+        rec['assembly_host'] = host_times(asm.assemble_banded, device)
+        rec['profile_in_place'] = profile_top(asm.assemble_banded, device)
+        log('  f32 assemble_banded in place: allocator %s / %s; host ms %s, '
+            'gc ms %s; profiler device %.3f ms'
+            % (runs[0]['allocator'], runs[1]['allocator'],
+               ['%.1f' % t for t in rec['assembly_host']['ms']],
+               ['%.1f' % t for t in rec['assembly_host']['gc_ms']],
+               rec['profile_in_place'].get('device_ms', float('nan'))))
+        _cuda.reset_launches()
+        M32 = mass.assemble_banded().D
+        sync(device)
+        mass_launches = _cuda.LAUNCHES['mass_fields_f32']
+        dtypes = (op32.D.dtype, M32.dtype, P(b).dtype, x32.dtype)
+    finally:
+        pyiga_tpu_torch.set_dtype(np.float64)
+    rec.update(runs[0], warm=runs[1], mass_launches=mass_launches,
+               dtypes=[str(t) for t in dtypes])
+    rec['launches']['mass_fields_f32'] = mass_launches
+    if any(t != torch.float32 for t in dtypes):
+        raise RuntimeError('the f32 line computed in %s' % (dtypes,))
+    rec['D_rel_vs_f64'] = float((op32.D.double() - op64.D).abs().max()
+                                / op64.D.abs().max())
+    rec['mass_rel_vs_f64'] = float((M32.double() - M64).abs().max()
+                                   / M64.abs().max())
+    # the solution against the float64 one: relative in the 2-norm (the
+    # gate) and in the max norm (recorded; the float32 operator alone
+    # moves it ~5e-6 at n=48, f32 CG's attainable accuracy as much again)
+    dx = x32.double() - x64
+    rec['x_rel_vs_f64'] = float(torch.linalg.vector_norm(dx)
+                                / torch.linalg.vector_norm(x64))
+    rec['x_maxrel_vs_f64'] = float(dx.abs().max() / x64.abs().max())
+    r64 = RestrictedOperator(op64, free)
+    bd64 = b.double()
+    rec['residual_f64'] = float(torch.linalg.vector_norm(bd64 - r64(
+        x32.double())) / torch.linalg.vector_norm(bd64))
+    rec['cg_iters_jax'] = POISSON_COUNTS_JAX[('float32', n)]
+    log('  f32 n=%d: assembly %.2f ms (warm %.2f), solve %.2f ms (warm %.2f)'
+        ', precond setup %.1f ms; cg %d iterations (JAX CPU on this operator'
+        ': %d); %.0f dof/s warm' % (n, rec['t_assembly_ms'],
+                                    rec['warm']['t_assembly_ms'],
+                                    rec['t_solve_ms'],
+                                    rec['warm']['t_solve_ms'],
+                                    rec['t_precond_setup_ms'],
+                                    rec['cg_iters'], rec['cg_iters_jax'],
+                                    rec['warm']['dof_per_s']))
+    log('  D32 vs D64 rel %.3e, mass rel %.3e, x32 vs x64 rel %.3e (2-norm,'
+        ' tol 1e-5; max norm %.3e), f64 residual of x32 %.3e; launches %s'
+        % (rec['D_rel_vs_f64'], rec['mass_rel_vs_f64'], rec['x_rel_vs_f64'],
+           rec['x_maxrel_vs_f64'], rec['residual_f64'], rec['launches']))
+    missing = [k for k in POISSON_F32_KERNELS if rec['launches'].get(k, 0)
+               <= 0]
+    f64_kernels = [k for k in ('fields', 'mass_fields', 'stage', 'fold',
+                               'flat_banded_f64', 'stage_T', 'tail_fused')
+                   if rec['launches'].get(k, 0)]
+    if (missing and device.type == 'cuda') or f64_kernels:
+        raise RuntimeError('f32 line: kernels never launched %s, float64 '
+                           'kernels launched %s' % (missing, f64_kernels))
+    if not (rec['x_rel_vs_f64'] <= 1e-5 and rec['cg_iters'] < 600
+            and rec['D_rel_vs_f64'] <= 1e-6
+            and rec['mass_rel_vs_f64'] <= 1e-6):
+        raise RuntimeError('f32 line disagrees with the float64 line')
+    del op32, op64, M32, M64
+    rec['breakdown'] = assembly_breakdown(asm, device)
+
+    def f32_assembly():
+        pyiga_tpu_torch.set_dtype(np.float32)
+        try:
+            asm.assemble_banded()
+        finally:
+            pyiga_tpu_torch.set_dtype(np.float64)
+    rec['profile_f32_assembly'] = profile_top(f32_assembly, device)
+    log('  f32 assemble_banded under the profiler: %s'
+        % json.dumps(rec['profile_f32_assembly'])[:600])
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -5029,6 +5646,12 @@ def main():
     log('phase 4: kernels vs plain versions at the 3D n=48 shapes, K2 and '
         'K3 also at ragged shapes')
     kern = check_kernels(device)
+    torch.cuda.empty_cache()
+
+    log('phase 4n: the float32 K1 (stiffness, mass), K2 and K3 vs plain '
+        'versions at the 3D n=48 f32 shapes and ragged shapes, TF32 off '
+        'and on')
+    kern.update(check_f32_kernels(device))
     torch.cuda.empty_cache()
 
     log('phase 4b: whole path on small inputs')
@@ -5237,6 +5860,18 @@ def main():
                     for k in WINDOWED_KERNELS)
     torch.cuda.empty_cache()
 
+    log('phase 22: 3D p=3 twisted box n=96, float64: assemble_banded + '
+        'cg_ir, peak bytes, fibers, the windowed route')
+    n96 = run_n96(device)
+    torch.cuda.empty_cache()
+
+    log('phase 22b: the f32 line, 3D p=3 twisted box n=48: set_dtype('
+        'float32), assemble_banded + cg')
+    f32line = run_f32_line(device)
+    launches.update((k, f32line['launches'][k])
+                    for k in POISSON_F32_KERNELS if k != 'flat_banded_f32')
+    torch.cuda.empty_cache()
+
     # the NS shapes of the kernels the NS path runs, beside their launches
     # in phase 16's integration
     ns_line = {k: dict(launches=nsrec['launches'][k]) for k in NS_KERNELS}
@@ -5293,7 +5928,8 @@ def main():
                   surface=surface, second_derivatives=second,
                   multipatch=multipatch, diff_kernels=diff_kern,
                   diff=diffrec, windowed_kernels=win_kern,
-                  windowed=windowed, seconds=time.perf_counter() - t_start)
+                  windowed=windowed, n96=n96, f32_line=f32line,
+                  seconds=time.perf_counter() - t_start)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:
         json.dump(record, f, indent=1, default=str)

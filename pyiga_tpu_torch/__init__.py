@@ -12,7 +12,14 @@ creates names its dtype; torch's global default dtype is never changed.
 Entry points run on the card: a ``device=`` argument that is omitted
 means ``torch.device('cuda')``, and ``device='cpu'`` asks for the CPU.
 On a CPU tensor each kernel wrapper runs its plain PyTorch version; on a
-CUDA tensor it launches the CUDA kernel.
+CUDA tensor it launches the CUDA kernel.  The compute dtype is float64
+unless ``set_dtype(np.float32)`` selects the f32 line (as in the JAX
+package).
 """
 
 __version__ = '0.1.0'
+
+from .config import (            # noqa: F401
+    get_max_threads, set_max_threads,
+    get_dtype, set_dtype, default_assembly_mode,
+)

@@ -48,7 +48,10 @@ LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'mass_fields': 0,
             'fields_bwd': 0, 'mass_fields_bwd': 0, 'geo_jac_fields_bwd': 0,
             'stage_bwd': 0, 'fold_bwd': 0, 'vform_adjoint': 0,
             # the windowed route (csrc/windowed.cu)
-            'windowed_stage': 0, 'windowed_fold': 0}
+            'windowed_stage': 0, 'windowed_fold': 0,
+            # the float32 instances of K1 (stiffness, mass), K2 and K3
+            'fields_f32': 0, 'mass_fields_f32': 0, 'stage_f32': 0,
+            'fold_f32': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,12 +60,16 @@ _D = ctypes.c_double
 _SIGNATURES = {
     'pyiga_stiff_fields_f64': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
     'pyiga_mass_fields_f64': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
+    'pyiga_stiff_fields_f32': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
+    'pyiga_mass_fields_f32': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
     'pyiga_host_jac_fields_f64': (_P, _P, _P, _P, _I, _L, _I, _P),
     'pyiga_geo_jac_fields_f64': (_P, _P, _P, _I, _I, _I, _L, _I, _I, _P),
     'pyiga_fields_bwd_f64': (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
                              _I, _P),
     'pyiga_stage_f64': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_fold_f64': (_P, _P, _I, _P, _I, _L, _I, _P),
+    'pyiga_stage_f32': (_P, _P, _P, _I, _L, _I, _P),
+    'pyiga_fold_f32': (_P, _P, _I, _P, _I, _L, _I, _P),
     'pyiga_stage_bwd_f64': (_P, _I, _P, _P, _I, _L, _I, _P),
     'pyiga_stage_T_f64': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_tail_fused_f64': (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),

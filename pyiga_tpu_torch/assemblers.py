@@ -13,21 +13,26 @@ evaluated on the host):
   the data on the device);
 * :meth:`BaseGaussAssembler.assemble_banded` runs them over the banded
   pair tables and lays the result out for the flat banded matvec (K4),
-  returning a float64
-  :class:`~pyiga_tpu_torch.ops.banded.FlatBandedOperator` on the
-  assembler's device;
+  returning a :class:`~pyiga_tpu_torch.ops.banded.FlatBandedOperator` in
+  the compute dtype on the assembler's device;
 * :meth:`BaseGaussAssembler.assemble_windowed` contracts each basis pair
   over its support window only (K8 stages, one K8f fold) and returns the
   host MLMatrix, as :meth:`~BaseGaussAssembler.assemble` does.
 
-On the CPU the same pipelines run the kernels' plain PyTorch versions.
+The compact and banded routes run in the compute dtype
+(:func:`~pyiga_tpu_torch.config.get_dtype`): under float32 the geometry
+stages, the fields and the chains take the float32 instances of K2, K1
+and K3, as the JAX package casts its inputs and tables to that dtype
+(``pyiga_tpu/ops/sumfac.py:650-716``).  The windowed route and K1' have
+no float32 instance yet and raise under float32.  On the CPU the same
+pipelines run the kernels' plain PyTorch versions.
 """
 
 import numpy as np
 import torch
 
 from .bspline import KnotVector
-from .config import DTYPE, resolve_device
+from .config import get_dtype, require_float64, resolve_device
 from .mlmatrix import MLStructure, transpose_idx_for_bidx
 from .ops import cuda_sumfac, geom, sumfac
 from .ops.banded import FlatBandedOperator, band_info
@@ -74,9 +79,11 @@ class BaseGaussAssembler:
         self.tables = sumfac.SpaceTables(self.kvs, self.kvs, self.grid,
                                          self.structure.bidx, self.numderiv)
         self._geo_inputs = self._make_geo_inputs()
-        self._jac_dev = None
-        self._compact_ops = None
-        self._windowed_ops = None
+        # device tensors memoized per dtype: a switch of set_dtype never
+        # reuses tables uploaded in the other one
+        self._jac_dev = {}
+        self._compact_ops = {}
+        self._windowed_ops = {}
 
     def _make_geo_inputs(self):
         inputs = {'weights': [np.asarray(w) for w in self.gweights]}
@@ -91,22 +98,26 @@ class BaseGaussAssembler:
             inputs['geo_coeffs'] = coeffs
         return inputs
 
-    def geo_inputs(self, dtype=DTYPE, geo_coeffs=None):
-        """The geometry inputs as tensors on the assembler's device (the
-        host Jacobian of a non-spline geometry is uploaded on the first
-        call and kept).  `geo_coeffs` replaces the spline geometry's
+    def geo_inputs(self, dtype=None, geo_coeffs=None):
+        """The geometry inputs as tensors of `dtype` (default the compute
+        dtype) on the assembler's device (the host Jacobian of a
+        non-spline geometry is uploaded on the first call in a dtype and
+        kept).  `geo_coeffs` replaces the spline geometry's
         coefficients (level order, component axis leading) for this call
         and may carry autograd history: the assembly is differentiable in
         them (:mod:`~pyiga_tpu_torch.diff`)."""
+        if dtype is None:
+            dtype = get_dtype()
+
         def dev(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype,
                                    device=self.device)
         out = {}
         for k, v in self._geo_inputs.items():
-            if k == 'jac' and dtype == DTYPE:
-                if self._jac_dev is None:
-                    self._jac_dev = dev(v)
-                out[k] = self._jac_dev
+            if k == 'jac':
+                if dtype not in self._jac_dev:
+                    self._jac_dev[dtype] = dev(v)
+                out[k] = self._jac_dev[dtype]
             elif k == 'geo_coeffs' and geo_coeffs is not None:
                 continue
             else:
@@ -128,19 +139,20 @@ class BaseGaussAssembler:
         return plan
 
     def _compact_operands(self):
-        """Device tensors of the compact assembly (memoized): the compact
-        pair tables of every term (each distinct host table uploaded
-        once), their last-table groups, and the transpose permutations of
-        a folded plan."""
-        if self._compact_ops is not None:
-            return self._compact_ops
+        """Device tensors of the compact assembly (memoized per compute
+        dtype): the compact pair tables of every term (each distinct host
+        table uploaded once), their last-table groups, and the transpose
+        permutations of a folded plan."""
+        dtype = get_dtype()
+        if dtype in self._compact_ops:
+            return self._compact_ops[dtype]
         host_tabs = self.tables.term_tables(self.terms)
         uploaded = {}
         for tabs in host_tabs:
             for T in tabs:
                 if id(T) not in uploaded:
                     uploaded[id(T)] = torch.as_tensor(
-                        np.ascontiguousarray(T), dtype=DTYPE,
+                        np.ascontiguousarray(T), dtype=dtype,
                         device=self.device)
         plan = self._fold()
         tperms = None
@@ -148,21 +160,24 @@ class BaseGaussAssembler:
             tperms = [torch.as_tensor(transpose_idx_for_bidx(bx),
                                       dtype=torch.int64, device=self.device)
                       for bx in self.structure.bidx]
-        self._compact_ops = dict(
+        ops = dict(
             term_tables=[[uploaded[id(T)] for T in tabs]
                          for tabs in host_tabs],
             last_idx=sumfac.last_table_groups(host_tabs),
             plan=plan or [(t, False) for t in range(len(self.terms))],
             tperms=tperms)
-        return self._compact_ops
+        self._compact_ops[dtype] = ops
+        return ops
 
     def run_device(self, mode=None):
         """Assemble the compact data tensor ``(nnz_1, ..., nnz_d)`` on the
-        assembler's device (float64): geometry fields, then the folded
-        chains (K2 stages, one K3 fold per term group) and the transpose
-        gather of mirrored terms.  `mode` is accepted for API
-        compatibility and ignored: the port has one float64 route, the
-        exact one."""
+        assembler's device, in the compute dtype (as the JAX package's
+        ``run_matrix_assembly``): geometry fields, then the folded chains
+        (K2 stages, one K3 fold per term group) and the transpose gather
+        of mirrored terms.  `mode` ('exact', 'ozaki' or None) is accepted
+        for API compatibility and ignored: the port has one route, the
+        exact one (:func:`~pyiga_tpu_torch.config.
+        default_assembly_mode`)."""
         return self._assemble_compact(self.geo_inputs())
 
     def _assemble_compact(self, geo_inputs):
@@ -180,18 +195,22 @@ class BaseGaussAssembler:
     def assemble(self, mode=None):
         """Assemble and return the matrix as a host
         :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix` over
-        :attr:`structure` (`mode` as in :meth:`run_device`)."""
+        :attr:`structure` (`mode` as in :meth:`run_device`).  Its data
+        is float64 whatever the compute dtype, as in the JAX package: under
+        float32 it holds the float32 results."""
         data = self.run_device(mode)
-        return self.structure.make_mlmatrix(data=data.cpu().numpy())
+        return self.structure.make_mlmatrix(
+            data=data.cpu().numpy().astype(np.float64))
 
     def _windowed_operands(self):
-        """Device tensors of the windowed assembly (memoized): the
-        windowed pair tables of every term (each distinct host table
-        uploaded once), the window starts, the banded-flat transpose
-        permutations of a folded plan and the banded-flat -> compact
-        index maps."""
-        if self._windowed_ops is not None:
-            return self._windowed_ops
+        """Device tensors of the windowed assembly (memoized per compute
+        dtype): the windowed pair tables of every term (each distinct
+        host table uploaded once), the window starts, the banded-flat
+        transpose permutations of a folded plan and the banded-flat ->
+        compact index maps."""
+        dtype = get_dtype()
+        if dtype in self._windowed_ops:
+            return self._windowed_ops[dtype]
         bws = band_info(self.structure)
         if bws is None:
             raise ValueError('windowed assembly requires a regularly banded '
@@ -206,19 +225,20 @@ class BaseGaussAssembler:
         for tabs in host_tabs:
             for T in tabs:
                 if id(T) not in uploaded:
-                    uploaded[id(T)] = dev(T, DTYPE)
+                    uploaded[id(T)] = dev(T, dtype)
         plan = self._fold()
         ns = tuple(b[0] for b in self.structure.bs)
         tperms = None
         if plan is not None:
             tperms = [dev(sumfac.banded_transpose_perm(n, bw))
                       for n, bw in zip(ns, bws)]
-        self._windowed_ops = dict(
+        ops = dict(
             wtabs=[[uploaded[id(T)] for T in tabs] for tabs in host_tabs],
             fss=[dev(f) for f in fss], plan=plan, tperms=tperms,
             cmaps=[dev(m) for m in
                    sumfac.compact_from_banded_maps(self.structure, bws)])
-        return self._windowed_ops
+        self._windowed_ops[dtype] = ops
+        return ops
 
     def assemble_windowed(self):
         """Assemble through the windowed pair tables: each basis pair
@@ -230,7 +250,9 @@ class BaseGaussAssembler:
         :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix`, equal to
         :meth:`assemble`'s up to rounding.  Needs a regularly banded
         space with equal trial and test degrees (raises ValueError
-        otherwise)."""
+        otherwise).  K8 and K8f have no float32 instance yet: under
+        float32 it raises NotImplementedError."""
+        require_float64('the windowed route (K8, K8f)')
         ops = self._windowed_operands()
         flat = sumfac.run_windowed_assembly(
             self.field_fn, self.geo_inputs(), ops['wtabs'], ops['fss'],
@@ -242,8 +264,9 @@ class BaseGaussAssembler:
 
     def assemble_banded(self, mode=None):
         """Assemble straight into the flat banded solver layout and return
-        the float64 :class:`FlatBandedOperator` on the assembler's device
-        (the data never leaves it).  `mode` is accepted for API
+        the :class:`FlatBandedOperator` in the compute dtype on the
+        assembler's device (the data never leaves it; under float32 K4
+        then runs its float instance).  `mode` is accepted for API
         compatibility and ignored, as in :meth:`run_device`.  The JAX
         package returns its regular-layout ``BandedOperator`` here; the
         port has that class too
@@ -262,11 +285,12 @@ class BaseGaussAssembler:
         # group last tables on the host arrays (the pair-table cache
         # interns shared tables), then upload each distinct array once
         last_idx = sumfac.last_table_groups([btabs[t] for t, _m in plan])
+        dtype = get_dtype()
         uploaded = {}
 
         def dev(a):
             if id(a) not in uploaded:
-                uploaded[id(a)] = (a, torch.as_tensor(a, dtype=DTYPE,
+                uploaded[id(a)] = (a, torch.as_tensor(a, dtype=dtype,
                                                       device=self.device))
             return uploaded[id(a)][1]
 

@@ -70,7 +70,7 @@ import torch
 
 from . import utils
 from .bspline import KnotVector
-from .config import DTYPE, resolve_device
+from .config import DTYPE, require_float64, resolve_device
 from .mlmatrix import MLStructure, transpose_idx_for_bidx
 from .ops import cuda_sumfac, cuda_vform, geom, sumfac
 from .quadrature import make_tensor_quadrature
@@ -934,6 +934,7 @@ class VFormAssembler:
         ones) for this call.  Every replacement may carry autograd
         history: the fields are differentiable in them
         (:mod:`~pyiga_tpu_torch.diff`)."""
+        require_float64('VForm assembly (K1 jac, K5)')
         ops = self._device_operands()
         arrays = dict(ops['inputs'])
         coeffs = ops['geo_coeffs']

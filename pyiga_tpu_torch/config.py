@@ -1,23 +1,130 @@
-"""Compute dtype and default device of the port.
+"""Compute dtype, host threads and default device of the port.
 
-The JAX package's config also salts a persistent XLA cache and selects
-Pallas interpret mode; neither exists here.  Float64 is native on the
-GPU, so the compute dtype is float64 (the f32 Krylov operators of
-:func:`~pyiga_tpu_torch.solvers.cg_ir` name float32 themselves).  There
-is no mutable global state: every entry point takes ``device=``, and
-omitting it means the card (``torch.device('cuda')``).  Pass
-``device='cpu'`` to run on the CPU, where each kernel wrapper runs its
-plain PyTorch version.  No entry point checks for a card or falls back
-to the CPU: on a machine without one, a call that omits ``device=``
-fails where torch first touches CUDA.
+The compute dtype is process-wide state, as in the JAX package
+(:func:`set_dtype`, :func:`get_dtype`): float64 by default, float32 for
+the f32 line of the Poisson and mass paths.  Under float32 those paths
+run their kernels' float32 instances (K1's stiffness and ``mass`` kinds,
+K2, K3, K4) and nothing of them computes in float64; the paths whose
+kernels have no float32 instance yet raise ``NotImplementedError``
+(:func:`require_float64`).  The host thread count (:func:`get_max_threads`)
+is process-wide too.
+
+Every entry point takes ``device=``, and omitting it means the card
+(``torch.device('cuda')``).  Pass ``device='cpu'`` to run on the CPU,
+where each kernel wrapper runs its plain PyTorch version.  No entry point
+checks for a card or falls back to the CPU: on a machine without one, a
+call that omits ``device=`` fails where torch first touches CUDA.
+
+The JAX package's config also selects a backend, Pallas interpret mode, a
+persistent XLA cache and two dof cutoffs that route small hierarchical
+assemblies and local-MG solves to the host.  The first three are TPU and
+XLA machinery with no counterpart here.  The cutoffs route by problem
+size; the port routes by ``device=`` and ``relax_backend=`` instead, and
+has no such switch.
 """
 
+import contextlib
+import os
+
+import numpy as np
 import torch
 
+# float64, the dtype of the paths that have no float32 instance (the
+# f32 Krylov operators of solvers.cg_ir name float32 themselves)
 DTYPE = torch.float64
 DEFAULT_DEVICE = torch.device('cuda')
+
+_DTYPES = {np.dtype(np.float64): torch.float64,
+           np.dtype(np.float32): torch.float32}
+
+
+class _State:
+    # process-wide, as the JAX package's: a setting made on one thread is
+    # seen by the others
+    dtype = torch.float64
+    max_threads = os.cpu_count() or 1
+
+
+_state = _State()
 
 
 def resolve_device(device):
     """``device`` as a :class:`torch.device` (None -> the card)."""
     return DEFAULT_DEVICE if device is None else torch.device(device)
+
+
+def get_dtype():
+    """The compute dtype of the assembly and solve paths, a torch dtype
+    (``torch.float64`` unless :func:`set_dtype` chose float32)."""
+    return _state.dtype
+
+
+def set_dtype(dtype):
+    """Set the compute dtype: what the JAX package's ``set_dtype`` takes
+    (``np.float32``, ``np.float64``, their names or numpy dtypes) or a
+    torch dtype.  Only float32 and float64 are compute dtypes."""
+    if isinstance(dtype, torch.dtype):
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError('compute dtype must be float32 or float64, got '
+                             '%s' % dtype)
+        _state.dtype = dtype
+        return
+    key = np.dtype(dtype)
+    if key not in _DTYPES:
+        raise ValueError('compute dtype must be float32 or float64, got %s'
+                         % key)
+    _state.dtype = _DTYPES[key]
+
+
+def get_max_threads():
+    """Number of host threads for host-side helpers (API parity with
+    pyiga's ``get_max_threads``)."""
+    return _state.max_threads
+
+
+def set_max_threads(n):
+    _state.max_threads = int(n)
+
+
+def default_assembly_mode():
+    """The default assembly mode: ``'exact'`` for both dtypes.  The JAX
+    package answers ``'ozaki'`` for float64 on an accelerator, whose
+    float64 is emulated there: its Ozaki route computes f64 products from
+    bf16 chunks on the TPU's matrix unit.  The H100 has native float64
+    arithmetic and f64 tensor cores, so the port has no Ozaki route and
+    its one route is the exact chain."""
+    return 'exact'
+
+
+def require_float64(what):
+    """Raise ``NotImplementedError`` when the compute dtype is float32:
+    `what` (a path whose kernels have no float32 instance yet) would
+    otherwise compute in float64 against the dtype's word."""
+    if _state.dtype != torch.float64:
+        raise NotImplementedError(
+            '%s has no float32 kernels yet (ROADMAP section 1, item 5: the '
+            'rest of the f32 line); call set_dtype(np.float64) first'
+            % what)
+
+
+@contextlib.contextmanager
+def no_tf32(dtype=torch.float32):
+    """Run float32 matrix products in full float32 inside the block, and
+    restore the caller's settings after it: torch's float32 matmul
+    precision (which also decides ``torch.backends.cuda.matmul.
+    allow_tf32``) and ``torch.backends.cudnn.allow_tf32``.  The f32 line
+    holds to exact float32 arithmetic, as the JAX package's f32 chains;
+    TF32 keeps about three decimal digits.  For a `dtype` other than
+    float32 (the operands' dtype) it does nothing."""
+    if dtype != torch.float32:
+        yield
+        return
+    precision = torch.get_float32_matmul_precision()
+    cudnn = torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision('highest')
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        torch.backends.cudnn.allow_tf32 = cudnn

@@ -1,6 +1,7 @@
-// Geometry-field kernels for Hopper (sm_90a), float64.
+// Geometry-field kernels for Hopper (sm_90a), float64; K1's stiffness and
+// mass kinds also in float32.
 //
-// K1  geo_fields_kernel<D, G, NURBS, KIND, NL>  replaces
+// K1  geo_fields_kernel<D, G, NURBS, KIND, NL, ROWS, S>  replaces
 //     pyiga_tpu/ops/pallas_sumfac.py `_fields_fused` (pallas_call at :1087,
 //     body `_make_stiff_fields_fused_kernel`) in its three kinds:
 //     'stiffness', 'mass' (through `mass_fields_pallas`, :1411) and 'jac'
@@ -16,7 +17,14 @@
 //
 // The TPU kernels carry float64 as two-float f32 pairs because the v5e has
 // no f64 arithmetic; Hopper has native f64, so these compute in double
-// directly.
+// directly.  K1's forward is templated on its scalar S: the float32
+// instance (pyiga_stiff_fields_f32, pyiga_mass_fields_f32) is the f32
+// line's (pyiga_tpu_torch.config.set_dtype(np.float32)), which the JAX
+// package runs by casting the geometry inputs to float32 before the same
+// fields (pyiga_tpu/ops/sumfac.py:676): the contraction, the NURBS
+// quotient, det J and the inverse all run in float32, never in double
+// rounded at the end.  Its bound is the same output writes at half the
+// bytes; the design is the double one's.
 
 #include "common.cuh"
 #include "dmma.cuh"      // cp.async
@@ -27,32 +35,31 @@
 // stiffness fields.
 // --------------------------------------------------------------------------
 
-template <int D>
-__device__ __forceinline__ double det_of(double (&J)[D][D]) {
+template <int D, class S>
+__device__ __forceinline__ S det_of(S (&J)[D][D]) {
     if constexpr (D == 1) {
         return J[0][0];
     } else if constexpr (D == 2) {
         return J[0][0] * J[1][1] - J[0][1] * J[1][0];
     } else {
-        const double c00 = J[1][1] * J[2][2] - J[1][2] * J[2][1];
-        const double c01 = J[1][2] * J[2][0] - J[1][0] * J[2][2];
-        const double c02 = J[1][0] * J[2][1] - J[1][1] * J[2][0];
+        const S c00 = J[1][1] * J[2][2] - J[1][2] * J[2][1];
+        const S c01 = J[1][2] * J[2][0] - J[1][0] * J[2][2];
+        const S c02 = J[1][0] * J[2][1] - J[1][1] * J[2][0];
         return J[0][0] * c00 + J[0][1] * c01 + J[0][2] * c02;
     }
 }
 
-template <int D>
-__device__ __forceinline__ double det_and_inv(double (&J)[D][D],
-                                              double (&inv)[D][D]) {
+template <int D, class S>
+__device__ __forceinline__ S det_and_inv(S (&J)[D][D], S (&inv)[D][D]) {
     static_assert(D == 2 || D == 3, "the stiffness fields need D = 2, 3");
-    const double det = det_of<D>(J);
+    const S det = det_of<D>(J);
     if constexpr (D == 2) {
         inv[0][0] = J[1][1] / det;
         inv[0][1] = -J[0][1] / det;
         inv[1][0] = -J[1][0] / det;
         inv[1][1] = J[0][0] / det;
     } else {
-        const double adj[3][3] = {
+        const S adj[3][3] = {
             {J[1][1] * J[2][2] - J[1][2] * J[2][1],
              J[0][2] * J[2][1] - J[0][1] * J[2][2],
              J[0][1] * J[1][2] - J[0][2] * J[1][1]},
@@ -69,14 +76,13 @@ __device__ __forceinline__ double det_and_inv(double (&J)[D][D],
 }
 
 // out[o * N + g] = W (J^-1 J^-T)_ab for the unique a <= b, row-major
-template <int D>
-__device__ __forceinline__ void store_stiffness(double (&inv)[D][D],
-                                                double W, double* out,
+template <int D, class S>
+__device__ __forceinline__ void store_stiffness(S (&inv)[D][D], S W, S* out,
                                                 long long N, long long g) {
     int o = 0;
     for (int a = 0; a < D; ++a) {
         for (int b = a; b < D; ++b) {
-            double s = 0.0;
+            S s = S(0);
             for (int m = 0; m < D; ++m) s += inv[a][m] * inv[b][m];
             out[(long long)o * N + g] = W * s;
             ++o;
@@ -139,37 +145,35 @@ constexpr int kRowsQL = 8;
 
 // The last-axis value and derivative tables of column qL: in registers for
 // a compile-time nL, read from memory at each dot otherwise.
-template <int NL>
+template <int NL, class S>
 struct LastTables {
-    double v[NL], d[NL];
-    __device__ __forceinline__ LastTables(const double* T, int QL, int qL,
-                                          int) {
+    S v[NL], d[NL];
+    __device__ __forceinline__ LastTables(const S* T, int QL, int qL, int) {
 #pragma unroll
         for (int j = 0; j < NL; ++j) {
             v[j] = __ldg(T + (long long)qL * NL + j);
             d[j] = __ldg(T + ((long long)QL + qL) * NL + j);
         }
     }
-    __device__ __forceinline__ double dot(bool deriv, const double* y) const {
-        double s = 0.0;
+    __device__ __forceinline__ S dot(bool deriv, const S* y) const {
+        S s = S(0);
 #pragma unroll
         for (int j = 0; j < NL; ++j) s += (deriv ? d[j] : v[j]) * y[j];
         return s;
     }
 };
 
-template <>
-struct LastTables<0> {
-    const double* v;
-    const double* d;
+template <class S>
+struct LastTables<0, S> {
+    const S* v;
+    const S* d;
     int nL;
-    __device__ __forceinline__ LastTables(const double* T, int QL, int qL,
-                                          int nL_)
+    __device__ __forceinline__ LastTables(const S* T, int QL, int qL, int nL_)
         : v(T + (long long)qL * nL_), d(T + ((long long)QL + qL) * nL_),
           nL(nL_) {}
-    __device__ __forceinline__ double dot(bool deriv, const double* y) const {
-        const double* t = deriv ? d : v;
-        double s = 0.0;
+    __device__ __forceinline__ S dot(bool deriv, const S* y) const {
+        const S* t = deriv ? d : v;
+        S s = S(0);
         for (int j = 0; j < nL; ++j) s += __ldg(t + j) * y[j];
         return s;
     }
@@ -177,15 +181,15 @@ struct LastTables<0> {
 
 // One Gauss point of K1: row q12 (its Y rows at yat(t * C + c)), column
 // qL (its tables `tab`, its weight wl), output index g of N.
-template <int D, int G, bool NURBS, int KIND, int NL, class YAt>
-__device__ __forceinline__ void fields_point(const LastTables<NL>& tab,
-                                             YAt yat, const double* w12,
-                                             int q12, double wl, double* out,
-                                             long long N, long long g) {
+template <int D, int G, bool NURBS, int KIND, int NL, class S, class YAt>
+__device__ __forceinline__ void fields_point(const LastTables<NL, S>& tab,
+                                             YAt yat, const S* w12, int q12,
+                                             S wl, S* out, long long N,
+                                             long long g) {
     constexpr int C = G + (NURBS ? 1 : 0);
     // last-axis contraction: jac[c][k] (derivative axis k), val[c]
-    double jac[C][D];
-    double val[C];
+    S jac[C][D];
+    S val[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
 #pragma unroll
@@ -198,8 +202,8 @@ __device__ __forceinline__ void fields_point(const LastTables<NL>& tab,
     }
     if constexpr (KIND == kJac) {
         if constexpr (NURBS) {
-            const double W = val[C - 1];
-            const double WW = W * W;
+            const S W = val[C - 1];
+            const S WW = W * W;
 #pragma unroll
             for (int c = 0; c < G; ++c)
 #pragma unroll
@@ -217,10 +221,10 @@ __device__ __forceinline__ void fields_point(const LastTables<NL>& tab,
                 out[(long long)(G + c * D + k) * N + g] = jac[c][k];
     } else {
         // physical Jacobian J[c][k]; NURBS: quotient rule on V / W
-        double J[D][D];
+        S J[D][D];
         if constexpr (NURBS) {
-            const double W = val[C - 1];
-            const double WW = W * W;
+            const S W = val[C - 1];
+            const S WW = W * W;
 #pragma unroll
             for (int c = 0; c < D; ++c)
 #pragma unroll
@@ -232,24 +236,25 @@ __device__ __forceinline__ void fields_point(const LastTables<NL>& tab,
 #pragma unroll
                 for (int k = 0; k < D; ++k) J[c][k] = jac[c][k];
         }
-        const double gw = __ldg(w12 + q12) * wl;
+        const S gw = __ldg(w12 + q12) * wl;
         if constexpr (KIND == kMass) {
-            out[g] = gw * fabs(det_of<D>(J));
+            out[g] = gw * S(fabs(det_of<D>(J)));
         } else {
-            double inv[D][D];
-            const double det = det_and_inv<D>(J, inv);
-            store_stiffness<D>(inv, gw * fabs(det), out, N, g);
+            S inv[D][D];
+            const S det = det_and_inv<D>(J, inv);
+            store_stiffness<D>(inv, gw * S(fabs(det)), out, N, g);
         }
     }
 }
 
-template <int D, int G, bool NURBS, int KIND, int NL, bool ROWS>
+template <int D, int G, bool NURBS, int KIND, int NL, bool ROWS,
+          class S = double>
 __global__ void __launch_bounds__(256)
-geo_fields_kernel(const double* __restrict__ Y, const double* __restrict__ T,
-                  const double* __restrict__ w12,
-                  const double* __restrict__ wL, double* __restrict__ out,
-                  int Q12, int QL, int nL_, int RB) {
+geo_fields_kernel(const S* __restrict__ Y, const S* __restrict__ T,
+                  const S* __restrict__ w12, const S* __restrict__ wL,
+                  S* __restrict__ out, int Q12, int QL, int nL_, int RB) {
     static_assert(KIND == kJac || G == D, "only the jac kind takes G != D");
+    static_assert(KIND != kJac || sizeof(S) == 8, "jac is float64 only");
     constexpr int C = G + (NURBS ? 1 : 0);
     const int nL = NL ? NL : nL_;
     const long long N = (long long)Q12 * QL;
@@ -257,17 +262,19 @@ geo_fields_kernel(const double* __restrict__ Y, const double* __restrict__ T,
         // a thread a row, its QL (< kRowsQL) points in turn
         const int r = blockIdx.x * blockDim.x + threadIdx.x;
         if (r >= Q12) return;
-        const double* yg = Y + (long long)r * nL;
+        const S* yg = Y + (long long)r * nL;
         const long long ys = (long long)Q12 * nL;
         auto yat = [&](int tc) { return yg + tc * ys; };
         for (int qL = 0; qL < QL; ++qL) {
-            const LastTables<NL> tab(T, QL, qL, nL);
-            const double wl = KIND == kJac ? 0.0 : __ldg(wL + qL);
+            const LastTables<NL, S> tab(T, QL, qL, nL);
+            const S wl = KIND == kJac ? S(0) : __ldg(wL + qL);
             fields_point<D, G, NURBS, KIND, NL>(tab, yat, w12, r, wl, out, N,
                                                 (long long)r * QL + qL);
         }
     } else {
-        extern __shared__ double sY[];      // [D * C][RB][nL]
+        // [D * C][RB][nL]; declared as double for its alignment
+        extern __shared__ double sYd[];
+        S* sY = reinterpret_cast<S*>(sYd);
         const int r0 = blockIdx.x * RB;
         const int rows = min(RB, Q12 - r0);
         const int seg = rows * nL;
@@ -279,11 +286,11 @@ geo_fields_kernel(const double* __restrict__ Y, const double* __restrict__ T,
         __syncthreads();
 
         for (int qL = threadIdx.x; qL < QL; qL += blockDim.x) {
-            const LastTables<NL> tab(T, QL, qL, nL);
-            const double wl = KIND == kJac ? 0.0 : __ldg(wL + qL);
+            const LastTables<NL, S> tab(T, QL, qL, nL);
+            const S wl = KIND == kJac ? S(0) : __ldg(wL + qL);
 #pragma unroll 2
             for (int r = 0; r < rows; ++r) {
-                const double* yr = sY + r * nL;
+                const S* yr = sY + r * nL;
                 auto yat = [&](int tc) { return yr + tc * RB * nL; };
                 fields_point<D, G, NURBS, KIND, NL>(
                     tab, yat, w12, r0 + r, wl, out, N,
@@ -773,35 +780,39 @@ geo_fields_bwd_kernel(const double* __restrict__ Y,
 // fewer than kBwdMinThreads lanes, up to the block.
 // --------------------------------------------------------------------------
 
-struct FieldsArgs {
-    const double* Y;
-    const double* T;
-    const double* w12;
-    const double* wL;
-    const double* gout;     // backward only
-    double* out;            // the output, or gY for the backward
+// S: the scalar (double; float for K1's float32 instance, forward only)
+template <class S>
+struct FieldsArgsT {
+    const S* Y;
+    const S* T;
+    const S* w12;
+    const S* wL;
+    const S* gout;          // backward only
+    S* out;                 // the output, or gY for the backward
     int Q12, QL, nL;
     cudaStream_t s;
 };
+using FieldsArgs = FieldsArgsT<double>;
 
-template <int D, int G, bool NURBS, int KIND, int NL>
-static int launch_fwd(const FieldsArgs& a) {
+template <int D, int G, bool NURBS, int KIND, int NL, class S>
+static int launch_fwd(const FieldsArgsT<S>& a) {
     constexpr int C = G + (NURBS ? 1 : 0);
     if (a.QL < kRowsQL) {
         const unsigned int grid = (unsigned int)((a.Q12 + 127) / 128);
-        geo_fields_kernel<D, G, NURBS, KIND, NL, true><<<grid, 128, 0, a.s>>>(
-            a.Y, a.T, a.w12, a.wL, a.out, a.Q12, a.QL, a.nL, 1);
+        geo_fields_kernel<D, G, NURBS, KIND, NL, true, S>
+            <<<grid, 128, 0, a.s>>>(a.Y, a.T, a.w12, a.wL, a.out, a.Q12,
+                                    a.QL, a.nL, 1);
         return (int)cudaGetLastError();
     }
     int threads = (a.QL + 31) / 32 * 32;
     if (threads > 256) threads = 256;
-    const long long per_row = 8LL * D * C * a.nL;
+    const long long per_row = (long long)sizeof(S) * D * C * a.nL;
     int rb = 16;
     while (rb > 1 && ((a.Q12 + rb - 1) / rb < 2 * 132 || rb * per_row > 49152))
         rb /= 2;
     const long long smem = rb * per_row;
     const unsigned int grid = (unsigned int)((a.Q12 + rb - 1) / rb);
-    auto kernel = geo_fields_kernel<D, G, NURBS, KIND, NL, false>;
+    auto kernel = geo_fields_kernel<D, G, NURBS, KIND, NL, false, S>;
     if (smem > 49152) {
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -839,16 +850,16 @@ static int launch_bwd(const FieldsArgs& a) {
     return (int)cudaGetLastError();
 }
 
-template <int D, int G, bool NURBS, int KIND, int NL, bool BWD>
-static int launch_one(const FieldsArgs& a) {
+template <int D, int G, bool NURBS, int KIND, int NL, bool BWD, class A>
+static int launch_one(const A& a) {
     if constexpr (BWD)
         return launch_bwd<D, G, NURBS, KIND, NL>(a);
     else
         return launch_fwd<D, G, NURBS, KIND, NL>(a);
 }
 
-template <int D, int G, bool NURBS, int KIND, bool BWD>
-static int launch_nl(const FieldsArgs& a) {
+template <int D, int G, bool NURBS, int KIND, bool BWD, class A>
+static int launch_nl(const A& a) {
     switch (a.nL) {
         case 1: return launch_one<D, G, NURBS, KIND, 1, BWD>(a);
         case 2: return launch_one<D, G, NURBS, KIND, 2, BWD>(a);
@@ -858,23 +869,31 @@ static int launch_nl(const FieldsArgs& a) {
     }
 }
 
-template <int D, int G, int KIND, bool BWD>
-static int launch_nurbs(const FieldsArgs& a, int nurbs) {
+template <int D, int G, int KIND, bool BWD, class A>
+static int launch_nurbs(const A& a, int nurbs) {
     return nurbs ? launch_nl<D, G, true, KIND, BWD>(a)
                  : launch_nl<D, G, false, KIND, BWD>(a);
 }
 
 // d the parametric dimension, g the geometry's output dimension (d for
 // the stiffness and mass kinds; d or d + 1 for the jac kind)
-template <int KIND, bool BWD>
-static int launch_fields(const double* Y, const double* T, const double* w12,
-                         const double* wL, const double* gout, double* out,
-                         int d, int g, int nurbs, long long Q12, int QL,
-                         int nL, void* stream) {
+// S is deduced from Y, T and out (the weights and gout may be nullptr)
+template <class S>
+struct Same {
+    using type = S;
+};
+
+template <int KIND, bool BWD, class S>
+static int launch_fields(const S* Y, const S* T,
+                         const typename Same<S>::type* w12,
+                         const typename Same<S>::type* wL,
+                         const typename Same<S>::type* gout, S* out, int d,
+                         int g, int nurbs, long long Q12, int QL, int nL,
+                         void* stream) {
     if (Q12 < 1 || QL < 1 || nL < 1 || Q12 >= (1LL << 31))
         return (int)cudaErrorInvalidValue;
-    const FieldsArgs a{Y, T, w12, wL, gout, out, (int)Q12, QL, nL,
-                       (cudaStream_t)stream};
+    const FieldsArgsT<S> a{Y, T, w12, wL, gout, out, (int)Q12, QL, nL,
+                           (cudaStream_t)stream};
     if constexpr (KIND == kJac) {
         if (d == 1 && g == 1)     // 1D: no leading axes, nL at run time
             return nurbs ? launch_one<1, 1, true, kJac, 0, BWD>(a)
@@ -903,6 +922,26 @@ PYIGA_EXPORT int pyiga_stiff_fields_f64(const double* Y, const double* T,
 PYIGA_EXPORT int pyiga_mass_fields_f64(const double* Y, const double* T,
                                        const double* w12, const double* wL,
                                        double* out, int d, int nurbs,
+                                       long long Q12, int QL, int nL,
+                                       void* stream) {
+    return launch_fields<kMass, false>(Y, T, w12, wL, nullptr, out, d, d,
+                                       nurbs, Q12, QL, nL, stream);
+}
+
+// K1's float32 instance, stiffness and mass kinds (the f32 line): the same
+// arguments in float.
+PYIGA_EXPORT int pyiga_stiff_fields_f32(const float* Y, const float* T,
+                                        const float* w12, const float* wL,
+                                        float* out, int d, int nurbs,
+                                        long long Q12, int QL, int nL,
+                                        void* stream) {
+    return launch_fields<kStiffness, false>(Y, T, w12, wL, nullptr, out, d,
+                                            d, nurbs, Q12, QL, nL, stream);
+}
+
+PYIGA_EXPORT int pyiga_mass_fields_f32(const float* Y, const float* T,
+                                       const float* w12, const float* wL,
+                                       float* out, int d, int nurbs,
                                        long long Q12, int QL, int nL,
                                        void* stream) {
     return launch_fields<kMass, false>(Y, T, w12, wL, nullptr, out, d, d,

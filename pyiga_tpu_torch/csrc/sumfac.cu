@@ -950,28 +950,6 @@ static int launch(const TailTerms& terms, int M1, int K2, int K3, int M2,
 
 }  // namespace
 
-static bool aligned16(const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// The order in which K3 and K7b visit n terms: grouped by their table
-// pointer `tab[t]`, groups in order of first appearance, terms in their
-// given order within a group (a fixed order: the kernels are
-// deterministic).  Fills order[n] with term indices and end[g] with one
-// past group g's last position; returns the number of groups.
-static int group_by_table(const uint64_t* tab, int n, int* order, int* end) {
-    int q = 0, groups = 0;
-    for (int u = 0; u < n; ++u) {
-        bool first = true;
-        for (int v = 0; v < u; ++v) first = first && tab[v] != tab[u];
-        if (!first) continue;
-        for (int t = u; t < n; ++t)
-            if (tab[t] == tab[u]) order[q++] = t;
-        end[groups++] = q;
-    }
-    return groups;
-}
-
 PYIGA_EXPORT int pyiga_stage_f64(const double* X, const double* T, double* out,
                                  int K, long long R, int M, void* stream) {
     if (K < 1 || R < 1 || M < 1) return (int)cudaErrorInvalidValue;

@@ -39,7 +39,7 @@ import torch
 from . import geometry
 from .assemblers import BaseGaussAssembler
 from .compile import VFormAssembler, check_mode
-from .config import DTYPE
+from .config import DTYPE, require_float64
 from .ops.basis import dense_collocation_tables
 from .ops.geom import tp_apply
 from .solvers import cg
@@ -187,7 +187,9 @@ def assembly_input_fn(asm, name, mode='exact'):
     Only :class:`~pyiga_tpu_torch.compile.VFormAssembler` takes named
     inputs; scalar forms return the single data tensor, vector forms the
     block dict (as in :func:`assembly_coeff_fn`).  `mode` is accepted as
-    ``run_device`` accepts it."""
+    ``run_device`` accepts it.  Float64 only (the backward kernels have
+    no float32 instance): under float32 it raises NotImplementedError."""
+    require_float64('the differentiable assembly (the backward kernels)')
     if not isinstance(asm, VFormAssembler):
         raise TypeError('assembly_input_fn requires a VFormAssembler '
                         '(predefined Gauss assemblers take no named inputs)')
@@ -272,7 +274,8 @@ def assembly_coeff_fn(asm, mode='exact'):
     :class:`~pyiga_tpu_torch.geometry.BSplineFunc` or
     :class:`~pyiga_tpu_torch.geometry.NurbsFunc`.  `mode` is accepted as
     ``run_device`` accepts it: the port has one float64 mode, the exact
-    one."""
+    one.  Under a float32 compute dtype it raises NotImplementedError."""
+    require_float64('the differentiable assembly (the backward kernels)')
     check_mode(mode)
     if isinstance(asm, BaseGaussAssembler):
         return _gauss_assembler_fn(asm)

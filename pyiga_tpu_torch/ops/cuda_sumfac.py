@@ -32,12 +32,20 @@ The kernels (sources in ``csrc/fields.cu`` for K1 and K1',
   final stage over support windows, and :func:`assemble_terms_windowed`
   on them (no Pallas site: the JAX package runs that route in XLA).
 
+K1's stiffness and ``mass`` kinds, K2 and K3 also take float32 (the f32
+line, :func:`~pyiga_tpu_torch.config.set_dtype`): a float32 CUDA tensor
+launches their float32 instances (``csrc/fields.cu`` templated on the
+scalar, ``csrc/sumfac_f32.cu``), which compute in float32 throughout.
+The other kernels are float64 only; K7 raises on float32 on every
+device, and :func:`chain_folded` never routes float32 to it.
+
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel (and raises if it cannot);
-nothing falls back.  Chain convention (as on the TPU): every stage
-contracts the CURRENT leading axis and appends the band axis last, so a
-d-stage chain maps ``(K_1, ..., K_d)`` to ``(M_1, ..., M_d)`` without
-transposes.
+nothing falls back.  The plain versions of the f32 kernels run their
+products in full float32 (:func:`~pyiga_tpu_torch.config.no_tf32`).
+Chain convention (as on the TPU): every stage contracts the CURRENT
+leading axis and appends the band axis last, so a d-stage chain maps
+``(K_1, ..., K_d)`` to ``(M_1, ..., M_d)`` without transposes.
 """
 
 import ctypes
@@ -47,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import _cuda
+from ..config import no_tf32, require_float64
 from . import geom
 from .banded import flat_banded_from_padded_chain
 from .sumfac import windowed_stage_plain
@@ -110,17 +119,20 @@ def _unique_stiffness(inv, W):
 
 def fields_plain(Y, T, w12, wL, nurbs):
     """Plain PyTorch version of :func:`fields` (same inputs and output)."""
-    det, inv = geom.det_and_inv(_jacobian_plain(Y, T, nurbs))
-    return _unique_stiffness(inv, w12[:, None] * wL[None, :] * torch.abs(det))
+    with no_tf32(Y.dtype):
+        det, inv = geom.det_and_inv(_jacobian_plain(Y, T, nurbs))
+        return _unique_stiffness(inv, w12[:, None] * wL[None, :]
+                                 * torch.abs(det))
 
 
 def _check_fields_args(name, Y, T, w12, wL, nurbs):
-    """Validate K1's operands; returns ``(d, Q12, QL, nL)``."""
-    f64 = torch.float64
-    _cuda.require(Y, 'Y', f64, 4)
-    _cuda.require(T, 'T', f64, 3)
-    _cuda.require(w12, 'w12', f64, 1)
-    _cuda.require(wL, 'wL', f64, 1)
+    """Validate K1's operands (float64, or float32 for the stiffness and
+    ``mass`` kinds: all of one dtype); returns ``(d, Q12, QL, nL)``."""
+    dt = Y.dtype if Y.dtype == torch.float32 else torch.float64
+    _cuda.require(Y, 'Y', dt, 4)
+    _cuda.require(T, 'T', dt, 3)
+    _cuda.require(w12, 'w12', dt, 1)
+    _cuda.require(wL, 'wL', dt, 1)
     d, C, Q12, nL = Y.shape
     QL = T.shape[1]
     if d not in (2, 3) or C != d + int(bool(nurbs)):
@@ -156,6 +168,13 @@ def _check_jac_args(name, Y, T, nurbs):
 _FIELD_KINDS = {'stiffness': (0, 'fields', 'fields_bwd'),
                 'mass': (1, 'mass_fields', 'mass_fields_bwd'),
                 'jac': (2, 'geo_jac_fields', 'geo_jac_fields_bwd')}
+# the forward's C entry and launch counter of the stiffness and mass
+# kinds, per dtype (the float32 instances are the f32 line's)
+_FIELD_ENTRIES = {
+    ('stiffness', torch.float64): ('pyiga_stiff_fields_f64', 'fields'),
+    ('mass', torch.float64): ('pyiga_mass_fields_f64', 'mass_fields'),
+    ('stiffness', torch.float32): ('pyiga_stiff_fields_f32', 'fields_f32'),
+    ('mass', torch.float32): ('pyiga_mass_fields_f32', 'mass_fields_f32')}
 
 
 def _fields_kernel(kind, Y, T, w12, wL, nurbs):
@@ -164,6 +183,7 @@ def _fields_kernel(kind, Y, T, w12, wL, nurbs):
     f64 = torch.float64
     lib = _cuda.library()
     if kind == 'jac':
+        counter = _FIELD_KINDS[kind][1]
         d, G, Q12, QL, nL = _check_jac_args('geo_jac_fields', Y, T, nurbs)
         out = torch.empty((G + G * d, Q12, QL), dtype=f64, device=Y.device)
         with _cuda.device_of(Y):
@@ -175,14 +195,12 @@ def _fields_kernel(kind, Y, T, w12, wL, nurbs):
         d, Q12, QL, nL = _check_fields_args(name, Y, T, w12, wL, nurbs)
         shape = ((d * (d + 1) // 2, Q12, QL) if kind == 'stiffness'
                  else (Q12, QL))
-        out = torch.empty(shape, dtype=f64, device=Y.device)
-        entry = (lib.pyiga_stiff_fields_f64 if kind == 'stiffness'
-                 else lib.pyiga_mass_fields_f64)
+        out = torch.empty(shape, dtype=Y.dtype, device=Y.device)
+        fn, counter = _FIELD_ENTRIES[kind, Y.dtype]
         with _cuda.device_of(Y):
-            err = entry(Y.data_ptr(), T.data_ptr(), w12.data_ptr(),
+            err = getattr(lib, fn)(Y.data_ptr(), T.data_ptr(), w12.data_ptr(),
                         wL.data_ptr(), out.data_ptr(), d, int(bool(nurbs)),
                         Q12, QL, nL, _cuda.stream_of(Y))
-    counter = _FIELD_KINDS[kind][1]
     _cuda.check(err, counter)
     _cuda.LAUNCHES[counter] += 1
     return out
@@ -235,23 +253,26 @@ def fields(Y, T, w12, wL, nurbs):
         wL: ``(QL,)`` last-axis Gauss weights.
         nurbs: whether `Y` carries homogeneous NURBS components.
 
-    Returns ``(d(d+1)/2, Q12, QL)``: ``B_ab`` for ``a <= b`` row-major.
-    Differentiable in `Y` (:func:`fields_bwd`)."""
+    Returns ``(d(d+1)/2, Q12, QL)``: ``B_ab`` for ``a <= b`` row-major,
+    in the operands' dtype (float64, or float32: K1's float32 instance,
+    the per-point inverse and det J in float32 too).  Differentiable in
+    `Y` (:func:`fields_bwd`, float64 on the card)."""
     _cuda.constant_operands('fields', T, w12, wL)
     return _GeoFields.apply('stiffness', Y, T, w12, wL, nurbs)
 
 
 def fields_mass_plain(Y, T, w12, wL, nurbs):
     """Plain PyTorch version of :func:`fields_mass`."""
-    det, _ = geom.det_and_inv(_jacobian_plain(Y, T, nurbs))
-    return w12[:, None] * wL[None, :] * torch.abs(det)
+    with no_tf32(Y.dtype):
+        det, _ = geom.det_and_inv(_jacobian_plain(Y, T, nurbs))
+        return w12[:, None] * wL[None, :] * torch.abs(det)
 
 
 def fields_mass(Y, T, w12, wL, nurbs):
     """K1, ``mass`` kind: the mass field ``W = w12 (x) wL |det J|`` on the
     Gauss grid, from the same inputs as :func:`fields` (for NURBS the
-    quotient rule runs before the determinant).  Returns ``(Q12, QL)``,
-    float64; differentiable in `Y`."""
+    quotient rule runs before the determinant).  Returns ``(Q12, QL)`` in
+    the operands' dtype (float64 or float32); differentiable in `Y`."""
     _cuda.constant_operands('fields_mass', T, w12, wL)
     return _GeoFields.apply('mass', Y, T, w12, wL, nurbs)
 
@@ -466,7 +487,8 @@ def fields_bwd(kind, Y, T, w12, wL, nurbs, g):
 
 def stage_plain(X, T):
     """Plain PyTorch version of :func:`stage`."""
-    return torch.tensordot(X, T, dims=([0], [1]))
+    with no_tf32(X.dtype):
+        return torch.tensordot(X, T, dims=([0], [1]))
 
 
 def _check_stage_args(name, X, T):
@@ -480,18 +502,23 @@ def _check_stage_args(name, X, T):
 
 
 def _stage_kernel(X, T):
-    """One K2 launch on CUDA tensors."""
-    _cuda.require(X, 'X', torch.float64, 2)
-    _cuda.require(T, 'T', torch.float64, 2)
+    """One K2 launch on CUDA tensors (float64: the DMMA kernel, counted
+    under ``stage``; float32: the FFMA kernel, ``stage_f32``)."""
+    f32 = X.dtype == torch.float32
+    dt = torch.float32 if f32 else torch.float64
+    _cuda.require(X, 'X', dt, 2)
+    _cuda.require(T, 'T', dt, 2)
     K, R = X.shape
     M = T.shape[0]
-    out = torch.empty((R, M), dtype=torch.float64, device=X.device)
+    out = torch.empty((R, M), dtype=dt, device=X.device)
+    name, entry = (('stage_f32', 'pyiga_stage_f32') if f32
+                   else ('stage', 'pyiga_stage_f64'))
     with _cuda.device_of(X):
-        err = _cuda.library().pyiga_stage_f64(
+        err = getattr(_cuda.library(), entry)(
             X.data_ptr(), T.data_ptr(), out.data_ptr(), K, R, M,
             _cuda.stream_of(X))
-    _cuda.check(err, 'stage')
-    _cuda.LAUNCHES['stage'] += 1
+    _cuda.check(err, name)
+    _cuda.LAUNCHES[name] += 1
     return out
 
 
@@ -574,9 +601,11 @@ class _Stage(torch.autograd.Function):
 
 def stage(X, T):
     """K2: ``out[r, m] = sum_k X[k, r] T[m, k]`` for ``X (K, R)`` and a
-    table ``T (M, K)``; returns ``(R, M)``, float64.  On the card it runs
-    on the f64 tensor cores.  Differentiable in `X` (:func:`stage_bwd`);
-    the table is a constant."""
+    table ``T (M, K)``; returns ``(R, M)`` in the operands' dtype.  On the
+    card float64 runs on the f64 tensor cores, float32 on the FMA units
+    in full float32 (``csrc/sumfac_f32.cu``, no TF32).  Differentiable in
+    `X` (:func:`stage_bwd`, float64 on the card); the table is a
+    constant."""
     _check_stage_args('stage', X, T)
     _cuda.constant_operands('stage', T)
     return _Stage.apply(X, T)
@@ -587,7 +616,8 @@ def stage(X, T):
 ################################################################################
 
 def fold_plain(xs, tables, term_idx):
-    """Plain PyTorch version of :func:`fold`."""
+    """Plain PyTorch version of :func:`fold` (the products in full
+    float32 for float32 operands, :func:`stage_plain`)."""
     out = None
     for X, i in zip(xs, term_idx):
         Y = stage_plain(X, tables[i])
@@ -600,27 +630,33 @@ _FOLD_MAX_TERMS = 16     # kMaxTerms in csrc/sumfac.cu (terms, or tables
 
 
 def _fold_kernel(xs, tables, term_idx):
-    """K3 on CUDA tensors: one launch per 16 terms, summed."""
+    """K3 on CUDA tensors: one launch per 16 terms, summed (float64: the
+    DMMA kernel, counted under ``fold``; float32: the FFMA kernel,
+    ``fold_f32``)."""
     if len(xs) > _FOLD_MAX_TERMS:       # the kernel's term-table capacity
         k = _FOLD_MAX_TERMS
         return (_fold_kernel(xs[:k], tables, term_idx[:k])
                 + _fold_kernel(xs[k:], tables, term_idx[k:]))
+    f32 = xs[0].dtype == torch.float32
+    dt = torch.float32 if f32 else torch.float64
     for t, X in enumerate(xs):
-        _cuda.require(X, 'xs[%d]' % t, torch.float64, 2)
+        _cuda.require(X, 'xs[%d]' % t, dt, 2)
     for i, T in enumerate(tables):
-        _cuda.require(T, 'tables[%d]' % i, torch.float64, 2)
+        _cuda.require(T, 'tables[%d]' % i, dt, 2)
     K, R = xs[0].shape
     M = tables[0].shape[0]
     n = len(xs)
     xp = (ctypes.c_uint64 * n)(*[X.data_ptr() for X in xs])
     tp = (ctypes.c_uint64 * n)(*[tables[i].data_ptr() for i in term_idx])
-    out = torch.empty((R, M), dtype=torch.float64, device=xs[0].device)
+    out = torch.empty((R, M), dtype=dt, device=xs[0].device)
+    name, entry = (('fold_f32', 'pyiga_fold_f32') if f32
+                   else ('fold', 'pyiga_fold_f64'))
     with _cuda.device_of(out):
-        err = _cuda.library().pyiga_fold_f64(
+        err = getattr(_cuda.library(), entry)(
             ctypes.cast(xp, ctypes.c_void_p), ctypes.cast(tp, ctypes.c_void_p),
             n, out.data_ptr(), K, R, M, _cuda.stream_of(out))
-    _cuda.check(err, 'fold')
-    _cuda.LAUNCHES['fold'] += 1
+    _cuda.check(err, name)
+    _cuda.LAUNCHES[name] += 1
     return out
 
 
@@ -707,9 +743,10 @@ def fold(xs, tables, term_idx):
     output written once; every ``xs[t]`` is ``(K, R)``, every table
     ``(M, K)`` (deduplicated: `term_idx` maps terms to tables).
 
-    On the card it runs on the f64 tensor cores, and the terms that share
-    a table are summed before it is applied (groups in order of first
-    appearance, terms in their given order: the association of
+    On the card float64 runs on the f64 tensor cores and float32 on the
+    FMA units in full float32 (``csrc/sumfac_f32.cu``), and the terms that
+    share a table are summed before it is applied (groups in order of
+    first appearance, terms in their given order: the association of
     :func:`~pyiga_tpu_torch.ops.sumfac.assemble_terms_folded`), so the
     product runs once per distinct table; the result is deterministic and
     equals :func:`fold_plain` to rounding.  More than 16 terms run as
@@ -747,6 +784,17 @@ def stage_T_plain(X, T):
     return torch.tensordot(T, X, dims=([1], [0]))
 
 
+def _float64_only(name, *tensors):
+    """K7 has no float32 instance: raise on any other dtype, on every
+    device (its plain version would compute in that dtype on the CPU
+    while the card could not)."""
+    for t in tensors:
+        if t.dtype != torch.float64:
+            raise NotImplementedError(
+                '%s: K7 is float64 only, got %s (float32 chains take K2 + '
+                'K3)' % (name, t.dtype))
+
+
 def stage_T(X, T):
     """K7a: ``out[m, r] = sum_k X[k, r] T[m, k]`` for ``X (K, R)`` and a
     table ``T (M, K)``; returns ``(M, R)``, float64 (K2 with the band axis
@@ -754,6 +802,7 @@ def stage_T(X, T):
     slab).  On the card it runs on the f64 tensor cores; it has no backward
     there (an operand that requires grad raises)."""
     _check_stage_args('stage_T', X, T)
+    _float64_only('stage_T', X, T)
     if not _kernel_device(X, 'stage_T'):
         return stage_T_plain(X, T)
     _cuda.no_grad_operands('stage_T', X, T)
@@ -804,6 +853,7 @@ def tail_fused(x1T, tc2, tc3, idx2, idx3):
     if not n == len(idx2) == len(idx3):
         raise ValueError('tail_fused: %d terms but %d / %d table indices'
                          % (n, len(idx2), len(idx3)))
+    _float64_only('tail_fused', *x1T, *tc2, *tc3)
     if not _kernel_device(x1T[0], 'tail_fused'):
         return tail_fused_plain(x1T, tc2, tc3, idx2, idx3)
     if n > _FOLD_MAX_TERMS:             # the kernel's term-table capacity
@@ -849,13 +899,14 @@ TAIL_FUSED = os.environ.get('PYIGA_TAIL_FUSED', '').lower() \
 def tail_supported(term_tables, fields_):
     """Static gate of the tail route (counterpart of
     ``pallas_sumfac._tail_supported``): the switch is on, every term has
-    3 axes and, per stage, all terms' tables have one shape.  The TPU's
-    VMEM budget and K-block rule have no counterpart here."""
+    3 axes and float64 fields (K7 has no float32 instance) and, per
+    stage, all terms' tables have one shape.  The TPU's VMEM budget and
+    K-block rule have no counterpart here."""
     if not TAIL_FUSED:
         return False
     shapes = [set(), set(), set()]
     for tabs, F in zip(term_tables, fields_):
-        if len(tabs) != 3 or F.dim() != 3:
+        if len(tabs) != 3 or F.dim() != 3 or F.dtype != torch.float64:
             return False
         for k, T in enumerate(tabs):
             if T.shape[1] != F.shape[k]:
@@ -1230,6 +1281,7 @@ def stiffness_fields(geo_inputs):
     ``(a, b)`` row-major order (mirrored pairs share one tensor), each on
     the Gauss grid."""
     if 'jac' in geo_inputs:
+        require_float64("the stiffness fields of a host Jacobian (K1')")
         jac, grid = _host_jacobian(geo_inputs)
         out = host_jac_fields(jac, *geom.gauss_weight_factors(
             geo_inputs['weights']))
@@ -1269,9 +1321,11 @@ def chain_folded(term_tables, fields_, last_idx):
     `last_idx` gives each term's deduplicated last-table slot.  Returns
     ``(M_1, ..., M_d)``.
 
-    With :data:`TAIL_FUSED` on, chains that pass :func:`tail_supported`
-    take :func:`chain_tail_fused` (K7) instead of K2 stages + K3; a K7
-    kernel that fails to build or launch raises there.  A chain that
+    With :data:`TAIL_FUSED` on, float64 chains that pass
+    :func:`tail_supported` take :func:`chain_tail_fused` (K7) instead of
+    K2 stages + K3; a K7 kernel that fails to build or launch raises
+    there.  Float32 chains always take K2 + K3, as the JAX package's f32
+    line runs no fused tail.  A chain that
     autograd records (grad mode on and a field that requires grad) keeps
     the two-call chain whatever the switch says: K7 has no backward."""
     recorded = torch.is_grad_enabled() and any(
@@ -1296,7 +1350,8 @@ def chain_folded(term_tables, fields_, last_idx):
 
 def assemble_flat_banded(term_tables, fields_, fold_plan, bws, ns, last_idx):
     """Fused solver-layout assembly (counterpart of
-    ``pallas_sumfac.assemble_flat_banded_pair_pallas``, in f64): every plan
+    ``pallas_sumfac.assemble_flat_banded_pair_pallas``, in the fields'
+    dtype): every plan
     term chains into ONE accumulator, then the flat matvec layout
     ``(C, F)`` falls out of two box slices per band combo
     (:func:`~pyiga_tpu_torch.ops.banded.flat_banded_from_padded_chain`).
@@ -1313,7 +1368,8 @@ def assemble_flat_banded(term_tables, fields_, fold_plan, bws, ns, last_idx):
 
 def assemble_terms_folded(term_tables, fields_, fold_plan, tperms, last_idx):
     """Compact-layout assembly of a sum of terms (counterpart of
-    ``pallas_sumfac.assemble_terms_folded_pallas``, in f64): the direct
+    ``pallas_sumfac.assemble_terms_folded_pallas``, in the fields'
+    dtype): the direct
     terms and the mirrored terms each run as one :func:`chain_folded`
     (K2 stages, one K3 fold); the mirrored sum's transpose is added by a
     per-axis ``index_select`` with the `tperms` permutations

@@ -17,7 +17,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
-from ..config import DTYPE, resolve_device
+from ..config import get_dtype, no_tf32, resolve_device
 from ..quadrature import make_iterated_quadrature
 from . import geom
 from .basis import dense_basis_table
@@ -94,11 +94,14 @@ class FastDiagPrecond:
             r = torch.zeros(self.n_total, dtype=rf.dtype, device=rf.device)
             r[self.free] = rf
         X = r.reshape(self.ns)
-        for k, UT in enumerate(self.UTs):
-            X = torch.movedim(torch.tensordot(UT, X, dims=([1], [k])), 0, k)
-        X = X * self.inv_diag
-        for k, U in enumerate(self.Us):
-            X = torch.movedim(torch.tensordot(U, X, dims=([1], [k])), 0, k)
+        with no_tf32(X.dtype):
+            for k, UT in enumerate(self.UTs):
+                X = torch.movedim(torch.tensordot(UT, X, dims=([1], [k])),
+                                  0, k)
+            X = X * self.inv_diag
+            for k, U in enumerate(self.Us):
+                X = torch.movedim(torch.tensordot(U, X, dims=([1], [k])),
+                                  0, k)
         out = X.reshape(-1)
         if self.free is not None:
             out = out[self.free]
@@ -121,14 +124,16 @@ def fastdiag_precond(kvs, free_dofs=None, dirichlet=False, dtype=None,
     the unweighted 1D stiffness and mass matrices.
 
     `free_dofs` / `dirichlet` / `mass_shift` as in
-    :func:`fastdiag_precond_weighted`; `dtype` defaults to float64, the
-    preconditioner lives on `device` (default: the card).  Returns a
-    callable ``r -> P^{-1} r`` on raveled vectors."""
+    :func:`fastdiag_precond_weighted`; `dtype` defaults to the compute
+    dtype, the preconditioner lives on `device` (default: the card).
+    Returns a callable ``r -> P^{-1} r`` on raveled vectors (a float32
+    one applies its products in full float32,
+    :func:`~pyiga_tpu_torch.config.no_tf32`)."""
     KM = [(_biform_1d(kv, 1), _biform_1d(kv, 0)) for kv in kvs]
     full_shape = tuple(kv.numdofs for kv in kvs)
     return _build_precond(KM, full_shape, free_dofs, dirichlet,
-                          DTYPE if dtype is None else dtype, mass_shift,
-                          resolve_device(device))
+                          get_dtype() if dtype is None else dtype,
+                          mass_shift, resolve_device(device))
 
 
 def interior_dofs(kvs):
@@ -180,11 +185,15 @@ def fastdiag_precond_weighted(asm, free_dofs=None, dirichlet=False,
             quadrature and device are used).
         free_dofs / dirichlet / mass_shift: as in the JAX package.
         dtype: the preconditioner's torch dtype; default the compute
-            dtype, float64, as the JAX package (pass float32 for the
-            inner solves of :func:`~pyiga_tpu_torch.solvers.cg_ir`).
+            dtype (:func:`~pyiga_tpu_torch.config.get_dtype`), as the JAX
+            package (pass float32 for the inner solves of
+            :func:`~pyiga_tpu_torch.solvers.cg_ir`).
+
+    The axis means are computed in float64 whatever `dtype` is, as the
+    JAX package computes them (no kernel runs there).
     """
     d = asm.dim
-    cms = _axis_means(asm.geo_inputs(DTYPE), d)
+    cms = _axis_means(asm.geo_inputs(torch.float64), d)
     KM = []
     for k in range(d):
         c = cms[k][0].cpu().numpy()
@@ -193,5 +202,5 @@ def fastdiag_precond_weighted(asm, free_dofs=None, dirichlet=False,
         KM.append(((Bt[1] * c) @ Bt[1].T, (Bt[0] * m) @ Bt[0].T))
     full_shape = tuple(kv.numdofs for kv in asm.kvs)
     return _build_precond(KM, full_shape, free_dofs, dirichlet,
-                          DTYPE if dtype is None else dtype, mass_shift,
-                          asm.device)
+                          get_dtype() if dtype is None else dtype,
+                          mass_shift, asm.device)

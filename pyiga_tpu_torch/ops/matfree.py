@@ -24,7 +24,7 @@ import copy
 import numpy as np
 import torch
 
-from ..config import DTYPE
+from ..config import get_dtype, no_tf32
 from . import cuda_vform
 
 
@@ -78,6 +78,13 @@ def matfree_apply(trial_tabs, test_tabs, fields, trial_of_term, test_of_term,
         ns_in / ns_out: trial / test dof shapes.
         x: raveled input vector.
     """
+    with no_tf32(x.dtype):
+        return _matfree_apply(trial_tabs, test_tabs, fields, trial_of_term,
+                              test_of_term, field_of_term, ns_in, ns_out, x)
+
+
+def _matfree_apply(trial_tabs, test_tabs, fields, trial_of_term,
+                   test_of_term, field_of_term, ns_in, ns_out, x):
     X = x.reshape(ns_in)
     # forward-evaluate each needed trial derivative combination once
     U = [None] * len(trial_tabs)
@@ -104,16 +111,20 @@ class MatrixFreeOperator:
     assembler of :mod:`pyiga_tpu_torch.assemblers` or a compiled VForm
     assembler of a scalar bilinear form.
 
-    The coefficient fields are computed once, in float64 on the
+    The coefficient fields are computed once, in the compute dtype on the
     assembler's device (K2 + K1 for a Gauss assembler, K2 + K1 ``jac`` +
-    K5 for a VForm), and kept in `dtype` (float64 or float32) on `device`
-    (default: the assembler's device) with the per-axis basis tables.
+    K5 for a VForm, float64 only), and kept in `dtype` (default the
+    compute dtype; float64 or float32) on `device` (default: the
+    assembler's device) with the per-axis basis tables.  A float32
+    operator applies its products in full float32
+    (:func:`~pyiga_tpu_torch.config.no_tf32`), whatever torch's global
+    TF32 setting.
     Pass `free_dofs` (raveled indices) for the operator on the free dofs
     (zero extension and restriction built in; a box-shaped set by
     slicing)."""
 
     def __init__(self, asm, free_dofs=None, dtype=None, device=None):
-        dtype = DTYPE if dtype is None else dtype
+        dtype = get_dtype() if dtype is None else dtype
         device = asm.device if device is None else torch.device(device)
         d = asm.dim
         if hasattr(asm, 'terms'):           # Gauss assembler

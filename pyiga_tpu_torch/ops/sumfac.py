@@ -178,7 +178,9 @@ def run_windowed_assembly(field_fn, geo_inputs, wterm_tables, fss, nqps,
     Tables, window starts and permutations may be numpy arrays or
     tensors; returns the *banded-flat* tensor (``s_k = o_k*n_k + i_k``)
     on the fields' device."""
+    from ..config import require_float64
     from .cuda_sumfac import assemble_terms_windowed as device_route
+    require_float64('the windowed route (K8, K8f)')
     fields = field_fn(geo_inputs)
     dev = fields[0].device
     uploaded = {}
@@ -216,6 +218,88 @@ def compact_from_banded_maps(structure, bws):
         j = bidx[:, 1].astype(np.int64)
         maps.append((j - i + bw) * n + i)
     return maps
+
+
+def banded_fibers_exact(asm, rows):
+    """Banded fibers of a Gauss assembler's matrix, evaluated on the host
+    in plain float64 with no kernel in them: the parity spot check of the
+    JAX package's bench (``bench.py:165-195`` ``_SPOT_SRC``), the
+    rank-1-restricted chain of every term.
+
+    A fiber fixes the banded rows ``rows[f] = (s_1, ..., s_{d-1})`` of
+    the trailing axes (``s_k = mu_k n_k + i_k``, the position in the
+    banded pair table, :meth:`SpaceTables.banded_pair_table`) and runs
+    over the leading axis: ``fiber[mu_0 n_0 + i_0]``, the regular layout's
+    entry ``D[mu_0, ..., i_0, ...]``.  Per term, the coefficient field is
+    evaluated only at the Gauss points where the trailing rows' pair
+    tables are nonzero (the geometry's Jacobian on that sub-grid, from the
+    assembler's host tables and coefficients, then ``W (J^-1 J^-T)_ab`` or
+    ``W``), contracted with those rows, then with the leading axis's
+    table.  Takes the stiffness and mass assemblers (spline, NURBS or
+    host-evaluated geometries).  Returns ``(len(rows), b_0 n_0)`` float64
+    numpy; a row on the band's padding gives a zero fiber."""
+    from . import geom
+    from .banded import band_info
+    d = asm.dim
+    bws = band_info(asm.structure)
+    btabs = asm.tables.banded_term_tables(asm.terms, bws)
+    gi = asm._geo_inputs
+    mass = len(asm.terms) == 1 and asm.terms[0] == (d * (0,), d * (0,))
+    f64 = torch.float64
+    out = np.zeros((len(rows), btabs[0][0].shape[0]))
+    for f, row in enumerate(rows):
+        # per trailing axis: the table rows of every term, and the Gauss
+        # points where any of them is nonzero
+        trow = [[np.asarray(tabs[k][row[k - 1]]) for tabs in btabs]
+                for k in range(1, d)]
+        pts = [np.flatnonzero(np.any(np.stack(tr) != 0, axis=0))
+               for tr in trow]
+        if any(len(p) == 0 for p in pts):
+            continue
+        sub = [np.arange(len(gi['weights'][0]))] + pts
+        w = [torch.as_tensor(np.asarray(gi['weights'][k])[sub[k]], dtype=f64)
+             for k in range(d)]
+        if 'jac' in gi:
+            jac = torch.as_tensor(np.asarray(gi['jac'])[
+                (slice(None), slice(None)) + np.ix_(*sub)], dtype=f64)
+        else:
+            nurbs = 'geo_tables_nurbs' in gi
+            tabs = gi['geo_tables_nurbs' if nurbs else 'geo_tables_bsp']
+            _, jac = geom.geo_jacobian_field(
+                [torch.as_tensor(np.asarray(t)[:, sub[k]], dtype=f64)
+                 for k, t in enumerate(tabs)],
+                torch.as_tensor(np.asarray(gi['geo_coeffs']), dtype=f64),
+                nurbs, d)
+        det, inv = geom.det_and_inv(jac)
+        W = geom.gauss_weight_field(w) * torch.abs(det)
+        if mass:
+            fields = [W]
+        else:
+            fields = [W * sum(inv[a, m] * inv[b, m] for m in range(d))
+                      for a in range(d) for b in range(d)]
+        fib = torch.zeros(out.shape[1], dtype=f64)
+        for t, C in enumerate(fields):
+            for k in range(d - 1, 0, -1):       # the trailing axes
+                C = torch.tensordot(C, torch.as_tensor(
+                    trow[k - 1][t][pts[k - 1]], dtype=f64), dims=([k], [0]))
+            fib = fib + torch.as_tensor(btabs[t][0], dtype=f64) @ C
+        out[f] = fib.numpy()
+    return out
+
+
+def banded_fibers(D, bws, ns, rows):
+    """The fibers of :func:`banded_fibers_exact` gathered from a flat
+    banded layout ``D (C, F)`` (:class:`~pyiga_tpu_torch.ops.banded.
+    FlatBandedOperator`'s data) on its device: ``(len(rows), b_0 n_0)``."""
+    bsz = tuple(2 * b + 1 for b in bws)
+    R = D.reshape(bsz + tuple(ns))
+    out = []
+    for row in rows:
+        mus = tuple(int(s) // n for s, n in zip(row, ns[1:]))
+        iis = tuple(int(s) % n for s, n in zip(row, ns[1:]))
+        idx = (slice(None),) + mus + (slice(None),) + iis
+        out.append(R[idx].reshape(-1))
+    return torch.stack(out)
 
 
 def banded_reorder(data, bsz, ns):
