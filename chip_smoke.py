@@ -187,9 +187,10 @@ warm beside ``assemble_banded()`` (21).  Any failed check raises
 The headline's sibling lines (``scripts/torch_lines_phases.py`` runs them
 alone): the float32 instances of K1 (stiffness and ``mass``), K2 and K3
 against their plain versions at the 3D n=48 f32 line's shapes and at
-ragged shapes, 1e-5 relative, bitwise on a repeat and bitwise unchanged
-with torch's global TF32 on, each beside ``torch.matmul`` in float32
-(4n); the 3D p=3 n=96 twisted box in float64 (970,299 dofs):
+ragged shapes (K2 and K3 also through every staging path of their
+kernel, and K2 past 2^31 output elements on sampled rows), 1e-5
+relative, bitwise on a repeat and bitwise unchanged with torch's global
+TF32 on, each beside ``torch.matmul`` in float32 (4n); the 3D p=3 n=96 twisted box in float64 (970,299 dofs):
 ``assemble_banded()`` with its peak device bytes, ``cg_ir`` held to the
 JAX package's CPU counts (``POISSON_COUNTS_JAX``,
 ``scripts/jax_poisson_counts.py``), 16 banded fibers and two on the
@@ -5067,30 +5068,44 @@ N96_FIBERS = 16
 F32_TOL = 1e-5
 
 
-def f32_case(name, fn, plain, args, device, flops, lib=None):
-    """One float32 kernel at one shape: against its plain version
-    (F32_TOL relative to the largest output), bitwise on a repeat, and
-    again with torch's global TF32 on (the kernel and the plain version
-    both bitwise unchanged: neither may take TF32), with its ms, the plain
-    version's, the one-call yardstick `lib`'s and the bound (its inputs
-    and output over 3.35 TB/s, `flops` over 67 TFLOP/s f32)."""
+class GlobalTF32:
+    """torch's global TF32 switches on inside the block, restored after."""
+
+    def __enter__(self):
+        self.saved = (torch.get_float32_matmul_precision(),
+                      torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+
+    def __exit__(self, *exc):
+        torch.set_float32_matmul_precision(self.saved[0])
+        torch.backends.cudnn.allow_tf32 = self.saved[1]
+
+
+def f32_check(name, fn, plain, args, device, lib=None):
+    """A float32 kernel at one shape against its plain version (F32_TOL
+    relative to the largest output), bitwise on a repeat, and again with
+    torch's global TF32 on (the kernel and the plain version both bitwise
+    unchanged: neither may take TF32).  Returns the output, the error,
+    its ratio and the yardstick `lib`'s output under TF32."""
     got, ref = fn(*args), plain(*args)
     sync(device)
     err, rel = compare(name, got, ref, F32_TOL)
     check_repeat(name, lambda: fn(*args), got)
-    saved = (torch.get_float32_matmul_precision(),
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
-    try:
+    with GlobalTF32():
         got_tf, ref_tf = fn(*args), plain(*args)
         lib_tf = lib() if lib is not None else None
         sync(device)
-    finally:
-        torch.set_float32_matmul_precision(saved[0])
-        torch.backends.cudnn.allow_tf32 = saved[1]
     if not (torch.equal(got_tf, got) and torch.equal(ref_tf, ref)):
         raise RuntimeError('%s: global TF32 changed the f32 results' % name)
+    return got, err, rel, lib_tf
+
+
+def f32_case(name, fn, plain, args, device, flops, lib=None):
+    """:func:`f32_check` with the kernel's ms, the plain version's, the
+    one-call yardstick `lib`'s and the bound (its inputs and output over
+    3.35 TB/s, `flops` over 67 TFLOP/s f32)."""
+    got, err, rel, lib_tf = f32_check(name, fn, plain, args, device, lib)
     rec = dict(max_abs_err=err, rel=rel, shape=list(got.shape),
                repeat_equal=True, tf32_on_unchanged=True,
                ms=time_ms(lambda: fn(*args), device),
@@ -5104,6 +5119,100 @@ def f32_case(name, fn, plain, args, device, flops, lib=None):
                                         .abs().max() / lib().double()
                                         .abs().max())
     return got, rec
+
+
+# K2f / K3f's staging paths (K, R, M, X's offset in floats from a 16-byte
+# boundary): R % 4 = 1, 2, 3 and 0 (scalar and float4 loads of X), X 4, 8
+# and 12 bytes off, K not a multiple of the 8-deep slice, M = 1, 357, 385
+# (scalar stores), 358 (float2) and 356 (float4)
+F32_STAGE_RAGGED = ((13, 1001, 385, 0), (37, 4098, 1, 0), (203, 515, 357, 0),
+                    (192, 36864, 357, 1), (192, 36866, 357, 2),
+                    (192, 4099, 385, 3), (192, 4100, 356, 0),
+                    (100, 4102, 358, 0))
+# folds (K, R, M, table of each term, X's offset): 1, 2, 6 (3 tables, a
+# table repeated out of order) and 16 terms, at odd and aligned R
+F32_FOLD_RAGGED = ((192, 5001, 357, (0,), 0), (192, 5001, 357, (0, 0), 1),
+                   (13, 4098, 385, (0, 1, 0, 2, 1, 2), 2),
+                   (192, 4100, 357, (0, 1, 0, 2, 1, 2), 0),
+                   (37, 1001, 1, tuple(t % 5 for t in range(16)), 3))
+# the K2f shape past 2^31 output elements (R M = 2,177,700,357; X 4.7 GB,
+# out 8.7 GB), checked on sampled rows
+F32_BIG = (192, 6100001, 357)
+
+
+def f32_offset_rand(rng, off, *shape):
+    """A float32 operand on the card whose data starts `off` floats past
+    a 16-byte boundary (a contiguous view into a larger tensor)."""
+    n = int(np.prod(shape))
+    base = torch.empty(n + off, dtype=torch.float32, device=rng['device'])
+    base[off:] = torch.as_tensor(rng['rs'].rand(n), dtype=torch.float32,
+                                 device=rng['device'])
+    return base[off:].view(*shape)
+
+
+def check_f32_staging(device, seed=22):
+    """Phase 4n's ragged part: K2f and K3f through every staging path
+    (:data:`F32_STAGE_RAGGED`, :data:`F32_FOLD_RAGGED`) by
+    :func:`f32_check`, and K2f past 2^31 output elements
+    (:data:`F32_BIG`): against the plain version on about 4,000 rows (the
+    last 1,024, the 64 around row 2^31 / M and the rest drawn at random),
+    bitwise on a repeat and with TF32 on."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    rng = dict(rs=np.random.RandomState(seed), device=device)
+    stage, fold = {}, {}
+    for K, R, M, off in F32_STAGE_RAGGED:
+        X = f32_offset_rand(rng, off, K, R)
+        T = f32_offset_rand(rng, 0, M, K)
+        key = '%dx%dx%d X+%dB' % (K, R, M, 4 * off)
+        _, err, rel, _ = f32_check('stage_f32 ' + key, cs.stage,
+                                   cs.stage_plain, (X, T), device)
+        stage[key] = dict(max_abs_err=err, rel=rel)
+    for K, R, M, idx, off in F32_FOLD_RAGGED:
+        xs = [f32_offset_rand(rng, off, K, R) for _ in idx]
+        tabs = [f32_offset_rand(rng, 0, M, K) for _ in range(max(idx) + 1)]
+        key = '%dx%dx%d,%d terms %s X+%dB' % (K, R, M, len(idx),
+                                              ''.join(map(str, idx))
+                                              if len(idx) < 10 else
+                                              'over %d tables'
+                                              % len(tabs), 4 * off)
+        _, err, rel, _ = f32_check(
+            'fold_f32 ' + key, lambda *a: cs.fold(list(a), tabs, list(idx)),
+            lambda *a: cs.fold_plain(list(a), tabs, list(idx)), xs, device)
+        fold[key] = dict(max_abs_err=err, rel=rel)
+        del xs
+    K, R, M = F32_BIG
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    X = torch.rand((K, R), generator=gen, device=device,
+                   dtype=torch.float32)
+    T = torch.rand((M, K), generator=gen, device=device, dtype=torch.float32)
+    edge = (2 ** 31) // M
+    rows = np.unique(np.concatenate([
+        rng['rs'].randint(0, R, 4096 - 1024 - 64),
+        np.arange(R - 1024, R), np.arange(edge - 32, edge + 32)]))
+    rows = rows[rows < R]
+    ri = torch.as_tensor(rows, device=device)
+    sync(device)
+    t0 = time.perf_counter()
+    got = cs.stage(X, T)
+    sync(device)
+    ms = 1e3 * (time.perf_counter() - t0)
+    ref = cs.stage_plain(X[:, ri].contiguous(), T)
+    key = '%dx%dx%d (R M = %d)' % (K, R, M, R * M)
+    err, rel = compare('stage_f32 ' + key, got[ri], ref, F32_TOL)
+    check_repeat('stage_f32 ' + key, lambda: cs.stage(X, T), got)
+    with GlobalTF32():
+        same = torch.equal(cs.stage(X, T), got)
+    if not same:
+        raise RuntimeError('stage_f32 %s: global TF32 changed the result'
+                           % key)
+    stage[key] = dict(max_abs_err=err, rel=rel, rows_checked=len(rows),
+                      host_ms=ms, out_bytes=R * M * 4)
+    log('  stage_f32 %s: %d rows checked, %.1f ms by the host clock'
+        % (key, len(rows), ms))
+    del X, got, ref
+    torch.cuda.empty_cache()
+    return stage, fold
 
 
 def check_f32_kernels(device, n=48, seed=21):
@@ -5213,6 +5322,8 @@ def check_f32_kernels(device, n=48, seed=21):
         2 * K * M * M * M * len(set(idx)), F32_PER_MS))
     del xs, xcat, tcat
     out['fold_f32']['ragged'] = check_fold_ragged('fold_f32', rand, F32_TOL)
+    out['stage_f32']['staging'], out['fold_f32']['staging'] = \
+        check_f32_staging(device)
     for name in ('fields_f32', 'mass_fields_f32', 'stage_f32', 'fold_f32'):
         r = out[name]
         log('  %-16s kernel %.4f ms   plain %.4f ms   library %s   bound '

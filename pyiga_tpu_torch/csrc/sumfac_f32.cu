@@ -23,38 +23,118 @@
 // 14.5 GFLOP (0.216 ms) over 226 MB (0.067 ms); the fold, 3 tables of 2
 // terms at R = 127,449, 52.4 GFLOP (0.782 ms) over 769 MB (0.230 ms).
 //
-// Design (simple first): a block of 256 threads owns a 64 (m) x 128 (r)
-// output tile, a thread 4 m x 8 r of it (32 accumulators).  K runs in
-// 16-deep slices through a 3-stage cp.async pipeline: the table slice is
-// staged transposed, [k][m] (stride 68), by 4-byte copies; the X slice
-// [k][r] (stride 132) by 16-byte copies where R is a multiple of 4 and
-// every X 16-byte aligned, else 4-byte ones.  Ragged K, M and R are
-// zero-filled by the copies and skipped on store.  A k step reads one
-// float4 of the table slice and two of X: a quarter-warp's 8 lanes read 8
-// consecutive m (128 bytes, no conflict) and one r quad (a broadcast).
-// The fold walks (group, k slice, term) as K3 does: the group's last term
-// brings the table slice; a group of several terms sums their X slices in
-// term order into a shared buffer, and runs one product a slice from it.
-// Every output element is written once, in a fixed order: deterministic.
-// The m tiles are the grid's fastest axis, so the blocks that share an X
-// tile run together and X comes from device memory once.  Offsets into
-// X, T and out are 64-bit (R M passes 2^31 elements at 3D n=96).
+// Design.  A step of the mainloop is (table group, k slice), and every
+// step runs a product.  A block of 256 threads owns a 128 (r) x 128 (m)
+// output tile: 8 warps as 4 (r) x 2 (m), a warp 32 r x 64 m, a lane 8 r x
+// 8 m (64 accumulators) as two r quads 16 apart times two m quads 32
+// apart; 2 blocks an SM at 128 registers.  K runs in 16-deep slices
+// through a ring of 3 shared buffers.  A k step reads two float4 of the X
+// slice and two of the table slice for 64 FFMA (1 byte a lane an FFMA),
+// the next k's fragments read before this k's products.  These reads
+// set the pace: at one wavefront a quarter-warp, an LDS.128 holds the
+// SM's shared-memory port 4 cycles, so a k step's 16 take it as long as
+// the warp's 64 FFMA take the FMA issue, and the fragment reads alone,
+// without their FFMA, take 66-68 % of the kernel's time at the n=48
+// shapes.  Wider lane tiles (8 x 16, 16 x 8) read less a FFMA but need
+// 128 threads a block at 2 blocks an SM, and lose more to latency.
+// The group's fields come through registers: at the start of a step each
+// lane loads its part of the next step's X slice of the group's first
+// two fields (one where every group has one, as K2f) (scalar loads, a warp's 32 lanes on 32 consecutive r:
+// coalesced at any R and any alignment; float4 where R is a multiple of 4
+// and every field 16-byte aligned; predicated and not branched around,
+// so that the compiler keeps them ahead of the products), the products
+// of this step run, then the lane adds them in term order (a group's
+// third and later fields are loaded and added there) and stores the sum
+// once into the next stage's X buffer.  The table slice, T[m, k]
+// transposed into [k][m], comes by 4-byte cp.async (the table stays in
+// the L2: 274 KB at M = 357), kStages - 1 steps ahead.  One barrier a
+// step.  Ragged K, M and R are zero-filled on the way in and skipped on
+// the way out.
+// The output tile goes out through shared memory, a warp's 16 rows at a
+// time, so that a warp stores runs of one row of out (R, M): 128 bytes a
+// store at any M, float2 / float4 stores where M and out allow them.
+// Every output element is written once, its sum over k and the groups in
+// a fixed order: deterministic.  The m tiles are the grid's fastest axis,
+// so the blocks that share an X tile run together and X comes from device
+// memory once.  Offsets into X, T and out are 64-bit (R M passes 2^31
+// elements at 3D n=96).  M = 357 pads to 384: 7 % of the FFMA are lost.
+//
+// The -D constants below let scripts/torch_fold_f32_variants.py rebuild
+// the source with other tiles, depths and staging paths, and with parts
+// cut out (PYIGA_F32_CUT: timed, never checked).
 
 #include "common.cuh"
+
+#ifndef PYIGA_F32_TRQ
+#define PYIGA_F32_TRQ 2         // r quads a lane, 16 apart
+#endif
+#ifndef PYIGA_F32_TMQ
+#define PYIGA_F32_TMQ 2         // m quads a lane, 32 apart
+#endif
+#ifndef PYIGA_F32_WR
+#define PYIGA_F32_WR 4          // warps along r (16 TRQ r each)
+#endif
+#ifndef PYIGA_F32_WM
+#define PYIGA_F32_WM 2          // warps along m (32 TMQ m each)
+#endif
+#ifndef PYIGA_F32_BK
+#define PYIGA_F32_BK 16         // k a slice
+#endif
+#ifndef PYIGA_F32_STAGES
+#define PYIGA_F32_STAGES 3      // shared buffers of the ring
+#endif
+#ifndef PYIGA_F32_SCALAR_X
+#define PYIGA_F32_SCALAR_X 0    // 1: X by scalar loads at every R
+#endif
+#ifndef PYIGA_F32_XASYNC
+#define PYIGA_F32_XASYNC 0      // 1: X by cp.async into the ring, kStages
+#endif                          // - 1 steps ahead, a pair summed in place
+#ifndef PYIGA_F32_DBUF
+#define PYIGA_F32_DBUF 1        // the next k's fragments read before this
+#endif                          // k's FFMA, by hand (0: left to ptxas)
+#ifndef PYIGA_F32_CUT
+#define PYIGA_F32_CUT 0         // 1 no products, 2 no loads, 3 a group's
+#endif                          // first term only, 4 no stores, 5 the
+                                // fragment reads without their FFMA
 
 namespace {
 namespace f32 {
 
 constexpr int kMaxTerms = 16;
-constexpr int kBM = 64;                 // m a block
-constexpr int kBN = 128;                // r a block
-constexpr int kBK = 16;                 // k a slice
-constexpr int kThreads = 256;
-constexpr int kStages = 3;
-constexpr int kPA = kBM + 4;            // table slice [k][m] row stride
-constexpr int kPB = kBN + 4;            // X slice [k][r] row stride
-constexpr int kStage = kBK * kPA + kBK * kPB;           // floats
-constexpr int kSmem = (kStages * kStage + kBK * kPB) * (int)sizeof(float);
+constexpr int kTRQ = PYIGA_F32_TRQ, kTMQ = PYIGA_F32_TMQ;
+constexpr int kTR = 4 * kTRQ, kTM = 4 * kTMQ;   // a lane's r and m
+constexpr int kWR = PYIGA_F32_WR, kWM = PYIGA_F32_WM;
+constexpr int kBR = 16 * kTRQ * kWR;    // r a block (a warp: 4 lanes of
+constexpr int kBM = 32 * kTMQ * kWM;    // r by 8 of m)
+constexpr int kBK = PYIGA_F32_BK;
+constexpr int kThreads = 32 * kWR * kWM;
+#ifdef PYIGA_F32_MINB
+constexpr int kMinBlocks = PYIGA_F32_MINB;
+#else
+constexpr int kMinBlocks = kThreads <= 256 ? 2 : 1;
+#endif
+constexpr int kStages = PYIGA_F32_STAGES;
+constexpr int kPR = kBR + 4;            // X slice [k][r] row stride
+constexpr int kPM = kBM + 4;            // table slice [k][m] row stride
+constexpr int kXSlots = PYIGA_F32_XASYNC ? 2 : 1;  // X slices a stage
+constexpr int kStage = kBK * (kXSlots * kPR + kPM);     // floats
+constexpr int kWMW = 32 * kTMQ;         // m a warp
+constexpr int kPO = kWMW + 4;           // a warp's staged rows [16][kPO]
+constexpr int kOut = kWR * kWM * 16 * kPO;
+constexpr int kSmem =
+    (kStages * kStage > kOut ? kStages * kStage : kOut) * (int)sizeof(float);
+constexpr int kXN = kBK * kBR / kThreads;   // X floats a lane a term
+constexpr int kTS = kThreads / kBK;         // table rows a pass
+constexpr int kTN = (kBM + kTS - 1) / kTS;  // table copies a lane
+static_assert(kStages >= 2, "the ring needs two buffers");
+static_assert(kXN % 4 == 0 && kXN >= 4 && kThreads % kBR == 0,
+              "a lane's X part: whole float4 at one r");
+static_assert(kThreads % kBK == 0 && kTN <= 32,
+              "one k of the table slice a lane, a row mask of 32 bits");
+
+__host__ __device__ constexpr int ilog2(int n) {
+    return n <= 1 ? 0 : 1 + ilog2(n / 2);
+}
 
 // the fields grouped by table; K2f is one group of one term
 struct Terms {
@@ -64,21 +144,20 @@ struct Terms {
     int groups;
 };
 
-// Copy BYTES (4 or 16) from global `src` to shared `dst`, the first
-// `src_bytes` read and the rest zero-filled.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         int src_bytes) {
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
     const unsigned int d =
         static_cast<unsigned int>(__cvta_generic_to_shared(dst));
-    if constexpr (BYTES == 16) {
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                     :: "r"(d), "l"(src), "r"(src_bytes));
-    } else {
-        static_assert(BYTES == 4, "cp_async copies 4 or 16 bytes");
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                     :: "r"(d), "l"(src), "r"(src_bytes));
-    }
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+    const unsigned int d =
+        static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(in ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -90,157 +169,398 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// The table slice T[m0 : m0 + 64, k0 : k0 + 16] transposed into As[k][m].
-__device__ __forceinline__ void load_table(float* As, const float* T, int K,
-                                           int M, int m0, int k0) {
-#pragma unroll
-    for (int j = 0; j < kBM * kBK / kThreads; ++j) {
-        const int e = (int)threadIdx.x + j * kThreads;
-        const int m = e / kBK, k = e % kBK;
-        const bool in = m0 + m < M && k0 + k < K;
-        const float* src = in ? T + (long long)(m0 + m) * K + k0 + k : T;
-        cp_async<4>(As + k * kPA + m, src, in ? 4 : 0);
-    }
-}
+// A lane's fixed place in the table slice T[m0 + m, k0 + kq] -> Ts[kq][m]:
+// one k (kq) and up to kTN rows m = tid / kBK + j kTS.  The offset is
+// taken once; a step adds its k0.
+struct TableMap {
+    long long off;                // (m0 + m) K + kq
+    int rstride;                  // K kTS: row j to row j + 1
+    unsigned int rows;            // bit j: row j inside the tile and M
+    int kq, m;
 
-// The X slice X[k0 : k0 + 16, r0 : r0 + 128] into Bs[k][r], VB floats a
-// copy (VB = 4 needs R a multiple of 4 and X 16-byte aligned).
-template <int VB>
-__device__ __forceinline__ void load_field(float* Bs, const float* X, int K,
-                                           long long R, int k0,
-                                           long long r0) {
-    constexpr int CPR = kBN / VB;       // copies a row
+    __device__ __forceinline__ TableMap(int K, int M, int m0) {
+        kq = (int)threadIdx.x % kBK;
+        m = (int)threadIdx.x / kBK;
+        off = (long long)(m0 + m) * K + kq;
+        rstride = K * kTS;
+        rows = 0;
 #pragma unroll
-    for (int j = 0; j < kBK * CPR / kThreads; ++j) {
-        const int e = (int)threadIdx.x + j * kThreads;
-        const int k = e / CPR, c = (e % CPR) * VB;
-        long long n = 0;
-        if (k0 + k < K) {
-            n = R - (r0 + c);
-            n = n < 0 ? 0 : (n > VB ? VB : n);
+        for (int j = 0; j < kTN; ++j) {
+            const int mj = m + j * kTS;
+            rows |= (mj < kBM && m0 + mj < M ? 1u : 0u) << j;
         }
-        const float* src = n > 0 ? X + (long long)(k0 + k) * R + r0 + c : X;
-        cp_async<VB * 4>(Bs + k * kPB + c, src, (int)n * 4);
+    }
+
+    // the copies of one slice, out of M or K zero-filled
+    __device__ __forceinline__ void copy(float* Ts, const float* T, int k0,
+                                         int K) const {
+#if PYIGA_F32_CUT == 2
+        return;
+#endif
+        const bool kin = kq < K - k0;
+        const float* p = T + off + k0;
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) {
+            if (kBM % kTS && m + j * kTS >= kBM) break;    // past the tile
+            const bool in = kin && (rows >> j & 1u);
+            cp_async4(Ts + kq * kPM + m + j * kTS,
+                      in ? p + (long long)j * rstride : T, in);
+        }
+    }
+};
+
+// A lane's fixed place in an X slice X[k0 + kk, r0 + c] -> Xs[kk][c]:
+// VB = 1, kXN scalars at c = tid % kBR and kk = tid / kBR + j kThreads /
+// kBR; VB = 4, kXN / 4 float4 at c = 4 (tid % (kBR / 4)) and kk = tid /
+// (kBR / 4) + j 4 kThreads / kBR.  A step adds k0 R to the offset.
+template <int VB>
+struct XMap {
+    static constexpr int Q = kBR / VB;          // copies a row
+    static constexpr int KS = kThreads / Q;     // k between a lane's copies
+    static constexpr int N = kXN / VB;          // copies a lane
+    long long off;                // kk R + r0 + c
+    long long stride;             // KS R
+    int kk, c;
+    bool rin;
+
+    __device__ __forceinline__ XMap(long long R, long long r0) {
+        c = VB * ((int)threadIdx.x % Q);
+        kk = (int)threadIdx.x / Q;
+        off = (long long)kk * R + r0 + c;
+        stride = (long long)KS * R;
+        rin = r0 + c < R;         // VB = 4: R a multiple of 4, whole quads
+    }
+
+    __device__ __forceinline__ bool in(int j, int kleft) const {
+        return rin && kk + j * KS < kleft;
+    }
+
+    __device__ __forceinline__ float* at(float* Xs, int j) const {
+        return Xs + (kk + j * KS) * kPR + c;
+    }
+};
+
+// A group's first fields, a lane's part of a slice, in registers
+template <int VB>
+struct XPart {
+    float v[kXN];
+
+    // load X at the slice whose offset is base (k0 R), kleft = K - k0;
+    // `use` false: zeros (no load)
+    __device__ __forceinline__ void load(const XMap<VB>& mp, const float* X,
+                                         long long base, int kleft,
+                                         bool use) {
+#if PYIGA_F32_CUT == 2
+        use = false;
+#endif
+        const float* p = X + base + mp.off;
+#pragma unroll
+        for (int j = 0; j < XMap<VB>::N; ++j) {
+            const bool in = use && mp.in(j, kleft);
+            if constexpr (VB == 1) {
+                v[j] = in ? __ldg(p + j * mp.stride) : 0.0f;
+            } else {
+                float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                if (in) q = __ldg(reinterpret_cast<const float4*>(
+                            p + j * mp.stride));
+                v[4 * j] = q.x;
+                v[4 * j + 1] = q.y;
+                v[4 * j + 2] = q.z;
+                v[4 * j + 3] = q.w;
+            }
+        }
+    }
+
+    __device__ __forceinline__ void add(const XPart& o) {
+#pragma unroll
+        for (int j = 0; j < kXN; ++j) v[j] += o.v[j];
+    }
+
+    __device__ __forceinline__ void store(const XMap<VB>& mp,
+                                          float* Xs) const {
+#pragma unroll
+        for (int j = 0; j < XMap<VB>::N; ++j) {
+            float* o = mp.at(Xs, j);
+            if constexpr (VB == 1)
+                *o = v[j];
+            else
+                *reinterpret_cast<float4*>(o) = make_float4(
+                    v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+        }
+    }
+};
+
+// XASYNC: a lane's part of an X slice into Xs by cp.async
+template <int VB>
+__device__ __forceinline__ void copy_x(const XMap<VB>& mp, float* Xs,
+                                       const float* X, long long base,
+                                       int kleft) {
+#if PYIGA_F32_CUT == 2
+    return;
+#endif
+    const float* p = X + base + mp.off;
+#pragma unroll
+    for (int j = 0; j < XMap<VB>::N; ++j) {
+        const bool in = mp.in(j, kleft);
+        const float* src = in ? p + j * mp.stride : X;
+        if constexpr (VB == 1)
+            cp_async4(mp.at(Xs, j), src, in);
+        else
+            cp_async16(mp.at(Xs, j), src, in);
     }
 }
 
-// acc += the thread's 4 x 8 part of As^T Bs over one 16-deep slice
-__device__ __forceinline__ void mma_slice(const float* As, const float* Bs,
-                                          int tm, int tn,
-                                          float (&acc)[4][8]) {
+// XASYNC: a lane's part of Xs summed in place with its part of Xs2 (a
+// group's second field, landed) and of the group's later fields, read
+// from device memory, in term order
+template <int VB>
+__device__ __forceinline__ void sum_x(const XMap<VB>& mp, float* Xs,
+                                      const float* Xs2,
+                                      const float* const* later, int nlater,
+                                      long long base, int kleft) {
+#pragma unroll
+    for (int j = 0; j < XMap<VB>::N; ++j) {
+        float* o = mp.at(Xs, j);
+        const float* o2 = mp.at(const_cast<float*>(Xs2), j);
+        float v[VB];
+#pragma unroll
+        for (int u = 0; u < VB; ++u) v[u] = o[u] + o2[u];
+        const bool in = mp.in(j, kleft);
+#pragma unroll 1
+        for (int q = 0; q < nlater; ++q)
+#pragma unroll
+            for (int u = 0; u < VB; ++u)
+                v[u] += in ? __ldg(later[q] + base + mp.off + j * mp.stride
+                                   + u)
+                           : 0.0f;
+#pragma unroll
+        for (int u = 0; u < VB; ++u) o[u] = v[u];
+    }
+}
+
+// acc += the lane's kTR x kTM part of Xs^T Ts over one slice: r rows
+// ra + 16 a + {0..3}, m columns ma + 32 b + {0..3}.
+__device__ __forceinline__ void mma_slice(const float* Xs, const float* Ts,
+                                          int ra, int ma,
+                                          float (&acc)[kTR][kTM]) {
+#if PYIGA_F32_CUT == 1
+    return;
+#endif
+    float xv[2][kTR], tv[2][kTM];
+    auto put = [](float* d, float4 v) {
+        d[0] = v.x;
+        d[1] = v.y;
+        d[2] = v.z;
+        d[3] = v.w;
+    };
+    auto frags = [&](int k, int b) {
+#pragma unroll
+        for (int a = 0; a < kTRQ; ++a)
+            put(xv[b] + 4 * a, *reinterpret_cast<const float4*>(
+                                   Xs + k * kPR + ra + 16 * a));
+#pragma unroll
+        for (int q = 0; q < kTMQ; ++q)
+            put(tv[b] + 4 * q, *reinterpret_cast<const float4*>(
+                                   Ts + k * kPM + ma + 32 * q));
+    };
+    if (PYIGA_F32_DBUF) frags(0, 0);
 #pragma unroll
     for (int k = 0; k < kBK; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(As + k * kPA
-                                                          + 4 * tm);
-        const float4 b0 = *reinterpret_cast<const float4*>(Bs + k * kPB
-                                                           + 4 * tn);
-        const float4 b1 = *reinterpret_cast<const float4*>(
-            Bs + k * kPB + kBN / 2 + 4 * tn);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        const int b = PYIGA_F32_DBUF ? k & 1 : 0;
+        if (!PYIGA_F32_DBUF)
+            frags(k, 0);
+        else if (k + 1 < kBK)
+            frags(k + 1, b ^ 1);
+#if PYIGA_F32_CUT == 5
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kTR; ++i) acc[i][0] += xv[b][i];
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
-                acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < kTM; ++j) acc[0][j] += tv[b][j];
+        continue;
+#endif
+#pragma unroll
+        for (int i = 0; i < kTR; ++i)
+#pragma unroll
+            for (int j = 0; j < kTM; ++j)
+                acc[i][j] = fmaf(xv[b][i], tv[b][j], acc[i][j]);
     }
 }
 
-template <int VB>
-__global__ void __launch_bounds__(kThreads, 2)
+// PRE: the terms of a group whose X slices are fetched ahead (1 where
+// every group has one term: K2f; else 2).  lvo: log2 of the output
+// store's width in floats (0, 1 or 2).
+template <int VB, int PRE>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
-                int M, float* __restrict__ out, int vec) {
+                int M, float* __restrict__ out, int lvo) {
     extern __shared__ __align__(16) float smem[];
-    float* Ss = smem + kStages * kStage;         // a group's summed slice
-    const int tm = (int)threadIdx.x % 16, tn = (int)threadIdx.x / 16;
+    const int warp = (int)threadIdx.x / 32, lane = (int)threadIdx.x % 32;
+    const int wr = 16 * kTRQ * (warp % kWR), wm = kWMW * (warp / kWR);
+    const int ra = wr + 4 * (lane / 8), ma = wm + 4 * (lane % 8);
     const unsigned int mt = (M + kBM - 1) / kBM;
     const int m0 = (int)(blockIdx.x % mt) * kBM;
-    const long long r0 = (long long)(blockIdx.x / mt) * kBN;
-    float acc[4][8];
+    const long long r0 = (long long)(blockIdx.x / mt) * kBR;
+    float acc[kTR][kTM];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kTR; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+        for (int j = 0; j < kTM; ++j) acc[i][j] = 0.0f;
 
-    const int nk = (K + kBK - 1) / kBK;
-    const int nsteps = nk * terms.end[terms.groups - 1];
-    // the (group, k slice, term) of the next step to load and to compute
-    struct Cursor { int g, k, q; };
-    Cursor ld{0, 0, 0}, cp{0, 0, 0};
-    auto advance = [&](Cursor& c) {
-        if (++c.q < terms.end[c.g]) return;
-        if (++c.k < nk) {
-            c.q = c.g ? terms.end[c.g - 1] : 0;
-            return;
+    const TableMap tm(K, M, m0);
+    const XMap<VB> xm(R, r0);
+    const int nsteps = (K + kBK - 1) / kBK * terms.groups;
+    auto xbuf = [&](int s) { return smem + (s % kStages) * kStage; };
+    auto tbuf = [&](int s) { return xbuf(s) + kXSlots * kBK * kPR; };
+    // a step: (group g, slice at k0); the table's copies and the fields'
+    // loads and sums each walk the steps with a cursor of their own
+    struct Cursor {
+        int g, k0;
+        __device__ __forceinline__ void advance(int K) {
+            if ((k0 += kBK) >= K) {
+                k0 = 0;
+                ++g;
+            }
         }
-        c.k = 0;                           // c.q opens the next group
-        ++c.g;
     };
-    auto load = [&](int buf) {
-        float* As = smem + buf * kStage;
-        float* Bs = As + kBK * kPA;
-        const int k0 = ld.k * kBK;
-        load_field<VB>(Bs, terms.x[ld.q], K, R, k0, r0);
-        if (ld.q == terms.end[ld.g] - 1)   // the group's last term brings
-            load_table(As, terms.t[ld.g], K, M, m0, k0);   // the table
+    Cursor tc{0, 0};
+    auto copy_table = [&](int s) {
+        tm.copy(tbuf(s), terms.t[tc.g], tc.k0, K);
+    };
+#if PYIGA_F32_XASYNC
+    Cursor sc{0, 0};
+    auto load_step = [&](int s) {
+        const int q0 = tc.g ? terms.end[tc.g - 1] : 0;
+        const long long base = (long long)tc.k0 * R;
+        copy_x<VB>(xm, xbuf(s), terms.x[q0], base, K - tc.k0);
+        if (PRE > 1 && PYIGA_F32_CUT != 3 && q0 + 1 < terms.end[tc.g])
+            copy_x<VB>(xm, xbuf(s) + kBK * kPR, terms.x[q0 + 1], base,
+                       K - tc.k0);
+        copy_table(s);
+        tc.advance(K);
+    };
+    auto sum_step = [&](int s) {
+        const int q0 = sc.g ? terms.end[sc.g - 1] : 0;
+        const int q1 = PYIGA_F32_CUT == 3 ? q0 + 1 : terms.end[sc.g];
+        if (PRE > 1 && q1 > q0 + 1)
+            sum_x<VB>(xm, xbuf(s), xbuf(s) + kBK * kPR, terms.x + q0 + 2,
+                      q1 - q0 - 2, (long long)sc.k0 * R, K - sc.k0);
+        sc.advance(K);
+    };
+    for (int s = 0; s < kStages - 1; ++s) {
+        if (s < nsteps) load_step(s);
+        cp_async_commit();              // an empty group keeps the count
+    }
+    cp_async_wait<kStages - 2>();
+    sum_step(0);
+    __syncthreads();
+    for (int s = 0; s < nsteps; ++s) {
+        if (s + kStages - 1 < nsteps) load_step(s + kStages - 1);
         cp_async_commit();
-        advance(ld);
+        mma_slice(xbuf(s), tbuf(s), ra, ma, acc);
+        cp_async_wait<kStages - 2>();
+        if (s + 1 < nsteps) sum_step(s + 1);
+        __syncthreads();
+    }
+#else
+    // the fields through registers: at the start of a step the lane loads
+    // its part of the next step's slice of the group's first PRE fields
+    // (predicated, no branch: the loads stay ahead of the products), then
+    // adds them in term order, loads and adds the group's later fields,
+    // and stores the sum into the next stage's X buffer
+    Cursor xc{0, 0};
+    XPart<VB> xr[PRE];
+    auto issue_x = [&](bool use) {
+        const int g = use ? xc.g : 0;
+        const int q0 = g ? terms.end[g - 1] : 0;
+        const int n = terms.end[g] - q0;
+        const long long base = (long long)xc.k0 * R;
+#pragma unroll
+        for (int p = 0; p < PRE; ++p)
+            xr[p].load(xm, terms.x[q0 + (p < n ? p : 0)], base, K - xc.k0,
+                       use && p < n && (p == 0 || PYIGA_F32_CUT != 3));
     };
-    auto compute = [&](int buf) {
-        const float* As = smem + buf * kStage;
-        const float* Bs = As + kBK * kPA;
-        const bool first = cp.q == (cp.g ? terms.end[cp.g - 1] : 0);
-        const bool last = cp.q == terms.end[cp.g] - 1;
-        if (first && last) {
-            mma_slice(As, Bs, tm, tn, acc);
-        } else {
-            for (int e = (int)threadIdx.x; e < kBK * kBN; e += kThreads) {
-                const int o = e / kBN * kPB + e % kBN;
-                Ss[o] = first ? Bs[o] : Ss[o] + Bs[o];
-            }
-            if (last) {
-                __syncthreads();
-                mma_slice(As, Ss, tm, tn, acc);
-            }
+    auto store_x = [&](int s) {
+        const int q0 = xc.g ? terms.end[xc.g - 1] : 0;
+        const int q1 = PYIGA_F32_CUT == 3 ? q0 + 1 : terms.end[xc.g];
+        const long long base = (long long)xc.k0 * R;
+#pragma unroll
+        for (int p = 1; p < PRE; ++p) xr[0].add(xr[p]);   // zeros past q1
+#pragma unroll 1
+        for (int q = q0 + PRE; q < q1; ++q) {
+            XPart<VB> later;
+            later.load(xm, terms.x[q], base, K - xc.k0, true);
+            xr[0].add(later);
         }
-        advance(cp);
+        xr[0].store(xm, xbuf(s));
+        xc.advance(K);
     };
 
     for (int s = 0; s < kStages - 1; ++s) {
-        if (s < nsteps)
-            load(s);
-        else
-            cp_async_commit();             // an empty group keeps the count
+        if (s < nsteps) {
+            copy_table(s);
+            tc.advance(K);
+        }
+        cp_async_commit();              // an empty group keeps the count
     }
-    for (int st = 0; st < nsteps; ++st) {
-        if (st + kStages - 1 < nsteps)
-            load((st + kStages - 1) % kStages);
-        else
-            cp_async_commit();
-        cp_async_wait<kStages - 1>();
-        __syncthreads();
-        compute(st % kStages);
+    issue_x(true);
+    store_x(0);
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    for (int s = 0; s < nsteps; ++s) {
+        if (s + kStages - 1 < nsteps) {
+            copy_table(s + kStages - 1);
+            tc.advance(K);
+        }
+        cp_async_commit();
+        const bool more = s + 1 < nsteps;
+        issue_x(more);
+        mma_slice(xbuf(s), tbuf(s), ra, ma, acc);
+        if (more) store_x(s + 1);
+        cp_async_wait<kStages - 2>();
         __syncthreads();
     }
+#endif
     cp_async_wait<0>();
 
-    // the tile to out (R, M): a warp writes 16 m quads of two rows
-    const int mb = m0 + 4 * tm;
+    // The tile to out (R, M) through shared memory: a warp stages 16 of
+    // its rows (one r quad of each lane) at a time, then stores each row's
+    // kWMW m as runs of 2^lvo floats (32 lanes: 128 bytes of one row a
+    // store at lvo = 0).
+    static_assert(1 << ilog2(kWMW) == kWMW, "a warp's m: a power of 2");
+    const int lpr = ilog2(kWMW) - lvo;          // stores a row: 2^lpr
+    float* W = smem + warp * 16 * kPO;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        const long long r = r0 + (j < 4 ? 4 * tn + j : kBN / 2 + 4 * tn + j
-                                                       - 4);
-        if (r >= R) continue;
-        float* o = out + r * M + mb;
-        if (vec) {                         // M a multiple of 4
-            if (mb < M)
-                *reinterpret_cast<float4*>(o) =
-                    make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-        } else {
+    for (int h = 0; h < kTRQ; ++h) {
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-                if (mb + i < M) o[i] = acc[i][j];
+        for (int i = 0; i < 4; ++i) {
+            float* w = W + (4 * (lane / 8) + i) * kPO + 4 * (lane % 8);
+#pragma unroll
+            for (int b = 0; b < kTMQ; ++b)
+                *reinterpret_cast<float4*>(w + 32 * b) = make_float4(
+                    acc[4 * h + i][4 * b], acc[4 * h + i][4 * b + 1],
+                    acc[4 * h + i][4 * b + 2], acc[4 * h + i][4 * b + 3]);
         }
+        __syncwarp();
+        for (int e = lane; e < 16 << lpr; e += 32) {
+            const int q = e >> lpr, c = (e & ((1 << lpr) - 1)) << lvo;
+            const long long r = r0 + wr + 16 * h + q;
+            const int m = m0 + wm + c;
+            if (r >= R || m >= M) continue;    // M a multiple of 2^lvo
+            const float* w = W + q * kPO + c;
+            float* o = out + r * M + m;
+#if PYIGA_F32_CUT == 4
+            if (w[0] != 1.5e38f) continue;     // never stores; keeps the sums
+#endif
+            if (lvo == 2)
+                *reinterpret_cast<float4*>(o) =
+                    *reinterpret_cast<const float4*>(w);
+            else if (lvo == 1)
+                *reinterpret_cast<float2*>(o) =
+                    *reinterpret_cast<const float2*>(w);
+            else
+                *o = *w;
+        }
+        __syncwarp();
     }
 }
 
@@ -248,18 +568,24 @@ int launch(const Terms& terms, int K, long long R, int M, float* out,
            void* stream) {
     if (K < 1 || R < 1 || M < 1) return (int)cudaErrorInvalidValue;
     const long long blocks =
-        (long long)((M + kBM - 1) / kBM) * ((R + kBN - 1) / kBN);
+        (long long)((M + kBM - 1) / kBM) * ((R + kBR - 1) / kBR);
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    bool vb = R % 4 == 0;
+    bool vb = !PYIGA_F32_SCALAR_X && R % 4 == 0;
     for (int q = 0; q < terms.end[terms.groups - 1]; ++q)
         vb = vb && aligned16(terms.x[q]);
-    const int vec = M % 4 == 0 && aligned16(out);
-    auto kernel = vb ? fold_f32_kernel<4> : fold_f32_kernel<1>;
+    bool pairs = false;
+    for (int g = 0; g < terms.groups; ++g)
+        pairs = pairs || terms.end[g] - (g ? terms.end[g - 1] : 0) > 1;
+    const uintptr_t o = reinterpret_cast<uintptr_t>(out);
+    const int lvo = M % 4 == 0 && o % 16 == 0 ? 2
+                  : M % 2 == 0 && o % 8 == 0 ? 1 : 0;
+    auto kernel = vb ? (pairs ? fold_f32_kernel<4, 2> : fold_f32_kernel<4, 1>)
+                     : (pairs ? fold_f32_kernel<1, 2> : fold_f32_kernel<1, 1>);
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<(unsigned int)blocks, kThreads, kSmem, (cudaStream_t)stream>>>(
-        terms, K, R, M, out, vec);
+        terms, K, R, M, out, lvo);
     return (int)cudaGetLastError();
 }
 

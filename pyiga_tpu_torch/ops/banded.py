@@ -224,9 +224,11 @@ class FlatBandedOperator:
     """Banded operator on the flat ``(C, F)`` layout with the K4 matvec;
     its dtype is that of `D` (float64 for residuals, float32 for the
     Krylov loop of :func:`~pyiga_tpu_torch.solvers.cg_ir`).  Callable on
-    raveled vectors of the full dof grid."""
+    raveled vectors of the full dof grid.  `interpret` is accepted for the
+    reference's signature and ignored: it picks Pallas's interpret mode
+    on the TPU, and the port's CPU tensors always run the plain version."""
 
-    def __init__(self, D, bws, ns):
+    def __init__(self, D, bws, ns, interpret=None):
         self.bws, self.ns = tuple(bws), tuple(ns)
         self.lay = flat_banded_layout(self.bws, self.ns)
         if D.shape != (self.lay['C'], self.lay['F']):

@@ -69,11 +69,13 @@ def _sum_chains_merged(term_tables, fields, idxs, last_idx):
 
 
 def assemble_terms_folded(term_tables, fields, fold_plan, tperms,
-                          last_idx=None):
+                          mode='exact', last_idx=None):
     """Symmetric-term folding: one chain per mirrored term pair; the
     mirrored sum's transpose is a separable per-axis index permutation
     (`tperms`, LongTensors).  `fold_plan` is a sequence of
-    ``(term_index, mirrored)``."""
+    ``(term_index, mirrored)``.  `mode` is accepted for the reference's
+    signature and ignored: every mode contracts exactly (the port has no
+    Ozaki route)."""
     if last_idx is None:
         last_idx = last_table_groups(term_tables)
     direct = [t for t, m in fold_plan if not m]

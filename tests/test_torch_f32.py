@@ -365,6 +365,7 @@ class _FakeLibrary:
 
     def __init__(self):
         self.calls = []
+        self.fold_terms = []
 
     def _fields(self, kind, Y, T, w12, wL, out, d, nurbs, Q12, QL, nL, s):
         self.calls.append(kind)
@@ -397,14 +398,25 @@ class _FakeLibrary:
         return self._stage(np.float64, 'stage_f64', *a)
 
     def pyiga_fold_f32(self, xp, tp, n, out, K, R, M, s):
+        """The kernel's order: the terms grouped by table pointer (groups
+        in order of first appearance), a group's fields summed in term
+        order before its one product, the groups' products added in
+        order; at most 16 terms a call."""
         self.calls.append('fold_f32')
+        self.fold_terms.append(n)
+        assert 1 <= n <= 16
         xs = ctypes.cast(xp, ctypes.POINTER(ctypes.c_uint64))
         ts = ctypes.cast(tp, ctypes.POINTER(ctypes.c_uint64))
+        groups = {}
+        for t in range(n):
+            groups.setdefault(ts[t], []).append(t)
         o = _arr(out, np.float32, R, M)
         o[...] = 0
-        for t in range(n):
-            o += _arr(xs[t], np.float32, K, R).T @ _arr(ts[t], np.float32,
-                                                        M, K).T
+        for tab, terms in groups.items():
+            S = _arr(xs[terms[0]], np.float32, K, R).copy()
+            for t in terms[1:]:
+                S += _arr(xs[t], np.float32, K, R)
+            o += S.T @ _arr(tab, np.float32, M, K).T
         return 0
 
 
@@ -452,3 +464,110 @@ def test_f32_wrappers_launch_the_float32_entries(fake_card):
     assert _cuda.LAUNCHES['stage'] == 1
     assert all(dt == F64 for _n, dt, _g in fake_card.required)
     assert torch.allclose(got, cuda_sumfac.stage_plain(X, T), rtol=1e-14)
+
+
+# -- the float32 fold at ragged shapes against the JAX package -----------------
+
+# (K, R, M): odd R and R % 4 = 1, 2, 3; K not a multiple of the kernel's
+# k slice (8); M = 385, 1, 357
+F32_RAGGED = [(13, 1001, 385), (37, 4098, 1), (203, 515, 357)]
+# per term its table: one term; a table repeated out of order; 17 terms
+# over 3 tables, which the wrapper splits into launches of 16 and 1
+F32_PATTERNS = {'stage': (0,), 'repeat': (0, 1, 0, 2, 1, 2),
+                'split': tuple(t % 3 for t in range(17))}
+# float32 sums of at most K + 17 non-negative products and terms, each
+# rounding 2^-24 relative: ~1e-6 relative to the largest entry expected,
+# 1e-5 allowed
+F32_RAGGED_TOL = 1e-5
+
+
+def _ragged_operands(K, R, M, idx):
+    rng = np.random.RandomState(K * R + M + len(idx))
+    xs = [rng.rand(K, R).astype(np.float32) for _ in idx]
+    tabs = [rng.rand(M, K).astype(np.float32) for _ in range(max(idx) + 1)]
+    return xs, tabs
+
+
+def _jax_f32_fold(xs, tabs, idx):
+    """The JAX package's float32 fold: ``assemble_terms_folded(mode=
+    'exact')`` over one-table chains (each term's field transposed to
+    ``(R, K)``), the terms of a table summed before ``_contract_last``."""
+    from pyiga_tpu.ops import sumfac as jsumfac
+    jt = [jnp.asarray(T) for T in tabs]
+    out = jsumfac.assemble_terms_folded(
+        [[jt[i]] for i in idx], [jnp.asarray(X.T) for X in xs],
+        [(t, False) for t in range(len(idx))], None, mode='exact',
+        last_idx=tuple(idx))
+    assert out.dtype == jnp.float32
+    return np.asarray(out)
+
+
+def _per_table_first(xs, tabs, idx):
+    """The kernel's order of summation in float32 torch: each table's
+    fields summed in term order, one product a table, tables in order of
+    first appearance."""
+    out = None
+    for i in dict.fromkeys(idx):
+        S = None
+        for X, j in zip(xs, idx):
+            if j == i:
+                S = torch.as_tensor(X) if S is None else S + torch.as_tensor(X)
+        Y = cuda_sumfac.stage_plain(S, torch.as_tensor(tabs[i]))
+        out = Y if out is None else out + Y
+    return out
+
+
+def _close(got, ref):
+    ref = np.asarray(ref, dtype=np.float64)
+    got = np.asarray(got, dtype=np.float64)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= F32_RAGGED_TOL * np.abs(ref).max()
+
+
+@pytest.mark.parametrize('pattern', sorted(F32_PATTERNS))
+@pytest.mark.parametrize('K,R,M', F32_RAGGED)
+def test_f32_fold_plain_at_ragged_shapes_matches_jax(K, R, M, pattern):
+    """The plain float32 stage and fold (term by term) against the JAX
+    package's float32 ``_contract_last`` / ``assemble_terms_folded``, and
+    against the same sum taken per table first, the kernel's order."""
+    from pyiga_tpu.ops import sumfac as jsumfac
+    idx = F32_PATTERNS[pattern]
+    xs, tabs = _ragged_operands(K, R, M, idx)
+    tx, tt = [torch.as_tensor(X) for X in xs], [torch.as_tensor(T)
+                                                for T in tabs]
+    ref = _jax_f32_fold(xs, tabs, idx)
+    got = cuda_sumfac.fold(tx, tt, list(idx))
+    assert got.dtype == F32
+    _close(got, ref)
+    _close(got, _per_table_first(xs, tabs, idx))
+    if pattern == 'stage':
+        st = cuda_sumfac.stage(tx[0], tt[0])
+        _close(st, np.asarray(jsumfac._contract_last(
+            jnp.asarray(xs[0].T), jnp.asarray(tabs[0]))))
+        assert torch.equal(st, got)
+
+
+@pytest.mark.parametrize('pattern', sorted(F32_PATTERNS))
+@pytest.mark.parametrize('K,R,M', F32_RAGGED)
+def test_f32_fold_wrapper_at_ragged_shapes(fake_card, K, R, M, pattern):
+    """The float32 fold's CUDA branch through a stand-in library that sums
+    in the kernel's order: 17 terms go out as launches of 16 and 1, a
+    table repeated out of order is one group, and the result equals the
+    JAX package's float32 fold."""
+    idx = F32_PATTERNS[pattern]
+    xs, tabs = _ragged_operands(K, R, M, idx)
+    tx, tt = [torch.as_tensor(X) for X in xs], [torch.as_tensor(T)
+                                                for T in tabs]
+    got = cuda_sumfac.fold(tx, tt, list(idx))
+    assert got.dtype == F32 and got.shape == (R, M)
+    assert fake_card.fold_terms == ([16, 1] if len(idx) > 16
+                                    else [len(idx)])
+    assert _cuda.LAUNCHES['fold_f32'] == len(fake_card.fold_terms)
+    assert _cuda.LAUNCHES['fold'] == 0
+    assert all(dt == F32 and g == F32 for _n, dt, g in fake_card.required)
+    _close(got, _jax_f32_fold(xs, tabs, idx))
+    if len(idx) <= 16:
+        _close(got, _per_table_first(xs, tabs, idx))
+    st = cuda_sumfac.stage(tx[0], tt[0])
+    assert fake_card.calls[-1] == 'stage_f32'
+    _close(st, _jax_f32_fold(xs[:1], tabs, idx[:1]))

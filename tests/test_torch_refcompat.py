@@ -241,3 +241,91 @@ def test_fastdiag_weighted_default_dtype():
     P32 = fastdiag.fastdiag_precond_weighted(asm, dirichlet=True,
                                              dtype=torch.float32)
     assert P32.inv_diag.dtype == torch.float32
+
+
+def _folded_operands(rng):
+    """Random two-axis chains, numpy: 4 terms, terms 0 and 2 sharing their
+    last table, terms 1 and 3 mirrored (random axis permutations)."""
+    Q, m = (5, 6), (4, 7)
+    T0 = rng.rand(m[1], Q[1])
+    tabs = [[rng.rand(m[0], Q[0]), T0], [rng.rand(m[0], Q[0]),
+                                         rng.rand(m[1], Q[1])],
+            [rng.rand(m[0], Q[0]), T0], [rng.rand(m[0], Q[0]),
+                                         rng.rand(m[1], Q[1])]]
+    fields = [rng.rand(*Q) for _ in tabs]
+    perms = [rng.permutation(k) for k in m]
+    return tabs, fields, [(0, False), (1, True), (2, False), (3, True)], perms
+
+
+def _shared(tabs, conv):
+    """`tabs` converted by `conv`, one object a distinct array (the
+    last-table groups go by identity)."""
+    memo = {}
+    return [[memo.setdefault(id(T), conv(T)) for T in t] for t in tabs]
+
+
+@pytest.mark.parametrize('call', ['keyword', 'positional', 'last_idx',
+                                  'both_positional'])
+def test_assemble_terms_folded_takes_reference_arguments(call):
+    """``assemble_terms_folded(..., mode='exact', last_idx=None)`` in the
+    reference's order: `mode` by keyword or fifth by position, `last_idx`
+    by keyword or sixth, each equal to the port's call without them and
+    to the JAX package's native-f64 result at 1e-13 relative."""
+    tabs, fields, plan, perms = _folded_operands(np.random.RandomState(11))
+    ttabs = _shared(tabs, torch.as_tensor)
+    tf = [torch.as_tensor(F) for F in fields]
+    tp = [torch.as_tensor(p) for p in perms]
+    ref = sumfac.assemble_terms_folded(ttabs, tf, plan, tp)
+    li = sumfac.last_table_groups(ttabs)
+    assert li == (0, 1, 0, 2)
+    args = (ttabs, tf, plan, tp)
+    got = {'keyword': lambda: sumfac.assemble_terms_folded(*args,
+                                                           mode='exact'),
+           'positional': lambda: sumfac.assemble_terms_folded(*args,
+                                                              'exact'),
+           'last_idx': lambda: sumfac.assemble_terms_folded(*args,
+                                                            last_idx=li),
+           'both_positional': lambda: sumfac.assemble_terms_folded(
+               *args, 'exact', li)}[call]()
+    assert torch.equal(got, ref)
+    jtabs = _shared(tabs, jnp.asarray)
+    jref = np.asarray(jsumfac.assemble_terms_folded(
+        jtabs, [jnp.asarray(F) for F in fields], plan,
+        [jnp.asarray(p) for p in perms], mode='exact',
+        last_idx=jsumfac.last_table_groups(jtabs)))
+    assert np.abs(got.numpy() - jref).max() <= 1e-13 * np.abs(jref).max()
+
+
+@pytest.mark.parametrize('call', ['positional', 'keyword'])
+def test_flat_banded_operator_takes_interpret(call):
+    """``FlatBandedOperator(D, bws, ns, interpret=None)``: ``True`` by
+    position or by keyword gives the port's operator, equal to the one
+    built without it and to the JAX package's native-f64
+    ``BandedOperator`` on the same banded data at 1e-13 relative."""
+    from pyiga_tpu_torch.ops import banded
+    rng = np.random.RandomState(12)
+    bws, ns = (1, 2), (6, 9)
+    Db = _zero_padding(rng.rand(*([2 * b + 1 for b in bws] + list(ns))),
+                       bws, ns)
+    D = banded.flat_banded_embed_device(torch.as_tensor(Db), bws, ns)
+    op = (banded.FlatBandedOperator(D, bws, ns, True) if call == 'positional'
+          else banded.FlatBandedOperator(D, bws, ns, interpret=True))
+    x = rng.rand(int(np.prod(ns)))
+    y = op(torch.as_tensor(x))
+    assert torch.equal(y, banded.FlatBandedOperator(D, bws, ns)(
+        torch.as_tensor(x)))
+    jy = np.asarray(jbanded.BandedOperator(Db, bws, ns)(jnp.asarray(x)))
+    assert np.abs(y.numpy() - jy).max() <= 1e-13 * np.abs(jy).max()
+
+
+def _zero_padding(Db, bws, ns):
+    """Banded data ``(b_1.., n_1..)`` with the entries whose column
+    ``j_k = i_k + mu_k - b_k`` leaves the grid set to zero."""
+    d = len(ns)
+    for k, (b, n) in enumerate(zip(bws, ns)):
+        mu = np.arange(2 * b + 1)[:, None]
+        j = np.arange(n)[None, :] + mu - b
+        shape = [1] * (2 * d)
+        shape[k], shape[d + k] = 2 * b + 1, n
+        Db = Db * ((j >= 0) & (j < n)).reshape(shape)
+    return Db
