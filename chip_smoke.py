@@ -202,6 +202,28 @@ count beside the JAX package's for the same operator, its solution held
 to the float64 one (1e-5 in the 2-norm), the f32 mass operator, no
 float64 kernel launched (22b).
 
+The f32 line beyond Poisson (``scripts/torch_lines_phases.py --only
+4o,22c`` runs it alone): the float32 instances of K1's ``jac`` kind (3D
+n=48, 2D n=128 NURBS, a surface, a one-point boundary axis, ragged
+shapes), K1' (2D n=128 polar ``UserFunction``, 3D n=48, ragged), K5
+(convection-diffusion 2D n=128, the 3D n=48 stiffness form, ``v * ds``
+on a face) and K8 / K8f (phase 4m's shapes and every copy and store
+path, the plan for 4-byte elements held to ``windowed_plan``) against
+their plain versions, 2e-6 relative, bitwise on a repeat and with
+torch's global TF32 on, and no float64 instruction in the SASS of any
+float32 instance, the generated float32 K5 libraries included (4o);
+then under ``set_dtype(float32)``, launches counted from zero and no
+float64 kernel allowed: the 2D n=128 convection-diffusion VForm
+(``run_device`` / ``assemble`` ms, 1e-6 of phase 7's float64 matrix,
+its GMRES count held to the JAX package's on the port's float32 matrix,
+``CONVDIFF_COUNTS_JAX``), the 3D n=48 VForm stiffness against the
+float32 ``StiffnessAssembler`` and ``aca_3d_device`` (float32 slices,
+float64 crosses, 1e-5 of float64), the windowed route at phase 21's
+shapes (2e-6 of the float32 ``assemble_banded()``, the peak bytes, cg
+on its ``BandedOperator`` held to the JAX count), the polar
+``UserFunction`` stiffness (K1', 1e-6) and the (24, 3) HB assembly
+(1e-6) (22c).
+
 Every kernel's entry in the JSON line has its time, its plain version's,
 the time of one PyTorch call computing the same function where one
 exists (``library_ms``; used nowhere in the port) and ``bound_ms``: the
@@ -295,6 +317,28 @@ KERNELS = {
     'fold_f32': ('cuda', 'pyiga_tpu_torch/csrc/sumfac_f32.cu',
                  'pyiga_tpu/ops/pallas_sumfac.py:781 (float32: '
                  'pyiga_tpu/ops/sumfac.py:291 `_contract_last`, XLA)'),
+    # the float32 instances of K1's jac kind, K1', K5, K8 and K8f (the f32
+    # line beyond Poisson); the JAX package's f32 line evaluates these
+    # functions in XLA on float32 operands (pyiga_tpu/compile.py:1250-1262)
+    'geo_jac_fields_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+                           'pyiga_tpu/ops/pallas_sumfac.py:1087 (float32: '
+                           'pyiga_tpu/ops/geom.py:69 `geo_jacobian_field`, '
+                           'XLA)'),
+    'host_jac_fields_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+                            'pyiga_tpu/ops/pallas_sumfac.py:1163 (float32: '
+                            'pyiga_tpu/assemblers.py:59 `stiffness_fields`,'
+                            ' XLA)'),
+    'vform_fields_f32': ('cuda', 'pyiga_tpu_torch/ops/cuda_vform.py',
+                         'pyiga_tpu/compile.py:974 (float32: '
+                         'pyiga_tpu/compile.py:717 `_eval_combo_fields`, '
+                         'XLA)'),
+    'windowed_stage_f32': ('cuda', 'pyiga_tpu_torch/csrc/windowed.cu',
+                           'no Pallas site: pyiga_tpu/ops/sumfac.py:395 '
+                           '`_windowed_stage` (XLA, float32)'),
+    'windowed_fold_f32': ('cuda', 'pyiga_tpu_torch/csrc/windowed.cu',
+                          'no Pallas site: pyiga_tpu/ops/sumfac.py:395 '
+                          '`_windowed_stage` in :433 '
+                          '`assemble_terms_windowed` (XLA, float32)'),
 }
 # the kernels each main path runs
 POISSON_KERNELS = ('fields', 'stage', 'fold', 'flat_banded_f64',
@@ -325,7 +369,13 @@ LOCALMG_ITERS = {(24, 3): 29, (48, 3): 27, (96, 3): 25}
 # and cg_jit's count for the port's float32 operator at n=48 with JAX's
 # float32 weighted fastdiag
 POISSON_COUNTS_JAX = {('float64', 96): (4, [7, 10, 11, 11]),
-                      ('float32', 48): 24}
+                      ('float32', 48): 24,
+                      # cg_jit on the port's float32 windowed operator
+                      # (``f32win``)
+                      ('float32 windowed', 48): 24}
+# gmres_jit's count for phase 7's solve on the port's float32
+# convection-diffusion matrix at 2D n=128 (``convdiff``)
+CONVDIFF_COUNTS_JAX = {('float32', 128): 41}
 # the hierarchies whose largest smoothing set exceeds tri_block_cutoff,
 # where solve_hmultigrid's defaults take the wavefront smoother
 WAVEFRONT_SIZES = {(96, 3)}
@@ -1001,16 +1051,19 @@ def check_cols_mapping(prog, arrays, got, device, name):
 
 def vform_case(asm, device, inputs=None, tol=1e-12, name=None):
     """K5 on the plan's combos of a VForm assembler (its input fields
-    replaced by the device tensors `inputs`, as a stepper passes them):
-    the kernel against its plain version (`tol` relative to the largest
-    field), a second launch bitwise equal; ``ms`` through
-    ``combo_fields`` (the path's call), ``launch_ms`` and ``device_ms`` of
-    its bare C entry, the plain version's time and the bound."""
+    replaced by the device tensors `inputs`, as a stepper passes them), in
+    the compute dtype (under float32 the program's float32 instance, also
+    bitwise unchanged with torch's global TF32 on): the kernel against
+    its plain version (`tol` relative to the largest field), a second
+    launch bitwise equal; ``ms`` through ``combo_fields`` (the path's
+    call), ``launch_ms`` and ``device_ms`` of its bare C entry, the plain
+    version's time and the bound."""
     from pyiga_tpu_torch import _cuda
     from pyiga_tpu_torch.ops import cuda_vform as cv
     plan = asm._fold_plan or [(t, False) for t in range(len(asm.combos))]
     combos = [asm.combos[t] for t, _m in plan]
     arrays = asm.device_arrays(inputs)
+    dtype = arrays['weights'][0].dtype
     got = torch.stack(cv.combo_fields(asm, arrays, combos))
     ref = torch.stack(cv.combo_fields_plain(asm, arrays, combos))
     sync(device)
@@ -1019,9 +1072,19 @@ def vform_case(asm, device, inputs=None, tol=1e-12, name=None):
     check_repeat('vform_fields ' + name,
                  lambda: torch.stack(cv.combo_fields(asm, arrays, combos)),
                  got)
-    prog = asm._program(combos)
+    if dtype == torch.float32:
+        with GlobalTF32():
+            got_tf = torch.stack(cv.combo_fields(asm, arrays, combos))
+            ref_tf = torch.stack(cv.combo_fields_plain(asm, arrays, combos))
+            sync(device)
+        if not (torch.equal(got_tf, got) and torch.equal(ref_tf, ref)):
+            raise RuntimeError('vform_fields %s: global TF32 changed the '
+                               'f32 results' % name)
+        del got_tf, ref_tf
+    prog = asm._program(combos, dtype)
     fn = prog.entry()
-    lib = [k for k in _cuda.GEN_BUILDS if 'vform_fields' in k][-1]
+    lib = [k for k in _cuda.GEN_BUILDS if re.fullmatch(
+        r'lib%s_[0-9a-f]{16}\.so' % prog.counter, os.path.basename(k))][-1]
     build = dict(_cuda.GEN_BUILDS[lib], path=lib)
     for line in build['log'].splitlines():
         if 'registers' in line or 'spill' in line:
@@ -1039,6 +1102,7 @@ def vform_case(asm, device, inputs=None, tol=1e-12, name=None):
                    params=ts[-2])
         return prog.arguments(arr, ts[-1], 0)[:-1]
     rec = dict(max_abs_err=err, rel=rel, shape=list(got.shape),
+               dtype=str(dtype), lib=lib,
                leaves=len(prog.leaves), sources=list(prog.sources),
                params=len(prog.params), instrs=len(prog.instrs),
                repeat_equal=True, cols_mapping_equal=cols_equal,
@@ -1047,16 +1111,18 @@ def vform_case(asm, device, inputs=None, tol=1e-12, name=None):
                plain_ms=time_ms(lambda: cv.combo_fields_plain(
                    asm, arrays, combos), device, reps=3),
                library_ms=None, build=build)
-    rec.update(bare_times('vform_fields', fn, operands, args_of, device))
+    rec.update(bare_times(prog.counter, fn, operands, args_of, device))
     # the leaf rows the program reads (each once), the weight vectors and
     # the flat parameters, the fields written once; one operation per
     # SSA instruction and Gauss point
     N = got[0].numel()
     rows = {s for s in prog.leaf_src if s is not None}
-    read = 8 * (len(rows) * N + sum(w.numel() for w in arrays['weights'])
-                + (arrays['params'].numel() if prog.params else 0))
+    read = got.element_size() * (
+        len(rows) * N + sum(w.numel() for w in arrays['weights'])
+        + (arrays['params'].numel() if prog.params else 0))
     rec.update(bound(read + nbytes(got), len(prog.instrs) * N,
-                     F64_FMA_PER_MS))
+                     F32_PER_MS if dtype == torch.float32
+                     else F64_FMA_PER_MS))
     log('  K5 %s: %d leaves from %s, %d params, %d SSA instrs, %d fields; '
         'nvcc %.2f s' % (name, len(prog.leaves), prog.sources,
                          len(prog.params), len(prog.instrs), len(combos),
@@ -1200,28 +1266,15 @@ def run_convdiff(device, n=128):
     3 after a warm call, as bench.py times it), ``assemble_vector()``,
     the whole ``assemble.assemble`` call with its CSR expansion, and the
     GMRES solve."""
-    from pyiga_tpu_torch import assemble
-
-    def best_of_3(fn):
-        fn()
-        sync(device)
-        best = np.inf
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn()
-            sync(device)
-            best = min(best, time.perf_counter() - t0)
-        return 1e3 * best
-
-    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch import _cuda, assemble
     t0 = time.perf_counter()
     kvs, geo, asm, asm_f = convdiff_setup(n, device)
     t_host = 1e3 * (time.perf_counter() - t0)
-    t_A = best_of_3(asm.run_device)
+    t_A = best_ms(asm.run_device, device)
     k5 = _cuda.LAUNCHES['vform_fields']
     asm.run_device()
     k5 = _cuda.LAUNCHES['vform_fields'] - k5
-    t_f = best_of_3(asm_f.assemble_vector)
+    t_f = best_ms(asm_f.assemble_vector, device)
     t0 = time.perf_counter()
     A = assemble.assemble(CONVDIFF, kvs, geo=geo, b=CONV_B, device=device)
     t_whole = 1e3 * (time.perf_counter() - t0)
@@ -2217,24 +2270,25 @@ def check_mass_kernels(device, n3=48, n2=128):
 HOST_JAC_RAGGED = ((2, 37, 301), (3, 1003, 45), (2, 5000, 7), (3, 1, 129))
 
 
-def check_host_jac_ragged(device, seed=9):
+def check_host_jac_ragged(device, seed=9, dtype=torch.float64, tol=1e-13):
     """K1' against its plain version at :data:`HOST_JAC_RAGGED` on seeded
     well-conditioned Jacobians (identity plus 0.2 noise) and weights:
-    1e-13 relative to the largest output, each launched twice for
-    bitwise-equal output."""
+    `tol` (1e-13 in float64) relative to the largest output, each
+    launched twice for bitwise-equal output; `dtype` float32 runs the
+    float32 instance."""
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     rng = np.random.RandomState(seed)
     out = {}
     for d, Q12, QL in HOST_JAC_RAGGED:
         def dev(a):
-            return torch.as_tensor(a, dtype=torch.float64, device=device)
+            return torch.as_tensor(a, dtype=dtype, device=device)
         jac = dev(np.eye(d)[:, :, None] + 0.2 * rng.rand(d, d, Q12 * QL))
         w12, wL = dev(rng.rand(Q12) + 0.5), dev(rng.rand(QL) + 0.5)
         got = cs.host_jac_fields(jac, w12, wL)
         ref = cs.host_jac_fields_plain(jac, w12, wL)
         sync(device)
         key = '%dD Q12=%d QL=%d' % (d, Q12, QL)
-        out[key] = compare("K1' " + key, got, ref, 1e-13)
+        out[key] = compare("K1' " + key, got, ref, tol)
         check_repeat("K1' " + key, lambda: cs.host_jac_fields(jac, w12, wL),
                      got)
     return out
@@ -3094,11 +3148,15 @@ def check_ns_geometry(asm, device):
 
 def jac_bare_times(Y, T, got, nurbs, device):
     """:func:`bare_times` of K1's ``jac`` kind on the operands ``Y``,
-    ``T`` and the output shape of `got`."""
+    ``T`` and the output shape of `got` (the float32 entry for float32
+    operands)."""
     from pyiga_tpu_torch import _cuda
     d, C, Q12, nL = Y.shape
+    f32 = Y.dtype == torch.float32
     return bare_times(
-        'geo_jac_fields', _cuda.library().pyiga_geo_jac_fields_f64,
+        'geo_jac_fields' + '_f32' * f32,
+        getattr(_cuda.library(), 'pyiga_geo_jac_fields_%s'
+                % ('f32' if f32 else 'f64')),
         [Y, T, torch.empty_like(got)],
         lambda ts: (ts[0].data_ptr(), ts[1].data_ptr(), ts[2].data_ptr(), d,
                     C - int(nurbs), int(nurbs), Q12, T.shape[1], nL), device)
@@ -3455,11 +3513,13 @@ def kvs_of(dim, n, p=3):
     return dim * (bspline.make_knots(p, 0.0, 1.0, n),)
 
 
-def jac_case(asm, device, name):
+def jac_case(asm, device, name, tol=1e-13):
     """K1's ``jac`` kind on an assembler's geometry tables (its Gauss grid,
-    a boundary grid's collapsed axis included) against its plain version,
-    1e-13 relative and bitwise on a repeat, with ``ms``, ``launch_ms`` /
-    ``device_ms``, the plain version's time and the bound."""
+    a boundary grid's collapsed axis included) in the compute dtype
+    against its plain version, `tol` relative and bitwise on a repeat
+    (float32: :func:`f32_check`, also with torch's global TF32 on), with
+    ``ms``, ``launch_ms`` / ``device_ms``, the plain version's time and
+    the bound."""
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     ops = asm._device_operands()
     tables, coeffs, nurbs = (ops['geo_tables'], ops['geo_coeffs'],
@@ -3467,12 +3527,18 @@ def jac_case(asm, device, name):
     d = len(tables)
     Y, _ = cs.geo_stage12(tables, coeffs, d)
     T = tables[d - 1][:2].contiguous()
-    got = cs.geo_jac_fields(Y, T, nurbs)
-    ref = cs.geo_jac_fields_plain(Y, T, nurbs)
-    sync(device)
-    err, rel = compare('geo_jac ' + name, got, ref, 1e-13)
-    check_repeat('geo_jac ' + name, lambda: cs.geo_jac_fields(Y, T, nurbs),
-                 got)
+    f32 = Y.dtype == torch.float32
+    if f32:
+        got, err, rel, _ = f32_check(
+            'geo_jac_f32 ' + name, cs.geo_jac_fields,
+            cs.geo_jac_fields_plain, (Y, T, nurbs), device, tol=tol)
+    else:
+        got = cs.geo_jac_fields(Y, T, nurbs)
+        ref = cs.geo_jac_fields_plain(Y, T, nurbs)
+        sync(device)
+        err, rel = compare('geo_jac ' + name, got, ref, tol)
+        check_repeat('geo_jac ' + name,
+                     lambda: cs.geo_jac_fields(Y, T, nurbs), got)
     from pyiga_tpu_torch import _cuda
     C, Q12, nL = Y.shape[1], Y.shape[2], Y.shape[3]
     rec = dict(
@@ -3487,7 +3553,9 @@ def jac_case(asm, device, name):
         library_ms=None,
         **bound(nbytes(Y, T, got),
                 got[0].numel() * (2 * C * (d + 1) * nL + 30),
-                F64_FMA_PER_MS))
+                F32_PER_MS if f32 else F64_FMA_PER_MS))
+    if f32:
+        rec['tf32_on_unchanged'] = True
     rec.update(jac_bare_times(Y, T, got, nurbs, device))
     return rec
 
@@ -4627,50 +4695,59 @@ WINDOWED_PATHS = ((3, 20, 7210, 0, 1, True), (3, 20, 7211, 0, 1, True),
                   (3, 20, 7211, 18, 3, True), (3, 20, 7210, 6, 3, False),
                   (2, 13, 1001, 3, 2, True), (4, 60, 2000, 0, 1, True),
                   (3, 61, 7210, 0, 1, True), (3, 61, 7210, 2, 1, True))
+# ... and in float32 (phase 4o), whose 4-byte elements leave room for two
+# span buffers at every shape above: a fold of 4 terms over 4 tables at 64
+# dofs (one span buffer)
+WINDOWED_PATHS_F32 = ((3, 61, 7210, 4, 4, True),)
 
 
 def windowed_paths(xs, tabs, idx, fs, nqp):
     """The plan of a K8 / K8f launch (its first, for more than 16 terms)
-    as ``pyiga_windowed_plan`` computes it on the card, held to
-    ``cuda_sumfac.windowed_plan``, and the copy and store paths of the
-    launch just made: X by tensor copies (``tensor``: R even), by 16-byte
-    ``cp.async`` from each row's aligned start (``cp.async 16``: R odd;
-    with Q odd as well the last double of X alone, ``last double``) or by
-    8-byte ``cp.async`` (``cp.async 8``: X not 16-byte aligned), as the
+    as ``pyiga_windowed_plan`` (``_plan_f32`` for float32 operands)
+    computes it on the card, held to ``cuda_sumfac.windowed_plan`` for
+    the operands' element size, and the copy and store paths of the
+    launch just made: X by tensor copies (``tensor``: R a multiple of V,
+    the elements of 16 bytes: 2 doubles, 4 floats), by 16-byte
+    ``cp.async`` from each row's aligned start (``cp.async 16``; with
+    ``Q R`` no multiple of V the last elements of X alone, ``last
+    double`` / ``last floats``) or by ``cp.async`` of one element
+    (``cp.async 8`` / ``cp.async 4``: X not 16-byte aligned), as the
     library reports it; the output spans by bulk stores from one buffer
     (``one span``) or two (``two spans``), the last one ragged (``loop
     span``), or ``direct`` stores."""
     import ctypes
     from pyiga_tpu_torch import _cuda
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
-    lib = _cuda.library()
-    copy = lib.pyiga_windowed_last_copy()
     Q, R = xs[0].shape
     n, b, wsz = tabs[0].shape
+    es = xs[0].element_size()
+    V = 16 // es
     groups = len(set(idx[:16]))
-    nsm = torch.cuda.get_device_properties(xs[0].device).multi_processor_count
-    out = (ctypes.c_longlong * 12)()
-    lib.pyiga_windowed_plan(Q, R, n, b, wsz, nqp, groups, nsm,
-                            ctypes.cast(out, ctypes.c_void_p))
     keys = ('rpt', 'run', 'nruns', 'cap', 'box', 'ps', 'xs', 'stages', 'nys',
             'rtiles', 'cpr', 'smem')
+    lib = _cuda.library()
+    copy = lib.pyiga_windowed_last_copy()
+    nsm = torch.cuda.get_device_properties(xs[0].device).multi_processor_count
+    out = (ctypes.c_longlong * 12)()
+    (lib.pyiga_windowed_plan if es == 8 else lib.pyiga_windowed_plan_f32)(
+        Q, R, n, b, wsz, nqp, groups, nsm, ctypes.cast(out, ctypes.c_void_p))
     plan = dict(zip(keys, list(out)))
-    if plan != cs.windowed_plan(Q, R, n, b, wsz, nqp, groups, nsm):
+    mirror = cs.windowed_plan(Q, R, n, b, wsz, nqp, groups, nsm, esize=es)
+    if plan != mirror:
         raise RuntimeError('windowed plan %s differs from windowed_plan %s'
-                           % (plan, cs.windowed_plan(Q, R, n, b, wsz, nqp,
-                                                     groups, nsm)))
+                           % (plan, mirror))
     aligned = not any(X.data_ptr() % 16 for X in xs)
-    expect = 2 if aligned and R % 2 == 0 else 1 if aligned else 0
+    expect = 2 if aligned and R % V == 0 else 1 if aligned else 0
     if copy != expect:
         raise RuntimeError('windowed kernel copied X by path %d, expected '
                            '%d' % (copy, expect))
-    paths = {('cp.async 8', 'cp.async 16', 'tensor')[copy]}
-    if copy == 1 and Q % 2 and R % 2:
-        paths.add('last double')
+    paths = {('cp.async %d' % es, 'cp.async 16', 'tensor')[copy]}
+    if copy == 1 and (Q * R) % V:
+        paths.add('last double' if es == 8 else 'last floats')
     nr = R - (plan['rtiles'] - 1) * 8 * plan['rpt']
     if plan['nys']:
         paths.add('one span' if plan['nys'] == 1 else 'two spans')
-        if nr * b * n % 2:
+        if nr * b * n % V:
             paths.add('loop span')
     else:
         paths.add('direct')
@@ -4705,16 +4782,56 @@ def windowed_bound(xs, tabs, fs, got):
     i = np.arange(n)
     pairs = int(np.sum(np.minimum(n, i + p + 1) - np.maximum(0, i - p)))
     flops = 2 * R * pairs * wsz * len(tabs) + (len(xs) - len(tabs)) * Q * R
-    return bound(nbytes(*xs, *tabs, fs, got), flops, F64_FMA_PER_MS)
+    return bound(nbytes(*xs, *tabs, fs, got), flops,
+                 F32_PER_MS if got.dtype == torch.float32 else F64_FMA_PER_MS)
 
 
-def windowed_case(name, xs, tabs, idx, fs, nqp, device, fold, btabs=None):
+def windowed_bare_times(xs, tabs, idx, fs, nqp, Y, fold, device):
+    """:func:`bare_times` of K8's (`fold` False: the first term alone) or
+    K8f's C entry on these operands (the float32 entry for float32
+    ones): ``launch_ms`` and ``device_ms``."""
+    import ctypes
+    from pyiga_tpu_torch import _cuda
+    lib = _cuda.library()
+    sfx = '_f32' if Y.dtype == torch.float32 else '_f64'
+    Q, R = xs[0].shape
+    n, b, wsz = tabs[0].shape
+    xs = list(xs) if fold else [xs[0]]
+    nx, keep = len(xs), []
+    if fold:
+        fn = getattr(lib, 'pyiga_windowed_fold' + sfx)
+
+        def args_of(ts):
+            xp = (ctypes.c_uint64 * nx)(*[t.data_ptr() for t in ts[:nx]])
+            tp = (ctypes.c_uint64 * nx)(*[ts[nx + i].data_ptr()
+                                          for i in idx])
+            keep.append((xp, tp))       # alive while the launches run
+            return (ctypes.cast(xp, ctypes.c_void_p),
+                    ctypes.cast(tp, ctypes.c_void_p), nx, ts[-2].data_ptr(),
+                    ts[-1].data_ptr(), Q, R, n, b, wsz, nqp)
+    else:
+        fn = getattr(lib, 'pyiga_windowed_stage' + sfx)
+
+        def args_of(ts):
+            return (ts[0].data_ptr(), ts[1 + idx[0]].data_ptr(),
+                    ts[-2].data_ptr(), ts[-1].data_ptr(), Q, R, n, b, wsz,
+                    nqp)
+    name = 'windowed_%s%s' % ('fold' if fold else 'stage',
+                              '_f32' if sfx == '_f32' else '')
+    return bare_times(name, fn, xs + list(tabs) + [fs, torch.empty_like(Y)],
+                      args_of, device)
+
+
+def windowed_case(name, xs, tabs, idx, fs, nqp, device, fold, btabs=None,
+                  tol=1e-14):
     """K8 (`fold` False: one term) or K8f against its plain version at one
-    shape: 1e-14 relative to the largest entry, bitwise on a repeat; the
-    times of the kernel, of the plain version, of the einsum yardstick
-    (one call over every term's windows, gathered outside its timing) and,
+    shape: `tol` relative to the largest entry, bitwise on a repeat (for
+    float32 operands also with torch's global TF32 on); the times of the
+    kernel, of the plain version, of the einsum yardstick (one call over
+    every term's windows, gathered outside its timing; TF32 off) and,
     with `btabs` (the banded pair tables of the same terms), of K2 / K3 on
     those: the same output, with the band's zeros in the contraction."""
+    from pyiga_tpu_torch.config import no_tf32
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     if fold:
         def run():
@@ -4730,8 +4847,16 @@ def windowed_case(name, xs, tabs, idx, fs, nqp, device, fold, btabs=None):
             return cs.windowed_stage_plain(xs[0], tabs[idx[0]], fs, nqp)
     got = run()
     sync(device)
-    err, rel = compare(name, got, plain(), 1e-14)
+    ref = plain()
+    err, rel = compare(name, got, ref, tol)
     check_repeat(name, run, got)
+    if got.dtype == torch.float32:
+        with GlobalTF32():
+            same = torch.equal(run(), got) and torch.equal(plain(), ref)
+        if not same:
+            raise RuntimeError('%s: global TF32 changed the f32 results'
+                               % name)
+    del ref
     plan, paths = windowed_paths(xs, tabs, idx, fs, nqp)
     rec = dict(max_abs_err=err, rel=rel, repeat_equal=True, plan=plan,
                paths=paths,
@@ -4739,22 +4864,27 @@ def windowed_case(name, xs, tabs, idx, fs, nqp, device, fold, btabs=None):
                tables=len(tabs), ms=time_ms(run, device),
                plain_ms=time_ms(plain, device, reps=3),
                **windowed_bound(xs, tabs, fs, got))
+    if device.type == 'cuda':
+        rec.update(windowed_bare_times(xs, tabs, idx, fs, nqp, got, fold,
+                                       device))
     del got
     wsz = tabs[0].shape[2]
     q = (fs[:, None] * nqp
          + torch.arange(wsz, device=device)[None, :]).reshape(-1)
     G = torch.stack([X[q].reshape(fs.shape[0], wsz, -1) for X in xs])
     Ps = torch.stack([tabs[i] for i in idx])
-    rec['library_ms'] = time_ms(
-        lambda: torch.einsum('tiwr,tiow->roi', G, Ps), device)
+    with no_tf32(G.dtype):
+        rec['library_ms'] = time_ms(
+            lambda: torch.einsum('tiwr,tiow->roi', G, Ps), device)
     del G, Ps
     if btabs is not None:
         rec['k2k3_banded_ms'] = time_ms(
             (lambda: cs.fold(xs, btabs, idx)) if fold
             else (lambda: cs.stage(xs[0], btabs[idx[0]])), device)
-    log('  %-26s kernel %.4f ms  plain %.4f  einsum %.4f  K2/K3 banded %s  '
-        'bound %.4f (%s, %.1f MB)'
-        % (name, rec['ms'], rec['plain_ms'], rec['library_ms'],
+    log('  %-26s kernel %.4f ms  device %s  plain %.4f  einsum %.4f  K2/K3 '
+        'banded %s  bound %.4f (%s, %.1f MB)'
+        % (name, rec['ms'], '%.4f' % rec['device_ms'] if 'device_ms' in rec
+           else '-', rec['plain_ms'], rec['library_ms'],
            '%.4f' % rec['k2k3_banded_ms'] if btabs is not None else '-',
            rec['bound_ms'], rec['bound_by'], rec['bound_bytes'] / 1e6))
     return rec
@@ -4765,19 +4895,23 @@ def windowed_case(name, xs, tabs, idx, fs, nqp, device, fold, btabs=None):
 WINDOWED_SIZES = ((3, 48), (2, 128))
 
 
-def check_windowed_kernels(device, seed=13):
+def check_windowed_kernels(device, seed=13, dtype=torch.float64, tol=1e-14):
     """Phase 4m: K8 (``windowed_stage``) and K8f (``windowed_fold``)
     against their plain versions on `device` at the windowed route's
     shapes: the 3D p=3 n=48 twisted box's stage 1 and stage 2 and the
     fold of its 6 plan terms (3 tables), the 2D p=3 n=128 quarter
     annulus's stage 1 and fold (3 terms), and the ragged shapes above.
     The JSON line's numbers are the 3D ones (stage: both stages summed,
-    as K2's)."""
+    as K2's).  `dtype` float32 (phase 4o) runs the kernels' float32
+    instances (`tol` relative; keys ``windowed_stage_f32`` /
+    ``windowed_fold_f32``)."""
     from pyiga_tpu_torch.ops import banded as bd
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     from pyiga_tpu_torch.ops.sumfac import last_table_groups
     rng = np.random.RandomState(seed)
-    f64 = torch.float64
+    f64 = dtype
+    es = torch.empty(0, dtype=dtype).element_size()
+    sfx = '_f32' if dtype == torch.float32 else ''
 
     def rand(*shape):
         return torch.as_tensor(rng.rand(*shape), dtype=f64, device=device)
@@ -4801,7 +4935,7 @@ def check_windowed_kernels(device, seed=13):
             name = 'stage %d %s' % (k + 1, tag)
             cases[name] = windowed_case(
                 name, [rand(Q, R)], [dev(wtabs[0][k])], [0], fs, nqp,
-                device, False, btabs=[dev(btabs[0][k])])
+                device, False, btabs=[dev(btabs[0][k])], tol=tol)
         plan = asm._fold()
         idx = list(last_table_groups([wtabs[t] for t, _m in plan]))
         tabs, btab = [None] * (max(idx) + 1), [None] * (max(idx) + 1)
@@ -4810,7 +4944,7 @@ def check_windowed_kernels(device, seed=13):
         name = 'fold %s' % tag
         cases[name] = windowed_case(
             name, [rand(Q, bn ** (dim - 1)) for _ in plan], tabs, idx, fs,
-            nqp, device, True, btabs=btab)
+            nqp, device, True, btabs=btab, tol=tol)
         del asm
         torch.cuda.empty_cache()
     ragged = {}
@@ -4820,13 +4954,14 @@ def check_windowed_kernels(device, seed=13):
                             if name.startswith('fold')
                             == (k == 'windowed_fold')])
     for p, nel, R, nterms, ntab, aligned in (
-            [c + (True,) for c in WINDOWED_RAGGED] + list(WINDOWED_PATHS)):
+            [c + (True,) for c in WINDOWED_RAGGED] + list(WINDOWED_PATHS)
+            + list(WINDOWED_PATHS_F32 if es == 4 else ())):
         tabs, fs, nqp = windowed_1d_tables(p, nel, device)
-        tabs = tabs[:ntab]
+        tabs = [P.to(dtype) for P in tabs[:ntab]]
         xs = []
         for _ in range(max(nterms, 1)):
             X = rand(nel * nqp, R)
-            if not aligned:           # the same values 8 bytes on
+            if not aligned:           # the same values one element on
                 buf = torch.empty(X.numel() + 1, dtype=f64, device=device)
                 X = buf[1:].view(X.shape).copy_(X)
             xs.append(X)
@@ -4838,40 +4973,58 @@ def check_windowed_kernels(device, seed=13):
             return cs.windowed_stage(xs[0], tabs[0], fs, nqp)
         key = 'p=%d n=%d R=%d %s%s' % (
             p, fs.shape[0], R, '%d terms' % nterms if nterms else 'stage',
-            '' if aligned else ', X 8 bytes off')
+            '' if aligned else ', X %d bytes off' % es)
         got = run()
         sync(device)
         err, rel = compare(key, got, cs.windowed_fold_plain(
-            xs, tabs, idx, fs, nqp), 1e-14)
+            xs, tabs, idx, fs, nqp), tol)
         check_repeat(key, run, got)
         plan, paths = windowed_paths(xs, tabs, idx, fs, nqp)
         covered['windowed_fold' if nterms else 'windowed_stage'].update(
             paths)
         ragged[key] = dict(max_abs_err=err, rel=rel, plan=plan, paths=paths)
         log('    plan %s, paths %s' % (plan, ', '.join(paths)))
-    every = {'tensor', 'cp.async 16', 'last double', 'cp.async 8',
-             'one span', 'two spans', 'loop span', 'direct'}
     for k in WINDOWED_KERNELS:
-        log('  %s: paths exercised %s' % (k, ', '.join(sorted(covered[k]))))
+        every = windowed_every_path(es, k == 'windowed_fold')
+        log('  %s%s: paths exercised %s'
+            % (k, sfx, ', '.join(sorted(covered[k]))))
         if covered[k] != every:
-            raise RuntimeError('%s: paths %s not exercised'
-                               % (k, sorted(every - covered[k])))
+            raise RuntimeError('%s%s: paths %s not exercised'
+                               % (k, sfx, sorted(every - covered[k])))
     n3 = dict(WINDOWED_SIZES)[3]
     s1, s2 = cases['stage 1 3D n=%d' % n3], cases['stage 2 3D n=%d' % n3]
-    out = {'windowed_stage': dict(
+    out = {'windowed_stage' + sfx: dict(
         max_abs_err=max(s1['max_abs_err'], s2['max_abs_err']),
         rel=max(s1['rel'], s2['rel']), repeat_equal=True,
         ms=s1['ms'] + s2['ms'], plain_ms=s1['plain_ms'] + s2['plain_ms'],
         library_ms=s1['library_ms'] + s2['library_ms'],
         k2k3_banded_ms=s1['k2k3_banded_ms'] + s2['k2k3_banded_ms'],
         ms_each=[s1['ms'], s2['ms']],
+        **({'device_ms': s1['device_ms'] + s2['device_ms'],
+            'launch_ms': s1['launch_ms'] + s2['launch_ms']}
+           if 'device_ms' in s1 else {}),
         **bound(s1['bound_bytes'] + s2['bound_bytes'],
-                s1['bound_flops'] + s2['bound_flops'], F64_FMA_PER_MS)),
-        'windowed_fold': dict(cases['fold 3D n=%d' % n3])}
+                s1['bound_flops'] + s2['bound_flops'],
+                F32_PER_MS if dtype == torch.float32 else F64_FMA_PER_MS)),
+        'windowed_fold' + sfx: dict(cases['fold 3D n=%d' % n3])}
     for k in WINDOWED_KERNELS:
-        out[k]['cases'] = cases
-        out[k]['ragged'] = ragged
+        out[k + sfx]['cases'] = cases
+        out[k + sfx]['ragged'] = ragged
     return out
+
+
+def windowed_every_path(esize, fold):
+    """The copy and store paths (:func:`windowed_paths`) that phase 4m
+    (`esize` 8) and 4o (4) must see K8 or (`fold`) K8f take.  In float32
+    a stage's plan never holds one span buffer alone: its one table (at
+    most 64 x 236 floats) leaves room for two spans beside two stages at
+    every shape of the route (b <= 9, at most 64 dofs a run)."""
+    every = {'tensor', 'cp.async 16', 'cp.async %d' % esize,
+             'last double' if esize == 8 else 'last floats', 'one span',
+             'two spans', 'loop span', 'direct'}
+    if esize == 4 and not fold:
+        every.discard('one span')
+    return every
 
 
 # phase 21's cases: (dim, n, assembler, the cg_ir inner counts of phases
@@ -5082,15 +5235,15 @@ class GlobalTF32:
         torch.backends.cudnn.allow_tf32 = self.saved[1]
 
 
-def f32_check(name, fn, plain, args, device, lib=None):
-    """A float32 kernel at one shape against its plain version (F32_TOL
+def f32_check(name, fn, plain, args, device, lib=None, tol=F32_TOL):
+    """A float32 kernel at one shape against its plain version (`tol`
     relative to the largest output), bitwise on a repeat, and again with
     torch's global TF32 on (the kernel and the plain version both bitwise
     unchanged: neither may take TF32).  Returns the output, the error,
     its ratio and the yardstick `lib`'s output under TF32."""
     got, ref = fn(*args), plain(*args)
     sync(device)
-    err, rel = compare(name, got, ref, F32_TOL)
+    err, rel = compare(name, got, ref, tol)
     check_repeat(name, lambda: fn(*args), got)
     with GlobalTF32():
         got_tf, ref_tf = fn(*args), plain(*args)
@@ -5724,6 +5877,564 @@ def run_f32_line(device, n=48):
     return rec
 
 
+################################################################################
+# Every assembly path in float32 (phases 4o, 22c)
+################################################################################
+
+# the float32 instances of K1's jac kind, K1', K5, K8 and K8f
+F32_ASSEMBLY_KERNELS = ('geo_jac_fields_f32', 'host_jac_fields_f32',
+                        'vform_fields_f32', 'windowed_stage_f32',
+                        'windowed_fold_f32')
+# the float64 kernels of the assembly paths: none may launch under float32
+F64_ASSEMBLY_KERNELS = ('fields', 'mass_fields', 'geo_jac_fields',
+                        'host_jac_fields', 'stage', 'fold', 'stage_T',
+                        'tail_fused', 'vform_fields', 'windowed_stage',
+                        'windowed_fold', 'flat_banded_f64')
+# phase 4o's tolerance: relative to the largest output
+F32_ASM_TOL = 2e-6
+# float64 arithmetic or conversions in SASS: a float32 instance holds none
+SASS_F64 = re.compile(r'\b(D(ADD|MUL|FMA|SETP|MNMX|MMA)|[FI]2[FI]\S*F64)\b')
+# the float32 instances in the package's library, by mangled name: K1
+# (S = float last), K1' <D, float>, K8 / K8f <float, B, RPT>, K2 / K3 f32,
+# K4's float instance
+SASS_F32_KERNELS = {
+    'geo_fields_kernel<float>': re.compile(r'geo_fields_kernelI.*Lb[01]EfE'),
+    'host_jac_fields_kernel<float>': re.compile(
+        r'host_jac_fields_kernelILi[23]EfE'),
+    'windowed_kernel<float>': re.compile(r'windowed_kernelIfLi'),
+    'fold_f32_kernel': re.compile(r'fold_f32_kernel'),
+    'flat_banded_kernel<float>': re.compile(r'flat_banded_kernelIfE'),
+}
+
+
+class ComputeDtype:
+    """``set_dtype(dtype)`` inside the block, the caller's dtype restored
+    after it (also when the block raises)."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def __enter__(self):
+        import pyiga_tpu_torch
+        self.saved = pyiga_tpu_torch.get_dtype()
+        pyiga_tpu_torch.set_dtype(self.dtype)
+
+    def __exit__(self, *exc):
+        import pyiga_tpu_torch
+        pyiga_tpu_torch.set_dtype(self.saved)
+
+
+def sass_functions(path):
+    """``{function: [SASS lines]}`` of a library, by ``cuobjdump
+    --dump-sass`` from the toolkit that built it."""
+    from pyiga_tpu_torch import _cuda
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), 'cuobjdump')
+    sass = subprocess.run([tool, '--dump-sass', path], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            fn = line.split('Function :')[1].strip()
+            out[fn] = []
+        elif fn is not None:
+            out[fn].append(line)
+    return out
+
+
+def sass_f64_free(lib_path, gen_paths):
+    """The float32 instances' SASS holds no float64 arithmetic or
+    conversion (:data:`SASS_F64`): every function of the package's library
+    that :data:`SASS_F32_KERNELS` names, and ``vform_fields_kernel`` of
+    each generated float32 K5 library in `gen_paths`.  Returns per family
+    the instances checked and the float64 instructions found; raises if a
+    family has no instance or any instruction is found."""
+    found = {k: dict(instances=0, f64=[]) for k in SASS_F32_KERNELS}
+    found['vform_fields_kernel (float32)'] = dict(instances=0, f64=[])
+    for fn, lines in sass_functions(lib_path).items():
+        for fam, pat in SASS_F32_KERNELS.items():
+            if pat.search(fn):
+                found[fam]['instances'] += 1
+                found[fam]['f64'] += [ln.strip() for ln in lines
+                                      if SASS_F64.search(ln)][:5]
+    for path in gen_paths:
+        for fn, lines in sass_functions(path).items():
+            if 'vform_fields_kernel' in fn:
+                rec = found['vform_fields_kernel (float32)']
+                rec['instances'] += 1
+                rec['f64'] += [ln.strip() for ln in lines
+                               if SASS_F64.search(ln)][:5]
+    for fam, r in found.items():
+        log('  SASS %-32s %3d float32 instances, float64 instructions: %s'
+            % (fam, r['instances'], r['f64'] or 'none'))
+    bad = [k for k, r in found.items() if r['f64'] or not r['instances']]
+    if bad:
+        raise RuntimeError('float64 instructions in (or no instance of) the '
+                           'float32 kernels %s' % bad)
+    return found
+
+
+def host_jac_f32_case(name, jac, w12, wL, device):
+    """K1' in float32 against its plain version (:func:`f32_check`,
+    F32_ASM_TOL), timed as :func:`jac_case`."""
+    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    args = (jac, w12, wL)
+    got, err, rel, _ = f32_check("K1' f32 " + name, cs.host_jac_fields,
+                                 cs.host_jac_fields_plain, args, device,
+                                 tol=F32_ASM_TOL)
+    d = jac.shape[0]
+    rec = dict(max_abs_err=err, rel=rel, shape=list(got.shape),
+               repeat_equal=True, tf32_on_unchanged=True,
+               ms=time_ms(lambda: cs.host_jac_fields(*args), device,
+                          reps=50),
+               plain_ms=time_ms(lambda: cs.host_jac_fields_plain(*args),
+                                device, reps=3),
+               library_ms=None,
+               # det, adjugate, the unique products: ~60 operations a point
+               **bound(nbytes(jac, w12, wL, got), 60 * got.shape[1],
+                       F32_PER_MS))
+    rec.update(bare_times(
+        'host_jac_fields_f32', _cuda.library().pyiga_host_jac_fields_f32,
+        [jac, w12, wL, torch.empty_like(got)],
+        lambda ts: tuple(t.data_ptr() for t in ts)
+        + (d, w12.numel(), wL.numel()), device))
+    return rec
+
+
+def check_f32_assembly_kernels(device):
+    """Phase 4o: the float32 instances of K1's ``jac`` kind, K1', K5, K8
+    and K8f against their plain versions on the card (F32_ASM_TOL = 2e-6
+    relative to the largest output, bitwise on a repeat, bitwise
+    unchanged with torch's global TF32 on), each with its device time,
+    bound and yardstick: K1 ``jac`` at the 3D p=3 n=48 twisted box, the 2D
+    n=128 NURBS quarter annulus, a surface (G = 3, the extruded annulus's
+    'left' face at n=128), a boundary grid (QL = 1, its 'left' face at
+    3D n=48) and ragged shapes; K1' at the 2D n=128 polar annulus (a
+    ``UserFunction``), the 3D n=48 twisted box's Jacobian and ragged
+    shapes; K5 on the 2D n=128 convection-diffusion form, the 3D n=48
+    stiffness form and ``v * ds`` on the 'left' face (its rows mapping,
+    also bitwise against its columns mapping); K8 / K8f at phase 4m's
+    shapes (every copy and store path, each launch's plan held to
+    ``windowed_plan(..., esize=4)``).  Then the SASS of every float32
+    instance, the generated float32 K5 libraries included, holds no
+    float64 instruction (:func:`sass_f64_free`)."""
+    from pyiga_tpu_torch import _cuda, geometry
+    from pyiga_tpu_torch.assemblers import StiffnessAssembler
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    from pyiga_tpu_torch.ops import geom
+    f32 = torch.float32
+    out = {}
+    with ComputeDtype(f32):
+        # K1 jac f32 and K5 f32 on the forms' own operands
+        forms = {'2d_n128_convdiff': convdiff_setup(128, device)[2],
+                 '3d_n48_stiffness': surface_asm(
+                     'inner(grad(u), grad(v)) * dx', 3, 48, device,
+                     geo=geometry.twisted_box()),
+                 'v_ds_left_n48': surface_asm('v * ds', 3, 48, device,
+                                              boundary='left')}
+        jac = {key: jac_case(asm, device, key, tol=F32_ASM_TOL)
+               for key, asm in (('3d_n48_bspline',
+                                 forms['3d_n48_stiffness']),
+                                ('2d_n128_nurbs', forms['2d_n128_convdiff']),
+                                ('surface_nurbs_n128', surface_vf(device)),
+                                ('face_left_n48', forms['v_ds_left_n48']))}
+        k5 = {key: vform_case(asm, device, tol=F32_ASM_TOL, name=key)
+              for key, asm in forms.items()}
+        for r in k5.values():
+            r.update(repeat_equal=True, tf32_on_unchanged=True)
+        # the twisted box's float32 Jacobian and weights, for K1' at 3D
+        ops3 = forms['3d_n48_stiffness']._device_operands()
+        _, jac3 = cs.geometry_fields(ops3['geo_tables'], ops3['geo_coeffs'],
+                                     False)
+        jac3 = jac3.reshape(3, 3, -1).contiguous()
+        w3 = geom.gauss_weight_factors(ops3['inputs']['weights'])
+        del forms, ops3
+    torch.cuda.empty_cache()
+    out['geo_jac_fields_f32'] = dict(
+        jac['3d_n48_bspline'], cases=jac,
+        ragged=check_fields_ragged('jac', device, dtype=f32,
+                                   tol=F32_ASM_TOL))
+    out['vform_fields_f32'] = dict(k5['2d_n128_convdiff'], cases=k5)
+
+    # K1' f32
+    hj = {}
+    gi = StiffnessAssembler(kvs_of(2, 128), polar_annulus(),
+                            device=device).geo_inputs(f32)
+    jac2, _ = cs._host_jacobian(gi)
+    hj['2d_n128_user'] = host_jac_f32_case(
+        '2D n=128', jac2, *geom.gauss_weight_factors(gi['weights']), device)
+    hj['3d_n48_twisted'] = host_jac_f32_case('3D n=48', jac3, *w3, device)
+    del gi, jac2, jac3
+    out['host_jac_fields_f32'] = dict(
+        hj['2d_n128_user'], cases=hj,
+        ragged=check_host_jac_ragged(device, dtype=f32, tol=F32_ASM_TOL))
+
+    # K8 / K8f f32
+    out.update(check_windowed_kernels(device, dtype=f32, tol=F32_ASM_TOL))
+    for k in ('windowed_stage_f32', 'windowed_fold_f32'):
+        out[k].update(tf32_on_unchanged=True)
+
+    gen = [k for k in _cuda.GEN_BUILDS
+           if os.path.basename(k).startswith('libvform_fields_f32_')]
+    out['sass_f64_free'] = sass_f64_free(_cuda.BUILD_INFO['path'], gen)
+    for name in F32_ASSEMBLY_KERNELS:
+        r = out[name]
+        log('  %-20s kernel %.4f ms   device %s   plain %.4f ms   library '
+            '%s   bound %.4f ms (%s)'
+            % (name, r['ms'], '%.4f ms' % r['device_ms']
+               if 'device_ms' in r else '-', r['plain_ms'],
+               'none' if r['library_ms'] is None
+               else '%.4f ms' % r['library_ms'], r['bound_ms'],
+               r['bound_by']))
+    return out
+
+
+def f32_launches(what, expect, device):
+    """The launches counted since the last reset (nonzero ones), raising
+    if a float32 kernel of `expect` never launched on the card or any
+    float64 assembly kernel launched (:data:`F64_ASSEMBLY_KERNELS`)."""
+    from pyiga_tpu_torch import _cuda
+    sync(device)
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    missing = [k for k in expect if launches.get(k, 0) <= 0]
+    f64 = [k for k in F64_ASSEMBLY_KERNELS if launches.get(k, 0)]
+    log('  %s launches: %s' % (what, launches))
+    if (missing and device.type == 'cuda') or f64:
+        raise RuntimeError('%s: float32 kernels never launched %s, float64 '
+                           'kernels launched %s' % (what, missing, f64))
+    return launches
+
+
+def rel_to(got, ref):
+    """max |got - ref| over max |ref| (tensors, numpy or scipy sparse)."""
+    if hasattr(got, 'tocsr'):
+        return float(abs(got - ref).max() / abs(ref).max())
+    got = torch.as_tensor(np.asarray(got) if not torch.is_tensor(got)
+                          else got).double().cpu()
+    ref = torch.as_tensor(np.asarray(ref) if not torch.is_tensor(ref)
+                          else ref).double().cpu()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def best_ms(fn, device, reps=3):
+    """Best of `reps` calls of `fn` after a warm one, by the host clock
+    around synchronizes (as phase 7 times ``run_device``)."""
+    fn()
+    sync(device)
+    best = np.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        best = min(best, time.perf_counter() - t0)
+    return 1e3 * best
+
+
+def f32_convdiff(device, n=128):
+    """Phase 22c (a): phase 7's convection-diffusion VForm at 2D p=3
+    n=128 in float32: ``run_device()`` (K1 jac, K5, K2 / K3 in float32)
+    and ``assemble()`` (float64 data holding the float32 values) timed,
+    the matrix held to phase 7's float64 one (1e-6 relative to its
+    largest entry), and phase 7's GMRES solve on it, its count held to the
+    JAX package's on the port's float32 matrix on the CPU
+    (:data:`CONVDIFF_COUNTS_JAX`).  The card's float32 compact data goes
+    to ``chiprun_out/f32_convdiff_n128.npy`` (its JAX count:
+    ``scripts/jax_poisson_counts.py convdiff 128 --data``)."""
+    from pyiga_tpu_torch import _cuda
+    kvs, geo, asm, asm_f = convdiff_setup(n, device)
+    D64 = asm.run_device()[(None, None)]
+    f = asm_f.assemble_vector()
+    _, it64, _, _, _ = solve_convdiff(asm, D64, f, device)
+    with ComputeDtype(torch.float32):
+        _cuda.reset_launches()
+        D32 = asm.run_device()[(None, None)]
+        launches = f32_launches('convdiff f32', (
+            'geo_jac_fields_f32', 'vform_fields_f32', 'stage_f32',
+            'fold_f32'), device)
+        t_run = best_ms(asm.run_device, device)
+        t_asm = best_ms(asm.assemble, device)
+        A32 = asm.assemble()
+    if D32.dtype != torch.float32 or A32.data.dtype != np.float64 or \
+            not np.array_equal(A32.data, D32.cpu().numpy().astype(np.float64)):
+        raise RuntimeError('convdiff f32: run_device %s, assemble() %s'
+                           % (D32.dtype, A32.data.dtype))
+    rel = rel_to(D32, D64)
+    x32, it32, res32, _, t_solve = solve_convdiff(asm, D32.double(), f,
+                                                  device)
+    os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
+    np.save(os.path.join(REPO, 'chiprun_out', 'f32_convdiff_n%d.npy' % n),
+            D32.cpu().numpy())
+    jax_it = CONVDIFF_COUNTS_JAX[('float32', n)]
+    rec = dict(n=n, t_run_device_ms=t_run, t_assemble_ms=t_asm,
+               D_rel_vs_f64=rel, gmres_iters=it32, gmres_iters_f64=it64,
+               gmres_iters_jax=jax_it, residual=res32,
+               t_solve_ms=t_solve * 1e3, launches=launches)
+    log('  convdiff f32 n=%d: run_device %.2f ms, assemble() %.2f ms; D vs '
+        'f64 rel %.3e; GMRES %d (f64 matrix %d, JAX CPU on the port\'s f32 '
+        'matrix %d), residual %.3e' % (n, t_run, t_asm, rel, it32, it64,
+                                      jax_it, res32))
+    if not (rel <= 1e-6 and res32 <= 1e-9 and it32 == jax_it):
+        raise RuntimeError('convdiff f32: rel %.3e, GMRES %d (JAX %d), '
+                           'residual %.3e' % (rel, it32, jax_it, res32))
+    return rec
+
+
+def f32_vform_aca(device, n=48, p=3):
+    """Phase 22c (b): the 3D p=3 n=48 twisted box in float32: the VForm
+    stiffness (``assemble.assemble``'s string form through K1 jac, K5,
+    K2 / K3 in float32) held to the float32 ``StiffnessAssembler.
+    run_device()`` (2e-6 relative to its largest entry), and
+    ``aca_3d_device`` on phase 13's assembler with ``tol=1e-6`` (float32
+    slices, float64 crosses) held to the float64 ``run_device()`` (1e-5),
+    its pivot count recorded beside phase 13's."""
+    from pyiga_tpu_torch import _cuda, geometry, lowrank
+    from pyiga_tpu_torch.assemble import instantiate_assembler
+    from pyiga_tpu_torch.compile import compile_vform
+    from pyiga_tpu_torch.vform import stiffness_vf
+    kvs = kvs_of(3, n, p)
+    geo = geometry.twisted_box()
+    sasm = main_path_setup(3, n, device)
+    vasm = instantiate_assembler('inner(grad(u), grad(v)) * dx', kvs,
+                                 {'geo': geo}, None, device=device)
+    aasm = compile_vform(stiffness_vf(3))(kvs, geo=geo, device=device)
+    ref64 = aasm.run_device()[(None, None)].cpu().numpy()
+    counts = []
+    inflate = lowrank._aca_inflate
+
+    def counting(cols, mats, count, shp):
+        counts.append(int(count))
+        return inflate(cols, mats, count, shp)
+    with ComputeDtype(torch.float32):
+        S32 = sasm.run_device()
+        _cuda.reset_launches()
+        V32 = vasm.run_device()[(None, None)]
+        launches = f32_launches('VForm stiffness f32', (
+            'geo_jac_fields_f32', 'vform_fields_f32', 'stage_f32',
+            'fold_f32'), device)
+        t_vform = best_ms(vasm.run_device, device)
+        rel_v = rel_to(V32, S32)
+        del V32, S32
+        lowrank._aca_inflate = counting
+        try:
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            X = lowrank.aca_3d_device(aasm, tol=1e-6, verbose=0)
+            sync(device)
+            t_cold = 1e3 * (time.perf_counter() - t0)
+            aca_launches = f32_launches('ACA f32', (
+                'geo_jac_fields_f32', 'vform_fields_f32', 'stage_f32'),
+                device)
+            t0 = time.perf_counter()            # warm, as phase 13 times it
+            X = lowrank.aca_3d_device(aasm, tol=1e-6, verbose=0)
+            sync(device)
+            t_aca = 1e3 * (time.perf_counter() - t0)
+            fields = aasm._slice_operands()[0]
+            slice_dtypes = sorted({str(F.dtype) for F in fields})
+            del fields
+        finally:
+            lowrank._aca_inflate = inflate
+    rel_a = rel_to(X, ref64)
+    rec = dict(n=n, p=p, t_vform_run_device_ms=t_vform, vform_rel=rel_v,
+               vform_launches=launches, t_aca_cold_ms=t_cold, t_aca_ms=t_aca,
+               aca_rel=rel_a, aca_pivots=counts[-1],
+               aca_pivots_cold=counts[0],
+               aca_pivots_f64_tol1e10=ACA_PIVOTS[n],
+               slice_dtypes=slice_dtypes, aca_dtype=str(X.dtype),
+               aca_launches=aca_launches)
+    log('  3D n=%d f32: VForm stiffness run_device %.2f ms, vs f32 '
+        'StiffnessAssembler rel %.3e; aca_3d_device(tol=1e-6) cold %.1f ms '
+        '(the float32 K5 program\'s build included), warm %.1f ms, %d pivots '
+        '(phase 13 f64 tol 1e-10: %d), vs f64 run_device rel %.3e, slices '
+        '%s, crosses %s' % (n, t_vform, rel_v, t_cold, t_aca, counts[-1],
+                            ACA_PIVOTS[n], rel_a, slice_dtypes, X.dtype))
+    if not (rel_v <= F32_ASM_TOL and rel_a <= 1e-5
+            and counts[0] == counts[-1]
+            and slice_dtypes == ['torch.float32'] and X.dtype == np.float64):
+        raise RuntimeError('3D f32 VForm / ACA: rel %.3e / %.3e'
+                           % (rel_v, rel_a))
+    return rec
+
+
+# phase 22c (c)'s cases: (dim, n, assembler, float32 kernels of its fields,
+# whether to solve)
+F32_WINDOWED_CASES = ((3, 48, 'StiffnessAssembler', 'fields_f32', True),
+                      (3, 48, 'MassAssembler', 'mass_fields_f32', False),
+                      (2, 128, 'StiffnessAssembler', 'fields_f32', False))
+
+
+def f32_windowed(device):
+    """Phase 22c (c): the windowed route in float32, as phase 21: 3D p=3
+    n=48 stiffness and mass, 2D p=3 n=128 stiffness.  Launches counted
+    from zero (K8 / K8f f32, the geometry stages' K2 f32, K1 f32; no K3,
+    no float64 kernel), the peak device bytes, the flat layout held to
+    the float32 ``assemble_banded()`` (2e-6), ``assemble_windowed()``
+    float64 holding the float32 values, and at 3D n=48 stiffness ``cg``
+    on its ``BandedOperator`` (regular layout, K4 f32) with the float32
+    weighted fastdiag (phase 22b's settings), its count held to the JAX
+    package's on the port's float32 windowed operator on the CPU
+    (:data:`POISSON_COUNTS_JAX`)."""
+    from pyiga_tpu_torch import _cuda, assemblers, geometry, solvers
+    from pyiga_tpu_torch.ops import banded as bd
+    from pyiga_tpu_torch.ops import sumfac
+    from pyiga_tpu_torch.ops.fastdiag import (fastdiag_precond_weighted,
+                                              interior_dofs)
+    from pyiga_tpu_torch.ops.matfree import RestrictedOperator
+    out = {}
+    for dim, n, name, fk, solve in F32_WINDOWED_CASES:
+        geo = geometry.twisted_box() if dim == 3 else \
+            geometry.quarter_annulus()
+        asm = getattr(assemblers, name)(kvs_of(dim, n), geo, device=device)
+        bws = bd.band_info(asm.structure)
+        ns = tuple(b[0] for b in asm.structure.bs)
+        rec = dict(dim=dim, n=n, assembler=name)
+        with ComputeDtype(torch.float32):
+            ops = asm._windowed_operands()
+
+            def route():
+                return sumfac.run_windowed_assembly(
+                    asm.field_fn, asm.geo_inputs(), ops['wtabs'],
+                    ops['fss'], asm.tables.nqps, ops['plan'], ops['tperms'])
+            route()                        # warm (caching allocator)
+            base = peak_reset(device)
+            _cuda.reset_launches()
+            Z = route()
+            rec['peak_bytes'] = peak_since(device, base)
+            rec['launches'] = f32_launches(
+                'windowed f32 %dD n=%d %s' % (dim, n, name),
+                ('windowed_stage_f32', 'windowed_fold_f32', 'stage_f32', fk),
+                device)
+            if rec['launches'].get('fold_f32', 0):
+                raise RuntimeError('windowed f32 route launched K3')
+            rec['route_ms'] = time_ms(route, device)
+            Dw = bd.flat_banded_from_padded_chain(Z, bws, ns,
+                                                  add_transpose=False)
+            op_ref = asm.assemble_banded()
+            sync(device)
+            rec['flat_max_abs_err'], rec['flat_rel'] = compare(
+                'windowed f32 flat vs banded', Dw, op_ref.D, F32_ASM_TOL)
+            mlm = asm.assemble_windowed()
+            rec['dtypes'] = [str(Z.dtype), str(mlm.data.dtype)]
+            if Z.dtype != torch.float32 or mlm.data.dtype != np.float64:
+                raise RuntimeError('windowed f32: route %s, host %s'
+                                   % tuple(rec['dtypes']))
+            del Dw, op_ref, mlm
+            if solve:
+                bop = bd.BandedOperator(sumfac.banded_reorder(
+                    Z, tuple(2 * b + 1 for b in bws), ns), bws, ns)
+                free = interior_dofs(asm.kvs)
+                b = torch.as_tensor(np.random.RandomState(0).rand(len(free)),
+                                    dtype=torch.float32, device=device)
+                P = fastdiag_precond_weighted(asm, dirichlet=True)
+                _cuda.reset_launches()
+                t0 = time.perf_counter()
+                x, it = solvers.cg(RestrictedOperator(bop, free), b,
+                                   tol=1e-8, maxiter=600, precond=P)
+                sync(device)
+                rec.update(t_solve_ms=1e3 * (time.perf_counter() - t0),
+                           cg_iters=it,
+                           cg_iters_jax=POISSON_COUNTS_JAX[
+                               ('float32 windowed', n)],
+                           solve_dtype=str(x.dtype),
+                           solve_launches={k: v for k, v in
+                                           _cuda.LAUNCHES.items() if v})
+                log('  cg on the f32 windowed BandedOperator: %d iterations '
+                    '(JAX CPU on the port\'s f32 windowed operator: %d), '
+                    '%.2f ms, launches %s'
+                    % (it, rec['cg_iters_jax'], rec['t_solve_ms'],
+                       rec['solve_launches']))
+                if it != rec['cg_iters_jax'] or x.dtype != torch.float32 \
+                        or (device.type == 'cuda' and _cuda.LAUNCHES[
+                            'flat_banded_f32'] <= 0):
+                    raise RuntimeError('f32 windowed cg: %d iterations, JAX '
+                                       '%d' % (it, rec['cg_iters_jax']))
+                del bop, P, x
+            del Z
+        log('  windowed f32 %dD n=%d %s: route %.3f ms, peak %.1f MB, flat '
+            'rel %.3e' % (dim, n, name, rec['route_ms'],
+                          rec['peak_bytes'] / 1e6, rec['flat_rel']))
+        out['%s %dD n=%d' % (name, dim, n)] = rec
+        del asm
+        torch.cuda.empty_cache()
+    return out
+
+
+def f32_user_geometry(device, n=60):
+    """Phase 22c (d): K1' in float32 on its path: the stiffness of phase
+    10b's polar quarter annulus (a ``UserFunction``) at 2D p=3 n=60,
+    ``run_device()`` in float32 (K1' f32, K2 / K3 f32) held to the float64
+    one (1e-6 relative to its largest entry)."""
+    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch.assemblers import StiffnessAssembler
+    asm = StiffnessAssembler(kvs_of(2, n), polar_annulus(), device=device)
+    D64 = asm.run_device()
+    with ComputeDtype(torch.float32):
+        _cuda.reset_launches()
+        D32 = asm.run_device()
+        launches = f32_launches("K1' f32 user geometry", (
+            'host_jac_fields_f32', 'stage_f32', 'fold_f32'), device)
+        t = best_ms(asm.run_device, device)
+    rel = rel_to(D32, D64)
+    log("  polar UserFunction n=%d f32: run_device %.2f ms, vs f64 rel %.3e"
+        % (n, t, rel))
+    if not (rel <= 1e-6 and D32.dtype == torch.float32):
+        raise RuntimeError("K1' f32 path: rel %.3e, %s" % (rel, D32.dtype))
+    return dict(n=n, t_run_device_ms=t, rel_vs_f64=rel, launches=launches)
+
+
+def f32_hb(device, n0=24):
+    """Phase 22c (e): phase 8's HB (24, 3) ``assemble_matrix()`` and
+    ``assemble_rhs()`` in float32 (the ``bbox`` VForm assemblers: K1 jac,
+    K5, K2 / K3 in float32), held to float64 (1e-6 relative to the
+    largest entry); the solve stays float64 (local MG has no float32
+    kernels)."""
+    from pyiga_tpu_torch import _cuda
+    hs = localmg_space(n0)
+    hd = localmg_discretization(hs, device)
+    A64, f64 = hd.assemble_matrix(), hd.assemble_rhs()
+    with ComputeDtype(torch.float32):
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        A32, f32 = hd.assemble_matrix(), hd.assemble_rhs()
+        sync(device)
+        t_cold = 1e3 * (time.perf_counter() - t0)
+        launches = f32_launches('HB f32', (
+            'geo_jac_fields_f32', 'vform_fields_f32', 'stage_f32',
+            'fold_f32'), device)
+        t = min(best_ms(hd.assemble_matrix, device, reps=1)
+                + best_ms(hd.assemble_rhs, device, reps=1) for _ in range(3))
+    rel_A, rel_f = rel_to(A32, A64), rel_to(f32, f64)
+    log('  HB (%d, 3) f32: %d dofs, assemble_matrix + rhs cold %.1f ms (the '
+        'float32 K5 programs\' builds included), warm %.1f ms; A vs f64 rel '
+        '%.3e, f rel %.3e' % (n0, A32.shape[0], t_cold, t, rel_A, rel_f))
+    if not (rel_A <= 1e-6 and rel_f <= 1e-6 and A32.dtype == np.float64):
+        raise RuntimeError('HB f32: rel %.3e / %.3e' % (rel_A, rel_f))
+    return dict(n0=n0, ndofs=int(A32.shape[0]), t_assemble_cold_ms=t_cold,
+                t_assemble_ms=t, A_rel_vs_f64=rel_A, f_rel_vs_f64=rel_f,
+                launches=launches)
+
+
+def run_f32_assembly(device):
+    """Phase 22c: the f32 line beyond Poisson at full width, each part
+    under ``set_dtype(float32)`` with its launches counted from zero and
+    float64 restored after it (:class:`ComputeDtype`): (a)
+    :func:`f32_convdiff`, (b) :func:`f32_vform_aca`, (c)
+    :func:`f32_windowed`, (d) :func:`f32_user_geometry`, (e)
+    :func:`f32_hb`.  Raises if a float32 kernel of a part never launched
+    or a float64 kernel launched there."""
+    out = {}
+    for key, fn in (('a_convdiff_2d_n128', f32_convdiff),
+                    ('b_3d_n48_vform_aca', f32_vform_aca),
+                    ('c_windowed', f32_windowed),
+                    ('d_user_geometry_n60', f32_user_geometry),
+                    ('e_hb_24_3', f32_hb)):
+        t0 = time.perf_counter()
+        out[key] = fn(device)
+        out[key]['phase_s'] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -5983,6 +6694,33 @@ def main():
                     for k in POISSON_F32_KERNELS if k != 'flat_banded_f32')
     torch.cuda.empty_cache()
 
+    log('phase 4o: the float32 K1 jac, K1\', K5, K8 and K8f vs plain '
+        'versions, TF32 off and on; no float64 instruction in the float32 '
+        'instances\' SASS')
+    f32_asm_kern = check_f32_assembly_kernels(device)
+    kern.update((k, f32_asm_kern[k]) for k in F32_ASSEMBLY_KERNELS)
+    torch.cuda.empty_cache()
+
+    log('phase 22c: the f32 line beyond Poisson: convection-diffusion 2D '
+        'n=128, the 3D n=48 VForm and ACA, the windowed route, K1\', HB '
+        '(24,3)')
+    f32asm = run_f32_assembly(device)
+    launches.update(
+        geo_jac_fields_f32=f32asm['a_convdiff_2d_n128']['launches'][
+            'geo_jac_fields_f32'],
+        vform_fields_f32=f32asm['a_convdiff_2d_n128']['launches'][
+            'vform_fields_f32'],
+        host_jac_fields_f32=f32asm['d_user_geometry_n60']['launches'][
+            'host_jac_fields_f32'],
+        **{k: f32asm['c_windowed']['StiffnessAssembler 3D n=48'][
+            'launches'][k] for k in ('windowed_stage_f32',
+                                     'windowed_fold_f32')})
+    for key, r in windowed.items():
+        log('  windowed %s peak: float32 %.1f MB, float64 (phase 21) %.1f '
+            'MB' % (key, f32asm['c_windowed'][key]['peak_bytes'] / 1e6,
+                    r['peak_bytes'] / 1e6))
+    torch.cuda.empty_cache()
+
     # the NS shapes of the kernels the NS path runs, beside their launches
     # in phase 16's integration
     ns_line = {k: dict(launches=nsrec['launches'][k]) for k in NS_KERNELS}
@@ -6040,6 +6778,7 @@ def main():
                   multipatch=multipatch, diff_kernels=diff_kern,
                   diff=diffrec, windowed_kernels=win_kern,
                   windowed=windowed, n96=n96, f32_line=f32line,
+                  f32_assembly_kernels=f32_asm_kern, f32_assembly=f32asm,
                   seconds=time.perf_counter() - t_start)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:

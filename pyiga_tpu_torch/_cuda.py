@@ -51,7 +51,11 @@ LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'mass_fields': 0,
             'windowed_stage': 0, 'windowed_fold': 0,
             # the float32 instances of K1 (stiffness, mass), K2 and K3
             'fields_f32': 0, 'mass_fields_f32': 0, 'stage_f32': 0,
-            'fold_f32': 0}
+            'fold_f32': 0,
+            # ... and of K1's jac kind, K1', K5, K8 and K8f
+            'geo_jac_fields_f32': 0, 'host_jac_fields_f32': 0,
+            'vform_fields_f32': 0, 'windowed_stage_f32': 0,
+            'windowed_fold_f32': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,7 +67,9 @@ _SIGNATURES = {
     'pyiga_stiff_fields_f32': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
     'pyiga_mass_fields_f32': (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
     'pyiga_host_jac_fields_f64': (_P, _P, _P, _P, _I, _L, _I, _P),
+    'pyiga_host_jac_fields_f32': (_P, _P, _P, _P, _I, _L, _I, _P),
     'pyiga_geo_jac_fields_f64': (_P, _P, _P, _I, _I, _I, _L, _I, _I, _P),
+    'pyiga_geo_jac_fields_f32': (_P, _P, _P, _I, _I, _I, _L, _I, _I, _P),
     'pyiga_fields_bwd_f64': (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
                              _I, _P),
     'pyiga_stage_f64': (_P, _P, _P, _I, _L, _I, _P),
@@ -84,7 +90,11 @@ _SIGNATURES = {
     'pyiga_windowed_stage_f64': (_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P),
     'pyiga_windowed_fold_f64': (_P, _P, _I, _P, _P, _L, _L, _I, _I, _I, _I,
                                 _P),
+    'pyiga_windowed_stage_f32': (_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P),
+    'pyiga_windowed_fold_f32': (_P, _P, _I, _P, _P, _L, _L, _I, _I, _I, _I,
+                                _P),
     'pyiga_windowed_plan': (_L, _L, _I, _I, _I, _I, _I, _I, _P),
+    'pyiga_windowed_plan_f32': (_L, _L, _I, _I, _I, _I, _I, _I, _P),
     'pyiga_windowed_last_copy': (),
 }
 

@@ -19,20 +19,21 @@ evaluated on the host):
   over its support window only (K8 stages, one K8f fold) and returns the
   host MLMatrix, as :meth:`~BaseGaussAssembler.assemble` does.
 
-The compact and banded routes run in the compute dtype
+All three routes run in the compute dtype
 (:func:`~pyiga_tpu_torch.config.get_dtype`): under float32 the geometry
 stages, the fields and the chains take the float32 instances of K2, K1
-and K3, as the JAX package casts its inputs and tables to that dtype
-(``pyiga_tpu/ops/sumfac.py:650-716``).  The windowed route and K1' have
-no float32 instance yet and raise under float32.  On the CPU the same
-pipelines run the kernels' plain PyTorch versions.
+(or K1' for a Jacobian evaluated on the host), K3, K8 and K8f, as the
+JAX package casts its inputs and tables to that dtype
+(``pyiga_tpu/ops/sumfac.py:650-716``); the host MLMatrix is float64
+holding the float32 results.  On the CPU the same pipelines run the
+kernels' plain PyTorch versions.
 """
 
 import numpy as np
 import torch
 
 from .bspline import KnotVector
-from .config import get_dtype, require_float64, resolve_device
+from .config import get_dtype, resolve_device
 from .mlmatrix import MLStructure, transpose_idx_for_bidx
 from .ops import cuda_sumfac, geom, sumfac
 from .ops.banded import FlatBandedOperator, band_info
@@ -248,11 +249,10 @@ class BaseGaussAssembler:
         of a symmetric form), and the banded-flat result is taken to the
         compact layout on the device.  Returns the host
         :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix`, equal to
-        :meth:`assemble`'s up to rounding.  Needs a regularly banded
-        space with equal trial and test degrees (raises ValueError
-        otherwise).  K8 and K8f have no float32 instance yet: under
-        float32 it raises NotImplementedError."""
-        require_float64('the windowed route (K8, K8f)')
+        :meth:`assemble`'s up to rounding (float64 data; under float32
+        the float32 results of K8 / K8f's float32 instances, as the JAX
+        package's).  Needs a regularly banded space with equal trial and
+        test degrees (raises ValueError otherwise)."""
         ops = self._windowed_operands()
         flat = sumfac.run_windowed_assembly(
             self.field_fn, self.geo_inputs(), ops['wtabs'], ops['fss'],
@@ -260,7 +260,8 @@ class BaseGaussAssembler:
         d = flat.dim()
         data = flat[tuple(m.reshape([-1 if a == k else 1 for a in range(d)])
                           for k, m in enumerate(ops['cmaps']))]
-        return self.structure.make_mlmatrix(data=data.cpu().numpy())
+        return self.structure.make_mlmatrix(
+            data=data.cpu().numpy().astype(np.float64))
 
     def assemble_banded(self, mode=None):
         """Assemble straight into the flat banded solver layout and return

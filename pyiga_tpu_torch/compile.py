@@ -23,6 +23,15 @@ because the TPU has no f64; the port computes the 'exact' semantics
 natively, so ``mode`` is accepted for API compatibility and selects
 nothing.  Compiled assembler classes are cached by ``vf.hash()``.
 
+Every step runs in the compute dtype
+(:func:`~pyiga_tpu_torch.config.get_dtype`), as the JAX package casts
+its operands to it (``pyiga_tpu/compile.py:1250-1262``): under float32
+the operands are uploaded in float32 (memoized per dtype, so that a
+:func:`~pyiga_tpu_torch.config.set_dtype` between two calls never
+reuses the other dtype's), K1's ``jac`` kind, the generated K5 and the
+chains (K2, K3) run their float32 instances, and the host matrices and
+vectors are float64 holding the float32 results.
+
 On-demand assembly (``bbox=``, the hierarchical spaces' per-level
 assembly) restricts the Gauss grid to a box of cells and drops the
 per-axis basis pairs without support there; :meth:`VFormAssembler.update`
@@ -33,9 +42,12 @@ operands that the change makes stale.
 data tensor with some axes pinned (the entry callback of the low-rank
 ACA assembly, :mod:`~pyiga_tpu_torch.lowrank`): the coefficient fields
 of every combo, computed once on the device (K2 + K1 ``jac`` + K5) and
-kept, contracted against the per-axis tables in f64 tensordot chains,
-the pinned axes first.  The JAX package's two-float ``'pair'`` slices
-exist for the TPU and are not ported.
+kept, contracted against the per-axis tables in tensordot chains (in
+the compute dtype, TF32 off), the pinned axes first.  The JAX package's
+two-float ``'pair'`` slices exist for the TPU and are not ported.  Under
+float32 the slices are float32 (fields and tables keyed by the dtype),
+as the JAX package's ``'exact'`` slices (``pyiga_tpu/compile.py:1473``,
+``:1608``).
 
 Vector-valued forms assemble one compact tensor per component block
 ``(cu, cv)`` (the seeds carry the component; each block's chains run K2
@@ -70,7 +82,7 @@ import torch
 
 from . import utils
 from .bspline import KnotVector
-from .config import DTYPE, require_float64, resolve_device
+from .config import get_dtype, no_tf32, resolve_device
 from .mlmatrix import MLStructure, transpose_idx_for_bidx
 from .ops import cuda_sumfac, cuda_vform, geom, sumfac
 from .quadrature import make_tensor_quadrature
@@ -430,9 +442,10 @@ class VFormAssembler:
         self._build_arrays()
         self._num_combos_total = len(self.combos)
         self._prune_combos()
-        self._operands = None
+        self._operands = {}         # compute dtype -> device operands
         self._program_cache = {}
         self._slice_cache = self._full_mlm = None
+        self._slice_dtype = None
 
     def _restrict_to_bbox(self):
         """Drop the per-axis dof pairs with no support inside the bbox:
@@ -573,26 +586,26 @@ class VFormAssembler:
         self._slice_cache = self._full_mlm = None
         if geo_changed:
             self._build_arrays()
-            self._operands = None
+            self._operands = {}
             self._program_cache = {}
             return
         if any(np.shape(a) != np.shape(self._host_arrays[k])
                for k, a in changed.items()):
             self._program_cache = {}
         self._host_arrays.update(changed)
-        if self._operands is not None:
-            inputs = dict(self._operands['inputs'])
+        for dtype, ops in list(self._operands.items()):
+            inputs = dict(ops['inputs'])
             for k, a in changed.items():
                 inputs[k] = torch.as_tensor(np.ascontiguousarray(a),
-                                            dtype=DTYPE, device=self.device)
+                                            dtype=dtype, device=self.device)
             if any(k.startswith('param:') for k in changed):
-                inputs['params'] = self._param_tensor()
-            self._operands = dict(self._operands, inputs=inputs)
+                inputs['params'] = self._param_tensor(dtype)
+            self._operands[dtype] = dict(ops, inputs=inputs)
 
-    def _param_tensor(self):
-        """The flat parameter vector K5 reads, on the device."""
+    def _param_tensor(self, dtype):
+        """The flat parameter vector K5 reads, on the device in `dtype`."""
         return torch.as_tensor(cuda_vform.param_vector(self._host_arrays),
-                               dtype=DTYPE, device=self.device)
+                               dtype=dtype, device=self.device)
 
     # -- slices of the compact tensor (low-rank assembly) ----------------------
 
@@ -604,7 +617,9 @@ class VFormAssembler:
         the pinned axes first, the last of them first: a pinned ``(1, Q)``
         table collapses its grid axis at once, so the free axes' stages
         run on a thin intermediate, and the full field is contracted over
-        its first or last axis, which needs no transposed copy of it."""
+        its first or last axis, which needs no transposed copy of it.  The
+        contractions run in the fields' dtype (float32 in full float32,
+        never TF32)."""
         d = self.dim
         order = sorted(fixed_axes, reverse=True) + [
             k for k in range(d) if k not in fixed_axes]
@@ -616,6 +631,10 @@ class VFormAssembler:
                                  -1, k)
 
         def slice_fn(fields, term_tables, idx):
+            with no_tf32(fields[0].dtype):
+                return chains(fields, term_tables, idx)
+
+        def chains(fields, term_tables, idx):
             out = None
             for C, tabs in zip(fields, term_tables):
                 tabs = list(tabs)
@@ -641,21 +660,25 @@ class VFormAssembler:
         """``(fields, term_tables)`` of the slice evaluators on the
         assembler's device: the coefficient field of EVERY combo (not
         only those of the fold plan that ``run_device`` evaluates), from
-        K2 + K1 ``jac`` + K5 once, and each combo's per-axis tables;
-        cached until :meth:`update`."""
-        if self._slice_cache is None:
+        K2 + K1 ``jac`` + K5 once, and each combo's per-axis tables, in
+        the compute dtype; cached until :meth:`update` or a change of the
+        compute dtype (one dtype's slices kept at a time, as the JAX
+        package's ``_tables_cache``)."""
+        dtype = get_dtype()
+        if self._slice_cache is None or self._slice_dtype != dtype:
             ops = self._device_operands()
             fields = cuda_vform.combo_fields(self, self.device_arrays(),
                                              self.combos)
             self._slice_cache = (fields, ops['term_tables'])
+            self._slice_dtype = dtype
         return self._slice_cache
 
     def compact_slice(self, fixed):
         """A slice of the compact data tensor with the axes of the dict
         `fixed` (axis -> pair index) pinned: the dense host array over the
-        free axes, computed on the assembler's device by f64 tensordot
-        chains over the cached coefficient fields (the ACA's entry
-        callback)."""
+        free axes, computed on the assembler's device by tensordot chains
+        in the compute dtype over the cached coefficient fields (the ACA's
+        entry callback; float32 under float32, as the JAX package's)."""
         if self.vf.vec or self.arity != 2:
             raise ValueError('compact_slice needs a scalar bilinear form')
         fixed_axes = tuple(sorted(fixed.keys()))
@@ -705,11 +728,14 @@ class VFormAssembler:
     def _make_context(self, arrays, seed_u, seed_v):
         return AsmContext(self.vf, arrays, seed_u, seed_v)
 
-    def _program(self, combos):
-        """The generated K5 program of `combos` (cached)."""
-        key = tuple(combos)
+    def _program(self, combos, dtype=torch.float64):
+        """The generated K5 program of `combos` in `dtype` (cached per
+        combos and dtype: one form in both dtypes builds two
+        libraries)."""
+        key = (tuple(combos), dtype)
         if key not in self._program_cache:
-            self._program_cache[key] = cuda_vform.generate(self, combos)
+            self._program_cache[key] = cuda_vform.generate(self, combos,
+                                                           dtype)
         return self._program_cache[key]
 
     def _prune_key(self):
@@ -861,21 +887,23 @@ class VFormAssembler:
         return tabs
 
     def _device_operands(self):
-        """Device tensors of the assembly (memoized): input arrays and the
-        flat parameter vector (``params``), geometry tables and
-        coefficients, term tables (each distinct host table uploaded
-        once), their last-table groups, and the transpose permutations
-        of a folded plan."""
-        if self._operands is not None:
-            return self._operands
+        """Device tensors of the assembly in the compute dtype (memoized
+        per dtype, as the JAX package keys its operands by ``(mode,
+        dtype)``): input arrays and the flat parameter vector
+        (``params``), geometry tables and coefficients, term tables (each
+        distinct host table uploaded once), their last-table groups, and
+        the transpose permutations of a folded plan."""
+        dtype = get_dtype()
+        if dtype in self._operands:
+            return self._operands[dtype]
         dev = self.device
 
         def tensor(a):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=DTYPE,
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                    device=dev)
         inputs = {k: [tensor(w) for w in v] if k == 'weights' else tensor(v)
                   for k, v in self._host_arrays.items()}
-        inputs['params'] = self._param_tensor()
+        inputs['params'] = self._param_tensor(dtype)
         host_tabs = self._term_tables_for(self.combos)
         uploaded = {}
         for tabs in host_tabs:
@@ -887,7 +915,7 @@ class VFormAssembler:
             tperms = [torch.as_tensor(p, dtype=torch.int64, device=dev)
                       for p in self._fold_tperms]
         spline = self._geo_tables is not None
-        self._operands = dict(
+        self._operands[dtype] = dict(
             inputs=inputs,
             geo_tables=[tensor(t) for t in self._geo_tables]
             if spline else None,
@@ -896,7 +924,7 @@ class VFormAssembler:
                          for tabs in host_tabs],
             last_idx=sumfac.last_table_groups(host_tabs),
             tperms=tperms)
-        return self._operands
+        return self._operands[dtype]
 
     def _geometry_fields(self, coeffs):
         """Physical geometry values and Jacobian ``(geo_val_lvl,
@@ -933,13 +961,13 @@ class VFormAssembler:
         coefficients (level order, component axis leading, as the cached
         ones) for this call.  Every replacement may carry autograd
         history: the fields are differentiable in them
-        (:mod:`~pyiga_tpu_torch.diff`)."""
-        require_float64('VForm assembly (K1 jac, K5)')
+        (:mod:`~pyiga_tpu_torch.diff`).  Every tensor is of the compute
+        dtype."""
         ops = self._device_operands()
         arrays = dict(ops['inputs'])
         coeffs = ops['geo_coeffs']
         if geo_coeffs is not None:
-            geom.check_replacement(coeffs, geo_coeffs, DTYPE,
+            geom.check_replacement(coeffs, geo_coeffs, get_dtype(),
                                    arrays['weights'][0].device)
             coeffs = geo_coeffs
         arrays['geo_val_lvl'], arrays['geo_jac_lvl'] = \
@@ -984,7 +1012,7 @@ class VFormAssembler:
         scalar form, ``{(cu, cv): data}`` for a vector form (``(None,
         cv)`` for a functional; pruned blocks are absent), data of shape
         ``(nnz_1, ..., nnz_d)`` (matrix) or ``(n_1, ..., n_d)`` (vector),
-        float64 (``pyiga_tpu/compile.py:1227-1238``).
+        in the compute dtype (``pyiga_tpu/compile.py:1227-1238``).
 
         `inputs` replaces input fields for this call (see
         :meth:`device_arrays`); everything else comes from the cached
@@ -1019,11 +1047,14 @@ class VFormAssembler:
     def assemble(self, mode=None):
         """Assemble and return the matrix as a host
         :class:`~pyiga_tpu_torch.mlmatrix.MLMatrix` (scalar forms) or a
-        dict of ``(cu, cv) -> MLMatrix`` blocks (vector forms)."""
+        dict of ``(cu, cv) -> MLMatrix`` blocks (vector forms), float64
+        data (under float32 holding the float32 results, as the JAX
+        package's ``_run``)."""
         if self.arity != 2:
             raise ValueError('assemble() needs a bilinear form; use '
                              'assemble_vector()')
-        blocks = {k: self.structure.make_mlmatrix(data=v.cpu().numpy())
+        blocks = {k: self.structure.make_mlmatrix(
+                      data=v.cpu().numpy().astype(np.float64))
                   for k, v in self.run_device(mode).items()}
         return blocks if self.vf.vec else blocks[(None, None)]
 
@@ -1034,7 +1065,8 @@ class VFormAssembler:
         ``pyiga_tpu/compile.py:1433-1466``)."""
         if self.arity != 1:
             raise ValueError('assemble_vector() needs a linear functional')
-        blocks = {k: v.cpu().numpy() for k, v in self.run_device().items()}
+        blocks = {k: v.cpu().numpy().astype(np.float64)
+                  for k, v in self.run_device().items()}
         if not self.vf.vec:
             return blocks[(None, None)]
         zero = np.zeros_like(next(iter(blocks.values())))

@@ -2,12 +2,18 @@
 
 The compute dtype is process-wide state, as in the JAX package
 (:func:`set_dtype`, :func:`get_dtype`): float64 by default, float32 for
-the f32 line of the Poisson and mass paths.  Under float32 those paths
-run their kernels' float32 instances (K1's stiffness and ``mass`` kinds,
-K2, K3, K4) and nothing of them computes in float64; the paths whose
+the f32 line.  Under float32 every assembly path runs its kernels'
+float32 instances and nothing of it computes in float64: the Poisson and
+mass assemblers (K1's stiffness and ``mass`` kinds, K2, K3, K4), VForm
+assembly with ``assemble()``, ``stiffness`` / ``mass``, boundary and
+surface forms, the ACA slices and the hierarchical per-level assemblies
+(K1's ``jac`` kind and the generated K5), the windowed route (K8, K8f)
+and the stiffness of a host-evaluated geometry (K1').  The paths whose
 kernels have no float32 instance yet raise ``NotImplementedError``
-(:func:`require_float64`).  The host thread count (:func:`get_max_threads`)
-is process-wide too.
+(:func:`require_float64`): the local-multigrid solves (K6 and the
+wavefront smoothers), the differentiable assembly (the backward kernels
+and K5's adjoint) and the fused tail K7.  The host thread count
+(:func:`get_max_threads`) is process-wide too.
 
 Every entry point takes ``device=``, and omitting it means the card
 (``torch.device('cuda')``).  Pass ``device='cpu'`` to run on the CPU,
@@ -29,8 +35,9 @@ import os
 import numpy as np
 import torch
 
-# float64, the dtype of the paths that have no float32 instance (the
-# f32 Krylov operators of solvers.cg_ir name float32 themselves)
+# float64, the dtype of the paths that have no float32 instance (local
+# MG, the differentiable assembly, the time steppers' device operators;
+# the f32 Krylov operators of solvers.cg_ir name float32 themselves)
 DTYPE = torch.float64
 DEFAULT_DEVICE = torch.device('cuda')
 
@@ -98,13 +105,14 @@ def default_assembly_mode():
 
 def require_float64(what):
     """Raise ``NotImplementedError`` when the compute dtype is float32:
-    `what` (a path whose kernels have no float32 instance yet) would
-    otherwise compute in float64 against the dtype's word."""
+    `what` (a path whose kernels have no float32 instance yet: local MG,
+    the differentiable assembly) would otherwise compute in float64
+    against the dtype's word.  Every assembly path runs in float32."""
     if _state.dtype != torch.float64:
         raise NotImplementedError(
-            '%s has no float32 kernels yet (ROADMAP section 1, item 5: the '
-            'rest of the f32 line); call set_dtype(np.float64) first'
-            % what)
+            '%s has no float32 kernels yet (ROADMAP section 1, item 5, '
+            'steps 4-5; every assembly path runs in float32); call '
+            'set_dtype(np.float64) first' % what)
 
 
 @contextlib.contextmanager

@@ -14,7 +14,7 @@ import torch
 
 from . import geometry
 from .bspline import KnotVector
-from .config import DTYPE, resolve_device
+from .config import get_dtype, resolve_device
 from .mlmatrix import MLStructure
 from .ops.banded import flat_banded_data
 from .ops.mg import DeviceMGSolver
@@ -46,12 +46,14 @@ def geometry_from(geo):
 def geo_inputs(gi, device=None):
     """An assembler's geometry-input dict (``weights``, then
     ``geo_tables_bsp`` or ``geo_tables_nurbs`` with ``geo_coeffs``, or the
-    host Jacobian ``jac``; numpy arrays or lists of them) as float64
-    tensors on `device`, the form the port's field functions take."""
+    host Jacobian ``jac``; numpy arrays or lists of them) as tensors of
+    the compute dtype (:func:`~pyiga_tpu_torch.config.get_dtype`) on
+    `device`, the form the port's field functions take."""
     device = resolve_device(device)
+    dtype = get_dtype()
 
     def dev(a):
-        return torch.as_tensor(np.array(a, dtype=np.float64), dtype=DTYPE,
+        return torch.as_tensor(np.array(a, dtype=np.float64), dtype=dtype,
                                device=device)
     out = {}
     for key in ('weights', 'geo_tables_bsp', 'geo_tables_nurbs'):
@@ -63,23 +65,27 @@ def geo_inputs(gi, device=None):
     return out
 
 
-def flat_banded(D, bws, ns, device=None, dtype=DTYPE):
+def flat_banded(D, bws, ns, device=None, dtype=None):
     """Banded data ``(b_1..b_d, n_1..n_d)`` (e.g. the JAX package's
     ``banded_from_compact_device`` result, as numpy) in the port's flat
-    ``(C, F)`` layout on `device`."""
+    ``(C, F)`` layout on `device`, in `dtype` (default the compute
+    dtype)."""
     D = flat_banded_data(np.array(D, dtype=np.float64), bws, ns)
-    return D.to(device=resolve_device(device), dtype=dtype).contiguous()
+    return D.to(device=resolve_device(device),
+                dtype=get_dtype() if dtype is None else dtype).contiguous()
 
 
 def vform_arrays(host_arrays, device=None):
     """A VForm assembler's host arrays (``weights``, ``input:*``,
-    ``param:*``; numpy) as float64 tensors on `device`, the form the
-    port's coefficient fields take (add ``geo_val_lvl`` / ``geo_jac_lvl``
-    from :func:`~pyiga_tpu_torch.ops.cuda_sumfac.geometry_fields`)."""
+    ``param:*``; numpy) as tensors of the compute dtype on `device`, the
+    form the port's coefficient fields take (add ``geo_val_lvl`` /
+    ``geo_jac_lvl`` from :func:`~pyiga_tpu_torch.ops.cuda_sumfac.
+    geometry_fields`)."""
     device = resolve_device(device)
+    dtype = get_dtype()
 
     def dev(a):
-        return torch.as_tensor(np.array(a, dtype=np.float64), dtype=DTYPE,
+        return torch.as_tensor(np.array(a, dtype=np.float64), dtype=dtype,
                                device=device)
     return {k: [dev(w) for w in v] if k == 'weights' else dev(v)
             for k, v in host_arrays.items()}

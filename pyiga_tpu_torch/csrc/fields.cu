@@ -1,5 +1,5 @@
-// Geometry-field kernels for Hopper (sm_90a), float64; K1's stiffness and
-// mass kinds also in float32.
+// Geometry-field kernels for Hopper (sm_90a), float64; K1's forward (all
+// three kinds) and K1' also in float32.
 //
 // K1  geo_fields_kernel<D, G, NURBS, KIND, NL, ROWS, S>  replaces
 //     pyiga_tpu/ops/pallas_sumfac.py `_fields_fused` (pallas_call at :1087,
@@ -11,23 +11,30 @@
 //     of the three kinds with respect to Y, for the differentiable
 //     assembly (pyiga_tpu_torch/diff.py; the JAX package differentiates
 //     K1's XLA form).
-// K1' host_jac_fields_kernel  replaces `stiffness_fields_pallas`'s
+// K1' host_jac_fields_kernel<D, S>  replaces `stiffness_fields_pallas`'s
 //     host-Jacobian branch (pallas_call at :1163, body
 //     `_make_stiff_fields_kernel`, :930).
 //
 // The TPU kernels carry float64 as two-float f32 pairs because the v5e has
 // no f64 arithmetic; Hopper has native f64, so these compute in double
-// directly.  K1's forward is templated on its scalar S: the float32
-// instance (pyiga_stiff_fields_f32, pyiga_mass_fields_f32) is the f32
+// directly.  K1's forward and K1' are templated on their scalar S: the
+// float32 instances (pyiga_stiff_fields_f32, pyiga_mass_fields_f32,
+// pyiga_geo_jac_fields_f32, pyiga_host_jac_fields_f32) are the f32
 // line's (pyiga_tpu_torch.config.set_dtype(np.float32)), which the JAX
 // package runs by casting the geometry inputs to float32 before the same
-// fields (pyiga_tpu/ops/sumfac.py:676): the contraction, the NURBS
-// quotient, det J and the inverse all run in float32, never in double
-// rounded at the end.  Its bound is the same output writes at half the
-// bytes; the design is the double one's.
+// fields (pyiga_tpu/ops/sumfac.py:676, pyiga_tpu/compile.py:1250-1262):
+// the contraction, the NURBS quotient, det J and the inverse all run in
+// float32, never in double rounded at the end (no double literal, no
+// double function: fabsf through sabs).  Their bound is the same output
+// writes at half the bytes; the design is the double one's.
 
 #include "common.cuh"
 #include "dmma.cuh"      // cp.async
+
+// |x| in the scalar's own precision (fabs of a float would go through
+// double)
+__device__ __forceinline__ double sabs(double x) { return fabs(x); }
+__device__ __forceinline__ float sabs(float x) { return fabsf(x); }
 
 // --------------------------------------------------------------------------
 // Per-point algebra: determinant, inverse by the adjugate (as
@@ -103,7 +110,8 @@ __device__ __forceinline__ void store_stiffness(S (&inv)[D][D], S W, S* out,
 //   3D surface over a 2D space, a 2D curve over a 1D one); the stiffness
 //   and mass kinds take G = D.
 //
-// Inputs (all row-major float64):
+// Inputs (all row-major, of the scalar S: double, or float for the
+// float32 instances):
 //   Y    (D, C, Q12, nL)  stage-1/2 geometry partials from K2: entry
 //        [t, c, q12, j] holds component c contracted over the leading D-1
 //        axes with the derivative table on axis t (t = D-1: all values),
@@ -238,11 +246,11 @@ __device__ __forceinline__ void fields_point(const LastTables<NL, S>& tab,
         }
         const S gw = __ldg(w12 + q12) * wl;
         if constexpr (KIND == kMass) {
-            out[g] = gw * S(fabs(det_of<D>(J)));
+            out[g] = gw * sabs(det_of<D>(J));
         } else {
             S inv[D][D];
             const S det = det_and_inv<D>(J, inv);
-            store_stiffness<D>(inv, gw * S(fabs(det)), out, N, g);
+            store_stiffness<D>(inv, gw * sabs(det), out, N, g);
         }
     }
 }
@@ -254,7 +262,6 @@ geo_fields_kernel(const S* __restrict__ Y, const S* __restrict__ T,
                   const S* __restrict__ w12, const S* __restrict__ wL,
                   S* __restrict__ out, int Q12, int QL, int nL_, int RB) {
     static_assert(KIND == kJac || G == D, "only the jac kind takes G != D");
-    static_assert(KIND != kJac || sizeof(S) == 8, "jac is float64 only");
     constexpr int C = G + (NURBS ? 1 : 0);
     const int nL = NL ? NL : nL_;
     const long long N = (long long)Q12 * QL;
@@ -956,6 +963,16 @@ PYIGA_EXPORT int pyiga_geo_jac_fields_f64(const double* Y, const double* T,
                                       d, g, nurbs, Q12, QL, nL, stream);
 }
 
+// K1's float32 instance, jac kind (the f32 line's VForm fields): every
+// (d, g, NURBS, nL, mapping) the float64 entry takes, in float.
+PYIGA_EXPORT int pyiga_geo_jac_fields_f32(const float* Y, const float* T,
+                                          float* out, int d, int g,
+                                          int nurbs, long long Q12, int QL,
+                                          int nL, void* stream) {
+    return launch_fields<kJac, false>(Y, T, nullptr, nullptr, nullptr, out,
+                                      d, g, nurbs, Q12, QL, nL, stream);
+}
+
 // K1's backward of `kind` (0 stiffness, 1 mass, 2 jac): gY from gout.
 PYIGA_EXPORT int pyiga_fields_bwd_f64(int kind, const double* Y,
                                       const double* T, const double* w12,
@@ -986,14 +1003,15 @@ PYIGA_EXPORT int pyiga_fields_bwd_f64(int kind, const double* Y,
 // `_make_stiff_fields_kernel`, :930), which runs for a geometry given as
 // a user function (`geometry.UserFunction`).
 //
-// Inputs (row-major float64): jac (D, D, Q12, QL), the level-ordered
-// Jacobian J[a][b] at every Gauss point; w12 (Q12,) and wL (QL,), the
-// Gauss weights as K1 takes them (w12 the product of the leading axes'
-// weights), so gw = w12[r] wL[c] is gauss_weight_field's (w0 w1) w2.
+// Inputs (row-major, all of the scalar S): jac (D, D, Q12, QL), the
+// level-ordered Jacobian J[a][b] at every Gauss point; w12 (Q12,) and wL
+// (QL,), the Gauss weights as K1 takes them (w12 the product of the
+// leading axes' weights), so gw = w12[r] wL[c] is gauss_weight_field's
+// (w0 w1) w2.
 // Output: out (D(D+1)/2, Q12, QL), the unique B_ab = gw |det J|
 // (J^-1 J^-T)_ab for a <= b, row-major (the order the assembler expands).
 //
-// Bound: device memory, D*D doubles read and D(D+1)/2 written per point,
+// Bound: device memory, D*D scalars read and D(D+1)/2 written per point,
 // every access coalesced across the warp (the field axis leads, the point
 // axis is contiguous).  No lane padding: any QL (the TPU's multiple of 128
 // is its (8, 128) tiling rule).  K1's mapping: a block owns RB rows, a
@@ -1001,41 +1019,38 @@ PYIGA_EXPORT int pyiga_fields_bwd_f64(int kind, const double* Y,
 // flight); no index is divided; the algebra is K1's, adj / det.
 // --------------------------------------------------------------------------
 
-template <int D>
+template <int D, class S>
 __global__ void __launch_bounds__(256)
-host_jac_fields_kernel(const double* __restrict__ jac,
-                       const double* __restrict__ w12,
-                       const double* __restrict__ wL,
-                       double* __restrict__ out, int Q12, int QL, int RB) {
+host_jac_fields_kernel(const S* __restrict__ jac, const S* __restrict__ w12,
+                       const S* __restrict__ wL, S* __restrict__ out,
+                       int Q12, int QL, int RB) {
     const long long N = (long long)Q12 * QL;
     const int r0 = blockIdx.x * RB;
     const int rows = min(RB, Q12 - r0);
     for (int qL = threadIdx.x; qL < QL; qL += blockDim.x) {
-        const double wl = __ldg(wL + qL);
+        const S wl = __ldg(wL + qL);
 #pragma unroll 2
         for (int r = 0; r < rows; ++r) {
             const long long g = (long long)(r0 + r) * QL + qL;
-            double J[D][D];
+            S J[D][D];
 #pragma unroll
             for (int a = 0; a < D; ++a)
 #pragma unroll
                 for (int b = 0; b < D; ++b)
                     J[a][b] = __ldg(jac + (a * D + b) * N + g);
-            double inv[D][D];
-            const double det = det_and_inv<D>(J, inv);
-            const double gw = __ldg(w12 + r0 + r) * wl;
-            store_stiffness<D>(inv, gw * fabs(det), out, N, g);
+            S inv[D][D];
+            const S det = det_and_inv<D>(J, inv);
+            const S gw = __ldg(w12 + r0 + r) * wl;
+            store_stiffness<D>(inv, gw * sabs(det), out, N, g);
         }
     }
 }
 
 // RB and the threads as K1's launch_one: 16 rows, halved while the grid
 // has fewer than two blocks an SM; min(256, QL rounded up to a warp).
-PYIGA_EXPORT int pyiga_host_jac_fields_f64(const double* jac,
-                                           const double* w12,
-                                           const double* wL, double* out,
-                                           int d, long long Q12, int QL,
-                                           void* stream) {
+template <class S>
+static int launch_host_jac(const S* jac, const S* w12, const S* wL, S* out,
+                           int d, long long Q12, int QL, void* stream) {
     if (Q12 < 1 || QL < 1 || Q12 >= (1LL << 31) - 16)
         return (int)cudaErrorInvalidValue;
     const int q = (int)Q12;
@@ -1046,12 +1061,29 @@ PYIGA_EXPORT int pyiga_host_jac_fields_f64(const double* jac,
     const unsigned int grid = (unsigned int)((q + rb - 1) / rb);
     cudaStream_t s = (cudaStream_t)stream;
     if (d == 2)
-        host_jac_fields_kernel<2><<<grid, threads, 0, s>>>(jac, w12, wL, out,
-                                                            q, QL, rb);
+        host_jac_fields_kernel<2, S><<<grid, threads, 0, s>>>(
+            jac, w12, wL, out, q, QL, rb);
     else if (d == 3)
-        host_jac_fields_kernel<3><<<grid, threads, 0, s>>>(jac, w12, wL, out,
-                                                            q, QL, rb);
+        host_jac_fields_kernel<3, S><<<grid, threads, 0, s>>>(
+            jac, w12, wL, out, q, QL, rb);
     else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
+}
+
+PYIGA_EXPORT int pyiga_host_jac_fields_f64(const double* jac,
+                                           const double* w12,
+                                           const double* wL, double* out,
+                                           int d, long long Q12, int QL,
+                                           void* stream) {
+    return launch_host_jac(jac, w12, wL, out, d, Q12, QL, stream);
+}
+
+// K1' in float32 (the f32 line's UserFunction geometries): the same
+// arguments in float.
+PYIGA_EXPORT int pyiga_host_jac_fields_f32(const float* jac, const float* w12,
+                                           const float* wL, float* out, int d,
+                                           long long Q12, int QL,
+                                           void* stream) {
+    return launch_host_jac(jac, w12, wL, out, d, Q12, QL, stream);
 }

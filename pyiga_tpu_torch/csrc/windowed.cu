@@ -1,4 +1,5 @@
-// The windowed assembly route's stage kernels for Hopper (sm_90a), float64.
+// The windowed assembly route's stage kernels for Hopper (sm_90a), float64
+// and float32.
 //
 // No Pallas site: the JAX package runs this route in XLA.
 // K8  windowed_kernel, one term   replaces pyiga_tpu/ops/sumfac.py:395
@@ -84,6 +85,20 @@
 // pyiga_tpu_torch.ops.cuda_sumfac.windowed_plan and exported as
 // pyiga_windowed_plan so that the two can be compared on the card.
 //
+// Float32 (the f32 line, pyiga_tpu_torch.config.set_dtype(np.float32);
+// the JAX package casts the route's inputs and windowed tables to float32,
+// pyiga_tpu/ops/sumfac.py:650-656): the kernel is templated on its scalar
+// S and the float instance (pyiga_windowed_stage_f32 / _fold_f32) is the
+// same design in 4-byte elements, float32 arithmetic throughout (fmaf).
+// What an element's size changes is counted in elements of V = 16 /
+// sizeof(S) (2 doubles, 4 floats a 16-byte copy): a stage row's stride is
+// rt + V (room for a row shifted by up to V - 1 from its aligned start),
+// the table's dof stride a multiple of V (16-byte copies) plus V, the
+// tensor copy needs R % V == 0, a 16-byte cp.async row takes 32 / V
+// lanes, and the plan's bytes (tables, stages, spans) halve, so more
+// stages or spans fit.  The plan (make_plan, with the element size) and
+// its mirror windowed_plan(..., esize) agree per element size.
+//
 // The window starts must be what SpaceTables.windowed_pair_table gives
 // (non-decreasing from 0 in steps of at most 1, the last window inside
 // X): the wrapper checks them once per tensor; the stage is sized by
@@ -140,11 +155,43 @@ constexpr int kCutLoads = 1, kCutProducts = 2, kCutStores = 4,
 constexpr int kCut = PYIGA_WIN_CUT;
 
 // the fields grouped by table (as the fold of csrc/sumfac.cu)
+template <class S>
 struct Terms {
-    const double* x[kMaxTerms];   // per term, its (Q, R) field, in order
-    const double* p[kMaxTerms];   // per group, its (n, b, wsz) table
+    const S* x[kMaxTerms];        // per term, its (Q, R) field, in order
+    const S* p[kMaxTerms];        // per group, its (n, b, wsz) table
     int end[kMaxTerms];           // per group, one past its last term
     int groups;
+};
+
+// a 16-byte vector of the scalar: V = 16 / sizeof(S) elements
+template <class S>
+struct Vec16;
+template <>
+struct Vec16<double> {
+    using type = double2;
+    __device__ __forceinline__ static double2 add(double2 a, double2 b) {
+        b.x = a.x + b.x;
+        b.y = a.y + b.y;
+        return b;
+    }
+    __device__ __forceinline__ static double fma(double a, double b,
+                                                 double c) {
+        return ::fma(a, b, c);
+    }
+};
+template <>
+struct Vec16<float> {
+    using type = float4;
+    __device__ __forceinline__ static float4 add(float4 a, float4 b) {
+        b.x = a.x + b.x;
+        b.y = a.y + b.y;
+        b.z = a.z + b.z;
+        b.w = a.w + b.w;
+        return b;
+    }
+    __device__ __forceinline__ static float fma(float a, float b, float c) {
+        return fmaf(a, b, c);
+    }
 };
 
 // per term, the tensor map of its field (a box of xs columns by `box`
@@ -160,8 +207,8 @@ struct Plan {
     int nruns;
     int cap;              // X rows a stage holds
     int box;              // rows a tensor copy (cap a multiple of it)
-    int ps;               // the table's dof stride (doubles)
-    int xs;               // a stage's row stride (doubles)
+    int ps;               // the table's dof stride (elements)
+    int xs;               // a stage's row stride (elements)
     int stages;
     int nys;              // output spans through shared memory (0, 1, 2)
     long long rtiles;
@@ -268,16 +315,21 @@ __device__ __forceinline__ void fence_async_shared() {
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-// Copy 8 or 16 bytes from global to shared memory, asynchronously.
+// Copy 4, 8 or 16 bytes from global to shared memory, asynchronously.
 template <int BYTES>
-__device__ __forceinline__ void cp_async(double* dst, const double* src) {
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
     if constexpr (BYTES == 16)
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
                          smem_u32(dst)),
                      "l"(src)
                      : "memory");
-    else
+    else if constexpr (BYTES == 8)
         asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
+                         smem_u32(dst)),
+                     "l"(src)
+                     : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
                          smem_u32(dst)),
                      "l"(src)
                      : "memory");
@@ -301,24 +353,27 @@ __device__ __forceinline__ void consumer_sync(int threads) {
     asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
 }
 
-template <int B, int RPT>
+template <class S, int B, int RPT>
 __global__ void __launch_bounds__(32 * (kMaxWarps + kProducerWarps), 1)
-windowed_kernel(const Terms terms, const __grid_constant__ Maps maps,
-                const long long* __restrict__ fs, double* __restrict__ Y,
+windowed_kernel(const Terms<S> terms, const __grid_constant__ Maps maps,
+                const long long* __restrict__ fs, S* __restrict__ Y,
                 long long Q, long long R, int n, int wsz, int nqp,
                 const Plan pl, int mode, bool pvec, bool bulk_y) {
     constexpr int RT = 8 * RPT;
+    constexpr int E = (int)sizeof(S);
+    constexpr int V = 16 / E;                    // elements a 16-byte copy
+    using Vec = typename Vec16<S>::type;
     extern __shared__ __align__(128) unsigned char smem_raw[];
     unsigned long long* full = reinterpret_cast<unsigned long long*>(smem_raw);
     unsigned long long* empty = full + kMaxStages;
-    double* Ps = reinterpret_cast<double*>(smem_raw + pl.tab_off);
-    double* Xst = reinterpret_cast<double*>(smem_raw + pl.stage_off);
-    double* Ys = reinterpret_cast<double*>(smem_raw + pl.ys_off);
-    const long long sdbl = pl.stage_bytes / 8;
+    S* Ps = reinterpret_cast<S*>(smem_raw + pl.tab_off);
+    S* Xst = reinterpret_cast<S*>(smem_raw + pl.stage_off);
+    S* Ys = reinterpret_cast<S*>(smem_raw + pl.ys_off);
+    const long long sdbl = pl.stage_bytes / E;   // a stage's elements
     const int nc = pl.run / kDI;                 // consumer warps
     const int nct = 32 * nc;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int S = pl.stages;
+    const int NS = pl.stages;
     const int k0 = blockIdx.x % pl.cpr;
     const int i0 = blockIdx.x / pl.cpr * pl.run;
     const int nd = min(pl.run, n - i0);
@@ -326,11 +381,11 @@ windowed_kernel(const Terms terms, const __grid_constant__ Maps maps,
     const int rows = (int)(fs[i0 + nd - 1] * nqp + wsz - qa);
     const int nterms = terms.end[terms.groups - 1];
     // a stage row holds X[q, r0 - sh : ...] from its 16-byte aligned
-    // start: sh = 1 where the row's first element is not (kCopy16)
-    const int shm = mode == kCopy16 ? 1 : 0;
+    // start: sh = (its first element's index) mod V (kCopy16)
+    const int shm = mode == kCopy16 ? V - 1 : 0;
 
     if (threadIdx.x == 0) {
-        for (int s = 0; s < S; ++s) {
+        for (int s = 0; s < NS; ++s) {
             mb_init(&full[s], blockDim.x - nct);
             mb_init(&empty[s], nc);
         }
@@ -349,16 +404,16 @@ windowed_kernel(const Terms terms, const __grid_constant__ Maps maps,
             const long long r0 = t * RT;
             const int nr = (int)min((long long)RT, R - r0);
             for (int u = 0; u < nterms; ++u, ++it) {
-                const int s = (int)(it % S);
-                const long long use = it / S;
+                const int s = (int)(it % NS);
+                const long long use = it / NS;
                 if (use > 0) {
                     if (kCut & kCutConsumers)
                         mb_wait(&full[s], (unsigned)((use - 1) & 1));
                     else
                         mb_wait(&empty[s], (unsigned)((use - 1) & 1));
                 }
-                double* dst = Xst + s * sdbl;
-                const double* X = terms.x[u];
+                S* dst = Xst + s * sdbl;
+                const S* X = terms.x[u];
                 if (kCut & kCutLoads) {
                     mb_arrive(&full[s]);
                     continue;
@@ -367,42 +422,47 @@ windowed_kernel(const Terms terms, const __grid_constant__ Maps maps,
                     if (pt == 0) {
                         const int nch = (rows + pl.box - 1) / pl.box;
                         mb_expect_tx(&full[s],
-                                     (unsigned)(nch * pl.box * pl.xs * 8));
+                                     (unsigned)(nch * pl.box * pl.xs * E));
                         for (int h = 0; h < nch; ++h)
                             tensor_load(dst + (long long)h * pl.box * pl.xs,
                                         &maps.m[u], (int)r0,
                                         (int)(qa + h * pl.box), &full[s]);
                     }
                 } else if (mode == kCopy16) {
-                    // 16 lanes a row, two rows a warp: the row's doubles
-                    // from its aligned start, the last one alone where a
-                    // pair would pass the end of X
-                    const int j2 = 2 * (lane & 15);
-                    for (int q = 2 * pw + (lane >> 4); q < rows;
-                         q += 2 * npw) {
+                    // 32 / V lanes a row (16 for doubles, 8 for floats;
+                    // 16 bytes a lane), V rows a warp: the row's elements
+                    // from its aligned start, the last ones alone where a
+                    // vector would pass the end of X
+                    constexpr int LPR = 32 / V;
+                    const int j2 = V * (lane & (LPR - 1));
+                    for (int q = V * pw + (lane >> (V == 2 ? 4 : 3));
+                         q < rows; q += V * npw) {
                         const long long e = (qa + q) * R + r0;
-                        const int sh = (int)(e & 1);
+                        const int sh = (int)(e & (V - 1));
                         if (j2 < nr + sh) {
                             const long long a = e - sh + j2;
-                            double* d = dst + q * pl.xs + j2;
-                            if (a + 2 <= Q * R)
+                            S* d = dst + q * pl.xs + j2;
+                            if (a + V <= Q * R)
                                 cp_async<16>(d, X + a);
-                            else
+                            else if constexpr (V == 2)
                                 cp_async<8>(d, X + a);
+                            else
+                                for (int k = 0; a + k < Q * R; ++k)
+                                    cp_async<4>(d + k, X + a + k);
                         }
                     }
                 } else {
                     for (int q = pw; q < rows; q += npw)
                         for (int c = lane; c < nr; c += 32)
-                            cp_async<8>(dst + q * pl.xs + c,
+                            cp_async<E>(dst + q * pl.xs + c,
                                         X + (qa + q) * R + r0 + c);
                 }
                 cp_async_arrive(&full[s]);
             }
         }
         if (kCut & kCutConsumers) {       // the last stages landed
-            for (long long u = it > S ? it - S : 0; u < it; ++u)
-                mb_wait(&full[u % S], (unsigned)((u / S) & 1));
+            for (long long u = it > NS ? it - NS : 0; u < it; ++u)
+                mb_wait(&full[u % NS], (unsigned)((u / NS) & 1));
         }
         cp_async_wait_all();
         return;
@@ -422,18 +482,18 @@ windowed_kernel(const Terms terms, const __grid_constant__ Maps maps,
 
     // the run's rows of every distinct table, once (resident)
     for (int g = 0; g < terms.groups; ++g) {
-        const double* P = terms.p[g] + (long long)i0 * bw;
-        double* Pg = Ps + g * gstride;
+        const S* P = terms.p[g] + (long long)i0 * bw;
+        S* Pg = Ps + g * gstride;
         if (pvec) {
-            const int cpr = bw / 2;
+            const int cpr = bw / V;
             for (int e = ct; e < nd * cpr; e += nct) {
-                const int i = e / cpr, c = 2 * (e - i * cpr);
+                const int i = e / cpr, c = V * (e - i * cpr);
                 cp_async<16>(Pg + i * pl.ps + c, P + i * bw + c);
             }
         } else {
             for (int e = ct; e < nd * bw; e += nct) {
                 const int i = e / bw, c = e - i * bw;
-                cp_async<8>(Pg + i * pl.ps + c, P + e);
+                cp_async<E>(Pg + i * pl.ps + c, P + e);
             }
         }
     }
@@ -444,34 +504,28 @@ windowed_kernel(const Terms terms, const __grid_constant__ Maps maps,
     for (long long t = k0; t < pl.rtiles; t += pl.cpr) {
         const long long r0 = t * RT;
         const int nr = (int)min((long long)RT, R - r0);
-        double acc[B][RPT];
+        S acc[B][RPT];
 #pragma unroll
         for (int o = 0; o < B; ++o)
 #pragma unroll
-            for (int rr = 0; rr < RPT; ++rr) acc[o][rr] = 0.0;
+            for (int rr = 0; rr < RPT; ++rr) acc[o][rr] = S(0);
 
         for (int g = 0; g < terms.groups; ++g) {
             const int t0 = g ? terms.end[g - 1] : 0, t1 = terms.end[g];
-            int s = (int)(it % S);
-            mb_wait(&full[s], (unsigned)((it / S) & 1));
+            int s = (int)(it % NS);
+            mb_wait(&full[s], (unsigned)((it / NS) & 1));
             ++it;
             // a group's further terms: the running sum into the newest
             // stage, in term order; the older stage goes back at once
             for (int u = t0 + 1; u < t1; ++u, ++it) {
-                const int s2 = (int)(it % S);
-                mb_wait(&full[s2], (unsigned)((it / S) & 1));
-                const double2* a =
-                    reinterpret_cast<const double2*>(Xst + s * sdbl);
-                double2* b = reinterpret_cast<double2*>(Xst + s2 * sdbl);
-                const int half = pl.xs / 2;   // a row's slots, shift
+                const int s2 = (int)(it % NS);
+                mb_wait(&full[s2], (unsigned)((it / NS) & 1));
+                const Vec* a = reinterpret_cast<const Vec*>(Xst + s * sdbl);
+                Vec* b = reinterpret_cast<Vec*>(Xst + s2 * sdbl);
+                const int half = pl.xs / V;   // a row's vectors, shift
                                               // included
-                for (int c = ct; c < rows * half; c += nct) {
-                    const double2 x = a[c];
-                    double2 y = b[c];
-                    y.x = x.x + y.x;
-                    y.y = x.y + y.y;
-                    b[c] = y;
-                }
+                for (int c = ct; c < rows * half; c += nct)
+                    b[c] = Vec16<S>::add(a[c], b[c]);
                 fence_async_shared();
                 __syncwarp();
                 if (lane == 0) mb_arrive(&empty[s]);
@@ -479,15 +533,21 @@ windowed_kernel(const Terms terms, const __grid_constant__ Maps maps,
             }
             if (t1 - t0 > 1) consumer_sync(nct);
             if (live && !(kCut & kCutProducts)) {
-                const double* xr = Xst + s * sdbl + qrel * pl.xs + rsub;
-                // row qrel + w starts at slot sh: the parity of its
-                // first element where X's rows are copied in 16 bytes
+                const S* xr = Xst + s * sdbl + qrel * pl.xs + rsub;
+                // row qrel + w starts at slot sh: its first element's
+                // index mod V where X's rows are copied in 16 bytes (for
+                // doubles the parity, flipping each row where R is odd)
                 const int par = (int)(((qa + qrel) * R + r0) & shm);
                 const int rodd = (int)(R & shm);
-                const double* pr = Ps + g * gstride + il * pl.ps;
+                const S* pr = Ps + g * gstride + il * pl.ps;
                 for (int w = 0; w < wsz; ++w) {
-                    double x[RPT], p[B];
-                    const double* xw = xr + w * pl.xs + (par ^ (w & rodd));
+                    S x[RPT], p[B];
+                    int sh;
+                    if constexpr (V == 2)
+                        sh = par ^ (w & rodd);
+                    else
+                        sh = (par + w * rodd) & shm;
+                    const S* xw = xr + w * pl.xs + sh;
 #pragma unroll
                     for (int rr = 0; rr < RPT; ++rr) x[rr] = xw[8 * rr];
 #pragma unroll
@@ -496,7 +556,8 @@ windowed_kernel(const Terms terms, const __grid_constant__ Maps maps,
                     for (int o = 0; o < B; ++o)
 #pragma unroll
                         for (int rr = 0; rr < RPT; ++rr)
-                            acc[o][rr] = fma(x[rr], p[o], acc[o][rr]);
+                            acc[o][rr] =
+                                Vec16<S>::fma(x[rr], p[o], acc[o][rr]);
                 }
             }
             __syncwarp();
@@ -508,8 +569,7 @@ windowed_kernel(const Terms terms, const __grid_constant__ Maps maps,
             // the span Y[r0 : r0 + nr] (the run covers every dof) in Y's
             // order, once the bulk store that last used the buffer has
             // read it
-            double* Yb = Ys + (pl.nys == 2 ? (tile & 1) : 0) *
-                                  (pl.ys_bytes / 8);
+            S* Yb = Ys + (pl.nys == 2 ? (tile & 1) : 0) * (pl.ys_bytes / E);
             ++tile;
             if (ct == 0) {
                 if (pl.nys == 2)
@@ -528,9 +588,9 @@ windowed_kernel(const Terms terms, const __grid_constant__ Maps maps,
             fence_async_shared();
             consumer_sync(nct);
             const long long span = nr * bn;
-            if (bulk_y && span % 2 == 0) {
+            if (bulk_y && span % V == 0) {
                 if (ct == 0)
-                    bulk_store(Y + r0 * bn, Yb, (unsigned)(span * 8));
+                    bulk_store(Y + r0 * bn, Yb, (unsigned)(span * E));
             } else {
                 for (long long e = ct; e < span; e += nct)
                     Y[r0 * bn + e] = Yb[e];
@@ -540,7 +600,7 @@ windowed_kernel(const Terms terms, const __grid_constant__ Maps maps,
             for (int rr = 0; rr < RPT; ++rr) {
                 const int r = rsub + 8 * rr;
                 if (r < nr) {
-                    double* y = Y + (r0 + r) * bn + i0 + il;
+                    S* y = Y + (r0 + r) * bn + i0 + il;
 #pragma unroll
                     for (int o = 0; o < B; ++o)
                         y[(long long)o * n] = acc[o][rr];
@@ -561,12 +621,16 @@ inline long long r128(long long x) { return (x + 127) / 128 * 128; }
 // leaves room for more stages and spans); for each, the most output span
 // buffers (two at most; only where one run covers the axis) beside two X
 // stages, and as many stages (up to kMaxStages) as the rest holds.  smem
-// 0: nothing fits.
+// 0: nothing fits.  `esize`: the element's bytes (8 double, 4 float); the
+// strides are in elements, V = 16 / esize of them a 16-byte copy.
 Plan make_plan(long long Q, long long R, int n, int b, int wsz, int nqp,
-               int groups, int nsm) {
+               int groups, int nsm, int esize) {
     Plan pl{};
+    const int V = 16 / esize;
     const int warps_total = (n + kDI - 1) / kDI;
-    const int ps = (wsz * b + 3) / 4 * 4 + 2;
+    // a multiple of V (16-byte copies) plus V: the 4 dofs of a warp on
+    // distinct banks
+    const int ps = (wsz * b + 2 * V - 1) / (2 * V) * (2 * V) + V;
     for (int mw = kMaxWarps; mw >= 1; --mw) {
         const int nruns = (warps_total + mw - 1) / mw;
         const int run = (warps_total + nruns - 1) / nruns * kDI;
@@ -576,7 +640,7 @@ Plan make_plan(long long Q, long long R, int n, int b, int wsz, int nqp,
         const long long nbox = (cap + kMaxBox - 1) / kMaxBox;
         const long long box = ((cap + nbox - 1) / nbox + 7) / 8 * 8;
         cap = nbox * box;
-        const long long tab = r128((long long)groups * run * ps * 8);
+        const long long tab = r128((long long)groups * run * ps * esize);
         const long long fixed = 128 + tab;
         int order[3], no = 0;
         for (int k = 0; k < 2; ++k) {
@@ -589,9 +653,9 @@ Plan make_plan(long long Q, long long R, int n, int b, int wsz, int nqp,
         if (!PYIGA_WIN_RPT || PYIGA_WIN_RPT == 1) order[no++] = 1;
         for (int c = 0; c < no; ++c) {
             const int rpt = order[c], rt = 8 * rpt;
-            const int xs = rt + 2;
-            const long long stage = r128(cap * xs * 8);
-            const long long ys = r128((long long)rt * b * n * 8);
+            const int xs = rt + V;
+            const long long stage = r128(cap * xs * esize);
+            const long long ys = r128((long long)rt * b * n * esize);
             int nys = nruns == 1 && !PYIGA_WIN_NO_YS ? PYIGA_WIN_MAX_YS : 0;
             while (nys > 0 && fixed + nys * ys + 2 * stage > (long long)kSmem)
                 --nys;
@@ -668,12 +732,12 @@ EncodeTiled encode_tiled() {
 // the copy path of the last launch (for the checks of chip_smoke.py)
 int last_mode = -1;
 
-template <int B, int RPT>
-int launch_rpt(const Terms& terms, const Maps& maps, const long long* fs,
-               double* Y, long long Q, long long R, int n, int wsz, int nqp,
+template <class S, int B, int RPT>
+int launch_rpt(const Terms<S>& terms, const Maps& maps, const long long* fs,
+               S* Y, long long Q, long long R, int n, int wsz, int nqp,
                const Plan& pl, int mode, bool pvec, bool bulk_y,
                cudaStream_t s) {
-    auto kernel = windowed_kernel<B, RPT>;
+    auto kernel = windowed_kernel<S, B, RPT>;
     if (pl.smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -687,22 +751,22 @@ int launch_rpt(const Terms& terms, const Maps& maps, const long long* fs,
     return (int)cudaGetLastError();
 }
 
-template <int B>
-int launch_b(const Terms& terms, const long long* fs, double* Y,
-             long long Q, long long R, int n, int wsz, int nqp,
-             cudaStream_t s) {
+template <class S, int B>
+int launch_b(const Terms<S>& terms, const long long* fs, S* Y, long long Q,
+             long long R, int n, int wsz, int nqp, cudaStream_t s) {
+    constexpr int E = (int)sizeof(S), V = 16 / E;
     const Plan pl = make_plan(Q, R, n, B, wsz, nqp, terms.groups,
-                              sm_count());
+                              sm_count(), E);
     if (pl.smem <= 0) return (int)cudaErrorInvalidValue;
     // 16-byte table copies where its rows allow them; the bulk output
     // store where Y starts 16-byte aligned
-    bool pvec = (wsz * B) % 2 == 0;
+    bool pvec = (wsz * B) % V == 0;
     for (int g = 0; g < terms.groups; ++g)
         pvec = pvec && reinterpret_cast<uintptr_t>(terms.p[g]) % 16 == 0;
     const bool bulk_y = reinterpret_cast<uintptr_t>(Y) % 16 == 0;
     // X by tensor copies where every X starts 16-byte aligned and its rows
-    // do (R even), by 16-byte cp.async where only the starts are, else by
-    // 8-byte cp.async
+    // do (R a multiple of V), by 16-byte cp.async where only the starts
+    // are, else by cp.async of one element
     const int nterms = terms.end[terms.groups - 1];
     bool aligned = true;
     for (int t = 0; t < nterms; ++t)
@@ -710,16 +774,18 @@ int launch_b(const Terms& terms, const long long* fs, double* Y,
     int mode = !aligned ? kCopy8 : kCopy16;
     Maps maps;
     const EncodeTiled encode = encode_tiled();
-    if (aligned && R % 2 == 0 && encode && !PYIGA_WIN_NO_TMA &&
+    if (aligned && R % V == 0 && encode && !PYIGA_WIN_NO_TMA &&
         R < (1LL << 31) && Q < (1LL << 31)) {
         mode = kCopyTensor;
         const cuuint64_t dims[2] = {(cuuint64_t)R, (cuuint64_t)Q};
-        const cuuint64_t strides[1] = {(cuuint64_t)R * 8};
+        const cuuint64_t strides[1] = {(cuuint64_t)R * E};
         const cuuint32_t box[2] = {(cuuint32_t)pl.xs, (cuuint32_t)pl.box};
         const cuuint32_t one[2] = {1, 1};
         for (int t = 0; t < nterms && mode == kCopyTensor; ++t)
-            if (encode(&maps.m[t], CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 2,
-                       const_cast<double*>(terms.x[t]), dims, strides, box,
+            if (encode(&maps.m[t],
+                       E == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                       2, const_cast<S*>(terms.x[t]), dims, strides, box,
                        one, CU_TENSOR_MAP_INTERLEAVE_NONE,
                        CU_TENSOR_MAP_SWIZZLE_NONE,
                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -728,29 +794,72 @@ int launch_b(const Terms& terms, const long long* fs, double* Y,
     }
     last_mode = mode;
     switch (pl.rpt) {
-    case 1: return launch_rpt<B, 1>(terms, maps, fs, Y, Q, R, n, wsz, nqp,
-                                    pl, mode, pvec, bulk_y, s);
-    case 2: return launch_rpt<B, 2>(terms, maps, fs, Y, Q, R, n, wsz, nqp,
-                                    pl, mode, pvec, bulk_y, s);
-    case 3: return launch_rpt<B, 3>(terms, maps, fs, Y, Q, R, n, wsz, nqp,
-                                    pl, mode, pvec, bulk_y, s);
+    case 1: return launch_rpt<S, B, 1>(terms, maps, fs, Y, Q, R, n, wsz,
+                                       nqp, pl, mode, pvec, bulk_y, s);
+    case 2: return launch_rpt<S, B, 2>(terms, maps, fs, Y, Q, R, n, wsz,
+                                       nqp, pl, mode, pvec, bulk_y, s);
+    case 3: return launch_rpt<S, B, 3>(terms, maps, fs, Y, Q, R, n, wsz,
+                                       nqp, pl, mode, pvec, bulk_y, s);
     default: return (int)cudaErrorInvalidValue;
     }
 }
 
-int launch(const Terms& terms, const long long* fs, double* Y, long long Q,
+template <class S>
+int launch(const Terms<S>& terms, const long long* fs, S* Y, long long Q,
            long long R, int n, int b, int wsz, int nqp, void* stream) {
     if (n < 1 || R < 1 || wsz < 1 || nqp < 1 || Q < wsz)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (b) {
-    case 1: return launch_b<1>(terms, fs, Y, Q, R, n, wsz, nqp, s);
-    case 3: return launch_b<3>(terms, fs, Y, Q, R, n, wsz, nqp, s);
-    case 5: return launch_b<5>(terms, fs, Y, Q, R, n, wsz, nqp, s);
-    case 7: return launch_b<7>(terms, fs, Y, Q, R, n, wsz, nqp, s);
-    case 9: return launch_b<9>(terms, fs, Y, Q, R, n, wsz, nqp, s);
+    case 1: return launch_b<S, 1>(terms, fs, Y, Q, R, n, wsz, nqp, s);
+    case 3: return launch_b<S, 3>(terms, fs, Y, Q, R, n, wsz, nqp, s);
+    case 5: return launch_b<S, 5>(terms, fs, Y, Q, R, n, wsz, nqp, s);
+    case 7: return launch_b<S, 7>(terms, fs, Y, Q, R, n, wsz, nqp, s);
+    case 9: return launch_b<S, 9>(terms, fs, Y, Q, R, n, wsz, nqp, s);
     default: return (int)cudaErrorInvalidValue;
     }
+}
+
+template <class S>
+int launch_stage(const S* X, const S* P, const long long* fs, S* Y,
+                 long long Q, long long R, int n, int b, int wsz, int nqp,
+                 void* stream) {
+    Terms<S> terms;
+    terms.x[0] = X;
+    terms.p[0] = P;
+    terms.end[0] = 1;
+    terms.groups = 1;
+    return launch(terms, fs, Y, Q, R, n, b, wsz, nqp, stream);
+}
+
+// groups of one table in order of first appearance, terms in order
+template <class S>
+int launch_fold(const uint64_t* x_ptrs, const uint64_t* p_ptrs,
+                int n_terms, const long long* fs, S* Y, long long Q,
+                long long R, int n, int b, int wsz, int nqp, void* stream) {
+    if (n_terms < 1 || n_terms > kMaxTerms)
+        return (int)cudaErrorInvalidValue;
+    Terms<S> terms;
+    int q = 0, groups = 0;
+    for (int u = 0; u < n_terms; ++u) {
+        bool first = true;
+        for (int v = 0; v < u; ++v) first = first && p_ptrs[v] != p_ptrs[u];
+        if (!first) continue;
+        terms.p[groups] = reinterpret_cast<const S*>(p_ptrs[u]);
+        for (int t = u; t < n_terms; ++t)
+            if (p_ptrs[t] == p_ptrs[u])
+                terms.x[q++] = reinterpret_cast<const S*>(x_ptrs[t]);
+        terms.end[groups++] = q;
+    }
+    terms.groups = groups;
+    return launch(terms, fs, Y, Q, R, n, b, wsz, nqp, stream);
+}
+
+void plan_out(const Plan& pl, long long* out) {
+    const long long v[12] = {pl.rpt, pl.run,    pl.nruns, pl.cap,
+                             pl.box, pl.ps,     pl.xs,    pl.stages,
+                             pl.nys, pl.rtiles, pl.cpr,   pl.smem};
+    for (int k = 0; k < 12; ++k) out[k] = v[k];
 }
 
 }  // namespace win
@@ -762,12 +871,7 @@ PYIGA_EXPORT int pyiga_windowed_stage_f64(const double* X, const double* P,
                                           long long Q, long long R, int n,
                                           int b, int wsz, int nqp,
                                           void* stream) {
-    win::Terms terms;
-    terms.x[0] = X;
-    terms.p[0] = P;
-    terms.end[0] = 1;
-    terms.groups = 1;
-    return win::launch(terms, fs, Y, Q, R, n, b, wsz, nqp, stream);
+    return win::launch_stage(X, P, fs, Y, Q, R, n, b, wsz, nqp, stream);
 }
 
 // K8f: x_ptrs / p_ptrs: host arrays of n_terms device pointers (term t's
@@ -778,41 +882,48 @@ PYIGA_EXPORT int pyiga_windowed_fold_f64(const uint64_t* x_ptrs,
                                          long long Q, long long R, int n,
                                          int b, int wsz, int nqp,
                                          void* stream) {
-    if (n_terms < 1 || n_terms > win::kMaxTerms)
-        return (int)cudaErrorInvalidValue;
-    // groups of one table in order of first appearance, terms in order
-    win::Terms terms;
-    int q = 0, groups = 0;
-    for (int u = 0; u < n_terms; ++u) {
-        bool first = true;
-        for (int v = 0; v < u; ++v) first = first && p_ptrs[v] != p_ptrs[u];
-        if (!first) continue;
-        terms.p[groups] = reinterpret_cast<const double*>(p_ptrs[u]);
-        for (int t = u; t < n_terms; ++t)
-            if (p_ptrs[t] == p_ptrs[u])
-                terms.x[q++] = reinterpret_cast<const double*>(x_ptrs[t]);
-        terms.end[groups++] = q;
-    }
-    terms.groups = groups;
-    return win::launch(terms, fs, Y, Q, R, n, b, wsz, nqp, stream);
+    return win::launch_fold(x_ptrs, p_ptrs, n_terms, fs, Y, Q, R, n, b, wsz,
+                            nqp, stream);
 }
 
-// The copy path of the last launch: 0 8-byte cp.async (X not 16-byte
-// aligned), 1 16-byte cp.async from each row's aligned start, 2 tensor
-// copies (TMA); -1 before the first.
+// K8 and K8f in float32 (the f32 line): the same arguments in float.
+PYIGA_EXPORT int pyiga_windowed_stage_f32(const float* X, const float* P,
+                                          const long long* fs, float* Y,
+                                          long long Q, long long R, int n,
+                                          int b, int wsz, int nqp,
+                                          void* stream) {
+    return win::launch_stage(X, P, fs, Y, Q, R, n, b, wsz, nqp, stream);
+}
+
+PYIGA_EXPORT int pyiga_windowed_fold_f32(const uint64_t* x_ptrs,
+                                         const uint64_t* p_ptrs, int n_terms,
+                                         const long long* fs, float* Y,
+                                         long long Q, long long R, int n,
+                                         int b, int wsz, int nqp,
+                                         void* stream) {
+    return win::launch_fold(x_ptrs, p_ptrs, n_terms, fs, Y, Q, R, n, b, wsz,
+                            nqp, stream);
+}
+
+// The copy path of the last launch: 0 cp.async of one element (X not
+// 16-byte aligned), 1 16-byte cp.async from each row's aligned start, 2
+// tensor copies (TMA); -1 before the first.
 PYIGA_EXPORT int pyiga_windowed_last_copy() { return win::last_mode; }
 
 // The plan of a launch over `groups` distinct tables on `nsm` SMs, for
 // comparison with cuda_sumfac.windowed_plan: out[0..11] = rpt, run,
 // nruns, cap, box, ps, xs, stages, nys, rtiles, cpr, smem (smem 0: none
-// fits).
+// fits); pyiga_windowed_plan for double elements, _plan_f32 for float.
 PYIGA_EXPORT int pyiga_windowed_plan(long long Q, long long R, int n, int b,
                                      int wsz, int nqp, int groups, int nsm,
                                      long long* out) {
-    const win::Plan pl = win::make_plan(Q, R, n, b, wsz, nqp, groups, nsm);
-    const long long v[12] = {pl.rpt, pl.run,    pl.nruns, pl.cap,
-                             pl.box, pl.ps,     pl.xs,    pl.stages,
-                             pl.nys, pl.rtiles, pl.cpr,   pl.smem};
-    for (int k = 0; k < 12; ++k) out[k] = v[k];
+    win::plan_out(win::make_plan(Q, R, n, b, wsz, nqp, groups, nsm, 8), out);
+    return 0;
+}
+
+PYIGA_EXPORT int pyiga_windowed_plan_f32(long long Q, long long R, int n,
+                                         int b, int wsz, int nqp, int groups,
+                                         int nsm, long long* out) {
+    win::plan_out(win::make_plan(Q, R, n, b, wsz, nqp, groups, nsm, 4), out);
     return 0;
 }

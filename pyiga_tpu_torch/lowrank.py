@@ -454,8 +454,11 @@ def aca_3d_device(asm, tol=1e-10, maxiter=100, skipcount=3, tolcount=3,
     one host read of its 4-number verdict; the crosses live in
     ``(maxiter + 1)``-slot buffers and are inflated once at the end.
     Same pivoting rules and arithmetic as :func:`aca_3d` with
-    ``slices='materialize'``.  Returns the dense compact data tensor
-    (host numpy)."""
+    ``slices='materialize'``.  The slices come in the compute dtype
+    (float32 under float32: K1 ``jac``, K5 and the chains in float32)
+    and the crosses accumulate in float64, as the JAX package's
+    (``pyiga_tpu/lowrank.py:602-607``).  Returns the dense compact data
+    tensor (host numpy, float64)."""
     fiber_fn = asm._slice_fn_cached((1, 2))
     slice_fn = asm._slice_fn_cached((0,))
     fields, tables = asm._slice_operands()

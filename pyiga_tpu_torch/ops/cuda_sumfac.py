@@ -32,12 +32,13 @@ The kernels (sources in ``csrc/fields.cu`` for K1 and K1',
   final stage over support windows, and :func:`assemble_terms_windowed`
   on them (no Pallas site: the JAX package runs that route in XLA).
 
-K1's stiffness and ``mass`` kinds, K2 and K3 also take float32 (the f32
-line, :func:`~pyiga_tpu_torch.config.set_dtype`): a float32 CUDA tensor
-launches their float32 instances (``csrc/fields.cu`` templated on the
-scalar, ``csrc/sumfac_f32.cu``), which compute in float32 throughout.
-The other kernels are float64 only; K7 raises on float32 on every
-device, and :func:`chain_folded` never routes float32 to it.
+K1 (all three kinds), K1', K2, K3, K8 and K8f also take float32 (the
+f32 line, :func:`~pyiga_tpu_torch.config.set_dtype`): a float32 CUDA
+tensor launches their float32 instances (``csrc/fields.cu`` and
+``csrc/windowed.cu`` templated on the scalar, ``csrc/sumfac_f32.cu``),
+which compute in float32 throughout.  The backward kernels and K7 are
+float64 only; K7 raises on float32 on every device, and
+:func:`chain_folded` never routes float32 to it.
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel (and raises if it cannot);
@@ -55,7 +56,7 @@ import numpy as np
 import torch
 
 from .. import _cuda
-from ..config import no_tf32, require_float64
+from ..config import no_tf32
 from . import geom
 from .banded import flat_banded_from_padded_chain
 from .sumfac import windowed_stage_plain
@@ -146,11 +147,11 @@ def _check_fields_args(name, Y, T, w12, wL, nurbs):
 
 
 def _check_jac_args(name, Y, T, nurbs):
-    """Validate the ``jac`` kind's operands; returns ``(d, G, Q12, QL,
-    nL)``."""
-    f64 = torch.float64
-    _cuda.require(Y, 'Y', f64, 4)
-    _cuda.require(T, 'T', f64, 3)
+    """Validate the ``jac`` kind's operands (float64, or float32: both of
+    one dtype); returns ``(d, G, Q12, QL, nL)``."""
+    dt = Y.dtype if Y.dtype == torch.float32 else torch.float64
+    _cuda.require(Y, 'Y', dt, 4)
+    _cuda.require(T, 'T', dt, 3)
     d, C, Q12, nL = Y.shape
     G = C - int(bool(nurbs))
     QL = T.shape[1]
@@ -168,26 +169,29 @@ def _check_jac_args(name, Y, T, nurbs):
 _FIELD_KINDS = {'stiffness': (0, 'fields', 'fields_bwd'),
                 'mass': (1, 'mass_fields', 'mass_fields_bwd'),
                 'jac': (2, 'geo_jac_fields', 'geo_jac_fields_bwd')}
-# the forward's C entry and launch counter of the stiffness and mass
-# kinds, per dtype (the float32 instances are the f32 line's)
+# the forward's C entry and launch counter of each kind, per dtype (the
+# float32 instances are the f32 line's)
 _FIELD_ENTRIES = {
     ('stiffness', torch.float64): ('pyiga_stiff_fields_f64', 'fields'),
     ('mass', torch.float64): ('pyiga_mass_fields_f64', 'mass_fields'),
+    ('jac', torch.float64): ('pyiga_geo_jac_fields_f64', 'geo_jac_fields'),
     ('stiffness', torch.float32): ('pyiga_stiff_fields_f32', 'fields_f32'),
-    ('mass', torch.float32): ('pyiga_mass_fields_f32', 'mass_fields_f32')}
+    ('mass', torch.float32): ('pyiga_mass_fields_f32', 'mass_fields_f32'),
+    ('jac', torch.float32): ('pyiga_geo_jac_fields_f32',
+                             'geo_jac_fields_f32')}
 
 
 def _fields_kernel(kind, Y, T, w12, wL, nurbs):
     """K1's forward of `kind` on CUDA tensors (``w12``/``wL`` None for
     ``jac``): checks, one launch."""
-    f64 = torch.float64
     lib = _cuda.library()
     if kind == 'jac':
-        counter = _FIELD_KINDS[kind][1]
         d, G, Q12, QL, nL = _check_jac_args('geo_jac_fields', Y, T, nurbs)
-        out = torch.empty((G + G * d, Q12, QL), dtype=f64, device=Y.device)
+        out = torch.empty((G + G * d, Q12, QL), dtype=Y.dtype,
+                          device=Y.device)
+        fn, counter = _FIELD_ENTRIES[kind, Y.dtype]
         with _cuda.device_of(Y):
-            err = lib.pyiga_geo_jac_fields_f64(
+            err = getattr(lib, fn)(
                 Y.data_ptr(), T.data_ptr(), out.data_ptr(), d, G,
                 int(bool(nurbs)), Q12, QL, nL, _cuda.stream_of(Y))
     else:
@@ -278,7 +282,8 @@ def fields_mass(Y, T, w12, wL, nurbs):
 
 
 def host_jac_fields_plain(jac, w12, wL):
-    """Plain PyTorch version of :func:`host_jac_fields`."""
+    """Plain PyTorch version of :func:`host_jac_fields` (in the operands'
+    dtype)."""
     det, inv = geom.det_and_inv(jac)
     gw = (w12[:, None] * wL[None, :]).reshape(-1)
     return _unique_stiffness(inv, gw * torch.abs(det))
@@ -297,38 +302,45 @@ def host_jac_fields(jac, w12, wL):
             product bit for bit).
 
     Returns ``(d(d+1)/2, N)``: ``B_ab = gw |det J| (J^-1 J^-T)_ab`` for
-    ``a <= b`` row-major, the order :func:`stiffness_fields` expands.
+    ``a <= b`` row-major, the order :func:`stiffness_fields` expands, in
+    the operands' dtype (float64, or float32: the float32 instance of
+    K1').
     Any N: the TPU kernel's lane-multiple gate is a tiling rule of its
     own.  The kernel has no backward: on CUDA an operand that requires
     grad raises."""
     if not _kernel_device(jac, 'host_jac_fields'):
         return host_jac_fields_plain(jac, w12, wL)
     _cuda.no_grad_operands('host_jac_fields', jac, w12, wL)
-    f64 = torch.float64
-    _cuda.require(jac, 'jac', f64, 3)
-    _cuda.require(w12, 'w12', f64, 1)
-    _cuda.require(wL, 'wL', f64, 1)
+    dt = jac.dtype if jac.dtype == torch.float32 else torch.float64
+    _cuda.require(jac, 'jac', dt, 3)
+    _cuda.require(w12, 'w12', dt, 1)
+    _cuda.require(wL, 'wL', dt, 1)
     d, Q12, QL = jac.shape[0], w12.shape[0], wL.shape[0]
     if d not in (2, 3) or jac.shape != (d, d, Q12 * QL):
         raise ValueError('host_jac_fields: need jac (d, d, Q12 QL) with d in '
                          '(2, 3), got %s with w12 %s and wL %s'
                          % (tuple(jac.shape), tuple(w12.shape),
                             tuple(wL.shape)))
-    out = torch.empty((d * (d + 1) // 2, Q12 * QL), dtype=f64,
+    out = torch.empty((d * (d + 1) // 2, Q12 * QL), dtype=dt,
                       device=jac.device)
+    f32 = dt == torch.float32
+    counter = 'host_jac_fields_f32' if f32 else 'host_jac_fields'
+    fn = (_cuda.library().pyiga_host_jac_fields_f32 if f32
+          else _cuda.library().pyiga_host_jac_fields_f64)
     with _cuda.device_of(jac):
-        err = _cuda.library().pyiga_host_jac_fields_f64(
-            jac.data_ptr(), w12.data_ptr(), wL.data_ptr(), out.data_ptr(), d,
-            Q12, QL, _cuda.stream_of(jac))
-    _cuda.check(err, 'host_jac_fields')
-    _cuda.LAUNCHES['host_jac_fields'] += 1
+        err = fn(jac.data_ptr(), w12.data_ptr(), wL.data_ptr(),
+                 out.data_ptr(), d, Q12, QL, _cuda.stream_of(jac))
+    _cuda.check(err, counter)
+    _cuda.LAUNCHES[counter] += 1
     return out
 
 
 def geo_jac_fields_plain(Y, T, nurbs):
-    """Plain PyTorch version of :func:`geo_jac_fields`."""
+    """Plain PyTorch version of :func:`geo_jac_fields` (in the operands'
+    dtype; float32 contractions in full float32)."""
     G = Y.shape[1] - int(bool(nurbs))
-    jh, val = _jacobian_parts(Y, T, nurbs, True)
+    with no_tf32(Y.dtype):
+        jh, val = _jacobian_parts(Y, T, nurbs, True)
     if nurbs:
         jh = _quotient(jh, val, G)
         val = [v / val[-1] for v in val[:-1]]
@@ -350,7 +362,9 @@ def geo_jac_fields(Y, T, nurbs):
         nurbs: whether `Y` carries homogeneous NURBS components.
 
     Returns ``(G + G*d, Q12, QL)``: the values ``x_c`` (level order), then
-    the Jacobian ``J[c][k]`` row-major.  Differentiable in `Y`."""
+    the Jacobian ``J[c][k]`` row-major, in the operands' dtype (float64,
+    or float32: K1's float32 instance).  Differentiable in `Y` (the
+    backward kernel is float64 only)."""
     _cuda.constant_operands('geo_jac_fields', T)
     return _GeoFields.apply('jac', Y, T, None, None, nurbs)
 
@@ -455,6 +469,9 @@ def fields_bwd(kind, Y, T, w12, wL, nurbs, g):
     if not _kernel_device(Y, 'fields_bwd'):
         return _fields_vjp_plain(kind, Y, T, w12, wL, nurbs, g)
     code, _fwd, counter = _FIELD_KINDS[kind]
+    if Y.dtype != torch.float64:
+        raise NotImplementedError('%s: the backward kernel is float64 only '
+                                  '(ROADMAP section 1, item 5)' % counter)
     _cuda.no_grad_operands(counter, Y, g)     # no double backward
     if kind == 'jac':
         d, G, Q12, QL, nL = _check_jac_args(counter, Y, T, nurbs)
@@ -949,11 +966,20 @@ def chain_tail_fused(term_tables, fields_):
 ################################################################################
 
 def windowed_fold_plain(xs, tables, idx, fs, nqp):
-    """Plain PyTorch version of :func:`windowed_fold`: one windowed stage a
-    term, added in term order."""
+    """Plain PyTorch version of :func:`windowed_fold`, in the kernel's
+    association: the fields of the terms that share a table summed in
+    term order, one windowed stage a table (tables in order of first
+    appearance), the stages added in that order.  (In float32 the
+    association is what keeps the two within a few roundings of each
+    other: a fold of 16 terms summed term by term would differ from the
+    kernel by ~1e-6 relative.)"""
     out = None
-    for X, i in zip(xs, idx):
-        Y = windowed_stage_plain(X, tables[i], fs, nqp)
+    for i in dict.fromkeys(idx):
+        S = None
+        for X, j in zip(xs, idx):
+            if j == i:
+                S = X if S is None else S + X
+        Y = windowed_stage_plain(S, tables[i], fs, nqp)
         out = Y if out is None else out + Y
     return out
 
@@ -962,17 +988,21 @@ WINDOWED_SMEM = 232448          # shared bytes a block on sm_90
 WINDOWED_SMS = 132              # SMs of an H100 SXM
 
 
-def windowed_plan(Q, R, n, b, wsz, nqp, groups, nsm=WINDOWED_SMS):
+def windowed_plan(Q, R, n, b, wsz, nqp, groups, nsm=WINDOWED_SMS, esize=8):
     """The tiling of a K8 / K8f launch over `groups` distinct tables on
     `nsm` SMs, as ``make_plan`` in ``csrc/windowed.cu`` computes it (the
-    card's ``pyiga_windowed_plan`` is held to this in ``chip_smoke.py``).
+    card's ``pyiga_windowed_plan`` and ``pyiga_windowed_plan_f32`` are
+    held to this in ``chip_smoke.py``), for elements of `esize` bytes (8
+    for the float64 kernel, 4 for the float32 one; ``V = 16 / esize`` of
+    them a 16-byte copy).
 
     A tile is ``8 rpt`` consecutive r by a run of ``run`` dofs (4 a
     consumer warp; ``nruns`` balanced runs cover the axis).  CTA ``c`` of
     the ``nruns * cpr`` keeps run ``c // cpr`` and walks the r tiles
     ``c % cpr, c % cpr + cpr, ...`` below ``rtiles``.  Shared memory
-    holds every distinct table's rows of the run (dof stride ``ps``),
-    ``stages`` X stages of ``cap`` rows (row stride ``xs``; tensor copies
+    holds every distinct table's rows of the run (dof stride ``ps``
+    elements, a multiple of V plus V), ``stages`` X stages of ``cap``
+    rows (row stride ``xs = 8 rpt + V`` elements; tensor copies
     of ``box`` rows, at most 256, a multiple of 8) and ``nys`` output
     spans of a tile: r tiles of 3 or 2 r a lane where they give two
     thirds of the SMs a tile (3 first for several tables, 2 first for
@@ -981,8 +1011,9 @@ def windowed_plan(Q, R, n, b, wsz, nqp, groups, nsm=WINDOWED_SMS):
     nothing fits)."""
     def r128(x):
         return (x + 127) // 128 * 128
+    V = 16 // esize
     warps_total = -(-n // 4)
-    ps = (wsz * b + 3) // 4 * 4 + 2
+    ps = -(-(wsz * b) // (2 * V)) * (2 * V) + V
     for mw in range(16, 0, -1):
         nruns = -(-warps_total // mw)
         run = -(-warps_total // nruns) * 4
@@ -990,14 +1021,14 @@ def windowed_plan(Q, R, n, b, wsz, nqp, groups, nsm=WINDOWED_SMS):
         nbox = -(-cap // 256)
         box = (-(-cap // nbox) + 7) // 8 * 8     # 128-byte aligned boxes
         cap = nbox * box
-        fixed = 128 + r128(groups * run * ps * 8)
+        fixed = 128 + r128(groups * run * ps * esize)
         order = [rpt for rpt in ((3, 2) if groups > 1 else (2, 3))
                  if 3 * nruns * -(-R // (8 * rpt)) >= 2 * nsm] + [1]
         for rpt in order:
             rt = 8 * rpt
-            xs = rt + 2
-            stage = r128(cap * xs * 8)
-            ys = r128(rt * b * n * 8)
+            xs = rt + V
+            stage = r128(cap * xs * esize)
+            ys = r128(rt * b * n * esize)
             nys = 2 if nruns == 1 else 0
             while nys and fixed + nys * ys + 2 * stage > WINDOWED_SMEM:
                 nys -= 1
@@ -1066,15 +1097,18 @@ def _check_windowed_args(name, xs, tables, idx, fs, nqp):
 
 def _windowed_kernel(name, xs, tables, idx, fs, nqp):
     """One K8 (a term) or K8f launch on CUDA tensors, counted under
-    `name`; more than 16 terms run as several launches, summed."""
+    `name` (``name + '_f32'`` for the float32 instance, which float32
+    operands launch); more than 16 terms run as several launches,
+    summed."""
     if len(xs) > _FOLD_MAX_TERMS:       # kMaxTerms in csrc/windowed.cu
         k = _FOLD_MAX_TERMS
         return (_windowed_kernel(name, xs[:k], tables, idx[:k], fs, nqp)
                 + _windowed_kernel(name, xs[k:], tables, idx[k:], fs, nqp))
+    dt = xs[0].dtype if xs[0].dtype == torch.float32 else torch.float64
     for t, X in enumerate(xs):
-        _cuda.require(X, 'xs[%d]' % t, torch.float64, 2)
+        _cuda.require(X, 'xs[%d]' % t, dt, 2)
     for i, P in enumerate(tables):
-        _cuda.require(P, 'tables[%d]' % i, torch.float64, 3)
+        _cuda.require(P, 'tables[%d]' % i, dt, 3)
     _cuda.require(fs, 'fs', torch.int64, 1)
     Q, R = xs[0].shape
     n, b, wsz = tables[0].shape
@@ -1082,23 +1116,25 @@ def _windowed_kernel(name, xs, tables, idx, fs, nqp):
         raise ValueError('%s: the kernel takes 2p+1 <= 9 band offsets, got '
                          '%d' % (name, b))
     _check_window_starts(name, fs, n, nqp, wsz, Q)
-    Y = torch.empty((R, b * n), dtype=torch.float64, device=xs[0].device)
+    Y = torch.empty((R, b * n), dtype=dt, device=xs[0].device)
+    suffix = '_f32' if dt == torch.float32 else '_f64'
+    counter = name + ('_f32' if dt == torch.float32 else '')
     lib = _cuda.library()
     with _cuda.device_of(Y):
         if name == 'windowed_stage':
-            err = lib.pyiga_windowed_stage_f64(
+            err = getattr(lib, 'pyiga_windowed_stage' + suffix)(
                 xs[0].data_ptr(), tables[idx[0]].data_ptr(), fs.data_ptr(),
                 Y.data_ptr(), Q, R, n, b, wsz, nqp, _cuda.stream_of(Y))
         else:
             k = len(xs)
             xp = (ctypes.c_uint64 * k)(*[X.data_ptr() for X in xs])
             tp = (ctypes.c_uint64 * k)(*[tables[i].data_ptr() for i in idx])
-            err = lib.pyiga_windowed_fold_f64(
+            err = getattr(lib, 'pyiga_windowed_fold' + suffix)(
                 ctypes.cast(xp, ctypes.c_void_p),
                 ctypes.cast(tp, ctypes.c_void_p), k, fs.data_ptr(),
                 Y.data_ptr(), Q, R, n, b, wsz, nqp, _cuda.stream_of(Y))
-    _cuda.check(err, name)
-    _cuda.LAUNCHES[name] += 1
+    _cuda.check(err, counter)
+    _cuda.LAUNCHES[counter] += 1
     return Y
 
 
@@ -1107,7 +1143,8 @@ def windowed_stage(X, P, fs, nqp):
     for the field ``X (Q, R)``, a windowed pair table ``P (n, b, wsz)``
     and its window starts ``fs (n,)`` int64
     (:meth:`~pyiga_tpu_torch.ops.sumfac.SpaceTables.windowed_pair_table`);
-    returns the banded-flat ``(R, b*n)``, float64, every entry written
+    returns the banded-flat ``(R, b*n)`` in the operands' dtype (float64,
+    or float32: the kernel's float32 instance), every entry written
     (zeros on the band's padding).  A CPU tensor runs
     :func:`~pyiga_tpu_torch.ops.sumfac.windowed_stage_plain`, a CUDA
     tensor launches the kernel; it has no backward there (an operand
@@ -1281,7 +1318,6 @@ def stiffness_fields(geo_inputs):
     ``(a, b)`` row-major order (mirrored pairs share one tensor), each on
     the Gauss grid."""
     if 'jac' in geo_inputs:
-        require_float64("the stiffness fields of a host Jacobian (K1')")
         jac, grid = _host_jacobian(geo_inputs)
         out = host_jac_fields(jac, *geom.gauss_weight_factors(
             geo_inputs['weights']))

@@ -31,8 +31,16 @@ vector (:func:`param_vector`, cached with its device operands), each at a
 slot baked into the source; the slots depend on the parameters' shapes
 only, so new parameter values never rebuild.
 
+The f32 line (:func:`~pyiga_tpu_torch.config.set_dtype`) runs a float32
+instance of the same program (:attr:`Program.dtype`): float pointers,
+loads, temporaries and ``f``-suffixed constants, the float functions
+(``sqrtf``, ``fabsf``, ...), so that nothing of it computes in double,
+as the JAX package evaluates its fields on float32 operands
+(``pyiga_tpu/compile.py:1250-1262``).  The assembler caches its programs
+per combos and dtype; the adjoint is float64 only.
+
 Bound: device memory, ``(leaf rows + n_combos) * 8`` bytes per Gauss
-point plus the weight vectors (~21 MB for the 2D p=3 n=128
+point (4 in float32) plus the weight vectors (~21 MB for the 2D p=3 n=128
 convection-diffusion form: 4 Jacobian rows in, 6 fields out); the
 arithmetic per point is a few dozen flops.  So, as K1 since its redesign,
 one rule (``vform_shape``, in the source of both generated kernels) maps
@@ -72,6 +80,15 @@ _BINARY = {'add': '+', 'sub': '-', 'mul': '*', 'div': '/'}
 # derivative of abs
 _C_FUNCS = {'sqrt': 'sqrt', 'exp': 'exp', 'log': 'log', 'sin': 'sin',
             'cos': 'cos', 'tan': 'tan', 'abs': 'fabs', 'sign': 'pyiga_sign'}
+# the float32 instance's: the float functions of CUDA's math library (a
+# double function would promote its argument and run in double)
+_C_FUNCS_F32 = {'sqrt': 'sqrtf', 'exp': 'expf', 'log': 'logf',
+                'sin': 'sinf', 'cos': 'cosf', 'tan': 'tanf', 'abs': 'fabsf',
+                'sign': 'pyiga_sign'}
+# a program's scalar: its C type and the generated library's name (also
+# its launch counter)
+_CTYPES = {torch.float64: 'double', torch.float32: 'float'}
+_LIBNAMES = {torch.float64: 'vform_fields', torch.float32: 'vform_fields_f32'}
 _TORCH_OPS = {
     'add': lambda a, b: a + b, 'sub': lambda a, b: a - b,
     'mul': lambda a, b: a * b, 'div': lambda a, b: a / b,
@@ -166,13 +183,14 @@ class SSARecorder:
             sym = self._cse[key] = Sym(self, ('t', len(self.instrs) - 1))
         return sym
 
-    def finish(self, outputs, dim, leaf_loc=None, param_slot=None):
+    def finish(self, outputs, dim, leaf_loc=None, param_slot=None,
+               dtype=torch.float64):
         """The :class:`Program` computing `outputs` (one Sym or float per
-        combo) on a `dim`-dimensional Gauss grid, with dead instructions
-        dropped and leaves, parameters and temporaries numbered densely in
-        order of first use.  `leaf_loc` maps each leaf key but ``('gw',)``
-        to its ``(array key, row)``, `param_slot` each parameter key to
-        its slot in the flat parameter vector."""
+        combo) on a `dim`-dimensional Gauss grid in `dtype`, with dead
+        instructions dropped and leaves, parameters and temporaries
+        numbered densely in order of first use.  `leaf_loc` maps each leaf
+        key but ``('gw',)`` to its ``(array key, row)``, `param_slot` each
+        parameter key to its slot in the flat parameter vector."""
         outs = [_operand(o) for o in outputs]
         live = set()
         stack = [o for o in outs if isinstance(o, tuple) and o[0] == 't']
@@ -201,7 +219,7 @@ class SSARecorder:
                 tnum[i] = len(instrs) - 1
         outs = [renum(o) for o in outs]
         return Program(list(leaves), list(params), instrs, outs, dim,
-                       leaf_loc or {}, param_slot or {})
+                       leaf_loc or {}, param_slot or {}, dtype)
 
 
 def _fold(name, args):
@@ -238,6 +256,10 @@ class Program:
 
     Attributes:
         dim: the Gauss grid's dimension (the number of weight vectors).
+        dtype: the scalar its kernel computes in, reads and writes
+            (``torch.float64``, or ``torch.float32``: every constant,
+            temporary, load and function of the float32 instance is
+            float; its launches count under ``vform_fields_f32``).
         leaves: leaf keys in order of first use: ``('gw',)`` (the Gauss
             weight), ``('geo_val', c)``, ``('geo_jac', c, k)``,
             ``('geo_hess', c, k, l)`` with ``k <= l`` (level order),
@@ -256,9 +278,14 @@ class Program:
     """
 
     def __init__(self, leaves, params, instrs, outputs, dim, leaf_loc,
-                 param_slot):
+                 param_slot, dtype=torch.float64):
+        if dtype not in _CTYPES:
+            raise ValueError('vform_fields: a program computes in float64 or '
+                             'float32, not %s' % dtype)
         self.leaves, self.params = leaves, params
         self.instrs, self.outputs, self.dim = instrs, outputs, dim
+        self.dtype = dtype
+        self.counter = _LIBNAMES[dtype]
         self.sources, self.leaf_src = [], []
         for key in leaves:
             if key == ('gw',):
@@ -280,7 +307,12 @@ class Program:
 
     def adjoint(self):
         """The program's :class:`AdjointProgram` (built on the first
-        call, then kept)."""
+        call, then kept).  Float64 programs only: the adjoint has no
+        float32 instance yet (ROADMAP section 1, item 5, step 5)."""
+        if self.dtype != torch.float64:
+            raise NotImplementedError(
+                "K5's adjoint has no float32 kernels yet (ROADMAP section "
+                '1, item 5, step 5); call set_dtype(np.float64) first')
         if self._adjoint is None:
             self._adjoint = AdjointProgram(self)
         return self._adjoint
@@ -297,7 +329,7 @@ class Program:
         built, loaded and declared on the first call; later calls return
         it as it is (no source hash, no lock)."""
         if self._entry is None:
-            fn = _cuda.build_generated('vform_fields',
+            fn = _cuda.build_generated(self.counter,
                                        self.source).pyiga_vform_fields
             n_ptr = self.dim + len(self.sources) + int(bool(self.params)) + 1
             fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
@@ -310,9 +342,9 @@ class Program:
         """The kernel's input tensors from `arrays` (the per-axis
         ``weights``, the program's sources and, if it reads parameters,
         the flat ``params`` vector), in the order of its pointers, each
-        checked: contiguous float64 on `dev`, on the weights' grid, with
-        the rows and parameter slots the program reads.  An adjoint
-        program's source ``gout`` is `gout`."""
+        checked: contiguous, of the program's dtype, on `dev`, on the
+        weights' grid, with the rows and parameter slots the program
+        reads.  An adjoint program's source ``gout`` is `gout`."""
         W = arrays['weights']
         grid = tuple(w.shape[0] for w in W)
         QL, Q12 = grid[-1], math.prod(grid[:-1])
@@ -321,13 +353,14 @@ class Program:
         if self.params:
             ops.append(arrays['params'])
         for i, t in enumerate(ops):
-            if t.dtype != torch.float64 or t.device != dev \
+            if t.dtype != self.dtype or t.device != dev \
                     or not t.is_contiguous():
                 names = (['weights[%d]' % k for k in range(len(W))]
                          + self.sources + ['params'] * bool(self.params))
                 raise ValueError('vform_fields: %s must be a contiguous '
-                                 'float64 tensor on %s, got %s on %s'
-                                 % (names[i], dev, t.dtype, t.device))
+                                 '%s tensor on %s, got %s on %s'
+                                 % (names[i], self.dtype, dev, t.dtype,
+                                    t.device))
         if len(grid) != self.dim or any(w.dim() != 1 for w in W) \
                 or not (0 < Q12 < 2 ** 31 - 16 and 0 < QL < 2 ** 31):
             raise ValueError('vform_fields: weights %s do not fit a %dD '
@@ -351,11 +384,12 @@ class Program:
         take."""
         ops = self.operands(arrays, out.device)
         grid = tuple(w.shape[0] for w in arrays['weights'])
-        if out.dtype != torch.float64 or not out.is_contiguous() \
+        if out.dtype != self.dtype or not out.is_contiguous() \
                 or out.shape != (len(self.outputs),) + grid:
-            raise ValueError('vform_fields: out %s does not fit a program '
-                             'of %d fields on the grid %s'
-                             % (tuple(out.shape), len(self.outputs), grid))
+            raise ValueError('vform_fields: out %s %s does not fit a %s '
+                             'program of %d fields on the grid %s'
+                             % (tuple(out.shape), out.dtype, self.dtype,
+                                len(self.outputs), grid))
         return (*[t.data_ptr() for t in ops], out.data_ptr(),
                 math.prod(grid[:-1]), grid[-1],
                 grid[1] if self.dim == 3 else 1, stream)
@@ -392,9 +426,10 @@ def det_and_inv_sym(J):
     raise NotImplementedError('det_and_inv only implemented for d <= 3')
 
 
-def generate(asm, combos):
+def generate(asm, combos, dtype=torch.float64):
     """The :class:`Program` of every combo's coefficient field of the
-    assembler `asm` (a :class:`~pyiga_tpu_torch.compile.VFormAssembler`):
+    assembler `asm` (a :class:`~pyiga_tpu_torch.compile.VFormAssembler`)
+    in `dtype` (float64, or float32 for the f32 line):
     its form evaluated through its own context class on symbolic leaves,
     with the FIELD-scope cache shared by the combos and seeded with the
     Gauss weight leaf and the symbolic inverse Jacobian (the seeding of
@@ -457,7 +492,7 @@ def generate(asm, combos):
         for e in asm.vf.exprs:
             C = C + e.eval(ctx)
         outputs.append(C)
-    return b.finish(outputs, d, loc, slots)
+    return b.finish(outputs, d, loc, slots, dtype)
 
 
 def _param_components(host_arrays):
@@ -484,8 +519,19 @@ def param_vector(host_arrays):
 # CUDA source and the plain program runner
 ################################################################################
 
-def _c_arg(a):
+def _c_arg(a, ctype='double'):
+    """An SSA argument in C: a ref's name, or a constant literal of the
+    scalar `ctype` (a float constant is the Python float rounded to
+    float32 as torch rounds it, written with its ``f`` suffix: a double
+    literal would promote every product it enters to double)."""
     if isinstance(a, float):
+        if ctype == 'float':
+            with np.errstate(over='ignore'):
+                a32 = float(np.float32(a))
+            if not math.isfinite(a32):
+                raise ValueError('generator: constant %r is no finite '
+                                 'float32' % a)
+            return '(%rf)' % a32
         if not math.isfinite(a):
             raise ValueError('generator: non-finite constant %r' % a)
         return '(%r)' % a
@@ -504,31 +550,34 @@ def _weight_code(program):
     gauss_weight_field's order."""
     if ('gw',) not in program.leaves:
         return '', ''
-    w12 = {1: '1.0', 2: '__ldg(w0 + r)',
+    T = _CTYPES[program.dtype]
+    w12 = {1: _c_arg(1.0, T), 2: '__ldg(w0 + r)',
            3: '__ldg(w0 + r / Q1) * __ldg(w1 + r % Q1)'}[program.dim]
-    return (_PROLOGUE % dict(w12=w12),
-            '        const double wl = __ldg(w%d + c);\n' % (program.dim - 1))
+    return (_PROLOGUE % dict(w12=w12, T=T),
+            '        const %s wl = __ldg(w%d + c);\n' % (T, program.dim - 1))
 
 
 def _point_code(program):
     """A generated kernel's code per point: the leaf loads and the SSA
-    instructions."""
+    instructions, in the program's scalar."""
+    T = _CTYPES[program.dtype]
+    funcs = _C_FUNCS_F32 if T == 'float' else _C_FUNCS
     body = []
     for j, src in enumerate(program.leaf_src):
         if src is None:
-            body.append('const double l%d = sw12[r] * wl;' % j)
+            body.append('const %s l%d = sw12[r] * wl;' % (T, j))
         else:
-            body.append('const double l%d = __ldg(s%d + %s);'
-                        % (j, src[0], _row_offset(src[1])))
+            body.append('const %s l%d = __ldg(s%d + %s);'
+                        % (T, j, src[0], _row_offset(src[1])))
     for i, (name, args) in enumerate(program.instrs):
         if name in _BINARY:
-            expr = '%s %s %s' % (_c_arg(args[0]), _BINARY[name],
-                                 _c_arg(args[1]))
+            expr = '%s %s %s' % (_c_arg(args[0], T), _BINARY[name],
+                                 _c_arg(args[1], T))
         elif name == 'neg':
-            expr = '-%s' % _c_arg(args[0])
+            expr = '-%s' % _c_arg(args[0], T)
         else:
-            expr = '%s(%s)' % (_C_FUNCS[name], _c_arg(args[0]))
-        body.append('const double t%d = %s;' % (i, expr))
+            expr = '%s(%s)' % (funcs[name], _c_arg(args[0], T))
+        body.append('const %s t%d = %s;' % (T, i, expr))
     return body
 
 
@@ -538,7 +587,8 @@ def _mapped_loops(program, tail):
     the point code and then the lines `tail`: one body for both, so that
     the point code is compiled once and the same in both."""
     prologue, column = _weight_code(program)
-    params = ''.join('    const double p%d = __ldg(p + %d);\n' % (k, slot)
+    params = ''.join('    const %s p%d = __ldg(p + %d);\n'
+                     % (_CTYPES[program.dtype], k, slot)
                      for k, slot in enumerate(program.param_slots))
     return _MAPPED % dict(
         prologue=prologue, params=params, column=column,
@@ -554,13 +604,14 @@ def _pointer_args(program):
             + (['p'] if program.params else []))
 
 
-def _declare(ptrs, writes, indent, restrict=True):
-    """Pointer parameters, `indent` spaces before each continuation line:
-    `ptrs` read, `writes` written (``__restrict__`` for a kernel)."""
+def _declare(ptrs, writes, indent, restrict=True, ctype='double'):
+    """Pointer parameters of the scalar `ctype`, `indent` spaces before
+    each continuation line: `ptrs` read, `writes` written
+    (``__restrict__`` for a kernel)."""
     sep = ',\n' + ' ' * indent
     q = ' __restrict__' if restrict else ''
-    return ''.join('const double*%s %s%s' % (q, x, sep) for x in ptrs) \
-        + ''.join('double*%s %s%s' % (q, x, sep) for x in writes)
+    return ''.join('const %s*%s %s%s' % (ctype, q, x, sep) for x in ptrs) \
+        + ''.join('%s*%s %s%s' % (ctype, q, x, sep) for x in writes)
 
 
 def emit_cuda(program):
@@ -569,15 +620,19 @@ def emit_cuda(program):
     returning ``cudaGetLastError()``: the d weight vectors, one pointer
     per source tensor, the flat parameter vector if the program reads
     one, the output ``(n_combos, Q12, QL)``, the grid as its leading rows
-    and last axis (Q1: the middle axis of a 3D grid) and the stream."""
+    and last axis (Q1: the middle axis of a 3D grid) and the stream.  Every
+    pointer, load, constant, temporary and function is of the program's
+    scalar (double, or float for a float32 program)."""
+    T = _CTYPES[program.dtype]
     ptrs = _pointer_args(program)
-    stores = ['out[%s] = %s;' % (_row_offset(c), _c_arg(o))
+    stores = ['out[%s] = %s;' % (_row_offset(c), _c_arg(o, T))
               for c, o in enumerate(program.outputs)]
     return _SOURCE % dict(
         n_leaves=len(program.leaves), n_src=len(program.sources),
         n_params=len(program.params), n_out=len(program.outputs),
-        dim=program.dim, shape=_SHAPE,
-        kargs=_declare(ptrs, [], 20), cargs=_declare(ptrs, [], 23, False),
+        dim=program.dim, shape=_SHAPE, T=T,
+        kargs=_declare(ptrs, [], 20, ctype=T),
+        cargs=_declare(ptrs, [], 23, False, ctype=T),
         names=''.join('%s, ' % x for x in ptrs),
         loops=_mapped_loops(program, stores))
 
@@ -617,7 +672,7 @@ static VformShape vform_shape(int Q12, int QL, int min_blocks) {
 """
 
 _PROLOGUE = """\
-    __shared__ double sw12[128];
+    __shared__ %(T)s sw12[128];
     if (threadIdx.x < rows) {
         const int r = r0 + threadIdx.x;
         sw12[threadIdx.x] = %(w12)s;
@@ -646,20 +701,20 @@ _MAPPED = """\
 
 _SOURCE = """\
 // Coefficient fields of one variational form (kernel K5 of
-// pyiga_tpu_torch, generated by ops/cuda_vform.py).
+// pyiga_tpu_torch, generated by ops/cuda_vform.py), in %(T)s.
 // In: %(n_leaves)d leaves from %(n_src)d tensors and the %(dim)d Gauss
 // weight vectors, %(n_params)d parameters.  Out: %(n_out)d fields.
 #include <cuda_runtime.h>
 
 %(shape)s
 extern "C" __global__ void __launch_bounds__(256)
-vform_fields_kernel(%(kargs)sdouble* __restrict__ out,
+vform_fields_kernel(%(kargs)s%(T)s* __restrict__ out,
                     int Q12, int QL, int Q1, int RB, int by_rows) {
     const long long N = (long long)Q12 * QL;
 %(loops)s}
 
 extern "C" __attribute__((visibility("default")))
-int pyiga_vform_fields(%(cargs)sdouble* out,
+int pyiga_vform_fields(%(cargs)s%(T)s* out,
                        int Q12, int QL, int Q1, void* stream) {
     if (Q12 < 1 || QL < 1) return (int)cudaErrorInvalidValue;
     const VformShape sh = vform_shape(Q12, QL, K5_FWD_MIN_BLOCKS);
@@ -1140,8 +1195,8 @@ class _ComboFields(torch.autograd.Function):
         fn = program.entry()
         with _cuda.device_of(out):
             err = fn(*argv)
-        _cuda.check(err, 'vform_fields')
-        _cuda.LAUNCHES['vform_fields'] += 1
+        _cuda.check(err, program.counter)
+        _cuda.LAUNCHES[program.counter] += 1
         return out
 
     @staticmethod
@@ -1203,20 +1258,23 @@ def combo_fields(asm, arrays, combos):
 
     `arrays` are the assembler's tensors (``asm.device_arrays()``:
     ``weights``, ``geo_val_lvl``, ``geo_jac_lvl``, ``input:*``,
-    ``param:*`` and the flat ``params``).  On CUDA the form's generated
-    kernel runs: one allocation of the ``(n_combos,) + grid`` output, one
-    ctypes call into the program's entry (:meth:`Program.entry`,
-    :meth:`Program.arguments`), the fields returned as views of the
-    output; it is differentiable in the tensors the program reads, its
-    backward the generated adjoint kernel (:class:`AdjointProgram`).  On
-    the CPU the plain version, which autograd differentiates.  Returns
-    one contiguous field per combo."""
+    ``param:*`` and the flat ``params``; all of one dtype, float64 or
+    float32).  On CUDA the form's generated kernel of that dtype runs
+    (:func:`generate`; a float32 program is a library of its own, its
+    launches counted under ``vform_fields_f32``): one allocation of the
+    ``(n_combos,) + grid`` output, one ctypes call into the program's
+    entry (:meth:`Program.entry`, :meth:`Program.arguments`), the fields
+    returned as views of the output; it is differentiable in the tensors
+    the program reads, its backward the generated adjoint kernel
+    (:class:`AdjointProgram`, float64 only).  On the CPU the plain
+    version, which autograd differentiates.  Returns one contiguous field
+    per combo."""
     W = arrays['weights']
     if W[0].device.type == 'cpu':
         return combo_fields_plain(asm, arrays, combos)
     if not W[0].is_cuda:
         raise ValueError('combo_fields: unsupported device %s' % W[0].device)
-    program = asm._program(combos)
+    program = asm._program(combos, W[0].dtype)
     _cuda.constant_operands('vform_fields', *W)
     tensors = list(W) + [arrays[k] for k in program.sources]
     if program.params:

@@ -26,6 +26,7 @@ here, its kernels (K8, K8f) in :mod:`.cuda_sumfac`.
 import numpy as np
 import torch
 
+from ..config import no_tf32
 from ..quadrature import make_boundary_quadrature, make_tensor_quadrature
 from .basis import dense_basis_table
 
@@ -118,7 +119,8 @@ def windowed_stage_plain(X, P, fs, nqp):
     ``wsz`` points from ``fs[i]*nqp``; the banded-flat result axis
     ``o*n + i`` is appended last (cyclic chaining).  Materializes every
     span window: the plain version of
-    :func:`~pyiga_tpu_torch.ops.cuda_sumfac.windowed_stage`."""
+    :func:`~pyiga_tpu_torch.ops.cuda_sumfac.windowed_stage`, in the
+    operands' dtype (float32 products in full float32)."""
     n, b, wsz = P.shape
     pspan = wsz // nqp
     nspans = X.shape[0] // nqp
@@ -128,7 +130,8 @@ def windowed_stage_plain(X, P, fs, nqp):
     # all length-(p+1) span windows, stacked: (nwin, pspan, nqp, *rest)
     W = torch.stack([X4[c:c + nwin] for c in range(pspan)], dim=1)
     G = W.reshape((nwin, wsz) + rest)[torch.as_tensor(fs, device=X.device)]
-    Y = torch.einsum('iw...,iow->...oi', G, P)
+    with no_tf32(X.dtype):
+        Y = torch.einsum('iw...,iow->...oi', G, P)
     return Y.reshape(rest + (b * n,))
 
 
@@ -180,9 +183,7 @@ def run_windowed_assembly(field_fn, geo_inputs, wterm_tables, fss, nqps,
     Tables, window starts and permutations may be numpy arrays or
     tensors; returns the *banded-flat* tensor (``s_k = o_k*n_k + i_k``)
     on the fields' device."""
-    from ..config import require_float64
     from .cuda_sumfac import assemble_terms_windowed as device_route
-    require_float64('the windowed route (K8, K8f)')
     fields = field_fn(geo_inputs)
     dev = fields[0].device
     uploaded = {}

@@ -1,10 +1,13 @@
 # -*- coding: utf-8 -*-
-"""The JAX package's Krylov counts on the CPU for the Poisson lines that
-``chip_smoke.py`` phases 22 and 22b hold the port to
-(``POISSON_COUNTS_JAX``).
+"""The JAX package's Krylov counts on the CPU for the lines that
+``chip_smoke.py`` phases 22, 22b and 22c hold the port to
+(``POISSON_COUNTS_JAX``, ``CONVDIFF_COUNTS_JAX``).
 
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py f64 [n]
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py f32 [n]
+    JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py f32win [n]
+    JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py convdiff [n] \
+        [--data FILE.npy]
 
 ``f64`` (default n=96): the 3D p=3 twisted box assembled by
 ``pyiga_tpu`` in exact float64 (``assemble(mode='exact')`` taken to the
@@ -20,6 +23,20 @@ CPU, its plain versions), copied to numpy, through the JAX package's
 ``cg_jit`` with its float32 weighted fast-diagonalization preconditioner,
 ``tol=1e-8``, ``maxiter=600``, the same right-hand side in float32
 (``bench.py:482-499``).
+
+``f32win`` (default n=48): the same count on the port's float32
+*windowed* operator (``run_windowed_assembly`` under float32 on the CPU,
+its regular banded layout by ``banded_reorder``), phase 22c (c).
+
+``convdiff`` (default n=128): the convection-diffusion form of phase 7
+(``(inner(grad(u), grad(v)) + dot(b, grad(u)) * v + u * v) * dx``,
+``b = (3, -2)``, the NURBS quarter annulus, p=3) assembled by the port in
+float32 on the CPU (``run_device()``; or the compact data in FILE.npy,
+e.g. the card's from ``chiprun_out/f32_convdiff_n128.npy``), its float32
+values in float64, through the JAX package's ``gmres_jit`` (restart 30,
+``tol=1e-10``) on its compact matvec restricted to the interior dofs,
+with its fast-diagonalization preconditioner and the port's float64
+``v * dx`` right-hand side: phase 7's solve, phase 22c (a).
 
 Prints one JSON line with the counts and the seconds it took.  At n=96
 the float64 run holds ~3 GB arrays (the compact and banded operators)
@@ -89,6 +106,78 @@ def port_f32_operator(n, name='twisted_box', p=3):
     return op.D.numpy(), op.bws, op.ns
 
 
+def port_f32_windowed_operator(n, name='twisted_box', p=3):
+    """The port's float32 windowed operator at `n` on the CPU: the
+    regular banded layout of ``run_windowed_assembly`` (numpy), with its
+    bandwidths and dofs per axis."""
+    import pyiga_tpu_torch
+    from pyiga_tpu_torch import bspline, geometry
+    from pyiga_tpu_torch.assemblers import StiffnessAssembler
+    from pyiga_tpu_torch.ops import sumfac
+    from pyiga_tpu_torch.ops.banded import band_info
+    geo = getattr(geometry, name)()
+    saved = pyiga_tpu_torch.get_dtype()
+    pyiga_tpu_torch.set_dtype(np.float32)
+    try:
+        asm = StiffnessAssembler(
+            geo.sdim * (bspline.make_knots(p, 0.0, 1.0, n),), geo,
+            device='cpu')
+        ops = asm._windowed_operands()
+        Z = sumfac.run_windowed_assembly(
+            asm.field_fn, asm.geo_inputs(), ops['wtabs'], ops['fss'],
+            asm.tables.nqps, ops['plan'], ops['tperms'])
+        bws = band_info(asm.structure)
+        ns = tuple(b[0] for b in asm.structure.bs)
+        D = sumfac.banded_reorder(Z, tuple(2 * b + 1 for b in bws), ns)
+        assert D.dtype == pyiga_tpu_torch.get_dtype()
+    finally:
+        pyiga_tpu_torch.set_dtype(saved)
+    return D.numpy(), bws, ns
+
+
+CONVDIFF = '(inner(grad(u), grad(v)) + dot(b, grad(u)) * v + u * v) * dx'
+
+
+def convdiff_count(n=128, data=None, p=3):
+    """``gmres_jit``'s count in the JAX package on the CPU for phase 7's
+    solve on the port's float32 convection-diffusion matrix at `n` (its
+    compact data `data`, default: assembled here on the CPU)."""
+    import jax.numpy as jnp
+    import pyiga_tpu.bspline as jbspline
+    from pyiga_tpu import solvers
+    from pyiga_tpu.mlmatrix import MLStructure
+    from pyiga_tpu.ops import fastdiag, matfree, mlmatvec
+    import pyiga_tpu_torch
+    from pyiga_tpu_torch import bspline, geometry
+    from pyiga_tpu_torch.assemble import instantiate_assembler
+    kvs = 2 * (bspline.make_knots(p, 0.0, 1.0, n),)
+    geo = geometry.quarter_annulus()
+    f = instantiate_assembler('v * dx', kvs, {'geo': geo}, None,
+                              device='cpu').assemble_vector()
+    if data is None:
+        saved = pyiga_tpu_torch.get_dtype()
+        pyiga_tpu_torch.set_dtype(np.float32)
+        try:
+            asm = instantiate_assembler(CONVDIFF, kvs, {
+                'geo': geo, 'b': np.array([3.0, -2.0])}, None, device='cpu')
+            D = asm.run_device()[(None, None)]
+            assert D.dtype == pyiga_tpu_torch.get_dtype()
+            data = D.numpy()
+        finally:
+            pyiga_tpu_torch.set_dtype(saved)
+    jkvs = 2 * (jbspline.make_knots(p, 0.0, 1.0, n),)
+    S = MLStructure.from_kvs(jkvs, jkvs)
+    A = mlmatvec.make_ml_matvec(S.make_mlmatrix(
+        data=np.asarray(data, np.float32).astype(np.float64)))
+    free = fastdiag.interior_dofs(jkvs)
+    nf = int(np.prod([kv.numdofs for kv in jkvs]))
+    P = fastdiag.fastdiag_precond(jkvs, dirichlet=True)
+    _, it = solvers.gmres_jit(matfree.RestrictedOperator(A, free, nf),
+                              jnp.asarray(f.ravel()[free]), tol=1e-10,
+                              restart=30, precond=P)
+    return int(it)
+
+
 def f32_count(n=48, name='twisted_box', p=3, D32=None):
     """``cg_jit``'s count in the JAX package on the CPU for the float32
     line at `n`, on the port's float32 operator `D32` (the flat ``(C, F)``
@@ -131,8 +220,21 @@ def main(argv):
     elif kind == 'f32':
         n = int(argv[2]) if len(argv) > 2 else 48
         rec = dict(line='3d_p3_poisson float32', n=n, cg_iters=f32_count(n))
+    elif kind == 'f32win':
+        n = int(argv[2]) if len(argv) > 2 else 48
+        D, _, _ = port_f32_windowed_operator(n)
+        rec = dict(line='3d_p3_poisson float32 windowed', n=n,
+                   cg_iters=f32_count(n, D32=D))
+    elif kind == 'convdiff':
+        n = int(argv[2]) if len(argv) > 2 and argv[2] != '--data' else 128
+        data = (np.load(argv[argv.index('--data') + 1])
+                if '--data' in argv else None)
+        rec = dict(line='2d_p3_convdiff float32 matrix', n=n,
+                   data='card' if data is not None else 'port CPU',
+                   gmres_iters=convdiff_count(n, data))
     else:
-        raise SystemExit('usage: jax_poisson_counts.py f64|f32 [n]')
+        raise SystemExit('usage: jax_poisson_counts.py '
+                         'f64|f32|f32win|convdiff [n] [--data FILE.npy]')
     rec['seconds'] = time.perf_counter() - t0
     print(json.dumps(rec))
 

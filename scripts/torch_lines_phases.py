@@ -1,10 +1,13 @@
 # -*- coding: utf-8 -*-
-"""Phases 4n, 22 and 22b of ``chip_smoke.py`` alone: the float32 K1
-(stiffness and ``mass``), K2 and K3 against their plain versions (4n),
+"""Phases 4n, 22, 22b, 4o and 22c of ``chip_smoke.py`` alone: the float32
+K1 (stiffness and ``mass``), K2 and K3 against their plain versions (4n),
 the 3D p=3 n=96 float64 Poisson line with its peak bytes, fibers and the
-windowed route (22), and the f32 line at n=48 (22b).
+windowed route (22), the f32 line at n=48 (22b), the float32 K1 ``jac``,
+K1', K5, K8 and K8f against their plain versions with the SASS check of
+every float32 instance (4o), and the f32 line beyond Poisson (22c).
 
-    python scripts/torch_lines_phases.py [--only 4n,22,22b] [--tag NAME]
+    python scripts/torch_lines_phases.py [--only 4n,22,22b,4o,22c]
+        [--tag NAME]
 
 Needs a CUDA card.  Prints ptxas's registers and spills of the float32
 kernels and the card's ``nvidia-smi`` name and power limit; writes
@@ -28,6 +31,8 @@ PHASES = {
     '4n': chip_smoke.check_f32_kernels,
     '22': chip_smoke.run_n96,
     '22b': chip_smoke.run_f32_line,
+    '4o': chip_smoke.check_f32_assembly_kernels,
+    '22c': chip_smoke.run_f32_assembly,
 }
 
 
@@ -49,7 +54,8 @@ def main():
                                                        - t0))
     lines = _cuda.BUILD_INFO['log'].splitlines()
     for i, line in enumerate(lines):     # ptxas -v of the float32 kernels
-        if 'Compiling entry' in line and ('f32' in line or 'EfE' in line):
+        if 'Compiling entry' in line and ('f32' in line or 'EfE' in line
+                                          or 'IfLi' in line):
             for ln in lines[i:i + 4]:
                 chip_smoke.log('  ' + ln.strip())
     torch.backends.cuda.matmul.allow_tf32 = False

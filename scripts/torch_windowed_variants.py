@@ -81,9 +81,11 @@ def ptxas_lines(log):
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             name = m.group(1)
-            t = re.search(r'windowed_kernelILi(\d+)ELi(\d+)E', name)
+            t = re.search(r'windowed_kernelI([df])Li(\d+)ELi(\d+)E', name)
             if t:
-                name = 'windowed_kernel<%s, %s>' % t.groups()
+                name = 'windowed_kernel<%s, %s, %s>' % (
+                    {'d': 'double', 'f': 'float'}[t.group(1)],
+                    t.group(2), t.group(3))
         elif 'spill' in ln:
             spill = ln.strip()
         elif 'Used' in ln and 'registers' in ln and name:

@@ -214,24 +214,6 @@ def test_f32_cg_count_matches_jax(name, p, n):
 
 # -- the paths with no float32 kernels -------------------------------------
 
-def _vform_run():
-    from pyiga_tpu_torch import assemble
-    assemble.assemble('u * v * dx', 2 * (bspline.make_knots(2, 0.0, 1.0, 4),),
-                      geo=geometry.quarter_annulus(), device='cpu')
-
-
-def _windowed_run():
-    asm, _ = _pair('stiffness', 'twisted_box', 2, 4)
-    asm.assemble_windowed()
-
-
-def _windowed_fn_run():
-    asm, _ = _pair('stiffness', 'twisted_box', 2, 4)
-    wt, fss = asm.tables.windowed_term_tables(asm.terms)
-    sumfac.run_windowed_assembly(asm.field_fn, asm.geo_inputs(), wt, fss,
-                                 asm.tables.nqps)
-
-
 def _diff_run():
     from pyiga_tpu_torch.diff import assembly_coeff_fn
     asm, _ = _pair('stiffness', 'quarter_annulus', 2, 4)
@@ -261,14 +243,7 @@ def _stretched_square():
                                  jac=jac)
 
 
-def _user_geometry_run():
-    StiffnessAssembler(2 * (bspline.make_knots(2, 0.0, 1.0, 4),),
-                       _stretched_square(), device='cpu').run_device()
-
-
-@pytest.mark.parametrize('run', [_vform_run, _windowed_run, _windowed_fn_run,
-                                 _diff_run, _localmg_run, _localmg_step_run,
-                                 _user_geometry_run])
+@pytest.mark.parametrize('run', [_diff_run, _localmg_run, _localmg_step_run])
 def test_unported_f32_paths_raise(run):
     pyiga_tpu_torch.set_dtype(np.float32)
     with pytest.raises(NotImplementedError, match='no float32 kernels'):
