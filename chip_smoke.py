@@ -364,6 +364,14 @@ WINDOWED_KERNELS = ('windowed_stage', 'windowed_fold')
 HEAT_T_END = {'esdirk34': 3e-4, 'ros3p': 0.1}
 # (n0, levels) -> the iteration count of the JAX package's host path
 LOCALMG_ITERS = {(24, 3): 29, (48, 3): 27, (96, 3): 25}
+# the same under set_dtype(float32): the JAX package's solve_hmultigrid on
+# the CPU (float64) of its own float32-assembled matrix, and of the port's
+# (scripts/jax_poisson_counts.py localmg_f32 96); phase 8c-f32
+LOCALMG_ITERS_F32 = {(96, 3): 25}
+# the local-MG path's kernels under float32: the float32 assembly, K6 in
+# float64 (as the JAX package solves)
+WAVE_LOCALMG_F32_KERNELS = ('vcycle_wavefront', 'geo_jac_fields_f32',
+                            'vform_fields_f32', 'stage_f32', 'fold_f32')
 # the JAX package's Krylov counts on the CPU (scripts/jax_poisson_counts.py):
 # cg_ir's (outer, inner_iters) for the 3D p=3 twisted box at n=96 in f64,
 # and cg_jit's count for the port's float32 operator at n=48 with JAX's
@@ -1517,14 +1525,19 @@ def check_localmg_small(device):
                 n6_iters_cpu=ic, n6_iters_host=ih, n6_smooth_steps=steps_rel)
 
 
-def run_localmg(device, n0, L=3, impl=None):
-    """Phases 8/8b: the local-MG path the way ``bench.py`` ``run_localmg``
-    times it: assembly (``assemble_matrix`` + ``assemble_rhs``) is the min
-    of 3 after 2 warm-up builds; the solve the min of 2 at tol 1e-8 after
-    a warm-up at tol 1e-2, through ``solve_hmultigrid`` (`impl` None) or a
-    ``DeviceMGSolver`` with ``smoother_impl=impl``.  Holds the count to
-    the port's host path in this process and to the JAX package's."""
+def run_localmg(device, n0, L=3, impl=None, iters_jax=None, kernels=None):
+    """Phases 8/8b/8c: the local-MG path the way ``bench.py``
+    ``run_localmg`` times it: assembly (``assemble_matrix`` +
+    ``assemble_rhs``) is the min of 3 after 2 warm-up builds; the solve
+    the min of 2 at tol 1e-8 after a warm-up at tol 1e-2, through
+    ``solve_hmultigrid`` (`impl` None) or a ``DeviceMGSolver`` with
+    ``smoother_impl=impl``.  Holds the count to the port's host path in
+    this process and to the JAX package's (`iters_jax`, default
+    :data:`LOCALMG_ITERS`), and the launches to `kernels` (default the
+    float64 path's)."""
     from pyiga_tpu_torch import _cuda, solvers
+    if iters_jax is None:
+        iters_jax = LOCALMG_ITERS[(n0, L)]
     t0 = time.perf_counter()
     hs = localmg_space(n0, L)
     t_space = time.perf_counter() - t0
@@ -1619,7 +1632,7 @@ def run_localmg(device, n0, L=3, impl=None):
            rec['t_solve_ms'], rec['dof_per_s']))
     log('  iterations %s (host path %s in %.1f ms, JAX %d)  rel residual '
         '%.3e  x vs host %.3e  peak %.1f MB'
-        % (iters, it_host, 1e3 * t_host, LOCALMG_ITERS[(n0, L)], res, x_rel,
+        % (iters, it_host, 1e3 * t_host, iters_jax, res, x_rel,
            peak / 2 ** 20))
     log('  route %s, smoothing sets %s, %.4f ms a cycle; solver setup '
         '(ms) %s' % (route, rec['smoothing_sets'], rec['ms_per_cycle'],
@@ -1628,14 +1641,15 @@ def run_localmg(device, n0, L=3, impl=None):
     if x.shape != (hs.numdofs,) or not np.isfinite(x).all():
         raise RuntimeError('local-MG solution has shape %s or is not finite'
                            % (x.shape,))
-    if not (iters == it_host == LOCALMG_ITERS[(n0, L)]):
+    if not (iters == it_host == iters_jax):
         raise RuntimeError('local-MG iterations %s, host path %s, expected %d'
-                           % (iters, it_host, LOCALMG_ITERS[(n0, L)]))
+                           % (iters, it_host, iters_jax))
     if not (res <= 1e-8 and x_rel <= 1e-10):
         raise RuntimeError('local-MG residual %.3e or x vs host %.3e too '
                            'large' % (res, x_rel))
-    kernels = WAVE_LOCALMG_KERNELS if route == 'wavefront' else \
-        LOCALMG_KERNELS
+    if kernels is None:
+        kernels = WAVE_LOCALMG_KERNELS if route == 'wavefront' else \
+            LOCALMG_KERNELS
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise RuntimeError('local-MG path never launched %s' % missing)
@@ -3895,9 +3909,23 @@ def run_item8_phase(name, fn, device):
 # differentiates the XLA forms of these functions (pyiga_tpu/diff.py:
 # 108-142 and compile.py:1171-1240 _eval_combo_fields), so each entry names
 # the TPU kernel whose counterpart's VJP it is
-DIFF_KERNELS = ('fields_bwd', 'mass_fields_bwd', 'geo_jac_fields_bwd',
-                'stage_bwd', 'fold_bwd', 'vform_adjoint')
+DIFF_F64_KERNELS = ('fields_bwd', 'mass_fields_bwd', 'geo_jac_fields_bwd',
+                    'stage_bwd', 'fold_bwd', 'vform_adjoint')
+# their float32 instances (phases 20f, 20g)
+DIFF_F32_KERNELS = tuple(k + '_f32' for k in DIFF_F64_KERNELS)
+DIFF_KERNELS = DIFF_F64_KERNELS + DIFF_F32_KERNELS
 _VJP = ' (its VJP; pyiga_tpu/diff.py differentiates the XLA form)'
+# phase 20f's tolerance, relative to the largest output: float32 against
+# float32 in another order of summation
+DIFF_F32_TOL = 1e-5
+# the float32 backward instances in the package's library, by mangled
+# name: K1-bwd <..., float>, the f32 fold's backward mode <VB, 1, true>
+SASS_DIFF_F32 = {
+    'geo_fields_bwd_kernel<float>': re.compile(
+        r'geo_fields_bwd_kernelI.*EfEv'),
+    'fold_f32_kernel<VB, 1, true>': re.compile(
+        r'fold_f32_kernelILi[14]ELi1ELb1E'),
+}
 KERNELS.update({
     'fields_bwd': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
                    'pyiga_tpu/ops/pallas_sumfac.py:1087' + _VJP),
@@ -3912,6 +3940,21 @@ KERNELS.update({
     # CUDA C generated per form, beside the forward's
     'vform_adjoint': ('cuda', 'pyiga_tpu_torch/ops/cuda_vform.py',
                       'pyiga_tpu/compile.py:974' + _VJP),
+    # the float32 instances: K1-bwd templated on its scalar, K2-/K3-bwd an
+    # FFMA mode of the f32 fold's mainloop, the adjoint generated in float
+    'fields_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+                       'pyiga_tpu/ops/pallas_sumfac.py:1087' + _VJP),
+    'mass_fields_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+                            'pyiga_tpu/ops/pallas_sumfac.py:1087' + _VJP),
+    'geo_jac_fields_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+                               'pyiga_tpu/ops/pallas_sumfac.py:1087'
+                               + _VJP),
+    'stage_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/sumfac_f32.cu',
+                      'pyiga_tpu/ops/pallas_sumfac.py:353' + _VJP),
+    'fold_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/sumfac_f32.cu',
+                     'pyiga_tpu/ops/pallas_sumfac.py:781' + _VJP),
+    'vform_adjoint_f32': ('cuda', 'pyiga_tpu_torch/ops/cuda_vform.py',
+                          'pyiga_tpu/compile.py:974' + _VJP),
 })
 NONLINEAR = '(1 + w*w) * inner(grad(w), grad(v)) * dx'
 BIHARMONIC = 'inner(hess(u), hess(v)) * dx'
@@ -3947,6 +3990,17 @@ def check_repeat_all(name, fn, got):
     return True
 
 
+def tf32_unchanged(name, fn, got):
+    """The tensors `fn()` returns, computed again with torch's global TF32
+    on, bitwise equal to `got` (the float32 kernels and their plain
+    versions take no TF32)."""
+    with GlobalTF32():
+        again = fn()
+        sync(got[0].device)
+    if not all(torch.equal(a, b) for a, b in zip(again, got)):
+        raise RuntimeError('%s: global TF32 changed the f32 results' % name)
+
+
 def fields_bwd_flops(kind, d, G, nurbs, nL):
     """Operations of one Gauss point of K1's backward, counted from the
     body of ``geo_fields_bwd_kernel`` and ``point_vjp`` (csrc/fields.cu)
@@ -3976,18 +4030,18 @@ def fields_bwd_flops(kind, d, G, nurbs, nL):
     return ops + 2 * d * C * nL + (2 * C * nL if vals else 0)  # the sums
 
 
-# a float64 K1 / K1-bwd instance in ptxas's output: the kernel, its
-# template arguments <D, G, NURBS, KIND, NL> and the forward's ROWS (then
-# its scalar, d; the float32 forward's, f, does not match)
+# a K1 / K1-bwd instance in ptxas's output: the kernel, its template
+# arguments <D, G, NURBS, KIND, NL>, the forward's ROWS, and its scalar
+# (d or f)
 FIELDS_INSTANCE = re.compile(r'(geo_fields(?:_bwd)?_kernel)ILi(\d+)ELi(\d+)E'
-                             r'Lb([01])ELi(\d+)ELi(\d+)E(?:Lb([01])Ed|E)')
+                             r'Lb([01])ELi(\d+)ELi(\d+)E(?:Lb([01])E)?([df])E')
 
 
 def fields_ptxas(build_log):
     """ptxas's registers and spills of every ``geo_fields_kernel`` and
     ``geo_fields_bwd_kernel`` instance in a build's log: ``{(kernel, D,
-    G, NURBS, KIND, NL, ROWS): 'R registers, S B spill stores, L B spill
-    loads'}`` (ROWS None for the backward)."""
+    G, NURBS, KIND, NL, ROWS, scalar): 'R registers, S B spill stores, L
+    B spill loads'}`` (ROWS None for the backward)."""
     lines = build_log.splitlines()
     out = {}
     for i, line in enumerate(lines):
@@ -3997,7 +4051,7 @@ def fields_ptxas(build_log):
         spill = next(x for x in lines[i:] if 'spill' in x)
         regs = next(x for x in lines[i:] if 'registers' in x)
         key = (m.group(1),) + tuple(int(v) for v in m.groups()[1:6]) + (
-            None if m.group(7) is None else int(m.group(7)),)
+            None if m.group(7) is None else int(m.group(7)), m.group(8))
         out[key] = '%s registers, %s B spill stores, %s B spill loads' % (
             re.search(r'Used (\d+) registers', regs).group(1),
             re.search(r'(\d+) bytes spill stores', spill).group(1),
@@ -4013,36 +4067,46 @@ def fields_instance(kind, Y, nurbs, bwd, QL=None):
            C - int(nurbs), int(nurbs),
            {'stiffness': 0, 'mass': 1, 'jac': 2}[kind],
            nL if nL <= 4 and d > 1 else 0)
-    return key + (None if bwd else int(QL < 8),)
+    return key + (None if bwd else int(QL < 8),
+                  'f' if Y.dtype == torch.float32 else 'd')
 
 
-def fields_bwd_case(kind, Y, T, w12, wL, nurbs, device, name, seed):
-    """K1's backward of `kind` against its plain formulas (1e-13, bitwise
-    on a repeat), with its ms through the wrapper, the device time of one
-    bare launch (:func:`bare_times`), the plain version's ms, the bound
-    (Y, T, the weights and the output's gradient read once, gY written
-    once; per point the operations of :func:`fields_bwd_flops`) and
-    ptxas's registers and spills of the instance."""
+def fields_bwd_case(kind, Y, T, w12, wL, nurbs, device, name, seed,
+                    tol=1e-13):
+    """K1's backward of `kind` against its plain formulas (`tol`, bitwise
+    on a repeat; float32 operands: the float32 instance, also bitwise
+    unchanged with torch's global TF32 on), with its ms through the
+    wrapper, the device time of one bare launch (:func:`bare_times`), the
+    plain version's ms, the bound (Y, T, the weights and the output's
+    gradient read once, gY written once; per point the operations of
+    :func:`fields_bwd_flops`, at the f64 or f32 FMA peak) and ptxas's
+    registers and spills of the instance."""
     from pyiga_tpu_torch import _cuda
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     d, C, Q12, nL = Y.shape
     G = C - int(nurbs)
     QL = T.shape[1]
+    f32 = Y.dtype == torch.float32
     shape = {'stiffness': (d * (d + 1) // 2, Q12, QL), 'mass': (Q12, QL),
              'jac': (G + G * d, Q12, QL)}[kind]
     rng = np.random.RandomState(seed)
-    g = torch.as_tensor(rng.rand(*shape) - 0.5, dtype=torch.float64,
+    g = torch.as_tensor(rng.rand(*shape) - 0.5, dtype=Y.dtype,
                         device=device)
     got = cs.fields_bwd(kind, Y, T, w12, wL, nurbs, g)
     ref = cs._fields_vjp_plain(kind, Y, T, w12, wL, nurbs, g)
     sync(device)
-    err, rel = compare('%s_bwd %s' % (kind, name), got, ref, 1e-13)
-    check_repeat('%s_bwd %s' % (kind, name),
+    label = '%s_bwd%s %s' % (kind, ' f32' if f32 else '', name)
+    err, rel = compare(label, got, ref, tol)
+    check_repeat(label,
                  lambda: cs.fields_bwd(kind, Y, T, w12, wL, nurbs, g), got)
+    if f32:
+        tf32_unchanged(label, lambda: [
+            cs.fields_bwd(kind, Y, T, w12, wL, nurbs, g),
+            cs._fields_vjp_plain(kind, Y, T, w12, wL, nurbs, g)], [got, ref])
     ops = Q12 * QL * fields_bwd_flops(kind, d, G, nurbs, nL)
     code = {'stiffness': 0, 'mass': 1, 'jac': 2}[kind]
     if w12 is None:
-        w12 = wL = torch.empty(0, dtype=torch.float64, device=device)
+        w12 = wL = torch.empty(0, dtype=Y.dtype, device=device)
     rec = dict(max_abs_err=err, rel=rel, Y=list(Y.shape), QL=QL,
                repeat_equal=True,
                ms=time_ms(lambda: cs.fields_bwd(kind, Y, T, w12, wL, nurbs,
@@ -4054,15 +4118,18 @@ def fields_bwd_case(kind, Y, T, w12, wL, nurbs, device, name, seed):
                    fields_instance(kind, Y, nurbs, True), 'not found'),
                **bound(nbytes(Y, T, g, got) + (0 if kind == 'jac' else
                                                 nbytes(w12, wL)),
-                       ops, F64_FMA_PER_MS))
+                       ops, F32_PER_MS if f32 else F64_FMA_PER_MS))
+    if f32:
+        rec.update(tf32_on_unchanged=True)
     rec.update(bare_times(
-        'fields_bwd', _cuda.library().pyiga_fields_bwd_f64,
+        'fields_bwd', (_cuda.library().pyiga_fields_bwd_f32 if f32 else
+                       _cuda.library().pyiga_fields_bwd_f64),
         [Y, T, w12, wL, g, torch.empty_like(Y)],
         lambda ts: (code,) + tuple(t.data_ptr() for t in ts) + (
             d, G, int(nurbs), Q12, QL, nL), device))
-    log('  %s_bwd %-14s %s: %.4f ms (device %.4f, plain %.4f, bound %.4f '
+    log('  %-28s %s: %.4f ms (device %.4f, plain %.4f, bound %.4f '
         '%s, %.0f %% of it); ptxas %s'
-        % (kind, name, list(shape), rec['ms'], rec['device_ms'],
+        % (label, list(shape), rec['ms'], rec['device_ms'],
            rec['plain_ms'], rec['bound_ms'], rec['bound_by'],
            100 * rec['bound_ms'] / rec['device_ms'], rec['ptxas']))
     del g, got, ref
@@ -4118,27 +4185,32 @@ def adjoint_bare_times(adj, arrays, g, device):
     return bare_times('vform_adjoint', adj.entry(), operands, args_of, device)
 
 
-def adjoint_case(asm, device, name, seed):
-    """The generated K5 adjoint of a form's fold-plan program against
-    ``run_adjoint_plain`` on the same operands (each gradient to 1e-13 of
-    its own largest entry, bitwise on a repeat); its times: ``ms`` through
+def adjoint_case(asm, device, name, seed, tol=1e-13):
+    """The generated K5 adjoint of a form's fold-plan program in the
+    compute dtype against ``run_adjoint_plain`` on the same operands (each
+    gradient to `tol` of its own largest entry, bitwise on a repeat; in
+    float32 also bitwise unchanged with torch's global TF32 on); its
+    times: ``ms`` through
     ``launch`` by CUDA events, ``host_ms`` by the host clock,
     ``device_ms`` a CUDA graph of ``launch`` and ``kernel_ms`` one of the
     bare C entry (:func:`adjoint_bare_times`); and its bound: the rows the
     adjoint program reads (source rows and the output's gradient), the
     weights and parameters read once, every gradient tensor ``launch``
     returns written in full; one operation per adjoint SSA instruction and
-    point."""
+    point (at the f64 or f32 FMA peak)."""
+    import pyiga_tpu_torch
     from pyiga_tpu_torch import _cuda
     from pyiga_tpu_torch.ops import cuda_vform as cv
+    dtype = pyiga_tpu_torch.get_dtype()
+    f32 = dtype == torch.float32
     plan = asm._fold_plan or [(t, False) for t in range(len(asm.combos))]
-    prog = asm._program([asm.combos[t] for t, _m in plan])
+    prog = asm._program([asm.combos[t] for t, _m in plan], dtype)
     adj = prog.adjoint()
     arrays = asm.device_arrays()
     grid = tuple(w.shape[0] for w in arrays['weights'])
     rng = np.random.RandomState(seed)
     g = torch.as_tensor(rng.rand(len(prog.outputs), *grid) - 0.5,
-                        dtype=torch.float64, device=device)
+                        dtype=dtype, device=device)
     t0 = time.perf_counter()
     grads, gp = adj.launch(arrays, g)
     build_s = time.perf_counter() - t0
@@ -4149,18 +4221,23 @@ def adjoint_case(asm, device, name, seed):
         return [gr[k] for k in prog.sources] + ([p] if p is not None
                                                 else [])
     got, ref = flat(grads, gp), flat(rg, rp)
-    err, rel = compare_all('vform_adjoint ' + name, got, ref, 1e-13)
-    check_repeat_all('vform_adjoint ' + name,
-                     lambda: flat(*adj.launch(arrays, g)), got)
-    lib = [k for k in _cuda.GEN_BUILDS if 'vform_adjoint' in k][-1]
+    label = '%s %s' % (adj.counter, name)
+    err, rel = compare_all(label, got, ref, tol)
+    check_repeat_all(label, lambda: flat(*adj.launch(arrays, g)), got)
+    if f32:
+        tf32_unchanged(label, lambda: flat(*adj.launch(arrays, g)) + flat(
+            *cv.run_adjoint_plain(prog, arrays, g)), got + ref)
+    lib = [k for k in _cuda.GEN_BUILDS if re.search(
+        r'lib%s_[0-9a-f]{16}\.so$' % adj.counter, k)][-1]
     build = dict(_cuda.GEN_BUILDS[lib], path=lib)
     for line in build['log'].splitlines():
         if 'registers' in line or 'spill' in line:
             log('  ' + line.strip())
     N = g[0].numel()
     rows = {s for s in adj.program.leaf_src if s is not None}
-    read = 8 * (len(rows) * N + sum(w.numel() for w in arrays['weights'])
-                + (arrays['params'].numel() if adj.program.params else 0))
+    read = g.element_size() * (
+        len(rows) * N + sum(w.numel() for w in arrays['weights'])
+        + (arrays['params'].numel() if adj.program.params else 0))
     shape = adj.shape(math.prod(grid[:-1]), grid[-1])
     bare = adjoint_bare_times(adj, arrays, g, device)
     rec = dict(max_abs_err=err, rel=rel, instrs=len(prog.instrs),
@@ -4177,11 +4254,11 @@ def adjoint_case(asm, device, name, seed):
                plain_ms=time_ms(lambda: cv.run_adjoint_plain(prog, arrays,
                                                              g), device,
                                 reps=3),
-               library_ms=None,
+               library_ms=None, tf32_on_unchanged=f32 or None,
                **bound(read + nbytes(*got), len(adj.program.instrs) * N,
-                       F64_FMA_PER_MS))
-    log('  K5 adjoint %s: %d forward + %d adjoint SSA instrs, %d rows, %d '
-        'params; %s; nvcc %.2f s' % (name, len(prog.instrs),
+                       F32_PER_MS if f32 else F64_FMA_PER_MS))
+    log('  %s: %d forward + %d adjoint SSA instrs, %d rows, %d '
+        'params; %s; nvcc %.2f s' % (label, len(prog.instrs),
                                      len(adj.program.instrs),
                                      len(adj.src_targets),
                                      len(adj.param_targets), rec['shape'],
@@ -4189,13 +4266,16 @@ def adjoint_case(asm, device, name, seed):
     return rec
 
 
-def stage_bwd_case(name, tables, idx, g, device):
-    """K2-/K3-bwd (``stage_bwd_kernel``) of the terms `idx` over `tables`
-    against ``fold_bwd_plain`` (1e-13 relative, bitwise on a repeat; one
-    table through ``stage_bwd``), its ms, the plain version's, one
-    ``torch.matmul`` of the distinct tables concatenated and the bound:
-    the distinct tables and `g` read once, ``(G, K, R)`` written once, 2
-    K R M operations a table."""
+def stage_bwd_case(name, tables, idx, g, device, tol=1e-13):
+    """K2-/K3-bwd (``stage_bwd_kernel``, or for float32 operands the FFMA
+    kernel of ``csrc/sumfac_f32.cu``) of the terms `idx` over `tables`
+    against ``fold_bwd_plain`` (`tol` relative, bitwise on a repeat, in
+    float32 also bitwise unchanged with torch's global TF32 on; one table
+    through ``stage_bwd``), its ms, the plain version's, one
+    ``torch.matmul`` of the distinct tables concatenated (TF32 off) and
+    the bound: the distinct tables and `g` read once, ``(G, K, R)``
+    written once, 2 K R M operations a table at the f64 tensor cores' or
+    the f32 FMA units' peak (both 67 TFLOP/s)."""
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     R, M = g.shape
     K = tables[0].shape[1]
@@ -4213,152 +4293,186 @@ def stage_bwd_case(name, tables, idx, g, device):
 
         def plain():
             return cs.fold_bwd_plain(tables, idx, g)
+    f32 = g.dtype == torch.float32
+    label = 'stage_bwd%s %s' % (' f32' if f32 else '', name)
     got, ref = run(), plain()
     sync(device)
-    err, rel = compare_all('stage_bwd ' + name, got, ref, 1e-13)
-    check_repeat_all('stage_bwd ' + name, run, got)
+    err, rel = compare_all(label, got, ref, tol)
+    check_repeat_all(label, run, got)
+    if f32:
+        tf32_unchanged(label, lambda: run() + plain(), got + ref)
     used = [tables[i] for i in dict.fromkeys(idx)]
     tcat = torch.cat(used, dim=1).t().contiguous()
     rec = dict(max_abs_err=err, rel=rel, shape=[K, R, M], terms=len(idx),
                tables=len(used), repeat_equal=True,
+               tf32_on_unchanged=f32 or None,
                ms=time_ms(run, device), plain_ms=time_ms(plain, device),
                library_ms=time_ms(lambda: torch.matmul(tcat, g.t()), device),
-               **bound(nbytes(g, *used) + 8 * K * R * len(used),
-                       2 * K * R * M * len(used), F64_TENSOR_PER_MS))
-    log('  stage_bwd %-14s (K, R, M) = (%d, %d, %d), %d tables: %.4f ms '
+               **bound(nbytes(g, *used) + g.element_size() * K * R
+                       * len(used), 2 * K * R * M * len(used),
+                       F32_PER_MS if f32 else F64_TENSOR_PER_MS))
+    log('  %-24s (K, R, M) = (%d, %d, %d), %d tables: %.4f ms '
         '(plain %.4f, matmul %.4f, bound %.4f, %.0f %%)'
-        % (name, K, R, M, len(used), rec['ms'], rec['plain_ms'],
+        % (label, K, R, M, len(used), rec['ms'], rec['plain_ms'],
            rec['library_ms'], rec['bound_ms'],
            100 * rec['bound_ms'] / rec['ms']))
     del got, ref, tcat
     return rec
 
 
-def check_diff_kernels(device, n3=48, n2=128):
-    """Phase 20a: each backward kernel against its plain version on the
-    card at the forward's phase shapes, at most 1e-13 relative and
-    bitwise on a second launch: K1's backward of the stiffness and mass
-    kinds on the 3D p=3 n=48 twisted box, of the ``jac`` kind there, on
-    the 2D n=128 NURBS quarter annulus, on a surface (G = 3, n=128) and
-    on the 'left' face's boundary grid of the extruded annulus at n=48
-    (QL = 1); K2's and
-    K3's backward (``stage_bwd_kernel``, :func:`stage_bwd_case`) at the
-    headline's compact chain (the two stage shapes, and the fold's terms
-    over their distinct tables in one launch, R = M^2), at 2D n=128's
-    stage shape (512, 512, 905) and on a ragged fold (K = 33, R = 1,001,
-    M = 7, 3 terms over 2 tables); the generated K5 adjoint on
+def check_diff_kernels(device, n3=48, n2=128, dtype=torch.float64):
+    """Phase 20a (float64) and 20f (float32, under ``set_dtype``): each
+    backward kernel against its plain version on the card at the
+    forward's phase shapes, bitwise on a second launch, at most 1e-13
+    (float64) or :data:`DIFF_F32_TOL` (float32, also bitwise unchanged
+    with torch's global TF32 on) relative: K1's backward of the stiffness
+    and mass kinds on the 3D p=3 n=48 twisted box, of the ``jac`` kind
+    there, on the 2D n=128 NURBS quarter annulus, on a surface (G = 3,
+    n=128) and on the 'left' face's boundary grid of the extruded annulus
+    at n=48 (QL = 1); K2's and K3's backward (:func:`stage_bwd_case`) at
+    the headline's compact chain (the two stage shapes, and the fold's
+    terms over their distinct tables in one launch, R = M^2), at 2D
+    n=128's stage shape (512, 512, 905) and on a ragged fold (K = 33, R =
+    1,001, M = 7, 3 terms over 2 tables); the generated K5 adjoint on
     convection-diffusion, on :data:`NONLINEAR` and on the biharmonic at
     2D n=128, and on ``inner(grad(u), grad(v)) * ds`` on the 'left'
-    face's boundary grid of the extruded annulus at 3D n=48 (QL = 1)."""
-    from pyiga_tpu_torch import geometry
+    face's boundary grid of the extruded annulus at 3D n=48 (QL = 1).
+    Float32 also checks the SASS of every float32 backward instance and
+    generated float32 adjoint library for float64 instructions
+    (:func:`sass_f64_free`).  The records' keys are the kernels' launch
+    counters (``_f32`` for float32)."""
+    from pyiga_tpu_torch import _cuda, geometry
     from pyiga_tpu_torch.assemblers import StiffnessAssembler
     from pyiga_tpu_torch.assemble import instantiate_assembler
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    f32 = dtype == torch.float32
+    sfx = '_f32' if f32 else ''
+    tol = DIFF_F32_TOL if f32 else 1e-13
     out = {}
-    f64 = torch.float64
-    asm = main_path_setup(3, n3, device)
-    args = spline_partials(asm)
-    out['fields_bwd'] = fields_bwd_case('stiffness', *args, device,
-                                        '3D n=%d' % n3, 1)
-    out['mass_fields_bwd'] = fields_bwd_case('mass', *args, device,
-                                             '3D n=%d' % n3, 2)
-    jac = {'volume_n48': fields_bwd_case('jac', args[0], args[1], None, None,
-                                         args[4], device, '3D n=%d' % n3,
-                                         10)}
-    del args
-    a2 = StiffnessAssembler(kvs_of(2, n2), geometry.quarter_annulus(),
-                            device=device)
-    Y, T, _w12, _wL, nurbs = spline_partials(a2)
-    jac['annulus_n128'] = fields_bwd_case('jac', Y, T, None, None, nurbs,
-                                          device, 'annulus n=%d' % n2, 3)
-    surf = surface_vf(device, n=n2)
-    ops = surf._device_operands()
-    Y, _ = cs.geo_stage12(ops['geo_tables'], ops['geo_coeffs'], 2)
-    T = ops['geo_tables'][1][:2].contiguous()
-    jac['surface_n128'] = fields_bwd_case('jac', Y, T, None, None,
-                                          surf._geo_is_nurbs, device,
-                                          'surface n=%d' % n2, 4)
-    # a boundary Gauss grid: the 'left' face of the extruded annulus, its
-    # last axis one point (no sum over it)
-    face = surface_asm('v * ds', 3, n3, device, boundary='left')
-    ops = face._device_operands()
-    Y, _ = cs.geo_stage12(ops['geo_tables'], ops['geo_coeffs'], 3)
-    T = ops['geo_tables'][2][:2].contiguous()
-    jac['face_left_n48'] = fields_bwd_case('jac', Y, T, None, None,
-                                           face._geo_is_nurbs, device,
-                                           'face left n=%d' % n3, 11)
-    out['geo_jac_fields_bwd'] = dict(jac['annulus_n128'], cases=jac)
-    del Y, T, a2, surf, ops, face
+    with ComputeDtype(dtype):
+        asm = main_path_setup(3, n3, device)
+        args = spline_partials(asm)
+        out['fields_bwd' + sfx] = fields_bwd_case(
+            'stiffness', *args, device, '3D n=%d' % n3, 1, tol=tol)
+        out['mass_fields_bwd' + sfx] = fields_bwd_case(
+            'mass', *args, device, '3D n=%d' % n3, 2, tol=tol)
+        jac = {'volume_n48': fields_bwd_case(
+            'jac', args[0], args[1], None, None, args[4], device,
+            '3D n=%d' % n3, 10, tol=tol)}
+        del args
+        a2 = StiffnessAssembler(kvs_of(2, n2), geometry.quarter_annulus(),
+                                device=device)
+        Y, T, _w12, _wL, nurbs = spline_partials(a2)
+        jac['annulus_n128'] = fields_bwd_case(
+            'jac', Y, T, None, None, nurbs, device, 'annulus n=%d' % n2, 3,
+            tol=tol)
+        surf = surface_vf(device, n=n2)
+        ops = surf._device_operands()
+        Y, _ = cs.geo_stage12(ops['geo_tables'], ops['geo_coeffs'], 2)
+        T = ops['geo_tables'][1][:2].contiguous()
+        jac['surface_n128'] = fields_bwd_case(
+            'jac', Y, T, None, None, surf._geo_is_nurbs, device,
+            'surface n=%d' % n2, 4, tol=tol)
+        # a boundary Gauss grid: the 'left' face of the extruded annulus,
+        # its last axis one point (no sum over it)
+        face = surface_asm('v * ds', 3, n3, device, boundary='left')
+        ops = face._device_operands()
+        Y, _ = cs.geo_stage12(ops['geo_tables'], ops['geo_coeffs'], 3)
+        T = ops['geo_tables'][2][:2].contiguous()
+        jac['face_left_n48'] = fields_bwd_case(
+            'jac', Y, T, None, None, face._geo_is_nurbs, device,
+            'face left n=%d' % n3, 11, tol=tol)
+        out['geo_jac_fields_bwd' + sfx] = dict(jac['annulus_n128'],
+                                               cases=jac)
+        del Y, T, a2, surf, ops, face
 
-    # K2's and K3's backward (stage_bwd_kernel): the headline's compact
-    # chain, 2D n=128's stage shape and a ragged fold
-    rng = np.random.RandomState(5)
+        # K2's and K3's backward: the headline's compact chain, 2D n=128's
+        # stage shape and a ragged fold
+        rng = np.random.RandomState(5)
 
-    def rand(*shape):
-        return torch.as_tensor(rng.rand(*shape) - 0.5, dtype=f64,
-                               device=device)
-    cops = asm._compact_operands()
-    tabs = cops['term_tables'][0]
-    M, K = tabs[0].shape
-    cases = {}
-    for name, Tt, R in (('n%d R=%d' % (n3, K * K), tabs[0], K * K),
-                        ('n%d R=%d' % (n3, K * M), tabs[1], K * M),
-                        ('2D n=%d' % n2, rand(905, 512), 512)):
-        cases[name] = stage_bwd_case(name, [Tt], [0], rand(R, Tt.shape[0]),
-                                     device)
-    plan = cops['plan']
-    sel = [t for t, _m in plan]
-    last = [cops['last_idx'][t] for t in sel]
-    ftabs, slot = [], {}
-    for t, i in zip(sel, last):
-        if i not in slot:
-            slot[i] = len(ftabs)
-            ftabs.append(cops['term_tables'][t][-1])
-    fold_rec = stage_bwd_case('fold n=%d' % n3, ftabs,
-                              [slot[i] for i in last], rand(M * M, M),
-                              device)
-    cases['ragged fold'] = stage_bwd_case(
-        'ragged fold', [rand(7, 33), rand(7, 33)], [1, 0, 1],
-        rand(1001, 7), device)
-    both = list(cases.values())[:2]             # the n=48 stage shapes
-    out['stage_bwd'] = dict(
-        {k: sum(r[k] for r in both) for k in ('ms', 'plain_ms',
-                                              'library_ms')},
-        max_abs_err=max(r['max_abs_err'] for r in cases.values()),
-        rel=max(r['rel'] for r in cases.values()), repeat_equal=True,
-        shapes=[r['shape'] for r in both], cases=cases,
-        **bound(sum(r['bound_bytes'] for r in both),
-                sum(r['bound_flops'] for r in both), F64_TENSOR_PER_MS))
-    out['fold_bwd'] = fold_rec
-    del tabs, ftabs, asm, cops
+        def rand(*shape):
+            return torch.as_tensor(rng.rand(*shape) - 0.5, dtype=dtype,
+                                   device=device)
+        cops = asm._compact_operands()
+        tabs = cops['term_tables'][0]
+        M, K = tabs[0].shape
+        cases = {}
+        for name, Tt, R in (('n%d R=%d' % (n3, K * K), tabs[0], K * K),
+                            ('n%d R=%d' % (n3, K * M), tabs[1], K * M),
+                            ('2D n=%d' % n2, rand(905, 512), 512)):
+            cases[name] = stage_bwd_case(name, [Tt], [0],
+                                         rand(R, Tt.shape[0]), device,
+                                         tol=tol)
+        plan = cops['plan']
+        sel = [t for t, _m in plan]
+        last = [cops['last_idx'][t] for t in sel]
+        ftabs, slot = [], {}
+        for t, i in zip(sel, last):
+            if i not in slot:
+                slot[i] = len(ftabs)
+                ftabs.append(cops['term_tables'][t][-1])
+        fold_rec = stage_bwd_case('fold n=%d' % n3, ftabs,
+                                  [slot[i] for i in last], rand(M * M, M),
+                                  device, tol=tol)
+        cases['ragged fold'] = stage_bwd_case(
+            'ragged fold', [rand(7, 33), rand(7, 33)], [1, 0, 1],
+            rand(1001, 7), device, tol=tol)
+        both = list(cases.values())[:2]         # the n=48 stage shapes
+        out['stage_bwd' + sfx] = dict(
+            {k: sum(r[k] for r in both) for k in ('ms', 'plain_ms',
+                                                  'library_ms')},
+            max_abs_err=max(r['max_abs_err'] for r in cases.values()),
+            rel=max(r['rel'] for r in cases.values()), repeat_equal=True,
+            tf32_on_unchanged=f32 or None,
+            shapes=[r['shape'] for r in both], cases=cases,
+            **bound(sum(r['bound_bytes'] for r in both),
+                    sum(r['bound_flops'] for r in both),
+                    F32_PER_MS if f32 else F64_TENSOR_PER_MS))
+        out['fold_bwd' + sfx] = fold_rec
+        del tabs, ftabs, asm, cops
 
-    adj = {}
-    _kvs, _geo, conv, _f = convdiff_setup(n2, device)
-    adj['convdiff_n128'] = adjoint_case(conv, device, 'convdiff', 6)
-    w = geometry.BSplineFunc(kvs_of(2, n2), np.random.RandomState(7).rand(
-        n2 + 3, n2 + 3))
-    nl = instantiate_assembler(NONLINEAR, kvs_of(2, n2), {
-        'geo': geometry.quarter_annulus(), 'w': w}, None, device=device)
-    adj['nonlinear_n128'] = adjoint_case(nl, device, 'nonlinear', 8)
-    bih = instantiate_assembler(BIHARMONIC, kvs_of(2, n2), {
-        'geo': geometry.quarter_annulus()}, None, device=device)
-    adj['biharmonic_n128'] = adjoint_case(bih, device, 'biharmonic', 9)
-    # a boundary Gauss grid (QL = 1): the rows mapping
-    face = surface_asm('inner(grad(u), grad(v)) * ds', 3, n3, device,
-                       boundary='left')
-    adj['gradgrad_ds_left_n48'] = adjoint_case(face, device,
-                                               'gradgrad ds left', 12)
-    del face
-    out['vform_adjoint'] = dict(adj['convdiff_n128'], cases=adj)
-    out['vform_adjoint']['max_abs_err'] = max(r['max_abs_err']
-                                              for r in adj.values())
-    for k, r in out.items():
-        log('  %-18s kernel %.4f ms   plain %.4f ms   library %s   bound '
-            '%.4f ms (%s)' % (k, r['ms'], r['plain_ms'],
-                              'none' if r['library_ms'] is None
-                              else '%.4f ms' % r['library_ms'],
-                              r['bound_ms'], r['bound_by']))
-    for k in ('geo_jac_fields_bwd', 'vform_adjoint'):
+        adj = {}
+        _kvs, _geo, conv, _f = convdiff_setup(n2, device)
+        adj['convdiff_n128'] = adjoint_case(conv, device, 'convdiff', 6,
+                                            tol=tol)
+        w = geometry.BSplineFunc(kvs_of(2, n2), np.random.RandomState(
+            7).rand(n2 + 3, n2 + 3))
+        nl = instantiate_assembler(NONLINEAR, kvs_of(2, n2), {
+            'geo': geometry.quarter_annulus(), 'w': w}, None, device=device)
+        adj['nonlinear_n128'] = adjoint_case(nl, device, 'nonlinear', 8,
+                                             tol=tol)
+        bih = instantiate_assembler(BIHARMONIC, kvs_of(2, n2), {
+            'geo': geometry.quarter_annulus()}, None, device=device)
+        adj['biharmonic_n128'] = adjoint_case(bih, device, 'biharmonic', 9,
+                                              tol=tol)
+        # a boundary Gauss grid (QL = 1): the rows mapping
+        face = surface_asm('inner(grad(u), grad(v)) * ds', 3, n3, device,
+                           boundary='left')
+        adj['gradgrad_ds_left_n48'] = adjoint_case(
+            face, device, 'gradgrad ds left', 12, tol=tol)
+        del face, conv, nl, bih
+        key = 'vform_adjoint' + sfx
+        out[key] = dict(adj['convdiff_n128'], cases=adj)
+        out[key]['max_abs_err'] = max(r['max_abs_err'] for r in adj.values())
+    torch.cuda.empty_cache()
+    log('  nvcc of the %s adjoints: %s s' % (dtype, {
+        k: round(r['build']['seconds'], 2) for k, r in adj.items()}))
+    if f32:
+        gen = [k for k in _cuda.GEN_BUILDS
+               if os.path.basename(k).startswith('libvform_adjoint_f32_')]
+        out['sass_f64_free'] = sass_f64_free(
+            _cuda.BUILD_INFO['path'], gen, SASS_DIFF_F32,
+            ('vform_adjoint_kernel', 'vform_param_sum_kernel'))
+    for k in (DIFF_F32_KERNELS if f32 else DIFF_F64_KERNELS):
+        r = out[k]
+        log('  %-22s kernel %.4f ms   device %s   plain %.4f ms   library '
+            '%s   bound %.4f ms (%s)'
+            % (k, r['ms'], '%.4f ms' % r['device_ms']
+               if 'device_ms' in r else '-', r['plain_ms'],
+               'none' if r['library_ms'] is None
+               else '%.4f ms' % r['library_ms'], r['bound_ms'],
+               r['bound_by']))
+    for k in ('geo_jac_fields_bwd' + sfx, 'vform_adjoint' + sfx):
         for c, r in out[k]['cases'].items():
             log('    %s %s: %.4f ms (%s%splain %.4f, bound %.4f)'
                 % (k, c, r['ms'], 'device %.4f, ' % r['device_ms']
@@ -4655,17 +4769,210 @@ def run_diff_phase(device, n3=48, n2=128, examples=True):
         rec[ph + '_s'] = time.perf_counter() - t0
         rec[ph + '_launches'] = dict(_cuda.LAUNCHES)
         log('  phase %s backward launches: %s'
-            % (ph, {k: _cuda.LAUNCHES[k] for k in DIFF_KERNELS}))
+            % (ph, {k: _cuda.LAUNCHES[k] for k in DIFF_F64_KERNELS}))
         for k, v in _cuda.LAUNCHES.items():
             totals[k] += v
         torch.cuda.empty_cache()
     rec['launches'] = totals
     log('  phase 20 launches: %s' % {k: v for k, v in totals.items() if v})
-    missing = [k for k in DIFF_KERNELS if totals[k] <= 0]
+    missing = [k for k in DIFF_F64_KERNELS if totals[k] <= 0]
     if missing:
         raise RuntimeError('the differentiable path never launched %s'
                            % missing)
     return rec
+
+
+################################################################################
+# The differentiable assembly in float32 (phases 20f, 20g)
+################################################################################
+
+def check_diff_f32_kernels(device, n3=48, n2=128):
+    """Phase 20f: :func:`check_diff_kernels` in float32: K1-bwd f32,
+    K2-/K3-bwd f32 and the float32 K5 adjoint at phase 20a's shapes, and
+    no float64 instruction in their SASS."""
+    return check_diff_kernels(device, n3, n2, dtype=torch.float32)
+
+
+def event_ms(fn, device):
+    """`fn()`'s result and its milliseconds by CUDA events (host clock
+    on the CPU)."""
+    if device.type != 'cuda':
+        t0 = time.perf_counter()
+        res = fn()
+        return res, 1e3 * (time.perf_counter() - t0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    end.synchronize()
+    return res, start.elapsed_time(end)
+
+
+def grad_f32(fn, x0, w, device, reps=3):
+    """The value of ``fn(x)`` and the gradient of ``sum(w * fn(x))`` at
+    `x0` (a float64 leaf, as a caller passes coefficients) in the compute
+    dtype, with the forward's and the backward's ms by CUDA events over
+    `reps` runs after a warm one; the last run's value and gradient."""
+    x = torch.as_tensor(np.asarray(x0, dtype=float), dtype=torch.float64,
+                        device=device)
+    fwd, bwd = [], []
+    for r in range(reps + 1):
+        xr = x.clone().requires_grad_(True)
+        sync(device)
+        out, tf = event_ms(lambda: fn(xr), device)
+        wt = torch.as_tensor(w, dtype=out.dtype, device=device)
+        (g,), tb = event_ms(lambda: torch.autograd.grad(
+            (wt * out).sum(), xr), device)
+        if r:
+            fwd.append(tf)
+            bwd.append(tb)
+    return out.detach(), g, fwd, bwd
+
+
+def diff_f32_problems(device, n3, n2, only=None):
+    """Phase 20g's problems on `device` (all, or the one named `only`):
+    ``{name: (fn, x0)}`` under the current dtype: the 3D p=3 n=`n3`
+    twisted-box stiffness and mass (shape gradients, 20b), and at 2D p=3
+    n=`n2` on the NURBS quarter annulus the convection-diffusion form's
+    shape gradient and its parameter ``b``, and 20d's form's input ``c``
+    and parameter ``eps``."""
+    from pyiga_tpu_torch import approx, geometry
+    from pyiga_tpu_torch.assemblers import MassAssembler, StiffnessAssembler
+    from pyiga_tpu_torch.assemble import instantiate_assembler
+    from pyiga_tpu_torch.diff import assembly_coeff_fn, assembly_input_fn
+    made = {}
+
+    def conv():
+        if 'conv' not in made:
+            made['conv'] = convdiff_setup(n2, device)[2]
+        return made['conv']
+
+    def inp():
+        if 'inp' not in made:
+            kvs = kvs_of(2, n2)
+            c = geometry.BSplineFunc(kvs, approx.interpolate(
+                kvs, lambda x, y: 1.0 + x * y))
+            made['inp'] = instantiate_assembler(
+                '(c * inner(grad(u), grad(v)) + eps * dot(grad(c), '
+                'grad(u)) * v) * dx', kvs, {
+                    'geo': geometry.quarter_annulus(), 'c': c, 'eps': 0.7},
+                None, device=device)
+        return made['inp']
+    build = {
+        'stiffness_3d': lambda: assembly_coeff_fn(StiffnessAssembler(
+            kvs_of(3, n3), main_geo(3), device=device)),
+        'mass_3d': lambda: assembly_coeff_fn(MassAssembler(
+            kvs_of(3, n3), main_geo(3), device=device)),
+        'convdiff_shape_2d': lambda: assembly_coeff_fn(conv()),
+        'convdiff_b_2d': lambda: assembly_input_fn(conv(), 'b'),
+        'input_c_2d': lambda: assembly_input_fn(inp(), 'c'),
+        'param_eps_2d': lambda: assembly_input_fn(inp(), 'eps')}
+    return {name: make() for name, make in build.items()
+            if only is None or name == only}
+
+
+# phase 20g's problems held to a plain run on the CPU (the others to the
+# plain versions on the card, as phase 20b)
+DIFF_F32_ON_CPU = ('stiffness_3d', 'convdiff_b_2d', 'input_c_2d',
+                   'param_eps_2d', 'convdiff_shape_2d')
+
+
+def run_diff_f32(device, n3=48, n2=128):
+    """Phase 20g: the differentiable assembly under ``set_dtype(float32)``
+    on the card (:func:`diff_f32_problems`): every gradient's forward and
+    backward ms by CUDA events, with the launch counts set to 0 before
+    the float32 runs and read after them (no float64 kernel may launch,
+    each float32 backward kernel must); the second run bitwise the first.
+    Then each value and gradient against a plain run of the same inputs
+    (:data:`DIFF_F32_ON_CPU` on the CPU, the others through the plain
+    versions on the card: at most 2e-5 relative) and against the port's
+    float64 run on the card (at most 1e-4 relative, and not equal: it
+    was computed in float32)."""
+    from pyiga_tpu_torch import _cuda
+    f32, f64 = torch.float32, torch.float64
+    rec, res = {}, {}
+    with ComputeDtype(f32):
+        probs = diff_f32_problems(device, n3, n2)
+        ws = {}
+        for name, (fn, x0) in probs.items():      # builds, warms
+            with torch.no_grad():
+                ws[name] = np.random.RandomState(
+                    len(ws) + 30).rand(*fn(x0).shape)
+        sync(device)
+        _cuda.reset_launches()
+        for name, (fn, x0) in probs.items():
+            res[name] = grad_f32(fn, x0, ws[name], device)
+        sync(device)
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        for name, (fn, x0) in probs.items():
+            again = grad_f32(fn, x0, ws[name], device, reps=0)
+            if not (torch.equal(again[0], res[name][0])
+                    and torch.equal(again[1], res[name][1])):
+                raise RuntimeError('%s: two float32 runs differ' % name)
+    log('  phase 20g float32 launches: %s' % launches)
+    missing = [k for k in DIFF_F32_KERNELS + POISSON_F32_KERNELS[:-1]
+               + ('geo_jac_fields_f32', 'vform_fields_f32')
+               if launches.get(k, 0) <= 0]
+    f64k = [k for k in F64_ASSEMBLY_KERNELS + DIFF_F64_KERNELS
+            if launches.get(k, 0)]
+    if (missing and device.type == 'cuda') or f64k:
+        raise RuntimeError('phase 20g: float32 kernels never launched %s, '
+                           'float64 kernels launched %s' % (missing, f64k))
+    cpu = torch.device('cpu')
+    with ComputeDtype(f32):
+        for name in DIFF_F32_ON_CPU:
+            fn, x0 = diff_f32_problems_one(name, cpu, n3, n2)
+            t0 = time.perf_counter()
+            val, g, _f, _b = grad_f32(fn, x0, ws[name], cpu, reps=0)
+            rec[name] = dict(reference='plain versions on the CPU',
+                             reference_s=time.perf_counter() - t0)
+            res[name] += (val, g)
+        with PlainKernels():
+            for name, (fn, x0) in probs.items():
+                if name in DIFF_F32_ON_CPU:
+                    continue
+                val, g, _f, _b = grad_f32(fn, x0, ws[name], device, reps=0)
+                rec[name] = dict(reference='plain versions on the card')
+                res[name] += (val, g)
+    with ComputeDtype(f64):
+        for name, (fn, x0) in probs.items():
+            val, g, fwd64, bwd64 = grad_f32(fn, x0, ws[name], device, reps=1)
+            res[name] += (val, g)
+            rec[name].update(forward_ms_f64=fwd64, backward_ms_f64=bwd64)
+    for name, (val, g, fwd, bwd, pval, pg, val64, g64) in res.items():
+        r = rec[name]
+        r.update(value_dtype=str(val.dtype), grad_dtype=str(g.dtype),
+                 forward_ms=fwd, backward_ms=bwd,
+                 value_rel_plain=rel_to(val, pval), grad_rel_plain=rel_to(
+                     g, pg), value_rel_f64=rel_to(val, val64),
+                 grad_rel_f64=rel_to(g, g64))
+        log('  %-18s forward %s ms, backward %s ms (float64 %s / %s); '
+            'against %s: value %.2e grad %.2e; against float64: value %.2e '
+            'grad %.2e' % (name, ['%.2f' % t for t in fwd],
+                           ['%.2f' % t for t in bwd],
+                           ['%.2f' % t for t in r['forward_ms_f64']],
+                           ['%.2f' % t for t in r['backward_ms_f64']],
+                           r['reference'], r['value_rel_plain'],
+                           r['grad_rel_plain'], r['value_rel_f64'],
+                           r['grad_rel_f64']))
+        if not (val.dtype == f32 and g.dtype == f64
+                and r['value_rel_plain'] <= 2e-5
+                and r['grad_rel_plain'] <= 2e-5
+                and r['value_rel_f64'] <= 1e-4 and r['grad_rel_f64'] <= 1e-4
+                and not torch.equal(val, val64.float())
+                and not torch.equal(g, g64)):
+            raise RuntimeError('phase 20g: %s disagrees with its plain run '
+                               'or its float64 run, or was not computed in '
+                               'float32' % name)
+    rec['launches'] = launches
+    return rec
+
+
+def diff_f32_problems_one(name, device, n3, n2):
+    """One of :func:`diff_f32_problems` on `device` (the CPU's run builds
+    only the problem it checks)."""
+    return diff_f32_problems(device, n3, n2, only=name)[name]
 
 
 ################################################################################
@@ -5942,28 +6249,33 @@ def sass_functions(path):
     return out
 
 
-def sass_f64_free(lib_path, gen_paths):
+def sass_f64_free(lib_path, gen_paths, families=None,
+                  gen_kernels=('vform_fields_kernel',)):
     """The float32 instances' SASS holds no float64 arithmetic or
     conversion (:data:`SASS_F64`): every function of the package's library
-    that :data:`SASS_F32_KERNELS` names, and ``vform_fields_kernel`` of
-    each generated float32 K5 library in `gen_paths`.  Returns per family
-    the instances checked and the float64 instructions found; raises if a
-    family has no instance or any instruction is found."""
-    found = {k: dict(instances=0, f64=[]) for k in SASS_F32_KERNELS}
-    found['vform_fields_kernel (float32)'] = dict(instances=0, f64=[])
+    that `families` (default :data:`SASS_F32_KERNELS`) names, and the
+    kernels `gen_kernels` of each generated float32 library in
+    `gen_paths`.  Returns per family the instances checked and the
+    float64 instructions found; raises if a family has no instance or any
+    instruction is found."""
+    families = SASS_F32_KERNELS if families is None else families
+    found = {k: dict(instances=0, f64=[]) for k in families}
+    for name in gen_kernels:
+        found['%s (float32)' % name] = dict(instances=0, f64=[])
     for fn, lines in sass_functions(lib_path).items():
-        for fam, pat in SASS_F32_KERNELS.items():
+        for fam, pat in families.items():
             if pat.search(fn):
                 found[fam]['instances'] += 1
                 found[fam]['f64'] += [ln.strip() for ln in lines
                                       if SASS_F64.search(ln)][:5]
     for path in gen_paths:
         for fn, lines in sass_functions(path).items():
-            if 'vform_fields_kernel' in fn:
-                rec = found['vform_fields_kernel (float32)']
-                rec['instances'] += 1
-                rec['f64'] += [ln.strip() for ln in lines
-                               if SASS_F64.search(ln)][:5]
+            for name in gen_kernels:
+                if name in fn:
+                    rec = found['%s (float32)' % name]
+                    rec['instances'] += 1
+                    rec['f64'] += [ln.strip() for ln in lines
+                                   if SASS_F64.search(ln)][:5]
     for fam, r in found.items():
         log('  SASS %-32s %3d float32 instances, float64 instructions: %s'
             % (fam, r['instances'], r['f64'] or 'none'))
@@ -6554,6 +6866,18 @@ def main():
     launches['vcycle_wavefront'] = lmg96['launches']['vcycle_wavefront']
     torch.cuda.empty_cache()
 
+    log('phase 8c-f32: local-MG path, 2D p=3 HB (96,3) under set_dtype('
+        'float32): the float32 assembly, the float64 solve')
+    with ComputeDtype(torch.float32):
+        lmg96_f32 = run_localmg(device, 96, iters_jax=LOCALMG_ITERS_F32[
+            (96, 3)], kernels=WAVE_LOCALMG_F32_KERNELS)
+    f64_launched = [k for k in F64_ASSEMBLY_KERNELS
+                    if lmg96_f32['launches'][k]]
+    if f64_launched:
+        raise RuntimeError('phase 8c-f32: float64 assembly kernels launched '
+                           '%s' % f64_launched)
+    torch.cuda.empty_cache()
+
     log("phase 8d: local_mg_step(relax_backend='device') under "
         'iterative_solve, (24,3)')
     lmg_step = run_localmg_step_device(device)
@@ -6665,7 +6989,22 @@ def main():
         'n=128, an implicit CG compliance, input and parameter '
         'derivatives, the two examples')
     diffrec = run_diff_phase(device)
-    launches.update((k, diffrec['launches'][k]) for k in DIFF_KERNELS)
+    launches.update((k, diffrec['launches'][k]) for k in DIFF_F64_KERNELS)
+    torch.cuda.empty_cache()
+
+    log('phase 20f: the float32 backward kernels (K1-bwd, K2-/K3-bwd, the '
+        'K5 adjoint) vs plain versions, TF32 off and on; no float64 '
+        'instruction in their SASS')
+    diff_f32_kern = check_diff_f32_kernels(device)
+    kern.update((k, diff_f32_kern[k]) for k in DIFF_F32_KERNELS)
+    torch.cuda.empty_cache()
+
+    log('phase 20g: the differentiable assembly under set_dtype(float32): '
+        'the 3D n=48 gradients, 2D n=128 shape, parameter and input '
+        'gradients, against plain runs and the float64 gradients')
+    diff_f32 = run_diff_f32(device)
+    launches.update((k, diff_f32['launches'].get(k, 0))
+                    for k in DIFF_F32_KERNELS)
     torch.cuda.empty_cache()
 
     log('phase 4m: K8 (windowed_stage) and K8f (windowed_fold) vs plain '
@@ -6768,7 +7107,8 @@ def main():
                   sass_dmma=dmma, kernels=kern,
                   small=small, main3d=main3, main2d=main2,
                   convdiff2d=conv, localmg_24_3=lmg, localmg_48_3=lmg48,
-                  localmg_96_3=lmg96, localmg_step_device=lmg_step,
+                  localmg_96_3=lmg96, localmg_96_3_f32=lmg96_f32,
+                  localmg_step_device=lmg_step,
                   aca3d=aca,
                   mass3d=mass3, heat2d=heat, heat2d_device=heat_dev,
                   tail_fused3d=tail, dirichlet3d=dirichlet,
@@ -6776,7 +7116,8 @@ def main():
                   navier_stokes=nsrec, item8_kernels=item8_kern,
                   surface=surface, second_derivatives=second,
                   multipatch=multipatch, diff_kernels=diff_kern,
-                  diff=diffrec, windowed_kernels=win_kern,
+                  diff=diffrec, diff_f32_kernels=diff_f32_kern,
+                  diff_f32=diff_f32, windowed_kernels=win_kern,
                   windowed=windowed, n96=n96, f32_line=f32line,
                   f32_assembly_kernels=f32_asm_kern, f32_assembly=f32asm,
                   seconds=time.perf_counter() - t_start)

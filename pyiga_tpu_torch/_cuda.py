@@ -55,7 +55,11 @@ LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'mass_fields': 0,
             # ... and of K1's jac kind, K1', K5, K8 and K8f
             'geo_jac_fields_f32': 0, 'host_jac_fields_f32': 0,
             'vform_fields_f32': 0, 'windowed_stage_f32': 0,
-            'windowed_fold_f32': 0}
+            'windowed_fold_f32': 0,
+            # ... and of the backward kernels and K5's adjoint
+            'fields_bwd_f32': 0, 'mass_fields_bwd_f32': 0,
+            'geo_jac_fields_bwd_f32': 0, 'stage_bwd_f32': 0,
+            'fold_bwd_f32': 0, 'vform_adjoint_f32': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,11 +76,14 @@ _SIGNATURES = {
     'pyiga_geo_jac_fields_f32': (_P, _P, _P, _I, _I, _I, _L, _I, _I, _P),
     'pyiga_fields_bwd_f64': (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
                              _I, _P),
+    'pyiga_fields_bwd_f32': (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
+                             _I, _P),
     'pyiga_stage_f64': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_fold_f64': (_P, _P, _I, _P, _I, _L, _I, _P),
     'pyiga_stage_f32': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_fold_f32': (_P, _P, _I, _P, _I, _L, _I, _P),
     'pyiga_stage_bwd_f64': (_P, _I, _P, _P, _I, _L, _I, _P),
+    'pyiga_stage_bwd_f32': (_P, _I, _P, _P, _I, _L, _I, _P),
     'pyiga_stage_T_f64': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_tail_fused_f64': (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     'pyiga_flat_banded_f64': (_P, _P, _P, _P, _I, _L, _L, _P),

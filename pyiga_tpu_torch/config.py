@@ -8,12 +8,16 @@ mass assemblers (K1's stiffness and ``mass`` kinds, K2, K3, K4), VForm
 assembly with ``assemble()``, ``stiffness`` / ``mass``, boundary and
 surface forms, the ACA slices and the hierarchical per-level assemblies
 (K1's ``jac`` kind and the generated K5), the windowed route (K8, K8f)
-and the stiffness of a host-evaluated geometry (K1').  The paths whose
-kernels have no float32 instance yet raise ``NotImplementedError``
-(:func:`require_float64`): the local-multigrid solves (K6 and the
-wavefront smoothers), the differentiable assembly (the backward kernels
-and K5's adjoint) and the fused tail K7.  The host thread count
-(:func:`get_max_threads`) is process-wide too.
+and the stiffness of a host-evaluated geometry (K1'), and so does the
+differentiable assembly (:mod:`~pyiga_tpu_torch.diff`: K1's backward,
+K2-bwd / K3-bwd and K5's adjoint in float32).  The local-multigrid
+solves take the matrix the float32 hierarchical assembly returns and
+solve in float64 (K6 and the wavefront smoothers), as the JAX package's
+``ops/mg.py`` and ``solvers.py`` do whatever the dtype; the time
+steppers' device operators are float64 too.  The fused tail K7 has no
+float32 instance: float32 chains take K2 + K3, as the JAX package's f32
+line runs no fused tail.  The host thread count (:func:`get_max_threads`)
+is process-wide too.
 
 Every entry point takes ``device=``, and omitting it means the card
 (``torch.device('cuda')``).  Pass ``device='cpu'`` to run on the CPU,
@@ -35,9 +39,10 @@ import os
 import numpy as np
 import torch
 
-# float64, the dtype of the paths that have no float32 instance (local
-# MG, the differentiable assembly, the time steppers' device operators;
-# the f32 Krylov operators of solvers.cg_ir name float32 themselves)
+# float64, the dtype of the paths that compute in float64 whatever the
+# compute dtype, as the JAX package's (local MG, the time steppers'
+# device operators; the f32 Krylov operators of solvers.cg_ir name
+# float32 themselves)
 DTYPE = torch.float64
 DEFAULT_DEVICE = torch.device('cuda')
 
@@ -101,18 +106,6 @@ def default_assembly_mode():
     arithmetic and f64 tensor cores, so the port has no Ozaki route and
     its one route is the exact chain."""
     return 'exact'
-
-
-def require_float64(what):
-    """Raise ``NotImplementedError`` when the compute dtype is float32:
-    `what` (a path whose kernels have no float32 instance yet: local MG,
-    the differentiable assembly) would otherwise compute in float64
-    against the dtype's word.  Every assembly path runs in float32."""
-    if _state.dtype != torch.float64:
-        raise NotImplementedError(
-            '%s has no float32 kernels yet (ROADMAP section 1, item 5, '
-            'steps 4-5; every assembly path runs in float32); call '
-            'set_dtype(np.float64) first' % what)
 
 
 @contextlib.contextmanager

@@ -1,5 +1,5 @@
-// Geometry-field kernels for Hopper (sm_90a), float64; K1's forward (all
-// three kinds) and K1' also in float32.
+// Geometry-field kernels for Hopper (sm_90a), float64; K1 (all three
+// kinds, forward and backward) and K1' also in float32.
 //
 // K1  geo_fields_kernel<D, G, NURBS, KIND, NL, ROWS, S>  replaces
 //     pyiga_tpu/ops/pallas_sumfac.py `_fields_fused` (pallas_call at :1087,
@@ -7,26 +7,30 @@
 //     'stiffness', 'mass' (through `mass_fields_pallas`, :1411) and 'jac'
 //     (through `geo_jac_fields_pallas`, :1421, for the generic VForm
 //     fields).
-// K1 backward geo_fields_bwd_kernel<D, G, NURBS, KIND, NL>: the gradient
-//     of the three kinds with respect to Y, for the differentiable
-//     assembly (pyiga_tpu_torch/diff.py; the JAX package differentiates
-//     K1's XLA form).
+// K1 backward geo_fields_bwd_kernel<D, G, NURBS, KIND, NL, S>: the
+//     gradient of the three kinds with respect to Y, for the
+//     differentiable assembly (pyiga_tpu_torch/diff.py; the JAX package
+//     differentiates K1's XLA form).
 // K1' host_jac_fields_kernel<D, S>  replaces `stiffness_fields_pallas`'s
 //     host-Jacobian branch (pallas_call at :1163, body
 //     `_make_stiff_fields_kernel`, :930).
 //
 // The TPU kernels carry float64 as two-float f32 pairs because the v5e has
 // no f64 arithmetic; Hopper has native f64, so these compute in double
-// directly.  K1's forward and K1' are templated on their scalar S: the
-// float32 instances (pyiga_stiff_fields_f32, pyiga_mass_fields_f32,
-// pyiga_geo_jac_fields_f32, pyiga_host_jac_fields_f32) are the f32
-// line's (pyiga_tpu_torch.config.set_dtype(np.float32)), which the JAX
-// package runs by casting the geometry inputs to float32 before the same
-// fields (pyiga_tpu/ops/sumfac.py:676, pyiga_tpu/compile.py:1250-1262):
-// the contraction, the NURBS quotient, det J and the inverse all run in
-// float32, never in double rounded at the end (no double literal, no
-// double function: fabsf through sabs).  Their bound is the same output
-// writes at half the bytes; the design is the double one's.
+// directly.  K1 (forward and backward) and K1' are templated on their
+// scalar S: the float32 instances (pyiga_stiff_fields_f32,
+// pyiga_mass_fields_f32, pyiga_geo_jac_fields_f32,
+// pyiga_host_jac_fields_f32, pyiga_fields_bwd_f32) are the f32 line's
+// (pyiga_tpu_torch.config.set_dtype(np.float32)), which the JAX package
+// runs by casting the geometry inputs to float32 before the same fields
+// (pyiga_tpu/ops/sumfac.py:676, pyiga_tpu/compile.py:1250-1262) and
+// differentiating that float32 form (pyiga_tpu/diff.py:118-132): the
+// contraction, the NURBS quotient, det J, the inverse, the VJP and the
+// sum back over the last axis all run in float32, never in double
+// rounded at the end (no double literal, no double function: fabsf and
+// copysignf through sabs and scopysign; the sum in the double kernel's
+// fixed order).  Their bound is the same bytes at half the size; the
+// design is the double one's.
 
 #include "common.cuh"
 #include "dmma.cuh"      // cp.async
@@ -35,6 +39,27 @@
 // double)
 __device__ __forceinline__ double sabs(double x) { return fabs(x); }
 __device__ __forceinline__ float sabs(float x) { return fabsf(x); }
+// |x| with the sign of y, likewise
+__device__ __forceinline__ double scopysign(double x, double y) {
+    return copysign(x, y);
+}
+__device__ __forceinline__ float scopysign(float x, float y) {
+    return copysignf(x, y);
+}
+
+// one scalar from global to shared memory by cp.async (8 bytes a double,
+// 4 a float)
+__device__ __forceinline__ void cp_async_scalar(double* dst,
+                                                const double* src) {
+    dmma::cp_async<8>(dst, src, 8);
+}
+__device__ __forceinline__ void cp_async_scalar(float* dst,
+                                                const float* src) {
+    const unsigned int d =
+        static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, 4;\n"
+                 :: "r"(d), "l"(src));
+}
 
 // --------------------------------------------------------------------------
 // Per-point algebra: determinant, inverse by the adjugate (as
@@ -308,7 +333,7 @@ geo_fields_kernel(const S* __restrict__ Y, const S* __restrict__ T,
 }
 
 // --------------------------------------------------------------------------
-// K1's backward: geo_fields_bwd_kernel<D, G, NURBS, KIND, NL>.
+// K1's backward: geo_fields_bwd_kernel<D, G, NURBS, KIND, NL, S>.
 //
 // The JAX package differentiates the XLA form of K1 (pyiga_tpu/diff.py
 // builds on `asm.field_fn` with mode='exact', no Pallas kernel); the
@@ -354,7 +379,9 @@ geo_fields_kernel(const S* __restrict__ Y, const S* __restrict__ T,
 // kBwdJC outputs j, the sums of that run in registers.
 //
 // Bound: Y, gout and the weights read once, gY written once (gout
-// dominates: 6, 1 or 12 doubles a point at 3D), against the operations
+// dominates: 6, 1 or 12 scalars a point at 3D; a float32 instance moves
+// half the bytes of the double one and does the same operations on the
+// FMA units' float32 rate), against the operations
 // of the body as written (chip_smoke.fields_bwd_flops: 310, 116 and 96 a
 // point at 3D n=48, nL = 2): bytes bound the stiffness and jac kinds,
 // operations the mass kind.  What the design does about it: the gout
@@ -380,9 +407,9 @@ constexpr int kBwdJC = 4;           // NL = 0: outputs j a pass
 constexpr int kBwdChunk = 512;      // NL > 0: points of the tables staged
 
 // adj J (J^-1 = adj / det) and det J, det by the first row (det_of's sum)
-template <int D>
-__device__ __forceinline__ double adj_det(const double (&J)[D][D],
-                                          double (&adj)[D][D]) {
+template <int D, class S>
+__device__ __forceinline__ S adj_det(const S (&J)[D][D],
+                                          S (&adj)[D][D]) {
     if constexpr (D == 2) {
         adj[0][0] = J[1][1];
         adj[0][1] = -J[0][1];
@@ -404,7 +431,7 @@ __device__ __forceinline__ double adj_det(const double (&J)[D][D],
     }
 }
 
-// doubles of the forward's output a point
+// scalars of the forward's output a point
 template <int D, int G, int KIND>
 struct GoutFields {
     static constexpr int value =
@@ -414,18 +441,18 @@ struct GoutFields {
 // The VJP of one point: from the homogeneous Jacobian jh[c][k], the values
 // val[c] (NURBS or kJac), the output's gradient go and the Gauss weight gw
 // to the table coefficients av[t][c] and ad[c].
-template <int D, int G, bool NURBS, int KIND>
+template <int D, int G, bool NURBS, int KIND, class S>
 __device__ __forceinline__ void point_vjp(
-        const double (&jh)[G + (NURBS ? 1 : 0)][D],
-        const double (&val)[G + (NURBS ? 1 : 0)],
-        const double (&go)[GoutFields<D, G, KIND>::value], double gw,
-        double (&av)[D][G + (NURBS ? 1 : 0)],
-        double (&ad)[G + (NURBS ? 1 : 0)]) {
+        const S (&jh)[G + (NURBS ? 1 : 0)][D],
+        const S (&val)[G + (NURBS ? 1 : 0)],
+        const S (&go)[GoutFields<D, G, KIND>::value], S gw,
+        S (&av)[D][G + (NURBS ? 1 : 0)],
+        S (&ad)[G + (NURBS ? 1 : 0)]) {
     constexpr int C = G + (NURBS ? 1 : 0);
-    double gJ[G][D], gx[G];
-    double iW = 0.0, iWW = 0.0, xv[G];
+    S gJ[G][D], gx[G];
+    S iW = S(0), iWW = S(0), xv[G];
     if constexpr (NURBS) {
-        iW = 1.0 / val[C - 1];
+        iW = S(1) / val[C - 1];
         iWW = iW * iW;
 #pragma unroll
         for (int c = 0; c < G; ++c) xv[c] = val[c] * iW;
@@ -438,7 +465,7 @@ __device__ __forceinline__ void point_vjp(
             for (int k = 0; k < D; ++k) gJ[c][k] = go[G + c * D + k];
         }
     } else {
-        double J[D][D];
+        S J[D][D];
 #pragma unroll
         for (int c = 0; c < D; ++c)
 #pragma unroll
@@ -447,48 +474,48 @@ __device__ __forceinline__ void point_vjp(
                     J[c][k] = (jh[c][k] - xv[c] * jh[C - 1][k]) * iW;
                 else
                     J[c][k] = jh[c][k];
-        double adj[D][D];
-        const double det = adj_det<D>(J, adj);
+        S adj[D][D];
+        const S det = adj_det<D>(J, adj);
         if constexpr (KIND == kMass) {
-            const double f = copysign(gw, det) * go[0];
+            const S f = scopysign(gw, det) * go[0];
 #pragma unroll
             for (int c = 0; c < D; ++c)
 #pragma unroll
                 for (int k = 0; k < D; ++k) gJ[c][k] = f * adj[k][c];
         } else {
-            double Gs[D][D];
+            S Gs[D][D];
             int o = 0;
 #pragma unroll
             for (int a = 0; a < D; ++a)
 #pragma unroll
                 for (int b = a; b < D; ++b) {
-                    Gs[a][b] = a == b ? go[o] : 0.5 * go[o];
+                    Gs[a][b] = a == b ? go[o] : S(0.5) * go[o];
                     Gs[b][a] = Gs[a][b];
                     ++o;
                 }
-            const double r = 1.0 / det;
-            const double f = copysign(gw * r * r, det);
-            double P1[D][D];            // Gs adj
+            const S r = S(1) / det;
+            const S f = scopysign(gw * r * r, det);
+            S P1[D][D];            // Gs adj
 #pragma unroll
             for (int a = 0; a < D; ++a)
 #pragma unroll
                 for (int m = 0; m < D; ++m) {
-                    double s = 0.0;
+                    S s = S(0);
 #pragma unroll
                     for (int b = 0; b < D; ++b) s += Gs[a][b] * adj[b][m];
                     P1[a][m] = s;
                 }
-            double GA = 0.0;            // Gs : adj adj^T
+            S GA = S(0);            // Gs : adj adj^T
 #pragma unroll
             for (int a = 0; a < D; ++a)
 #pragma unroll
                 for (int m = 0; m < D; ++m) GA += P1[a][m] * adj[a][m];
-            double Q[D][D];             // adj^T Gs adj, symmetric
+            S Q[D][D];             // adj^T Gs adj, symmetric
 #pragma unroll
             for (int i = 0; i < D; ++i)
 #pragma unroll
                 for (int j = i; j < D; ++j) {
-                    double s = 0.0;
+                    S s = S(0);
 #pragma unroll
                     for (int a = 0; a < D; ++a) s += adj[a][i] * P1[a][j];
                     Q[i][j] = s;
@@ -498,23 +525,23 @@ __device__ __forceinline__ void point_vjp(
             for (int i = 0; i < D; ++i)
 #pragma unroll
                 for (int j = 0; j < D; ++j) {
-                    double s = 0.0;
+                    S s = S(0);
 #pragma unroll
                     for (int m = 0; m < D; ++m) s += Q[i][m] * adj[j][m];
-                    gJ[i][j] = f * (GA * adj[j][i] - 2.0 * s);
+                    gJ[i][j] = f * (GA * adj[j][i] - S(2) * s);
                 }
         }
     }
     if constexpr (NURBS) {
-        double gW = 0.0;
+        S gW = S(0);
 #pragma unroll
         for (int c = 0; c < G; ++c)
 #pragma unroll
             for (int k = 0; k < D; ++k)
-                gW += gJ[c][k] * (2.0 * xv[c] * jh[C - 1][k] - jh[c][k]);
+                gW += gJ[c][k] * (S(2) * xv[c] * jh[C - 1][k] - jh[c][k]);
 #pragma unroll
         for (int k = 0; k < D; ++k) {
-            double m = 0.0;
+            S m = S(0);
 #pragma unroll
             for (int c = 0; c < G; ++c) m += gJ[c][k] * val[c];
             if (k < D - 1) av[k][C - 1] = -m * iWW;
@@ -522,10 +549,10 @@ __device__ __forceinline__ void point_vjp(
         }
 #pragma unroll
         for (int c = 0; c < G; ++c) {
-            double m = 0.0;
+            S m = S(0);
 #pragma unroll
             for (int k = 0; k < D; ++k) m += gJ[c][k] * jh[C - 1][k];
-            double gv = -m * iWW;
+            S gv = -m * iWW;
             if constexpr (KIND == kJac) gv += gx[c] * iW;
             av[D - 1][c] = gv;
 #pragma unroll
@@ -547,19 +574,19 @@ __device__ __forceinline__ void point_vjp(
                 if (k < D - 1) av[k][c] = gJ[c][k];
                 else ad[c] = gJ[c][k];
             }
-            av[D - 1][c] = KIND == kJac ? gx[c] : 0.0;
+            av[D - 1][c] = KIND == kJac ? gx[c] : S(0);
         }
     }
 }
 
-template <int D, int G, bool NURBS, int KIND, int NL>
+template <int D, int G, bool NURBS, int KIND, int NL, class S>
 __global__ void __launch_bounds__(kBwdThreads, BwdTune<KIND>::minb)
-geo_fields_bwd_kernel(const double* __restrict__ Y,
-                      const double* __restrict__ T,
-                      const double* __restrict__ w12,
-                      const double* __restrict__ wL,
-                      const double* __restrict__ gout,
-                      double* __restrict__ gY, int Q12, int QL, int nL_,
+geo_fields_bwd_kernel(const S* __restrict__ Y,
+                      const S* __restrict__ T,
+                      const S* __restrict__ w12,
+                      const S* __restrict__ wL,
+                      const S* __restrict__ gout,
+                      S* __restrict__ gY, int Q12, int QL, int nL_,
                       int lp) {
     static_assert(KIND == kJac || G == D, "only the jac kind takes G != D");
     constexpr int C = G + (NURBS ? 1 : 0);
@@ -575,44 +602,44 @@ geo_fields_bwd_kernel(const double* __restrict__ Y,
     const int k = threadIdx.x & (P - 1);
     const int q12 = blockIdx.x * (kBwdThreads >> lp) + (threadIdx.x >> lp);
     const bool active = q12 < Q12;
-    extern __shared__ double smem[];
+    extern __shared__ double smem_d[];  // declared double: its alignment
+    S* smem = reinterpret_cast<S*>(smem_d);
     constexpr int NS = PF + 1;                   // ring slots a lane
     const int CQ = NL ? min(QL, kBwdChunk) : QL;  // points a chunk
-    double* sR = smem;                  // [warps][NO] when P > 32
-    double* sT = sR + (P > 32 ? (kBwdThreads / 32) * NO : 0);  // [2][CQ][NL]
-    double* sG = sT + (NL ? 2 * CQ * NL : 0);    // [NS][NF][threads]
+    S* sR = smem;                  // [warps][NO] when P > 32
+    S* sT = sR + (P > 32 ? (kBwdThreads / 32) * NO : 0);  // [2][CQ][NL]
+    S* sG = sT + (NL ? 2 * CQ * NL : 0);    // [NS][NF][threads]
 
     const long long N = (long long)Q12 * QL;
     const long long ys = (long long)Q12 * nL;
-    const double* yg = Y + (long long)(active ? q12 : 0) * nL;
-    double yr[NL ? NTC : 1][NL ? NL : 1];       // the row's Y (NL > 0)
+    const S* yg = Y + (long long)(active ? q12 : 0) * nL;
+    S yr[NL ? NTC : 1][NL ? NL : 1];       // the row's Y (NL > 0)
     if constexpr (NL > 0) {
 #pragma unroll
         for (int tc = 0; tc < NTC; ++tc)
 #pragma unroll
             for (int j = 0; j < NL; ++j)
-                yr[tc][j] = active ? __ldg(yg + tc * ys + j) : 0.0;
+                yr[tc][j] = active ? __ldg(yg + tc * ys + j) : S(0);
     }
-    const double w = (KIND != kJac && active) ? __ldg(w12 + q12) : 0.0;
+    const S w = (KIND != kJac && active) ? __ldg(w12 + q12) : S(0);
     const long long g0 = (long long)q12 * QL;
     // a point's gout and wL into ring slot `slot`, by cp.async (no
     // register holds it in flight)
     auto fetch = [&](int q, int slot) {
-        double* dst = sG + slot * NF * kBwdThreads + threadIdx.x;
+        S* dst = sG + slot * NF * kBwdThreads + threadIdx.x;
 #pragma unroll
         for (int f = 0; f < NG; ++f)
-            dmma::cp_async<8>(dst + f * kBwdThreads, gout + f * N + g0 + q,
-                              8);
+            cp_async_scalar(dst + f * kBwdThreads, gout + f * N + g0 + q);
         if constexpr (KIND != kJac)
-            dmma::cp_async<8>(dst + NG * kBwdThreads, wL + q, 8);
+            cp_async_scalar(dst + NG * kBwdThreads, wL + q);
     };
 
     for (int jb = 0; jb < nL; jb += JC) {
-        double acc[NTC][JC];
+        S acc[NTC][JC];
 #pragma unroll
         for (int tc = 0; tc < NTC; ++tc)
 #pragma unroll
-            for (int jj = 0; jj < JC; ++jj) acc[tc][jj] = 0.0;
+            for (int jj = 0; jj < JC; ++jj) acc[tc][jj] = S(0);
         // the last axis in chunks of kBwdChunk points (a multiple of P),
         // each chunk's tables staged in shared memory (NL > 0); the
         // runtime nL reads them in place, in one chunk
@@ -642,17 +669,17 @@ geo_fields_bwd_kernel(const double* __restrict__ Y,
                 if (q + PF * P < cend) fetch(q + PF * P, fill);
                 dmma::cp_async_commit();
                 dmma::cp_async_wait<PF>();      // point q's group landed
-                double cur[NF];
+                S cur[NF];
 #pragma unroll
                 for (int f = 0; f < NF; ++f)
                     cur[f] = sG[(slot * NF + f) * kBwdThreads + threadIdx.x];
                 slot = slot + 1 < NS ? slot + 1 : 0;
 
-                double jh[C][D], val[C];
-                double ta[JC], tb[JC];  // the pass's table values
+                S jh[C][D], val[C];
+                S ta[JC], tb[JC];  // the pass's table values
                 if constexpr (NL > 0) {
-                    const double* tv = sT + (q - c0) * NL;
-                    const double* td = tv + CQ * NL;
+                    const S* tv = sT + (q - c0) * NL;
+                    const S* td = tv + CQ * NL;
 #pragma unroll
                     for (int j = 0; j < NL; ++j) {
                         ta[j] = tv[j];
@@ -663,14 +690,14 @@ geo_fields_bwd_kernel(const double* __restrict__ Y,
 #pragma unroll
                         for (int kk = 0; kk < D; ++kk) {
                             const int t = kk < D - 1 ? kk : D - 1;
-                            double s = 0.0;
+                            S s = S(0);
 #pragma unroll
                             for (int j = 0; j < NL; ++j)
                                 s += (kk == D - 1 ? tb[j] : ta[j])
                                      * yr[t * C + c][j];
                             jh[c][kk] = s;
                         }
-                        double s = 0.0;
+                        S s = S(0);
                         if constexpr (VALS) {
 #pragma unroll
                             for (int j = 0; j < NL; ++j)
@@ -679,23 +706,23 @@ geo_fields_bwd_kernel(const double* __restrict__ Y,
                         val[c] = s;
                     }
                 } else {
-                    const double* pv = T + (long long)q * nL;
-                    const double* pd = T + ((long long)QL + q) * nL;
+                    const S* pv = T + (long long)q * nL;
+                    const S* pd = T + ((long long)QL + q) * nL;
 #pragma unroll
                     for (int c = 0; c < C; ++c) {
 #pragma unroll
                         for (int kk = 0; kk < D; ++kk) {
                             const int t = kk < D - 1 ? kk : D - 1;
-                            const double* tab = kk == D - 1 ? pd : pv;
-                            const double* y = yg + (t * C + c) * ys;
-                            double s = 0.0;
+                            const S* tab = kk == D - 1 ? pd : pv;
+                            const S* y = yg + (t * C + c) * ys;
+                            S s = S(0);
                             for (int j = 0; j < nL; ++j)
                                 s += __ldg(tab + j) * __ldg(y + j);
                             jh[c][kk] = s;
                         }
-                        double s = 0.0;
+                        S s = S(0);
                         if constexpr (VALS) {
-                            const double* y = yg + ((D - 1) * C + c) * ys;
+                            const S* y = yg + ((D - 1) * C + c) * ys;
                             for (int j = 0; j < nL; ++j)
                                 s += __ldg(pv + j) * __ldg(y + j);
                         }
@@ -704,15 +731,15 @@ geo_fields_bwd_kernel(const double* __restrict__ Y,
 #pragma unroll
                     for (int jj = 0; jj < JC; ++jj) {
                         const bool in = jb + jj < nL;
-                        ta[jj] = in ? __ldg(pv + jb + jj) : 0.0;
-                        tb[jj] = in ? __ldg(pd + jb + jj) : 0.0;
+                        ta[jj] = in ? __ldg(pv + jb + jj) : S(0);
+                        tb[jj] = in ? __ldg(pd + jb + jj) : S(0);
                     }
                 }
-                const double gw = KIND == kJac ? 0.0 : w * cur[NF - 1];
-                double go[NG];
+                const S gw = KIND == kJac ? S(0) : w * cur[NF - 1];
+                S go[NG];
 #pragma unroll
                 for (int f = 0; f < NG; ++f) go[f] = cur[f];
-                double av[D][C], ad[C];
+                S av[D][C], ad[C];
                 point_vjp<D, G, NURBS, KIND>(jh, val, go, gw, av, ad);
 #pragma unroll
                 for (int c = 0; c < C; ++c) {
@@ -723,7 +750,7 @@ geo_fields_bwd_kernel(const double* __restrict__ Y,
                             acc[t * C + c][jj] += av[t][c] * ta[jj];
 #pragma unroll
                     for (int jj = 0; jj < JC; ++jj) {
-                        double a = acc[(D - 1) * C + c][jj];
+                        S a = acc[(D - 1) * C + c][jj];
                         if constexpr (VALS) a += av[D - 1][c] * ta[jj];
                         acc[(D - 1) * C + c][jj] = a + ad[c] * tb[jj];
                     }
@@ -765,7 +792,7 @@ geo_fields_bwd_kernel(const double* __restrict__ Y,
             __syncthreads();
             if (active && k < NO) {
                 const int w0 = (threadIdx.x >> lp) * (P >> 5);
-                double s = 0.0;
+                S s = S(0);
                 for (int v = 0; v < (P >> 5); ++v) s += sR[(w0 + v) * NO + k];
                 const int tc = k / JC, jj = k - tc * JC;
                 if (NL > 0 || jb + jj < nL)
@@ -787,7 +814,7 @@ geo_fields_bwd_kernel(const double* __restrict__ Y,
 // fewer than kBwdMinThreads lanes, up to the block.
 // --------------------------------------------------------------------------
 
-// S: the scalar (double; float for K1's float32 instance, forward only)
+// S: the scalar (double; float for the float32 instances)
 template <class S>
 struct FieldsArgsT {
     const S* Y;
@@ -799,7 +826,6 @@ struct FieldsArgsT {
     int Q12, QL, nL;
     cudaStream_t s;
 };
-using FieldsArgs = FieldsArgsT<double>;
 
 template <int D, int G, bool NURBS, int KIND, int NL, class S>
 static int launch_fwd(const FieldsArgsT<S>& a) {
@@ -830,8 +856,8 @@ static int launch_fwd(const FieldsArgsT<S>& a) {
     return (int)cudaGetLastError();
 }
 
-template <int D, int G, bool NURBS, int KIND, int NL>
-static int launch_bwd(const FieldsArgs& a) {
+template <int D, int G, bool NURBS, int KIND, int NL, class S>
+static int launch_bwd(const FieldsArgsT<S>& a) {
     constexpr int C = G + (NURBS ? 1 : 0);
     constexpr int NO = D * C * (NL ? NL : kBwdJC);
     int lp = 0;
@@ -841,11 +867,12 @@ static int launch_bwd(const FieldsArgs& a) {
         ++lp;
     const int rows = kBwdThreads >> lp;
     constexpr int NF = GoutFields<D, G, KIND>::value + (KIND == kJac ? 0 : 1);
+    constexpr long long E = sizeof(S);
     const long long smem =
-        ((1 << lp) > 32 ? 8LL * (kBwdThreads / 32) * NO : 0)
-        + (NL ? 16LL * (a.QL < kBwdChunk ? a.QL : kBwdChunk) * NL : 0)
-        + 8LL * (BwdTune<KIND>::pf + 1) * NF * kBwdThreads;
-    auto kernel = geo_fields_bwd_kernel<D, G, NURBS, KIND, NL>;
+        ((1 << lp) > 32 ? E * (kBwdThreads / 32) * NO : 0)
+        + (NL ? 2 * E * (a.QL < kBwdChunk ? a.QL : kBwdChunk) * NL : 0)
+        + E * (BwdTune<KIND>::pf + 1) * NF * kBwdThreads;
+    auto kernel = geo_fields_bwd_kernel<D, G, NURBS, KIND, NL, S>;
     if (smem > 49152) {
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -974,12 +1001,11 @@ PYIGA_EXPORT int pyiga_geo_jac_fields_f32(const float* Y, const float* T,
 }
 
 // K1's backward of `kind` (0 stiffness, 1 mass, 2 jac): gY from gout.
-PYIGA_EXPORT int pyiga_fields_bwd_f64(int kind, const double* Y,
-                                      const double* T, const double* w12,
-                                      const double* wL, const double* gout,
-                                      double* gY, int d, int g, int nurbs,
-                                      long long Q12, int QL, int nL,
-                                      void* stream) {
+template <class S>
+static int fields_bwd(int kind, const S* Y, const S* T, const S* w12,
+                      const S* wL, const S* gout, S* gY, int d, int g,
+                      int nurbs, long long Q12, int QL, int nL,
+                      void* stream) {
     switch (kind) {
         case kStiffness:
             return launch_fields<kStiffness, true>(Y, T, w12, wL, gout, gY,
@@ -994,6 +1020,28 @@ PYIGA_EXPORT int pyiga_fields_bwd_f64(int kind, const double* Y,
         default:
             return (int)cudaErrorInvalidValue;
     }
+}
+
+PYIGA_EXPORT int pyiga_fields_bwd_f64(int kind, const double* Y,
+                                      const double* T, const double* w12,
+                                      const double* wL, const double* gout,
+                                      double* gY, int d, int g, int nurbs,
+                                      long long Q12, int QL, int nL,
+                                      void* stream) {
+    return fields_bwd(kind, Y, T, w12, wL, gout, gY, d, g, nurbs, Q12, QL,
+                      nL, stream);
+}
+
+// K1's backward in float32 (the f32 line's differentiable assembly): the
+// same arguments in float, every kind, (d, g, NURBS, nL) and mapping.
+PYIGA_EXPORT int pyiga_fields_bwd_f32(int kind, const float* Y,
+                                      const float* T, const float* w12,
+                                      const float* wL, const float* gout,
+                                      float* gY, int d, int g, int nurbs,
+                                      long long Q12, int QL, int nL,
+                                      void* stream) {
+    return fields_bwd(kind, Y, T, w12, wL, gout, gY, d, g, nurbs, Q12, QL,
+                      nL, stream);
 }
 
 // --------------------------------------------------------------------------

@@ -6,7 +6,17 @@
 // K3f pyiga_fold_f32   the sum over terms t of K2f(X_t, T_idx[t]), written
 //     once, the terms that share a table summed before its product: K3's
 //     function in float32.
-// Both launch fold_f32_kernel, K2f as its case of one term: one mainloop.
+// K2-bwd f32 / K3-bwd f32 pyiga_stage_bwd_f32  gX_i[k, r] = sum_m T_i[m, k]
+//     g[r, m] for up to 16 tables T_i (M, K) and the gradient g (R, M) of
+//     a stage's or a fold's output; out (G, K, R): the backward of K2f and
+//     K3f, the float32 instance of sumfac.cu's stage_bwd_kernel.
+// All three launch fold_f32_kernel, K2f as its case of one term: one
+// mainloop.  The backward is the fold's function with the roles turned:
+// each table T_i is read as a field (its rows m are the contraction, its
+// columns k the output's rows: T_i (M, K) is an X (K_f, R_f) as it lies),
+// g as the table (read transposed, g[r, m] -> [m][r], by the same
+// cp.async path), and each table is a group of its own with an output of
+// its own (fold_f32_kernel<VB, 1, true>).
 //
 // The JAX package's f32 line runs these contractions as XLA tensordots at
 // Precision.HIGHEST (pyiga_tpu/ops/sumfac.py:55 `contract_chain` and :291
@@ -22,6 +32,11 @@
 // line K = 192, M = 357: the two stage shapes (R = 36,864 and 68,544) do
 // 14.5 GFLOP (0.216 ms) over 226 MB (0.067 ms); the fold, 3 tables of 2
 // terms at R = 127,449, 52.4 GFLOP (0.782 ms) over 769 MB (0.230 ms).
+// The backward at the n=48 gradient's shapes (K = 192, M = 345; the
+// stages R = 36,864 and 66,240, the fold 3 tables at R = 119,025) does
+// the float64 backward's operations at the same peak: 0.2039 and 0.7060
+// ms.  Its K = 192 fills one and a half 128-row tiles: a quarter of the
+// second tile's FFMA are lost (a simple mapping first).
 //
 // Design.  A step of the mainloop is (table group, k slice), and every
 // step runs a product.  A block of 256 threads owns a 128 (r) x 128 (m)
@@ -388,8 +403,12 @@ __device__ __forceinline__ void mma_slice(const float* Xs, const float* Ts,
 
 // PRE: the terms of a group whose X slices are fetched ahead (1 where
 // every group has one term: K2f; else 2).  lvo: log2 of the output
-// store's width in floats (0, 1 or 2).
-template <int VB, int PRE>
+// store's width in floats (0, 1 or 2).  BWD (K2-bwd f32): every group is
+// one term with an output of its own, out + i R M for group i, and all
+// share the table terms.t[0]; a block runs one group, whose index the
+// grid carries between the m tiles (slowest) and the r tiles, so that
+// the blocks that read one table tile run together.
+template <int VB, int PRE, bool BWD>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
                 int M, float* __restrict__ out, int lvo) {
@@ -398,8 +417,19 @@ fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
     const int wr = 16 * kTRQ * (warp % kWR), wm = kWMW * (warp / kWR);
     const int ra = wr + 4 * (lane / 8), ma = wm + 4 * (lane % 8);
     const unsigned int mt = (M + kBM - 1) / kBM;
-    const int m0 = (int)(blockIdx.x % mt) * kBM;
-    const long long r0 = (long long)(blockIdx.x / mt) * kBR;
+    int m0, g0 = 0;                     // the block's m tile, first group
+    long long r0;
+    if constexpr (BWD) {
+        const unsigned int rt = (unsigned int)((R + kBR - 1) / kBR);
+        const unsigned int rest = blockIdx.x / rt;
+        r0 = (long long)(blockIdx.x % rt) * kBR;
+        g0 = (int)(rest % (unsigned int)terms.groups);
+        m0 = (int)(rest / (unsigned int)terms.groups) * kBM;
+        out += (long long)g0 * R * M;
+    } else {
+        m0 = (int)(blockIdx.x % mt) * kBM;
+        r0 = (long long)(blockIdx.x / mt) * kBR;
+    }
     float acc[kTR][kTM];
 #pragma unroll
     for (int i = 0; i < kTR; ++i)
@@ -408,7 +438,7 @@ fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
 
     const TableMap tm(K, M, m0);
     const XMap<VB> xm(R, r0);
-    const int nsteps = (K + kBK - 1) / kBK * terms.groups;
+    const int nsteps = (K + kBK - 1) / kBK * (BWD ? 1 : terms.groups);
     auto xbuf = [&](int s) { return smem + (s % kStages) * kStage; };
     auto tbuf = [&](int s) { return xbuf(s) + kXSlots * kBK * kPR; };
     // a step: (group g, slice at k0); the table's copies and the fields'
@@ -422,12 +452,12 @@ fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
             }
         }
     };
-    Cursor tc{0, 0};
+    Cursor tc{g0, 0};
     auto copy_table = [&](int s) {
-        tm.copy(tbuf(s), terms.t[tc.g], tc.k0, K);
+        tm.copy(tbuf(s), terms.t[BWD ? 0 : tc.g], tc.k0, K);
     };
 #if PYIGA_F32_XASYNC
-    Cursor sc{0, 0};
+    Cursor sc{g0, 0};
     auto load_step = [&](int s) {
         const int q0 = tc.g ? terms.end[tc.g - 1] : 0;
         const long long base = (long long)tc.k0 * R;
@@ -467,7 +497,7 @@ fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
     // (predicated, no branch: the loads stay ahead of the products), then
     // adds them in term order, loads and adds the group's later fields,
     // and stores the sum into the next stage's X buffer
-    Cursor xc{0, 0};
+    Cursor xc{g0, 0};
     XPart<VB> xr[PRE];
     auto issue_x = [&](bool use) {
         const int g = use ? xc.g : 0;
@@ -564,11 +594,12 @@ fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
     }
 }
 
+template <bool BWD = false>
 int launch(const Terms& terms, int K, long long R, int M, float* out,
            void* stream) {
     if (K < 1 || R < 1 || M < 1) return (int)cudaErrorInvalidValue;
-    const long long blocks =
-        (long long)((M + kBM - 1) / kBM) * ((R + kBR - 1) / kBR);
+    const long long blocks = (long long)((M + kBM - 1) / kBM)
+                             * ((R + kBR - 1) / kBR) * (BWD ? terms.groups : 1);
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     bool vb = !PYIGA_F32_SCALAR_X && R % 4 == 0;
     for (int q = 0; q < terms.end[terms.groups - 1]; ++q)
@@ -579,8 +610,12 @@ int launch(const Terms& terms, int K, long long R, int M, float* out,
     const uintptr_t o = reinterpret_cast<uintptr_t>(out);
     const int lvo = M % 4 == 0 && o % 16 == 0 ? 2
                   : M % 2 == 0 && o % 8 == 0 ? 1 : 0;
-    auto kernel = vb ? (pairs ? fold_f32_kernel<4, 2> : fold_f32_kernel<4, 1>)
-                     : (pairs ? fold_f32_kernel<1, 2> : fold_f32_kernel<1, 1>);
+    auto kernel = BWD ? (vb ? fold_f32_kernel<4, 1, true>
+                            : fold_f32_kernel<1, 1, true>)
+                : vb ? (pairs ? fold_f32_kernel<4, 2, false>
+                              : fold_f32_kernel<4, 1, false>)
+                     : (pairs ? fold_f32_kernel<1, 2, false>
+                              : fold_f32_kernel<1, 1, false>);
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return (int)err;
@@ -619,4 +654,25 @@ PYIGA_EXPORT int pyiga_fold_f32(const uint64_t* x_ptrs, const uint64_t* t_ptrs,
             terms.x[q] = reinterpret_cast<const float*>(x_ptrs[order[q]]);
     }
     return f32::launch(terms, K, R, M, out, stream);
+}
+
+// K2-bwd f32 / K3-bwd f32: gX_i[k, r] = sum_m T_i[m, k] g[r, m] for up to
+// 16 distinct tables T_i (M, K) (t_ptrs: a host array of their device
+// pointers) and the output's gradient g (R, M); out (n_tables, K, R),
+// table i's gradient at out + i K R.  The fold's function with the roles
+// turned: each table is a field (K_f = M, R_f = K), g the table (M_f =
+// R), every table a group of its own with an output of its own.
+PYIGA_EXPORT int pyiga_stage_bwd_f32(const uint64_t* t_ptrs, int n_tables,
+                                     const float* g, float* out, int K,
+                                     long long R, int M, void* stream) {
+    if (n_tables < 1 || n_tables > f32::kMaxTerms || R > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    f32::Terms terms;
+    terms.groups = n_tables;
+    terms.t[0] = g;
+    for (int i = 0; i < n_tables; ++i) {
+        terms.x[i] = reinterpret_cast<const float*>(t_ptrs[i]);
+        terms.end[i] = i + 1;
+    }
+    return f32::launch<true>(terms, M, K, (int)R, out, stream);
 }

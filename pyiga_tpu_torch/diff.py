@@ -14,7 +14,12 @@ roles of field and table swapped for K2's and K3's, the generated
 adjoint of K5), so ``torch.autograd`` gives exact *shape derivatives*
 and coefficient derivatives on the card; on CPU tensors the same
 Functions run the plain versions (K5 its plain torch evaluation, which
-autograd differentiates).  ``torch.func.vmap`` over a stack of
+autograd differentiates).  Under ``set_dtype(np.float32)`` the whole
+path runs in float32, as ``pyiga_tpu.diff`` casts the tables, weights and
+coefficients to the compute dtype: the coefficients, parameters and input
+fields enter in float32, every kernel runs its float32 instance (the
+backward kernels and K5's adjoint too), and the gradient comes back in
+the dtype of the tensor the caller passed, as ``jax.grad`` gives it.  ``torch.func.vmap`` over a stack of
 coefficient arrays equals the loop (the kernels' rules loop over the
 batch).  Jacobians run in reverse mode, row by row
 (``torch.autograd.functional.jacobian(..., vectorize=False)``); forward
@@ -39,7 +44,7 @@ import torch
 from . import geometry
 from .assemblers import BaseGaussAssembler
 from .compile import VFormAssembler, check_mode
-from .config import DTYPE, require_float64
+from .config import get_dtype
 from .ops.basis import dense_collocation_tables
 from .ops.geom import tp_apply
 from .solvers import cg
@@ -118,11 +123,12 @@ def user_coeffs_to_internal(coeffs, is_nurbs, sdim):
 
 
 def _tensor(x, asm):
-    """`x` as a float64 tensor on the assembler's device (a tensor keeps
-    its autograd history)."""
+    """`x` as a tensor of the compute dtype on the assembler's device (a
+    tensor keeps its autograd history: its gradient comes back in its own
+    dtype)."""
     if isinstance(x, torch.Tensor):
-        return x.to(dtype=DTYPE, device=asm.device)
-    return torch.as_tensor(np.asarray(x, dtype=float), dtype=DTYPE,
+        return x.to(dtype=get_dtype(), device=asm.device)
+    return torch.as_tensor(np.asarray(x, dtype=float), dtype=get_dtype(),
                            device=asm.device)
 
 
@@ -187,9 +193,9 @@ def assembly_input_fn(asm, name, mode='exact'):
     Only :class:`~pyiga_tpu_torch.compile.VFormAssembler` takes named
     inputs; scalar forms return the single data tensor, vector forms the
     block dict (as in :func:`assembly_coeff_fn`).  `mode` is accepted as
-    ``run_device`` accepts it.  Float64 only (the backward kernels have
-    no float32 instance): under float32 it raises NotImplementedError."""
-    require_float64('the differentiable assembly (the backward kernels)')
+    ``run_device`` accepts it.  The assembly runs in the compute dtype
+    (the inputs and the collocation tables cast to it, as the JAX
+    package's)."""
     if not isinstance(asm, VFormAssembler):
         raise TypeError('assembly_input_fn requires a VFormAssembler '
                         '(predefined Gauss assemblers take no named inputs)')
@@ -232,14 +238,19 @@ def assembly_input_fn(asm, name, mode='exact'):
         raise NotImplementedError('input derivatives of order > 1')
 
     d = len(f.kvs)
-    tabs = [torch.as_tensor(np.ascontiguousarray(B.swapaxes(-2, -1)),
-                            dtype=DTYPE, device=asm.device)   # (nd+1, Q, n)
-            for B in dense_collocation_tables(f.kvs, asm.grid, numderiv=1)]
-    val_tabs = [t[0] for t in tabs]
-    der_tabs = [t[1] for t in tabs]
+    host_tabs = [np.ascontiguousarray(B.swapaxes(-2, -1))   # (nd+1, Q, n)
+                 for B in dense_collocation_tables(f.kvs, asm.grid,
+                                                   numderiv=1)]
+    tables = {}         # compute dtype -> (value tables, derivative tables)
     x0 = np.asarray(f.coeffs, dtype=float)
 
     def fn(coeffs):
+        dtype = get_dtype()
+        if dtype not in tables:
+            tabs = [torch.as_tensor(B, dtype=dtype, device=asm.device)
+                    for B in host_tabs]
+            tables[dtype] = [t[0] for t in tabs], [t[1] for t in tabs]
+        val_tabs, der_tabs = tables[dtype]
         c = _tensor(coeffs, asm)
         inputs = {'input:' + name: tp_apply(val_tabs, c).contiguous()}
         if 1 in orders:
@@ -273,9 +284,9 @@ def assembly_coeff_fn(asm, mode='exact'):
     forms the block dict); its geometry must be a
     :class:`~pyiga_tpu_torch.geometry.BSplineFunc` or
     :class:`~pyiga_tpu_torch.geometry.NurbsFunc`.  `mode` is accepted as
-    ``run_device`` accepts it: the port has one float64 mode, the exact
-    one.  Under a float32 compute dtype it raises NotImplementedError."""
-    require_float64('the differentiable assembly (the backward kernels)')
+    ``run_device`` accepts it: the port has one mode, the exact one.
+    The assembly runs in the compute dtype (:func:`~pyiga_tpu_torch.
+    config.get_dtype`; the coefficients cast to it)."""
     check_mode(mode)
     if isinstance(asm, BaseGaussAssembler):
         return _gauss_assembler_fn(asm)

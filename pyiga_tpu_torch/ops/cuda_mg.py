@@ -25,7 +25,9 @@ one smoothing set.  On a CPU tensor each runs its plain version
 (:func:`vcycle_solve_plain`, :func:`vcycle_plain`,
 :func:`wavefront_gs_plain`); on a CUDA tensor each launches its kernel
 (``csrc/mg.cu`` ``vcycle_kernel`` or ``wavefront_gs_kernel``) once, or
-raises.
+raises.  The kernels are float64 only (``config.DTYPE``), under either
+compute dtype: the JAX package's local MG computes in float64 whatever
+``get_dtype`` says (``pyiga_tpu/ops/mg.py``, ``pyiga_tpu/solvers.py``).
 """
 
 import ctypes

@@ -32,13 +32,14 @@ The kernels (sources in ``csrc/fields.cu`` for K1 and K1',
   final stage over support windows, and :func:`assemble_terms_windowed`
   on them (no Pallas site: the JAX package runs that route in XLA).
 
-K1 (all three kinds), K1', K2, K3, K8 and K8f also take float32 (the
-f32 line, :func:`~pyiga_tpu_torch.config.set_dtype`): a float32 CUDA
-tensor launches their float32 instances (``csrc/fields.cu`` and
+K1 (all three kinds), K1', K2, K3, K8, K8f and the backward kernels
+(K1-bwd, K2-bwd / K3-bwd) also take float32 (the f32 line,
+:func:`~pyiga_tpu_torch.config.set_dtype`): a float32 CUDA tensor
+launches their float32 instances (``csrc/fields.cu`` and
 ``csrc/windowed.cu`` templated on the scalar, ``csrc/sumfac_f32.cu``),
-which compute in float32 throughout.  The backward kernels and K7 are
-float64 only; K7 raises on float32 on every device, and
-:func:`chain_folded` never routes float32 to it.
+which compute in float32 throughout.  K7 is float64 only; it raises on
+float32 on every device, and :func:`chain_folded` never routes float32
+to it (the JAX package's f32 line runs no fused tail either).
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel (and raises if it cannot);
@@ -165,7 +166,8 @@ def _check_jac_args(name, Y, T, nurbs):
 
 
 # K1's kinds: the C entry's kind code, the launch counters of the forward
-# and backward kernels
+# and backward kernels (float64; the float32 backward's counter is the
+# latter's with '_f32')
 _FIELD_KINDS = {'stiffness': (0, 'fields', 'fields_bwd'),
                 'mass': (1, 'mass_fields', 'mass_fields_bwd'),
                 'jac': (2, 'geo_jac_fields', 'geo_jac_fields_bwd')}
@@ -260,7 +262,7 @@ def fields(Y, T, w12, wL, nurbs):
     Returns ``(d(d+1)/2, Q12, QL)``: ``B_ab`` for ``a <= b`` row-major,
     in the operands' dtype (float64, or float32: K1's float32 instance,
     the per-point inverse and det J in float32 too).  Differentiable in
-    `Y` (:func:`fields_bwd`, float64 on the card)."""
+    `Y` (:func:`fields_bwd`, in the operands' dtype on the card)."""
     _cuda.constant_operands('fields', T, w12, wL)
     return _GeoFields.apply('stiffness', Y, T, w12, wL, nurbs)
 
@@ -363,8 +365,8 @@ def geo_jac_fields(Y, T, nurbs):
 
     Returns ``(G + G*d, Q12, QL)``: the values ``x_c`` (level order), then
     the Jacobian ``J[c][k]`` row-major, in the operands' dtype (float64,
-    or float32: K1's float32 instance).  Differentiable in `Y` (the
-    backward kernel is float64 only)."""
+    or float32: K1's float32 instance).  Differentiable in `Y`
+    (:func:`fields_bwd`, in the operands' dtype)."""
     _cuda.constant_operands('geo_jac_fields', T)
     return _GeoFields.apply('jac', Y, T, None, None, nurbs)
 
@@ -384,7 +386,13 @@ def _fields_vjp_plain(kind, Y, T, w12, wL, nurbs, g):
     then the NURBS quotient rule's VJP (homogeneous Jacobian, values and
     weight) and the last-axis contraction's: ``gY[t, c] = a_v[t][c] Tv +
     a_d[c] Td`` over the last axis's points, ``a_d`` only at ``t = d -
-    1``."""
+    1``.  Float32 operands: every product in full float32
+    (:func:`~pyiga_tpu_torch.config.no_tf32`)."""
+    with no_tf32(Y.dtype):
+        return _fields_vjp(kind, Y, T, w12, wL, nurbs, g)
+
+
+def _fields_vjp(kind, Y, T, w12, wL, nurbs, g):
     d, C = Y.shape[0], Y.shape[1]
     G = C - int(bool(nurbs))
     jh, val = _jacobian_parts(Y, T, nurbs, kind == 'jac')
@@ -463,33 +471,38 @@ def fields_bwd(kind, Y, T, w12, wL, nurbs, g):
     'jac') from its output's gradient `g`.  The kernel recomputes each
     Gauss point from `Y` and `T` as the forward does, applies the VJP and
     contracts back over the last axis in a fixed order (no atomics:
-    bitwise equal on a repeat).  A CPU tensor runs the formulas of
-    :func:`_fields_vjp_plain`."""
+    bitwise equal on a repeat).  Float64, or float32 operands: the kernel's
+    float32 instance (``pyiga_fields_bwd_f32``, counted under the kind's
+    counter with ``_f32``), which computes in float32 throughout.  A CPU
+    tensor runs the formulas of :func:`_fields_vjp_plain`."""
     g = g.contiguous()
     if not _kernel_device(Y, 'fields_bwd'):
         return _fields_vjp_plain(kind, Y, T, w12, wL, nurbs, g)
     code, _fwd, counter = _FIELD_KINDS[kind]
-    if Y.dtype != torch.float64:
-        raise NotImplementedError('%s: the backward kernel is float64 only '
-                                  '(ROADMAP section 1, item 5)' % counter)
+    f32 = Y.dtype == torch.float32
+    dt = torch.float32 if f32 else torch.float64
+    if f32:
+        counter += '_f32'
     _cuda.no_grad_operands(counter, Y, g)     # no double backward
     if kind == 'jac':
         d, G, Q12, QL, nL = _check_jac_args(counter, Y, T, nurbs)
-        w12 = wL = torch.empty(0, dtype=torch.float64, device=Y.device)
+        w12 = wL = torch.empty(0, dtype=dt, device=Y.device)
         shape = (G + G * d, Q12, QL)
     else:
         d, Q12, QL, nL = _check_fields_args(counter, Y, T, w12, wL, nurbs)
         G = d
         shape = ((d * (d + 1) // 2, Q12, QL) if kind == 'stiffness'
                  else (Q12, QL))
-    _cuda.require(g, 'g', torch.float64, len(shape))
+    _cuda.require(g, 'g', dt, len(shape))
     if g.shape != shape or g.device != Y.device:
         raise ValueError('%s: gradient %s on %s, expected %s on %s'
                          % (counter, tuple(g.shape), g.device, shape,
                             Y.device))
     gY = torch.empty_like(Y)
+    fn = (_cuda.library().pyiga_fields_bwd_f32 if f32
+          else _cuda.library().pyiga_fields_bwd_f64)
     with _cuda.device_of(Y):
-        err = _cuda.library().pyiga_fields_bwd_f64(
+        err = fn(
             code, Y.data_ptr(), T.data_ptr(), w12.data_ptr(), wL.data_ptr(),
             g.data_ptr(), gY.data_ptr(), d, G, int(bool(nurbs)), Q12, QL, nL,
             _cuda.stream_of(Y))
@@ -540,8 +553,10 @@ def _stage_kernel(X, T):
 
 
 def stage_bwd_plain(T, g):
-    """Plain PyTorch version of :func:`stage_bwd`."""
-    return torch.tensordot(T, g, dims=([0], [1]))
+    """Plain PyTorch version of :func:`stage_bwd` (float32 operands: the
+    product in full float32)."""
+    with no_tf32(g.dtype):
+        return torch.tensordot(T, g, dims=([0], [1]))
 
 
 def _check_bwd_args(name, tables, g):
@@ -560,19 +575,26 @@ def _check_bwd_args(name, tables, g):
 
 def _stage_bwd_kernel(tables, g, counter):
     """K2-bwd on CUDA tensors: ``(G, K, R)``, table i's gradient at [i],
-    one launch per 16 tables, counted under `counter`."""
-    _cuda.require(g, 'g', torch.float64, 2)
+    one launch per 16 tables, counted under `counter` (float64: the DMMA
+    kernel; float32: the FFMA kernel of ``csrc/sumfac_f32.cu``, counted
+    under `counter` with ``_f32``)."""
+    f32 = g.dtype == torch.float32
+    dt = torch.float32 if f32 else torch.float64
+    _cuda.require(g, 'g', dt, 2)
     for i, T in enumerate(tables):
-        _cuda.require(T, 'tables[%d]' % i, torch.float64, 2)
+        _cuda.require(T, 'tables[%d]' % i, dt, 2)
     R, M = g.shape
     K = tables[0].shape[1]
-    out = torch.empty((len(tables), K, R), dtype=torch.float64,
-                      device=g.device)
+    out = torch.empty((len(tables), K, R), dtype=dt, device=g.device)
+    if f32:
+        counter += '_f32'
+    fn = (_cuda.library().pyiga_stage_bwd_f32 if f32
+          else _cuda.library().pyiga_stage_bwd_f64)
     with _cuda.device_of(g):
         for i0 in range(0, len(tables), _FOLD_MAX_TERMS):
             part = tables[i0:i0 + _FOLD_MAX_TERMS]
             tp = (ctypes.c_uint64 * len(part))(*[T.data_ptr() for T in part])
-            err = _cuda.library().pyiga_stage_bwd_f64(
+            err = fn(
                 ctypes.cast(tp, ctypes.c_void_p), len(part), g.data_ptr(),
                 out[i0].data_ptr(), K, R, M, _cuda.stream_of(g))
             _cuda.check(err, counter)
@@ -583,10 +605,13 @@ def _stage_bwd_kernel(tables, g, counter):
 def stage_bwd(T, g, counter='stage_bwd'):
     """The backward of a stage with the table ``T (M, K)``: ``gX[k, r] =
     sum_m T[m, k] g[r, m]`` for the output's gradient ``g (R, M)``,
-    returns ``(K, R)``.  On the card one launch of ``stage_bwd_kernel``
-    (f64 tensor cores; it reads `T` transposed and `g` once, and writes
-    `gX` once), counted under `counter` (``stage_bwd``, or ``fold_bwd``
-    for a fold's).  A CPU tensor runs :func:`stage_bwd_plain`."""
+    returns ``(K, R)`` in the operands' dtype.  On the card one launch of
+    ``stage_bwd_kernel`` for float64 (f64 tensor cores; it reads `T`
+    transposed and `g` once, and writes `gX` once), counted under
+    `counter` (``stage_bwd``, or ``fold_bwd`` for a fold's), or of the
+    float32 FFMA kernel (``csrc/sumfac_f32.cu``, full float32, no TF32),
+    counted under `counter` with ``_f32``.  A CPU tensor runs
+    :func:`stage_bwd_plain`."""
     g = g.contiguous()
     _check_bwd_args(counter, [T], g)
     if not _kernel_device(g, counter):
@@ -621,7 +646,7 @@ def stage(X, T):
     table ``T (M, K)``; returns ``(R, M)`` in the operands' dtype.  On the
     card float64 runs on the f64 tensor cores, float32 on the FMA units
     in full float32 (``csrc/sumfac_f32.cu``, no TF32).  Differentiable in
-    `X` (:func:`stage_bwd`, float64 on the card); the table is a
+    `X` (:func:`stage_bwd`, in the operands' dtype); the table is a
     constant."""
     _check_stage_args('stage', X, T)
     _cuda.constant_operands('stage', T)
@@ -710,7 +735,8 @@ def fold_bwd(tables, term_idx, g, need=None):
     the output's gradient ``g (R, M)``.  The terms that share a table
     share its gradient: the G distinct tables whose terms need one
     (`need`, per term; default all) go into one ``(G, K, R)`` tensor, on
-    the card by one launch of ``stage_bwd_kernel`` for up to 16 tables,
+    the card by one launch of ``stage_bwd_kernel`` (or its float32
+    instance, counted under ``fold_bwd_f32``) for up to 16 tables,
     counted under ``fold_bwd``.  Each term gets the view of its table's
     gradient, None if it needs none.  A CPU tensor runs
     :func:`fold_bwd_plain`."""

@@ -37,7 +37,9 @@ loads, temporaries and ``f``-suffixed constants, the float functions
 (``sqrtf``, ``fabsf``, ...), so that nothing of it computes in double,
 as the JAX package evaluates its fields on float32 operands
 (``pyiga_tpu/compile.py:1250-1262``).  The assembler caches its programs
-per combos and dtype; the adjoint is float64 only.
+per combos and dtype.  A float32 program's adjoint is float32 too, a
+library of its own (``vform_adjoint_f32``), as ``pyiga_tpu/diff.py``
+differentiates the float32 form.
 
 Bound: device memory, ``(leaf rows + n_combos) * 8`` bytes per Gauss
 point (4 in float32) plus the weight vectors (~21 MB for the 2D p=3 n=128
@@ -85,10 +87,12 @@ _C_FUNCS = {'sqrt': 'sqrt', 'exp': 'exp', 'log': 'log', 'sin': 'sin',
 _C_FUNCS_F32 = {'sqrt': 'sqrtf', 'exp': 'expf', 'log': 'logf',
                 'sin': 'sinf', 'cos': 'cosf', 'tan': 'tanf', 'abs': 'fabsf',
                 'sign': 'pyiga_sign'}
-# a program's scalar: its C type and the generated library's name (also
-# its launch counter)
+# a program's scalar: its C type and the generated libraries' names (also
+# their launch counters), of the program and of its adjoint
 _CTYPES = {torch.float64: 'double', torch.float32: 'float'}
 _LIBNAMES = {torch.float64: 'vform_fields', torch.float32: 'vform_fields_f32'}
+_ADJ_LIBNAMES = {torch.float64: 'vform_adjoint',
+                 torch.float32: 'vform_adjoint_f32'}
 _TORCH_OPS = {
     'add': lambda a, b: a + b, 'sub': lambda a, b: a - b,
     'mul': lambda a, b: a * b, 'div': lambda a, b: a / b,
@@ -307,12 +311,7 @@ class Program:
 
     def adjoint(self):
         """The program's :class:`AdjointProgram` (built on the first
-        call, then kept).  Float64 programs only: the adjoint has no
-        float32 instance yet (ROADMAP section 1, item 5, step 5)."""
-        if self.dtype != torch.float64:
-            raise NotImplementedError(
-                "K5's adjoint has no float32 kernels yet (ROADMAP section "
-                '1, item 5, step 5); call set_dtype(np.float64) first')
+        call, then kept), in the program's dtype."""
         if self._adjoint is None:
             self._adjoint = AdjointProgram(self)
         return self._adjoint
@@ -843,6 +842,10 @@ class AdjointProgram:
     :attr:`param_targets`, which are summed over the Gauss points.  A row
     or parameter whose gradient folds to zero has no target (it is zero).
 
+    It computes in the forward program's dtype (:attr:`counter`:
+    ``vform_adjoint``, or ``vform_adjoint_f32`` for a float32 program,
+    whose source has only float pointers, temporaries, constants and
+    sums, as the forward's float32 instance).
     :meth:`source` is a second generated kernel with the forward's mapping
     of points to threads (``vform_shape``).  At each point it writes every
     row of every forward source's gradient (a target's value, else 0: the
@@ -876,7 +879,10 @@ class AdjointProgram:
         leaf_loc.update({('gout', c): ('gout', c) for c in gouts})
         self.program = rec.finish(
             list(rows.values()) + [v for _s, v in params], program.dim,
-            leaf_loc, dict(zip(program.params, program.param_slots)))
+            leaf_loc, dict(zip(program.params, program.param_slots)),
+            program.dtype)
+        self.dtype = program.dtype
+        self.counter = _ADJ_LIBNAMES[program.dtype]
         self._source = None
         self._entry = None
         self._shape_fn = None
@@ -894,7 +900,7 @@ class AdjointProgram:
         """The C entry ``pyiga_vform_adjoint``, built, loaded and declared
         on the first call (as :meth:`Program.entry`)."""
         if self._entry is None:
-            lib = _cuda.build_generated('vform_adjoint', self.source)
+            lib = _cuda.build_generated(self.counter, self.source)
             fwd, prog = self.forward, self.program
             has_p = bool(fwd.params)
             fn = lib.pyiga_vform_adjoint
@@ -935,7 +941,7 @@ class AdjointProgram:
         fwd = self.forward
         W = arrays['weights']
         dev = W[0].device
-        grads = {key: torch.empty(arrays[key].shape, dtype=torch.float64,
+        grads = {key: torch.empty(arrays[key].shape, dtype=self.dtype,
                                   device=dev) for key in fwd.sources}
         if not fwd.params:
             return grads, None, None
@@ -943,7 +949,7 @@ class AdjointProgram:
         nb = self.shape(math.prod(w.shape[0] for w in W[:-1]),
                         W[-1].shape[0])[3]
         buf = torch.empty(P + max(1, len(self.param_targets) * nb),
-                          dtype=torch.float64, device=dev)
+                          dtype=self.dtype, device=dev)
         return grads, buf[:P], buf[P:]
 
     def arguments(self, arrays, g, outs, stream):
@@ -960,12 +966,12 @@ class AdjointProgram:
         grid = tuple(w.shape[0] for w in arrays['weights'])
         QL, Q12 = grid[-1], math.prod(grid[:-1])
         N = Q12 * QL
-        if g.shape != (len(fwd.outputs),) + grid or g.dtype != torch.float64 \
+        if g.shape != (len(fwd.outputs),) + grid or g.dtype != self.dtype \
                 or not g.is_contiguous():
             raise ValueError('vform_adjoint: gradient %s %s, expected %s '
-                             'float64, contiguous'
+                             '%s, contiguous'
                              % (tuple(g.shape), g.dtype,
-                                (len(fwd.outputs),) + grid))
+                                (len(fwd.outputs),) + grid, self.dtype))
         ptrs = [t.data_ptr() for t in prog.operands(arrays, g.device, g)]
         ints = [Q12, QL, grid[1] if len(grid) == 3 else 1]
         ints += self.shape(Q12, QL)[2:]
@@ -996,7 +1002,7 @@ class AdjointProgram:
         ctypes call.  Raises on an operand the kernel does not take."""
         fwd = self.forward
         _cuda.no_grad_operands(                 # no double backward
-            'vform_adjoint', g, arrays.get('params'),
+            self.counter, g, arrays.get('params'),
             *(arrays[key] for key in fwd.sources))
         g = g.contiguous()
         outs = self.outputs(arrays)
@@ -1004,8 +1010,8 @@ class AdjointProgram:
         fn = self.entry()
         with _cuda.device_of(g):
             err = fn(*argv)
-        _cuda.check(err, 'vform_adjoint')
-        _cuda.LAUNCHES['vform_adjoint'] += 1
+        _cuda.check(err, self.counter)
+        _cuda.LAUNCHES[self.counter] += 1
         return outs[0], outs[1]
 
 
@@ -1022,8 +1028,11 @@ def emit_cuda_adjoint(adj):
     source, with parameters their gradient and the partials ``(n_targets,
     NB)``; the grid, the launch's RB and block count (refused unless
     ``vform_shape``'s), the rows of each gradient tensor and the length of
-    the parameter vector."""
+    the parameter vector.  Every pointer, temporary, constant and sum is of
+    the program's scalar (double, or float for a float32 program)."""
     fwd, prog = adj.forward, adj.program
+    T = _CTYPES[prog.dtype]
+    zero, one = ('0.0f', '1.0f') if T == 'float' else ('0.0', '1.0')
     ptrs = _pointer_args(prog)
     gptrs = ['g%d' % k for k in range(len(fwd.sources))]
     n_src, n_p = len(adj.src_targets), len(adj.param_targets)
@@ -1034,29 +1043,31 @@ def emit_cuda_adjoint(adj):
             i = target.get((key, row))
             tail.append('g%d[%s] = %s;' % (
                 k, _row_offset(row),
-                '0.0' if i is None else _c_arg(prog.outputs[i])))
-        tail.append('for (int j = %d; j < R%d; ++j) g%d[j * N + g] = 0.0;'
-                    % (fwd._rows[k], k, k))
-    tail += ['acc[%d] += %s;' % (m, _c_arg(prog.outputs[n_src + m]))
+                zero if i is None else _c_arg(prog.outputs[i], T)))
+        tail.append('for (int j = %d; j < R%d; ++j) g%d[j * N + g] = %s;'
+                    % (fwd._rows[k], k, k, zero))
+    tail += ['acc[%d] += %s;' % (m, _c_arg(prog.outputs[n_src + m], T))
              for m in range(n_p)]
     has_p = bool(fwd.params)
     rows = ''.join(', int R%d' % k for k in range(len(gptrs)))
     return _ADJ_SOURCE % dict(
         n_src=n_src, n_p=n_p, n_grad=len(gptrs), n_instrs=len(prog.instrs),
-        shape=_SHAPE,
-        kargs=_declare(ptrs, gptrs + ['part'] * bool(n_p), 21),
-        cargs=_declare(ptrs, gptrs + ['gp', 'part'] * has_p, 24, False),
+        shape=_SHAPE, T=T, zero=zero, one=one,
+        kargs=_declare(ptrs, gptrs + ['part'] * bool(n_p), 21, ctype=T),
+        cargs=_declare(ptrs, gptrs + ['gp', 'part'] * has_p, 24, False,
+                       ctype=T),
         names=''.join('%s, ' % x for x in ptrs + gptrs
                       + ['part'] * bool(n_p)),
         rows=rows, rows_names=''.join(', R%d' % k for k in range(len(gptrs))),
         p_arg=', int P' if has_p else '',
-        acc_decl=('    double acc[%d];\n#pragma unroll\n    for (int m = 0; '
-                  'm < %d; ++m) acc[m] = 0.0;\n' % (n_p, n_p)) if n_p else '',
+        acc_decl=('    %s acc[%d];\n#pragma unroll\n    for (int m = 0; '
+                  'm < %d; ++m) acc[m] = %s;\n' % (T, n_p, n_p, zero))
+        if n_p else '',
         loops=_mapped_loops(prog, tail),
-        reduce=_ADJ_REDUCE % dict(n_p=n_p) if n_p else '',
+        reduce=_ADJ_REDUCE % dict(n_p=n_p, T=T, zero=zero) if n_p else '',
         psum=_PSUM % dict(n_p=n_p, slots=', '.join(
             str(s) for s in adj.param_targets) or '-1',
-            n_slot=max(n_p, 1)) if has_p else '',
+            n_slot=max(n_p, 1), T=T, zero=zero) if has_p else '',
         second=('    if (e == cudaSuccess) {\n'
                 '        vform_param_sum_kernel<<<1, %d, 0, s>>>(part, NB, '
                 'gp, P);\n        e = cudaGetLastError();\n    }\n'
@@ -1066,10 +1077,10 @@ def emit_cuda_adjoint(adj):
 _ADJ_REDUCE = """\
     // the block's partial sums in a fixed order: a butterfly of shuffles in
     // each warp (every lane ends with the same sum), then the warps in order
-    __shared__ double sred[8][%(n_p)d];
+    __shared__ %(T)s sred[8][%(n_p)d];
 #pragma unroll
     for (int m = 0; m < %(n_p)d; ++m) {
-        double v = acc[m];
+        %(T)s v = acc[m];
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
             v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -1077,7 +1088,7 @@ _ADJ_REDUCE = """\
     }
     __syncthreads();
     for (int m = threadIdx.x; m < %(n_p)d; m += blockDim.x) {
-        double s = 0.0;
+        %(T)s s = %(zero)s;
         for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += sred[w][m];
         part[(long long)m * gridDim.x + blockIdx.x] = s;
     }
@@ -1091,17 +1102,17 @@ __constant__ int kSlot[%(n_slot)d] = {%(slots)s};
 // kSlot[m] the sum of target m's partials (a warp a target: lane l over
 // the blocks l, l + 32, ... in order, then a butterfly), the others 0
 __global__ void __launch_bounds__(256)
-vform_param_sum_kernel(const double* __restrict__ part, int nb,
-                       double* __restrict__ gp, int P) {
+vform_param_sum_kernel(const %(T)s* __restrict__ part, int nb,
+                       %(T)s* __restrict__ gp, int P) {
     for (int i = threadIdx.x; i < P; i += blockDim.x) {
         bool target = false;
         for (int m = 0; m < %(n_p)d; ++m) target |= kSlot[m] == i;
-        if (!target) gp[i] = 0.0;
+        if (!target) gp[i] = %(zero)s;
     }
     const int lane = threadIdx.x & 31;
     for (int m = threadIdx.x >> 5; m < %(n_p)d; m += blockDim.x >> 5) {
-        const double* q = part + (long long)m * nb;
-        double a = 0.0;
+        const %(T)s* q = part + (long long)m * nb;
+        %(T)s a = %(zero)s;
 #pragma unroll 4
         for (int i = lane; i < nb; i += 32) a += __ldg(q + i);
 #pragma unroll
@@ -1114,7 +1125,8 @@ vform_param_sum_kernel(const double* __restrict__ part, int nb,
 
 _ADJ_SOURCE = """\
 // Adjoint of the coefficient fields of one variational form (the backward
-// of kernel K5 of pyiga_tpu_torch, generated by ops/cuda_vform.py).
+// of kernel K5 of pyiga_tpu_torch, generated by ops/cuda_vform.py), in
+// %(T)s.
 // Per Gauss point: the form's SSA recomputed, then its reverse sweep
 // (%(n_instrs)d instructions in all); out: every row of the gradients of
 // the %(n_grad)d forward sources (%(n_src)d target rows, 0 in the others),
@@ -1123,8 +1135,8 @@ _ADJ_SOURCE = """\
 #include <cuda_runtime.h>
 
 %(shape)s
-__device__ __forceinline__ double pyiga_sign(double x) {
-    return x > 0.0 ? 1.0 : (x < 0.0 ? -1.0 : x);
+__device__ __forceinline__ %(T)s pyiga_sign(%(T)s x) {
+    return x > %(zero)s ? %(one)s : (x < %(zero)s ? -%(one)s : x);
 }
 
 extern "C" __global__ void __launch_bounds__(256)
@@ -1266,7 +1278,7 @@ def combo_fields(asm, arrays, combos):
     entry (:meth:`Program.entry`, :meth:`Program.arguments`), the fields
     returned as views of the output; it is differentiable in the tensors
     the program reads, its backward the generated adjoint kernel
-    (:class:`AdjointProgram`, float64 only).  On the CPU the plain
+    (:class:`AdjointProgram`, in the program's dtype).  On the CPU the plain
     version, which autograd differentiates.  Returns one contiguous field
     per combo."""
     W = arrays['weights']

@@ -19,6 +19,12 @@ residual norm and the convergence test) is one launch of kernel K6
 (:mod:`~pyiga_tpu_torch.ops.cuda_mg`); the host reads the cycle count and
 the residual once per solve.  The JAX package's two-float cycle (``'df'``)
 exists for the TPU's missing f64 and is not ported.
+
+The solver computes in float64 (``config.DTYPE``) under either compute
+dtype: under ``set_dtype(np.float32)`` it takes the float64 matrix that
+the float32 hierarchical assembly returns, as the JAX package's
+``pyiga_tpu/ops/mg.py`` never reads ``get_dtype`` (``ell_pack`` and
+``_init_plain`` build float64 operands).
 """
 
 import time

@@ -17,7 +17,9 @@ only the order of each row's own sum differs.
 on one device: on the card in one launch of the wavefront kernel
 (:func:`~pyiga_tpu_torch.ops.cuda_mg.wavefront_gs`, ``csrc/mg.cu``), on
 the CPU through its plain version, a loop over the levels with one
-gather and one scatter per level.
+gather and one scatter per level.  It computes in float64
+(``config.DTYPE``) under either compute dtype, as the JAX package's
+``ops/relax.py``.
 """
 
 import numpy as np

@@ -20,7 +20,9 @@ drift) costs refinement sweeps, not accuracy.  A stage solve that misses
 the optional host scheme takes the step, and every such step is counted
 in the scheme's ``host_fallbacks``.  These are torch operations (dense
 matrix products and the inverse), not kernels of this repository: the
-JAX package left them to XLA as well.
+JAX package left them to XLA as well.  The scheme computes in float64
+(``config.DTYPE``) under either compute dtype, as the JAX package's
+``ops/rosw.py``.
 """
 
 import math

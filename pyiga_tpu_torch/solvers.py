@@ -27,7 +27,7 @@ import scipy.sparse.linalg
 import torch
 
 from . import native, utils
-from .config import require_float64, resolve_device
+from .config import resolve_device
 from .operators import make_solver
 from .ops.mg import _SWEEP_DIRS, DeviceMGSolver
 from .ops.relax import DeviceIndexedGS
@@ -262,8 +262,9 @@ def local_mg_step(hs, A, f, Ps, lv_inds, smoother='symmetric_gs',
     (default: the card), one per level and sweep direction, each
     smoothing application one kernel launch (its plain version on the
     CPU); ``'auto'`` takes ``'device'`` unless `device` resolves to the
-    CPU, where it takes ``'host'``."""
-    require_float64('local multigrid (K6, the wavefront smoothers)')
+    CPU, where it takes ``'host'``.  `A` is float64 under either compute
+    dtype (the float32 hierarchical assembly returns float64 entries), and
+    the cycle runs in float64, as the JAX package's."""
     if smoother not in _MG_SWEEPS:
         raise ValueError('Invalid smoother')
     if relax_backend not in ('host', 'device', 'auto'):
@@ -399,10 +400,10 @@ def solve_hmultigrid(hs, A, f, strategy='cell_supp', smoother='gs',
     launch per solve on a GPU, the plain cycle on the CPU); ``'auto'``
     means ``'device'`` when `device` is a CUDA device and ``'host'``
     otherwise.  The 'exact' smoother always runs on the host.  Returns
-    ``(x, iterations)``; both paths give the same iteration counts.
-    Float64 only: under a float32 compute dtype it raises
-    NotImplementedError."""
-    require_float64('local multigrid (K6, the wavefront smoothers)')
+    ``(x, iterations)``; both paths give the same iteration counts.  Under
+    a float32 compute dtype `A` is the float32 assembly's matrix (float64
+    entries) and the solve runs in float64 on either path, as the JAX
+    package's local MG does whatever the dtype."""
     if relax_backend not in ('host', 'device', 'auto'):
         raise ValueError("relax_backend must be 'host', 'device' or 'auto'")
     device = resolve_device(device)

@@ -1,13 +1,14 @@
 # -*- coding: utf-8 -*-
-"""The JAX package's Krylov counts on the CPU for the lines that
-``chip_smoke.py`` phases 22, 22b and 22c hold the port to
-(``POISSON_COUNTS_JAX``, ``CONVDIFF_COUNTS_JAX``).
+"""The JAX package's Krylov and local-MG counts on the CPU for the lines
+that ``chip_smoke.py`` phases 22, 22b, 22c and 8c-f32 hold the port to
+(``POISSON_COUNTS_JAX``, ``CONVDIFF_COUNTS_JAX``, ``LOCALMG_ITERS_F32``).
 
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py f64 [n]
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py f32 [n]
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py f32win [n]
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py convdiff [n] \
         [--data FILE.npy]
+    JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py localmg_f32 [n0]
 
 ``f64`` (default n=96): the 3D p=3 twisted box assembled by
 ``pyiga_tpu`` in exact float64 (``assemble(mode='exact')`` taken to the
@@ -37,6 +38,16 @@ values in float64, through the JAX package's ``gmres_jit`` (restart 30,
 ``tol=1e-10``) on its compact matvec restricted to the interior dofs,
 with its fast-diagonalization preconditioner and the port's float64
 ``v * dx`` right-hand side: phase 7's solve, phase 22c (a).
+
+``localmg_f32`` (default n0=96): the bench's local-MG hierarchy
+(``bench.py`` ``run_localmg``: 2D p=3, disparity 1, Dirichlet on all
+four sides, 3 levels refined toward the (1, 1) corner) discretized by
+``pyiga_tpu.hierarchical.HDiscretization`` (``stiffness_vf`` on the unit
+square, ``f = 1``) under ``pyiga_tpu.set_dtype(np.float32)``, then
+``solve_hmultigrid`` (its defaults: 'cell_supp', 'gs', 2 steps,
+``tol=1e-8``, the host route) in float64 on that matrix: phase 8c-f32's
+count.  The same solve on the port's float32 matrix (its CPU plain
+versions) is printed beside it.
 
 Prints one JSON line with the counts and the seconds it took.  At n=96
 the float64 run holds ~3 GB arrays (the compact and banded operators)
@@ -209,6 +220,52 @@ def f32_count(n=48, name='twisted_box', p=3, D32=None):
     return int(it)
 
 
+def localmg_f32_counts(n0=96, num_levels=3):
+    """``solve_hmultigrid``'s count in the JAX package on the CPU on its
+    own float32-assembled matrix and on the port's."""
+    import pyiga_tpu
+    import pyiga_tpu.bspline as jbspline
+    import pyiga_tpu.geometry as jgeometry
+    import pyiga_tpu.hierarchical as jhier
+    import pyiga_tpu.vform as jvform
+    from pyiga_tpu import solvers
+    import pyiga_tpu_torch
+    from pyiga_tpu_torch import bspline, geometry, hierarchical, vform
+
+    def space(hmod, bmod):
+        hs = hmod.HSpace(2 * (bmod.make_knots(3, 0.0, 1.0, n0),),
+                         disparity=1, bdspecs=[(0, 0), (0, 1), (1, 0), (1, 1)])
+        for lv in range(num_levels - 1):
+            thr = 1.0 - 2.0 ** (-lv - 1)
+            hs.refine_region(lv, lambda *X: min(X) > thr)
+        return hs
+
+    saved = pyiga_tpu.get_dtype(), pyiga_tpu_torch.get_dtype()
+    pyiga_tpu.set_dtype(np.float32)
+    pyiga_tpu_torch.set_dtype(np.float32)
+    try:
+        jhs = space(jhier, jbspline)
+        jhd = jhier.HDiscretization(jhs, jvform.stiffness_vf(dim=2),
+                                    {'geo': jgeometry.unit_square(),
+                                     'f': lambda *x: 1.0})
+        jA, jf = jhd.assemble_matrix().tocsr(), jhd.assemble_rhs()
+        hd = hierarchical.HDiscretization(
+            space(hierarchical, bspline), vform.stiffness_vf(dim=2),
+            {'geo': geometry.unit_square(), 'f': lambda *x: 1.0},
+            device='cpu')
+        A, f = hd.assemble_matrix().tocsr(), hd.assemble_rhs()
+        _, it = solvers.solve_hmultigrid(jhs, jA, jf, tol=1e-8,
+                                         relax_backend='host')
+        _, it_port = solvers.solve_hmultigrid(jhs, A, f, tol=1e-8,
+                                              relax_backend='host')
+    finally:
+        pyiga_tpu.set_dtype(saved[0])
+        pyiga_tpu_torch.set_dtype(saved[1])
+    return dict(ndofs=int(jA.shape[0]), matrix_dtype=str(jA.dtype),
+                iters=int(it), iters_on_port_matrix=int(it_port),
+                port_vs_jax_matrix=float(abs(A - jA).max() / abs(jA).max()))
+
+
 def main(argv):
     kind = argv[1] if len(argv) > 1 else 'f64'
     t0 = time.perf_counter()
@@ -232,9 +289,14 @@ def main(argv):
         rec = dict(line='2d_p3_convdiff float32 matrix', n=n,
                    data='card' if data is not None else 'port CPU',
                    gmres_iters=convdiff_count(n, data))
+    elif kind == 'localmg_f32':
+        n0 = int(argv[2]) if len(argv) > 2 else 96
+        rec = dict(line='2d_p3_hb_localmg float32 assembly', n0=n0,
+                   levels=3, **localmg_f32_counts(n0))
     else:
         raise SystemExit('usage: jax_poisson_counts.py '
-                         'f64|f32|f32win|convdiff [n] [--data FILE.npy]')
+                         'f64|f32|f32win|convdiff|localmg_f32 [n] '
+                         '[--data FILE.npy]')
     rec['seconds'] = time.perf_counter() - t0
     print(json.dumps(rec))
 

@@ -2,7 +2,8 @@
 ``set_dtype(np.float32)``: the dtype and config API, the float32 compact
 and banded assemblies (K1 / K2 / K3's float32 instances run their plain
 versions here), the float32 CG against ``cg_jit`` on the same operator,
-the paths with no float32 kernels raising, TF32 pinned off, the
+local MG and the differentiable assembly under float32 against the JAX
+package's, TF32 pinned off, the
 memoized operands per dtype, and the float32 wrappers' CUDA branch
 driven through a stand-in library."""
 
@@ -14,11 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import pyiga_tpu
 import pyiga_tpu.bspline as jbspline
 import pyiga_tpu.geometry as jgeometry
+import pyiga_tpu.hierarchical as jhier
+import pyiga_tpu.vform as jvform
+from pyiga_tpu import diff as jdiff
 from pyiga_tpu import solvers as jsolvers
 from pyiga_tpu.assemblers import MassAssembler as JMassAssembler
 from pyiga_tpu.assemblers import StiffnessAssembler as JStiffnessAssembler
@@ -27,9 +32,13 @@ from pyiga_tpu.ops import fastdiag as jfastdiag
 from pyiga_tpu.ops import matfree as jmatfree
 
 import pyiga_tpu_torch
-from pyiga_tpu_torch import _cuda, bspline, config, geometry, solvers
+from pyiga_tpu_torch import (_cuda, bspline, config, geometry, hierarchical,
+                             solvers, vform)
+from pyiga_tpu_torch.diff import assembly_coeff_fn
 from pyiga_tpu_torch.assemblers import MassAssembler, StiffnessAssembler
 from pyiga_tpu_torch.ops import cuda_sumfac, fastdiag, matfree, sumfac
+
+from test_torch_hierarchical import example_hspace
 
 torch.set_num_threads(1)
 
@@ -212,24 +221,104 @@ def test_f32_cg_count_matches_jax(name, p, n):
     assert np.abs(x.numpy() - jx).max() <= 1e-4 * np.abs(jx).max()
 
 
-# -- the paths with no float32 kernels -------------------------------------
+# -- local MG and the differentiable assembly under float32 ----------------
 
-def _diff_run():
-    from pyiga_tpu_torch.diff import assembly_coeff_fn
-    asm, _ = _pair('stiffness', 'quarter_annulus', 2, 4)
-    assembly_coeff_fn(asm)
+def _hb_problem(geo_name):
+    """The HB example of ``tests/test_torch_hierarchical.py`` (p=3, n0=6,
+    3 levels) discretized by both packages under the current dtype:
+    ``(hs, jhs, A, f, jA, jf)``, the port's matrix assembled on the CPU."""
+    hs = example_hspace(hierarchical, bspline)
+    jhs = example_hspace(jhier, jbspline)
+    hd = hierarchical.HDiscretization(
+        hs, vform.stiffness_vf(dim=2),
+        {'geo': getattr(geometry, geo_name)(), 'f': lambda *x: 1.0},
+        device='cpu')
+    jhd = jhier.HDiscretization(
+        jhs, jvform.stiffness_vf(dim=2),
+        {'geo': getattr(jgeometry, geo_name)(), 'f': lambda *x: 1.0})
+    return (hs, jhs, hd.assemble_matrix().tocsr(), hd.assemble_rhs(),
+            jhd.assemble_matrix().tocsr(), jhd.assemble_rhs())
+
+
+def _f32_against_f64(assemble_f32_and_f64):
+    """The float32 assembly (float64 entries) within 1e-6 of the float64
+    one and not equal to it: it was computed in float32."""
+    _f32()
+    A32 = assemble_f32_and_f64()
+    pyiga_tpu.set_dtype(np.float64)
+    pyiga_tpu_torch.set_dtype(np.float64)
+    A64 = assemble_f32_and_f64()
+    _f32()
+    assert A32.dtype == A64.dtype == np.float64
+    err = abs(A32 - A64).max() / abs(A64).max()
+    assert 0 < err < 1e-6
 
 
 def _localmg_run():
-    from pyiga_tpu_torch.hierarchical import HSpace
-    hs = HSpace(2 * (bspline.make_knots(2, 0.0, 1.0, 4),))
-    solvers.solve_hmultigrid(hs, None, None, device='cpu')
+    """``solve_hmultigrid`` under float32 on the quarter-annulus HB
+    example: the JAX package's count (35) on the same float32-assembled
+    matrix and on its own, by both of the port's routes, the solutions
+    within 1e-10."""
+    _f32()
+    hs, jhs, A, f, jA, jf = _hb_problem('quarter_annulus')
+    _f32_against_f64(lambda: _hb_problem('quarter_annulus')[2])
+    assert abs(A - jA).max() <= 1e-6 * abs(jA).max()
+    ju, jit = jsolvers.solve_hmultigrid(jhs, A, f, tol=1e-8,
+                                        relax_backend='host')
+    _jo, jit_own = jsolvers.solve_hmultigrid(jhs, jA, jf, tol=1e-8,
+                                             relax_backend='host')
+    u_h, it_h = solvers.solve_hmultigrid(hs, A, f, tol=1e-8,
+                                         relax_backend='host')
+    u_d, it_d = solvers.solve_hmultigrid(hs, A, f, tol=1e-8,
+                                         relax_backend='device',
+                                         device='cpu')
+    assert it_h == it_d == jit == jit_own == 35
+    assert u_h.dtype == u_d.dtype == np.float64
+    for u in (u_h, u_d):
+        assert np.abs(u - ju).max() <= 1e-10 * np.abs(ju).max()
 
 
 def _localmg_step_run():
-    from pyiga_tpu_torch.hierarchical import HSpace
-    hs = HSpace(2 * (bspline.make_knots(2, 0.0, 1.0, 4),))
-    solvers.local_mg_step(hs, None, None, None, None, device='cpu')
+    """``local_mg_step`` under float32 on the unit-square HB example,
+    iterated by ``iterative_solve``: the JAX package's count (27) on the
+    same float32-assembled matrix, the solution within 1e-10."""
+    _f32()
+    hs, jhs, A, f, jA, jf = _hb_problem('unit_square')
+    assert abs(A - jA).max() <= 1e-6 * abs(jA).max()
+    ju, jit = jsolvers.solve_hmultigrid(jhs, A, f, tol=1e-8,
+                                        relax_backend='host')
+    Ps = hs.virtual_hierarchy_prolongators()
+    step = solvers.local_mg_step(hs, A, f, Ps, hs.indices_to_smooth(
+        'cell_supp'), 'gs', 2, relax_backend='host')
+    u, it = solvers.iterative_solve(step, A, f,
+                                    active_dofs=hs.non_dirichlet_dofs(),
+                                    tol=1e-8)
+    assert it == jit == 27
+    assert np.abs(u - ju).max() <= 1e-10 * np.abs(ju).max()
+
+
+def _diff_run():
+    """``assembly_coeff_fn`` under float32: the float32 data and the
+    gradient of a weighted sum against ``pyiga_tpu.diff`` under float32
+    (2e-5 relative), the gradient in the leaf's dtype."""
+    asm, jasm = _pair('stiffness', 'quarter_annulus', 2, 4)
+    _f32()
+    fn, c0 = assembly_coeff_fn(asm)
+    jfn, _ = jdiff.assembly_coeff_fn(jasm)
+    x = torch.tensor(np.asarray(c0, dtype=float), requires_grad=True)
+    out = fn(x)
+    w = np.random.RandomState(42).rand(*out.shape)
+    (torch.as_tensor(w, dtype=F32) * out).sum().backward()
+    jval = np.asarray(jfn(jnp.asarray(c0)))
+    jg = np.asarray(jax.grad(lambda c: jnp.sum(
+        jnp.asarray(w, dtype=jnp.float32) * jfn(c)))(
+            jnp.asarray(c0, dtype=jnp.float64)))
+    assert out.dtype == F32 and jval.dtype == np.float32
+    assert x.grad.dtype == F64
+    val = out.detach().double().numpy()
+    assert np.abs(val - jval).max() <= 2e-5 * np.abs(jval).max()
+    g = x.grad.numpy()
+    assert np.abs(g - jg).max() <= 2e-5 * np.abs(jg).max()
 
 
 def _stretched_square():
@@ -244,10 +333,11 @@ def _stretched_square():
 
 
 @pytest.mark.parametrize('run', [_diff_run, _localmg_run, _localmg_step_run])
-def test_unported_f32_paths_raise(run):
-    pyiga_tpu_torch.set_dtype(np.float32)
-    with pytest.raises(NotImplementedError, match='no float32 kernels'):
-        run()
+def test_f32_localmg_and_diff_match_jax(run):
+    """Local MG runs under float32 (the float64 solve of the float32
+    assembly, as the JAX package's), and so does the differentiable
+    assembly; each against the JAX package under float32."""
+    run()
 
 
 def test_k7_refuses_float32_and_f32_chains_skip_it(monkeypatch):

@@ -421,8 +421,17 @@ def test_plain_k5_computes_in_float32():
     assert run32.dtype == F32
     assert _rel(run32.numpy(), f32.reshape(len(asm.combos), -1).numpy()) \
         <= TOL
-    with pytest.raises(NotImplementedError, match='no float32 kernels'):
-        prog.adjoint()
+    # its adjoint is float32 too: a program (and a library) of its own
+    adj = prog.adjoint()
+    assert adj.program.dtype == F32 and adj.counter == 'vform_adjoint_f32'
+    g = torch.as_tensor(np.random.RandomState(3).rand(*run32.shape),
+                        dtype=F32).reshape((len(prog.outputs),) + tuple(
+                            w.shape[0] for w in arrays32['weights']))
+    grads, gp = cuda_vform.run_adjoint_plain(prog, arrays32, g)
+    grads64, gp64 = cuda_vform.run_adjoint_plain(
+        asm._program(asm.combos, F64), arrays64, g.double())
+    assert all(v.dtype == F32 for v in grads.values())
+    _differs_in_float32(gp, gp64)
 
 
 def test_plain_windowed_fold_computes_in_float32():
@@ -452,9 +461,10 @@ def _arr(ptr, dtype, *shape):
 
 
 class _FakeLibrary:
-    """The float32 C entries of K1 (all kinds), K1', K2, K3, K8 and K8f on
-    host memory: each reads its operands from the pointers it is handed,
-    writes the plain version's result and records the call."""
+    """The float32 C entries of K1 (all kinds, forward and backward), K1',
+    K2, K3, their backward, K8 and K8f on host memory: each reads its
+    operands from the pointers it is handed, writes the plain version's
+    result and records the call."""
 
     def __init__(self):
         self.calls = []
@@ -493,6 +503,30 @@ class _FakeLibrary:
             self._t(jac, d, d, Q12 * QL), self._t(w12, Q12),
             self._t(wL, QL))
         _arr(out, np.float32, *res.shape)[...] = res.numpy()
+        return 0
+
+    def pyiga_fields_bwd_f32(self, kind, Y, T, w12, wL, gout, gY, d, G,
+                             nurbs, Q12, QL, nL, s):
+        name = ('stiffness', 'mass', 'jac')[kind]
+        self.calls.append(cuda_sumfac._FIELD_KINDS[name][2] + '_f32')
+        C = G + nurbs
+        shape = {'stiffness': (d * (d + 1) // 2, Q12, QL),
+                 'mass': (Q12, QL), 'jac': (G + G * d, Q12, QL)}[name]
+        ws = ((None, None) if name == 'jac'
+              else (self._t(w12, Q12), self._t(wL, QL)))
+        res = cuda_sumfac._fields_vjp_plain(
+            name, self._t(Y, d, C, Q12, nL), self._t(T, 2, QL, nL), *ws,
+            bool(nurbs), self._t(gout, *shape))
+        _arr(gY, np.float32, *res.shape)[...] = res.numpy()
+        return 0
+
+    def pyiga_stage_bwd_f32(self, tp, n, g, out, K, R, M, s):
+        self.calls.append('stage_bwd_f32')
+        ts = ctypes.cast(tp, ctypes.POINTER(ctypes.c_uint64))
+        o = _arr(out, np.float32, n, K, R)
+        for i in range(n):
+            o[i] = _arr(ts[i], np.float32, M, K).T @ _arr(g, np.float32, R,
+                                                          M).T
         return 0
 
     def pyiga_stage_f32(self, X, T, out, K, R, M, s):
@@ -570,7 +604,9 @@ def fake_card(monkeypatch):
 
 F64_KERNELS = ('fields', 'mass_fields', 'geo_jac_fields', 'host_jac_fields',
                'stage', 'fold', 'windowed_stage', 'windowed_fold',
-               'vform_fields')
+               'vform_fields', 'fields_bwd', 'mass_fields_bwd',
+               'geo_jac_fields_bwd', 'stage_bwd', 'fold_bwd',
+               'vform_adjoint')
 
 
 def _only_f32(lib):
@@ -596,10 +632,17 @@ def test_f32_jac_and_host_jac_wrappers_launch_f32_entries(fake_card):
     assert _cuda.LAUNCHES['geo_jac_fields_f32'] == 2
     assert _cuda.LAUNCHES['host_jac_fields_f32'] == 1
     _only_f32(fake_card)
-    # K1's backward stays float64: a float32 gradient raises on the card
-    with pytest.raises(NotImplementedError, match='float64 only'):
-        cuda_sumfac.fields_bwd('jac', Y, T, None, None, True,
-                               torch.ones_like(got))
+    # K1's backward on a float32 gradient: its float32 entry, counted
+    # under geo_jac_fields_bwd_f32
+    shape = cuda_sumfac.geo_jac_fields_plain(Y, T, True).shape
+    g = torch.as_tensor(np.random.RandomState(4).rand(*shape) - 0.5,
+                        dtype=F32)
+    gY = cuda_sumfac.fields_bwd('jac', Y, T, None, None, True, g)
+    assert gY.dtype == F32 and fake_card.calls[-1] == 'geo_jac_fields_bwd_f32'
+    assert torch.equal(gY, cuda_sumfac.geo_jac_fields_bwd_plain(Y, T, True,
+                                                                g))
+    assert _cuda.LAUNCHES['geo_jac_fields_bwd_f32'] == 1
+    _only_f32(fake_card)
 
 
 def test_f32_user_geometry_path_launches_f32_entries(fake_card):
@@ -676,6 +719,108 @@ def test_f32_vform_launches_f32_program(fake_card, monkeypatch):
     with pytest.raises(ValueError, match='float32'):
         prog.operands(dict(arrays, params=arrays['params'].double()),
                       torch.device('cpu'))
+
+
+@pytest.mark.parametrize('kind', ['stiffness', 'mass'])
+def test_f32_gradient_launches_f32_backwards(fake_card, kind):
+    """The shape gradient of a 3D assembly under float32 on the card's
+    branch: the forward on K2 f32 (geometry stages), K1 f32 and K3 f32,
+    the backward on K1-bwd f32, K2-bwd f32 and one K3-bwd f32 launch;
+    no float64 kernel; the gradient that of the plain path."""
+    from pyiga_tpu_torch.diff import assembly_coeff_fn
+    cls = StiffnessAssembler if kind == 'stiffness' else MassAssembler
+    asm = cls(3 * (bspline.make_knots(2, 0.0, 1.0, 3),),
+              geometry.twisted_box(), device='cpu')
+    pyiga_tpu_torch.set_dtype(np.float32)
+    fn, c0 = assembly_coeff_fn(asm)
+
+    def grad():
+        x = torch.tensor(c0, requires_grad=True)
+        out = fn(x)
+        w = torch.as_tensor(np.random.RandomState(5).rand(*out.shape),
+                            dtype=F32)
+        (w * out).sum().backward()
+        return out.detach(), x.grad
+    val, g = grad()
+    bwd = {'stiffness': 'fields_bwd_f32', 'mass': 'mass_fields_bwd_f32'}
+    assert val.dtype == F32 and g.dtype == F64
+    assert _cuda.LAUNCHES[bwd[kind]] == 1
+    # one backward launch a forward launch of the chains (the geometry
+    # stages included)
+    assert _cuda.LAUNCHES['stage_bwd_f32'] == _cuda.LAUNCHES['stage_f32'] > 0
+    assert _cuda.LAUNCHES['fold_bwd_f32'] == _cuda.LAUNCHES['fold_f32'] > 0
+    assert {bwd[kind], 'stage_bwd_f32', 'stage_f32',
+            'fold_f32'} <= set(fake_card.calls)
+    _only_f32(fake_card)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(cuda_sumfac, '_kernel_device', lambda t, n: False)
+        val_ref, g_ref = grad()
+    assert _rel(val.numpy(), val_ref.numpy()) <= TOL
+    assert _rel(g.numpy(), g_ref.numpy()) <= TOL
+
+
+def test_f32_adjoint_launches_f32_library(fake_card, monkeypatch):
+    """K5's backward under float32 on its CUDA branch: the float32 adjoint
+    program's library (``vform_adjoint_f32``, a source with no
+    ``double``), its launch counted there, the gradients of every source
+    and of the parameters those of the plain adjoint, in float32."""
+    asm, _ = _vform_pair('convdiff')
+    pyiga_tpu_torch.set_dtype(np.float32)
+    arrays = asm.device_arrays()
+    prog = asm._program(asm.combos, F32)
+    adj = prog.adjoint()
+    grid = tuple(w.shape[0] for w in arrays['weights'])
+    made, built = {}, []
+    outputs = cuda_vform.AdjointProgram.outputs
+
+    def record_outputs(self, arrs):
+        made['outs'] = outputs(self, arrs)
+        return made['outs']
+    monkeypatch.setattr(cuda_vform.AdjointProgram, 'outputs',
+                        record_outputs)
+    W = arrays['weights']
+    leaves = [arrays[k].clone().requires_grad_(True) for k in prog.sources]
+    params = arrays['params'].clone().requires_grad_(True)
+    operands = dict(arrays, params=params.detach(), **{
+        k: t.detach() for k, t in zip(prog.sources, leaves)})
+
+    def shape(Q12, QL, out):
+        out[0], out[1], out[2], out[3] = 0, 32, 16, -(-Q12 // 16)
+        return 0
+
+    def adjoint(*args):
+        fake_card.calls.append('vform_adjoint_f32')
+        k = prog.dim + adj.program.sources.index('gout')
+        g = torch.as_tensor(_arr(args[k], np.float32, len(prog.outputs),
+                                 *grid).copy())
+        grads, gp = cuda_vform.run_adjoint_plain(prog, arrays, g)
+        for key, t in made['outs'][0].items():
+            t.copy_(grads[key])
+        made['outs'][1].copy_(gp)
+        return 0
+
+    def build(name, src):
+        built.append((name, src))
+        if name == 'vform_adjoint_f32':
+            return type('Lib', (), {
+                'pyiga_vform_adjoint': staticmethod(adjoint),
+                'pyiga_vform_shape': staticmethod(shape)})()
+        return type('Lib', (), {'pyiga_vform_fields': staticmethod(
+            fake_card.vform_fields(prog, operands))})()
+    monkeypatch.setattr(_cuda, 'build_generated', build)
+    out = cuda_vform._ComboFields.apply(prog, len(W), *W, *leaves, params)
+    g = torch.as_tensor(np.random.RandomState(6).rand(*out.shape),
+                        dtype=F32)
+    out.backward(g)
+    assert [b[0] for b in built] == ['vform_fields_f32', 'vform_adjoint_f32']
+    assert 'double' not in built[1][1]
+    assert _cuda.LAUNCHES['vform_adjoint_f32'] == 1
+    assert _cuda.LAUNCHES['vform_adjoint'] == 0
+    ref, gp = cuda_vform.run_adjoint_plain(prog, arrays, g)
+    for key, t in zip(prog.sources, leaves):
+        assert t.grad.dtype == F32 and torch.equal(t.grad, ref[key])
+    assert params.grad.dtype == F32 and torch.equal(params.grad, gp)
+    _only_f32(fake_card)
 
 
 # -- the windowed plan and schedule for 4-byte elements ------------------------
@@ -880,6 +1025,15 @@ static inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 '''
 
 
+# what the adjoint's source adds: shuffles and the slot table
+_ADJ_STUB = r'''
+#define __constant__ static
+template <class T> static inline T __shfl_xor_sync(unsigned, T v, int) {
+    return v;
+}
+'''
+
+
 @pytest.mark.parametrize('case', ['convdiff', 'convdiff3d', 'sqrt_exp',
                                   'boundary'])
 def test_k5_f32_source_is_float(tmp_path, case):
@@ -887,20 +1041,7 @@ def test_k5_f32_source_is_float(tmp_path, case):
     constant ``f``-suffixed, the float functions; compiled by the host
     compiler with float-to-double promotion and double-to-float
     conversion as errors (any double arithmetic in the body fails)."""
-    if case == 'sqrt_exp':
-        kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 4),)
-        asm = assemble.instantiate_assembler(
-            '(sqrt(c[0]**2 + c[1]**2) * inner(grad(u), grad(v)) '
-            '+ exp(c[1]) * abs(c[0]) * u * v / 3.0) * dx', kvs,
-            {'geo': geometry.quarter_annulus(), 'c': np.array([0.5, 1.5])},
-            None, device='cpu')
-    elif case == 'boundary':
-        asm = assemble.instantiate_assembler(
-            'inner(grad(u), grad(v)) * ds', 3 * (bspline.make_knots(
-                2, 0.0, 1.0, 3),), {'geo': geometry.twisted_box()}, None,
-            boundary='left', device='cpu')
-    else:
-        asm, _ = _vform_pair(case)
+    asm = _f32_case_asm(case)
     prog = asm._program(asm.combos, F32)
     src = prog.source
     prog64 = asm._program(asm.combos, F64)
@@ -913,12 +1054,54 @@ def test_k5_f32_source_is_float(tmp_path, case):
         assert '%s(' % fn not in body
     if case == 'sqrt_exp':
         assert all('%sf(' % fn in body for fn in ('sqrt', 'exp', 'fabs'))
-    code = _CUDA_STUB + re.sub(r'#include <cuda_runtime.h>', '', src)
+    res = _host_compile_float(tmp_path, src)
+    assert res.returncode == 0, res.stderr[-3000:]
+
+
+def _f32_case_asm(case):
+    if case == 'sqrt_exp':
+        kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 4),)
+        return assemble.instantiate_assembler(
+            '(sqrt(c[0]**2 + c[1]**2) * inner(grad(u), grad(v)) '
+            '+ exp(c[1]) * abs(c[0]) * u * v / 3.0) * dx', kvs,
+            {'geo': geometry.quarter_annulus(), 'c': np.array([0.5, 1.5])},
+            None, device='cpu')
+    if case == 'boundary':
+        return assemble.instantiate_assembler(
+            'inner(grad(u), grad(v)) * ds', 3 * (bspline.make_knots(
+                2, 0.0, 1.0, 3),), {'geo': geometry.twisted_box()}, None,
+            boundary='left', device='cpu')
+    return _vform_pair(case)[0]
+
+
+def _host_compile_float(tmp_path, src, stub=''):
+    """`src` through the host compiler with float-to-double promotion and
+    double-to-float conversion as errors; returns its result."""
+    code = _CUDA_STUB + stub + re.sub(r'#include <cuda_runtime.h>', '', src)
     code = re.sub(r'(\w+)<<<[^>]*>>>\(', r'\1(', code)
     path = tmp_path / 'k5.cc'
     path.write_text(code)
-    res = subprocess.run(['g++', '-std=c++17', '-fsyntax-only',
-                          '-Werror=double-promotion',
-                          '-Werror=float-conversion', str(path)],
-                         capture_output=True, text=True)
+    return subprocess.run(['g++', '-std=c++17', '-fsyntax-only',
+                           '-Werror=double-promotion',
+                           '-Werror=float-conversion', str(path)],
+                          capture_output=True, text=True)
+
+
+@pytest.mark.parametrize('case', ['convdiff', 'convdiff3d', 'sqrt_exp',
+                                  'boundary'])
+def test_k5_adjoint_f32_source_is_float(tmp_path, case):
+    """The float32 program's adjoint source (the SSA of the form and its
+    reverse sweep, the zero rows, the parameter sums and their second
+    kernel): no ``double`` anywhere, every constant ``f``-suffixed, and
+    through the host compiler with promotion and conversion as errors."""
+    asm = _f32_case_asm(case)
+    adj = asm._program(asm.combos, F32).adjoint()
+    src = adj.source
+    assert 'double' not in src
+    assert 'double' in asm._program(asm.combos, F64).adjoint().source
+    # every literal with a decimal point carries its suffix
+    body = src[src.index('vform_adjoint_kernel('):]
+    lits = re.findall(r'(?<![\w.])[0-9]+\.[0-9]*(?:e[+-]?[0-9]+)?f?', body)
+    assert lits and all(x.endswith('f') for x in lits), lits
+    res = _host_compile_float(tmp_path, src, _ADJ_STUB)
     assert res.returncode == 0, res.stderr[-3000:]
