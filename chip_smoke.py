@@ -3919,12 +3919,12 @@ _VJP = ' (its VJP; pyiga_tpu/diff.py differentiates the XLA form)'
 # float32 in another order of summation
 DIFF_F32_TOL = 1e-5
 # the float32 backward instances in the package's library, by mangled
-# name: K1-bwd <..., float>, the f32 fold's backward mode <VB, 1, true>
+# name: K1-bwd <..., float>, K2-/K3-bwd f32 and its split's second pass
 SASS_DIFF_F32 = {
     'geo_fields_bwd_kernel<float>': re.compile(
         r'geo_fields_bwd_kernelI.*EfEv'),
-    'fold_f32_kernel<VB, 1, true>': re.compile(
-        r'fold_f32_kernelILi[14]ELi1ELb1E'),
+    'stage_bwd_f32_kernel': re.compile(r'stage_bwd_f32_kernel'),
+    'chunk_sum_f32_kernel': re.compile(r'chunk_sum_f32_kernel'),
 }
 KERNELS.update({
     'fields_bwd': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
@@ -3940,8 +3940,10 @@ KERNELS.update({
     # CUDA C generated per form, beside the forward's
     'vform_adjoint': ('cuda', 'pyiga_tpu_torch/ops/cuda_vform.py',
                       'pyiga_tpu/compile.py:974' + _VJP),
-    # the float32 instances: K1-bwd templated on its scalar, K2-/K3-bwd an
-    # FFMA mode of the f32 fold's mainloop, the adjoint generated in float
+    # the float32 instances: K1-bwd templated on its scalar, K2-/K3-bwd
+    # the FFMA kernel stage_bwd_f32_kernel (a tile spanning K, M split in
+    # a fixed order where the output tiles cannot fill the card), the
+    # adjoint generated in float
     'fields_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
                        'pyiga_tpu/ops/pallas_sumfac.py:1087' + _VJP),
     'mass_fields_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
@@ -4267,8 +4269,9 @@ def adjoint_case(asm, device, name, seed, tol=1e-13):
 
 
 def stage_bwd_case(name, tables, idx, g, device, tol=1e-13):
-    """K2-/K3-bwd (``stage_bwd_kernel``, or for float32 operands the FFMA
-    kernel of ``csrc/sumfac_f32.cu``) of the terms `idx` over `tables`
+    """K2-/K3-bwd (``stage_bwd_kernel``, or for float32 operands
+    ``stage_bwd_f32_kernel`` of ``csrc/sumfac_f32.cu``, its plan logged:
+    tile, chunks of M, blocks and waves) of the terms `idx` over `tables`
     against ``fold_bwd_plain`` (`tol` relative, bitwise on a repeat, in
     float32 also bitwise unchanged with torch's global TF32 on; one table
     through ``stage_bwd``), its ms, the plain version's, one
@@ -4276,6 +4279,7 @@ def stage_bwd_case(name, tables, idx, g, device, tol=1e-13):
     the bound: the distinct tables and `g` read once, ``(G, K, R)``
     written once, 2 K R M operations a table at the f64 tensor cores' or
     the f32 FMA units' peak (both 67 TFLOP/s)."""
+    from pyiga_tpu_torch import _cuda
     from pyiga_tpu_torch.ops import cuda_sumfac as cs
     R, M = g.shape
     K = tables[0].shape[1]
@@ -4311,13 +4315,63 @@ def stage_bwd_case(name, tables, idx, g, device, tol=1e-13):
                **bound(nbytes(g, *used) + g.element_size() * K * R
                        * len(used), 2 * K * R * M * len(used),
                        F32_PER_MS if f32 else F64_TENSOR_PER_MS))
+    plan = ''
+    if f32:
+        p = cs.stage_bwd_f32_plan(K, R, M, len(used), _cuda.sm_count(g),
+                                  cs.stage_bwd_f32_tiles(_cuda.library()))
+        rec['plan'] = {k: p[k] for k in ('bk', 'br', 'chunks', 'blocks',
+                                         'waves')}
+        plan = '; tile %d x %d, S %d, %d blocks, %.2f waves' % (
+            p['bk'], p['br'], p['chunks'], p['blocks'], p['waves'])
     log('  %-24s (K, R, M) = (%d, %d, %d), %d tables: %.4f ms '
-        '(plain %.4f, matmul %.4f, bound %.4f, %.0f %%)'
+        '(plain %.4f, matmul %.4f, bound %.4f, %.0f %%)%s'
         % (label, K, R, M, len(used), rec['ms'], rec['plain_ms'],
            rec['library_ms'], rec['bound_ms'],
-           100 * rec['bound_ms'] / rec['ms']))
+           100 * rec['bound_ms'] / rec['ms'], plan))
     del got, ref, tcat
     return rec
+
+
+def fold_bwd_tables(asm):
+    """The final tables of `asm`'s compact chains as its fold's backward
+    reads them: the distinct tables in order of first use and each term's
+    index among them."""
+    cops = asm._compact_operands()
+    last = [cops['last_idx'][t] for t, _m in cops['plan']]
+    first = {}
+    for t, _m in cops['plan']:
+        first.setdefault(cops['last_idx'][t], t)
+    slot = {i: s for s, i in enumerate(first)}
+    return ([cops['term_tables'][t][-1] for t in first.values()],
+            [slot[i] for i in last])
+
+
+def stage_bwd_f32_edges(rand, device, tol):
+    """Phase 20f's edge cases of ``stage_bwd_f32_kernel``, each a
+    :func:`stage_bwd_case`: 16 tables in one launch at an odd R, M < 16,
+    an odd R, g and a table 4 bytes off their 16-byte alignment (the
+    tables' 4-byte copies), K = 1, and a split of M whose last chunk is
+    short (M = 1,001 over 15 chunks)."""
+    def shifted(*shape):
+        buf = rand(int(np.prod(shape)) + 1)
+        return buf[1:].view(*shape)
+    return {
+        '16 tables': stage_bwd_case(
+            '16 tables', [rand(345, 192) for _ in range(16)],
+            list(range(16)), rand(4097, 345), device, tol=tol),
+        'M < 16': stage_bwd_case('M < 16', [rand(5, 64)], [0],
+                                 rand(300, 5), device, tol=tol),
+        'odd R': stage_bwd_case('odd R', [rand(345, 192)], [0],
+                                rand(4097, 345), device, tol=tol),
+        'g, T 4 bytes off': stage_bwd_case(
+            'g, T 4 bytes off', [shifted(345, 192)], [0],
+            shifted(1000, 345), device, tol=tol),
+        'K = 1': stage_bwd_case('K = 1', [rand(40, 1)], [0], rand(999, 40),
+                                device, tol=tol),
+        'short last chunk': stage_bwd_case(
+            'short last chunk', [rand(1001, 64)], [0], rand(130, 1001),
+            device, tol=tol),
+    }
 
 
 def check_diff_kernels(device, n3=48, n2=128, dtype=torch.float64):
@@ -4332,8 +4386,10 @@ def check_diff_kernels(device, n3=48, n2=128, dtype=torch.float64):
     at n=48 (QL = 1); K2's and K3's backward (:func:`stage_bwd_case`) at
     the headline's compact chain (the two stage shapes, and the fold's
     terms over their distinct tables in one launch, R = M^2), at 2D
-    n=128's stage shape (512, 512, 905) and on a ragged fold (K = 33, R =
-    1,001, M = 7, 3 terms over 2 tables); the generated K5 adjoint on
+    n=128's stage shape (512, 512, 905), on the 2D n=128 stiffness
+    gradient's fold (512, 905, 905) over its distinct final tables, on a
+    ragged fold (K = 33, R = 1,001, M = 7, 3 terms over 2 tables) and, in
+    float32, on :func:`stage_bwd_f32_edges`; the generated K5 adjoint on
     convection-diffusion, on :data:`NONLINEAR` and on the biharmonic at
     2D n=128, and on ``inner(grad(u), grad(v)) * ds`` on the 'left'
     face's boundary grid of the extruded annulus at 3D n=48 (QL = 1).
@@ -4362,6 +4418,7 @@ def check_diff_kernels(device, n3=48, n2=128, dtype=torch.float64):
         del args
         a2 = StiffnessAssembler(kvs_of(2, n2), geometry.quarter_annulus(),
                                 device=device)
+        fold2 = fold_bwd_tables(a2)
         Y, T, _w12, _wL, nurbs = spline_partials(a2)
         jac['annulus_n128'] = fields_bwd_case(
             'jac', Y, T, None, None, nurbs, device, 'annulus n=%d' % n2, 3,
@@ -4403,20 +4460,20 @@ def check_diff_kernels(device, n3=48, n2=128, dtype=torch.float64):
             cases[name] = stage_bwd_case(name, [Tt], [0],
                                          rand(R, Tt.shape[0]), device,
                                          tol=tol)
-        plan = cops['plan']
-        sel = [t for t, _m in plan]
-        last = [cops['last_idx'][t] for t in sel]
-        ftabs, slot = [], {}
-        for t, i in zip(sel, last):
-            if i not in slot:
-                slot[i] = len(ftabs)
-                ftabs.append(cops['term_tables'][t][-1])
-        fold_rec = stage_bwd_case('fold n=%d' % n3, ftabs,
-                                  [slot[i] for i in last], rand(M * M, M),
-                                  device, tol=tol)
+        ftabs, fidx = fold_bwd_tables(asm)
+        fold_rec = stage_bwd_case('fold n=%d' % n3, ftabs, fidx,
+                                  rand(M * M, M), device, tol=tol)
+        # the 2D n=128 stiffness gradient's fold: (K, R, M) = (512, 905,
+        # 905) over its distinct final tables
+        M2 = fold2[0][0].shape[0]
+        cases['2D fold n=%d' % n2] = stage_bwd_case(
+            '2D fold n=%d' % n2, *fold2, rand(M2, M2), device, tol=tol)
+        del fold2
         cases['ragged fold'] = stage_bwd_case(
             'ragged fold', [rand(7, 33), rand(7, 33)], [1, 0, 1],
             rand(1001, 7), device, tol=tol)
+        if f32:
+            cases.update(stage_bwd_f32_edges(rand, device, tol))
         both = list(cases.values())[:2]         # the n=48 stage shapes
         out['stage_bwd' + sfx] = dict(
             {k: sum(r[k] for r in both) for k in ('ms', 'plain_ms',

@@ -83,7 +83,8 @@ _SIGNATURES = {
     'pyiga_stage_f32': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_fold_f32': (_P, _P, _I, _P, _I, _L, _I, _P),
     'pyiga_stage_bwd_f64': (_P, _I, _P, _P, _I, _L, _I, _P),
-    'pyiga_stage_bwd_f32': (_P, _I, _P, _P, _I, _L, _I, _P),
+    'pyiga_stage_bwd_f32': (_P, _I, _P, _P, _I, _L, _I, _I, _I, _P, _P, _P),
+    'pyiga_stage_bwd_f32_tiles': (_P, _I),
     'pyiga_stage_T_f64': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_tail_fused_f64': (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     'pyiga_flat_banded_f64': (_P, _P, _P, _P, _I, _L, _L, _P),
@@ -246,6 +247,18 @@ def check(err, name):
     if err != 0:
         msg = library().pyiga_error_string(err).decode()
         raise RuntimeError('%s: CUDA launch failed: %s (%d)' % (name, msg, err))
+
+
+_SM_COUNTS = {}
+
+
+def sm_count(t):
+    """The number of SMs of `t`'s CUDA device (cached per device)."""
+    i = t.device.index
+    if i not in _SM_COUNTS:
+        _SM_COUNTS[i] = torch.cuda.get_device_properties(
+            t.device).multi_processor_count
+    return _SM_COUNTS[i]
 
 
 def stream_of(t):

@@ -12,8 +12,8 @@
 // K2-bwd / K3-bwd  stage_bwd_kernel  the backward of K2 and K3 (no Pallas
 //     site: the JAX package differentiates their XLA forms); f64 tensor
 //     cores, every distinct table of a fold in one launch.  Its float32
-//     instance (pyiga_stage_bwd_f32) is an FFMA kernel in sumfac_f32.cu:
-//     DMMA is float64 only.
+//     instance (pyiga_stage_bwd_f32) is sumfac_f32.cu's FFMA kernel
+//     stage_bwd_f32_kernel: DMMA is float64 only.
 //
 // The TPU kernels carry float64 as two-float f32 pairs and split every
 // contraction into six bf16 mantissa chunks (21 chunk dots with exact f32

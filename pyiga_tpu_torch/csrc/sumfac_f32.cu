@@ -10,13 +10,9 @@
 //     g[r, m] for up to 16 tables T_i (M, K) and the gradient g (R, M) of
 //     a stage's or a fold's output; out (G, K, R): the backward of K2f and
 //     K3f, the float32 instance of sumfac.cu's stage_bwd_kernel.
-// All three launch fold_f32_kernel, K2f as its case of one term: one
-// mainloop.  The backward is the fold's function with the roles turned:
-// each table T_i is read as a field (its rows m are the contraction, its
-// columns k the output's rows: T_i (M, K) is an X (K_f, R_f) as it lies),
-// g as the table (read transposed, g[r, m] -> [m][r], by the same
-// cp.async path), and each table is a group of its own with an output of
-// its own (fold_f32_kernel<VB, 1, true>).
+// K2f and K3f launch fold_f32_kernel, K2f as its case of one term: one
+// mainloop.  The backward has a kernel of its own, stage_bwd_f32_kernel
+// (its design below the forward's).
 //
 // The JAX package's f32 line runs these contractions as XLA tensordots at
 // Precision.HIGHEST (pyiga_tpu/ops/sumfac.py:55 `contract_chain` and :291
@@ -32,11 +28,7 @@
 // line K = 192, M = 357: the two stage shapes (R = 36,864 and 68,544) do
 // 14.5 GFLOP (0.216 ms) over 226 MB (0.067 ms); the fold, 3 tables of 2
 // terms at R = 127,449, 52.4 GFLOP (0.782 ms) over 769 MB (0.230 ms).
-// The backward at the n=48 gradient's shapes (K = 192, M = 345; the
-// stages R = 36,864 and 66,240, the fold 3 tables at R = 119,025) does
-// the float64 backward's operations at the same peak: 0.2039 and 0.7060
-// ms.  Its K = 192 fills one and a half 128-row tiles: a quarter of the
-// second tile's FFMA are lost (a simple mapping first).
+// The backward's bounds are in its own section below.
 //
 // Design.  A step of the mainloop is (table group, k slice), and every
 // step runs a product.  A block of 256 threads owns a 128 (r) x 128 (m)
@@ -77,6 +69,8 @@
 // The -D constants below let scripts/torch_fold_f32_variants.py rebuild
 // the source with other tiles, depths and staging paths, and with parts
 // cut out (PYIGA_F32_CUT: timed, never checked).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -403,12 +397,8 @@ __device__ __forceinline__ void mma_slice(const float* Xs, const float* Ts,
 
 // PRE: the terms of a group whose X slices are fetched ahead (1 where
 // every group has one term: K2f; else 2).  lvo: log2 of the output
-// store's width in floats (0, 1 or 2).  BWD (K2-bwd f32): every group is
-// one term with an output of its own, out + i R M for group i, and all
-// share the table terms.t[0]; a block runs one group, whose index the
-// grid carries between the m tiles (slowest) and the r tiles, so that
-// the blocks that read one table tile run together.
-template <int VB, int PRE, bool BWD>
+// store's width in floats (0, 1 or 2).
+template <int VB, int PRE>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
                 int M, float* __restrict__ out, int lvo) {
@@ -417,19 +407,8 @@ fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
     const int wr = 16 * kTRQ * (warp % kWR), wm = kWMW * (warp / kWR);
     const int ra = wr + 4 * (lane / 8), ma = wm + 4 * (lane % 8);
     const unsigned int mt = (M + kBM - 1) / kBM;
-    int m0, g0 = 0;                     // the block's m tile, first group
-    long long r0;
-    if constexpr (BWD) {
-        const unsigned int rt = (unsigned int)((R + kBR - 1) / kBR);
-        const unsigned int rest = blockIdx.x / rt;
-        r0 = (long long)(blockIdx.x % rt) * kBR;
-        g0 = (int)(rest % (unsigned int)terms.groups);
-        m0 = (int)(rest / (unsigned int)terms.groups) * kBM;
-        out += (long long)g0 * R * M;
-    } else {
-        m0 = (int)(blockIdx.x % mt) * kBM;
-        r0 = (long long)(blockIdx.x / mt) * kBR;
-    }
+    const int m0 = (int)(blockIdx.x % mt) * kBM;
+    const long long r0 = (long long)(blockIdx.x / mt) * kBR;
     float acc[kTR][kTM];
 #pragma unroll
     for (int i = 0; i < kTR; ++i)
@@ -438,7 +417,7 @@ fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
 
     const TableMap tm(K, M, m0);
     const XMap<VB> xm(R, r0);
-    const int nsteps = (K + kBK - 1) / kBK * (BWD ? 1 : terms.groups);
+    const int nsteps = (K + kBK - 1) / kBK * terms.groups;
     auto xbuf = [&](int s) { return smem + (s % kStages) * kStage; };
     auto tbuf = [&](int s) { return xbuf(s) + kXSlots * kBK * kPR; };
     // a step: (group g, slice at k0); the table's copies and the fields'
@@ -452,12 +431,12 @@ fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
             }
         }
     };
-    Cursor tc{g0, 0};
+    Cursor tc{0, 0};
     auto copy_table = [&](int s) {
-        tm.copy(tbuf(s), terms.t[BWD ? 0 : tc.g], tc.k0, K);
+        tm.copy(tbuf(s), terms.t[tc.g], tc.k0, K);
     };
 #if PYIGA_F32_XASYNC
-    Cursor sc{g0, 0};
+    Cursor sc{0, 0};
     auto load_step = [&](int s) {
         const int q0 = tc.g ? terms.end[tc.g - 1] : 0;
         const long long base = (long long)tc.k0 * R;
@@ -497,7 +476,7 @@ fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
     // (predicated, no branch: the loads stay ahead of the products), then
     // adds them in term order, loads and adds the group's later fields,
     // and stores the sum into the next stage's X buffer
-    Cursor xc{g0, 0};
+    Cursor xc{0, 0};
     XPart<VB> xr[PRE];
     auto issue_x = [&](bool use) {
         const int g = use ? xc.g : 0;
@@ -594,12 +573,11 @@ fold_f32_kernel(const __grid_constant__ Terms terms, int K, long long R,
     }
 }
 
-template <bool BWD = false>
 int launch(const Terms& terms, int K, long long R, int M, float* out,
            void* stream) {
     if (K < 1 || R < 1 || M < 1) return (int)cudaErrorInvalidValue;
     const long long blocks = (long long)((M + kBM - 1) / kBM)
-                             * ((R + kBR - 1) / kBR) * (BWD ? terms.groups : 1);
+                             * ((R + kBR - 1) / kBR);
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     bool vb = !PYIGA_F32_SCALAR_X && R % 4 == 0;
     for (int q = 0; q < terms.end[terms.groups - 1]; ++q)
@@ -610,12 +588,8 @@ int launch(const Terms& terms, int K, long long R, int M, float* out,
     const uintptr_t o = reinterpret_cast<uintptr_t>(out);
     const int lvo = M % 4 == 0 && o % 16 == 0 ? 2
                   : M % 2 == 0 && o % 8 == 0 ? 1 : 0;
-    auto kernel = BWD ? (vb ? fold_f32_kernel<4, 1, true>
-                            : fold_f32_kernel<1, 1, true>)
-                : vb ? (pairs ? fold_f32_kernel<4, 2, false>
-                              : fold_f32_kernel<4, 1, false>)
-                     : (pairs ? fold_f32_kernel<1, 2, false>
-                              : fold_f32_kernel<1, 1, false>);
+    auto kernel = vb ? (pairs ? fold_f32_kernel<4, 2> : fold_f32_kernel<4, 1>)
+                     : (pairs ? fold_f32_kernel<1, 2> : fold_f32_kernel<1, 1>);
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return (int)err;
@@ -625,6 +599,380 @@ int launch(const Terms& terms, int K, long long R, int M, float* out,
 }
 
 }  // namespace f32
+
+// --------------------------------------------------------------------------
+// K2-bwd f32 / K3-bwd f32  stage_bwd_f32_kernel: the backward of a stage
+// for G >= 1 tables of one gradient at once,
+//   gX_i[k, r] = sum_m T_i[m, k] g[r, m],
+// T_i (M, K) the stage's tables, g (R, M) the gradient of its output, gX
+// (G, K, R) written once.  No Pallas site: the JAX package differentiates
+// the XLA forms of K2 / K3 (pyiga_tpu/diff.py); sumfac.cu's
+// stage_bwd_kernel is the float64 instance.
+//
+// Bound: operations, 2 K R M a table on the FMA units at 67 TFLOP/s.  At
+// the 3D n=48 gradient's compact chain (K = 192, M = 345) the two stage
+// shapes (R = 36,864 and 66,240) do 13.7 GFLOP, 0.2039 ms; the fold (3
+// tables, R = 119,025) 47.3 GFLOP, 0.7060 ms.  2D n=128: the stage
+// (512, 512, 905) 0.47 GFLOP, 0.0071 ms; the fold (512, 905, 905) 0.84
+// GFLOP a table.
+//
+// Design.
+//   - the block's rows are K: one tile spans all of K = 192 with no
+//     padded row (a 128-row tile would put a quarter of the second tile's
+//     products on zeros).  Tile192: 192 (k) x 128 (r), 16 x 16 lanes of
+//     12 k x 8 r (96 accumulators), one block an SM; Tile128 (K = 512 at
+//     2D n=128, 4 k tiles, none padded; one block an SM: at two, 128
+//     registers spill) and Tile64 (K <= 64) run 8 x 8 a lane.  The plan
+//     (cuda_sumfac.stage_bwd_f32_plan, over the geometry that
+//     pyiga_stage_bwd_f32_tiles reports) takes the tile that pads K
+//     least, the larger on a tie, as stage_bwd_kernel's pick_tile;
+//   - a lane's k rows are TKQ quads 4 LK apart and its r columns two quads
+//     4 LR apart, so that the 8 lanes of a quarter-warp read 8 consecutive
+//     16-byte chunks of the T slice and one of the g slice.  A step of m
+//     reads TKQ + 2 float4 for 8 TK FFMA: at 12 x 8, 5 LDS.128 (20 cycles
+//     of the SM's shared-memory port, 4 a quarter-warp wavefront) for 96
+//     FFMA (24 cycles of the FMA issue a warp), where the forward's 8 x 8
+//     is 16 against 16.  The next m's fragments are read before this m's
+//     products;
+//   - T_i's 16-deep slice is 16 rows of contiguous K: 16-byte cp.async
+//     (.cg: the tables stay in the L2) where K is a multiple of 4 and
+//     the tables 16-byte aligned, else 4-byte.  g must be transposed to
+//     [m][r]; its rows are 4 M bytes with M odd at the paths' shapes, so
+//     it comes by 4-byte cp.async, a warp's lanes on 8 m of 4 rows (8
+//     lanes read 32 contiguous bytes), into a [m][r] slice of stride BR +
+//     4 (4 mod 32): the transposed stores land on bank (4 m + r) mod 32,
+//     distinct for the 32 lanes, and the fragment reads stay 16-byte
+//     aligned.  Both operands walk M through a ring of 3 buffers, kStages
+//     - 1 slices ahead, one barrier a slice; ragged K, R and M are
+//     zero-filled by the copies and skipped on the way out;
+//   - the grid runs (table, k tile, chunk, r tile) with the table
+//     fastest, so the blocks that read one g slab run together and g
+//     comes from device memory once a launch;
+//   - where the output tiles cannot fill the card (ceil(K / BK) ceil(R /
+//     BR) G blocks within half a wave; 2D n=128's stage has 16), the plan
+//     splits M into as many chunks as fit one wave, on 16-deep slice
+//     bounds (a second wave of shorter chunks would take as long).  Chunk
+//     c's blocks write their partial tiles to scratch (S, G, K, R) and a
+//     second pass
+//     (chunk_sum_f32_kernel) sums the chunks in chunk order: no float
+//     atomics, every output element summed in one fixed order, bitwise the
+//     same on a repeat.  The entry refuses a plan it cannot run;
+//   - the epilogue stages the tile through shared memory in TKQ passes of
+//     4 LK rows (row kq's r chunk at chunk ^ ((kq >> 2) & 7): conflict-
+//     free float4 stores and row reads), then a warp writes 32 consecutive
+//     r of one row.  Offsets into g, out and scratch are 64-bit.
+// The -D constants below let scripts/torch_stage_bwd_f32_variants.py
+// rebuild the source with other lane tiles (Tile192's TKQ), r widths and
+// depths, and with parts cut out (PYIGA_BWD32_CUT: timed, never checked).
+
+#ifndef PYIGA_BWD32_TKQ
+#define PYIGA_BWD32_TKQ 3       // Tile192: k quads a lane (48 / TKQ lanes
+#endif                          // along k)
+#ifndef PYIGA_BWD32_LR
+#define PYIGA_BWD32_LR 16       // Tile192: lanes along r, 8 r each
+#endif
+#ifndef PYIGA_BWD32_T128_TKQ
+#define PYIGA_BWD32_T128_TKQ 2  // Tile128: k quads a lane (32 / TKQ lanes
+#endif                          // along k)
+#ifndef PYIGA_BWD32_T128_LR
+#define PYIGA_BWD32_T128_LR 16  // Tile128: lanes along r
+#endif
+#ifndef PYIGA_BWD32_STAGES
+#define PYIGA_BWD32_STAGES 3    // shared buffers of the ring
+#endif
+#ifndef PYIGA_BWD32_DBUF
+#define PYIGA_BWD32_DBUF 1      // the next m's fragments read before this
+#endif                          // m's FFMA
+#ifndef PYIGA_BWD32_CUT
+#define PYIGA_BWD32_CUT 0       // 1 no products, 2 no copies, 3 no stores,
+#endif                          // 4 the fragment reads without their FFMA
+
+namespace bwd32 {
+
+constexpr int kMaxTables = 16;
+constexpr int kMaxChunks = 64;
+constexpr int kSlice = 16;              // m a slice
+constexpr int kStages = PYIGA_BWD32_STAGES;
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+struct Args {
+    const float* t[kMaxTables];  // the distinct (M, K) tables
+    int n;                       // tables
+    int chunks;                  // S
+    int bounds[kMaxChunks + 1];  // chunk c: m in [bounds[c], bounds[c + 1])
+};
+
+// A block's BK (k) x BR (r) output tile: LK x LR lanes, a lane TK k (TKQ
+// quads 4 LK apart) by 8 r (two quads 4 LR apart); MINB blocks an SM.
+template <int TKQ_, int LK_, int LR_, int MINB_>
+struct Tile {
+    static constexpr int TKQ = TKQ_, LK = LK_, LR = LR_, MINB = MINB_;
+    static constexpr int TK = 4 * TKQ, BK = TK * LK, BR = 8 * LR;
+    static constexpr int THREADS = LK * LR;
+    static constexpr int PK = BK;            // [m][k] T slice row stride
+    static constexpr int PR = BR + 4;        // [m][r] g slice (4 mod 32)
+    static constexpr int OUT = 4 * LK * BR;  // a pass of the epilogue
+    static constexpr int STAGE = kSlice * (PK + PR);
+    static constexpr int SMEM =
+        cmax(kStages * STAGE, OUT) * (int)sizeof(float);
+    static_assert(THREADS % 64 == 0 && BR % 32 == 0,
+                  "whole warp pairs, r chunks in groups of 8");
+};
+using Tile192 = Tile<PYIGA_BWD32_TKQ, 48 / PYIGA_BWD32_TKQ, PYIGA_BWD32_LR,
+                     1>;                 // K = 192 (n=48)
+using Tile128 = Tile<PYIGA_BWD32_T128_TKQ, 32 / PYIGA_BWD32_T128_TKQ,
+                     PYIGA_BWD32_T128_LR, 1>;    // K = 512 (2D n=128)
+using Tile64 = Tile<2, 8, 16, 2>;        // K <= 64
+
+__device__ __forceinline__ void put4(float* d, float4 v) {
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+}
+
+// VA: the T copies' width in floats (4: K a multiple of 4 and every
+// table 16-byte aligned).  Writes out (G, K, R), or with S > 1 chunks
+// each chunk's partial tile to scratch (S, G, K, R).
+template <class TL, int VA>
+__global__ void __launch_bounds__(TL::THREADS, TL::MINB)
+stage_bwd_f32_kernel(const __grid_constant__ Args a,
+                     const float* __restrict__ g, int K, long long R, int M,
+                     float* __restrict__ out, float* __restrict__ scratch) {
+    extern __shared__ __align__(16) float smem[];
+    constexpr int TK = TL::TK, BK = TL::BK, BR = TL::BR, LK = TL::LK;
+    constexpr int PK = TL::PK, PR = TL::PR, THREADS = TL::THREADS;
+    const int tid = (int)threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    // tables fastest, then k tiles, chunks and r tiles: the blocks that
+    // read one g slab run together
+    const unsigned int kt = (K + BK - 1) / BK;
+    unsigned int b = blockIdx.x;
+    const int i = (int)(b % (unsigned int)a.n);
+    b /= (unsigned int)a.n;
+    const int k0 = (int)(b % kt) * BK;
+    b /= kt;
+    const int c = (int)(b % (unsigned int)a.chunks);
+    const long long r0 = (long long)(b / (unsigned int)a.chunks) * BR;
+    const int mb = a.bounds[c], me = a.bounds[c + 1];
+    const int ns = (me - mb + kSlice - 1) / kSlice;
+    const int kl = tid % LK, rl = tid / LK;
+    auto tbuf = [&](int s) { return smem + (s % kStages) * TL::STAGE; };
+    auto gbuf = [&](int s) { return tbuf(s) + kSlice * PK; };
+
+    // T's 16-deep slice: 16 rows of contiguous k, [m][k]
+    constexpr int CPR = BK / VA;                    // copies a row
+    constexpr int TN = (kSlice * CPR + THREADS - 1) / THREADS;
+    auto copy_t = [&](const float* T, float* Ts, int m0) {
+#if PYIGA_BWD32_CUT == 2
+        return;
+#endif
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+            const int e = tid + j * THREADS;
+            if (kSlice * CPR % THREADS && e >= kSlice * CPR) break;
+            const int m = e / CPR, kk = (e % CPR) * VA;
+            const bool in = m0 + m < me && k0 + kk < K;
+            const float* src = in ? T + (long long)(m0 + m) * K + k0 + kk : T;
+            if constexpr (VA == 4)
+                f32::cp_async16(Ts + m * PK + kk, src, in);
+            else
+                f32::cp_async4(Ts + m * PK + kk, src, in);
+        }
+    };
+    // g's slice transposed, [m][r]: a warp's lanes take 8 m of 4 rows (8
+    // lanes read 32 bytes of a g row), stored at bank (4 m + r) mod 32
+    // (PR = 4 mod 32): no two lanes on one bank
+    constexpr int RSTEP = THREADS / 16;             // rows between copies
+    constexpr int GN = (BR + RSTEP - 1) / RSTEP;
+    const int gm = 8 * (warp % 2) + lane % 8, gr = 4 * (warp / 2) + lane / 8;
+    const long long goff = (r0 + gr) * M + gm;
+    auto copy_g = [&](float* Gs, int m0) {
+#if PYIGA_BWD32_CUT == 2
+        return;
+#endif
+        const bool mok = m0 + gm < me;
+#pragma unroll
+        for (int j = 0; j < GN; ++j) {
+            const int r = gr + j * RSTEP;
+            if (BR % RSTEP && r >= BR) break;
+            const bool in = mok && r0 + r < R;
+            f32::cp_async4(Gs + gm * PR + r,
+                           in ? g + goff + m0 + (long long)j * RSTEP * M : g,
+                           in);
+        }
+    };
+
+    float acc[TK][8];
+    // acc += the lane's TK x 8 part of Ts^T Gs over one slice: k rows 4 kl
+    // + 4 LK q + {0..3}, r columns 4 rl + 4 LR h + {0..3}
+    auto product = [&](const float* Ts, const float* Gs) {
+#if PYIGA_BWD32_CUT == 1
+        return;
+#endif
+        float av[2][TK], bv[2][8];
+        auto frags = [&](int m, int u) {
+#pragma unroll
+            for (int q = 0; q < TL::TKQ; ++q)
+                put4(av[u] + 4 * q, *reinterpret_cast<const float4*>(
+                                        Ts + m * PK + 4 * kl + 4 * LK * q));
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                put4(bv[u] + 4 * h,
+                     *reinterpret_cast<const float4*>(
+                         Gs + m * PR + 4 * rl + 4 * TL::LR * h));
+        };
+        if (PYIGA_BWD32_DBUF) frags(0, 0);
+#pragma unroll
+        for (int m = 0; m < kSlice; ++m) {
+            const int u = PYIGA_BWD32_DBUF ? m & 1 : 0;
+            if (!PYIGA_BWD32_DBUF)
+                frags(m, 0);
+            else if (m + 1 < kSlice)
+                frags(m + 1, u ^ 1);
+#if PYIGA_BWD32_CUT == 4
+#pragma unroll
+            for (int x = 0; x < TK; ++x) acc[x][0] += av[u][x];
+#pragma unroll
+            for (int y = 0; y < 8; ++y) acc[0][y] += bv[u][y];
+            continue;
+#endif
+#pragma unroll
+            for (int x = 0; x < TK; ++x)
+#pragma unroll
+                for (int y = 0; y < 8; ++y)
+                    acc[x][y] = fmaf(av[u][x], bv[u][y], acc[x][y]);
+        }
+    };
+
+    const long long KR = (long long)K * R;
+    const int rn = (int)(R - r0 < BR ? R - r0 : BR);
+    const float* T = a.t[i];
+#pragma unroll
+    for (int x = 0; x < TK; ++x)
+#pragma unroll
+        for (int y = 0; y < 8; ++y) acc[x][y] = 0.0f;
+    auto load = [&](int s) {
+        copy_t(T, tbuf(s), mb + s * kSlice);
+        copy_g(gbuf(s), mb + s * kSlice);
+    };
+    // one barrier a slice: it publishes slice s and frees the buffer
+    // of slice s - 1, which the copies of slice s + kStages - 1 refill
+    for (int s = 0; s < kStages - 1; ++s) {
+        if (s < ns) load(s);
+        f32::cp_async_commit();         // an empty group keeps the count
+    }
+    for (int s = 0; s < ns; ++s) {
+        f32::cp_async_wait<kStages - 2>();
+        __syncthreads();
+        if (s + kStages - 1 < ns) load(s + kStages - 1);
+        f32::cp_async_commit();
+        product(tbuf(s), gbuf(s));
+    }
+    f32::cp_async_wait<0>();
+    __syncthreads();                    // the epilogue reuses the ring
+
+    // the tile to its (K, R) rows in TKQ passes of 4 LK rows through
+    // shared memory: row kq's r chunk cc at cc ^ ((kq >> 2) & 7), so
+    // that a quarter-warp's float4 stores (8 lanes of consecutive kl)
+    // and a warp's reads of 32 r of one row hit distinct banks; a warp
+    // then stores 32 consecutive r of one row
+    float* dst = (a.chunks > 1 ? scratch + (long long)c * a.n * KR : out)
+                 + (long long)i * KR;
+    float* Cs = smem;
+#pragma unroll
+    for (int q = 0; q < TL::TKQ; ++q) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int kq = 4 * kl + j, sw = kl & 7;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int cc = rl + TL::LR * h;
+                *reinterpret_cast<float4*>(Cs + kq * BR + 4 * (cc ^ sw)) =
+                    make_float4(acc[4 * q + j][4 * h],
+                                acc[4 * q + j][4 * h + 1],
+                                acc[4 * q + j][4 * h + 2],
+                                acc[4 * q + j][4 * h + 3]);
+            }
+        }
+        __syncthreads();
+        const int kb = k0 + 4 * LK * q, kn = K - kb;
+        for (int e = tid; e < TL::OUT; e += THREADS) {
+            const int kq = e / BR, r = e % BR;
+            if (kq >= kn || r >= rn) continue;
+            const float v =
+                Cs[kq * BR + 4 * ((r >> 2) ^ ((kq >> 2) & 7)) + (r & 3)];
+#if PYIGA_BWD32_CUT == 3
+            if (v != 1.5e38f) continue;   // never stores; keeps the sums
+#endif
+            dst[(long long)(kb + kq) * R + r0 + r] = v;
+        }
+        __syncthreads();
+    }
+}
+
+// The split's second pass: out[e] = the S chunks' partials of e summed in
+// chunk order, part (S, n); V floats a thread and step
+template <int V>
+__global__ void __launch_bounds__(256)
+chunk_sum_f32_kernel(const float* __restrict__ part, float* __restrict__ out,
+                     long long n, int S) {
+    using Vec = typename std::conditional<V == 4, float4, float>::type;
+    const long long nv = n / V;
+    const Vec* p = reinterpret_cast<const Vec*>(part);
+    Vec* o = reinterpret_cast<Vec*>(out);
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         e < nv; e += (long long)gridDim.x * blockDim.x) {
+        Vec s = p[e];
+        for (int k = 1; k < S; ++k) {
+            const Vec v = p[(long long)k * nv + e];
+            if constexpr (V == 4) {
+                s.x += v.x;
+                s.y += v.y;
+                s.z += v.z;
+                s.w += v.w;
+            } else {
+                s += v;
+            }
+        }
+        o[e] = s;
+    }
+}
+
+template <class TL>
+int launch(const Args& a, const float* g, float* out, float* scratch, int K,
+           long long R, int M, cudaStream_t stream) {
+    bool va = K % 4 == 0;
+    for (int i = 0; i < a.n; ++i) va = va && aligned16(a.t[i]);
+    auto kernel = va ? stage_bwd_f32_kernel<TL, 4>
+                     : stage_bwd_f32_kernel<TL, 1>;
+    const long long blocks = (long long)a.n
+                             * ((K + TL::BK - 1) / TL::BK) * a.chunks
+                             * ((R + TL::BR - 1) / TL::BR);
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned int)blocks, TL::THREADS, TL::SMEM, stream>>>(
+        a, g, K, R, M, out, scratch);
+    if (a.chunks > 1) {
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        const long long n = (long long)a.n * K * R;
+        const bool v4 = n % 4 == 0 && aligned16(scratch) && aligned16(out);
+        const unsigned int grid = pyiga_grid_1d(v4 ? n / 4 : n, 256);
+        if (v4)
+            chunk_sum_f32_kernel<4><<<grid, 256, 0, stream>>>(scratch, out, n,
+                                                              a.chunks);
+        else
+            chunk_sum_f32_kernel<1><<<grid, 256, 0, stream>>>(scratch, out, n,
+                                                              a.chunks);
+    }
+    return (int)cudaGetLastError();
+}
+
+}  // namespace bwd32
 }  // namespace
 
 // K2f: one field X (K, R) and one table T (M, K) -> out (R, M).
@@ -659,20 +1007,63 @@ PYIGA_EXPORT int pyiga_fold_f32(const uint64_t* x_ptrs, const uint64_t* t_ptrs,
 // K2-bwd f32 / K3-bwd f32: gX_i[k, r] = sum_m T_i[m, k] g[r, m] for up to
 // 16 distinct tables T_i (M, K) (t_ptrs: a host array of their device
 // pointers) and the output's gradient g (R, M); out (n_tables, K, R),
-// table i's gradient at out + i K R.  The fold's function with the roles
-// turned: each table is a field (K_f = M, R_f = K), g the table (M_f =
-// R), every table a group of its own with an output of its own.
+// table i's gradient at out + i K R.  The plan (cuda_sumfac.
+// stage_bwd_f32_plan over pyiga_stage_bwd_f32_tiles): `tile` (0 Tile192,
+// 1 Tile128, 2 Tile64) and n_chunks chunks of M, chunk c over m in
+// [bounds[c], bounds[c + 1])
+// (bounds: a host array of n_chunks + 1 ints, 0 first and M last, every
+// inner bound a multiple of 16); with n_chunks > 1 the chunks' partials go
+// to scratch (n_chunks, n_tables, K, R) and a second pass sums them into
+// out in chunk order.  A plan the kernel cannot run is refused
+// (cudaErrorInvalidValue), never replaced.
 PYIGA_EXPORT int pyiga_stage_bwd_f32(const uint64_t* t_ptrs, int n_tables,
                                      const float* g, float* out, int K,
-                                     long long R, int M, void* stream) {
-    if (n_tables < 1 || n_tables > f32::kMaxTerms || R > 0x7fffffffLL)
+                                     long long R, int M, int tile,
+                                     int n_chunks, const int* bounds,
+                                     float* scratch, void* stream) {
+    using namespace bwd32;
+    if (n_tables < 1 || n_tables > kMaxTables || K < 1 || R < 1 || M < 1
+        || n_chunks < 1 || n_chunks > kMaxChunks || bounds == nullptr
+        || (n_chunks > 1 && scratch == nullptr))
         return (int)cudaErrorInvalidValue;
-    f32::Terms terms;
-    terms.groups = n_tables;
-    terms.t[0] = g;
-    for (int i = 0; i < n_tables; ++i) {
-        terms.x[i] = reinterpret_cast<const float*>(t_ptrs[i]);
-        terms.end[i] = i + 1;
+    Args a;
+    a.n = n_tables;
+    a.chunks = n_chunks;
+    for (int i = 0; i < n_tables; ++i)
+        a.t[i] = reinterpret_cast<const float*>(t_ptrs[i]);
+    if (bounds[0] != 0 || bounds[n_chunks] != M)
+        return (int)cudaErrorInvalidValue;
+    for (int c = 0; c <= n_chunks; ++c) {
+        if (c > 0 && bounds[c] <= bounds[c - 1])
+            return (int)cudaErrorInvalidValue;
+        if (c < n_chunks && bounds[c] % kSlice)
+            return (int)cudaErrorInvalidValue;
+        a.bounds[c] = bounds[c];
     }
-    return f32::launch<true>(terms, M, K, (int)R, out, stream);
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (tile) {
+    case 0:
+        return launch<Tile192>(a, g, out, scratch, K, R, M, s);
+    case 1:
+        return launch<Tile128>(a, g, out, scratch, K, R, M, s);
+    case 2:
+        return launch<Tile64>(a, g, out, scratch, K, R, M, s);
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
+}
+
+// The tiles of pyiga_stage_bwd_f32 in its numbering, the geometry its
+// plan is built from (cuda_sumfac.stage_bwd_f32_plan): tile i's k rows,
+// r columns and blocks an SM at out[3 i], out[3 i + 1], out[3 i + 2] (out:
+// room for 3 n ints).  Returns n, or -1 if n_max is too small.
+PYIGA_EXPORT int pyiga_stage_bwd_f32_tiles(int* out, int n_max) {
+    using namespace bwd32;
+    const int t[] = {Tile192::BK, Tile192::BR, Tile192::MINB,
+                     Tile128::BK, Tile128::BR, Tile128::MINB,
+                     Tile64::BK,  Tile64::BR,  Tile64::MINB};
+    const int n = (int)(sizeof(t) / sizeof(t[0])) / 3;
+    if (n_max < n) return -1;
+    for (int i = 0; i < 3 * n; ++i) out[i] = t[i];
+    return n;
 }

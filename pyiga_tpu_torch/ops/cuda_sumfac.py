@@ -51,6 +51,7 @@ leading axis and appends the band axis last, so a d-stage chain maps
 """
 
 import ctypes
+import functools
 import os
 
 import numpy as np
@@ -573,10 +574,75 @@ def _check_bwd_args(name, tables, g):
                          % (name, tuple(g.shape), tuple(shape)))
 
 
+_BWD_F32_SLICE = 16         # m a slice: the chunks' bounds are multiples
+_BWD_F32_MIN_SLICES = 4     # slices a chunk at least
+_BWD_F32_MAX_CHUNKS = 64    # kMaxChunks in csrc/sumfac_f32.cu
+
+
+@functools.lru_cache(maxsize=8)
+def stage_bwd_f32_tiles(lib):
+    """The tiles of `lib`'s ``stage_bwd_f32_kernel`` in its entry's
+    numbering, as the library reports them (``pyiga_stage_bwd_f32_tiles``;
+    read once a library): per tile ``(bk, br, blocks an SM)``, k rows and
+    r columns a block."""
+    buf = (ctypes.c_int * 48)()
+    n = lib.pyiga_stage_bwd_f32_tiles(ctypes.cast(buf, ctypes.c_void_p), 16)
+    if n < 1:
+        raise RuntimeError('pyiga_stage_bwd_f32_tiles: %d' % n)
+    return tuple(tuple(buf[3 * i:3 * i + 3]) for i in range(n))
+
+
+def stage_bwd_f32_plan(K, R, M, n_tables, n_sm, tiles):
+    """The launch plan of the float32 backward ``stage_bwd_f32_kernel``
+    for `n_tables` tables ``(M, K)`` and a gradient ``(R, M)`` on a card of
+    `n_sm` SMs, over the library's `tiles` (:func:`stage_bwd_f32_tiles`):
+    the tile whose k tiles pad `K` least (the larger on a tie), and a
+    split of M into as many ``chunks`` as the unsplit grid (``ceil(K /
+    bk) ceil(R / br) n_tables`` blocks) fits into one wave (``n_sm``
+    times the tile's blocks an SM), each at least 4 slices of 16 m, at
+    most 64: so M splits only where the unsplit grid fills at most half a
+    wave (a second wave of shorter chunks would take about as long as one
+    of longer ones, plus the second pass).  Chunk c covers m in
+    ``[bounds[c], bounds[c + 1])``, every
+    inner bound a multiple of 16; only the last chunk may be short.
+    Returns a dict with ``tile`` (the entry's index), ``bk``, ``br``,
+    ``chunks``, ``bounds``, ``blocks`` (of the first pass) and
+    ``waves``."""
+    def padded(t):
+        bk = tiles[t][0]
+        return -(-K // bk) * bk
+    tile = 0
+    for t in range(1, len(tiles)):
+        if padded(t) < padded(tile) or (padded(t) == padded(tile)
+                                        and tiles[t][0] > tiles[tile][0]):
+            tile = t
+    bk, br, per_sm = tiles[tile]
+    blocks = -(-K // bk) * -(-R // br) * n_tables
+    wave = n_sm * per_sm
+    slices = -(-M // _BWD_F32_SLICE)
+    chunks = max(1, min(wave // blocks, slices // _BWD_F32_MIN_SLICES,
+                        _BWD_F32_MAX_CHUNKS))
+    bounds = [_BWD_F32_SLICE * (c * slices // chunks)
+              for c in range(chunks)] + [M]
+    return dict(tile=tile, bk=bk, br=br, chunks=chunks, bounds=bounds,
+                blocks=blocks * chunks, waves=blocks * chunks / wave)
+
+
+@functools.lru_cache(maxsize=256)
+def _stage_bwd_f32_args(K, R, M, n_tables, n_sm, tiles):
+    """The plan's arguments of the C entry, built once a shape: the tile,
+    the number of chunks and the bounds as a ctypes array."""
+    plan = stage_bwd_f32_plan(K, R, M, n_tables, n_sm, tiles)
+    S = plan['chunks']
+    return plan['tile'], S, (ctypes.c_int * (S + 1))(*plan['bounds'])
+
+
 def _stage_bwd_kernel(tables, g, counter):
     """K2-bwd on CUDA tensors: ``(G, K, R)``, table i's gradient at [i],
     one launch per 16 tables, counted under `counter` (float64: the DMMA
-    kernel; float32: the FFMA kernel of ``csrc/sumfac_f32.cu``, counted
+    kernel ``stage_bwd_kernel``; float32: ``stage_bwd_f32_kernel`` of
+    ``csrc/sumfac_f32.cu`` on the plan of :func:`stage_bwd_f32_plan`,
+    with a scratch of the chunks' partials where it splits M, counted
     under `counter` with ``_f32``)."""
     f32 = g.dtype == torch.float32
     dt = torch.float32 if f32 else torch.float64
@@ -588,15 +654,25 @@ def _stage_bwd_kernel(tables, g, counter):
     out = torch.empty((len(tables), K, R), dtype=dt, device=g.device)
     if f32:
         counter += '_f32'
-    fn = (_cuda.library().pyiga_stage_bwd_f32 if f32
-          else _cuda.library().pyiga_stage_bwd_f64)
     with _cuda.device_of(g):
         for i0 in range(0, len(tables), _FOLD_MAX_TERMS):
             part = tables[i0:i0 + _FOLD_MAX_TERMS]
             tp = (ctypes.c_uint64 * len(part))(*[T.data_ptr() for T in part])
-            err = fn(
-                ctypes.cast(tp, ctypes.c_void_p), len(part), g.data_ptr(),
-                out[i0].data_ptr(), K, R, M, _cuda.stream_of(g))
+            args = (ctypes.cast(tp, ctypes.c_void_p), len(part),
+                    g.data_ptr(), out[i0].data_ptr(), K, R, M)
+            if f32:
+                tile, S, bounds = _stage_bwd_f32_args(
+                    K, R, M, len(part), _cuda.sm_count(g),
+                    stage_bwd_f32_tiles(_cuda.library()))
+                scratch = (torch.empty((S, len(part), K, R), dtype=dt,
+                                       device=g.device) if S > 1 else None)
+                err = _cuda.library().pyiga_stage_bwd_f32(
+                    *args, tile, S, ctypes.cast(bounds, ctypes.c_void_p),
+                    0 if scratch is None else scratch.data_ptr(),
+                    _cuda.stream_of(g))
+            else:
+                err = _cuda.library().pyiga_stage_bwd_f64(
+                    *args, _cuda.stream_of(g))
             _cuda.check(err, counter)
             _cuda.LAUNCHES[counter] += 1
     return out
@@ -608,9 +684,11 @@ def stage_bwd(T, g, counter='stage_bwd'):
     returns ``(K, R)`` in the operands' dtype.  On the card one launch of
     ``stage_bwd_kernel`` for float64 (f64 tensor cores; it reads `T`
     transposed and `g` once, and writes `gX` once), counted under
-    `counter` (``stage_bwd``, or ``fold_bwd`` for a fold's), or of the
-    float32 FFMA kernel (``csrc/sumfac_f32.cu``, full float32, no TF32),
-    counted under `counter` with ``_f32``.  A CPU tensor runs
+    `counter` (``stage_bwd``, or ``fold_bwd`` for a fold's), or of
+    ``stage_bwd_f32_kernel`` for float32 (``csrc/sumfac_f32.cu``: FFMA in
+    full float32, no TF32; a tile spanning K, M split in a fixed order
+    where the output tiles cannot fill the card,
+    :func:`stage_bwd_f32_plan`), counted under `counter` with ``_f32``.  A CPU tensor runs
     :func:`stage_bwd_plain`."""
     g = g.contiguous()
     _check_bwd_args(counter, [T], g)
@@ -735,10 +813,10 @@ def fold_bwd(tables, term_idx, g, need=None):
     the output's gradient ``g (R, M)``.  The terms that share a table
     share its gradient: the G distinct tables whose terms need one
     (`need`, per term; default all) go into one ``(G, K, R)`` tensor, on
-    the card by one launch of ``stage_bwd_kernel`` (or its float32
-    instance, counted under ``fold_bwd_f32``) for up to 16 tables,
-    counted under ``fold_bwd``.  Each term gets the view of its table's
-    gradient, None if it needs none.  A CPU tensor runs
+    the card by one launch of ``stage_bwd_kernel`` (float32:
+    ``stage_bwd_f32_kernel``, counted under ``fold_bwd_f32``) for up to
+    16 tables, counted under ``fold_bwd``.  Each term gets the view of
+    its table's gradient, None if it needs none.  A CPU tensor runs
     :func:`fold_bwd_plain`."""
     uniq, need = _fold_bwd_tables(term_idx, need)
     if not uniq:

@@ -520,13 +520,31 @@ class _FakeLibrary:
         _arr(gY, np.float32, *res.shape)[...] = res.numpy()
         return 0
 
-    def pyiga_stage_bwd_f32(self, tp, n, g, out, K, R, M, s):
+    def pyiga_stage_bwd_f32_tiles(self, out, n_max):
+        buf = ctypes.cast(out, ctypes.POINTER(ctypes.c_int))
+        for i, v in enumerate((192, 128, 1, 128, 128, 1, 64, 128, 2)):
+            buf[i] = v
+        return 3
+
+    def pyiga_stage_bwd_f32(self, tp, n, g, out, K, R, M, tile, S, bounds,
+                            scratch, s):
+        """The kernel's two passes: each chunk's partial (into the scratch
+        where the plan splits M), then the chunks summed in order."""
         self.calls.append('stage_bwd_f32')
         ts = ctypes.cast(tp, ctypes.POINTER(ctypes.c_uint64))
+        b = ctypes.cast(bounds, ctypes.POINTER(ctypes.c_int))[:S + 1]
+        assert b[0] == 0 and b[S] == M and (S == 1 or scratch)
         o = _arr(out, np.float32, n, K, R)
-        for i in range(n):
-            o[i] = _arr(ts[i], np.float32, M, K).T @ _arr(g, np.float32, R,
-                                                          M).T
+        parts = _arr(scratch, np.float32, S, n, K, R) if S > 1 else o[None]
+        gr = _arr(g, np.float32, R, M)
+        for c in range(S):
+            for i in range(n):
+                parts[c, i] = (_arr(ts[i], np.float32, M, K)[b[c]:b[c + 1]].T
+                               @ gr[:, b[c]:b[c + 1]].T)
+        if S > 1:
+            o[...] = parts[0]
+            for c in range(1, S):
+                o += parts[c]
         return 0
 
     def pyiga_stage_f32(self, X, T, out, K, R, M, s):
@@ -598,6 +616,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(_cuda, 'device_of',
                         lambda t: contextlib.nullcontext())
     monkeypatch.setattr(_cuda, 'stream_of', lambda t: 0)
+    monkeypatch.setattr(_cuda, 'sm_count', lambda t: 132)
     _cuda.reset_launches()
     return lib
 
