@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed S]
 
 Builds the port's CUDA kernels from ``pyiga_tpu_torch/csrc``, holds each
 kernel against its plain PyTorch version on the card at the shapes of the
@@ -223,6 +223,24 @@ shapes (2e-6 of the float32 ``assemble_banded()``, the peak bytes, cg
 on its ``BandedOperator`` held to the JAX count), the polar
 ``UserFunction`` stiffness (K1', 1e-6) and the (24, 3) HB assembly
 (1e-6) (22c).
+
+The host API and the device Krylov entry points (23): ``cg_jit`` on the
+main path's restricted K4 operator with the float64 weighted fastdiag at
+3D n=48, from zero and from a start drawn with ``--seed`` (default 0),
+each count held to the JAX package's ``cg_jit`` on the CPU on the same
+operator (``CG_JIT_COUNTS_JAX``) and its residual to 1e-8 of the initial
+one; ``cg_ir_traceable``'s program against ``cg_ir`` (the same counts, x
+to 1e-12); ``gmres_jit`` on phase 7's operator at 2D n=128 from both
+starts (``GMRES_JIT_COUNTS_JAX``); ``assemblers.stiffness_fields`` and
+``ops.sumfac.run_matrix_assembly`` bitwise against ``run_device()`` and
+``run_banded_assembly`` against ``assemble_banded()`` at 3D n=48; the
+five example twins (``examples/torch_{poisson_3d,convection_diffusion,
+adaptive_poisson,geometry_tour,subspace_correction_mg}.py``) at their
+default sizes, what each prints held to the JAX example's
+(``EXAMPLE_COUNTS_JAX``, ``TOUR_VALUES_JAX`` to 1e-12); and the host
+``NurbsFunc.grid_hessian`` against ``geometry_hessian`` on the card on
+the 2D n=128 Gauss grid (1e-12).  Each kernel's entry in the JSON line
+also carries its launches in phase 23 (``launches_phase23``).
 
 Every kernel's entry in the JSON line has its time, its plain version's,
 the time of one PyTorch call computing the same function where one
@@ -6804,7 +6822,404 @@ def run_f32_assembly(device):
     return out
 
 
+# -- phase 23: the host API and the device Krylov entry points ---------
+
+# the JAX package's counts on the CPU (scripts/jax_poisson_counts.py):
+# cg_jit on the port's float64 operator at 3D n=48 with the float64
+# weighted fastdiag, and gmres_jit on phase 7's float64 convection-
+# diffusion matrix at 2D n=128, each (from zero, from seeded_x0(seed))
+# for seed 0 (``cgjit``, ``convdiff64``)
+CG_JIT_COUNTS_JAX = {(48, 0): (24, 24)}
+GMRES_JIT_COUNTS_JAX = {(128, 0): (41, 52)}
+# what the five example twins print at their default sizes in the JAX
+# package on the CPU (``examples``): CG-IR inner iterations, GMRES
+# (preconditioned, plain), local MG (levels, dofs, iterations per sweep),
+# two-grid, and the tour's areas and volumes
+EXAMPLE_COUNTS_JAX = {
+    'poisson_3d': {'outer': 4, 'inner_iters': [7, 8, 8, 8]},
+    'convection_diffusion': {'gmres_precond': 227, 'gmres_plain': 327},
+    'adaptive_poisson': {'sweeps': [[2, 169, 9], [3, 244, 11],
+                                    [4, 352, 10]]},
+    'subspace_correction_mg': {'twogrid': [31, 32, 8, 30]},
+}
+TOUR_VALUES_JAX = {
+    'quarter_annulus': 2.3561944901923444,
+    'bspline_quarter_annulus': 2.4999999999999996,
+    'transformed': 9.424777960769378, 'disk': 7.068583470577033,
+    'twisted_box': 2.3992559523809502, 'cylinder': 4.712388980384687}
+# the kernels each part of phase 23 must launch: (a) cg_jit on K4, (b)
+# cg_ir_traceable on K4 in float64 and float32, (d) the assembly entries
+# on K1 (stiffness, mass), K2 and K3, (e) the examples on K1, K1 jac, K5,
+# K2, K3 and K6 ((c) runs torch's gather matvec and fastdiag)
+HOST_API_KERNELS = {'a': ('flat_banded_f64',),
+                    'b': ('flat_banded_f64', 'flat_banded_f32'),
+                    'd': ('fields', 'mass_fields', 'stage', 'fold'),
+                    'e': ('fields', 'geo_jac_fields', 'vform_fields',
+                          'stage', 'fold', 'vcycle')}
+
+
+def counts_script():
+    """``scripts/jax_poisson_counts.py`` as a module (it imports jax only
+    inside the functions that run the JAX package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'jax_poisson_counts', os.path.join(REPO, 'scripts',
+                                           'jax_poisson_counts.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def seeded_x0(n, seed, device):
+    """The nonzero start of phase 23's Krylov solves, the counts script's
+    on `device`."""
+    return torch.as_tensor(counts_script().seeded_x0(n, seed),
+                           device=device)
+
+
+def _krylov_rec(name, x, it, b, A, r0, times, expect=None):
+    """A solve's record: count, relative residuals to ||b|| and to the
+    initial residual, ms of each call (`times`) and their median; raises
+    on a count other than `expect` or a non-finite x."""
+    res = float(torch.linalg.vector_norm(b - A(x)))
+    rec = dict(iters=it, expect=expect, ms=float(np.median(times)),
+               ms_calls=times,
+               res_rel_b=res / float(torch.linalg.vector_norm(b)),
+               res_rel_r0=res / r0)
+    log('  %-28s %4s iterations (JAX CPU %s)  %.2f ms (median of %s)  '
+        'res/|b| %.2e  res/|r0| %.2e'
+        % (name, it, expect, rec['ms'], ', '.join('%.2f' % t for t in times),
+           rec['res_rel_b'], rec['res_rel_r0']))
+    if not bool(torch.isfinite(x).all()):
+        raise RuntimeError('%s: solution not finite' % name)
+    if expect is not None and it != expect:
+        raise RuntimeError('%s: %s iterations, the JAX CPU takes %s'
+                           % (name, it, expect))
+    return rec
+
+
+def _launched_since(before):
+    """The kernel launches since the snapshot `before` of the counts."""
+    from pyiga_tpu_torch import _cuda
+    return {k: v - before.get(k, 0) for k, v in _cuda.LAUNCHES.items()
+            if v - before.get(k, 0)}
+
+
+def _timed(fn, device):
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _timed_turns(fns, device, rounds=3):
+    """Each of `fns` called `rounds` times in turns (host clock after a
+    synchronize; the host-bound loops vary by tens of percent between
+    calls): the last results and every call's ms, per function."""
+    outs, times = [None] * len(fns), [[] for _ in fns]
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            outs[i], t = _timed(fn, device)
+            times[i].append(t)
+    return outs, times
+
+
+def host_api_krylov(device, seed=0, n=48, n2=128):
+    """Phase 23 (a)-(c): ``cg_jit`` from zero and from a seeded start on
+    the main path's restricted K4 operator with the float64 weighted
+    fastdiag (3D n=48), ``cg_ir_traceable``'s run against ``cg_ir`` on
+    phase 5's operator pair, ``gmres_jit`` from zero and from the seeded
+    start on phase 7's operator (2D n=128), each beside the eager loop
+    it wraps, in turns; counts held to the JAX CPU's."""
+    from pyiga_tpu_torch import _cuda, solvers
+    from pyiga_tpu_torch.ops import fastdiag, matfree
+    from pyiga_tpu_torch.ops.mlmatvec import MLMatvecOperator
+
+    rec = {}
+    asm = main_path_setup(3, n, device)
+    op = asm.assemble_banded()
+    free = fastdiag.interior_dofs(asm.kvs)
+    A = matfree.RestrictedOperator(op, free)
+    P = fastdiag.fastdiag_precond_weighted(asm, dirichlet=True)
+    b = torch.as_tensor(np.random.RandomState(0).rand(len(free)),
+                        device=device)
+    x0 = seeded_x0(len(free), seed, device)
+    expect = CG_JIT_COUNTS_JAX.get((n, seed), (None, None))
+    log('  (a) cg_jit, 3D p=3 n=%d: %d free dofs, float64 K4 + weighted '
+        'fastdiag (float64)' % (n, len(free)))
+    before = dict(_cuda.LAUNCHES)
+    solvers.cg_jit(A, b, tol=1e-8, precond=P)
+    rec['a_launches'] = _launched_since(before)
+    outs, times = _timed_turns([
+        lambda: solvers.cg_jit(A, b, tol=1e-8, precond=P),
+        lambda: solvers.cg_jit(A, b, x0=x0, tol=1e-8, precond=P),
+        lambda: solvers.cg(A, b, tol=1e-8, precond=P)], device)
+    norm_b = float(torch.linalg.vector_norm(b))
+    r0 = float(torch.linalg.vector_norm(b - A(x0)))
+    rec['a_from_zero'] = _krylov_rec('cg_jit from 0', *outs[0], b, A,
+                                     norm_b, times[0], expect[0])
+    rec['a_from_x0'] = _krylov_rec('cg_jit from x0(seed %d)' % seed,
+                                   *outs[1], b, A, r0, times[1], expect[1])
+    rec['a_eager_cg'] = _krylov_rec('cg (eager, from 0)', *outs[2], b, A,
+                                    norm_b, times[2], expect[0])
+    for key in ('a_from_zero', 'a_from_x0'):
+        if rec[key]['res_rel_r0'] > 1e-8:
+            raise RuntimeError('%s: residual %.2e of the initial one'
+                               % (key, rec[key]['res_rel_r0']))
+
+    log('  (b) cg_ir_traceable vs cg_ir on phase 5\'s operator pair')
+    A32 = matfree.RestrictedOperator(op.to(torch.float32), free)
+    P32 = fastdiag.fastdiag_precond_weighted(asm, dirichlet=True,
+                                             dtype=torch.float32)
+    run, hi_ops, lo_ops, pc_ops = solvers.cg_ir_traceable(
+        A, A32, tol=1e-8, precond_lo=P32, inner_tol=3e-3)
+    before = dict(_cuda.LAUNCHES)
+    run(b, hi_ops, lo_ops, pc_ops)
+    launches = _launched_since(before)
+    ((x_ref, info), (x, packed)), (t_ref, t) = _timed_turns([
+        lambda: solvers.cg_ir(A, A32, b, tol=1e-8, precond_lo=P32,
+                              inner_tol=3e-3),
+        lambda: run(b, hi_ops, lo_ops, pc_ops)], device)
+    info2 = solvers.cg_ir_info(packed)
+    err = float((x - x_ref).abs().max() / x_ref.abs().max())
+    rec['b'] = dict(info=info2, info_cg_ir=info, x_rel=err,
+                    ms=float(np.median(t)), ms_calls=t,
+                    cg_ir_ms=float(np.median(t_ref)), cg_ir_ms_calls=t_ref,
+                    launches=launches)
+    log('  cg_ir_traceable run: inner_iters %s (cg_ir %s), x vs cg_ir rel '
+        '%.1e, %.2f ms (median of %s; cg_ir %.2f, of %s)'
+        % (info2['inner_iters'], info['inner_iters'], err, rec['b']['ms'],
+           ', '.join('%.2f' % v for v in t), rec['b']['cg_ir_ms'],
+           ', '.join('%.2f' % v for v in t_ref)))
+    if info2 != info or not err <= 1e-12:
+        raise RuntimeError('cg_ir_traceable disagrees with cg_ir')
+    del op, A, A32, P, P32, x, x_ref, x0, asm
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+
+    log('  (c) gmres_jit, 2D p=3 convection-diffusion n=%d' % n2)
+    kvs, geo, casm, asm_f = convdiff_setup(n2, device)
+    data = casm.run_device()[(None, None)]
+    f = asm_f.assemble_vector()
+    free = fastdiag.interior_dofs(casm.kvs0)
+    C = matfree.RestrictedOperator(MLMatvecOperator(data, casm.structure),
+                                   free)
+    Pc = fastdiag.fastdiag_precond(casm.kvs0, dirichlet=True, device=device)
+    bc = torch.as_tensor(np.asarray(f).ravel()[free], dtype=torch.float64,
+                         device=device)
+    x0 = seeded_x0(len(free), seed, device)
+    expect = GMRES_JIT_COUNTS_JAX.get((n2, seed), (None, None))
+    before = dict(_cuda.LAUNCHES)
+    solvers.gmres_jit(C, bc, tol=1e-10, restart=30, precond=Pc)
+    rec['c_launches'] = _launched_since(before)
+    outs, times = _timed_turns([
+        lambda: solvers.gmres_jit(C, bc, tol=1e-10, restart=30,
+                                  precond=Pc),
+        lambda: solvers.gmres_jit(C, bc, x0=x0, tol=1e-10, restart=30,
+                                  precond=Pc),
+        lambda: solvers.gmres(C, bc, tol=1e-10, restart=30, precond=Pc)],
+        device)
+    norm_b = float(torch.linalg.vector_norm(bc))
+    r0 = float(torch.linalg.vector_norm(bc - C(x0)))
+    rec['c_from_zero'] = _krylov_rec('gmres_jit from 0', *outs[0], bc, C,
+                                     norm_b, times[0], expect[0])
+    rec['c_from_x0'] = _krylov_rec('gmres_jit from x0(seed %d)' % seed,
+                                   *outs[1], bc, C, r0, times[1], expect[1])
+    rec['c_eager_gmres'] = _krylov_rec('gmres (eager, from 0)', *outs[2],
+                                       bc, C, norm_b, times[2], expect[0])
+    # the target is tol * ||b|| from either start
+    for key in ('c_from_zero', 'c_from_x0'):
+        if rec[key]['res_rel_b'] > 1e-10:
+            raise RuntimeError('%s: residual %.2e of ||b||'
+                               % (key, rec[key]['res_rel_b']))
+    return rec
+
+
+def host_api_assembly(device, n=48):
+    """Phase 23 (d): the reference-signature assembly entries at 3D n=48
+    on the main path's kernels: ``assemblers.stiffness_fields`` and
+    ``ops.sumfac.run_matrix_assembly`` bitwise equal to ``run_device()``;
+    ``run_banded_assembly`` of the mass bitwise equal to the mass
+    ``assemble_banded()`` (the same unfolded chain) and of the stiffness
+    to ``assemble_banded()``'s folded chain within 1e-13; the launches of
+    K1 (stiffness, mass), K2 and K3 counted."""
+    from pyiga_tpu_torch import _cuda, assemblers, geometry
+    from pyiga_tpu_torch.mlmatrix import transpose_idx_for_bidx
+    from pyiga_tpu_torch.ops import banded, sumfac
+
+    rec = {}
+    asm = main_path_setup(3, n, device)
+    kvs = asm.kvs
+    ref = asm.run_device()
+    before = dict(_cuda.LAUNCHES)
+    plan = asm._fold()
+    tperms = [transpose_idx_for_bidx(bx) for bx in asm.structure.bidx]
+    (F, t_f) = _timed(lambda: assemblers.stiffness_fields(asm.geo_inputs()),
+                      device)
+    ref_F = asm.field_fn(asm.geo_inputs())
+    same_F = all(torch.equal(a, b_) for a, b_ in zip(F, ref_F))
+    data, t_m = _timed(lambda: sumfac.run_matrix_assembly(
+        assemblers.stiffness_fields, asm.geo_inputs(),
+        asm.tables.term_tables(asm.terms), plan, tperms), device)
+    same = torch.equal(data, ref)
+    del data, ref
+    bws = banded.band_info(asm.structure)
+    ns = tuple(bk[0] for bk in asm.structure.bs)
+    bsz = tuple(2 * bw + 1 for bw in bws)
+    Db, t_b = _timed(lambda: sumfac.run_banded_assembly(
+        assemblers.stiffness_fields, asm.geo_inputs(),
+        asm.tables.banded_term_tables(asm.terms, bws), bsz, ns), device)
+    flat = banded.flat_banded_embed_device(Db, bws, ns)
+    Dref = asm.assemble_banded().D
+    rel_stiff = float((flat - Dref).abs().max() / Dref.abs().max())
+    del Db, flat, Dref, asm
+    masm = assemblers.MassAssembler(kvs, geometry.twisted_box(),
+                                    device=device)
+    Dm, t_mb = _timed(lambda: sumfac.run_banded_assembly(
+        assemblers.mass_fields, masm.geo_inputs(),
+        masm.tables.banded_term_tables(masm.terms, bws), bsz, ns), device)
+    same_mass = torch.equal(banded.flat_banded_embed_device(Dm, bws, ns),
+                            masm.assemble_banded().D)
+    rec.update(fields_bitwise=same_F, run_matrix_assembly_bitwise=same,
+               run_banded_assembly_stiffness_rel=rel_stiff,
+               run_banded_assembly_mass_bitwise=same_mass,
+               stiffness_fields_ms=t_f, run_matrix_assembly_ms=t_m,
+               run_banded_assembly_ms=t_b, run_banded_assembly_mass_ms=t_mb,
+               launches=_launched_since(before))
+    log('  (d) stiffness_fields bitwise %s (%.2f ms); run_matrix_assembly '
+        'bitwise %s (%.2f ms); run_banded_assembly: stiffness rel %.1e '
+        '(%.2f ms), mass bitwise %s (%.2f ms); launches %s'
+        % (same_F, t_f, same, t_m, rel_stiff, t_b, same_mass, t_mb,
+           rec['launches']))
+    if not (same_F and same and same_mass and rel_stiff <= 1e-13):
+        raise RuntimeError('the assembly entries disagree with the route')
+    if device.type == 'cuda':
+        missing = [k for k in HOST_API_KERNELS['d']
+                   if rec['launches'].get(k, 0) <= 0]
+        if missing:
+            raise RuntimeError('phase 23 (d) never launched %s' % missing)
+    return rec
+
+
+def host_api_examples(device):
+    """Phase 23 (e): the five example twins at their default sizes on
+    `device`, what each prints parsed by the counts script and held to
+    the JAX CPU's; the tour's areas and volumes to 1e-12; wall times."""
+    import contextlib
+    import importlib.util
+    import io
+
+    counts = counts_script()
+    rec = {}
+    for name in ('poisson_3d', 'convection_diffusion', 'adaptive_poisson',
+                 'geometry_tour', 'subspace_correction_mg'):
+        spec = importlib.util.spec_from_file_location(
+            'torch_example_' + name,
+            os.path.join(REPO, 'examples', 'torch_%s.py' % name))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        sync(device)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ret = mod.main(device=device)
+        sync(device)
+        wall = time.perf_counter() - t0
+        got = counts.parse_example(name, buf.getvalue())
+        for line in buf.getvalue().splitlines():
+            log('    %s: %s' % (name, line))
+        if name == 'geometry_tour':
+            errs = {k: abs(ret[k] - v) / abs(v)
+                    for k, v in TOUR_VALUES_JAX.items()}
+            ok = max(errs.values()) <= 1e-12
+            rec[name] = dict(wall_s=wall, rel_errs=errs)
+        else:
+            ok = got == EXAMPLE_COUNTS_JAX[name]
+            rec[name] = dict(wall_s=wall, printed=got,
+                             jax=EXAMPLE_COUNTS_JAX[name])
+        log('  (e) %-24s %.2f s  %s' % (name, wall,
+                                         'matches the JAX CPU' if ok
+                                         else 'DIFFERS'))
+        if not ok:
+            raise RuntimeError('example %s differs from the JAX CPU: %s'
+                               % (name, rec[name]))
+    return rec
+
+
+def host_api_hessian(device, n=128):
+    """Phase 23 (f): the host ``NurbsFunc.grid_hessian`` of the quarter
+    annulus on the 2D p=3 n=128 Gauss grid against
+    ``cuda_sumfac.geometry_hessian`` (K2 stages) on `device`, 1e-12."""
+    from pyiga_tpu_torch import bspline, geometry
+    from pyiga_tpu_torch.ops import cuda_sumfac, geom, sumfac
+    geo = geometry.quarter_annulus()
+    kvs = 2 * (bspline.make_knots(3, 0.0, 1.0, n),)
+    grid, _ = sumfac.quadrature_for(kvs)
+    tables, coeffs, nurbs = geom.geo_eval_tables(geo, grid, numderiv=2)
+    Hd, t_d = _timed(lambda: cuda_sumfac.geometry_hessian(
+        [torch.as_tensor(t, device=device) for t in tables],
+        torch.as_tensor(coeffs, device=device), nurbs), device)
+    t0 = time.perf_counter()
+    Hh = geo.grid_hessian(grid)
+    t_h = 1e3 * (time.perf_counter() - t0)
+    Hd = Hd.cpu().numpy()
+    err = 0.0
+    for m, (i, j) in enumerate([(1, 1), (1, 0), (0, 0)]):
+        for c in range(2):
+            err = max(err, float(np.abs(Hd[1 - c, i, j] - Hh[..., c, m]).max()
+                                 / np.abs(Hh).max()))
+    log('  (f) NurbsFunc.grid_hessian (host, %.1f ms) vs geometry_hessian '
+        '(%s, %.2f ms) on the %dx%d Gauss grid: rel %.1e'
+        % (t_h, device.type, t_d, Hh.shape[0], Hh.shape[1], err))
+    if not err <= 1e-12:
+        raise RuntimeError('host and device Hessians disagree')
+    return dict(rel=err, host_ms=t_h, device_ms=t_d)
+
+
+def run_host_api_phase(device, seed=0):
+    """Phase 23: the host API and the device Krylov entry points ((a)-(f)
+    above); the launches of the whole phase (counted from zero) and of
+    each part."""
+    from pyiga_tpu_torch import _cuda
+    rec = {}
+    t0 = time.perf_counter()
+    _cuda.reset_launches()
+    rec['krylov'] = host_api_krylov(device, seed)
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+    rec['assembly'] = host_api_assembly(device)
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+    before = dict(_cuda.LAUNCHES)
+    rec['examples'] = host_api_examples(device)
+    rec['examples_launches'] = _launched_since(before)
+    log('  (e) launches: %s' % rec['examples_launches'])
+    rec['hessian'] = host_api_hessian(device)
+    rec['launches'] = _launched_since({})
+    rec['seconds'] = time.perf_counter() - t0
+    log('  launches: %s' % rec['launches'])
+    if device.type == 'cuda':
+        parts = dict(a=rec['krylov']['a_launches'],
+                     b=rec['krylov']['b']['launches'],
+                     d=rec['assembly']['launches'],
+                     e=rec['examples_launches'])
+        missing = ['%s:%s' % (p, k) for p, ks in HOST_API_KERNELS.items()
+                   for k in ks if parts[p].get(k, 0) <= 0]
+        if missing:
+            raise RuntimeError('phase 23 never launched %s' % missing)
+    log('  phase 23 took %.1f s' % rec['seconds'])
+    return rec
+
+
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description='Drive the port on one CUDA '
+                                 'card and hold every kernel against its '
+                                 'plain version.')
+    ap.add_argument('--seed', type=int, default=0,
+                    help="phase 23's nonzero Krylov start")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 2
@@ -7117,6 +7532,13 @@ def main():
                     r['peak_bytes'] / 1e6))
     torch.cuda.empty_cache()
 
+    log('phase 23: the host API and the device Krylov entry points: '
+        'cg_jit / cg_ir_traceable at 3D n=48, gmres_jit at 2D n=128, the '
+        'assembly entries at 3D n=48, the five example twins, the host '
+        'NURBS Hessian (seed %d)' % args.seed)
+    host_api = run_host_api_phase(device, args.seed)
+    torch.cuda.empty_cache()
+
     # the NS shapes of the kernels the NS path runs, beside their launches
     # in phase 16's integration
     ns_line = {k: dict(launches=nsrec['launches'][k]) for k in NS_KERNELS}
@@ -7156,6 +7578,7 @@ def main():
                     library_ms=kern[k]['library_ms'],
                     **{t: kern[k][t] for t in ('launch_ms', 'device_ms')
                        if t in kern[k]},
+                    launches_phase23=host_api['launches'].get(k, 0),
                     **({'ns': ns_line[k]} if k in ns_line else {}),
                     **({'item8': item8_line[k]} if k in item8_line else {}))
                for k in KERNELS]
@@ -7177,6 +7600,7 @@ def main():
                   diff_f32=diff_f32, windowed_kernels=win_kern,
                   windowed=windowed, n96=n96, f32_line=f32line,
                   f32_assembly_kernels=f32_asm_kern, f32_assembly=f32asm,
+                  host_api=host_api,
                   seconds=time.perf_counter() - t_start)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:

@@ -2,15 +2,18 @@
 """B-spline knot vectors and vectorized basis evaluation (host, numpy).
 
 A copy of the parts of :mod:`pyiga_tpu.bspline` that the port needs:
-:class:`KnotVector` (with the mesh queries and ``refine`` that the
-hierarchical spaces use), :func:`make_knots`, :func:`findspans`,
-:func:`active_deriv`, :func:`collocation`, :func:`collocation_derivs`
-and :func:`prolongation`, the pointwise tensor-product evaluation of
+:class:`KnotVector` (with the mesh and span queries and ``refine``),
+:func:`make_knots`, :func:`findspans`, basis and spline evaluation
+(:func:`active_deriv`, :func:`active_ev`, :func:`ev`, :func:`deriv`,
+:func:`single_ev`), collocation, interpolation, L2 projection
+(:func:`load_vector`, :func:`project_L2`), :func:`prolongation` and
+:func:`knot_insertion`, the pointwise tensor-product evaluation of
 spline functions at unstructured points (:func:`tp_bsp_eval_pointwise`,
 :func:`tp_bsp_jac_pointwise`, :func:`tp_bsp_eval_with_jac_pointwise`),
 and the boundary-spec parser.  Kept as numpy
 code (setup-time, tiny arrays) and held equal to the original by
-``tests/test_torch_host.py`` and ``tests/test_torch_hierarchical.py``.
+``tests/test_torch_host.py``, ``tests/test_torch_hierarchical.py`` and
+``tests/test_torch_bspline.py``.
 
 Conventions: knot vectors are open (first/last knot repeated ``p+1``
 times); ``active_deriv(kv, u, nd)`` returns shape ``(nd+1, p+1, npts)``
@@ -18,6 +21,7 @@ where the ``r``-th active function at ``u`` is ``findspan(u)-p+r``.
 """
 
 import numpy as np
+import scipy.interpolate
 import scipy.sparse
 import scipy.sparse.linalg
 
@@ -60,6 +64,9 @@ class KnotVector:
         self._mesh = None
         self._knots_to_mesh = None
 
+    def __str__(self):
+        return '<KnotVector p=%d sz=%d>' % (self.p, self.kv.size)
+
     def __repr__(self):
         return 'KnotVector(%r, %r)' % (self.kv, self.p)
 
@@ -79,6 +86,10 @@ class KnotVector:
         return hash((self.p, self.kv.size,
                      round(float(self.kv[0]), 6),
                      round(float(self.kv[-1]), 6)))
+
+    @property
+    def numknots(self):
+        return self.kv.size
 
     @property
     def numdofs(self):
@@ -134,6 +145,21 @@ class KnotVector:
         k2m = self._knots_to_mesh
         return np.where(k2m[1:] != k2m[:-1])[0]
 
+    def findspan(self, u):
+        """Largest index ``i`` with ``kv[i] <= u < kv[i+1]``, clamped so
+        that ``p <= i < numknots - 1 - p`` (the right end maps into the
+        last span)."""
+        return int(findspans(self, np.asarray([u]))[0])
+
+    def first_active(self, k):
+        """Index of the first active basis function on span ``k``."""
+        return k - self.p
+
+    def first_active_at(self, u):
+        """Index of the first active basis function at parameter value
+        ``u``."""
+        return self.findspan(u) - self.p
+
     def greville(self):
         """Greville abscissae (knot averages) of this knot vector."""
         p = self.p
@@ -152,6 +178,10 @@ class KnotVector:
             new_knots = 0.5 * (m[1:] + m[:-1])
         return KnotVector(np.sort(np.concatenate((self.kv, new_knots))),
                           self.p)
+
+    def meshsize_avg(self):
+        """Average knot span length."""
+        return abs(self.kv[-1] - self.kv[0]) / self.numspans
 
 
 def numdofs(kvs):
@@ -247,6 +277,45 @@ def active_deriv(knotvec, u, numderiv):
     return out
 
 
+def active_ev(knotvec, u):
+    """All active B-spline values at the points `u`; shape ``(p+1,
+    len(u))`` (``(p+1,)`` for a scalar `u`)."""
+    return active_deriv(knotvec, u, 0)[0]
+
+
+def ev(knotvec, coeffs, u):
+    """Evaluate a spline with coefficients `coeffs` at all points `u`."""
+    if len(coeffs) != knotvec.numdofs:
+        raise ValueError('wrong size of coefficient vector')
+    return scipy.interpolate.splev(u, (knotvec.kv, coeffs, knotvec.p))
+
+
+def deriv(knotvec, coeffs, deriv, u):
+    """Evaluate the `deriv`-th derivative of a spline at all points
+    `u`."""
+    if len(coeffs) != knotvec.numdofs:
+        raise ValueError('wrong size of coefficient vector')
+    return scipy.interpolate.splev(u, (knotvec.kv, coeffs, knotvec.p),
+                                   der=deriv)
+
+
+def single_ev(knotvec, i, u):
+    """Evaluate the `i`-th B-spline alone at all points `u`."""
+    e = np.zeros(knotvec.numdofs)
+    e[i] = 1.0
+    return ev(knotvec, e, u)
+
+
+def collocation_info(kv, nodes):
+    """Row-wise collocation data: per node, the index of its first active
+    B-spline and the ``p+1`` active basis values; shapes ``(n,)`` and
+    ``(n, p+1)``."""
+    nodes = np.asarray(nodes, dtype=float)
+    values = active_ev(kv, nodes)                   # (p+1, n)
+    indices = findspans(kv, nodes) - kv.p
+    return indices, np.ascontiguousarray(values.T)
+
+
 def _collocation_csr(kv, values, indices):
     """CSR matrix with rows ``values[i]`` at columns ``indices[i] + r``."""
     m, p = values.shape[0], kv.p
@@ -273,6 +342,29 @@ def collocation_derivs(kv, nodes, derivs=1):
             for k in range(derivs + 1)]
 
 
+def interpolate(kv, func, nodes=None):
+    """Interpolate `func` in the B-spline basis at `nodes` (default: the
+    Greville abscissae)."""
+    nodes = kv.greville() if nodes is None else np.asarray(nodes)
+    C = collocation(kv, nodes)
+    return scipy.sparse.linalg.spsolve(C.tocsc(), func(nodes))
+
+
+def load_vector(kv, f):
+    """L2 inner products of all basis functions with the function `f`."""
+    from .quadrature import make_iterated_quadrature
+    nodes, weights = make_iterated_quadrature(kv.mesh, kv.p + 1)
+    C = collocation(kv, nodes)
+    return C.T.dot(weights * f(nodes))
+
+
+def project_L2(kv, f):
+    """B-spline coefficients of the L2 projection of `f`."""
+    from .assemble import bsp_mass_1d
+    M = bsp_mass_1d(kv)
+    return scipy.sparse.linalg.spsolve(M.tocsc(), load_vector(kv, f))
+
+
 def prolongation(kv1, kv2):
     """Coefficient prolongation matrix from the space over `kv1` into the
     (finer) space over `kv2`, computed by collocating at the Greville
@@ -285,6 +377,23 @@ def prolongation(kv1, kv2):
         P = P.toarray()
     P[np.abs(P) < 1e-15] = 0.0
     return scipy.sparse.csr_matrix(P)
+
+
+def knot_insertion(kv, u):
+    """Boehm single-knot insertion: the sparse ``(n+1, n)`` matrix mapping
+    coefficients over `kv` to coefficients over ``kv.refine([u])``."""
+    n, p, knots = kv.numdofs, kv.p, kv.kv
+    k = kv.findspan(u)
+    rows, cols, vals = [], [], []
+    for i in range(n + 1):
+        if i <= k - p:
+            rows.append(i); cols.append(i); vals.append(1.0)
+        elif i > k:
+            rows.append(i); cols.append(i - 1); vals.append(1.0)
+        else:
+            a = (u - knots[i]) / (knots[i + p] - knots[i])
+            rows += [i, i]; cols += [i - 1, i]; vals += [1.0 - a, a]
+    return scipy.sparse.csr_matrix((vals, (rows, cols)), shape=(n + 1, n))
 
 
 ################################################################################

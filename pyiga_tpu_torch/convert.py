@@ -29,10 +29,19 @@ def knot_vector(kv):
 def geometry_from(geo):
     """A port geometry from a B-spline or NURBS geometry object exposing
     ``kvs`` and ``coeffs`` (NURBS coefficients premultiplied, weight last,
-    as both packages store them), or from a ``UserFunction`` (the same
-    callables, support and dimension)."""
-    if type(geo).__name__ == 'UserFunction':
+    as both packages store them; every factory of the JAX package returns
+    one), from a ``UserFunction`` (the same callables, support and
+    dimension), or from a ``PhysicalGradientFunc`` or
+    ``ComposedFunction`` of such objects (their parts carried over)."""
+    name = type(geo).__name__
+    if name == 'UserFunction':
         return geometry.UserFunction(geo.f, geo.support, jac=geo.jac)
+    if name == 'PhysicalGradientFunc':
+        return geometry.PhysicalGradientFunc(geometry_from(geo.func),
+                                             geometry_from(geo.geo))
+    if name == 'ComposedFunction':
+        return geometry.ComposedFunction(geometry_from(geo.geo2),
+                                         geometry_from(geo.geo1))
     kvs = tuple(knot_vector(kv) for kv in geo.kvs)
     coeffs = np.array(geo.coeffs, dtype=float)
     if type(geo).__name__ == 'NurbsFunc':

@@ -12,7 +12,11 @@ the last coordinate), vector components trail; NURBS coefficients are
 stored premultiplied by the weights, which ride along as the last
 component (homogeneous coordinates).  The factories :func:`unit_square`,
 :func:`unit_cube` and :func:`line_segment` build B-spline maps through
-:func:`tensor_product`.  :class:`UserFunction` wraps a plain callable
+:func:`tensor_product`; the conics (:func:`circular_arc`,
+:func:`semicircle`, :func:`circle`, :func:`disk`) are exact NURBS;
+:func:`outer_sum` and :func:`outer_product` combine two maps over the
+joint space.  :class:`PhysicalGradientFunc` evaluates a function's
+gradient under a geometry map.  :class:`UserFunction` wraps a plain callable
 (and its Jacobian) as a geometry that the assemblers evaluate on the
 host.  :class:`ComposedFunction` chains two maps, :meth:`boundary`
 restricts a function to one face (a spline function by slicing its
@@ -87,6 +91,21 @@ class _BaseGeoFunc:
         grd = [np.linspace(s[0], s[1], grid + 1) for s in self.support]
         X = self.grid_eval(grd).reshape(-1, self.dim)
         return tuple((X[:, d].min(), X[:, d].max()) for d in range(self.dim))
+
+    def find_inverse(self, x, tol=1e-8):
+        """Parameter coordinates mapping to the physical point `x`
+        (bounded least-squares root finding); raises ValueError if none
+        is found to `tol`."""
+        import scipy.optimize
+        supp = np.transpose(self.support)
+        result = scipy.optimize.least_squares(
+            lambda xi: self(*xi) - x,
+            np.mean(supp, axis=0), bounds=supp,
+            method='dogbox', ftol=tol, xtol=tol, gtol=1e-15)
+        if result.success and np.sqrt(result.cost) < tol:
+            return result.x
+        raise ValueError('Could not find coordinates for desired point %s'
+                         % (x,))
 
     def boundary(self, bdspec):
         """One side of the boundary as a function with `sdim` reduced by
@@ -231,12 +250,25 @@ class BSplineFunc(_ControlPointMixin, _BaseSplineFunc):
         """Jacobians at unstructured points (``dim x sdim`` per point)."""
         return bspline.tp_bsp_jac_pointwise(self.kvs, self.coeffs, points)
 
+    def transformed_jacobian(self, geo):
+        """Function evaluating the physical gradient of this function
+        under the geometry map `geo`."""
+        return PhysicalGradientFunc(self, geo)
+
     @staticmethod
     def _rebuild(kvs, coeffs):
         return BSplineFunc(kvs, coeffs)
 
     def _map_points(self, fn):
         return BSplineFunc(self.kvs, fn(self.coeffs))
+
+    def perturb(self, noise):
+        """Copy with the control points perturbed by uniform noise of
+        magnitude `noise` (numpy's global generator, as the JAX
+        package's)."""
+        return BSplineFunc(self.kvs, self.coeffs + 2 * noise *
+                           (np.random.random_sample(self.coeffs.shape)
+                            - 0.5))
 
     def cylinderize(self, z0=0.0, z1=1.0, support=(0.0, 1.0)):
         """Extrude linearly along a new first axis from `z0` to `z1`."""
@@ -252,6 +284,32 @@ class BSplineFunc(_ControlPointMixin, _BaseSplineFunc):
         if not self.is_scalar():
             raise ValueError('as_vector needs a scalar or vector function')
         return BSplineFunc(self.kvs, self.coeffs[..., np.newaxis])
+
+    def __getitem__(self, I):
+        return BSplineFunc(self.kvs, self.coeffs[..., I])
+
+
+class PhysicalGradientFunc(_BaseGeoFunc):
+    """The physical (geometry-transformed) gradient ``J^{-T}
+    grad_param(u)`` of a scalar function `func` under the map `geo`."""
+
+    def __init__(self, func, geo):
+        if func.dim != 1:
+            raise ValueError('transformed gradients only implemented for '
+                             'scalar functions')
+        self.func = func
+        self.geo = geo
+        self.dim = self.sdim = func.sdim
+        self.support = func.support
+
+    def output_shape(self):
+        return self.func.output_shape() + (self.sdim,)
+
+    def grid_eval(self, gridaxes):
+        geojac = self.geo.grid_jacobian(gridaxes)
+        geojacinvT = np.linalg.inv(geojac).swapaxes(-2, -1)
+        u_grad = self.func.grid_jacobian(gridaxes)
+        return np.matmul(geojacinvT, u_grad[..., None])[..., 0]
 
 
 class NurbsFunc(_ControlPointMixin, _BaseSplineFunc):
@@ -307,6 +365,26 @@ class NurbsFunc(_ControlPointMixin, _BaseSplineFunc):
                                   bsp.grid_jacobian(gridaxes))
         return np.squeeze(J, -2) if self._isscalar else J
 
+    def grid_hessian(self, gridaxes):
+        """Symmetric parts of the Hessians on a tensor grid (linearized
+        as :meth:`BSplineFunc.grid_hessian`) by the second-order quotient
+        rule ``hess(V/W) = hess(V)/W - (V/W) hess(W)/W - sym(jac(V/W)
+        jac(W)^T)/W``."""
+        bsp = BSplineFunc(self.kvs, self.coeffs)
+        val = bsp.grid_eval(gridaxes)
+        V, W = val[..., :-1, None], val[..., -1:, None]
+        jac = bsp.grid_jacobian(gridaxes)
+        Njac = _nurbs_jac_from_homog(val, jac)
+        Wjac = jac[..., -1:, :]
+        hess = bsp.grid_hessian(gridaxes)
+        Vh, Wh = hess[..., :-1, :], hess[..., -1:, :]
+        part1 = Vh / W - (V * Wh) / (W ** 2)
+        mat = (Njac[..., None, :] * Wjac[..., :, None]) / W[..., None]
+        mat = mat + mat.swapaxes(-1, -2)
+        I, J = np.triu_indices(mat.shape[-1])
+        H = part1 - mat[..., I, J]
+        return np.squeeze(H, -2) if self._isscalar else H
+
     def pointwise_eval(self, points):
         vals = bspline.tp_bsp_eval_pointwise(self.kvs, self.coeffs, points)
         f = vals[..., :-1] / vals[..., -1:]
@@ -342,6 +420,11 @@ class NurbsFunc(_ControlPointMixin, _BaseSplineFunc):
             raise ValueError('as_vector needs a scalar or vector function')
         return NurbsFunc(self.kvs, self.coeffs[..., :-1],
                          self.coeffs[..., -1], premultiplied=True)
+
+    def __getitem__(self, I):
+        C = self.coeffs[..., :-1]
+        return NurbsFunc(self.kvs, C[..., I], self.coeffs[..., -1],
+                         premultiplied=True)
 
 
 class UserFunction(_BaseGeoFunc):
@@ -486,6 +569,37 @@ def quarter_annulus(r1=1.0, r2=2.0):
     return NurbsFunc((kvy, kvx), coeffs, weights=None)
 
 
+def perturbed_square(num_intervals=5, noise=0.02):
+    """Unit square with randomly perturbed control points."""
+    return unit_square(num_intervals).perturb(noise)
+
+
+def _combine_boundary_curves(bottom, top, left, right):
+    kvs = (left.kvs[0], bottom.kvs[0])
+    coeffs = np.full((kvs[0].numdofs, kvs[1].numdofs, left.coeffs.shape[1]),
+                     np.nan)
+    coeffs[:, 0] = left.coeffs
+    coeffs[:, -1] = right.coeffs
+    coeffs[0, :] = bottom.coeffs
+    coeffs[-1, :] = top.coeffs
+    return kvs, coeffs
+
+
+def disk(r=1.0):
+    """NURBS disk (four boundary parametrization singularities)."""
+    gR = circular_arc(np.pi / 2)
+    gL = gR.copy()
+    gL.coeffs = np.flipud(gL.coeffs)
+    gL = gL.scale(-1)
+    gB = gR.rotate_2d(-np.pi / 2)
+    gT = gL.rotate_2d(-np.pi / 2)
+    kvs, coeffs = _combine_boundary_curves(gB, gT, gL, gR)
+    coeffs[1, 1] = (0.0, 0.0, 0.5)
+    if r != 1.0:
+        coeffs[:, :, :2] *= r
+    return NurbsFunc(kvs, coeffs, None, premultiplied=True)
+
+
 def twisted_box():
     """3D box with its right face twisted and bent upwards
     (gismo twistedFlatQuarterAnnulus.xml)."""
@@ -516,6 +630,56 @@ def line_segment(x0, x1, support=(0.0, 1.0), intervals=1):
                        (1 - S) * x0 + S * x1)
 
 
+def circular_arc(alpha, r=1.0):
+    """Circular arc of angle `alpha` starting on the positive x axis."""
+    if 0.0 < alpha < np.pi:
+        return circular_arc_3pt(alpha, r)
+    if np.pi <= alpha <= 2 * np.pi:
+        return circular_arc_7pt(alpha, r)
+    raise ValueError('invalid angle {}'.format(alpha))
+
+
+def circular_arc_3pt(alpha, r=1.0):
+    """Circular arc via 3 control points (0 < alpha < pi)."""
+    if not 0.0 < alpha < np.pi:
+        raise ValueError('invalid angle {}'.format(alpha))
+    kv = bspline.make_knots(2, 0.0, 1.0, 1)
+    coeffs = np.array([(np.cos(a), np.sin(a))
+                       for a in np.linspace(0, alpha, 3)])
+    W = [1.0, np.cos(alpha / 2), 1.0]
+    return NurbsFunc(kv, r * coeffs, weights=W, premultiplied=True)
+
+
+def circular_arc_5pt(alpha, r=1.0):
+    """Circular arc via 5 control points."""
+    kv = bspline.make_knots(2, 0.0, 1.0, 2, mult=2)
+    coeffs = np.array([(np.cos(a), np.sin(a))
+                       for a in np.linspace(0, alpha, 5)])
+    w = np.cos(alpha / 4)
+    return NurbsFunc(kv, r * coeffs, weights=[1.0, w, 1.0, w, 1.0],
+                     premultiplied=True)
+
+
+def circular_arc_7pt(alpha, r=1.0):
+    """Circular arc via 7 control points (up to a full circle)."""
+    kv = bspline.make_knots(2, 0.0, 1.0, 3, mult=2)
+    coeffs = np.array([(np.cos(a), np.sin(a))
+                       for a in np.linspace(0, alpha, 7)])
+    w = np.cos(alpha / 6)
+    return NurbsFunc(kv, r * coeffs, weights=[1, w, 1, w, 1, w, 1],
+                     premultiplied=True)
+
+
+def semicircle(r=1.0):
+    """Semicircle in the upper half-plane."""
+    return circular_arc_5pt(np.pi, r)
+
+
+def circle(r=1.0):
+    """Full circle of radius `r`."""
+    return circular_arc_7pt(2 * np.pi, r)
+
+
 def _outer_shapes(Cs, sdims):
     SD1, SD2 = (np.atleast_1d(C.shape[:sd]).astype(np.int64)
                 for C, sd in zip(Cs, sdims))
@@ -524,6 +688,32 @@ def _outer_shapes(Cs, sdims):
     shape1 = np.concatenate((SD1, np.ones_like(SD2), VD1))
     shape2 = np.concatenate((np.ones_like(SD1), SD2, VD2))
     return np.reshape(Cs[0], shape1), np.reshape(Cs[1], shape2)
+
+
+def _outer_combine(G1, G2, op):
+    if isinstance(G1, NurbsFunc) or isinstance(G2, NurbsFunc):
+        G1, G2 = G1.as_nurbs(), G2.as_nurbs()
+        C1, W1 = G1.coeffs_weights()
+        C2, W2 = G2.coeffs_weights()
+        C1, C2 = _outer_shapes((C1, C2), (G1.sdim, G2.sdim))
+        W1, W2 = _outer_shapes((W1, W2), (G1.sdim, G2.sdim))
+        return NurbsFunc(G1.kvs + G2.kvs, op(C1, C2), W1 * W2)
+    if not (isinstance(G1, BSplineFunc) and isinstance(G2, BSplineFunc)):
+        raise TypeError('outer combinations need spline functions')
+    C1, C2 = _outer_shapes((G1.coeffs, G2.coeffs), (G1.sdim, G2.sdim))
+    return BSplineFunc(G1.kvs + G2.kvs, op(C1, C2))
+
+
+def outer_sum(G1, G2):
+    """``G(x,y) = G1(y) + G2(x)`` over the combined tensor-product
+    space."""
+    return _outer_combine(G1, G2, lambda a, b: a + b)
+
+
+def outer_product(G1, G2):
+    """``G(x,y) = G1(y) * G2(x)`` (componentwise) over the combined
+    tensor-product space."""
+    return _outer_combine(G1, G2, lambda a, b: a * b)
 
 
 def tensor_product(G1, G2, *Gs):

@@ -265,7 +265,9 @@ class BandedOperator:
     package's: its matvec is K4 on ``D.reshape(C, F)``
     (:class:`FlatBandedOperator`).  A tensor `D` stays on its device; a
     numpy one goes to `device` (default: the card).  Callable on raveled
-    vectors of the full dof grid."""
+    vectors of the full dof grid.  Carries the operand protocol of
+    :func:`~pyiga_tpu_torch.solvers.cg_jit` (``operands = {'D': D}`` and
+    ``apply_with_operands(operands, x)``) as the JAX package's does."""
 
     def __init__(self, D, bws, ns, device=None):
         if not isinstance(D, torch.Tensor):
@@ -277,6 +279,15 @@ class BandedOperator:
         self.flat = FlatBandedOperator(
             flat_banded_embed_device(D, self.bws, self.ns), self.bws,
             self.ns)
+        self.operands = {'D': D}
+
+    def apply_with_operands(self, operands, x):
+        """The matvec with the regular-layout data ``operands['D']`` (this
+        operator's own data reuses its flat layout)."""
+        D = operands['D']
+        if D is self.D:
+            return self.matvec(x)
+        return banded_matvec(D, x, self.bws, self.ns)
 
     def to(self, dtype):
         """The same operator with its data cast to `dtype`."""

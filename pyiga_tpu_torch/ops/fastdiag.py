@@ -82,30 +82,44 @@ def _build_precond(KM, full_shape, free_dofs, dirichlet, dtype, mass_shift,
 
 
 class FastDiagPrecond:
-    """Callable preconditioner ``r -> P^{-1} r`` on raveled vectors."""
+    """Callable preconditioner ``r -> P^{-1} r`` on raveled vectors.  It
+    carries the operand protocol of :func:`~pyiga_tpu_torch.solvers.
+    cg_jit` (``operands`` with the tensors ``Us``, ``UTs``, ``inv_diag``
+    and ``free``, and ``apply_with_operands(operands, r)``), as the JAX
+    package's preconditioner does."""
 
     def __init__(self, Us, UTs, inv_diag, ns, n_total, free):
-        self.Us, self.UTs, self.inv_diag = Us, UTs, inv_diag
-        self.ns, self.n_total, self.free = ns, n_total, free
+        self.operands = {'Us': Us, 'UTs': UTs, 'inv_diag': inv_diag,
+                         'free': free}
+        self.ns, self.n_total = ns, n_total
 
-    def __call__(self, r):
-        if self.free is not None:
+    Us = property(lambda self: self.operands['Us'])
+    UTs = property(lambda self: self.operands['UTs'])
+    inv_diag = property(lambda self: self.operands['inv_diag'])
+    free = property(lambda self: self.operands['free'])
+
+    def apply_with_operands(self, operands, r):
+        free = operands['free']
+        if free is not None:
             rf = r
             r = torch.zeros(self.n_total, dtype=rf.dtype, device=rf.device)
-            r[self.free] = rf
+            r[free] = rf
         X = r.reshape(self.ns)
         with no_tf32(X.dtype):
-            for k, UT in enumerate(self.UTs):
+            for k, UT in enumerate(operands['UTs']):
                 X = torch.movedim(torch.tensordot(UT, X, dims=([1], [k])),
                                   0, k)
-            X = X * self.inv_diag
-            for k, U in enumerate(self.Us):
+            X = X * operands['inv_diag']
+            for k, U in enumerate(operands['Us']):
                 X = torch.movedim(torch.tensordot(U, X, dims=([1], [k])),
                                   0, k)
         out = X.reshape(-1)
-        if self.free is not None:
-            out = out[self.free]
+        if free is not None:
+            out = out[free]
         return out
+
+    def __call__(self, r):
+        return self.apply_with_operands(self.operands, r)
 
 
 def _biform_1d(kv, deriv):

@@ -63,6 +63,15 @@ def tp_apply(tables, coeffs, lead=0):
     return X
 
 
+def deriv_1(val_tabs, der_tabs, coeffs, k, sdim):
+    """The first partial derivative along level axis `k` of the
+    tensor-product function with `coeffs` ``(C, n_1, ..., n_d)``: the
+    derivative table on axis `k`, the value tables elsewhere; returns
+    ``(C,) + grid``."""
+    ops = [der_tabs[j] if j == k else val_tabs[j] for j in range(sdim)]
+    return tp_apply(ops, coeffs, lead=1)
+
+
 def geo_jacobian_field(tables, coeffs, is_nurbs, sdim):
     """Values and Jacobians of the geometry on the TP grid.
 
@@ -72,10 +81,8 @@ def geo_jacobian_field(tables, coeffs, is_nurbs, sdim):
     val_tabs = [t[0] for t in tables]
     der_tabs = [t[1] for t in tables]
     val = tp_apply(val_tabs, coeffs, lead=1)        # (C, Q...)
-    jac = torch.stack(
-        [tp_apply([der_tabs[j] if j == k else val_tabs[j]
-                   for j in range(sdim)], coeffs, lead=1)
-         for k in range(sdim)], dim=1)              # (C, sdim, Q...)
+    jac = torch.stack([deriv_1(val_tabs, der_tabs, coeffs, k, sdim)
+                       for k in range(sdim)], dim=1)  # (C, sdim, Q...)
     if is_nurbs:
         V, W = val[:-1], val[-1:]
         Vj, Wj = jac[:-1], jac[-1:]

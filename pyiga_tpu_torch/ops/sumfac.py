@@ -69,6 +69,20 @@ def _sum_chains_merged(term_tables, fields, idxs, last_idx):
     return out
 
 
+def assemble_terms(term_tables, fields, mode='exact', last_idx=None):
+    """Sum of the contraction chains of all terms, on the fields' device:
+    K2 stages and one K3 fold (:func:`~pyiga_tpu_torch.ops.cuda_sumfac.
+    chain_folded`; their plain versions on the CPU).  Terms sharing their
+    last table (`last_idx`, default :func:`last_table_groups`) share one
+    final contraction.  `term_tables` are tensors of the fields' dtype on
+    their device.  `mode` is accepted for the reference's signature and
+    ignored (the port contracts exactly)."""
+    from .cuda_sumfac import chain_folded
+    if last_idx is None:
+        last_idx = last_table_groups(term_tables)
+    return chain_folded(term_tables, fields, last_idx)
+
+
 def assemble_terms_folded(term_tables, fields, fold_plan, tperms,
                           mode='exact', last_idx=None):
     """Symmetric-term folding: one chain per mirrored term pair; the
@@ -185,20 +199,74 @@ def run_windowed_assembly(field_fn, geo_inputs, wterm_tables, fss, nqps,
     on the fields' device."""
     from .cuda_sumfac import assemble_terms_windowed as device_route
     fields = field_fn(geo_inputs)
-    dev = fields[0].device
+    wtabs, idx = _upload(fields, wterm_tables,
+                         list(fss) + list(tperms or ()))
+    fss, perms = idx[:len(fss)], idx[len(fss):]
+    return device_route(wtabs, fss, tuple(nqps), fields, fold_plan,
+                        perms if tperms is not None else None)
+
+
+def _upload(fields, term_tables, extra=()):
+    """The `term_tables` (numpy or tensors; each distinct array once) in
+    the dtype and on the device of `fields`, and the index arrays `extra`
+    as int64 tensors there."""
+    dev, dtype = fields[0].device, fields[0].dtype
     uploaded = {}
 
-    def up(a, dtype):
+    def up(a, dt):
         if id(a) not in uploaded:
             uploaded[id(a)] = torch.as_tensor(
                 np.ascontiguousarray(a) if isinstance(a, np.ndarray) else a,
-                dtype=dtype, device=dev)
+                dtype=dt, device=dev)
         return uploaded[id(a)]
-    wtabs = [[up(P, fields[0].dtype) for P in tabs] for tabs in wterm_tables]
-    fss = [up(f, torch.int64) for f in fss]
-    if tperms is not None:
-        tperms = [up(p, torch.int64) for p in tperms]
-    return device_route(wtabs, fss, tuple(nqps), fields, fold_plan, tperms)
+    return ([[up(T, dtype) for T in tabs] for tabs in term_tables],
+            [up(p, torch.int64) for p in extra])
+
+
+def _device_geo_inputs(geo_inputs, device):
+    """`geo_inputs` as tensors: a dict already holding tensors stays as
+    it is; numpy arrays go to `device` (default: the card) in the compute
+    dtype (:func:`~pyiga_tpu_torch.convert.geo_inputs`)."""
+    w = geo_inputs['weights'][0]
+    if isinstance(w, torch.Tensor):
+        return geo_inputs
+    from ..convert import geo_inputs as to_device
+    return to_device(geo_inputs, device=device)
+
+
+def run_matrix_assembly(field_fn, geo_inputs, term_tables, fold_plan=None,
+                        tperms=None, mode='exact', device=None):
+    """The compact assembly with the reference's signature: the
+    coefficient fields ``field_fn(geo_inputs)`` (e.g.
+    :func:`~pyiga_tpu_torch.assemblers.stiffness_fields`: K2 and K1 on
+    the card), then the chains of every term (K2 stages, one K3 fold per
+    last-table group) and, with `fold_plan` / `tperms`, the transpose of
+    the mirrored terms (:func:`~pyiga_tpu_torch.ops.cuda_sumfac.
+    assemble_terms_folded`).  Tables and permutations may be numpy arrays
+    or tensors; numpy `geo_inputs` go to `device` (default: the card).
+    Returns the compact data tensor on the fields' device (the JAX
+    package returns it as numpy).  `mode` is ignored (one exact route)."""
+    from .cuda_sumfac import assemble_terms_folded as device_route
+    last_idx = last_table_groups(term_tables)
+    fields = field_fn(_device_geo_inputs(geo_inputs, device))
+    tabs, tperms = _upload(fields, term_tables, tperms or ())
+    plan = (fold_plan if fold_plan is not None
+            else [(t, False) for t in range(len(term_tables))])
+    return device_route(tabs, fields, plan, tperms or None, last_idx)
+
+
+def run_banded_assembly(field_fn, geo_inputs, banded_tables, bsz, ns,
+                        device=None):
+    """Like :func:`run_matrix_assembly` with banded pair tables
+    (:meth:`SpaceTables.banded_term_tables`), every term chained (no
+    folding), and the result reordered into the regular banded layout
+    ``(b_1, ..., b_d, n_1, ..., n_d)`` on the fields' device, the data
+    of :class:`~pyiga_tpu_torch.ops.banded.BandedOperator`."""
+    fields = field_fn(_device_geo_inputs(geo_inputs, device))
+    last_idx = last_table_groups(banded_tables)
+    tabs, _ = _upload(fields, banded_tables)
+    return banded_reorder(assemble_terms(tabs, fields, last_idx=last_idx),
+                          bsz, ns)
 
 
 def banded_transpose_perm(n, bw):
@@ -415,6 +483,11 @@ class SpaceTables:
             cached = (tab, fs)
             self._pair_cache[key] = cached
         return cached
+
+    def vector_term_tables(self, terms):
+        """Per-axis *test* basis tables ``(n_k, Q_k)`` for arity-1 terms
+        ``terms[t] = dv_tuple``."""
+        return [[self.test[k][dv[k]] for k in range(self.d)] for dv in terms]
 
     def windowed_term_tables(self, terms):
         """Windowed pair tables for every term; returns ``(tables, fss)``."""

@@ -1,7 +1,9 @@
 # -*- coding: utf-8 -*-
-"""Solvers of the port: the Krylov solvers (counterparts of
-:func:`pyiga_tpu.solvers.cg_jit`, :func:`pyiga_tpu.solvers.cg_ir` and
-:func:`pyiga_tpu.solvers.gmres_jit`), the local multigrid solver of
+"""Solvers of the port: the Krylov solvers (:func:`cg`, :func:`cg_jit` and
+:func:`cg_jit_traceable`, :func:`cg_ir` and :func:`cg_ir_traceable`,
+:func:`gmres` and :func:`gmres_jit`, counterparts of the JAX package's),
+the fast-diagonalization inverse :func:`fastdiag_solver`, the host
+smoothers and :func:`twogrid`, the local multigrid solver of
 hierarchical spaces (:func:`solve_hmultigrid`, with its host path
 :func:`local_mg_step` + :func:`iterative_solve` and its device path
 :class:`~pyiga_tpu_torch.ops.mg.DeviceMGSolver`), and the implicit time
@@ -12,7 +14,10 @@ DeviceRosenbrockScheme` runs a Rosenbrock step on the device).
 
 The loops run eagerly: each iteration reads its convergence test back to
 the host (one synchronization per iteration).  Operators and
-preconditioners are callables on raveled tensors.  The iteration logic —
+preconditioners are callables on raveled tensors; the ``*_jit`` and
+``*_traceable`` entries also take objects with the JAX package's operand
+protocol (``operands`` and ``apply_with_operands``).  Nothing is traced
+or compiled, so nothing is cached per operator.  The iteration logic —
 test before each step, the same updates, the same stopping rules — is the
 JAX package's, so iteration counts agree.
 """
@@ -28,18 +33,44 @@ import torch
 
 from . import native, utils
 from .config import resolve_device
-from .operators import make_solver
+from .operators import DiagonalOperator, KroneckerOperator, make_solver
 from .ops.mg import _SWEEP_DIRS, DeviceMGSolver
 from .ops.relax import DeviceIndexedGS
 
 
-def cg(matvec, b, tol=1e-8, maxiter=1000, precond=None):
-    """Preconditioned conjugate gradients from a zero start; stops when
-    ``||r|| <= tol * ||b||`` or after `maxiter` steps.  Works in the dtype
-    of `b`.  Returns ``(x, iterations)``."""
-    pc = precond if precond is not None else (lambda r: r)
-    x, r = torch.zeros_like(b), b
-    stop = tol * torch.linalg.vector_norm(r)
+def _asdense(X):
+    return X.toarray() if scipy.sparse.issparse(X) else X
+
+
+################################################################################
+# Fast diagonalization [Sangalli, Tani 2016]
+################################################################################
+
+def fastdiag_solver(KM):
+    """Fast-diagonalization inverse of ``sum_d K_d (x) M_1 ... M_d ...``
+    (host scipy operators): per-axis generalized eigendecompositions give
+    a Kronecker eigenbasis in which the operator is diagonal.  `KM` is
+    the list of ``(K_i, M_i)`` pairs."""
+    dim = len(KM)
+    evs = [scipy.linalg.eigh(_asdense(K), _asdense(M)) for K, M in KM]
+    # eigenvalues of the full operator: the outer sum of the per-axis
+    # eigenvalues over the tensor grid (C order matches the Kronecker basis)
+    lam = np.zeros(dim * (1,))
+    for d, (w, _) in enumerate(evs):
+        lam = lam + w.reshape((1,) * d + (-1,) + (1,) * (dim - 1 - d))
+    to_eigen = KroneckerOperator(*(U.T for _, U in evs))
+    from_eigen = KroneckerOperator(*(U for _, U in evs))
+    return from_eigen * DiagonalOperator(1.0 / lam.ravel()) * to_eigen
+
+
+################################################################################
+# Krylov solvers
+################################################################################
+
+def _pcg(matvec, pc, x, r, stop, maxiter):
+    """The preconditioned CG loop from the iterate `x` with residual `r`
+    until ``||r|| <= stop`` or `maxiter` steps; returns ``(x,
+    iterations)``."""
     z = pc(r)
     p = z
     rz = torch.dot(r, z)
@@ -55,6 +86,110 @@ def cg(matvec, b, tol=1e-8, maxiter=1000, precond=None):
         rz = rz_new
         it += 1
     return x, it
+
+
+def _as_operand_fn(op):
+    """``(operands, fn)`` with ``fn(operands, x)`` applying `op`: the
+    operand protocol (attributes ``operands`` and
+    ``apply_with_operands``, as :class:`~pyiga_tpu_torch.ops.banded.
+    BandedOperator` and :class:`~pyiga_tpu_torch.ops.fastdiag.
+    FastDiagPrecond` carry) or a plain callable (no operands)."""
+    fn = getattr(op, 'apply_with_operands', None)
+    if fn is not None:
+        return op.operands, fn
+    return None, (lambda operands, v: op(v))
+
+
+def _identity_fn(operands, r):
+    return r
+
+
+def cg_jit_traceable(matvec, tol=1e-8, maxiter=1000, precond=None):
+    """The CG program behind :func:`cg_jit`, taking its operands as
+    arguments: returns ``(run, mv_ops, pc_ops)`` with ``run(b, x0,
+    mv_ops, pc_ops) -> (x, iterations)``.  A caller may pass other
+    operand tensors (e.g. freshly assembled data) to `run`.  `x0=None`
+    starts from zero.  Stops when ``||r|| <= tol * ||b - A x0||``."""
+    mv_ops, mv_fn = _as_operand_fn(matvec)
+    if precond is None:
+        pc_ops, pc_fn = None, _identity_fn
+    else:
+        pc_ops, pc_fn = _as_operand_fn(precond)
+
+    def run(b, x0, mv_ops, pc_ops):
+        if x0 is None:              # r0 = b - A 0 = b
+            x, r = torch.zeros_like(b), b
+        else:
+            x, r = x0, b - mv_fn(mv_ops, x0)
+        return _pcg(lambda v: mv_fn(mv_ops, v),
+                    lambda v: pc_fn(pc_ops, v), x, r,
+                    tol * torch.linalg.vector_norm(r), maxiter)
+
+    return run, mv_ops, pc_ops
+
+
+def cg_jit(matvec, b, x0=None, tol=1e-8, maxiter=1000, precond=None):
+    """Preconditioned conjugate gradients from `x0` (zero by default), the
+    counterpart of :func:`pyiga_tpu.solvers.cg_jit`: `matvec` and
+    `precond` are callables on raveled tensors or objects with the
+    operand protocol.  Stops when ``||r|| <= tol * ||b - A x0||`` or after
+    `maxiter` steps; one host synchronization per iteration.  Nothing is
+    cached: no reference to `matvec` or `precond` outlives the call.
+    Returns ``(x, iterations)``, `x` on `b`'s device."""
+    b = torch.as_tensor(b)
+    run, mv_ops, pc_ops = cg_jit_traceable(matvec, tol=tol, maxiter=maxiter,
+                                           precond=precond)
+    return run(b, x0, mv_ops, pc_ops)
+
+
+def cg(matvec, b, tol=1e-8, maxiter=1000, precond=None):
+    """Preconditioned conjugate gradients from a zero start
+    (:func:`cg_jit` without `x0`); stops when ``||r|| <= tol * ||b||`` or
+    after `maxiter` steps.  Works in the dtype of `b`.  Returns ``(x,
+    iterations)``."""
+    return cg_jit(matvec, b, tol=tol, maxiter=maxiter, precond=precond)
+
+
+def cg_ir_traceable(op_hi, op_lo, tol=1e-8, maxiter_inner=200, max_outer=10,
+                    precond_lo=None, inner_tol=1e-3):
+    """The refinement program behind :func:`cg_ir`, taking its operands
+    as arguments: returns ``(run, hi_ops, lo_ops, pc_ops)`` with
+    ``run(b, hi_ops, lo_ops, pc_ops) -> (x, packed_info)``, the info
+    packed into one float64 tensor on `b`'s device (``[residual, outer,
+    inner_iters...]``, decoded by :func:`cg_ir_info`).  The operators
+    follow the operand protocol or are plain callables."""
+    hi_ops, hi_fn = _as_operand_fn(op_hi)
+    lo_ops, lo_fn = _as_operand_fn(op_lo)
+    if precond_lo is None:
+        pc_ops, pc_fn = None, _identity_fn
+    else:
+        pc_ops, pc_fn = _as_operand_fn(precond_lo)
+
+    def run(b, hi_ops, lo_ops, pc_ops):
+        b = b.to(torch.float64)
+        norm_b = torch.linalg.vector_norm(b)
+        x = torch.zeros_like(b)
+        r = b
+        res = norm_b
+        outer, inner_iters = 0, []
+        while bool(res > tol * norm_b) and outer < max_outer:
+            r32 = r.to(torch.float32)
+            d, it = _pcg(lambda v: lo_fn(lo_ops, v),
+                         lambda v: pc_fn(pc_ops, v), torch.zeros_like(r32),
+                         r32, inner_tol * torch.linalg.vector_norm(r32),
+                         maxiter_inner)
+            x = x + d.to(torch.float64)
+            r = b - hi_fn(hi_ops, x)
+            res = torch.linalg.vector_norm(r)
+            inner_iters.append(it)
+            outer += 1
+        iters = torch.zeros(max_outer, dtype=torch.float64, device=b.device)
+        iters[:outer] = torch.tensor(inner_iters, dtype=torch.float64)
+        return x, torch.cat([(res / norm_b).reshape(1),
+                             torch.full((1,), outer, dtype=torch.float64,
+                                        device=b.device), iters])
+
+    return run, hi_ops, lo_ops, pc_ops
 
 
 def cg_ir(op_hi, op_lo, b, tol=1e-8, maxiter_inner=200, max_outer=10,
@@ -78,28 +213,11 @@ def cg_ir(op_hi, op_lo, b, tol=1e-8, maxiter_inner=200, max_outer=10,
 
     Returns ``(x, info)`` with ``info = {'outer', 'inner_iters',
     'residual'}`` (``residual`` relative to ``||b||``)."""
-    b = b.to(torch.float64)
-    norm_b = torch.linalg.vector_norm(b)
-    x = torch.zeros_like(b)
-    r = b
-    res = norm_b
-    outer, inner_iters = 0, []
-    while bool(res > tol * norm_b) and outer < max_outer:
-        d, it = cg(op_lo, r.to(torch.float32), tol=inner_tol,
-                   maxiter=maxiter_inner, precond=precond_lo)
-        x = x + d.to(torch.float64)
-        r = b - op_hi(x)
-        res = torch.linalg.vector_norm(r)
-        inner_iters.append(it)
-        outer += 1
-    if not fetch_info:
-        iters = torch.zeros(max_outer, dtype=torch.float64, device=b.device)
-        iters[:outer] = torch.tensor(inner_iters, dtype=torch.float64)
-        return x, torch.cat([(res / norm_b).reshape(1),
-                             torch.full((1,), outer, dtype=torch.float64,
-                                        device=b.device), iters])
-    return x, {'outer': outer, 'inner_iters': inner_iters,
-               'residual': float(res / norm_b)}
+    run, hi_ops, lo_ops, pc_ops = cg_ir_traceable(
+        op_hi, op_lo, tol=tol, maxiter_inner=maxiter_inner,
+        max_outer=max_outer, precond_lo=precond_lo, inner_tol=inner_tol)
+    x, info = run(b, hi_ops, lo_ops, pc_ops)
+    return x, (cg_ir_info(info) if fetch_info else info)
 
 
 def cg_ir_info(info):
@@ -134,6 +252,23 @@ def gmres(matvec, b, x0=None, tol=1e-8, restart=30, max_restarts=100,
         if res <= abs_tol:
             return x, total
     return x, math.inf
+
+
+def gmres_jit(matvec, b, x0=None, tol=1e-8, restart=30, max_restarts=100,
+              precond=None):
+    """Right-preconditioned restarted GMRES(m), the counterpart of
+    :func:`pyiga_tpu.solvers.gmres_jit`: :func:`gmres` on `matvec` and
+    `precond` given as callables or with the operand protocol.  The
+    absolute target is ``tol * ||b||`` also from a nonzero `x0`.  Returns
+    ``(x, iterations)``: the total count of inner iterations, ``inf`` if
+    `tol` was not reached."""
+    b = torch.as_tensor(b)
+    mv_ops, mv_fn = _as_operand_fn(matvec)
+    pc_ops, pc_fn = ((None, _identity_fn) if precond is None
+                     else _as_operand_fn(precond))
+    return gmres(lambda v: mv_fn(mv_ops, v), b, x0=x0, tol=tol,
+                 restart=restart, max_restarts=max_restarts,
+                 precond=lambda r: pc_fn(pc_ops, r))
 
 
 def _gmres_cycle(matvec, pc, b, x0, m, abs_tol, eps_break=1e-30):
@@ -221,6 +356,53 @@ def gauss_seidel(A, x, b, iterations=1, indices=None, sweep='forward'):
                     continue
                 off_diag = A[i].dot(x) - diag * x[i]
                 x[i] = (b[i] - off_diag) / diag
+
+
+def OperatorSmoother(S):
+    r"""Smoother ``u <- u + S (f - A u)`` for an arbitrary operator `S`."""
+    def apply(A, u, f):
+        u += S.dot(f - A.dot(u))
+    return apply
+
+
+def GaussSeidelSmoother(iterations=1, sweep='forward'):
+    """Gauss-Seidel smoother with the given sweep direction."""
+    def apply(A, u, f):
+        gauss_seidel(A, u, f, iterations=iterations, sweep=sweep)
+    return apply
+
+
+def SequentialSmoother(smoothers):
+    """Apply several smoothers in sequence."""
+    def apply(A, u, f):
+        for S in smoothers:
+            S(A, u, f)
+    return apply
+
+
+def twogrid(A, f, P, smoother, u0=None, tol=1e-8, smooth_steps=2,
+            maxiter=1000):
+    """Two-grid iteration (host scipy) with the Galerkin coarse matrix
+    ``P^T A P``; prints the iteration count as the JAX package's does."""
+    coarse_inv = make_solver(P.T @ A @ P)
+    u = np.array(u0) if u0 is not None else np.zeros(A.shape[0])
+    res0 = np.linalg.norm(f - A @ u)
+
+    for numiter in range(1, maxiter + 2):
+        for _ in range(smooth_steps):
+            smoother(A, u, f)
+        r = f - A @ u
+        res = np.linalg.norm(r)
+        u += P @ (coarse_inv * (P.T @ r))
+        if res < tol * res0:
+            break
+        if res > 20 * res0:
+            print('Diverged')
+            break
+    else:
+        print('too many iterations, aborting. reduction =', res / res0)
+    print(numiter, 'iterations')
+    return u
 
 
 # Smoother catalog of the local MG V-cycle: the sweep directions of the

@@ -1,15 +1,19 @@
 # -*- coding: utf-8 -*-
-"""Host helpers (numpy/scipy; copies of parts of :mod:`pyiga_tpu.utils`):
-evaluation of functions over tensor grids, the sparse Kronecker
+"""Host helpers (numpy/scipy; copies of :mod:`pyiga_tpu.utils`):
+evaluation of functions over tensor grids (also lazily, tile by tile:
+:class:`LazyArray`, :class:`LazyCachingArray`), the sparse Kronecker
 products of the hierarchical spaces, the Cartesian product of index
-arrays (the low-rank generators' entry lists), and the progress bar of
-the time integrators (tqdm when installed, else a silent stand-in).
+arrays (the low-rank generators' entry lists), the golden-fixture
+reader :func:`read_sparse_matrix`, CSR row views, :class:`BijectiveIndex`
+and the progress bar of the time integrators (tqdm when installed, else
+a silent stand-in).
 
 Grid axes are given in ZYX order (the last axis is x); plain callables
 receive XYZ-ordered coordinate arrays.  Input fields of a variational
 form are evaluated here once, at assembler setup.
 """
 
+import itertools
 from functools import reduce
 
 import numpy as np
@@ -124,6 +128,134 @@ def kron_partial(As, rows, restrict=False, format='csr'):
     return scipy.sparse.coo_matrix(
         (coo.data, (rows[coo.row], coo.col)),
         shape=full_shape).asformat(format)
+
+
+def read_sparse_matrix(fname):
+    """Load a 1-based ``i j value`` triplet text file (the golden-fixture
+    format, e.g. ``tests/fixtures/*.mtx.gz``) as a CSR matrix."""
+    data = np.loadtxt(fname, skiprows=1, ndmin=2)
+    ij = data[:, :2].astype(np.intp) - 1
+    return scipy.sparse.coo_matrix((data[:, 2], (ij[:, 0], ij[:, 1]))).tocsr()
+
+
+class _CSRRowsView:
+    """Matrix-like view of a subset of the rows of a CSR matrix: the
+    submatrix is extracted once, products delegate to scipy."""
+
+    def __init__(self, A, sub):
+        if not scipy.sparse.issparse(A):
+            raise TypeError('expected a sparse matrix')
+        self._sub = sub.tocsr()
+        self.shape = self._sub.shape
+        self.dtype = self._sub.dtype
+
+    def dot(self, other):
+        return self._sub.dot(other)
+
+    __mul__ = dot
+    __matmul__ = dot
+
+
+class CSRRowSlice(_CSRRowsView):
+    """Contiguous row block ``A[lo:hi]`` of a CSR matrix."""
+
+    def __init__(self, A, row_bounds):
+        lo, hi = row_bounds
+        if not (0 <= lo <= hi <= A.shape[0]):
+            raise ValueError('invalid row bounds')
+        super().__init__(A, A[lo:hi])
+        self.bounds = (lo, hi)
+
+
+class CSRRowSubset(_CSRRowsView):
+    """Arbitrary row subset ``A[rows]`` of a CSR matrix."""
+
+    def __init__(self, A, rows):
+        rows = np.asarray(rows, dtype=np.int64)
+        super().__init__(A, A[rows])
+        self.rows = rows
+
+
+class LazyArray:
+    """Array-like object evaluating a function over sub-rectangles of a
+    tensor grid on demand (``LA[I0, I1, ...]`` with per-axis indices);
+    `mode` ``'eval'`` gives values, ``'jac'`` Jacobians."""
+
+    def __init__(self, f, grid, mode='eval'):
+        self.f = f
+        self.grid = tuple(grid)
+        self.mode = mode
+
+    def _eval(self, subgrid):
+        if self.mode == 'jac':
+            return self.f.grid_jacobian(subgrid)
+        if self.mode != 'eval':
+            raise ValueError('invalid mode: %s' % (self.mode,))
+        return grid_eval(self.f, subgrid)
+
+    def __getitem__(self, I):
+        if len(I) != len(self.grid):
+            raise IndexError('Wrong number of indices')
+        return self._eval(tuple(g[sel] for g, sel in zip(self.grid, I)))
+
+
+class LazyCachingArray(LazyArray):
+    """A :class:`LazyArray` that memoizes whole tiles of `tilesize`
+    points per axis; correct only when the output is requested in full
+    consecutive tiles (slices aligned to the tiles)."""
+
+    def __init__(self, f, outshape, grid, tilesize, mode='eval'):
+        super().__init__(f, grid, mode)
+        self.outshape = tuple(outshape)
+        self.ts = int(tilesize)
+        self.tiles = {}
+
+    def get_tile(self, tile_idx):
+        """Dense values over one tile (cached)."""
+        try:
+            return self.tiles[tile_idx]
+        except KeyError:
+            ts = self.ts
+            sub = tuple(g[t * ts:(t + 1) * ts]
+                        for g, t in zip(self.grid, tile_idx))
+            vals = self._eval(sub)
+            self.tiles[tile_idx] = vals
+            return vals
+
+    def __getitem__(self, I):
+        if len(I) != len(self.grid):
+            raise IndexError('Wrong number of indices')
+        ts = self.ts
+        starts = [sel.start for sel in I]
+        stops = [sel.stop for sel in I]
+        t_lo = [s // ts for s in starts]
+        t_hi = [(e - 1) // ts + 1 for e in stops]
+        out = np.empty(tuple(e - s for s, e in zip(starts, stops))
+                       + self.outshape)
+        for T in itertools.product(*(range(lo, hi)
+                                     for lo, hi in zip(t_lo, t_hi))):
+            window = tuple(slice((t - lo) * ts, (t - lo + 1) * ts)
+                           for t, lo in zip(T, t_lo))
+            out[window] = self.get_tile(T)
+        return out
+
+
+class BijectiveIndex:
+    """Bidirectional map between a sequence of (hashable) values and
+    their positions."""
+
+    def __init__(self, values):
+        self.values = values
+        self._pos = dict(map(reversed, enumerate(values)))
+
+    def __len__(self):
+        return len(self.values)
+
+    def __getitem__(self, i):
+        return self.values[i]
+
+    def index(self, v):
+        return self._pos[v]
 
 
 class _SilentPbar:

@@ -1,7 +1,8 @@
 # -*- coding: utf-8 -*-
 """The JAX package's Krylov and local-MG counts on the CPU for the lines
-that ``chip_smoke.py`` phases 22, 22b, 22c and 8c-f32 hold the port to
-(``POISSON_COUNTS_JAX``, ``CONVDIFF_COUNTS_JAX``, ``LOCALMG_ITERS_F32``).
+that ``chip_smoke.py`` phases 22, 22b, 22c, 8c-f32 and 23 hold the port to
+(``POISSON_COUNTS_JAX``, ``CONVDIFF_COUNTS_JAX``, ``LOCALMG_ITERS_F32``,
+``CG_JIT_COUNTS_JAX``, ``GMRES_JIT_COUNTS_JAX``, ``EXAMPLE_COUNTS_JAX``).
 
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py f64 [n]
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py f32 [n]
@@ -9,6 +10,11 @@ that ``chip_smoke.py`` phases 22, 22b, 22c and 8c-f32 hold the port to
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py convdiff [n] \
         [--data FILE.npy]
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py localmg_f32 [n0]
+    JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py cgjit [n] \
+        [--seed S]
+    JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py convdiff64 [n] \
+        [--seed S]
+    JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py examples [small]
 
 ``f64`` (default n=96): the 3D p=3 twisted box assembled by
 ``pyiga_tpu`` in exact float64 (``assemble(mode='exact')`` taken to the
@@ -48,6 +54,25 @@ square, ``f = 1``) under ``pyiga_tpu.set_dtype(np.float32)``, then
 ``tol=1e-8``, the host route) in float64 on that matrix: phase 8c-f32's
 count.  The same solve on the port's float32 matrix (its CPU plain
 versions) is printed beside it.
+
+``cgjit`` (default n=48): the port's float64 operator
+(``assemble_banded()`` on the CPU, its plain versions), copied to numpy,
+through the JAX package's ``cg_jit`` with its float64 weighted
+fast-diagonalization preconditioner, ``tol=1e-8``, the right-hand side
+``RandomState(0).rand(n_free)``, from zero and from the start
+:func:`seeded_x0` (``--seed``, default 0): phase 23 (a).
+
+``convdiff64`` (default n=128): phase 7's solve on the port's float64
+convection-diffusion matrix (assembled on the CPU) through the JAX
+package's ``gmres_jit``, from zero and from :func:`seeded_x0`: phase 23
+(c).
+
+``examples``: the JAX examples ``poisson_3d``, ``convection_diffusion``,
+``adaptive_poisson``, ``geometry_tour`` and ``subspace_correction_mg``
+run at their default sizes (``small``: the reduced sizes of
+``tests/test_examples.py``), with the counts and numbers each prints
+parsed from its output (:func:`parse_example`): phase 23 (e) and
+``tests/test_torch_examples.py``.
 
 Prints one JSON line with the counts and the seconds it took.  At n=96
 the float64 run holds ~3 GB arrays (the compact and banded operators)
@@ -220,6 +245,153 @@ def f32_count(n=48, name='twisted_box', p=3, D32=None):
     return int(it)
 
 
+def seeded_x0(n, seed=0):
+    """The nonzero start of phase 23's Krylov solves: standard normal
+    values from ``RandomState(seed)``."""
+    return np.random.RandomState(seed).standard_normal(n)
+
+
+def port_f64_operator(n, name='twisted_box', p=3):
+    """The port's float64 flat banded data at `n` on the CPU, as numpy,
+    with its bandwidths and dofs per axis."""
+    from pyiga_tpu_torch import bspline, geometry
+    from pyiga_tpu_torch.assemblers import StiffnessAssembler
+    geo = getattr(geometry, name)()
+    op = StiffnessAssembler(
+        geo.sdim * (bspline.make_knots(p, 0.0, 1.0, n),), geo,
+        device='cpu').assemble_banded()
+    return op.D.numpy(), op.bws, op.ns
+
+
+def cg_jit_counts(n=48, seed=0, name='twisted_box', p=3):
+    """``cg_jit``'s counts in the JAX package on the CPU on the port's
+    float64 operator at `n`, with the float64 weighted fast-diagonalization
+    preconditioner: ``(from zero, from seeded_x0)``."""
+    import jax.numpy as jnp
+    from pyiga_tpu import solvers
+    from pyiga_tpu.ops import banded, fastdiag, matfree
+    jasm = _jax_assembler(name, p, n)
+    bws = banded.band_info(jasm.structure)
+    ns = tuple(bk[0] for bk in jasm.structure.bs)
+    D64, _, _ = port_f64_operator(n, name, p)
+    D = D64.reshape(tuple(2 * bw + 1 for bw in bws) + ns)
+    free = fastdiag.interior_dofs(jasm.kvs0)
+    A = matfree.RestrictedOperator(banded.BandedOperator(D, bws, ns), free,
+                                   int(np.prod(ns)))
+    P = fastdiag.fastdiag_precond_weighted(jasm, dirichlet=True)
+    b = jnp.asarray(np.random.RandomState(0).rand(len(free)))
+    _, it0 = solvers.cg_jit(A, b, tol=1e-8, precond=P)
+    _, it1 = solvers.cg_jit(A, b, x0=jnp.asarray(seeded_x0(len(free), seed)),
+                            tol=1e-8, precond=P)
+    return int(it0), int(it1)
+
+
+def convdiff64_counts(n=128, seed=0, p=3):
+    """``gmres_jit``'s counts in the JAX package on the CPU for phase 7's
+    solve on the port's float64 convection-diffusion matrix: ``(from
+    zero, from seeded_x0)``."""
+    import jax.numpy as jnp
+    import pyiga_tpu.bspline as jbspline
+    from pyiga_tpu import solvers
+    from pyiga_tpu.mlmatrix import MLStructure
+    from pyiga_tpu.ops import fastdiag, matfree, mlmatvec
+    from pyiga_tpu_torch import bspline, geometry
+    from pyiga_tpu_torch.assemble import instantiate_assembler
+    kvs = 2 * (bspline.make_knots(p, 0.0, 1.0, n),)
+    geo = geometry.quarter_annulus()
+    f = instantiate_assembler('v * dx', kvs, {'geo': geo}, None,
+                              device='cpu').assemble_vector()
+    data = instantiate_assembler(CONVDIFF, kvs, {
+        'geo': geo, 'b': np.array([3.0, -2.0])}, None,
+        device='cpu').run_device()[(None, None)].numpy()
+    jkvs = 2 * (jbspline.make_knots(p, 0.0, 1.0, n),)
+    S = MLStructure.from_kvs(jkvs, jkvs)
+    A = matfree.RestrictedOperator(
+        mlmatvec.make_ml_matvec(S.make_mlmatrix(data=data)),
+        fastdiag.interior_dofs(jkvs), int(np.prod([kv.numdofs
+                                                   for kv in jkvs])))
+    free = fastdiag.interior_dofs(jkvs)
+    P = fastdiag.fastdiag_precond(jkvs, dirichlet=True)
+    b = jnp.asarray(f.ravel()[free])
+    _, it0 = solvers.gmres_jit(A, b, tol=1e-10, restart=30, precond=P)
+    _, it1 = solvers.gmres_jit(A, b, x0=jnp.asarray(seeded_x0(len(free),
+                                                              seed)),
+                               tol=1e-10, restart=30, precond=P)
+    return int(it0), int(it1)
+
+
+# the reduced sizes of tests/test_examples.py
+EXAMPLES_SMALL = {
+    'poisson_3d': dict(n=6, p=2),
+    'convection_diffusion': dict(n=8, p=2),
+    'adaptive_poisson': dict(p=2, n0=4, num_refinements=2),
+    'geometry_tour': dict(),
+    'subspace_correction_mg': dict(p1=5, n1=16, p2=3, n2=6),
+}
+
+
+def parse_example(name, text):
+    """The counts and numbers an example prints, from its output `text`
+    (the same words in the JAX example and its port)."""
+    import re
+    lines = text.splitlines()
+    if name == 'poisson_3d':
+        m = re.search(r'cg_ir: (\d+) outer / (\[[^\]]*\]) inner', text)
+        return dict(outer=int(m.group(1)), inner_iters=json.loads(
+            m.group(2)))
+    if name == 'convection_diffusion':
+        m = re.search(r'GMRES iters: (\S+) \(preconditioned\) vs (\S+) '
+                      r'\(plain\)', text)
+        return dict(gmres_precond=int(m.group(1)),
+                    gmres_plain=int(m.group(2)))
+    if name == 'adaptive_poisson':
+        return dict(sweeps=[[int(v) for v in re.findall(
+            r'=(\d+)', ln)] for ln in lines if ln.startswith('sweep')])
+    if name == 'subspace_correction_mg':
+        return dict(twogrid=[int(ln.split()[0]) for ln in lines
+                             if ln.endswith(' iterations')])
+    if name == 'geometry_tour':
+        return dict(printed=[ln.split(':')[0] for ln in lines])
+    raise ValueError(name)
+
+
+def tour_values(geometry, area):
+    """The areas and volumes ``geometry_tour`` prints, unrounded, from a
+    package's `geometry` module and the example's ``area`` function."""
+    qa = geometry.quarter_annulus(r1=1.0, r2=2.0)
+    return dict(
+        quarter_annulus=area(qa),
+        bspline_quarter_annulus=area(geometry.bspline_quarter_annulus()),
+        transformed=area(qa.scale(2.0).rotate_2d(np.pi / 3)
+                         .translate((1.0, -2.0))),
+        disk=area(geometry.disk(r=1.5)),
+        twisted_box=area(geometry.twisted_box(), n=16),
+        cylinder=area(geometry.tensor_product(
+            geometry.line_segment(0.0, 2.0), qa), n=12))
+
+
+def jax_example_counts(small=False):
+    """Run the five JAX examples (default or reduced sizes) and parse what
+    each prints."""
+    import contextlib
+    import importlib.util
+    import io
+    out = {}
+    for name, kwargs in EXAMPLES_SMALL.items():
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            '..', 'examples', name + '.py')
+        spec = importlib.util.spec_from_file_location('jex_' + name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            mod.main(**(kwargs if small else {}))
+        out[name] = parse_example(name, buf.getvalue())
+        if name == 'geometry_tour':
+            out[name]['values'] = tour_values(mod.geometry, mod.area)
+    return out
+
+
 def localmg_f32_counts(n0=96, num_levels=3):
     """``solve_hmultigrid``'s count in the JAX package on the CPU on its
     own float32-assembled matrix and on the port's."""
@@ -293,10 +465,27 @@ def main(argv):
         n0 = int(argv[2]) if len(argv) > 2 else 96
         rec = dict(line='2d_p3_hb_localmg float32 assembly', n0=n0,
                    levels=3, **localmg_f32_counts(n0))
+    elif kind in ('cgjit', 'convdiff64'):
+        seed = int(argv[argv.index('--seed') + 1]) if '--seed' in argv else 0
+        n = (int(argv[2]) if len(argv) > 2 and argv[2] != '--seed'
+             else (48 if kind == 'cgjit' else 128))
+        if kind == 'cgjit':
+            it0, it1 = cg_jit_counts(n, seed)
+            rec = dict(line='3d_p3_poisson float64 cg_jit', n=n, seed=seed)
+        else:
+            it0, it1 = convdiff64_counts(n, seed)
+            rec = dict(line='2d_p3_convdiff float64 gmres_jit', n=n,
+                       seed=seed)
+        rec.update(iters_from_zero=it0, iters_from_x0=it1)
+    elif kind == 'examples':
+        small = len(argv) > 2 and argv[2] == 'small'
+        rec = dict(line='examples', sizes='small' if small else 'default',
+                   **jax_example_counts(small))
     else:
         raise SystemExit('usage: jax_poisson_counts.py '
-                         'f64|f32|f32win|convdiff|localmg_f32 [n] '
-                         '[--data FILE.npy]')
+                         'f64|f32|f32win|convdiff|localmg_f32|cgjit|'
+                         'convdiff64|examples [n] [--data FILE.npy] '
+                         '[--seed S]')
     rec['seconds'] = time.perf_counter() - t0
     print(json.dumps(rec))
 
