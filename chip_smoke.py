@@ -242,6 +242,23 @@ default sizes, what each prints held to the JAX example's
 the 2D n=128 Gauss grid (1e-12).  Each kernel's entry in the JSON line
 also carries its launches in phase 23 (``launches_phase23``).
 
+The entry twin, profiling and the command line (24;
+``scripts/torch_entry_phase.py`` runs it alone): ``pyiga_tpu_torch.
+__graft_entry__.entry()`` on the card against ``entry(device='cpu')``
+(the plain versions; data and x to 1e-12); ``_single_chip_step`` at the
+headline's 3D p=3 n=48 on the twisted box with 8 CG steps (K1, K2 stages
+and one K3 fold, ``ml_matvec``), its data held to ``run_device()``
+(1e-13 of the largest entry: the folded route sums mirrored terms in
+another order), x to a float64 host CG on the same data (1e-10), its ms
+(CUDA events, warm median of 5) and its K1 / K2 / K3 launches
+(``launches_phase24``); ``profiling.timed`` around the step, at least
+its CUDA-event time, and a ``profiling.trace`` of one step
+(``chiprun_out/entry_trace/``) holding device events named for
+``geo_fields_kernel``, ``stage_kernel`` and ``fold_kernel`` on a stream
+torch's own kernels of the step ran on; ``str2asm_main([...,
+'--source'])`` for a convection-diffusion form: its six plan terms and
+the generated source's C entry ``pyiga_vform_fields``.
+
 Every kernel's entry in the JSON line has its time, its plain version's,
 the time of one PyTorch call computing the same function where one
 exists (``library_ms``; used nowhere in the port) and ``bound_ms``: the
@@ -7212,6 +7229,265 @@ def run_host_api_phase(device, seed=0):
     return rec
 
 
+# phase 24: the entry twin's kernels, their names in a profiler trace, and
+# the convection-diffusion form of str2asm (constants: the CLI passes no
+# input or parameter)
+ENTRY_KERNELS = ('fields', 'stage', 'fold')
+ENTRY_TRACE_NAMES = ('geo_fields_kernel', 'stage_kernel', 'fold_kernel')
+CLI_CONVDIFF = ('(0.05 * inner(grad(u), grad(v)) + dot(as_vector([3.0, '
+                '-1.0]), grad(u)) * v) * dx')
+
+
+def host_cg(A, b, iters):
+    """`iters` unpreconditioned CG steps from zero on the host (float64
+    numpy, a scipy matrix), in the entry step's order of updates."""
+    x = np.zeros_like(b)
+    r = b - A @ x
+    p, rz = r, r @ r
+    for _ in range(iters):
+        Ap = A @ p
+        alpha = rz / (p @ Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rz_new = r @ r
+        p = r + (rz_new / rz) * p
+        rz = rz_new
+    return x
+
+
+def entry_small(device):
+    """Phase 24 (a), JAX's size: ``entry()`` on the card against
+    ``entry(device='cpu')`` (the plain versions), data and x to 1e-12."""
+    from pyiga_tpu_torch.__graft_entry__ import entry
+    fn, args = entry()
+    if args[2].device.type != 'cuda':
+        raise RuntimeError('entry() did not default to the card')
+    data, x = fn(*args)
+    cfn, cargs = entry(device='cpu')
+    cdata, cx = cfn(*cargs)
+    rec = {}
+    for name, got, ref in (('data', data, cdata), ('x', x, cx)):
+        rec[name + '_err'], rec[name + '_rel'] = compare(
+            'entry() ' + name, got.cpu(), ref, 1e-12)
+    rec['shapes'] = [list(data.shape), list(x.shape)]
+    return rec
+
+
+def entry_step_n48(device, n=48, p=3, cg_iters=8):
+    """Phase 24 (a) at the headline's size: ``_single_chip_step`` on the
+    twisted box, its launches, its data against ``run_device()`` (1e-13 of
+    the largest entry: the folded route sums mirrored terms in another
+    order) and x against a float64 host CG on the same data (1e-10), and
+    its ms (CUDA events, warm median of 5).  Returns the record and the
+    step with its arguments for (b)."""
+    from pyiga_tpu_torch import _cuda, bspline, geometry
+    from pyiga_tpu_torch.__graft_entry__ import _single_chip_step
+    from pyiga_tpu_torch.assemblers import StiffnessAssembler
+    kvs = 3 * (bspline.make_knots(p, 0.0, 1.0, n),)
+    asm = StiffnessAssembler(kvs, geometry.twisted_box(), device=device)
+    step, args = _single_chip_step(asm, cg_iters=cg_iters)
+    before = dict(_cuda.LAUNCHES)
+    data, x = step(*args)
+    sync(device)
+    launches = _launched_since(before)
+    log('  n=%d step: data %s, x %s, launches %s'
+        % (n, tuple(data.shape), tuple(x.shape), launches))
+    missing = [k for k in ENTRY_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise RuntimeError('phase 24: the entry step never launched %s'
+                           % missing)
+    rec = dict(n=n, p=p, cg_iters=cg_iters, launches=launches,
+               numdofs=int(x.numel()), data_shape=list(data.shape))
+    rec['data_err'], rec['data_rel'] = compare(
+        'data vs run_device', data, asm.run_device(), 1e-13)
+    t0 = time.perf_counter()
+    A = asm.structure.make_mlmatrix(data=data.cpu().numpy()).asmatrix()
+    xh = host_cg(A, args[2].cpu().numpy(), cg_iters)
+    rec['host_cg_s'] = time.perf_counter() - t0
+    rec['x_err'], rec['x_rel'] = compare('x vs host CG', x.cpu(),
+                                         torch.as_tensor(xh), 1e-10)
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    rec['ms_calls'] = times
+    rec['ms'] = float(np.median(times))
+    log('  n=%d step %.3f ms (median of %s; CUDA events)  K1 %d  K2 %d  K3 %d'
+        ' launches  (%s)'
+        % (n, rec['ms'], ', '.join('%.3f' % t for t in times),
+           *(launches.get(k, 0) for k in ('fields', 'stage', 'fold')),
+           nvidia_smi()))
+    return rec, step, args
+
+
+def read_trace(path, skip=0):
+    """A ``torch.profiler`` trace file's kernels and launches.  Returns
+    the kernel records less those of the first `skip` launches (name ->
+    its streams, launches and device microseconds), the microseconds from
+    the first of these kernels' start to the last one's end, and the
+    completeness of the whole file: the launches it records
+    (``cudaLaunchKernel``), the kernel records CUPTI delivered for them,
+    and the CPU op of each launch without its record, in launch order."""
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    launches = sorted((e for e in events if e.get('cat') == 'cuda_runtime'
+                       and e['name'] == 'cudaLaunchKernel'),
+                      key=lambda e: e['ts'])
+    records = [e for e in events if e.get('cat') == 'kernel']
+    recorded = {e['args'].get('correlation') for e in records}
+    ops = [e for e in events if e.get('cat') == 'cpu_op']
+    lost = []
+    for i, e in enumerate(launches):
+        if e['args'].get('correlation') not in recorded:
+            inner = sorted((o for o in ops
+                            if o['ts'] <= e['ts'] <= o['ts'] + o.get('dur', 0)),
+                           key=lambda o: o['ts'])
+            lost.append(dict(index=i, op=inner[-1]['name'] if inner else None))
+    skipped = {e['args'].get('correlation') for e in launches[:skip]}
+    kept = [e for e in records if e['args'].get('correlation') not in skipped]
+    kernels = {}
+    for e in kept:
+        r = kernels.setdefault(e['name'], dict(streams=set(), launches=0,
+                                               device_us=0.0))
+        r['streams'].add(e['args'].get('stream'))
+        r['launches'] += 1
+        r['device_us'] += e['dur']
+    span = (max(e['ts'] + e['dur'] for e in kept)
+            - min(e['ts'] for e in kept)) if kept else 0.0
+    return kernels, span, dict(launches=len(launches),
+                               kernel_records=len(records), lost=lost)
+
+
+def entry_profiling(step, args, device):
+    """Phase 24 (b): ``profiling.timed`` around the n=48 step reads at
+    least the step's CUDA-event time; a ``profiling.trace`` of one step
+    holds device events named for K1, K2 and K3, on a stream torch's own
+    kernels of the step ran on."""
+    import glob
+    import shutil
+    from pyiga_tpu_torch import profiling
+    rec = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profiling.timed('entry step', verbose=False) as box:
+        start.record()
+        out = step(*args)
+        end.record()
+        box['result'] = out
+    event_ms = start.elapsed_time(end)
+    rec['timed_ms'], rec['event_ms'] = 1e3 * box['seconds'], event_ms
+    # the same block with nothing to sync on: the host clock of the
+    # enqueue, for scale (not a check)
+    with profiling.timed('entry step, no sync', verbose=False) as box:
+        step(*args)
+    rec['unsynced_ms'] = 1e3 * box['seconds']
+    sync(device)
+    log('  timed %.3f ms >= CUDA events %.3f ms (without a result to sync '
+        'on: %.3f ms)' % (rec['timed_ms'], event_ms, rec['unsynced_ms']))
+    if not rec['timed_ms'] >= event_ms:
+        raise RuntimeError('profiling.timed stopped before the kernels '
+                           'ended')
+
+    logdir = os.path.join(REPO, 'chiprun_out', 'entry_trace')
+    shutil.rmtree(logdir, ignore_errors=True)
+    with profiling.trace(logdir):
+        step(*args)
+        sync(device)
+    files = glob.glob(os.path.join(logdir, '*.pt.trace.json'))
+    if len(files) != 1:
+        raise RuntimeError('profiling.trace wrote %d trace files' % len(files))
+    kernels, span_us, complete = read_trace(
+        files[0], skip=profiling.TRACE_WARMUP)
+    ours = {want: sorted(k for k in kernels if want in k)
+            for want in ENTRY_TRACE_NAMES}
+    mine = {k for ks in ours.values() for k in ks}
+    streams_ours = set().union(*(kernels[k]['streams'] for k in mine))
+    streams_torch = set().union(*(r['streams'] for k, r in kernels.items()
+                                  if k not in mine))
+    busy_us = sum(r['device_us'] for r in kernels.values())
+    rec.update(trace_file=os.path.relpath(files[0], REPO),
+               trace_bytes=os.path.getsize(files[0]),
+               kernels={k: dict(r, streams=sorted(map(str, r['streams'])))
+                        for k, r in kernels.items()},
+               found=ours, streams_ours=sorted(map(str, streams_ours)),
+               streams_torch=sorted(map(str, streams_torch)),
+               busy_us=busy_us, span_us=span_us,
+               completeness=complete)
+    log('  trace: %d kernel names, %s; ours on streams %s, torch\'s on %s; '
+        'device busy %.1f of %.1f us from the first kernel to the last'
+        % (len(kernels), {w: len(ks) for w, ks in ours.items()},
+           rec['streams_ours'], rec['streams_torch'], busy_us, span_us))
+    c = rec['completeness']
+    c['lost_in_step'] = [x for x in c['lost']
+                         if x['index'] >= profiling.TRACE_WARMUP]
+    log('  trace: %d launches (%d of the warm-up), %d kernel records; '
+        'launches without their record: %s; of the step: %d'
+        % (c['launches'], profiling.TRACE_WARMUP, c['kernel_records'],
+           [(x['index'], x['op']) for x in c['lost']],
+           len(c['lost_in_step'])))
+    for k, r in sorted(kernels.items(), key=lambda kr: -kr[1]['device_us']):
+        log('    %-60.60s %4d launches %9.1f us' % (k, r['launches'],
+                                                    r['device_us']))
+    missing = [w for w, ks in ours.items() if not ks]
+    if missing:
+        raise RuntimeError('phase 24: the trace has no device event named '
+                           'for %s (kernels seen: %s)'
+                           % (missing, sorted(kernels)))
+    if not streams_ours <= streams_torch:
+        raise RuntimeError('phase 24: the kernels ran on streams %s, torch\'s '
+                           'own kernels on %s' % (sorted(streams_ours),
+                                                  sorted(streams_torch)))
+    return rec
+
+
+def entry_cli():
+    """Phase 24 (c): ``str2asm_main([... '--source'])`` for a convection-
+    diffusion form: the plan lines and the generated K5 source with its C
+    entry (not built)."""
+    import contextlib
+    import io
+    from pyiga_tpu_torch._cli import str2asm_main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        str2asm_main([CLI_CONVDIFF, '--dim', '2', '--degree', '3',
+                      '--source'])
+    lines = buf.getvalue().splitlines()
+    plan = [ln for ln in lines if ln.startswith('assembly plan:')]
+    terms = [ln for ln in lines if ln.startswith('  term:')]
+    rec = dict(seconds=time.perf_counter() - t0, plan=plan, terms=len(terms),
+               source_lines=len(lines) - 4 - len(terms))
+    log('  str2asm: %s, %d term lines, %d lines of source'
+        % (plan, len(terms), rec['source_lines']))
+    if plan != ['assembly plan: 6 term(s) after pruning (of 9 derivative/'
+                'component combinations)'] or len(terms) != 6:
+        raise RuntimeError('phase 24: str2asm printed %s' % lines[:10])
+    if 'pyiga_vform_fields' not in buf.getvalue():
+        raise RuntimeError('phase 24: the printed source has no '
+                           'pyiga_vform_fields')
+    return rec
+
+
+def run_entry_phase(device):
+    """Phase 24: the entry twin ((a) at JAX's size and at 3D p=3 n=48),
+    the profiling layer around it (b) and the str2asm command (c)."""
+    t0 = time.perf_counter()
+    rec = dict(small=entry_small(device))
+    rec['n48'], step, args = entry_step_n48(device)
+    rec['launches'] = rec['n48']['launches']
+    rec['profiling'] = entry_profiling(step, args, device)
+    del step, args
+    rec['cli'] = entry_cli()
+    rec['seconds'] = time.perf_counter() - t0
+    log('  phase 24 took %.1f s' % rec['seconds'])
+    return rec
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description='Drive the port on one CUDA '
@@ -7539,6 +7815,12 @@ def main():
     host_api = run_host_api_phase(device, args.seed)
     torch.cuda.empty_cache()
 
+    log('phase 24: the entry twin (entry() card vs CPU, _single_chip_step '
+        'at 3D p=3 n=48), profiling.timed / trace around it, str2asm '
+        '--source')
+    entry_rec = run_entry_phase(device)
+    torch.cuda.empty_cache()
+
     # the NS shapes of the kernels the NS path runs, beside their launches
     # in phase 16's integration
     ns_line = {k: dict(launches=nsrec['launches'][k]) for k in NS_KERNELS}
@@ -7579,6 +7861,7 @@ def main():
                     **{t: kern[k][t] for t in ('launch_ms', 'device_ms')
                        if t in kern[k]},
                     launches_phase23=host_api['launches'].get(k, 0),
+                    launches_phase24=entry_rec['launches'].get(k, 0),
                     **({'ns': ns_line[k]} if k in ns_line else {}),
                     **({'item8': item8_line[k]} if k in item8_line else {}))
                for k in KERNELS]
@@ -7600,7 +7883,7 @@ def main():
                   diff_f32=diff_f32, windowed_kernels=win_kern,
                   windowed=windowed, n96=n96, f32_line=f32line,
                   f32_assembly_kernels=f32_asm_kern, f32_assembly=f32asm,
-                  host_api=host_api,
+                  host_api=host_api, entry=entry_rec,
                   seconds=time.perf_counter() - t_start)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:
