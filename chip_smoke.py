@@ -259,6 +259,28 @@ torch's own kernels of the step ran on; ``str2asm_main([...,
 '--source'])`` for a convection-diffusion form: its six plan terms and
 the generated source's C entry ``pyiga_vform_fields``.
 
+The multi-device layer (25; ``scripts/torch_parallel_phase.py`` runs it
+alone): (a) at world size 1 over NCCL in this process, the sharded
+flagship (``parallel.flagship.sharded_flagship_pipeline``: each slab's
+banded chains, K4 f64 / f32 on the slab, the weighted fastdiag,
+``cg_ir``) at 3D p=3 n=48 held to phase 5's counts ([7, 9, 9]) and
+solution (1e-12), ``sharded_stiffness_step`` with 8 CG steps held to
+``run_device()`` (1e-14 of its largest entry) and ``_single_chip_step``
+(1e-12); (b) the same on two rank processes sharing the card over gloo,
+each rank's counts (a)'s and its solution within 1e-10 of (a)'s, its
+K1, K2, K3, K4 f64 and f32 launched, its assembly and
+``cg_ir`` ms by CUDA events, the halo bytes of a matvec and the share of
+a solve in collectives; (c) ``dryrun_multichip(4, backend='gloo')`` and
+``sharded_multipatch_data`` on ``tests/test_parallel.py``'s three patches
+against the per-patch assembly (1e-12); (d) ``vmap(grad)`` of
+``test_grad_composes_with_sharding``'s mass objective with a batch of 4
+over the two ranks against the loop of ``grad`` (1e-12), K1-bwd
+``mass``, K2-bwd and K3-bwd launched; (e) NCCL across cards where
+there are two or more, else one line that it was not run.  Each kernel's
+entry in the JSON line also carries its launches in phase 25
+(``launches_phase25``: (a)'s sharded flagship and sharded step, each
+counted around its own call, and (d)'s on rank 0).
+
 Every kernel's entry in the JSON line has its time, its plain version's,
 the time of one PyTorch call computing the same function where one
 exists (``library_ms``; used nowhere in the port) and ``bound_ms``: the
@@ -286,6 +308,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -7488,6 +7511,399 @@ def run_entry_phase(device):
     return rec
 
 
+# the kernels each rank of the sharded flagship and step runs (phase 25),
+# and the backward kernels of its vmap(grad) (25d)
+PARALLEL_KERNELS = ('fields', 'stage', 'fold', 'flat_banded_f64',
+                    'flat_banded_f32')
+PARALLEL_BWD_KERNELS = ('mass_fields_bwd', 'stage_bwd', 'fold_bwd')
+# phase 5's cg_ir counts at 3D p=3 n=48 (inner_tol 3e-3)
+FLAGSHIP_COUNTS = [7, 9, 9]
+# the two-rank flagship's solution against world size 1's (relative
+# 2-norm): the slabs' dots sum in another order, so not bitwise, but far
+# below what a wrong operator leaves at cg_ir's tol of 1e-8
+U_REL_SHARED = 1e-10
+
+
+def parallel_flagship(asm, mesh, device):
+    """The sharded flagship pipeline at `asm`'s size on this rank, phase
+    5's settings (tol 1e-8, inner_tol 3e-3, ``b = RandomState(0).rand``):
+    the launches of a first run, then the warm assembly and ``cg_ir`` ms
+    by CUDA events, then one more solve with the collectives timed (each
+    between two synchronizes; gloo's host copies synchronize there
+    anyway) for their share of that solve (its host seconds:
+    ``cg_ir_profiled_s``), and the halo bytes of one matvec.  Returns the
+    record and the solution."""
+    from pyiga_tpu_torch import _cuda, solvers
+    from pyiga_tpu_torch.parallel import _comm
+    from pyiga_tpu_torch.parallel.flagship import sharded_flagship_pipeline
+    fn, (b,) = sharded_flagship_pipeline(asm, mesh, inner_tol=3e-3)
+    before = dict(_cuda.LAUNCHES)
+    D, u, info = fn(b)
+    sync(device)
+    launches = _launched_since(before)
+    missing = [k for k in PARALLEL_KERNELS if launches.get(k, 0) <= 0]
+    if missing and device.type == 'cuda':
+        raise RuntimeError('phase 25: rank %d never launched %s'
+                           % (fn.space.index, missing))
+    D, t_asm = event_ms(fn.assemble, device)
+    (u, info), t_solve = event_ms(lambda: fn.solve(D, b), device)
+    _comm.reset_stats()
+    sync(device)
+    with _comm.profile(device):
+        t0 = time.perf_counter()
+        fn.solve(D, b)
+        t_host = time.perf_counter() - t0
+    stats = {k: (list(v) if isinstance(v, list) else v)
+             for k, v in _comm.STATS.items()}
+    info = solvers.cg_ir_info(info)
+    A_hi, _ = fn.operators(D)
+    rec = dict(rank=fn.space.index, ranks=fn.space.size,
+               slab=[fn.lo, fn.hi], launches=launches,
+               inner_iters=info['inner_iters'], outer=info['outer'],
+               residual=info['residual'], assembly_ms=t_asm,
+               cg_ir_ms=t_solve, cg_ir_profiled_s=t_host,
+               halo_bytes_matvec=A_hi.op.halo_bytes(),
+               precond_gather_bytes=4 * fn.n_free, collectives=stats,
+               collective_share=stats['seconds'] / t_host)
+    return rec, u
+
+
+def parallel_step(asm, mesh, device, cg_iters=8):
+    """``sharded_stiffness_step`` at `asm`'s size with `cg_iters` CG
+    steps on one right-hand side: data against ``run_device()`` (relative
+    to its largest entry), X, the launches and the step's ms by CUDA
+    events (its first call, the host's term tables already uploaded)."""
+    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch.parallel import sharded_stiffness_step
+    step, args = sharded_stiffness_step(asm, mesh, cg_iters=cg_iters,
+                                        num_rhs=1)
+    before = dict(_cuda.LAUNCHES)
+    (data, X), ms = event_ms(lambda: step(*args), device)
+    launches = _launched_since(before)
+    ref = asm.run_device()
+    err = float((data - ref).abs().max() / ref.abs().max())
+    del data, ref
+    return dict(launches=launches, step_ms=ms, data_rel=err), X[0]
+
+
+def _gloo_cuda_probe(device):
+    """Whether gloo's all-reduce and all-gather take CUDA tensors here
+    (the layer copies every collective of a CUDA tensor to the host:
+    :mod:`pyiga_tpu_torch.parallel._comm`).  Send and receive are not
+    probed: gloo's send of a CUDA tensor aborted the rank process on this
+    machine (``writev ... Bad address``)."""
+    import torch.distributed as dist
+    out = {}
+    t = torch.ones(4, device=device)
+    for name, call in (
+            ('all_reduce', lambda: dist.all_reduce(t)),
+            ('all_gather', lambda: dist.all_gather(
+                [torch.empty_like(t) for _ in range(2)], t))):
+        try:
+            call()
+            sync(device)
+            out[name] = 'ok'
+        except Exception as e:          # noqa: BLE001 (a probe)
+            out[name] = '%s: %s' % (type(e).__name__, str(e)[:120])
+    return out
+
+
+def parallel_rank(device, n, cg_iters=8):
+    """One rank of phase 25 (b)-(d) (``backend='gloo'``, the ranks sharing
+    the card): the flagship and the step at 3D p=3 n=48, the three
+    patches of ``tests/test_parallel.py`` over the ranks against the
+    per-patch assembly, and ``vmap(grad)`` of ``test_grad_composes_with_
+    sharding``'s mass objective with a batch of 4 split over the ranks
+    against the loop of ``grad`` (1e-12) and its backward launches."""
+    from pyiga_tpu_torch import _cuda, bspline, geometry, parallel
+    from pyiga_tpu_torch.assemble import Multipatch
+    from pyiga_tpu_torch.assemblers import MassAssembler, StiffnessAssembler
+    from pyiga_tpu_torch.diff import assembly_coeff_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device.type == 'cuda':
+        _cuda.library()
+    mesh = parallel.make_mesh(axis_names=('space',), device=device)
+    rec = dict(gloo_cuda=_gloo_cuda_probe(device))
+    asm = main_path_setup(3, n, device)
+    rec['flagship'], u = parallel_flagship(asm, mesh, device)
+    rec['step'], X = parallel_step(StiffnessAssembler(
+        asm.kvs, asm.geo, device=device), mesh, device, cg_iters)
+
+    kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 6),)
+    squ = geometry.unit_square()
+    geos = (squ, squ.translate((1, 0)), squ.scale((-1, 1)).translate((2, 1)))
+    MP = Multipatch([(kvs, g) for g in geos])
+    MP.join_boundaries(0, 'right', 1, 'left')
+    MP.join_boundaries(1, 'top', 2, 'bottom', flip=(True,))
+    MP.finalize()
+    asms = [StiffnessAssembler(kvs, g, device=device) for g in geos]
+    data = parallel.sharded_multipatch_data(asms, mesh)
+    rec['multipatch_rel'] = max(
+        float(np.abs(data[p] - a.run_device().cpu().numpy()).max()
+              / np.abs(data[p]).max()) for p, a in enumerate(asms))
+    if rec['multipatch_rel'] > 1e-12:
+        raise RuntimeError('phase 25: sharded_multipatch_data %.2e from the '
+                           'per-patch assembly' % rec['multipatch_rel'])
+
+    masm = MassAssembler(2 * (bspline.make_knots(2, 0.0, 1.0, 4),),
+                         geometry.bspline_quarter_annulus(), device=device)
+    fn, c0 = assembly_coeff_fn(masm)
+    w = torch.as_tensor(np.random.RandomState(42).rand(*fn(c0).shape),
+                        device=device)
+    rng = np.random.RandomState(7)
+    batch = torch.as_tensor(np.stack([c0 + 0.01 * rng.randn(*c0.shape)
+                                      for _ in range(4)]), device=device)
+
+    def obj(c):
+        return torch.sum(w * fn(c))
+    comm = parallel.axis_comm(mesh, 'space')
+    lo, hi = comm.slab(4)
+    before = dict(_cuda.LAUNCHES)
+    mine = torch.func.vmap(torch.func.grad(obj))(batch[lo:hi])
+    sync(device)
+    rec['vmap_launches'] = _launched_since(before)
+    missing = [k for k in PARALLEL_BWD_KERNELS
+               if rec['vmap_launches'].get(k, 0) <= 0]
+    if missing and device.type == 'cuda':
+        raise RuntimeError('phase 25d: vmap(grad) never launched %s'
+                           % missing)
+    g = comm.gather(mine, [q1 - q0 for q0, q1 in comm.slabs(4)])
+    loop = torch.stack([torch.func.grad(obj)(c) for c in batch])
+    rec['vmap_rel'] = float((g - loop).abs().max() / loop.abs().max())
+    if rec['vmap_rel'] > 1e-12:
+        raise RuntimeError('phase 25d: vmap(grad) %.2e from the loop of '
+                           'grad' % rec['vmap_rel'])
+    return rec, u.cpu().numpy(), X.cpu().numpy()
+
+
+def nccl_rank(device, n):
+    """One rank of phase 25 (e): the flagship at 3D p=3 n=48 over NCCL,
+    a card a rank."""
+    from pyiga_tpu_torch import _cuda, parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda.library()
+    mesh = parallel.make_mesh(axis_names=('space',))
+    rec, u = parallel_flagship(main_path_setup(3, n, device), mesh, device)
+    return rec, u.cpu().numpy()
+
+
+def _rank_lines(tag, recs, card):
+    for r in recs:
+        f = r['flagship'] if 'flagship' in r else r
+        log('  %s rank %d/%d rows %s: assembly %.2f ms, cg_ir %.2f ms '
+            '(CUDA events), inner_iters %s, halo %d B a matvec, '
+            'collectives %.1f %% of a solve  (%s)'
+            % (tag, f['rank'], f['ranks'], f['slab'], f['assembly_ms'],
+               f['cg_ir_ms'], f['inner_iters'], f['halo_bytes_matvec'],
+               100 * f['collective_share'], card))
+
+
+def _add_counts(*counts):
+    """The sum of launch counts by kernel."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def parallel_single(device, n, cg_iters, rec):
+    """Phase 25 (a): world size 1 over NCCL in this process at 3D p=3 `n`:
+    the sharded flagship against phase 5's counts and solution
+    (``solve_case`` rerun, 1e-12), the sharded step's data within 1e-14
+    of ``run_device()`` and X within 1e-12 of ``_single_chip_step``.
+    ``rec['launches']`` is the sharded flagship's first run and the
+    sharded step's, each counted around its own call (the references'
+    launches left out).  Returns its record, the solution and X."""
+    import torch.distributed as dist
+    from pyiga_tpu_torch import _cuda, parallel
+    from pyiga_tpu_torch.__graft_entry__ import _single_chip_step
+    from pyiga_tpu_torch.assemblers import StiffnessAssembler
+    dist.init_process_group('nccl', store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        one = torch.ones(1, device=device)
+        dist.all_reduce(one)            # NCCL itself, once
+        rec['nccl_all_reduce'] = float(one)
+        mesh = parallel.make_mesh(axis_names=('space',))
+        asm = main_path_setup(3, n, device)
+        a, u = parallel_flagship(asm, mesh, device)
+        x5, info5, _res, _t1, _t2 = solve_case(asm, asm.assemble_banded(),
+                                               device)
+        if a['inner_iters'] != info5['inner_iters'] or \
+                a['inner_iters'] != FLAGSHIP_COUNTS:
+            raise RuntimeError('phase 25a: counts %s, phase 5 %s'
+                               % (a['inner_iters'], info5['inner_iters']))
+        a['u_rel'] = float(torch.linalg.vector_norm(u - x5)
+                           / torch.linalg.vector_norm(x5))
+        if a['u_rel'] > 1e-12:
+            raise RuntimeError('phase 25a: solution %.2e from phase 5\'s'
+                               % a['u_rel'])
+        asm_c = StiffnessAssembler(asm.kvs, asm.geo, device=device)
+        a['step'], X = parallel_step(asm_c, mesh, device, cg_iters)
+        step1, args1 = _single_chip_step(asm_c, cg_iters=cg_iters)
+        x1 = step1(*args1)[1]
+        a['step']['x_rel'] = float((X - x1).abs().max() / x1.abs().max())
+        if a['step']['data_rel'] > 1e-14 or a['step']['x_rel'] > 1e-12:
+            raise RuntimeError('phase 25a: step data %.2e, X %.2e'
+                               % (a['step']['data_rel'], a['step']['x_rel']))
+        rec['launches'] = _add_counts(a['launches'],
+                                      a['step']['launches'])
+    finally:
+        dist.destroy_process_group()
+    return a, u.cpu().numpy(), X.cpu().numpy()
+
+
+def parallel_shared(pool, n, cg_iters, a, u_a, X_a, card):
+    """Phase 25 (b)-(d) on the two ranks of `pool` sharing the card over
+    gloo (:func:`parallel_rank`), held to (a)'s counts, solution (2-norm,
+    :data:`U_REL_SHARED`) and X (1e-12).  Returns the ranks' records."""
+    out = pool.run(parallel_rank, n, cg_iters)
+    recs = [r for r, _u, _x in out]
+    _rank_lines('(b) gloo', recs, card)
+    for r, u_b, X_b in out:
+        f = r['flagship']
+        if f['inner_iters'] != a['inner_iters']:
+            raise RuntimeError('phase 25b: rank %d counts %s, (a) %s'
+                               % (f['rank'], f['inner_iters'],
+                                  a['inner_iters']))
+        r['u_rel_a'] = float(np.linalg.norm(u_b - u_a)
+                             / np.linalg.norm(u_a))
+        r['step']['x_rel_a'] = float(np.abs(X_b - X_a).max()
+                                     / np.abs(X_a).max())
+        log('  (b) rank %d: u vs (a) %.2e, step %.2f ms, data %.2e, X vs '
+            '(a) %.2e, launches %s; (c) patches %.2e; (d) vmap(grad) %.2e, '
+            'launches %s; gloo on CUDA tensors %s'
+            % (f['rank'], r['u_rel_a'], r['step']['step_ms'],
+               r['step']['data_rel'], r['step']['x_rel_a'], f['launches'],
+               r['multipatch_rel'], r['vmap_rel'], r['vmap_launches'],
+               r['gloo_cuda']))
+        if r['u_rel_a'] > U_REL_SHARED:
+            raise RuntimeError('phase 25b: rank %d solution %.2e from (a)\'s'
+                               % (f['rank'], r['u_rel_a']))
+        if r['step']['data_rel'] > 1e-14 or r['step']['x_rel_a'] > 1e-12:
+            raise RuntimeError('phase 25b: rank %d step data %.2e, X %.2e'
+                               % (f['rank'], r['step']['data_rel'],
+                                  r['step']['x_rel_a']))
+    return recs
+
+
+def run_parallel_phase(device, n=48, cg_iters=8):
+    """Phase 25: the multi-device layer (``pyiga_tpu_torch.parallel``):
+    (a) world size 1 over NCCL in this process (:func:`parallel_single`),
+    (b) two rank processes sharing the card over gloo, started while (a)
+    runs: the same two problems, each rank's K1, K2, K3, K4 f64 and f32
+    launched, the counts (a)'s (:func:`parallel_shared`); (c)
+    ``dryrun_multichip(4, backend='gloo')`` and the three patches over
+    the ranks; (d) ``vmap(grad)`` with the batch split over the ranks;
+    (e) NCCL across cards where there are two or more."""
+    from pyiga_tpu_torch.__graft_entry__ import dryrun_multichip
+    from pyiga_tpu_torch.parallel import _launch
+    t_start = time.perf_counter()
+    card = nvidia_smi()
+    rec = {}
+    pool = []
+    starter = threading.Thread(target=lambda: pool.append(
+        _launch.RankPool(2, backend='gloo', timeout=240)))
+    starter.start()
+    try:
+        a, u_a, X_a = parallel_single(device, n, cg_iters, rec)
+        rec['a'] = a
+        _rank_lines('(a) nccl', [a], card)
+        log('  (a) NCCL all_reduce %s; u vs phase 5 %.2e; step %.2f ms, '
+            'data %.2e of the largest entry, X %.2e of _single_chip_step; '
+            'launches %s'
+            % (rec['nccl_all_reduce'], a['u_rel'], a['step']['step_ms'],
+               a['step']['data_rel'], a['step']['x_rel'], rec['launches']))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        starter.join()
+        if not pool:
+            raise RuntimeError('phase 25b: the two ranks did not start')
+        rec['b'] = parallel_shared(pool[0], n, cg_iters, a, u_a, X_a, card)
+        rec['b_seconds'] = time.perf_counter() - t0
+    finally:
+        starter.join()
+        for p in pool:
+            p.close()
+    rec['launches'] = _add_counts(rec['launches'],
+                                  rec['b'][0]['vmap_launches'])
+
+    # (c) the dry run entry, 4 ranks on the card over gloo
+    t0 = time.perf_counter()
+    rec['c_dryrun'] = dryrun_multichip(4, backend='gloo')
+    rec['c_seconds'] = time.perf_counter() - t0
+    log('  (c) dryrun_multichip(4, backend=\'gloo\') OK in %.1f s: %s'
+        % (rec['c_seconds'], rec['c_dryrun'][0]))
+
+    # (e) NCCL across cards
+    count = torch.cuda.device_count()
+    if count >= 2:
+        a_inner = a['inner_iters']
+        with _launch.RankPool(min(count, 4), backend='nccl',
+                              timeout=240) as p:
+            rec['e'] = [r for r, _u in p.run(nccl_rank, n)]
+        _rank_lines('(e) nccl', rec['e'], card)
+        for r in rec['e']:
+            if r['inner_iters'] != a_inner:
+                raise RuntimeError('phase 25e: counts %s, (a) %s'
+                                   % (r['inner_iters'], a_inner))
+    else:
+        rec['e'] = 'not run: %d card' % count
+        log('  (e) NCCL across cards not run: %d card visible' % count)
+    rec['seconds'] = time.perf_counter() - t_start
+    log('  phase 25 took %.1f s' % rec['seconds'])
+    return rec
+
+
+def cutoff_crossover(device, sizes=(24, 48), reps=3):
+    """The crossover that the JAX package's host cutoffs route by (the
+    port has none), on this card: the HB (n0, 3) hierarchy's assembly
+    (``assemble_matrix`` + ``assemble_rhs``) on the card and on the CPU,
+    and its local-MG solve on the card (K6) and by the host sweeps, each
+    the best of `reps` warm calls (host clock after a synchronize).  Not
+    run by :func:`main`
+    (``scripts/torch_parallel_phase.py --cutoffs`` runs it)."""
+    from pyiga_tpu_torch import solvers
+    out = {}
+    cpu = torch.device('cpu')
+    for n0 in sizes:
+        hs = localmg_space(n0)
+        r = dict(numdofs=hs.numdofs,
+                 level_dofs=[int(np.prod(hs.mesh(k).numdofs))
+                             for k in range(hs.numlevels)])
+        for name, dev in (('card', device), ('cpu', cpu)):
+            hd = localmg_discretization(hs, dev)
+            times = []
+            for _ in range(reps + 1):
+                sync(device)
+                t0 = time.perf_counter()
+                A = hd.assemble_matrix()
+                f = hd.assemble_rhs()
+                sync(device)
+                times.append(1e3 * (time.perf_counter() - t0))
+            r['assembly_ms_' + name] = min(times[1:])
+        for name, kw in (('card', dict(device=device)),
+                         ('host', dict(device=device,
+                                       relax_backend='host'))):
+            times, its = [], None
+            for _ in range(reps + 1):
+                sync(device)
+                t0 = time.perf_counter()
+                _x, its = solvers.solve_hmultigrid(hs, A, f, **kw)
+                sync(device)
+                times.append(1e3 * (time.perf_counter() - t0))
+            r['solve_ms_' + name] = min(times[1:])
+            r['iters_' + name] = its
+        log('  HB (%d, 3): %d dofs (levels %s); assembly card %.1f ms, CPU '
+            '%.1f ms; solve card %.1f ms (%d), host %.1f ms (%d)  (%s)'
+            % (n0, r['numdofs'], r['level_dofs'], r['assembly_ms_card'],
+               r['assembly_ms_cpu'], r['solve_ms_card'], r['iters_card'],
+               r['solve_ms_host'], r['iters_host'], nvidia_smi()))
+        out['%d_3' % n0] = r
+    return out
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description='Drive the port on one CUDA '
@@ -7821,6 +8237,13 @@ def main():
     entry_rec = run_entry_phase(device)
     torch.cuda.empty_cache()
 
+    log('phase 25: the multi-device layer: the sharded flagship and step at '
+        '3D p=3 n=48 over NCCL at world size 1, on 2 ranks sharing the card '
+        "(gloo), dryrun_multichip(4, backend='gloo'), the three patches, "
+        'vmap(grad) over 2 ranks')
+    par = run_parallel_phase(device)
+    torch.cuda.empty_cache()
+
     # the NS shapes of the kernels the NS path runs, beside their launches
     # in phase 16's integration
     ns_line = {k: dict(launches=nsrec['launches'][k]) for k in NS_KERNELS}
@@ -7862,6 +8285,7 @@ def main():
                        if t in kern[k]},
                     launches_phase23=host_api['launches'].get(k, 0),
                     launches_phase24=entry_rec['launches'].get(k, 0),
+                    launches_phase25=par['launches'].get(k, 0),
                     **({'ns': ns_line[k]} if k in ns_line else {}),
                     **({'item8': item8_line[k]} if k in item8_line else {}))
                for k in KERNELS]
@@ -7883,7 +8307,7 @@ def main():
                   diff_f32=diff_f32, windowed_kernels=win_kern,
                   windowed=windowed, n96=n96, f32_line=f32line,
                   f32_assembly_kernels=f32_asm_kern, f32_assembly=f32asm,
-                  host_api=host_api, entry=entry_rec,
+                  host_api=host_api, entry=entry_rec, parallel=par,
                   seconds=time.perf_counter() - t_start)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:

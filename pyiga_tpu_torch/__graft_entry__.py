@@ -13,8 +13,16 @@ term (K2 stages and one K3 fold, :func:`~pyiga_tpu_torch.ops.sumfac.
 assemble_terms`) and `cg_iters` unpreconditioned CG steps from zero on
 :func:`~pyiga_tpu_torch.ops.mlmatvec.ml_matvec` over the compact data.
 As the JAX ``fori_loop``, the CG loop runs its fixed count and never
-reads the host.  The multi-device dry run (``dryrun_multichip``) is not
-ported yet.
+reads the host.
+
+`dryrun_multichip(n)` runs the sharded step, the matrix-free CG and the
+flagship pipeline of :func:`pyiga_tpu_torch.parallel.dryrun` in `n` rank
+processes over ``torch.distributed`` (3D p=3, tiny shapes), each held to
+its run on one rank:
+
+    dryrun_multichip(4)                    # 4 cards, NCCL
+    dryrun_multichip(4, backend='gloo')    # 4 ranks sharing the card(s)
+    dryrun_multichip(4, device='cpu')      # 4 ranks on the CPU, gloo
 
     python -m pyiga_tpu_torch.__graft_entry__ [cpu]
 """
@@ -80,6 +88,41 @@ def entry(device=None):
     kvs = 3 * (make_knots(2, 0.0, 1.0, 6),)
     asm = StiffnessAssembler(kvs, geometry.twisted_box(), device=device)
     return _single_chip_step(asm)
+
+
+def _dryrun_rank(device, n_devices, dev):
+    """One rank of :func:`dryrun_multichip` (in the package, so that the
+    ``spawn`` start method can import it)."""
+    from .parallel import dryrun
+    data, X = dryrun(n_devices, dim=3, nspans=4, p=3, cg_iters=4,
+                     check_parity=True, device=dev)
+    if not (np.all(np.isfinite(data)) and np.all(np.isfinite(X))):
+        raise AssertionError('dryrun: data or iterates not finite')
+    return data.shape, X.shape
+
+
+def dryrun_multichip(n_devices, device=None, backend=None):
+    """Run :func:`pyiga_tpu_torch.parallel.dryrun` (the sharded 3D p=3
+    stiffness step with its one-rank parity check, the matrix-free mass
+    CG and the flagship f64 pipeline) in `n_devices` rank processes that
+    meet through a file store in a temporary directory (no port).
+
+    On the card (default) each rank takes card ``rank % device_count``
+    and the backend is NCCL: with fewer cards than ranks this raises, as
+    ``make_mesh`` does, unless ``backend='gloo'`` lets ranks share a card.
+    ``device='cpu'`` runs the ranks on the CPU over gloo.  On the card
+    the kernel library is built (or loaded) here before the ranks start,
+    so that they do not build it together.  Raises if any rank fails;
+    returns each rank's ``(data shape, X shape)``."""
+    from .parallel import _launch
+    kind, backend = _launch.resolve(n_devices, device, backend)
+    if kind == 'cuda':
+        from . import _cuda
+        _cuda.library()
+    cpu = kind == 'cpu'
+    return _launch.run(_dryrun_rank, n_devices, n_devices,
+                       'cpu' if cpu else None, device=device,
+                       backend=backend, threads=1 if cpu else None)
 
 
 if __name__ == '__main__':

@@ -319,11 +319,38 @@ def constant_operands(name, *tensors):
 def loop_vmap(apply):
     """A custom Function's ``vmap`` rule that applies it to each member of
     the batch in turn and stacks the results (the kernels behind the
-    Functions are ctypes calls, which ``torch.func.vmap`` cannot trace)."""
+    Functions are ctypes calls, which ``torch.func.vmap`` cannot trace).
+    A Function with several outputs gets each of them stacked."""
     def vmap(info, in_dims, *args):
         outs = [apply(*[a.select(d, b).contiguous()
                         if isinstance(a, torch.Tensor) and d is not None
                         else a for a, d in zip(args, in_dims)])
                 for b in range(info.batch_size)]
+        if isinstance(outs[0], tuple):
+            return (tuple(torch.stack(o) for o in zip(*outs)),
+                    (0,) * len(outs[0]))
         return torch.stack(outs), 0
     return staticmethod(vmap)
+
+
+def _functorch_wrapped(t):
+    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+
+
+def no_double_backward(name, *tensors):
+    """The guard of a backward kernel's wrapper: :func:`no_grad_operands`
+    on the operands that autograd records directly.  An operand wrapped by
+    a ``torch.func`` transform (``grad``, ``vjp``, ``jacrev``: they always
+    record the backward pass) is left to the Function the wrapper
+    launches through, whose own backward raises (:func:`refuse_backward`)
+    if a second derivative is ever asked of it."""
+    no_grad_operands(name, *(t for t in tensors
+                             if t is not None and not _functorch_wrapped(t)))
+
+
+def refuse_backward(name):
+    """Raise as a backward kernel's Function does when autograd asks for
+    its own backward (a second derivative through the assembly on the
+    card; the plain versions on the CPU have one)."""
+    raise RuntimeError('%s: the CUDA kernel has no backward; a second '
+                       'derivative through it runs on the CPU only' % name)

@@ -30,7 +30,10 @@ persistent XLA cache and two dof cutoffs that route small hierarchical
 assemblies and local-MG solves to the host.  The first three are TPU and
 XLA machinery with no counterpart here.  The cutoffs route by problem
 size; the port routes by ``device=`` and ``relax_backend=`` instead, and
-has no such switch.
+has no such switch: on the H100 the card wins at every size the JAX
+cutoffs would send to the host (the HB (24, 3) and (48, 3) hierarchies'
+assembly and local-MG solve, timed both ways by
+``scripts/torch_parallel_phase.py --cutoffs``).
 """
 
 import contextlib

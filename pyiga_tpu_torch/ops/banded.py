@@ -132,7 +132,8 @@ def flat_banded_embed_device(D_banded, bws, ns, lay=None):
     return D_banded.reshape(lay['C'], lay['F'])
 
 
-def flat_banded_from_padded_chain(Z, bws, ns, add_transpose=True):
+def flat_banded_from_padded_chain(Z, bws, ns, add_transpose=True, a=0,
+                                  lo=0, hi=None):
     """The flat ``(C, F)`` layout directly from the chain output
     ``Z (b_1 n_1, ..., b_d n_d)`` (axis-k position ``mu_k * n_k + i_k``),
     fusing the symmetric mirror/combine, the banded reorder and the flat
@@ -140,21 +141,42 @@ def flat_banded_from_padded_chain(Z, bws, ns, add_transpose=True):
     ``Z[mu, i]``, and with `add_transpose` the transpose part is the
     shifted box ``Z[2b - mu, j = i + mu - b]`` (see
     :func:`~pyiga_tpu_torch.ops.cuda_sumfac.assemble_flat_banded` for the
-    0.5 prescale this needs)."""
+    0.5 prescale this needs).
+
+    On a slab of the first axis (the multi-device layer's,
+    :mod:`~pyiga_tpu_torch.parallel.flagship`): `Z` holds the chain of
+    the first axis's rows ``[a, a + ne)`` only (its first extent ``b_1
+    ne``), and the result is the layout's rows ``[lo, hi)`` of that axis,
+    ``(C, (hi - lo) * prod(ns[1:]))``; the mirrored box of a row reads
+    the rows up to ``b_1`` around it, so ``[a, a + ne)`` must hold
+    ``[lo - b_1, hi + b_1)`` within the axis.  The defaults are the whole
+    axis."""
     lay = flat_banded_layout(bws, ns)
-    out = torch.empty((lay['C'], lay['F']), dtype=Z.dtype, device=Z.device)
+    n0 = ns[0]
+    hi = n0 if hi is None else hi
+    ne = Z.shape[0] // lay['bsz'][0]
+    sl_ns = (hi - lo,) + tuple(ns[1:])
+    out = torch.empty((lay['C'], int(np.prod(sl_ns))), dtype=Z.dtype,
+                      device=Z.device)
     for c, mu in enumerate(np.ndindex(*lay['bsz'])):
-        oc = out[c].view(tuple(ns))
-        oc.copy_(Z[tuple(slice(m * n, m * n + n) for m, n in zip(mu, ns))])
+        oc = out[c].view(sl_ns)
+        oc.copy_(Z[(slice(mu[0] * ne + lo - a, mu[0] * ne + hi - a),)
+                   + tuple(slice(m * n, m * n + n)
+                           for m, n in zip(mu[1:], ns[1:]))])
         if add_transpose:
-            src, dst = [], []
-            for m, b, n in zip(mu, bws, ns):
+            s = mu[0] - bws[0]
+            i0, i1 = max(lo, -s), min(hi, n0 - s)
+            if i1 <= i0:
+                continue
+            start = (2 * bws[0] - mu[0]) * ne + i0 + s - a
+            src, dst = [slice(start, start + i1 - i0)], \
+                [slice(i0 - lo, i1 - lo)]
+            for m, b, n in zip(mu[1:], bws[1:], ns[1:]):
                 s = m - b
                 start = (2 * b - m) * n + max(0, s)
                 ln = n - abs(s)
-                lo = max(0, -s)
                 src.append(slice(start, start + ln))
-                dst.append(slice(lo, lo + ln))
+                dst.append(slice(max(0, -s), max(0, -s) + ln))
             oc[tuple(dst)] += Z[tuple(src)]
     return out
 

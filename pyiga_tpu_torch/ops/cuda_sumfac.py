@@ -474,31 +474,46 @@ def fields_bwd(kind, Y, T, w12, wL, nurbs, g):
     contracts back over the last axis in a fixed order (no atomics:
     bitwise equal on a repeat).  Float64, or float32 operands: the kernel's
     float32 instance (``pyiga_fields_bwd_f32``, counted under the kind's
-    counter with ``_f32``), which computes in float32 throughout.  A CPU
-    tensor runs the formulas of :func:`_fields_vjp_plain`."""
+    counter with ``_f32``), which computes in float32 throughout.  On the
+    card it launches through a Function of its own (:class:`_FieldsBwd`),
+    so that ``torch.func.vmap`` of a gradient launches it once a member
+    of the batch.  A CPU tensor runs the formulas of
+    :func:`_fields_vjp_plain`."""
     g = g.contiguous()
     if not _kernel_device(Y, 'fields_bwd'):
         return _fields_vjp_plain(kind, Y, T, w12, wL, nurbs, g)
+    counter = _FIELD_KINDS[kind][2]
+    if Y.dtype == torch.float32:
+        counter += '_f32'
+    _cuda.no_double_backward(counter, Y, g)
+    if kind == 'jac':
+        d, G, Q12, QL, nL = _check_jac_args(counter, Y, T, nurbs)
+        shape = (G + G * d, Q12, QL)
+    else:
+        d, Q12, QL, nL = _check_fields_args(counter, Y, T, w12, wL, nurbs)
+        shape = ((d * (d + 1) // 2, Q12, QL) if kind == 'stiffness'
+                 else (Q12, QL))
+        G = d
+    if g.shape != shape or g.device != Y.device:
+        raise ValueError('%s: gradient %s on %s, expected %s on %s'
+                         % (counter, tuple(g.shape), g.device, shape,
+                            Y.device))
+    return _FieldsBwd.apply(kind, (d, G, Q12, QL, nL), Y, T, w12, wL, nurbs,
+                            g)
+
+
+def _fields_bwd_kernel(kind, dims, Y, T, w12, wL, nurbs, g):
+    """One launch of K1's backward on CUDA tensors of the sizes `dims`
+    ``(d, G, Q12, QL, nL)`` (checked by :func:`fields_bwd`)."""
     code, _fwd, counter = _FIELD_KINDS[kind]
     f32 = Y.dtype == torch.float32
     dt = torch.float32 if f32 else torch.float64
     if f32:
         counter += '_f32'
-    _cuda.no_grad_operands(counter, Y, g)     # no double backward
+    d, G, Q12, QL, nL = dims
     if kind == 'jac':
-        d, G, Q12, QL, nL = _check_jac_args(counter, Y, T, nurbs)
         w12 = wL = torch.empty(0, dtype=dt, device=Y.device)
-        shape = (G + G * d, Q12, QL)
-    else:
-        d, Q12, QL, nL = _check_fields_args(counter, Y, T, w12, wL, nurbs)
-        G = d
-        shape = ((d * (d + 1) // 2, Q12, QL) if kind == 'stiffness'
-                 else (Q12, QL))
-    _cuda.require(g, 'g', dt, len(shape))
-    if g.shape != shape or g.device != Y.device:
-        raise ValueError('%s: gradient %s on %s, expected %s on %s'
-                         % (counter, tuple(g.shape), g.device, shape,
-                            Y.device))
+    _cuda.require(g, 'g', dt, g.dim())
     gY = torch.empty_like(Y)
     fn = (_cuda.library().pyiga_fields_bwd_f32 if f32
           else _cuda.library().pyiga_fields_bwd_f64)
@@ -510,6 +525,26 @@ def fields_bwd(kind, Y, T, w12, wL, nurbs, g):
     _cuda.check(err, counter)
     _cuda.LAUNCHES[counter] += 1
     return gY
+
+
+class _FieldsBwd(torch.autograd.Function):
+    """K1's backward kernel as a Function of its operands: a ``vmap``
+    rule that launches it once a member of the batch, and no backward of
+    its own."""
+
+    @staticmethod
+    def forward(kind, dims, Y, T, w12, wL, nurbs, g):
+        return _fields_bwd_kernel(kind, dims, Y, T, w12, wL, nurbs, g)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.kind = inputs[0]
+
+    @staticmethod
+    def backward(ctx, gg):
+        _cuda.refuse_backward(_FIELD_KINDS[ctx.kind][2])
+
+    vmap = _cuda.loop_vmap(lambda *a: _FieldsBwd.apply(*a))
 
 
 ################################################################################
@@ -688,14 +723,35 @@ def stage_bwd(T, g, counter='stage_bwd'):
     ``stage_bwd_f32_kernel`` for float32 (``csrc/sumfac_f32.cu``: FFMA in
     full float32, no TF32; a tile spanning K, M split in a fixed order
     where the output tiles cannot fill the card,
-    :func:`stage_bwd_f32_plan`), counted under `counter` with ``_f32``.  A CPU tensor runs
-    :func:`stage_bwd_plain`."""
+    :func:`stage_bwd_f32_plan`), counted under `counter` with ``_f32``,
+    through :class:`_StageBwd` (once a member of a ``torch.func.vmap``
+    batch).  A CPU tensor runs :func:`stage_bwd_plain`."""
     g = g.contiguous()
     _check_bwd_args(counter, [T], g)
     if not _kernel_device(g, counter):
         return stage_bwd_plain(T, g)
-    _cuda.no_grad_operands(counter, T, g)     # no double backward
-    return _stage_bwd_kernel([T], g, counter)[0]
+    _cuda.no_double_backward(counter, T, g)
+    return _StageBwd.apply(counter, g, T)[0]
+
+
+class _StageBwd(torch.autograd.Function):
+    """K2-bwd on CUDA tensors as a Function ``apply(counter, g,
+    *tables)`` -> ``(G, K, R)``: a ``vmap`` rule that launches it once a
+    member of the batch, and no backward of its own."""
+
+    @staticmethod
+    def forward(counter, g, *tables):
+        return _stage_bwd_kernel(list(tables), g, counter)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.counter = inputs[0]
+
+    @staticmethod
+    def backward(ctx, gg):
+        _cuda.refuse_backward(ctx.counter)
+
+    vmap = _cuda.loop_vmap(lambda *a: _StageBwd.apply(*a))
 
 
 class _Stage(torch.autograd.Function):
@@ -815,7 +871,8 @@ def fold_bwd(tables, term_idx, g, need=None):
     (`need`, per term; default all) go into one ``(G, K, R)`` tensor, on
     the card by one launch of ``stage_bwd_kernel`` (float32:
     ``stage_bwd_f32_kernel``, counted under ``fold_bwd_f32``) for up to
-    16 tables, counted under ``fold_bwd``.  Each term gets the view of
+    16 tables, counted under ``fold_bwd`` (through :class:`_StageBwd`, once
+    a member of a ``torch.func.vmap`` batch).  Each term gets the view of
     its table's gradient, None if it needs none.  A CPU tensor runs
     :func:`fold_bwd_plain`."""
     uniq, need = _fold_bwd_tables(term_idx, need)
@@ -826,8 +883,8 @@ def fold_bwd(tables, term_idx, g, need=None):
     _check_bwd_args('fold_bwd', used, g)
     if not _kernel_device(g, 'fold_bwd'):
         return fold_bwd_plain(tables, term_idx, g, need)
-    _cuda.no_grad_operands('fold_bwd', *used, g)     # no double backward
-    return _fold_bwd_views(_stage_bwd_kernel(used, g, 'fold_bwd'), uniq,
+    _cuda.no_double_backward('fold_bwd', *used, g)
+    return _fold_bwd_views(_StageBwd.apply('fold_bwd', g, *used), uniq,
                            term_idx, need)
 
 

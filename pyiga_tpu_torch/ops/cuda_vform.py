@@ -1219,15 +1219,37 @@ class _ComboFields(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         program, n_w = ctx.program, ctx.n_w
-        arrays = _program_arrays(program, n_w, ctx.saved_tensors)
-        grads, gparams = program.adjoint().launch(arrays, g)
-        out = [None, None] + [None] * n_w + [grads[k]
-                                             for k in program.sources]
-        if program.params:
-            out.append(gparams)
-        return tuple(out)
+        tensors = ctx.saved_tensors
+        adj = program.adjoint()
+        _cuda.no_double_backward(adj.counter, g, *tensors[n_w:])
+        grads = _AdjointLaunch.apply(program, n_w, g.contiguous(), *tensors)
+        return (None, None) + (None,) * n_w + tuple(grads)
 
     vmap = _cuda.loop_vmap(lambda *a: _ComboFields.apply(*a))
+
+
+class _AdjointLaunch(torch.autograd.Function):
+    """K5's adjoint kernel as a Function ``apply(program, n_weights, g,
+    *weights, *sources[, params])`` -> the gradients of the sources (and
+    of ``params``) in :func:`_program_arrays` order: a ``vmap`` rule that
+    launches it once a member of the batch, and no backward of its own."""
+
+    @staticmethod
+    def forward(program, n_w, g, *tensors):
+        arrays = _program_arrays(program, n_w, tensors)
+        grads, gparams = program.adjoint().launch(arrays, g)
+        out = tuple(grads[k] for k in program.sources)
+        return out + (gparams,) if program.params else out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.counter = inputs[0].adjoint().counter
+
+    @staticmethod
+    def backward(ctx, *gg):
+        _cuda.refuse_backward(ctx.counter)
+
+    vmap = _cuda.loop_vmap(lambda *a: _AdjointLaunch.apply(*a))
 
 
 def _program_arrays(program, n_w, tensors):

@@ -67,21 +67,30 @@ def fastdiag_solver(KM):
 # Krylov solvers
 ################################################################################
 
-def _pcg(matvec, pc, x, r, stop, maxiter):
+def _norm(v, dot):
+    """The 2-norm of `v` (``sqrt(dot(v, v))`` with a `dot` of its own)."""
+    if dot is None:
+        return torch.linalg.vector_norm(v)
+    return torch.sqrt(dot(v, v))
+
+
+def _pcg(matvec, pc, x, r, stop, maxiter, dot=None):
     """The preconditioned CG loop from the iterate `x` with residual `r`
     until ``||r|| <= stop`` or `maxiter` steps; returns ``(x,
-    iterations)``."""
+    iterations)``.  `dot` replaces ``torch.dot`` (and the norm with it):
+    the multi-device layer passes a dot product reduced over its ranks."""
+    vdot = torch.dot if dot is None else dot
     z = pc(r)
     p = z
-    rz = torch.dot(r, z)
+    rz = vdot(r, z)
     it = 0
-    while it < maxiter and bool(torch.linalg.vector_norm(r) > stop):
+    while it < maxiter and bool(_norm(r, dot) > stop):
         Ap = matvec(p)
-        alpha = rz / torch.dot(p, Ap)
+        alpha = rz / vdot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = pc(r)
-        rz_new = torch.dot(r, z)
+        rz_new = vdot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
         it += 1
@@ -151,13 +160,16 @@ def cg(matvec, b, tol=1e-8, maxiter=1000, precond=None):
 
 
 def cg_ir_traceable(op_hi, op_lo, tol=1e-8, maxiter_inner=200, max_outer=10,
-                    precond_lo=None, inner_tol=1e-3):
+                    precond_lo=None, inner_tol=1e-3, dot=None):
     """The refinement program behind :func:`cg_ir`, taking its operands
     as arguments: returns ``(run, hi_ops, lo_ops, pc_ops)`` with
     ``run(b, hi_ops, lo_ops, pc_ops) -> (x, packed_info)``, the info
     packed into one float64 tensor on `b`'s device (``[residual, outer,
     inner_iters...]``, decoded by :func:`cg_ir_info`).  The operators
-    follow the operand protocol or are plain callables."""
+    follow the operand protocol or are plain callables.  `dot` replaces
+    ``torch.dot`` in every dot product and norm (the multi-device layer's
+    reduction over its ranks, :mod:`~pyiga_tpu_torch.parallel.flagship`;
+    None: torch's)."""
     hi_ops, hi_fn = _as_operand_fn(op_hi)
     lo_ops, lo_fn = _as_operand_fn(op_lo)
     if precond_lo is None:
@@ -167,7 +179,7 @@ def cg_ir_traceable(op_hi, op_lo, tol=1e-8, maxiter_inner=200, max_outer=10,
 
     def run(b, hi_ops, lo_ops, pc_ops):
         b = b.to(torch.float64)
-        norm_b = torch.linalg.vector_norm(b)
+        norm_b = _norm(b, dot)
         x = torch.zeros_like(b)
         r = b
         res = norm_b
@@ -176,11 +188,11 @@ def cg_ir_traceable(op_hi, op_lo, tol=1e-8, maxiter_inner=200, max_outer=10,
             r32 = r.to(torch.float32)
             d, it = _pcg(lambda v: lo_fn(lo_ops, v),
                          lambda v: pc_fn(pc_ops, v), torch.zeros_like(r32),
-                         r32, inner_tol * torch.linalg.vector_norm(r32),
-                         maxiter_inner)
+                         r32, inner_tol * _norm(r32, dot), maxiter_inner,
+                         dot)
             x = x + d.to(torch.float64)
             r = b - hi_fn(hi_ops, x)
-            res = torch.linalg.vector_norm(r)
+            res = _norm(r, dot)
             inner_iters.append(it)
             outer += 1
         iters = torch.zeros(max_outer, dtype=torch.float64, device=b.device)
