@@ -281,6 +281,27 @@ entry in the JSON line also carries its launches in phase 25
 (``launches_phase25``: (a)'s sharded flagship and sharded step, each
 counted around its own call, and (d)'s on rank 0).
 
+Forward mode and second derivatives (26; ``scripts/torch_diff_fwd_phase.py``
+runs it alone): (a) K1-jvp and K1-hvp of every kind against their plain
+versions on the 3D p=3 n=48 twisted box, the 2D n=128 NURBS quarter
+annulus and the 'left' face of the extruded annulus (QL = 1), and the
+generated K5 tangent and second-order programs of phase 20a's four forms
+(every source and the parameters with a tangent), float64 (1e-13) and
+float32 (:data:`DIFF_F32_TOL`), bitwise on a repeat; (b), (c)
+``torch.func.jvp``, a ``forward_ad`` dual, the gradient and the HVP by
+forward over reverse and by ``create_graph`` through
+``assembly_coeff_fn`` of the 3D n=48 stiffness and mass assemblers and
+the 2D n=128 convection-diffusion form, and ``assembly_input_fn`` of the
+``(1 + w²)`` form at 2D n=128, each against the same through the plain
+versions on the card (1e-12), ``<w, jvp>`` against ``<grad, v>`` (1e-12)
+and a central difference (1e-6), the two HVPs against each other, with
+their ms by CUDA events and launches; the same in float32 (2e-5); a
+``torch.func.hessian`` of a 2D p=2 n=4 mass objective; (d)
+``examples/torch_nonlinear_poisson.py`` by ``torch.func.jacfwd`` on the
+card against the CPU run and the JAX example's norms.  It fails unless
+each of the sixteen kernels (eight, and their float32 instances)
+launched and no float32 run launched a float64 one of them.
+
 Every kernel's entry in the JSON line has its time, its plain version's,
 the time of one PyTorch call computing the same function where one
 exists (``library_ms``; used nowhere in the port) and ``bound_ms``: the
@@ -363,10 +384,10 @@ KERNELS = {
                       '(XLA)'),
     # the float32 instances of K1, K2 and K3 (the f32 line); the JAX
     # package's f32 line runs these functions in XLA
-    'fields_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+    'fields_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields_f32.cu',
                    'pyiga_tpu/ops/pallas_sumfac.py:1087 (float32: '
                    'pyiga_tpu/assemblers.py:59 `stiffness_fields`, XLA)'),
-    'mass_fields_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+    'mass_fields_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields_f32.cu',
                         'pyiga_tpu/ops/pallas_sumfac.py:1087 (float32: '
                         'pyiga_tpu/assemblers.py:53 `mass_fields`, XLA)'),
     'stage_f32': ('cuda', 'pyiga_tpu_torch/csrc/sumfac_f32.cu',
@@ -378,7 +399,7 @@ KERNELS = {
     # the float32 instances of K1's jac kind, K1', K5, K8 and K8f (the f32
     # line beyond Poisson); the JAX package's f32 line evaluates these
     # functions in XLA on float32 operands (pyiga_tpu/compile.py:1250-1262)
-    'geo_jac_fields_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+    'geo_jac_fields_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields_f32.cu',
                            'pyiga_tpu/ops/pallas_sumfac.py:1087 (float32: '
                            'pyiga_tpu/ops/geom.py:69 `geo_jacobian_field`, '
                            'XLA)'),
@@ -415,11 +436,13 @@ TAILFUSED_KERNELS = ('fields', 'stage', 'stage_T', 'tail_fused',
 DIRICHLET_KERNELS = ('fields', 'stage', 'stage_T', 'tail_fused')
 # the windowed route (phases 4m and 21)
 WINDOWED_KERNELS = ('windowed_stage', 'windowed_fold')
-# phase 10's end times: esdirk34 factors 4 sparse LUs of the 16,641 free
-# dofs per step attempt (~2.5 s each on the host), and its start from
-# tau0 = 1e-3 rejects 5 attempts, so t = 0.1 would take minutes; t = 3e-4
-# keeps it near a minute (5 rejected attempts, 2 accepted)
+# phase 10's end times and first steps: esdirk34 factors 4 sparse LUs of
+# the 16,641 free dofs per step attempt (~2.5 s each on the host), so t =
+# 0.1 would take minutes; to t = 3e-4 from tau0 = 1e-3 it rejected 5
+# attempts before 2 accepted ones (63.7 s); from tau0 = 2e-4 it rejects 1
+# and accepts 2 (3 attempts, ~30 s)
 HEAT_T_END = {'esdirk34': 3e-4, 'ros3p': 0.1}
+HEAT_TAU0 = {'esdirk34': 2e-4, 'ros3p': 1e-3}
 # (n0, levels) -> the iteration count of the JAX package's host path
 LOCALMG_ITERS = {(24, 3): 29, (48, 3): 27, (96, 3): 25}
 # the same under set_dtype(float32): the JAX package's solve_hmultigrid on
@@ -1059,6 +1082,55 @@ def graph_ms(launch, device, n=20, reps=10):
 L2_BYTES = 50 * 2 ** 20
 
 
+def _tensors_of(a):
+    """The tensors in a nest of dicts, lists and tuples."""
+    if isinstance(a, torch.Tensor):
+        return [a]
+    if isinstance(a, dict):
+        a = list(a.values())
+    if isinstance(a, (list, tuple)):
+        return [t for v in a for t in _tensors_of(v)]
+    return []
+
+
+def _clone_nest(a):
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, dict):
+        return {k: _clone_nest(v) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return type(a)(_clone_nest(v) for v in a)
+    return a
+
+
+def cold_copies(args):
+    """`args` (a nest of tensors) and copies of it, together at least
+    twice the L2 (eight at most)."""
+    per = nbytes(*_tensors_of(args))
+    k = min(8, max(1, -(-2 * L2_BYTES // per)))
+    return [args] + [_clone_nest(args) for _ in range(k - 1)]
+
+
+def cold_graph_ms(launch, args, device):
+    """:func:`graph_ms` of ``launch(*args)`` with the launches cycling
+    through :func:`cold_copies` of `args`, and the launches' outputs
+    kept until the graph is gone (up to four times the L2: a larger
+    output passes through it anyway), so that neither a launch's reads
+    nor its writes find the previous launch's lines in the L2.  Returns
+    ``(ms, copies)``."""
+    copies = cold_copies(args)
+    k = len(copies)
+    outs = []
+
+    def call(i):
+        out = launch(*copies[i % k])
+        if nbytes(*_tensors_of(outs + [out])) <= 4 * L2_BYTES:
+            outs.append(out)
+    ms = graph_ms(call, device)
+    del outs, copies
+    return ms, k
+
+
 def bare_times(name, fn, operands, args_of, device):
     """A kernel's C entry apart from its Python wrapper: ``launch_ms``,
     the event time of back-to-back ctypes calls ``fn(*args, stream)`` with
@@ -1066,12 +1138,10 @@ def bare_times(name, fn, operands, args_of, device):
     time of one launch (:func:`graph_ms`), the launches cycling through
     ``copies`` copies of `operands` (the tensors a launch reads and
     writes) that together hold at least twice the L2."""
-    per = sum(t.numel() * t.element_size() for t in operands)
-    k = min(8, max(1, -(-2 * L2_BYTES // per)))
     # the copies stay referenced until the graph is gone: capturing it
     # empties PyTorch's cache, which would unmap a freed copy
-    copies = [operands] + [[t.clone() for t in operands]
-                           for _ in range(k - 1)]
+    copies = cold_copies(operands)
+    k = len(copies)
     argsets = [args_of(ts) for ts in copies]
 
     def call(i):
@@ -2558,8 +2628,8 @@ def run_heat_host(device, n=128):
     """Phase 10: the heat equation on the 2D p=3 NURBS quarter annulus,
     M and K assembled on the card through the compact path and held to
     the CPU assembly (1e-13), then integrated by the host esdirk34 (to
-    t = 3e-4, see ``HEAT_T_END``) and ros3p (to t = 0.1), both adaptive
-    with tol 1e-5 and tau0 1e-3."""
+    t = 3e-4 from tau0 = 2e-4, see ``HEAT_T_END``) and ros3p (to t = 0.1
+    from tau0 = 1e-3), both adaptive with tol 1e-5."""
     from pyiga_tpu_torch import _cuda, assemble, bspline, geometry
     kvs = 2 * (bspline.make_knots(3, 0.0, 1.0, n),)
     geo = geometry.quarter_annulus()
@@ -2607,9 +2677,11 @@ def run_heat_host(device, n=128):
     scipy.sparse.linalg.splu((Mf + 1e-3 * Kf).tocsc(), permc_spec='COLAMD')
     rec['t_one_lu_s'] = time.perf_counter() - t0
     for name, t_end in HEAT_T_END.items():
-        ts, xs, att, secs = integrate_host(name, Mf, Kf, f, t_end=t_end)
+        ts, xs, att, secs = integrate_host(name, Mf, Kf, f,
+                                           tau0=HEAT_TAU0[name], t_end=t_end)
         acc = len(ts) - 1
-        rec[name] = dict(t_end=t_end, accepted=acc, rejected=att - acc,
+        rec[name] = dict(t_end=t_end, tau0=HEAT_TAU0[name], accepted=acc,
+                         rejected=att - acc,
                          seconds=secs, t_final=ts[-1],
                          x_max=float(np.abs(xs[-1]).max()))
         log('  %-8s to t_end %g: %d accepted, %d rejected, t %.6f, max u '
@@ -4002,11 +4074,11 @@ KERNELS.update({
     # the FFMA kernel stage_bwd_f32_kernel (a tile spanning K, M split in
     # a fixed order where the output tiles cannot fill the card), the
     # adjoint generated in float
-    'fields_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+    'fields_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields_f32.cu',
                        'pyiga_tpu/ops/pallas_sumfac.py:1087' + _VJP),
-    'mass_fields_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+    'mass_fields_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields_f32.cu',
                             'pyiga_tpu/ops/pallas_sumfac.py:1087' + _VJP),
-    'geo_jac_fields_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields.cu',
+    'geo_jac_fields_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/fields_f32.cu',
                                'pyiga_tpu/ops/pallas_sumfac.py:1087'
                                + _VJP),
     'stage_bwd_f32': ('cuda', 'pyiga_tpu_torch/csrc/sumfac_f32.cu',
@@ -4781,11 +4853,12 @@ def run_diff_compliance(device, n=48):
                - float(compliance(x - h * v))) / (2 * h)
     ana = float((g * v).sum())
     rel = abs(num - ana) / abs(ana)
-    # forward: the CG iterations, then one matvec for the residual of
-    # the implicit term; adjoint: the CG iterations
+    # forward: the CG iterations, then two matvecs for the residuals of
+    # the implicit terms (the tangent's and the adjoint's); adjoint: the
+    # CG iterations
     J = float(J.detach())
     rec = dict(compliance=J, forward_ms=1e3 * (t1 - t0),
-               backward_ms=1e3 * (t2 - t1), forward_cg_iters=fwd_calls - 1,
+               backward_ms=1e3 * (t2 - t1), forward_cg_iters=fwd_calls - 2,
                adjoint_cg_iters=adj_calls, fd=num, grad_v=ana, rel=rel,
                free_dofs=len(free))
     log('  compliance %.12e: forward %.1f ms (%d CG iterations), backward '
@@ -5088,6 +5161,755 @@ def diff_f32_problems_one(name, device, n3, n2):
     """One of :func:`diff_f32_problems` on `device` (the CPU's run builds
     only the problem it checks)."""
     return diff_f32_problems(device, n3, n2, only=name)[name]
+
+
+################################################################################
+# Forward mode and second derivatives (phase 26): K1-jvp, K1-hvp and K5's
+# generated tangent and second-order programs
+################################################################################
+
+# the forward-mode and second-order kernels, float64 then float32 (their
+# launch counters): the JAX package runs jax.jvp / jax.hessian through the
+# XLA forms of K1 and K5 (pyiga_tpu/diff.py), so each entry names the TPU
+# kernel whose counterpart's tangent it is
+FWD_F64_KERNELS = ('fields_jvp', 'mass_fields_jvp', 'geo_jac_fields_jvp',
+                   'fields_hvp', 'mass_fields_hvp', 'geo_jac_fields_hvp',
+                   'vform_tangent', 'vform_second')
+FWD_F32_KERNELS = tuple(k + '_f32' for k in FWD_F64_KERNELS)
+FWD_KERNELS = FWD_F64_KERNELS + FWD_F32_KERNELS
+_JVP = ' (its tangent; pyiga_tpu/diff.py runs jax.jvp through the XLA form)'
+_HVP = (' (the tangent of its VJP; pyiga_tpu/diff.py runs jax.hessian '
+        'through the XLA form)')
+# K1-jvp's float64 and float32 entries are translation units of their own
+_JVP_SRC = 'pyiga_tpu_torch/csrc/fields_jvp%s.cu'
+for _sfx in ('', '_f32'):
+    KERNELS.update({
+        'fields_jvp' + _sfx: ('cuda', _JVP_SRC % _sfx,
+                              'pyiga_tpu/ops/pallas_sumfac.py:1087' + _JVP),
+        'mass_fields_jvp' + _sfx: ('cuda', _JVP_SRC % _sfx,
+                                   'pyiga_tpu/ops/pallas_sumfac.py:1087'
+                                   + _JVP),
+        'geo_jac_fields_jvp' + _sfx: ('cuda', _JVP_SRC % _sfx,
+                                      'pyiga_tpu/ops/pallas_sumfac.py:1087'
+                                      + _JVP),
+        'fields_hvp' + _sfx: ('cuda', 'pyiga_tpu_torch/csrc/fields_hvp.cu',
+                              'pyiga_tpu/ops/pallas_sumfac.py:1087' + _HVP),
+        'mass_fields_hvp' + _sfx: ('cuda',
+                                   'pyiga_tpu_torch/csrc/fields_hvp.cu',
+                                   'pyiga_tpu/ops/pallas_sumfac.py:1087'
+                                   + _HVP),
+        'geo_jac_fields_hvp' + _sfx: ('cuda',
+                                      'pyiga_tpu_torch/csrc/fields_hvp.cu',
+                                      'pyiga_tpu/ops/pallas_sumfac.py:1087'
+                                      + _HVP),
+        # CUDA C generated per form and tangent mask, beside the adjoint's
+        'vform_tangent' + _sfx: ('cuda', 'pyiga_tpu_torch/ops/cuda_vform.py',
+                                 'pyiga_tpu/compile.py:974' + _JVP),
+        'vform_second' + _sfx: ('cuda', 'pyiga_tpu_torch/ops/cuda_vform.py',
+                                'pyiga_tpu/compile.py:974' + _HVP),
+    })
+# the JAX example's Newton residual norms and max |u| at its default size
+# (p=2, n=8; scripts/jax_poisson_counts.py nonlinear), which phase 26 (d)
+# holds the card's jacfwd Newton to
+NLP_NORMS_JAX = (0.26014867090946653, 0.0015280218701892283,
+                 1.2541230830386353e-07, 6.530606085103733e-16)
+NLP_UMAX_JAX = 0.11876437703359931
+
+
+class DualOps:
+    """A per-point scalar of the ``Dual<S>`` algebra of K1-jvp and K1-hvp
+    (csrc/fields.cuh) that counts the operations the kernel's formulas
+    need: the value's (an add, multiply, divide, |x| or copysign is one)
+    and, where a tangent reaches an operand (`t`), the tangent's rule: a
+    sum's 1, a product's 3 (1 where one factor has none), a quotient's 3
+    (1 by a divisor without one, 2 for a dividend without one).  A sign
+    flip, |x|'s tangent (a select) and a sum's start from zero are free.
+    The constants of a point (its gradient, its Gauss weight) are
+    ``DualOps(False)``, literals plain floats."""
+
+    n = 0
+
+    def __init__(self, t=True):
+        self.t = t
+
+    def _op(self, o, both, mine, theirs):
+        ot = isinstance(o, DualOps) and o.t
+        DualOps.n += 1 + (both if self.t and ot else mine if self.t
+                          else theirs if ot else 0)
+        return DualOps(self.t or ot)
+
+    def __add__(self, o):
+        return self._op(o, 1, 0, 0)
+
+    def __radd__(self, o):
+        if isinstance(o, (int, float)) and o == 0:
+            return self                 # sum()'s start
+        return self._op(o, 1, 0, 0)
+
+    __sub__ = __rsub__ = __add__
+
+    def __mul__(self, o):
+        return self._op(o, 3, 1, 1)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._op(o, 3, 1, 2)
+
+    def __rtruediv__(self, o):          # a literal over a dual
+        return self._op(o, 3, 2, 1)
+
+    def __neg__(self):
+        return self
+
+    def __abs__(self):
+        DualOps.n += 1
+        return self
+
+
+def _copysign_ops(x, _y):
+    """``scopysign(x, y)``: one operation, the tangent of `x` (sign
+    flipped or not)."""
+    DualOps.n += 1
+    return DualOps(x.t)
+
+
+def _adj_det_ops(J, d):
+    """``adj_det<D>`` (fields.cuh) on a d x d list: the adjugate, and the
+    determinant from its first column."""
+    if d == 2:
+        return [[J[1][1], -J[0][1]], [-J[1][0], J[0][0]]], \
+            J[0][0] * J[1][1] - J[0][1] * J[1][0]
+    adj = [[J[(i + 1) % 3][(j + 1) % 3] * J[(i + 2) % 3][(j + 2) % 3]
+            - J[(i + 1) % 3][(j + 2) % 3] * J[(i + 2) % 3][(j + 1) % 3]
+            for i in range(3)] for j in range(3)]
+    det = J[0][0] * adj[0][0] + J[0][1] * adj[1][0] + J[0][2] * adj[2][0]
+    return adj, det
+
+
+def k1_jvp_point_ops(kind, d, G, nurbs):
+    """K1-jvp's per-point algebra after the contractions, as
+    ``fields_tail`` (fields.cuh) runs it on ``Dual<S>``: the quotient rule
+    (NURBS), then for 'jac' the values, for 'mass' ``gw |det J|`` (det
+    alone), for 'stiffness' ``J^-1 = adj / det`` and ``gw |det J| (J^-1
+    J^-T)_ab`` for a <= b (the cofactors of det counted once: they are
+    the adjugate's first column)."""
+    C = G + int(nurbs)
+    jh = [[DualOps() for _k in range(d)] for _c in range(C)]
+    val = [DualOps() for _c in range(C)]
+    DualOps.n = 0
+    if kind == 'jac':
+        if nurbs:
+            W = val[C - 1]
+            WW = W * W
+            [[(jh[c][k] * W - val[c] * jh[C - 1][k]) / WW for k in range(d)]
+             for c in range(G)]
+            [val[c] / W for c in range(G)]
+        return DualOps.n
+    J = jh
+    if nurbs:
+        W = val[C - 1]
+        WW = W * W
+        J = [[(jh[c][k] * W - val[c] * jh[C - 1][k]) / WW for k in range(d)]
+             for c in range(d)]
+    gw = DualOps(False) * DualOps(False)        # w12[q12] wl
+    if kind == 'mass':                          # det_of<D>: det alone
+        det = (J[0][0] * J[1][1] - J[0][1] * J[1][0] if d == 2 else
+               sum(J[0][k] * (J[1][(k + 1) % 3] * J[2][(k + 2) % 3]
+                              - J[1][(k + 2) % 3] * J[2][(k + 1) % 3])
+                   for k in range(3)))
+        gw * abs(det)
+        return DualOps.n
+    adj, det = _adj_det_ops(J, d)
+    inv = [[adj[a][b] / det for b in range(d)] for a in range(d)]
+    W = gw * abs(det)
+    [W * sum(inv[a][m] * inv[b][m] for m in range(d))
+     for a in range(d) for b in range(a, d)]
+    return DualOps.n
+
+
+def k1_hvp_point_ops(kind, d, G, nurbs):
+    """K1-hvp's per-point algebra after the contractions: ``point_vjp``
+    (fields.cuh) on ``Dual<S>`` with the output's gradient and the Gauss
+    weight held (no tangent): the reciprocal of W (NURBS), for 'mass' ``f
+    = copysign(gw, det) g`` (no tangent) times the adjugate, for
+    'stiffness' ``f ((Gs : A) adj^T - 2 (adj^T Gs adj) adj^T)`` with ``f
+    = gw sign(det) / det^2``, then the quotient rule's VJP."""
+    C = G + int(nurbs)
+    jh = [[DualOps() for _k in range(d)] for _c in range(C)]
+    val = [DualOps() for _c in range(C)]
+    ng = {'stiffness': d * (d + 1) // 2, 'mass': 1, 'jac': G + G * d}[kind]
+    go = [DualOps(False) for _ in range(ng)]
+    DualOps.n = 0
+    if nurbs:
+        iW = 1.0 / val[C - 1]
+        iWW = iW * iW
+        xv = [val[c] * iW for c in range(G)]
+    if kind == 'jac':
+        gx = go[:G]
+        gJ = [[go[G + c * d + k] for k in range(d)] for c in range(G)]
+    else:
+        gw = DualOps(False) * DualOps(False)    # w12[q12] wL[q]
+        J = ([[(jh[c][k] - xv[c] * jh[C - 1][k]) * iW for k in range(d)]
+              for c in range(d)] if nurbs else jh)
+        adj, det = _adj_det_ops(J, d)
+        if kind == 'mass':
+            f = _copysign_ops(gw, det) * go[0]
+            gJ = [[f * adj[k][c] for k in range(d)] for c in range(d)]
+        else:
+            Gs = [[None] * d for _ in range(d)]
+            o = 0
+            for a in range(d):
+                for b in range(a, d):
+                    Gs[a][b] = Gs[b][a] = go[o] if a == b else 0.5 * go[o]
+                    o += 1
+            r = 1.0 / det
+            f = _copysign_ops(gw * r * r, det)
+            P1 = [[sum(Gs[a][b] * adj[b][m] for b in range(d))
+                   for m in range(d)] for a in range(d)]
+            GA = sum(P1[a][m] * adj[a][m] for a in range(d)
+                     for m in range(d))
+            Q = [[None] * d for _ in range(d)]
+            for i in range(d):
+                for j in range(i, d):
+                    Q[i][j] = Q[j][i] = sum(adj[a][i] * P1[a][j]
+                                            for a in range(d))
+            gJ = [[f * (GA * adj[j][i]
+                        - 2.0 * sum(Q[i][m] * adj[j][m] for m in range(d)))
+                   for j in range(d)] for i in range(d)]
+    if nurbs:
+        gW = sum(gJ[c][k] * (2.0 * xv[c] * jh[C - 1][k] - jh[c][k])
+                 for c in range(G) for k in range(d))
+        for k in range(d):
+            -sum(gJ[c][k] * val[c] for c in range(G)) * iWW
+        for c in range(G):
+            gv = -sum(gJ[c][k] * jh[C - 1][k] for k in range(d)) * iWW
+            if kind == 'jac':
+                gv + gx[c] * iW
+            [gJ[c][k] * iW for k in range(d)]
+        if kind == 'jac':
+            gW = gW - sum(gx[c] * val[c] for c in range(G))
+        gW * iWW
+    return DualOps.n
+
+
+def fields_ad_flops(mode, kind, d, G, nurbs, nL):
+    """Operations a point of K1-jvp (`mode` 'jvp') or K1-hvp ('hvp') of
+    `kind`, from the kernels' bodies: the contractions of Y and dY over
+    the last axis (2 a multiply-add), the per-point algebra
+    (:func:`k1_jvp_point_ops`, :func:`k1_hvp_point_ops`), and for K1-hvp
+    the Gauss weight's product and the sums back over the last axis (a
+    multiply-add each)."""
+    C = G + int(nurbs)
+    vals = nurbs or kind == 'jac'
+    dots = 2 * C * d * nL + (2 * C * nL if vals else 0)
+    if mode == 'jvp':
+        return 2 * dots + k1_jvp_point_ops(kind, d, G, nurbs)
+    return 2 * dots + k1_hvp_point_ops(kind, d, G, nurbs) + dots
+
+
+def fields_ad_case(mode, kind, Y, T, w12, wL, nurbs, device, name, seed,
+                   tol=1e-13):
+    """K1-jvp (`mode` 'jvp') or K1-hvp ('hvp') of `kind` on the operands
+    ``(Y, T, w12, wL, nurbs)`` against its plain version (`tol` relative,
+    bitwise on a repeat; float32: the float32 instance, also bitwise
+    unchanged with torch's global TF32 on), with its ms through the
+    wrapper (CUDA events), its device ms (:func:`cold_graph_ms`: no
+    operand warm in the L2), the plain version's ms, and the bound: Y,
+    dY, T, the weights (and for K1-hvp the output's gradient) read once,
+    the result written once; the operations of :func:`fields_ad_flops`
+    at the f64 or f32 FMA peak."""
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    d, C, Q12, nL = Y.shape
+    G = C - int(nurbs)
+    QL = T.shape[1]
+    f32 = Y.dtype == torch.float32
+    rng = np.random.RandomState(seed)
+    dY = torch.as_tensor(rng.rand(*Y.shape) - 0.5, dtype=Y.dtype,
+                         device=device)
+    if mode == 'jvp':
+        def launch(Y, dY):
+            return cs.fields_jvp(kind, Y, T, w12, wL, nurbs, dY)
+        args = (Y, dY)
+
+        def run():
+            return launch(*args)
+
+        def plain():
+            return cs.fields_jvp_plain(kind, Y, T, w12, wL, nurbs, dY)
+        g = None
+    else:
+        shape = {'stiffness': (d * (d + 1) // 2, Q12, QL), 'mass': (Q12, QL),
+                 'jac': (G + G * d, Q12, QL)}[kind]
+        g = torch.as_tensor(rng.rand(*shape) - 0.5, dtype=Y.dtype,
+                            device=device)
+
+        def launch(Y, g, dY):
+            return cs.fields_hvp(kind, Y, T, w12, wL, nurbs, g, dY)
+        args = (Y, g, dY)
+
+        def run():
+            return launch(*args)
+
+        def plain():
+            return cs.fields_hvp_plain(kind, Y, T, w12, wL, nurbs, g, dY)
+    got, ref = run(), plain()
+    sync(device)
+    label = '%s_%s%s %s' % (kind, mode, ' f32' if f32 else '', name)
+    err, rel = compare(label, got, ref, tol)
+    check_repeat(label, run, got)
+    if f32:
+        tf32_unchanged(label, lambda: [run(), plain()], [got, ref])
+    ops = Q12 * QL * fields_ad_flops(mode, kind, d, G, nurbs, nL)
+    device_ms, copies = cold_graph_ms(launch, args, device)
+    rec = dict(max_abs_err=err, rel=rel, Y=list(Y.shape), QL=QL,
+               repeat_equal=True, tf32_on_unchanged=f32 or None,
+               ms=time_ms(run, device), device_ms=device_ms,
+               device_copies=copies,
+               plain_ms=time_ms(plain, device, reps=3),
+               library_ms=None,
+               **bound(nbytes(Y, dY, T, got) + (nbytes(g) if g is not None
+                                                else 0)
+                       + (0 if kind == 'jac' else nbytes(w12, wL)),
+                       ops, F32_PER_MS if f32 else F64_FMA_PER_MS))
+    log('  %-28s %s: %.4f ms (device %.4f, plain %.4f, bound %.4f %s, '
+        '%.0f %% of it)' % (label, list(got.shape), rec['ms'],
+                            rec['device_ms'], rec['plain_ms'],
+                            rec['bound_ms'], rec['bound_by'],
+                            100 * rec['bound_ms'] / rec['device_ms']))
+    del dY, g, got, ref
+    return rec
+
+
+def k5_ad_case(asm, device, name, seed, tol=1e-13):
+    """The generated K5 tangent and second-order programs of a form's
+    fold-plan program in the compute dtype, every source and the
+    parameters with a tangent, against their plain runs
+    (``run_tangent_plain``, ``run_second_plain``: `tol` of each tensor's
+    largest entry, bitwise on a repeat, float32 also with TF32 on); their
+    SSA sizes, nvcc seconds, ms by CUDA events, device ms
+    (:func:`cold_graph_ms`: no operand warm in the L2), plain ms and
+    bounds (the rows each program reads, the weights, parameters and
+    output once; an operation per SSA instruction and point).  Returns
+    ``{'vform_tangent': rec, 'vform_second': rec}``."""
+    import pyiga_tpu_torch
+    from pyiga_tpu_torch import _cuda
+    from pyiga_tpu_torch.ops import cuda_vform as cv
+    dtype = pyiga_tpu_torch.get_dtype()
+    f32 = dtype == torch.float32
+    plan = asm._fold_plan or [(t, False) for t in range(len(asm.combos))]
+    prog = asm._program([asm.combos[t] for t, _m in plan], dtype)
+    arrays = asm.device_arrays()
+    grid = tuple(w.shape[0] for w in arrays['weights'])
+    N = math.prod(grid)
+    rng = np.random.RandomState(seed)
+
+    def rand_like(t):
+        return torch.as_tensor(rng.rand(*t.shape) - 0.5, dtype=dtype,
+                               device=device)
+    mask = (True,) * (len(prog.sources) + int(bool(prog.params)))
+    tans = {k: rand_like(arrays[k]) for k in prog.sources}
+    if prog.params:
+        tans['params'] = rand_like(arrays['params'])
+    g = torch.as_tensor(rng.rand(len(prog.outputs), *grid) - 0.5,
+                        dtype=dtype, device=device)
+    targs = cv.tangent_operands(prog, mask, arrays, tans)
+    out = {}
+    t0 = time.perf_counter()
+    tprog, sprog = prog.tangent(mask), prog.second(mask)
+    gen_s = time.perf_counter() - t0
+    launches = {'vform_tangent': lambda targs, g: [tprog.launch(targs)],
+                'vform_second': lambda targs, g: _k5_flat(
+                    prog, *sprog.launch(targs, g))}
+    for key, gen, run, plain in (
+            ('vform_tangent', tprog,
+             lambda: [tprog.launch(targs)],
+             lambda: [cv.run_tangent_plain(prog, mask, arrays, tans)
+                      .reshape((len(prog.outputs),) + grid)]),
+            ('vform_second', sprog,
+             lambda: _k5_flat(prog, *sprog.launch(targs, g)),
+             lambda: _k5_flat(prog, *cv.run_second_plain(prog, mask, arrays,
+                                                         g, tans)))):
+        t0 = time.perf_counter()
+        got = run()
+        first_s = time.perf_counter() - t0
+        ref = plain()
+        sync(device)
+        label = '%s%s %s' % (key, '_f32' if f32 else '', name)
+        err, rel = compare_all(label, got, ref, tol)
+        check_repeat_all(label, run, got)
+        if f32:
+            tf32_unchanged(label, lambda: run() + plain(), got + ref)
+        lib = str(_cuda.generated_path(gen.counter, gen.source))
+        build = dict(_cuda.GEN_BUILDS[lib], path=lib)
+        prow = gen.program if key == 'vform_second' else gen
+        rows = {s for s in prow.leaf_src if s is not None}
+        read = g.element_size() * (
+            len(rows) * N + sum(w.numel() for w in arrays['weights'])
+            + (2 * arrays['params'].numel() if prog.params else 0))
+        device_ms, copies = cold_graph_ms(launches[key], (targs, g), device)
+        out[key] = dict(
+            max_abs_err=err, rel=rel, instrs=len(prog.instrs),
+            adjoint_instrs=len(prog.adjoint().program.instrs),
+            program_instrs=len(prow.instrs), first_call_s=first_s,
+            generate_s=gen_s, build=build, grid=list(grid),
+            repeat_equal=True, tf32_on_unchanged=f32 or None,
+            ms=time_ms(run, device), device_ms=device_ms,
+            device_copies=copies,
+            plain_ms=time_ms(plain, device, reps=3),
+            library_ms=None,
+            **bound(read + nbytes(*got), len(prow.instrs) * N,
+                    F32_PER_MS if f32 else F64_FMA_PER_MS))
+        log('  %s: %d SSA instrs (forward %d, adjoint %d); nvcc %.2f s; '
+            '%.4f ms (device %.4f, plain %.4f, bound %.4f %s)'
+            % (label, len(prow.instrs), len(prog.instrs),
+               len(prog.adjoint().program.instrs), build['seconds'],
+               out[key]['ms'], out[key]['device_ms'], out[key]['plain_ms'],
+               out[key]['bound_ms'], out[key]['bound_by']))
+    return out
+
+
+def k5_prebuild(cases, dtypes):
+    """Build the tangent and second-order programs of each ``(asm,
+    tangent)`` case's fold-plan program in each of `dtypes`, one thread a
+    library, so that their nvcc processes run at once (each program's
+    time lands in ``_cuda.GEN_BUILDS``): `tangent` picks the sources that
+    have a tangent (by key; the parameters when ``'params'`` passes)."""
+    from concurrent.futures import ThreadPoolExecutor
+    gens = []
+    for asm, tangent in cases:
+        plan = asm._fold_plan or [(t, False) for t in range(len(asm.combos))]
+        for dtype in dtypes:
+            prog = asm._program([asm.combos[t] for t, _m in plan], dtype)
+            mask = tuple(tangent(k) for k in prog.sources) + (
+                (tangent('params'),) if prog.params else ())
+            gens += [prog.tangent(mask), prog.second(mask)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(gens)) as pool:
+        list(pool.map(lambda gen: gen.entry(), gens))
+    log('  %d generated programs built at once in %.1f s'
+        % (len(gens), time.perf_counter() - t0))
+
+
+def _k5_flat(prog, grads, gparams):
+    return [grads[k] for k in prog.sources] + ([gparams] if gparams
+                                               is not None else [])
+
+
+def k5_ad_forms(device, n2=128, n3=48):
+    """Phase 20a's K5 forms: convection-diffusion, ``(1 + w²)`` and the
+    biharmonic at 2D n=128, ``grad(u).grad(v) ds`` on the 'left' face of
+    the extruded annulus at 3D n=48 (QL = 1)."""
+    from pyiga_tpu_torch import geometry
+    from pyiga_tpu_torch.assemble import instantiate_assembler
+    _kvs, _geo, conv, _f = convdiff_setup(n2, device)
+    w = geometry.BSplineFunc(kvs_of(2, n2), np.random.RandomState(
+        7).rand(n2 + 3, n2 + 3))
+    nl = instantiate_assembler(NONLINEAR, kvs_of(2, n2), {
+        'geo': geometry.quarter_annulus(), 'w': w}, None, device=device)
+    bih = instantiate_assembler(BIHARMONIC, kvs_of(2, n2), {
+        'geo': geometry.quarter_annulus()}, None, device=device)
+    face = surface_asm('inner(grad(u), grad(v)) * ds', 3, n3, device,
+                       boundary='left')
+    return {'convdiff_n128': conv, 'nonlinear_n128': nl,
+            'biharmonic_n128': bih, 'gradgrad_ds_left_n48': face}
+
+
+def check_fwd_kernels(device, n3=48, n2=128, dtype=torch.float64):
+    """Phase 26 (a), float64 and float32 (under ``set_dtype``): K1-jvp and
+    K1-hvp of every kind against their plain versions (phase 20a's
+    tolerances: 1e-13, or :data:`DIFF_F32_TOL`; bitwise on a repeat) on
+    the 3D p=3 n=48 twisted box, the 2D n=128 NURBS quarter annulus and
+    the 'left' face's boundary grid of the extruded annulus at n=48 (QL =
+    1, the ``jac`` kind); the generated K5 tangent and second-order
+    programs of phase 20a's forms (:func:`k5_ad_forms`).  The records'
+    keys are the launch counters (``_f32`` for float32)."""
+    from pyiga_tpu_torch import geometry
+    from pyiga_tpu_torch.assemblers import StiffnessAssembler
+    from pyiga_tpu_torch.ops import cuda_sumfac as cs
+    f32 = dtype == torch.float32
+    sfx = '_f32' if f32 else ''
+    tol = DIFF_F32_TOL if f32 else 1e-13
+    out = {}
+    with ComputeDtype(dtype):
+        a3 = main_path_setup(3, n3, device)
+        a2 = StiffnessAssembler(kvs_of(2, n2), geometry.quarter_annulus(),
+                                device=device)
+        face = surface_asm('v * ds', 3, n3, device, boundary='left')
+        ops = face._device_operands()
+        Yf, _ = cs.geo_stage12(ops['geo_tables'], ops['geo_coeffs'], 3)
+        Tf = ops['geo_tables'][2][:2].contiguous()
+        geos = [('3D n=%d' % n3, spline_partials(a3)),
+                ('annulus n=%d' % n2, spline_partials(a2))]
+        for mode in ('jvp', 'hvp'):
+            for kind, counter in (('stiffness', 'fields'),
+                                  ('mass', 'mass_fields'),
+                                  ('jac', 'geo_jac_fields')):
+                cases = {}
+                for i, (name, (Y, T, w12, wL, nurbs)) in enumerate(geos):
+                    if kind == 'jac':
+                        w12 = wL = None
+                    cases[name] = fields_ad_case(
+                        mode, kind, Y, T, w12, wL, nurbs, device, name,
+                        40 + i, tol=tol)
+                if kind == 'jac':
+                    cases['face left n=%d' % n3] = fields_ad_case(
+                        mode, kind, Yf, Tf, None, None, face._geo_is_nurbs,
+                        device, 'face left n=%d' % n3, 43, tol=tol)
+                first = next(iter(cases.values()))
+                out['%s_%s%s' % (counter, mode, sfx)] = dict(
+                    first, max_abs_err=max(r['max_abs_err']
+                                           for r in cases.values()),
+                    cases=cases)
+        del geos, a3, a2, Yf, Tf, face, ops
+        torch.cuda.empty_cache()
+        forms = k5_ad_forms(device, n2, n3)
+        k5_prebuild([(asm, lambda k: True) for asm in forms.values()],
+                    [dtype])
+        k5 = {name: k5_ad_case(asm, device, name, 50 + i, tol=tol)
+              for i, (name, asm) in enumerate(forms.items())}
+        for key in ('vform_tangent', 'vform_second'):
+            cases = {name: r[key] for name, r in k5.items()}
+            out[key + sfx] = dict(cases['convdiff_n128'], cases=cases,
+                                  max_abs_err=max(r['max_abs_err']
+                                                  for r in cases.values()))
+        del forms
+    torch.cuda.empty_cache()
+    log('  nvcc of the %s tangent / second-order programs: %s s' % (dtype, {
+        k: (round(r['vform_tangent']['build']['seconds'], 2),
+            round(r['vform_second']['build']['seconds'], 2))
+        for k, r in k5.items()}))
+    return out
+
+
+def fwd_problems(device, n3=48, n2=128):
+    """Phase 26 (b)'s functions, each ``(fn, x0)``: ``assembly_coeff_fn``
+    of the headline's stiffness and of the mass assembler at 3D p=3 n=48
+    (20b's objectives), of the convection-diffusion VForm at 2D n=128
+    (the ``jac`` kind and K5 under a geometry tangent), and
+    ``assembly_input_fn`` of the ``(1 + w²)`` form in ``w`` at 2D n=128
+    (K5 under an input tangent)."""
+    from pyiga_tpu_torch import geometry
+    from pyiga_tpu_torch.assemble import instantiate_assembler
+    from pyiga_tpu_torch.assemblers import MassAssembler
+    from pyiga_tpu_torch.diff import assembly_coeff_fn, assembly_input_fn
+    out = {}
+    out['stiffness_3d'] = assembly_coeff_fn(main_path_setup(3, n3, device))
+    out['mass_3d'] = assembly_coeff_fn(MassAssembler(kvs_of(3, n3),
+                                                     main_geo(3),
+                                                     device=device))
+    _kvs, _geo, conv, _f = convdiff_setup(n2, device)
+    out['convdiff_2d'] = assembly_coeff_fn(conv)
+    w = geometry.BSplineFunc(kvs_of(2, n2), 0.1 * np.random.RandomState(
+        17).rand(n2 + 3, n2 + 3))
+    nl = instantiate_assembler(NONLINEAR, kvs_of(2, n2), {
+        'geo': geometry.quarter_annulus(), 'w': w}, None, device=device)
+    out['nonlinear_2d'] = assembly_input_fn(nl, 'w')
+    # the K5 programs their tangents reach: the geometry's sources, and
+    # the input's values and derivatives
+    k5 = [(conv, lambda k: k.startswith('geo_')),
+          (nl, lambda k: k in ('input:w', 'ideriv:w:1'))]
+    return out, k5
+
+
+def _launched(before):
+    from pyiga_tpu_torch import _cuda
+    return {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+            if v != before[k]}
+
+
+def fwd_case(name, fn, x0, device, seed, h=1e-4, fd_tol=1e-6, tol=1e-12):
+    """Phase 26 (b) and (c) on one function: with ``w`` and a direction
+    ``v`` seeded, the tangent of ``fn`` at `x0` along ``v`` by
+    ``torch.func.jvp`` and by ``torch.autograd.forward_ad``, the
+    gradient of ``sum(w fn)`` (reverse mode), the HVP by forward over
+    reverse (``jvp(grad)``) and by ``create_graph``; each with its ms by
+    CUDA events and launches, held to the same through the plain
+    versions on the card (`tol`), ``<w, tangent>`` to ``<grad, v>`` and
+    to a central difference (`fd_tol`), the two HVPs to each other
+    (`tol`), bitwise on a repeat.  In float32 (under ``set_dtype``) the
+    tolerances are 2e-5 and no difference is taken."""
+    import pyiga_tpu_torch
+    from torch.autograd import forward_ad
+    from pyiga_tpu_torch import _cuda
+    f32 = pyiga_tpu_torch.get_dtype() == torch.float32
+    f64 = torch.float64
+    x = torch.as_tensor(np.asarray(x0, dtype=float), dtype=f64,
+                        device=device)
+    with torch.no_grad():
+        shape = fn(x).shape
+    rng = np.random.RandomState(seed)
+    w = torch.as_tensor(rng.rand(*shape), device=device)
+    v = torch.as_tensor(rng.rand(*x.shape) - 0.5, dtype=f64, device=device)
+    v = v / v.abs().max()
+
+    def obj(c):
+        out = fn(c)
+        return (w.to(out.dtype) * out).sum()
+
+    def jvp():
+        return torch.func.jvp(fn, (x,), (v,))[1]
+
+    def dual():
+        with forward_ad.dual_level():
+            return forward_ad.unpack_dual(fn(forward_ad.make_dual(
+                x, v))).tangent
+
+    def grad():
+        return torch.func.grad(obj)(x)
+
+    def hvp_fwd():
+        return torch.func.jvp(torch.func.grad(obj), (x,), (v,))[1]
+
+    def hvp_rev():
+        xr = x.clone().requires_grad_(True)
+        g, = torch.autograd.grad(obj(xr), xr, create_graph=True)
+        return torch.autograd.grad((g * v).sum(), xr)[0]
+    rec, got = {}, {}
+    for key, call in (('jvp', jvp), ('forward_ad', dual), ('grad', grad),
+                      ('hvp_fwd', hvp_fwd), ('hvp_rev', hvp_rev)):
+        call()                          # builds, warms
+        before = dict(_cuda.LAUNCHES)
+        res, ms = event_ms(call, device)
+        launches = _launched(before)
+        ms2 = [event_ms(call, device)[1] for _ in range(2)]
+        again = call()
+        sync(device)
+        if not torch.equal(again, res):
+            raise RuntimeError('%s %s: two runs differ' % (name, key))
+        got[key] = res
+        rec[key] = dict(ms=[ms] + ms2, launches=launches)
+    with PlainKernels():
+        ref = {'jvp': jvp(), 'grad': grad(), 'hvp_fwd': hvp_fwd()}
+    t = tol if not f32 else 2e-5
+    for key, r in (('jvp', 'jvp'), ('forward_ad', 'jvp'), ('grad', 'grad'),
+                   ('hvp_fwd', 'hvp_fwd'), ('hvp_rev', 'hvp_fwd')):
+        err, rel = compare('%s %s' % (name, key), got[key], ref[r], t)
+        rec[key].update(max_abs_err=err, rel=rel)
+    err, rel = compare('%s hvp fwd/rev' % name, got['hvp_rev'],
+                       got['hvp_fwd'], t)
+    rec['hvp_agree'] = rel
+    wt = float((w.to(got['jvp'].dtype) * got['jvp']).sum())
+    gv = float((got['grad'].double() * v).sum())
+    rec['w_tangent'], rec['grad_v'] = wt, gv
+    rec['tangent_vs_grad'] = abs(wt - gv) / abs(gv)
+    if not f32:
+        with torch.no_grad():
+            num = (float(obj(x + h * v)) - float(obj(x - h * v))) / (2 * h)
+        rec['fd'] = num
+        rec['fd_rel'] = abs(num - wt) / abs(wt)
+        if not (rec['fd_rel'] <= fd_tol and rec['tangent_vs_grad'] <= tol):
+            raise RuntimeError('%s: <w, jvp> %.12e, <grad, v> %.12e, FD '
+                               '%.12e' % (name, wt, gv, num))
+    elif rec['tangent_vs_grad'] > 2e-5:
+        raise RuntimeError('%s: <w, jvp> %.9e, <grad, v> %.9e'
+                           % (name, wt, gv))
+    log('  %s: jvp %s ms, forward_ad %s, grad %s, HVP fwd %s, rev %s; '
+        '<w, jvp> vs <grad, v> %.2e, vs FD %s; launches jvp %s, HVP fwd %s'
+        % (name, *['%.2f' % min(rec[k]['ms']) for k in (
+            'jvp', 'forward_ad', 'grad', 'hvp_fwd', 'hvp_rev')],
+           rec['tangent_vs_grad'],
+           '%.2e' % rec['fd_rel'] if 'fd_rel' in rec else '-',
+           rec['jvp']['launches'], rec['hvp_fwd']['launches']))
+    return rec
+
+
+def run_hessian_small(device):
+    """Phase 26 (c): ``torch.func.hessian`` of a 2D p=2 n=4 mass objective
+    on the card (jacfwd over jacrev: every K1-jvp, K1-hvp, K2 and K3 rule
+    under vmap) against the same through the plain versions (1e-12)."""
+    from pyiga_tpu_torch import bspline, geometry
+    from pyiga_tpu_torch.assemblers import MassAssembler
+    from pyiga_tpu_torch.diff import assembly_coeff_fn
+    kvs = 2 * (bspline.make_knots(2, 0.0, 1.0, 4),)
+    fn, c0 = assembly_coeff_fn(MassAssembler(kvs, geometry.quarter_annulus(),
+                                             device=device))
+    x = torch.as_tensor(c0, dtype=torch.float64, device=device)
+    w = torch.as_tensor(np.random.RandomState(18).rand(*fn(x).shape),
+                        device=device)
+
+    def obj(c):
+        return (w * fn(c)).sum()
+    from pyiga_tpu_torch import _cuda
+    before = dict(_cuda.LAUNCHES)
+    H, ms = event_ms(lambda: torch.func.hessian(obj)(x), device)
+    launches = _launched(before)
+    with PlainKernels():
+        ref = torch.func.hessian(obj)(x)
+    err, rel = compare('hessian mass 2D n=4', H, ref, 1e-12)
+    H2 = H.reshape(x.numel(), x.numel())
+    asym = float((H2 - H2.T).abs().max())
+    log('  hessian %s: %.1f ms, |H - H^T| %.1e, launches %s'
+        % (list(H.shape), ms, asym, launches))
+    return dict(shape=list(H.shape), ms=ms, launches=launches,
+                max_abs_err=err, rel=rel, asym=asym)
+
+
+def run_nlp_jacfwd(device):
+    """Phase 26 (d): ``examples/torch_nonlinear_poisson.py`` (its Jacobian
+    by ``torch.func.jacfwd``) on the card against the JAX example's norms
+    (:data:`NLP_NORMS_JAX`; 1e-10) and ``max |u|`` (1e-12), its launches
+    counted (phase 20e holds the same run to the CPU's)."""
+    from pyiga_tpu_torch import _cuda
+    nlp = load_example('torch_nonlinear_poisson')
+    before = dict(_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    norms, umax = nlp.main(device=device)
+    secs = time.perf_counter() - t0
+    launches = _launched(before)
+    ok = (len(norms) == len(NLP_NORMS_JAX)
+          and np.allclose(norms, NLP_NORMS_JAX, rtol=1e-10, atol=1e-10)
+          and abs(umax - NLP_UMAX_JAX) <= 1e-12 * NLP_UMAX_JAX)
+    log('  nonlinear Poisson by jacfwd: norms %s (JAX %s), max |u| %.12f '
+        '(JAX %.12f), %.1f s, launches %s'
+        % (['%.3e' % r for r in norms], ['%.3e' % r for r in NLP_NORMS_JAX],
+           umax, NLP_UMAX_JAX, secs, launches))
+    if not ok:
+        raise RuntimeError('torch_nonlinear_poisson (jacfwd): the card '
+                           'differs from the JAX example')
+    return dict(norms=norms, jax=list(NLP_NORMS_JAX), umax=umax,
+                umax_jax=NLP_UMAX_JAX, seconds=secs, launches=launches)
+
+
+def run_fwd_phase(device, n3=48, n2=128):
+    """Phase 26 (b)-(d), float64 and float32, the launch counts set to 0
+    before and read after: :func:`fwd_case` on :func:`fwd_problems` (the
+    float32 run under ``set_dtype``), the small Hessian and the Newton
+    example by ``jacfwd``.  Fails unless every kernel of
+    :data:`FWD_KERNELS` launched and no float32 run launched a float64
+    kernel of it."""
+    from pyiga_tpu_torch import _cuda
+    rec = {}
+    problems, k5 = fwd_problems(device, n3, n2)
+    k5_prebuild(k5, [torch.float64, torch.float32])
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    for i, (name, (fn, x0)) in enumerate(problems.items()):
+        rec[name] = fwd_case(name, fn, x0, device, 60 + i)
+    rec['hessian_mass_2d_n4'] = run_hessian_small(device)
+    rec['nonlinear_poisson'] = run_nlp_jacfwd(device)
+    rec['f64_s'] = time.perf_counter() - t0
+    f64_launches = dict(_cuda.LAUNCHES)
+    torch.cuda.empty_cache()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    with ComputeDtype(torch.float32):    # the same functions in float32
+        for i, (name, (fn, x0)) in enumerate(problems.items()):
+            rec[name + '_f32'] = fwd_case(name + ' f32', fn, x0, device,
+                                          70 + i)
+    rec['f32_s'] = time.perf_counter() - t0
+    f32_launches = dict(_cuda.LAUNCHES)
+    wrong = [k for k in FWD_F64_KERNELS if f32_launches[k]]
+    if wrong:
+        raise RuntimeError('phase 26: the float32 runs launched %s' % wrong)
+    launches = {k: f64_launches[k] + f32_launches[k] for k in _cuda.LAUNCHES}
+    rec['launches'] = launches
+    log('  phase 26 launches: %s' % {k: v for k, v in launches.items() if v})
+    missing = [k for k in FWD_KERNELS if launches[k] <= 0]
+    if missing:
+        raise RuntimeError('phase 26: never launched %s' % missing)
+    torch.cuda.empty_cache()
+    return rec
 
 
 ################################################################################
@@ -7930,6 +8752,7 @@ def main():
     t_build = time.perf_counter() - t0
     log('phase 2: kernels built+loaded in %.1f s (nvcc %.1f s) -> %s'
         % (t_build, _cuda.BUILD_INFO['seconds'], _cuda.BUILD_INFO['path']))
+    log('  nvcc seconds a source: %s' % _cuda.BUILD_INFO.get('sources'))
     for line in _cuda.BUILD_INFO['log'].splitlines():
         if 'registers' in line or 'spill' in line or 'Compiling' in line:
             log('  ' + line.strip())
@@ -8244,6 +9067,23 @@ def main():
     par = run_parallel_phase(device)
     torch.cuda.empty_cache()
 
+    log('phase 26a: K1-jvp, K1-hvp and the generated K5 tangent and '
+        'second-order programs vs plain versions, float64 and float32')
+    t26 = time.perf_counter()
+    fwd_kern = check_fwd_kernels(device)
+    fwd_kern.update(check_fwd_kernels(device, dtype=torch.float32))
+    kern.update(fwd_kern)
+    torch.cuda.empty_cache()
+
+    log('phase 26: forward mode and second derivatives: torch.func.jvp, '
+        'forward_ad and HVPs through assembly_coeff_fn at 3D p=3 n=48 and '
+        '2D n=128 and assembly_input_fn at 2D n=128, a Hessian, the Newton '
+        'example by jacfwd')
+    fwd = run_fwd_phase(device)
+    launches.update((k, fwd['launches'][k]) for k in FWD_KERNELS)
+    fwd['seconds'] = time.perf_counter() - t26
+    log('  phase 26 took %.1f s' % fwd['seconds'])
+
     # the NS shapes of the kernels the NS path runs, beside their launches
     # in phase 16's integration
     ns_line = {k: dict(launches=nsrec['launches'][k]) for k in NS_KERNELS}
@@ -8291,6 +9131,7 @@ def main():
                for k in KERNELS]
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=t_build,
+                  build_sources_s=_cuda.BUILD_INFO.get('sources'),
                   sass_dmma=dmma, kernels=kern,
                   small=small, main3d=main3, main2d=main2,
                   convdiff2d=conv, localmg_24_3=lmg, localmg_48_3=lmg48,
@@ -8308,6 +9149,7 @@ def main():
                   windowed=windowed, n96=n96, f32_line=f32line,
                   f32_assembly_kernels=f32_asm_kern, f32_assembly=f32asm,
                   host_api=host_api, entry=entry_rec, parallel=par,
+                  fwd_kernels=fwd_kern, fwd=fwd,
                   seconds=time.perf_counter() - t_start)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke.json'), 'w') as f:

@@ -8,11 +8,12 @@ unless ``'cpu'`` is given).
 
 The Newton residual is the assembled functional
 ``(1 + w*w) * inner(grad(w), grad(v)) * dx`` (w = current iterate), and
-the Jacobian is the derivative of the assembly itself
-(pyiga_tpu_torch.diff.assembly_input_fn), taken in reverse mode one row
-at a time (``torch.autograd.functional.jacobian(..., vectorize=False)``;
-the JAX example's ``jax.jacfwd``): no hand-derived linearized form, and
-Newton converges quadratically on the exact discrete Jacobian.
+the Jacobian is **torch.func.jacfwd of the assembly itself**
+(pyiga_tpu_torch.diff.assembly_input_fn), as the JAX example's
+``jax.jacfwd``: forward mode, one tangent per dof, through the kernels'
+forward-mode rules (on the card K5's generated tangent program, K2 and K3
+on the tangents).  No hand-derived linearized form, and Newton converges
+quadratically on the exact discrete Jacobian.
 
 Run ``python examples/torch_nonlinear_poisson.py`` on a machine with a
 CUDA card, or ``python examples/torch_nonlinear_poisson.py cpu``."""
@@ -60,9 +61,8 @@ def main(p=2, n=8, tol=1e-12, device=None):
         return r.cpu().numpy().reshape(-1)[free] - f[free]
 
     def J_free(xf):
-        jac = torch.autograd.functional.jacobian(
-            lambda c: resid_fn(c.reshape(shape)).reshape(-1), full(xf),
-            vectorize=False)
+        jac = torch.func.jacfwd(
+            lambda c: resid_fn(c.reshape(shape)).reshape(-1))(full(xf))
         return jac.cpu().numpy()[np.ix_(free, free)]
 
     # quadratic convergence from the exact discrete Jacobian

@@ -18,6 +18,10 @@ in :data:`LAUNCHES` (a plain dict of integers), so a run can show that it
 went through the kernels.  A wrapper whose kernel has no backward calls
 :func:`no_grad_operands` before it launches: its output is written through
 a raw pointer, so autograd would lose every gradient there without a word.
+The kernels of the differentiable assembly launch through autograd
+Functions whose rules are kernels too (their ``jvp``, ``backward`` and
+``vmap``, :func:`loop_vmap`), so first and second derivatives, in either
+mode, run on the card.
 """
 
 import contextlib
@@ -32,6 +36,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.autograd import forward_ad
 
 SRC_DIR = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / 'pyiga_tpu_torch'
@@ -59,7 +64,16 @@ LAUNCHES = {'fields': 0, 'geo_jac_fields': 0, 'mass_fields': 0,
             # ... and of the backward kernels and K5's adjoint
             'fields_bwd_f32': 0, 'mass_fields_bwd_f32': 0,
             'geo_jac_fields_bwd_f32': 0, 'stage_bwd_f32': 0,
-            'fold_bwd_f32': 0, 'vform_adjoint_f32': 0}
+            'fold_bwd_f32': 0, 'vform_adjoint_f32': 0,
+            # forward mode and second derivatives: K1-jvp, K1-hvp, and the
+            # generated K5 tangent and second-order adjoint programs
+            'fields_jvp': 0, 'mass_fields_jvp': 0, 'geo_jac_fields_jvp': 0,
+            'fields_hvp': 0, 'mass_fields_hvp': 0, 'geo_jac_fields_hvp': 0,
+            'vform_tangent': 0, 'vform_second': 0,
+            'fields_jvp_f32': 0, 'mass_fields_jvp_f32': 0,
+            'geo_jac_fields_jvp_f32': 0, 'fields_hvp_f32': 0,
+            'mass_fields_hvp_f32': 0, 'geo_jac_fields_hvp_f32': 0,
+            'vform_tangent_f32': 0, 'vform_second_f32': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,6 +92,14 @@ _SIGNATURES = {
                              _I, _P),
     'pyiga_fields_bwd_f32': (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
                              _I, _P),
+    'pyiga_fields_jvp_f64': (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
+                             _I, _P),
+    'pyiga_fields_jvp_f32': (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
+                             _I, _P),
+    'pyiga_fields_hvp_f64': (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L,
+                             _I, _I, _P),
+    'pyiga_fields_hvp_f32': (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L,
+                             _I, _I, _P),
     'pyiga_stage_f64': (_P, _P, _P, _I, _L, _I, _P),
     'pyiga_fold_f64': (_P, _P, _I, _P, _I, _L, _I, _P),
     'pyiga_stage_f32': (_P, _P, _P, _I, _L, _I, _P),
@@ -151,7 +173,8 @@ def build():
     """Compile ``csrc/*.cu`` into the hashed shared library unless it
     exists; returns its path.  Every source compiles in its own ``nvcc``
     process, all at once, then one ``nvcc -shared`` links the objects.
-    Records the build in :data:`BUILD_INFO`."""
+    Records the build in :data:`BUILD_INFO` (its ``sources``: the
+    seconds each source's nvcc took, slowest first)."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
@@ -169,7 +192,17 @@ def build():
                                    str(p)], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for p, o in zip(srcs, objs)]
-        logs = [proc.communicate()[0] for proc in procs]
+        logs, done = [None] * len(procs), {}
+
+        def wait(i):        # one thread a process: its time and its output
+            logs[i] = procs[i].communicate()[0]
+            done[srcs[i].name] = time.perf_counter() - t0
+        waits = [threading.Thread(target=wait, args=(i,))
+                 for i in range(len(procs))]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
         for p, proc, out in zip(srcs, procs, logs):
             if proc.returncode != 0:
                 raise RuntimeError('nvcc failed on %s (%d):\n%s'
@@ -178,8 +211,19 @@ def build():
         logs.append(_run([_nvcc(), '-shared', '-o', tmp, *objs], 'the link'))
         os.replace(tmp, lib)
     BUILD_INFO.update(path=str(lib), seconds=time.perf_counter() - t0,
+                      sources={k: round(v, 1) for k, v in sorted(
+                          done.items(), key=lambda kv: -kv[1])},
                       log='\n'.join(x.strip() for x in logs if x.strip()))
     return lib
+
+
+def generated_path(name, source):
+    """The library :func:`build_generated` builds `source` into:
+    ``build/pyiga_tpu_torch/gen/lib<name>_<hash>.so``, the hash of the
+    source and :data:`NVCC_FLAGS`."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    h.update(source.encode())
+    return BUILD_DIR / 'gen' / ('lib%s_%s.so' % (name, h.hexdigest()[:16]))
 
 
 def build_generated(name, source):
@@ -192,33 +236,38 @@ def build_generated(name, source):
     flags and loaded with ctypes; the caller declares its entry points.
     A failed build raises with nvcc's output.  Records the build in
     :data:`GEN_BUILDS` (library path -> seconds, nvcc's output)."""
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    h.update(source.encode())
-    stem = '%s_%s' % (name, h.hexdigest()[:16])
-    gen_dir = BUILD_DIR / 'gen'
-    lib = gen_dir / ('lib%s.so' % stem)
+    lib = generated_path(name, source)
+    gen_dir, stem = lib.parent, lib.stem[3:]
     with _lock:
         if str(lib) in _gen_libs:
             return _gen_libs[str(lib)]
-        if lib.exists():
-            GEN_BUILDS[str(lib)] = dict(seconds=0.0, log='(cached)')
-        else:
-            gen_dir.mkdir(parents=True, exist_ok=True)
-            src = gen_dir / ('%s.cu' % stem)
-            src.write_text(source)
-            fd, tmp = tempfile.mkstemp(suffix='.so', dir=gen_dir)
-            os.close(fd)
-            t0 = time.perf_counter()
-            try:
-                log = _run([_nvcc(), *NVCC_FLAGS, '-shared', '-o', tmp,
-                            str(src)], src)
-            except RuntimeError:
-                os.unlink(tmp)
-                raise
-            os.replace(tmp, lib)
-            GEN_BUILDS[str(lib)] = dict(seconds=time.perf_counter() - t0,
-                                        log=log)
-        _gen_libs[str(lib)] = ctypes.CDLL(str(lib))
+        cached = lib.exists()
+    if not cached:
+        # nvcc runs outside the lock: threads building different sources
+        # compile at once (each into a file of its own, then renamed)
+        gen_dir.mkdir(parents=True, exist_ok=True)
+        fd, src = tempfile.mkstemp(suffix='.cu', prefix=stem + '_',
+                                   dir=gen_dir)
+        with os.fdopen(fd, 'w') as f:
+            f.write(source)
+        fd, tmp = tempfile.mkstemp(suffix='.so', dir=gen_dir)
+        os.close(fd)
+        t0 = time.perf_counter()
+        try:
+            log = _run([_nvcc(), *NVCC_FLAGS, '-shared', '-o', tmp, src],
+                       src)
+        except RuntimeError:
+            os.unlink(tmp)
+            raise
+        finally:
+            os.replace(src, gen_dir / ('%s.cu' % stem))
+        os.replace(tmp, lib)
+        built = dict(seconds=time.perf_counter() - t0, log=log)
+    with _lock:
+        if str(lib) not in _gen_libs:
+            GEN_BUILDS[str(lib)] = (built if not cached
+                                    else dict(seconds=0.0, log='(cached)'))
+            _gen_libs[str(lib)] = ctypes.CDLL(str(lib))
         return _gen_libs[str(lib)]
 
 
@@ -292,18 +341,42 @@ def require(t, name, dtype, ndim):
                          % (name, ndim, tuple(t.shape)))
 
 
+def _has_tangent(t):
+    """Whether forward mode may carry a tangent on `t`: a dual tensor of
+    ``torch.autograd.forward_ad`` with its tangent at the current level,
+    or a tensor wrapped by a ``torch.func`` transform (the wrapper does
+    not tell ``jvp``'s from ``vmap``'s or ``grad``'s; the kernels behind
+    raw launches can take none of them)."""
+    if torch._C._functorch.is_functorch_wrapped_tensor(t):
+        return True
+    return (forward_ad._current_level >= 0
+            and forward_ad.unpack_dual(t).tangent is not None)
+
+
+def differentiated(*tensors):
+    """Whether a call on `tensors` would be differentiated: grad mode on
+    and one of them requires grad, or one carries a forward-mode tangent
+    (:func:`_has_tangent`; forward mode runs whatever grad mode says).
+    None entries are skipped."""
+    ts = [t for t in tensors if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return True
+    return any(_has_tangent(t) for t in ts)
+
+
 def no_grad_operands(name, *tensors):
-    """Raise if autograd would record a call of the kernel `name` on
-    `tensors`: grad mode on and an operand that requires grad.  For the
-    CUDA branch of a wrapper whose kernel has no backward (its output is
-    written through a raw pointer, so the gradient would be lost without
-    a word, while the plain version on the CPU has one)."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    """Raise if a call of the kernel `name` on `tensors` would be
+    differentiated (:func:`differentiated`: grad mode on and an operand
+    that requires grad, or an operand with a forward-mode tangent).  For
+    the CUDA branch of a wrapper whose kernel has no derivative (its
+    output is written through a raw pointer, so the gradient or tangent
+    would be lost without a word, while the plain version on the CPU has
+    one)."""
+    if differentiated(*tensors):
         raise RuntimeError(
-            '%s: the CUDA kernel has no backward; call it under '
-            'torch.no_grad() or on operands that do not require grad'
-            % name)
+            '%s: the CUDA kernel has no backward and no forward-mode rule; '
+            'call it under torch.no_grad() on operands that carry no '
+            'tangent, or on operands that do not require grad' % name)
 
 
 def constant_operands(name, *tensors):
@@ -314,6 +387,16 @@ def constant_operands(name, *tensors):
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError('%s: tables and weights are constants, no '
                            'gradient flows to them' % name)
+
+
+def constant_tangents(name, *tangents):
+    """Raise if a forward-mode tangent reaches an operand that the
+    differentiable assembly holds constant (tables, weights): the
+    Function's ``jvp`` would drop it without a word (the counterpart of
+    :func:`constant_operands` for forward mode)."""
+    if any(t is not None for t in tangents):
+        raise RuntimeError('%s: tables and weights are constants, no '
+                           'tangent flows through them' % name)
 
 
 def loop_vmap(apply):
@@ -333,24 +416,20 @@ def loop_vmap(apply):
     return staticmethod(vmap)
 
 
-def _functorch_wrapped(t):
-    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+class Launch(torch.autograd.Function):
+    """``apply(fn, *args)``: ``fn(*args)``, a raw kernel launch (a ctypes
+    call, which ``torch.func.vmap`` cannot trace), with a ``vmap`` rule
+    that calls it once a member of the batch.  The rules of the
+    differentiable Functions launch their kernels through it (K1-jvp,
+    K1-hvp, K5's tangent and second-order programs, the Krylov solve of
+    ``diff.implicit_cg_solve``); it has no derivative of its own."""
 
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
 
-def no_double_backward(name, *tensors):
-    """The guard of a backward kernel's wrapper: :func:`no_grad_operands`
-    on the operands that autograd records directly.  An operand wrapped by
-    a ``torch.func`` transform (``grad``, ``vjp``, ``jacrev``: they always
-    record the backward pass) is left to the Function the wrapper
-    launches through, whose own backward raises (:func:`refuse_backward`)
-    if a second derivative is ever asked of it."""
-    no_grad_operands(name, *(t for t in tensors
-                             if t is not None and not _functorch_wrapped(t)))
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
-
-def refuse_backward(name):
-    """Raise as a backward kernel's Function does when autograd asks for
-    its own backward (a second derivative through the assembly on the
-    card; the plain versions on the CPU have one)."""
-    raise RuntimeError('%s: the CUDA kernel has no backward; a second '
-                       'derivative through it runs on the CPU only' % name)
+    vmap = loop_vmap(lambda *a: Launch.apply(*a))

@@ -21,9 +21,16 @@ fields enter in float32, every kernel runs its float32 instance (the
 backward kernels and K5's adjoint too), and the gradient comes back in
 the dtype of the tensor the caller passed, as ``jax.grad`` gives it.  ``torch.func.vmap`` over a stack of
 coefficient arrays equals the loop (the kernels' rules loop over the
-batch).  Jacobians run in reverse mode, row by row
-(``torch.autograd.functional.jacobian(..., vectorize=False)``); forward
-mode through the kernels is not supported.
+batch).  Forward mode and second derivatives run on the card too, as the
+JAX package's ``jax.jvp`` / ``jax.jacfwd`` / ``jax.hessian`` through its
+XLA forms: every kernel Function has a ``jvp`` (K2 and K3 on the
+tangents, K1-jvp, K5's generated tangent program) and every backward
+kernel a ``jvp`` and a ``backward`` of its own (K1-hvp and K1-jvp for
+K1-bwd, K2-bwd and K3 for K2-/K3-bwd, K5's generated second-order
+program and its tangent program for its adjoint), so ``torch.func.jvp``,
+``torch.func.jacfwd`` (``vmap`` of ``jvp``), ``torch.func.hessian``,
+forward over reverse, ``create_graph`` and ``torch.autograd.forward_ad``
+dual tensors go through the kernels, in float64 and in float32.
 
 The tables, Gauss weights and quadrature grids are fixed at the
 assembler's construction and are constants: asking a gradient of one
@@ -40,8 +47,9 @@ operator, as ``jax.lax.custom_linear_solve(symmetric=True)``.
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
-from . import geometry
+from . import _cuda, geometry
 from .assemblers import BaseGaussAssembler
 from .compile import VFormAssembler, check_mode
 from .config import get_dtype
@@ -54,20 +62,76 @@ __all__ = ['assembly_coeff_fn', 'assembly_input_fn', 'implicit_cg_solve',
 
 
 class _AdjointSolve(torch.autograd.Function):
-    """``apply(r, solve)``: zeros of `r`'s shape whose backward is the
-    adjoint solve ``solve(g)`` (the operator is symmetric)."""
+    """``apply(r, solve, again, cell)``: zeros of `r`'s shape whose
+    backward is the adjoint solve ``again(g)`` (the operator is symmetric;
+    `again` is :func:`implicit_cg_solve` itself, so a second derivative
+    flows through it).  Its ``jvp`` is zero: the residual it is applied to
+    is formed from :class:`_Tangent`'s solution, whose tangent makes the
+    residual's vanish.  The backward marks `cell` for that
+    :class:`_Tangent`: the pass is a first-order one."""
 
     @staticmethod
-    def forward(r, solve):
+    def forward(r, solve, again, cell):
         return torch.zeros_like(r)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.solve = inputs[1]
+        ctx.again, ctx.cell = inputs[2], inputs[3]
+        ctx.set_materialize_grads(False)   # None: no tangent
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.solve(g), None
+        ctx.cell['first'] = True
+        return ctx.again(g), None, None, None
+
+    @staticmethod
+    def jvp(ctx, dr, _solve, _again, _cell):
+        return torch.zeros_like(dr)
+
+    vmap = _cuda.loop_vmap(lambda *a: _AdjointSolve.apply(*a))
+
+
+class _Tangent(torch.autograd.Function):
+    """``apply(r, solve, again, cell)``: zeros of `r`'s shape whose
+    ``jvp`` is the solve of the residual's tangent, ``solve(dr) = A^-1
+    (db - (dA) x*)`` (one solve, as ``custom_linear_solve``'s JVP: through
+    :class:`~pyiga_tpu_torch._cuda.Launch`, once a member of a ``vmap``
+    batch), so that ``x* + apply(b - A x*)`` carries the solution's
+    tangent.  In a first-order
+    backward pass (`cell` marked by :class:`_AdjointSolve`) its cotangent
+    is ``g - A lambda``, zero up to the adjoint solve's tolerance, and it
+    returns none; in a later pass (reverse over reverse) it returns
+    ``again(u)``: the solution's dependence on the operator, the term of
+    the second derivative that a solution without history would drop."""
+
+    @staticmethod
+    def forward(r, solve, again, cell):
+        return torch.zeros_like(r)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.solve, ctx.again, ctx.cell = inputs[1], inputs[2], inputs[3]
+        ctx.set_materialize_grads(False)   # None: no tangent
+
+    @staticmethod
+    def backward(ctx, u):
+        if ctx.cell.pop('first', False):
+            return None, None, None, None
+        return ctx.again(u), None, None, None
+
+    @staticmethod
+    def jvp(ctx, dr, _solve, _again, _cell):
+        return ctx.solve(dr)
+
+    vmap = _cuda.loop_vmap(lambda *a: _Tangent.apply(*a))
+
+
+def _forward_mode():
+    """Whether forward mode may be running: a dual level of
+    ``torch.autograd.forward_ad`` or a ``torch.func`` transform (whose
+    tangents need not require grad, whatever grad mode says)."""
+    return (forward_ad._current_level >= 0
+            or torch._C._functorch.peek_interpreter_stack() is not None)
 
 
 def implicit_cg_solve(matvec, b, tol=1e-12, maxiter=None, precond=None):
@@ -80,29 +144,43 @@ def implicit_cg_solve(matvec, b, tol=1e-12, maxiter=None, precond=None):
     with ``symmetric=True`` does in the JAX package.
 
     `matvec` may close over differentiable tensors (e.g. the assembled
-    data tensor from :func:`assembly_coeff_fn`): the result is ``x* +
-    Z(b - A x*)`` with ``x*`` the solve (no history) and ``Z`` a Function
-    whose value is zero and whose backward is the adjoint solve ``lambda
-    = A^-1 g``, so the value is exactly ``x*``, `b` receives ``lambda``
-    and the operator's tensors ``-lambda^T (dA) x*``.  `precond`
-    (optional SPD preconditioner apply) serves both solves; `maxiter`
-    defaults to ``10 * b.numel()``."""
+    data tensor from :func:`assembly_coeff_fn`): with ``x*`` the solve
+    (no history), ``x~ = x* + T(b - A x*)`` and the result ``x~ + Z(b - A
+    x~)``, where ``T`` and ``Z`` are Functions whose values are zero:
+    ``T``'s tangent is the solve of its input's, ``A^-1 (db - (dA) x*)``
+    (one solve, as ``custom_linear_solve``'s JVP: forward mode,
+    ``torch.func.jvp`` / ``jacfwd`` and ``torch.autograd.forward_ad``),
+    and ``Z``'s backward is the adjoint solve ``lambda = A^-1 g`` (one
+    solve), so the value is exactly ``x*``, `b` receives ``lambda`` and
+    the operator's tensors ``-lambda^T (dA) x*``.  The adjoint solve is
+    this function again and ``x~`` carries the solution's dependence, so
+    second derivatives (``torch.func.hessian``, forward over reverse,
+    ``create_graph``) flow through it; the two residuals cost two
+    matvecs.  `precond` (optional SPD preconditioner apply) serves every
+    solve; `maxiter` defaults to ``10 * b.numel()``."""
     if maxiter is None:
         maxiter = 10 * b.numel()     # total system size, not the last axis
 
-    def solve(rhs):
+    def cg_solve(rhs):
+        return cg(matvec, rhs, tol=tol, maxiter=maxiter, precond=precond)[0]
+
+    def solve(rhs):         # no history; once a member of a vmap batch
         with torch.no_grad():
-            x, _it = cg(matvec, rhs.detach(), tol=tol, maxiter=maxiter,
-                        precond=precond)
-        return x
+            return _cuda.Launch.apply(cg_solve, rhs.detach())
+
+    def again(rhs):
+        return implicit_cg_solve(matvec, rhs, tol, maxiter, precond)
 
     x = solve(b)
-    if not torch.is_grad_enabled():
+    if not (torch.is_grad_enabled() or _forward_mode()):
         return x
     r = b - matvec(x)
-    if not r.requires_grad:
+    # a tangent need not require grad: the guard sees both modes
+    if not _cuda.differentiated(r):
         return x
-    return x + _AdjointSolve.apply(r, solve)
+    cell = {}
+    x = x + _Tangent.apply(r, solve, again, cell)
+    return x + _AdjointSolve.apply(b - matvec(x), solve, again, cell)
 
 
 def user_coeffs_to_internal(coeffs, is_nurbs, sdim):

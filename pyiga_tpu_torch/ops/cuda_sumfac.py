@@ -27,16 +27,23 @@ The kernels (sources in ``csrc/fields.cu`` for K1 and K1',
 * K2-bwd / K3-bwd :func:`stage_bwd`, :func:`fold_bwd` — the backward of
   a stage for one or all of a fold's distinct tables in one launch
   (no Pallas site: the JAX package differentiates the XLA forms);
+* K1-jvp :func:`fields_jvp` and K1-hvp :func:`fields_hvp` (sources
+  ``csrc/fields_jvp.cu``, ``csrc/fields_jvp_f32.cu``,
+  ``csrc/fields_hvp.cu``, K1's templates in ``csrc/fields.cuh``) — the
+  tangent of K1 and of its backward, for
+  forward mode and second derivatives (the JAX package runs ``jax.jvp``
+  and ``jax.hessian`` through K1's XLA form);
 * K8 :func:`windowed_stage` and K8f :func:`windowed_fold` (source
   ``csrc/windowed.cu``) — the windowed route's stage and its folded
   final stage over support windows, and :func:`assemble_terms_windowed`
   on them (no Pallas site: the JAX package runs that route in XLA).
 
-K1 (all three kinds), K1', K2, K3, K8, K8f and the backward kernels
-(K1-bwd, K2-bwd / K3-bwd) also take float32 (the f32 line,
+K1 (all three kinds), K1', K2, K3, K8, K8f, the backward kernels
+(K1-bwd, K2-bwd / K3-bwd), K1-jvp and K1-hvp also take float32 (the f32 line,
 :func:`~pyiga_tpu_torch.config.set_dtype`): a float32 CUDA tensor
-launches their float32 instances (``csrc/fields.cu`` and
-``csrc/windowed.cu`` templated on the scalar, ``csrc/sumfac_f32.cu``),
+launches their float32 instances (``csrc/fields.cuh`` and
+``csrc/windowed.cu`` templated on the scalar, K1's and K1-bwd's float32
+entries in ``csrc/fields_f32.cu``; ``csrc/sumfac_f32.cu``),
 which compute in float32 throughout.  K7 is float64 only; it raises on
 float32 on every device, and :func:`chain_folded` never routes float32
 to it (the JAX package's f32 line runs no fused tail either).
@@ -237,6 +244,8 @@ class _GeoFields(torch.autograd.Function):
         kind, Y, T, w12, wL, nurbs = inputs
         ctx.kind, ctx.nurbs = kind, nurbs
         ctx.save_for_backward(Y, T, w12, wL)
+        ctx.save_for_forward(Y, T, w12, wL)
+        ctx.set_materialize_grads(False)   # None: no tangent
 
     @staticmethod
     def backward(ctx, g):
@@ -244,6 +253,12 @@ class _GeoFields(torch.autograd.Function):
         gY = (fields_bwd(ctx.kind, Y, T, w12, wL, ctx.nurbs, g)
               if ctx.needs_input_grad[1] else None)
         return None, gY, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, _kind, dY, dT, dw12, dwL, _nurbs):
+        _cuda.constant_tangents('fields', dT, dw12, dwL)
+        Y, T, w12, wL = ctx.saved_tensors
+        return fields_jvp(ctx.kind, Y, T, w12, wL, ctx.nurbs, dY)
 
     vmap = _cuda.loop_vmap(lambda *a: _GeoFields.apply(*a))
 
@@ -485,21 +500,24 @@ def fields_bwd(kind, Y, T, w12, wL, nurbs, g):
     counter = _FIELD_KINDS[kind][2]
     if Y.dtype == torch.float32:
         counter += '_f32'
-    _cuda.no_double_backward(counter, Y, g)
-    if kind == 'jac':
-        d, G, Q12, QL, nL = _check_jac_args(counter, Y, T, nurbs)
-        shape = (G + G * d, Q12, QL)
-    else:
-        d, Q12, QL, nL = _check_fields_args(counter, Y, T, w12, wL, nurbs)
-        shape = ((d * (d + 1) // 2, Q12, QL) if kind == 'stiffness'
-                 else (Q12, QL))
-        G = d
+    _cuda.constant_operands(counter, T, w12, wL)
+    dims, shape = _fields_dims(counter, kind, Y, T, w12, wL, nurbs)
     if g.shape != shape or g.device != Y.device:
         raise ValueError('%s: gradient %s on %s, expected %s on %s'
                          % (counter, tuple(g.shape), g.device, shape,
                             Y.device))
-    return _FieldsBwd.apply(kind, (d, G, Q12, QL, nL), Y, T, w12, wL, nurbs,
-                            g)
+    return _FieldsBwd.apply(kind, dims, Y, T, w12, wL, nurbs, g)
+
+
+def _fields_dims(name, kind, Y, T, w12, wL, nurbs):
+    """K1's sizes ``(d, G, Q12, QL, nL)`` for `kind`'s operands (checked)
+    and the shape of its output."""
+    if kind == 'jac':
+        d, G, Q12, QL, nL = _check_jac_args(name, Y, T, nurbs)
+        return (d, G, Q12, QL, nL), (G + G * d, Q12, QL)
+    d, Q12, QL, nL = _check_fields_args(name, Y, T, w12, wL, nurbs)
+    shape = (d * (d + 1) // 2, Q12, QL) if kind == 'stiffness' else (Q12, QL)
+    return (d, d, Q12, QL, nL), shape
 
 
 def _fields_bwd_kernel(kind, dims, Y, T, w12, wL, nurbs, g):
@@ -528,9 +546,14 @@ def _fields_bwd_kernel(kind, dims, Y, T, w12, wL, nurbs, g):
 
 
 class _FieldsBwd(torch.autograd.Function):
-    """K1's backward kernel as a Function of its operands: a ``vmap``
-    rule that launches it once a member of the batch, and no backward of
-    its own."""
+    """K1's backward kernel as a Function of its operands ``apply(kind,
+    dims, Y, T, w12, wL, nurbs, g)``, with a ``vmap`` rule that launches
+    it once a member of the batch.  It is linear in `g`, and ``<g,
+    K1(Y)>`` has a symmetric Hessian in `Y`, so K1-hvp (:func:`
+    fields_hvp`) and K1-jvp (:func:`fields_jvp`) give both its rules:
+    ``jvp(dY, dg) = K1-bwd(Y, dg) + K1-hvp(Y, g, dY)``, and a cotangent
+    `u` of its output goes back as ``K1-hvp(Y, g, u)`` to `Y` and
+    ``K1-jvp(Y, u)`` to `g` (reverse over reverse)."""
 
     @staticmethod
     def forward(kind, dims, Y, T, w12, wL, nurbs, g):
@@ -538,13 +561,164 @@ class _FieldsBwd(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.kind = inputs[0]
+        kind, dims, Y, T, w12, wL, nurbs, g = inputs
+        ctx.kind, ctx.dims, ctx.nurbs = kind, dims, nurbs
+        ctx.save_for_backward(Y, T, w12, wL, g)
+        ctx.save_for_forward(Y, T, w12, wL, g)
+        ctx.set_materialize_grads(False)   # None: no tangent
 
     @staticmethod
-    def backward(ctx, gg):
-        _cuda.refuse_backward(_FIELD_KINDS[ctx.kind][2])
+    def backward(ctx, u):
+        Y, T, w12, wL, g = ctx.saved_tensors
+        _cuda.constant_operands(_FIELD_KINDS[ctx.kind][2], T, w12, wL)
+        u = u.contiguous()
+        args = (ctx.kind, ctx.dims, Y, T, w12, wL, ctx.nurbs, u)
+        gY = (_cuda.Launch.apply(_fields_ad_kernel, 'hvp', *args, g)
+              if ctx.needs_input_grad[2] else None)
+        gg = (_cuda.Launch.apply(_fields_ad_kernel, 'jvp', *args)
+              if ctx.needs_input_grad[7] else None)
+        return None, None, gY, None, None, None, None, gg
+
+    @staticmethod
+    def jvp(ctx, _kind, _dims, dY, dT, dw12, dwL, _nurbs, dg):
+        _cuda.constant_tangents(_FIELD_KINDS[ctx.kind][2], dT, dw12, dwL)
+        Y, T, w12, wL, g = ctx.saved_tensors
+        out = None
+        if dg is not None:
+            out = _FieldsBwd.apply(ctx.kind, ctx.dims, Y, T, w12, wL,
+                                   ctx.nurbs, dg.contiguous())
+        if dY is not None:
+            h = _cuda.Launch.apply(_fields_ad_kernel, 'hvp', ctx.kind,
+                                   ctx.dims, Y, T, w12, wL, ctx.nurbs,
+                                   dY.contiguous(), g)
+            out = h if out is None else out + h
+        return out
 
     vmap = _cuda.loop_vmap(lambda *a: _FieldsBwd.apply(*a))
+
+
+################################################################################
+# K1-jvp and K1-hvp: K1's tangent and the tangent of its backward
+################################################################################
+
+def _fields_shape(kind, Y, T, nurbs):
+    """The shape of K1's output of `kind` for the operands `Y`, `T`."""
+    d, C, Q12 = Y.shape[:3]
+    G, QL = C - int(bool(nurbs)), T.shape[1]
+    return {'stiffness': (d * (d + 1) // 2, Q12, QL), 'mass': (Q12, QL),
+            'jac': (G + G * d, Q12, QL)}[kind]
+
+
+def fields_jvp_plain(kind, Y, T, w12, wL, nurbs, dY):
+    """Plain PyTorch version of :func:`fields_jvp`.  K1-bwd's plain
+    formulas (:func:`_fields_vjp_plain`) are linear in the output's
+    gradient; their transpose (``torch.func.vjp`` in the gradient)
+    applied to `dY` is K1's tangent.  Reverse mode, so that it also runs
+    inside a ``torch.autograd.forward_ad`` dual level, where a nested
+    forward mode would not.  Float32 operands: every product in full
+    float32."""
+    g0 = torch.zeros(_fields_shape(kind, Y, T, nurbs), dtype=Y.dtype,
+                     device=Y.device)
+    with no_tf32(Y.dtype):          # the transpose's products too
+        _out, transpose = torch.func.vjp(
+            lambda g: _fields_vjp_plain(kind, Y, T, w12, wL, nurbs, g), g0)
+        return transpose(dY)[0]
+
+
+def fields_hvp_plain(kind, Y, T, w12, wL, nurbs, g, dY):
+    """Plain PyTorch version of :func:`fields_hvp`: ``torch.func.jvp`` of
+    K1-bwd's plain formulas (:func:`_fields_vjp_plain`, `g` held) at `Y`
+    along `dY`, forward over reverse as the kernel runs them; returns
+    ``(d, C, Q12, nL)``.  Float32 operands: every product in full
+    float32."""
+    with no_tf32(Y.dtype):          # the tangent's products too
+        return torch.func.jvp(
+            lambda y: _fields_vjp_plain(kind, y, T, w12, wL, nurbs, g),
+            (Y,), (dY,))[1]
+
+
+def _ad_counter(kind, mode, dtype):
+    """The launch counter of K1-jvp (`mode` 'jvp') or K1-hvp ('hvp') of
+    `kind`: ``fields_jvp``, ``mass_fields_hvp``, ... (``_f32`` for the
+    float32 instances)."""
+    name = '%s_%s' % (_FIELD_KINDS[kind][1], mode)
+    return name + '_f32' if dtype == torch.float32 else name
+
+
+def _fields_ad_kernel(mode, kind, dims, Y, T, w12, wL, nurbs, dY, g=None):
+    """One launch of K1-jvp (`mode` 'jvp': the tangent of K1's output, in
+    its layout) or K1-hvp ('hvp': the tangent of K1-bwd's ``gY`` for the
+    output gradient `g`, in `Y`'s layout) on CUDA tensors of the sizes
+    `dims` ``(d, G, Q12, QL, nL)``."""
+    code = _FIELD_KINDS[kind][0]
+    f32 = Y.dtype == torch.float32
+    dt = torch.float32 if f32 else torch.float64
+    counter = _ad_counter(kind, mode, dt)
+    d, G, Q12, QL, nL = dims
+    if kind == 'jac':
+        w12 = wL = torch.empty(0, dtype=dt, device=Y.device)
+    _cuda.require(dY, 'dY', dt, 4)
+    if dY.shape != Y.shape:
+        raise ValueError('%s: tangent %s, expected %s'
+                         % (counter, tuple(dY.shape), tuple(Y.shape)))
+    lib = _cuda.library()
+    sfx = 'f32' if f32 else 'f64'
+    if mode == 'jvp':
+        out = torch.empty(_fields_shape(kind, Y, T, nurbs), dtype=dt,
+                          device=Y.device)
+        ptrs = (dY.data_ptr(), out.data_ptr())
+        fn = getattr(lib, 'pyiga_fields_jvp_' + sfx)
+    else:
+        _cuda.require(g, 'g', dt, g.dim())
+        out = torch.empty_like(Y)
+        ptrs = (g.data_ptr(), dY.data_ptr(), out.data_ptr())
+        fn = getattr(lib, 'pyiga_fields_hvp_' + sfx)
+    with _cuda.device_of(Y):
+        err = fn(code, Y.data_ptr(), T.data_ptr(), w12.data_ptr(),
+                 wL.data_ptr(), *ptrs, d, G, int(bool(nurbs)), Q12, QL, nL,
+                 _cuda.stream_of(Y))
+    _cuda.check(err, counter)
+    _cuda.LAUNCHES[counter] += 1
+    return out
+
+
+def fields_jvp(kind, Y, T, w12, wL, nurbs, dY):
+    """K1-jvp: the tangent of K1's `kind` ('stiffness', 'mass' or 'jac';
+    ``w12``/``wL`` None for 'jac') at `Y` in the direction `dY` (Y's
+    shape), in K1's output layout.  On the card one launch of
+    ``geo_fields_jvp_kernel`` (``csrc/fields_jvp.cu``: K1's mapping and
+    per-point algebra on dual numbers, `Y` and `dY` contracted over the
+    last axis side by side), counted under ``fields_jvp``,
+    ``mass_fields_jvp`` or ``geo_jac_fields_jvp`` (``_f32`` for float32),
+    through :class:`~pyiga_tpu_torch._cuda.Launch`.  A CPU tensor runs
+    :func:`fields_jvp_plain`."""
+    dY = dY.contiguous()
+    if not _kernel_device(Y, 'fields_jvp'):
+        return fields_jvp_plain(kind, Y, T, w12, wL, nurbs, dY)
+    dims, _shape = _fields_dims(_ad_counter(kind, 'jvp', Y.dtype), kind, Y,
+                                T, w12, wL, nurbs)
+    return _cuda.Launch.apply(_fields_ad_kernel, 'jvp', kind, dims, Y, T,
+                              w12, wL, nurbs, dY)
+
+
+def fields_hvp(kind, Y, T, w12, wL, nurbs, g, dY):
+    """K1-hvp: the tangent of K1's backward :func:`fields_bwd` at `Y` in
+    the direction `dY` for a fixed output gradient `g` (the Hessian of
+    ``<g, K1(Y)>`` applied to `dY`), ``(d, C, Q12, nL)``.  On the card one
+    launch of ``geo_fields_hvp_kernel`` (``csrc/fields_hvp.cu``: K1-bwd's
+    team of lanes a row, its sums in registers and its fixed-order
+    butterfly, the point VJP on dual numbers: bitwise equal on a repeat),
+    counted under ``fields_hvp``, ``mass_fields_hvp`` or
+    ``geo_jac_fields_hvp`` (``_f32`` for float32), through
+    :class:`~pyiga_tpu_torch._cuda.Launch`.  A CPU tensor runs
+    :func:`fields_hvp_plain`."""
+    g, dY = g.contiguous(), dY.contiguous()
+    if not _kernel_device(Y, 'fields_hvp'):
+        return fields_hvp_plain(kind, Y, T, w12, wL, nurbs, g, dY)
+    dims, _shape = _fields_dims(_ad_counter(kind, 'hvp', Y.dtype), kind, Y,
+                                T, w12, wL, nurbs)
+    return _cuda.Launch.apply(_fields_ad_kernel, 'hvp', kind, dims, Y, T,
+                              w12, wL, nurbs, dY, g)
 
 
 ################################################################################
@@ -730,14 +904,17 @@ def stage_bwd(T, g, counter='stage_bwd'):
     _check_bwd_args(counter, [T], g)
     if not _kernel_device(g, counter):
         return stage_bwd_plain(T, g)
-    _cuda.no_double_backward(counter, T, g)
+    _cuda.constant_operands(counter, T)
     return _StageBwd.apply(counter, g, T)[0]
 
 
 class _StageBwd(torch.autograd.Function):
     """K2-bwd on CUDA tensors as a Function ``apply(counter, g,
-    *tables)`` -> ``(G, K, R)``: a ``vmap`` rule that launches it once a
-    member of the batch, and no backward of its own."""
+    *tables)`` -> ``(G, K, R)``, with a ``vmap`` rule that launches it
+    once a member of the batch.  It is linear in `g` (the tables are
+    constants): its ``jvp`` is K2-bwd on the tangent of `g`, and a
+    cotangent ``u (G, K, R)`` goes back to `g` as ``sum_i stage(u[i],
+    T_i)``, one K3 fold (reverse over reverse)."""
 
     @staticmethod
     def forward(counter, g, *tables):
@@ -746,16 +923,31 @@ class _StageBwd(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.counter = inputs[0]
+        ctx.save_for_backward(*inputs[2:])
+        ctx.save_for_forward(*inputs[2:])
+        ctx.set_materialize_grads(False)   # None: no tangent
 
     @staticmethod
-    def backward(ctx, gg):
-        _cuda.refuse_backward(ctx.counter)
+    def backward(ctx, u):
+        tables = ctx.saved_tensors
+        _cuda.constant_operands(ctx.counter, *tables)
+        gg = (fold(list(u.contiguous().unbind(0)), list(tables),
+                   list(range(len(tables))))
+              if ctx.needs_input_grad[1] else None)
+        return (None, gg) + (None,) * len(tables)
+
+    @staticmethod
+    def jvp(ctx, _counter, dg, *dtables):
+        _cuda.constant_tangents(ctx.counter, *dtables)
+        return _StageBwd.apply(ctx.counter, dg.contiguous(),
+                               *ctx.saved_tensors)
 
     vmap = _cuda.loop_vmap(lambda *a: _StageBwd.apply(*a))
 
 
 class _Stage(torch.autograd.Function):
-    """K2 as a function of the field `X`; saves only the table."""
+    """K2 as a function of the field `X`; saves only the table.  Linear
+    in `X`: its ``jvp`` is K2 on the tangent."""
 
     @staticmethod
     def forward(X, T):
@@ -766,11 +958,19 @@ class _Stage(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(inputs[1])
+        ctx.save_for_forward(inputs[1])
+        ctx.set_materialize_grads(False)   # None: no tangent
 
     @staticmethod
     def backward(ctx, g):
         T, = ctx.saved_tensors
         return (stage_bwd(T, g) if ctx.needs_input_grad[0] else None), None
+
+    @staticmethod
+    def jvp(ctx, dX, dT):
+        _cuda.constant_tangents('stage', dT)
+        T, = ctx.saved_tensors
+        return _Stage.apply(dX.contiguous(), T)
 
     vmap = _cuda.loop_vmap(lambda *a: _Stage.apply(*a))
 
@@ -883,7 +1083,7 @@ def fold_bwd(tables, term_idx, g, need=None):
     _check_bwd_args('fold_bwd', used, g)
     if not _kernel_device(g, 'fold_bwd'):
         return fold_bwd_plain(tables, term_idx, g, need)
-    _cuda.no_double_backward('fold_bwd', *used, g)
+    _cuda.constant_operands('fold_bwd', *used)
     return _fold_bwd_views(_StageBwd.apply('fold_bwd', g, *used), uniq,
                            term_idx, need)
 
@@ -892,7 +1092,9 @@ class _Fold(torch.autograd.Function):
     """K3 as a function of the terms' fields ``apply(term_idx, n_terms,
     *xs, *tables)``; saves only the tables.  Its backward
     (:func:`fold_bwd`) runs every distinct table whose terms need a
-    gradient in one launch and hands each term its table's view."""
+    gradient in one launch and hands each term its table's view.  Linear
+    in the fields: its ``jvp`` is K3 over the terms that have a tangent
+    (a term without one is left out of the fold)."""
 
     @staticmethod
     def forward(term_idx, n, *tensors):
@@ -905,6 +1107,8 @@ class _Fold(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         ctx.term_idx, n = inputs[0], inputs[1]
         ctx.save_for_backward(*inputs[2 + n:])
+        ctx.save_for_forward(*inputs[2 + n:])
+        ctx.set_materialize_grads(False)   # None: no tangent
 
     @staticmethod
     def backward(ctx, g):
@@ -912,6 +1116,16 @@ class _Fold(torch.autograd.Function):
         need = ctx.needs_input_grad[2:2 + len(ctx.term_idx)]
         return ((None, None) + tuple(fold_bwd(tables, ctx.term_idx, g, need))
                 + (None,) * len(tables))
+
+    @staticmethod
+    def jvp(ctx, _term_idx, _n, *dtensors):
+        n = len(ctx.term_idx)
+        _cuda.constant_tangents('fold', *dtensors[n:])
+        terms = [(dX.contiguous(), i) for dX, i in zip(dtensors[:n],
+                                                       ctx.term_idx)
+                 if dX is not None]
+        return _Fold.apply(tuple(i for _x, i in terms), len(terms),
+                           *(x for x, _i in terms), *ctx.saved_tensors)
 
     vmap = _cuda.loop_vmap(lambda *a: _Fold.apply(*a))
 
@@ -1522,12 +1736,12 @@ def chain_folded(term_tables, fields_, last_idx):
     :func:`tail_supported` take :func:`chain_tail_fused` (K7) instead of
     K2 stages + K3; a K7 kernel that fails to build or launch raises
     there.  Float32 chains always take K2 + K3, as the JAX package's f32
-    line runs no fused tail.  A chain that
-    autograd records (grad mode on and a field that requires grad) keeps
-    the two-call chain whatever the switch says: K7 has no backward."""
-    recorded = torch.is_grad_enabled() and any(
-        F is not None and F.requires_grad for F in fields_)
-    if not recorded and tail_supported(term_tables, fields_):
+    line runs no fused tail.  A chain that is differentiated (grad mode
+    on and a field that requires grad, or a field with a forward-mode
+    tangent: :func:`~pyiga_tpu_torch._cuda.differentiated`) keeps the
+    two-call chain whatever the switch says: K7 has no derivative."""
+    if not _cuda.differentiated(*fields_) \
+            and tail_supported(term_tables, fields_):
         return chain_tail_fused(term_tables, fields_)
     flats, shape_mid = [], None
     for tabs, F in zip(term_tables, fields_):

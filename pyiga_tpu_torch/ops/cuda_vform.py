@@ -31,6 +31,15 @@ vector (:func:`param_vector`, cached with its device operands), each at a
 slot baked into the source; the slots depend on the parameters' shapes
 only, so new parameter values never rebuild.
 
+Forward mode and second derivatives (:func:`tangent_program`,
+:class:`SecondOrderProgram`): the forward sweep of forward mode over a
+program's SSA gives its tangent program, and over its adjoint's SSA the
+second-order program (the Hessian of ``<gout, F>`` applied to the
+tangents), one pair per form and tangent mask (which sources, and the
+parameters, have a tangent), emitted and launched as the program and its
+adjoint are; they give ``_ComboFields`` its ``jvp`` and the adjoint's
+Function its ``jvp`` and ``backward``.
+
 The f32 line (:func:`~pyiga_tpu_torch.config.set_dtype`) runs a float32
 instance of the same program (:attr:`Program.dtype`): float pointers,
 loads, temporaries and ``f``-suffixed constants, the float functions
@@ -78,8 +87,8 @@ from .. import _cuda
 from . import geom
 
 _BINARY = {'add': '+', 'sub': '-', 'mul': '*', 'div': '/'}
-# 'sign' (torch.sign: 0 at 0) occurs only in adjoint programs: the
-# derivative of abs
+# 'sign' (torch.sign: 0 at 0) occurs only in the adjoint, tangent and
+# second-order programs: the derivative of abs
 _C_FUNCS = {'sqrt': 'sqrt', 'exp': 'exp', 'log': 'log', 'sin': 'sin',
             'cos': 'cos', 'tan': 'tan', 'abs': 'fabs', 'sign': 'pyiga_sign'}
 # the float32 instance's: the float functions of CUDA's math library (a
@@ -93,6 +102,11 @@ _CTYPES = {torch.float64: 'double', torch.float32: 'float'}
 _LIBNAMES = {torch.float64: 'vform_fields', torch.float32: 'vform_fields_f32'}
 _ADJ_LIBNAMES = {torch.float64: 'vform_adjoint',
                  torch.float32: 'vform_adjoint_f32'}
+# ... and of the tangent program and the second-order adjoint
+_TAN_LIBNAMES = {torch.float64: 'vform_tangent',
+                 torch.float32: 'vform_tangent_f32'}
+_SECOND_LIBNAMES = {torch.float64: 'vform_second',
+                    torch.float32: 'vform_second_f32'}
 _TORCH_OPS = {
     'add': lambda a, b: a + b, 'sub': lambda a, b: a - b,
     'mul': lambda a, b: a * b, 'div': lambda a, b: a / b,
@@ -305,9 +319,14 @@ class Program:
             if sr is not None:
                 self._rows[sr[0]] = max(self._rows[sr[0]], sr[1] + 1)
         self.param_slots = [param_slot[k] for k in params]
+        # the operand its parameter pointer reads (a tangent program reads
+        # the parameters and their tangents concatenated)
+        self.param_key = 'params'
         self._source = None
         self._entry = None
         self._adjoint = None
+        self._tangents = {}
+        self._seconds = {}
 
     def adjoint(self):
         """The program's :class:`AdjointProgram` (built on the first
@@ -315,6 +334,36 @@ class Program:
         if self._adjoint is None:
             self._adjoint = AdjointProgram(self)
         return self._adjoint
+
+    def tangent(self, mask):
+        """The program's tangent :class:`Program` for the tangents
+        `mask` (per source, then the parameters: whether it has one; built
+        on the first call per mask, then kept): :func:`tangent_program`."""
+        if mask not in self._tangents:
+            self._tangents[mask] = tangent_program(self, mask)
+        return self._tangents[mask]
+
+    def second(self, mask):
+        """The program's :class:`SecondOrderProgram` for the tangents
+        `mask` (as :meth:`tangent`'s; kept per mask)."""
+        if mask not in self._seconds:
+            self._seconds[mask] = SecondOrderProgram(self, mask)
+        return self._seconds[mask]
+
+    def launch(self, arrays):
+        """Run the program's kernel on CUDA tensors (`arrays` as
+        :meth:`operands` takes them): one allocation of the ``(n_combos,)
+        + grid`` output, one ctypes call; returns the output."""
+        W = arrays['weights']
+        out = W[0].new_empty((len(self.outputs),)
+                             + tuple(w.shape[0] for w in W))
+        argv = self.arguments(arrays, out, _cuda.stream_of(out))
+        fn = self.entry()
+        with _cuda.device_of(out):
+            err = fn(*argv)
+        _cuda.check(err, self.counter)
+        _cuda.LAUNCHES[self.counter] += 1
+        return out
 
     @property
     def source(self):
@@ -350,7 +399,7 @@ class Program:
         N = Q12 * QL
         ops = W + [gout if k == 'gout' else arrays[k] for k in self.sources]
         if self.params:
-            ops.append(arrays['params'])
+            ops.append(arrays[self.param_key])
         for i, t in enumerate(ops):
             if t.dtype != self.dtype or t.device != dev \
                     or not t.is_contiguous():
@@ -613,6 +662,12 @@ def _declare(ptrs, writes, indent, restrict=True, ctype='double'):
         + ''.join('%s*%s %s%s' % (ctype, q, x, sep) for x in writes)
 
 
+def _sign(T):
+    """``pyiga_sign`` in the scalar `T` (``double`` or ``float``)."""
+    zero, one = ('0.0f', '1.0f') if T == 'float' else ('0.0', '1.0')
+    return _SIGN % dict(T=T, zero=zero, one=one)
+
+
 def emit_cuda(program):
     """CUDA C source of `program`: ``vform_fields_kernel`` and its C entry
     ``pyiga_vform_fields(w0, .., s0, .., [p,] out, Q12, QL, Q1, stream)``
@@ -629,7 +684,7 @@ def emit_cuda(program):
     return _SOURCE % dict(
         n_leaves=len(program.leaves), n_src=len(program.sources),
         n_params=len(program.params), n_out=len(program.outputs),
-        dim=program.dim, shape=_SHAPE, T=T,
+        dim=program.dim, shape=_SHAPE, T=T, sign=_sign(T),
         kargs=_declare(ptrs, [], 20, ctype=T),
         cargs=_declare(ptrs, [], 23, False, ctype=T),
         names=''.join('%s, ' % x for x in ptrs),
@@ -698,6 +753,14 @@ _MAPPED = """\
     }
 """
 
+# sign(x) as torch.sign (0 at 0), the derivative of abs: in the adjoint,
+# tangent and second-order programs
+_SIGN = """\
+__device__ __forceinline__ %(T)s pyiga_sign(%(T)s x) {
+    return x > %(zero)s ? %(one)s : (x < %(zero)s ? -%(one)s : x);
+}
+"""
+
 _SOURCE = """\
 // Coefficient fields of one variational form (kernel K5 of
 // pyiga_tpu_torch, generated by ops/cuda_vform.py), in %(T)s.
@@ -706,7 +769,7 @@ _SOURCE = """\
 #include <cuda_runtime.h>
 
 %(shape)s
-extern "C" __global__ void __launch_bounds__(256)
+%(sign)sextern "C" __global__ void __launch_bounds__(256)
 vform_fields_kernel(%(kargs)s%(T)s* __restrict__ out,
                     int Q12, int QL, int Q1, int RB, int by_rows) {
     const long long N = (long long)Q12 * QL;
@@ -735,7 +798,7 @@ def run_program_plain(program, arrays):
     srcs = [arrays[key].reshape(-1, N) for key in program.sources]
     leaves = [gw if src is None else srcs[src[0]][src[1]]
               for src in program.leaf_src]
-    params = [arrays['params'][s] for s in program.param_slots]
+    params = [arrays[program.param_key][s] for s in program.param_slots]
     tmps = []
 
     def get(a):
@@ -827,6 +890,152 @@ def _adjoint_sweep(program, rec):
     return bar, gouts
 
 
+def _tangent_rule(rec, name, x, dx, t):
+    """The tangent of one SSA instruction ``t = name(*x)`` from the
+    tangents `dx` of its arguments (a float 0.0 where none reaches), each
+    as torch's forward mode defines it; the recorder folds the zero
+    terms away."""
+    if all(isinstance(v, float) and v == 0.0 for v in dx):
+        return 0.0
+    d0 = dx[0]
+    if name == 'add':
+        return d0 + dx[1]
+    if name == 'sub':
+        return d0 - dx[1]
+    if name == 'mul':
+        return d0 * x[1] + x[0] * dx[1]
+    if name == 'div':
+        return (d0 - t * dx[1]) / x[1]
+    if name == 'neg':
+        return -d0
+    if name == 'sqrt':
+        return d0 / (2.0 * t)
+    if name == 'exp':
+        return d0 * t
+    if name == 'log':
+        return d0 / x[0]
+    if name == 'sin':
+        return d0 * rec.op('cos', x[0])
+    if name == 'cos':
+        return -(d0 * rec.op('sin', x[0]))
+    if name == 'tan':
+        return d0 * (1.0 + t * t)
+    if name == 'abs':
+        return d0 * rec.op('sign', x[0])
+    if name == 'sign':
+        return 0.0
+    raise NotImplementedError('no tangent rule for %r' % name)
+
+
+def _tangent_sweep(program, rec, tan_sources, tan_params):
+    """Replay `program`'s instructions on `rec` with their tangents (the
+    forward sweep of forward mode).  A leaf read from a source in
+    `tan_sources` has the tangent leaf ``('tan', key)``, read from that
+    source's tangent ``tan:<source>`` at its row; with `tan_params` a
+    parameter ``key`` has the tangent parameter ``('tan', key)``.
+    Returns ``dget``: the tangent of an argument of the program (a ref or
+    a float)."""
+    leaves = [rec.leaf(key) for key in program.leaves]
+    params = [rec.param(key) for key in program.params]
+    dleaves = [rec.leaf(('tan', key))
+               if src is not None and program.sources[src[0]] in tan_sources
+               else 0.0 for key, src in zip(program.leaves, program.leaf_src)]
+    dparams = [rec.param(('tan', key)) if tan_params else 0.0
+               for key in program.params]
+    tmps, dtmps = [], []
+    refs = {'l': leaves, 'p': params, 't': tmps}
+    drefs = {'l': dleaves, 'p': dparams, 't': dtmps}
+
+    def get(a):
+        return a if isinstance(a, float) else refs[a[0]][a[1]]
+
+    def dget(a):
+        return 0.0 if isinstance(a, float) else drefs[a[0]][a[1]]
+
+    for name, args in program.instrs:
+        x = [get(a) for a in args]
+        t = rec.op(name, *x)
+        tmps.append(t)
+        dtmps.append(_tangent_rule(rec, name, x, [dget(a) for a in args], t))
+    return dget
+
+
+def _mask_sources(program, mask):
+    """The sources and whether the parameters have a tangent, from a
+    tangent mask (per source of `program`, then the parameters)."""
+    if len(mask) != len(program.sources) + int(bool(program.params)):
+        raise ValueError('vform_tangent: mask %s does not fit a program of '
+                         '%d sources%s' % (mask, len(program.sources),
+                                           ' and parameters'
+                                           if program.params else ''))
+    tan_sources = {k for k, m in zip(program.sources, mask) if m}
+    return tan_sources, bool(program.params) and bool(mask[-1])
+
+
+def _tangent_locations(program, tan_sources, tan_params, n):
+    """``(leaf_loc, param_slot)`` of a program built on `program`'s leaves
+    and parameters and their tangents: a tangent leaf reads its source's
+    tangent ``tan:<source>`` at the leaf's row; the parameters and their
+    tangents are one vector, ``params+tan``, the tangent of slot ``s`` at
+    ``n + s`` (``n`` one past the largest slot the forward program reads:
+    :func:`tangent_operands`)."""
+    leaf_loc = {}
+    for key, src in zip(program.leaves, program.leaf_src):
+        if src is None:
+            continue
+        akey = program.sources[src[0]]
+        leaf_loc[key] = (akey, src[1])
+        if akey in tan_sources:
+            leaf_loc[('tan', key)] = ('tan:' + akey, src[1])
+    param_slot = dict(zip(program.params, program.param_slots))
+    if tan_params:
+        param_slot.update((('tan', k), n + s)
+                          for k, s in zip(program.params, program.param_slots))
+    return leaf_loc, param_slot
+
+
+def tangent_program(program, mask):
+    """The tangent of `program`'s fields for the tangents `mask` (per
+    source, then the parameters: whether it has one), as a
+    :class:`Program` of its own (K5's forward mode): the forward sweep of
+    forward mode over the program's SSA (:func:`_tangent_sweep`), with CSE
+    and the same constant folding, emitted by :func:`emit_cuda` with the
+    forward's mapping.  Its leaves are the forward's and the tangents of
+    those read from a source in the mask (``tan:<source>``); with the
+    parameters in the mask it reads ``params+tan``
+    (:func:`tangent_operands`).  Its outputs are the fields' tangents;
+    its launches count under ``vform_tangent`` (``_f32`` for float32)."""
+    tan_sources, tan_params = _mask_sources(program, mask)
+    rec = SSARecorder()
+    dget = _tangent_sweep(program, rec, tan_sources, tan_params)
+    leaf_loc, param_slot = _tangent_locations(
+        program, tan_sources, tan_params,
+        max(program.param_slots, default=-1) + 1)
+    prog = rec.finish([dget(o) for o in program.outputs], program.dim,
+                      leaf_loc, param_slot, program.dtype)
+    prog.counter = _TAN_LIBNAMES[program.dtype]
+    if tan_params:
+        prog.param_key = 'params+tan'
+    return prog
+
+
+def tangent_operands(program, mask, arrays, tangents):
+    """`arrays` (the operands of `program`'s kernel) with the tangents of
+    its tangent program for `mask`: ``tan:<source>`` for each source in
+    the mask and, with the parameters in it, ``params+tan`` (the
+    parameters the program reads, then their tangents).  `tangents` maps
+    a source key, or ``'params'``, to its tangent."""
+    tan_sources, tan_params = _mask_sources(program, mask)
+    out = dict(arrays)
+    for key in tan_sources:
+        out['tan:' + key] = tangents[key]
+    if tan_params:
+        n = max(program.param_slots) + 1
+        out['params+tan'] = torch.cat((arrays['params'][:n],
+                                       tangents['params'][:n]))
+    return out
+
+
 class AdjointProgram:
     """The adjoint of a :class:`Program`: for the gradient ``gout``
     ``(n_combos,) + grid`` of its output, the gradient of every source
@@ -877,12 +1086,15 @@ class AdjointProgram:
                     for key, src in zip(program.leaves, program.leaf_src)
                     if src is not None}
         leaf_loc.update({('gout', c): ('gout', c) for c in gouts})
-        self.program = rec.finish(
+        self._setup(program, rec.finish(
             list(rows.values()) + [v for _s, v in params], program.dim,
             leaf_loc, dict(zip(program.params, program.param_slots)),
-            program.dtype)
+            program.dtype), _ADJ_LIBNAMES[program.dtype])
+
+    def _setup(self, program, prog, counter):
+        self.forward, self.program = program, prog
         self.dtype = program.dtype
-        self.counter = _ADJ_LIBNAMES[program.dtype]
+        self.counter = counter
         self._source = None
         self._entry = None
         self._shape_fn = None
@@ -1000,10 +1212,6 @@ class AdjointProgram:
         writes) and the flat parameters' gradient (None without
         parameters), all written by the kernels: allocations and one
         ctypes call.  Raises on an operand the kernel does not take."""
-        fwd = self.forward
-        _cuda.no_grad_operands(                 # no double backward
-            self.counter, g, arrays.get('params'),
-            *(arrays[key] for key in fwd.sources))
         g = g.contiguous()
         outs = self.outputs(arrays)
         argv = self.arguments(arrays, g, outs, _cuda.stream_of(g))
@@ -1013,6 +1221,46 @@ class AdjointProgram:
         _cuda.check(err, self.counter)
         _cuda.LAUNCHES[self.counter] += 1
         return outs[0], outs[1]
+
+
+class SecondOrderProgram(AdjointProgram):
+    """The tangent of a program's adjoint for the tangents `mask` (per
+    source, then the parameters) with the output's gradient held: for
+    ``gout`` the Hessian of ``<gout, F>`` (F the program's fields as a
+    function of its sources and parameters) applied to the tangents, in
+    the adjoint's layout.  It is the forward mode of K5's backward
+    (forward over reverse) and, the Hessian being symmetric, the backward
+    of the adjoint with respect to its sources (reverse over reverse).
+
+    Built by the forward sweep of forward mode (:func:`_tangent_sweep`)
+    over the :class:`AdjointProgram`'s SSA, the ``gout`` leaves with no
+    tangent; its targets are the adjoint's rows and parameter slots whose
+    tangent does not fold to zero.  It is emitted and launched as the
+    adjoint is (:func:`emit_cuda_adjoint`: every row of every forward
+    source's result written, the parameter sums in the adjoint's fixed order,
+    no atomics), reading the tangents as :func:`tangent_program` does
+    (``tan:<source>``, ``params+tan``); its launches count under
+    ``vform_second`` (``_f32`` for float32)."""
+
+    def __init__(self, program, mask):
+        adj = program.adjoint()
+        tan_sources, tan_params = _mask_sources(program, mask)
+        rec = SSARecorder()
+        dget = _tangent_sweep(adj.program, rec, tan_sources, tan_params)
+        n_src = len(adj.src_targets)
+        outs = [dget(o) for o in adj.program.outputs]
+        keep = [i for i, o in enumerate(outs) if not isinstance(o, float)]
+        self.src_targets = [adj.src_targets[i] for i in keep if i < n_src]
+        self.param_targets = [adj.param_targets[i - n_src] for i in keep
+                              if i >= n_src]
+        leaf_loc, param_slot = _tangent_locations(
+            adj.program, tan_sources, tan_params,
+            max(program.param_slots, default=-1) + 1)
+        prog = rec.finish([outs[i] for i in keep], program.dim, leaf_loc,
+                          param_slot, program.dtype)
+        if tan_params:
+            prog.param_key = 'params+tan'
+        self._setup(program, prog, _SECOND_LIBNAMES[program.dtype])
 
 
 def emit_cuda_adjoint(adj):
@@ -1052,7 +1300,7 @@ def emit_cuda_adjoint(adj):
     rows = ''.join(', int R%d' % k for k in range(len(gptrs)))
     return _ADJ_SOURCE % dict(
         n_src=n_src, n_p=n_p, n_grad=len(gptrs), n_instrs=len(prog.instrs),
-        shape=_SHAPE, T=T, zero=zero, one=one,
+        shape=_SHAPE, T=T, zero=zero, one=one, sign=_sign(T),
         kargs=_declare(ptrs, gptrs + ['part'] * bool(n_p), 21, ctype=T),
         cargs=_declare(ptrs, gptrs + ['gp', 'part'] * has_p, 24, False,
                        ctype=T),
@@ -1135,10 +1383,7 @@ _ADJ_SOURCE = """\
 #include <cuda_runtime.h>
 
 %(shape)s
-__device__ __forceinline__ %(T)s pyiga_sign(%(T)s x) {
-    return x > %(zero)s ? %(one)s : (x < %(zero)s ? -%(one)s : x);
-}
-
+%(sign)s
 extern "C" __global__ void __launch_bounds__(256)
 vform_adjoint_kernel(%(kargs)sint Q12, int QL, int Q1, int RB, int by_rows%(rows)s) {
     const long long N = (long long)Q12 * QL;
@@ -1171,13 +1416,15 @@ int pyiga_vform_adjoint(%(cargs)sint Q12, int QL, int Q1, int RB, int NB%(rows)s
 """
 
 
-def run_adjoint_plain(program, arrays, g):
-    """Run `program`'s adjoint (:meth:`Program.adjoint`) with torch ops on
-    the kernel's operands (`arrays` as for :func:`run_program_plain`, `g`
-    the output's gradient ``(n_combos,) + grid``).  Returns ``(grads,
-    gparams)`` as :meth:`AdjointProgram.launch`: the plain version of
-    the adjoint kernel."""
-    adj = program.adjoint()
+def run_adjoint_plain(program, arrays, g, adj=None):
+    """Run `program`'s adjoint (:meth:`Program.adjoint`, or `adj`: a
+    :class:`SecondOrderProgram` of it, whose ``tan:*`` and ``params+tan``
+    operands `arrays` then holds) with torch ops on the kernel's operands
+    (`arrays` as for :func:`run_program_plain`, `g` the output's gradient
+    ``(n_combos,) + grid``).  Returns ``(grads, gparams)`` as
+    :meth:`AdjointProgram.launch`: the plain version of the adjoint (or
+    second-order) kernel."""
+    adj = program.adjoint() if adj is None else adj
     vals = run_program_plain(adj.program, dict(arrays, gout=g))
     N = vals.shape[1]
     grads = {key: torch.zeros_like(arrays[key]) for key in program.sources}
@@ -1191,48 +1438,107 @@ def run_adjoint_plain(program, arrays, g):
     return grads, gparams
 
 
+def run_tangent_plain(program, mask, arrays, tangents):
+    """The plain version of the tangent kernel: `program`'s tangent
+    program for `mask` run with torch ops (:func:`run_program_plain`) on
+    `arrays` and the `tangents` (:func:`tangent_operands`); returns
+    ``(n_combos, N)``."""
+    return run_program_plain(program.tangent(mask), tangent_operands(
+        program, mask, arrays, tangents))
+
+
+def run_second_plain(program, mask, arrays, g, tangents):
+    """The plain version of the second-order kernel: `program`'s
+    :class:`SecondOrderProgram` for `mask` run with torch ops
+    (:func:`run_adjoint_plain`); returns ``(grads, gparams)``."""
+    return run_adjoint_plain(program, tangent_operands(
+        program, mask, arrays, tangents), g, program.second(mask))
+
+
+def _on_card(t, name='vform_fields'):
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.is_cuda:
+        return True
+    if t.device.type == 'cpu':
+        return False
+    raise ValueError('%s: unsupported device %s' % (name, t.device))
+
+
+def _tangent_mask(program, n_w, dtensors):
+    """The tangent mask and the tangents present, from the tangents of a
+    Function's operands ``(*weights, *sources[, params])``."""
+    _cuda.constant_tangents(program.counter, *dtensors[:n_w])
+    rest = dtensors[n_w:]
+    mask = tuple(d is not None for d in rest)
+    return mask, [d.contiguous() for d in rest if d is not None]
+
+
+def _tangent_dict(program, mask, present):
+    """The tangents present as :func:`tangent_operands` takes them."""
+    keys = list(program.sources) + ['params'] * bool(program.params)
+    return dict(zip([k for k, m in zip(keys, mask) if m], present))
+
+
 class _ComboFields(torch.autograd.Function):
     """K5 on CUDA tensors as a function of the tensors its program reads:
     ``apply(program, n_weights, *weights, *sources[, params])`` ->
     ``(n_combos,) + grid``.  Its backward is the generated adjoint kernel
-    (:meth:`AdjointProgram.launch`); the Gauss weights are constants."""
+    (:meth:`AdjointProgram.launch`), its ``jvp`` the generated tangent
+    kernel (:func:`tangent_program`) on the tangents present; the Gauss
+    weights are constants."""
 
     @staticmethod
     def forward(program, n_w, *tensors):
-        arrays = _program_arrays(program, n_w, tensors)
-        W = arrays['weights']
-        out = W[0].new_empty((len(program.outputs),)
-                             + tuple(w.shape[0] for w in W))
-        argv = program.arguments(arrays, out, _cuda.stream_of(out))
-        fn = program.entry()
-        with _cuda.device_of(out):
-            err = fn(*argv)
-        _cuda.check(err, program.counter)
-        _cuda.LAUNCHES[program.counter] += 1
-        return out
+        return program.launch(_program_arrays(program, n_w, tensors))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.program, ctx.n_w = inputs[0], inputs[1]
         ctx.save_for_backward(*inputs[2:])
+        ctx.save_for_forward(*inputs[2:])
+        ctx.set_materialize_grads(False)   # None: no tangent
 
     @staticmethod
     def backward(ctx, g):
         program, n_w = ctx.program, ctx.n_w
         tensors = ctx.saved_tensors
-        adj = program.adjoint()
-        _cuda.no_double_backward(adj.counter, g, *tensors[n_w:])
         grads = _AdjointLaunch.apply(program, n_w, g.contiguous(), *tensors)
         return (None, None) + (None,) * n_w + tuple(grads)
 
+    @staticmethod
+    def jvp(ctx, _program, _n_w, *dtensors):
+        mask, present = _tangent_mask(ctx.program, ctx.n_w, dtensors)
+        return _cuda.Launch.apply(_tangent_launch, ctx.program, ctx.n_w,
+                                  mask, *ctx.saved_tensors, *present)
+
     vmap = _cuda.loop_vmap(lambda *a: _ComboFields.apply(*a))
+
+
+def _tangent_launch(program, n_w, mask, *tensors):
+    """K5's generated tangent kernel on CUDA tensors ``(*weights,
+    *sources[, params], *tangents)`` -> ``(n_combos,) + grid``:
+    `program`'s tangent program for `mask`, the tangents those the mask
+    names, in order (launched through :class:`~pyiga_tpu_torch._cuda.
+    Launch`, once a member of a ``vmap`` batch)."""
+    n = n_w + len(program.sources) + int(bool(program.params))
+    arrays = tangent_operands(
+        program, mask, _program_arrays(program, n_w, tensors[:n]),
+        _tangent_dict(program, mask, tensors[n:]))
+    return program.tangent(mask).launch(arrays)
 
 
 class _AdjointLaunch(torch.autograd.Function):
     """K5's adjoint kernel as a Function ``apply(program, n_weights, g,
     *weights, *sources[, params])`` -> the gradients of the sources (and
-    of ``params``) in :func:`_program_arrays` order: a ``vmap`` rule that
-    launches it once a member of the batch, and no backward of its own."""
+    of ``params``) in :func:`_program_arrays` order, with a ``vmap`` rule
+    that launches it once a member of the batch.  It is linear in `g`,
+    and ``<g, F>`` has a symmetric Hessian in the sources and parameters,
+    so the tangent and second-order kernels give both its rules: ``jvp``
+    is the adjoint on the tangent of `g` plus the second-order kernel
+    (:class:`SecondOrderProgram`) on the other tangents, and a cotangent
+    `u` of its outputs goes back as the tangent kernel on `u` to `g` and
+    the second-order kernel on `u` to the sources (reverse over
+    reverse)."""
 
     @staticmethod
     def forward(program, n_w, g, *tensors):
@@ -1243,13 +1549,59 @@ class _AdjointLaunch(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.counter = inputs[0].adjoint().counter
+        ctx.program, ctx.n_w = inputs[0], inputs[1]
+        ctx.save_for_backward(*inputs[2:])
+        ctx.save_for_forward(*inputs[2:])
+        ctx.set_materialize_grads(False)   # None: no tangent
 
     @staticmethod
-    def backward(ctx, *gg):
-        _cuda.refuse_backward(ctx.counter)
+    def backward(ctx, *uu):
+        program, n_w = ctx.program, ctx.n_w
+        g, *tensors = ctx.saved_tensors
+        _cuda.constant_operands(program.adjoint().counter, *tensors[:n_w])
+        mask = tuple(u is not None for u in uu)
+        present = [u.contiguous() for u in uu if u is not None]
+        gg = gs = None
+        if any(mask) and ctx.needs_input_grad[2]:
+            gg = _cuda.Launch.apply(_tangent_launch, program, n_w, mask,
+                                    *tensors, *present)
+        if any(mask) and any(ctx.needs_input_grad[3 + n_w:]):
+            gs = _cuda.Launch.apply(_second_launch, program, n_w, mask, g,
+                                    *tensors, *present)
+        return ((None, None, gg) + (None,) * n_w
+                + (tuple(gs) if gs is not None
+                   else (None,) * (len(tensors) - n_w)))
+
+    @staticmethod
+    def jvp(ctx, _program, _n_w, dg, *dtensors):
+        program, n_w = ctx.program, ctx.n_w
+        g, *tensors = ctx.saved_tensors
+        mask, present = _tangent_mask(program, n_w, dtensors)
+        out = None
+        if dg is not None:
+            out = _AdjointLaunch.apply(program, n_w, dg.contiguous(),
+                                       *tensors)
+        if any(mask):
+            s = _cuda.Launch.apply(_second_launch, program, n_w, mask, g,
+                                   *tensors, *present)
+            out = s if out is None else tuple(a + b for a, b in zip(out, s))
+        return out
 
     vmap = _cuda.loop_vmap(lambda *a: _AdjointLaunch.apply(*a))
+
+
+def _second_launch(program, n_w, mask, g, *tensors):
+    """K5's generated second-order kernel (:class:`SecondOrderProgram`) on
+    CUDA tensors ``(g, *weights, *sources[, params], *tangents)`` -> the
+    adjoint's outputs' tangents, in :class:`_AdjointLaunch`'s order
+    (launched through :class:`~pyiga_tpu_torch._cuda.Launch`)."""
+    n = n_w + len(program.sources) + int(bool(program.params))
+    arrays = tangent_operands(
+        program, mask, _program_arrays(program, n_w, tensors[:n]),
+        _tangent_dict(program, mask, tensors[n:]))
+    grads, gparams = program.second(mask).launch(arrays, g)
+    out = tuple(grads[k] for k in program.sources)
+    return out + (gparams,) if program.params else out
 
 
 def _program_arrays(program, n_w, tensors):
@@ -1304,10 +1656,8 @@ def combo_fields(asm, arrays, combos):
     version, which autograd differentiates.  Returns one contiguous field
     per combo."""
     W = arrays['weights']
-    if W[0].device.type == 'cpu':
+    if not _on_card(W[0], 'combo_fields'):
         return combo_fields_plain(asm, arrays, combos)
-    if not W[0].is_cuda:
-        raise ValueError('combo_fields: unsupported device %s' % W[0].device)
     program = asm._program(combos, W[0].dtype)
     _cuda.constant_operands('vform_fields', *W)
     tensors = list(W) + [arrays[k] for k in program.sources]

@@ -2,7 +2,9 @@
 """The JAX package's Krylov and local-MG counts on the CPU for the lines
 that ``chip_smoke.py`` phases 22, 22b, 22c, 8c-f32 and 23 hold the port to
 (``POISSON_COUNTS_JAX``, ``CONVDIFF_COUNTS_JAX``, ``LOCALMG_ITERS_F32``,
-``CG_JIT_COUNTS_JAX``, ``GMRES_JIT_COUNTS_JAX``, ``EXAMPLE_COUNTS_JAX``).
+``CG_JIT_COUNTS_JAX``, ``GMRES_JIT_COUNTS_JAX``, ``EXAMPLE_COUNTS_JAX``),
+and the Newton residual norms that phase 26 (d) holds the port's
+nonlinear Poisson example to (``NLP_NORMS_JAX``).
 
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py f64 [n]
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py f32 [n]
@@ -15,6 +17,7 @@ that ``chip_smoke.py`` phases 22, 22b, 22c, 8c-f32 and 23 hold the port to
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py convdiff64 [n] \
         [--seed S]
     JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py examples [small]
+    JAX_PLATFORMS=cpu python scripts/jax_poisson_counts.py nonlinear
 
 ``f64`` (default n=96): the 3D p=3 twisted box assembled by
 ``pyiga_tpu`` in exact float64 (``assemble(mode='exact')`` taken to the
@@ -85,8 +88,8 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                '..'))
+REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
+sys.path.insert(0, REPO)
 
 
 def _jax_assembler(name, p, n):
@@ -438,6 +441,19 @@ def localmg_f32_counts(n0=96, num_levels=3):
                 port_vs_jax_matrix=float(abs(A - jA).max() / abs(jA).max()))
 
 
+def nonlinear_norms():
+    """The Newton residual norms of ``examples/nonlinear_poisson.py`` at
+    its default size (p=2, n=8; its Jacobian by ``jax.jacfwd`` of the
+    assembly) and ``max |u|``."""
+    import importlib.util
+    path = os.path.join(REPO, 'examples', 'nonlinear_poisson.py')
+    spec = importlib.util.spec_from_file_location('nonlinear_poisson', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    norms, umax = mod.main()
+    return dict(norms=[float(r) for r in norms], umax=float(umax))
+
+
 def main(argv):
     kind = argv[1] if len(argv) > 1 else 'f64'
     t0 = time.perf_counter()
@@ -477,6 +493,9 @@ def main(argv):
             rec = dict(line='2d_p3_convdiff float64 gmres_jit', n=n,
                        seed=seed)
         rec.update(iters_from_zero=it0, iters_from_x0=it1)
+    elif kind == 'nonlinear':
+        rec = dict(line='examples/nonlinear_poisson.py p=2 n=8',
+                   **nonlinear_norms())
     elif kind == 'examples':
         small = len(argv) > 2 and argv[2] == 'small'
         rec = dict(line='examples', sizes='small' if small else 'default',
@@ -484,7 +503,8 @@ def main(argv):
     else:
         raise SystemExit('usage: jax_poisson_counts.py '
                          'f64|f32|f32win|convdiff|localmg_f32|cgjit|'
-                         'convdiff64|examples [n] [--data FILE.npy] '
+                         'convdiff64|examples|nonlinear [n] '
+                         '[--data FILE.npy] '
                          '[--seed S]')
     rec['seconds'] = time.perf_counter() - t0
     print(json.dumps(rec))

@@ -4,7 +4,8 @@ its three kinds) and of K1's forward on a one-point last axis on one GPU.
     python3 scripts/torch_fields_bwd_variants.py [NAME,NAME,...]
                                                  [--parent PATH]
 
-Builds one library per variant of ``pyiga_tpu_torch/csrc/fields.cu``, all
+Builds one library per variant of ``pyiga_tpu_torch/csrc/fields.cu`` (its
+templates, ``fields.cuh``, inlined), all
 ``nvcc`` processes at once, under ``build/fields_bwd_variants/``.  A
 variant rewrites lines of the source: the backward's threads a block and
 a kind's ``BwdTune`` (its blocks an SM for ``__launch_bounds__``, so its
@@ -43,7 +44,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-# the shipped lines of BwdTune in csrc/fields.cu: for the stiffness, mass
+# the shipped lines of BwdTune in csrc/fields.cuh: for the stiffness, mass
 # and jac kinds the blocks an SM (registers), a lane's points before its
 # row's team widens, the points whose gout is in flight
 TUNE = 'static constexpr int %s = KIND == kStiffness ? %d : KIND == kMass ? %d : %d;'
@@ -62,8 +63,9 @@ MASS_VJP = ('            const double f = copysign(gw, det) * go[0];\n'
             '            for (int c = 0; c < D; ++c)\n'
             '#pragma unroll\n'
             '                for (int k = 0; k < D; ++k) gJ[c][k] = f * adj[k][c];\n')
-# name -> [(text of csrc/fields.cu, replacement)]; a name starting 'cut'
-# computes garbage and is timed, not checked
+# name -> [(text of csrc/fields.cu with csrc/fields.cuh inlined,
+# replacement)]; a name starting 'cut' computes garbage and is timed, not
+# checked
 VARIANTS = {
     'shipped': [],
     'pm12': [tune('pts', 12, 12, 12)],
@@ -88,13 +90,16 @@ def build(names, parent):
     import chip_smoke
     from pyiga_tpu_torch import _cuda
     src_dir = os.path.join(REPO, 'pyiga_tpu_torch', 'csrc')
+    with open(os.path.join(src_dir, 'fields.cuh')) as f:
+        header = f.read()
     procs = {}
     for name in names:
         d = os.path.join(REPO, 'build', 'fields_bwd_variants', name)
         os.makedirs(d, exist_ok=True)
         with open(parent if name == 'parent'
                   else os.path.join(src_dir, 'fields.cu')) as f:
-            text = f.read()
+            # K1's templates inline, where a variant's lines are
+            text = f.read().replace('#include "fields.cuh"', header)
         for old, new in VARIANTS.get(name, []):
             if old not in text:
                 raise RuntimeError('%s: text to replace not found' % name)

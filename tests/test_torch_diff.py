@@ -11,8 +11,10 @@ forward: K1's three kinds (NURBS or not, d = 2 and 3, a surface), K2,
 K3 with tables shared by several terms, and the K5 adjoint program
 (``run_adjoint_plain``) against autograd of ``run_program_plain`` on
 forms that use every op of the generator; the guard of the kernels that
-have no backward; and the two example ports against the JAX examples.
-All float64."""
+have no backward; second derivatives through the backward kernels'
+Functions (their CUDA branch on CPU tensors, the launches replaced by
+their plain versions); and the two example ports against the JAX
+examples.  All float64."""
 
 import importlib.util
 import os
@@ -623,50 +625,128 @@ def test_guard_of_kernels_without_backward(monkeypatch):
                                [_r(rng, 2, 3)], [_r(rng, 2, 4)], [0], [0])
 
 
-def test_backward_kernels_refuse_double_backward(monkeypatch):
-    """The backward kernels (K1-bwd, K2-/K3-bwd, the K5 adjoint) have no
-    backward of their own.  On the CPU their formulas are recorded under
-    ``create_graph``, so a Hessian-vector product through K1 and K2
-    equals autograd of the plain versions; on CUDA (the device test
-    forced, as above) the backward's kernel raises on a gradient that
-    requires grad instead of returning a detached tensor."""
+def _plain_card(monkeypatch):
+    """The CUDA branch of the kernels' wrappers and Functions on CPU
+    tensors: the device tests forced, every launch replaced by its plain
+    version (K1 and its backward, K1-jvp, K1-hvp, K2, K3, K2-bwd, the K5
+    program, adjoint, tangent and second-order programs), each plain call
+    counted under the launch's kind in the returned dict."""
+    calls = {}
+
+    def counted(key, fn):
+        def run(*a, **k):
+            calls[key] = calls.get(key, 0) + 1
+            return fn(*a, **k)
+        return run
+    cs = cuda_sumfac
+    monkeypatch.setattr(cs, '_kernel_device', lambda t, n: True)
+    monkeypatch.setattr(cuda_vform, '_on_card', lambda t, n=None: True)
+    monkeypatch.setattr(_cuda, 'require', lambda *a: None)
+    monkeypatch.setattr(cs, '_fields_kernel', counted('fields', lambda kind, Y, T, w12, wL, nurbs: {
+        'stiffness': cs.fields_plain, 'mass': cs.fields_mass_plain}[kind](
+            Y, T, w12, wL, nurbs) if kind != 'jac'
+        else cs.geo_jac_fields_plain(Y, T, nurbs)))
+    monkeypatch.setattr(cs, '_fields_bwd_kernel', counted(
+        'fields_bwd', lambda kind, dims, Y, T, w12, wL, nurbs, g:
+        cs._fields_vjp_plain(kind, Y, T, w12, wL, nurbs, g)))
+    monkeypatch.setattr(cs, '_fields_ad_kernel', lambda mode, kind, dims, Y, T, w12, wL, nurbs, dY, g=None: counted(
+        'fields_' + mode, cs.fields_jvp_plain if mode == 'jvp'
+        else lambda *a: cs.fields_hvp_plain(*a[:6], g, a[6]))(
+            kind, Y, T, w12, wL, nurbs, dY))
+    monkeypatch.setattr(cs, '_stage_kernel', counted('stage',
+                                                     cs.stage_plain))
+    monkeypatch.setattr(cs, '_fold_kernel', counted('fold', cs.fold_plain))
+    monkeypatch.setattr(cs, '_stage_bwd_kernel', counted(
+        'stage_bwd', lambda tables, g, counter: torch.stack(
+            [cs.stage_bwd_plain(T, g) for T in tables])))
+
+    def launch(prog, arrays):
+        grid = tuple(w.shape[0] for w in arrays['weights'])
+        return cuda_vform.run_program_plain(prog, arrays).reshape(
+            (len(prog.outputs),) + grid)
+
+    def adjoint(adj, arrays, g):
+        return cuda_vform.run_adjoint_plain(adj.forward, arrays, g, adj)
+    monkeypatch.setattr(cuda_vform.Program, 'launch', lambda self, a: counted(
+        self.counter, launch)(self, a))
+    monkeypatch.setattr(cuda_vform.AdjointProgram, 'launch',
+                        lambda self, a, g: counted(self.counter, adjoint)(
+                            self, a, g))
+    return calls
+
+
+def _hvp_create_graph(f, x, v):
+    """``d/dx <grad f(x), v>`` by reverse over reverse."""
+    xr = x.clone().requires_grad_(True)
+    g, = torch.autograd.grad(f(xr), xr, create_graph=True)
+    assert g.requires_grad
+    return torch.autograd.grad((g * v).sum(), xr)[0]
+
+
+@pytest.mark.parametrize('case', ['plain', 'fields_bwd', 'stage_bwd',
+                                  'vform_adjoint'])
+def test_second_derivative_through_backward_kernels(monkeypatch, case):
+    """A second derivative flows through the backward kernels' Functions
+    (K1-bwd :class:`_FieldsBwd`, K2-/K3-bwd :class:`_StageBwd`, the K5
+    adjoint :class:`_AdjointLaunch`): reverse over reverse
+    (``create_graph``) and forward over reverse (``torch.func.jvp`` of
+    ``torch.func.grad``) through their CUDA branch (the device tests
+    forced, the launches replaced by their plain versions) equal autograd
+    of the plain versions on the CPU (1e-12), and the rules launch what
+    they should: K1-hvp and K1-jvp for K1-bwd, K3 and K2-bwd for K2-bwd,
+    the second-order and tangent programs for the adjoint.  'plain' is
+    the CPU branch: the backward's formulas recorded under
+    ``create_graph``, a Hessian-vector product through K1 and K2 equal to
+    autograd of the plain forwards."""
     rng = np.random.RandomState(3)
     Y, T = _r(rng, 2, 2, 7, 3), _r(rng, 2, 5, 3)
     w12, wL, S = _r(rng, 7), _r(rng, 5), _r(rng, 4, 3)
     V = _r(rng, *Y.shape) - 1.0
+    if case in ('plain', 'fields_bwd', 'stage_bwd'):
+        S2 = _r(rng, 6, 4)
 
-    def hvp(fields, stage):
-        Yg = Y.clone().requires_grad_(True)
-        out = stage(fields(Yg, T, w12, wL, False).reshape(-1, 3), S)
-        g, = torch.autograd.grad((out * out).sum(), Yg, create_graph=True)
-        assert g.requires_grad
-        return torch.autograd.grad((g * V).sum(), Yg)[0]
-    ref = hvp(cuda_sumfac.fields_plain, lambda X, T_: X @ T_.T)
-    assert _rel(hvp(cuda_sumfac.fields, lambda X, T_: cuda_sumfac.stage(
-        X.T.contiguous(), T_)), ref) < 1e-12
-
+        def chain(fields, stage):
+            def f(Yg):
+                out = fields(Yg, T, w12, wL, False).reshape(-1, 3)
+                out = stage(stage(out, S), S2)
+                return (out * out).sum()
+            return f
+        ref = _hvp_create_graph(chain(
+            cuda_sumfac.fields_plain, lambda X, T_: X @ T_.T), Y, V)
+        calls = {} if case == 'plain' else _plain_card(monkeypatch)
+        f = chain(cuda_sumfac.fields, lambda X, T_: cuda_sumfac.stage(
+            X.T.contiguous(), T_))
+        assert _rel(_hvp_create_graph(f, Y, V), ref) < 1e-12
+        if case == 'plain':
+            return
+        assert calls['fields_hvp'] > 0 and calls['fields_jvp'] > 0
+        assert calls['stage_bwd'] > 0 and calls['fold'] > 0
+        fwd = torch.func.jvp(torch.func.grad(f), (Y,), (V,))[1]
+        assert _rel(fwd, ref) < 1e-12
+        return
     asm = assemble.instantiate_assembler(
         ADJOINT_FORMS['convdiff'][0], _kvs(_jkvs(2, 4)),
         dict(ADJOINT_FORMS['convdiff'][1], geo=geometry.quarter_annulus()),
         None, None, device='cpu')
     arrays = asm.device_arrays()
-    prog = asm._program(asm.combos)
-    grid = tuple(w.shape[0] for w in arrays['weights'])
-    gout = torch.zeros((len(prog.outputs),) + grid, dtype=torch.float64,
-                       requires_grad=True)
-    monkeypatch.setattr(cuda_sumfac, '_kernel_device', lambda t, n: True)
-    g = _r(rng, 3, 7, 5).requires_grad_(True)
-    with pytest.raises(RuntimeError, match='fields_bwd.*no backward'):
-        cuda_sumfac.fields_bwd('stiffness', Y, T, w12, wL, False, g)
-    with pytest.raises(RuntimeError, match='mass_fields_bwd.*no backward'):
-        cuda_sumfac.fields_bwd('mass', Y, T, w12, wL, False, g[0])
-    with pytest.raises(RuntimeError, match='stage_bwd.*no backward'):
-        cuda_sumfac.stage_bwd(S, _r(rng, 6, 4).requires_grad_(True))
-    with pytest.raises(RuntimeError, match='fold_bwd.*no backward'):
-        cuda_sumfac.stage_bwd(S, _r(rng, 6, 4).requires_grad_(True),
-                              'fold_bwd')
-    with pytest.raises(RuntimeError, match='vform_adjoint.*no backward'):
-        prog.adjoint().launch(arrays, gout)
+    src = 'geo_jac_lvl'
+    X = arrays[src]
+    Wt = torch.as_tensor(rng.rand(len(asm.combos), *X.shape[2:]))
+    dX = torch.as_tensor(rng.rand(*X.shape) - 0.5)
+
+    def obj(combo_fields):
+        def f(Xg):
+            fields = combo_fields(asm, dict(arrays, **{src: Xg}), asm.combos)
+            return sum((w * F * F).sum() for w, F in zip(Wt, fields))
+        return f
+    ref = _hvp_create_graph(obj(cuda_vform.combo_fields_plain), X, dX)
+    calls = _plain_card(monkeypatch)
+    f = obj(cuda_vform.combo_fields)
+    assert _rel(_hvp_create_graph(f, X, dX), ref) < 1e-12
+    assert calls['vform_second'] > 0 and calls['vform_tangent'] > 0
+    assert calls['vform_adjoint'] > 0
+    fwd = torch.func.jvp(torch.func.grad(f), (X,), (dX,))[1]
+    assert _rel(fwd, ref) < 1e-12
 
 
 ################################################################################

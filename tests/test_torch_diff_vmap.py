@@ -5,7 +5,7 @@ stand-in for the library entries that computes from the pointers it is
 handed (as ``tests/test_torch_stage_bwd.py`` does).  A member of a batch
 is one launch of each kernel; the gradients equal the loop of ``grad``s
 and the CPU run (the plain versions); a second derivative through a
-backward kernel raises.  The K5 forward and adjoint run their plain
+backward kernel flows (K1-hvp), a third raises.  The K5 forward and adjoint run their plain
 programs behind the same Functions."""
 
 import contextlib
@@ -90,6 +90,32 @@ class _FakeLibrary:
             _arr(w12, Q12), _arr(wL, QL), bool(nurbs), _arr(g, *shape))
         return 0
 
+    def pyiga_fields_jvp_f64(self, kind, Y, T, w12, wL, dY, out, d, G,
+                             nurbs, Q12, QL, nL, stream):
+        name = ('stiffness', 'mass', 'jac')[kind]
+        self.calls.append('fields_jvp_' + name)
+        C = G + nurbs
+        shape = {'stiffness': (d * (d + 1) // 2, Q12, QL),
+                 'mass': (Q12, QL)}[name]
+        _arr(out, *shape)[...] = cuda_sumfac.fields_jvp_plain(
+            name, _arr(Y, d, C, Q12, nL), _arr(T, 2, QL, nL),
+            _arr(w12, Q12), _arr(wL, QL), bool(nurbs),
+            _arr(dY, d, C, Q12, nL))
+        return 0
+
+    def pyiga_fields_hvp_f64(self, kind, Y, T, w12, wL, g, dY, gY, d, G,
+                             nurbs, Q12, QL, nL, stream):
+        name = ('stiffness', 'mass', 'jac')[kind]
+        self.calls.append('fields_hvp_' + name)
+        C = G + nurbs
+        shape = {'stiffness': (d * (d + 1) // 2, Q12, QL),
+                 'mass': (Q12, QL)}[name]
+        _arr(gY, d, C, Q12, nL)[...] = cuda_sumfac.fields_hvp_plain(
+            name, _arr(Y, d, C, Q12, nL), _arr(T, 2, QL, nL),
+            _arr(w12, Q12), _arr(wL, QL), bool(nurbs), _arr(g, *shape),
+            _arr(dY, d, C, Q12, nL))
+        return 0
+
 
 @pytest.fixture
 def fake_card(monkeypatch):
@@ -159,10 +185,27 @@ def test_jacrev_through_the_backward_kernels(fake_card):
 
 
 def test_second_derivative_through_a_backward_kernel_raises(fake_card):
+    """A second derivative through K1-bwd flows: its Function's backward
+    launches K1-hvp and K1-jvp (the stand-in's entries, computing from the
+    pointers), and ``grad`` of ``grad`` equals the CPU run's.  A third
+    derivative, through K1-hvp, which has no backward, raises."""
     obj, _fn, batch = _objective(MassAssembler,
                                  geometry.bspline_quarter_annulus())
-    with pytest.raises(RuntimeError, match='no backward'):
-        torch.func.grad(lambda c: torch.func.grad(obj)(c).sum())(batch[0])
+
+    def second(c):
+        return torch.func.grad(obj)(c).sum()
+    _cuda.reset_launches()
+    got = torch.func.grad(second)(batch[0])
+    assert _cuda.LAUNCHES['mass_fields_hvp'] == 1
+    assert _cuda.LAUNCHES['mass_fields_jvp'] == 0
+    assert 'fields_hvp_mass' in fake_card.calls
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cuda_sumfac, '_kernel_device', lambda t, n: t.is_cuda)
+        ref = torch.func.grad(second)(batch[0])
+    assert torch.allclose(got, ref, rtol=1e-12, atol=1e-14)
+    with pytest.raises(RuntimeError, match='backward'):
+        torch.func.grad(lambda c: torch.func.grad(second)(c).sum())(
+            batch[0])
 
 
 def _k5_operands():

@@ -310,12 +310,27 @@ def test_stage_bwd_f32_refused_plan_raises(fake_card, monkeypatch):
     assert _cuda.LAUNCHES['stage_bwd_f32'] == 0
 
 
-def test_stage_bwd_f32_double_backward_raises(fake_card):
+def test_stage_bwd_f32_double_backward_raises(fake_card, monkeypatch):
+    """K2-bwd f32 on a gradient that requires grad records its Function:
+    the value is the stand-in kernel's, and its backward (one K3 fold of
+    the cotangent, here in its plain version) equals autograd of the
+    plain backward.  A table that requires grad raises: tables are
+    constants."""
     rng = np.random.RandomState(6)
     T = _r(rng, 9, 4)
     g = _r(rng, 5, 9).requires_grad_(True)
-    with pytest.raises(RuntimeError, match='no backward'):
-        cuda_sumfac.stage_bwd(T, g)
+    u = _r(rng, 4, 5)
+    monkeypatch.setattr(cuda_sumfac, '_fold_kernel', cuda_sumfac.fold_plain)
+    got = cuda_sumfac.stage_bwd(T, g)
+    assert got.requires_grad and len(fake_card.calls) == 1
+    gg, = torch.autograd.grad((u * got).sum(), g)
+    g2 = g.detach().clone().requires_grad_(True)
+    ref = cuda_sumfac.stage_bwd_plain(T, g2)
+    rg, = torch.autograd.grad((u * ref).sum(), g2)
+    assert _rel(got.detach(), ref.detach()) < 1e-6
+    assert _rel(gg, rg) < 1e-6
+    with pytest.raises(RuntimeError, match='constants'):
+        cuda_sumfac.stage_bwd(T.clone().requires_grad_(True), g)
 
 
 def test_stage_bwd_f32_tiles_read_from_the_library():
